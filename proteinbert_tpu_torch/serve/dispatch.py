@@ -1,0 +1,222 @@
+"""Bucketed shape-class dispatch — port of
+`proteinbert_tpu/serve/dispatch.py` (the fp32 arm of `BucketDispatcher`).
+
+Online traffic is ragged. Each request is routed to the smallest length
+bucket that holds it (ascending, last == seq_len), and a micro-batch of
+r rows is padded up to the smallest batch class ≥ r (powers of two up to
+`max_batch` by default), so a 40-residue query does not pay full-seq_len
+work and a row's numbers do not depend on the traffic around it.
+`warmup()` runs every (bucket, class) shape once before serving, which
+builds the kernels and settles the allocator.
+
+`run_rows` is the offline entry (`inference.embed(..., bucketed=True)`):
+group a whole token matrix by bucket, run each group at its bucket
+length, reassemble in input order.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from proteinbert_tpu_torch import DeviceLike, resolve_device
+from proteinbert_tpu_torch import inference
+from proteinbert_tpu_torch.configs import PretrainConfig
+from proteinbert_tpu_torch.data.vocab import EOS_ID, PAD_ID, SOS_ID
+
+KINDS = ("embed", "predict_go", "predict_residues")
+
+_BATCH_FNS = {
+    "embed": inference._encode_batch,
+    "predict_go": inference._go_probs_batch,
+    "predict_residues": inference._residue_probs_batch,
+}
+
+
+def resolve_buckets(cfg: PretrainConfig, buckets=None) -> Tuple[int, ...]:
+    """Serving bucket boundaries: the explicit argument, else the
+    config's training buckets (cfg.data.buckets), else the single
+    full-length bucket. Ints, strictly ascending, last == seq_len."""
+    if buckets is None:
+        buckets = cfg.data.buckets or (cfg.data.seq_len,)
+    try:
+        buckets = tuple(int(b) for b in buckets)
+    except (TypeError, ValueError):
+        raise ValueError(f"buckets must be ints, got {buckets!r}") from None
+    if not buckets or sorted(set(buckets)) != list(buckets):
+        raise ValueError(f"buckets must be strictly ascending, got {buckets}")
+    if buckets[-1] != cfg.data.seq_len:
+        raise ValueError(f"last bucket {buckets[-1]} must equal "
+                         f"data.seq_len {cfg.data.seq_len}")
+    if buckets[0] < 3:
+        raise ValueError(f"smallest bucket {buckets[0]} cannot hold "
+                         "<sos> + one residue + <eos>")
+    return buckets
+
+
+def default_batch_classes(max_batch: int) -> Tuple[int, ...]:
+    """Ascending power-of-two ladder capped by (and always containing)
+    max_batch: 8 → (1, 2, 4, 8); 12 → (1, 2, 4, 8, 12)."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    classes = []
+    c = 1
+    while c < max_batch:
+        classes.append(c)
+        c *= 2
+    classes.append(max_batch)
+    return tuple(classes)
+
+
+class BucketDispatcher:
+    """Routes (kind, tokens, annotations) micro-batches to their shape
+    class on `device` (None → "cuda") and returns trimmed host
+    outputs."""
+
+    def __init__(
+        self,
+        params,
+        cfg: PretrainConfig,
+        buckets: Optional[Sequence[int]] = None,
+        max_batch: int = 8,
+        batch_classes: Optional[Sequence[int]] = None,
+        device: DeviceLike = None,
+    ):
+        self.params = params
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.buckets = resolve_buckets(cfg, buckets)
+        self.max_batch = int(max_batch)
+        if batch_classes is None:
+            batch_classes = default_batch_classes(self.max_batch)
+        self.batch_classes = tuple(sorted(int(c) for c in set(batch_classes)))
+        if self.batch_classes[-1] < self.max_batch:
+            raise ValueError(
+                f"largest batch class {self.batch_classes[-1]} cannot hold "
+                f"a full micro-batch of {self.max_batch}")
+        self.warmup_seconds_total = 0.0
+
+    # ------------------------------------------------------------ routing
+
+    def bucket_len(self, seq_len_residues: int) -> int:
+        """Smallest bucket holding a sequence of this many residues
+        (tokenized length = residues + <sos> + <eos>, capped at the
+        model window like tokenization caps it)."""
+        tok_len = min(seq_len_residues + 2, self.cfg.data.seq_len)
+        i = int(np.searchsorted(self.buckets, tok_len))
+        return self.buckets[i]
+
+    def batch_class(self, rows: int) -> int:
+        """Smallest batch class that fits `rows`."""
+        for c in self.batch_classes:
+            if c >= rows:
+                return c
+        raise ValueError(f"{rows} rows exceed the largest batch class "
+                         f"{self.batch_classes[-1]}")
+
+    def _dummy_batch(self, L: int, cls: int):
+        tokens = np.full((cls, L), PAD_ID, np.int32)
+        tokens[:, 0] = SOS_ID
+        tokens[:, 1] = EOS_ID
+        return tokens
+
+    # ----------------------------------------------------------- execution
+
+    def run(self, kind: str, tokens: np.ndarray,
+            annotations: Optional[np.ndarray] = None):
+        """Run one micro-batch: tokens (r, L) with L a bucket length,
+        annotations (r, A) or None. Rows are padded up to the batch
+        class; outputs come back trimmed to r on host —
+        {"global", "local_mean"} for "embed", (r, A) probs for
+        "predict_go", (r, L, V) probs for "predict_residues"."""
+        result, _ = self.run_timed(kind, tokens, annotations, timed=False)
+        return result
+
+    def run_timed(self, kind: str, tokens: np.ndarray,
+                  annotations: Optional[np.ndarray] = None,
+                  timed: bool = True):
+        """`run()` that also returns {"prep_s": padding, "device_s":
+        model call through host fetch, "pad_fraction": padding share of
+        the (batch_class, L) grid} when `timed`."""
+        if kind not in _BATCH_FNS:
+            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        rows, L = tokens.shape
+        if L not in self.buckets:
+            raise ValueError(f"tokens length {L} is not one of the "
+                             f"buckets {self.buckets}")
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        annotations = inference.check_annotations(annotations, rows,
+                                                  self.cfg)
+        cls = self.batch_class(rows)
+        if timed:
+            real = int((tokens != PAD_ID).sum())
+            timings["pad_fraction"] = round(1.0 - real / (cls * L), 6)
+        if rows < cls:
+            tokens = np.pad(tokens, ((0, cls - rows), (0, 0)))
+            annotations = np.pad(annotations, ((0, cls - rows), (0, 0)))
+        t1 = time.perf_counter()
+        out = inference.run_batch(_BATCH_FNS[kind], self.params, self.cfg,
+                                  tokens, annotations, self.device)
+        if isinstance(out, dict):
+            out = {k: v[:rows] for k, v in out.items()}
+        else:
+            out = out[:rows]
+        if timed:
+            timings["prep_s"] = round(t1 - t0, 9)
+            timings["device_s"] = round(time.perf_counter() - t1, 9)
+        return out, timings
+
+    def warmup(self, kinds: Sequence[str] = ("embed",)) -> int:
+        """Run every (bucket_len, batch_class) shape of `kinds` once on
+        dummy rows; returns how many shapes ran."""
+        t0 = time.perf_counter()
+        n = 0
+        for kind in kinds:
+            if kind not in KINDS:
+                raise ValueError(f"unknown request kind {kind!r}; "
+                                 f"have {KINDS}")
+            for L in self.buckets:
+                for cls in self.batch_classes:
+                    self.run(kind, self._dummy_batch(L, cls))
+                    n += 1
+        self.warmup_seconds_total += time.perf_counter() - t0
+        return n
+
+    # ------------------------------------------------- offline batch path
+
+    def run_rows(self, kind: str, tokens: np.ndarray,
+                 annotations: Optional[np.ndarray], batch_size: int):
+        """Offline whole-matrix entry: group (N, seq_len) rows by
+        bucket, run each group at its bucket length in input-order
+        chunks of `batch_size`, reassemble by original row index.
+        `predict_residues` rows are zero-filled back to seq_len."""
+        n = tokens.shape[0]
+        annotations = inference.check_annotations(annotations, n, self.cfg)
+        lengths = (tokens != PAD_ID).sum(axis=1)
+        bucket_of = np.searchsorted(self.buckets, lengths)
+        out: Dict[str, np.ndarray] = {}
+        flat: Optional[np.ndarray] = None
+        for b, L in enumerate(self.buckets):
+            idx = np.flatnonzero(bucket_of == b)
+            for lo in range(0, len(idx), batch_size):
+                sel = idx[lo: lo + batch_size]
+                res = self.run(kind, tokens[sel][:, :L], annotations[sel])
+                if kind == "embed":
+                    for k, v in res.items():
+                        if k not in out:
+                            out[k] = np.zeros((n,) + v.shape[1:], v.dtype)
+                        out[k][sel] = v
+                elif kind == "predict_go":
+                    if flat is None:
+                        flat = np.zeros((n, res.shape[1]), res.dtype)
+                    flat[sel] = res
+                else:  # predict_residues: zero-fill the pad tail
+                    if flat is None:
+                        flat = np.zeros(
+                            (n, self.cfg.data.seq_len, res.shape[2]),
+                            res.dtype)
+                    flat[sel, :L] = res
+        return out if kind == "embed" else flat

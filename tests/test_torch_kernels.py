@@ -1,0 +1,206 @@
+"""The port's kernel modules on the CPU: the plain versions of K1 (local
+track) and K2 (global attention) against the JAX package's Pallas kernels
+run in interpret mode and against its plain references, on the same
+numpy-seeded inputs, at the smallest shapes the JAX guards accept (C=128,
+lane-aligned). float32, tolerance 1e-5 (same arithmetic, another summation
+order). The CUDA kernels themselves are held against these plain versions
+on the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from proteinbert_tpu.kernels import attention as jattn
+from proteinbert_tpu.kernels import fused_block as jfused
+from proteinbert_tpu_torch.kernels import attention as tattn
+from proteinbert_tpu_torch.kernels import build as tbuild
+from proteinbert_tpu_torch.kernels import fused_block as tfused
+
+TOL = 1e-5
+C, G, H, K = 128, 128, 4, 32
+
+
+def _track_params(rng):
+    def w(shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def vec(scale=0.1, base=0.0):
+        return (base + scale * rng.standard_normal(C)).astype(np.float32)
+
+    return {"narrow_conv": {"kernel": w((9, C, C), 9 * C), "bias": vec()},
+            "wide_conv": {"kernel": w((9, C, C), 9 * C), "bias": vec()},
+            "local_ln1": {"scale": vec(base=1.0), "bias": vec()},
+            "local_dense": {"kernel": w((C, C), C), "bias": vec()},
+            "local_ln2": {"scale": vec(base=1.0), "bias": vec()}}
+
+
+def _attn_params(rng):
+    return {"wq": (rng.standard_normal((H, G, K)) / np.sqrt(G)).astype(
+                np.float32),
+            "wk": (rng.standard_normal((H, C, K)) / np.sqrt(C)).astype(
+                np.float32),
+            "wv": (rng.standard_normal((H, C, G // H)) / np.sqrt(C)).astype(
+                np.float32)}
+
+
+def _jax(tree):
+    if isinstance(tree, dict):
+        return {k: _jax(v) for k, v in tree.items()}
+    return jnp.asarray(tree)
+
+
+def _torch(tree):
+    if isinstance(tree, dict):
+        return {k: _torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree))
+
+
+def _close(want, got):
+    np.testing.assert_allclose(np.asarray(want), got.numpy(), rtol=TOL,
+                               atol=TOL)
+
+
+# ------------------------------------------------------------------ K1
+
+@pytest.mark.parametrize("L", [64, 256])
+def test_local_track_matches_pallas_and_reference(L):
+    rng = np.random.default_rng(L)
+    p = _track_params(rng)
+    x = rng.standard_normal((2, L, C)).astype(np.float32)
+    bc = rng.standard_normal((2, C)).astype(np.float32)
+    got = tfused.fused_local_track(_torch(p), _torch(x), _torch(bc), 1, 5)
+    # JAX kernel in interpret mode, called positionally as
+    # tests/test_kernels.py does.
+    pallas = jfused.fused_local_track(_jax(p), _jax(x), _jax(bc), 1, 5, True)
+    ref = jfused.local_track_reference(_jax(p), _jax(x), _jax(bc), 1, 5)
+    _close(pallas, got)
+    _close(ref, got)
+
+
+def test_local_track_wrapper_takes_plain_version_on_cpu():
+    rng = np.random.default_rng(7)
+    p = _torch(_track_params(rng))
+    x = _torch(rng.standard_normal((1, 64, C)).astype(np.float32))
+    bc = _torch(rng.standard_normal((1, C)).astype(np.float32))
+    assert torch.equal(tfused.fused_local_track(p, x, bc),
+                       tfused.local_track_reference(p, x, bc))
+
+
+def test_local_track_bf16_keeps_conv_outputs_unrounded():
+    """In bfloat16 the plain version rounds where the TPU kernel rounds:
+    x1 and the output only. Rounding the conv outputs too (the XLA
+    reference's points) must give a different, not a closer, answer."""
+    rng = np.random.default_rng(8)
+    p = _track_params(rng)
+    x = rng.standard_normal((1, 64, C)).astype(np.float32)
+    bc = rng.standard_normal((1, C)).astype(np.float32)
+    xb = _torch(x).bfloat16()
+    got = tfused.local_track_reference(_torch(p), xb, _torch(bc))
+    assert got.dtype == torch.bfloat16
+    pallas = jfused.fused_local_track(_jax(p), _jax(x).astype(jnp.bfloat16),
+                                      _jax(bc).astype(jnp.bfloat16), 1, 5,
+                                      True)
+    # Same rounding points as the JAX kernel: agreement within one bf16
+    # step of the LayerNorm-scaled output (|y| < 8 → 2^-5).
+    np.testing.assert_allclose(np.asarray(pallas.astype(jnp.float32)),
+                               got.float().numpy(), atol=2 ** -5)
+
+
+# ------------------------------------------------------------------ K2
+
+def _attn_inputs(rng, L, S):
+    local = rng.standard_normal((3, L, C)).astype(np.float32)
+    glob = rng.standard_normal((3, S, G)).astype(np.float32)
+    return local, glob
+
+
+@pytest.mark.parametrize("L", [64, 256])
+def test_dense_attention_matches_pallas(L):
+    rng = np.random.default_rng(10 + L)
+    p = _attn_params(rng)
+    local, glob = _attn_inputs(rng, L, 1)
+    glob = glob[:, 0]
+    mask = np.ones((3, L), bool)
+    mask[1, L // 2:] = False   # half-padded row
+    mask[2] = False            # all-pad row: uniform softmax, not NaN
+    before = jattn.ATTN_PATH_TOTAL.get(("pallas", "dense"), 0)
+    want = jattn.fused_global_attention(_jax(p), _jax(local), _jax(glob),
+                                        jnp.asarray(mask), interpret=True)
+    assert jattn.ATTN_PATH_TOTAL[("pallas", "dense")] == before + 1
+    got = tattn.fused_global_attention(_torch(p), _torch(local),
+                                       _torch(glob), _torch(mask))
+    assert torch.isfinite(got).all()
+    _close(want, got)
+    ref = jattn.attention_oh_reference(
+        _jax(p), _jax(local), _jax(glob)[:, None, :],
+        jnp.asarray(mask[..., None], jnp.float32), zero_empty=False)
+    _close(ref.reshape(3, G), got)
+
+
+@pytest.mark.parametrize("L", [64, 256])
+def test_packed_attention_zero_empty_segment(L):
+    rng = np.random.default_rng(20 + L)
+    p = _attn_params(rng)
+    S = 3
+    local, glob = _attn_inputs(rng, L, S)
+    seg = rng.integers(0, 3, (3, L)).astype(np.int32)  # segment 3 empty
+    seg[2] = 0                                          # an all-pad row
+    real = rng.random((3, L)) < 0.9
+    before = jattn.ATTN_PATH_TOTAL.get(("pallas", "packed"), 0)
+    want = jattn.fused_packed_attention(_jax(p), _jax(local), _jax(glob),
+                                        jnp.asarray(seg), jnp.asarray(real),
+                                        interpret=True)
+    assert jattn.ATTN_PATH_TOTAL[("pallas", "packed")] == before + 1
+    got = tattn.fused_packed_attention(_torch(p), _torch(local),
+                                       _torch(glob), _torch(seg),
+                                       _torch(real))
+    _close(want, got)
+    # Empty segments are exactly +0.0, as the TPU kernel zeroes them.
+    assert (got[:, S - 1] == 0).all() and (got[2] == 0).all()
+    assert not torch.signbit(got[:, S - 1]).any()
+    oh = ((seg[..., None] == np.arange(1, S + 1)) & real[..., None])
+    ref = jattn.attention_oh_reference(_jax(p), _jax(local), _jax(glob),
+                                       jnp.asarray(oh, jnp.float32))
+    _close(ref, got)
+
+
+# ------------------------------------------- launch or raise, never fall back
+
+def test_wrappers_raise_on_devices_they_do_not_run_on():
+    rng = np.random.default_rng(30)
+    p = _torch(_track_params(rng))
+    x = torch.empty((1, 64, C), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfused.fused_local_track(p, x, torch.empty((1, C), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tattn.fused_attention(_torch(_attn_params(rng)), x,
+                              torch.empty((1, 1, G), device="meta"),
+                              torch.empty((1, 64, 1), device="meta"))
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """No nvcc → building raises; nothing falls back to the plain path."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "build")
+    kernel = tbuild.Kernel("local_track", "local_track.cu",
+                           "pbt_local_track", [])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tbuild.build_all([kernel])
+    assert kernel.launches == 0
+
+
+def test_library_name_tracks_the_sources():
+    lib = tfused.LOCAL_TRACK.library_path()
+    assert lib.parent == tbuild.BUILD_DIR
+    assert lib.name.startswith("pbt_local_track_") and lib.suffix == ".so"
+    assert lib != tattn.ATTENTION.library_path()
+
+
+def test_flop_counts_are_the_tpu_kernels():
+    # fused_block.py:779 and attention.py:308 at the base serving shape.
+    assert tfused.local_track_flops(8, 512, 512) == 2 * 8 * 512 * 512**2 * 19
+    assert tattn.attention_flops(8, 512, 512, 512, 1, 8, 64) == (
+        2 * 8 * 8 * (512 * 512 * 128 + 512 * 64 + 512 * 128))
