@@ -5,24 +5,40 @@
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. build    — nvcc builds every kernel of the path from `proteinbert_tpu_torch/csrc/`
-              (one process per source, in parallel) for sm_90a.
+1. build    — nvcc builds every kernel of the paths from
+              `proteinbert_tpu_torch/csrc/` (one process per source, in
+              parallel) for sm_90a.
 2. kernels  — each kernel's wrapper against its plain PyTorch version on the
-              card, at serving shapes (B=8, L in {128, 512}, C=G=512, H=8, k=64),
-              in bfloat16 and float32 (TF32 off for matmul and cuDNN), with
-              padded, all-pad and S=8 segment cases for the attention, plus
-              the narrower widths C=128/256 at a ragged L=100. Prints
+              card, in bfloat16 and float32 (TF32 off for matmul and cuDNN),
+              B=8, L in {128, 512} timed and a ragged L=100:
+              K1 and K2 at base width (C=G=512, H=8, k=64) with padded,
+              all-pad and S=8 segment cases, plus C=128/256;
+              #3 at base width with S=8 packed rows (a cross-segment pad gap,
+              ids above S, an empty segment);
+              #6 at C=128 (G=512, H=4, v=128) and C=256 (G=512, H=8), dense
+              (a half-padded and an all-pad row) and packed (S=8, an empty
+              segment that must come back +0.0);
+              cross-segment isolation of #3 and #6 bit for bit. Prints
               max |kernel - plain| against its tolerance, kernel and plain ms
               (CUDA events, median of 25), the bound and launches per call.
 3. reference — a base-width float32 trunk through the kernels on the card
-              against the plain path on the CPU, on a small input.
-4. serve    — the base preset (6 blocks, C=G=512, 8943 annotations, seq_len
-              512, bf16) with random weights from a seeded torch.Generator,
-              behind `Server` with buckets (128, 256, 512) and max_batch 8;
-              24 mixed requests from 4 threads, then drain. Checks every
-              answer, that each kernel launched 6 times per dispatched batch,
-              and that each embed answer matches the same sequence run alone.
-   Then a torch.profiler breakdown of one served 8x512 batch.
+              against the plain path on the CPU, on a small input; then a
+              float32 2-block base-width trunk served ragged and bucketed on
+              the card, the answers within 1e-3.
+4. serve    — three servers, random weights from a seeded torch.Generator,
+              buckets (128, 256, 512), seq_len 512, bf16, max_batch 8; 24
+              mixed requests (20-500 residues) from 4 threads, then drain:
+              a. bucketed, base preset (6 blocks, C=G=512, 8943 annotations):
+                 exactly 6 launches of K1 and of K2 per batch, none of #3/#6;
+              b. ragged (`serve_mode="ragged"`, 8 segments a row), base
+                 preset: exactly 6 of #3 and of K2 per batch, none of K1/#6;
+              c. ragged at the ModelConfig default width (C=128, G=512, H=4,
+                 6 blocks): exactly 6 of #6 per batch, none of the others.
+              Each checks every answer and each embed against the same
+              sequence run alone, prints requests/s and p50/p99, and a
+              torch.profiler breakdown of one full 8x512 batch. Every
+              kernel count is set to 0 just before each server's traffic and
+              read just after it.
 5. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 """
@@ -52,12 +68,21 @@ PEAK_BYTES = 3.35e12
 # next to a rounding boundary can round the other way, and a flipped x1 or
 # softmax weight moves the output by about one bf16 step of its magnitude;
 # outputs are LayerNorm-scaled (|y| < 8), where a bf16 step is 2^-5.
+# #3 and #6 share K1's local-track arithmetic; #6's attention reads its own
+# local output, so a flipped bf16 step there moves the attention by about
+# as much as a flipped step of the local track moves the track.
 TOL = {("local_track", torch.float32): 1e-4,
        ("local_track", torch.bfloat16): 0.0625,
        ("global_attention", torch.float32): 1e-4,
-       ("global_attention", torch.bfloat16): 0.03125}
+       ("global_attention", torch.bfloat16): 0.03125,
+       ("local_track_segments", torch.float32): 1e-4,
+       ("local_track_segments", torch.bfloat16): 0.0625,
+       ("one_pass", torch.float32): 1e-4,
+       ("one_pass", torch.bfloat16): 0.0625}
 REF_TOL = 1e-3        # float32 trunk, 2 blocks: kernels vs CPU plain path
+RAGGED_TOL = 1e-3     # float32 trunk, 2 blocks: ragged vs bucketed answers
 SERVE_EMBED_TOL = 0.05  # bf16 trunk: served batch row vs the row run alone
+BUCKETS = (128, 256, 512)
 REPS = 25
 DEVICE = "cuda"
 
@@ -184,14 +209,25 @@ def kernel_phase(card: str):
             gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
             got = fused_packed_attention(attn, x, gs, seg)
             ids = torch.arange(1, S + 1, device=dev)
-            want = attention_oh_reference(attn, x, gs,
-                                          (seg[..., None] == ids).float())
+            oh = (seg[..., None] == ids).float()
+            want = attention_oh_reference(attn, x, gs, oh)
             torch.cuda.synchronize()
             check(bool((got[:, S - 1] == 0).all()),
                   "empty segment not exactly zero")
             err = (got.float() - want.float()).abs().max().item()
+            nbytes = ((B * L * C + 2 * B * S * G + H * (G * k + 2 * C * k))
+                      * s + B * L * S * 4)
+            b_ms, b_by = bound(attention_flops(B, L, C, G, S, H, k), nbytes,
+                               dtype)
+            n0 = ATTENTION.launches
+            fused_packed_attention(attn, x, gs, seg)
+            per_call = ATTENTION.launches - n0
+            check(per_call == 1, f"packed global_attention launched "
+                                 f"{per_call} times in one call")
+            ms = time_ms(lambda: fused_packed_attention(attn, x, gs, seg))
+            plain = time_ms(lambda: attention_oh_reference(attn, x, gs, oh))
             rows[("global_attention", dtype, L, "S=8")] = (
-                err, None, None, None, None, None)
+                err, ms, plain, b_ms, b_by, per_call)
 
     # The kernels' narrower widths, with a ragged last tile (L=100 is a
     # multiple of neither kernel's row tile): correctness only.
@@ -220,19 +256,207 @@ def kernel_phase(card: str):
                 rows[(name, dtype, 100, f"C={width}")] = (
                     err, None, None, None, None, None)
 
-    print(f"{'kernel':17s} {'dtype':9s} {'L':>4s} {'case':6s} "
+    return rows
+
+
+def print_rows(card: str, rows: dict) -> None:
+    """The kernel table, each row checked against its tolerance."""
+    print(f"{'kernel':21s} {'dtype':9s} {'L':>4s} {'case':13s} "
           f"{'max_abs_err':>12s} {'tol':>8s} {'ms':>9s} {'plain_ms':>9s} "
           f"{'bound_ms':>9s}  bound_by   launches/call  [{card}]")
     for (name, dtype, L, case), (err, ms, plain, b_ms, b_by,
                                  per_call) in rows.items():
         tol = TOL[(name, dtype)]
         fmt = (lambda v: f"{v:9.4f}" if v is not None else f"{'-':>9s}")
-        print(f"{name:17s} {str(dtype)[6:]:9s} {L:4d} {case:6s} "
+        print(f"{name:21s} {str(dtype)[6:]:9s} {L:4d} {case:13s} "
               f"{err:12.3e} {tol:8.1e} {fmt(ms)} {fmt(plain)} {fmt(b_ms)}  "
               f"{b_by or '-':10s} {per_call if per_call is not None else '-'}")
         check(err <= tol, f"{name} {dtype} L={L} {case}: max_abs_err {err} "
                           f"> {tol}")
-    return rows
+
+
+def packed_ids(gen, B: int, L: int, S: int) -> torch.Tensor:
+    """(B, L) int32 segment ids as a packer lays them out, with the corners
+    the kernels must get right: segments 1..S-1 of random lengths, a pad gap
+    after segment 2, a run of ids above S (pad by contract), a pad tail, and
+    segment S empty in every row."""
+    seg = torch.zeros((B, L), dtype=torch.int32)
+    lo, hi = max(1, L // (2 * S)), max(2, L // S)
+    for b in range(B):
+        pos = 0
+        for sid in range(1, S):
+            n = int(torch.randint(lo, hi, (1,), generator=gen))
+            seg[b, pos:pos + n] = sid
+            pos += n + (3 if sid == 2 else 0)
+        seg[b, pos:pos + 5] = S + 1 + b % 3
+    return seg
+
+
+def isolated(run, x: torch.Tensor, seg: torch.Tensor, sid: int, gen,
+             outs) -> bool:
+    """Cross-segment isolation, bit for bit: new inputs inside segment
+    `sid` change nothing outside it. `run(x)` returns (local (B, L, C),
+    attn (B, S, G) or None); `outs` is run(x) on the original input."""
+    x2 = x.clone()
+    sel = seg == sid
+    x2[sel] = torch.randn((int(sel.sum()), x.shape[-1]),
+                          generator=gen).to(x.device, x.dtype)
+    local2, attn2 = run(x2)
+    local, attn = outs
+    keep = ~sel
+    same = torch.equal(local2[keep], local[keep])
+    moved = not torch.equal(local2[sel], local[sel])
+    if attn is not None:
+        others = [s for s in range(attn.shape[1]) if s != sid - 1]
+        same = same and torch.equal(attn2[:, others], attn[:, others])
+    return same and moved
+
+
+def packed_kernel_phase(card: str, rows: dict) -> None:
+    """#3 at base width (C=512, S=8) and #6 at C=128 (G=512, H=4, v=128)
+    and C=256 (G=512, H=8), dense and packed, against their plain versions
+    on the card; B=8, L in {128, 512} timed, L=100 ragged; cross-segment
+    isolation bit for bit."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        LOCAL_TRACK_SEGMENTS, ONEPASS, TRACK_PARAMS,
+        fused_local_track_segments, local_track_segment_oh_reference,
+        onepass_oh_reference, segment_one_hot,
+    )
+    from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
+    from proteinbert_tpu_torch.kernels.one_pass import (
+        fused_onepass, onepass_flops,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+
+    base = get_preset("base").model
+    gen = torch.Generator().manual_seed(11)
+    dev = torch.device(DEVICE)
+    B, S, k, wd = 8, 8, base.key_dim, base.wide_dilation
+
+    def launches(kernel, fn):
+        n0 = kernel.launches
+        fn()
+        return kernel.launches - n0
+
+    # #3: the segment-masked local track at base width.
+    block = to_device(block_init(gen, base), dev)
+    C = base.local_dim
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        cast = cast_block(block, dtype)
+        track = {name: cast[name] for name in TRACK_PARAMS}
+        for L in (128, 512, 100):
+            x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+            bs = torch.randn((B, S, C), generator=gen).to(dev, dtype)
+            seg = packed_ids(gen, B, L, S).to(dev)
+            oh = segment_one_hot(seg, S)
+
+            def run(xx):
+                return (fused_local_track_segments(track, xx, bs, seg, 1, wd),
+                        None)
+
+            got = run(x)
+            want = local_track_segment_oh_reference(track, x, bs, oh, 1, wd)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got[0]).all().item(),
+                  "local_track_segments non-finite")
+            err = (got[0].float() - want.float()).abs().max().item()
+            check(isolated(run, x, seg, 3, gen, got),
+                  f"local_track_segments {dtype} L={L}: segments not "
+                  "isolated bit for bit")
+            timing = (None,) * 5
+            if L != 100:
+                nbytes = ((2 * B * L * C + B * S * C + 19 * C * C) * s
+                          + B * L * 4 + 7 * C * 4)
+                b_ms, b_by = bound(local_track_flops(B, L, C)
+                                   + 2 * B * L * S * C, nbytes, dtype)
+                per_call = launches(LOCAL_TRACK_SEGMENTS, lambda: run(x))
+                check(per_call == 1, f"local_track_segments launched "
+                                     f"{per_call} times in one call")
+                timing = (time_ms(lambda: run(x)),
+                          time_ms(lambda: local_track_segment_oh_reference(
+                              track, x, bs, oh, 1, wd)),
+                          b_ms, b_by, per_call)
+            rows[("local_track_segments", dtype, L, "S=8")] = (err,) + timing
+
+    # #6: the one-pass trunk at the widths the reference runs it at.
+    for width, G, H in ((128, 512, 4), (256, 512, 8)):
+        cfg = dataclasses.replace(base, local_dim=width, global_dim=G,
+                                  num_heads=H)
+        blk = to_device(block_init(gen, cfg), dev)
+        v = G // H
+        for dtype in (torch.bfloat16, torch.float32):
+            s = dtype.itemsize
+            cast = cast_block(blk, dtype)
+            track = {name: cast[name] for name in TRACK_PARAMS}
+            attn = cast["attention"]
+            for L in (128, 512, 100):
+                x = torch.randn((B, L, width), generator=gen).to(dev, dtype)
+                # Dense rows: a half-padded row and an all-pad row.
+                bc = torch.randn((B, 1, width), generator=gen).to(dev, dtype)
+                g = torch.randn((B, 1, G), generator=gen).to(dev, dtype)
+                pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+                pad[1, L // 2:] = False
+                pad[2, :] = False
+                ones = torch.ones((B, L, 1), device=dev)
+                # Packed rows: S=8, segment 8 empty, 10% in-span <pad>.
+                bs = torch.randn((B, S, width), generator=gen).to(dev, dtype)
+                gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+                seg = packed_ids(gen, B, L, S).to(dev)
+                real = (torch.rand((B, L), generator=gen) > 0.1).to(dev)
+                oh = segment_one_hot(seg, S)
+                cases = {
+                    "dense": (lambda xx: fused_onepass(
+                                  track, attn, xx, bc, g, None, pad, 1, wd,
+                                  False),
+                              lambda: onepass_oh_reference(
+                                  track, attn, x, bc, g, ones,
+                                  pad[..., None].float(), 1, wd, False,
+                                  False), 1),
+                    "S=8": (lambda xx: fused_onepass(
+                                track, attn, xx, bs, gs, seg, real, 1, wd,
+                                True),
+                            lambda: onepass_oh_reference(
+                                track, attn, x, bs, gs, oh,
+                                real[..., None].float(), 1, wd, True, True),
+                            S),
+                }
+                for case, (run, plain, n_seg) in cases.items():
+                    got = run(x)
+                    want = plain()
+                    torch.cuda.synchronize()
+                    check(all(torch.isfinite(t).all().item() for t in got),
+                          f"one_pass {case} non-finite")
+                    err = max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(got, want))
+                    if case == "S=8":
+                        empty = got[1][:, S - 1]
+                        check(bool((empty == 0).all())
+                              and not torch.signbit(empty).any(),
+                              "one_pass: empty segment not exactly +0.0")
+                        check(isolated(run, x, seg, 3, gen, got),
+                              f"one_pass C={width} {dtype} L={L}: segments "
+                              "not isolated bit for bit")
+                    timing = (None,) * 5
+                    if L != 100 and width == 128:
+                        nbytes = ((2 * B * L * width + B * n_seg * width
+                                   + 2 * B * n_seg * G + 19 * width * width
+                                   + H * (G * k + width * (k + v))) * s
+                                  + (2 if n_seg > 1 else 1) * B * L * 4
+                                  + 7 * width * 4)
+                        b_ms, b_by = bound(
+                            onepass_flops(B, L, width, G, n_seg, H, k),
+                            nbytes, dtype)
+                        per_call = launches(ONEPASS, lambda: run(x))
+                        check(per_call == 1, f"one_pass launched {per_call} "
+                                             "times in one call")
+                        timing = (time_ms(lambda: run(x)), time_ms(plain),
+                                  b_ms, b_by, per_call)
+                    rows[("one_pass", dtype, L,
+                          f"C={width} {case}")] = (err,) + timing
 
 
 # ------------------------------------------------------------ phase 3
@@ -259,37 +483,95 @@ def reference_phase():
     check(err <= REF_TOL, f"trunk vs plain CPU path: {err} > {REF_TOL}")
 
 
+def traffic(n: int, seed: int):
+    """`n` mixed requests of 20-500 residues, kinds in turn; each
+    predict_residues request masks 3 positions with '?'."""
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+    from proteinbert_tpu_torch.serve.dispatch import KINDS
+
+    rnd = random.Random(seed)
+    reqs = []
+    for i in range(n):
+        length = rnd.randint(20, 500)
+        seq = "".join(rnd.choice(ALPHABET) for _ in range(length))
+        kind = KINDS[i % 3]
+        if kind == "predict_residues":
+            pos = rnd.sample(range(length), 3)
+            seq = "".join("?" if j in pos else c for j, c in enumerate(seq))
+        reqs.append((kind, seq))
+    return reqs
+
+
+def max_answer_diff(reqs, got, want) -> float:
+    """Largest |difference| over two servers' answers to the same
+    requests; a filled residue string that differs fails outright."""
+    worst = 0.0
+    for (kind, _), a, b in zip(reqs, got, want):
+        if kind == "embed":
+            pairs = [(a[k], b[k]) for k in ("global", "local_mean")]
+        elif kind == "predict_go":
+            pairs = [(a, b)]
+        else:
+            check(a[0] == b[0], "predict_residues fills differ")
+            pairs = [(a[1], b[1])]
+        for u, v in pairs:
+            check(u.shape == v.shape, f"{kind} shapes {u.shape} {v.shape}")
+            worst = max(worst, float(np.abs(u - v).max()))
+    return worst
+
+
+def ragged_parity_phase() -> None:
+    """A float32 base-width trunk (2 blocks) served ragged and bucketed on
+    the card: the same requests, the answers within RAGGED_TOL."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.serve.server import Server
+
+    base = get_preset("base")
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, dtype="float32", num_blocks=2))
+    params = init(cfg.model, torch.Generator().manual_seed(5), device=DEVICE)
+    reqs = traffic(12, seed=1)
+    answers = {}
+    for mode in ("bucketed", "ragged"):
+        srv = Server(params, cfg, device=DEVICE, buckets=BUCKETS,
+                     max_batch=8, max_wait_s=0.005, cache_size=0,
+                     serve_mode=mode, warm_kinds=())
+        srv.start()
+        futures = [srv.submit(kind, seq) for kind, seq in reqs]
+        check(srv.drain(timeout=300), f"{mode} parity server drain timed out")
+        answers[mode] = [f.result(timeout=0) for f in futures]
+    err = max_answer_diff(reqs, answers["ragged"], answers["bucketed"])
+    print(f"# ragged vs bucketed: float32 trunk C=G=512, 2 blocks, "
+          f"{len(reqs)} requests on the card: max_abs_err {err:.3e} "
+          f"(tol {RAGGED_TOL})")
+    check(err <= RAGGED_TOL, f"ragged vs bucketed: {err} > {RAGGED_TOL}")
+
+
 # ------------------------------------------------------------ phase 4
 
-def serve_phase(card: str):
-    from proteinbert_tpu_torch import inference
-    from proteinbert_tpu_torch.configs import get_preset
-    from proteinbert_tpu_torch.data.vocab import ALPHABET
+def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
+                seed: int):
+    """One server over random weights (seed `seed`): 24 mixed requests from
+    4 threads with every kernel count at 0, then drain. Checks every
+    answer, the launches (exactly per_batch[name] per batch, 0 for a kernel
+    not named) and each embed against the same sequence run alone.
+    Returns (server, launches)."""
     from proteinbert_tpu_torch.kernels import KERNELS
     from proteinbert_tpu_torch.models.proteinbert import init
     from proteinbert_tpu_torch.serve.dispatch import KINDS
     from proteinbert_tpu_torch.serve.server import Server
 
-    cfg = get_preset("base")
-    buckets = (128, 256, 512)
-    params = init(cfg.model, torch.Generator().manual_seed(0), device=DEVICE)
-    srv = Server(params, cfg, device=DEVICE, buckets=buckets, max_batch=8,
+    params = init(cfg.model, torch.Generator().manual_seed(seed),
+                  device=DEVICE)
+    srv = Server(params, cfg, device=DEVICE, buckets=BUCKETS, max_batch=8,
                  max_wait_s=0.005, queue_depth=64, cache_size=256,
-                 warm_kinds=KINDS)
+                 warm_kinds=KINDS, serve_mode=mode, pack_max_segments=8)
     t0 = time.perf_counter()
     srv.start()
-    print(f"# serve: base preset, warmup {time.perf_counter() - t0:.2f} s")
+    print(f"# serve {label}: warmup {time.perf_counter() - t0:.2f} s")
 
-    rnd = random.Random(0)
-    reqs = []
-    for i in range(24):
-        n = rnd.randint(20, 500)
-        seq = "".join(rnd.choice(ALPHABET) for _ in range(n))
-        kind = KINDS[i % 3]
-        if kind == "predict_residues":
-            pos = rnd.sample(range(n), 3)
-            seq = "".join("?" if j in pos else c for j, c in enumerate(seq))
-        reqs.append((kind, seq))
+    reqs = traffic(24, seed=0)
     futures = [None] * len(reqs)
     submitted = [0.0] * len(reqs)
     finished = [None] * len(reqs)
@@ -314,20 +596,22 @@ def serve_phase(card: str):
     check(not any(t.is_alive() for t in threads), "client threads hung")
     check(srv.drain(timeout=300), "drain timed out")
     wall = time.perf_counter() - t_start
+    launches = {k.name: k.launches for k in KERNELS}
     results = [f.result(timeout=0) for f in futures]
     latency = [b - a for a, b in zip(submitted, finished)]
-    launches = {k.name: k.launches for k in KERNELS}
     stats = srv.stats()
     batches = stats["batches"]
-    print(f"# serve: {len(reqs)} requests in {batches} batches, launches "
-          f"{launches}")
+    print(f"# serve {label}: {len(reqs)} requests in {batches} batches "
+          f"({stats['batched_rows']} rows), launches {launches}")
     check(stats["completed"] == len(reqs), f"completed {stats['completed']}")
+    check(batches > 0, "no batch dispatched")
     for name, n in launches.items():
-        check(n >= 6 * batches and n > 0,
-              f"{name} launched {n} times for {batches} batches")
+        want = per_batch.get(name, 0) * batches
+        check(n == want, f"{label}: {name} launched {n} times for {batches} "
+                         f"batches, want {want}")
 
     A = cfg.model.num_annotations
-    embeds = []
+    worst = 0.0
     for (kind, seq), res in zip(reqs, results):
         if kind == "embed":
             check(res["global"].shape == (cfg.model.global_dim,)
@@ -335,7 +619,9 @@ def serve_phase(card: str):
                   "embed shapes")
             check(all(np.isfinite(v).all() for v in res.values()),
                   "embed non-finite")
-            embeds.append((seq, res))
+            alone = embed_alone(srv, seq)
+            for key in ("global", "local_mean"):
+                worst = max(worst, float(np.abs(alone[key] - res[key]).max()))
         elif kind == "predict_go":
             check(res.shape == (A,) and np.isfinite(res).all()
                   and ((res >= 0) & (res <= 1)).all(), "predict_go probs")
@@ -346,47 +632,81 @@ def serve_phase(card: str):
                   "predict_residues fill")
             check(probs.shape == (L, cfg.model.vocab_size)
                   and np.isfinite(probs).all(), "predict_residues probs")
-
-    worst = 0.0
-    for seq, res in embeds:
-        alone = inference.embed(params, cfg, [seq], batch_size=1,
-                                bucketed=True, buckets=buckets,
-                                device=DEVICE)
-        for k in ("global", "local_mean"):
-            worst = max(worst, float(np.abs(alone[k][0] - res[k]).max()))
-    print(f"# serve: embed served vs alone max_abs_err {worst:.3e} "
-          f"(tol {SERVE_EMBED_TOL})")
+    print(f"# serve {label}: embed served vs alone (same mode, one request "
+          f"in the batch) max_abs_err {worst:.3e} (tol {SERVE_EMBED_TOL})")
     check(worst <= SERVE_EMBED_TOL, f"served embed vs alone: {worst}")
 
     lat = sorted(latency)
     p50 = lat[len(lat) // 2]
     p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
-    print(f"# serve [{card}]: {len(reqs) / wall:.2f} requests/s, "
+    print(f"# serve {label} [{card}]: {len(reqs) / wall:.2f} requests/s, "
           f"p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms "
           f"(client-side, {len(reqs)} requests, 4 threads)")
-    profile_batch(srv, card)
-    return launches
+    return srv, launches
 
 
-def profile_batch(srv, card: str) -> None:
+def embed_alone(srv, seq: str) -> dict:
+    """`seq` embedded through the server's own dispatcher as the only
+    request of its batch: a bucketed batch of one row, or a packed batch
+    whose first row holds it at position 0 (every other row empty)."""
+    from proteinbert_tpu_torch import inference
+
+    disp = srv.dispatcher
+    span = disp.bucket_len(len(seq))
+    toks = inference._tokenize_masked([seq], disp.cfg.data.seq_len,
+                                      "count")[:, :span]
+    if srv.serve_mode == "bucketed":
+        return {k: v[0] for k, v in disp.run("embed", toks).items()}
+    R, L = disp.rows_per_batch, disp.cfg.data.seq_len
+    tokens = np.zeros((R, L), np.int32)
+    seg = np.zeros((R, L), np.int32)
+    tokens[0, :span], seg[0, :span] = toks[0], 1
+    ann = np.zeros((R, disp.max_segments, disp.cfg.model.num_annotations),
+                   np.float32)
+    return disp.run_packed("embed", tokens, seg, ann, [(0, 0, 0, span)])[0]
+
+
+def full_ragged_batch(srv):
+    """One full packed embed batch for a ragged server: 8 rows x 512
+    tokens, each row three segments at spans 256, 128, 128 filled to
+    <sos> residues <eos>."""
+    disp = srv.dispatcher
+    R, L, S = disp.rows_per_batch, disp.cfg.data.seq_len, disp.max_segments
+    rng = np.random.default_rng(4)
+    tokens = np.zeros((R, L), np.int32)
+    seg = np.zeros((R, L), np.int32)
+    riders = []
+    for r in range(R):
+        start = 0
+        for s, span in enumerate((256, 128, 128)):
+            tokens[r, start] = 1
+            tokens[r, start + 1:start + span - 1] = rng.integers(4, 26,
+                                                                 span - 2)
+            tokens[r, start + span - 1] = 2
+            seg[r, start:start + span] = s + 1
+            riders.append((r, s, start, span))
+            start += span
+    ann = np.zeros((R, S, disp.cfg.model.num_annotations), np.float32)
+    return tokens, seg, ann, riders
+
+
+def profile_batch(card: str, label: str, run) -> None:
     """Where one full served batch's time goes: torch.profiler over one
-    embed batch of 8 x 512 tokens through the server's dispatcher — device
-    time by kernel name, and the device's busy share of the wall time."""
+    call of `run` (a dispatcher call that ends in a device→host copy) —
+    device time by kernel name, and the device's busy share of the wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(3)
-    tokens = rng.integers(4, 26, (8, 512)).astype(np.int32)
-    tokens[:, 0], tokens[:, -1] = 1, 2
     walls = []
     for _ in range(5):  # unprofiled: the profiler slows the host side
         t0 = time.perf_counter()
-        srv.dispatcher.run("embed", tokens)  # ends in a device→host copy
+        run()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        srv.dispatcher.run("embed", tokens)
+        run()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -395,20 +715,66 @@ def profile_batch(srv, card: str) -> None:
             by_name[e.name] = (n + 1, t + ms)
     busy = sum(t for _, t in by_name.values())
     if not by_name:
-        print("# profile: the profiler recorded no device time (device "
-              "breakdown not measured)")
+        print(f"# profile {label}: the profiler recorded no device time "
+              "(device breakdown not measured)")
         return
-    print(f"# profile [{card}]: one embed batch 8x512 (base preset), wall "
-          f"{wall_ms:.3f} ms (median of 5, unprofiled), device busy "
-          f"{busy:.3f} ms (profiled run; {100 * busy / wall_ms:.1f}% of wall)")
+    print(f"# profile {label} [{card}]: wall {wall_ms:.3f} ms (median of 5, "
+          f"unprofiled), device busy {busy:.3f} ms (profiled run; "
+          f"{100 * busy / wall_ms:.1f}% of wall)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"#   {t:9.3f} ms {100 * t / busy:5.1f}%  x{n:<4d} {name[:80]}")
-    print("# profile: host ops by self CPU time (profiled, so inflated; "
-          "shares only)")
+    print(f"# profile {label}: host ops by self CPU time (profiled, so "
+          "inflated; shares only)")
     for e in sorted(prof.key_averages(),
                     key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"#   host {e.self_cpu_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<4d} {e.key[:70]}")
+
+
+def serve_phases(card: str) -> dict:
+    """The three served paths (bucketed base, ragged base, ragged at the
+    ModelConfig default width); returns each kernel's launches summed over
+    the three traffic runs."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ONEPASS,
+    )
+
+    base = get_preset("base")
+    totals = {}
+
+    srv, launches = serve_phase(
+        card, "bucketed base", base, "bucketed",
+        {LOCAL_TRACK.name: 6, ATTENTION.name: 6}, seed=0)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(4, 26, (8, 512)).astype(np.int32)
+    tokens[:, 0], tokens[:, -1] = 1, 2
+    profile_batch(card, "bucketed base, one embed batch 8x512",
+                  lambda: srv.dispatcher.run("embed", tokens))
+
+    srv, launches = serve_phase(
+        card, "ragged base", base, "ragged",
+        {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6}, seed=0)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    packed = full_ragged_batch(srv)
+    profile_batch(card, "ragged base, one packed embed batch 8x512 "
+                  "(24 segments)",
+                  lambda: srv.dispatcher.run_packed("embed", *packed))
+
+    default = base.replace(model=ModelConfig())
+    srv, launches = serve_phase(
+        card, "ragged default width", default, "ragged",
+        {ONEPASS.name: 6}, seed=0)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    packed = full_ragged_batch(srv)
+    profile_batch(card, "ragged default width, one packed embed batch "
+                  "8x512 (24 segments)",
+                  lambda: srv.dispatcher.run_packed("embed", *packed))
+    return totals
 
 
 def main() -> int:
@@ -416,7 +782,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from proteinbert_tpu_torch.kernels import ATTENTION, KERNELS, LOCAL_TRACK
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ONEPASS,
+    )
     from proteinbert_tpu_torch.kernels.build import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -434,24 +802,44 @@ def main() -> int:
                 print(f"#   {k.name}: {line.strip()}")
 
     rows = kernel_phase(card)
+    packed_kernel_phase(card, rows)
+    print_rows(card, rows)
     reference_phase()
-    launches = serve_phase(card)
+    ragged_parity_phase()
+    launches = serve_phases(card)
 
-    sources = {LOCAL_TRACK.name: ("proteinbert_tpu_torch/csrc/local_track.cu",
-                                  "proteinbert_tpu/kernels/fused_block.py:804"),
-               ATTENTION.name: ("proteinbert_tpu_torch/csrc/global_attention.cu",
-                                "proteinbert_tpu/kernels/attention.py:319")}
+    # (source, TPU launch site, the served shape its row was timed at)
+    ported = {
+        LOCAL_TRACK.name: (
+            "proteinbert_tpu_torch/csrc/local_track.cu",
+            "proteinbert_tpu/kernels/fused_block.py:804", 512, "dense",
+            "B=8 L=512 C=512 bf16"),
+        LOCAL_TRACK_SEGMENTS.name: (
+            "proteinbert_tpu_torch/csrc/local_track_segments.cu",
+            "proteinbert_tpu/kernels/fused_block.py:1134", 512, "S=8",
+            "B=8 L=512 C=512 S=8 bf16"),
+        ATTENTION.name: (
+            "proteinbert_tpu_torch/csrc/global_attention.cu",
+            "proteinbert_tpu/kernels/attention.py:319", 512, "dense",
+            "B=8 L=512 C=G=512 H=8 k=64 S=1 bf16"),
+        ONEPASS.name: (
+            "proteinbert_tpu_torch/csrc/one_pass.cu",
+            "proteinbert_tpu/kernels/one_pass.py:380", 512, "C=128 S=8",
+            "B=8 L=512 C=128 G=512 H=4 k=64 v=128 S=8 bf16"),
+    }
     report = []
     for k in KERNELS:
-        err, ms, plain, b_ms, b_by, _ = rows[(k.name, torch.bfloat16, 512,
-                                              "dense")]
-        src, tpu = sources[k.name]
+        src, tpu, L, case, shape = ported[k.name]
+        err, ms, plain, b_ms, b_by, _ = rows[(k.name, torch.bfloat16, L,
+                                              case)]
+        check(launches[k.name] > 0, f"{k.name} never launched on a served "
+                                    "path")
         report.append({"name": k.name, "route": "cuda", "source": src,
                        "replaces": tpu, "launches": launches[k.name],
                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": None, "status": "ported",
-                       "shape": "B=8 L=512 C=G=512 H=8 k=64 bf16"})
+                       "shape": shape})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -462,3 +850,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+
+

@@ -9,6 +9,9 @@ already live on that device — `models.proteinbert.init`,
 - `predict_go` — sigmoid GO-annotation probabilities or top-k;
 - `predict_residues` — per-position amino-acid distributions; fills
   '?'-masked positions with the argmax residue.
+The `_packed_*_batch` functions are the ragged serving forms of the batch
+functions: a packed (rows, seq_len) batch with segment_ids in, one output
+per segment out (serve/dispatch.RaggedDispatcher).
 
 Batches are padded to a fixed batch size, as the JAX path pads to one
 compiled shape, so a row's numbers do not depend on how many rows share
@@ -70,6 +73,56 @@ def _go_probs_batch(params, tokens, annotations, cfg: ModelConfig):
 @torch.inference_mode()
 def _residue_probs_batch(params, tokens, annotations, cfg: ModelConfig):
     local_logits, _ = proteinbert.apply(params, tokens, annotations, cfg)
+    return torch.softmax(local_logits, -1)
+
+
+def _segment_real_mask(tokens: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """(B, S, L) bool: True where position l belongs to segment s AND
+    holds a real (non-<pad>) token — a ragged serving span is bucket-
+    quantized, so its <pad> tail stays out of pooling and attention as the
+    bucketed path's pad_mask keeps it out."""
+    ids = torch.arange(1, num_segments + 1, device=segment_ids.device)
+    seg = segment_ids[:, None, :] == ids[None, :, None]
+    return seg & (tokens != PAD_ID)[:, None, :]
+
+
+@torch.inference_mode()
+def _packed_encode_batch(params, tokens, segment_ids, annotations,
+                         cfg: ModelConfig):
+    """The ragged serving form of `_encode_batch`: a (rows, seq_len)
+    packed batch of up to S segments per row → {"local_mean": (B, S, C),
+    "global": (B, S, G)} float32 per SEGMENT (mask-weighted mean over each
+    segment's real positions)."""
+    local, global_ = proteinbert.encode(params, tokens, annotations, cfg,
+                                        pad_mask=tokens != PAD_ID,
+                                        segment_ids=segment_ids)
+    m = _segment_real_mask(tokens, segment_ids,
+                           annotations.shape[1]).float()
+    local = local.float()
+    local_mean = (torch.einsum("bsl,blc->bsc", m, local)
+                  / m.sum(-1)[..., None].clamp_min(1.0))
+    return {"local_mean": local_mean, "global": global_.float()}
+
+
+@torch.inference_mode()
+def _packed_go_probs_batch(params, tokens, segment_ids, annotations,
+                           cfg: ModelConfig):
+    """(B, S, A) sigmoid GO probabilities per packed segment."""
+    _, global_logits = proteinbert.apply(
+        params, tokens, annotations, cfg, pad_mask=tokens != PAD_ID,
+        segment_ids=segment_ids)
+    return torch.sigmoid(global_logits)
+
+
+@torch.inference_mode()
+def _packed_residue_probs_batch(params, tokens, segment_ids, annotations,
+                                cfg: ModelConfig):
+    """(B, L, V) per-position softmax over a packed batch; callers slice
+    each segment's span back out."""
+    local_logits, _ = proteinbert.apply(
+        params, tokens, annotations, cfg, pad_mask=tokens != PAD_ID,
+        segment_ids=segment_ids)
     return torch.softmax(local_logits, -1)
 
 
@@ -138,12 +191,13 @@ def fill_masked_residues(seq: str, probs: np.ndarray, window: int) -> str:
     return "".join(chars) + seq[window:]
 
 
-def run_batch(fn, params, cfg: PretrainConfig, tokens: np.ndarray,
-              annotations: np.ndarray, device: torch.device):
-    """One call of a batch function on host arrays → host float32/int
-    numpy outputs (a dict or an array)."""
-    res = fn(params, torch.from_numpy(tokens).to(device),
-             torch.from_numpy(annotations).to(device), cfg.model)
+def run_batch(fn, params, cfg: PretrainConfig, *arrays: np.ndarray,
+              device: torch.device):
+    """One call of a batch function on host arrays (tokens[,
+    segment_ids], annotations) → host float32/int numpy outputs (a dict
+    or an array)."""
+    res = fn(params, *(torch.from_numpy(a).to(device) for a in arrays),
+             cfg.model)
     if isinstance(res, dict):
         return {k: v.cpu().numpy() for k, v in res.items()}
     return res.cpu().numpy()
@@ -166,7 +220,7 @@ def _batched(params, cfg: PretrainConfig, tokens: np.ndarray,
         if rows < batch_size:
             tb = np.pad(tb, ((0, batch_size - rows), (0, 0)))
             ab = np.pad(ab, ((0, batch_size - rows), (0, 0)))
-        res = run_batch(fn, params, cfg, tb, ab, device)
+        res = run_batch(fn, params, cfg, tb, ab, device=device)
         if isinstance(res, dict):
             outs.append({k: v[:rows] for k, v in res.items()})
         else:

@@ -7,26 +7,48 @@ from proteinbert_tpu_torch.kernels.attention import (
     fused_attention,
     fused_global_attention,
     fused_packed_attention,
+    segment_one_hot,
 )
 from proteinbert_tpu_torch.kernels.fused_block import (
     LOCAL_TRACK,
+    LOCAL_TRACK_SEGMENTS,
     TRACK_PARAMS,
     fused_local_track,
+    fused_local_track_segments,
+    gather_segment_broadcast,
     local_track_reference,
+    local_track_segment_oh_reference,
+    local_track_segment_reference,
+)
+from proteinbert_tpu_torch.kernels.one_pass import (
+    ONEPASS,
+    fused_onepass_dense,
+    fused_onepass_segments,
+    onepass_oh_reference,
 )
 
-# Every kernel of the serving path, in launch order within a block.
-KERNELS = (LOCAL_TRACK, ATTENTION)
+# Every kernel of the serving paths: K1, #3, K2, #6.
+KERNELS = (LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ATTENTION, ONEPASS)
 
 __all__ = [
     "ATTENTION",
     "KERNELS",
     "LOCAL_TRACK",
+    "LOCAL_TRACK_SEGMENTS",
+    "ONEPASS",
     "TRACK_PARAMS",
     "attention_oh_reference",
     "fused_attention",
     "fused_global_attention",
     "fused_local_track",
+    "fused_local_track_segments",
+    "fused_onepass_dense",
+    "fused_onepass_segments",
     "fused_packed_attention",
+    "gather_segment_broadcast",
     "local_track_reference",
+    "local_track_segment_oh_reference",
+    "local_track_segment_reference",
+    "onepass_oh_reference",
+    "segment_one_hot",
 ]

@@ -143,6 +143,19 @@ def fused_global_attention(
     return out.reshape(B, -1)
 
 
+def segment_one_hot(segment_ids: torch.Tensor, S: int,
+                    real_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, L) segment ids (+ optional real-token mask) → the (B, L, S)
+    float32 one-hot the kernels' plain versions consume. Ids outside
+    1..S and masked-out positions get all-zero rows (the JAX
+    `_segment_one_hot`)."""
+    ids = torch.arange(1, S + 1, device=segment_ids.device)
+    oh = (segment_ids[..., None] == ids).float()
+    if real_mask is not None:
+        oh = oh * real_mask[..., None].float()
+    return oh
+
+
 def fused_packed_attention(
     params: Params, local: torch.Tensor, global_: torch.Tensor,
     segment_ids: torch.Tensor, real_mask: Optional[torch.Tensor] = None,
@@ -151,11 +164,7 @@ def fused_packed_attention(
     segment_ids (B, L) with 0 = pad and 1..S a segment, real_mask
     (B, L) the real-token mask (None = every in-segment position).
     Empty segments come back as exact 0. → (B, S, G)."""
-    S = global_.shape[1]
-    ids = torch.arange(1, S + 1, device=segment_ids.device)
-    oh = (segment_ids[..., None] == ids).float()
-    if real_mask is not None:
-        oh = oh * real_mask[..., None].float()
+    oh = segment_one_hot(segment_ids, global_.shape[1], real_mask)
     return fused_attention(params, local, global_, oh, zero_empty=True)
 
 

@@ -1,32 +1,42 @@
-"""K1 — the fused local track: plain PyTorch version and CUDA wrapper.
+"""K1 and #3 — the fused local track over dense and packed rows: plain
+PyTorch versions and CUDA wrappers.
 
-Port of `proteinbert_tpu/kernels/fused_block.py` (`_fused_kernel`, entry
-`fused_local_track`). The local half of a ProteinBERT block:
+Port of `proteinbert_tpu/kernels/fused_block.py`: `_fused_kernel` (entry
+`fused_local_track`) and `_fused_segment_kernel` (entry
+`fused_local_track_segments`). The local half of a ProteinBERT block:
 
     h  = x + gelu(narrow_conv(x)) + gelu(wide_conv(x)) + broadcast
     x1 = LN(h)
     y  = LN(x1 + gelu(dense(x1)))
 
-`fused_local_track` runs the hand-written Hopper kernel
-(`csrc/local_track.cu`) on a CUDA tensor and the plain version
-`local_track_reference` on a CPU tensor. A CUDA call the kernel does not
-cover (dtype, width, conv geometry) raises ValueError; nothing falls
-back.
+Over PACKED rows (data/packing.py) the convs never cross a segment
+boundary (tap t of row l is masked unless seg[l + off] == seg[l] and l is
+in a segment) and each position adds its OWN segment's broadcast row, 0
+at pad.
 
-Rounding points are the TPU kernel's, which the plain version repeats:
-the tap products and both conv outputs stay float32 (fused_block.py
-:539-547), x1 is rounded to the activation dtype before the dense
-(:517), LN statistics are float32. In float32 this is exactly the JAX
-`local_track_reference`; in bfloat16 the JAX reference rounds the conv
-outputs where the kernel does not.
+`fused_local_track` / `fused_local_track_segments` run the hand-written
+Hopper kernels (`csrc/local_track.cu`, `csrc/local_track_segments.cu`)
+on a CUDA tensor and the plain versions on a CPU tensor. A CUDA call the
+kernels do not cover (dtype, width, conv geometry) raises ValueError;
+nothing falls back.
+
+Rounding points are the TPU kernels', which the plain versions repeat:
+the tap products, both conv outputs and the broadcast gather stay
+float32 (fused_block.py:539-547, :1012-1016), x1 is rounded to the
+activation dtype before the dense (:517), LN statistics are float32. In
+float32 this is exactly the JAX `local_track_reference` /
+`local_track_segment_oh_reference`; in bfloat16 the JAX references round
+the conv outputs where the kernels do not.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+import torch.nn.functional as F
 
+from proteinbert_tpu_torch.kernels.attention import segment_one_hot
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
@@ -42,12 +52,28 @@ TRACK_PARAMS = ("narrow_conv", "wide_conv", "local_ln1", "local_dense",
 LOCAL_TRACK = Kernel(
     "local_track", "local_track.cu", "pbt_local_track",
     [INT] + [PTR] * 13 + [INT] * 4 + [PTR])
+LOCAL_TRACK_SEGMENTS = Kernel(
+    "local_track_segments", "local_track_segments.cu",
+    "pbt_local_track_segments", [INT] + [PTR] * 14 + [INT] * 5 + [PTR])
 
-# What the CUDA kernel covers.
+# What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTHS = (128, 256, 512)
 KERNEL_TAPS = 9
 MAX_WIDE_DILATION = 5  # the window's 20-row halo
+
+
+def _finish(params: Params, h: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The LN → dense(+GELU, residual) → LN tail on the float32 residual
+    h, x1 rounded to `dtype` before the dense (fused_block.py:514-523)."""
+    ln1, ln2, dn = (params["local_ln1"], params["local_ln2"],
+                    params["local_dense"])
+    x1 = layer_norm_f32(h, ln1["scale"].float(), ln1["bias"].float()
+                        ).to(dtype).float()
+    d = x1 @ dn["kernel"].to(dtype).float() + dn["bias"].float()
+    return layer_norm_f32(x1 + gelu(d), ln2["scale"].float(),
+                          ln2["bias"].float()).to(dtype)
 
 
 def local_track_reference(
@@ -67,13 +93,135 @@ def local_track_reference(
     h = (x.float() + gelu(conv(params["narrow_conv"], narrow_dilation))
          + gelu(conv(params["wide_conv"], wide_dilation))
          + broadcast.to(dtype).float()[:, None, :])
+    return _finish(params, h, dtype)
+
+
+def _masked_conv(p, x: torch.Tensor, dilation: int,
+                 tap_mask: Callable[[int], torch.Tensor]
+                 ) -> torch.Tensor:
+    """'SAME' dilated conv as shifted float32 tap products whose operand
+    rows are multiplied by tap_mask(offset) (B, L, 1) — 0/1, so a masked
+    contribution is an exact zero (the JAX `_segment_conv`)."""
+    dtype = x.dtype
+    kernel = p["kernel"].to(dtype).float()
+    taps, L = kernel.shape[0], x.shape[1]
+    total = (taps - 1) * dilation
+    lo = total // 2
+    xp = F.pad(x.float(), (0, 0, lo, total - lo))
+    acc = None
+    for t in range(taps):
+        off = t * dilation
+        part = (xp[:, off:off + L] * tap_mask(off)) @ kernel[t]
+        acc = part if acc is None else acc + part
+    return acc + p["bias"].float()
+
+
+def local_track_segment_oh_reference(
+    params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
+    seg_oh: torch.Tensor, narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Plain PyTorch segment-masked local track in the one-hot form the
+    kernel's TPU original consumes: seg_oh (B, L, S) one-hot (all-zero at
+    pad), broadcast_seg (B, S, C) per-segment broadcast rows. Tap masks
+    are Σ_s oh[l]·oh[l+off]; the own-segment gather is oh @ broadcast_seg
+    (exact 0 at pad)."""
+    dtype = x.dtype
+    oh = seg_oh.float()
+    L = x.shape[1]
+
+    def conv(p, dilation):
+        total = (p["kernel"].shape[0] - 1) * dilation
+        ohp = F.pad(oh, (0, 0, total // 2, total - total // 2))
+        return _masked_conv(
+            p, x, dilation,
+            lambda off: (oh * ohp[:, off:off + L]).sum(-1, keepdim=True))
+
+    bcast = torch.einsum("bls,bsc->blc", oh, broadcast_seg.to(dtype).float())
+    h = (x.float() + gelu(conv(params["narrow_conv"], narrow_dilation))
+         + gelu(conv(params["wide_conv"], wide_dilation)) + bcast)
+    return _finish(params, h, dtype)
+
+
+def local_track_segment_reference(
+    params: Params, x: torch.Tensor, broadcast_pos: torch.Tensor,
+    segment_ids: torch.Tensor, narrow_dilation: int = 1,
+    wide_dilation: int = 5,
+) -> torch.Tensor:
+    """The same track in the integer-id form of the JAX
+    `local_track_segment_reference`: tap t of row l counts when
+    seg[l + off] == seg[l] > 0; broadcast_pos (B, L, C) is already
+    per position (`gather_segment_broadcast`). Kernel rounding points."""
+    dtype = x.dtype
+    L = x.shape[1]
+
+    def conv(p, dilation):
+        total = (p["kernel"].shape[0] - 1) * dilation
+        sp = F.pad(segment_ids, (total // 2, total - total // 2))
+        return _masked_conv(
+            p, x, dilation,
+            lambda off: ((sp[:, off:off + L] == segment_ids)
+                         & (segment_ids > 0)).float()[..., None])
+
+    h = (x.float() + gelu(conv(params["narrow_conv"], narrow_dilation))
+         + gelu(conv(params["wide_conv"], wide_dilation))
+         + broadcast_pos.to(dtype).float())
+    return _finish(params, h, dtype)
+
+
+def gather_segment_broadcast(broadcast_seg: torch.Tensor,
+                             segment_ids: torch.Tensor) -> torch.Tensor:
+    """(B, S, C) per-segment broadcast + (B, L) segment ids → (B, L, C)
+    per-position broadcast, exact 0 at pad."""
+    idx = (segment_ids.long() - 1).clamp_min(0)
+    pos = torch.gather(broadcast_seg, 1,
+                       idx[..., None].expand(-1, -1, broadcast_seg.shape[-1]))
+    return torch.where((segment_ids > 0)[..., None], pos,
+                       torch.zeros((), dtype=pos.dtype, device=pos.device))
+
+
+def _track_operands(name: str, params: Params, x: torch.Tensor,
+                    narrow_dilation: int, wide_dilation: int):
+    """Check what the local-track kernels cover and cast the weights to
+    their launch types: (dtype code, conv/dense operands in x's dtype,
+    float32 bias and LN vectors)."""
+    C = x.shape[-1]
+    dtype = x.dtype
+    nk = params["narrow_conv"]["kernel"]
+    wk = params["wide_conv"]["kernel"]
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: no kernel for {dtype}")
+    if C not in KERNEL_WIDTHS:
+        raise ValueError(f"{name}: no kernel for C={C} "
+                         f"(have {KERNEL_WIDTHS})")
+    conv_shape = (KERNEL_TAPS, C, C)
+    if (tuple(nk.shape) != conv_shape or tuple(wk.shape) != conv_shape
+            or narrow_dilation != 1
+            or not 1 <= wide_dilation <= MAX_WIDE_DILATION):
+        raise ValueError(
+            f"{name}: the kernel covers k=9 convs with narrow "
+            f"dilation 1 and wide dilation <= {MAX_WIDE_DILATION}; got "
+            f"{tuple(nk.shape)}/{tuple(wk.shape)}, dilations "
+            f"{narrow_dilation}/{wide_dilation}")
     ln1, ln2, dn = (params["local_ln1"], params["local_ln2"],
                     params["local_dense"])
-    x1 = layer_norm_f32(h, ln1["scale"].float(), ln1["bias"].float()
-                        ).to(dtype).float()
-    d = x1 @ dn["kernel"].to(dtype).float() + dn["bias"].float()
-    return layer_norm_f32(x1 + gelu(d), ln2["scale"].float(),
-                          ln2["bias"].float()).to(dtype)
+    nk, wk, dk = (t.to(dtype).contiguous()
+                  for t in (nk, wk, dn["kernel"]))
+    nb, wb, s1, b1, db, s2, b2 = (
+        t.float().contiguous() for t in (
+            params["narrow_conv"]["bias"], params["wide_conv"]["bias"],
+            ln1["scale"], ln1["bias"], dn["bias"], ln2["scale"],
+            ln2["bias"]))
+    return KERNEL_DTYPES[dtype], (nk, nb, wk, wb, s1, b1, dk, db, s2, b2)
+
+
+def _device_check(name: str, x: torch.Tensor) -> bool:
+    """True for a CPU tensor (take the plain version); raise for a device
+    the port does not run on; False for CUDA (launch)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return False
 
 
 def fused_local_track(
@@ -84,48 +232,58 @@ def fused_local_track(
     the projected global→local vector (gelu(dense(global))); params the
     block's narrow_conv, wide_conv, local_ln1, local_dense, local_ln2.
     CUDA → the kernel (or ValueError), CPU → the plain version."""
-    if x.device.type == "cpu":
+    if _device_check("fused_local_track", x):
         return local_track_reference(params, x, broadcast, narrow_dilation,
                                      wide_dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_local_track: unsupported device {x.device}")
     B, L, C = x.shape
-    dtype = x.dtype
-    nk = params["narrow_conv"]["kernel"]
-    wk = params["wide_conv"]["kernel"]
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"fused_local_track: no kernel for {dtype}")
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"fused_local_track: no kernel for C={C} "
-                         f"(have {KERNEL_WIDTHS})")
-    conv_shape = (KERNEL_TAPS, C, C)
-    if (tuple(nk.shape) != conv_shape or tuple(wk.shape) != conv_shape
-            or narrow_dilation != 1
-            or not 1 <= wide_dilation <= MAX_WIDE_DILATION):
-        raise ValueError(
-            "fused_local_track: the kernel covers k=9 convs with narrow "
-            f"dilation 1 and wide dilation <= {MAX_WIDE_DILATION}; got "
-            f"{tuple(nk.shape)}/{tuple(wk.shape)}, dilations "
-            f"{narrow_dilation}/{wide_dilation}")
+    code, weights = _track_operands("fused_local_track", params, x,
+                                    narrow_dilation, wide_dilation)
     if tuple(broadcast.shape) != (B, C):
-        raise ValueError(f"fused_local_track: broadcast {tuple(broadcast.shape)}"
-                         f" != {(B, C)}")
-    ln1, ln2, dn = (params["local_ln1"], params["local_ln2"],
-                    params["local_dense"])
-    x, bc, nk, wk, dk = (t.to(dtype).contiguous() for t in (
-        x, broadcast, nk, wk, dn["kernel"]))
-    nb, wb, s1, b1, db, s2, b2 = (
-        t.float().contiguous() for t in (
-            params["narrow_conv"]["bias"], params["wide_conv"]["bias"],
-            ln1["scale"], ln1["bias"], dn["bias"], ln2["scale"],
-            ln2["bias"]))
+        raise ValueError(f"fused_local_track: broadcast "
+                         f"{tuple(broadcast.shape)} != {(B, C)}")
+    x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast))
     out = torch.empty_like(x)
-    ops = (x, bc, nk, nb, wk, wb, s1, b1, dk, db, s2, b2, out)
+    ops = (x, bc, *weights, out)
     check_cuda("fused_local_track", *ops)
     with torch.cuda.device(x.device):
-        LOCAL_TRACK.launch(KERNEL_DTYPES[dtype],
-                           *(t.data_ptr() for t in ops),
+        LOCAL_TRACK.launch(code, *(t.data_ptr() for t in ops),
                            B, L, C, wide_dilation, stream_ptr(x.device))
+    return out
+
+
+def fused_local_track_segments(
+    params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
+    segment_ids: torch.Tensor, narrow_dilation: int = 1,
+    wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Local track of one block over PACKED rows: broadcast_seg (B, S, C)
+    the per-segment projected global vectors, segment_ids (B, L) with 0 =
+    pad and 1..S a packed protein (ids above S count as pad). CUDA → the
+    segment kernel (or ValueError), CPU → the plain version."""
+    S = broadcast_seg.shape[1]
+    if _device_check("fused_local_track_segments", x):
+        return local_track_segment_oh_reference(
+            params, x, broadcast_seg, segment_one_hot(segment_ids, S),
+            narrow_dilation, wide_dilation)
+    B, L, C = x.shape
+    code, weights = _track_operands("fused_local_track_segments", params, x,
+                                    narrow_dilation, wide_dilation)
+    if tuple(broadcast_seg.shape) != (B, S, C) or S < 1:
+        raise ValueError(f"fused_local_track_segments: broadcast_seg "
+                         f"{tuple(broadcast_seg.shape)} is not (B, S, C) "
+                         f"with B={B}, C={C}")
+    if tuple(segment_ids.shape) != (B, L):
+        raise ValueError(f"fused_local_track_segments: segment_ids "
+                         f"{tuple(segment_ids.shape)} != {(B, L)}")
+    x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast_seg))
+    seg = segment_ids.to(torch.int32).contiguous()
+    out = torch.empty_like(x)
+    ops = (x, seg, bc, *weights, out)
+    check_cuda("fused_local_track_segments", *ops)
+    with torch.cuda.device(x.device):
+        LOCAL_TRACK_SEGMENTS.launch(code, *(t.data_ptr() for t in ops),
+                                    B, L, C, S, wide_dilation,
+                                    stream_ptr(x.device))
     return out
 
 

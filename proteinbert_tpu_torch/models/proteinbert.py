@@ -1,5 +1,5 @@
 """ProteinBERT dual-track model — port of
-`proteinbert_tpu/models/proteinbert.py` (the dense, unpacked path).
+`proteinbert_tpu/models/proteinbert.py` (dense and packed rows).
 
 Parameters are a plain nested dict in the JAX pytree's layout, with the
 blocks as a list (the JAX package stacks them for `lax.scan`; its flat
@@ -13,15 +13,19 @@ Block dataflow (reference modules.py:201-231):
   global: g = LN(g + gelu(dense(g)) + attention(x, g))
           g = LN(g + gelu(dense(g)))
 
-The local track is kernel K1 (`kernels/fused_block.fused_local_track`)
-and the attention kernel K2 (`kernels/attention.fused_global_attention`),
-in the order of the JAX two-kernel composition (kernels/one_pass.py
-:583-595): the attention reads the NEW local track and the OLD global
-track. On CUDA both always launch their Hopper kernels —
-`cfg.use_pallas` is ignored — and on the CPU their plain versions run.
-The two small products outside the kernels (global→local and the
-global-track denses) are plain matmuls, as the JAX package leaves them
-to XLA.
+Both tracks of a block go through the one-pass dispatch
+(`kernels/one_pass.fused_onepass_dense` / `fused_onepass_segments`), the
+JAX `use_pallas` branch: on CUDA kernel #6 where the reference's rule
+admits the shape, else K1 (dense) or #3 (packed) then K2 — the attention
+reads the NEW local track and the OLD global track either way. On CUDA
+the kernels always run (`cfg.use_pallas` is ignored); on the CPU their
+plain versions run. PACKED rows (data/packing.py) carry `segment_ids`
+(B, L) and a per-segment global track (B, S, G): the convs never cross a
+segment, each position gets its own segment's broadcast, and attention
+runs per segment, so a packed row is numerically a batch of independent
+proteins. The small products outside the kernels (global→local and the
+global-track denses) are plain matmuls, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import ModelConfig
 from proteinbert_tpu_torch.data.vocab import PAD_ID
 from proteinbert_tpu_torch.kernels import (
-    TRACK_PARAMS, fused_global_attention, fused_local_track,
+    TRACK_PARAMS, fused_onepass_dense, fused_onepass_segments,
 )
 from proteinbert_tpu_torch.ops.layers import (
     dense_apply, embedding_apply, gelu, layer_norm_apply,
@@ -139,37 +143,47 @@ def cast_block(block: Params, dtype: torch.dtype) -> Params:
 def block_apply(
     params: Params, local: torch.Tensor, global_: torch.Tensor,
     pad_mask: Optional[torch.Tensor], cfg: ModelConfig,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block. local (B, L, C), global_ (B, G), pad_mask (B, L) bool
-    True at real positions."""
+    True at real positions. PACKED rows: segment_ids (B, L) and global_
+    (B, S, G); pad_mask is then the real-token mask of the attention
+    (in-span <pad> of a ragged serving span still feeds the convs)."""
     broadcast = gelu(dense_apply(params["global_to_local"], global_))
     track = {k: params[k] for k in TRACK_PARAMS}
-    new_local = fused_local_track(track, local, broadcast, 1,
-                                  cfg.wide_dilation)
-    attn = fused_global_attention(params["attention"], new_local, global_,
-                                  pad_mask)
+    if segment_ids is not None:
+        local, attn = fused_onepass_segments(
+            track, params["attention"], local, broadcast, global_,
+            segment_ids, pad_mask, 1, cfg.wide_dilation)
+    else:
+        local, attn = fused_onepass_dense(
+            track, params["attention"], local, broadcast, global_, pad_mask,
+            1, cfg.wide_dilation)
     dense1 = gelu(dense_apply(params["global_dense1"], global_))
     global_ = layer_norm_apply(params["global_ln1"], global_ + dense1 + attn)
     global_ = layer_norm_apply(
         params["global_ln2"],
         global_ + gelu(dense_apply(params["global_dense2"], global_)))
-    return new_local, global_
+    return local, global_
 
 
 def encode(
     params: Params, tokens: torch.Tensor, annotations: torch.Tensor,
     cfg: ModelConfig, pad_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trunk forward: embeddings + N blocks → (local (B, L, C),
-    global (B, G)) in the activation dtype."""
+    global (B, G)) in the activation dtype. PACKED rows: segment_ids
+    (B, L) and annotations (B, S, A); global comes back (B, S, G)."""
     dtype = activation_dtype(cfg)
     if pad_mask is None:
-        pad_mask = tokens != PAD_ID
+        pad_mask = (segment_ids > 0 if segment_ids is not None
+                    else tokens != PAD_ID)
     local = embedding_apply(params["embedding"], tokens, dtype)
     global_ = gelu(dense_apply(params["global_in"], annotations.to(dtype)))
     for blk in params["blocks"]:
         local, global_ = block_apply(cast_block(blk, dtype), local, global_,
-                                     pad_mask, cfg)
+                                     pad_mask, cfg, segment_ids)
     return local, global_
 
 
@@ -193,10 +207,12 @@ def encode_trunk(
 def apply(
     params: Params, tokens: torch.Tensor, annotations: torch.Tensor,
     cfg: ModelConfig, pad_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass → (local_logits (B, L, V), global_logits (B, A)),
-    float32 LOGITS."""
-    local, global_ = encode(params, tokens, annotations, cfg, pad_mask)
+    float32 LOGITS; global_logits is (B, S, A) for packed rows."""
+    local, global_ = encode(params, tokens, annotations, cfg, pad_mask,
+                            segment_ids)
     local_logits = dense_apply(params["local_head"], local).float()
     global_logits = dense_apply(params["global_head"], global_).float()
     return local_logits, global_logits

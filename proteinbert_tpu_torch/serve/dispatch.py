@@ -1,5 +1,5 @@
-"""Bucketed shape-class dispatch — port of
-`proteinbert_tpu/serve/dispatch.py` (the fp32 arm of `BucketDispatcher`).
+"""Bucketed and ragged dispatch — port of `proteinbert_tpu/serve/
+dispatch.py` (the fp32 arms of `BucketDispatcher` and `RaggedDispatcher`).
 
 Online traffic is ragged. Each request is routed to the smallest length
 bucket that holds it (ascending, last == seq_len), and a micro-batch of
@@ -17,7 +17,7 @@ length, reassemble in input order.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,6 +33,14 @@ _BATCH_FNS = {
     "predict_go": inference._go_probs_batch,
     "predict_residues": inference._residue_probs_batch,
 }
+
+_PACKED_FNS = {
+    "embed": inference._packed_encode_batch,
+    "predict_go": inference._packed_go_probs_batch,
+    "predict_residues": inference._packed_residue_probs_batch,
+}
+
+Rider = Tuple[int, int, int, int]  # (row, segment index, start, span)
 
 
 def resolve_buckets(cfg: PretrainConfig, buckets=None) -> Tuple[int, ...]:
@@ -159,7 +167,7 @@ class BucketDispatcher:
             annotations = np.pad(annotations, ((0, cls - rows), (0, 0)))
         t1 = time.perf_counter()
         out = inference.run_batch(_BATCH_FNS[kind], self.params, self.cfg,
-                                  tokens, annotations, self.device)
+                                  tokens, annotations, device=self.device)
         if isinstance(out, dict):
             out = {k: v[:rows] for k, v in out.items()}
         else:
@@ -220,3 +228,124 @@ class BucketDispatcher:
                             res.dtype)
                     flat[sel, :L] = res
         return out if kind == "embed" else flat
+
+
+class RaggedDispatcher(BucketDispatcher):
+    """Ragged PACKED dispatch: one fixed shape (rows_per_batch, seq_len)
+    per request kind, fed the packed representation {tokens, segment_ids,
+    annotations} (data/packing.py) instead of a (bucket_len,
+    batch_class) ladder.
+
+    Requests are packed at BUCKET-QUANTIZED spans: a request's span is its
+    `bucket_len`, its tokens `[<sos> seq <eos> <pad>...]` fill the span,
+    and segment_ids cover the WHOLE span. That is what makes ragged
+    answers match the bucketed dispatcher's: the boundary-masked convs
+    zero the taps outside the span exactly as a 'SAME' conv sees the zero
+    halo at a (cls, bucket_len) row's edges, in-span <pad> positions feed
+    nearby taps as they do inside a bucketed row, and attention and
+    pooling leave in-span <pad> out through the real-token mask. The
+    bucket set is a span rule only; the device shape never changes.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: PretrainConfig,
+        buckets: Optional[Sequence[int]] = None,
+        rows_per_batch: int = 4,
+        max_segments: int = 8,
+        device: DeviceLike = None,
+    ):
+        if rows_per_batch < 1:
+            raise ValueError(f"rows_per_batch must be >= 1, "
+                             f"got {rows_per_batch}")
+        if max_segments < 1:
+            raise ValueError(f"max_segments must be >= 1, "
+                             f"got {max_segments}")
+        super().__init__(params, cfg, buckets=buckets,
+                         max_batch=rows_per_batch,
+                         batch_classes=(rows_per_batch,), device=device)
+        self.rows_per_batch = int(rows_per_batch)
+        self.max_segments = int(max_segments)
+
+    def run_timed(self, *args, **kwargs):
+        raise NotImplementedError(
+            "RaggedDispatcher consumes packed batches only — use "
+            "run_packed()/run_packed_timed() "
+            "(serve/scheduler.PackedBatchScheduler builds them)")
+
+    def run_packed(self, kind: str, tokens: np.ndarray,
+                   segment_ids: np.ndarray, annotations: np.ndarray,
+                   riders: Sequence[Rider]) -> List:
+        outs, _ = self.run_packed_timed(kind, tokens, segment_ids,
+                                        annotations, riders, timed=False)
+        return outs
+
+    def run_packed_timed(self, kind: str, tokens: np.ndarray,
+                         segment_ids: np.ndarray, annotations: np.ndarray,
+                         riders: Sequence[Rider], timed: bool = True):
+        """Run one packed batch: tokens/segment_ids (rows_per_batch,
+        seq_len), annotations (rows_per_batch, max_segments, A), `riders`
+        one (row, segment_index, start, span) per request, row-major,
+        segment_index 0-based. Returns (per-rider outputs aligned with
+        `riders`, timings); each output has the shape the bucketed
+        dispatcher returns for that request: {"global" (G,), "local_mean"
+        (C,)} / (A,) probs / (span, V) probs."""
+        if kind not in _PACKED_FNS:
+            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        R, L = tokens.shape
+        if (R, L) != (self.rows_per_batch, self.cfg.data.seq_len):
+            raise ValueError(
+                f"packed tokens shape {(R, L)} != the fixed "
+                f"({self.rows_per_batch}, {self.cfg.data.seq_len})")
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        if timed:
+            real = int((tokens != PAD_ID).sum())
+            timings["pad_fraction"] = round(1.0 - real / (R * L), 6)
+            timings["segments"] = len(riders)
+            timings["segments_per_row"] = round(len(riders) / R, 4)
+        host = inference.run_batch(_PACKED_FNS[kind], self.params, self.cfg,
+                                   tokens, segment_ids, annotations,
+                                   device=self.device)
+        outs = []
+        for row, seg, start, span in riders:
+            if kind == "embed":
+                outs.append({"global": host["global"][row, seg],
+                             "local_mean": host["local_mean"][row, seg]})
+            elif kind == "predict_go":
+                outs.append(host[row, seg])
+            else:  # the span lines up with the bucketed (bucket_len, V)
+                outs.append(host[row, start:start + span])
+        if timed:
+            timings["device_s"] = round(time.perf_counter() - t0, 9)
+        return outs, timings
+
+    def _dummy_packed(self):
+        """One valid packed batch (a minimal-span segment per row)."""
+        R, L = self.rows_per_batch, self.cfg.data.seq_len
+        span = self.buckets[0]
+        tokens = np.full((R, L), PAD_ID, np.int32)
+        tokens[:, 0] = SOS_ID
+        tokens[:, 1] = EOS_ID
+        seg = np.zeros((R, L), np.int32)
+        seg[:, :span] = 1
+        ann = np.zeros((R, self.max_segments,
+                        self.cfg.model.num_annotations), np.float32)
+        riders = [(r, 0, 0, span) for r in range(R)]
+        return tokens, seg, ann, riders
+
+    def warmup(self, kinds: Sequence[str] = ("embed",)) -> int:
+        """Run the ONE packed shape of each kind once; returns how many
+        ran."""
+        t0 = time.perf_counter()
+        tokens, seg, ann, riders = self._dummy_packed()
+        n = 0
+        for kind in kinds:
+            if kind not in KINDS:
+                raise ValueError(f"unknown request kind {kind!r}; "
+                                 f"have {KINDS}")
+            self.run_packed(kind, tokens, seg, ann, riders)
+            n += 1
+        self.warmup_seconds_total += time.perf_counter() - t0
+        return n

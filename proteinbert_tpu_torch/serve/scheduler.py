@@ -1,7 +1,7 @@
-"""Continuous micro-batching scheduler — port of
-`proteinbert_tpu/serve/scheduler.py` (`MicroBatchScheduler`, serial
-path: each batch is submitted and finalized on the scheduler thread, the
-JAX package's pipeline depth 1).
+"""Continuous micro-batching schedulers — port of
+`proteinbert_tpu/serve/scheduler.py` (`MicroBatchScheduler` and the
+ragged `PackedBatchScheduler`, serial path: each batch is submitted and
+finalized on the scheduler thread, the JAX package's pipeline depth 1).
 
 One daemon thread drains the request queue under a two-knob policy:
 
@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from proteinbert_tpu_torch.data.packing import OnlinePacker
 from proteinbert_tpu_torch.serve.errors import DeadlineExceededError
 from proteinbert_tpu_torch.serve.queue import Request, RequestQueue
 
@@ -82,7 +83,7 @@ class MicroBatchScheduler:
             return (self.batches_total, self.rows_total,
                     self.expired_total)
 
-    def _ingest(self) -> None:
+    def _ingest(self, now: float) -> None:
         items = self.queue.pop_all()
         if not items:
             return
@@ -93,6 +94,15 @@ class MicroBatchScheduler:
                 if group is None:
                     group = self._pending[key] = collections.deque()
                 group.append(req)
+
+    def _expire_requests(self, expired: List[Request], now: float) -> None:
+        with self._pending_lock:
+            self.expired_total += len(expired)
+        for req in expired:
+            req.future.set_exception(DeadlineExceededError(
+                f"deadline passed after "
+                f"{now - req.enqueued_at:.3f}s waiting for a batch"))
+            self._on_expire(req)
 
     def _expire_pending(self, now: float) -> None:
         expired: List[Request] = []
@@ -109,12 +119,7 @@ class MicroBatchScheduler:
                     self._pending[key] = keep
                 else:
                     del self._pending[key]
-            self.expired_total += len(expired)
-        for req in expired:
-            req.future.set_exception(DeadlineExceededError(
-                f"deadline passed after "
-                f"{now - req.enqueued_at:.3f}s waiting for a batch"))
-            self._on_expire(req)
+        self._expire_requests(expired, now)
 
     def _select_group(self, now: float) -> Optional[GroupKey]:
         """A full group first (fullest wins, ties to the oldest head),
@@ -138,7 +143,7 @@ class MicroBatchScheduler:
 
     # --------------------------------------------------------- dispatch
 
-    def _dispatch(self, key: GroupKey) -> int:
+    def _dispatch(self, key: GroupKey, now: float) -> int:
         kind, bucket_len = key
         with self._pending_lock:
             group = self._pending.get(key)
@@ -160,16 +165,26 @@ class MicroBatchScheduler:
         except Exception as e:  # fail THIS batch, keep serving
             logger.exception("batch dispatch failed (%s, L=%d, rows=%d)",
                              kind, bucket_len, len(batch))
-            for req in batch:
-                if not req.future.done():
-                    req.future.set_exception(e)
+            self._fail(batch, e)
             return len(batch)
+        if isinstance(result, dict):
+            rows = [{k: v[i] for k, v in result.items()}
+                    for i in range(len(batch))]
+        else:
+            rows = list(result)
+        self._complete(batch, rows)
+        return len(batch)
+
+    @staticmethod
+    def _fail(batch: List[Request], exc: Exception) -> None:
+        for req in batch:
+            if not req.future.done():
+                req.future.set_exception(exc)
+
+    def _complete(self, batch: List[Request], rows: List) -> None:
+        """Finalize each request of a dispatched batch with its row."""
         done_t = self.clock()
-        for i, req in enumerate(batch):
-            if isinstance(result, dict):
-                row = {k: v[i] for k, v in result.items()}
-            else:
-                row = result[i]
+        for req, row in zip(batch, rows):
             try:
                 self.finalize(req, row)
             except Exception as e:
@@ -179,19 +194,18 @@ class MicroBatchScheduler:
         with self._pending_lock:
             self.batches_total += 1
             self.rows_total += len(batch)
-        return len(batch)
 
     def poll(self, now: Optional[float] = None) -> int:
         """One scheduling step: ingest, expire, dispatch AT MOST one
         micro-batch. Returns rows dispatched (0 = idle)."""
         if now is None:
             now = self.clock()
-        self._ingest()
+        self._ingest(now)
         self._expire_pending(now)
         key = self._select_group(now)
         if key is None:
             return 0
-        return self._dispatch(key)
+        return self._dispatch(key, now)
 
     # ---------------------------------------------------------- threading
 
@@ -237,6 +251,164 @@ class MicroBatchScheduler:
             reqs = [req for group in self._pending.values()
                     for req in group]
             self._pending.clear()
+        failed = []
+        for req in reqs:
+            if not req.future.done():
+                req.future.set_exception(exc)
+                failed.append(req)
+        return failed
+
+
+class PackedBatchScheduler(MicroBatchScheduler):
+    """RAGGED packed batch formation: admission places each request into
+    an open packed row of its KIND by first-fit at its bucket-quantized
+    span (`data/packing.OnlinePacker`); one dispatch runs
+    `rows_per_batch` rows through the kind's fixed shape
+    (`serve/dispatch.RaggedDispatcher`), carrying up to
+    rows_per_batch x max_segments requests.
+
+    Dispatch policy, per KIND:
+    - a kind with MORE than `rows_per_batch` open rows dispatches its
+      oldest `rows_per_batch` at once (the extra row is the open
+      frontier, so the popped rows were already topped off by first-fit);
+    - otherwise a kind dispatches when the oldest request of any of its
+      open rows has waited `max_wait_s`, padding with empty rows;
+    - when the queue is closed (drain), rows flush oldest kind first.
+
+    Deadlines: every poll sweeps open rows (an expired request leaves a
+    dead span in its row — capacity, never correctness) and dispatch
+    re-checks at pop. Against `poll(now=)` the formation is a
+    deterministic function of arrival order and the clock.
+    """
+
+    def __init__(
+        self,
+        queue: RequestQueue,
+        dispatcher,
+        finalize: Callable[[Request, object], None],
+        rows_per_batch: int = 4,
+        max_wait_s: float = 0.01,
+        clock=time.monotonic,
+        max_segments: int = 8,
+        latency_observer: Optional[Callable[[float], None]] = None,
+        expire_observer: Optional[Callable[[Request], None]] = None,
+    ):
+        super().__init__(
+            queue, dispatcher, finalize, max_batch=rows_per_batch,
+            max_wait_s=max_wait_s, clock=clock,
+            latency_observer=latency_observer,
+            expire_observer=expire_observer)
+        self.rows_per_batch = int(rows_per_batch)
+        self.max_segments = int(max_segments)
+        self.seq_len = int(dispatcher.cfg.data.seq_len)
+        # kind -> OnlinePacker of open rows (payloads are Requests).
+        self._packers: "collections.OrderedDict[str, OnlinePacker]" = \
+            collections.OrderedDict()        # guarded-by: _pending_lock
+
+    # -------------------------------------------------------- formation
+
+    def pending_rows(self) -> int:
+        """Pending REQUESTS (not physical packed rows)."""
+        with self._pending_lock:
+            return sum(p.total_items() for p in self._packers.values())
+
+    def _ingest(self, now: float) -> None:
+        items = self.queue.pop_all()
+        if not items:
+            return
+        with self._pending_lock:
+            for req in items:
+                packer = self._packers.get(req.kind)
+                if packer is None:
+                    packer = self._packers[req.kind] = OnlinePacker(
+                        self.seq_len, self.max_segments)
+                packer.place(req, req.bucket_len)
+
+    def _expire_pending(self, now: float) -> None:
+        expired: List[Request] = []
+        with self._pending_lock:
+            for kind in list(self._packers):
+                packer = self._packers[kind]
+                expired.extend(packer.expire(
+                    lambda r: r.deadline is not None and now >= r.deadline))
+                if len(packer) == 0:
+                    del self._packers[kind]
+        self._expire_requests(expired, now)
+
+    def _select_group(self, now: float):
+        """A kind holding MORE than rows_per_batch open rows first (most
+        rows wins, ties to the oldest head), else the kind whose oldest
+        row-head request waited past max_wait_s, else — draining — the
+        oldest head outright."""
+        def oldest(packer) -> float:
+            return min(r.enqueued_at for r in packer.row_heads())
+
+        with self._pending_lock:
+            candidates = [(k, p) for k, p in self._packers.items()
+                          if len(p)]
+            full = [(len(p), -oldest(p), k) for k, p in candidates
+                    if len(p) > self.rows_per_batch]
+            if full:
+                return max(full)[2]
+            overdue = [(oldest(p), k) for k, p in candidates
+                       if now - oldest(p) >= self.max_wait_s]
+            if overdue:
+                return min(overdue)[1]
+            if self.queue.closed and candidates:
+                return min((oldest(p), k) for k, p in candidates)[1]
+            return None
+
+    # --------------------------------------------------------- dispatch
+
+    def _dispatch(self, key, now: float) -> int:
+        kind = key
+        R, L, S = self.rows_per_batch, self.seq_len, self.max_segments
+        with self._pending_lock:
+            packer = self._packers.get(kind)
+            if packer is None or len(packer) == 0:  # raced fail_pending
+                return 0
+            rows = packer.pop_rows(R)
+            if len(packer) == 0:
+                del self._packers[kind]
+        num_ann = self.dispatcher.cfg.model.num_annotations
+        tokens = np.zeros((R, L), np.int32)
+        segment_ids = np.zeros((R, L), np.int32)
+        annotations = np.zeros((R, S, num_ann), np.float32)
+        batch: List[Request] = []
+        riders: List[Tuple[int, int, int, int]] = []
+        expired: List[Request] = []
+        for r, row in enumerate(rows):
+            for s, (req, start, span) in enumerate(row):
+                if req.deadline is not None and now >= req.deadline:
+                    expired.append(req)  # raced in since the last sweep
+                    continue
+                tokens[r, start:start + span] = req.tokens
+                segment_ids[r, start:start + span] = s + 1
+                if req.annotations is not None:
+                    annotations[r, s] = req.annotations
+                batch.append(req)
+                riders.append((r, s, start, span))
+        self._expire_requests(expired, now)
+        if not batch:
+            return len(expired)
+        try:
+            outs = self.dispatcher.run_packed(kind, tokens, segment_ids,
+                                              annotations, riders)
+        except Exception as e:  # fail THIS batch, keep serving
+            logger.exception("packed batch dispatch failed "
+                             "(%s, rows=%d, segments=%d)", kind, R,
+                             len(batch))
+            self._fail(batch, e)
+            return len(batch)
+        self._complete(batch, outs)
+        return len(batch)
+
+    def fail_pending(self, exc: Exception) -> List[Request]:
+        with self._pending_lock:
+            reqs: List[Request] = []
+            for packer in self._packers.values():
+                reqs.extend(packer.drain_items())
+            self._packers.clear()
         failed = []
         for req in reqs:
             if not req.future.done():

@@ -1,5 +1,5 @@
-"""`Server` — the online-inference facade, bucketed mode — port of
-`proteinbert_tpu/serve/server.py`.
+"""`Server` — the online-inference facade, bucketed and ragged modes —
+port of `proteinbert_tpu/serve/server.py`.
 
 Ties the queue, scheduler, dispatcher and cache together behind the
 capabilities of the offline surface (inference.py): `embed`,
@@ -17,6 +17,11 @@ Request life cycle:
                                               max_batch/max_wait, then
                                               finalize per row: cache put
                                               + future.set_result
+
+`serve_mode="ragged"` replaces the (kind, bucket) grouping with packing:
+requests pack into fixed-shape (max_batch rows, seq_len) batches at their
+bucket-quantized spans (`RaggedDispatcher`, `PackedBatchScheduler`), up to
+`pack_max_segments` per row, and answer as the bucketed mode does.
 
 Shutdown is two-mode: `drain()` closes the queue (new submits raise
 ServerClosedError), finishes every queued request, then stops the
@@ -38,14 +43,19 @@ from proteinbert_tpu_torch import DeviceLike
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.serve.cache import EmbeddingCache, content_key
-from proteinbert_tpu_torch.serve.dispatch import KINDS, BucketDispatcher
+from proteinbert_tpu_torch.serve.dispatch import (
+    KINDS, BucketDispatcher, RaggedDispatcher,
+)
 from proteinbert_tpu_torch.serve.errors import (
     SequenceTooLongError, ServerClosedError,
 )
 from proteinbert_tpu_torch.serve.queue import Request, RequestQueue
-from proteinbert_tpu_torch.serve.scheduler import MicroBatchScheduler
+from proteinbert_tpu_torch.serve.scheduler import (
+    MicroBatchScheduler, PackedBatchScheduler,
+)
 
 REJECT_REASONS = ("queue_full", "deadline", "too_long", "closed")
+SERVE_MODES = ("bucketed", "ragged")
 
 
 def nearest_rank(sorted_values, fraction: float) -> Optional[float]:
@@ -101,10 +111,15 @@ class Server:
         clock=time.monotonic,
         warm_kinds=("embed",),
         batch_classes=None,
+        serve_mode: str = "bucketed",
+        pack_max_segments: int = 8,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
                              f"got {on_long!r}")
+        if serve_mode not in SERVE_MODES:
+            raise ValueError(f"serve_mode must be one of {SERVE_MODES}, "
+                             f"got {serve_mode!r}")
         self.cfg = cfg
         self.on_long = on_long
         self.default_deadline_s = default_deadline_s
@@ -112,14 +127,32 @@ class Server:
         self.cache = EmbeddingCache(cache_size)
         self.queue = RequestQueue(queue_depth)
         self.latencies = LatencyWindow()
-        self.dispatcher = BucketDispatcher(
-            params, cfg, buckets=buckets, max_batch=max_batch,
-            batch_classes=batch_classes, device=device)
-        self.scheduler = MicroBatchScheduler(
-            self.queue, self.dispatcher, self._finalize,
-            max_batch=max_batch, max_wait_s=max_wait_s, clock=clock,
-            latency_observer=self.latencies.observe,
-            expire_observer=self._count_expiry)
+        self.serve_mode = serve_mode
+        if serve_mode == "ragged":
+            # `max_batch` means packed ROWS per batch here; a batch
+            # carries up to max_batch * pack_max_segments requests.
+            if batch_classes is not None:
+                raise ValueError(
+                    "batch_classes is meaningless in ragged mode — the "
+                    "device shape is fixed at (max_batch, seq_len)")
+            self.dispatcher = RaggedDispatcher(
+                params, cfg, buckets=buckets, rows_per_batch=max_batch,
+                max_segments=pack_max_segments, device=device)
+            self.scheduler = PackedBatchScheduler(
+                self.queue, self.dispatcher, self._finalize,
+                rows_per_batch=max_batch, max_wait_s=max_wait_s,
+                clock=clock, max_segments=pack_max_segments,
+                latency_observer=self.latencies.observe,
+                expire_observer=self._count_expiry)
+        else:
+            self.dispatcher = BucketDispatcher(
+                params, cfg, buckets=buckets, max_batch=max_batch,
+                batch_classes=batch_classes, device=device)
+            self.scheduler = MicroBatchScheduler(
+                self.queue, self.dispatcher, self._finalize,
+                max_batch=max_batch, max_wait_s=max_wait_s, clock=clock,
+                latency_observer=self.latencies.observe,
+                expire_observer=self._count_expiry)
         self._warm_kinds = tuple(warm_kinds)
         self._started = False
         self.completed_total = 0  # one writer: the scheduler thread
@@ -307,6 +340,7 @@ class Server:
             }
         batches, rows, expired = self.scheduler.stats_counts()
         return {
+            "mode": self.serve_mode,
             "completed": self.completed_total,
             **mirrors,
             "warmup_seconds": round(self.dispatcher.warmup_seconds_total, 6),
