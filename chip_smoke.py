@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -18,9 +19,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               #6 at C=128 (G=512, H=4, v=128) and C=256 (G=512, H=8), dense
               (a half-padded and an all-pad row) and packed (S=8, an empty
               segment that must come back +0.0);
-              cross-segment isolation of #3 and #6 bit for bit. Prints
-              max |kernel - plain| against its tolerance, kernel and plain ms
-              (CUDA events, median of 25), the bound and launches per call.
+              cross-segment isolation of #3 and #6 bit for bit;
+              #2 at ProteinBERT-Large width (C=1024, B=8) in bf16 and fp32,
+              L in {128, 1024} timed, L=100 with a constant (all-<pad>) row;
+              K2 at Large width (C=G=1024, H=16, L=1024) timed, and at
+              value_dim 128 (C=256, G=512, H=4). Prints max |kernel - plain|
+              against its tolerance, kernel and plain ms (CUDA events, median
+              of 25), the bound and launches per call.
+   gradients — every autograd Function (K1 and #2 through
+              `fused_local_track`, #3, K2, #6): the grads of sum(out * r)
+              through the kernel against plain autograd on the card, fp32
+              and bf16; then a 2-block fp32 Large-width train step's loss and
+              grads on the card against the same step on the CPU plain path.
 3. reference — a base-width float32 trunk through the kernels on the card
               against the plain path on the CPU, on a small input; then a
               float32 2-block base-width trunk served ragged and bucketed on
@@ -39,7 +49,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               torch.profiler breakdown of one full 8x512 batch. Every
               kernel count is set to 0 just before each server's traffic and
               read just after it.
-5. report   — the kernel JSON line, the card's name and power limit, and the
+5. train    — `pretrain()` on the `large` preset at full depth and width
+              (12 blocks, C=G=1024, H=16, 8943 annotations), bf16, seq_len
+              1024, B=8, synthetic proteins of 100-1022 residues, 6 steps (1
+              warm, 5 timed): finite losses, params moved by step 2, exactly
+              12 launches of #2 and of K2 per step and none of the others;
+              step ms, tokens/s, MFU, peak memory and a split of one step.
+              Then 2 steps of the `base` preset (B=8, L=512): exactly 6 of K1
+              and of K2 per step. Counts are zeroed before each run.
+6. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 """
 
@@ -49,6 +67,7 @@ import dataclasses
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -78,7 +97,20 @@ TOL = {("local_track", torch.float32): 1e-4,
        ("local_track_segments", torch.float32): 1e-4,
        ("local_track_segments", torch.bfloat16): 0.0625,
        ("one_pass", torch.float32): 1e-4,
-       ("one_pass", torch.bfloat16): 0.0625}
+       ("one_pass", torch.bfloat16): 0.0625,
+       ("local_track_tiled", torch.float32): 1e-4,
+       ("local_track_tiled", torch.bfloat16): 0.0625}
+# Gradients through a kernel's autograd Function against plain autograd,
+# as a share of the largest |grad|: both arms differentiate the same plain
+# recompute, so they differ only by the order of cuDNN's and cuBLAS's
+# float32 sums (fp32) and, in bf16, by a grad that lands next to a rounding
+# boundary and rounds the other way (one bf16 step, 2^-8 relative).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+STEP_LOSS_TOL = 1e-4   # 2-block fp32 train step, card vs CPU plain path
+STEP_GRAD_TOL = 1e-3
+# Device-code names of the hand-written kernels, as the profiler lists them.
+KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
+                "tiled_conv_kernel", "tiled_finish_kernel")
 REF_TOL = 1e-3        # float32 trunk, 2 blocks: kernels vs CPU plain path
 RAGGED_TOL = 1e-3     # float32 trunk, 2 blocks: ragged vs bucketed answers
 SERVE_EMBED_TOL = 0.05  # bf16 trunk: served batch row vs the row run alone
@@ -459,6 +491,490 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
                           f"C={width} {case}")] = (err,) + timing
 
 
+def large_kernel_phase(card: str, rows: dict) -> None:
+    """#2 at ProteinBERT-Large width (C=1024) against K1's plain version,
+    bf16 and fp32, B=8, L in {128, 1024} timed and L=100 with a constant
+    row (a row of <pad> embeddings); K2 at Large width (C=G=1024, H=16,
+    L=1024) and at value_dim 128 (C=256, G=512, H=4)."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, LOCAL_TRACK_TILED, TRACK_PARAMS, attention_oh_reference,
+        fused_global_attention, fused_local_track, local_track_reference,
+    )
+    from proteinbert_tpu_torch.kernels.attention import attention_flops
+    from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+
+    large = get_preset("large").model
+    gen = torch.Generator().manual_seed(21)
+    dev = torch.device(DEVICE)
+    block = to_device(block_init(gen, large), dev)
+    C, G, H, k = large.local_dim, large.global_dim, large.num_heads, \
+        large.key_dim
+    wd = large.wide_dilation
+    small = dataclasses.replace(large, local_dim=256, global_dim=512,
+                                num_heads=4)
+    v128 = to_device(block_init(gen, small), dev)
+
+    def launches(kernel, fn):
+        n0 = kernel.launches
+        fn()
+        return kernel.launches - n0
+
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        cast = cast_block(block, dtype)
+        track = {name: cast[name] for name in TRACK_PARAMS}
+        attn = cast["attention"]
+        for L in (128, 1024, 100):
+            B = 8
+            x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+            if L == 100:
+                x[1] = x[1, :1]           # every position the same vector
+            bc = torch.randn((B, C), generator=gen).to(dev, dtype)
+            got = fused_local_track(track, x, bc, 1, wd)
+            want = local_track_reference(track, x, bc, 1, wd)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all().item(),
+                  "local_track_tiled non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            timing = (None,) * 5
+            if L != 100:
+                nbytes = (2 * B * L * C + B * C + 19 * C * C) * s + 7 * C * 4
+                b_ms, b_by = bound(local_track_flops(B, L, C), nbytes, dtype)
+                per_call = launches(LOCAL_TRACK_TILED, lambda: fused_local_track(
+                    track, x, bc, 1, wd))
+                check(per_call == 1, f"local_track_tiled launched {per_call} "
+                                     "times in one call")
+                timing = (time_ms(lambda: fused_local_track(track, x, bc, 1,
+                                                            wd)),
+                          time_ms(lambda: local_track_reference(track, x, bc,
+                                                                1, wd)),
+                          b_ms, b_by, per_call)
+            rows[("local_track_tiled", dtype, L, "dense")] = (err,) + timing
+
+        # K2 at Large width, dense rows, a half-padded and an all-pad row.
+        B, L = 8, 1024
+        x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+        g = torch.randn((B, G), generator=gen).to(dev, dtype)
+        pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+        pad[1, L // 2:] = False
+        pad[2, :] = False
+        oh = pad[..., None].float()
+        got = fused_global_attention(attn, x, g, pad)
+        want = attention_oh_reference(attn, x, g[:, None, :], oh,
+                                      zero_empty=False).reshape(B, G)
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item(), "Large attention non-finite")
+        err = (got.float() - want.float()).abs().max().item()
+        nbytes = ((B * L * C + B * G * 2 + H * (G * k + 2 * C * k)) * s
+                  + B * L * 4)
+        b_ms, b_by = bound(attention_flops(B, L, C, G, 1, H, k), nbytes, dtype)
+        per_call = launches(ATTENTION, lambda: fused_global_attention(
+            attn, x, g, pad))
+        rows[("global_attention", dtype, L, "Large")] = (
+            err, time_ms(lambda: fused_global_attention(attn, x, g, pad)),
+            time_ms(lambda: attention_oh_reference(attn, x, g[:, None, :], oh,
+                                                   zero_empty=False)),
+            b_ms, b_by, per_call)
+
+        # K2 at value_dim 128 (G=512, H=4), a shape the one-pass rule sends
+        # to the composition in fp32 at L=512.
+        a128 = cast_block(v128, dtype)["attention"]
+        x = torch.randn((B, 512, 256), generator=gen).to(dev, dtype)
+        g = torch.randn((B, 512), generator=gen).to(dev, dtype)
+        pad = torch.ones((B, 512), dtype=torch.bool, device=dev)
+        pad[1, 200:] = False
+        got = fused_global_attention(a128, x, g, pad)
+        want = attention_oh_reference(a128, x, g[:, None, :],
+                                      pad[..., None].float(),
+                                      zero_empty=False).reshape(B, 512)
+        torch.cuda.synchronize()
+        rows[("global_attention", dtype, 512, "v=128")] = (
+            (got.float() - want.float()).abs().max().item(),
+            None, None, None, None, None)
+
+
+# ------------------------------------------------------------ gradients
+
+def grad_phase(card: str) -> None:
+    """Each autograd Function on the card: the grads of sum(out * r)
+    (every float input: weights, activations, broadcast and global rows)
+    through the kernel wrapper against plain autograd through the plain
+    version, fp32 and bf16."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        TRACK_PARAMS, attention_oh_reference, fused_attention,
+        fused_local_track, fused_local_track_segments, local_track_reference,
+        local_track_segment_oh_reference, onepass_oh_reference,
+        segment_one_hot,
+    )
+    from proteinbert_tpu_torch.kernels.one_pass import fused_onepass
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+
+    gen = torch.Generator().manual_seed(31)
+    dev = torch.device(DEVICE)
+    base, large = get_preset("base").model, get_preset("large").model
+    default = ModelConfig()
+    blocks = {name: to_device(block_init(gen, cfg), dev)
+              for name, cfg in (("base", base), ("large", large),
+                                ("default", default))}
+    B, L, S = 2, 128, 8
+
+    def grads(fn, inputs):
+        outs = fn(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        total = sum((o.float() * rr).sum() for o, rr in zip(outs, r_of(outs)))
+        return torch.autograd.grad(total, [t for t in leaves(inputs)])
+
+    r_cache = {}
+
+    def r_of(outs):
+        key = tuple(tuple(o.shape) for o in outs)
+        if key not in r_cache:
+            r_cache[key] = [torch.randn(o.shape, generator=gen).to(dev)
+                            for o in outs]
+        return r_cache[key]
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in leaves(v)]
+        if torch.is_tensor(tree) and tree.requires_grad:
+            return [tree]
+        return []
+
+    def rg(tree):
+        """Fresh leaf copies that require grad."""
+        if isinstance(tree, dict):
+            return {k: rg(v) for k, v in tree.items()}
+        return tree.detach().clone().requires_grad_(True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen).to(dev, dtype)
+
+        seg = packed_ids(gen, B, L, S).to(dev)
+        oh = segment_one_hot(seg, S)
+        real = (torch.rand((B, L), generator=gen) > 0.1).to(dev)
+        cases = {}
+        for name, width in (("K1", "base"), ("#2", "large")):
+            cast = cast_block(blocks[width], dtype)
+            C = cast["local_ln1"]["scale"].shape[0]
+            track = rg({n: cast[n] for n in TRACK_PARAMS})
+            x, bc = rg(rand(B, L, C)), rg(rand(B, C))
+            cases[name] = (
+                lambda t, xx, bb: fused_local_track(t, xx, bb, 1, 5),
+                lambda t, xx, bb: local_track_reference(t, xx, bb, 1, 5),
+                (track, x, bc))
+        cast = cast_block(blocks["base"], dtype)
+        C, G = base.local_dim, base.global_dim
+        track = rg({n: cast[n] for n in TRACK_PARAMS})
+        cases["#3"] = (
+            lambda t, xx, bb: fused_local_track_segments(t, xx, bb, seg, 1, 5),
+            lambda t, xx, bb: local_track_segment_oh_reference(
+                t, xx, bb, oh, 1, 5),
+            (track, rg(rand(B, L, C)), rg(rand(B, S, C))))
+        attn = rg(cast["attention"])
+        cases["K2"] = (
+            lambda a, xx, gg: fused_attention(a, xx, gg, oh * real[..., None]),
+            lambda a, xx, gg: attention_oh_reference(
+                a, xx, gg, oh * real[..., None]),
+            (attn, rg(rand(B, L, C)), rg(rand(B, S, G))))
+        cast = cast_block(blocks["default"], dtype)
+        C, G = default.local_dim, default.global_dim
+        track = rg({n: cast[n] for n in TRACK_PARAMS})
+        attn = rg(cast["attention"])
+        cases["#6"] = (
+            lambda t, a, xx, bb, gg: fused_onepass(t, a, xx, bb, gg, seg,
+                                                   real, 1, 5, True),
+            lambda t, a, xx, bb, gg: onepass_oh_reference(
+                t, a, xx, bb, gg, oh, real[..., None].float(), 1, 5, True,
+                True),
+            (track, attn, rg(rand(B, L, C)), rg(rand(B, S, C)),
+             rg(rand(B, S, G))))
+        for name, (kernel_fn, plain_fn, inputs) in cases.items():
+            got = grads(kernel_fn, inputs)
+            want = grads(plain_fn, inputs)
+            torch.cuda.synchronize()
+            scale = max(w.float().abs().max().item() for w in want)
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want)) / max(scale, 1e-30)
+            check(all(torch.isfinite(a).all().item() for a in got),
+                  f"{name} grads non-finite")
+            print(f"# grad {name:3s} {str(dtype)[6:]:9s} {len(got):3d} inputs: "
+                  f"max |kernel - plain| / max|grad| {err:.3e} "
+                  f"(tol {GRAD_TOL[dtype]:.1e}) [{card}]")
+            check(err <= GRAD_TOL[dtype], f"{name} {dtype} grads: {err}")
+
+
+def reference_step_phase(card: str) -> None:
+    """A 2-block fp32 train step at Large width (C=G=1024, H=16, 8943
+    annotations), B=2, L=128: the loss and every grad on the card (through
+    #2 and K2) against the same params and corrupted batch on the CPU
+    plain path; then the optimizer update on the card."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.data.corruption import corrupt_batch
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK_TILED
+    from proteinbert_tpu_torch.models.proteinbert import init, to_device
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.schedule import make_optimizer, tree_leaves
+
+    large = get_preset("large")
+    cfg = large.replace(
+        model=dataclasses.replace(large.model, dtype="float32", num_blocks=2),
+        optimizer=dataclasses.replace(large.optimizer, warmup_steps=0,
+                                      schedule="constant"))
+    params = init(cfg.model, torch.Generator().manual_seed(41), device="cpu")
+    rng = np.random.default_rng(41)
+    tokens = rng.integers(4, 26, (2, 128)).astype(np.int32)
+    tokens[:, 0], tokens[0, 90], tokens[0, 91:] = 1, 2, 0
+    ann = (rng.random((2, cfg.model.num_annotations)) < 0.01).astype(
+        np.float32)
+    X, Y, W = corrupt_batch(torch.Generator().manual_seed(42),
+                            torch.from_numpy(tokens), torch.from_numpy(ann))
+    want_g, want_m = ts.loss_and_grads(params, X, Y, W, cfg)
+    dev = torch.device(DEVICE)
+    on = {k: {n: t.to(dev) for n, t in d.items()} for k, d in
+          (("X", X), ("Y", Y), ("W", W))}
+    card_params = to_device(params, dev)
+    n0 = (LOCAL_TRACK_TILED.launches, ATTENTION.launches)
+    got_g, got_m = ts.loss_and_grads(card_params, on["X"], on["Y"], on["W"],
+                                     cfg)
+    torch.cuda.synchronize()
+    check((LOCAL_TRACK_TILED.launches - n0[0], ATTENTION.launches - n0[1])
+          == (2, 2), "reference step did not run #2 and K2 once a block")
+    loss_err = abs(float(got_m["loss"]) - float(want_m["loss"]))
+    grad_err = max((a.cpu() - b).abs().max().item()
+                   for a, b in zip(got_g, want_g))
+    print(f"# reference step: 2-block fp32 Large width, B=2 L=128, card vs "
+          f"CPU plain path: loss {float(got_m['loss']):.6f} |diff| "
+          f"{loss_err:.3e} (tol {STEP_LOSS_TOL}), grads max |diff| "
+          f"{grad_err:.3e} over {len(got_g)} tensors (tol {STEP_GRAD_TOL}) "
+          f"[{card}]")
+    check(loss_err <= STEP_LOSS_TOL, f"reference step loss {loss_err}")
+    check(grad_err <= STEP_GRAD_TOL, f"reference step grads {grad_err}")
+    tx = make_optimizer(cfg.optimizer)
+    before = [t.clone() for t in tree_leaves(card_params)]
+    ts.gradient_update(tx, card_params, got_g, tx.init(card_params))
+    after = tree_leaves(card_params)
+    check(all(torch.isfinite(t).all().item() for t in after)
+          and any(not torch.equal(a, b) for a, b in zip(before, after)),
+          "the optimizer update on the card did not move the params")
+
+
+# ------------------------------------------------------------ train
+
+def synthetic_proteins(n: int, lo: int, hi: int, num_annotations: int,
+                       seed: int):
+    """n random proteins of lo..hi residues with ~0.5% positive
+    annotations (the density of `make_random_proteins`)."""
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list(ALPHABET))
+    seqs = ["".join(letters[rng.integers(0, len(letters),
+                                         int(rng.integers(lo, hi + 1)))])
+            for _ in range(n)]
+    ann = (rng.random((n, num_annotations)) < 0.005).astype(np.float32)
+    return seqs, ann
+
+
+def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
+              residues: tuple, seed: int):
+    """`pretrain()` for `steps` steps with every kernel count at 0: the
+    launches of each step (exactly per_step[name], 0 for a kernel not
+    named), finite losses, params moved by step 2. Returns (state, the
+    out dict, per-step wall ms, launches, peak bytes, a clean batch)."""
+    from proteinbert_tpu_torch.data.dataset import (
+        InMemoryPretrainingDataset, make_pretrain_iterator,
+    )
+    from proteinbert_tpu_torch.kernels import KERNELS
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.train_state import create_train_state
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    B, L = cfg.data.batch_size, cfg.data.seq_len
+    seqs, ann = synthetic_proteins(4 * B, *residues,
+                                   cfg.model.num_annotations, seed)
+    ds = InMemoryPretrainingDataset(seqs, ann, L)
+    batch = ds.get_batch(np.arange(B))
+    state = create_train_state(torch.Generator().manual_seed(seed), cfg,
+                               device=DEVICE)
+    start = [t.clone() for t in tree_leaves(state.params)]
+    marks = []
+
+    def log_fn(step, m):
+        # Called after the step's metrics reached the host (a sync).
+        marks.append((step, time.perf_counter(), m["loss"],
+                      {k.name: k.launches for k in KERNELS}))
+        if step == 2:
+            marks[-1] += (any(not torch.equal(a, b) for a, b in
+                              zip(start, tree_leaves(state.params))),)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = pretrain(cfg, make_pretrain_iterator(ds, B, seed=seed),
+                   state=state, log_fn=log_fn, device=DEVICE)
+    total = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    check(len(marks) == steps, f"{label}: {len(marks)} log points")
+    prev_t, prev_n = t0, {k.name: 0 for k in KERNELS}
+    walls = []
+    for mark in marks:
+        step, t, loss, counts = mark[:4]
+        check(np.isfinite(loss), f"{label}: step {step} loss {loss}")
+        for name, n in counts.items():
+            got = n - prev_n[name]
+            check(got == per_step.get(name, 0),
+                  f"{label}: step {step} launched {name} {got} times, want "
+                  f"{per_step.get(name, 0)}")
+        walls.append((t - prev_t) * 1e3)
+        prev_t, prev_n = t, counts
+    check(marks[1][4], f"{label}: params unchanged after step 2")
+    losses = ", ".join(f"{m[2]:.4f}" for m in marks)
+    print(f"# train {label}: {steps} steps B={B} L={L}, losses [{losses}], "
+          f"launches {total}")
+    return out, walls, total, peak, batch
+
+
+def profile_step(card: str, label: str, state, batch, cfg) -> None:
+    """Where one train step's time goes: CUDA-event-bracketed phases
+    (corrupt + copy, forward, backward, optimizer), then torch.profiler
+    over one whole `train_step` for the device's busy share and the
+    largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from proteinbert_tpu_torch.models import proteinbert
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.loss import pretrain_loss
+    from proteinbert_tpu_torch.train.schedule import (
+        make_optimizer, tree_leaves,
+    )
+
+    leaves = tree_leaves(state.params)
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    X, Y, W, _ = ts.corrupt_for_step(state, batch, cfg)
+    mark()
+    with torch.enable_grad():
+        for t in leaves:
+            t.requires_grad_(True)
+        ll, gl = proteinbert.apply(state.params, X["local"], X["global"],
+                                   cfg.model, W["local"] > 0)
+        loss, _ = pretrain_loss(ll, gl, Y, W)
+        mark()
+        grads = torch.autograd.grad(loss, leaves)
+        mark()
+    for t in leaves:
+        t.requires_grad_(False)
+    tx = make_optimizer(cfg.optimizer)
+    ts.gradient_update(tx, state.params, grads, state.opt_state, loss, True)
+    mark()
+    names = ("corrupt + host->device", "forward (kernels + plain ops)",
+             "backward (plain recompute + grads)", "optimizer")
+    wall = marks[-1] - marks[0]
+    print(f"# profile {label} [{card}]: one step {wall * 1e3:.1f} ms, "
+          "phases synchronized:")
+    for name, a, b in zip(names, marks, marks[1:]):
+        print(f"#   {(b - a) * 1e3:9.1f} ms {100 * (b - a) / wall:5.1f}%  "
+              f"{name}")
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts.train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+    prof_wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + ms)
+    if not by_name:
+        print(f"# profile {label}: the profiler recorded no device time "
+              "(device breakdown not measured)")
+        return
+    busy = sum(t for _, t in by_name.values())
+    ours = sum(t for name, (_, t) in by_name.items()
+               if any(k in name for k in KERNEL_NAMES))
+    print(f"# profile {label} [{card}]: profiled step wall {prof_wall:.1f} "
+          f"ms, device busy {busy:.1f} ms ({100 * busy / prof_wall:.1f}%; "
+          f"host gaps {100 * (1 - busy / prof_wall):.1f}%), hand-written "
+          f"forward kernels {ours:.1f} ms ({100 * ours / busy:.1f}% of busy)")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"#   {t:9.3f} ms {100 * t / busy:5.1f}%  x{n:<4d} {name[:80]}")
+
+
+def train_phases(card: str) -> dict:
+    """The trained paths: Large (#2 + K2) and base (K1 + K2); returns each
+    kernel's launches summed over both runs."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, LOCAL_TRACK, LOCAL_TRACK_TILED,
+    )
+    from proteinbert_tpu_torch.train.metrics import peak_flops
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+
+    def preset(name, B, L, steps):
+        p = get_preset(name)
+        return p.replace(
+            data=dataclasses.replace(p.data, batch_size=B, seq_len=L),
+            train=dataclasses.replace(p.train, max_steps=steps, log_every=1,
+                                      eval_every=0))
+
+    totals = {}
+    large = preset("large", 8, 1024, 6)
+    out, walls, launches, peak, batch = train_run(
+        card, "large", large, 6, {LOCAL_TRACK_TILED.name: 12,
+                                  ATTENTION.name: 12}, (100, 1022), 0)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    perf = out["perf"]
+    med = statistics.median(walls[1:])
+    n_params = sum(t.numel() for t in tree_leaves(out["state"].params))
+    m = large.model
+    print(f"# train large [{card}]: {m.num_blocks} blocks C={m.local_dim} "
+          f"G={m.global_dim} H={m.num_heads} A={m.num_annotations}, "
+          f"{m.dtype}, B=8 L=1024, {n_params} params; step ms median of 5 "
+          f"{med:.1f} (steps {', '.join(f'{w:.1f}' for w in walls)}); "
+          f"pretrain perf {perf['step_ms']:.1f} ms/step, "
+          f"{perf['tokens_per_sec']:.0f} tokens/s, MFU "
+          f"{perf.get('mfu', float('nan')):.4f} of "
+          f"{peak_flops(torch.device(DEVICE), 'bfloat16') or float('nan'):.3g}"
+          f" FLOP/s; max_memory_allocated {peak / 1e9:.2f} GB")
+    profile_step(card, "train large, one step B=8 L=1024", out["state"], batch,
+                 large)
+
+    base = preset("base", 8, 512, 2)
+    out, walls, launches, peak, _ = train_run(
+        card, "base", base, 2, {LOCAL_TRACK.name: 6, ATTENTION.name: 6},
+        (100, 510), 1)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    m = base.model
+    print(f"# train base [{card}]: {m.num_blocks} blocks C={m.local_dim} "
+          f"G={m.global_dim} H={m.num_heads}, {m.dtype}, B=8 L=512, "
+          f"step ms {', '.join(f'{w:.1f}' for w in walls)}; "
+          f"max_memory_allocated {peak / 1e9:.2f} GB")
+    return totals
+
+
 # ------------------------------------------------------------ phase 3
 
 def reference_phase():
@@ -783,7 +1299,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from proteinbert_tpu_torch.kernels import (
-        ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ONEPASS,
+        ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_TILED, ONEPASS,
     )
     from proteinbert_tpu_torch.kernels.build import build_all
 
@@ -797,16 +1314,33 @@ def main() -> int:
     build_all(KERNELS)
     print(f"# build: {time.perf_counter() - t0:.1f} s")
     for k in KERNELS:
-        for line in k.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"#   {k.name}: {line.strip()}")
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers",
+                                           k.ptxas_log)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores",
+                                             k.ptxas_log)]
+        print(f"#   {k.name}: {len(regs)} instantiations, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+              f"max {max(spills, default=0)} bytes")
 
+    t0 = time.perf_counter()
     rows = kernel_phase(card)
     packed_kernel_phase(card, rows)
+    large_kernel_phase(card, rows)
     print_rows(card, rows)
+    print(f"# kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grad_phase(card)
     reference_phase()
+    reference_step_phase(card)
     ragged_parity_phase()
+    print(f"# gradients and references: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches = serve_phases(card)
+    print(f"# serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in train_phases(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# train: {time.perf_counter() - t0:.1f} s")
 
     # (source, TPU launch site, the served shape its row was timed at)
     ported = {
@@ -826,6 +1360,10 @@ def main() -> int:
             "proteinbert_tpu_torch/csrc/one_pass.cu",
             "proteinbert_tpu/kernels/one_pass.py:380", 512, "C=128 S=8",
             "B=8 L=512 C=128 G=512 H=4 k=64 v=128 S=8 bf16"),
+        LOCAL_TRACK_TILED.name: (
+            "proteinbert_tpu_torch/csrc/local_track_tiled.cu",
+            "proteinbert_tpu/kernels/fused_block.py:881", 1024, "dense",
+            "B=8 L=1024 C=1024 bf16"),
     }
     report = []
     for k in KERNELS:
@@ -833,7 +1371,7 @@ def main() -> int:
         err, ms, plain, b_ms, b_by, _ = rows[(k.name, torch.bfloat16, L,
                                               case)]
         check(launches[k.name] > 0, f"{k.name} never launched on a served "
-                                    "path")
+                                    "or trained path")
         report.append({"name": k.name, "route": "cuda", "source": src,
                        "replaces": tpu, "launches": launches[k.name],
                        "max_abs_err": err, "ms": ms, "plain_ms": plain,

@@ -12,6 +12,7 @@ from proteinbert_tpu_torch.kernels.attention import (
 from proteinbert_tpu_torch.kernels.fused_block import (
     LOCAL_TRACK,
     LOCAL_TRACK_SEGMENTS,
+    LOCAL_TRACK_TILED,
     TRACK_PARAMS,
     fused_local_track,
     fused_local_track_segments,
@@ -27,14 +28,16 @@ from proteinbert_tpu_torch.kernels.one_pass import (
     onepass_oh_reference,
 )
 
-# Every kernel of the serving paths: K1, #3, K2, #6.
-KERNELS = (LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ATTENTION, ONEPASS)
+# Every kernel of the served and trained paths: K1, #3, K2, #6, #2.
+KERNELS = (LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ATTENTION, ONEPASS,
+           LOCAL_TRACK_TILED)
 
 __all__ = [
     "ATTENTION",
     "KERNELS",
     "LOCAL_TRACK",
     "LOCAL_TRACK_SEGMENTS",
+    "LOCAL_TRACK_TILED",
     "ONEPASS",
     "TRACK_PARAMS",
     "attention_oh_reference",

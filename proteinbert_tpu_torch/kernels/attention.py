@@ -1,5 +1,5 @@
 """K2 — global attention over a one-hot segment mask: plain PyTorch
-version and CUDA wrappers.
+version, CUDA wrappers and its gradient.
 
 Port of `proteinbert_tpu/kernels/attention.py` (`_attention_kernel` /
 `_attention_body`; entries `fused_global_attention`, S=1, and
@@ -10,9 +10,13 @@ weightsᵀ·V; heads concatenate. With `zero_empty`, a segment with no
 position gets an exact 0.
 
 The wrappers run the hand-written Hopper kernel
-(`csrc/global_attention.cu`) on CUDA tensors and the plain version
-`attention_oh_reference` on CPU tensors. A CUDA call the kernel does not
-cover raises ValueError; nothing falls back.
+(`csrc/global_attention.cu`, key_dim 64, value_dim 64 or 128) on CUDA
+tensors and the plain version `attention_oh_reference` on CPU tensors. A
+CUDA call the kernel does not cover raises ValueError; nothing falls
+back. `fused_attention`, which both entries go through, is differentiable
+(`kernels/autograd.recompute_vjp`): the forward saves only its inputs and
+the backward recomputes the plain version, as the JAX `_bwd_attention`
+does.
 
 Rounding points are the TPU kernel's (attention.py:195-228), which the
 plain version repeats: projections accumulate in float32 and are
@@ -28,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
@@ -40,7 +45,8 @@ ATTENTION = Kernel(
     [INT] + [PTR] * 7 + [INT] * 7 + [PTR])
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIM = 64   # key_dim == value_dim
+KERNEL_HEAD_DIM = 64   # key_dim
+KERNEL_VALUE_DIMS = (64, 128)
 KERNEL_MAX_SEGMENTS = 16
 KERNEL_MAX_SCORES = 40960  # L·S float32 scores held in shared memory
 MASK_VALUE = -1e30
@@ -80,30 +86,24 @@ def attention_oh_reference(
     return out.reshape(b, s, h * vd).to(dtype)
 
 
-def fused_attention(
-    params: Params, local: torch.Tensor, global_seg: torch.Tensor,
-    seg_oh: torch.Tensor, zero_empty: bool = True,
-) -> torch.Tensor:
-    """The one-hot attention of `attention_oh_reference`: CUDA → the
-    kernel (or ValueError), CPU → the plain version."""
-    if local.device.type == "cpu":
-        return attention_oh_reference(params, local, global_seg, seg_oh,
-                                      zero_empty)
-    if local.device.type != "cuda":
-        raise ValueError(f"fused_attention: unsupported device "
-                         f"{local.device}")
+def check_attention_shapes(params: Params, local: torch.Tensor,
+                           global_seg: torch.Tensor,
+                           seg_oh: torch.Tensor) -> None:
+    """Raise ValueError unless K2 covers these operands: bf16/fp32,
+    key_dim 64, value_dim 64 or 128 with G == H·value_dim, C % 32 == 0,
+    1 <= S <= 16 and L·S scores in shared memory."""
     B, L, C = local.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    dtype = local.dtype
     H, _, key_dim = params["wq"].shape
     value_dim = params["wv"].shape[-1]
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"fused_attention: no kernel for {dtype}")
-    if (key_dim != KERNEL_HEAD_DIM or value_dim != KERNEL_HEAD_DIM
+    if local.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"fused_attention: no kernel for {local.dtype}")
+    if (key_dim != KERNEL_HEAD_DIM or value_dim not in KERNEL_VALUE_DIMS
             or G != H * value_dim or C % 32):
         raise ValueError(
-            f"fused_attention: the kernel covers key_dim == value_dim == "
-            f"{KERNEL_HEAD_DIM} and C % 32 == 0; got key_dim {key_dim}, "
+            f"fused_attention: the kernel covers key_dim "
+            f"{KERNEL_HEAD_DIM}, value_dim in {KERNEL_VALUE_DIMS} with "
+            f"G == H·value_dim, and C % 32 == 0; got key_dim {key_dim}, "
             f"value_dim {value_dim}, G {G}, H {H}, C {C}")
     if not 1 <= S <= KERNEL_MAX_SEGMENTS or L * S > KERNEL_MAX_SCORES:
         raise ValueError(f"fused_attention: S={S}, L={L} outside the "
@@ -112,6 +112,19 @@ def fused_attention(
     if tuple(seg_oh.shape) != (B, L, S):
         raise ValueError(f"fused_attention: seg_oh {tuple(seg_oh.shape)} "
                          f"!= {(B, L, S)}")
+
+
+def _attention_kernel(
+    params: Params, local: torch.Tensor, global_seg: torch.Tensor,
+    seg_oh: torch.Tensor, zero_empty: bool,
+) -> torch.Tensor:
+    """One launch of K2 on CUDA tensors; ValueError for what it does not
+    cover."""
+    check_attention_shapes(params, local, global_seg, seg_oh)
+    B, L, C = local.shape
+    S, G = global_seg.shape[1], global_seg.shape[2]
+    H = params["wq"].shape[0]
+    dtype = local.dtype
     x, g, wq, wk, wv = (t.to(dtype).contiguous() for t in (
         local, global_seg, params["wq"], params["wk"], params["wv"]))
     oh = seg_oh.float().contiguous()
@@ -123,6 +136,24 @@ def fused_attention(
                          B, L, C, G, S, H, int(zero_empty),
                          stream_ptr(x.device))
     return out
+
+
+def fused_attention(
+    params: Params, local: torch.Tensor, global_seg: torch.Tensor,
+    seg_oh: torch.Tensor, zero_empty: bool = True,
+) -> torch.Tensor:
+    """The one-hot attention of `attention_oh_reference`: CUDA → the
+    kernel (or ValueError), CPU → the plain version; differentiable
+    through the plain version either way."""
+    if local.device.type == "cpu":
+        run = attention_oh_reference
+    elif local.device.type == "cuda":
+        run = _attention_kernel
+    else:
+        raise ValueError(f"fused_attention: unsupported device "
+                         f"{local.device}")
+    return recompute_vjp(run, attention_oh_reference, params, local,
+                         global_seg, seg_oh, zero_empty)
 
 
 def fused_global_attention(

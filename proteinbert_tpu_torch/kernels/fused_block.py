@@ -1,8 +1,9 @@
-"""K1 and #3 — the fused local track over dense and packed rows: plain
-PyTorch versions and CUDA wrappers.
+"""K1, #2 and #3 — the fused local track over dense and packed rows: plain
+PyTorch versions, CUDA wrappers and their gradients.
 
-Port of `proteinbert_tpu/kernels/fused_block.py`: `_fused_kernel` (entry
-`fused_local_track`) and `_fused_segment_kernel` (entry
+Port of `proteinbert_tpu/kernels/fused_block.py`: `_fused_kernel` (K1) and
+`_fused_kernel_tiled` (#2), the two bodies of the entry
+`fused_local_track`, and `_fused_segment_kernel` (#3, entry
 `fused_local_track_segments`). The local half of a ProteinBERT block:
 
     h  = x + gelu(narrow_conv(x)) + gelu(wide_conv(x)) + broadcast
@@ -14,11 +15,19 @@ boundary (tap t of row l is masked unless seg[l + off] == seg[l] and l is
 in a segment) and each position adds its OWN segment's broadcast row, 0
 at pad.
 
-`fused_local_track` / `fused_local_track_segments` run the hand-written
-Hopper kernels (`csrc/local_track.cu`, `csrc/local_track_segments.cu`)
-on a CUDA tensor and the plain versions on a CPU tensor. A CUDA call the
-kernels do not cover (dtype, width, conv geometry) raises ValueError;
-nothing falls back.
+`fused_local_track` keeps one entry, as the JAX `_pallas_forward` does:
+on a CUDA tensor it launches K1 (`csrc/local_track.cu`) for C in
+{128, 256, 512} and #2 (`csrc/local_track_tiled.cu`) for 512 < C <= 2048
+with C a multiple of 128, in bfloat16 and float32 (the JAX package has no
+float32 tiled plan and answers through XLA there; the port has no such
+route, so #2 covers float32 too). `fused_local_track_segments` launches #3
+(`csrc/local_track_segments.cu`). On a CPU tensor both run the plain
+versions. A CUDA call the kernels do not cover (dtype, width, conv
+geometry) raises ValueError; nothing falls back.
+
+Both entries are differentiable (`kernels/autograd.recompute_vjp`): the
+forward saves only its inputs and the backward recomputes the plain
+version, as the JAX `_bwd` / `_bwd_segments` do.
 
 Rounding points are the TPU kernels', which the plain versions repeat:
 the tap products, both conv outputs and the broadcast gather stay
@@ -26,7 +35,11 @@ float32 (fused_block.py:539-547, :1012-1016), x1 is rounded to the
 activation dtype before the dense (:517), LN statistics are float32. In
 float32 this is exactly the JAX `local_track_reference` /
 `local_track_segment_oh_reference`; in bfloat16 the JAX references round
-the conv outputs where the kernels do not.
+the conv outputs where the kernels do not. #2 computes the function K1
+computes, so its plain version is K1's `local_track_reference`; only its
+float32 sum is taken in the TPU tiled kernel's order (the two GELU terms
+first, then x and the broadcast, fused_block.py:604-618) rather than K1's
+(x first), a difference at the last float32 bit.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from proteinbert_tpu_torch.kernels.attention import segment_one_hot
+from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
@@ -55,10 +69,14 @@ LOCAL_TRACK = Kernel(
 LOCAL_TRACK_SEGMENTS = Kernel(
     "local_track_segments", "local_track_segments.cu",
     "pbt_local_track_segments", [INT] + [PTR] * 14 + [INT] * 5 + [PTR])
+LOCAL_TRACK_TILED = Kernel(
+    "local_track_tiled", "local_track_tiled.cu", "pbt_local_track_tiled",
+    [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
 
 # What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_WIDTHS = (128, 256, 512)
+KERNEL_WIDTHS = (128, 256, 512)           # K1, #3
+TILED_WIDTHS = tuple(range(640, 2049, 128))  # #2
 KERNEL_TAPS = 9
 MAX_WIDE_DILATION = 5  # the window's 20-row halo
 
@@ -180,19 +198,19 @@ def gather_segment_broadcast(broadcast_seg: torch.Tensor,
 
 
 def _track_operands(name: str, params: Params, x: torch.Tensor,
-                    narrow_dilation: int, wide_dilation: int):
-    """Check what the local-track kernels cover and cast the weights to
-    their launch types: (dtype code, conv/dense operands in x's dtype,
-    float32 bias and LN vectors)."""
+                    narrow_dilation: int, wide_dilation: int,
+                    widths=KERNEL_WIDTHS):
+    """Check what the local-track kernels cover (C in `widths`) and cast
+    the weights to their launch types: (dtype code, conv/dense operands in
+    x's dtype, float32 bias and LN vectors)."""
     C = x.shape[-1]
     dtype = x.dtype
     nk = params["narrow_conv"]["kernel"]
     wk = params["wide_conv"]["kernel"]
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: no kernel for {dtype}")
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: no kernel for C={C} "
-                         f"(have {KERNEL_WIDTHS})")
+    if C not in widths:
+        raise ValueError(f"{name}: no kernel for C={C} (have {widths})")
     conv_shape = (KERNEL_TAPS, C, C)
     if (tuple(nk.shape) != conv_shape or tuple(wk.shape) != conv_shape
             or narrow_dilation != 1
@@ -224,6 +242,38 @@ def _device_check(name: str, x: torch.Tensor) -> bool:
     return False
 
 
+def _local_track_kernel(
+    params: Params, x: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int, wide_dilation: int,
+) -> torch.Tensor:
+    """One launch of K1 (C <= 512) or #2 (512 < C <= 2048) on CUDA
+    tensors; ValueError for what neither covers."""
+    B, L, C = x.shape
+    code, weights = _track_operands(
+        "fused_local_track", params, x, narrow_dilation, wide_dilation,
+        KERNEL_WIDTHS + TILED_WIDTHS)
+    if tuple(broadcast.shape) != (B, C):
+        raise ValueError(f"fused_local_track: broadcast "
+                         f"{tuple(broadcast.shape)} != {(B, C)}")
+    x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        if C in KERNEL_WIDTHS:
+            ops = (x, bc, *weights, out)
+            check_cuda("fused_local_track", *ops)
+            LOCAL_TRACK.launch(code, *(t.data_ptr() for t in ops),
+                               B, L, C, wide_dilation, stream_ptr(x.device))
+        else:
+            # #2's two passes meet in a float32 (B, L, C) scratch.
+            h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
+            ops = (x, bc, *weights, h, out)
+            check_cuda("fused_local_track", *ops)
+            LOCAL_TRACK_TILED.launch(code, *(t.data_ptr() for t in ops),
+                                     B, L, C, wide_dilation,
+                                     stream_ptr(x.device))
+    return out
+
+
 def fused_local_track(
     params: Params, x: torch.Tensor, broadcast: torch.Tensor,
     narrow_dilation: int = 1, wide_dilation: int = 5,
@@ -231,41 +281,33 @@ def fused_local_track(
     """Local track of one block. x (B, L, C) activations; broadcast (B, C)
     the projected global→local vector (gelu(dense(global))); params the
     block's narrow_conv, wide_conv, local_ln1, local_dense, local_ln2.
-    CUDA → the kernel (or ValueError), CPU → the plain version."""
-    if _device_check("fused_local_track", x):
-        return local_track_reference(params, x, broadcast, narrow_dilation,
-                                     wide_dilation)
-    B, L, C = x.shape
-    code, weights = _track_operands("fused_local_track", params, x,
-                                    narrow_dilation, wide_dilation)
-    if tuple(broadcast.shape) != (B, C):
-        raise ValueError(f"fused_local_track: broadcast "
-                         f"{tuple(broadcast.shape)} != {(B, C)}")
-    x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast))
-    out = torch.empty_like(x)
-    ops = (x, bc, *weights, out)
-    check_cuda("fused_local_track", *ops)
-    with torch.cuda.device(x.device):
-        LOCAL_TRACK.launch(code, *(t.data_ptr() for t in ops),
-                           B, L, C, wide_dilation, stream_ptr(x.device))
-    return out
+    CUDA → K1 or #2 by width (or ValueError), CPU → the plain version;
+    differentiable through the plain version either way."""
+    run = (local_track_reference if _device_check("fused_local_track", x)
+           else _local_track_kernel)
+    return recompute_vjp(run, local_track_reference, params, x, broadcast,
+                         narrow_dilation, wide_dilation)
 
 
-def fused_local_track_segments(
+def _segments_reference(
     params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
-    segment_ids: torch.Tensor, narrow_dilation: int = 1,
-    wide_dilation: int = 5,
+    segment_ids: torch.Tensor, narrow_dilation: int, wide_dilation: int,
 ) -> torch.Tensor:
-    """Local track of one block over PACKED rows: broadcast_seg (B, S, C)
-    the per-segment projected global vectors, segment_ids (B, L) with 0 =
-    pad and 1..S a packed protein (ids above S count as pad). CUDA → the
-    segment kernel (or ValueError), CPU → the plain version."""
-    S = broadcast_seg.shape[1]
-    if _device_check("fused_local_track_segments", x):
-        return local_track_segment_oh_reference(
-            params, x, broadcast_seg, segment_one_hot(segment_ids, S),
-            narrow_dilation, wide_dilation)
+    """#3's plain version on integer ids (the one-hot built here)."""
+    return local_track_segment_oh_reference(
+        params, x, broadcast_seg,
+        segment_one_hot(segment_ids, broadcast_seg.shape[1]),
+        narrow_dilation, wide_dilation)
+
+
+def _segments_kernel(
+    params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
+    segment_ids: torch.Tensor, narrow_dilation: int, wide_dilation: int,
+) -> torch.Tensor:
+    """One launch of #3 on CUDA tensors; ValueError for what it does not
+    cover."""
     B, L, C = x.shape
+    S = broadcast_seg.shape[1]
     code, weights = _track_operands("fused_local_track_segments", params, x,
                                     narrow_dilation, wide_dilation)
     if tuple(broadcast_seg.shape) != (B, S, C) or S < 1:
@@ -285,6 +327,23 @@ def fused_local_track_segments(
                                     B, L, C, S, wide_dilation,
                                     stream_ptr(x.device))
     return out
+
+
+def fused_local_track_segments(
+    params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
+    segment_ids: torch.Tensor, narrow_dilation: int = 1,
+    wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Local track of one block over PACKED rows: broadcast_seg (B, S, C)
+    the per-segment projected global vectors, segment_ids (B, L) with 0 =
+    pad and 1..S a packed protein (ids above S count as pad). CUDA → the
+    segment kernel (or ValueError), CPU → the plain version;
+    differentiable through the plain version either way."""
+    run = (_segments_reference
+           if _device_check("fused_local_track_segments", x)
+           else _segments_kernel)
+    return recompute_vjp(run, _segments_reference, params, x, broadcast_seg,
+                         segment_ids, narrow_dilation, wide_dilation)
 
 
 def local_track_flops(B: int, L: int, C: int, taps: int = KERNEL_TAPS) -> int:

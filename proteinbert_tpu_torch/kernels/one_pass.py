@@ -1,5 +1,5 @@
-"""#6 — the one-pass trunk: plain PyTorch version, CUDA wrapper and the
-dispatch of both entries.
+"""#6 — the one-pass trunk: plain PyTorch version, CUDA wrapper, its
+gradient and the dispatch of both entries.
 
 Port of `proteinbert_tpu/kernels/one_pass.py` (`_onepass_kernel`; entries
 `fused_onepass_segments`, packed rows, and `fused_onepass_dense`, S = 1).
@@ -19,7 +19,10 @@ Dispatch mirrors one_pass.py:448-596:
 - on the CPU, the plain version `onepass_oh_reference`, which IS that
   composition of the plain versions.
 `fused_onepass` is the kernel's own wrapper: the kernel on CUDA, the
-plain version on the CPU, whatever the rule says.
+plain version on the CPU, whatever the rule says. It is differentiable
+(`kernels/autograd.recompute_vjp`): the forward saves only its inputs and
+the backward recomputes the plain version, as the JAX `_bwd_onepass`
+does.
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ import torch
 from proteinbert_tpu_torch.kernels import budget
 from proteinbert_tpu_torch.kernels.attention import (
     KERNEL_HEAD_DIM, KERNEL_MAX_SCORES, KERNEL_MAX_SEGMENTS,
-    attention_oh_reference, fused_global_attention, fused_packed_attention,
-    segment_one_hot,
+    KERNEL_VALUE_DIMS, attention_oh_reference, fused_global_attention,
+    fused_packed_attention, segment_one_hot,
 )
+from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
@@ -49,9 +53,9 @@ ONEPASS = Kernel(
     "one_pass", "one_pass.cu", "pbt_onepass",
     [INT, INT] + [PTR] * 20 + [INT] * 8 + [PTR])
 
-# What the CUDA kernel covers (beyond the local track's dtypes and convs).
+# What the CUDA kernel covers (beyond the local track's dtypes and convs
+# and K2's head dims).
 KERNEL_WIDTHS = (128, 256)
-KERNEL_VALUE_DIMS = (64, 128)
 
 
 def onepass_oh_reference(
@@ -88,27 +92,33 @@ def _rule_admits(track_params: Params, attn_params: Params, x: torch.Tensor,
         wide_dilation, narrow_dilation)
 
 
-def fused_onepass(
+def _onepass_reference(
     track_params: Params, attn_params: Params, x: torch.Tensor,
     broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
     segment_ids: Optional[torch.Tensor], real: torch.Tensor,
-    narrow_dilation: int = 1, wide_dilation: int = 5,
-    zero_empty: bool = True,
+    narrow_dilation: int, wide_dilation: int, zero_empty: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The one-pass layer of `onepass_oh_reference` with integer segment
-    ids: segment_ids (B, L) for packed rows (0 = pad, ids above S count as
-    pad) or None for dense rows (S = 1, unmasked convs); real (B, L)
-    nonzero where the attention may look. CUDA → the kernel (or
-    ValueError), CPU → the plain version."""
+    """#6's plain version on `fused_onepass`'s arguments (the one-hots
+    built here)."""
+    B, L, _ = x.shape
+    seg_oh = (torch.ones((B, L, 1), device=x.device) if segment_ids is None
+              else segment_one_hot(segment_ids, global_seg.shape[1]))
+    return onepass_oh_reference(
+        track_params, attn_params, x, broadcast_seg, global_seg, seg_oh,
+        real[..., None].float(), narrow_dilation, wide_dilation,
+        segment_ids is not None, zero_empty)
+
+
+def _onepass_kernel(
+    track_params: Params, attn_params: Params, x: torch.Tensor,
+    broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
+    segment_ids: Optional[torch.Tensor], real: torch.Tensor,
+    narrow_dilation: int, wide_dilation: int, zero_empty: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of #6 on CUDA tensors; ValueError for what it does not
+    cover."""
     B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    if _device_check("fused_onepass", x):
-        seg_oh = (torch.ones((B, L, 1)) if segment_ids is None
-                  else segment_one_hot(segment_ids, S))
-        return onepass_oh_reference(
-            track_params, attn_params, x, broadcast_seg, global_seg, seg_oh,
-            real[..., None].float(), narrow_dilation, wide_dilation,
-            segment_ids is not None, zero_empty)
     H, _, key_dim = attn_params["wq"].shape
     value_dim = attn_params["wv"].shape[-1]
     code, weights = _track_operands("fused_onepass", track_params, x,
@@ -149,6 +159,26 @@ def fused_onepass(
                        B, L, C, G, S, H, wide_dilation, int(zero_empty),
                        stream_ptr(x.device))
     return local, attn
+
+
+def fused_onepass(
+    track_params: Params, attn_params: Params, x: torch.Tensor,
+    broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
+    segment_ids: Optional[torch.Tensor], real: torch.Tensor,
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+    zero_empty: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-pass layer of `onepass_oh_reference` with integer segment
+    ids: segment_ids (B, L) for packed rows (0 = pad, ids above S count as
+    pad) or None for dense rows (S = 1, unmasked convs); real (B, L)
+    nonzero where the attention may look. CUDA → the kernel (or
+    ValueError), CPU → the plain version; differentiable through the
+    plain version either way."""
+    run = (_onepass_reference if _device_check("fused_onepass", x)
+           else _onepass_kernel)
+    return recompute_vjp(run, _onepass_reference, track_params, attn_params,
+                         x, broadcast_seg, global_seg, segment_ids, real,
+                         narrow_dilation, wide_dilation, zero_empty)
 
 
 def fused_onepass_segments(

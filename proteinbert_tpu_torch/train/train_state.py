@@ -1,0 +1,172 @@
+"""Train state and the train/eval steps — port of
+`proteinbert_tpu/train/train_state.py` for DENSE rows.
+
+`TrainState` bundles the step count, the params tree, the optimizer state
+and the corruption generator (a `torch.Generator` on the params' device
+in place of the JAX PRNG key). `train_step` corrupts the clean batch on
+the device, runs the forward through the block kernels (on CUDA) or their
+plain versions (on the CPU), takes the dual masked loss, backpropagates
+(each kernel's gradient recomputes its plain version,
+`kernels/autograd.py`), and applies clip → Adam [→ plateau]. The step
+updates the params and optimizer moments IN PLACE and returns the state
+with its count advanced; the JAX step returns new arrays.
+
+The attention mask is the JAX training mask `W["local"] > 0`, the clean
+sequence's non-pad positions. Packed batches (with `segment_ids`) are not
+trained by the port yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from proteinbert_tpu_torch import DeviceLike, resolve_device
+from proteinbert_tpu_torch.configs import PretrainConfig
+from proteinbert_tpu_torch.data.corruption import corrupt_batch
+from proteinbert_tpu_torch.models import proteinbert
+from proteinbert_tpu_torch.train.loss import (
+    global_ranking_metrics, pretrain_loss,
+)
+from proteinbert_tpu_torch.train.schedule import (
+    OptState, Optimizer, effective_lr, global_norm, make_optimizer,
+    needs_loss_value, tree_leaves,
+)
+
+Batch = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Any
+    opt_state: OptState
+    generator: torch.Generator
+
+
+def gradient_update(
+    tx: Optimizer, params: Any, grads, opt_state: OptState,
+    loss: Any = None, needs_value: bool = False,
+) -> Tuple[Any, OptState]:
+    """Optimizer apply: updates from `tx`, added to the params in place
+    (under no_grad). Returns (params, opt_state)."""
+    with torch.no_grad():
+        updates, opt_state = tx.update(
+            list(grads), opt_state, params,
+            value=loss if needs_value else None)
+        torch._foreach_add_(tree_leaves(params), updates)
+    return params, opt_state
+
+
+def _to_device(batch: Dict[str, Any], device: torch.device) -> Batch:
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                               else v).to(device)
+            for k, v in batch.items()}
+
+
+def _corrupt(gen: torch.Generator, batch: Dict[str, Any],
+             cfg: PretrainConfig, device: torch.device):
+    if "segment_ids" in batch:
+        raise ValueError(
+            "packed batches (segment_ids) are not trained by the port yet: "
+            "packed pretraining (make_packed_iterator, corrupt_packed_batch, "
+            "packed_pretrain_loss) is still to port, ROADMAP.md §A")
+    b = _to_device(batch, device)
+    return corrupt_batch(
+        gen, b["tokens"], b["annotations"],
+        token_randomize_prob=cfg.data.token_randomize_prob,
+        annotation_corrupt_prob=cfg.data.annotation_corrupt_prob,
+        annotation_drop_prob=cfg.data.annotation_drop_prob,
+        annotation_add_prob=cfg.data.annotation_add_prob,
+    )
+
+
+def corrupt_for_step(state: TrainState, batch: Dict[str, Any],
+                     cfg: PretrainConfig):
+    """Corrupt the CLEAN batch on the state's device with the state's
+    generator → (X, Y, W, None); the None stands where the JAX step
+    returns packed segment ids."""
+    dev = tree_leaves(state.params)[0].device
+    X, Y, W = _corrupt(state.generator, batch, cfg, dev)
+    return X, Y, W, None
+
+
+def loss_and_grads(params: Any, X: Batch, Y: Batch, W: Batch,
+                   cfg: PretrainConfig):
+    """Forward, dual masked loss and backward on a corrupted batch →
+    (grads aligned with `tree_leaves(params)`, loss metrics)."""
+    leaves = tree_leaves(params)
+    pad_mask = W["local"] > 0
+    with torch.enable_grad():
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            local_logits, global_logits = proteinbert.apply(
+                params, X["local"], X["global"], cfg.model, pad_mask)
+            loss, metrics = pretrain_loss(local_logits, global_logits, Y, W)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def corrupt_forward_grads(state: TrainState, batch: Dict[str, Any],
+                          cfg: PretrainConfig):
+    """Corrupt, forward, loss, backward → (grads, loss metrics)."""
+    X, Y, W, _ = corrupt_for_step(state, batch, cfg)
+    return loss_and_grads(state.params, X, Y, W, cfg)
+
+
+def create_train_state(generator: torch.Generator, cfg: PretrainConfig,
+                       device: DeviceLike = None) -> TrainState:
+    """Fresh params from `generator` (model.init), a zero optimizer
+    state, and a corruption generator on `device` seeded from
+    `generator` (None → "cuda")."""
+    device = resolve_device(device)
+    params = proteinbert.init(cfg.model, generator, device=device)
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return TrainState(0, params, make_optimizer(cfg.optimizer).init(params),
+                      gen)
+
+
+def train_step(
+    state: TrainState, batch: Dict[str, Any], cfg: PretrainConfig,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One pretraining step on a CLEAN {"tokens", "annotations"} numpy or
+    tensor batch → (state with step + 1, device metrics). The params and
+    optimizer moments are updated in place; a plateau schedule observes
+    the step's train loss (the eval-keyed plateau is not ported)."""
+    grads, metrics = corrupt_forward_grads(state, batch, cfg)
+    metrics = dict(metrics)
+    metrics["grad_norm"] = global_norm(grads)  # before the in-place clip
+    params, opt_state = gradient_update(
+        make_optimizer(cfg.optimizer), state.params, grads, state.opt_state,
+        metrics["loss"], needs_loss_value(cfg.optimizer))
+    metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
+    return TrainState(state.step + 1, params, opt_state,
+                      state.generator), metrics
+
+
+def eval_step(
+    state: TrainState, batch: Dict[str, Any], generator: torch.Generator,
+    cfg: PretrainConfig,
+) -> Dict[str, torch.Tensor]:
+    """Corrupted-input eval with a caller-provided generator
+    (deterministic): loss metrics plus the GO head's ranking metrics."""
+    dev = tree_leaves(state.params)[0].device
+    X, Y, W = _corrupt(generator, batch, cfg, dev)
+    with torch.no_grad():
+        local_logits, global_logits = proteinbert.apply(
+            state.params, X["local"], X["global"], cfg.model,
+            W["local"] > 0)
+        _, metrics = pretrain_loss(local_logits, global_logits, Y, W)
+        metrics.update(global_ranking_metrics(global_logits, Y["global"],
+                                              W["global"]))
+    return metrics

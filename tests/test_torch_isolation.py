@@ -41,11 +41,10 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stderr + out.stdout
 
 
-@pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
-    ids=lambda p: str(p.relative_to(ROOT)))
-def test_no_jax_import_in_source(path):
+def _forbidden_imports(path):
+    """(line, module) of every absolute import of a FORBIDDEN package."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -53,9 +52,33 @@ def test_no_jax_import_in_source(path):
             names = [node.module or ""]
         else:
             continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, (
-                f"{path.name}:{node.lineno} imports {name}")
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_source(path):
+    assert not _forbidden_imports(path), (path.name,
+                                          _forbidden_imports(path))
+
+
+def test_the_check_covers_data_and_train_and_catches_an_offender(tmp_path):
+    mods = _port_modules()
+    for m in ("data.dataset", "data.corruption", "data.transforms",
+              "data.synthetic", "train.loss", "train.schedule",
+              "train.train_state", "train.metrics", "train.trainer",
+              "kernels.autograd"):
+        assert f"proteinbert_tpu_torch.{m}" in mods
+    bad = tmp_path / "offender.py"
+    bad.write_text("import torch\nimport optax\n"
+                   "from proteinbert_tpu.train import loss\n"
+                   "def f():\n    import jax.numpy as jnp\n"
+                   "    from flax import struct\n")
+    assert [m for _, m in _forbidden_imports(bad)] == [
+        "optax", "proteinbert_tpu.train", "jax.numpy", "flax"]
 
 
 def _no_cuda():

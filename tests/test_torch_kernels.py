@@ -3,8 +3,11 @@ track) and K2 (global attention) against the JAX package's Pallas kernels
 run in interpret mode and against its plain references, on the same
 numpy-seeded inputs, at the smallest shapes the JAX guards accept (C=128,
 lane-aligned). float32, tolerance 1e-5 (same arithmetic, another summation
-order). The CUDA kernels themselves are held against these plain versions
-on the card by chip_smoke.py."""
+order). #2's plain version (K1's, at C=1024) against the JAX channel-tiled
+kernel in interpret mode in bfloat16 (0.05, the JAX package's own tiled
+tolerance: the XLA and kernel rounding points differ) and against the
+JAX reference in float32 (1e-5). The CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +24,7 @@ TOL = 1e-5
 C, G, H, K = 128, 128, 4, 32
 
 
-def _track_params(rng):
+def _track_params(rng, C=C):
     def w(shape, fan_in):
         return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
             np.float32)
@@ -108,6 +111,56 @@ def test_local_track_bf16_keeps_conv_outputs_unrounded():
                                got.float().numpy(), atol=2 ** -5)
 
 
+# ------------------------------------------------------------------ #2
+
+def test_tiled_width_bf16_matches_pallas_tiled_kernel():
+    """C=1024 (ProteinBERT-Large), B=1, L=128: the JAX dispatch runs
+    `_fused_kernel_tiled` (fused_block.py:881) in interpret mode."""
+    rng = np.random.default_rng(40)
+    p = _track_params(rng, 1024)
+    x = rng.standard_normal((1, 128, 1024)).astype(np.float32)
+    bc = rng.standard_normal((1, 1024)).astype(np.float32)
+    want = jfused.fused_local_track(_jax(p), _jax(x).astype(jnp.bfloat16),
+                                    _jax(bc).astype(jnp.bfloat16), 1, 5,
+                                    True)
+    got = tfused.fused_local_track(_torch(p), _torch(x).bfloat16(),
+                                   _torch(bc).bfloat16(), 1, 5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(np.asarray(want.astype(jnp.float32)),
+                               got.float().numpy(), rtol=0.05, atol=0.05)
+
+
+def test_tiled_width_fp32_matches_reference():
+    """In float32 (which the JAX package answers through XLA at this
+    width) the plain version is the JAX reference to 1e-5."""
+    rng = np.random.default_rng(41)
+    p = _track_params(rng, 1024)
+    x = rng.standard_normal((2, 64, 1024)).astype(np.float32)
+    bc = rng.standard_normal((2, 1024)).astype(np.float32)
+    want = jfused.local_track_reference(_jax(p), _jax(x), _jax(bc), 1, 5)
+    _close(want, tfused.fused_local_track(_torch(p), _torch(x), _torch(bc),
+                                          1, 5))
+
+
+@pytest.mark.parametrize("C,ok", [(512, True), (640, True), (1024, True),
+                                  (2048, True), (1088, False),
+                                  (2176, False), (96, False)])
+def test_local_track_kernel_widths(C, ok):
+    """What `fused_local_track` launches on CUDA: K1 at C <= 512, #2 at
+    512 < C <= 2048 with C % 128 == 0; anything else raises."""
+    p = {name: {k: torch.zeros(1) for k in ("kernel", "bias", "scale")}
+         for name in tfused.TRACK_PARAMS}
+    for name in ("narrow_conv", "wide_conv"):
+        p[name]["kernel"] = torch.zeros((9, C, C))
+    widths = tfused.KERNEL_WIDTHS + tfused.TILED_WIDTHS
+    x = torch.zeros((1, 8, C), dtype=torch.bfloat16)
+    if ok:
+        tfused._track_operands("t", p, x, 1, 5, widths)
+    else:
+        with pytest.raises(ValueError, match=f"C={C}"):
+            tfused._track_operands("t", p, x, 1, 5, widths)
+
+
 # ------------------------------------------------------------------ K2
 
 def _attn_inputs(rng, L, S):
@@ -164,6 +217,28 @@ def test_packed_attention_zero_empty_segment(L):
     ref = jattn.attention_oh_reference(_jax(p), _jax(local), _jax(glob),
                                        jnp.asarray(oh, jnp.float32))
     _close(ref, got)
+
+
+@pytest.mark.parametrize("G,H,v,k,S,ok", [
+    (512, 8, 64, 64, 1, True),      # base width
+    (512, 4, 128, 64, 1, True),     # value_dim 128 (fp32 C=256, L=512)
+    (1024, 16, 64, 64, 1, True),    # Large
+    (512, 4, 128, 64, 16, True),
+    (384, 4, 96, 64, 1, False),     # value_dim 96
+    (512, 8, 64, 32, 1, False),     # key_dim 32
+    (512, 8, 64, 64, 17, False),    # too many segments
+])
+def test_attention_kernel_shape_checks(G, H, v, k, S, ok):
+    C, L = 256, 512
+    params = {"wq": torch.zeros((H, G, k)), "wk": torch.zeros((H, C, k)),
+              "wv": torch.zeros((H, C, v))}
+    args = (params, torch.zeros((2, L, C)), torch.zeros((2, S, G)),
+            torch.zeros((2, L, S)))
+    if ok:
+        tattn.check_attention_shapes(*args)
+    else:
+        with pytest.raises(ValueError, match="fused_attention"):
+            tattn.check_attention_shapes(*args)
 
 
 # ------------------------------------------- launch or raise, never fall back
