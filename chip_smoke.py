@@ -18,19 +18,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               ids above S, an empty segment);
               #6 at C=128 (G=512, H=4, v=128) and C=256 (G=512, H=8), dense
               (a half-padded and an all-pad row) and packed (S=8, an empty
-              segment that must come back +0.0);
-              cross-segment isolation of #3 and #6 bit for bit;
+              segment that must come back +0.0), and at C=512 (G=512, H=4,
+              L=128, bf16), where `fused_onepass_segments` must pick it (as
+              it must for the base preset's H=8 at L=8);
+              cross-segment isolation of #3, #6 and #4 bit for bit;
               #2 at ProteinBERT-Large width (C=1024, B=8) in bf16 and fp32,
               L in {128, 1024} timed, L=100 with a constant (all-<pad>) row;
-              K2 at Large width (C=G=1024, H=16, L=1024) timed, and at
-              value_dim 128 (C=256, G=512, H=4). Prints max |kernel - plain|
-              against its tolerance, kernel and plain ms (CUDA events, median
-              of 25), the bound and launches per call.
+              #4 at Large width (C=1024, B=8, S=8) in bf16 and fp32, L in
+              {128, 1024} timed and L=100, with segment boundaries on a
+              64-row conv tile edge, inside a 32-row finish tile and inside a
+              tile's 20-row halo;
+              K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
+              (S=8) timed, and at value_dim 128 (C=256, G=512, H=4). Prints
+              max |kernel - plain| against its tolerance, kernel and plain ms
+              (CUDA events, median of 25), the bound and launches per call.
    gradients — every autograd Function (K1 and #2 through
-              `fused_local_track`, #3, K2, #6): the grads of sum(out * r)
-              through the kernel against plain autograd on the card, fp32
-              and bf16; then a 2-block fp32 Large-width train step's loss and
-              grads on the card against the same step on the CPU plain path.
+              `fused_local_track`, #3 and #4 through
+              `fused_local_track_segments`, K2, #6): the grads of
+              sum(out * r) through the kernel against plain autograd on the
+              card, fp32 and bf16; then 2-block fp32 Large-width train steps,
+              dense and packed, their loss and grads on the card against the
+              same steps on the CPU plain path, and each packed protein's
+              loss terms against the same protein run alone as a dense row.
 3. reference — a base-width float32 trunk through the kernels on the card
               against the plain path on the CPU, on a small input; then a
               float32 2-block base-width trunk served ragged and bucketed on
@@ -51,12 +60,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               read just after it.
 5. train    — `pretrain()` on the `large` preset at full depth and width
               (12 blocks, C=G=1024, H=16, 8943 annotations), bf16, seq_len
-              1024, B=8, synthetic proteins of 100-1022 residues, 6 steps (1
-              warm, 5 timed): finite losses, params moved by step 2, exactly
-              12 launches of #2 and of K2 per step and none of the others;
-              step ms, tokens/s, MFU, peak memory and a split of one step.
-              Then 2 steps of the `base` preset (B=8, L=512): exactly 6 of K1
-              and of K2 per step. Counts are zeroed before each run.
+              1024, B=8, 6 steps (1 warm, 5 timed), twice:
+              a. dense rows of 100-1022 residues: exactly 12 launches of #2
+                 and of K2 per step and none of the others;
+              b. packed rows (`make_packed_iterator`, 8 segments a row) of
+                 50-500 residues: exactly 12 of #4 and of K2 per step;
+              finite losses, params moved by step 2; step ms, tokens/s, MFU,
+              peak memory and a split of one step (packed: also the share of
+              real positions and segments a row). Then 2 steps each of the
+              `base` preset (B=8, L=512) dense (exactly 6 of K1 and of K2
+              per step) and packed (6 of #3 and of K2), and of the
+              ModelConfig default width packed (6 of #6). Counts are zeroed
+              before each run.
 6. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 """
@@ -99,7 +114,9 @@ TOL = {("local_track", torch.float32): 1e-4,
        ("one_pass", torch.float32): 1e-4,
        ("one_pass", torch.bfloat16): 0.0625,
        ("local_track_tiled", torch.float32): 1e-4,
-       ("local_track_tiled", torch.bfloat16): 0.0625}
+       ("local_track_tiled", torch.bfloat16): 0.0625,
+       ("local_track_segments_tiled", torch.float32): 1e-4,
+       ("local_track_segments_tiled", torch.bfloat16): 0.0625}
 # Gradients through a kernel's autograd Function against plain autograd,
 # as a share of the largest |grad|: both arms differentiate the same plain
 # recompute, so they differ only by the order of cuDNN's and cuBLAS's
@@ -108,6 +125,7 @@ TOL = {("local_track", torch.float32): 1e-4,
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 STEP_LOSS_TOL = 1e-4   # 2-block fp32 train step, card vs CPU plain path
 STEP_GRAD_TOL = 1e-3
+SOLO_LOSS_TOL = 1e-4   # fp32 per-segment loss terms, packed vs alone
 # Device-code names of the hand-written kernels, as the profiler lists them.
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
                 "tiled_conv_kernel", "tiled_finish_kernel")
@@ -324,6 +342,20 @@ def packed_ids(gen, B: int, L: int, S: int) -> torch.Tensor:
     return seg
 
 
+def tiled_ids(gen, B: int, L: int, S: int) -> torch.Tensor:
+    """`packed_ids`, with row 0 laid over #4's tile edges: a boundary on
+    the 64-row conv tile edge (64), one inside a 32-row finish tile (80),
+    a segment that starts inside the next conv tile's 20-row halo (141,
+    after a pad gap), and an id above S; each clipped to L."""
+    seg = packed_ids(gen, B, L, S)
+    row = torch.zeros(L, dtype=torch.int32)
+    for sid, (a, b) in enumerate(((0, 64), (64, 80), (80, 138), (141, 190),
+                                  (190, 200), (200, 256)), start=1):
+        row[min(a, L):min(b, L)] = sid if sid != 5 else S + 2
+    seg[0] = row
+    return seg
+
+
 def isolated(run, x: torch.Tensor, seg: torch.Tensor, sid: int, gen,
              outs) -> bool:
     """Cross-segment isolation, bit for bit: new inputs inside segment
@@ -348,16 +380,18 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
     """#3 at base width (C=512, S=8) and #6 at C=128 (G=512, H=4, v=128)
     and C=256 (G=512, H=8), dense and packed, against their plain versions
     on the card; B=8, L in {128, 512} timed, L=100 ragged; cross-segment
-    isolation bit for bit."""
+    isolation bit for bit. #6 at C=512 in bf16 (G=512, H=4, L=128 timed;
+    the base preset's H=8 at L=8), and the dispatch's choice of it."""
     from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.kernels import (
-        LOCAL_TRACK_SEGMENTS, ONEPASS, TRACK_PARAMS,
+        ATTENTION, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ONEPASS, TRACK_PARAMS,
         fused_local_track_segments, local_track_segment_oh_reference,
         onepass_oh_reference, segment_one_hot,
     )
     from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
     from proteinbert_tpu_torch.kernels.one_pass import (
-        fused_onepass, onepass_flops,
+        fused_onepass, fused_onepass_dense, fused_onepass_segments,
+        onepass_flops,
     )
     from proteinbert_tpu_torch.models.proteinbert import (
         block_init, cast_block, to_device,
@@ -490,16 +524,88 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
                     rows[("one_pass", dtype, L,
                           f"C={width} {case}")] = (err,) + timing
 
+    # #6 at C=512 (bf16 only: the rule never admits float32 there), where
+    # the one-pass rule admits G=512, H=4 up to L=128; then the dispatch
+    # entries must pick it there, and for the base preset's H=8 at L=8.
+    dtype, width = torch.bfloat16, 512
+    for G, H, L in ((512, 4, 128), (512, 8, 8)):
+        cfg = dataclasses.replace(base, local_dim=width, global_dim=G,
+                                  num_heads=H)
+        cast = cast_block(to_device(block_init(gen, cfg), dev), dtype)
+        track = {name: cast[name] for name in TRACK_PARAMS}
+        attn = cast["attention"]
+        x = torch.randn((B, L, width), generator=gen).to(dev, dtype)
+        bs = torch.randn((B, S, width), generator=gen).to(dev, dtype)
+        gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+        seg = packed_ids(gen, B, max(L, 64), S)[:, :L].to(dev)
+        real = torch.ones((B, L), dtype=torch.bool, device=dev)
+        pad = real.clone()
+        pad[1, L // 2:] = False
+        oh = segment_one_hot(seg, S)
+
+        def packed(xx):
+            return fused_onepass(track, attn, xx, bs, gs, seg, real, 1, wd,
+                                 True)
+
+        got = packed(x)
+        want = onepass_oh_reference(track, attn, x, bs, gs, oh,
+                                    real[..., None].float(), 1, wd, True,
+                                    True)
+        got_d = fused_onepass(track, attn, x, bs[:, :1], gs[:, :1], None, pad,
+                              1, wd, False)
+        want_d = onepass_oh_reference(
+            track, attn, x, bs[:, :1], gs[:, :1],
+            torch.ones((B, L, 1), device=dev), pad[..., None].float(), 1, wd,
+            False, False)
+        torch.cuda.synchronize()
+        for case, a, b in (("S=8", got, want), ("dense", got_d, want_d)):
+            check(all(torch.isfinite(t).all().item() for t in a),
+                  f"one_pass C=512 {case} non-finite")
+            err = max((u.float() - v.float()).abs().max().item()
+                      for u, v in zip(a, b))
+            timing = (None,) * 5
+            if case == "S=8" and H == 4:
+                check(isolated(packed, x, seg, 3, gen, got),
+                      "one_pass C=512: segments not isolated bit for bit")
+                nbytes = ((2 * B * L * width + B * S * width
+                           + 2 * B * S * G + 19 * width * width
+                           + H * (G * k + width * (k + G // H))) * 2
+                          + 2 * B * L * 4 + 7 * width * 4)
+                b_ms, b_by = bound(onepass_flops(B, L, width, G, S, H, k),
+                                   nbytes, dtype)
+                per_call = launches(ONEPASS, lambda: packed(x))
+                timing = (time_ms(lambda: packed(x)),
+                          time_ms(lambda: onepass_oh_reference(
+                              track, attn, x, bs, gs, oh,
+                              real[..., None].float(), 1, wd, True, True)),
+                          b_ms, b_by, per_call)
+            rows[("one_pass", dtype, L, f"C=512 H={H} {case}")] = (
+                (err,) + timing)
+        counts = [k.launches for k in (ONEPASS, LOCAL_TRACK_SEGMENTS,
+                                       LOCAL_TRACK, ATTENTION)]
+        fused_onepass_segments(track, attn, x, bs, gs, seg)
+        fused_onepass_dense(track, attn, x, bs[:, 0], gs[:, 0], pad)
+        moved = [k.launches - n for k, n in zip(
+            (ONEPASS, LOCAL_TRACK_SEGMENTS, LOCAL_TRACK, ATTENTION), counts)]
+        check(moved == [2, 0, 0, 0],
+              f"C=512 G={G} H={H} L={L}: the dispatch launched "
+              f"(#6, #3, K1, K2) {moved} times, want (2, 0, 0, 0)")
+
 
 def large_kernel_phase(card: str, rows: dict) -> None:
     """#2 at ProteinBERT-Large width (C=1024) against K1's plain version,
     bf16 and fp32, B=8, L in {128, 1024} timed and L=100 with a constant
-    row (a row of <pad> embeddings); K2 at Large width (C=G=1024, H=16,
-    L=1024) and at value_dim 128 (C=256, G=512, H=4)."""
+    row (a row of <pad> embeddings); #4 at the same width and L on packed
+    rows (S=8) against #3's plain version, with isolation bit for bit; K2
+    at Large width (C=G=1024, H=16, L=1024) dense and packed (S=8), and at
+    value_dim 128 (C=256, G=512, H=4)."""
     from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.kernels import (
-        ATTENTION, LOCAL_TRACK_TILED, TRACK_PARAMS, attention_oh_reference,
-        fused_global_attention, fused_local_track, local_track_reference,
+        ATTENTION, LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED,
+        TRACK_PARAMS, attention_oh_reference, fused_global_attention,
+        fused_local_track, fused_local_track_segments,
+        fused_packed_attention, local_track_reference,
+        local_track_segment_oh_reference, segment_one_hot,
     )
     from proteinbert_tpu_torch.kernels.attention import attention_flops
     from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
@@ -555,6 +661,69 @@ def large_kernel_phase(card: str, rows: dict) -> None:
                           b_ms, b_by, per_call)
             rows[("local_track_tiled", dtype, L, "dense")] = (err,) + timing
 
+        # #4: packed rows at Large width, S=8, row 0 over the tile edges.
+        S = 8
+        for L in (128, 1024, 100):
+            B = 8
+            x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+            bs = torch.randn((B, S, C), generator=gen).to(dev, dtype)
+            seg = tiled_ids(gen, B, L, S).to(dev)
+            oh = segment_one_hot(seg, S)
+
+            def run(xx):
+                return (fused_local_track_segments(track, xx, bs, seg, 1, wd),
+                        None)
+
+            got = run(x)
+            want = local_track_segment_oh_reference(track, x, bs, oh, 1, wd)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got[0]).all().item(),
+                  "local_track_segments_tiled non-finite")
+            err = (got[0].float() - want.float()).abs().max().item()
+            for sid in (2, 3):   # row 0: boundaries at 64, 80 and 138
+                check(isolated(run, x, seg, sid, gen, got),
+                      f"local_track_segments_tiled {dtype} L={L}: segment "
+                      f"{sid} not isolated bit for bit")
+            timing = (None,) * 5
+            if L != 100:
+                nbytes = ((2 * B * L * C + B * S * C + 19 * C * C) * s
+                          + B * L * 4 + 7 * C * 4)
+                b_ms, b_by = bound(local_track_flops(B, L, C), nbytes, dtype)
+                per_call = launches(LOCAL_TRACK_SEGMENTS_TILED,
+                                    lambda: run(x))
+                check(per_call == 1, f"local_track_segments_tiled launched "
+                                     f"{per_call} times in one call")
+                timing = (time_ms(lambda: run(x)),
+                          time_ms(lambda: local_track_segment_oh_reference(
+                              track, x, bs, oh, 1, wd)),
+                          b_ms, b_by, per_call)
+            rows[("local_track_segments_tiled", dtype, L, "S=8")] = (
+                (err,) + timing)
+
+        # K2's packed entry at Large width: S=8, 10% in-span <pad>.
+        B, L = 8, 1024
+        x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+        gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+        seg = packed_ids(gen, B, L, S).to(dev)
+        real = (torch.rand((B, L), generator=gen) > 0.1).to(dev)
+        oh = segment_one_hot(seg, S) * real[..., None]
+        got = fused_packed_attention(attn, x, gs, seg, real)
+        want = attention_oh_reference(attn, x, gs, oh)
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item()
+              and bool((got[:, S - 1] == 0).all()),
+              "Large packed attention non-finite or empty segment not zero")
+        nbytes = ((B * L * C + 2 * B * S * G + H * (G * k + 2 * C * k)) * s
+                  + 2 * B * L * 4)
+        b_ms, b_by = bound(attention_flops(B, L, C, G, S, H, k), nbytes, dtype)
+        per_call = launches(ATTENTION, lambda: fused_packed_attention(
+            attn, x, gs, seg, real))
+        rows[("global_attention", dtype, L, "Large S=8")] = (
+            (got.float() - want.float()).abs().max().item(),
+            time_ms(lambda: fused_packed_attention(attn, x, gs, seg, real)),
+            time_ms(lambda: attention_oh_reference(attn, x, gs, oh)),
+            b_ms, b_by, per_call)
+
         # K2 at Large width, dense rows, a half-padded and an all-pad row.
         B, L = 8, 1024
         x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
@@ -602,8 +771,8 @@ def large_kernel_phase(card: str, rows: dict) -> None:
 def grad_phase(card: str) -> None:
     """Each autograd Function on the card: the grads of sum(out * r)
     (every float input: weights, activations, broadcast and global rows)
-    through the kernel wrapper against plain autograd through the plain
-    version, fp32 and bf16."""
+    through the kernel wrapper (K1, #2, #3, #4, K2, #6) against plain
+    autograd through the plain version, fp32 and bf16."""
     from proteinbert_tpu_torch.configs import ModelConfig, get_preset
     from proteinbert_tpu_torch.kernels import (
         TRACK_PARAMS, attention_oh_reference, fused_attention,
@@ -680,6 +849,16 @@ def grad_phase(card: str) -> None:
             lambda t, xx, bb: local_track_segment_oh_reference(
                 t, xx, bb, oh, 1, 5),
             (track, rg(rand(B, L, C)), rg(rand(B, S, C))))
+        cast = cast_block(blocks["large"], dtype)
+        C = large.local_dim
+        cases["#4"] = (
+            lambda t, xx, bb: fused_local_track_segments(t, xx, bb, seg, 1, 5),
+            lambda t, xx, bb: local_track_segment_oh_reference(
+                t, xx, bb, oh, 1, 5),
+            (rg({n: cast[n] for n in TRACK_PARAMS}), rg(rand(B, L, C)),
+             rg(rand(B, S, C))))
+        cast = cast_block(blocks["base"], dtype)
+        C = base.local_dim
         attn = rg(cast["attention"])
         cases["K2"] = (
             lambda a, xx, gg: fused_attention(a, xx, gg, oh * real[..., None]),
@@ -768,6 +947,104 @@ def reference_step_phase(card: str) -> None:
           "the optimizer update on the card did not move the params")
 
 
+def packed_reference_phase(card: str) -> None:
+    """A 2-block fp32 PACKED train step at Large width (C=G=1024, H=16,
+    8943 annotations), B=2, L=128, S=4: the loss and every grad on the
+    card (through #4 and K2) against the same params and corrupted batch
+    on the CPU plain path. Then each packed protein's loss terms
+    (`packed_segment_losses` on the clean batch) against the same protein
+    run alone on the card as a dense row of its own length (through #2
+    and K2), as the JAX test_packed_vs_solo_per_sequence_parity does."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.data.corruption import (
+        corrupt_packed_batch, packed_weights, pretrain_weights,
+    )
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED,
+    )
+    from proteinbert_tpu_torch.models import proteinbert
+    from proteinbert_tpu_torch.models.proteinbert import init, to_device
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.loss import (
+        packed_segment_losses, pretrain_loss,
+    )
+
+    large = get_preset("large")
+    cfg = large.replace(
+        model=dataclasses.replace(large.model, dtype="float32", num_blocks=2))
+    params = init(cfg.model, torch.Generator().manual_seed(43), device="cpu")
+    rng = np.random.default_rng(43)
+    B, L, S, A = 2, 128, 4, cfg.model.num_annotations
+    tokens = np.zeros((B, L), np.int32)
+    seg = np.zeros((B, L), np.int32)
+    # Row 0: three proteins and a pad tail; row 1: four, filling the row.
+    for r, spans in enumerate(((40, 50, 30), (60, 20, 38, 10))):
+        pos = 0
+        for sid, n in enumerate(spans, start=1):
+            tokens[r, pos + 1:pos + n - 1] = rng.integers(4, 26, n - 2)
+            tokens[r, pos], tokens[r, pos + n - 1] = 1, 2
+            seg[r, pos:pos + n] = sid
+            pos += n
+    ann = (rng.random((B, S, A)) < 0.01).astype(np.float32)
+    tok, sg, an = (torch.from_numpy(a) for a in (tokens, seg, ann))
+    X, Y, W = corrupt_packed_batch(torch.Generator().manual_seed(44), tok,
+                                   sg, an)
+    want_g, want_m = ts.loss_and_grads(params, X, Y, W, cfg, sg)
+    dev = torch.device(DEVICE)
+    on = {k: {n: t.to(dev) for n, t in d.items()} for k, d in
+          (("X", X), ("Y", Y), ("W", W))}
+    card_params = to_device(params, dev)
+    n0 = (LOCAL_TRACK_SEGMENTS_TILED.launches, ATTENTION.launches)
+    got_g, got_m = ts.loss_and_grads(card_params, on["X"], on["Y"], on["W"],
+                                     cfg, sg.to(dev))
+    torch.cuda.synchronize()
+    check((LOCAL_TRACK_SEGMENTS_TILED.launches - n0[0],
+           ATTENTION.launches - n0[1]) == (2, 2),
+          "packed reference step did not run #4 and K2 once a block")
+    loss_err = abs(float(got_m["loss"]) - float(want_m["loss"]))
+    grad_err = max((a.cpu() - b).abs().max().item()
+                   for a, b in zip(got_g, want_g))
+    print(f"# reference step packed: 2-block fp32 Large width, B=2 L=128 "
+          f"S=4, card vs CPU plain path: loss {float(got_m['loss']):.6f} "
+          f"|diff| {loss_err:.3e} (tol {STEP_LOSS_TOL}), grads max |diff| "
+          f"{grad_err:.3e} over {len(got_g)} tensors (tol {STEP_GRAD_TOL}) "
+          f"[{card}]")
+    check(loss_err <= STEP_LOSS_TOL, f"packed reference step loss {loss_err}")
+    check(grad_err <= STEP_GRAD_TOL, f"packed reference step grads "
+                                     f"{grad_err}")
+
+    # Packed vs solo, clean tokens, on the card.
+    sg = sg.to(dev)
+    Yc = {"local": tok.to(dev), "global": an.to(dev)}
+    with torch.no_grad():
+        ll, gl = proteinbert.apply(card_params, Yc["local"], Yc["global"],
+                                   cfg.model, segment_ids=sg)
+        per_seg = packed_segment_losses(
+            ll, gl, Yc, packed_weights(Yc["local"], sg, Yc["global"]), sg)
+        worst, n, n0 = 0.0, 0, LOCAL_TRACK_TILED.launches
+        for r in range(B):
+            for s in range(1, S + 1):
+                mask = sg[r] == s
+                if not mask.any():
+                    continue
+                toks = Yc["local"][r][mask][None]
+                a = Yc["global"][r, s - 1][None]
+                ll1, gl1 = proteinbert.apply(card_params, toks, a, cfg.model)
+                _, m1 = pretrain_loss(ll1, gl1, {"local": toks, "global": a},
+                                      pretrain_weights(toks, a))
+                for k, k1 in (("local", "local_loss"),
+                              ("global", "global_loss")):
+                    worst = max(worst, abs(float(per_seg[k][r, s - 1])
+                                           - float(m1[k1])))
+                n += 1
+    check(LOCAL_TRACK_TILED.launches - n0 == 2 * n,
+          "the solo rows did not run #2 once a block")
+    print(f"# packed vs solo: {n} proteins, per-segment loss terms packed "
+          f"(#4) vs each alone as a dense row (#2): max |diff| {worst:.3e} "
+          f"(tol {SOLO_LOSS_TOL}) [{card}]")
+    check(worst <= SOLO_LOSS_TOL, f"packed vs solo loss terms: {worst}")
+
+
 # ------------------------------------------------------------ train
 
 def synthetic_proteins(n: int, lo: int, hi: int, num_annotations: int,
@@ -789,21 +1066,39 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
               residues: tuple, seed: int):
     """`pretrain()` for `steps` steps with every kernel count at 0: the
     launches of each step (exactly per_step[name], 0 for a kernel not
-    named), finite losses, params moved by step 2. Returns (state, the
-    out dict, per-step wall ms, launches, peak bytes, a clean batch)."""
+    named), finite losses, params moved by step 2. `cfg.data.packing`
+    feeds it `make_packed_iterator` (cfg.data.pack_max_segments a row),
+    else `make_pretrain_iterator`. Returns (the out dict, per-step wall
+    ms, launches, peak bytes, a clean batch, the batches it trained on)."""
     from proteinbert_tpu_torch.data.dataset import (
         InMemoryPretrainingDataset, make_pretrain_iterator,
     )
+    from proteinbert_tpu_torch.data.packing import make_packed_iterator
     from proteinbert_tpu_torch.kernels import KERNELS
     from proteinbert_tpu_torch.train.schedule import tree_leaves
     from proteinbert_tpu_torch.train.train_state import create_train_state
     from proteinbert_tpu_torch.train.trainer import pretrain
 
     B, L = cfg.data.batch_size, cfg.data.seq_len
-    seqs, ann = synthetic_proteins(4 * B, *residues,
+    packed = cfg.data.packing
+    seqs, ann = synthetic_proteins((40 if packed else 4) * B, *residues,
                                    cfg.model.num_annotations, seed)
     ds = InMemoryPretrainingDataset(seqs, ann, L)
-    batch = ds.get_batch(np.arange(B))
+
+    def batches():
+        if packed:
+            return make_packed_iterator(
+                ds, B, seed=seed, max_segments=cfg.data.pack_max_segments)
+        return make_pretrain_iterator(ds, B, seed=seed)
+
+    batch = next(batches())
+    trained = []
+
+    def recorded(it):
+        for b in it:
+            trained.append(b)
+            yield b
+
     state = create_train_state(torch.Generator().manual_seed(seed), cfg,
                                device=DEVICE)
     start = [t.clone() for t in tree_leaves(state.params)]
@@ -822,8 +1117,8 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
     for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    out = pretrain(cfg, make_pretrain_iterator(ds, B, seed=seed),
-                   state=state, log_fn=log_fn, device=DEVICE)
+    out = pretrain(cfg, recorded(batches()), state=state, log_fn=log_fn,
+                   device=DEVICE)
     total = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     check(len(marks) == steps, f"{label}: {len(marks)} log points")
@@ -843,20 +1138,18 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
     losses = ", ".join(f"{m[2]:.4f}" for m in marks)
     print(f"# train {label}: {steps} steps B={B} L={L}, losses [{losses}], "
           f"launches {total}")
-    return out, walls, total, peak, batch
+    return out, walls, total, peak, batch, trained
 
 
 def profile_step(card: str, label: str, state, batch, cfg) -> None:
     """Where one train step's time goes: CUDA-event-bracketed phases
-    (corrupt + copy, forward, backward, optimizer), then torch.profiler
-    over one whole `train_step` for the device's busy share and the
-    largest kernels."""
+    (corrupt + copy, forward, backward, optimizer; the packed loss for a
+    packed batch), then torch.profiler over one whole `train_step` for the
+    device's busy share and the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from proteinbert_tpu_torch.models import proteinbert
     from proteinbert_tpu_torch.train import train_state as ts
-    from proteinbert_tpu_torch.train.loss import pretrain_loss
     from proteinbert_tpu_torch.train.schedule import (
         make_optimizer, tree_leaves,
     )
@@ -869,14 +1162,12 @@ def profile_step(card: str, label: str, state, batch, cfg) -> None:
         marks.append(time.perf_counter())
 
     mark()
-    X, Y, W, _ = ts.corrupt_for_step(state, batch, cfg)
+    X, Y, W, seg = ts.corrupt_for_step(state, batch, cfg)
     mark()
     with torch.enable_grad():
         for t in leaves:
             t.requires_grad_(True)
-        ll, gl = proteinbert.apply(state.params, X["local"], X["global"],
-                                   cfg.model, W["local"] > 0)
-        loss, _ = pretrain_loss(ll, gl, Y, W)
+        loss, _, _, _ = ts.forward_loss(state.params, X, Y, W, cfg, seg)
         mark()
         grads = torch.autograd.grad(loss, leaves)
         mark()
@@ -922,56 +1213,82 @@ def profile_step(card: str, label: str, state, batch, cfg) -> None:
 
 
 def train_phases(card: str) -> dict:
-    """The trained paths: Large (#2 + K2) and base (K1 + K2); returns each
-    kernel's launches summed over both runs."""
-    from proteinbert_tpu_torch.configs import get_preset
+    """The trained paths: Large dense (#2 + K2) and packed (#4 + K2), base
+    dense (K1 + K2) and packed (#3 + K2), the default width packed (#6);
+    returns each kernel's launches summed over the runs."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
     from proteinbert_tpu_torch.kernels import (
-        ATTENTION, LOCAL_TRACK, LOCAL_TRACK_TILED,
+        ATTENTION, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED, ONEPASS,
     )
     from proteinbert_tpu_torch.train.metrics import peak_flops
     from proteinbert_tpu_torch.train.schedule import tree_leaves
 
-    def preset(name, B, L, steps):
+    def preset(name, B, L, steps, packed=False, model=None):
         p = get_preset(name)
         return p.replace(
-            data=dataclasses.replace(p.data, batch_size=B, seq_len=L),
+            model=model or p.model,
+            data=dataclasses.replace(p.data, batch_size=B, seq_len=L,
+                                     packing=packed, pack_max_segments=8),
             train=dataclasses.replace(p.train, max_steps=steps, log_every=1,
                                       eval_every=0))
 
     totals = {}
-    large = preset("large", 8, 1024, 6)
-    out, walls, launches, peak, batch = train_run(
-        card, "large", large, 6, {LOCAL_TRACK_TILED.name: 12,
-                                  ATTENTION.name: 12}, (100, 1022), 0)
-    for name, n in launches.items():
-        totals[name] = totals.get(name, 0) + n
-    perf = out["perf"]
-    med = statistics.median(walls[1:])
-    n_params = sum(t.numel() for t in tree_leaves(out["state"].params))
-    m = large.model
-    print(f"# train large [{card}]: {m.num_blocks} blocks C={m.local_dim} "
-          f"G={m.global_dim} H={m.num_heads} A={m.num_annotations}, "
-          f"{m.dtype}, B=8 L=1024, {n_params} params; step ms median of 5 "
-          f"{med:.1f} (steps {', '.join(f'{w:.1f}' for w in walls)}); "
-          f"pretrain perf {perf['step_ms']:.1f} ms/step, "
-          f"{perf['tokens_per_sec']:.0f} tokens/s, MFU "
-          f"{perf.get('mfu', float('nan')):.4f} of "
-          f"{peak_flops(torch.device(DEVICE), 'bfloat16') or float('nan'):.3g}"
-          f" FLOP/s; max_memory_allocated {peak / 1e9:.2f} GB")
-    profile_step(card, "train large, one step B=8 L=1024", out["state"], batch,
-                 large)
 
-    base = preset("base", 8, 512, 2)
-    out, walls, launches, peak, _ = train_run(
-        card, "base", base, 2, {LOCAL_TRACK.name: 6, ATTENTION.name: 6},
-        (100, 510), 1)
-    for name, n in launches.items():
-        totals[name] = totals.get(name, 0) + n
-    m = base.model
-    print(f"# train base [{card}]: {m.num_blocks} blocks C={m.local_dim} "
-          f"G={m.global_dim} H={m.num_heads}, {m.dtype}, B=8 L=512, "
-          f"step ms {', '.join(f'{w:.1f}' for w in walls)}; "
-          f"max_memory_allocated {peak / 1e9:.2f} GB")
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+
+    for packed, kernel, residues in (
+            (False, LOCAL_TRACK_TILED, (100, 1022)),
+            (True, LOCAL_TRACK_SEGMENTS_TILED, (50, 500))):
+        label = "large packed" if packed else "large"
+        large = preset("large", 8, 1024, 6, packed)
+        out, walls, launches, peak, batch, trained = train_run(
+            card, label, large, 6, {kernel.name: 12, ATTENTION.name: 12},
+            residues, 0)
+        add(launches)
+        perf = out["perf"]
+        med = statistics.median(walls[1:])
+        n_params = sum(t.numel() for t in tree_leaves(out["state"].params))
+        m = large.model
+        rows = ""
+        if packed:
+            seg = np.concatenate([b["segment_ids"] for b in trained])
+            rows = (f"; real (segment > 0) positions "
+                    f"{(seg > 0).mean():.4f} of B*L, segments a row "
+                    f"{seg.max(axis=1).mean():.3f} over {len(trained)} "
+                    f"batches")
+        print(f"# train {label} [{card}]: {m.num_blocks} blocks "
+              f"C={m.local_dim} G={m.global_dim} H={m.num_heads} "
+              f"A={m.num_annotations}, {m.dtype}, B=8 L=1024, {n_params} "
+              f"params; step ms median of 5 {med:.1f} (steps "
+              f"{', '.join(f'{w:.1f}' for w in walls)}); pretrain perf "
+              f"{perf['step_ms']:.1f} ms/step, {perf['tokens_per_sec']:.0f} "
+              f"tokens/s (B*L positions), MFU "
+              f"{perf.get('mfu', float('nan')):.4f} of "
+              f"{peak_flops(torch.device(DEVICE), 'bfloat16') or float('nan'):.3g}"
+              f" FLOP/s; max_memory_allocated {peak / 1e9:.2f} GB{rows}")
+        profile_step(card, f"train {label}, one step B=8 L=1024",
+                     out["state"], batch, large)
+
+    default = ModelConfig()
+    for label, cfg, per_step, residues in (
+            ("base", preset("base", 8, 512, 2),
+             {LOCAL_TRACK.name: 6, ATTENTION.name: 6}, (100, 510)),
+            ("base packed", preset("base", 8, 512, 2, True),
+             {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6}, (50, 250)),
+            ("default width packed",
+             preset("base", 8, 512, 2, True, default),
+             {ONEPASS.name: 6}, (50, 250))):
+        out, walls, launches, peak, _, _ = train_run(
+            card, label, cfg, 2, per_step, residues, 1)
+        add(launches)
+        m = cfg.model
+        print(f"# train {label} [{card}]: {m.num_blocks} blocks "
+              f"C={m.local_dim} G={m.global_dim} H={m.num_heads}, {m.dtype}, "
+              f"B=8 L=512, step ms {', '.join(f'{w:.1f}' for w in walls)}; "
+              f"max_memory_allocated {peak / 1e9:.2f} GB")
     return totals
 
 
@@ -1300,7 +1617,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from proteinbert_tpu_torch.kernels import (
         ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
-        LOCAL_TRACK_TILED, ONEPASS,
+        LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED, ONEPASS,
     )
     from proteinbert_tpu_torch.kernels.build import build_all
 
@@ -1332,6 +1649,7 @@ def main() -> int:
     grad_phase(card)
     reference_phase()
     reference_step_phase(card)
+    packed_reference_phase(card)
     ragged_parity_phase()
     print(f"# gradients and references: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1364,6 +1682,10 @@ def main() -> int:
             "proteinbert_tpu_torch/csrc/local_track_tiled.cu",
             "proteinbert_tpu/kernels/fused_block.py:881", 1024, "dense",
             "B=8 L=1024 C=1024 bf16"),
+        LOCAL_TRACK_SEGMENTS_TILED.name: (
+            "proteinbert_tpu_torch/csrc/local_track_segments_tiled.cu",
+            "proteinbert_tpu/kernels/fused_block.py:1220", 1024, "S=8",
+            "B=8 L=1024 C=1024 S=8 bf16"),
     }
     report = []
     for k in KERNELS:

@@ -1,243 +1,13 @@
-// #2 — the channel-tiled local track of one ProteinBERT block over dense rows,
-// for Hopper (sm_90a), at 512 < C <= 2048 (C a multiple of 128): the width of
-// ProteinBERT-Large (C = 1024).
+// #2 — the channel-tiled local track of one ProteinBERT block over dense
+// rows, for Hopper (sm_90a), at 512 < C <= 2048 (C a multiple of 128).
 //
 // Replaces the TPU kernel proteinbert_tpu/kernels/fused_block.py
 // `_fused_kernel_tiled` (launched at :881 by `_pallas_forward`, entry
-// `fused_local_track`). It computes what K1 computes (local_track.cuh):
-//
-//   h  = (gelu(conv9,d=1(x) + nb) + gelu(conv9,d=D(x) + wb)) + x + bcast
-//   x1 = LN1(h)                      (rounded to the activation type)
-//   y  = LN2(x1 + gelu(x1 @ Wd + db))
-//
-// with the rounding points of `_finish_row` (fused_block.py:514-523): the
-// tap products and both conv outputs stay float32, x1 is rounded before the
-// dense, LN statistics are float32 with the biased variance. The float32 sum
-// is taken in the TPU tiled kernel's order (fused_block.py:604-618: the two
-// GELU terms first, then x, then the broadcast), not in K1's.
-//
-// What bounds it on the H100: operations, 2*B*L*C^2*19 FLOP — 326 GFLOP at
-// B=8, L=C=1024, 0.330 ms at 989 TFLOP/s bf16 — against ~70 MB of activation
-// and weight bytes (0.021 ms at 3.35 TB/s).
-//
-// Design. At C = 1024 the TPU kernel kept a (tile, C) float32 scratch row and
-// walked channel tiles as a sequential grid axis. A Hopper block cannot carry
-// scratch across blocks, and K1's one-block-per-row-tile layout does not fit:
-// a (32+40, 1024) bf16 window and a (32, 1024) float32 h are 275 KB before
-// any weights, against 227 KB. So the layer runs as TWO launches that meet in
-// a float32 (B, L, C) scratch the wrapper allocates:
-//   1. conv pass, one block per (128 output channels, 64 rows, batch row):
-//      an implicit GEMM over (tap, input channel). For each 16-channel
-//      k-chunk a (64+40, 16) slice of the input window and the nine
-//      (16, 128) tap slices of one conv's weights stream through a cp.async
-//      double buffer; the nine taps are nine shifted products on the same
-//      window slice. The narrow conv's GELU goes to the scratch, the wide
-//      conv's epilogue adds its GELU, x and the broadcast in place.
-//   2. finish pass, one block per (32 rows, batch row): LN1 of the scratch
-//      rows into a (32, C) x1 tile in shared memory, the dense x1 @ Wd in
-//      256-column chunks with Wd streaming through a double buffer (the
-//      residual x1 + gelu(.) goes back to the scratch rows), then LN2 to the
-//      output.
-// No reduction crosses blocks, so the choice over a cluster that splits the
-// LayerNorm statistics through distributed shared memory is simplicity: two
-// plain tiled products, at the price of one float32 round trip of h through
-// L2/HBM (64 MB of traffic at B=8, L=C=1024, ~0.02 ms). Rows past L in a tile
-// are computed on zero padding and never written, so any L works.
-//   float32 runs the same plan on the CUDA cores (MmaF32, no TF32) with
-//   narrower k-chunks (8) and 16-row finish tiles to fit shared memory.
+// `fused_local_track`). It computes what K1 computes (local_track.cuh); the
+// device code, its bound and its design are in local_track_tiled.cuh
+// (SEG = false).
 
-#include "local_track.cuh"
-
-namespace pbt {
-
-template <typename T> struct TiledCfg;
-
-template <> struct TiledCfg<__nv_bfloat16> {
-  static constexpr int TL = 64, TC = 128, KC = 16, PAD = 16;  // conv pass
-  static constexpr int FL = 32, FN = 256, FK = 32;             // finish pass
-  using ConvMma = MmaBf16<TL, TC, 2, 4>;
-  using DenseMma = MmaBf16<FL, FN, 1, 8>;
-};
-
-template <> struct TiledCfg<float> {
-  static constexpr int TL = 64, TC = 128, KC = 8, PAD = 0;
-  static constexpr int FL = 16, FN = 256, FK = 16;
-  using ConvMma = MmaF32<TL, TC, 32>;
-  using DenseMma = MmaF32<FL, FN, 64>;
-};
-
-template <typename T> struct ConvSmem {
-  using Cfg = TiledCfg<T>;
-  static constexpr int LDA = Cfg::KC + Cfg::PAD;
-  static constexpr int LDB = Cfg::TC + Cfg::PAD;
-  static constexpr int WIN = Cfg::TL + 2 * kHalo;
-  static constexpr int A_TILE = WIN * LDA;               // elements
-  static constexpr int B_TILE = kTaps * Cfg::KC * LDB;   // elements
-  static constexpr size_t stage = align128((A_TILE + B_TILE) * sizeof(T));
-  static constexpr size_t total = 2 * stage;
-  static_assert(total >= size_t(Cfg::TL) * Cfg::TC * sizeof(float),
-                "the product tile aliases the double buffer");
-  static_assert(total <= 232448, "fits one block's shared memory");
-};
-
-template <typename T> struct FinishSmem {
-  using Cfg = TiledCfg<T>;
-  static constexpr int LDW = Cfg::FN + Cfg::PAD;
-  static constexpr int W_TILE = Cfg::FK * LDW;  // elements
-  static constexpr size_t wbuf = align128(2 * size_t(W_TILE) * sizeof(T));
-  static_assert(wbuf >= size_t(Cfg::FL) * Cfg::FN * sizeof(float),
-                "the product tile aliases the weight double buffer");
-  __host__ __device__ static size_t x1(int C) {
-    return align128(size_t(Cfg::FL) * (C + Cfg::PAD) * sizeof(T));
-  }
-  __host__ __device__ static size_t total(int C) { return x1(C) + wbuf; }
-};
-
-// Pass 1: h[b, l0 : l0+TL, c0 : c0+TC] of the float32 scratch.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tiled_conv_kernel(TrackArgs<T> p, int C, float* __restrict__ h) {
-  using Cfg = TiledCfg<T>;
-  using Smem = ConvSmem<T>;
-  constexpr int TL = Cfg::TL, TC = Cfg::TC, KC = Cfg::KC;
-  constexpr int LDA = Smem::LDA, LDB = Smem::LDB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* stage = reinterpret_cast<float*>(smem);  // after a k-loop only
-
-  const int c0 = blockIdx.x * TC, l0 = blockIdx.y * TL, b = blockIdx.z;
-  const int L = p.L;
-  const T* xb = p.x + size_t(b) * L * C;
-  float* hb = h + size_t(b) * L * C;
-  const int rows = min(TL, L - l0);
-
-  typename Cfg::ConvMma mma;
-  for (int conv = 0; conv < 2; ++conv) {
-    const T* w = conv == 0 ? p.nk : p.wk;
-    const int dilation = conv == 0 ? 1 : p.wide_dilation;
-    mma.zero();
-    pipelined_steps(
-        C / KC,
-        [&](int s, int buf) {
-          T* a = reinterpret_cast<T*>(smem + buf * Smem::stage);
-          T* bt = a + Smem::A_TILE;
-          // Input rows l0-20 .. l0+TL+20 of channels s*KC .., zeros outside
-          // [0, L) ('SAME' padding).
-          load_rows_async(a, LDA, xb + s * KC, C, l0 - kHalo, Smem::WIN, KC,
-                          L);
-          for (int t = 0; t < kTaps; ++t)
-            load_rows_async(bt + t * KC * LDB, LDB,
-                            w + (size_t(t) * C + s * KC) * C + c0, C, 0, KC,
-                            TC, KC);
-        },
-        [&](int, int buf) {
-          const T* a = reinterpret_cast<const T*>(smem + buf * Smem::stage);
-          const T* bt = a + Smem::A_TILE;
-#pragma unroll 1
-          for (int t = 0; t < kTaps; ++t)
-            mma.mma(a + (kHalo + (t - kCenter) * dilation) * LDA, LDA,
-                    bt + t * KC * LDB, LDB, KC);
-        });
-    mma.store(stage, TC);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * TC; i += kThreads) {
-      const int m = i / TC, c = i - m * TC;
-      const size_t o = size_t(l0 + m) * C + c0 + c;
-      if (conv == 0) {
-        hb[o] = gelu_tanh(stage[i] + p.nb[c0 + c]);
-      } else {
-        hb[o] = ((hb[o] + gelu_tanh(stage[i] + p.wb[c0 + c])) + to_f(xb[o])) +
-                to_f(p.bcast[size_t(b) * C + c0 + c]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Pass 2: rows l0 .. l0+FL-1 of batch row b, LN1 → dense(+GELU, residual) →
-// LN2, the scratch rows reused for the residual.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tiled_finish_kernel(TrackArgs<T> p, int C, float* __restrict__ h) {
-  using Cfg = TiledCfg<T>;
-  using Smem = FinishSmem<T>;
-  constexpr int FL = Cfg::FL, FN = Cfg::FN, FK = Cfg::FK, LDW = Smem::LDW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LDX = C + Cfg::PAD;
-  T* x1 = reinterpret_cast<T*>(smem);
-  T* wbuf = reinterpret_cast<T*>(smem + Smem::x1(C));
-  float* stage = reinterpret_cast<float*>(wbuf);  // after a k-loop only
-
-  const int l0 = blockIdx.x * FL, b = blockIdx.y;
-  const int L = p.L;
-  const int rows = min(FL, L - l0);
-  float* hb = h + (size_t(b) * L + l0) * C;
-
-  // x1 = LN1(h), rounded to T (fused_block.py:517); rows past L are zero.
-  layer_norm_rows(hb, rows, C, p.s1, p.b1, [&](int m, int c, float y) {
-    x1[m * LDX + c] = from_f<T>(y);
-  });
-  for (int i = threadIdx.x; i < (FL - rows) * C; i += kThreads) {
-    const int m = rows + i / C, c = i % C;
-    x1[m * LDX + c] = from_f<T>(0.f);
-  }
-  __syncthreads();
-
-  // h2 = x1 + gelu(x1 @ Wd + db), FN output columns at a time.
-  typename Cfg::DenseMma mma;
-  for (int n0 = 0; n0 < C; n0 += FN) {
-    mma.zero();
-    pipelined_steps(
-        C / FK,
-        [&](int s, int buf) {
-          load_rows_async(wbuf + buf * Smem::W_TILE, LDW,
-                          p.dk + size_t(s) * FK * C + n0, C, 0, FK, FN, FK);
-        },
-        [&](int s, int buf) {
-          mma.mma(x1 + s * FK, LDX, wbuf + buf * Smem::W_TILE, LDW, FK);
-        });
-    mma.store(stage, FN);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * FN; i += kThreads) {
-      const int m = i / FN, c = i - m * FN;
-      hb[size_t(m) * C + n0 + c] =
-          to_f(x1[m * LDX + n0 + c]) + gelu_tanh(stage[i] + p.db[n0 + c]);
-    }
-    __syncthreads();
-  }
-
-  // y = LN2(h2) → out rows inside [0, L)
-  T* ob = p.out + (size_t(b) * L + l0) * C;
-  layer_norm_rows(hb, rows, C, p.s2, p.b2, [&](int m, int c, float y) {
-    ob[size_t(m) * C + c] = from_f<T>(y);
-  });
-}
-
-template <typename T>
-cudaError_t launch_tiled(const TrackArgs<T>& p, int B, int C, float* h,
-                         cudaStream_t stream) {
-  using Cfg = TiledCfg<T>;
-  const size_t conv_smem = ConvSmem<T>::total;
-  const size_t finish_smem = FinishSmem<T>::total(C);
-  if (finish_smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      tiled_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(conv_smem));
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(tiled_finish_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(finish_smem));
-  if (e != cudaSuccess) return e;
-  dim3 conv_grid(C / Cfg::TC, (p.L + Cfg::TL - 1) / Cfg::TL, B);
-  tiled_conv_kernel<T><<<conv_grid, kThreads, conv_smem, stream>>>(p, C, h);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dim3 finish_grid((p.L + Cfg::FL - 1) / Cfg::FL, B);
-  tiled_finish_kernel<T><<<finish_grid, kThreads, finish_smem, stream>>>(p, C,
-                                                                         h);
-  return cudaGetLastError();
-}
-
-}  // namespace pbt
+#include "local_track_tiled.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, C), conv and dense kernels,
 // out); biases and LN vectors are float32; h is a float32 (B, L, C) scratch.
@@ -252,18 +22,17 @@ extern "C" int pbt_local_track_tiled(int dtype, const void* x,
                                      const void* b2, void* h, void* out,
                                      int B, int L, int C, int wide_dilation,
                                      void* stream) {
-  if (!pbt::track_geometry_ok(B, L, 1, wide_dilation) || C % 128 ||
-      C <= 512 || C > 2048 || B > 65535)
+  if (!pbt::tiled_geometry_ok(B, L, C, 1, wide_dilation))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* scratch = static_cast<float*>(h);
   if (dtype == 0)
-    return pbt::launch_tiled<float>(
+    return pbt::launch_tiled<float, false>(
         pbt::track_args<float>(x, nullptr, bcast, nk, nb, wk, wb, s1, b1, dk,
                                db, s2, b2, out, L, 1, wide_dilation),
         B, C, scratch, s);
   if (dtype == 1)
-    return pbt::launch_tiled<__nv_bfloat16>(
+    return pbt::launch_tiled<__nv_bfloat16, false>(
         pbt::track_args<__nv_bfloat16>(x, nullptr, bcast, nk, nb, wk, wb, s1,
                                        b1, dk, db, s2, b2, out, L, 1,
                                        wide_dilation),

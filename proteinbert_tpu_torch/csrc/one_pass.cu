@@ -37,6 +37,8 @@
 
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "attention.cuh"
 #include "local_track.cuh"
 
@@ -132,6 +134,16 @@ cudaError_t launch_shape(int C, int VD, int seg_masked, const TrackArgs<T>& p,
   if (C == 256 && VD == 128)
     return launch_seg<T, 256, 128>(seg_masked, p, real, g, wq, wak, wav,
                                    attn, B, G, H, zero_empty, stream);
+  // C = 512 in bf16 only: the one-pass rule never admits float32 there
+  // (19*C^2 float32 weights alone are 19.9 MB against its 13 MiB).
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (C == 512 && VD == 64)
+      return launch_seg<T, 512, 64>(seg_masked, p, real, g, wq, wak, wav,
+                                    attn, B, G, H, zero_empty, stream);
+    if (C == 512 && VD == 128)
+      return launch_seg<T, 512, 128>(seg_masked, p, real, g, wq, wak, wav,
+                                     attn, B, G, H, zero_empty, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -142,7 +154,7 @@ cudaError_t launch_shape(int C, int VD, int seg_masked, const TrackArgs<T>& p,
 // rows (seg_masked = 1; null for dense rows, where S must be 1); real
 // (B, L) int32, nonzero at positions the attention may see; biases and LN
 // vectors float32. key_dim is 64 and value_dim G / H is 64 or 128; C is 128
-// or 256. Outputs: local (B, L, C), attn (B, S, G). Returns
+// or 256, or 512 in bfloat16. Outputs: local (B, L, C), attn (B, S, G). Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int pbt_onepass(int dtype, int seg_masked, const void* x,
                            const void* seg, const void* real,

@@ -20,16 +20,20 @@ numerically a batch of independent proteins.
 the OLDEST row when the open set exceeds its bound — a deterministic
 function of the length stream. `OnlinePacker`: the serving sibling, same
 placement rule, with payloads and rows popped by the caller (the ragged
-scheduler). The training iterator (`make_packed_iterator`) joins with the
-training slice.
+scheduler). `make_packed_iterator`: the training feed, the planner over
+each epoch's order, in multi-host lockstep.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import logging
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from proteinbert_tpu_torch.data.dataset import (
+    _check_per_host, _epoch_order, _make_fetch,
+)
 from proteinbert_tpu_torch.data.vocab import PAD_ID
 
 # A closed row slot below this many free positions cannot hold even an
@@ -195,6 +199,84 @@ def pack_rows(
 def pad_fraction(tokens: np.ndarray) -> float:
     """Fraction of pad positions in a (B, L) token batch."""
     return float((tokens == PAD_ID).mean())
+
+
+def make_packed_iterator(
+    dataset,
+    batch_size: int,
+    seed: int = 0,
+    shuffle: bool = True,
+    num_epochs: Optional[int] = None,
+    process_index: int = 0,
+    process_count: int = 1,
+    skip_batches: int = 0,
+    max_segments: int = 8,
+    max_open: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite (or num_epochs-bounded) per-host PACKED batch iterator:
+    {"tokens" (B, L), "segment_ids" (B, L), "annotations" (B, S, A)} with
+    B = batch_size, L = dataset.seq_len, S = max_segments.
+
+    Every host runs the SAME planner over the same epoch permutation, so
+    all hosts agree on the plan; when `batch_size * process_count` rows
+    are ready each host fetches only its slice. `max_open` bounds the
+    planner's open rows (0 = 2 × the global batch). `skip_batches` replays
+    only the planner bookkeeping, so a resumed run yields the same batches
+    without fetching the skipped ones. At the end of a bounded run the
+    planner is flushed and every full global batch emitted; the remainder
+    (fewer rows than a global batch) is dropped with a warning. The JAX
+    iterator's `metrics` registry (pad fraction and segment counters) is
+    not ported with it: the port has no obs registry yet."""
+    n = len(dataset)
+    per_host = _check_per_host(n, batch_size, process_count)
+    global_batch = batch_size * process_count
+    if max_open <= 0:
+        max_open = 2 * global_batch
+    lengths = np.minimum(dataset.row_lengths(), dataset.seq_len)
+    seq_len = dataset.seq_len
+    block = getattr(dataset, "shuffle_block", None)
+    fetch = _make_fetch(dataset)
+    rng = np.random.default_rng(seed)
+    planner = PackPlanner(seq_len, max_segments, max_open)
+    ready: List[List[int]] = []
+
+    def emit(groups: List[List[int]], epoch: int):
+        mine = groups[process_index * batch_size:
+                      (process_index + 1) * batch_size]
+        flat = [r for g in mine for r in g]
+        positions, pos = [], 0
+        for g in mine:
+            positions.append(list(range(pos, pos + len(g))))
+            pos += len(g)
+        data = fetch(np.asarray(flat, dtype=np.int64), epoch)
+        return pack_rows(data["tokens"], data["annotations"], positions,
+                         seq_len, max_segments)
+
+    epoch = 0
+    while num_epochs is None or epoch < num_epochs:
+        order = _epoch_order(n, rng, shuffle, block)[:per_host * process_count]
+        for i in order:
+            ready.extend(planner.add(int(i), int(lengths[i])))
+            while len(ready) >= global_batch:
+                groups, ready = ready[:global_batch], ready[global_batch:]
+                if skip_batches > 0:
+                    skip_batches -= 1
+                    continue
+                yield emit(groups, epoch)
+        epoch += 1
+    ready.extend(planner.flush())
+    while len(ready) >= global_batch:
+        groups, ready = ready[:global_batch], ready[global_batch:]
+        if skip_batches > 0:
+            skip_batches -= 1
+            continue
+        yield emit(groups, epoch - 1 if epoch else 0)
+    dropped = sum(len(g) for g in ready)
+    if dropped:
+        logging.getLogger(__name__).warning(
+            "packed iterator ended with %d pending sequences in %d partial "
+            "rows (a sub-global-batch remainder cannot be emitted at a "
+            "static shape)", dropped, len(ready))
 
 
 def unpack_segments(

@@ -12,6 +12,7 @@ from proteinbert_tpu_torch.kernels.attention import (
 from proteinbert_tpu_torch.kernels.fused_block import (
     LOCAL_TRACK,
     LOCAL_TRACK_SEGMENTS,
+    LOCAL_TRACK_SEGMENTS_TILED,
     LOCAL_TRACK_TILED,
     TRACK_PARAMS,
     fused_local_track,
@@ -28,15 +29,16 @@ from proteinbert_tpu_torch.kernels.one_pass import (
     onepass_oh_reference,
 )
 
-# Every kernel of the served and trained paths: K1, #3, K2, #6, #2.
+# Every kernel of the served and trained paths: K1, #3, K2, #6, #2, #4.
 KERNELS = (LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ATTENTION, ONEPASS,
-           LOCAL_TRACK_TILED)
+           LOCAL_TRACK_TILED, LOCAL_TRACK_SEGMENTS_TILED)
 
 __all__ = [
     "ATTENTION",
     "KERNELS",
     "LOCAL_TRACK",
     "LOCAL_TRACK_SEGMENTS",
+    "LOCAL_TRACK_SEGMENTS_TILED",
     "LOCAL_TRACK_TILED",
     "ONEPASS",
     "TRACK_PARAMS",

@@ -1,10 +1,11 @@
-"""K1, #2 and #3 — the fused local track over dense and packed rows: plain
-PyTorch versions, CUDA wrappers and their gradients.
+"""K1, #2, #3 and #4 — the fused local track over dense and packed rows:
+plain PyTorch versions, CUDA wrappers and their gradients.
 
 Port of `proteinbert_tpu/kernels/fused_block.py`: `_fused_kernel` (K1) and
 `_fused_kernel_tiled` (#2), the two bodies of the entry
-`fused_local_track`, and `_fused_segment_kernel` (#3, entry
-`fused_local_track_segments`). The local half of a ProteinBERT block:
+`fused_local_track`, and `_fused_segment_kernel` (#3) and
+`_fused_segment_kernel_tiled` (#4), the two bodies of the entry
+`fused_local_track_segments`. The local half of a ProteinBERT block:
 
     h  = x + gelu(narrow_conv(x)) + gelu(wide_conv(x)) + broadcast
     x1 = LN(h)
@@ -20,8 +21,11 @@ on a CUDA tensor it launches K1 (`csrc/local_track.cu`) for C in
 {128, 256, 512} and #2 (`csrc/local_track_tiled.cu`) for 512 < C <= 2048
 with C a multiple of 128, in bfloat16 and float32 (the JAX package has no
 float32 tiled plan and answers through XLA there; the port has no such
-route, so #2 covers float32 too). `fused_local_track_segments` launches #3
-(`csrc/local_track_segments.cu`). On a CPU tensor both run the plain
+route, so #2 covers float32 too). `fused_local_track_segments` routes
+the same way: #3 (`csrc/local_track_segments.cu`) for C in {128, 256,
+512} and #4 (`csrc/local_track_segments_tiled.cu`) for the tiled widths,
+in bfloat16 and float32 (again no float32 tiled plan in the JAX package;
+#4 covers float32 too). On a CPU tensor both entries run the plain
 versions. A CUDA call the kernels do not cover (dtype, width, conv
 geometry) raises ValueError; nothing falls back.
 
@@ -36,10 +40,11 @@ activation dtype before the dense (:517), LN statistics are float32. In
 float32 this is exactly the JAX `local_track_reference` /
 `local_track_segment_oh_reference`; in bfloat16 the JAX references round
 the conv outputs where the kernels do not. #2 computes the function K1
-computes, so its plain version is K1's `local_track_reference`; only its
-float32 sum is taken in the TPU tiled kernel's order (the two GELU terms
-first, then x and the broadcast, fused_block.py:604-618) rather than K1's
-(x first), a difference at the last float32 bit.
+computes, so its plain version is K1's `local_track_reference`, and #4's
+is #3's; only their float32 sums are taken in the TPU tiled kernels'
+order (the two GELU terms first, then x and the broadcast,
+fused_block.py:604-618 and :662-681) rather than K1's (x first), a
+difference at the last float32 bit.
 """
 
 from __future__ import annotations
@@ -72,11 +77,14 @@ LOCAL_TRACK_SEGMENTS = Kernel(
 LOCAL_TRACK_TILED = Kernel(
     "local_track_tiled", "local_track_tiled.cu", "pbt_local_track_tiled",
     [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
+LOCAL_TRACK_SEGMENTS_TILED = Kernel(
+    "local_track_segments_tiled", "local_track_segments_tiled.cu",
+    "pbt_local_track_segments_tiled", [INT] + [PTR] * 15 + [INT] * 5 + [PTR])
 
 # What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTHS = (128, 256, 512)           # K1, #3
-TILED_WIDTHS = tuple(range(640, 2049, 128))  # #2
+TILED_WIDTHS = tuple(range(640, 2049, 128))  # #2, #4
 KERNEL_TAPS = 9
 MAX_WIDE_DILATION = 5  # the window's 20-row halo
 
@@ -197,20 +205,20 @@ def gather_segment_broadcast(broadcast_seg: torch.Tensor,
                        torch.zeros((), dtype=pos.dtype, device=pos.device))
 
 
-def _track_operands(name: str, params: Params, x: torch.Tensor,
-                    narrow_dilation: int, wide_dilation: int,
-                    widths=KERNEL_WIDTHS):
-    """Check what the local-track kernels cover (C in `widths`) and cast
-    the weights to their launch types: (dtype code, conv/dense operands in
-    x's dtype, float32 bias and LN vectors)."""
+def check_track_shapes(name: str, params: Params, x: torch.Tensor,
+                       narrow_dilation: int, wide_dilation: int,
+                       widths=KERNEL_WIDTHS) -> None:
+    """Raise ValueError unless the local-track kernels cover these
+    operands: bf16/fp32, C in `widths`, k=9 convs with narrow dilation 1
+    and wide dilation <= 5."""
     C = x.shape[-1]
-    dtype = x.dtype
     nk = params["narrow_conv"]["kernel"]
     wk = params["wide_conv"]["kernel"]
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{name}: no kernel for {dtype}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: no kernel for {x.dtype}")
     if C not in widths:
-        raise ValueError(f"{name}: no kernel for C={C} (have {widths})")
+        raise ValueError(f"{name}: no kernel for C={C} in {x.dtype} "
+                         f"(have {widths})")
     conv_shape = (KERNEL_TAPS, C, C)
     if (tuple(nk.shape) != conv_shape or tuple(wk.shape) != conv_shape
             or narrow_dilation != 1
@@ -220,10 +228,22 @@ def _track_operands(name: str, params: Params, x: torch.Tensor,
             f"dilation 1 and wide dilation <= {MAX_WIDE_DILATION}; got "
             f"{tuple(nk.shape)}/{tuple(wk.shape)}, dilations "
             f"{narrow_dilation}/{wide_dilation}")
+
+
+def _track_operands(name: str, params: Params, x: torch.Tensor,
+                    narrow_dilation: int, wide_dilation: int,
+                    widths=KERNEL_WIDTHS):
+    """Check what the local-track kernels cover (C in `widths`) and cast
+    the weights to their launch types: (dtype code, conv/dense operands in
+    x's dtype, float32 bias and LN vectors)."""
+    check_track_shapes(name, params, x, narrow_dilation, wide_dilation,
+                       widths)
+    dtype = x.dtype
     ln1, ln2, dn = (params["local_ln1"], params["local_ln2"],
                     params["local_dense"])
     nk, wk, dk = (t.to(dtype).contiguous()
-                  for t in (nk, wk, dn["kernel"]))
+                  for t in (params["narrow_conv"]["kernel"],
+                            params["wide_conv"]["kernel"], dn["kernel"]))
     nb, wb, s1, b1, db, s2, b2 = (
         t.float().contiguous() for t in (
             params["narrow_conv"]["bias"], params["wide_conv"]["bias"],
@@ -304,12 +324,13 @@ def _segments_kernel(
     params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
     segment_ids: torch.Tensor, narrow_dilation: int, wide_dilation: int,
 ) -> torch.Tensor:
-    """One launch of #3 on CUDA tensors; ValueError for what it does not
-    cover."""
+    """One launch of #3 (C <= 512) or #4 (512 < C <= 2048) on CUDA
+    tensors; ValueError for what neither covers."""
     B, L, C = x.shape
     S = broadcast_seg.shape[1]
-    code, weights = _track_operands("fused_local_track_segments", params, x,
-                                    narrow_dilation, wide_dilation)
+    code, weights = _track_operands(
+        "fused_local_track_segments", params, x, narrow_dilation,
+        wide_dilation, KERNEL_WIDTHS + TILED_WIDTHS)
     if tuple(broadcast_seg.shape) != (B, S, C) or S < 1:
         raise ValueError(f"fused_local_track_segments: broadcast_seg "
                          f"{tuple(broadcast_seg.shape)} is not (B, S, C) "
@@ -320,12 +341,18 @@ def _segments_kernel(
     x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast_seg))
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty_like(x)
-    ops = (x, seg, bc, *weights, out)
-    check_cuda("fused_local_track_segments", *ops)
     with torch.cuda.device(x.device):
-        LOCAL_TRACK_SEGMENTS.launch(code, *(t.data_ptr() for t in ops),
-                                    B, L, C, S, wide_dilation,
-                                    stream_ptr(x.device))
+        if C in KERNEL_WIDTHS:
+            ops = (x, seg, bc, *weights, out)
+            kernel = LOCAL_TRACK_SEGMENTS
+        else:
+            # #4's two passes meet in a float32 (B, L, C) scratch.
+            h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
+            ops = (x, seg, bc, *weights, h, out)
+            kernel = LOCAL_TRACK_SEGMENTS_TILED
+        check_cuda("fused_local_track_segments", *ops)
+        kernel.launch(code, *(t.data_ptr() for t in ops), B, L, C, S,
+                      wide_dilation, stream_ptr(x.device))
     return out
 
 
@@ -336,8 +363,8 @@ def fused_local_track_segments(
 ) -> torch.Tensor:
     """Local track of one block over PACKED rows: broadcast_seg (B, S, C)
     the per-segment projected global vectors, segment_ids (B, L) with 0 =
-    pad and 1..S a packed protein (ids above S count as pad). CUDA → the
-    segment kernel (or ValueError), CPU → the plain version;
+    pad and 1..S a packed protein (ids above S count as pad). CUDA → #3
+    or #4 by width (or ValueError), CPU → the plain version;
     differentiable through the plain version either way."""
     run = (_segments_reference
            if _device_check("fused_local_track_segments", x)

@@ -42,7 +42,7 @@ from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
 from proteinbert_tpu_torch.kernels.fused_block import (
-    _device_check, _track_operands, fused_local_track,
+    _device_check, _track_operands, check_track_shapes, fused_local_track,
     fused_local_track_segments, local_track_reference,
     local_track_segment_oh_reference,
 )
@@ -53,9 +53,11 @@ ONEPASS = Kernel(
     "one_pass", "one_pass.cu", "pbt_onepass",
     [INT, INT] + [PTR] * 20 + [INT] * 8 + [PTR])
 
-# What the CUDA kernel covers (beyond the local track's dtypes and convs
-# and K2's head dims).
-KERNEL_WIDTHS = (128, 256)
+# What the CUDA kernel covers (beyond the local track's convs and K2's
+# head dims): the widths of each activation dtype. The one-pass rule never
+# admits float32 at C=512 (19·C² float32 weights alone are 19.9 MB against
+# its 13 MiB), so the kernel has no such instantiation.
+KERNEL_WIDTHS = {torch.bfloat16: (128, 256, 512), torch.float32: (128, 256)}
 
 
 def onepass_oh_reference(
@@ -109,27 +111,28 @@ def _onepass_reference(
         segment_ids is not None, zero_empty)
 
 
-def _onepass_kernel(
+def check_onepass_shapes(
     track_params: Params, attn_params: Params, x: torch.Tensor,
     broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
     segment_ids: Optional[torch.Tensor], real: torch.Tensor,
-    narrow_dilation: int, wide_dilation: int, zero_empty: bool,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of #6 on CUDA tensors; ValueError for what it does not
-    cover."""
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> None:
+    """Raise ValueError unless #6 covers these operands: bf16/fp32 with C
+    in `KERNEL_WIDTHS[dtype]`, k=9 convs (narrow dilation 1, wide ≤ 5),
+    key_dim 64, value_dim 64 or 128 with G == H·value_dim, 1 <= S <= 16
+    and L·S scores in shared memory."""
     B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
     H, _, key_dim = attn_params["wq"].shape
     value_dim = attn_params["wv"].shape[-1]
-    code, weights = _track_operands("fused_onepass", track_params, x,
-                                    narrow_dilation, wide_dilation)
-    if (C not in KERNEL_WIDTHS or key_dim != KERNEL_HEAD_DIM
-            or value_dim not in KERNEL_VALUE_DIMS or G != H * value_dim):
+    check_track_shapes("fused_onepass", track_params, x, narrow_dilation,
+                       wide_dilation, KERNEL_WIDTHS.get(x.dtype, ()))
+    if (key_dim != KERNEL_HEAD_DIM or value_dim not in KERNEL_VALUE_DIMS
+            or G != H * value_dim):
         raise ValueError(
-            f"fused_onepass: the kernel covers C in {KERNEL_WIDTHS}, "
-            f"key_dim {KERNEL_HEAD_DIM}, value_dim in {KERNEL_VALUE_DIMS}; "
-            f"got C {C}, key_dim {key_dim}, value_dim {value_dim}, G {G}, "
-            f"H {H}")
+            f"fused_onepass: the kernel covers key_dim {KERNEL_HEAD_DIM}, "
+            f"value_dim in {KERNEL_VALUE_DIMS} with G == H·value_dim; got "
+            f"key_dim {key_dim}, value_dim {value_dim}, G {G}, H {H}")
     if not 1 <= S <= KERNEL_MAX_SEGMENTS or L * S > KERNEL_MAX_SCORES:
         raise ValueError(f"fused_onepass: S={S}, L={L} outside the kernel's "
                          f"S <= {KERNEL_MAX_SEGMENTS}, "
@@ -141,6 +144,25 @@ def _onepass_kernel(
                 and tuple(segment_ids.shape) != (B, L))):
         raise ValueError("fused_onepass: operand shapes do not match "
                          f"x {tuple(x.shape)} and global {(B, S, G)}")
+
+
+def _onepass_kernel(
+    track_params: Params, attn_params: Params, x: torch.Tensor,
+    broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
+    segment_ids: Optional[torch.Tensor], real: torch.Tensor,
+    narrow_dilation: int, wide_dilation: int, zero_empty: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of #6 on CUDA tensors; ValueError for what it does not
+    cover."""
+    check_onepass_shapes(track_params, attn_params, x, broadcast_seg,
+                         global_seg, segment_ids, real, narrow_dilation,
+                         wide_dilation)
+    B, L, C = x.shape
+    S, G = global_seg.shape[1], global_seg.shape[2]
+    H = attn_params["wq"].shape[0]
+    code, weights = _track_operands("fused_onepass", track_params, x,
+                                    narrow_dilation, wide_dilation,
+                                    KERNEL_WIDTHS[x.dtype])
     dtype = x.dtype
     x, bc, g, wq, wk, wv = (t.to(dtype).contiguous() for t in (
         x, broadcast_seg, global_seg, attn_params["wq"], attn_params["wk"],

@@ -1,5 +1,5 @@
 """Train state and the train/eval steps — port of
-`proteinbert_tpu/train/train_state.py` for DENSE rows.
+`proteinbert_tpu/train/train_state.py` for dense and packed rows.
 
 `TrainState` bundles the step count, the params tree, the optimizer state
 and the corruption generator (a `torch.Generator` on the params' device
@@ -12,24 +12,29 @@ updates the params and optimizer moments IN PLACE and returns the state
 with its count advanced; the JAX step returns new arrays.
 
 The attention mask is the JAX training mask `W["local"] > 0`, the clean
-sequence's non-pad positions. Packed batches (with `segment_ids`) are not
-trained by the port yet.
+sequence's non-pad positions. A batch with "segment_ids" is PACKED
+(data/packing.py): it corrupts segment-aware (`corrupt_packed_batch`),
+runs the packed model with no pad mask (so `encode` derives it from
+`segment_ids > 0`) and takes the per-segment `packed_pretrain_loss`, as
+the JAX step chooses from the batch's keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import PretrainConfig
-from proteinbert_tpu_torch.data.corruption import corrupt_batch
+from proteinbert_tpu_torch.data.corruption import (
+    corrupt_batch, corrupt_packed_batch,
+)
 from proteinbert_tpu_torch.models import proteinbert
 from proteinbert_tpu_torch.train.loss import (
-    global_ranking_metrics, pretrain_loss,
+    global_ranking_metrics, packed_pretrain_loss, pretrain_loss,
 )
 from proteinbert_tpu_torch.train.schedule import (
     OptState, Optimizer, effective_lr, global_norm, make_optimizer,
@@ -69,44 +74,61 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Batch:
 
 def _corrupt(gen: torch.Generator, batch: Dict[str, Any],
              cfg: PretrainConfig, device: torch.device):
-    if "segment_ids" in batch:
-        raise ValueError(
-            "packed batches (segment_ids) are not trained by the port yet: "
-            "packed pretraining (make_packed_iterator, corrupt_packed_batch, "
-            "packed_pretrain_loss) is still to port, ROADMAP.md §A")
+    """(X, Y, W, segment_ids or None) for a dense or packed clean batch."""
     b = _to_device(batch, device)
-    return corrupt_batch(
-        gen, b["tokens"], b["annotations"],
-        token_randomize_prob=cfg.data.token_randomize_prob,
-        annotation_corrupt_prob=cfg.data.annotation_corrupt_prob,
-        annotation_drop_prob=cfg.data.annotation_drop_prob,
-        annotation_add_prob=cfg.data.annotation_add_prob,
-    )
+    probs = dict(token_randomize_prob=cfg.data.token_randomize_prob,
+                 annotation_corrupt_prob=cfg.data.annotation_corrupt_prob,
+                 annotation_drop_prob=cfg.data.annotation_drop_prob,
+                 annotation_add_prob=cfg.data.annotation_add_prob)
+    if "segment_ids" in b:
+        seg = b["segment_ids"]
+        return (*corrupt_packed_batch(gen, b["tokens"], seg,
+                                      b["annotations"], **probs), seg)
+    return (*corrupt_batch(gen, b["tokens"], b["annotations"], **probs),
+            None)
 
 
 def corrupt_for_step(state: TrainState, batch: Dict[str, Any],
                      cfg: PretrainConfig):
     """Corrupt the CLEAN batch on the state's device with the state's
-    generator → (X, Y, W, None); the None stands where the JAX step
-    returns packed segment ids."""
+    generator → (X, Y, W, segment_ids), segment_ids None for a dense
+    batch."""
     dev = tree_leaves(state.params)[0].device
-    X, Y, W = _corrupt(state.generator, batch, cfg, dev)
-    return X, Y, W, None
+    return _corrupt(state.generator, batch, cfg, dev)
+
+
+def forward_loss(params: Any, X: Batch, Y: Batch, W: Batch,
+                 cfg: PretrainConfig,
+                 segment_ids: Optional[torch.Tensor] = None):
+    """(loss, metrics, local_logits, global_logits) of a corrupted batch:
+    dense rows under the training mask `W["local"] > 0`, packed rows
+    (`segment_ids`) through the packed model and the per-segment loss."""
+    if segment_ids is not None:
+        local_logits, global_logits = proteinbert.apply(
+            params, X["local"], X["global"], cfg.model,
+            segment_ids=segment_ids)
+        loss, metrics = packed_pretrain_loss(local_logits, global_logits, Y,
+                                             W, segment_ids)
+    else:
+        local_logits, global_logits = proteinbert.apply(
+            params, X["local"], X["global"], cfg.model, W["local"] > 0)
+        loss, metrics = pretrain_loss(local_logits, global_logits, Y, W)
+    return loss, metrics, local_logits, global_logits
 
 
 def loss_and_grads(params: Any, X: Batch, Y: Batch, W: Batch,
-                   cfg: PretrainConfig):
-    """Forward, dual masked loss and backward on a corrupted batch →
-    (grads aligned with `tree_leaves(params)`, loss metrics)."""
+                   cfg: PretrainConfig,
+                   segment_ids: Optional[torch.Tensor] = None):
+    """Forward, dual masked loss and backward on a corrupted batch (packed
+    when `segment_ids` is given) → (grads aligned with
+    `tree_leaves(params)`, loss metrics)."""
     leaves = tree_leaves(params)
-    pad_mask = W["local"] > 0
     with torch.enable_grad():
         for t in leaves:
             t.requires_grad_(True)
         try:
-            local_logits, global_logits = proteinbert.apply(
-                params, X["local"], X["global"], cfg.model, pad_mask)
-            loss, metrics = pretrain_loss(local_logits, global_logits, Y, W)
+            loss, metrics, _, _ = forward_loss(params, X, Y, W, cfg,
+                                               segment_ids)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for t in leaves:
@@ -119,8 +141,8 @@ def loss_and_grads(params: Any, X: Batch, Y: Batch, W: Batch,
 def corrupt_forward_grads(state: TrainState, batch: Dict[str, Any],
                           cfg: PretrainConfig):
     """Corrupt, forward, loss, backward → (grads, loss metrics)."""
-    X, Y, W, _ = corrupt_for_step(state, batch, cfg)
-    return loss_and_grads(state.params, X, Y, W, cfg)
+    X, Y, W, seg = corrupt_for_step(state, batch, cfg)
+    return loss_and_grads(state.params, X, Y, W, cfg, seg)
 
 
 def create_train_state(generator: torch.Generator, cfg: PretrainConfig,
@@ -140,7 +162,8 @@ def train_step(
     state: TrainState, batch: Dict[str, Any], cfg: PretrainConfig,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One pretraining step on a CLEAN {"tokens", "annotations"} numpy or
-    tensor batch → (state with step + 1, device metrics). The params and
+    tensor batch (packed: plus "segment_ids", annotations (B, S, A)) →
+    (state with step + 1, device metrics). The params and
     optimizer moments are updated in place; a plateau schedule observes
     the step's train loss (the eval-keyed plateau is not ported)."""
     grads, metrics = corrupt_forward_grads(state, batch, cfg)
@@ -159,14 +182,17 @@ def eval_step(
     cfg: PretrainConfig,
 ) -> Dict[str, torch.Tensor]:
     """Corrupted-input eval with a caller-provided generator
-    (deterministic): loss metrics plus the GO head's ranking metrics."""
+    (deterministic): loss metrics plus the GO head's ranking metrics. A
+    packed batch is scored with the per-segment loss, and its ranking
+    metrics see each packed protein as its own row ((B, S, A) flattened to
+    (B·S, A); empty segment slots carry zero weight)."""
     dev = tree_leaves(state.params)[0].device
-    X, Y, W = _corrupt(generator, batch, cfg, dev)
+    X, Y, W, seg = _corrupt(generator, batch, cfg, dev)
     with torch.no_grad():
-        local_logits, global_logits = proteinbert.apply(
-            state.params, X["local"], X["global"], cfg.model,
-            W["local"] > 0)
-        _, metrics = pretrain_loss(local_logits, global_logits, Y, W)
-        metrics.update(global_ranking_metrics(global_logits, Y["global"],
-                                              W["global"]))
+        _, metrics, _, global_logits = forward_loss(state.params, X, Y, W,
+                                                    cfg, seg)
+        A = global_logits.shape[-1]
+        metrics.update(global_ranking_metrics(
+            *(t.reshape(-1, A) for t in (global_logits, Y["global"],
+                                         W["global"]))))
     return metrics

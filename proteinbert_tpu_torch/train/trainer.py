@@ -1,13 +1,17 @@
 """The pretraining loop — port of `proteinbert_tpu/train/trainer.py`
-(`pretrain`) for dense rows on one device.
+(`pretrain`) for dense and packed rows on one device.
 
 `pretrain(cfg, batch_iterator, ...)` creates or continues a train state,
 runs `cfg.train.max_steps` steps of `train_step`, logs every
 `cfg.train.log_every` steps, scores `eval_batches()` every
 `cfg.train.eval_every` steps under a step-keyed generator (so an eval is
-reproducible), and returns {"state", "history", "perf"}. `perf` is the
-StepTimer summary: step ms, tokens/s and, on a card with a published
-peak, MFU. Checkpointing, resume, preemption, the NaN halt, early
+reproducible), and returns {"state", "history", "perf"}. It trains
+whatever batches its iterator yields: dense ones (`make_pretrain_iterator`)
+or packed ones (`data/packing.make_packed_iterator`, a "segment_ids" key),
+each step choosing its branch from the batch as the JAX step does. `perf`
+is the StepTimer summary: step ms, tokens/s (B·L positions a step, pad
+included, as the JAX timer counts) and, on a card with a published peak,
+MFU. Checkpointing, resume, preemption, the NaN halt, early
 stopping, the eval-keyed plateau, meshes and telemetry are not ported;
 nothing here accepts them.
 """
@@ -62,7 +66,8 @@ def pretrain(
     """Run the pretraining loop; returns {"state", "history", "perf"}.
 
     batch_iterator: an iterator of CLEAN {"tokens", "annotations"} numpy
-      batches, or a callable `(skip_batches) -> iterator`.
+      batches (packed: plus "segment_ids", annotations (B, S, A)), or a
+      callable `(skip_batches) -> iterator`.
     state: continue from this state; fresh from `cfg.train.seed` if None.
     eval_batches: callable() -> iterator of held-out CLEAN batches,
       scored every cfg.train.eval_every steps (history gets eval_*).

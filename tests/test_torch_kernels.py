@@ -6,8 +6,12 @@ lane-aligned). float32, tolerance 1e-5 (same arithmetic, another summation
 order). #2's plain version (K1's, at C=1024) against the JAX channel-tiled
 kernel in interpret mode in bfloat16 (0.05, the JAX package's own tiled
 tolerance: the XLA and kernel rounding points differ) and against the
-JAX reference in float32 (1e-5). The CUDA kernels themselves are held
+JAX reference in float32 (1e-5). #4's plain version (#3's, at C=1024 on
+packed rows) the same way against the JAX channel-tiled segment kernel
+and the JAX segment references. The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py."""
+
+import contextlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -159,6 +163,111 @@ def test_local_track_kernel_widths(C, ok):
     else:
         with pytest.raises(ValueError, match=f"C={C}"):
             tfused._track_operands("t", p, x, 1, 5, widths)
+
+
+# ------------------------------------------------------------------ #4
+
+def _tiled_segments(case):
+    """Packed rows at C=1024. "one_row": B=1, L=128, S=4 with a pad gap,
+    an id above S (pad by contract), segment 4 empty and a pad tail.
+    "tile_edge": B=2, L=256, S=3, a boundary exactly on the TPU kernel's
+    128-row tile edge (tests/test_kernels.py:320-344)."""
+    if case == "one_row":
+        seg = np.zeros((1, 128), np.int32)
+        seg[0, :30], seg[0, 33:70], seg[0, 70:80], seg[0, 80:120] = 1, 2, 7, 3
+        return seg, 4
+    seg = np.zeros((2, 256), np.int32)
+    seg[0, :128], seg[0, 128:220] = 1, 2
+    seg[1, :100], seg[1, 100:256] = 1, 3
+    return seg, 3
+
+
+@pytest.mark.parametrize("case", ["one_row", "tile_edge"])
+def test_tiled_segments_bf16_matches_pallas_tiled_kernel(case):
+    """C=1024 packed rows in bfloat16: the JAX dispatch runs
+    `_fused_segment_kernel_tiled` (fused_block.py:1220) in interpret mode;
+    0.05 is the JAX package's own tolerance for it."""
+    seg, S = _tiled_segments(case)
+    B, L = seg.shape
+    rng = np.random.default_rng(42)
+    p = _track_params(rng, 1024)
+    x = rng.standard_normal((B, L, 1024)).astype(np.float32)
+    bs = rng.standard_normal((B, S, 1024)).astype(np.float32)
+    before = jfused.PATH_TOTAL.get(("pallas", "packed"), 0)
+    want = jfused.fused_local_track_segments(
+        _jax(p), _jax(x).astype(jnp.bfloat16), _jax(bs).astype(jnp.bfloat16),
+        jnp.asarray(seg), 1, 5, True)
+    assert jfused.PATH_TOTAL[("pallas", "packed")] == before + 1
+    got = tfused.fused_local_track_segments(
+        _torch(p), _torch(x).bfloat16(), _torch(bs).bfloat16(), _torch(seg),
+        1, 5)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(np.asarray(want.astype(jnp.float32)),
+                               got.float().numpy(), rtol=0.05, atol=0.05)
+
+
+def test_tiled_segments_fp32_matches_reference():
+    """In float32 (no tiled plan in the JAX package, which answers through
+    XLA) #4's plain version is the JAX reference to 1e-5, in the id form
+    (ids 1..S) and the one-hot form (an id above S is pad)."""
+    seg, S = _tiled_segments("one_row")
+    rng = np.random.default_rng(43)
+    p = _track_params(rng, 1024)
+    x = rng.standard_normal((1, 128, 1024)).astype(np.float32)
+    bs = rng.standard_normal((1, S, 1024)).astype(np.float32)
+    got = tfused.fused_local_track_segments(_torch(p), _torch(x), _torch(bs),
+                                            _torch(seg), 1, 5)
+    oh = (seg[..., None] == np.arange(1, S + 1)).astype(np.float32)
+    _close(jfused.local_track_segment_oh_reference(
+        _jax(p), _jax(x), _jax(bs), _jax(oh), 1, 5), got)
+    seg_in = np.where(seg > S, 0, seg)
+    got_ids = tfused.fused_local_track_segments(
+        _torch(p), _torch(x), _torch(bs), _torch(seg_in), 1, 5)
+    _close(jfused.local_track_segment_reference(
+        _jax(p), _jax(x), jfused.gather_segment_broadcast(_jax(bs),
+                                                          _jax(seg_in)),
+        _jax(seg_in), 1, 5), got_ids)
+
+
+@pytest.mark.parametrize("C,kernel", [
+    (512, "local_track_segments"), (640, "local_track_segments_tiled"),
+    (1024, "local_track_segments_tiled"), (2048, "local_track_segments_tiled"),
+    (1088, None), (2176, None), (96, None)])
+def test_segment_track_kernel_widths(C, kernel, monkeypatch):
+    """What `fused_local_track_segments` launches on CUDA: #3 at C <= 512,
+    #4 (with its float32 (B, L, C) scratch) at 512 < C <= 2048 with
+    C % 128 == 0; anything else raises before any launch. Meta tensors
+    stand in for the card's, and the launches are recorded, not run."""
+    calls = []
+    kernels = {k.name: k for k in (tfused.LOCAL_TRACK_SEGMENTS,
+                                   tfused.LOCAL_TRACK_SEGMENTS_TILED)}
+    for k in kernels.values():
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: calls.append(
+            (k.name, len(a))))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfused, "stream_ptr", lambda d: 0)
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dtype)
+
+    p = {name: {k: meta(C) for k in ("bias", "scale")}
+         for name in tfused.TRACK_PARAMS}
+    for name in ("narrow_conv", "wide_conv"):
+        p[name]["kernel"] = meta(9, C, C)
+    p["local_dense"]["kernel"] = meta(C, C)
+    B, L, S = 2, 8, 3
+    args = (p, meta(B, L, C, dtype=torch.bfloat16), meta(B, S, C),
+            meta(B, L, dtype=torch.int32), 1, 5)
+    if kernel is None:
+        with pytest.raises(ValueError, match=f"C={C}"):
+            tfused._segments_kernel(*args)
+        assert calls == []
+    else:
+        out = tfused._segments_kernel(*args)
+        assert out.shape == (B, L, C) and out.dtype == torch.bfloat16
+        # One launch, with the arguments its C signature declares (#4's
+        # has one pointer more than #3's: the scratch).
+        assert calls == [(kernel, len(kernels[kernel].argtypes))]
 
 
 # ------------------------------------------------------------------ K2

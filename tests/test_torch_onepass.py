@@ -226,6 +226,56 @@ def test_onepass_rule_equals_the_reference(dtype, heads):
                    for n in (128, 256, 512, 1024) for s in (1, 8))
 
 
+def _meta_operands(C, Gh, Hh, k, length, s, dtype, packed):
+    """Meta tensors of the shapes `_onepass_kernel` is called with."""
+    def meta(*shape, dt=dtype):
+        return torch.empty(shape, device="meta", dtype=dt)
+
+    track = {name: {"kernel": meta(C, C), "bias": meta(C), "scale": meta(C)}
+             for name in tfused.TRACK_PARAMS}
+    for name in ("narrow_conv", "wide_conv"):
+        track[name]["kernel"] = meta(9, C, C)
+    attn = {"wq": meta(Hh, Gh, k), "wk": meta(Hh, C, k),
+            "wv": meta(Hh, C, Gh // Hh)}
+    seg = meta(2, length, dt=torch.int32) if packed else None
+    return (track, attn, meta(2, length, C), meta(2, s, C), meta(2, s, Gh),
+            seg, meta(2, length, dt=torch.bool))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("heads", [(512, 4, 64), (512, 8, 64)],
+                         ids=["default", "base"])
+def test_kernel_covers_every_shape_the_rule_admits(dtype, heads):
+    """Wherever the one-pass rule sends a shape to #6 on the card,
+    `check_onepass_shapes` accepts it (the CUDA kernel has the
+    instantiation): C in {128, 256, 512}, L from 8 to 512, S in
+    {1, 8, 16}, dense and packed. The rule admits the base preset's
+    C=512, H=8 at L=8 in bfloat16, and never float32 at C=512, where the
+    kernel has no instantiation."""
+    Gh, Hh, k = heads
+    admitted = 0
+    for C in (128, 256, 512):
+        for length in (8, 16, 32, 64, 128, 256, 512):
+            for s in (1, 8, 16):
+                if not budget.onepass_supported(C, Gh, length, s, k, Hh,
+                                                dtype):
+                    continue
+                admitted += 1
+                for packed in (s > 1, True):
+                    tone.check_onepass_shapes(*_meta_operands(
+                        C, Gh, Hh, k, length, s, dtype, packed))
+    assert admitted > 0
+    if dtype == torch.bfloat16:
+        assert budget.onepass_supported(512, 512, 8, 1, 64, 8, dtype)
+    else:
+        assert not any(budget.onepass_supported(512, Gh, n, s, k, Hh, dtype)
+                       for n in (8, 16, 128) for s in (1, 8))
+        with pytest.raises(ValueError, match="C=512"):
+            tone.check_onepass_shapes(*_meta_operands(
+                512, Gh, Hh, k, 8, 1, dtype, False))
+
+
 # ------------------------------------------- launch or raise, never fall back
 
 def test_wrappers_raise_on_devices_they_do_not_run_on(inputs):
@@ -250,8 +300,9 @@ def test_kernel_registry_and_flop_counts():
 
     names = [k.name for k in KERNELS]
     assert names == ["local_track", "local_track_segments",
-                     "global_attention", "one_pass", "local_track_tiled"]
-    assert len({k.library_path() for k in KERNELS}) == 5
+                     "global_attention", "one_pass", "local_track_tiled",
+                     "local_track_segments_tiled"]
+    assert len({k.library_path() for k in KERNELS}) == 6
     # one_pass.py:362-366 at the default-width served shape: 3.42 GFLOP.
     flops = tone.onepass_flops(8, 512, 128, 512, 8, 4, 64)
     assert flops == (2 * 8 * 512 * 128**2 * 19

@@ -266,9 +266,22 @@ def test_train_step_advances_and_rejects_packed_batches():
     assert state.step == 2 and np.isfinite(float(m["loss"]))
     assert not all(torch.equal(a, b) for a, b in
                    zip(before, tsched.tree_leaves(state.params)))
-    with pytest.raises(ValueError, match="packed"):
-        tts.train_step(state, {**batch, "segment_ids": batch["tokens"]},
-                       tcfg)
+    # A packed batch (segment_ids, per-segment annotations) trains too: two
+    # proteins a row, the second row one protein and a pad tail.
+    tokens = np.zeros((2, 32), np.int32)
+    seg = np.zeros((2, 32), np.int32)
+    tokens[:, :12], seg[:, :12] = Y["local"][:2, :12], 1
+    tokens[:, 0], tokens[:, 11] = 1, 2
+    tokens[0, 12:30], seg[0, 12:30] = Y["local"][2, :18], 2
+    tokens[0, 12], tokens[0, 29] = 1, 2
+    ann = np.zeros((2, 8, 32), np.float32)
+    ann[:, :2] = Y["global"][:4].reshape(2, 2, 32)
+    packed = {"tokens": tokens, "segment_ids": seg, "annotations": ann}
+    before = [t.clone() for t in tsched.tree_leaves(state.params)]
+    state, m = tts.train_step(state, packed, tcfg)
+    assert state.step == 3 and np.isfinite(float(m["loss"]))
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(before, tsched.tree_leaves(state.params)))
 
 
 # --------------------------------------------------------- entry point

@@ -281,3 +281,29 @@ def test_tiled_track_bf16_grads_match_jax_vjp():
     out.float().sum().backward()
     _check(jg, [t.grad for t in pleaves] + [tx.grad, tb.grad],
            rtol=0.05, atol=0.1)
+
+
+def test_tiled_segment_track_grads_match_jax_vjp():
+    """#4's width: C=640, packed rows, float32. The JAX package answers
+    float32 through XLA at this width and its custom VJP recomputes the
+    segment reference; the port's backward recomputes #3's plain
+    version, which is #4's too."""
+    rng = np.random.default_rng(5)
+    C, B, L, S = 640, 2, 64, 4
+    p = _track_params(rng, C)
+    x = rng.standard_normal((B, L, C)).astype(np.float32)
+    bs = rng.standard_normal((B, S, C)).astype(np.float32)
+    seg = _segments(B, L)
+    r = rng.standard_normal((B, L, C)).astype(np.float32)
+
+    def jf(pp, xx, bb):
+        return (jfused.fused_local_track_segments(
+            pp, xx, bb, jnp.asarray(seg), 1, 5, True) * r).sum()
+
+    jg = jax.grad(jf, argnums=(0, 1, 2))(_jax(p), jnp.asarray(x),
+                                          jnp.asarray(bs))
+    (tp, tx, tb), leaves = _leaf_tensors((p, x, bs))
+    (tfused.fused_local_track_segments(tp, tx, tb, torch.from_numpy(seg),
+                                       1, 5) * torch.from_numpy(r)
+     ).sum().backward()
+    _check(jg, [t.grad for t in leaves])
