@@ -29,9 +29,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               64-row conv tile edge, inside a 32-row finish tile and inside a
               tile's 20-row halo;
               K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
-              (S=8) timed, and at value_dim 128 (C=256, G=512, H=4). Prints
+              (S=8) timed, and at value_dim 128 (C=256, G=512, H=4);
+              the int8 legs (int8 weights, quantized as the int8 serving arm
+              holds them): #3-int8 at base width (S=8), K2-int8 at base width
+              dense and packed and at value_dim 128, #6-int8 at C=128/256
+              dense and packed and at C=512 (bf16, H=4, L=128), bf16 and
+              fp32, L=512 timed and L=100 with an all-pad row and an empty
+              segment: each exactly (max |diff| == 0.0) the fp leg's output on
+              the dequantized weights, an empty segment +0.0. Prints
               max |kernel - plain| against its tolerance, kernel and plain ms
-              (CUDA events, median of 25), the bound and launches per call.
+              (CUDA events, median of 25), the bound and launches per call,
+              and each int8 leg's ms beside its fp leg's.
    gradients — every autograd Function (K1 and #2 through
               `fused_local_track`, #3 and #4 through
               `fused_local_track_segments`, K2, #6): the grads of
@@ -43,7 +51,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. reference — a base-width float32 trunk through the kernels on the card
               against the plain path on the CPU, on a small input; then a
               float32 2-block base-width trunk served ragged and bucketed on
-              the card, the answers within 1e-3.
+              the card, the answers within 1e-3; then the same trunk int8
+              (`quant_entry` / `quant_packed_entry`) on the card against the
+              CPU plain path, bucketed (K1 + K2-int8) and ragged (#3-int8 +
+              K2-int8), within 1e-3.
 4. serve    — three servers, random weights from a seeded torch.Generator,
               buckets (128, 256, 512), seq_len 512, bf16, max_batch 8; 24
               mixed requests (20-500 residues) from 4 threads, then drain:
@@ -55,9 +66,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                  6 blocks): exactly 6 of #6 per batch, none of the others.
               Each checks every answer and each embed against the same
               sequence run alone, prints requests/s and p50/p99, and a
-              torch.profiler breakdown of one full 8x512 batch. Every
-              kernel count is set to 0 just before each server's traffic and
-              read just after it.
+              torch.profiler breakdown of one full 8x512 batch and the
+              device memory after load. Each then runs again on the int8 arm
+              (`quant="int8"`, quant_parity_every=0, same weights and
+              traffic): a'. exactly 6 of K1 and of K2-int8 per batch; b'. 6 of
+              #3-int8 and of K2-int8; c'. 6 of #6-int8 — none of the fp legs
+              of K2, #3, #6 — its quant_report, and max |int8 - fp32 arm|
+              over the answers (must be > 0). Then the parity shadow
+              (quant_parity_every=1: parity_max equals the deviation measured
+              outside) and 12 requests on the `int8_act` arm (a'.'s counts).
+              Every kernel count is set to 0 just before each server's
+              traffic and read just after it.
 5. train    — `pretrain()` on the `large` preset at full depth and width
               (12 blocks, C=G=1024, H=16, 8943 annotations), bf16, seq_len
               1024, B=8, 6 steps (1 warm, 5 timed), twice:
@@ -79,6 +98,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import random
@@ -117,6 +137,11 @@ TOL = {("local_track", torch.float32): 1e-4,
        ("local_track_tiled", torch.bfloat16): 0.0625,
        ("local_track_segments_tiled", torch.float32): 1e-4,
        ("local_track_segments_tiled", torch.bfloat16): 0.0625}
+# An int8 leg against its plain version: the fp leg's tolerance (it must
+# give exactly the fp leg's output on the dequantized weights).
+for _name in ("local_track_segments", "global_attention", "one_pass"):
+    for _dtype in (torch.float32, torch.bfloat16):
+        TOL[(_name + "_q8", _dtype)] = TOL[(_name, _dtype)]
 # Gradients through a kernel's autograd Function against plain autograd,
 # as a share of the largest |grad|: both arms differentiate the same plain
 # recompute, so they differ only by the order of cuDNN's and cuBLAS's
@@ -766,6 +791,248 @@ def large_kernel_phase(card: str, rows: dict) -> None:
             None, None, None, None, None)
 
 
+# ------------------------------------------------------------ int8 legs
+
+def q8_block(gen, cfg, dtype):
+    """One block's track and attention weights as the int8 arm's forward
+    holds them (`quantize_params`, then `cast_block`: quant leaves as they
+    are, biases in the activation dtype, LN float32), and the same weights
+    dequantized — the fp leg's operands. Returns (qtrack, qattn, track,
+    attn, int8 weight bytes with their scales)."""
+    from proteinbert_tpu_torch.kernels import TRACK_PARAMS, dequant_params
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+    from proteinbert_tpu_torch.parallel.quant import (
+        param_bytes, quantize_params,
+    )
+
+    q = cast_block(quantize_params(to_device(block_init(gen, cfg),
+                                             torch.device(DEVICE))), dtype)
+    qtrack = {name: q[name] for name in TRACK_PARAMS}
+    qattn = q["attention"]
+    wbytes = (param_bytes([qtrack[n]["kernel"] for n in
+                           ("narrow_conv", "wide_conv", "local_dense")]),
+              param_bytes(qattn))
+    return qtrack, qattn, dequant_params(qtrack), dequant_params(qattn), wbytes
+
+
+def q8_kernel_phase(card: str, rows: dict) -> dict:
+    """The int8 legs of #3, K2 and #6 at the served shapes, bf16 and fp32:
+    #3-int8 at base width (B=8, C=512, S=8); K2-int8 at base width (C=G=512,
+    H=8) dense and packed (S=8) and at value_dim 128 (C=128, G=512, H=4);
+    #6-int8 at C=128 (G=512, H=4) and C=256 (G=512, H=8) dense and packed,
+    and at C=512 in bf16 (H=4, L=128). L=512 timed (#6 at C=512: L=128),
+    and L=100 with an all-pad row and an empty segment. Each leg must give
+    exactly (max |diff| == 0.0) the fp leg's output on the dequantized
+    weights, lie within the fp leg's tolerance of the plain version, and
+    return an empty segment as +0.0. Returns {row key: (exact diff, fp leg
+    ms)}; the rows join `rows`."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_SEGMENTS_Q8, ONEPASS, ONEPASS_Q8, attention_oh_reference,
+        fused_global_attention, fused_local_track_segments,
+        fused_packed_attention, local_track_segment_oh_reference,
+        onepass_oh_reference, segment_one_hot,
+    )
+    from proteinbert_tpu_torch.kernels.attention import attention_flops
+    from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
+    from proteinbert_tpu_torch.kernels.one_pass import (
+        fused_onepass, fused_onepass_segments, onepass_flops,
+    )
+
+    base = get_preset("base").model
+    gen = torch.Generator().manual_seed(31)
+    dev = torch.device(DEVICE)
+    B, S, k, wd = 8, 8, base.key_dim, base.wide_dilation
+    fp_leg = {LOCAL_TRACK_SEGMENTS_Q8: LOCAL_TRACK_SEGMENTS,
+              ATTENTION_Q8: ATTENTION, ONEPASS_Q8: ONEPASS}
+    extra = {}
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def case(kernel, dtype, L, label, q_run, f_run, plain, timed, flops,
+             nbytes, empty=None):
+        """One int8-leg case: `q_run` the int8 leg, `f_run` the fp leg on
+        the dequantized weights, `plain` its plain version; `empty` picks
+        the output of an empty segment from q_run's outputs."""
+        got, fp, want = as_tuple(q_run()), as_tuple(f_run()), as_tuple(plain())
+        torch.cuda.synchronize()
+        tag = f"{kernel.name} {str(dtype)[6:]} L={L} {label}"
+        check(all(torch.isfinite(t).all().item() for t in got),
+              f"{tag}: non-finite")
+        exact = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got, fp))
+        check(exact == 0.0, f"{tag}: int8 leg vs fp leg on the dequantized "
+                            f"weights max |diff| {exact}, want 0.0")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        if empty is not None:
+            e = empty(got)
+            check(bool((e == 0).all()) and not torch.signbit(e).any(),
+                  f"{tag}: empty segment not exactly +0.0")
+        timing, fp_ms = (None,) * 5, None
+        if timed:
+            n0, f0 = kernel.launches, fp_leg[kernel].launches
+            q_run()
+            per_call = kernel.launches - n0
+            check(per_call == 1 and fp_leg[kernel].launches == f0,
+                  f"{tag}: {per_call} int8 launches and "
+                  f"{fp_leg[kernel].launches - f0} fp launches in one call")
+            b_ms, b_by = bound(flops, nbytes, dtype)
+            timing = (time_ms(q_run), time_ms(plain), b_ms, b_by, per_call)
+            fp_ms = time_ms(f_run)
+        rows[(kernel.name, dtype, L, label)] = (err,) + timing
+        extra[(kernel.name, dtype, L, label)] = (exact, fp_ms)
+
+    def pad_rows(L):
+        pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+        pad[1, L // 2:] = False   # half-padded row
+        pad[2, :] = False         # all-pad row
+        return pad
+
+    def ids(L):
+        seg = packed_ids(gen, B, max(L, 64), S)[:, :L]
+        if L == 100:
+            seg[2] = 0            # an all-pad row
+        return seg.to(dev)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        # #3-int8 and K2-int8 at base width.
+        qt, qa, ft, fa, (tbytes, abytes) = q8_block(gen, base, dtype)
+        C, G, H = base.local_dim, base.global_dim, base.num_heads
+        for L in (512, 100):
+            timed = L == 512
+            x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+            bs = torch.randn((B, S, C), generator=gen).to(dev, dtype)
+            seg = ids(L)
+            oh = segment_one_hot(seg, S)
+            case(LOCAL_TRACK_SEGMENTS_Q8, dtype, L, "S=8",
+                 lambda: fused_local_track_segments(qt, x, bs, seg, 1, wd),
+                 lambda: fused_local_track_segments(ft, x, bs, seg, 1, wd),
+                 lambda: local_track_segment_oh_reference(ft, x, bs, oh, 1,
+                                                          wd),
+                 timed, local_track_flops(B, L, C) + 2 * B * L * S * C,
+                 (2 * B * L * C + B * S * C) * s + tbytes + B * L * 4
+                 + 7 * C * 4)
+            g = torch.randn((B, G), generator=gen).to(dev, dtype)
+            pad = pad_rows(L)
+            poh = pad[..., None].float()
+            case(ATTENTION_Q8, dtype, L, "dense",
+                 lambda: fused_global_attention(qa, x, g, pad),
+                 lambda: fused_global_attention(fa, x, g, pad),
+                 lambda: attention_oh_reference(
+                     fa, x, g[:, None, :], poh,
+                     zero_empty=False).reshape(B, G),
+                 timed, attention_flops(B, L, C, G, 1, H, k),
+                 (B * L * C + 2 * B * G) * s + abytes + B * L * 4)
+            gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+            case(ATTENTION_Q8, dtype, L, "S=8",
+                 lambda: fused_packed_attention(qa, x, gs, seg),
+                 lambda: fused_packed_attention(fa, x, gs, seg),
+                 lambda: attention_oh_reference(fa, x, gs, oh),
+                 timed, attention_flops(B, L, C, G, S, H, k),
+                 (B * L * C + 2 * B * S * G) * s + abytes + B * L * S * 4,
+                 empty=lambda out: out[0][:, S - 1])
+
+        # #6-int8 (and K2-int8 at value_dim 128) at the narrower widths.
+        for width, G, H in ((128, 512, 4), (256, 512, 8)):
+            cfg = dataclasses.replace(base, local_dim=width, global_dim=G,
+                                      num_heads=H)
+            qt, qa, ft, fa, (tbytes, abytes) = q8_block(gen, cfg, dtype)
+            for L in ((512, 100) if width == 128 else (100,)):
+                timed = L == 512
+                x = torch.randn((B, L, width), generator=gen).to(dev, dtype)
+                bc = torch.randn((B, 1, width), generator=gen).to(dev, dtype)
+                g = torch.randn((B, 1, G), generator=gen).to(dev, dtype)
+                pad = pad_rows(L)
+                ones = torch.ones((B, L, 1), device=dev)
+                bs = torch.randn((B, S, width), generator=gen).to(dev, dtype)
+                gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+                seg = ids(L)
+                real = (torch.rand((B, L), generator=gen) > 0.1).to(dev)
+                oh = segment_one_hot(seg, S)
+                for label, n_seg, run, plain, empty in (
+                        ("dense", 1,
+                         lambda w, xx=x: fused_onepass(
+                             w[0], w[1], xx, bc, g, None, pad, 1, wd, False),
+                         lambda: onepass_oh_reference(
+                             ft, fa, x, bc, g, ones, pad[..., None].float(),
+                             1, wd, False, False), None),
+                        ("S=8", S,
+                         lambda w, xx=x: fused_onepass(
+                             w[0], w[1], xx, bs, gs, seg, real, 1, wd, True),
+                         lambda: onepass_oh_reference(
+                             ft, fa, x, bs, gs, oh, real[..., None].float(),
+                             1, wd, True, True),
+                         lambda out: out[1][:, S - 1])):
+                    case(ONEPASS_Q8, dtype, L, f"C={width} {label}",
+                         lambda run=run: run((qt, qa)),
+                         lambda run=run: run((ft, fa)), plain, timed,
+                         onepass_flops(B, L, width, G, n_seg, H, k),
+                         (2 * B * L * width + B * n_seg * (width + 2 * G)) * s
+                         + tbytes + abytes
+                         + (2 if n_seg > 1 else 1) * B * L * 4
+                         + 7 * width * 4, empty)
+                if width == 128 and L == 100:
+                    # K2-int8's value_dim 128 instantiation.
+                    case(ATTENTION_Q8, dtype, L, "v=128 S=8",
+                         lambda: fused_packed_attention(qa, x, gs, seg),
+                         lambda: fused_packed_attention(fa, x, gs, seg),
+                         lambda: attention_oh_reference(fa, x, gs, oh),
+                         False, 0, 0, empty=lambda out: out[0][:, S - 1])
+
+    # #6-int8 at C=512 (bf16 only, as the fp leg), where the one-pass rule
+    # admits G=512, H=4 up to L=128; the packed dispatch entry must pick it.
+    dtype, width, G, H = torch.bfloat16, 512, 512, 4
+    cfg = dataclasses.replace(base, local_dim=width, global_dim=G,
+                              num_heads=H)
+    qt, qa, ft, fa, (tbytes, abytes) = q8_block(gen, cfg, dtype)
+    for L in (128, 100):
+        x = torch.randn((B, L, width), generator=gen).to(dev, dtype)
+        bs = torch.randn((B, S, width), generator=gen).to(dev, dtype)
+        gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+        seg = ids(L)
+        real = torch.ones((B, L), dtype=torch.bool, device=dev)
+        oh = segment_one_hot(seg, S)
+        case(ONEPASS_Q8, dtype, L, "C=512 H=4 S=8",
+             lambda: fused_onepass(qt, qa, x, bs, gs, seg, real, 1, wd, True),
+             lambda: fused_onepass(ft, fa, x, bs, gs, seg, real, 1, wd, True),
+             lambda: onepass_oh_reference(ft, fa, x, bs, gs, oh,
+                                          real[..., None].float(), 1, wd,
+                                          True, True),
+             L == 128, onepass_flops(B, L, width, G, S, H, k),
+             (2 * B * L * width + B * S * (width + 2 * G)) * 2 + tbytes
+             + abytes + 2 * B * L * 4 + 7 * width * 4,
+             empty=lambda out: out[1][:, S - 1])
+    legs = (ONEPASS_Q8, LOCAL_TRACK_SEGMENTS_Q8, ATTENTION_Q8, ONEPASS,
+            LOCAL_TRACK_SEGMENTS, ATTENTION, LOCAL_TRACK)
+    counts = [kk.launches for kk in legs]
+    fused_onepass_segments(qt, qa, x, bs, gs, seg)
+    moved = [kk.launches - n for kk, n in zip(legs, counts)]
+    check(moved == [1, 0, 0, 0, 0, 0, 0],
+          f"int8 C=512 H=4 L=100: the packed dispatch launched (#6-int8, "
+          f"#3-int8, K2-int8, #6, #3, K2, K1) {moved} times")
+    return extra
+
+
+def print_q8_rows(card: str, rows: dict, extra: dict) -> None:
+    """The int8 legs beside their fp legs (the int8 rows of `rows` are
+    checked against their tolerance by `print_rows`)."""
+    print(f"# int8 legs [{card}]: int8 leg vs fp leg on the dequantized "
+          "weights (must be 0.0), int8 ms beside the fp leg's")
+    for key, (exact, fp_ms) in extra.items():
+        name, dtype, L, label = key
+        ms = rows[key][1]
+        times = (f"int8 {ms:.4f} ms, fp leg {fp_ms:.4f} ms"
+                 if ms is not None else "untimed")
+        print(f"#   {name:24s} {str(dtype)[6:]:9s} L={L:<4d} {label:15s} "
+              f"exact {exact:.1e}  {times}")
+
+
 # ------------------------------------------------------------ gradients
 
 def grad_phase(card: str) -> None:
@@ -1335,9 +1602,10 @@ def traffic(n: int, seed: int):
     return reqs
 
 
-def max_answer_diff(reqs, got, want) -> float:
+def max_answer_diff(reqs, got, want, same_fills: bool = True) -> float:
     """Largest |difference| over two servers' answers to the same
-    requests; a filled residue string that differs fails outright."""
+    requests; with `same_fills` a filled residue string that differs fails
+    outright (two arms of different weights may fill differently)."""
     worst = 0.0
     for (kind, _), a, b in zip(reqs, got, want):
         if kind == "embed":
@@ -1345,7 +1613,8 @@ def max_answer_diff(reqs, got, want) -> float:
         elif kind == "predict_go":
             pairs = [(a, b)]
         else:
-            check(a[0] == b[0], "predict_residues fills differ")
+            check(a[0] == b[0] or not same_fills,
+                  "predict_residues fills differ")
             pairs = [(a[1], b[1])]
         for u, v in pairs:
             check(u.shape == v.shape, f"{kind} shapes {u.shape} {v.shape}")
@@ -1381,30 +1650,106 @@ def ragged_parity_phase() -> None:
     check(err <= RAGGED_TOL, f"ragged vs bucketed: {err} > {RAGGED_TOL}")
 
 
+def q8_reference_phase() -> None:
+    """A base-width float32 int8 trunk (2 blocks, L=128) through the
+    quantized entries on the card — the int8 legs on the path — against
+    the same entries on the CPU plain path, bucketed (`quant_entry`: K1
+    on dequantized track weights, K2-int8) and ragged
+    (`quant_packed_entry`: #3-int8, K2-int8)."""
+    from proteinbert_tpu_torch import inference
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION_Q8, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS_Q8,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import init, to_device
+    from proteinbert_tpu_torch.parallel.quant import (
+        quant_entry, quant_packed_entry, quantize_params,
+    )
+
+    base = get_preset("base")
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dtype="float32", num_blocks=2),
+        data=dataclasses.replace(base.data, seq_len=128))
+    qcpu = quantize_params(init(cfg.model, torch.Generator().manual_seed(2),
+                                device="cpu"))
+    qdev = to_device(qcpu, torch.device(DEVICE))
+    seqs = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 5, "GG"]
+    tokens = inference._tokenize_masked(seqs, 128, "count")
+    A = cfg.model.num_annotations
+    ann = np.zeros((3, A), np.float32)
+    # Ragged: two short sequences packed into row 0 at spans 32 and 16 (a
+    # pad tail after them), the long one alone in row 1.
+    ptoks = np.zeros((2, 128), np.int32)
+    pseg = np.zeros((2, 128), np.int32)
+    pos = 0
+    for s, (seq, span) in enumerate(((seqs[0], 32), (seqs[2], 16))):
+        t = inference._tokenize_masked([seq], 128, "count")[0, :span]
+        ptoks[0, pos:pos + span], pseg[0, pos:pos + span] = t, s + 1
+        pos += span
+    ptoks[1], pseg[1] = tokens[1], 1
+    pann = np.zeros((2, 2, A), np.float32)
+    for label, fn, arrays, want_launch in (
+            ("bucketed", quant_entry("embed"), (tokens, ann),
+             {LOCAL_TRACK.name, ATTENTION_Q8.name}),
+            ("ragged", quant_packed_entry("embed"), (ptoks, pseg, pann),
+             {LOCAL_TRACK_SEGMENTS_Q8.name, ATTENTION_Q8.name})):
+        want = inference.run_batch(fn, qcpu, cfg, *arrays, device="cpu")
+        for kk in KERNELS:
+            kk.launches = 0
+        got = inference.run_batch(fn, qdev, cfg, *arrays, device=DEVICE)
+        ran = {kk.name for kk in KERNELS if kk.launches}
+        check(ran == want_launch, f"int8 reference {label}: launched {ran}, "
+                                  f"want {want_launch}")
+        err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        print(f"# reference int8 {label}: float32 int8 trunk C=G=512, 2 "
+              f"blocks, L=128, int8 legs on card vs plain on CPU: max_abs_err "
+              f"{err:.3e} (tol {REF_TOL}), kernels {sorted(ran)}")
+        check(err <= REF_TOL, f"int8 trunk {label} vs plain CPU path: "
+                              f"{err} > {REF_TOL}")
+
+
 # ------------------------------------------------------------ phase 4
 
 def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
-                seed: int):
-    """One server over random weights (seed `seed`): 24 mixed requests from
-    4 threads with every kernel count at 0, then drain. Checks every
-    answer, the launches (exactly per_batch[name] per batch, 0 for a kernel
-    not named) and each embed against the same sequence run alone.
-    Returns (server, launches)."""
+                seed: int, quant: str = "fp32", n_requests: int = 24,
+                alone: bool = True):
+    """One server over random weights (seed `seed`) on the `quant` arm:
+    `n_requests` mixed requests from 4 threads with every kernel count at 0,
+    then drain. Checks every answer, the launches (exactly per_batch[name]
+    per batch, 0 for a kernel not named) and, with `alone`, each embed
+    against the same sequence run alone. Prints the device memory the
+    loaded server holds (weights and all: `torch.cuda.memory_allocated()`
+    before the weights are made and after the server is built, the caller's
+    reference to the weights dropped) and, on an int8 arm, its
+    `quant_report`. Returns (server, launches, answers)."""
     from proteinbert_tpu_torch.kernels import KERNELS
     from proteinbert_tpu_torch.models.proteinbert import init
     from proteinbert_tpu_torch.serve.dispatch import KINDS
     from proteinbert_tpu_torch.serve.server import Server
 
+    gc.collect()  # an earlier server's reference cycles
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     params = init(cfg.model, torch.Generator().manual_seed(seed),
                   device=DEVICE)
     srv = Server(params, cfg, device=DEVICE, buckets=BUCKETS, max_batch=8,
                  max_wait_s=0.005, queue_depth=64, cache_size=256,
-                 warm_kinds=KINDS, serve_mode=mode, pack_max_segments=8)
+                 warm_kinds=KINDS, serve_mode=mode, pack_max_segments=8,
+                 quant=quant, quant_parity_every=0)
+    del params
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - mem0
+    print(f"# serve {label}: device memory after load {held} bytes "
+          f"({held / 2**20:.2f} MiB) [{card}]")
+    if quant != "fp32":
+        report = srv.stats()["quant"]
+        print(f"# serve {label}: quant_report {json.dumps(report)}")
+        check(report["fp32_resident"] == "host", "fp32 tree not on the host")
     t0 = time.perf_counter()
     srv.start()
     print(f"# serve {label}: warmup {time.perf_counter() - t0:.2f} s")
 
-    reqs = traffic(24, seed=0)
+    reqs = traffic(n_requests, seed=0)
     futures = [None] * len(reqs)
     submitted = [0.0] * len(reqs)
     finished = [None] * len(reqs)
@@ -1419,7 +1764,8 @@ def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
 
     for k in KERNELS:
         k.launches = 0
-    threads = [threading.Thread(target=client, args=(range(j, 24, 4),))
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(reqs), 4),))
                for j in range(4)]
     t_start = time.perf_counter()
     for t in threads:
@@ -1452,9 +1798,11 @@ def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
                   "embed shapes")
             check(all(np.isfinite(v).all() for v in res.values()),
                   "embed non-finite")
-            alone = embed_alone(srv, seq)
-            for key in ("global", "local_mean"):
-                worst = max(worst, float(np.abs(alone[key] - res[key]).max()))
+            if alone:
+                solo = embed_alone(srv, seq)
+                for key in ("global", "local_mean"):
+                    worst = max(worst,
+                                float(np.abs(solo[key] - res[key]).max()))
         elif kind == "predict_go":
             check(res.shape == (A,) and np.isfinite(res).all()
                   and ((res >= 0) & (res <= 1)).all(), "predict_go probs")
@@ -1465,9 +1813,11 @@ def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
                   "predict_residues fill")
             check(probs.shape == (L, cfg.model.vocab_size)
                   and np.isfinite(probs).all(), "predict_residues probs")
-    print(f"# serve {label}: embed served vs alone (same mode, one request "
-          f"in the batch) max_abs_err {worst:.3e} (tol {SERVE_EMBED_TOL})")
-    check(worst <= SERVE_EMBED_TOL, f"served embed vs alone: {worst}")
+    if alone:
+        print(f"# serve {label}: embed served vs alone (same mode, one "
+              f"request in the batch) max_abs_err {worst:.3e} "
+              f"(tol {SERVE_EMBED_TOL})")
+        check(worst <= SERVE_EMBED_TOL, f"served embed vs alone: {worst}")
 
     lat = sorted(latency)
     p50 = lat[len(lat) // 2]
@@ -1475,7 +1825,7 @@ def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
     print(f"# serve {label} [{card}]: {len(reqs) / wall:.2f} requests/s, "
           f"p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms "
           f"(client-side, {len(reqs)} requests, 4 threads)")
-    return srv, launches
+    return srv, launches, results
 
 
 def embed_alone(srv, seq: str) -> dict:
@@ -1566,48 +1916,106 @@ def profile_batch(card: str, label: str, run) -> None:
 
 def serve_phases(card: str) -> dict:
     """The three served paths (bucketed base, ragged base, ragged at the
-    ModelConfig default width); returns each kernel's launches summed over
-    the three traffic runs."""
+    ModelConfig default width), each on the fp32 arm and then on the int8
+    arm (same weights and traffic); then the int8 arm's parity shadow and
+    the `int8_act` arm. Returns each kernel's launches summed over the
+    traffic runs."""
     from proteinbert_tpu_torch.configs import ModelConfig, get_preset
     from proteinbert_tpu_torch.kernels import (
-        ATTENTION, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, ONEPASS,
+        ATTENTION, ATTENTION_Q8, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_SEGMENTS_Q8, ONEPASS, ONEPASS_Q8,
     )
 
     base = get_preset("base")
-    totals = {}
-
-    srv, launches = serve_phase(
-        card, "bucketed base", base, "bucketed",
-        {LOCAL_TRACK.name: 6, ATTENTION.name: 6}, seed=0)
-    for name, n in launches.items():
-        totals[name] = totals.get(name, 0) + n
+    default = base.replace(model=ModelConfig())
     rng = np.random.default_rng(3)
     tokens = rng.integers(4, 26, (8, 512)).astype(np.int32)
     tokens[:, 0], tokens[:, -1] = 1, 2
-    profile_batch(card, "bucketed base, one embed batch 8x512",
-                  lambda: srv.dispatcher.run("embed", tokens))
-
-    srv, launches = serve_phase(
-        card, "ragged base", base, "ragged",
-        {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6}, seed=0)
-    for name, n in launches.items():
-        totals[name] = totals.get(name, 0) + n
-    packed = full_ragged_batch(srv)
-    profile_batch(card, "ragged base, one packed embed batch 8x512 "
-                  "(24 segments)",
-                  lambda: srv.dispatcher.run_packed("embed", *packed))
-
-    default = base.replace(model=ModelConfig())
-    srv, launches = serve_phase(
-        card, "ragged default width", default, "ragged",
-        {ONEPASS.name: 6}, seed=0)
-    for name, n in launches.items():
-        totals[name] = totals.get(name, 0) + n
-    packed = full_ragged_batch(srv)
-    profile_batch(card, "ragged default width, one packed embed batch "
-                  "8x512 (24 segments)",
-                  lambda: srv.dispatcher.run_packed("embed", *packed))
+    totals = {}
+    # (label, config, mode, fp32 launches per batch, int8 launches per batch)
+    servers = (
+        ("bucketed base", base, "bucketed",
+         {LOCAL_TRACK.name: 6, ATTENTION.name: 6},
+         {LOCAL_TRACK.name: 6, ATTENTION_Q8.name: 6}),
+        ("ragged base", base, "ragged",
+         {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6},
+         {LOCAL_TRACK_SEGMENTS_Q8.name: 6, ATTENTION_Q8.name: 6}),
+        ("ragged default width", default, "ragged",
+         {ONEPASS.name: 6}, {ONEPASS_Q8.name: 6}),
+    )
+    reqs = traffic(24, seed=0)
+    for label, cfg, mode, per_fp, per_q8 in servers:
+        answers = {}
+        for quant, per_batch in (("fp32", per_fp), ("int8", per_q8)):
+            name = label if quant == "fp32" else f"{label} int8"
+            srv, launches, answers[quant] = serve_phase(
+                card, name, cfg, mode, per_batch, seed=0, quant=quant)
+            for kname, n in launches.items():
+                totals[kname] = totals.get(kname, 0) + n
+            if mode == "bucketed":
+                profile_batch(card, f"{name}, one embed batch 8x512",
+                              lambda: srv.dispatcher.run("embed", tokens))
+            else:
+                packed = full_ragged_batch(srv)
+                profile_batch(card, f"{name}, one packed embed batch 8x512 "
+                              "(24 segments)",
+                              lambda: srv.dispatcher.run_packed("embed",
+                                                                *packed))
+            del srv
+        diff = max_answer_diff(reqs, answers["int8"], answers["fp32"],
+                               same_fills=False)
+        print(f"# serve {label} int8: max |int8 - fp32 arm| over the "
+              f"{len(reqs)} answers {diff:.6e}")
+        check(diff > 0, f"{label}: the int8 arm answered exactly as the fp32 "
+                        "arm (were the int8 weights used?)")
+    q8_parity_phase(card, base)
+    srv, launches, answers = serve_phase(
+        card, "bucketed base int8_act", base, "bucketed",
+        {LOCAL_TRACK.name: 6, ATTENTION_Q8.name: 6}, seed=0,
+        quant="int8_act", n_requests=12, alone=False)
+    for kname, n in launches.items():
+        totals[kname] = totals.get(kname, 0) + n
     return totals
+
+
+def q8_parity_phase(card: str, base) -> None:
+    """The int8 arm's fp32 parity shadow: a bucketed base dispatcher with
+    quant_parity_every=1 runs 3 embed batches (4 rows, L=128 and 256); each
+    runs the shadow, and `quant_report["parity_max"]` must equal the worst
+    deviation measured outside against an fp32 dispatcher on the same
+    weights."""
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.serve.dispatch import (
+        BucketDispatcher, parity_max,
+    )
+
+    params = init(base.model, torch.Generator().manual_seed(0),
+                  device=DEVICE)
+    disp = BucketDispatcher(params, base, buckets=BUCKETS, max_batch=4,
+                            device=DEVICE, quant="int8",
+                            quant_parity_every=1)
+    fp32 = BucketDispatcher(params, base, buckets=BUCKETS, max_batch=4,
+                            device=DEVICE)
+    disp.warmup(("embed",))
+    check(disp._quant_batches == 0, "warmup consumed the parity cadence")
+    rng = np.random.default_rng(9)
+    worst = 0.0
+    for L in (128, 256, 128):
+        toks = rng.integers(4, 26, (4, L)).astype(np.int32)
+        toks[:, 0], toks[:, -1] = 1, 2
+        toks[3, L // 2:] = 0
+        toks[3, L // 2 - 1] = 2
+        out = disp.run("embed", toks)
+        worst = max(worst, parity_max(out, fp32.run("embed", toks)))
+    report = disp.quant_report
+    print(f"# serve parity: bucketed base int8, quant_parity_every=1, 3 "
+          f"batches: parity_samples {report.get('parity_samples')}, "
+          f"parity_max {report.get('parity_max')}, measured outside "
+          f"{worst:.9f}, fp32 tree {report['fp32_resident']} [{card}]")
+    check(report.get("parity_samples") == 3, "parity samples != 3")
+    check(report["fp32_resident"] == "device", "shadow tree not on device")
+    check(report["parity_max"] == round(worst, 9) and worst > 0,
+          f"parity_max {report['parity_max']} != measured {worst}")
 
 
 def main() -> int:
@@ -1616,8 +2024,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from proteinbert_tpu_torch.kernels import (
-        ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
-        LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED, ONEPASS,
+        ATTENTION, ATTENTION_Q8, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_SEGMENTS_TILED,
+        LOCAL_TRACK_TILED, ONEPASS, ONEPASS_Q8,
     )
     from proteinbert_tpu_torch.kernels.build import build_all
 
@@ -1643,7 +2052,9 @@ def main() -> int:
     rows = kernel_phase(card)
     packed_kernel_phase(card, rows)
     large_kernel_phase(card, rows)
+    q8_extra = q8_kernel_phase(card, rows)
     print_rows(card, rows)
+    print_q8_rows(card, rows, q8_extra)
     print(f"# kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     grad_phase(card)
@@ -1651,6 +2062,7 @@ def main() -> int:
     reference_step_phase(card)
     packed_reference_phase(card)
     ragged_parity_phase()
+    q8_reference_phase()
     print(f"# gradients and references: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = serve_phases(card)
@@ -1686,6 +2098,18 @@ def main() -> int:
             "proteinbert_tpu_torch/csrc/local_track_segments_tiled.cu",
             "proteinbert_tpu/kernels/fused_block.py:1220", 1024, "S=8",
             "B=8 L=1024 C=1024 S=8 bf16"),
+        LOCAL_TRACK_SEGMENTS_Q8.name: (
+            "proteinbert_tpu_torch/csrc/local_track_segments_q8.cu",
+            "proteinbert_tpu/kernels/fused_block.py:1134", 512, "S=8",
+            "B=8 L=512 C=512 S=8 bf16, int8 weights"),
+        ATTENTION_Q8.name: (
+            "proteinbert_tpu_torch/csrc/global_attention_q8.cu",
+            "proteinbert_tpu/kernels/attention.py:319", 512, "dense",
+            "B=8 L=512 C=G=512 H=8 k=64 S=1 bf16, int8 weights"),
+        ONEPASS_Q8.name: (
+            "proteinbert_tpu_torch/csrc/one_pass_q8.cu",
+            "proteinbert_tpu/kernels/one_pass.py:380", 512, "C=128 S=8",
+            "B=8 L=512 C=128 G=512 H=4 k=64 v=128 S=8 bf16, int8 weights"),
     }
     report = []
     for k in KERNELS:
@@ -1694,12 +2118,15 @@ def main() -> int:
                                               case)]
         check(launches[k.name] > 0, f"{k.name} never launched on a served "
                                     "or trained path")
-        report.append({"name": k.name, "route": "cuda", "source": src,
-                       "replaces": tpu, "launches": launches[k.name],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": None, "status": "ported",
-                       "shape": shape})
+        row = {"name": k.name, "route": "cuda", "source": src,
+               "replaces": tpu, "launches": launches[k.name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "status": "ported", "shape": shape}
+        key = (k.name, torch.bfloat16, L, case)
+        if key in q8_extra:  # an int8 leg: its fp leg's time on the same call
+            row["fp_leg_ms"] = q8_extra[key][1]
+        report.append(row)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

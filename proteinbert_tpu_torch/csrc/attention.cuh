@@ -26,6 +26,12 @@
 // Splitting K from V costs no extra products and keeps shared memory at
 // O(L*S) instead of O(L*v), so any bucket length fits one block. key_dim is
 // 64; value_dim VD is 64 or 128.
+//
+// Q8 = true is the int8 leg of K2 (global_attention_q8.cu) and of #6: wq,
+// wk, wv arrive as int8 with float32 per-(head, column) scales; the wk / wv
+// tiles are dequantized on their way into shared memory (common.cuh
+// `load_rows_q8`) and the query projection dequantizes each wq value it
+// reads, so every product sees the floating-point leg's operands.
 #pragma once
 
 #include "common.cuh"
@@ -84,10 +90,39 @@ struct SegmentMask {
   }
 };
 
-// stage (kRows x N) = x[l0 : l0+kRows] @ w (C x N), rows >= L zero.
-template <typename T, int N, typename Mma>
+// The projection weights of one launch: wq (H, G, kKD), wk (H, C, kKD),
+// wv (H, C, VD) in the activation type, or on the int8 leg (Q8) int8 with
+// float32 scales sq (H, kKD), sk (H, kKD), sv (H, VD), one per (head, output
+// column); the scales are null on the floating-point leg.
+template <typename T, bool Q8> struct AttnWeights {
+  using W = WeightT<T, Q8>;
+  const W* wq;
+  const W* wk;
+  const W* wv;
+  const float* sq;
+  const float* sk;
+  const float* sv;
+};
+
+template <typename T, bool Q8>
+AttnWeights<T, Q8> attn_weights(const void* wq, const void* wk,
+                                const void* wv, const void* sq = nullptr,
+                                const void* sk = nullptr,
+                                const void* sv = nullptr) {
+  using W = WeightT<T, Q8>;
+  return AttnWeights<T, Q8>{
+      static_cast<const W*>(wq),      static_cast<const W*>(wk),
+      static_cast<const W*>(wv),      static_cast<const float*>(sq),
+      static_cast<const float*>(sk), static_cast<const float*>(sv)};
+}
+
+// stage (kRows x N) = x[l0 : l0+kRows] @ w (C x N), rows >= L zero; on the
+// int8 leg w is int8, dequantized with the N scales `wscale` as it loads.
+template <typename T, int N, bool Q8, typename Mma>
 __device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
-                                              int C, int l0, const T* w,
+                                              int C, int l0,
+                                              const WeightT<T, Q8>* w,
+                                              const float* wscale,
                                               unsigned char* region,
                                               size_t a_tile) {
   constexpr int PAD = AttnCfg<T, N>::PAD;
@@ -101,8 +136,8 @@ __device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
       [&](int s, int buf) {
         load_rows_async(a_buf + buf * A_TILE, LDA, xb + s * kKc, C, l0, kRows,
                         kKc, L);
-        load_rows_async(b_buf + buf * B_TILE, LDB, w + size_t(s) * kKc * N, N,
-                        0, kKc, N, kKc);
+        load_weight_rows<Q8>(b_buf + buf * B_TILE, LDB,
+                             w + size_t(s) * kKc * N, N, kKc, N, wscale);
       },
       [&](int s, int buf) {
         mma.mma(a_buf + buf * A_TILE, LDA, b_buf + buf * B_TILE, LDB, kKc);
@@ -112,11 +147,11 @@ __device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
 }
 
 // out (S, G) columns h*VD .. (h+1)*VD of one batch row: xb (L, C), gb
-// (S, G), wq (H, G, kKD), wk (H, C, kKD), wv (H, C, VD).
-template <typename T, int VD, typename Mask>
+// (S, G), the weights `w`.
+template <typename T, int VD, bool Q8, typename Mask>
 __device__ __forceinline__ void attention_head(
-    const T* xb, const T* gb, const T* wq, const T* wk, const T* wv, T* ob,
-    int L, int C, int G, int S, int h, int zero_empty, Mask mask,
+    const T* xb, const T* gb, const AttnWeights<T, Q8>& w, T* ob, int L,
+    int C, int G, int S, int h, int zero_empty, Mask mask,
     unsigned char* smem) {
   using Smem = AttnSmem<T, VD>;
   float* q = reinterpret_cast<float*>(smem);
@@ -125,18 +160,24 @@ __device__ __forceinline__ void attention_head(
   float* stage = reinterpret_cast<float*>(region);  // after a projection
   float* sc = reinterpret_cast<float*>(region + Smem::region);  // (L, S)
 
-  const T* wkh = wk + size_t(h) * C * kKD;
-  const T* wvh = wv + size_t(h) * C * VD;
+  const auto* wkh = w.wk + size_t(h) * C * kKD;
+  const auto* wvh = w.wv + size_t(h) * C * VD;
+  const float* skh = Q8 ? w.sk + size_t(h) * kKD : nullptr;
+  const float* svh = Q8 ? w.sv + size_t(h) * VD : nullptr;
   const float inv_scale = 1.0f / sqrtf(float(kKD));
 
   __syncthreads();  // an earlier head of this block is done with smem
-  // q_h = tanh(g @ wq[h]), rounded at both ends.
+  // q_h = tanh(g @ wq[h]), rounded at both ends; wq read from device memory
+  // (dequantized per value on the int8 leg).
   for (int i = threadIdx.x; i < S * kKD; i += kThreads) {
     const int s = i / kKD, j = i - s * kKD;
-    const T* wqh = wq + size_t(h) * G * kKD + j;
+    const size_t wqh = size_t(h) * G * kKD + j;
+    const size_t sqh = size_t(h) * kKD + j;
     float acc = 0.f;
     for (int k = 0; k < G; ++k)
-      acc = fmaf(to_f(gb[s * G + k]), to_f(wqh[k * kKD]), acc);
+      acc = fmaf(to_f(gb[s * G + k]),
+                 weight_at<Q8, T>(w.wq, wqh + size_t(k) * kKD, w.sq, sqh),
+                 acc);
     q[i] = round_to<T>(tanhf(round_to<T>(acc)));
   }
   __syncthreads();
@@ -145,7 +186,8 @@ __device__ __forceinline__ void attention_head(
   {
     typename AttnCfg<T, kKD>::Mma mma;
     for (int l0 = 0; l0 < L; l0 += kRows) {
-      project_chunk<T, kKD>(mma, xb, L, C, l0, wkh, region, Smem::a_tile);
+      project_chunk<T, kKD, Q8>(mma, xb, L, C, l0, wkh, skh, region,
+                                Smem::a_tile);
       for (int i = threadIdx.x; i < kRows * kKD; i += kThreads)
         stage[i] = round_to<T>(tanhf(round_to<T>(stage[i])));
       __syncthreads();
@@ -195,7 +237,8 @@ __device__ __forceinline__ void attention_head(
   {
     typename AttnCfg<T, VD>::Mma mma;
     for (int l0 = 0; l0 < L; l0 += kRows) {
-      project_chunk<T, VD>(mma, xb, L, C, l0, wvh, region, Smem::a_tile);
+      project_chunk<T, VD, Q8>(mma, xb, L, C, l0, wvh, svh, region,
+                               Smem::a_tile);
       for (int i = threadIdx.x; i < kRows * VD; i += kThreads)
         stage[i] = round_to<T>(gelu_tanh(round_to<T>(stage[i])));
       __syncthreads();
@@ -224,6 +267,60 @@ __device__ __forceinline__ void attention_head(
       ob[s * G + h * VD + j] = from_f<T>(v);
     }
   }
+}
+
+// K2: one block per (head, batch row).
+template <typename T, int VD, bool Q8>
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel(const T* __restrict__ x, const float* __restrict__ oh,
+                     const T* __restrict__ g, AttnWeights<T, Q8> w,
+                     T* __restrict__ out, int L, int C, int G, int S,
+                     int zero_empty) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  attention_head<T, VD, Q8>(x + size_t(b) * L * C, g + size_t(b) * S * G, w,
+                            out + size_t(b) * S * G, L, C, G, S, h,
+                            zero_empty, OneHotMask{oh + size_t(b) * L * S, S},
+                            smem);
+}
+
+template <typename T, int VD, bool Q8>
+cudaError_t launch_attention(const void* x, const void* oh, const void* g,
+                             const AttnWeights<T, Q8>& w, void* out, int B,
+                             int L, int C, int G, int S, int H,
+                             int zero_empty, cudaStream_t stream) {
+  const size_t smem = AttnSmem<T, VD>::total(L, S);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_kernel<T, VD, Q8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B);
+  attention_kernel<T, VD, Q8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(oh),
+      static_cast<const T*>(g), w, static_cast<T*>(out), L, C, G, S,
+      zero_empty);
+  return cudaGetLastError();
+}
+
+// K2 at the value_dim instantiation G / H names (64 or 128).
+template <typename T, bool Q8>
+cudaError_t launch_attention_vd(const void* x, const void* oh, const void* g,
+                                const AttnWeights<T, Q8>& w, void* out,
+                                int B, int L, int C, int G, int S, int H,
+                                int zero_empty, cudaStream_t stream) {
+  if (G == H * 64)
+    return launch_attention<T, 64, Q8>(x, oh, g, w, out, B, L, C, G, S, H,
+                                       zero_empty, stream);
+  if (G == H * 128)
+    return launch_attention<T, 128, Q8>(x, oh, g, w, out, B, L, C, G, S, H,
+                                        zero_empty, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Host-side checks of K2's entries.
+inline bool attention_geometry_ok(int B, int L, int C, int S, int H) {
+  return B >= 1 && L >= 1 && H >= 1 && C % kKc == 0 && S >= 1 && S <= kMaxS;
 }
 
 }  // namespace pbt

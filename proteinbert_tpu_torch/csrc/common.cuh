@@ -17,10 +17,18 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pbt {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// The element type of a weight operand: the activation type T on a kernel's
+// floating-point leg; int8 on its int8 leg (Q8), where float32 scales, one
+// per output column (and per tap of a conv), ride beside the weights.
+template <typename T, bool Q8>
+using WeightT = typename std::conditional<Q8, int8_t, T>::type;
 
 __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
@@ -107,6 +115,66 @@ __device__ __forceinline__ void load_rows_async(T* dst, int dst_ld,
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
+}
+
+// The int8 leg's weight load: dst row r <- row r of the int8 matrix `src`
+// (leading dimension src_ld), each value dequantized as
+// from_f<T>(float(q) * scale[c]) — q·scale in float32, then the cast to the
+// activation type, which is bit for bit the value the floating-point leg
+// loads from the dequantized weights. Each thread converts the 16 int8
+// values of one 16-byte load. The stores are synchronous: the barrier that
+// precedes the compute reading dst (pipelined_steps) orders them. cols and
+// src_ld are multiples of 16, dst_ld * sizeof(T) a multiple of 16 bytes.
+template <typename T>
+__device__ __forceinline__ void load_rows_q8(T* dst, int dst_ld,
+                                             const int8_t* src, int src_ld,
+                                             int rows, int cols,
+                                             const float* scale) {
+  constexpr int kVec = 16;
+  const int per_row = cols / kVec;
+  const int total = rows * per_row;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * kVec;
+    const int4 raw =
+        *reinterpret_cast<const int4*>(src + static_cast<size_t>(r) * src_ld + c);
+    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+    __align__(16) T v[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j)
+      v[j] = from_f<T>(static_cast<float>(q[j]) * scale[c + j]);
+    uint4* d = reinterpret_cast<uint4*>(dst + r * dst_ld + c);
+#pragma unroll
+    for (int j = 0; j < int(kVec * sizeof(T) / 16); ++j)
+      d[j] = reinterpret_cast<const uint4*>(v)[j];
+  }
+}
+
+// `rows` x `cols` of a weight matrix (leading dimension src_ld) into shared
+// dst: the cp.async copy of load_rows_async (uncommitted) on the
+// floating-point leg, the dequantizing load_rows_q8 with `scale` (the
+// matrix's per-output-column scales) on the int8 leg.
+template <bool Q8, typename T>
+__device__ __forceinline__ void load_weight_rows(T* dst, int dst_ld,
+                                                 const WeightT<T, Q8>* src,
+                                                 int src_ld, int rows,
+                                                 int cols,
+                                                 const float* scale) {
+  if constexpr (Q8)
+    load_rows_q8(dst, dst_ld, src, src_ld, rows, cols, scale);
+  else
+    load_rows_async(dst, dst_ld, src, src_ld, 0, rows, cols, rows);
+}
+
+// One weight value read straight from device memory, as the activation type
+// rounds it: q·scale then the cast on the int8 leg.
+template <bool Q8, typename T>
+__device__ __forceinline__ float weight_at(const WeightT<T, Q8>* w, size_t i,
+                                           const float* scale, size_t si) {
+  if constexpr (Q8)
+    return round_to<T>(static_cast<float>(w[i]) * scale[si]);
+  else
+    return to_f(w[i]);
 }
 
 // Double-buffered k-loop: load(s, buf) issues (uncommitted) the copies of

@@ -43,6 +43,13 @@
 // TL is 32 rows in bf16 (window 76 KB + h 64 KB + weights 66 KB) and 16 in
 // float32, the largest tiles that fit at C=512; the segment mask adds a
 // (TL, KC) staging tile and the window's ids (3.5 KB).
+//
+// Q8 = true is the int8 leg of #3 (local_track_segments_q8.cu) and of #6:
+// the conv and dense weights arrive as int8 with float32 scales and each
+// (KC, C) tile is dequantized on its way into the weight double buffer
+// (common.cuh `load_rows_q8`), in place of the cp.async copy. No shared
+// memory is added (there is none to spare at C=512), and every product,
+// mask and rounding point is the floating-point leg's.
 #pragma once
 
 #include "common.cuh"
@@ -84,35 +91,45 @@ template <typename T, int C, bool SEG> struct TrackSmem {
 };
 
 // Operands of one local-track launch. seg is null for dense rows (S = 1).
-template <typename T> struct TrackArgs {
+// On the int8 leg (Q8) the conv and dense weights are int8 and nks, wks
+// (taps, C) and dks (C,) hold their float32 scales; on the floating-point
+// leg the weights are T and the scales null.
+template <typename T, bool Q8 = false> struct TrackArgs {
+  using W = WeightT<T, Q8>;
   const T* x;
   const int* seg;
   const T* bcast;
-  const T* nk;
+  const W* nk;
   const float* nb;
-  const T* wk;
+  const W* wk;
   const float* wb;
   const float* s1;
   const float* b1;
-  const T* dk;
+  const W* dk;
   const float* db;
   const float* s2;
   const float* b2;
   T* out;
   int L, S, wide_dilation;
+  const float* nks;
+  const float* wks;
+  const float* dks;
 };
 
 // acc = sum over taps t and k-chunks of window[center + (t-4)*d] @ W[t]
-// with W (taps, C, C) streaming through the double buffer. With taps == 1
-// and dilation 0 this is a plain (TL x C) @ (C x C) product of `a`. With
-// `segc` (the window's segment ids at the tile's row 0) each A row is
-// copied into the staging tile `abuf`, zeroed where the tap crosses a
+// with W (taps, C, C) streaming through the double buffer (int8 on the Q8
+// leg, dequantized with the (taps, C) scales `wscale` on its way in). With
+// taps == 1 and dilation 0 this is a plain (TL x C) @ (C x C) product of
+// `a`. With `segc` (the window's segment ids at the tile's row 0) each A row
+// is copied into the staging tile `abuf`, zeroed where the tap crosses a
 // segment boundary or the row is pad.
-template <typename T, int C, typename Mma>
+template <typename T, int C, bool Q8, typename Mma>
 __device__ __forceinline__ void tap_products(Mma& mma, const T* a, int taps,
-                                             int dilation, const T* w,
-                                             T* wbuf, T* abuf,
-                                             const int* segc, int S) {
+                                             int dilation,
+                                             const WeightT<T, Q8>* w,
+                                             const float* wscale, T* wbuf,
+                                             T* abuf, const int* segc,
+                                             int S) {
   using Cfg = TrackCfg<T, C>;
   constexpr int TL = Cfg::TL, KC = Cfg::KC, LDW = C + Cfg::PAD, NK = C / KC;
   constexpr int LDA = KC + Cfg::PAD;
@@ -125,8 +142,9 @@ __device__ __forceinline__ void tap_products(Mma& mma, const T* a, int taps,
       taps * NK,
       [&](int s, int buf) {
         const int t = s / NK, kc = s - (s / NK) * NK;
-        load_rows_async(wbuf + buf * TILE, LDW,
-                        w + (size_t(t) * C + kc * KC) * C, C, 0, KC, C, KC);
+        load_weight_rows<Q8>(wbuf + buf * TILE, LDW,
+                             w + (size_t(t) * C + kc * KC) * C, C, KC, C,
+                             Q8 ? wscale + size_t(t) * C : nullptr);
       },
       [&](int s, int buf) {
         const int t = s / NK, kc = s - (s / NK) * NK;
@@ -172,8 +190,8 @@ __device__ __forceinline__ void layer_norm_rows(const float* h, int rows,
 }
 
 // Rows l0 .. l0+TL-1 of batch row b: p.out[b, l] for l < L.
-template <typename T, int C, bool SEG>
-__device__ __forceinline__ void track_tile(const TrackArgs<T>& p, int b,
+template <typename T, int C, bool SEG, bool Q8>
+__device__ __forceinline__ void track_tile(const TrackArgs<T, Q8>& p, int b,
                                            int l0, unsigned char* smem) {
   using Cfg = TrackCfg<T, C>;
   using Smem = TrackSmem<T, C, SEG>;
@@ -208,7 +226,8 @@ __device__ __forceinline__ void track_tile(const TrackArgs<T>& p, int b,
   typename Cfg::Mma mma;
 
   // h = x + gelu(narrow + nb)
-  tap_products<T, C>(mma, center, kTaps, 1, p.nk, wbuf, abuf, segc, p.S);
+  tap_products<T, C, Q8>(mma, center, kTaps, 1, p.nk, p.nks, wbuf, abuf,
+                         segc, p.S);
   mma.store(h, C);
   __syncthreads();
   for (int i = threadIdx.x; i < TL * C; i += kThreads) {
@@ -218,8 +237,8 @@ __device__ __forceinline__ void track_tile(const TrackArgs<T>& p, int b,
   __syncthreads();
 
   // h += gelu(wide + wb) + bcast (own segment's row; exactly 0 at pad)
-  tap_products<T, C>(mma, center, kTaps, p.wide_dilation, p.wk, wbuf, abuf,
-                     segc, p.S);
+  tap_products<T, C, Q8>(mma, center, kTaps, p.wide_dilation, p.wk, p.wks,
+                         wbuf, abuf, segc, p.S);
   mma.store(stage, C);
   __syncthreads();
   for (int i = threadIdx.x; i < TL * C; i += kThreads) {
@@ -244,7 +263,8 @@ __device__ __forceinline__ void track_tile(const TrackArgs<T>& p, int b,
   __syncthreads();
 
   // h2 = x1 + gelu(x1 @ Wd + db)
-  tap_products<T, C>(mma, x1, 1, 0, p.dk, wbuf, abuf, nullptr, p.S);
+  tap_products<T, C, Q8>(mma, x1, 1, 0, p.dk, p.dks, wbuf, abuf, nullptr,
+                         p.S);
   mma.store(stage, C);
   __syncthreads();
   for (int i = threadIdx.x; i < TL * C; i += kThreads) {
@@ -262,37 +282,38 @@ __device__ __forceinline__ void track_tile(const TrackArgs<T>& p, int b,
 }
 
 // One block per (TL-row tile, batch row): the whole layer in one launch.
-template <typename T, int C, bool SEG>
+template <typename T, int C, bool SEG, bool Q8>
 __global__ void __launch_bounds__(kThreads, 1)
-    local_track_kernel(TrackArgs<T> p) {
+    local_track_kernel(TrackArgs<T, Q8> p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  track_tile<T, C, SEG>(p, blockIdx.y, blockIdx.x * TrackCfg<T, C>::TL,
-                        smem);
+  track_tile<T, C, SEG, Q8>(p, blockIdx.y, blockIdx.x * TrackCfg<T, C>::TL,
+                            smem);
 }
 
-template <typename T, bool SEG, int C>
-cudaError_t launch_track_c(const TrackArgs<T>& p, int B, cudaStream_t stream) {
+template <typename T, bool SEG, bool Q8, int C>
+cudaError_t launch_track_c(const TrackArgs<T, Q8>& p, int B,
+                           cudaStream_t stream) {
   constexpr size_t smem = TrackSmem<T, C, SEG>::total;
   constexpr int TL = TrackCfg<T, C>::TL;
   cudaError_t e = cudaFuncSetAttribute(
-      local_track_kernel<T, C, SEG>,
+      local_track_kernel<T, C, SEG, Q8>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
   dim3 grid((p.L + TL - 1) / TL, B);
-  local_track_kernel<T, C, SEG><<<grid, kThreads, smem, stream>>>(p);
+  local_track_kernel<T, C, SEG, Q8><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, bool SEG>
-cudaError_t launch_track(int C, const TrackArgs<T>& p, int B,
+template <typename T, bool SEG, bool Q8 = false>
+cudaError_t launch_track(int C, const TrackArgs<T, Q8>& p, int B,
                          cudaStream_t stream) {
   switch (C) {
     case 128:
-      return launch_track_c<T, SEG, 128>(p, B, stream);
+      return launch_track_c<T, SEG, Q8, 128>(p, B, stream);
     case 256:
-      return launch_track_c<T, SEG, 256>(p, B, stream);
+      return launch_track_c<T, SEG, Q8, 256>(p, B, stream);
     case 512:
-      return launch_track_c<T, SEG, 512>(p, B, stream);
+      return launch_track_c<T, SEG, Q8, 512>(p, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -304,23 +325,30 @@ inline bool track_geometry_ok(int B, int L, int S, int wide_dilation) {
          kCenter * wide_dilation <= kHalo;
 }
 
-template <typename T>
-TrackArgs<T> track_args(const void* x, const void* seg, const void* bcast,
-                        const void* nk, const void* nb, const void* wk,
-                        const void* wb, const void* s1, const void* b1,
-                        const void* dk, const void* db, const void* s2,
-                        const void* b2, void* out, int L, int S,
-                        int wide_dilation) {
-  return TrackArgs<T>{
+// The scales nks, wks and dks are the int8 leg's (Q8); leave them null on
+// the floating-point leg.
+template <typename T, bool Q8 = false>
+TrackArgs<T, Q8> track_args(const void* x, const void* seg,
+                            const void* bcast, const void* nk,
+                            const void* nb, const void* wk, const void* wb,
+                            const void* s1, const void* b1, const void* dk,
+                            const void* db, const void* s2, const void* b2,
+                            void* out, int L, int S, int wide_dilation,
+                            const void* nks = nullptr,
+                            const void* wks = nullptr,
+                            const void* dks = nullptr) {
+  using W = WeightT<T, Q8>;
+  return TrackArgs<T, Q8>{
       static_cast<const T*>(x),      static_cast<const int*>(seg),
-      static_cast<const T*>(bcast),  static_cast<const T*>(nk),
-      static_cast<const float*>(nb), static_cast<const T*>(wk),
+      static_cast<const T*>(bcast),  static_cast<const W*>(nk),
+      static_cast<const float*>(nb), static_cast<const W*>(wk),
       static_cast<const float*>(wb), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const T*>(dk),
+      static_cast<const float*>(b1), static_cast<const W*>(dk),
       static_cast<const float*>(db), static_cast<const float*>(s2),
       static_cast<const float*>(b2), static_cast<T*>(out),
       L,                             S,
-      wide_dilation};
+      wide_dilation,                 static_cast<const float*>(nks),
+      static_cast<const float*>(wks), static_cast<const float*>(dks)};
 }
 
 }  // namespace pbt

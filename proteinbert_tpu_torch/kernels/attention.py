@@ -18,6 +18,12 @@ back. `fused_attention`, which both entries go through, is differentiable
 the backward recomputes the plain version, as the JAX `_bwd_attention`
 does.
 
+int8 weights (`kernels/quant_leaves`, the int8 serving arm): when wq is
+a quant leaf both entries run K2's int8 leg (`csrc/global_attention_q8.cu`,
+attention.py:262-272), which dequantizes each weight tile on the card; its
+plain version is `attention_oh_reference` on the dequantized weights. The
+int8 leg is inference-only, as in the JAX package (attention.py:430-431).
+
 Rounding points are the TPU kernel's (attention.py:195-228), which the
 plain version repeats: projections accumulate in float32 and are
 rounded to the activation dtype before and after tanh/gelu, scores stay
@@ -36,6 +42,9 @@ from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
+from proteinbert_tpu_torch.kernels.quant_leaves import (
+    int8_leg, is_quant_leaf, weight_leaf, weight_operands,
+)
 from proteinbert_tpu_torch.ops.layers import gelu
 
 Params = Dict[str, torch.Tensor]
@@ -43,6 +52,9 @@ Params = Dict[str, torch.Tensor]
 ATTENTION = Kernel(
     "global_attention", "global_attention.cu", "pbt_global_attention",
     [INT] + [PTR] * 7 + [INT] * 7 + [PTR])
+ATTENTION_Q8 = Kernel(
+    "global_attention_q8", "global_attention_q8.cu",
+    "pbt_global_attention_q8", [INT] + [PTR] * 10 + [INT] * 7 + [PTR])
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIM = 64   # key_dim
@@ -94,8 +106,8 @@ def check_attention_shapes(params: Params, local: torch.Tensor,
     1 <= S <= 16 and L·S scores in shared memory."""
     B, L, C = local.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    H, _, key_dim = params["wq"].shape
-    value_dim = params["wv"].shape[-1]
+    H, _, key_dim = weight_leaf(params["wq"]).shape
+    value_dim = weight_leaf(params["wv"]).shape[-1]
     if local.dtype not in KERNEL_DTYPES:
         raise ValueError(f"fused_attention: no kernel for {local.dtype}")
     if (key_dim != KERNEL_HEAD_DIM or value_dim not in KERNEL_VALUE_DIMS
@@ -118,23 +130,24 @@ def _attention_kernel(
     params: Params, local: torch.Tensor, global_seg: torch.Tensor,
     seg_oh: torch.Tensor, zero_empty: bool,
 ) -> torch.Tensor:
-    """One launch of K2 on CUDA tensors; ValueError for what it does not
-    cover."""
+    """One launch of K2 on CUDA tensors — of its int8 leg when wq is a
+    quant leaf; ValueError for what it does not cover."""
     check_attention_shapes(params, local, global_seg, seg_oh)
     B, L, C = local.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    H = params["wq"].shape[0]
+    H = weight_leaf(params["wq"]).shape[0]
     dtype = local.dtype
-    x, g, wq, wk, wv = (t.to(dtype).contiguous() for t in (
-        local, global_seg, params["wq"], params["wk"], params["wv"]))
+    x, g = (t.to(dtype).contiguous() for t in (local, global_seg))
+    weights = [t for n in ("wq", "wk", "wv")
+               for t in weight_operands("fused_attention", params[n], dtype)]
     oh = seg_oh.float().contiguous()
     out = torch.empty((B, S, G), dtype=dtype, device=x.device)
-    ops = (x, oh, g, wq, wk, wv, out)
+    ops = (x, oh, g, *weights, out)
     check_cuda("fused_attention", *ops)
+    kernel = ATTENTION_Q8 if is_quant_leaf(params["wq"]) else ATTENTION
     with torch.cuda.device(x.device):
-        ATTENTION.launch(KERNEL_DTYPES[dtype], *(t.data_ptr() for t in ops),
-                         B, L, C, G, S, H, int(zero_empty),
-                         stream_ptr(x.device))
+        kernel.launch(KERNEL_DTYPES[dtype], *(t.data_ptr() for t in ops),
+                      B, L, C, G, S, H, int(zero_empty), stream_ptr(x.device))
     return out
 
 
@@ -144,7 +157,12 @@ def fused_attention(
 ) -> torch.Tensor:
     """The one-hot attention of `attention_oh_reference`: CUDA → the
     kernel (or ValueError), CPU → the plain version; differentiable
-    through the plain version either way."""
+    through the plain version either way. Quant leaves: K2's int8 leg,
+    inference-only."""
+    if is_quant_leaf(params["wq"]):
+        return int8_leg("fused_attention", local, attention_oh_reference,
+                        _attention_kernel, params, local, global_seg, seg_oh,
+                        zero_empty)
     if local.device.type == "cpu":
         run = attention_oh_reference
     elif local.device.type == "cuda":

@@ -33,6 +33,15 @@ Both entries are differentiable (`kernels/autograd.recompute_vjp`): the
 forward saves only its inputs and the backward recomputes the plain
 version, as the JAX `_bwd` / `_bwd_segments` do.
 
+int8 weights (`kernels/quant_leaves`, the int8 serving arm): for C <=
+512 `fused_local_track_segments` runs #3's int8 leg
+(`csrc/local_track_segments_q8.cu`, fused_block.py:414-420), which
+dequantizes each weight tile on its way into shared memory; at the tiled
+widths it dequantizes first and runs #4 (:421-423), and
+`fused_local_track` always dequantizes first (K1 and #2 have no int8 leg;
+the JAX dispatch dequantizes before them, one_pass.py:580). The int8 leg
+is inference-only, as in the JAX package.
+
 Rounding points are the TPU kernels', which the plain versions repeat:
 the tap products, both conv outputs and the broadcast gather stay
 float32 (fused_block.py:539-547, :1012-1016), x1 is rounded to the
@@ -59,6 +68,10 @@ from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, stream_ptr,
 )
+from proteinbert_tpu_torch.kernels.quant_leaves import (  # noqa: F401
+    dequant_leaf, dequant_params, int8_leg, is_quant_leaf, weight_leaf,
+    weight_operands,
+)
 from proteinbert_tpu_torch.ops.layers import (
     conv1d_apply, gelu, layer_norm_f32,
 )
@@ -80,6 +93,9 @@ LOCAL_TRACK_TILED = Kernel(
 LOCAL_TRACK_SEGMENTS_TILED = Kernel(
     "local_track_segments_tiled", "local_track_segments_tiled.cu",
     "pbt_local_track_segments_tiled", [INT] + [PTR] * 15 + [INT] * 5 + [PTR])
+LOCAL_TRACK_SEGMENTS_Q8 = Kernel(
+    "local_track_segments_q8", "local_track_segments_q8.cu",
+    "pbt_local_track_segments_q8", [INT] + [PTR] * 17 + [INT] * 5 + [PTR])
 
 # What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -212,8 +228,8 @@ def check_track_shapes(name: str, params: Params, x: torch.Tensor,
     operands: bf16/fp32, C in `widths`, k=9 convs with narrow dilation 1
     and wide dilation <= 5."""
     C = x.shape[-1]
-    nk = params["narrow_conv"]["kernel"]
-    wk = params["wide_conv"]["kernel"]
+    nk = weight_leaf(params["narrow_conv"]["kernel"])
+    wk = weight_leaf(params["wide_conv"]["kernel"])
     if x.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: no kernel for {x.dtype}")
     if C not in widths:
@@ -235,13 +251,14 @@ def _track_operands(name: str, params: Params, x: torch.Tensor,
                     widths=KERNEL_WIDTHS):
     """Check what the local-track kernels cover (C in `widths`) and cast
     the weights to their launch types: (dtype code, conv/dense operands in
-    x's dtype, float32 bias and LN vectors)."""
+    x's dtype — or int8 values and float32 scales, for quant leaves —
+    float32 bias and LN vectors), in the order the C entries take them."""
     check_track_shapes(name, params, x, narrow_dilation, wide_dilation,
                        widths)
     dtype = x.dtype
     ln1, ln2, dn = (params["local_ln1"], params["local_ln2"],
                     params["local_dense"])
-    nk, wk, dk = (t.to(dtype).contiguous()
+    nk, wk, dk = (weight_operands(name, t, dtype)
                   for t in (params["narrow_conv"]["kernel"],
                             params["wide_conv"]["kernel"], dn["kernel"]))
     nb, wb, s1, b1, db, s2, b2 = (
@@ -249,7 +266,7 @@ def _track_operands(name: str, params: Params, x: torch.Tensor,
             params["narrow_conv"]["bias"], params["wide_conv"]["bias"],
             ln1["scale"], ln1["bias"], dn["bias"], ln2["scale"],
             ln2["bias"]))
-    return KERNEL_DTYPES[dtype], (nk, nb, wk, wb, s1, b1, dk, db, s2, b2)
+    return KERNEL_DTYPES[dtype], (*nk, nb, *wk, wb, s1, b1, *dk, db, s2, b2)
 
 
 def _device_check(name: str, x: torch.Tensor) -> bool:
@@ -302,7 +319,9 @@ def fused_local_track(
     the projected global→local vector (gelu(dense(global))); params the
     block's narrow_conv, wide_conv, local_ln1, local_dense, local_ln2.
     CUDA → K1 or #2 by width (or ValueError), CPU → the plain version;
-    differentiable through the plain version either way."""
+    differentiable through the plain version either way. Quant leaves are
+    dequantized first: K1 and #2 have no int8 leg."""
+    params = dequant_params(params)
     run = (local_track_reference if _device_check("fused_local_track", x)
            else _local_track_kernel)
     return recompute_vjp(run, local_track_reference, params, x, broadcast,
@@ -325,12 +344,15 @@ def _segments_kernel(
     segment_ids: torch.Tensor, narrow_dilation: int, wide_dilation: int,
 ) -> torch.Tensor:
     """One launch of #3 (C <= 512) or #4 (512 < C <= 2048) on CUDA
-    tensors; ValueError for what neither covers."""
+    tensors — of #3's int8 leg for quant leaves (C <= 512 only);
+    ValueError for what none covers."""
     B, L, C = x.shape
     S = broadcast_seg.shape[1]
+    quant = is_quant_leaf(params["narrow_conv"]["kernel"])
+    widths = KERNEL_WIDTHS if quant else KERNEL_WIDTHS + TILED_WIDTHS
     code, weights = _track_operands(
         "fused_local_track_segments", params, x, narrow_dilation,
-        wide_dilation, KERNEL_WIDTHS + TILED_WIDTHS)
+        wide_dilation, widths)
     if tuple(broadcast_seg.shape) != (B, S, C) or S < 1:
         raise ValueError(f"fused_local_track_segments: broadcast_seg "
                          f"{tuple(broadcast_seg.shape)} is not (B, S, C) "
@@ -344,7 +366,8 @@ def _segments_kernel(
     with torch.cuda.device(x.device):
         if C in KERNEL_WIDTHS:
             ops = (x, seg, bc, *weights, out)
-            kernel = LOCAL_TRACK_SEGMENTS
+            kernel = (LOCAL_TRACK_SEGMENTS_Q8 if quant
+                      else LOCAL_TRACK_SEGMENTS)
         else:
             # #4's two passes meet in a float32 (B, L, C) scratch.
             h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
@@ -365,7 +388,16 @@ def fused_local_track_segments(
     the per-segment projected global vectors, segment_ids (B, L) with 0 =
     pad and 1..S a packed protein (ids above S count as pad). CUDA → #3
     or #4 by width (or ValueError), CPU → the plain version;
-    differentiable through the plain version either way."""
+    differentiable through the plain version either way. Quant leaves:
+    #3's int8 leg for C <= 512 (inference-only), else dequantized first
+    and #4."""
+    if is_quant_leaf(params["narrow_conv"]["kernel"]):
+        if x.shape[-1] <= KERNEL_WIDTHS[-1]:
+            return int8_leg("fused_local_track_segments", x,
+                            _segments_reference, _segments_kernel, params,
+                            x, broadcast_seg, segment_ids, narrow_dilation,
+                            wide_dilation)
+        params = dequant_params(params)
     run = (_segments_reference
            if _device_check("fused_local_track_segments", x)
            else _segments_kernel)

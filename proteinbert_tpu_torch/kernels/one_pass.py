@@ -23,6 +23,15 @@ plain version on the CPU, whatever the rule says. It is differentiable
 (`kernels/autograd.recompute_vjp`): the forward saves only its inputs and
 the backward recomputes the plain version, as the JAX `_bwd_onepass`
 does.
+
+int8 weights (`kernels/quant_leaves`, the int8 serving arm): where the
+rule admits the shape, both entries run #6's int8 leg
+(`csrc/one_pass_q8.cu`, one_pass.py:236-241, :499-504, :564-568),
+inference-only; its plain version is `onepass_oh_reference` on the
+dequantized weights. The composition passes the quant leaves on: the
+dense one's `fused_local_track` dequantizes before K1 (one_pass.py:580),
+the packed one's `fused_local_track_segments` runs #3's int8 leg
+(:512-514), and both attentions run K2's (:515-517, :594-595).
 """
 
 from __future__ import annotations
@@ -46,12 +55,18 @@ from proteinbert_tpu_torch.kernels.fused_block import (
     fused_local_track_segments, local_track_reference,
     local_track_segment_oh_reference,
 )
+from proteinbert_tpu_torch.kernels.quant_leaves import (
+    int8_leg, is_quant_leaf, weight_leaf, weight_operands,
+)
 
 Params = Dict[str, torch.Tensor]
 
 ONEPASS = Kernel(
     "one_pass", "one_pass.cu", "pbt_onepass",
     [INT, INT] + [PTR] * 20 + [INT] * 8 + [PTR])
+ONEPASS_Q8 = Kernel(
+    "one_pass_q8", "one_pass_q8.cu", "pbt_onepass_q8",
+    [INT, INT] + [PTR] * 26 + [INT] * 8 + [PTR])
 
 # What the CUDA kernel covers (beyond the local track's convs and K2's
 # head dims): the widths of each activation dtype. The one-pass rule never
@@ -86,11 +101,11 @@ def _rule_admits(track_params: Params, attn_params: Params, x: torch.Tensor,
                  S: int, G: int, narrow_dilation: int,
                  wide_dilation: int) -> bool:
     _, L, C = x.shape
-    H, _, key_dim = attn_params["wq"].shape
+    H, _, key_dim = weight_leaf(attn_params["wq"]).shape
     return budget.onepass_supported(
         C, G, L, S, key_dim, H, x.dtype,
-        track_params["narrow_conv"]["kernel"].shape[0],
-        track_params["wide_conv"]["kernel"].shape[0],
+        weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
+        weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
         wide_dilation, narrow_dilation)
 
 
@@ -123,8 +138,8 @@ def check_onepass_shapes(
     and L·S scores in shared memory."""
     B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    H, _, key_dim = attn_params["wq"].shape
-    value_dim = attn_params["wv"].shape[-1]
+    H, _, key_dim = weight_leaf(attn_params["wq"]).shape
+    value_dim = weight_leaf(attn_params["wv"]).shape[-1]
     check_track_shapes("fused_onepass", track_params, x, narrow_dilation,
                        wide_dilation, KERNEL_WIDTHS.get(x.dtype, ()))
     if (key_dim != KERNEL_HEAD_DIM or value_dim not in KERNEL_VALUE_DIMS
@@ -152,34 +167,41 @@ def _onepass_kernel(
     segment_ids: Optional[torch.Tensor], real: torch.Tensor,
     narrow_dilation: int, wide_dilation: int, zero_empty: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of #6 on CUDA tensors; ValueError for what it does not
-    cover."""
+    """One launch of #6 on CUDA tensors — of its int8 leg when the
+    weights are quant leaves; ValueError for what it does not cover."""
     check_onepass_shapes(track_params, attn_params, x, broadcast_seg,
                          global_seg, segment_ids, real, narrow_dilation,
                          wide_dilation)
     B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    H = attn_params["wq"].shape[0]
+    H = weight_leaf(attn_params["wq"]).shape[0]
+    quant = is_quant_leaf(track_params["narrow_conv"]["kernel"])
+    if quant != is_quant_leaf(attn_params["wq"]):
+        raise ValueError("fused_onepass: the track and attention weights "
+                         "must both be int8 or both floating point")
     code, weights = _track_operands("fused_onepass", track_params, x,
                                     narrow_dilation, wide_dilation,
                                     KERNEL_WIDTHS[x.dtype])
     dtype = x.dtype
-    x, bc, g, wq, wk, wv = (t.to(dtype).contiguous() for t in (
-        x, broadcast_seg, global_seg, attn_params["wq"], attn_params["wk"],
-        attn_params["wv"]))
+    x, bc, g = (t.to(dtype).contiguous()
+                for t in (x, broadcast_seg, global_seg))
+    attn_w = [t for n in ("wq", "wk", "wv")
+              for t in weight_operands("fused_onepass", attn_params[n],
+                                       dtype)]
     real = real.to(torch.int32).contiguous()
     # Dense rows pass `real` in the unused id slot: the kernel reads no ids.
     seg = (real if segment_ids is None
            else segment_ids.to(torch.int32).contiguous())
     local = torch.empty_like(x)
     attn = torch.empty((B, S, G), dtype=dtype, device=x.device)
-    ops = (x, seg, real, bc, g, *weights, wq, wk, wv, local, attn)
+    ops = (x, seg, real, bc, g, *weights, *attn_w, local, attn)
     check_cuda("fused_onepass", *ops)
+    kernel = ONEPASS_Q8 if quant else ONEPASS
     with torch.cuda.device(x.device):
-        ONEPASS.launch(code, int(segment_ids is not None),
-                       *(t.data_ptr() for t in ops),
-                       B, L, C, G, S, H, wide_dilation, int(zero_empty),
-                       stream_ptr(x.device))
+        kernel.launch(code, int(segment_ids is not None),
+                      *(t.data_ptr() for t in ops),
+                      B, L, C, G, S, H, wide_dilation, int(zero_empty),
+                      stream_ptr(x.device))
     return local, attn
 
 
@@ -195,7 +217,13 @@ def fused_onepass(
     pad) or None for dense rows (S = 1, unmasked convs); real (B, L)
     nonzero where the attention may look. CUDA → the kernel (or
     ValueError), CPU → the plain version; differentiable through the
-    plain version either way."""
+    plain version either way. Quant leaves: #6's int8 leg,
+    inference-only."""
+    if is_quant_leaf(track_params["narrow_conv"]["kernel"]):
+        return int8_leg("fused_onepass", x, _onepass_reference,
+                        _onepass_kernel, track_params, attn_params, x,
+                        broadcast_seg, global_seg, segment_ids, real,
+                        narrow_dilation, wide_dilation, zero_empty)
     run = (_onepass_reference if _device_check("fused_onepass", x)
            else _onepass_kernel)
     return recompute_vjp(run, _onepass_reference, track_params, attn_params,

@@ -39,7 +39,7 @@ from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import ModelConfig
 from proteinbert_tpu_torch.data.vocab import PAD_ID
 from proteinbert_tpu_torch.kernels import (
-    TRACK_PARAMS, fused_onepass_dense, fused_onepass_segments,
+    TRACK_PARAMS, fused_onepass_dense, fused_onepass_segments, is_quant_leaf,
 )
 from proteinbert_tpu_torch.ops.layers import (
     dense_apply, embedding_apply, gelu, layer_norm_apply,
@@ -123,20 +123,32 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    """Every tensor of a params tree on `device`; a tensor that several
+    leaves share (an int8 tree's block-vector scales) stays shared."""
+    moved = {}
+
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [move(v) for v in t]
+        if id(t) not in moved:
+            moved[id(t)] = t.to(device)
+        return moved[id(t)]
+
+    return move(tree)
 
 
 # ---------------------------------------------------------------- apply
 
 def cast_block(block: Params, dtype: torch.dtype) -> Params:
     """Every non-LN leaf in the activation dtype, once per forward (the
-    JAX `_cast_blocks`); LN leaves stay float32."""
+    JAX `_cast_blocks`); LN leaves stay float32, and int8 quant leaves
+    ({"q", "scale"}, the int8 serving arm) pass through untouched: the
+    int8 legs of the kernels take them as they are."""
     return {name: (sub if name in LN_NAMES
-                   else {k: v.to(dtype) for k, v in sub.items()})
+                   else {k: v if is_quant_leaf(v) else v.to(dtype)
+                         for k, v in sub.items()})
             for name, sub in block.items()}
 
 

@@ -12,6 +12,15 @@ builds the kernels and settles the allocator.
 `run_rows` is the offline entry (`inference.embed(..., bucketed=True)`):
 group a whole token matrix by bucket, run each group at its bucket
 length, reassemble in input order.
+
+`quant="int8"` / `"int8_act"` is the int8 serving arm (JAX dispatch.py:
+228-282): the dispatcher quantizes the trunk once at load
+(`parallel/quant.quantize_params`) and every batch runs the quantized
+entries, whose block weights reach the int8 legs of #3, K2 and #6. With
+`quant_parity_every <= 0` the fp32 trunk moves to the host, so the card
+holds only the int8 tree; with N > 0 it stays on the card and every Nth
+live batch also runs the fp32 entries on the same inputs (the parity
+shadow, `quant_report["parity_max"]`).
 """
 
 from __future__ import annotations
@@ -20,11 +29,17 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.data.vocab import EOS_ID, PAD_ID, SOS_ID
+from proteinbert_tpu_torch.models.proteinbert import to_device
+from proteinbert_tpu_torch.parallel.quant import (
+    SERVE_QUANT_MODES, param_bytes, quant_entry, quant_packed_entry,
+    quantize_params,
+)
 
 KINDS = ("embed", "predict_go", "predict_residues")
 
@@ -41,6 +56,26 @@ _PACKED_FNS = {
 }
 
 Rider = Tuple[int, int, int, int]  # (row, segment index, start, span)
+
+
+def _host_leaves(tree) -> List[np.ndarray]:
+    """The arrays of a host output (a dict, list or array), in a fixed
+    order."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _host_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in _host_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def parity_max(a, b) -> float:
+    """Max |a - b| over two host outputs of the same structure."""
+    worst = 0.0
+    for x, y in zip(_host_leaves(a), _host_leaves(b)):
+        if x.size:
+            worst = max(worst, float(np.max(np.abs(
+                x.astype(np.float32) - y.astype(np.float32)))))
+    return worst
 
 
 def resolve_buckets(cfg: PretrainConfig, buckets=None) -> Tuple[int, ...]:
@@ -81,7 +116,7 @@ def default_batch_classes(max_batch: int) -> Tuple[int, ...]:
 class BucketDispatcher:
     """Routes (kind, tokens, annotations) micro-batches to their shape
     class on `device` (None → "cuda") and returns trimmed host
-    outputs."""
+    outputs. `quant` picks the arm (`SERVE_QUANT_MODES`)."""
 
     def __init__(
         self,
@@ -91,7 +126,12 @@ class BucketDispatcher:
         max_batch: int = 8,
         batch_classes: Optional[Sequence[int]] = None,
         device: DeviceLike = None,
+        quant: str = "fp32",
+        quant_parity_every: int = 0,
     ):
+        if quant not in SERVE_QUANT_MODES:
+            raise ValueError(f"quant must be one of {SERVE_QUANT_MODES}, "
+                             f"got {quant!r}")
         self.params = params
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -105,6 +145,32 @@ class BucketDispatcher:
                 f"largest batch class {self.batch_classes[-1]} cannot hold "
                 f"a full micro-batch of {self.max_batch}")
         self.warmup_seconds_total = 0.0
+        self.quant = quant
+        self.quant_parity_every = int(quant_parity_every)
+        # True while warmup() runs its dummy batches: they neither consume
+        # the parity cadence nor count as parity samples.
+        self._warming = False
+        self._quant_batches = 0
+        self.qparams = None
+        self.quant_report: Dict = {}
+        self.quant_parity_max: Optional[float] = None
+        if quant != "fp32":
+            fp32_bytes = param_bytes(self.params)
+            self.qparams = quantize_params(self.params)
+            q_bytes = param_bytes(self.qparams)
+            if self.quant_parity_every <= 0:
+                # No parity shadow: nothing on the card reads the fp32
+                # trunk, so it waits on the host.
+                self.params = to_device(self.params, torch.device("cpu"))
+            self.quant_report = {
+                "mode": quant,
+                "weight_bytes_fp32": fp32_bytes,
+                "weight_bytes_quant": q_bytes,
+                "weight_bytes_ratio": round(q_bytes / max(fp32_bytes, 1), 4),
+                "parity_every": self.quant_parity_every,
+                "fp32_resident": ("device" if self.quant_parity_every > 0
+                                  else "host"),
+            }
 
     # ------------------------------------------------------------ routing
 
@@ -132,6 +198,42 @@ class BucketDispatcher:
 
     # ----------------------------------------------------------- execution
 
+    def _fn(self, kind: str, quantized: bool):
+        """The batch function of one request kind on the quantized arm or
+        the fp32 one."""
+        if kind not in _BATCH_FNS:
+            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        if quantized:
+            return quant_entry(kind, act=self.quant == "int8_act")
+        return _BATCH_FNS[kind]
+
+    def _arm(self):
+        """(whether batches run quantized, the params they run on)."""
+        if self.quant == "fp32":
+            return False, self.params
+        return True, self.qparams
+
+    def _quant_batch_tick(self, timings: Dict) -> bool:
+        """Per-batch quant bookkeeping: stamp the arm onto the timings,
+        count the batch, and say whether THIS batch runs the fp32 parity
+        shadow. Warmup batches are left out entirely."""
+        if self.quant == "fp32" or self._warming:
+            return False
+        timings["quant"] = self.quant
+        self._quant_batches += 1
+        return (self.quant_parity_every > 0
+                and (self._quant_batches - 1) % self.quant_parity_every == 0)
+
+    def _shadow_parity(self, out, ref_thunk, timings: Dict) -> None:
+        """Run the fp32 shadow (`ref_thunk`) and record the worst
+        deviation of `out` from it."""
+        worst = parity_max(out, ref_thunk())
+        self.quant_parity_max = max(self.quant_parity_max or 0.0, worst)
+        self.quant_report["parity_max"] = round(self.quant_parity_max, 9)
+        self.quant_report["parity_samples"] = (
+            self.quant_report.get("parity_samples", 0) + 1)
+        timings["quant_parity_max"] = round(worst, 9)
+
     def run(self, kind: str, tokens: np.ndarray,
             annotations: Optional[np.ndarray] = None):
         """Run one micro-batch: tokens (r, L) with L a bucket length,
@@ -148,8 +250,8 @@ class BucketDispatcher:
         """`run()` that also returns {"prep_s": padding, "device_s":
         model call through host fetch, "pad_fraction": padding share of
         the (batch_class, L) grid} when `timed`."""
-        if kind not in _BATCH_FNS:
-            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        quantized, run_params = self._arm()
+        fn = self._fn(kind, quantized)
         rows, L = tokens.shape
         if L not in self.buckets:
             raise ValueError(f"tokens length {L} is not one of the "
@@ -166,12 +268,20 @@ class BucketDispatcher:
             tokens = np.pad(tokens, ((0, cls - rows), (0, 0)))
             annotations = np.pad(annotations, ((0, cls - rows), (0, 0)))
         t1 = time.perf_counter()
-        out = inference.run_batch(_BATCH_FNS[kind], self.params, self.cfg,
-                                  tokens, annotations, device=self.device)
-        if isinstance(out, dict):
-            out = {k: v[:rows] for k, v in out.items()}
-        else:
-            out = out[:rows]
+        parity_due = self._quant_batch_tick(timings)
+
+        def trimmed(fn, params):
+            out = inference.run_batch(fn, params, self.cfg, tokens,
+                                      annotations, device=self.device)
+            if isinstance(out, dict):
+                return {k: v[:rows] for k, v in out.items()}
+            return out[:rows]
+
+        out = trimmed(fn, run_params)
+        if parity_due:
+            self._shadow_parity(
+                out, lambda: trimmed(self._fn(kind, False), self.params),
+                timings)
         if timed:
             timings["prep_s"] = round(t1 - t0, 9)
             timings["device_s"] = round(time.perf_counter() - t1, 9)
@@ -182,14 +292,18 @@ class BucketDispatcher:
         dummy rows; returns how many shapes ran."""
         t0 = time.perf_counter()
         n = 0
-        for kind in kinds:
-            if kind not in KINDS:
-                raise ValueError(f"unknown request kind {kind!r}; "
-                                 f"have {KINDS}")
-            for L in self.buckets:
-                for cls in self.batch_classes:
-                    self.run(kind, self._dummy_batch(L, cls))
-                    n += 1
+        self._warming = True
+        try:
+            for kind in kinds:
+                if kind not in KINDS:
+                    raise ValueError(f"unknown request kind {kind!r}; "
+                                     f"have {KINDS}")
+                for L in self.buckets:
+                    for cls in self.batch_classes:
+                        self.run(kind, self._dummy_batch(L, cls))
+                        n += 1
+        finally:
+            self._warming = False
         self.warmup_seconds_total += time.perf_counter() - t0
         return n
 
@@ -255,7 +369,14 @@ class RaggedDispatcher(BucketDispatcher):
         rows_per_batch: int = 4,
         max_segments: int = 8,
         device: DeviceLike = None,
+        quant: str = "fp32",
+        quant_parity_every: int = 0,
     ):
+        if quant == "int8_act":
+            raise ValueError(
+                "quant='int8_act' is a bucketed-arm option: the packed "
+                "entries have no activation fake-quant variant (use "
+                "quant='int8' for weight-only quantized ragged serving)")
         if rows_per_batch < 1:
             raise ValueError(f"rows_per_batch must be >= 1, "
                              f"got {rows_per_batch}")
@@ -264,7 +385,8 @@ class RaggedDispatcher(BucketDispatcher):
                              f"got {max_segments}")
         super().__init__(params, cfg, buckets=buckets,
                          max_batch=rows_per_batch,
-                         batch_classes=(rows_per_batch,), device=device)
+                         batch_classes=(rows_per_batch,), device=device,
+                         quant=quant, quant_parity_every=quant_parity_every)
         self.rows_per_batch = int(rows_per_batch)
         self.max_segments = int(max_segments)
 
@@ -281,6 +403,11 @@ class RaggedDispatcher(BucketDispatcher):
                                         annotations, riders, timed=False)
         return outs
 
+    def _packed_fn(self, kind: str, quantized: bool):
+        if kind not in _PACKED_FNS:
+            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        return quant_packed_entry(kind) if quantized else _PACKED_FNS[kind]
+
     def run_packed_timed(self, kind: str, tokens: np.ndarray,
                          segment_ids: np.ndarray, annotations: np.ndarray,
                          riders: Sequence[Rider], timed: bool = True):
@@ -291,8 +418,8 @@ class RaggedDispatcher(BucketDispatcher):
         `riders`, timings); each output has the shape the bucketed
         dispatcher returns for that request: {"global" (G,), "local_mean"
         (C,)} / (A,) probs / (span, V) probs."""
-        if kind not in _PACKED_FNS:
-            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        quantized, run_params = self._arm()
+        fn = self._packed_fn(kind, quantized)
         R, L = tokens.shape
         if (R, L) != (self.rows_per_batch, self.cfg.data.seq_len):
             raise ValueError(
@@ -305,18 +432,28 @@ class RaggedDispatcher(BucketDispatcher):
             timings["pad_fraction"] = round(1.0 - real / (R * L), 6)
             timings["segments"] = len(riders)
             timings["segments_per_row"] = round(len(riders) / R, 4)
-        host = inference.run_batch(_PACKED_FNS[kind], self.params, self.cfg,
-                                   tokens, segment_ids, annotations,
-                                   device=self.device)
-        outs = []
-        for row, seg, start, span in riders:
-            if kind == "embed":
-                outs.append({"global": host["global"][row, seg],
-                             "local_mean": host["local_mean"][row, seg]})
-            elif kind == "predict_go":
-                outs.append(host[row, seg])
-            else:  # the span lines up with the bucketed (bucket_len, V)
-                outs.append(host[row, start:start + span])
+        parity_due = self._quant_batch_tick(timings)
+
+        def fanned(fn, params):
+            host = inference.run_batch(fn, params, self.cfg, tokens,
+                                       segment_ids, annotations,
+                                       device=self.device)
+            outs = []
+            for row, seg, start, span in riders:
+                if kind == "embed":
+                    outs.append({"global": host["global"][row, seg],
+                                 "local_mean": host["local_mean"][row, seg]})
+                elif kind == "predict_go":
+                    outs.append(host[row, seg])
+                else:  # the span lines up with the bucketed (bucket_len, V)
+                    outs.append(host[row, start:start + span])
+            return outs
+
+        outs = fanned(fn, run_params)
+        if parity_due:
+            self._shadow_parity(
+                outs, lambda: fanned(self._packed_fn(kind, False),
+                                     self.params), timings)
         if timed:
             timings["device_s"] = round(time.perf_counter() - t0, 9)
         return outs, timings
@@ -341,11 +478,15 @@ class RaggedDispatcher(BucketDispatcher):
         t0 = time.perf_counter()
         tokens, seg, ann, riders = self._dummy_packed()
         n = 0
-        for kind in kinds:
-            if kind not in KINDS:
-                raise ValueError(f"unknown request kind {kind!r}; "
-                                 f"have {KINDS}")
-            self.run_packed(kind, tokens, seg, ann, riders)
-            n += 1
+        self._warming = True
+        try:
+            for kind in kinds:
+                if kind not in KINDS:
+                    raise ValueError(f"unknown request kind {kind!r}; "
+                                     f"have {KINDS}")
+                self.run_packed(kind, tokens, seg, ann, riders)
+                n += 1
+        finally:
+            self._warming = False
         self.warmup_seconds_total += time.perf_counter() - t0
         return n

@@ -23,6 +23,12 @@ requests pack into fixed-shape (max_batch rows, seq_len) batches at their
 bucket-quantized spans (`RaggedDispatcher`, `PackedBatchScheduler`), up to
 `pack_max_segments` per row, and answer as the bucketed mode does.
 
+`quant="int8"` serves int8 weights quantized once at load (either mode;
+`"int8_act"` adds int8 fake-quant of the trunk's outputs, bucketed only),
+with a fp32 parity shadow every `quant_parity_every` batches; None takes
+`cfg.serve.quant` / `cfg.serve.quant_parity_every`. `stats()["quant"]`
+reports the arm (serve/dispatch.py).
+
 Shutdown is two-mode: `drain()` closes the queue (new submits raise
 ServerClosedError), finishes every queued request, then stops the
 scheduler; `abort()` fails queued and pending work with
@@ -113,6 +119,8 @@ class Server:
         batch_classes=None,
         serve_mode: str = "bucketed",
         pack_max_segments: int = 8,
+        quant: Optional[str] = None,
+        quant_parity_every: Optional[int] = None,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
@@ -120,6 +128,11 @@ class Server:
         if serve_mode not in SERVE_MODES:
             raise ValueError(f"serve_mode must be one of {SERVE_MODES}, "
                              f"got {serve_mode!r}")
+        if quant is None:
+            quant = cfg.serve.quant
+        if quant_parity_every is None:
+            quant_parity_every = cfg.serve.quant_parity_every
+        self.quant = quant
         self.cfg = cfg
         self.on_long = on_long
         self.default_deadline_s = default_deadline_s
@@ -137,7 +150,8 @@ class Server:
                     "device shape is fixed at (max_batch, seq_len)")
             self.dispatcher = RaggedDispatcher(
                 params, cfg, buckets=buckets, rows_per_batch=max_batch,
-                max_segments=pack_max_segments, device=device)
+                max_segments=pack_max_segments, device=device, quant=quant,
+                quant_parity_every=quant_parity_every)
             self.scheduler = PackedBatchScheduler(
                 self.queue, self.dispatcher, self._finalize,
                 rows_per_batch=max_batch, max_wait_s=max_wait_s,
@@ -147,7 +161,8 @@ class Server:
         else:
             self.dispatcher = BucketDispatcher(
                 params, cfg, buckets=buckets, max_batch=max_batch,
-                batch_classes=batch_classes, device=device)
+                batch_classes=batch_classes, device=device, quant=quant,
+                quant_parity_every=quant_parity_every)
             self.scheduler = MicroBatchScheduler(
                 self.queue, self.dispatcher, self._finalize,
                 max_batch=max_batch, max_wait_s=max_wait_s, clock=clock,
@@ -351,4 +366,6 @@ class Server:
             "expired": expired,
             "cache": self.cache.stats(),
             "latency": self.latencies.summary(),
+            "quant": ({"mode": self.quant, **self.dispatcher.quant_report}
+                      if self.quant != "fp32" else None),
         }

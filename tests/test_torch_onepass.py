@@ -301,8 +301,9 @@ def test_kernel_registry_and_flop_counts():
     names = [k.name for k in KERNELS]
     assert names == ["local_track", "local_track_segments",
                      "global_attention", "one_pass", "local_track_tiled",
-                     "local_track_segments_tiled"]
-    assert len({k.library_path() for k in KERNELS}) == 6
+                     "local_track_segments_tiled", "local_track_segments_q8",
+                     "global_attention_q8", "one_pass_q8"]
+    assert len({k.library_path() for k in KERNELS}) == 9
     # one_pass.py:362-366 at the default-width served shape: 3.42 GFLOP.
     flops = tone.onepass_flops(8, 512, 128, 512, 8, 4, 64)
     assert flops == (2 * 8 * 512 * 128**2 * 19
