@@ -30,6 +30,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               tile's 20-row halo;
               K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
               (S=8) timed, and at value_dim 128 (C=256, G=512, H=4);
+              the prehaloed entries of K1 (C=512) and #2 (C=1024)
+              (`fused_local_track_valid`), bf16 and fp32: one L=2048 row
+              cut into shards of 512 / 256 rows with their neighbours' 20
+              rows, each shard's centre bit for bit the whole row's
+              `fused_local_track`; a middle shard against the plain
+              version, timed at B=16 L=512+2*20 C=512 and B=8 L=256+2*20
+              C=1024; the train phases' shapes (B=4 L=2048+2*20 C=512,
+              B=8 L=1024+2*20 C=1024, zero halos) against the plain
+              version;
               the int8 legs (int8 weights, quantized as the int8 serving arm
               holds them): #3-int8 at base width (S=8), K2-int8 at base width
               dense and packed and at value_dim 128, #6-int8 at C=128/256
@@ -41,10 +50,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               (CUDA events, median of 25), the bound and launches per call,
               and each int8 leg's ms beside its fp leg's.
    gradients — every autograd Function (K1 and #2 through
-              `fused_local_track`, #3 and #4 through
-              `fused_local_track_segments`, K2, #6): the grads of
-              sum(out * r) through the kernel against plain autograd on the
-              card, fp32 and bf16; then 2-block fp32 Large-width train steps,
+              `fused_local_track` and `fused_local_track_valid`, #3 and #4
+              through `fused_local_track_segments`, K2, #6): the grads of
+              sum(out * r) through the kernel, fp32 and bf16, against
+              float32 autograd of the backward reference (the port of the
+              JAX XLA reference) on the same inputs cast up; then
+              2-block fp32 Large-width train steps,
               dense and packed, their loss and grads on the card against the
               same steps on the CPU plain path, and each packed protein's
               loss terms against the same protein run alone as a dense row.
@@ -86,11 +97,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
                  50-500 residues: exactly 12 of #4 and of K2 per step;
               finite losses, params moved by step 2; step ms, tokens/s, MFU,
               peak memory and a split of one step (packed: also the share of
-              real positions and segments a row). Then 2 steps each of the
+              real positions and segments a row), each printed beside the
+              same step with the float32 backward (`# bf16 backward`).
+              Then 2 steps each of the
               `base` preset (B=8, L=512) dense (exactly 6 of K1 and of K2
               per step) and packed (6 of #3 and of K2), and of the
-              ModelConfig default width packed (6 of #6). Counts are zeroed
-              before each run.
+              ModelConfig default width packed (6 of #6). Then sequence
+              parallelism, `pretrain(..., seq_group=g)` with g a one-rank
+              NCCL group made in this process:
+              c. `long seq` — the `long` preset at full depth and width (6
+                 blocks, C=G=512, H=8, 8943 annotations), bf16, seq_len
+                 2048, B=4 (the preset's 64 rows x 2048 over 16 chips;
+                 cuts: seq world 4 -> 1, data 4 -> 1), its LR 2e-4 with
+                 no warmup, 6 steps: exactly 6 launches of K1's prehaloed entry per
+                 step and none of the others, finite and falling loss;
+                 step ms, tokens/s, MFU, peak memory, one step's split;
+              d. `large seq` — the `large` preset, B=8, L=1024, 2 steps:
+                 exactly 12 of #2's prehaloed entry per step.
+              Counts are zeroed before each run.
 6. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 """
@@ -137,23 +161,38 @@ TOL = {("local_track", torch.float32): 1e-4,
        ("local_track_tiled", torch.bfloat16): 0.0625,
        ("local_track_segments_tiled", torch.float32): 1e-4,
        ("local_track_segments_tiled", torch.bfloat16): 0.0625}
+# The prehaloed entries run K1's and #2's device code: their tolerances.
+for _dtype in (torch.float32, torch.bfloat16):
+    TOL[("local_track_valid", _dtype)] = TOL[("local_track", _dtype)]
+    TOL[("local_track_tiled_valid", _dtype)] = TOL[("local_track_tiled",
+                                                     _dtype)]
 # An int8 leg against its plain version: the fp leg's tolerance (it must
 # give exactly the fp leg's output on the dequantized weights).
 for _name in ("local_track_segments", "global_attention", "one_pass"):
     for _dtype in (torch.float32, torch.bfloat16):
         TOL[(_name + "_q8", _dtype)] = TOL[(_name, _dtype)]
-# Gradients through a kernel's autograd Function against plain autograd,
-# as a share of the largest |grad|: both arms differentiate the same plain
-# recompute, so they differ only by the order of cuDNN's and cuBLAS's
-# float32 sums (fp32) and, in bf16, by a grad that lands next to a rounding
-# boundary and rounds the other way (one bf16 step, 2^-8 relative).
-GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+# Gradients through a kernel's autograd Function against float32 autograd
+# of the reference its backward differentiates, on the same inputs cast up.
+# fp32: the largest |diff| as a share of the largest |grad| (the same sums,
+# in cuDNN's and cuBLAS's order). bf16: the largest over inputs of
+# ||g_bf16 - g_fp32|| / ||g_fp32||, the measure and limit of
+# tests/test_torch_grads_dtype.py (about eight bf16 ulps): a bf16 backward
+# rounds its recomputed activations, products and GELU chain rule, which
+# moves each grad by about 1% in norm (0.67-1.26% on the CPU at these
+# shapes).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 STEP_LOSS_TOL = 1e-4   # 2-block fp32 train step, card vs CPU plain path
 STEP_GRAD_TOL = 1e-3
 SOLO_LOSS_TOL = 1e-4   # fp32 per-segment loss terms, packed vs alone
 # Device-code names of the hand-written kernels, as the profiler lists them.
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
                 "tiled_conv_kernel", "tiled_finish_kernel")
+# The Large steps, dense and packed, as this script measured them when the
+# kernels' backward still recomputed in float32 (NVIDIA H100 80GB HBM3,
+# 700.00 W): one profiled step's ms, its forward, backward and optimizer
+# ms, the median step ms, peak GB.
+F32_BACKWARD_LARGE = {"large": (539.2, 51.2, 456.8, 29.8, 531.7, 11.22),
+             "large packed": (473.1, 66.2, 381.8, 23.3, 474.4, 14.90)}
 REF_TOL = 1e-3        # float32 trunk, 2 blocks: kernels vs CPU plain path
 RAGGED_TOL = 1e-3     # float32 trunk, 2 blocks: ragged vs bucketed answers
 SERVE_EMBED_TOL = 0.05  # bf16 trunk: served batch row vs the row run alone
@@ -791,6 +830,98 @@ def large_kernel_phase(card: str, rows: dict) -> None:
             None, None, None, None, None)
 
 
+def valid_kernel_phase(card: str, rows: dict) -> None:
+    """The prehaloed entries (`fused_local_track_valid`): K1's at the
+    `long` preset's width (C=512) and #2's at Large width (C=1024), bf16
+    and fp32. One L=2048 row set is cut into shards of 512 (C=512) or 256
+    (C=1024) rows, each with its neighbours' 20 rows (zeros at the ends):
+    every shard's centre must equal the same rows of `fused_local_track`
+    on the whole row bit for bit, since each output row's arithmetic reads
+    only its window's rows. A middle shard (real halo rows on both sides)
+    is held against the plain version and, in bf16, timed at the `long`
+    preset's shard shape (B=16, L=512+2*20, C=512) and at C=1024, L=256
+    (B=8). The shapes the train phases give the entries on a one-rank
+    group — one whole row with `halo_exchange`'s 20 zero rows each side,
+    B=4, L=2048+2*20, C=512 (`train long seq`) and B=8, L=1024+2*20,
+    C=1024 (`train large seq`) — are held against the plain version too."""
+    import torch.nn.functional as F
+
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        LOCAL_TRACK_TILED_VALID, LOCAL_TRACK_VALID, TRACK_PARAMS,
+        fused_local_track, fused_local_track_valid,
+        local_track_valid_reference, track_halo,
+    )
+    from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+
+    gen = torch.Generator().manual_seed(61)
+    dev = torch.device(DEVICE)
+    for preset, kernel, B, Ls, Bm, Lm in (
+            ("long", LOCAL_TRACK_VALID, 16, 512, 4, 2048),
+            ("large", LOCAL_TRACK_TILED_VALID, 8, 256, 8, 1024)):
+        cfg = get_preset(preset).model
+        C, wd = cfg.local_dim, cfg.wide_dilation
+        block = to_device(block_init(gen, cfg), dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            s = dtype.itemsize
+            cast = cast_block(block, dtype)
+            track = {name: cast[name] for name in TRACK_PARAMS}
+            H = track_halo(track, 1, wd)
+            x = torch.randn((B, 2048, C), generator=gen).to(dev, dtype)
+            bc = torch.randn((B, C), generator=gen).to(dev, dtype)
+            xp = F.pad(x, (0, 0, H, H))
+            whole = fused_local_track(track, x, bc, 1, wd)
+            shards = [fused_local_track_valid(
+                track, xp[:, i * Ls:(i + 1) * Ls + 2 * H], bc, 1, wd)
+                for i in range(2048 // Ls)]
+            torch.cuda.synchronize()
+            stitched = torch.cat(shards, dim=1)
+            print(f"# {kernel.name} {str(dtype)[6:]}: {len(shards)} shards "
+                  f"of {Ls} rows (+2*{H}) vs the whole L=2048 row: max "
+                  f"|diff| {(stitched.float() - whole.float()).abs().max().item()}"
+                  f" [{card}]")
+            check(torch.equal(stitched, whole),
+                  f"{kernel.name} {dtype}: shard centres are not the whole "
+                  "row's track bit for bit")
+            xh = xp[:, Ls:2 * Ls + 2 * H].contiguous()  # real halos
+            got = fused_local_track_valid(track, xh, bc, 1, wd)
+            want = local_track_valid_reference(track, xh, bc, 1, wd)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all().item(),
+                  f"{kernel.name} non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            timing = (None,) * 5
+            if dtype == torch.bfloat16:
+                nbytes = ((B * (Ls + 2 * H) * C + B * Ls * C + B * C
+                           + 19 * C * C) * s + 7 * C * 4)
+                b_ms, b_by = bound(local_track_flops(B, Ls, C), nbytes, dtype)
+                n0 = kernel.launches
+                fused_local_track_valid(track, xh, bc, 1, wd)
+                per_call = kernel.launches - n0
+                check(per_call == 1, f"{kernel.name} launched {per_call} "
+                                     "times in one call")
+                timing = (time_ms(lambda: fused_local_track_valid(
+                              track, xh, bc, 1, wd)),
+                          time_ms(lambda: local_track_valid_reference(
+                              track, xh, bc, 1, wd)),
+                          b_ms, b_by, per_call)
+            rows[(kernel.name, dtype, Ls, "shard")] = (err,) + timing
+            xm = F.pad(torch.randn((Bm, Lm, C), generator=gen).to(dev, dtype),
+                       (0, 0, H, H))   # the main path's shape, world 1
+            bm = torch.randn((Bm, C), generator=gen).to(dev, dtype)
+            got = fused_local_track_valid(track, xm, bm, 1, wd)
+            want = local_track_valid_reference(track, xm, bm, 1, wd)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all().item(),
+                  f"{kernel.name} non-finite at the main path's shape")
+            rows[(kernel.name, dtype, Lm, "main path")] = (
+                (got.float() - want.float()).abs().max().item(),
+                None, None, None, None, None)
+
+
 # ------------------------------------------------------------ int8 legs
 
 def q8_block(gen, cfg, dtype):
@@ -1038,13 +1169,23 @@ def print_q8_rows(card: str, rows: dict, extra: dict) -> None:
 def grad_phase(card: str) -> None:
     """Each autograd Function on the card: the grads of sum(out * r)
     (every float input: weights, activations, broadcast and global rows)
-    through the kernel wrapper (K1, #2, #3, #4, K2, #6) against plain
-    autograd through the plain version, fp32 and bf16."""
+    through the kernel wrapper (K1, #2, #3, #4, K2, #6, and K1's and #2's
+    prehaloed entry), fp32 and bf16, against float32 autograd of the
+    function its backward differentiates (the port of the JAX XLA
+    reference) on the same inputs cast up to float32. The wrapper's
+    backward IS autograd of that reference at the activation dtype, so the
+    fp32 cases check only the plumbing (every input gets a finite grad of
+    the right value); the bf16 cases hold the bf16 backward the trainer
+    runs (cuDNN's bf16 convs, bf16 GEMMs) against a float32 one, which a
+    wrong bf16 backward on the card fails. The kernels' forward plays no
+    part in the grads: `kernel_phase` gates it."""
     from proteinbert_tpu_torch.configs import ModelConfig, get_preset
     from proteinbert_tpu_torch.kernels import (
-        TRACK_PARAMS, attention_oh_reference, fused_attention,
-        fused_local_track, fused_local_track_segments, local_track_reference,
-        local_track_segment_oh_reference, onepass_oh_reference,
+        TRACK_PARAMS, attention_oh_grad_reference, fused_attention,
+        fused_local_track, fused_local_track_segments,
+        fused_local_track_valid, local_track_grad_reference,
+        local_track_segment_oh_grad_reference,
+        local_track_valid_grad_reference, onepass_oh_grad_reference,
         segment_one_hot,
     )
     from proteinbert_tpu_torch.kernels.one_pass import fused_onepass
@@ -1085,11 +1226,13 @@ def grad_phase(card: str) -> None:
             return [tree]
         return []
 
-    def rg(tree):
-        """Fresh leaf copies that require grad."""
+    def rg(tree, dtype=None):
+        """Fresh leaf copies that require grad (cast to dtype if given)."""
         if isinstance(tree, dict):
-            return {k: rg(v) for k, v in tree.items()}
-        return tree.detach().clone().requires_grad_(True)
+            return {k: rg(v, dtype) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rg(v, dtype) for v in tree)
+        return tree.detach().to(dtype or tree.dtype).requires_grad_(True)
 
     for dtype in (torch.bfloat16, torch.float32):
         def rand(*shape):
@@ -1106,21 +1249,27 @@ def grad_phase(card: str) -> None:
             x, bc = rg(rand(B, L, C)), rg(rand(B, C))
             cases[name] = (
                 lambda t, xx, bb: fused_local_track(t, xx, bb, 1, 5),
-                lambda t, xx, bb: local_track_reference(t, xx, bb, 1, 5),
+                lambda t, xx, bb: local_track_grad_reference(t, xx, bb, 1, 5),
                 (track, x, bc))
+            cases[name + "v"] = (   # the prehaloed entry, 20 halo rows
+                lambda t, xx, bb: fused_local_track_valid(t, xx, bb, 1, 5),
+                lambda t, xx, bb: local_track_valid_grad_reference(
+                    t, xx, bb, 1, 5),
+                (rg({n: cast[n] for n in TRACK_PARAMS}),
+                 rg(rand(B, L + 40, C)), rg(rand(B, C))))
         cast = cast_block(blocks["base"], dtype)
         C, G = base.local_dim, base.global_dim
         track = rg({n: cast[n] for n in TRACK_PARAMS})
         cases["#3"] = (
             lambda t, xx, bb: fused_local_track_segments(t, xx, bb, seg, 1, 5),
-            lambda t, xx, bb: local_track_segment_oh_reference(
+            lambda t, xx, bb: local_track_segment_oh_grad_reference(
                 t, xx, bb, oh, 1, 5),
             (track, rg(rand(B, L, C)), rg(rand(B, S, C))))
         cast = cast_block(blocks["large"], dtype)
         C = large.local_dim
         cases["#4"] = (
             lambda t, xx, bb: fused_local_track_segments(t, xx, bb, seg, 1, 5),
-            lambda t, xx, bb: local_track_segment_oh_reference(
+            lambda t, xx, bb: local_track_segment_oh_grad_reference(
                 t, xx, bb, oh, 1, 5),
             (rg({n: cast[n] for n in TRACK_PARAMS}), rg(rand(B, L, C)),
              rg(rand(B, S, C))))
@@ -1129,7 +1278,7 @@ def grad_phase(card: str) -> None:
         attn = rg(cast["attention"])
         cases["K2"] = (
             lambda a, xx, gg: fused_attention(a, xx, gg, oh * real[..., None]),
-            lambda a, xx, gg: attention_oh_reference(
+            lambda a, xx, gg: attention_oh_grad_reference(
                 a, xx, gg, oh * real[..., None]),
             (attn, rg(rand(B, L, C)), rg(rand(B, S, G))))
         cast = cast_block(blocks["default"], dtype)
@@ -1139,23 +1288,29 @@ def grad_phase(card: str) -> None:
         cases["#6"] = (
             lambda t, a, xx, bb, gg: fused_onepass(t, a, xx, bb, gg, seg,
                                                    real, 1, 5, True),
-            lambda t, a, xx, bb, gg: onepass_oh_reference(
+            lambda t, a, xx, bb, gg: onepass_oh_grad_reference(
                 t, a, xx, bb, gg, oh, real[..., None].float(), 1, 5, True,
                 True),
             (track, attn, rg(rand(B, L, C)), rg(rand(B, S, C)),
              rg(rand(B, S, G))))
         for name, (kernel_fn, plain_fn, inputs) in cases.items():
             got = grads(kernel_fn, inputs)
-            want = grads(plain_fn, inputs)
+            want = grads(plain_fn, rg(inputs, torch.float32))
             torch.cuda.synchronize()
-            scale = max(w.float().abs().max().item() for w in want)
-            err = max((a.float() - b.float()).abs().max().item()
-                      for a, b in zip(got, want)) / max(scale, 1e-30)
             check(all(torch.isfinite(a).all().item() for a in got),
                   f"{name} grads non-finite")
-            print(f"# grad {name:3s} {str(dtype)[6:]:9s} {len(got):3d} inputs: "
-                  f"max |kernel - plain| / max|grad| {err:.3e} "
-                  f"(tol {GRAD_TOL[dtype]:.1e}) [{card}]")
+            if dtype == torch.float32:
+                scale = max(w.abs().max().item() for w in want)
+                err = max((a - b).abs().max().item()
+                          for a, b in zip(got, want)) / max(scale, 1e-30)
+                metric = "max |kernel - fp32 ref| / max|grad|"
+            else:
+                err = max(((a.float() - b).norm()
+                           / b.norm().clamp_min(1e-30)).item()
+                          for a, b in zip(got, want))
+                metric = "max over inputs ||bf16 - fp32 ref|| / ||fp32 ref||"
+            print(f"# grad {name:4s} {str(dtype)[6:]:9s} {len(got):3d} inputs: "
+                  f"{metric} {err:.3e} (tol {GRAD_TOL[dtype]:.1e}) [{card}]")
             check(err <= GRAD_TOL[dtype], f"{name} {dtype} grads: {err}")
 
 
@@ -1330,13 +1485,14 @@ def synthetic_proteins(n: int, lo: int, hi: int, num_annotations: int,
 
 
 def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
-              residues: tuple, seed: int):
+              residues: tuple, seed: int, seq_group=None):
     """`pretrain()` for `steps` steps with every kernel count at 0: the
     launches of each step (exactly per_step[name], 0 for a kernel not
     named), finite losses, params moved by step 2. `cfg.data.packing`
     feeds it `make_packed_iterator` (cfg.data.pack_max_segments a row),
-    else `make_pretrain_iterator`. Returns (the out dict, per-step wall
-    ms, launches, peak bytes, a clean batch, the batches it trained on)."""
+    else `make_pretrain_iterator`; `seq_group` trains sequence-parallel
+    over that group. Returns (the out dict, per-step wall ms, launches,
+    peak bytes, a clean batch, the batches it trained on)."""
     from proteinbert_tpu_torch.data.dataset import (
         InMemoryPretrainingDataset, make_pretrain_iterator,
     )
@@ -1385,7 +1541,7 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
         k.launches = 0
     t0 = time.perf_counter()
     out = pretrain(cfg, recorded(batches()), state=state, log_fn=log_fn,
-                   device=DEVICE)
+                   device=DEVICE, seq_group=seq_group)
     total = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     check(len(marks) == steps, f"{label}: {len(marks)} log points")
@@ -1408,18 +1564,42 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
     return out, walls, total, peak, batch, trained
 
 
-def profile_step(card: str, label: str, state, batch, cfg) -> None:
-    """Where one train step's time goes: CUDA-event-bracketed phases
-    (corrupt + copy, forward, backward, optimizer; the packed loss for a
-    packed batch), then torch.profiler over one whole `train_step` for the
-    device's busy share and the largest kernels."""
+def profile_step(card: str, label: str, state, batch, cfg,
+                 seq_group=None) -> dict:
+    """Where one train step's time goes: synchronized phases (corrupt +
+    copy, forward, backward, optimizer; the packed loss for a packed
+    batch; with `seq_group`, the sequence-parallel forward and its
+    gathered loss), then torch.profiler over one whole step for the
+    device's busy share and the largest kernels. Returns the phases' ms
+    and the step's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from proteinbert_tpu_torch.parallel import (
+        gather_seq, make_seq_parallel_train_step, seq_parallel_apply,
+    )
     from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.loss import pretrain_loss
     from proteinbert_tpu_torch.train.schedule import (
         make_optimizer, tree_leaves,
     )
+
+    if seq_group is None:
+        def forward_loss(X, Y, W, seg):
+            return ts.forward_loss(state.params, X, Y, W, cfg, seg)[0]
+
+        def train_step():
+            ts.train_step(state, batch, cfg)
+    else:   # a one-rank group: the whole row is this rank's slice
+        def forward_loss(X, Y, W, seg):
+            ll, gl = seq_parallel_apply(seq_group, state.params, X["local"],
+                                        X["global"], cfg.model)
+            return pretrain_loss(gather_seq(ll, seq_group), gl, Y, W)[0]
+
+        step_fn = make_seq_parallel_train_step(seq_group, cfg)
+
+        def train_step():
+            step_fn(state, batch)
 
     leaves = tree_leaves(state.params)
     marks = []
@@ -1434,7 +1614,7 @@ def profile_step(card: str, label: str, state, batch, cfg) -> None:
     with torch.enable_grad():
         for t in leaves:
             t.requires_grad_(True)
-        loss, _, _, _ = ts.forward_loss(state.params, X, Y, W, cfg, seg)
+        loss = forward_loss(X, Y, W, seg)
         mark()
         grads = torch.autograd.grad(loss, leaves)
         mark()
@@ -1444,18 +1624,20 @@ def profile_step(card: str, label: str, state, batch, cfg) -> None:
     ts.gradient_update(tx, state.params, grads, state.opt_state, loss, True)
     mark()
     names = ("corrupt + host->device", "forward (kernels + plain ops)",
-             "backward (plain recompute + grads)", "optimizer")
+             "backward (activation-dtype recompute + grads)", "optimizer")
     wall = marks[-1] - marks[0]
     print(f"# profile {label} [{card}]: one step {wall * 1e3:.1f} ms, "
           "phases synchronized:")
+    phases = {"step": wall * 1e3}
     for name, a, b in zip(names, marks, marks[1:]):
+        phases[name.split()[0]] = (b - a) * 1e3
         print(f"#   {(b - a) * 1e3:9.1f} ms {100 * (b - a) / wall:5.1f}%  "
               f"{name}")
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ts.train_step(state, batch, cfg)
+        train_step()
         torch.cuda.synchronize()
     prof_wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -1467,7 +1649,7 @@ def profile_step(card: str, label: str, state, batch, cfg) -> None:
     if not by_name:
         print(f"# profile {label}: the profiler recorded no device time "
               "(device breakdown not measured)")
-        return
+        return phases
     busy = sum(t for _, t in by_name.values())
     ours = sum(t for name, (_, t) in by_name.items()
                if any(k in name for k in KERNEL_NAMES))
@@ -1477,16 +1659,21 @@ def profile_step(card: str, label: str, state, batch, cfg) -> None:
           f"forward kernels {ours:.1f} ms ({100 * ours / busy:.1f}% of busy)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"#   {t:9.3f} ms {100 * t / busy:5.1f}%  x{n:<4d} {name[:80]}")
+    phases["busy"] = busy
+    return phases
 
 
 def train_phases(card: str) -> dict:
-    """The trained paths: Large dense (#2 + K2) and packed (#4 + K2), base
-    dense (K1 + K2) and packed (#3 + K2), the default width packed (#6);
-    returns each kernel's launches summed over the runs."""
+    """The trained paths: Large dense (#2 + K2) and packed (#4 + K2), each
+    printed beside the same step with the float32 backward, base dense (K1 + K2) and packed (#3 + K2), the default width
+    packed (#6); then sequence-parallel over a one-rank NCCL group: the
+    `long` preset (K1's prehaloed entry) and Large (#2's); returns each
+    kernel's launches summed over the runs."""
     from proteinbert_tpu_torch.configs import ModelConfig, get_preset
     from proteinbert_tpu_torch.kernels import (
         ATTENTION, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
-        LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED, ONEPASS,
+        LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED,
+        LOCAL_TRACK_TILED_VALID, LOCAL_TRACK_VALID, ONEPASS,
     )
     from proteinbert_tpu_torch.train.metrics import peak_flops
     from proteinbert_tpu_torch.train.schedule import tree_leaves
@@ -1536,8 +1723,16 @@ def train_phases(card: str) -> dict:
               f"{perf.get('mfu', float('nan')):.4f} of "
               f"{peak_flops(torch.device(DEVICE), 'bfloat16') or float('nan'):.3g}"
               f" FLOP/s; max_memory_allocated {peak / 1e9:.2f} GB{rows}")
-        profile_step(card, f"train {label}, one step B=8 L=1024",
-                     out["state"], batch, large)
+        ph = profile_step(card, f"train {label}, one step B=8 L=1024",
+                          out["state"], batch, large)
+        was = F32_BACKWARD_LARGE[label]
+        print(f"# bf16 backward, train {label} [{card}]: one profiled step "
+              f"{ph['step']:.1f} ms (float32 backward: {was[0]}), forward "
+              f"{ph['forward']:.1f} ({was[1]}), backward "
+              f"{ph['backward']:.1f} ({was[2]}), optimizer "
+              f"{ph['optimizer']:.1f} ({was[3]}); step median "
+              f"{med:.1f} ms ({was[4]}); max_memory_allocated "
+              f"{peak / 1e9:.2f} GB ({was[5]})")
 
     default = ModelConfig()
     for label, cfg, per_step, residues in (
@@ -1556,6 +1751,59 @@ def train_phases(card: str) -> dict:
               f"C={m.local_dim} G={m.global_dim} H={m.num_heads}, {m.dtype}, "
               f"B=8 L=512, step ms {', '.join(f'{w:.1f}' for w in walls)}; "
               f"max_memory_allocated {peak / 1e9:.2f} GB")
+
+    # Sequence parallelism on one card: a one-rank NCCL group, so the
+    # halo exchange pads and the softmax sums stay local (no collective).
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    group = dist.group.WORLD
+    try:
+        # `long` (configs/config.py:411-423): B=4, the preset's 64 rows x
+        # 2048 over 16 chips; its LR (2e-4) from step 0, without its
+        # 10,000-step warmup, so that 6 steps move the loss.
+        long_cfg = preset("long", 4, 2048, 6)
+        long_cfg = long_cfg.replace(optimizer=dataclasses.replace(
+            long_cfg.optimizer, schedule="constant", warmup_steps=0))
+        out, walls, launches, peak, batch, _ = train_run(
+            card, "long seq", long_cfg, 6, {LOCAL_TRACK_VALID.name: 6},
+            (200, 2046), 2, seq_group=group)
+        add(launches)
+        losses = [h["loss"] for h in out["history"]]
+        check(losses[-1] < losses[0], f"long seq: loss did not fall: "
+                                      f"{losses}")
+        perf = out["perf"]
+        m = long_cfg.model
+        n_params = sum(t.numel() for t in tree_leaves(out["state"].params))
+        print(f"# train long seq [{card}]: seq group of 1 (NCCL), "
+              f"{m.num_blocks} blocks C={m.local_dim} G={m.global_dim} "
+              f"H={m.num_heads} A={m.num_annotations}, {m.dtype}, B=4 "
+              f"L=2048, {n_params} params; reported cuts: seq world 4 -> 1, "
+              f"data 4 -> 1, no LR warmup; step ms median of 5 "
+              f"{statistics.median(walls[1:]):.1f} (steps "
+              f"{', '.join(f'{w:.1f}' for w in walls)}); pretrain perf "
+              f"{perf['step_ms']:.1f} ms/step, {perf['tokens_per_sec']:.0f} "
+              f"tokens/s (B*L positions), MFU "
+              f"{perf.get('mfu', float('nan')):.4f}; max_memory_allocated "
+              f"{peak / 1e9:.2f} GB")
+        profile_step(card, "train long seq, one step B=4 L=2048",
+                     out["state"], batch, long_cfg, seq_group=group)
+        large_seq = preset("large", 8, 1024, 2)
+        out, walls, launches, peak, _, _ = train_run(
+            card, "large seq", large_seq, 2,
+            {LOCAL_TRACK_TILED_VALID.name: 12}, (100, 1022), 3,
+            seq_group=group)
+        add(launches)
+        m = large_seq.model
+        print(f"# train large seq [{card}]: seq group of 1 (NCCL), "
+              f"{m.num_blocks} blocks C={m.local_dim}, {m.dtype}, B=8 "
+              f"L=1024, step ms "
+              f"{', '.join(f'{w:.1f}' for w in walls)}; max_memory_allocated "
+              f"{peak / 1e9:.2f} GB")
+    finally:
+        dist.destroy_process_group()
     return totals
 
 
@@ -2026,7 +2274,8 @@ def main() -> int:
     from proteinbert_tpu_torch.kernels import (
         ATTENTION, ATTENTION_Q8, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
         LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_SEGMENTS_TILED,
-        LOCAL_TRACK_TILED, ONEPASS, ONEPASS_Q8,
+        LOCAL_TRACK_TILED, LOCAL_TRACK_TILED_VALID, LOCAL_TRACK_VALID,
+        ONEPASS, ONEPASS_Q8,
     )
     from proteinbert_tpu_torch.kernels.build import build_all
 
@@ -2052,6 +2301,7 @@ def main() -> int:
     rows = kernel_phase(card)
     packed_kernel_phase(card, rows)
     large_kernel_phase(card, rows)
+    valid_kernel_phase(card, rows)
     q8_extra = q8_kernel_phase(card, rows)
     print_rows(card, rows)
     print_q8_rows(card, rows, q8_extra)
@@ -2110,6 +2360,14 @@ def main() -> int:
             "proteinbert_tpu_torch/csrc/one_pass_q8.cu",
             "proteinbert_tpu/kernels/one_pass.py:380", 512, "C=128 S=8",
             "B=8 L=512 C=128 G=512 H=4 k=64 v=128 S=8 bf16, int8 weights"),
+        LOCAL_TRACK_VALID.name: (
+            "proteinbert_tpu_torch/csrc/local_track_valid.cu",
+            "proteinbert_tpu/kernels/fused_block.py:804", 512, "shard",
+            "B=16 L=512+2*20 C=512 bf16, prehaloed"),
+        LOCAL_TRACK_TILED_VALID.name: (
+            "proteinbert_tpu_torch/csrc/local_track_tiled_valid.cu",
+            "proteinbert_tpu/kernels/fused_block.py:881", 256, "shard",
+            "B=8 L=256+2*20 C=1024 bf16, prehaloed"),
     }
     report = []
     for k in KERNELS:

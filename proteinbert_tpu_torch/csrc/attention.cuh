@@ -135,7 +135,7 @@ __device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
       C / kKc,
       [&](int s, int buf) {
         load_rows_async(a_buf + buf * A_TILE, LDA, xb + s * kKc, C, l0, kRows,
-                        kKc, L);
+                        kKc, 0, L);
         load_weight_rows<Q8>(b_buf + buf * B_TILE, LDB,
                              w + size_t(s) * kKc * N, N, kKc, N, wscale);
       },

@@ -94,13 +94,14 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // Issue (without committing) the copy of `rows` rows x `cols` columns of T
 // into shared `dst` (leading dimension dst_ld): dst row r <- src row
 // (row0 + r) of a row-major source with `src_rows` rows and leading
-// dimension src_ld; rows outside [0, src_rows) become zeros. cols*sizeof(T),
+// dimension src_ld; rows outside [lo, hi) become zeros (lo may be negative:
+// a prehaloed source carries real rows before its row 0). cols*sizeof(T),
 // dst_ld*sizeof(T) and src_ld*sizeof(T) are multiples of 16 bytes.
 template <typename T>
 __device__ __forceinline__ void load_rows_async(T* dst, int dst_ld,
                                                 const T* src, int src_ld,
                                                 int row0, int rows, int cols,
-                                                int src_rows) {
+                                                int lo, int hi) {
   constexpr int kVec = 16 / sizeof(T);
   const int per_row = cols / kVec;
   const int total = rows * per_row;
@@ -109,7 +110,7 @@ __device__ __forceinline__ void load_rows_async(T* dst, int dst_ld,
     const int c = (i - r * per_row) * kVec;
     T* d = dst + r * dst_ld + c;
     const int sr = row0 + r;
-    if (sr >= 0 && sr < src_rows) {
+    if (sr >= lo && sr < hi) {
       cp_async16(d, src + static_cast<size_t>(sr) * src_ld + c);
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
@@ -163,7 +164,7 @@ __device__ __forceinline__ void load_weight_rows(T* dst, int dst_ld,
   if constexpr (Q8)
     load_rows_q8(dst, dst_ld, src, src_ld, rows, cols, scale);
   else
-    load_rows_async(dst, dst_ld, src, src_ld, 0, rows, cols, rows);
+    load_rows_async(dst, dst_ld, src, src_ld, 0, rows, cols, 0, rows);
 }
 
 // One weight value read straight from device memory, as the activation type

@@ -93,7 +93,11 @@ template <typename T, int C, bool SEG> struct TrackSmem {
 // Operands of one local-track launch. seg is null for dense rows (S = 1).
 // On the int8 leg (Q8) the conv and dense weights are int8 and nks, wks
 // (taps, C) and dks (C,) hold their float32 scales; on the floating-point
-// leg the weights are T and the scales null.
+// leg the weights are T and the scales null. halo > 0 is the PREHALOED
+// entry (K1's and #2's `fused_local_track_valid`, sequence parallelism): x
+// is (B, L + 2*halo, C), its first and last halo rows of each batch row are
+// a neighbour shard's real rows, and out is the (B, L, C) centre; only rows
+// beyond them are zeros. halo <= kHalo; dense rows only (no SEG, no Q8).
 template <typename T, bool Q8 = false> struct TrackArgs {
   using W = WeightT<T, Q8>;
   const T* x;
@@ -114,6 +118,7 @@ template <typename T, bool Q8 = false> struct TrackArgs {
   const float* nks;
   const float* wks;
   const float* dks;
+  int halo;
 };
 
 // acc = sum over taps t and k-chunks of window[center + (t-4)*d] @ W[t]
@@ -205,13 +210,15 @@ __device__ __forceinline__ void track_tile(const TrackArgs<T, Q8>& p, int b,
   float* stage = reinterpret_cast<float*>(wbuf);  // after a k-loop only
   T* x1 = win;                                    // after both convs only
 
-  const int L = p.L;
-  const T* xb = p.x + size_t(b) * L * C;
+  const int L = p.L, H = p.halo;
+  // Row 0 of batch row b's centre; a prehaloed row has H real rows before.
+  const T* xb = p.x + (size_t(b) * (L + 2 * H) + H) * C;
   const T* center = win + kHalo * LDW;  // window row of output row 0
 
   __syncthreads();  // the previous tile of this block is done with smem
-  // Input rows l0-20 .. l0+TL+20, zeros outside [0, L) ('SAME' padding).
-  load_rows_async(win, LDW, xb, C, l0 - kHalo, Smem::WIN, C, L);
+  // Input rows l0-20 .. l0+TL+20, zeros outside [-H, L + H) ('SAME'
+  // padding; H = 0 but for the prehaloed entry).
+  load_rows_async(win, LDW, xb, C, l0 - kHalo, Smem::WIN, C, -H, L + H);
   cp_async_commit();
   const int* segc = nullptr;
   if constexpr (SEG) {
@@ -336,7 +343,7 @@ TrackArgs<T, Q8> track_args(const void* x, const void* seg,
                             void* out, int L, int S, int wide_dilation,
                             const void* nks = nullptr,
                             const void* wks = nullptr,
-                            const void* dks = nullptr) {
+                            const void* dks = nullptr, int halo = 0) {
   using W = WeightT<T, Q8>;
   return TrackArgs<T, Q8>{
       static_cast<const T*>(x),      static_cast<const int*>(seg),
@@ -348,7 +355,8 @@ TrackArgs<T, Q8> track_args(const void* x, const void* seg,
       static_cast<const float*>(b2), static_cast<T*>(out),
       L,                             S,
       wide_dilation,                 static_cast<const float*>(nks),
-      static_cast<const float*>(wks), static_cast<const float*>(dks)};
+      static_cast<const float*>(wks), static_cast<const float*>(dks),
+      halo};
 }
 
 }  // namespace pbt

@@ -153,8 +153,9 @@ __global__ void __launch_bounds__(kThreads)
   const int* segc = segw + kHalo;  // the id of output row 0
 
   const int c0 = blockIdx.x * TC, l0 = blockIdx.y * TL, b = blockIdx.z;
-  const int L = p.L;
-  const T* xb = p.x + size_t(b) * L * C;
+  const int L = p.L, H = p.halo;
+  // Row 0 of batch row b's centre; a prehaloed row has H real rows before.
+  const T* xb = p.x + (size_t(b) * (L + 2 * H) + H) * C;
   float* hb = h + size_t(b) * L * C;
   const int rows = min(TL, L - l0);
 
@@ -188,13 +189,13 @@ __global__ void __launch_bounds__(kThreads)
           T* a = reinterpret_cast<T*>(smem + buf * Smem::stage);
           T* bt = a + Smem::A_TILE;
           // Input rows l0-20 .. l0+TL+20 of channels s*KC .., zeros outside
-          // [0, L) ('SAME' padding).
+          // [-H, L + H) ('SAME' padding; H = 0 but for the prehaloed entry).
           load_rows_async(a, LDA, xb + s * KC, C, l0 - kHalo, Smem::WIN, KC,
-                          L);
+                          -H, L + H);
           for (int t = 0; t < kTaps; ++t)
             load_rows_async(bt + t * KC * LDB, LDB,
                             w + (size_t(t) * C + s * KC) * C + c0, C, 0, KC,
-                            TC, KC);
+                            TC, 0, KC);
         },
         [&](int, int buf) {
           const T* a = reinterpret_cast<const T*>(smem + buf * Smem::stage);
@@ -277,7 +278,8 @@ __global__ void __launch_bounds__(kThreads)
         C / FK,
         [&](int s, int buf) {
           load_rows_async(wbuf + buf * Smem::W_TILE, LDW,
-                          p.dk + size_t(s) * FK * C + n0, C, 0, FK, FN, FK);
+                          p.dk + size_t(s) * FK * C + n0, C, 0, FK, FN, 0,
+                          FK);
         },
         [&](int s, int buf) {
           mma.mma(x1 + s * FK, LDX, wbuf + buf * Smem::W_TILE, LDW, FK);

@@ -15,8 +15,9 @@ tensors and the plain version `attention_oh_reference` on CPU tensors. A
 CUDA call the kernel does not cover raises ValueError; nothing falls
 back. `fused_attention`, which both entries go through, is differentiable
 (`kernels/autograd.recompute_vjp`): the forward saves only its inputs and
-the backward recomputes the plain version, as the JAX `_bwd_attention`
-does.
+the backward recomputes `attention_oh_grad_reference`, the port of the JAX
+`attention_oh_reference` at its own rounding points, as the JAX
+`_bwd_attention` does.
 
 int8 weights (`kernels/quant_leaves`, the int8 serving arm): when wq is
 a quant leaf both entries run K2's int8 leg (`csrc/global_attention_q8.cu`,
@@ -34,6 +35,7 @@ the two agree exactly in float32.)
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -45,7 +47,7 @@ from proteinbert_tpu_torch.kernels.build import (
 from proteinbert_tpu_torch.kernels.quant_leaves import (
     int8_leg, is_quant_leaf, weight_leaf, weight_operands,
 )
-from proteinbert_tpu_torch.ops.layers import gelu
+from proteinbert_tpu_torch.ops.layers import gelu, gelu_stepwise
 
 Params = Dict[str, torch.Tensor]
 
@@ -96,6 +98,36 @@ def attention_oh_reference(
                           torch.zeros((), device=out.device))
     b, s, h, vd = out.shape
     return out.reshape(b, s, h * vd).to(dtype)
+
+
+def attention_oh_grad_reference(
+    params: Params, local: torch.Tensor, global_seg: torch.Tensor,
+    seg_oh: torch.Tensor, zero_empty: bool = True,
+) -> torch.Tensor:
+    """Port of the JAX `attention_oh_reference` (attention.py:137-168),
+    the composition `fused_attention`'s backward differentiates:
+    projections, scores and the weighted sum in local's dtype; the masked
+    softmax in float32, its weights rounded back to local's dtype."""
+    dtype = local.dtype
+    wq, wk, wv = (params[n].to(dtype) for n in ("wq", "wk", "wv"))
+    key_dim = wq.shape[-1]
+
+    q = torch.tanh(torch.einsum("bsg,hgk->bshk", global_seg.to(dtype), wq))
+    k = torch.tanh(torch.einsum("blc,hck->bhlk", local, wk))
+    v = gelu_stepwise(torch.einsum("blc,hcv->bhlv", local, wv))
+
+    scores = torch.einsum("bshk,bhlk->bshl", q, k) / torch.tensor(
+        math.sqrt(key_dim), dtype=dtype)
+    mask = (seg_oh > 0).transpose(1, 2)  # (B, S, L)
+    scores = scores.float().masked_fill(~mask[:, :, None, :], MASK_VALUE)
+    weights = torch.softmax(scores, dim=-1).to(dtype)
+
+    out = torch.einsum("bshl,bhlv->bshv", weights, v)
+    if zero_empty:
+        out = torch.where(mask.any(dim=-1)[:, :, None, None], out,
+                          torch.zeros((), dtype=dtype, device=out.device))
+    b, s, h, vd = out.shape
+    return out.reshape(b, s, h * vd)
 
 
 def check_attention_shapes(params: Params, local: torch.Tensor,
@@ -157,8 +189,8 @@ def fused_attention(
 ) -> torch.Tensor:
     """The one-hot attention of `attention_oh_reference`: CUDA → the
     kernel (or ValueError), CPU → the plain version; differentiable
-    through the plain version either way. Quant leaves: K2's int8 leg,
-    inference-only."""
+    through `attention_oh_grad_reference` either way. Quant leaves: K2's
+    int8 leg, inference-only."""
     if is_quant_leaf(params["wq"]):
         return int8_leg("fused_attention", local, attention_oh_reference,
                         _attention_kernel, params, local, global_seg, seg_oh,
@@ -170,7 +202,7 @@ def fused_attention(
     else:
         raise ValueError(f"fused_attention: unsupported device "
                          f"{local.device}")
-    return recompute_vjp(run, attention_oh_reference, params, local,
+    return recompute_vjp(run, attention_oh_grad_reference, params, local,
                          global_seg, seg_oh, zero_empty)
 
 

@@ -1,18 +1,24 @@
 """Gradients of the kernel wrappers under the JAX package's memory contract.
 
 Each kernel the port replaces is a `jax.custom_vjp` in the JAX package
-(fused_block.py `_fwd`/`_bwd` and `_fwd_segments`/`_bwd_segments`,
-attention.py `_fwd_attention`/`_bwd_attention`, one_pass.py
-`_fwd_onepass`/`_bwd_onepass`): the forward runs the kernel and saves only
-its inputs; the backward recomputes the plain composition and
-differentiates it, like a rematerialised (`jax.checkpoint`) block. There
-is no backward kernel, so the backward's products and convolutions are
-plain PyTorch, as the JAX package leaves them to XLA.
+(fused_block.py `_fwd`/`_bwd`, `_fwd_segments`/`_bwd_segments` and
+`_fwd_valid`/`_bwd_valid`, attention.py `_fwd_attention`/`_bwd_attention`,
+one_pass.py `_fwd_onepass`/`_bwd_onepass`): the forward runs the kernel
+and saves only its inputs; the backward recomputes the XLA reference
+composition and differentiates it, like a rematerialised
+(`jax.checkpoint`) block. There is no backward kernel, so the backward's
+products and convolutions are plain PyTorch, as the JAX package leaves
+them to XLA.
 
-`recompute_vjp(run, plain, *args)` is that contract as one
+`recompute_vjp(run, backward_ref, *args)` is that contract as one
 `torch.autograd.Function`. `run` is the forward it executes — the
-hand-written kernel for CUDA tensors, the plain version itself for CPU
-tensors — so the CPU tests exercise the same backward the card runs.
+hand-written kernel for CUDA tensors, the kernel-rounding plain version
+for CPU tensors. `backward_ref` is the port of the JAX XLA reference the
+JAX VJP differentiates (`local_track_grad_reference` and its kin): it
+runs its convs and products in the activation dtype, with float32
+LayerNorm statistics only, so a bf16 step's gradients are the JAX
+step's, not those of a float32 recompute. (The kernel-rounding plain
+versions widen every operand to float32; in float32 the two agree.)
 `args` may nest tensors in dicts, lists and tuples (the params trees) and
 carry ints, bools and None; the tensors become the Function's inputs and
 everything else rides along unchanged. Integer tensors (segment ids) and
@@ -67,12 +73,13 @@ def _split(tree: Any) -> Tuple[List[torch.Tensor], Callable]:
 
 class _Recompute(torch.autograd.Function):
     """Forward: `run` on the inputs, saving only the inputs. Backward:
-    `plain` recomputed on detached inputs under grad mode, differentiated
-    with `torch.autograd.grad` for the inputs that need a gradient."""
+    `backward_ref` recomputed on detached inputs under grad mode,
+    differentiated with `torch.autograd.grad` for the inputs that need a
+    gradient."""
 
     @staticmethod
-    def forward(ctx, run, plain, fill, *leaves):
-        ctx.plain, ctx.fill = plain, fill
+    def forward(ctx, run, backward_ref, fill, *leaves):
+        ctx.backward_ref, ctx.fill = backward_ref, fill
         ctx.save_for_backward(*leaves)
         return run(*fill(leaves))
 
@@ -82,7 +89,7 @@ class _Recompute(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(n)
                   for t, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
-            out = ctx.plain(*ctx.fill(inputs))
+            out = ctx.backward_ref(*ctx.fill(inputs))
         outs = out if isinstance(out, tuple) else (out,)
         pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
         wanted = [t for t in inputs if t.requires_grad]
@@ -93,14 +100,15 @@ class _Recompute(torch.autograd.Function):
                                           for n in need)
 
 
-def recompute_vjp(run: Callable, plain: Callable, *args):
-    """`run(*args)`, differentiable through `plain(*args)` recomputed in
-    the backward. `run` and `plain` take the same arguments and compute
-    the same function (a tensor or a tuple of tensors). With grad mode
-    off (serving runs under `torch.inference_mode`) there is no graph to
-    build, so `run` is called directly, without the Function's host
-    cost."""
+def recompute_vjp(run: Callable, backward_ref: Callable, *args):
+    """`run(*args)`, differentiable through `backward_ref(*args)`
+    recomputed in the backward. `run` and `backward_ref` take the same
+    arguments and compute the same function (a tensor or a tuple of
+    tensors), `backward_ref` at the rounding points of the JAX XLA
+    reference. With grad mode off (serving runs under
+    `torch.inference_mode`) there is no graph to build, so `run` is
+    called directly, without the Function's host cost."""
     if not torch.is_grad_enabled():
         return run(*args)
     leaves, fill = _split(args)
-    return _Recompute.apply(run, plain, fill, *leaves)
+    return _Recompute.apply(run, backward_ref, fill, *leaves)

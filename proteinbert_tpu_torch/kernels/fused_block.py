@@ -1,9 +1,10 @@
-"""K1, #2, #3 and #4 — the fused local track over dense and packed rows:
-plain PyTorch versions, CUDA wrappers and their gradients.
+"""K1, #2, #3 and #4 — the fused local track over dense, prehaloed and
+packed rows: plain PyTorch versions, CUDA wrappers and their gradients.
 
 Port of `proteinbert_tpu/kernels/fused_block.py`: `_fused_kernel` (K1) and
-`_fused_kernel_tiled` (#2), the two bodies of the entry
-`fused_local_track`, and `_fused_segment_kernel` (#3) and
+`_fused_kernel_tiled` (#2), the two bodies of the entries
+`fused_local_track` and `fused_local_track_valid` (the prehaloed entry of
+sequence parallelism), and `_fused_segment_kernel` (#3) and
 `_fused_segment_kernel_tiled` (#4), the two bodies of the entry
 `fused_local_track_segments`. The local half of a ProteinBERT block:
 
@@ -29,9 +30,22 @@ in bfloat16 and float32 (again no float32 tiled plan in the JAX package;
 versions. A CUDA call the kernels do not cover (dtype, width, conv
 geometry) raises ValueError; nothing falls back.
 
-Both entries are differentiable (`kernels/autograd.recompute_vjp`): the
-forward saves only its inputs and the backward recomputes the plain
-version, as the JAX `_bwd` / `_bwd_segments` do.
+`fused_local_track_valid` takes a PREHALOED shard, xh (B, L + 2·halo, C)
+whose first and last `track_halo` rows are a neighbour shard's real rows
+(`parallel/halo.halo_exchange`), and returns the (B, L, C) centre. On a
+CUDA tensor it launches K1's prehaloed entry (`csrc/local_track_valid.cu`)
+for C in {128, 256, 512} and #2's (`csrc/local_track_tiled_valid.cu`) for
+the tiled widths: the same device code, whose window reads the halo rows
+instead of zeros. Its gate is `check_track_shapes` alone; the JAX
+`pallas_supported` gate is a TPU VMEM budget that the port's row-streaming
+kernels do not have.
+
+All three entries are differentiable (`kernels/autograd.recompute_vjp`):
+the forward saves only its inputs and the backward recomputes the port of
+the JAX XLA reference (`local_track_grad_reference`,
+`local_track_segment_oh_grad_reference`,
+`local_track_valid_grad_reference`) in the activation dtype, as the JAX
+`_bwd` / `_bwd_segments` / `_bwd_valid` do.
 
 int8 weights (`kernels/quant_leaves`, the int8 serving arm): for C <=
 512 `fused_local_track_segments` runs #3's int8 leg
@@ -48,7 +62,9 @@ float32 (fused_block.py:539-547, :1012-1016), x1 is rounded to the
 activation dtype before the dense (:517), LN statistics are float32. In
 float32 this is exactly the JAX `local_track_reference` /
 `local_track_segment_oh_reference`; in bfloat16 the JAX references round
-the conv outputs where the kernels do not. #2 computes the function K1
+the conv outputs where the kernels do not. The `*_grad_reference`
+functions are those JAX references themselves, ported at their own
+rounding points, for the backward. #2 computes the function K1
 computes, so its plain version is K1's `local_track_reference`, and #4's
 is #3's; only their float32 sums are taken in the TPU tiled kernels'
 order (the two GELU terms first, then x and the broadcast,
@@ -73,7 +89,8 @@ from proteinbert_tpu_torch.kernels.quant_leaves import (  # noqa: F401
     weight_operands,
 )
 from proteinbert_tpu_torch.ops.layers import (
-    conv1d_apply, gelu, layer_norm_f32,
+    conv1d_apply, dense_apply, gelu, gelu_stepwise, layer_norm_apply,
+    layer_norm_f32,
 )
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -96,6 +113,12 @@ LOCAL_TRACK_SEGMENTS_TILED = Kernel(
 LOCAL_TRACK_SEGMENTS_Q8 = Kernel(
     "local_track_segments_q8", "local_track_segments_q8.cu",
     "pbt_local_track_segments_q8", [INT] + [PTR] * 17 + [INT] * 5 + [PTR])
+LOCAL_TRACK_VALID = Kernel(
+    "local_track_valid", "local_track_valid.cu", "pbt_local_track_valid",
+    [INT] + [PTR] * 13 + [INT] * 4 + [PTR])
+LOCAL_TRACK_TILED_VALID = Kernel(
+    "local_track_tiled_valid", "local_track_tiled_valid.cu",
+    "pbt_local_track_tiled_valid", [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
 
 # What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,6 +159,95 @@ def local_track_reference(
          + gelu(conv(params["wide_conv"], wide_dilation))
          + broadcast.to(dtype).float()[:, None, :])
     return _finish(params, h, dtype)
+
+
+def _finish_grad_reference(params: Params, s: torch.Tensor) -> torch.Tensor:
+    """The JAX references' LN → dense(+GELU, residual) → LN tail on the
+    pre-LN sum s, in s's dtype with float32 LN statistics."""
+    h = layer_norm_apply(params["local_ln1"], s)
+    return layer_norm_apply(
+        params["local_ln2"],
+        h + gelu_stepwise(dense_apply(params["local_dense"], h)))
+
+
+def local_track_grad_reference(
+    params: Params, x: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Port of the JAX `local_track_reference` (fused_block.py:213-230),
+    the composition `fused_local_track`'s backward differentiates: convs,
+    dense and sums in x's dtype, float32 LN statistics only."""
+    narrow = gelu_stepwise(conv1d_apply(params["narrow_conv"], x,
+                                        narrow_dilation))
+    wide = gelu_stepwise(conv1d_apply(params["wide_conv"], x,
+                                      wide_dilation))
+    return _finish_grad_reference(
+        params, x + narrow + wide + broadcast[:, None, :])
+
+
+def track_halo(params: Params, narrow_dilation: int = 1,
+               wide_dilation: int = 5) -> int:
+    """Context rows each side a shard needs for exact conv results (20 for
+    the k=9/d=5 geometry) — the JAX `track_halo`."""
+    nt = weight_leaf(params["narrow_conv"]["kernel"]).shape[0]
+    wt = weight_leaf(params["wide_conv"]["kernel"]).shape[0]
+    return max((nt - 1) // 2 * narrow_dilation,
+               (wt - 1) // 2 * wide_dilation)
+
+
+def _valid_conv(p, xh: torch.Tensor, dilation: int, halo: int,
+                L: int) -> torch.Tensor:
+    """The 'SAME' conv's L centre rows of a prehaloed xh (B, L + 2·halo,
+    C), as a VALID conv (`lax.conv_general_dilated` padding="VALID") in
+    xh's dtype: VALID output row m starts at input row m, and centre row
+    l of the 'SAME' conv at window start l + halo - (k-1)/2·d."""
+    k = p["kernel"].shape[0]
+    w = p["kernel"].to(xh.dtype).permute(2, 1, 0)  # (Cout, Cin, K)
+    y = F.conv1d(xh.transpose(1, 2), w, dilation=dilation).transpose(1, 2)
+    off = halo - (k - 1) // 2 * dilation
+    return y[:, off:off + L] + p["bias"].to(xh.dtype)
+
+
+def local_track_valid_reference(
+    params: Params, xh: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Plain PyTorch local track of a PREHALOED shard at the kernel's
+    rounding points: xh (B, L + 2·halo, C) carries `track_halo` real
+    neighbour rows each side; → the (B, L, C) centre. Equals rows
+    [halo, halo + L) of `local_track_reference` on the stitched row."""
+    dtype = xh.dtype
+    H = track_halo(params, narrow_dilation, wide_dilation)
+    L = xh.shape[1] - 2 * H
+
+    def conv(p, dilation):
+        p32 = {"kernel": p["kernel"].to(dtype).float(),
+               "bias": p["bias"].float()}
+        return _valid_conv(p32, xh.float(), dilation, H, L)
+
+    h = (xh[:, H:H + L].float()
+         + gelu(conv(params["narrow_conv"], narrow_dilation))
+         + gelu(conv(params["wide_conv"], wide_dilation))
+         + broadcast.to(dtype).float()[:, None, :])
+    return _finish(params, h, dtype)
+
+
+def local_track_valid_grad_reference(
+    params: Params, xh: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Port of the JAX `local_track_valid_reference` (fused_block.py:
+    445-485), the composition `fused_local_track_valid`'s backward
+    differentiates: VALID convs, dense and sums in xh's dtype, float32 LN
+    statistics only."""
+    H = track_halo(params, narrow_dilation, wide_dilation)
+    L = xh.shape[1] - 2 * H
+    narrow = gelu_stepwise(_valid_conv(params["narrow_conv"], xh,
+                                       narrow_dilation, H, L))
+    wide = gelu_stepwise(_valid_conv(params["wide_conv"], xh, wide_dilation,
+                                     H, L))
+    return _finish_grad_reference(
+        params, xh[:, H:H + L] + narrow + wide + broadcast[:, None, :])
 
 
 def _masked_conv(p, x: torch.Tensor, dilation: int,
@@ -182,6 +294,38 @@ def local_track_segment_oh_reference(
     h = (x.float() + gelu(conv(params["narrow_conv"], narrow_dilation))
          + gelu(conv(params["wide_conv"], wide_dilation)) + bcast)
     return _finish(params, h, dtype)
+
+
+def local_track_segment_oh_grad_reference(
+    params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
+    seg_oh: torch.Tensor, narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Port of the JAX `local_track_segment_oh_reference` (fused_block.py:
+    299-350), the composition `fused_local_track_segments`' backward
+    differentiates: masked tap products, their sum, the one-hot gather and
+    the dense in x's dtype, float32 LN statistics only."""
+    dtype = x.dtype
+    oh = seg_oh.to(dtype)
+    L = x.shape[1]
+
+    def conv(p, dilation):
+        kernel = p["kernel"].to(dtype)
+        total = (kernel.shape[0] - 1) * dilation
+        lo = total // 2
+        xp = F.pad(x, (0, 0, lo, total - lo))
+        ohp = F.pad(oh, (0, 0, lo, total - lo))
+        acc = None
+        for t in range(kernel.shape[0]):
+            off = t * dilation
+            mask = (oh * ohp[:, off:off + L]).sum(-1, keepdim=True)
+            part = (xp[:, off:off + L] * mask) @ kernel[t]
+            acc = part if acc is None else acc + part
+        return acc + p["bias"].to(dtype)
+
+    bcast = torch.einsum("bls,bsc->blc", oh, broadcast_seg.to(dtype))
+    narrow = gelu_stepwise(conv(params["narrow_conv"], narrow_dilation))
+    wide = gelu_stepwise(conv(params["wide_conv"], wide_dilation))
+    return _finish_grad_reference(params, x + narrow + wide + bcast)
 
 
 def local_track_segment_reference(
@@ -279,36 +423,56 @@ def _device_check(name: str, x: torch.Tensor) -> bool:
     return False
 
 
+def _launch_track(
+    name: str, params: Params, x: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int, wide_dilation: int, halo: int,
+) -> torch.Tensor:
+    """One launch of K1 (C <= 512) or #2 (512 < C <= 2048) on CUDA
+    tensors — of their prehaloed entries when halo > 0, x then (B, L +
+    2·halo, C); ValueError for what neither covers."""
+    B, Lx, C = x.shape
+    L = Lx - 2 * halo
+    code, weights = _track_operands(
+        name, params, x, narrow_dilation, wide_dilation,
+        KERNEL_WIDTHS + TILED_WIDTHS)
+    if L < 1:
+        raise ValueError(f"{name}: {Lx} rows hold no centre inside a "
+                         f"{halo}-row halo")
+    if tuple(broadcast.shape) != (B, C):
+        raise ValueError(f"{name}: broadcast {tuple(broadcast.shape)} != "
+                         f"{(B, C)}")
+    x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast))
+    out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
+    if C in KERNEL_WIDTHS:
+        ops = (x, bc, *weights, out)
+        kernel = LOCAL_TRACK_VALID if halo else LOCAL_TRACK
+    else:
+        # #2's two passes meet in a float32 (B, L, C) scratch.
+        h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
+        ops = (x, bc, *weights, h, out)
+        kernel = LOCAL_TRACK_TILED_VALID if halo else LOCAL_TRACK_TILED
+    check_cuda(name, *ops)
+    with torch.cuda.device(x.device):
+        kernel.launch(code, *(t.data_ptr() for t in ops), B, L, C,
+                      wide_dilation, stream_ptr(x.device))
+    return out
+
+
 def _local_track_kernel(
     params: Params, x: torch.Tensor, broadcast: torch.Tensor,
     narrow_dilation: int, wide_dilation: int,
 ) -> torch.Tensor:
-    """One launch of K1 (C <= 512) or #2 (512 < C <= 2048) on CUDA
-    tensors; ValueError for what neither covers."""
-    B, L, C = x.shape
-    code, weights = _track_operands(
-        "fused_local_track", params, x, narrow_dilation, wide_dilation,
-        KERNEL_WIDTHS + TILED_WIDTHS)
-    if tuple(broadcast.shape) != (B, C):
-        raise ValueError(f"fused_local_track: broadcast "
-                         f"{tuple(broadcast.shape)} != {(B, C)}")
-    x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast))
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        if C in KERNEL_WIDTHS:
-            ops = (x, bc, *weights, out)
-            check_cuda("fused_local_track", *ops)
-            LOCAL_TRACK.launch(code, *(t.data_ptr() for t in ops),
-                               B, L, C, wide_dilation, stream_ptr(x.device))
-        else:
-            # #2's two passes meet in a float32 (B, L, C) scratch.
-            h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
-            ops = (x, bc, *weights, h, out)
-            check_cuda("fused_local_track", *ops)
-            LOCAL_TRACK_TILED.launch(code, *(t.data_ptr() for t in ops),
-                                     B, L, C, wide_dilation,
-                                     stream_ptr(x.device))
-    return out
+    return _launch_track("fused_local_track", params, x, broadcast,
+                         narrow_dilation, wide_dilation, 0)
+
+
+def _local_track_valid_kernel(
+    params: Params, xh: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int, wide_dilation: int,
+) -> torch.Tensor:
+    return _launch_track("fused_local_track_valid", params, xh, broadcast,
+                         narrow_dilation, wide_dilation,
+                         track_halo(params, narrow_dilation, wide_dilation))
 
 
 def fused_local_track(
@@ -319,13 +483,32 @@ def fused_local_track(
     the projected global→local vector (gelu(dense(global))); params the
     block's narrow_conv, wide_conv, local_ln1, local_dense, local_ln2.
     CUDA → K1 or #2 by width (or ValueError), CPU → the plain version;
-    differentiable through the plain version either way. Quant leaves are
-    dequantized first: K1 and #2 have no int8 leg."""
+    differentiable through `local_track_grad_reference` either way. Quant
+    leaves are dequantized first: K1 and #2 have no int8 leg."""
     params = dequant_params(params)
     run = (local_track_reference if _device_check("fused_local_track", x)
            else _local_track_kernel)
-    return recompute_vjp(run, local_track_reference, params, x, broadcast,
-                         narrow_dilation, wide_dilation)
+    return recompute_vjp(run, local_track_grad_reference, params, x,
+                         broadcast, narrow_dilation, wide_dilation)
+
+
+def fused_local_track_valid(
+    params: Params, xh: torch.Tensor, broadcast: torch.Tensor,
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+) -> torch.Tensor:
+    """Local track of one PREHALOED sequence shard: xh (B, L + 2·halo, C)
+    whose first and last `track_halo(params, ...)` rows are the
+    neighbours' real rows (zeros at the ends of the sequence) → the (B, L,
+    C) centre. CUDA → K1's or #2's prehaloed entry by width (or
+    ValueError), CPU → the plain version; differentiable through
+    `local_track_valid_grad_reference` either way. Quant leaves are
+    dequantized first."""
+    params = dequant_params(params)
+    run = (local_track_valid_reference
+           if _device_check("fused_local_track_valid", xh)
+           else _local_track_valid_kernel)
+    return recompute_vjp(run, local_track_valid_grad_reference, params, xh,
+                         broadcast, narrow_dilation, wide_dilation)
 
 
 def _segments_reference(
@@ -334,6 +517,17 @@ def _segments_reference(
 ) -> torch.Tensor:
     """#3's plain version on integer ids (the one-hot built here)."""
     return local_track_segment_oh_reference(
+        params, x, broadcast_seg,
+        segment_one_hot(segment_ids, broadcast_seg.shape[1]),
+        narrow_dilation, wide_dilation)
+
+
+def _segments_grad_reference(
+    params: Params, x: torch.Tensor, broadcast_seg: torch.Tensor,
+    segment_ids: torch.Tensor, narrow_dilation: int, wide_dilation: int,
+) -> torch.Tensor:
+    """#3's backward reference on integer ids (the one-hot built here)."""
+    return local_track_segment_oh_grad_reference(
         params, x, broadcast_seg,
         segment_one_hot(segment_ids, broadcast_seg.shape[1]),
         narrow_dilation, wide_dilation)
@@ -388,7 +582,8 @@ def fused_local_track_segments(
     the per-segment projected global vectors, segment_ids (B, L) with 0 =
     pad and 1..S a packed protein (ids above S count as pad). CUDA → #3
     or #4 by width (or ValueError), CPU → the plain version;
-    differentiable through the plain version either way. Quant leaves:
+    differentiable through `local_track_segment_oh_grad_reference` either
+    way. Quant leaves:
     #3's int8 leg for C <= 512 (inference-only), else dequantized first
     and #4."""
     if is_quant_leaf(params["narrow_conv"]["kernel"]):
@@ -401,8 +596,9 @@ def fused_local_track_segments(
     run = (_segments_reference
            if _device_check("fused_local_track_segments", x)
            else _segments_kernel)
-    return recompute_vjp(run, _segments_reference, params, x, broadcast_seg,
-                         segment_ids, narrow_dilation, wide_dilation)
+    return recompute_vjp(run, _segments_grad_reference, params, x,
+                         broadcast_seg, segment_ids, narrow_dilation,
+                         wide_dilation)
 
 
 def local_track_flops(B: int, L: int, C: int, taps: int = KERNEL_TAPS) -> int:

@@ -21,7 +21,8 @@ Dispatch mirrors one_pass.py:448-596:
 `fused_onepass` is the kernel's own wrapper: the kernel on CUDA, the
 plain version on the CPU, whatever the rule says. It is differentiable
 (`kernels/autograd.recompute_vjp`): the forward saves only its inputs and
-the backward recomputes the plain version, as the JAX `_bwd_onepass`
+the backward recomputes `onepass_oh_grad_reference`, the port of the JAX
+`onepass_oh_reference` in the activation dtype, as the JAX `_bwd_onepass`
 does.
 
 int8 weights (`kernels/quant_leaves`, the int8 serving arm): where the
@@ -43,8 +44,8 @@ import torch
 from proteinbert_tpu_torch.kernels import budget
 from proteinbert_tpu_torch.kernels.attention import (
     KERNEL_HEAD_DIM, KERNEL_MAX_SCORES, KERNEL_MAX_SEGMENTS,
-    KERNEL_VALUE_DIMS, attention_oh_reference, fused_global_attention,
-    fused_packed_attention, segment_one_hot,
+    KERNEL_VALUE_DIMS, attention_oh_grad_reference, attention_oh_reference,
+    fused_global_attention, fused_packed_attention, segment_one_hot,
 )
 from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
@@ -52,7 +53,8 @@ from proteinbert_tpu_torch.kernels.build import (
 )
 from proteinbert_tpu_torch.kernels.fused_block import (
     _device_check, _track_operands, check_track_shapes, fused_local_track,
-    fused_local_track_segments, local_track_reference,
+    fused_local_track_segments, local_track_grad_reference,
+    local_track_reference, local_track_segment_oh_grad_reference,
     local_track_segment_oh_reference,
 )
 from proteinbert_tpu_torch.kernels.quant_leaves import (
@@ -97,6 +99,30 @@ def onepass_oh_reference(
     return local, attn
 
 
+def onepass_oh_grad_reference(
+    track_params: Params, attn_params: Params, x: torch.Tensor,
+    broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
+    seg_oh: torch.Tensor, real: torch.Tensor,
+    narrow_dilation: int = 1, wide_dilation: int = 5,
+    seg_masked: bool = True, zero_empty: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Port of the JAX `onepass_oh_reference` (one_pass.py:197), the
+    composition `fused_onepass`'s backward differentiates: the JAX
+    references of the track and the attention, composed, in x's dtype."""
+    if seg_masked:
+        local = local_track_segment_oh_grad_reference(
+            track_params, x, broadcast_seg, seg_oh, narrow_dilation,
+            wide_dilation)
+    else:
+        local = local_track_grad_reference(
+            track_params, x, broadcast_seg[:, 0], narrow_dilation,
+            wide_dilation)
+    attn = attention_oh_grad_reference(
+        attn_params, local, global_seg, seg_oh.float() * real.float(),
+        zero_empty)
+    return local, attn
+
+
 def _rule_admits(track_params: Params, attn_params: Params, x: torch.Tensor,
                  S: int, G: int, narrow_dilation: int,
                  wide_dilation: int) -> bool:
@@ -109,21 +135,28 @@ def _rule_admits(track_params: Params, attn_params: Params, x: torch.Tensor,
         wide_dilation, narrow_dilation)
 
 
-def _onepass_reference(
-    track_params: Params, attn_params: Params, x: torch.Tensor,
-    broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
-    segment_ids: Optional[torch.Tensor], real: torch.Tensor,
-    narrow_dilation: int, wide_dilation: int, zero_empty: bool,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """#6's plain version on `fused_onepass`'s arguments (the one-hots
-    built here)."""
-    B, L, _ = x.shape
-    seg_oh = (torch.ones((B, L, 1), device=x.device) if segment_ids is None
-              else segment_one_hot(segment_ids, global_seg.shape[1]))
-    return onepass_oh_reference(
-        track_params, attn_params, x, broadcast_seg, global_seg, seg_oh,
-        real[..., None].float(), narrow_dilation, wide_dilation,
-        segment_ids is not None, zero_empty)
+def _on_ids(oh_fn):
+    """`oh_fn` (the one-hot form) on `fused_onepass`'s arguments, the
+    one-hots built from the ids."""
+    def fn(track_params: Params, attn_params: Params, x: torch.Tensor,
+           broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
+           segment_ids: Optional[torch.Tensor], real: torch.Tensor,
+           narrow_dilation: int, wide_dilation: int, zero_empty: bool,
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, L, _ = x.shape
+        seg_oh = (torch.ones((B, L, 1), device=x.device)
+                  if segment_ids is None
+                  else segment_one_hot(segment_ids, global_seg.shape[1]))
+        return oh_fn(
+            track_params, attn_params, x, broadcast_seg, global_seg, seg_oh,
+            real[..., None].float(), narrow_dilation, wide_dilation,
+            segment_ids is not None, zero_empty)
+    return fn
+
+
+# #6's plain version and its backward reference on integer ids.
+_onepass_reference = _on_ids(onepass_oh_reference)
+_onepass_grad_reference = _on_ids(onepass_oh_grad_reference)
 
 
 def check_onepass_shapes(
@@ -216,8 +249,8 @@ def fused_onepass(
     ids: segment_ids (B, L) for packed rows (0 = pad, ids above S count as
     pad) or None for dense rows (S = 1, unmasked convs); real (B, L)
     nonzero where the attention may look. CUDA → the kernel (or
-    ValueError), CPU → the plain version; differentiable through the
-    plain version either way. Quant leaves: #6's int8 leg,
+    ValueError), CPU → the plain version; differentiable through
+    `onepass_oh_grad_reference` either way. Quant leaves: #6's int8 leg,
     inference-only."""
     if is_quant_leaf(track_params["narrow_conv"]["kernel"]):
         return int8_leg("fused_onepass", x, _onepass_reference,
@@ -226,9 +259,10 @@ def fused_onepass(
                         narrow_dilation, wide_dilation, zero_empty)
     run = (_onepass_reference if _device_check("fused_onepass", x)
            else _onepass_kernel)
-    return recompute_vjp(run, _onepass_reference, track_params, attn_params,
-                         x, broadcast_seg, global_seg, segment_ids, real,
-                         narrow_dilation, wide_dilation, zero_empty)
+    return recompute_vjp(run, _onepass_grad_reference, track_params,
+                         attn_params, x, broadcast_seg, global_seg,
+                         segment_ids, real, narrow_dilation, wide_dilation,
+                         zero_empty)
 
 
 def fused_onepass_segments(

@@ -27,6 +27,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def gelu_stepwise(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` (approximate=True) written out op by op in x's dtype,
+    so each product and sum rounds to that dtype as XLA's do. In bfloat16
+    `F.gelu` computes in float32 and rounds once, a one-ulp difference at
+    about 40% of inputs; the ports of the JAX XLA references (the kernels'
+    backward) use this form."""
+    k0 = torch.tensor(0.7978845608028654, dtype=x.dtype)  # sqrt(2 / pi)
+    return x * (0.5 * (1.0 + torch.tanh(k0 * (x + 0.044715 * (x * x * x)))))
+
+
 def dense_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W (+ b), contracting the last axis of x."""
     y = x @ params["kernel"].to(x.dtype)

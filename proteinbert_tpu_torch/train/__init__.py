@@ -1,3 +1,3 @@
-"""Dense-row pretraining: loss, optimizer chain, train state and steps,
-FLOP/step-time accounting and the `pretrain` loop — the port of
-`proteinbert_tpu/train/` without checkpointing, meshes and telemetry."""
+"""Pretraining: loss, optimizer chain, train state and steps, FLOP/step-time
+accounting, the NaN halt and the `pretrain` loop — the port of
+`proteinbert_tpu/train/` without checkpointing and telemetry."""

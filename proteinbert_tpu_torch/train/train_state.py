@@ -122,13 +122,20 @@ def loss_and_grads(params: Any, X: Batch, Y: Batch, W: Batch,
     """Forward, dual masked loss and backward on a corrupted batch (packed
     when `segment_ids` is given) → (grads aligned with
     `tree_leaves(params)`, loss metrics)."""
+    return grads_of(params, lambda: forward_loss(params, X, Y, W, cfg,
+                                                 segment_ids)[:2])
+
+
+def grads_of(params: Any, loss_fn):
+    """`loss_fn() → (loss, metrics)` run with the params' leaves requiring
+    grad → (d loss / d leaves aligned with `tree_leaves(params)`, zeros for
+    an unused leaf; the metrics detached)."""
     leaves = tree_leaves(params)
     with torch.enable_grad():
         for t in leaves:
             t.requires_grad_(True)
         try:
-            loss, metrics, _, _ = forward_loss(params, X, Y, W, cfg,
-                                               segment_ids)
+            loss, metrics = loss_fn()
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for t in leaves:

@@ -1,5 +1,6 @@
 """The pretraining loop — port of `proteinbert_tpu/train/trainer.py`
-(`pretrain`) for dense and packed rows on one device.
+(`pretrain`) for dense and packed rows on one device, and for dense rows
+sequence-parallel over a process group.
 
 `pretrain(cfg, batch_iterator, ...)` creates or continues a train state,
 runs `cfg.train.max_steps` steps of `train_step`, logs every
@@ -11,8 +12,23 @@ or packed ones (`data/packing.make_packed_iterator`, a "segment_ids" key),
 each step choosing its branch from the batch as the JAX step does. `perf`
 is the StepTimer summary: step ms, tokens/s (B·L positions a step, pad
 included, as the JAX timer counts) and, on a card with a published peak,
-MFU. Checkpointing, resume, preemption, the NaN halt, early
-stopping, the eval-keyed plateau, meshes and telemetry are not ported;
+MFU.
+
+`seq_group` (a `torch.distributed` process group) trains through the
+explicit sequence-parallel step (`parallel/seq_parallel.
+make_seq_parallel_train_step`), as the JAX trainer does when
+`cfg.mesh.seq > 1 and cfg.model.use_pallas` (trainer.py:257-268). The port
+has no mesh, so the caller's group selects the path, not `cfg.mesh`; a
+group of size 1 is allowed. Each rank then runs the same loop on the same
+batches, and `perf` counts this rank's B·L/world positions a step.
+
+The NaN halt: at each log point the logged loss and grad norm go through
+`train/resilience.check_finite` under `cfg.train.on_nan` ("halt" raises
+`NonFiniteLossError`, "warn" logs and continues, "off" skips the check),
+as the JAX trainer does (trainer.py:554-586). The JAX trainer first saves
+a diagnostic checkpoint; the port has no checkpointer, so it saves
+nothing. Checkpointing, resume, preemption, early stopping, the
+eval-keyed plateau, data parallelism and telemetry are not ported;
 nothing here accepts them.
 """
 
@@ -25,8 +41,13 @@ import torch
 
 from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import PretrainConfig
+from proteinbert_tpu_torch.parallel.halo import group_size
+from proteinbert_tpu_torch.parallel.seq_parallel import (
+    make_seq_parallel_train_step,
+)
 from proteinbert_tpu_torch.train import train_state as ts
 from proteinbert_tpu_torch.train.metrics import StepTimer
+from proteinbert_tpu_torch.train.resilience import check_finite
 from proteinbert_tpu_torch.train.schedule import plateau_uses_eval
 
 
@@ -62,6 +83,7 @@ def pretrain(
     eval_batches: Optional[Callable[[], Iterable]] = None,
     log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
     device: DeviceLike = None,
+    seq_group=None,
 ) -> Dict[str, Any]:
     """Run the pretraining loop; returns {"state", "history", "perf"}.
 
@@ -74,12 +96,22 @@ def pretrain(
     log_fn: callable(step, metrics) at each log and eval point.
     device: None means "cuda" (raises without a card); "cpu" runs the
       plain path.
+    seq_group: a `torch.distributed` process group (size 1 allowed): every
+      step runs sequence-parallel over it (dense batches only). Every rank
+      of the group calls `pretrain` with the same arguments.
+    Raises NonFiniteLossError at a log point whose loss or grad norm is
+    not finite, under cfg.train.on_nan == "halt".
     """
     device = resolve_device(device)
     if cfg.train.early_stop_patience or plateau_uses_eval(cfg.optimizer):
         raise ValueError("early stopping and an eval-keyed plateau "
                          "(plateau_metric='eval_loss') are not supported by "
                          "the port's trainer")
+    seq_len = cfg.data.seq_len
+    step_fn = lambda state, batch: ts.train_step(state, batch, cfg)  # noqa: E731
+    if seq_group is not None:
+        step_fn = make_seq_parallel_train_step(seq_group, cfg)
+        seq_len //= group_size(seq_group)
     if state is None:
         state = ts.create_train_state(
             torch.Generator().manual_seed(cfg.train.seed), cfg, device)
@@ -87,14 +119,15 @@ def pretrain(
         batch_iterator = batch_iterator(state.step)
 
     history: list = []
-    timer = StepTimer(cfg.model, cfg.data.batch_size, cfg.data.seq_len,
-                      device)
+    timer = StepTimer(cfg.model, cfg.data.batch_size, seq_len, device)
     for step in range(state.step, cfg.train.max_steps):
-        state, metrics = ts.train_step(state, next(batch_iterator), cfg)
+        state, metrics = step_fn(state, next(batch_iterator))
         timer.update()
         if cfg.train.log_every and (step + 1) % cfg.train.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             timer.sync()
+            if cfg.train.on_nan != "off":
+                check_finite(m, step + 1, mode=cfg.train.on_nan)
             m.update(timer.summary())
             history.append({"step": step + 1, **m})
             if log_fn is not None:
