@@ -3,6 +3,7 @@
 card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase large   # the Large-width local track only
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -24,10 +25,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               cross-segment isolation of #3, #6 and #4 bit for bit;
               #2 at ProteinBERT-Large width (C=1024, B=8) in bf16 and fp32,
               L in {128, 1024} timed, L=100 with a constant (all-<pad>) row;
+              #2 and #4 in bf16 at C=640 and C=2048 (B=2, L=200);
               #4 at Large width (C=1024, B=8, S=8) in bf16 and fp32, L in
-              {128, 1024} timed and L=100, with segment boundaries on a
-              64-row conv tile edge, inside a 32-row finish tile and inside a
-              tile's 20-row halo;
+              {128, 1024} timed and L=100, with segment boundaries on and
+              beside the 64-row tile edges (bf16 finish pass, fp32 conv
+              pass) and the 128-row bf16 conv tile edge, inside a 32-row
+              finish tile and inside a tile's 20-row halo;
+              the conv pass and the finish pass of #2, #4 (B=8, L=C=1024)
+              and #2's prehaloed entry timed apart by torch.profiler's
+              kernel names (`# passes`), the HGMMA and UTMALDG counts
+              `cuobjdump -sass` finds in their libraries (`# SASS`), and an
+              equal-FLOP torch.matmul GEMM yardstick (never called by the
+              port);
               K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
               (S=8) timed, and at value_dim 128 (C=256, G=512, H=4);
               the prehaloed entries of K1 (C=512) and #2 (C=1024)
@@ -117,6 +126,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               Counts are zeroed before each run.
 6. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
+
+`--phase large` runs the build, the SASS check, the Large-width kernel
+phases (#2, #4, K2 at Large width, the prehaloed entries) and the
+yardstick, and prints no result line.
 """
 
 from __future__ import annotations
@@ -127,6 +140,7 @@ import json
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -186,7 +200,8 @@ STEP_GRAD_TOL = 1e-3
 SOLO_LOSS_TOL = 1e-4   # fp32 per-segment loss terms, packed vs alone
 # Device-code names of the hand-written kernels, as the profiler lists them.
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
-                "tiled_conv_kernel", "tiled_finish_kernel")
+                "tiled_conv_kernel", "wgmma_conv_kernel",
+                "tiled_finish_kernel", "wgmma_finish_kernel")
 # The Large steps, dense and packed, as this script measured them when the
 # kernels' backward still recomputed in float32 (NVIDIA H100 80GB HBM3,
 # 700.00 W): one profiled step's ms, its forward, backward and optimizer
@@ -234,6 +249,108 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"FAIL: {msg}")
+
+
+def device_ms_by_name(fn, reps: int = 10) -> dict:
+    """Device ms per call of each kernel `fn` launches, by name, from
+    torch.profiler over `reps` calls after a warm one; {} where the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return by_name
+
+
+def print_passes(card: str, label: str, fn) -> None:
+    """The conv pass and the finish pass of one #2 / #4 call, device ms
+    per call by the profiler's kernel names."""
+    by_name = device_ms_by_name(fn)
+    if not by_name:
+        print(f"# passes {label}: the profiler recorded no device time "
+              "(not measured)")
+        return
+    split = {}
+    for name, ms in by_name.items():
+        m = re.search(r"(\w+_kernel)\b", name)
+        short = m.group(1) if m else name[:40]
+        split[short] = split.get(short, 0.0) + ms
+    conv = sum(ms for n, ms in split.items() if "conv_kernel" in n)
+    finish = sum(ms for n, ms in split.items() if "finish_kernel" in n)
+    names = ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(split.items()))
+    print(f"# passes {label} [{card}]: conv pass {conv:.4f} ms, finish "
+          f"pass {finish:.4f} ms per call (torch.profiler, 10 calls: "
+          f"{names})")
+
+
+def ptxas_functions(log: str):
+    """(kernel name and template arguments, registers, spill-store bytes)
+    for each entry function `nvcc -Xptxas -v` reported."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.match(r"_ZN3pbt\d+(\w+?_kernel)(I\w*?E)?", m.group(1))
+            name = "".join(k.groups("")) if k else m.group(1)[:48]
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
+def sass_line(card: str, kernels) -> None:
+    """The wgmma and TMA instructions `cuobjdump -sass` finds in each
+    library; every one must have both."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("# SASS: not checked (the toolkit has no cuobjdump)")
+        return
+    for k in kernels:
+        sass = subprocess.run([tool, "-sass", str(k.library_path())],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+        print(f"# SASS {k.name}: HGMMA {hgmma}, UTMALDG {utmaldg} [{card}]")
+        check(hgmma > 0 and utmaldg > 0,
+              f"{k.name}: no wgmma or no TMA load in its SASS")
+
+
+def gemm_yardstick(card: str) -> None:
+    """One equal-FLOP torch.matmul yardstick for #2 / #4 at B=8, L=C=1024
+    bf16: (B·L, 9C)·(9C, C) twice plus (B·L, C)·(C, C). A GEMM yardstick,
+    not a library time for the function: the port never calls it."""
+    B, L, C = 8, 1024, 1024
+    gen = torch.Generator().manual_seed(71)
+    dev = torch.device(DEVICE)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    a, w, a2, w2 = rand(B * L, 9 * C), rand(9 * C, C), rand(B * L, C), \
+        rand(C, C)
+    ms = time_ms(lambda: (a @ w, a @ w, a2 @ w2))
+    flops = 2 * B * L * C * C * 19
+    print(f"# GEMM yardstick (equal FLOPs, not the function; the port "
+          f"never calls it): torch.matmul (B*L, 9C)@(9C, C) x2 + (B*L, "
+          f"C)@(C, C), bf16, B=8 L=C=1024: {ms:.4f} ms, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s [{card}]")
 
 
 # ------------------------------------------------------------ phase 2
@@ -407,17 +524,26 @@ def packed_ids(gen, B: int, L: int, S: int) -> torch.Tensor:
 
 
 def tiled_ids(gen, B: int, L: int, S: int) -> torch.Tensor:
-    """`packed_ids`, with row 0 laid over #4's tile edges: a boundary on
-    the 64-row conv tile edge (64), one inside a 32-row finish tile (80),
-    a segment that starts inside the next conv tile's 20-row halo (141,
-    after a pad gap), and an id above S; each clipped to L."""
+    """`packed_ids`, with row 0 laid over #4's tile edges: boundaries
+    beside (62) and on (64) the bf16 finish pass's 64-row edge and the
+    float32 conv pass's 64-row tile edge, one inside a 32-row finish tile
+    (80), a boundary on the bf16 conv pass's 128-row tile edge (128) with
+    boundaries beside it (126, 131), a segment that starts inside the next
+    tile's 20-row halo (141, after a pad gap), and an id above S; each
+    clipped to L."""
     seg = packed_ids(gen, B, L, S)
     row = torch.zeros(L, dtype=torch.int32)
-    for sid, (a, b) in enumerate(((0, 64), (64, 80), (80, 138), (141, 190),
-                                  (190, 200), (200, 256)), start=1):
-        row[min(a, L):min(b, L)] = sid if sid != 5 else S + 2
+    for sid, (a, b) in enumerate(((0, 62), (62, 64), (64, 80), (80, 126),
+                                  (126, 128), (128, 131), (131, 138),
+                                  (141, 190)), start=1):
+        row[min(a, L):min(b, L)] = sid
+    row[min(190, L):min(200, L)] = S + 2
+    row[min(200, L):min(256, L)] = 1   # far from segment 1's first run
     seg[0] = row
     return seg
+
+
+TILE_EDGE_SIDS = (2, 3, 4, 5, 6)   # row 0's segments on and beside the edges
 
 
 def isolated(run, x: torch.Tensor, seg: torch.Tensor, sid: int, gen,
@@ -723,6 +849,11 @@ def large_kernel_phase(card: str, rows: dict) -> None:
                           time_ms(lambda: local_track_reference(track, x, bc,
                                                                 1, wd)),
                           b_ms, b_by, per_call)
+                if L == 1024:
+                    print_passes(card, f"local_track_tiled {str(dtype)[6:]} "
+                                       "B=8 L=C=1024",
+                                 lambda: fused_local_track(track, x, bc, 1,
+                                                           wd))
             rows[("local_track_tiled", dtype, L, "dense")] = (err,) + timing
 
         # #4: packed rows at Large width, S=8, row 0 over the tile edges.
@@ -744,7 +875,9 @@ def large_kernel_phase(card: str, rows: dict) -> None:
             check(torch.isfinite(got[0]).all().item(),
                   "local_track_segments_tiled non-finite")
             err = (got[0].float() - want.float()).abs().max().item()
-            for sid in (2, 3):   # row 0: boundaries at 64, 80 and 138
+            for sid in TILE_EDGE_SIDS:
+                if not bool((seg == sid).any()):   # clipped away at L=100
+                    continue
                 check(isolated(run, x, seg, sid, gen, got),
                       f"local_track_segments_tiled {dtype} L={L}: segment "
                       f"{sid} not isolated bit for bit")
@@ -761,8 +894,38 @@ def large_kernel_phase(card: str, rows: dict) -> None:
                           time_ms(lambda: local_track_segment_oh_reference(
                               track, x, bs, oh, 1, wd)),
                           b_ms, b_by, per_call)
+                if L == 1024:
+                    print_passes(card, f"local_track_segments_tiled "
+                                       f"{str(dtype)[6:]} B=8 L=C=1024 S=8",
+                                 lambda: run(x))
             rows[("local_track_segments_tiled", dtype, L, "S=8")] = (
                 (err,) + timing)
+
+        # #2 and #4 at the other ends of their widths, bf16: C=640 (a last
+        # 128-column round of the finish pass's 256-column rounds) and
+        # C=2048 (32-row finish tiles), B=2, L=200.
+        for Cw in ((640, 2048) if dtype == torch.bfloat16 else ()):
+            wide = cast_block(to_device(block_init(
+                gen, dataclasses.replace(large, local_dim=Cw)), dev), dtype)
+            tw = {name: wide[name] for name in TRACK_PARAMS}
+            x = torch.randn((2, 200, Cw), generator=gen).to(dev, dtype)
+            bc = torch.randn((2, Cw), generator=gen).to(dev, dtype)
+            bs = torch.randn((2, S, Cw), generator=gen).to(dev, dtype)
+            seg = tiled_ids(gen, 2, 200, S).to(dev)
+            for name, got, want in (
+                    ("local_track_tiled", fused_local_track(tw, x, bc, 1, wd),
+                     local_track_reference(tw, x, bc, 1, wd)),
+                    ("local_track_segments_tiled",
+                     fused_local_track_segments(tw, x, bs, seg, 1, wd),
+                     local_track_segment_oh_reference(
+                         tw, x, bs, segment_one_hot(seg, S), 1, wd))):
+                torch.cuda.synchronize()
+                check(torch.isfinite(got).all().item(), f"{name} C={Cw} "
+                                                        "non-finite")
+                rows[(name, dtype, 200, f"C={Cw}")] = (
+                    (got.float() - want.float()).abs().max().item(),
+                    None, None, None, None, None)
+            del wide, tw
 
         # K2's packed entry at Large width: S=8, 10% in-span <pad>.
         B, L = 8, 1024
@@ -908,6 +1071,11 @@ def valid_kernel_phase(card: str, rows: dict) -> None:
                           time_ms(lambda: local_track_valid_reference(
                               track, xh, bc, 1, wd)),
                           b_ms, b_by, per_call)
+                if kernel is LOCAL_TRACK_TILED_VALID:
+                    print_passes(card, f"{kernel.name} bf16 B={B} "
+                                       f"L={Ls}+2*{H} C={C}",
+                                 lambda: fused_local_track_valid(
+                                     track, xh, bc, 1, wd))
             rows[(kernel.name, dtype, Ls, "shard")] = (err,) + timing
             xm = F.pad(torch.randn((Bm, Lm, C), generator=gen).to(dev, dtype),
                        (0, 0, H, H))   # the main path's shape, world 1
@@ -2267,6 +2435,10 @@ def q8_parity_phase(card: str, base) -> None:
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--phase", "large"]):
+        print("usage: chip_smoke.py [--phase large]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2296,6 +2468,24 @@ def main() -> int:
         print(f"#   {k.name}: {len(regs)} instantiations, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
               f"max {max(spills, default=0)} bytes")
+        for name, regs, spill in ptxas_functions(k.ptxas_log):
+            if "wgmma" in name or spill:
+                print(f"#     {name}: {regs} registers, spill stores "
+                      f"{spill} bytes")
+        for line in k.ptxas_log.splitlines():
+            if "serialized" in line or "arning" in line:
+                print(f"#     ptxas: {line.strip()}")   # e.g. wgmma waits
+    tiled = (LOCAL_TRACK_TILED, LOCAL_TRACK_SEGMENTS_TILED,
+             LOCAL_TRACK_TILED_VALID)
+    sass_line(card, tiled)
+    if args:
+        # The Large-width local-track kernels alone: gates, times, passes.
+        rows = {}
+        large_kernel_phase(card, rows)
+        valid_kernel_phase(card, rows)
+        print_rows(card, rows)
+        gemm_yardstick(card)
+        return 0
 
     t0 = time.perf_counter()
     rows = kernel_phase(card)
@@ -2305,6 +2495,7 @@ def main() -> int:
     q8_extra = q8_kernel_phase(card, rows)
     print_rows(card, rows)
     print_q8_rows(card, rows, q8_extra)
+    gemm_yardstick(card)
     print(f"# kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     grad_phase(card)

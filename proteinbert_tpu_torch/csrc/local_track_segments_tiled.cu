@@ -9,8 +9,11 @@
 // answers through XLA there; the port has no such route). It computes
 // `local_track_segment_oh_reference` (fused_block.py:299-349) at the Pallas
 // kernel's rounding points: #2's two passes (local_track_tiled.cuh with
-// SEG = true) with #3's per-(row, tap) mask in a staging tile and the
-// own-segment broadcast gathered in the wide conv's epilogue.
+// SEG = true) with #3's per-(row, tap) mask and the own-segment broadcast
+// gathered in the wide conv's epilogue. In bfloat16 the conv pass runs on
+// wgmma fed by TMA and the mask zeroes each masked row's A-fragment
+// registers after ldmatrix; in float32 (the CUDA-core plan) the masked rows
+// go through a staging tile.
 //
 // What bounds it on the H100: operations, as #2 — 2*B*L*C^2*19 FLOP, 326
 // GFLOP at B=8, L=C=1024, 0.330 ms at 989 TFLOP/s bf16.
@@ -20,8 +23,10 @@
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, S, C), conv and dense
 // kernels, out); seg is int32 (B, L), 0 = pad, 1..S a segment, anything
 // else pad; biases and LN vectors are float32; h is a float32 (B, L, C)
-// scratch. Requires 512 < C <= 2048, C % 128 == 0. Returns
-// cudaGetLastError() after the second launch (0 = both launched).
+// scratch. Requires 512 < C <= 2048, C % 128 == 0; in bfloat16, x, nk, wk
+// and dk 16-byte aligned (TMA). Returns cudaGetLastError() after the second
+// launch (0 = both launched), cudaErrorInvalidValue where a tensor map
+// cannot be encoded.
 extern "C" int pbt_local_track_segments_tiled(
     int dtype, const void* x, const void* seg, const void* bcast,
     const void* nk, const void* nb, const void* wk, const void* wb,

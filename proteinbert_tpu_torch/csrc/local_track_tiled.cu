@@ -5,14 +5,21 @@
 // `_fused_kernel_tiled` (launched at :881 by `_pallas_forward`, entry
 // `fused_local_track`). It computes what K1 computes (local_track.cuh); the
 // device code, its bound and its design are in local_track_tiled.cuh
-// (SEG = false).
+// (SEG = false): in bfloat16 a conv pass and a finish pass on the tensor
+// cores through wgmma, fed by TMA (hopper.cuh); in float32 the CUDA-core
+// plan.
+//
+// What bounds it on the H100: operations, 2*B*L*C^2*19 FLOP, 0.330 ms at
+// B=8, L=C=1024 in bf16.
 
 #include "local_track_tiled.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, C), conv and dense kernels,
 // out); biases and LN vectors are float32; h is a float32 (B, L, C) scratch.
-// Requires 512 < C <= 2048, C % 128 == 0. Returns cudaGetLastError() after
-// the second launch (0 = both launched).
+// Requires 512 < C <= 2048, C % 128 == 0; in bfloat16, x, nk, wk and dk
+// 16-byte aligned (TMA). Returns cudaGetLastError() after the second launch
+// (0 = both launched), cudaErrorInvalidValue where a tensor map cannot be
+// encoded.
 extern "C" int pbt_local_track_tiled(int dtype, const void* x,
                                      const void* bcast, const void* nk,
                                      const void* nb, const void* wk,

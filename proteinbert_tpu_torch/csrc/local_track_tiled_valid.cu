@@ -7,16 +7,21 @@
 // it (:741-758, pallas_call at :881; entry `fused_local_track_valid`,
 // :1310-1321). The device code is #2's (local_track_tiled.cuh, SEG = false)
 // with TrackArgs::halo set: the conv pass's window reads rows [-halo,
-// L + halo) of the shard and zero-fills beyond them; the float32 scratch and
-// the finish pass stay (B, L, C). Its bound and design are #2's.
+// L + halo) of the shard and zero-fills beyond them (in bfloat16 the TMA
+// tensor map spans the (L + 2*halo)-row shard, so its out-of-bounds zero
+// fill is that padding); the float32 scratch and the finish pass stay
+// (B, L, C). Each output's sums run in one order that depends on its
+// window alone, so every shard's centre equals the whole row's track bit
+// for bit. Its bound and design are #2's.
 
 #include "local_track_tiled.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (x (B, L + 2*halo, C), bcast (B, C),
 // conv and dense kernels, out (B, L, C)); biases and LN vectors are float32;
 // h is a float32 (B, L, C) scratch; the halo is the convs' reach, kCenter *
-// wide_dilation rows. Returns cudaGetLastError() after the second launch
-// (0 = both launched).
+// wide_dilation rows. In bfloat16, x, nk, wk and dk 16-byte aligned (TMA).
+// Returns cudaGetLastError() after the second launch (0 = both launched),
+// cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_local_track_tiled_valid(
     int dtype, const void* x, const void* bcast, const void* nk,
     const void* nb, const void* wk, const void* wb, const void* s1,

@@ -9,6 +9,11 @@ by a stale library. A build happens at first use (or all at once, in
 parallel, through `build_all`); a failed build raises — there is no
 fallback.
 
+The Hopper kernels that load through TMA (`csrc/hopper.cuh`) encode their
+tensor maps with the driver's `cuTensorMapEncodeTiled`, fetched at run
+time through the CUDA runtime's `cudaGetDriverEntryPointByVersion`, so no
+library links against libcuda and the flags below stay as they are.
+
 Every C entry point returns `cudaGetLastError()` after its launch, and
 `Kernel.launch` raises when that is not 0. Each `Kernel` carries a
 plain integer `launches`, bumped once per launch of its CUDA kernel and
@@ -148,3 +153,22 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: a {tuple(t.shape)} operand is not "
                              "contiguous")
+
+
+def check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """Each tensor can be read by TMA as rows of its last dimension: the
+    base address 16-byte aligned and every outer stride a multiple of 16
+    bytes (the tensor-map encoder refuses anything else). Needs no
+    device: the checks read only addresses and strides."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a {tuple(t.shape)} operand starts at "
+                             f"an address that is not 16-byte aligned "
+                             f"(offset {t.storage_offset()} elements); TMA "
+                             "needs 16")
+        for d in range(t.dim() - 1):
+            if (t.stride(d) * t.element_size()) % 16:
+                raise ValueError(f"{name}: a {tuple(t.shape)} operand has "
+                                 f"a stride of {t.stride(d)} elements in "
+                                 f"dimension {d}, not a multiple of 16 "
+                                 "bytes; TMA needs one")

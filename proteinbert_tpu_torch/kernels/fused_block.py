@@ -82,7 +82,7 @@ import torch.nn.functional as F
 from proteinbert_tpu_torch.kernels.attention import segment_one_hot
 from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
-    INT, PTR, Kernel, check_cuda, stream_ptr,
+    INT, PTR, Kernel, check_cuda, check_tma, stream_ptr,
 )
 from proteinbert_tpu_torch.kernels.quant_leaves import (  # noqa: F401
     dequant_leaf, dequant_params, int8_leg, is_quant_leaf, weight_leaf,
@@ -451,6 +451,8 @@ def _launch_track(
         h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
         ops = (x, bc, *weights, h, out)
         kernel = LOCAL_TRACK_TILED_VALID if halo else LOCAL_TRACK_TILED
+        if x.dtype == torch.bfloat16:  # both passes read these by TMA
+            check_tma(name, x, weights[0], weights[2], weights[6])
     check_cuda(name, *ops)
     with torch.cuda.device(x.device):
         kernel.launch(code, *(t.data_ptr() for t in ops), B, L, C,
@@ -567,6 +569,9 @@ def _segments_kernel(
             h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
             ops = (x, seg, bc, *weights, h, out)
             kernel = LOCAL_TRACK_SEGMENTS_TILED
+            if x.dtype == torch.bfloat16:  # both passes read these by TMA
+                check_tma("fused_local_track_segments", x, weights[0],
+                          weights[2], weights[6])
         check_cuda("fused_local_track_segments", *ops)
         kernel.launch(code, *(t.data_ptr() for t in ops), B, L, C, S,
                       wide_dilation, stream_ptr(x.device))

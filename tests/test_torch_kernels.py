@@ -270,6 +270,68 @@ def test_segment_track_kernel_widths(C, kernel, monkeypatch):
         assert calls == [(kernel, len(kernels[kernel].argtypes))]
 
 
+@pytest.mark.parametrize("case,ok", [
+    ("fresh", True), ("aligned view", True), ("offset view", False),
+    ("odd row stride", False)])
+def test_check_tma(case, ok):
+    """TMA reads the bf16 tiled operands: a base address not 16-byte
+    aligned, or a row stride that is not a multiple of 16 bytes, raises
+    ValueError; CPU tensors, since the check reads only addresses and
+    strides."""
+    n = 4 * 64 * 128
+    flat = torch.zeros(n + 64, dtype=torch.bfloat16)
+    wide = torch.zeros((4, 64, 132), dtype=torch.bfloat16)  # 264-byte rows
+    t = {"fresh": torch.zeros((4, 64, 128), dtype=torch.bfloat16),
+         "aligned view": flat[8:8 + n].view(4, 64, 128),
+         "offset view": flat[1:1 + n].view(4, 64, 128),
+         "odd row stride": wide[..., :128]}[case]
+    if ok:
+        tbuild.check_tma("t", t)
+    else:
+        with pytest.raises(ValueError, match="TMA"):
+            tbuild.check_tma("t", t)
+
+
+@pytest.mark.parametrize("entry", ["dense", "prehaloed", "segments"])
+def test_tiled_launchers_refuse_what_tma_cannot_read(entry, monkeypatch):
+    """#2, its prehaloed entry and #4 in bf16 raise ValueError, before any
+    launch, for an x whose base is not 16-byte aligned; the same call on
+    an aligned x launches once. Meta tensors stand in for the card's."""
+    calls = []
+    for k in (tfused.LOCAL_TRACK_TILED, tfused.LOCAL_TRACK_TILED_VALID,
+              tfused.LOCAL_TRACK_SEGMENTS_TILED):
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: calls.append(k.name))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfused, "stream_ptr", lambda d: 0)
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dtype)
+
+    C, B, L, S = 1024, 2, 48, 3
+    p = {name: {k: meta(C) for k in ("bias", "scale")}
+         for name in tfused.TRACK_PARAMS}
+    for name in ("narrow_conv", "wide_conv"):
+        p[name]["kernel"] = meta(9, C, C)
+    p["local_dense"]["kernel"] = meta(C, C)
+    rows = L + (2 * tfused.track_halo(p, 1, 5) if entry == "prehaloed" else 0)
+    n = B * rows * C
+    flat = meta(n + 8, dtype=torch.bfloat16)
+
+    def run(x):
+        if entry == "segments":
+            return tfused._segments_kernel(p, x, meta(B, S, C),
+                                           meta(B, L, dtype=torch.int32), 1, 5)
+        if entry == "prehaloed":
+            return tfused._local_track_valid_kernel(p, x, meta(B, C), 1, 5)
+        return tfused._local_track_kernel(p, x, meta(B, C), 1, 5)
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        run(flat[1:n + 1].view(B, rows, C))
+    assert calls == []
+    assert run(flat[8:n + 8].view(B, rows, C)).shape == (B, L, C)
+    assert len(calls) == 1
+
+
 # ------------------------------------------------------------------ K2
 
 def _attn_inputs(rng, L, S):
