@@ -4,6 +4,7 @@ card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase large   # the Large-width local track only
+    python3 chip_smoke.py --phase k2      # K2 and the int8 legs' times only
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -33,8 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               finish tile and inside a tile's 20-row halo;
               the conv pass and the finish pass of #2, #4 (B=8, L=C=1024)
               and #2's prehaloed entry timed apart by torch.profiler's
-              kernel names (`# passes`), the HGMMA and UTMALDG counts
-              `cuobjdump -sass` finds in their libraries (`# SASS`), and an
+              kernel names (`# passes`), and so K2's bf16 passes (query,
+              projection, softmax; the int8 leg's dequantize pass) at base
+              width (B=8, L=512) and Large width (L=1024), dense and S=8;
+              the HGMMA and UTMALDG counts `cuobjdump -sass` finds in the
+              libraries of #2, #4 and both K2 entries (`# SASS`), and an
               equal-FLOP torch.matmul GEMM yardstick (never called by the
               port);
               K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
@@ -128,8 +132,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
-phases (#2, #4, K2 at Large width, the prehaloed entries) and the
-yardstick, and prints no result line.
+phases (#2, #4, K2 at Large width with its passes, the prehaloed entries)
+and the yardstick, and prints no result line. `--phase k2` runs the build
+and `k2_phase` (K2's and the int8 legs' wall and device times at the
+kernel table's shapes), no gate and no result line; it also runs on the
+parent commit's package, so one call can time both.
 """
 
 from __future__ import annotations
@@ -201,7 +208,19 @@ SOLO_LOSS_TOL = 1e-4   # fp32 per-segment loss terms, packed vs alone
 # Device-code names of the hand-written kernels, as the profiler lists them.
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
                 "tiled_conv_kernel", "wgmma_conv_kernel",
-                "tiled_finish_kernel", "wgmma_finish_kernel")
+                "tiled_finish_kernel", "wgmma_finish_kernel",
+                "attn_query_kernel", "wgmma_attn_kernel",
+                "attn_softmax_kernel", "dequant_kv_kernel")
+# The passes of one call, by the profiler's kernel names: #2 / #4 in bf16
+# (conv, finish) and K2 in bf16 (query, projection, softmax; the int8 leg
+# also its dequantize pass; float32, and K2 before its Hopper passes, the
+# one-block-per-(head, row) plan).
+TRACK_PASSES = (("conv pass", "conv_kernel"), ("finish pass", "finish_kernel"))
+K2_PASSES = (("query", "attn_query_kernel"),
+             ("projection", "wgmma_attn_kernel"),
+             ("softmax", "attn_softmax_kernel"),
+             ("dequant", "dequant_kv_kernel"),
+             ("one-block plan", "attention_kernel"))
 # The Large steps, dense and packed, as this script measured them when the
 # kernels' backward still recomputed in float32 (NVIDIA H100 80GB HBM3,
 # 700.00 W): one profiled step's ms, its forward, backward and optimizer
@@ -251,31 +270,36 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"FAIL: {msg}")
 
 
-def device_ms_by_name(fn, reps: int = 10) -> dict:
+def device_ms_by_name(fn, reps: int = 10, tries: int = 3) -> dict:
     """Device ms per call of each kernel `fn` launches, by name, from
     torch.profiler over `reps` calls after a warm one; {} where the
-    profiler records no device time."""
+    profiler records no device time in `tries` attempts (it now and then
+    records none for one window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+                by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        if by_name:
+            break
     return by_name
 
 
-def print_passes(card: str, label: str, fn) -> None:
-    """The conv pass and the finish pass of one #2 / #4 call, device ms
-    per call by the profiler's kernel names."""
+def print_passes(card: str, label: str, fn, passes=TRACK_PASSES) -> None:
+    """The device ms per call of each pass of one kernel call (#2 / #4:
+    conv and finish; K2: `K2_PASSES`) by the profiler's kernel names, and
+    their sum."""
     by_name = device_ms_by_name(fn)
     if not by_name:
         print(f"# passes {label}: the profiler recorded no device time "
@@ -286,12 +310,14 @@ def print_passes(card: str, label: str, fn) -> None:
         m = re.search(r"(\w+_kernel)\b", name)
         short = m.group(1) if m else name[:40]
         split[short] = split.get(short, 0.0) + ms
-    conv = sum(ms for n, ms in split.items() if "conv_kernel" in n)
-    finish = sum(ms for n, ms in split.items() if "finish_kernel" in n)
+    got = {label_: sum(ms for n, ms in split.items() if key in n)
+           for label_, key in passes}
+    got = {k: v for k, v in got.items() if v > 0}
+    device = sum(got.values())
     names = ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(split.items()))
-    print(f"# passes {label} [{card}]: conv pass {conv:.4f} ms, finish "
-          f"pass {finish:.4f} ms per call (torch.profiler, 10 calls: "
-          f"{names})")
+    shown = ", ".join(f"{k} {v:.4f} ms" for k, v in got.items())
+    print(f"# passes {label} [{card}]: {shown} per call; device "
+          f"{device:.4f} ms (torch.profiler, 10 calls: {names})")
 
 
 def ptxas_functions(log: str):
@@ -316,7 +342,8 @@ def ptxas_functions(log: str):
 
 def sass_line(card: str, kernels) -> None:
     """The wgmma and TMA instructions `cuobjdump -sass` finds in each
-    library; every one must have both."""
+    library; every one must have both (#2, its prehaloed entry, #4 and
+    both K2 entries)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -420,7 +447,7 @@ def kernel_phase(card: str):
             err = (got.float() - want.float()).abs().max().item()
             check(torch.isfinite(got).all().item(), "attention non-finite")
             nbytes = ((B * L * C + B * G * 2 + H * (G * k + 2 * C * k)) * s
-                      + B * L * 4)
+                      + B * L)
             b_ms, b_by = bound(attention_flops(B, L, C, G, 1, H, k), nbytes,
                                dtype)
             n0 = ATTENTION.launches
@@ -433,6 +460,11 @@ def kernel_phase(card: str):
                 attn, x, g[:, None, :], oh, zero_empty=False))
             rows[("global_attention", dtype, L, "dense")] = (
                 err, ms, plain, b_ms, b_by, per_call)
+            if dtype == torch.bfloat16 and L == 512:
+                print_passes(card, "global_attention bf16 B=8 L=512 C=G=512 "
+                                   "H=8 dense",
+                             lambda: fused_global_attention(attn, x, g, pad),
+                             K2_PASSES)
 
             # S=8 packed rows, segment 8 empty everywhere: exact zeros.
             S = 8
@@ -447,7 +479,7 @@ def kernel_phase(card: str):
                   "empty segment not exactly zero")
             err = (got.float() - want.float()).abs().max().item()
             nbytes = ((B * L * C + 2 * B * S * G + H * (G * k + 2 * C * k))
-                      * s + B * L * S * 4)
+                      * s + B * L * seg.element_size())
             b_ms, b_by = bound(attention_flops(B, L, C, G, S, H, k), nbytes,
                                dtype)
             n0 = ATTENTION.launches
@@ -459,6 +491,11 @@ def kernel_phase(card: str):
             plain = time_ms(lambda: attention_oh_reference(attn, x, gs, oh))
             rows[("global_attention", dtype, L, "S=8")] = (
                 err, ms, plain, b_ms, b_by, per_call)
+            if dtype == torch.bfloat16 and L == 512:
+                print_passes(card, "global_attention bf16 B=8 L=512 C=G=512 "
+                                   "H=8 S=8",
+                             lambda: fused_packed_attention(attn, x, gs, seg),
+                             K2_PASSES)
 
     # The kernels' narrower widths, with a ragged last tile (L=100 is a
     # multiple of neither kernel's row tile): correctness only.
@@ -488,6 +525,85 @@ def kernel_phase(card: str):
                     err, None, None, None, None, None)
 
     return rows
+
+
+def k2_phase(card: str) -> None:
+    """`--phase k2`: K2 at the kernel table's shapes (base B=8 L=512
+    C=G=512 H=8 and Large B=8 L=1024 C=G=1024 H=16, dense and S=8), K2's
+    and #3's int8 legs at base width beside their fp legs, bf16 under
+    inference mode as served: each call's wall ms (median of 25 CUDA-event
+    timings), host enqueue time and device ms by pass. It uses only the
+    entries' public wrappers, so the same script times the parent
+    commit's package in the same call (copy it into a checkout of the
+    parent)."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        TRACK_PARAMS, dequant_params, fused_global_attention,
+        fused_local_track_segments, fused_packed_attention,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+    from proteinbert_tpu_torch.parallel.quant import quantize_params
+
+    dev = torch.device(DEVICE)
+    track_pass = (("track", "local_track_kernel"),)
+
+    def enqueue_us(fn, n=50):
+        """The host's time to issue one call: n calls without a sync (the
+        card is faster than the host here, so none waits on it)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def timed(label, fn, passes=K2_PASSES):
+        print(f"# k2 {label}: wall {time_ms(fn):.4f} ms, host enqueue "
+              f"{enqueue_us(fn):.1f} us a call [{card}]")
+        print_passes(card, label, fn, passes)
+
+    for name, L in (("base", 512), ("large", 1024)):
+        cfg = get_preset(name).model
+        gen = torch.Generator().manual_seed(5)
+        blk = to_device(block_init(gen, cfg), dev)
+        attn = cast_block(blk, torch.bfloat16)["attention"]
+        B, C, G, S = 8, cfg.local_dim, cfg.global_dim, 8
+        x = torch.randn((B, L, C), generator=gen).to(dev, torch.bfloat16)
+        g = torch.randn((B, G), generator=gen).to(dev, torch.bfloat16)
+        gs = torch.randn((B, S, G), generator=gen).to(dev, torch.bfloat16)
+        pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+        pad[1, L // 2:] = False
+        seg = torch.randint(0, S + 1, (B, L), generator=gen).to(dev)
+        with torch.inference_mode():
+            timed(f"K2 {name} dense B=8 L={L}",
+                  lambda: fused_global_attention(attn, x, g, pad))
+            timed(f"K2 {name} S=8 B=8 L={L}",
+                  lambda: fused_packed_attention(attn, x, gs, seg))
+            if name != "base":
+                continue
+            q = cast_block(quantize_params(blk), torch.bfloat16)
+            qa, fa = q["attention"], dequant_params(q["attention"])
+            timed("K2-int8 base dense",
+                  lambda: fused_global_attention(qa, x, g, pad))
+            timed("K2-int8 fp leg base dense",
+                  lambda: fused_global_attention(fa, x, g, pad))
+            timed("K2-int8 base S=8",
+                  lambda: fused_packed_attention(qa, x, gs, seg))
+            timed("K2-int8 fp leg base S=8",
+                  lambda: fused_packed_attention(fa, x, gs, seg))
+            qt = {n: q[n] for n in TRACK_PARAMS}
+            ft = dequant_params(qt)
+            bs = torch.randn((B, S, C), generator=gen).to(dev, torch.bfloat16)
+            wd = cfg.wide_dilation
+            timed("#3-int8 base S=8", lambda: fused_local_track_segments(
+                qt, x, bs, seg, 1, wd), track_pass)
+            timed("#3-int8 fp leg base S=8",
+                  lambda: fused_local_track_segments(ft, x, bs, seg, 1, wd),
+                  track_pass)
 
 
 def print_rows(card: str, rows: dict) -> None:
@@ -941,7 +1057,7 @@ def large_kernel_phase(card: str, rows: dict) -> None:
               and bool((got[:, S - 1] == 0).all()),
               "Large packed attention non-finite or empty segment not zero")
         nbytes = ((B * L * C + 2 * B * S * G + H * (G * k + 2 * C * k)) * s
-                  + 2 * B * L * 4)
+                  + B * L * (seg.element_size() + 1))
         b_ms, b_by = bound(attention_flops(B, L, C, G, S, H, k), nbytes, dtype)
         per_call = launches(ATTENTION, lambda: fused_packed_attention(
             attn, x, gs, seg, real))
@@ -950,6 +1066,10 @@ def large_kernel_phase(card: str, rows: dict) -> None:
             time_ms(lambda: fused_packed_attention(attn, x, gs, seg, real)),
             time_ms(lambda: attention_oh_reference(attn, x, gs, oh)),
             b_ms, b_by, per_call)
+        if dtype == torch.bfloat16:
+            print_passes(card, "global_attention bf16 B=8 L=C=G=1024 H=16 S=8",
+                         lambda: fused_packed_attention(attn, x, gs, seg,
+                                                        real), K2_PASSES)
 
         # K2 at Large width, dense rows, a half-padded and an all-pad row.
         B, L = 8, 1024
@@ -966,7 +1086,7 @@ def large_kernel_phase(card: str, rows: dict) -> None:
         check(torch.isfinite(got).all().item(), "Large attention non-finite")
         err = (got.float() - want.float()).abs().max().item()
         nbytes = ((B * L * C + B * G * 2 + H * (G * k + 2 * C * k)) * s
-                  + B * L * 4)
+                  + B * L)
         b_ms, b_by = bound(attention_flops(B, L, C, G, 1, H, k), nbytes, dtype)
         per_call = launches(ATTENTION, lambda: fused_global_attention(
             attn, x, g, pad))
@@ -975,6 +1095,11 @@ def large_kernel_phase(card: str, rows: dict) -> None:
             time_ms(lambda: attention_oh_reference(attn, x, g[:, None, :], oh,
                                                    zero_empty=False)),
             b_ms, b_by, per_call)
+        if dtype == torch.bfloat16:
+            print_passes(card, "global_attention bf16 B=8 L=C=G=1024 H=16 "
+                               "dense",
+                         lambda: fused_global_attention(attn, x, g, pad),
+                         K2_PASSES)
 
         # K2 at value_dim 128 (G=512, H=4), a shape the one-pass rule sends
         # to the composition in fp32 at L=512.
@@ -1227,15 +1352,28 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
                      fa, x, g[:, None, :], poh,
                      zero_empty=False).reshape(B, G),
                  timed, attention_flops(B, L, C, G, 1, H, k),
-                 (B * L * C + 2 * B * G) * s + abytes + B * L * 4)
+                 (B * L * C + 2 * B * G) * s + abytes + B * L)
             gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
             case(ATTENTION_Q8, dtype, L, "S=8",
                  lambda: fused_packed_attention(qa, x, gs, seg),
                  lambda: fused_packed_attention(fa, x, gs, seg),
                  lambda: attention_oh_reference(fa, x, gs, oh),
                  timed, attention_flops(B, L, C, G, S, H, k),
-                 (B * L * C + 2 * B * S * G) * s + abytes + B * L * S * 4,
+                 (B * L * C + 2 * B * S * G) * s + abytes
+                 + B * L * seg.element_size(),
                  empty=lambda out: out[0][:, S - 1])
+            if timed and dtype == torch.bfloat16:
+                for label, q_run, f_run in (
+                        ("dense", lambda: fused_global_attention(qa, x, g, pad),
+                         lambda: fused_global_attention(fa, x, g, pad)),
+                        ("S=8", lambda: fused_packed_attention(qa, x, gs, seg),
+                         lambda: fused_packed_attention(fa, x, gs, seg))):
+                    print_passes(card, f"global_attention_q8 bf16 B=8 L=512 "
+                                       f"C=G=512 H=8 {label}", q_run,
+                                 K2_PASSES)
+                    print_passes(card, f"global_attention (its fp leg) bf16 "
+                                       f"B=8 L=512 C=G=512 H=8 {label}",
+                                 f_run, K2_PASSES)
 
         # #6-int8 (and K2-int8 at value_dim 128) at the narrower widths.
         for width, G, H in ((128, 512, 4), (256, 512, 8)):
@@ -2436,8 +2574,8 @@ def q8_parity_phase(card: str, base) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--phase", "large"]):
-        print("usage: chip_smoke.py [--phase large]", file=sys.stderr)
+    if args not in ([], ["--phase", "large"], ["--phase", "k2"]):
+        print("usage: chip_smoke.py [--phase large|k2]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2475,9 +2613,11 @@ def main() -> int:
         for line in k.ptxas_log.splitlines():
             if "serialized" in line or "arning" in line:
                 print(f"#     ptxas: {line.strip()}")   # e.g. wgmma waits
-    tiled = (LOCAL_TRACK_TILED, LOCAL_TRACK_SEGMENTS_TILED,
-             LOCAL_TRACK_TILED_VALID)
-    sass_line(card, tiled)
+    if args == ["--phase", "k2"]:
+        k2_phase(card)
+        return 0
+    sass_line(card, (LOCAL_TRACK_TILED, LOCAL_TRACK_SEGMENTS_TILED,
+                     LOCAL_TRACK_TILED_VALID, ATTENTION, ATTENTION_Q8))
     if args:
         # The Large-width local-track kernels alone: gates, times, passes.
         rows = {}

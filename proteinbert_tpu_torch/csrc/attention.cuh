@@ -1,7 +1,8 @@
 // Global attention of one ProteinBERT block for one (head, batch row) over a
-// segment mask — the device code shared by K2 (global_attention.cu) and the
-// one-pass trunk #6 (one_pass.cu). With x (L, C), a mask m(l, s) and
-// global rows g (S, G):
+// segment mask — the device code of K2 in float32 (global_attention.cu;
+// K2's bf16 passes are attention_sm90.cuh's) and of the one-pass trunk #6
+// (one_pass.cu), both types. With x (L, C), a mask m(l, s) and global rows
+// g (S, G):
 //
 //   q_h = tanh(g @ wq[h])                    (S, k)
 //   K_h = tanh(x @ wk[h]),  V_h = gelu(x @ wv[h])   (L, k), (L, v)
@@ -27,11 +28,12 @@
 // O(L*S) instead of O(L*v), so any bucket length fits one block. key_dim is
 // 64; value_dim VD is 64 or 128.
 //
-// Q8 = true is the int8 leg of K2 (global_attention_q8.cu) and of #6: wq,
-// wk, wv arrive as int8 with float32 per-(head, column) scales; the wk / wv
-// tiles are dequantized on their way into shared memory (common.cuh
-// `load_rows_q8`) and the query projection dequantizes each wq value it
-// reads, so every product sees the floating-point leg's operands.
+// Q8 = true is the int8 leg of K2 in float32 (global_attention_q8.cu) and
+// of #6: wq, wk, wv arrive as int8 with float32 per-(head, column) scales;
+// the wk / wv tiles are dequantized on their way into shared memory
+// (common.cuh `Q8Tile`, loaded into registers during the previous step's
+// product) and the query projection dequantizes each wq value it reads, so
+// every product sees the floating-point leg's operands.
 #pragma once
 
 #include "common.cuh"
@@ -71,12 +73,12 @@ template <typename T, int VD> struct AttnSmem {
   }
 };
 
-// K2's mask: a float (L, S) one-hot, > 0 where position l is in segment s.
-struct OneHotMask {
-  const float* oh;
-  int S;
+// K2's mask: int32 (L,) segment ids, s + 1 where position l is in segment
+// s (anything else: in none).
+struct IdMask {
+  const int* ids;
   __device__ __forceinline__ bool operator()(int l, int s) const {
-    return oh[l * S + s] > 0.f;
+    return ids[l] == s + 1;
   }
 };
 
@@ -130,18 +132,34 @@ __device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
   constexpr int A_TILE = kRows * LDA, B_TILE = kKc * LDB;
   T* a_buf = reinterpret_cast<T*>(region);
   T* b_buf = reinterpret_cast<T*>(region + 2 * a_tile);
+  const auto load_x = [&](int s, int buf) {
+    load_rows_async(a_buf + buf * A_TILE, LDA, xb + s * kKc, C, l0, kRows,
+                    kKc, 0, L);
+  };
+  const auto compute = [&](int s, int buf) {
+    mma.mma(a_buf + buf * A_TILE, LDA, b_buf + buf * B_TILE, LDB, kKc);
+  };
   mma.zero();
-  pipelined_steps(
-      C / kKc,
-      [&](int s, int buf) {
-        load_rows_async(a_buf + buf * A_TILE, LDA, xb + s * kKc, C, l0, kRows,
-                        kKc, 0, L);
-        load_weight_rows<Q8>(b_buf + buf * B_TILE, LDB,
-                             w + size_t(s) * kKc * N, N, kKc, N, wscale);
-      },
-      [&](int s, int buf) {
-        mma.mma(a_buf + buf * A_TILE, LDA, b_buf + buf * B_TILE, LDB, kKc);
-      });
+  if constexpr (Q8) {
+    Q8Tile<kKc, N> tile;
+    pipelined_steps_staged(
+        C / kKc, load_x,
+        [&](int s) {
+          if (s == 0) tile.scales(wscale);
+          tile.fetch(w + size_t(s) * kKc * N, N);
+        },
+        [&](int, int buf) { tile.store(b_buf + buf * B_TILE, LDB); },
+        compute);
+  } else {
+    pipelined_steps(
+        C / kKc,
+        [&](int s, int buf) {
+          load_x(s, buf);
+          load_rows_async(b_buf + buf * B_TILE, LDB, w + size_t(s) * kKc * N,
+                          N, 0, kKc, N, 0, kKc);
+        },
+        compute);
+  }
   mma.store(reinterpret_cast<float*>(region), N);
   __syncthreads();
 }
@@ -269,10 +287,10 @@ __device__ __forceinline__ void attention_head(
   }
 }
 
-// K2: one block per (head, batch row).
+// K2 in float32: one block per (head, batch row).
 template <typename T, int VD, bool Q8>
 __global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ x, const float* __restrict__ oh,
+    attention_kernel(const T* __restrict__ x, const int* __restrict__ ids,
                      const T* __restrict__ g, AttnWeights<T, Q8> w,
                      T* __restrict__ out, int L, int C, int G, int S,
                      int zero_empty) {
@@ -280,12 +298,11 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.x, b = blockIdx.y;
   attention_head<T, VD, Q8>(x + size_t(b) * L * C, g + size_t(b) * S * G, w,
                             out + size_t(b) * S * G, L, C, G, S, h,
-                            zero_empty, OneHotMask{oh + size_t(b) * L * S, S},
-                            smem);
+                            zero_empty, IdMask{ids + size_t(b) * L}, smem);
 }
 
 template <typename T, int VD, bool Q8>
-cudaError_t launch_attention(const void* x, const void* oh, const void* g,
+cudaError_t launch_attention(const void* x, const int* ids, const void* g,
                              const AttnWeights<T, Q8>& w, void* out, int B,
                              int L, int C, int G, int S, int H,
                              int zero_empty, cudaStream_t stream) {
@@ -297,23 +314,23 @@ cudaError_t launch_attention(const void* x, const void* oh, const void* g,
   if (e != cudaSuccess) return e;
   dim3 grid(H, B);
   attention_kernel<T, VD, Q8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(oh),
-      static_cast<const T*>(g), w, static_cast<T*>(out), L, C, G, S,
+      static_cast<const T*>(x), ids, static_cast<const T*>(g), w,
+      static_cast<T*>(out), L, C, G, S,
       zero_empty);
   return cudaGetLastError();
 }
 
 // K2 at the value_dim instantiation G / H names (64 or 128).
 template <typename T, bool Q8>
-cudaError_t launch_attention_vd(const void* x, const void* oh, const void* g,
+cudaError_t launch_attention_vd(const void* x, const int* ids, const void* g,
                                 const AttnWeights<T, Q8>& w, void* out,
                                 int B, int L, int C, int G, int S, int H,
                                 int zero_empty, cudaStream_t stream) {
   if (G == H * 64)
-    return launch_attention<T, 64, Q8>(x, oh, g, w, out, B, L, C, G, S, H,
+    return launch_attention<T, 64, Q8>(x, ids, g, w, out, B, L, C, G, S, H,
                                        zero_empty, stream);
   if (G == H * 128)
-    return launch_attention<T, 128, Q8>(x, oh, g, w, out, B, L, C, G, S, H,
+    return launch_attention<T, 128, Q8>(x, ids, g, w, out, B, L, C, G, S, H,
                                         zero_empty, stream);
   return cudaErrorInvalidValue;
 }

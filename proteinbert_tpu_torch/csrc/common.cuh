@@ -118,54 +118,66 @@ __device__ __forceinline__ void load_rows_async(T* dst, int dst_ld,
   }
 }
 
-// The int8 leg's weight load: dst row r <- row r of the int8 matrix `src`
-// (leading dimension src_ld), each value dequantized as
-// from_f<T>(float(q) * scale[c]) — q·scale in float32, then the cast to the
-// activation type, which is bit for bit the value the floating-point leg
-// loads from the dequantized weights. Each thread converts the 16 int8
-// values of one 16-byte load. The stores are synchronous: the barrier that
-// precedes the compute reading dst (pipelined_steps) orders them. cols and
-// src_ld are multiples of 16, dst_ld * sizeof(T) a multiple of 16 bytes.
-template <typename T>
-__device__ __forceinline__ void load_rows_q8(T* dst, int dst_ld,
-                                             const int8_t* src, int src_ld,
-                                             int rows, int cols,
-                                             const float* scale) {
-  constexpr int kVec = 16;
-  const int per_row = cols / kVec;
-  const int total = rows * per_row;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) * kVec;
-    const int4 raw =
-        *reinterpret_cast<const int4*>(src + static_cast<size_t>(r) * src_ld + c);
-    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-    __align__(16) T v[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      v[j] = from_f<T>(static_cast<float>(q[j]) * scale[c + j]);
-    uint4* d = reinterpret_cast<uint4*>(dst + r * dst_ld + c);
-#pragma unroll
-    for (int j = 0; j < int(kVec * sizeof(T) / 16); ++j)
-      d[j] = reinterpret_cast<const uint4*>(v)[j];
-  }
-}
+// The int8 leg's weight tile (ROWS x COLS of an int8 matrix), staged
+// through registers so that no shared memory is added: fetch() issues a
+// thread's 16-byte global loads and returns at once; store() converts them,
+// each value from_f<T>(float(q) * scale[c]) — q·scale in float32, then the
+// cast to the activation type, bit for bit the value the floating-point leg
+// loads from the dequantized weights — and writes them to the shared tile.
+// Thread i takes the 16 columns (i % (COLS / 16)) * 16 of rows i / (COLS /
+// 16) + k * 256 / (COLS / 16): its columns, so its 16 scales, are fixed
+// across a matrix's tiles, and scales() loads them once into registers.
+// COLS and src_ld are multiples of 16, dst_ld * sizeof(T) of 16 bytes.
+template <int ROWS, int COLS>
+struct Q8Tile {
+  static constexpr int kPerRow = COLS / 16;
+  static constexpr int kTotal = ROWS * kPerRow;
+  static constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
+  static_assert(COLS % 16 == 0 && kThreads % kPerRow == 0,
+                "a thread's columns are the same in every tile");
+  int4 raw[kPer];
+  float sc[16];
 
-// `rows` x `cols` of a weight matrix (leading dimension src_ld) into shared
-// dst: the cp.async copy of load_rows_async (uncommitted) on the
-// floating-point leg, the dequantizing load_rows_q8 with `scale` (the
-// matrix's per-output-column scales) on the int8 leg.
-template <bool Q8, typename T>
-__device__ __forceinline__ void load_weight_rows(T* dst, int dst_ld,
-                                                 const WeightT<T, Q8>* src,
-                                                 int src_ld, int rows,
-                                                 int cols,
-                                                 const float* scale) {
-  if constexpr (Q8)
-    load_rows_q8(dst, dst_ld, src, src_ld, rows, cols, scale);
-  else
-    load_rows_async(dst, dst_ld, src, src_ld, 0, rows, cols, 0, rows);
-}
+  __device__ __forceinline__ static int col() {
+    return (threadIdx.x % kPerRow) * 16;
+  }
+
+  // The scales of the thread's columns, from a matrix's per-column scales.
+  __device__ __forceinline__ void scales(const float* scale) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sc[j] = scale[col() + j];
+  }
+
+  __device__ __forceinline__ void fetch(const int8_t* src, int src_ld) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < kTotal)
+        raw[u] = __ldg(reinterpret_cast<const int4*>(
+            src + static_cast<size_t>(i / kPerRow) * src_ld + col()));
+    }
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void store(T* dst, int dst_ld) const {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < kTotal) {
+        const int8_t* q = reinterpret_cast<const int8_t*>(&raw[u]);
+        __align__(16) T v[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          v[j] = from_f<T>(static_cast<float>(q[j]) * sc[j]);
+        uint4* d = reinterpret_cast<uint4*>(dst + (i / kPerRow) * dst_ld +
+                                            col());
+#pragma unroll
+        for (int j = 0; j < int(16 * sizeof(T) / 16); ++j)
+          d[j] = reinterpret_cast<const uint4*>(v)[j];
+      }
+    }
+  }
+};
 
 // One weight value read straight from device memory, as the activation type
 // rounds it: q·scale then the cast on the int8 leg.
@@ -198,6 +210,40 @@ __device__ __forceinline__ void pipelined_steps(int steps, LoadFn load,
     }
     __syncthreads();
     compute(s, s & 1);
+    __syncthreads();
+  }
+}
+
+// pipelined_steps for an int8 leg, whose weight tiles go through registers
+// (Q8Tile): besides load(s, buf)'s cp.async copies, fetch(s) issues step s's
+// weight loads into registers and store(s, buf) converts them into buffer
+// buf. Step s+1's weights are fetched before step s's product and stored
+// after it, into the buffer step s-1 read (free since the barrier that
+// ended step s-1), so their loads overlap the product as cp.async does on
+// the floating-point leg. The products and their order are unchanged.
+template <typename LoadFn, typename FetchFn, typename StoreFn,
+          typename ComputeFn>
+__device__ __forceinline__ void pipelined_steps_staged(int steps, LoadFn load,
+                                                       FetchFn fetch,
+                                                       StoreFn store,
+                                                       ComputeFn compute) {
+  load(0, 0);
+  cp_async_commit();
+  fetch(0);
+  store(0, 0);
+  for (int s = 0; s < steps; ++s) {
+    const bool next = s + 1 < steps;
+    if (next) {
+      load(s + 1, (s + 1) & 1);
+      cp_async_commit();
+      fetch(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    compute(s, s & 1);
+    if (next) store(s + 1, (s + 1) & 1);
     __syncthreads();
   }
 }

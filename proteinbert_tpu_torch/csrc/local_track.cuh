@@ -47,9 +47,11 @@
 // Q8 = true is the int8 leg of #3 (local_track_segments_q8.cu) and of #6:
 // the conv and dense weights arrive as int8 with float32 scales and each
 // (KC, C) tile is dequantized on its way into the weight double buffer
-// (common.cuh `load_rows_q8`), in place of the cp.async copy. No shared
-// memory is added (there is none to spare at C=512), and every product,
-// mask and rounding point is the floating-point leg's.
+// (common.cuh `Q8Tile`, `pipelined_steps_staged`), in place of the cp.async
+// copy: step s+1's int8 tile loads into registers while step s's product
+// runs, and is converted and stored after it. No shared memory is added
+// (there is none to spare at C=512), and every product, mask and rounding
+// point is the floating-point leg's.
 #pragma once
 
 #include "common.cuh"
@@ -142,34 +144,49 @@ __device__ __forceinline__ void tap_products(Mma& mma, const T* a, int taps,
   constexpr int kVec = 16 / sizeof(T);
   constexpr int per_row = KC / kVec;
   const int center = (taps - 1) / 2;
+  const auto compute = [&](int s, int buf) {
+    const int t = s / NK, kc = s - (s / NK) * NK;
+    const int off = (t - center) * dilation;
+    const T* at = a + off * LDW + kc * KC;
+    if (segc == nullptr) {
+      mma.mma(at, LDW, wbuf + buf * TILE, LDW, KC);
+      return;
+    }
+    for (int i = threadIdx.x; i < TL * per_row; i += kThreads) {
+      const int m = i / per_row, c = (i - m * per_row) * kVec;
+      const int id = segc[m];
+      const bool keep = id >= 1 && id <= S && segc[m + off] == id;
+      *reinterpret_cast<uint4*>(abuf + m * LDA + c) =
+          keep ? *reinterpret_cast<const uint4*>(at + m * LDW + c)
+               : make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+    mma.mma(abuf, LDA, wbuf + buf * TILE, LDW, KC);
+  };
   mma.zero();
-  pipelined_steps(
-      taps * NK,
-      [&](int s, int buf) {
-        const int t = s / NK, kc = s - (s / NK) * NK;
-        load_weight_rows<Q8>(wbuf + buf * TILE, LDW,
-                             w + (size_t(t) * C + kc * KC) * C, C, KC, C,
-                             Q8 ? wscale + size_t(t) * C : nullptr);
-      },
-      [&](int s, int buf) {
-        const int t = s / NK, kc = s - (s / NK) * NK;
-        const int off = (t - center) * dilation;
-        const T* at = a + off * LDW + kc * KC;
-        if (segc == nullptr) {
-          mma.mma(at, LDW, wbuf + buf * TILE, LDW, KC);
-          return;
-        }
-        for (int i = threadIdx.x; i < TL * per_row; i += kThreads) {
-          const int m = i / per_row, c = (i - m * per_row) * kVec;
-          const int id = segc[m];
-          const bool keep = id >= 1 && id <= S && segc[m + off] == id;
-          *reinterpret_cast<uint4*>(abuf + m * LDA + c) =
-              keep ? *reinterpret_cast<const uint4*>(at + m * LDW + c)
-                   : make_uint4(0u, 0u, 0u, 0u);
-        }
-        __syncthreads();
-        mma.mma(abuf, LDA, wbuf + buf * TILE, LDW, KC);
-      });
+  if constexpr (Q8) {
+    // The int8 tile of step s+1 loads into registers during step s's
+    // product; a tap's (taps, C) scales load once, as its first tile does.
+    Q8Tile<KC, C> tile;
+    pipelined_steps_staged(
+        taps * NK, [](int, int) {},
+        [&](int s) {
+          const int t = s / NK, kc = s - (s / NK) * NK;
+          if (kc == 0) tile.scales(wscale + size_t(t) * C);
+          tile.fetch(w + (size_t(t) * C + kc * KC) * C, C);
+        },
+        [&](int, int buf) { tile.store(wbuf + buf * TILE, LDW); }, compute);
+  } else {
+    pipelined_steps(
+        taps * NK,
+        [&](int s, int buf) {
+          const int t = s / NK, kc = s - (s / NK) * NK;
+          load_rows_async(wbuf + buf * TILE, LDW,
+                          w + (size_t(t) * C + kc * KC) * C, C, 0, KC, C, 0,
+                          KC);
+        },
+        compute);
+  }
 }
 
 // One warp per row: y = LN(h row) * scale + bias over C, float32 statistics.

@@ -11,16 +11,18 @@
 // float32, cast to the activation type). Here the device code is #3's
 // (local_track.cuh, SEG = true, Q8 = true): each (KC, C) weight tile is
 // dequantized on its way from device memory into the same shared-memory
-// tile the floating-point leg's cp.async fills (common.cuh
-// `load_rows_q8`), so the products, masks and rounding points are #3's and
-// the output is bit for bit #3's on the dequantized weights.
+// tile the floating-point leg's cp.async fills (common.cuh `Q8Tile`), so
+// the products, masks and rounding points are #3's and the output is bit
+// for bit #3's on the dequantized weights.
 //
 // What bounds it on the H100: operations, as #3 — 2*B*L*C^2*19 FLOP, 40.8
 // GFLOP at B=8, L=512, C=512 (0.0413 ms at 989 TFLOP/s bf16). The design
 // needs no shared memory beyond #3's (212,608 bytes at C=512 in bf16, of
-// 232,448): an int8 staging buffer would not fit, converting on the load
-// needs none. The price is that the synchronous conversion no longer
-// overlaps the weight tile's copy with the previous tile's product.
+// 232,448): an int8 staging buffer would not fit. So the next step's int8
+// tile waits in registers (64 bytes a thread at C=512) while this step's
+// product runs, and is converted into the free half of the double buffer
+// after it (`pipelined_steps_staged`): the weight stream overlaps the
+// products as the floating-point leg's cp.async does.
 
 #include "local_track.cuh"
 

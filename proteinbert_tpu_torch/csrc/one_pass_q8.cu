@@ -11,9 +11,9 @@
 // device code is #6's (one_pass.cuh, Q8 = true): the track's tiles and the
 // attention's wk / wv tiles are dequantized on their way from device memory
 // into the shared-memory tiles the floating-point leg's cp.async fills
-// (common.cuh `load_rows_q8`) and the query projection dequantizes each wq
-// value it reads, so the output is bit for bit #6's on the dequantized
-// weights.
+// (common.cuh `Q8Tile`: the next step's tile loads into registers during
+// this step's product) and the query projection dequantizes each wq value
+// it reads, so the output is bit for bit #6's on the dequantized weights.
 //
 // What bounds it on the H100: operations, as #6 — 3.42 GFLOP at 8 rows x
 // L=512, C=128, G=512, H=4, k=64, v=128, S=8, 0.0035 ms at 989 TFLOP/s

@@ -412,6 +412,117 @@ def test_attention_kernel_shape_checks(G, H, v, k, S, ok):
             tattn.check_attention_shapes(*args)
 
 
+# ---------------------------------------- K2's launch on the card, recorded
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, device="meta", dtype=dtype)
+
+
+@pytest.fixture
+def k2_launches(monkeypatch):
+    """K2's launches recorded (name, arguments), not run; meta tensors
+    stand in for the card's."""
+    calls = []
+    for k in (tattn.ATTENTION, tattn.ATTENTION_Q8):
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: calls.append(
+            (k.name, a)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tattn, "stream_ptr", lambda d: 0)
+    return calls
+
+
+def _k2_case(entry, v=64):
+    """(params, x, g, ids, zero_empty) of one K2 launch at C=256, as the
+    dense entry (S=1, zero_empty off) or the packed entry (S=8) makes it."""
+    B, L, C, H = 2, 48, 256, 4
+    S = 1 if entry == "dense" else 8
+    params = {"wq": _meta(H, H * v, 64), "wk": _meta(H, C, 64),
+              "wv": _meta(H, C, v)}
+    return (params, _meta(B, L, C), _meta(B, S, H * v),
+            _meta(B, L, dtype=torch.int32), entry != "dense")
+
+
+@pytest.mark.parametrize("operand", ["x", "wq", "wk", "wv"])
+@pytest.mark.parametrize("entry", ["dense", "packed"])
+def test_attention_refuses_what_tma_cannot_read(entry, operand, k2_launches):
+    """K2 in bf16 raises ValueError, before any launch, for an x, wk or wv
+    whose base is not 16-byte aligned (its projection pass reads them by
+    TMA), or such a wq (its query pass reads it in 16-byte loads); the
+    same call on aligned operands launches once."""
+    params, x, g, mask, zero_empty = _k2_case(entry)
+    target = x if operand == "x" else params[operand]
+    n = target.numel()
+    flat = _meta(n + 8)
+    bad = flat[1:n + 1].view(target.shape)
+    if operand == "x":
+        args = (params, bad, g, mask, zero_empty)
+    else:
+        args = ({**params, operand: bad}, x, g, mask, zero_empty)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn._attention_launch(*args)
+    assert k2_launches == []
+    good = flat[8:n + 8].view(target.shape)
+    if operand == "x":
+        args = (params, good, g, mask, zero_empty)
+    else:
+        args = ({**params, operand: good}, x, g, mask, zero_empty)
+    out = tattn._attention_launch(*args)
+    assert out.shape == g.shape and out.dtype == torch.bfloat16
+    assert [(n, len(a)) for n, a in k2_launches] == [
+        ("global_attention", len(tattn.ATTENTION.argtypes))]
+
+
+@pytest.mark.parametrize("v", [64, 128])
+@pytest.mark.parametrize("entry", ["dense", "packed"])
+def test_attention_scratches_have_the_c_entry_shapes(entry, v, k2_launches):
+    """One bf16 launch carves q (B, S, H, 64) and scores (B, H, S, L) in
+    float32 and V (B, L, H·v) in bf16, the shapes and order
+    csrc/global_attention.cu documents, from one buffer (256-byte aligned
+    parts that do not overlap) and passes the parts' addresses; float32
+    passes none."""
+    params, x, g, mask, zero_empty = _k2_case(entry, v)
+    (B, L, C), (_, S, G), H = x.shape, g.shape, params["wq"].shape[0]
+    layout, nbytes = tattn.attention_scratch_layout(B, L, C, S, H, v, False)
+    assert [(shape, dtype) for shape, dtype, _ in layout] == [
+        ((B, S, H, 64), torch.float32), ((B, H, S, L), torch.float32),
+        ((B, L, G), torch.bfloat16)]
+    ends = [off + np.prod(shape) * dtype.itemsize
+            for shape, dtype, off in layout]
+    offsets = [off for _, _, off in layout]
+    assert all(off % 256 == 0 for off in offsets)
+    assert offsets[0] == 0 and ends[:-1] <= offsets[1:] and ends[-1] <= nbytes
+    tattn._attention_launch(params, x, g, mask, zero_empty)
+    f32 = {n: t.float() for n, t in params.items()}
+    tattn._attention_launch(f32, x.float(), g.float(), mask, zero_empty)
+    (name, bf), (_, fp) = k2_launches
+    assert name == "global_attention"
+    assert len(bf) == len(fp) == len(tattn.ATTENTION.argtypes)
+    ptrs = bf[7:10]   # dtype, x, ids, g, wq, wk, wv, then the scratches
+    assert [p - ptrs[0] for p in ptrs] == offsets
+    assert fp[7:10] == (None, None, None)
+
+
+@pytest.mark.parametrize("real", [False, True])
+def test_one_hot_and_segment_ids_round_trip(real):
+    """The kernel's (B, L) segment ids and the plain versions' one-hot
+    name the same positions: `one_hot_ids` of `segment_one_hot` is the ids
+    with pad, ids outside 1..S and masked-out positions at 0, and
+    `ids_one_hot` of those ids is the one-hot again."""
+    rng = np.random.default_rng(7)
+    S = 5
+    seg = torch.from_numpy(rng.integers(0, S + 3, (3, 40)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((3, 40)) < 0.8) if real else None
+    oh = tattn.segment_one_hot(seg, S, mask)
+    ids = tattn.one_hot_ids(oh)
+    keep = (seg >= 1) & (seg <= S)
+    if real:
+        keep &= mask
+    assert ids.dtype == torch.int32
+    assert torch.equal(ids, torch.where(keep, seg, 0))
+    assert torch.equal(tattn.ids_one_hot(ids, S), oh)
+
+
 # ------------------------------------------- launch or raise, never fall back
 
 def test_wrappers_raise_on_devices_they_do_not_run_on():

@@ -452,15 +452,73 @@ def test_segment_track_int8_kernel_widths(C, ok, recorded):
 def test_attention_int8_kernel_value_dims(G, H, ok, recorded):
     """K2's int8 leg covers value_dim 64 and 128."""
     args = (_meta_attn(128, G, H, G // H), _meta(2, 16, 128), _meta(2, 1, G),
-            _meta(2, 16, 1, dtype=torch.float32), False)
+            _meta(2, 16, dtype=torch.int32), False)
     if not ok:
         with pytest.raises(ValueError):
-            tattn._attention_kernel(*args)
+            tattn._attention_launch(*args)
         assert recorded == []
         return
-    assert tattn._attention_kernel(*args).shape == (2, 1, G)
+    assert tattn._attention_launch(*args).shape == (2, 1, G)
     assert recorded == [("global_attention_q8",
                          len(tattn.ATTENTION_Q8.argtypes))]
+
+
+@pytest.mark.parametrize("operand", ["x", "wq", "wk", "wv"])
+@pytest.mark.parametrize("entry", ["dense", "packed"])
+def test_attention_int8_refuses_what_it_cannot_read(entry, operand,
+                                                    recorded):
+    """K2's int8 leg in bf16 raises ValueError, before any launch, for an x
+    whose base is not 16-byte aligned (TMA reads it) or an int8 wq, wk or
+    wv that its query or dequantize pass cannot read in vector loads;
+    aligned operands launch once."""
+    S = 1 if entry == "dense" else 8
+    params = _meta_attn(256, 512, 8, 64)
+    x = _meta(2, 48, 256)
+    target = x if operand == "x" else params[operand]["q"]
+    n = target.numel()
+    flat = _meta(n + 16, dtype=target.dtype)
+
+    def call(t):
+        p = params if operand == "x" else {
+            **params, operand: {**params[operand], "q": t}}
+        return tattn._attention_launch(
+            p, t if operand == "x" else x, _meta(2, S, 512),
+            _meta(2, 48, dtype=torch.int32), entry == "packed")
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(flat[1:n + 1].view(target.shape))
+    assert recorded == []
+    assert call(flat[16:n + 16].view(target.shape)).shape == (2, S, 512)
+    assert recorded == [("global_attention_q8",
+                         len(tattn.ATTENTION_Q8.argtypes))]
+
+
+@pytest.mark.parametrize("v", [64, 128])
+def test_attention_int8_scratches_have_the_c_entry_shapes(v, monkeypatch,
+                                                          recorded):
+    """K2's int8 leg in bf16 carves the dequantized wk (H, C, 64) and wv
+    (H, C, v) in bf16, then the floating-point leg's q, scores and V, in
+    the order csrc/global_attention_q8.cu takes them, from one buffer,
+    and passes the parts' addresses."""
+    from proteinbert_tpu_torch.kernels import KERNELS
+
+    args = []
+    for k in KERNELS:   # record the arguments too
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: args.append(a))
+    B, L, C, S, H = 2, 48, 256, 8, 512 // v
+    bf16, f32 = torch.bfloat16, torch.float32
+    layout, _ = tattn.attention_scratch_layout(B, L, C, S, H, v, True)
+    assert [(shape, dtype) for shape, dtype, _ in layout] == [
+        ((H, C, 64), bf16), ((H, C, v), bf16), ((B, S, H, 64), f32),
+        ((B, H, S, L), f32), ((B, L, 512), bf16)]
+    tattn._attention_launch(_meta_attn(C, 512, H, v), _meta(B, L, C),
+                            _meta(B, S, 512), _meta(B, L, dtype=torch.int32),
+                            True)
+    (a,) = args
+    assert len(a) == len(tattn.ATTENTION_Q8.argtypes)
+    # dtype, x, ids, g, (wq, sq), (wk, sk), (wv, sv), then the scratches
+    ptrs = a[10:15]
+    assert [p - ptrs[0] for p in ptrs] == [off for _, _, off in layout]
 
 
 @pytest.mark.parametrize("case", ["bf16_c128", "bf16_c512", "fp32_c512",
