@@ -4,7 +4,8 @@ card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase large   # the Large-width local track only
-    python3 chip_smoke.py --phase k2      # K2 and the int8 legs' times only
+    python3 chip_smoke.py --phase base    # K1, #3, K2 and int8 legs' times
+    python3 chip_smoke.py --phase k2      # the same as --phase base
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -32,13 +33,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               beside the 64-row tile edges (bf16 finish pass, fp32 conv
               pass) and the 128-row bf16 conv tile edge, inside a 32-row
               finish tile and inside a tile's 20-row halo;
-              the conv pass and the finish pass of #2, #4 (B=8, L=C=1024)
-              and #2's prehaloed entry timed apart by torch.profiler's
-              kernel names (`# passes`), and so K2's bf16 passes (query,
+              the conv pass and the finish pass of K1, #3 (B=8, L=C=512),
+              #2, #4 (B=8, L=C=1024) and the prehaloed entries of K1
+              (B=16, L=512+2*20) and #2 timed apart by torch.profiler's
+              kernel names (`# passes`), #3-int8 with its dequantize pass
+              beside its fp leg, and so K2's bf16 passes (query,
               projection, softmax; the int8 leg's dequantize pass) at base
               width (B=8, L=512) and Large width (L=1024), dense and S=8;
               the HGMMA and UTMALDG counts `cuobjdump -sass` finds in the
-              libraries of #2, #4 and both K2 entries (`# SASS`), and an
+              libraries of K1, its prehaloed entry, #3, #3-int8, #2, its
+              prehaloed entry, #4 and both K2 entries (`# SASS`), and an
               equal-FLOP torch.matmul GEMM yardstick (never called by the
               port);
               K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
@@ -133,10 +137,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
 phases (#2, #4, K2 at Large width with its passes, the prehaloed entries)
-and the yardstick, and prints no result line. `--phase k2` runs the build
-and `k2_phase` (K2's and the int8 legs' wall and device times at the
-kernel table's shapes), no gate and no result line; it also runs on the
-parent commit's package, so one call can time both.
+and the yardstick, and prints no result line. `--phase base` (or its
+older name `--phase k2`) runs the build and `base_phase`: the wall, host
+enqueue time and device time by pass of K1, K1's prehaloed entry, #3,
+#3-int8 and K2 (and K2-int8) at the kernel table's shapes, no gate and no
+result line; it also runs on the parent commit's package, so one call can
+time both.
 """
 
 from __future__ import annotations
@@ -209,13 +215,18 @@ SOLO_LOSS_TOL = 1e-4   # fp32 per-segment loss terms, packed vs alone
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
                 "tiled_conv_kernel", "wgmma_conv_kernel",
                 "tiled_finish_kernel", "wgmma_finish_kernel",
-                "attn_query_kernel", "wgmma_attn_kernel",
-                "attn_softmax_kernel", "dequant_kv_kernel")
-# The passes of one call, by the profiler's kernel names: #2 / #4 in bf16
-# (conv, finish) and K2 in bf16 (query, projection, softmax; the int8 leg
-# also its dequantize pass; float32, and K2 before its Hopper passes, the
-# one-block-per-(head, row) plan).
-TRACK_PASSES = (("conv pass", "conv_kernel"), ("finish pass", "finish_kernel"))
+                "dequant_track_kernel", "attn_query_kernel",
+                "wgmma_attn_kernel", "attn_softmax_kernel",
+                "dequant_kv_kernel")
+# The passes of one call, by the profiler's kernel names: the local track
+# in bf16 (K1, its prehaloed entry, #3, #2, #4: conv, finish; #3-int8 also
+# its dequantize pass; K1 and #3 before their Hopper passes, and float32,
+# the one-launch plan) and K2 in bf16 (query, projection, softmax; the int8
+# leg also its dequantize pass; float32, and K2 before its Hopper passes,
+# the one-block-per-(head, row) plan).
+TRACK_PASSES = (("conv pass", "conv_kernel"), ("finish pass", "finish_kernel"),
+                ("dequantize", "dequant_track_kernel"),
+                ("one-launch plan", "local_track_kernel"))
 K2_PASSES = (("query", "attn_query_kernel"),
              ("projection", "wgmma_attn_kernel"),
              ("softmax", "attn_softmax_kernel"),
@@ -342,8 +353,8 @@ def ptxas_functions(log: str):
 
 def sass_line(card: str, kernels) -> None:
     """The wgmma and TMA instructions `cuobjdump -sass` finds in each
-    library; every one must have both (#2, its prehaloed entry, #4 and
-    both K2 entries)."""
+    library; every one must have both (K1, #3, #2, #4, their prehaloed
+    entries and int8 leg, both K2 entries)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -434,6 +445,10 @@ def kernel_phase(card: str):
                 track, x, bc, 1, cfg.wide_dilation))
             rows[("local_track", dtype, L, "dense")] = (
                 err, ms, plain, b_ms, b_by, per_call)
+            if dtype == torch.bfloat16 and L == 512:
+                print_passes(card, "local_track bf16 B=8 L=512 C=512",
+                             lambda: fused_local_track(track, x, bc, 1,
+                                                       cfg.wide_dilation))
 
             g = torch.randn((B, G), generator=gen).to(dev, dtype)
             pad = torch.ones((B, L), dtype=torch.bool, device=dev)
@@ -527,19 +542,23 @@ def kernel_phase(card: str):
     return rows
 
 
-def k2_phase(card: str) -> None:
-    """`--phase k2`: K2 at the kernel table's shapes (base B=8 L=512
-    C=G=512 H=8 and Large B=8 L=1024 C=G=1024 H=16, dense and S=8), K2's
-    and #3's int8 legs at base width beside their fp legs, bf16 under
-    inference mode as served: each call's wall ms (median of 25 CUDA-event
+def base_phase(card: str) -> None:
+    """`--phase base` (also `--phase k2`): the base-width kernels at the
+    kernel table's shapes, bf16 under inference mode as served — K1 (B=8,
+    L=C=512), K1's prehaloed entry (B=16, L=512+2*20, C=512), #3 (B=8,
+    L=C=512, S=8), #3-int8 and K2-int8 beside their fp legs, and K2 at
+    base (B=8 L=512 C=G=512 H=8) and Large (B=8 L=1024 C=G=1024 H=16)
+    width, dense and S=8: each call's wall ms (median of 25 CUDA-event
     timings), host enqueue time and device ms by pass. It uses only the
-    entries' public wrappers, so the same script times the parent
-    commit's package in the same call (copy it into a checkout of the
-    parent)."""
+    entries' public wrappers, so the same script times the parent commit's
+    package in the same call (copy it into a checkout of the parent)."""
+    import torch.nn.functional as F
+
     from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.kernels import (
         TRACK_PARAMS, dequant_params, fused_global_attention,
-        fused_local_track_segments, fused_packed_attention,
+        fused_local_track, fused_local_track_segments,
+        fused_local_track_valid, fused_packed_attention, track_halo,
     )
     from proteinbert_tpu_torch.models.proteinbert import (
         block_init, cast_block, to_device,
@@ -547,7 +566,6 @@ def k2_phase(card: str) -> None:
     from proteinbert_tpu_torch.parallel.quant import quantize_params
 
     dev = torch.device(DEVICE)
-    track_pass = (("track", "local_track_kernel"),)
 
     def enqueue_us(fn, n=50):
         """The host's time to issue one call: n calls without a sync (the
@@ -562,7 +580,7 @@ def k2_phase(card: str) -> None:
         return us
 
     def timed(label, fn, passes=K2_PASSES):
-        print(f"# k2 {label}: wall {time_ms(fn):.4f} ms, host enqueue "
+        print(f"# base {label}: wall {time_ms(fn):.4f} ms, host enqueue "
               f"{enqueue_us(fn):.1f} us a call [{card}]")
         print_passes(card, label, fn, passes)
 
@@ -570,7 +588,8 @@ def k2_phase(card: str) -> None:
         cfg = get_preset(name).model
         gen = torch.Generator().manual_seed(5)
         blk = to_device(block_init(gen, cfg), dev)
-        attn = cast_block(blk, torch.bfloat16)["attention"]
+        cast = cast_block(blk, torch.bfloat16)
+        attn = cast["attention"]
         B, C, G, S = 8, cfg.local_dim, cfg.global_dim, 8
         x = torch.randn((B, L, C), generator=gen).to(dev, torch.bfloat16)
         g = torch.randn((B, G), generator=gen).to(dev, torch.bfloat16)
@@ -585,6 +604,23 @@ def k2_phase(card: str) -> None:
                   lambda: fused_packed_attention(attn, x, gs, seg))
             if name != "base":
                 continue
+            wd = cfg.wide_dilation
+            track = {n: cast[n] for n in TRACK_PARAMS}
+            bc = torch.randn((B, C), generator=gen).to(dev, torch.bfloat16)
+            bs = torch.randn((B, S, C), generator=gen).to(dev, torch.bfloat16)
+            timed("K1 base dense B=8 L=512",
+                  lambda: fused_local_track(track, x, bc, 1, wd),
+                  TRACK_PASSES)
+            H = track_halo(track, 1, wd)
+            xh = F.pad(torch.randn((16, L, C), generator=gen),
+                       (0, 0, H, H)).to(dev, torch.bfloat16)
+            bh = torch.randn((16, C), generator=gen).to(dev, torch.bfloat16)
+            timed(f"K1 prehaloed base B=16 L=512+2*{H}",
+                  lambda: fused_local_track_valid(track, xh, bh, 1, wd),
+                  TRACK_PASSES)
+            timed("#3 base S=8 B=8 L=512",
+                  lambda: fused_local_track_segments(track, x, bs, seg, 1,
+                                                     wd), TRACK_PASSES)
             q = cast_block(quantize_params(blk), torch.bfloat16)
             qa, fa = q["attention"], dequant_params(q["attention"])
             timed("K2-int8 base dense",
@@ -597,13 +633,11 @@ def k2_phase(card: str) -> None:
                   lambda: fused_packed_attention(fa, x, gs, seg))
             qt = {n: q[n] for n in TRACK_PARAMS}
             ft = dequant_params(qt)
-            bs = torch.randn((B, S, C), generator=gen).to(dev, torch.bfloat16)
-            wd = cfg.wide_dilation
             timed("#3-int8 base S=8", lambda: fused_local_track_segments(
-                qt, x, bs, seg, 1, wd), track_pass)
+                qt, x, bs, seg, 1, wd), TRACK_PASSES)
             timed("#3-int8 fp leg base S=8",
                   lambda: fused_local_track_segments(ft, x, bs, seg, 1, wd),
-                  track_pass)
+                  TRACK_PASSES)
 
 
 def print_rows(card: str, rows: dict) -> None:
@@ -752,6 +786,9 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
                           time_ms(lambda: local_track_segment_oh_reference(
                               track, x, bs, oh, 1, wd)),
                           b_ms, b_by, per_call)
+                if dtype == torch.bfloat16 and L == 512:
+                    print_passes(card, "local_track_segments bf16 B=8 L=512 "
+                                       "C=512 S=8", lambda: run(x))
             rows[("local_track_segments", dtype, L, "S=8")] = (err,) + timing
 
     # #6: the one-pass trunk at the widths the reference runs it at.
@@ -1196,11 +1233,10 @@ def valid_kernel_phase(card: str, rows: dict) -> None:
                           time_ms(lambda: local_track_valid_reference(
                               track, xh, bc, 1, wd)),
                           b_ms, b_by, per_call)
-                if kernel is LOCAL_TRACK_TILED_VALID:
-                    print_passes(card, f"{kernel.name} bf16 B={B} "
-                                       f"L={Ls}+2*{H} C={C}",
-                                 lambda: fused_local_track_valid(
-                                     track, xh, bc, 1, wd))
+                print_passes(card, f"{kernel.name} bf16 B={B} "
+                                   f"L={Ls}+2*{H} C={C}",
+                             lambda: fused_local_track_valid(
+                                 track, xh, bc, 1, wd))
             rows[(kernel.name, dtype, Ls, "shard")] = (err,) + timing
             xm = F.pad(torch.randn((Bm, Lm, C), generator=gen).to(dev, dtype),
                        (0, 0, H, H))   # the main path's shape, world 1
@@ -1342,6 +1378,15 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
                  timed, local_track_flops(B, L, C) + 2 * B * L * S * C,
                  (2 * B * L * C + B * S * C) * s + tbytes + B * L * 4
                  + 7 * C * 4)
+            if timed and dtype == torch.bfloat16:
+                print_passes(card, "local_track_segments_q8 bf16 B=8 L=512 "
+                                   "C=512 S=8",
+                             lambda: fused_local_track_segments(
+                                 qt, x, bs, seg, 1, wd))
+                print_passes(card, "local_track_segments (its fp leg) bf16 "
+                                   "B=8 L=512 C=512 S=8",
+                             lambda: fused_local_track_segments(
+                                 ft, x, bs, seg, 1, wd))
             g = torch.randn((B, G), generator=gen).to(dev, dtype)
             pad = pad_rows(L)
             poh = pad[..., None].float()
@@ -2574,8 +2619,10 @@ def q8_parity_phase(card: str, base) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args not in ([], ["--phase", "large"], ["--phase", "k2"]):
-        print("usage: chip_smoke.py [--phase large|k2]", file=sys.stderr)
+    if args not in ([], ["--phase", "large"], ["--phase", "base"],
+                    ["--phase", "k2"]):
+        print("usage: chip_smoke.py [--phase large|base|k2]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2613,11 +2660,13 @@ def main() -> int:
         for line in k.ptxas_log.splitlines():
             if "serialized" in line or "arning" in line:
                 print(f"#     ptxas: {line.strip()}")   # e.g. wgmma waits
-    if args == ["--phase", "k2"]:
-        k2_phase(card)
+    if args in (["--phase", "base"], ["--phase", "k2"]):
+        base_phase(card)
         return 0
-    sass_line(card, (LOCAL_TRACK_TILED, LOCAL_TRACK_SEGMENTS_TILED,
-                     LOCAL_TRACK_TILED_VALID, ATTENTION, ATTENTION_Q8))
+    sass_line(card, (LOCAL_TRACK, LOCAL_TRACK_VALID, LOCAL_TRACK_SEGMENTS,
+                     LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_TILED,
+                     LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED_VALID,
+                     ATTENTION, ATTENTION_Q8))
     if args:
         # The Large-width local-track kernels alone: gates, times, passes.
         rows = {}

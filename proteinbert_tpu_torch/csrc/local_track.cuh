@@ -1,7 +1,12 @@
 // The fused local track of one ProteinBERT block, one (row, TL-row tile) at
-// a time — the device code shared by K1 (local_track.cu, dense rows),
-// kernel #3 (local_track_segments.cu, packed rows) and the one-pass trunk
-// #6 (one_pass.cu). Per position l of x (B, L, C):
+// a time (`track_tile`) — the CUDA-core / WMMA plan. Its users now: the
+// one-pass trunk #6 (one_pass.cu, one_pass_q8.cu) in both dtypes, and the
+// float32 legs of K1 (local_track.cu), K1's prehaloed entry
+// (local_track_valid.cu), #3 (local_track_segments.cu) and #3's int8 leg
+// (local_track_segments_q8.cu). Their bf16 legs run the wgmma + TMA passes
+// of local_track_sm90.cuh instead. This header also holds what every
+// local-track entry shares (`TrackArgs`, the tap geometry, the host-side
+// checks). Per position l of x (B, L, C):
 //
 //   h  = x + gelu(conv9,d=1(x) + nb) + gelu(conv9,d=D(x) + wb) + bcast
 //   x1 = LN1(h)                      (cast to the activation type)
@@ -30,9 +35,11 @@
 // re-read by every tile from L2, so the design's real limit is L2 -> SM
 // weight traffic per row of output.
 //
-// Design: the TPU kernel held the whole (L+40, C) row and all weights in
-// 13 MiB of VMEM; a Hopper block has 227 KB. So one block owns one
-// (b, TL-row tile) and ALL C channels (the LNs reduce over C):
+// Design (in bf16 at the base width it reaches 8% of the bound, PERF.md;
+// K1's and #3's bf16 legs run local_track_sm90.cuh instead): the TPU kernel
+// held the whole (L+40, C) row and all weights in 13 MiB of VMEM; a Hopper
+// block has 227 KB. So one block owns one (b, TL-row tile) and ALL C
+// channels (the LNs reduce over C):
 //   * its (TL + 40, C) input window stays in shared memory for all 18 taps;
 //   * weight tiles (KC x C) stream from L2 through a cp.async double buffer,
 //     overlapping the next tile's copy with this tile's product;

@@ -166,9 +166,10 @@ def check_tma(name: str, *tensors: torch.Tensor) -> None:
                              f"an address that is not 16-byte aligned "
                              f"(offset {t.storage_offset()} elements); TMA "
                              "needs 16")
-        for d in range(t.dim() - 1):
-            if (t.stride(d) * t.element_size()) % 16:
+        size = t.element_size()
+        for d, stride in enumerate(t.stride()[:-1]):
+            if (stride * size) % 16:
                 raise ValueError(f"{name}: a {tuple(t.shape)} operand has "
-                                 f"a stride of {t.stride(d)} elements in "
+                                 f"a stride of {stride} elements in "
                                  f"dimension {d}, not a multiple of 16 "
                                  "bytes; TMA needs one")

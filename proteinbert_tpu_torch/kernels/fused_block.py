@@ -30,6 +30,16 @@ in bfloat16 and float32 (again no float32 tiled plan in the JAX package;
 versions. A CUDA call the kernels do not cover (dtype, width, conv
 geometry) raises ValueError; nothing falls back.
 
+In bfloat16 every entry (K1, its prehaloed entry, #3 and its int8 leg, #2,
+#4) runs the two passes of `csrc/local_track_sm90.cuh` — a conv pass on
+wgmma fed by TMA and a finish pass — which meet in a float32 (B, L, C)
+scratch the wrapper allocates (`track_scratch_layout`, one buffer; on #3's
+int8 leg the buffer also holds the per-call bf16 weights its dequantize
+pass writes). TMA refuses an operand whose base is not 16-byte aligned, so
+the wrappers raise ValueError for such an x or conv / dense kernel before
+any launch (`check_tma`). float32 K1 and #3 keep their one-launch
+CUDA-core kernel and need no scratch.
+
 `fused_local_track_valid` takes a PREHALOED shard, xh (B, L + 2·halo, C)
 whose first and last `track_halo` rows are a neighbour shard's real rows
 (`parallel/halo.halo_exchange`), and returns the (B, L, C) centre. On a
@@ -49,8 +59,10 @@ the JAX XLA reference (`local_track_grad_reference`,
 
 int8 weights (`kernels/quant_leaves`, the int8 serving arm): for C <=
 512 `fused_local_track_segments` runs #3's int8 leg
-(`csrc/local_track_segments_q8.cu`, fused_block.py:414-420), which
-dequantizes each weight tile on its way into shared memory; at the tiled
+(`csrc/local_track_segments_q8.cu`, fused_block.py:414-420), which in
+bfloat16 dequantizes the weights once a call into scratches
+(`track_dequant_reference` is that pass's plain version) and in float32
+each weight tile on its way into shared memory; at the tiled
 widths it dequantizes first and runs #4 (:421-423), and
 `fused_local_track` always dequantizes first (K1 and #2 have no int8 leg;
 the JAX dispatch dequantizes before them, one_pass.py:580). The int8 leg
@@ -74,6 +86,8 @@ difference at the last float32 bit.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Callable, Dict
 
 import torch
@@ -98,12 +112,16 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 TRACK_PARAMS = ("narrow_conv", "wide_conv", "local_ln1", "local_dense",
                 "local_ln2")
 
+# Every entry's C signature: dtype, x, [seg], bcast, the weights (int8 leg:
+# each conv / dense kernel followed by its scales), biases and LN vectors,
+# the scratches (`track_scratch_layout`'s parts), out, then B, L, C, [S],
+# wide dilation and the stream.
 LOCAL_TRACK = Kernel(
     "local_track", "local_track.cu", "pbt_local_track",
-    [INT] + [PTR] * 13 + [INT] * 4 + [PTR])
+    [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
 LOCAL_TRACK_SEGMENTS = Kernel(
     "local_track_segments", "local_track_segments.cu",
-    "pbt_local_track_segments", [INT] + [PTR] * 14 + [INT] * 5 + [PTR])
+    "pbt_local_track_segments", [INT] + [PTR] * 15 + [INT] * 5 + [PTR])
 LOCAL_TRACK_TILED = Kernel(
     "local_track_tiled", "local_track_tiled.cu", "pbt_local_track_tiled",
     [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
@@ -112,10 +130,10 @@ LOCAL_TRACK_SEGMENTS_TILED = Kernel(
     "pbt_local_track_segments_tiled", [INT] + [PTR] * 15 + [INT] * 5 + [PTR])
 LOCAL_TRACK_SEGMENTS_Q8 = Kernel(
     "local_track_segments_q8", "local_track_segments_q8.cu",
-    "pbt_local_track_segments_q8", [INT] + [PTR] * 17 + [INT] * 5 + [PTR])
+    "pbt_local_track_segments_q8", [INT] + [PTR] * 21 + [INT] * 5 + [PTR])
 LOCAL_TRACK_VALID = Kernel(
     "local_track_valid", "local_track_valid.cu", "pbt_local_track_valid",
-    [INT] + [PTR] * 13 + [INT] * 4 + [PTR])
+    [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
 LOCAL_TRACK_TILED_VALID = Kernel(
     "local_track_tiled_valid", "local_track_tiled_valid.cu",
     "pbt_local_track_tiled_valid", [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
@@ -413,6 +431,49 @@ def _track_operands(name: str, params: Params, x: torch.Tensor,
     return KERNEL_DTYPES[dtype], (*nk, nb, *wk, wb, s1, b1, *dk, db, s2, b2)
 
 
+@functools.lru_cache(maxsize=64)
+def track_scratch_layout(B: int, L: int, C: int, quant: bool) -> tuple:
+    """The scratches of one bf16 local-track call (and of #2 / #4 in
+    float32) as parts of one byte buffer, in the C entry's order: ((shape,
+    dtype, byte offset), ...) and the buffer's bytes, each part 256-byte
+    aligned. On #3's int8 leg the dequantized nk, wk (9, C, C) and dk (C,
+    C) bf16 its dequantize pass writes, then the float32 (B, L, C) h where
+    the conv pass and the finish pass meet (csrc/local_track_sm90.cuh)."""
+    parts = ([((KERNEL_TAPS, C, C), torch.bfloat16)] * 2
+             + [((C, C), torch.bfloat16)] if quant else [])
+    parts.append(((B, L, C), torch.float32))
+    layout, offset = [], 0
+    for shape, dtype in parts:
+        layout.append((shape, dtype, offset))
+        offset += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+    return tuple(layout), offset
+
+
+def _scratch(B: int, L: int, C: int, quant: bool, needed: bool,
+             device: torch.device):
+    """One fresh buffer for `track_scratch_layout`'s parts (each
+    torch.empty costs the host several microseconds) and the parts'
+    addresses; (None, [None, ...]) where the launch needs no scratch
+    (float32 K1 and #3). The caller keeps the buffer until it has
+    launched."""
+    layout, nbytes = track_scratch_layout(B, L, C, quant)
+    if not needed:
+        return None, [None] * len(layout)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + off for _, _, off in layout]
+
+
+def track_dequant_reference(q: torch.Tensor, scale: torch.Tensor,
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> torch.Tensor:
+    """Plain version of #3-int8's dequantize pass
+    (csrc/local_track_sm90.cuh `dequant_track_kernel`): int8 q (..., C_in,
+    C_out) with float32 scales (..., C_out), one per (tap, output column)
+    → q·scale in float32, cast to `dtype`: the operand the floating-point
+    leg loads from the dequantized weights."""
+    return dequant_leaf({"q": q, "scale": scale}).to(dtype)
+
+
 def _device_check(name: str, x: torch.Tensor) -> bool:
     """True for a CPU tensor (take the plain version); raise for a device
     the port does not run on; False for CUDA (launch)."""
@@ -429,7 +490,8 @@ def _launch_track(
 ) -> torch.Tensor:
     """One launch of K1 (C <= 512) or #2 (512 < C <= 2048) on CUDA
     tensors — of their prehaloed entries when halo > 0, x then (B, L +
-    2·halo, C); ValueError for what neither covers."""
+    2·halo, C); ValueError, before any launch, for what neither covers (a
+    shape, or in bf16 an x, nk, wk or dk TMA cannot read)."""
     B, Lx, C = x.shape
     L = Lx - 2 * halo
     code, weights = _track_operands(
@@ -444,19 +506,20 @@ def _launch_track(
     x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast))
     out = torch.empty((B, L, C), dtype=x.dtype, device=x.device)
     if C in KERNEL_WIDTHS:
-        ops = (x, bc, *weights, out)
         kernel = LOCAL_TRACK_VALID if halo else LOCAL_TRACK
     else:
-        # #2's two passes meet in a float32 (B, L, C) scratch.
-        h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
-        ops = (x, bc, *weights, h, out)
         kernel = LOCAL_TRACK_TILED_VALID if halo else LOCAL_TRACK_TILED
-        if x.dtype == torch.bfloat16:  # both passes read these by TMA
-            check_tma(name, x, weights[0], weights[2], weights[6])
-    check_cuda(name, *ops)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:  # the conv pass reads x, nk, wk by TMA, the finish pass dk
+        check_tma(name, x, weights[0], weights[2], weights[6])
+    check_cuda(name, x, bc, *weights, out)
+    # The two passes (bf16, and #2 in float32) meet in a float32 scratch.
+    _buf, (h,) = _scratch(B, L, C, False, bf16 or C not in KERNEL_WIDTHS,
+                          x.device)
     with torch.cuda.device(x.device):
-        kernel.launch(code, *(t.data_ptr() for t in ops), B, L, C,
-                      wide_dilation, stream_ptr(x.device))
+        kernel.launch(code, *(t.data_ptr() for t in (x, bc, *weights)), h,
+                      out.data_ptr(), B, L, C, wide_dilation,
+                      stream_ptr(x.device))
     return out
 
 
@@ -541,7 +604,9 @@ def _segments_kernel(
 ) -> torch.Tensor:
     """One launch of #3 (C <= 512) or #4 (512 < C <= 2048) on CUDA
     tensors — of #3's int8 leg for quant leaves (C <= 512 only);
-    ValueError for what none covers."""
+    ValueError, before any launch, for what none covers (a shape, or in
+    bf16 an x or conv / dense kernel that TMA, or the int8 leg's 16-byte
+    loads, cannot read)."""
     B, L, C = x.shape
     S = broadcast_seg.shape[1]
     quant = is_quant_leaf(params["narrow_conv"]["kernel"])
@@ -559,22 +624,25 @@ def _segments_kernel(
     x, bc = (t.to(x.dtype).contiguous() for t in (x, broadcast_seg))
     seg = segment_ids.to(torch.int32).contiguous()
     out = torch.empty_like(x)
+    if C in KERNEL_WIDTHS:
+        kernel = LOCAL_TRACK_SEGMENTS_Q8 if quant else LOCAL_TRACK_SEGMENTS
+    else:
+        kernel = LOCAL_TRACK_SEGMENTS_TILED
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        # The conv pass reads x, nk, wk by TMA, the finish pass dk; the
+        # int8 leg's dequantize pass reads int8 nq, wq, dq and their scales
+        # in 16-byte loads.
+        check_tma("fused_local_track_segments", x,
+                  *(weights[i] for i in ((0, 1, 3, 4, 8, 9) if quant
+                                         else (0, 2, 6))))
+    check_cuda("fused_local_track_segments", x, seg, bc, *weights, out)
+    _buf, scratch = _scratch(B, L, C, quant, bf16 or C not in KERNEL_WIDTHS,
+                             x.device)
     with torch.cuda.device(x.device):
-        if C in KERNEL_WIDTHS:
-            ops = (x, seg, bc, *weights, out)
-            kernel = (LOCAL_TRACK_SEGMENTS_Q8 if quant
-                      else LOCAL_TRACK_SEGMENTS)
-        else:
-            # #4's two passes meet in a float32 (B, L, C) scratch.
-            h = torch.empty((B, L, C), dtype=torch.float32, device=x.device)
-            ops = (x, seg, bc, *weights, h, out)
-            kernel = LOCAL_TRACK_SEGMENTS_TILED
-            if x.dtype == torch.bfloat16:  # both passes read these by TMA
-                check_tma("fused_local_track_segments", x, weights[0],
-                          weights[2], weights[6])
-        check_cuda("fused_local_track_segments", *ops)
-        kernel.launch(code, *(t.data_ptr() for t in ops), B, L, C, S,
-                      wide_dilation, stream_ptr(x.device))
+        kernel.launch(code, *(t.data_ptr() for t in (x, seg, bc, *weights)),
+                      *scratch, out.data_ptr(), B, L, C, S, wide_dilation,
+                      stream_ptr(x.device))
     return out
 
 

@@ -265,8 +265,7 @@ def test_segment_track_kernel_widths(C, kernel, monkeypatch):
     else:
         out = tfused._segments_kernel(*args)
         assert out.shape == (B, L, C) and out.dtype == torch.bfloat16
-        # One launch, with the arguments its C signature declares (#4's
-        # has one pointer more than #3's: the scratch).
+        # One launch, with the arguments its C signature declares.
         assert calls == [(kernel, len(kernels[kernel].argtypes))]
 
 
@@ -330,6 +329,113 @@ def test_tiled_launchers_refuse_what_tma_cannot_read(entry, monkeypatch):
     assert calls == []
     assert run(flat[8:n + 8].view(B, rows, C)).shape == (B, L, C)
     assert len(calls) == 1
+
+
+# --------------------------------- K1, its prehaloed entry, #3 in bf16
+
+@pytest.fixture
+def track_launches(monkeypatch):
+    """The local-track launches recorded (name, arguments), not run; meta
+    tensors stand in for the card's."""
+    calls = []
+    for k in (tfused.LOCAL_TRACK, tfused.LOCAL_TRACK_VALID,
+              tfused.LOCAL_TRACK_SEGMENTS, tfused.LOCAL_TRACK_TILED,
+              tfused.LOCAL_TRACK_TILED_VALID,
+              tfused.LOCAL_TRACK_SEGMENTS_TILED):
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: calls.append(
+            (k.name, a)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfused, "stream_ptr", lambda d: 0)
+    return calls
+
+
+def _meta_track(C, dtype=torch.float32):
+    p = {name: {k: _meta(C, dtype=torch.float32) for k in ("bias", "scale")}
+         for name in tfused.TRACK_PARAMS}
+    for name in ("narrow_conv", "wide_conv"):
+        p[name]["kernel"] = _meta(9, C, C, dtype=dtype)
+    p["local_dense"]["kernel"] = _meta(C, C, dtype=dtype)
+    return p
+
+
+def _base_call(entry, p, x, B, L, S=3):
+    """One launch of K1 ("dense"), its prehaloed entry or #3 at x's
+    width."""
+    C = x.shape[-1]
+    if entry == "segments":
+        return tfused._segments_kernel(p, x, _meta(B, S, C, dtype=x.dtype),
+                                       _meta(B, L, dtype=torch.int32), 1, 5)
+    if entry == "prehaloed":
+        return tfused._local_track_valid_kernel(
+            p, x, _meta(B, C, dtype=x.dtype), 1, 5)
+    return tfused._local_track_kernel(p, x, _meta(B, C, dtype=x.dtype), 1, 5)
+
+
+_BASE_KERNELS = {"dense": tfused.LOCAL_TRACK,
+                 "prehaloed": tfused.LOCAL_TRACK_VALID,
+                 "segments": tfused.LOCAL_TRACK_SEGMENTS}
+
+
+@pytest.mark.parametrize("operand", ["x", "narrow_conv", "wide_conv",
+                                     "local_dense"])
+@pytest.mark.parametrize("entry", ["dense", "prehaloed", "segments"])
+def test_base_width_launchers_refuse_what_tma_cannot_read(entry, operand,
+                                                          track_launches):
+    """K1, its prehaloed entry and #3 in bf16 at C=512 (the wgmma + TMA
+    passes) raise ValueError, before any launch, for an x, narrow or wide
+    conv kernel (the conv pass reads them by TMA) or dense kernel (the
+    finish pass does) whose base is not 16-byte aligned; the same call on
+    aligned operands launches once, with the arguments its C signature
+    declares."""
+    C, B, L = 512, 2, 48
+    p = _meta_track(C, torch.bfloat16)
+    rows = L + (2 * tfused.track_halo(p, 1, 5) if entry == "prehaloed" else 0)
+    x = _meta(B, rows, C)
+    target = x if operand == "x" else p[operand]["kernel"]
+    n = target.numel()
+    flat = _meta(n + 8)
+
+    def call(t):
+        if operand == "x":
+            return _base_call(entry, p, t, B, L)
+        q = {**p, operand: {**p[operand], "kernel": t}}
+        return _base_call(entry, q, x, B, L)
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(flat[1:n + 1].view(target.shape))
+    assert track_launches == []
+    out = call(flat[8:n + 8].view(target.shape))
+    assert out.shape == (B, L, C) and out.dtype == torch.bfloat16
+    kernel = _BASE_KERNELS[entry]
+    assert [(name, len(a)) for name, a in track_launches] == [
+        (kernel.name, len(kernel.argtypes))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("entry", ["dense", "prehaloed", "segments"])
+def test_base_width_scratches_have_the_c_entry_shapes(entry, dtype,
+                                                      track_launches):
+    """In bf16 K1, its prehaloed entry and #3 pass the float32 (B, L, C)
+    scratch where their two passes meet — the one part of
+    `track_scratch_layout` off the int8 leg — just before out, the
+    position csrc/local_track{,_valid,_segments}.cu take it at; float32
+    (one CUDA-core launch) passes none."""
+    C, B, L = 256, 2, 40
+    p = _meta_track(C, dtype)
+    rows = L + (2 * tfused.track_halo(p, 1, 5) if entry == "prehaloed" else 0)
+    layout, nbytes = tfused.track_scratch_layout(B, L, C, False)
+    assert layout == (((B, L, C), torch.float32, 0),)
+    assert nbytes >= B * L * C * 4 and nbytes % 256 == 0
+    out = _base_call(entry, p, _meta(B, rows, C, dtype=dtype), B, L)
+    assert out.shape == (B, L, C) and out.dtype == dtype
+    ((name, a),) = track_launches
+    kernel = _BASE_KERNELS[entry]
+    assert name == kernel.name and len(a) == len(kernel.argtypes)
+    # ..., b2, h, out, then B, L, C, [S,] wide dilation and the stream
+    h = a[-8] if entry == "segments" else a[-7]
+    assert (h is None) == (dtype == torch.float32)
+    assert a[0] == tfused.KERNEL_DTYPES[dtype]
 
 
 # ------------------------------------------------------------------ K2

@@ -447,6 +447,91 @@ def test_segment_track_int8_kernel_widths(C, ok, recorded):
         tfused.LOCAL_TRACK_SEGMENTS_Q8.argtypes))]
 
 
+@pytest.mark.parametrize("operand", ["x", "narrow_conv", "wide_conv",
+                                     "local_dense"])
+def test_segment_track_int8_refuses_what_it_cannot_read(operand, recorded):
+    """#3's int8 leg in bf16 at C=512 raises ValueError, before any launch,
+    for an x whose base is not 16-byte aligned (its conv pass reads x by
+    TMA) or an int8 conv or dense kernel its dequantize pass cannot read in
+    16-byte loads; aligned operands launch once."""
+    C, B, L = 512, 2, 24
+    p = _meta_track(C)
+    x = _meta(B, L, C)
+    target = x if operand == "x" else p[operand]["kernel"]["q"]
+    n = target.numel()
+    flat = _meta(n + 16, dtype=target.dtype)
+
+    def call(t):
+        q = p if operand == "x" else {
+            **p, operand: {**p[operand],
+                           "kernel": {**p[operand]["kernel"], "q": t}}}
+        return tfused._segments_kernel(
+            q, t if operand == "x" else x, _meta(B, 3, C),
+            _meta(B, L, dtype=torch.int32), 1, 5)
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(flat[1:n + 1].view(target.shape))
+    assert recorded == []
+    assert call(flat[16:n + 16].view(target.shape)).shape == (B, L, C)
+    assert recorded == [("local_track_segments_q8", len(
+        tfused.LOCAL_TRACK_SEGMENTS_Q8.argtypes))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_segment_track_int8_scratches_have_the_c_entry_shapes(
+        dtype, monkeypatch, recorded):
+    """#3's int8 leg in bf16 carves the dequantized nk, wk (9, C, C) and dk
+    (C, C) in bf16, then the float32 (B, L, C) h of its two passes, in the
+    order csrc/local_track_segments_q8.cu takes them, from one buffer
+    (256-byte aligned parts that do not overlap), and passes the parts'
+    addresses; float32 (the CUDA-core plan) passes none."""
+    from proteinbert_tpu_torch.kernels import KERNELS
+
+    args = []
+    for k in KERNELS:   # record the arguments too
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: args.append(a))
+    C, B, L, S = 256, 2, 40, 3
+    bf16, f32 = torch.bfloat16, torch.float32
+    layout, nbytes = tfused.track_scratch_layout(B, L, C, True)
+    assert [(shape, dt) for shape, dt, _ in layout] == [
+        ((9, C, C), bf16), ((9, C, C), bf16), ((C, C), bf16),
+        ((B, L, C), f32)]
+    offsets = [off for _, _, off in layout]
+    ends = [off + np.prod(shape) * dt.itemsize for shape, dt, off in layout]
+    assert all(off % 256 == 0 for off in offsets)
+    assert offsets[0] == 0 and ends[:-1] <= offsets[1:] and ends[-1] <= nbytes
+    out = tfused._segments_kernel(
+        _meta_track(C), _meta(B, L, C, dtype=dtype),
+        _meta(B, S, C, dtype=dtype), _meta(B, L, dtype=torch.int32), 1, 5)
+    assert out.shape == (B, L, C) and out.dtype == dtype
+    (a,) = args
+    assert len(a) == len(tfused.LOCAL_TRACK_SEGMENTS_Q8.argtypes)
+    # dtype, x, seg, bcast, (nq, ns), nb, (wq, ws), wb, s1, b1, (dq, ds),
+    # db, s2, b2, then the scratches nk, wk, dk, h
+    ptrs = a[17:21]
+    if dtype == torch.float32:
+        assert ptrs == (None,) * 4
+    else:
+        assert [q - ptrs[0] for q in ptrs] == offsets
+
+
+@pytest.mark.parametrize("name", ["narrow_conv", "wide_conv", "local_dense"])
+def test_track_dequantize_plain_version_is_the_fp_legs_weights(qinputs,
+                                                               name):
+    """The plain version of #3-int8's dequantize pass
+    (`track_dequant_reference`, q·scale in float32 cast to bf16, the
+    values csrc/local_track_sm90.cuh `dequant_track_kernel` writes) equals,
+    bit for bit, the bf16 weights the floating-point leg launches with on
+    the dequantized weights: `dequant_params`, then `weight_operands`."""
+    leaf = qinputs["ttrack"][name]["kernel"]
+    got = tfused.track_dequant_reference(leaf["q"], leaf["scale"])
+    (want,) = tfused.weight_operands(
+        "t", tfused.dequant_params({"k": leaf})["k"], torch.bfloat16)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == leaf["q"].shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("G,H,ok", [(512, 8, True), (512, 4, True),
                                     (384, 4, False)])
 def test_attention_int8_kernel_value_dims(G, H, ok, recorded):
