@@ -6,6 +6,7 @@ card.
     python3 chip_smoke.py --phase large   # the Large-width local track only
     python3 chip_smoke.py --phase base    # K1, #3, K2 and int8 legs' times
     python3 chip_smoke.py --phase k2      # the same as --phase base
+    python3 chip_smoke.py --phase default # #6 and #6-int8's times
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -39,10 +40,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               kernel names (`# passes`), #3-int8 with its dequantize pass
               beside its fp leg, and so K2's bf16 passes (query,
               projection, softmax; the int8 leg's dequantize pass) at base
-              width (B=8, L=512) and Large width (L=1024), dense and S=8;
+              width (B=8, L=512) and Large width (L=1024), dense and S=8,
+              and #6's bf16 passes (query, conv, finish, projection,
+              softmax) at C=128, B=8, L=512, dense and S=8;
               the HGMMA and UTMALDG counts `cuobjdump -sass` finds in the
               libraries of K1, its prehaloed entry, #3, #3-int8, #2, its
-              prehaloed entry, #4 and both K2 entries (`# SASS`), and an
+              prehaloed entry, #4, both K2 entries and both #6 legs
+              (`# SASS`), and an
               equal-FLOP torch.matmul GEMM yardstick (never called by the
               port);
               K2 at Large width (C=G=1024, H=16, L=1024) dense and packed
@@ -142,7 +146,10 @@ older name `--phase k2`) runs the build and `base_phase`: the wall, host
 enqueue time and device time by pass of K1, K1's prehaloed entry, #3,
 #3-int8 and K2 (and K2-int8) at the kernel table's shapes, no gate and no
 result line; it also runs on the parent commit's package, so one call can
-time both.
+time both. `--phase default` does the same for #6 and #6-int8 in bf16
+(`default_phase`: B=8, C=128, G=512, H=4, v=128 at L=512 and L=128, dense
+and S=8, and C=512, H=4, L=128, S=8), each beside the composition K1 or
+#3, then K2, on the same inputs.
 """
 
 from __future__ import annotations
@@ -232,6 +239,16 @@ K2_PASSES = (("query", "attn_query_kernel"),
              ("softmax", "attn_softmax_kernel"),
              ("dequant", "dequant_kv_kernel"),
              ("one-block plan", "attention_kernel"))
+# #6's passes in bf16 (PR 10: the int8 leg's dequantize pass, query and
+# mask ids, conv, finish, projection, softmax); before PR 10, and in
+# float32, the one-launch cluster plan.
+ONEPASS_PASSES = (("dequantize", "onepass_dequant_kernel"),
+                  ("query", "onepass_query_kernel"),
+                  ("conv", "conv_kernel"),
+                  ("finish", "finish_kernel"),
+                  ("projection", "wgmma_attn_kernel"),
+                  ("softmax", "attn_softmax_kernel"),
+                  ("cluster plan", "onepass_kernel"))
 # The Large steps, dense and packed, as this script measured them when the
 # kernels' backward still recomputed in float32 (NVIDIA H100 80GB HBM3,
 # 700.00 W): one profiled step's ms, its forward, backward and optimizer
@@ -329,6 +346,26 @@ def print_passes(card: str, label: str, fn, passes=TRACK_PASSES) -> None:
     shown = ", ".join(f"{k} {v:.4f} ms" for k, v in got.items())
     print(f"# passes {label} [{card}]: {shown} per call; device "
           f"{device:.4f} ms (torch.profiler, 10 calls: {names})")
+
+
+def enqueue_us(fn, n: int = 50) -> float:
+    """The host's time to issue one call: n calls without a sync (the card
+    is faster than the host here, so none waits on it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def print_timed(card: str, tag: str, label: str, fn, passes) -> None:
+    """One call's wall ms, host enqueue time and device ms by pass."""
+    print(f"# {tag} {label}: wall {time_ms(fn):.4f} ms, host enqueue "
+          f"{enqueue_us(fn):.1f} us a call [{card}]")
+    print_passes(card, label, fn, passes)
 
 
 def ptxas_functions(log: str):
@@ -567,22 +604,8 @@ def base_phase(card: str) -> None:
 
     dev = torch.device(DEVICE)
 
-    def enqueue_us(fn, n=50):
-        """The host's time to issue one call: n calls without a sync (the
-        card is faster than the host here, so none waits on it)."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        us = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
-        return us
-
     def timed(label, fn, passes=K2_PASSES):
-        print(f"# base {label}: wall {time_ms(fn):.4f} ms, host enqueue "
-              f"{enqueue_us(fn):.1f} us a call [{card}]")
-        print_passes(card, label, fn, passes)
+        print_timed(card, "base", label, fn, passes)
 
     for name, L in (("base", 512), ("large", 1024)):
         cfg = get_preset(name).model
@@ -638,6 +661,101 @@ def base_phase(card: str) -> None:
             timed("#3-int8 fp leg base S=8",
                   lambda: fused_local_track_segments(ft, x, bs, seg, 1, wd),
                   TRACK_PASSES)
+
+
+def default_phase(card: str) -> None:
+    """`--phase default`: #6 and #6-int8 in bf16 under inference mode as
+    served, at the ModelConfig default width (B=8, C=128, G=512, H=4,
+    v=128) at L=512 and L=128, dense and S=8, and at C=512, H=4, L=128,
+    S=8 (the kernel table's shapes): each call's wall ms (median of 25
+    CUDA-event timings), host enqueue time and device ms by pass, and
+    beside it the composition the one-pass rule chooses against on the
+    same inputs (K1 or #3, then K2, or their int8 legs). Then where #6
+    runs six times: one full ragged 8 x 512 embed batch of a default-width
+    server on the fp32 and the int8 arm, and a default-width packed train
+    step (B=8, L=512), each through torch.profiler (`# profile` lines:
+    wall and device busy). It uses only the package's public entries, so
+    it also times the parent commit's package."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ONEPASS, TRACK_PARAMS, fused_global_attention, fused_local_track,
+        fused_local_track_segments, fused_onepass_dense,
+        fused_onepass_segments, fused_packed_attention,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, init, to_device,
+    )
+    from proteinbert_tpu_torch.parallel.quant import quantize_params
+    from proteinbert_tpu_torch.serve.server import Server
+
+    dev = torch.device(DEVICE)
+    base = get_preset("base").model
+    wd = base.wide_dilation
+    gen = torch.Generator().manual_seed(13)
+    B, S = 8, 8
+    for C, G, H, lengths in ((128, 512, 4, (512, 128)), (512, 512, 4, (128,))):
+        cfg = dataclasses.replace(base, local_dim=C, global_dim=G,
+                                  num_heads=H)
+        blk = to_device(block_init(gen, cfg), dev)
+        cast = cast_block(blk, torch.bfloat16)
+        q = cast_block(quantize_params(blk), torch.bfloat16)
+        legs = {"": ({n: cast[n] for n in TRACK_PARAMS}, cast["attention"]),
+                "-int8": ({n: q[n] for n in TRACK_PARAMS}, q["attention"])}
+        for L in lengths:
+            x = torch.randn((B, L, C), generator=gen).to(dev, torch.bfloat16)
+            bc = torch.randn((B, C), generator=gen).to(dev, torch.bfloat16)
+            bs = torch.randn((B, S, C), generator=gen).to(dev, torch.bfloat16)
+            g = torch.randn((B, G), generator=gen).to(dev, torch.bfloat16)
+            gs = torch.randn((B, S, G), generator=gen).to(dev,
+                                                          torch.bfloat16)
+            seg = packed_ids(gen, B, L, S).to(dev)
+            real = (torch.rand((B, L), generator=gen) > 0.1).to(dev)
+            pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+            pad[1, L // 2:] = False
+            cases = (("S=8", lambda t, a: fused_onepass_segments(
+                          t, a, x, bs, gs, seg, real, 1, wd),
+                      lambda t, a: fused_packed_attention(
+                          a, fused_local_track_segments(t, x, bs, seg, 1, wd),
+                          gs, seg, real)),
+                     ("dense", lambda t, a: fused_onepass_dense(
+                          t, a, x, bc, g, pad, 1, wd),
+                      lambda t, a: fused_global_attention(
+                          a, fused_local_track(t, x, bc, 1, wd), g, pad)))
+            for case, onepass, composed in cases:
+                if C == 512 and case == "dense":
+                    continue
+                shape = f"B=8 L={L} C={C} G={G} H={H} {case}"
+                for leg, (track, attn) in legs.items():
+                    with torch.inference_mode():
+                        print_timed(card, "default", f"#6{leg} {shape}",
+                                    lambda: onepass(track, attn),
+                                    ONEPASS_PASSES)
+                        print_timed(card, "default",
+                                    f"composition{leg} {shape}",
+                                    lambda: composed(track, attn),
+                                    TRACK_PASSES + K2_PASSES)
+
+    cfg = get_preset("base").replace(model=ModelConfig())
+    for quant in ("fp32", "int8"):
+        srv = Server(init(cfg.model, torch.Generator().manual_seed(0),
+                          device=DEVICE), cfg, device=DEVICE,
+                     buckets=BUCKETS, max_batch=8, serve_mode="ragged",
+                     pack_max_segments=8, quant=quant, quant_parity_every=0)
+        packed = full_ragged_batch(srv)
+        profile_batch(card, f"default width ragged {quant}, one packed embed "
+                            "batch 8x512 (24 segments)",
+                      lambda: srv.dispatcher.run_packed("embed", *packed))
+        check(srv.drain(timeout=300), "drain timed out")
+        del srv
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, batch_size=8, seq_len=512,
+                                 packing=True, pack_max_segments=8),
+        train=dataclasses.replace(cfg.train, max_steps=2, log_every=1,
+                                  eval_every=0))
+    out, _, _, _, batch, _ = train_run(card, "default width packed", cfg, 2,
+                                       {ONEPASS.name: 6}, (50, 250), 1)
+    profile_step(card, "train default width packed, one step B=8 L=512",
+                 out["state"], batch, cfg)
 
 
 def print_rows(card: str, rows: dict) -> None:
@@ -864,6 +982,10 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
                                              "times in one call")
                         timing = (time_ms(lambda: run(x)), time_ms(plain),
                                   b_ms, b_by, per_call)
+                        if dtype == torch.bfloat16 and L == 512:
+                            print_passes(card, f"one_pass bf16 B=8 L=512 "
+                                               f"C=128 {case}",
+                                         lambda: run(x), ONEPASS_PASSES)
                     rows[("one_pass", dtype, L,
                           f"C={width} {case}")] = (err,) + timing
 
@@ -2620,8 +2742,8 @@ def q8_parity_phase(card: str, base) -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
-                    ["--phase", "k2"]):
-        print("usage: chip_smoke.py [--phase large|base|k2]",
+                    ["--phase", "k2"], ["--phase", "default"]):
+        print("usage: chip_smoke.py [--phase large|base|k2|default]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2663,10 +2785,13 @@ def main() -> int:
     if args in (["--phase", "base"], ["--phase", "k2"]):
         base_phase(card)
         return 0
+    if args == ["--phase", "default"]:
+        default_phase(card)
+        return 0
     sass_line(card, (LOCAL_TRACK, LOCAL_TRACK_VALID, LOCAL_TRACK_SEGMENTS,
                      LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_TILED,
                      LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED_VALID,
-                     ATTENTION, ATTENTION_Q8))
+                     ATTENTION, ATTENTION_Q8, ONEPASS, ONEPASS_Q8))
     if args:
         # The Large-width local-track kernels alone: gates, times, passes.
         rows = {}

@@ -1,8 +1,8 @@
 // Global attention of one ProteinBERT block for one (head, batch row) over a
-// segment mask — the device code of K2 in float32 (global_attention.cu;
-// K2's bf16 passes are attention_sm90.cuh's) and of the one-pass trunk #6
-// (one_pass.cu), both types. With x (L, C), a mask m(l, s) and global rows
-// g (S, G):
+// segment mask — the device code of K2 (global_attention.cu) and of the
+// one-pass trunk #6 (one_pass.cu), float32 only: both run
+// attention_sm90.cuh's passes in bf16 (#6 through one_pass_sm90.cuh). With
+// x (L, C), a mask m(l, s) and global rows g (S, G):
 //
 //   q_h = tanh(g @ wq[h])                    (S, k)
 //   K_h = tanh(x @ wk[h]),  V_h = gelu(x @ wv[h])   (L, k), (L, v)
@@ -28,8 +28,8 @@
 // O(L*S) instead of O(L*v), so any bucket length fits one block. key_dim is
 // 64; value_dim VD is 64 or 128.
 //
-// Q8 = true is the int8 leg of K2 in float32 (global_attention_q8.cu) and
-// of #6: wq, wk, wv arrive as int8 with float32 per-(head, column) scales;
+// Q8 = true is the float32 int8 leg of K2 (global_attention_q8.cu) and of
+// #6: wq, wk, wv arrive as int8 with float32 per-(head, column) scales;
 // the wk / wv tiles are dequantized on their way into shared memory
 // (common.cuh `Q8Tile`, loaded into registers during the previous step's
 // product) and the query projection dequantizes each wq value it reads, so

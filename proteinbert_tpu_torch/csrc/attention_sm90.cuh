@@ -1,9 +1,11 @@
 // K2 in bfloat16 for Hopper (sm_90a): the global attention of one
 // ProteinBERT block as a query pass, one projection GEMM for all heads on
 // `wgmma` fed by TMA, and a softmax / weighted-sum pass. The device code of
-// both K2 entries (global_attention.cu, global_attention_q8.cu) in bf16;
-// float32 keeps attention.cuh's CUDA-core plan (`attention_head`), as #2 and
-// #4 keep theirs, because the tensor cores have no exact float32 mode.
+// both K2 entries (global_attention.cu, global_attention_q8.cu) in bf16,
+// and of #6's query (with its mask ids), projection and softmax passes
+// (one_pass_sm90.cuh); float32 keeps attention.cuh's CUDA-core plan
+// (`attention_head`), as #2 and #4 keep theirs, because the tensor cores
+// have no exact float32 mode.
 //
 // It computes what attention.cuh's header states, at the same rounding
 // points (`_attention_body`, attention.py:195-228): with ids (B, L) holding
@@ -143,14 +145,15 @@ __device__ __forceinline__ void load8(const WeightT<bf16, Q8>* p,
   }
 }
 
-// Pass 1: q[b, s, h, :] for four segments s0 .. s0+3 of batch row b.
-// Thread t sums 8 of the 64 columns (8 * (t % 8) ..) over one of 32 parts
-// of G (t / 8), the loads of successive k independent; the parts are then
-// summed in a fixed order.
+// Pass 1: q[b, s, h, :] for four segments s0 .. s0+3 of batch row b, one
+// 256-thread block (K2's query pass, and #6's, whose blocks also write its
+// mask ids: one_pass_sm90.cuh). Thread t sums 8 of the 64 columns (8 * (t
+// % 8) ..) over one of 32 parts of G (t / 8), the loads of successive k
+// independent; the parts are then summed in a fixed order.
 template <bool Q8>
-__global__ void __launch_bounds__(kThreads)
-    attn_query_kernel(const bf16* __restrict__ g, AttnWeights<bf16, Q8> w,
-                      float* __restrict__ qbuf, int S, int G, int H) {
+__device__ __forceinline__ void attn_query_block(
+    const bf16* __restrict__ g, const AttnWeights<bf16, Q8>& w,
+    float* __restrict__ qbuf, int S, int G, int H) {
   constexpr int kParts = kThreads / 8;
   const int h = blockIdx.x, b = blockIdx.y, s0 = blockIdx.z * 4;
   const int jg = threadIdx.x % 8, part = threadIdx.x / 8;
@@ -192,6 +195,13 @@ __global__ void __launch_bounds__(kThreads)
     qbuf[((size_t(b) * S + s0 + u) * H + h) * kKD + j] =
         round_to<bf16>(tanhf(round_to<bf16>(v)));
   }
+}
+
+template <bool Q8>
+__global__ void __launch_bounds__(kThreads)
+    attn_query_kernel(const bf16* __restrict__ g, AttnWeights<bf16, Q8> w,
+                      float* __restrict__ qbuf, int S, int G, int H) {
+  attn_query_block<Q8>(g, w, qbuf, S, G, H);
 }
 
 // One 64-channel chunk of a consumer warpgroup's products, both operands
@@ -470,17 +480,17 @@ __global__ void __launch_bounds__(kSoftThreads)
 // The int8 leg's dequantize pass: wk (H, C, 64) and wv (H, C, vd) int8 with
 // scales sk (H, 64), sv (H, vd) into bf16 (H, C, 64) and (H, C, vd), each
 // value from_f(q * scale) — the floating-point leg's operand on the
-// dequantized weights. 16 values (one 16-byte load) a thread and step.
-__global__ void __launch_bounds__(kThreads)
-    dequant_kv_kernel(const int8_t* __restrict__ wk,
-                      const float* __restrict__ sk,
-                      const int8_t* __restrict__ wv,
-                      const float* __restrict__ sv, bf16* __restrict__ ok,
-                      bf16* __restrict__ ov, int H, int C, int vd) {
+// dequantized weights. 16 values (one 16-byte load) a thread and step;
+// this is block `block` of `blocks` (kThreads threads each).
+__device__ __forceinline__ void dequant_kv_block(
+    const int8_t* __restrict__ wk, const float* __restrict__ sk,
+    const int8_t* __restrict__ wv, const float* __restrict__ sv,
+    bf16* __restrict__ ok, bf16* __restrict__ ov, int H, int C, int vd,
+    uint32_t block, uint32_t blocks) {
   const size_t nk = size_t(H) * C * kKD / 16;
   const size_t nv = size_t(H) * C * vd / 16;
-  for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < nk + nv;
-       i += size_t(gridDim.x) * blockDim.x) {
+  for (size_t i = size_t(block) * kThreads + threadIdx.x; i < nk + nv;
+       i += size_t(blocks) * kThreads) {
     const bool key = i < nk;
     const int n = key ? kKD : vd;
     const size_t e = (key ? i : i - nk) * 16;  // first element
@@ -497,6 +507,23 @@ __global__ void __launch_bounds__(kThreads)
     d[0] = reinterpret_cast<const uint4*>(v)[0];
     d[1] = reinterpret_cast<const uint4*>(v)[1];
   }
+}
+
+// The blocks the pass takes for H heads of (C, 64 + vd): one 16-value
+// group a thread, at most 4096 blocks.
+inline uint32_t dequant_kv_blocks(int H, int C, int vd) {
+  const size_t n16 = size_t(H) * C * (kKD + vd) / 16;
+  const size_t want = (n16 + kThreads - 1) / kThreads;
+  return uint32_t(want < 4096 ? want : 4096);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dequant_kv_kernel(const int8_t* __restrict__ wk,
+                      const float* __restrict__ sk,
+                      const int8_t* __restrict__ wv,
+                      const float* __restrict__ sv, bf16* __restrict__ ok,
+                      bf16* __restrict__ ov, int H, int C, int vd) {
+  dequant_kv_block(wk, sk, wv, sv, ok, ov, H, C, vd, blockIdx.x, gridDim.x);
 }
 
 // Scratch the wrapper allocates for one bf16 call, as parts of one buffer
@@ -521,30 +548,15 @@ inline int sm_count() {
   return n;
 }
 
-// All passes of one bf16 call. The tensor maps fail to encode
-// (cudaErrorInvalidValue) for an x, wk or wv whose base is not 16-byte
-// aligned.
-template <int VD, bool Q8>
-cudaError_t launch_attention_sm90(const void* x, const int* ids,
-                                  const void* g,
-                                  const AttnWeights<bf16, Q8>& w,
-                                  const AttnScratch& sc, void* out, int B,
-                                  int L, int C, int G, int S, int H,
-                                  int zero_empty, cudaStream_t stream) {
+// Pass 2 over x (B, L, C) bf16 with bf16 wk, wv: the scores and V of every
+// head into sc. The maps fail to encode (cudaErrorInvalidValue) for an x,
+// wk or wv whose base is not 16-byte aligned.
+template <int VD>
+cudaError_t launch_attn_projection(const void* x, const void* wk,
+                                   const void* wv, const AttnScratch& sc,
+                                   int B, int L, int C, int S, int H,
+                                   cudaStream_t stream) {
   using K = WgAttn<VD>;
-  const void* wk = w.wk;
-  const void* wv = w.wv;
-  if constexpr (Q8) {
-    const size_t n16 = size_t(H) * C * (kKD + VD) / 16;
-    const size_t want = (n16 + kThreads - 1) / kThreads;
-    const int blocks = int(want < 4096 ? want : 4096);
-    dequant_kv_kernel<<<blocks, kThreads, 0, stream>>>(
-        w.wk, w.sk, w.wv, w.sv, sc.wk, sc.wv, H, C, VD);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    wk = sc.wk;
-    wv = sc.wv;
-  }
   const uint64_t x_dims[3] = {uint64_t(C), uint64_t(L), uint64_t(B)};
   const uint64_t x_strides[2] = {uint64_t(C) * 2, uint64_t(L) * C * 2};
   const uint32_t x_box[3] = {K::KC, K::TM, 1};
@@ -560,27 +572,59 @@ cudaError_t launch_attention_sm90(const void* x, const int* ids,
     return cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidValue;
-
-  attn_query_kernel<Q8><<<dim3(H, B, (S + 3) / 4), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(g), w, sc.q, S, G, H);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
   const size_t smem = K::TOTAL;
-  e = cudaFuncSetAttribute(wgmma_attn_kernel<VD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           int(smem));
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_attn_kernel<VD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
   if (e != cudaSuccess) return e;
   const long tiles = long((L + K::TM - 1) / K::TM) * B * H;
   const int grid = int(tiles < sms ? tiles : sms);
   wgmma_attn_kernel<VD><<<grid, K::THREADS, smem, stream>>>(
       sc.q, sc.scores, sc.v, B, L, C, S, H, tx, tk, tv);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
 
+// Pass 3: out (B, S, H * VD) bf16 from the scores, V and ids.
+template <int VD>
+cudaError_t launch_attn_softmax(const int* ids, const AttnScratch& sc,
+                                void* out, int B, int L, int S, int H,
+                                int zero_empty, cudaStream_t stream) {
   attn_softmax_kernel<VD><<<dim3(H, B, S), kSoftThreads, 0, stream>>>(
       ids, sc.scores, sc.v, static_cast<bf16*>(out), L, S, H, zero_empty);
   return cudaGetLastError();
+}
+
+// All passes of one bf16 call.
+template <int VD, bool Q8>
+cudaError_t launch_attention_sm90(const void* x, const int* ids,
+                                  const void* g,
+                                  const AttnWeights<bf16, Q8>& w,
+                                  const AttnScratch& sc, void* out, int B,
+                                  int L, int C, int G, int S, int H,
+                                  int zero_empty, cudaStream_t stream) {
+  const void* wk = w.wk;
+  const void* wv = w.wv;
+  cudaError_t e;
+  if constexpr (Q8) {
+    dequant_kv_kernel<<<dequant_kv_blocks(H, C, VD), kThreads, 0, stream>>>(
+        w.wk, w.sk, w.wv, w.sv, sc.wk, sc.wv, H, C, VD);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    wk = sc.wk;
+    wv = sc.wv;
+  }
+  // Refuse before any launch a base the projection's maps cannot read.
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wk) |
+       reinterpret_cast<uintptr_t>(wv)) % 16)
+    return cudaErrorInvalidValue;
+  attn_query_kernel<Q8><<<dim3(H, B, (S + 3) / 4), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(g), w, sc.q, S, G, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_attn_projection<VD>(x, wk, wv, sc, B, L, C, S, H, stream);
+  if (e != cudaSuccess) return e;
+  return launch_attn_softmax<VD>(ids, sc, out, B, L, S, H, zero_empty,
+                                 stream);
 }
 
 // K2 in either activation type: the Hopper passes above in bf16, the

@@ -1,10 +1,11 @@
 // The fused local track of one ProteinBERT block, one (row, TL-row tile) at
-// a time (`track_tile`) — the CUDA-core / WMMA plan. Its users now: the
-// one-pass trunk #6 (one_pass.cu, one_pass_q8.cu) in both dtypes, and the
-// float32 legs of K1 (local_track.cu), K1's prehaloed entry
-// (local_track_valid.cu), #3 (local_track_segments.cu) and #3's int8 leg
-// (local_track_segments_q8.cu). Their bf16 legs run the wgmma + TMA passes
-// of local_track_sm90.cuh instead. This header also holds what every
+// a time (`track_tile`) — the CUDA-core plan, float32 only now. Its users:
+// the float32 legs of K1 (local_track.cu), K1's prehaloed entry
+// (local_track_valid.cu), #3 (local_track_segments.cu), #3's int8 leg
+// (local_track_segments_q8.cu) and the one-pass trunk #6 (one_pass.cu,
+// one_pass_q8.cu, through one_pass.cuh). Their bf16 legs run the wgmma +
+// TMA passes of local_track_sm90.cuh instead (#6 through
+// one_pass_sm90.cuh). This header also holds what every
 // local-track entry shares (`TrackArgs`, the tap geometry, the host-side
 // checks). Per position l of x (B, L, C):
 //
@@ -51,7 +52,8 @@
 // float32, the largest tiles that fit at C=512; the segment mask adds a
 // (TL, KC) staging tile and the window's ids (3.5 KB).
 //
-// Q8 = true is the int8 leg of #3 (local_track_segments_q8.cu) and of #6:
+// Q8 = true is the float32 int8 leg of #3 (local_track_segments_q8.cu) and
+// of #6:
 // the conv and dense weights arrive as int8 with float32 scales and each
 // (KC, C) tile is dequantized on its way into the weight double buffer
 // (common.cuh `Q8Tile`, `pipelined_steps_staged`), in place of the cp.async

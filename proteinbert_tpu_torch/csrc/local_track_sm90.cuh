@@ -5,7 +5,9 @@
 // prehaloed entry (local_track_valid.cu), #3 (local_track_segments.cu) and
 // its int8 leg (local_track_segments_q8.cu) at C in {128, 256, 512}, and of
 // #2, #2's prehaloed entry and #4 at 512 < C <= 2048
-// (local_track_tiled.cuh). They replace the TPU kernels
+// (local_track_tiled.cuh); #6's bf16 legs (one_pass_sm90.cuh) run the conv
+// pass on 64-row tiles (`WgConvT<64>`) and the finish pass. They replace
+// the TPU kernels
 // proteinbert_tpu/kernels/fused_block.py `_fused_kernel` (:526, launched at
 // :804; prehaloed through `_pallas_forward(prehaloed=True)`, :741-758),
 // `_fused_segment_kernel` (:977, launched at :1134; int8 branch :983-998),
@@ -139,17 +141,20 @@ using bf16 = __nv_bfloat16;
 // gelu_w) + x) + bcast (:604-618, :662-681).
 enum class SumOrder { kK1, kTiled };
 
-// The bf16 conv pass: tile, rings and shared-memory layout.
-struct WgConv {
-  static constexpr int TM = 128;  // output rows: two consumer warpgroups
+// The bf16 conv pass: tile, rings and shared-memory layout, at TM_ output
+// rows a block: 128 (two consumer warpgroups, K1, #3, #2, #4) or 64 (one;
+// #6 at C = 128 may take it, one_pass_sm90.cuh).
+template <int TM_>
+struct WgConvT {
+  static constexpr int TM = TM_;  // output rows: one consumer WG each 64
   static constexpr int TN = 128;  // output channels
   static constexpr int KC = 64;   // input channels a chunk: one 128-byte row
   static constexpr int WIN = TM + 2 * kHalo;
   static constexpr int XSTAGES = 3, WSTAGES = 8;
-  static constexpr int THREADS = 384;
-  static constexpr int CONSUMER_WARPS = 8;
+  static constexpr int THREADS = 128 + 2 * TM;  // producer WG + consumers
+  static constexpr int CONSUMER_WARPS = TM / 16;
   static constexpr uint32_t ROW_BYTES = KC * 2;
-  static constexpr uint32_t WIN_BYTES = WIN * ROW_BYTES;  // 21504
+  static constexpr uint32_t WIN_BYTES = WIN * ROW_BYTES;  // 21504 at TM 128
   static constexpr uint32_t BOX_BYTES = KC * 64 * 2;      // 64 x 64 box
   static constexpr uint32_t W_BYTES = 2 * BOX_BYTES;      // (64, 128) tile
   static constexpr uint32_t KSTEP_BYTES = 16 * ROW_BYTES; // 16 K rows
@@ -159,11 +164,13 @@ struct WgConv {
   static constexpr size_t bar_off = ids_off + align128(WIN * sizeof(int));
   static constexpr size_t total =
       bar_off + 2 * (XSTAGES + WSTAGES) * 8 + 1024;  // + alignment slack
+  static_assert(TM == 64 || TM == 128, "one or two consumer warpgroups");
   static_assert(WIN_BYTES % 1024 == 0 && W_BYTES % 1024 == 0,
                 "swizzled tiles start on 1024-byte boundaries");
   static_assert(WIN <= 256, "one TMA box");
   static_assert(total <= 232448, "fits one block's shared memory");
 };
+using WgConv = WgConvT<128>;
 
 // The bf16 finish pass: rows a block, the Wd ring of (64, 256) tiles, and
 // shared-memory layout. 64 rows at 512 < C <= 1024; 32 above C = 1024, so
@@ -244,14 +251,14 @@ __device__ __forceinline__ void wg_conv_taps(float (&acc)[64], uint32_t win,
 // tensor cores (the design note above), h summed in ORDER. tx maps x as (C,
 // L + 2H, B); tn and tw map the narrow and wide conv weights as (C_out, 9 *
 // C_in).
-template <bool SEG, SumOrder ORDER>
-__global__ void __launch_bounds__(WgConv::THREADS, 1)
+template <bool SEG, SumOrder ORDER, int TM = 128>
+__global__ void __launch_bounds__(WgConvT<TM>::THREADS, 1)
     wgmma_conv_kernel(TrackArgs<__nv_bfloat16> p, int C,
                       float* __restrict__ h,
                       const __grid_constant__ CUtensorMap tx,
                       const __grid_constant__ CUtensorMap tn,
                       const __grid_constant__ CUtensorMap tw) {
-  using K = WgConv;
+  using K = WgConvT<TM>;
   using namespace sm90;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -290,8 +297,9 @@ __global__ void __launch_bounds__(WgConv::THREADS, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // Producer warpgroup: one thread keeps the TMA loads in flight.
-    setmaxnreg_dec<40>();
+    // Producer warpgroup: one thread keeps the TMA loads in flight. (At 256
+    // threads every thread has registers enough: no reallocation.)
+    if constexpr (K::THREADS == 384) setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       const int xrow = H + l0 - kHalo;  // map row of window row 0
       auto load_window = [&](int s) {
@@ -324,9 +332,9 @@ __global__ void __launch_bounds__(WgConv::THREADS, 1)
   }
 
   // Consumer warpgroups: rows [64*wg, 64*wg + 64) of the tile.
-  setmaxnreg_inc<232>();
+  if constexpr (K::THREADS == 384) setmaxnreg_inc<232>();
   const int ct = threadIdx.x - 128;
-  const int lane = ct % 32, warp = ct / 32;  // warp 0..7, 16 rows each
+  const int lane = ct % 32, warp = ct / 32;  // 16 rows a warp
   const int g = lane / 4, q = lane % 4;
   const int rows0 = warp * 16;              // tile row of the warp's row 0
   const int lrow = rows0 + (lane & 15);     // the row this lane addresses
@@ -651,10 +659,10 @@ __global__ void __launch_bounds__(WgFinish::THREADS, 1)
 // The conv pass: tensor maps over x and both conv weights, then the launch.
 // The maps fail to encode (cudaErrorInvalidValue) for an operand whose base
 // is not 16-byte aligned.
-template <bool SEG, SumOrder ORDER>
+template <bool SEG, SumOrder ORDER, int TM = 128>
 cudaError_t launch_wgmma_conv(const TrackArgs<__nv_bfloat16>& p, int B,
                               int C, float* h, cudaStream_t stream) {
-  using K = WgConv;
+  using K = WgConvT<TM>;
   const uint64_t rows = uint64_t(p.L) + 2 * p.halo;
   const uint64_t row_bytes = uint64_t(C) * 2;
   const uint64_t x_dims[3] = {uint64_t(C), rows, uint64_t(B)};
@@ -669,13 +677,13 @@ cudaError_t launch_wgmma_conv(const TrackArgs<__nv_bfloat16>& p, int B,
       !sm90::encode_bf16_map(&tw, p.wk, 2, w_dims, w_strides, w_box))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      wgmma_conv_kernel<SEG, ORDER>,
+      wgmma_conv_kernel<SEG, ORDER, TM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(K::total));
   if (e != cudaSuccess) return e;
   // Row tiles and batch rows of one channel tile run side by side, so the
   // resident blocks share few channel tiles' weights in L2.
   dim3 grid((p.L + K::TM - 1) / K::TM, B, C / K::TN);
-  wgmma_conv_kernel<SEG, ORDER>
+  wgmma_conv_kernel<SEG, ORDER, TM>
       <<<grid, K::THREADS, K::total, stream>>>(p, C, h, tx, tn, tw);
   return cudaGetLastError();
 }
@@ -737,22 +745,20 @@ struct DequantGroup {
   bf16* out;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    dequant_track_kernel(const int8_t* __restrict__ nq,
-                         const float* __restrict__ ns,
-                         const int8_t* __restrict__ wq,
-                         const float* __restrict__ ws,
-                         const int8_t* __restrict__ dq,
-                         const float* __restrict__ ds, bf16* __restrict__ nk,
-                         bf16* __restrict__ wk, bf16* __restrict__ dk,
-                         uint32_t C) {
+// Block `block` of `blocks` (kThreads threads each) of the pass.
+__device__ __forceinline__ void dequant_track_block(
+    const int8_t* __restrict__ nq, const float* __restrict__ ns,
+    const int8_t* __restrict__ wq, const float* __restrict__ ws,
+    const int8_t* __restrict__ dq, const float* __restrict__ ds,
+    bf16* __restrict__ nk, bf16* __restrict__ wk, bf16* __restrict__ dk,
+    uint32_t C, uint32_t block, uint32_t blocks) {
   const uint32_t conv = kTaps * C * C / 16;  // 16-value groups a conv
   const uint32_t total = 2 * conv + C * C / 16;
-  const uint32_t stride = gridDim.x * blockDim.x;
+  const uint32_t stride = blocks * kThreads;
   DequantGroup g[kDequantGroups];
 #pragma unroll
   for (int k = 0; k < kDequantGroups; ++k) {
-    const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x + k * stride;
+    const uint32_t i = block * kThreads + threadIdx.x + k * stride;
     g[k].out = nullptr;
     if (i >= total) continue;
     const uint32_t m = i < conv ? 0 : (i < 2 * conv ? 1 : 2);
@@ -795,25 +801,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The blocks a dequantize pass over C takes: one wave, kDequantGroups
+// 16-value groups a thread.
+inline uint32_t dequant_track_blocks(int C) {
+  const uint32_t groups = uint32_t(2 * kTaps + 1) * C * C / 16;
+  const uint32_t per_block = kThreads * kDequantGroups;
+  return (groups + per_block - 1) / per_block;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dequant_track_kernel(const int8_t* __restrict__ nq,
+                         const float* __restrict__ ns,
+                         const int8_t* __restrict__ wq,
+                         const float* __restrict__ ws,
+                         const int8_t* __restrict__ dq,
+                         const float* __restrict__ ds, bf16* __restrict__ nk,
+                         bf16* __restrict__ wk, bf16* __restrict__ dk,
+                         uint32_t C) {
+  dequant_track_block(nq, ns, wq, ws, dq, ds, nk, wk, dk, C, blockIdx.x,
+                      gridDim.x);
+}
+
+// q's operands with the dequantized weights nk, wk, dk in place of its int8
+// ones: what the floating-point leg's passes take.
+inline TrackArgs<bf16> dequantized_args(const TrackArgs<bf16, true>& q,
+                                        bf16* nk, bf16* wk, bf16* dk) {
+  return TrackArgs<bf16>{q.x,  q.seg, q.bcast, nk,    q.nb,
+                         wk,   q.wb,  q.s1,    q.b1,  dk,
+                         q.db, q.s2,  q.b2,    q.out, q.L,
+                         q.S,  q.wide_dilation, nullptr, nullptr, nullptr,
+                         q.halo};
+}
+
 // #3's int8 leg in bf16: the dequantize pass into the scratches nk, wk, dk,
 // then #3's two passes on them.
 inline cudaError_t launch_track_sm90_q8(const TrackArgs<bf16, true>& q,
                                         bf16* nk, bf16* wk, bf16* dk, int B,
                                         int C, float* h,
                                         cudaStream_t stream) {
-  const uint32_t groups = uint32_t(2 * kTaps + 1) * C * C / 16;
-  const uint32_t per_block = kThreads * kDequantGroups;
-  dequant_track_kernel<<<(groups + per_block - 1) / per_block, kThreads, 0,
-                         stream>>>(q.nk, q.nks, q.wk, q.wks, q.dk, q.dks, nk,
-                                   wk, dk, uint32_t(C));
+  dequant_track_kernel<<<dequant_track_blocks(C), kThreads, 0, stream>>>(
+      q.nk, q.nks, q.wk, q.wks, q.dk, q.dks, nk, wk, dk, uint32_t(C));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const TrackArgs<bf16> p{q.x,  q.seg, q.bcast, nk,    q.nb,
-                          wk,   q.wb,  q.s1,    q.b1,  dk,
-                          q.db, q.s2,  q.b2,    q.out, q.L,
-                          q.S,  q.wide_dilation, nullptr, nullptr, nullptr,
-                          q.halo};
-  return launch_track_sm90<true, SumOrder::kK1>(p, B, C, h, stream);
+  return launch_track_sm90<true, SumOrder::kK1>(
+      dequantized_args(q, nk, wk, dk), B, C, h, stream);
 }
 
 }  // namespace pbt

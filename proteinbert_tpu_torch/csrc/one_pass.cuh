@@ -1,6 +1,9 @@
-// Kernel #6 — the one-pass trunk of one ProteinBERT block: the device code
-// and launch shared by its floating-point leg (one_pass.cu) and its int8
-// leg (one_pass_q8.cu, Q8 = true). Design below.
+// Kernel #6 — the one-pass trunk of one ProteinBERT block in float32: the
+// device code and launch shared by its floating-point leg (one_pass.cu) and
+// its int8 leg (one_pass_q8.cu, Q8 = true). Its bf16 legs run the Hopper
+// passes of one_pass_sm90.cuh (wgmma + TMA) instead; float32 keeps this
+// plan because the tensor cores have no exact float32 mode, as #2, #4, K1,
+// #3 and K2 keep theirs. Design below.
 //
 // Replaces the TPU kernel proteinbert_tpu/kernels/one_pass.py
 // `_onepass_kernel` (one_pass.py:225-288, launched at :380 by
@@ -15,24 +18,25 @@
 // all-pad row. Masking uses -1e30.
 //
 // What bounds it on the H100: operations. At 8 rows x L=512, C=128, G=512,
-// H=4, k=64, v=128, S=8 in bf16 the track is 2.550 GFLOP and the attention
+// H=4, k=64, v=128, S=8 the track is 2.550 GFLOP and the attention
 // 2*8*4*(512*128*192 + 8*512*64 + 512*8*192) = 0.872 GFLOP: 3.42 GFLOP,
-// 0.0035 ms at 989 TFLOP/s.
+// 0.051 ms at 67 TFLOP/s float32.
 //
 // Design: the TPU kernel kept a whole (L+40, C) row, both weight sets and
 // the local output resident in VMEM and fed the attention straight from
-// there. A Hopper block cannot hold the row (128 KB at C=128 bf16, 256 KB
-// at C=256, L=512), so each packed row gets a thread-block CLUSTER of 8
-// CTAs, guaranteed co-resident:
+// there. A Hopper block cannot hold the row (256 KB at C=128 float32,
+// L=512), so each packed row gets a thread-block CLUSTER of 8 CTAs,
+// guaranteed co-resident:
 //   1. the CTAs split the row's TL-row tiles and run the local-track tile
-//      code of K1 / #3 (local_track.cuh), writing the rounded local output
-//      to device memory, where it stays in the 50 MB L2;
+//      code of K1 / #3's float32 legs (local_track.cuh `track_tile`),
+//      writing the local output to device memory, where it stays in the
+//      50 MB L2;
 //   2. __threadfence + cluster barrier (release/acquire at cluster scope):
 //      every tile of the row is written and visible to the whole cluster;
 //   3. CTA r runs the attention of heads r, r+8, ... over the whole row
-//      with K2's device code (attention.cuh), reading the local output back
-//      from L2 — the exact rounding points of the TPU kernel (weights
-//      rounded before the weighted sum), with no cross-CTA softmax merge.
+//      with K2's float32 device code (attention.cuh `attention_head`),
+//      reading the local output back from L2, with no cross-CTA softmax
+//      merge.
 // So what a row carries across the barrier is its (L, C) local output in L2
 // (and, per CTA, nothing else): one launch, no second kernel, no host sync.
 // The int8 leg (Q8) takes the int8 weights of both tracks with their float32
@@ -42,8 +46,6 @@
 #pragma once
 
 #include <cooperative_groups.h>
-
-#include <type_traits>
 
 #include "attention.cuh"
 #include "local_track.cuh"
@@ -139,16 +141,6 @@ cudaError_t launch_shape(int C, int VD, int seg_masked,
   if (C == 256 && VD == 128)
     return launch_seg<T, 256, 128>(seg_masked, p, real, g, aw, attn, B, G, H,
                                    zero_empty, stream);
-  // C = 512 in bf16 only: the one-pass rule never admits float32 there
-  // (19*C^2 float32 weights alone are 19.9 MB against its 13 MiB).
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (C == 512 && VD == 64)
-      return launch_seg<T, 512, 64>(seg_masked, p, real, g, aw, attn, B, G,
-                                    H, zero_empty, stream);
-    if (C == 512 && VD == 128)
-      return launch_seg<T, 512, 128>(seg_masked, p, real, g, aw, attn, B, G,
-                                     H, zero_empty, stream);
-  }
   return cudaErrorInvalidValue;
 }
 

@@ -215,6 +215,17 @@ def attention_scratch_layout(B: int, L: int, C: int, S: int, H: int,
     return tuple(layout), offset
 
 
+def kv_dequant_reference(q: torch.Tensor, scale: torch.Tensor,
+                         dtype: torch.dtype = torch.bfloat16
+                         ) -> torch.Tensor:
+    """Plain version of the dequantize pass of K2's and #6's int8 legs in
+    bf16 (csrc/attention_sm90.cuh `dequant_kv_kernel`): int8 wk (H, C, 64)
+    or wv (H, C, v) with float32 scales (H, 64) / (H, v), one per (head,
+    output column) → q·scale in float32, cast to `dtype`: the operand the
+    floating-point leg loads from the dequantized weights."""
+    return (q.float() * scale.unsqueeze(-2)).to(dtype)
+
+
 def _attention_launch(
     params: Params, local: torch.Tensor, global_seg: torch.Tensor,
     ids: torch.Tensor, zero_empty: bool,

@@ -5,8 +5,13 @@ references, on the same numpy-seeded inputs, at C=128 with the reference
 model's head shape (G=512, H=4, k=64, v=128); the port's one-pass rule
 against `pallas_onepass_supported` on the shape grid; cross-segment
 isolation bit for bit. float32, tolerance 1e-5 (same arithmetic, another
-summation order). The CUDA kernels are held against these plain versions
-on the card by chip_smoke.py."""
+summation order). #6's bf16 passes (csrc/one_pass_sm90.cuh) by their plain
+versions: the mask ids of the query pass against the JAX kernel's
+`seg_oh * real`, and the passes chained against the JAX reference; the
+launcher's refusals and scratch on meta tensors. The CUDA kernels are held
+against these plain versions on the card by chip_smoke.py."""
+
+import contextlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -311,3 +316,251 @@ def test_kernel_registry_and_flop_counts():
                      + 2 * 8 * 4 * (512 * 128 * 192 + 8 * 512 * 64
                                     + 512 * 8 * 192))
     assert round(flops / 989e12 * 1e3, 4) == 0.0035
+
+
+# ------------------------------------------- #6's bf16 passes, plain versions
+
+def _ids_case(rng, dense):
+    """Seeded segment ids 0..S+2 (ids above S are pad by contract) with
+    segment 2 empty in every row, a real mask, and for dense rows the
+    `pad_mask` with row 1 all pad."""
+    seg = rng.integers(0, S + 3, size=(B, L)).astype(np.int32)
+    seg[seg == 2] = 0
+    real = rng.random((B, L)) < 0.8
+    if dense:
+        real[1] = False
+    return seg, real
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["packed", "dense"])
+def test_onepass_attention_ids_are_the_jax_mask(dense):
+    """`onepass_attention_ids` (the mask ids #6's query pass writes) as a
+    one-hot is the JAX kernel's attention mask `seg_oh * real`
+    (one_pass.py:284-285): packed rows take the segment where real and in
+    1..S, dense rows the pad mask itself (one segment, real = ones)."""
+    seg, real = _ids_case(np.random.default_rng(21), dense)
+    if dense:
+        oh = jnp.asarray(real[..., None], jnp.float32)
+        want = oh * jnp.ones((B, L, 1), jnp.float32)
+        ids = tone.onepass_attention_ids(None, torch.from_numpy(real), 1)
+        got = tattn_ids_one_hot(ids, 1)
+    else:
+        oh = jattn_segment_one_hot(jnp.asarray(seg), S)
+        want = oh * jnp.asarray(real[..., None], jnp.float32)
+        ids = tone.onepass_attention_ids(torch.from_numpy(seg),
+                                         torch.from_numpy(real), S)
+        got = tattn_ids_one_hot(ids, S)
+        assert int(ids.max()) <= S and not (ids == 2).any()
+    assert ids.dtype == torch.int32 and ids.shape == (B, L)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    if dense:
+        assert not got[1].any()  # the all-pad row: no position in segment 1
+
+
+def tattn_ids_one_hot(ids, n):
+    from proteinbert_tpu_torch.kernels.attention import ids_one_hot
+    return ids_one_hot(ids, n)
+
+
+def jattn_segment_one_hot(seg, n):
+    from proteinbert_tpu.kernels.attention import _segment_one_hot
+    return _segment_one_hot(seg, n, jnp.float32)
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["packed", "dense"])
+def test_onepass_passes_reference_matches_jax(inputs, dense):
+    """The bf16 passes' plain versions chained (query and ids → local
+    track → projection: scores and V → softmax) are the JAX
+    `onepass_oh_reference` in float32 within 1e-5, packed (an empty
+    segment exactly +0.0) and dense (an all-pad row: the uniform
+    softmax)."""
+    t = {k: _torch(v) for k, v in inputs.items()}
+    j = {k: _jax(v) for k, v in inputs.items()}
+    if dense:
+        pad = np.ones((B, L), bool)
+        pad[0, L // 3:] = False
+        pad[1] = False
+        want = jone.onepass_oh_reference(
+            j["track"], j["attn"], j["x"], j["bseg"][:, :1], j["gseg"][:, :1],
+            jnp.asarray(pad[..., None], jnp.float32),
+            jnp.ones((B, L, 1), jnp.float32), seg_masked=False,
+            zero_empty=False)
+        got = tone.onepass_passes_reference(
+            t["track"], t["attn"], t["x"], t["bseg"][:, :1],
+            t["gseg"][:, :1], None, torch.from_numpy(pad), zero_empty=False)
+        assert torch.isfinite(got[1]).all()
+    else:
+        oh = (inputs["seg"][..., None] == np.arange(1, S + 1)).astype(
+            np.float32)
+        want = jone.onepass_oh_reference(
+            j["track"], j["attn"], j["x"], j["bseg"], j["gseg"],
+            jnp.asarray(oh), j["real"][..., None].astype(jnp.float32))
+        got = tone.onepass_passes_reference(
+            t["track"], t["attn"], t["x"], t["bseg"], t["gseg"], t["seg"],
+            t["real"])
+        # Segment 4 is empty in row 0: exactly +0.0.
+        assert (got[1][0, 3] == 0).all() and not torch.signbit(
+            got[1][0, 3]).any()
+    _close(want[0], got[0])
+    _close(want[1], got[1])
+
+
+def test_onepass_passes_reference_in_bf16(inputs):
+    """In bf16 the chained passes round where the kernel rounds (q, K, V
+    before and after tanh / gelu, the softmax weights) and so where the
+    port's one-hot plain version `onepass_oh_reference` rounds; the two
+    differ only in the order of a few float32 sums (the scores' 64-term
+    dot products, laid out (B, H, S, L) here and (B, S, H, L) there), which
+    can move a softmax weight across a bf16 rounding boundary: one bf16
+    step of an output (< 2^-8 at |attn| < 1), so the tolerance is 2^-8."""
+    t = {k: _torch(v) for k, v in inputs.items()}
+    bf = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+          for k, v in (("x", t["x"]), ("bseg", t["bseg"]),
+                       ("gseg", t["gseg"]))}
+    oh = torch.from_numpy(
+        (inputs["seg"][..., None] == np.arange(1, S + 1)).astype(np.float32))
+    want = tone.onepass_oh_reference(
+        t["track"], t["attn"], bf["x"], bf["bseg"], bf["gseg"], oh,
+        t["real"][..., None].float())
+    got = tone.onepass_passes_reference(
+        t["track"], t["attn"], bf["x"], bf["bseg"], bf["gseg"], t["seg"],
+        t["real"])
+    assert got[1].dtype == torch.bfloat16
+    assert torch.equal(want[0], got[0])
+    err = (want[1].float() - got[1].float()).abs().max().item()
+    assert err <= 2.0 ** -8, err
+
+
+# ------------------------------------- #6's launcher in bf16 (meta tensors)
+
+@pytest.fixture
+def onepass_launches(monkeypatch):
+    """#6's launches recorded (name, arguments), not run."""
+    calls = []
+    for k in (tone.ONEPASS, tone.ONEPASS_Q8):
+        monkeypatch.setattr(k, "launch", lambda *a, k=k: calls.append(
+            (k.name, a)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tone, "stream_ptr", lambda d: 0)
+    return calls
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, device="meta", dtype=dtype)
+
+
+def _meta_onepass(C, dtype, quant=False, Hh=4, v=128):
+    """#6's operands at width C as meta tensors: the track, the attention
+    (int8 quant leaves with float32 scales where `quant`), x and a packed
+    row's broadcast, global rows, ids and real mask (B=2, L=40, S=3)."""
+    Gh = Hh * v
+
+    def w(*shape):
+        if quant:
+            return {"q": _meta(*shape, dtype=torch.int8),
+                    "scale": _meta(*shape[:-2], shape[-1],
+                                   dtype=torch.float32)}
+        return _meta(*shape, dtype=dtype)
+
+    track = {name: {k: _meta(C, dtype=torch.float32)
+                    for k in ("bias", "scale")}
+             for name in tfused.TRACK_PARAMS}
+    for name in ("narrow_conv", "wide_conv"):
+        track[name]["kernel"] = w(9, C, C)
+    track["local_dense"]["kernel"] = w(C, C)
+    attn = {"wq": w(Hh, Gh, 64), "wk": w(Hh, C, 64), "wv": w(Hh, C, v)}
+    b, n, s = 2, 40, 3
+    return (track, attn, _meta(b, n, C, dtype=dtype),
+            _meta(b, s, C, dtype=dtype), _meta(b, s, Gh, dtype=dtype),
+            _meta(b, n, dtype=torch.int32), _meta(b, n, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("operand", ["x", "narrow_conv", "wide_conv",
+                                     "local_dense", "wq", "wk", "wv"])
+@pytest.mark.parametrize("C", [128, 256, 512])
+def test_onepass_launcher_refuses_what_tma_cannot_read(C, operand,
+                                                       onepass_launches):
+    """#6 in bf16 raises ValueError, before any launch, for an x or a
+    weight whose base is not 16-byte aligned (TMA reads x, the conv and
+    dense kernels, wk and wv; the query pass reads wq in 16-byte loads);
+    the same call on aligned operands launches once, with the arguments
+    the C signature declares. A strided x is copied contiguous first and
+    launches too."""
+    track, attn, x, bs, gs, seg, real = _meta_onepass(C, torch.bfloat16)
+    if operand == "x":
+        target = x
+    elif operand in attn:
+        target = attn[operand]
+    else:
+        target = track[operand]["kernel"]
+    n = target.numel()
+    flat = _meta(n + 8)
+
+    def call(t):
+        tr, at, xx = track, attn, x
+        if operand == "x":
+            xx = t
+        elif operand in attn:
+            at = {**attn, operand: t}
+        else:
+            tr = {**track, operand: {**track[operand], "kernel": t}}
+        return tone._onepass_kernel(tr, at, xx, bs, gs, seg, real, 1, 5,
+                                    True)
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(flat[1:n + 1].view(target.shape))
+    assert onepass_launches == []
+    local, out = call(flat[8:n + 8].view(target.shape))
+    assert local.shape == x.shape and out.shape == gs.shape
+    assert [(name, len(a)) for name, a in onepass_launches] == [
+        ("one_pass", len(tone.ONEPASS.argtypes))]
+    if operand == "x":
+        wide = _meta(*x.shape[:-1], C + 8)[..., :C]  # an odd row stride
+        assert not wide.is_contiguous()
+        call(wide)
+        assert len(onepass_launches) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
+                                                   onepass_launches):
+    """In bf16 #6 passes one scratch buffer, just after attn, whose parts
+    `onepass_scratch_layout` lays out in the order the C entry carves them
+    (csrc/one_pass_sm90.cuh `onepass_scratch`), each 256-byte aligned: on
+    the int8 leg the dequantized track and attention weights first, then
+    h, q, the mask ids, the scores and V. float32 (the one-launch cluster
+    plan) takes none."""
+    C, Hh, v = 128, 4, 128
+    track, attn, x, bs, gs, seg, real = _meta_onepass(C, dtype, quant, Hh, v)
+    b, n, _ = x.shape
+    s = bs.shape[1]
+    layout, nbytes = tone.onepass_scratch_layout(b, n, C, s, Hh, v, quant,
+                                                 dtype)
+    if dtype == torch.float32:
+        assert (layout, nbytes) == ((), 0)
+    else:
+        want = ([((9, C, C), torch.bfloat16)] * 2
+                + [((C, C), torch.bfloat16), ((Hh, C, 64), torch.bfloat16),
+                   ((Hh, C, v), torch.bfloat16)] if quant else [])
+        want += [((b, n, C), torch.float32),
+                 ((b, s, Hh, 64), torch.float32), ((b, n), torch.int32),
+                 ((b, Hh, s, n), torch.float32),
+                 ((b, n, Hh * v), torch.bfloat16)]
+        assert [(shape, dt) for shape, dt, _ in layout] == want
+        end = 0
+        for shape, dt, off in layout:
+            assert off % 256 == 0 and off >= end
+            end = off + int(np.prod(shape)) * dt.itemsize
+        assert nbytes % 256 == 0 and nbytes >= end
+    tone._onepass_kernel(track, attn, x, bs, gs, seg, real, 1, 5, True)
+    ((name, a),) = onepass_launches
+    kernel = tone.ONEPASS_Q8 if quant else tone.ONEPASS
+    assert name == kernel.name and len(a) == len(kernel.argtypes)
+    # ..., local, attn, scratch, then B, L, C, G, S, H, wide dilation,
+    # zero_empty and the stream.
+    assert (a[-10] is None) == (dtype == torch.float32)
+    assert a[-11] is not None and a[-3:-1] == (5, 1)
+    assert a[:2] == (tfused.KERNEL_DTYPES[dtype], 1)

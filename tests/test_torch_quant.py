@@ -532,6 +532,65 @@ def test_track_dequantize_plain_version_is_the_fp_legs_weights(qinputs,
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
+@pytest.mark.parametrize("name", ["wk", "wv"])
+def test_attention_dequantize_plain_version_is_the_fp_legs_weights(qinputs,
+                                                                   name):
+    """The plain version of the attention's dequantize pass (K2-int8's and
+    #6-int8's `dequant_kv_kernel`, csrc/attention_sm90.cuh):
+    `kv_dequant_reference`, q·scale in float32 cast to bf16, equals, bit for
+    bit, the bf16 weights the floating-point leg launches with on the
+    dequantized weights: `dequant_params`, then `weight_operands`."""
+    leaf = qinputs["tattn"][name]
+    got = tattn.kv_dequant_reference(leaf["q"], leaf["scale"])
+    (want,) = tattn.weight_operands(
+        "t", tfused.dequant_params({"k": leaf})["k"], torch.bfloat16)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == leaf["q"].shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("operand", ["x", "narrow_conv", "local_dense",
+                                     "wq", "wk", "wv"])
+def test_onepass_int8_refuses_what_it_cannot_read(operand, recorded):
+    """#6's int8 leg in bf16 raises ValueError, before any launch, for an x
+    whose base is not 16-byte aligned (its conv pass reads x by TMA) or an
+    int8 weight its dequantize passes (track, and wk / wv) or its query
+    pass (wq) cannot read in 16-byte loads; aligned operands launch once."""
+    C, B, L, S = 128, 2, 24, 3
+    track, attn = _meta_track(C), _meta_attn(C, 512, 4, 128)
+    x = _meta(B, L, C)
+    if operand == "x":
+        target = x
+    elif operand in attn:
+        target = attn[operand]["q"]
+    else:
+        target = track[operand]["kernel"]["q"]
+    n = target.numel()
+    flat = _meta(n + 16, dtype=target.dtype)
+
+    def call(t):
+        tr, at, xx = track, attn, x
+        if operand == "x":
+            xx = t
+        elif operand in attn:
+            at = {**attn, operand: {**attn[operand], "q": t}}
+        else:
+            tr = {**track, operand: {**track[operand],
+                                     "kernel": {**track[operand]["kernel"],
+                                                "q": t}}}
+        return tone._onepass_kernel(
+            tr, at, xx, _meta(B, S, C), _meta(B, S, 512),
+            _meta(B, L, dtype=torch.int32), _meta(B, L, dtype=torch.bool),
+            1, 5, True)
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(flat[1:n + 1].view(target.shape))
+    assert recorded == []
+    local, out = call(flat[16:n + 16].view(target.shape))
+    assert local.shape == (B, L, C) and out.shape == (B, S, 512)
+    assert recorded == [("one_pass_q8", len(tone.ONEPASS_Q8.argtypes))]
+
+
 @pytest.mark.parametrize("G,H,ok", [(512, 8, True), (512, 4, True),
                                     (384, 4, False)])
 def test_attention_int8_kernel_value_dims(G, H, ok, recorded):
