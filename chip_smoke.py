@@ -7,6 +7,7 @@ card.
     python3 chip_smoke.py --phase base    # K1, #3, K2 and int8 legs' times
     python3 chip_smoke.py --phase k2      # the same as --phase base
     python3 chip_smoke.py --phase default # #6 and #6-int8's times
+    python3 chip_smoke.py --phase resume  # checkpoint, SIGTERM, resume
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -136,7 +137,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               d. `large seq` — the `large` preset, B=8, L=1024, 2 steps:
                  exactly 12 of #2's prehaloed entry per step.
               Counts are zeroed before each run.
-6. report   — the kernel JSON line, the card's name and power limit, and the
+6. resume   — `resume_phase`: a pretraining run that survives, through
+              `pretrain(..., checkpointer=, telemetry=)`: `large` dense at
+              full depth and width (B=8, L=1024, 6 steps, saves every 3)
+              and `base` packed (B=8, L=512, 4 steps, saves every 2), each
+              run at peak LR uninterrupted with synchronous saves, then
+              with staged saves and SIGTERM from log_fn (step 4 / 2), then
+              resumed by a fresh state and a new Checkpointer: the
+              restored state bit for bit the saved one, the staged saves
+              held against the synchronous ones and the final state
+              (RESUME_STATE_TOL, a planted fault beyond it), two staged
+              saves racing train-stream work and in-place updates read
+              back bit for bit, the resumed losses within
+              RESUME_LOSS_TOL of the uninterrupted run's, exact launch
+              counts a step (12 #2 + 12 K2 / 6 #3 + 6 K2), a valid event
+              stream; and, at Large, the boundary's cost (the walls of the
+              steps holding a synchronous and a staged save against the
+              median step, the stage's seconds until it landed, the
+              checkpoint's bytes). The checkpoints go to a temporary
+              directory under build/, removed afterwards.
+7. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -149,7 +169,9 @@ result line; it also runs on the parent commit's package, so one call can
 time both. `--phase default` does the same for #6 and #6-int8 in bf16
 (`default_phase`: B=8, C=128, G=512, H=4, v=128 at L=512 and L=128, dense
 and S=8, and C=512, H=4, L=128, S=8), each beside the composition K1 or
-#3, then K2, on the same inputs.
+#3, then K2, on the same inputs. `--phase resume` runs the build and
+`resume_phase` alone: its gates and the boundary's numbers, no result
+line.
 """
 
 from __future__ import annotations
@@ -161,9 +183,11 @@ import os
 import random
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -218,6 +242,20 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 STEP_LOSS_TOL = 1e-4   # 2-block fp32 train step, card vs CPU plain path
 STEP_GRAD_TOL = 1e-3
 SOLO_LOSS_TOL = 1e-4   # fp32 per-segment loss terms, packed vs alone
+# A resumed run's losses against the uninterrupted run's, relative to
+# max(1, |loss|): the restored state is bit for bit the saved one, but
+# cuDNN's backward convolutions may pick non-deterministic algorithms, so
+# two runs of the same steps may differ in the last bits of the grads.
+RESUME_LOSS_TOL = 1e-3
+# A resumed run's final state against the uninterrupted run's, and a
+# staged checkpoint against a synchronous one of the same step in another
+# run (`state_drift`: the params' update, each Adam moment, the plateau's
+# loss averages, each relative). Zeroing the moments on restore lands far
+# beyond it (the `resume` phase checks that too).
+RESUME_STATE_TOL = 1e-2
+# GPU clock cycles of `torch.cuda._sleep` that hold the train stream
+# about 1 s in `staged_ordering_check` (H100 SXM: up to 1.98 GHz).
+SLEEP_CYCLES = 2_000_000_000
 # Device-code names of the hand-written kernels, as the profiler lists them.
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
                 "tiled_conv_kernel", "wgmma_conv_kernel",
@@ -2136,13 +2174,27 @@ def profile_step(card: str, label: str, state, batch, cfg,
     return phases
 
 
+def train_preset(name, B, L, steps, packed=False, model=None):
+    """A preset at batch B, length L, `steps` steps logged every step, no
+    eval (packed: 8 segments a row)."""
+    from proteinbert_tpu_torch.configs import get_preset
+
+    p = get_preset(name)
+    return p.replace(
+        model=model or p.model,
+        data=dataclasses.replace(p.data, batch_size=B, seq_len=L,
+                                 packing=packed, pack_max_segments=8),
+        train=dataclasses.replace(p.train, max_steps=steps, log_every=1,
+                                  eval_every=0))
+
+
 def train_phases(card: str) -> dict:
     """The trained paths: Large dense (#2 + K2) and packed (#4 + K2), each
     printed beside the same step with the float32 backward, base dense (K1 + K2) and packed (#3 + K2), the default width
     packed (#6); then sequence-parallel over a one-rank NCCL group: the
     `long` preset (K1's prehaloed entry) and Large (#2's); returns each
     kernel's launches summed over the runs."""
-    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.configs import ModelConfig
     from proteinbert_tpu_torch.kernels import (
         ATTENTION, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
         LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED,
@@ -2150,15 +2202,6 @@ def train_phases(card: str) -> dict:
     )
     from proteinbert_tpu_torch.train.metrics import peak_flops
     from proteinbert_tpu_torch.train.schedule import tree_leaves
-
-    def preset(name, B, L, steps, packed=False, model=None):
-        p = get_preset(name)
-        return p.replace(
-            model=model or p.model,
-            data=dataclasses.replace(p.data, batch_size=B, seq_len=L,
-                                     packing=packed, pack_max_segments=8),
-            train=dataclasses.replace(p.train, max_steps=steps, log_every=1,
-                                      eval_every=0))
 
     totals = {}
 
@@ -2170,7 +2213,7 @@ def train_phases(card: str) -> dict:
             (False, LOCAL_TRACK_TILED, (100, 1022)),
             (True, LOCAL_TRACK_SEGMENTS_TILED, (50, 500))):
         label = "large packed" if packed else "large"
-        large = preset("large", 8, 1024, 6, packed)
+        large = train_preset("large", 8, 1024, 6, packed)
         out, walls, launches, peak, batch, trained = train_run(
             card, label, large, 6, {kernel.name: 12, ATTENTION.name: 12},
             residues, 0)
@@ -2191,7 +2234,7 @@ def train_phases(card: str) -> dict:
               f"A={m.num_annotations}, {m.dtype}, B=8 L=1024, {n_params} "
               f"params; step ms median of 5 {med:.1f} (steps "
               f"{', '.join(f'{w:.1f}' for w in walls)}); pretrain perf "
-              f"{perf['step_ms']:.1f} ms/step, {perf['tokens_per_sec']:.0f} "
+              f"{perf['step_ms']:.1f} ms/step, {perf['residues_per_sec_per_chip']:.0f} "
               f"tokens/s (B*L positions), MFU "
               f"{perf.get('mfu', float('nan')):.4f} of "
               f"{peak_flops(torch.device(DEVICE), 'bfloat16') or float('nan'):.3g}"
@@ -2209,12 +2252,12 @@ def train_phases(card: str) -> dict:
 
     default = ModelConfig()
     for label, cfg, per_step, residues in (
-            ("base", preset("base", 8, 512, 2),
+            ("base", train_preset("base", 8, 512, 2),
              {LOCAL_TRACK.name: 6, ATTENTION.name: 6}, (100, 510)),
-            ("base packed", preset("base", 8, 512, 2, True),
+            ("base packed", train_preset("base", 8, 512, 2, True),
              {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6}, (50, 250)),
             ("default width packed",
-             preset("base", 8, 512, 2, True, default),
+             train_preset("base", 8, 512, 2, True, default),
              {ONEPASS.name: 6}, (50, 250))):
         out, walls, launches, peak, _, _ = train_run(
             card, label, cfg, 2, per_step, residues, 1)
@@ -2237,7 +2280,7 @@ def train_phases(card: str) -> dict:
         # `long` (configs/config.py:411-423): B=4, the preset's 64 rows x
         # 2048 over 16 chips; its LR (2e-4) from step 0, without its
         # 10,000-step warmup, so that 6 steps move the loss.
-        long_cfg = preset("long", 4, 2048, 6)
+        long_cfg = train_preset("long", 4, 2048, 6)
         long_cfg = long_cfg.replace(optimizer=dataclasses.replace(
             long_cfg.optimizer, schedule="constant", warmup_steps=0))
         out, walls, launches, peak, batch, _ = train_run(
@@ -2257,13 +2300,13 @@ def train_phases(card: str) -> dict:
               f"data 4 -> 1, no LR warmup; step ms median of 5 "
               f"{statistics.median(walls[1:]):.1f} (steps "
               f"{', '.join(f'{w:.1f}' for w in walls)}); pretrain perf "
-              f"{perf['step_ms']:.1f} ms/step, {perf['tokens_per_sec']:.0f} "
+              f"{perf['step_ms']:.1f} ms/step, {perf['residues_per_sec_per_chip']:.0f} "
               f"tokens/s (B*L positions), MFU "
               f"{perf.get('mfu', float('nan')):.4f}; max_memory_allocated "
               f"{peak / 1e9:.2f} GB")
         profile_step(card, "train long seq, one step B=4 L=2048",
                      out["state"], batch, long_cfg, seq_group=group)
-        large_seq = preset("large", 8, 1024, 2)
+        large_seq = train_preset("large", 8, 1024, 2)
         out, walls, launches, peak, _, _ = train_run(
             card, "large seq", large_seq, 2,
             {LOCAL_TRACK_TILED_VALID.name: 12}, (100, 1022), 3,
@@ -2277,6 +2320,571 @@ def train_phases(card: str) -> dict:
               f"{peak / 1e9:.2f} GB")
     finally:
         dist.destroy_process_group()
+    return totals
+
+
+# ------------------------------------------------------------ resume
+
+def resume_run(label: str, cfg, fac, per_step: dict, ckpt=None,
+               tele=None, on_log=None):
+    """`pretrain()` on the iterator factory `fac`, fresh from the config's
+    seed or restored from `ckpt`'s newest step, with every kernel count at
+    0: exactly per_step[name] launches of each kernel a step (0 for a
+    kernel not named) and finite losses. `on_log(step)` runs in log_fn
+    before the step's mark is taken (a SIGTERM, a wait). Returns (out,
+    {step: loss}, {step: wall ms since the previous mark}, seconds from
+    the last mark to the return, the run's launches)."""
+    from proteinbert_tpu_torch.kernels import KERNELS
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    marks = []
+
+    def log_fn(step, m):
+        if on_log is not None:
+            on_log(step)
+        marks.append((step, time.perf_counter(), m["loss"],
+                      {k.name: k.launches for k in KERNELS}))
+
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = pretrain(cfg, fac, checkpointer=ckpt, log_fn=log_fn,
+                   telemetry=tele, device=DEVICE)
+    t_end = time.perf_counter()
+    launches = {k.name: k.launches for k in KERNELS}
+    prev_t, prev_n = t0, {k.name: 0 for k in KERNELS}
+    losses, walls = {}, {}
+    for step, t, loss, counts in marks:
+        check(np.isfinite(loss), f"{label}: step {step} loss {loss}")
+        for name, n in counts.items():
+            got = n - prev_n[name]
+            check(got == per_step.get(name, 0),
+                  f"{label}: step {step} launched {name} {got} times, want "
+                  f"{per_step.get(name, 0)}")
+        losses[step] = loss
+        walls[step] = (t - prev_t) * 1e3
+        prev_t, prev_n = t, counts
+    return out, losses, walls, t_end - prev_t, launches
+
+
+def read_state(directory: str, step: int) -> dict:
+    """The host tree of a checkpoint step, as `train.Checkpointer` wrote
+    it (`train.checkpoint.state_tree`'s layout)."""
+    from proteinbert_tpu_torch.train.checkpoint import STATE_FILE
+
+    return torch.load(os.path.join(directory, str(step), STATE_FILE),
+                      map_location="cpu", weights_only=True)
+
+
+def host_state(state) -> dict:
+    """A TrainState as the host tree a checkpoint of it holds."""
+    from proteinbert_tpu_torch.train.checkpoint import state_tree
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [put(v) for v in x]
+        return x.to("cpu", copy=True) if torch.is_tensor(x) else x
+
+    return put(state_tree(state))
+
+
+def tree_tensors(tree) -> list:
+    """The tensors of a tree of dicts and lists, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def trees_equal(x, y) -> bool:
+    """Two host trees bit for bit: structure, scalars, dtypes, values."""
+    if isinstance(x, dict):
+        return (isinstance(y, dict) and x.keys() == y.keys()
+                and all(trees_equal(x[k], y[k]) for k in x))
+    if isinstance(x, (list, tuple)):
+        return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                and all(trees_equal(a, b) for a, b in zip(x, y)))
+    if torch.is_tensor(x):
+        return (torch.is_tensor(y) and x.dtype == y.dtype
+                and torch.equal(x, y))
+    return x == y
+
+
+def state_drift(x: dict, y: dict, base: dict) -> float:
+    """How far a checkpoint tree x lies from y, a tree of the same step from
+    another run: the largest of ||x - y|| / ||y - base|| over the params
+    (the update since `base`, the params both runs started from),
+    ||x - y|| / ||y|| over each Adam moment, and |x - y| / max(1, |y|)
+    over the plateau's two loss averages; inf where the step, the Adam
+    count, the generator state or the plateau's counters and scale
+    differ. 0.0 for trees bit for bit equal."""
+    ox, oy = x["opt_state"], y["opt_state"]
+    px, py = ox["plateau"] or {}, oy["plateau"] or {}
+    losses = ("best_value", "avg_value")
+    if (x["step"] != y["step"] or ox["count"] != oy["count"]
+            or not torch.equal(x["generator"], y["generator"])
+            or px.keys() != py.keys()
+            or not all(torch.equal(px[k], py[k]) for k in px
+                       if k not in losses)):
+        return float("inf")
+
+    def sq(ts):
+        return sum(float(torch.linalg.vector_norm(t.float())) ** 2
+                   for t in ts)
+
+    def rel(xs, ys, zero):
+        num = sq([a - b for a, b in zip(xs, ys, strict=True)])
+        den = sq([b - z for b, z in zip(ys, zero, strict=True)])
+        return 0.0 if num == 0 else (num / den) ** 0.5 if den else \
+            float("inf")
+
+    px_l, py_l = tree_tensors(x["params"]), tree_tensors(y["params"])
+    drifts = [rel(px_l, py_l, tree_tensors(base))]
+    for k in ("mu", "nu"):
+        ys = tree_tensors(oy[k])
+        drifts.append(rel(tree_tensors(ox[k]), ys,
+                          [torch.zeros_like(t) for t in ys]))
+    drifts += [abs(float(px[k]) - float(py[k])) / max(1.0, abs(float(py[k])))
+               for k in losses if k in px]
+    return max(drifts)
+
+
+def staged_ordering_check(state, directory: str) -> str:
+    """The staged save's device ordering, on `state` (modified in place):
+    two stages back to back, each snapshot queued on the train stream
+    behind ~1 s of `torch.cuda._sleep` (the step before the boundary still
+    running) and followed at once by an in-place update of every param
+    and moment (the next step). The saver thread holds stage 1 back 3 s
+    before its copy to the host, and stage 2 not at all. S0 being the
+    state before, stage 1 must hold -S0 and stage 2 -2 S0, bit for bit: a
+    side stream that did not wait for the snapshot's event copies stage
+    2's buffer before the snapshot lands (stage 2 holds -S0), a snapshot
+    off the train stream races the update, and a second snapshot that did
+    not wait for the first stage to land overwrites the buffer under it
+    (stage 1 holds -2 S0). Returns a line for the log."""
+    from proteinbert_tpu_torch.train import Checkpointer
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+
+    class Held(Checkpointer):
+        holds = [3.0, 0.0]
+
+        def _snapshot(self, st):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            return super()._snapshot(st)
+
+        def _stage_fetch(self, snapshot):
+            time.sleep(self.holds.pop(0))
+            return super()._stage_fetch(snapshot)
+
+    def moved(tree):                            # params and moments
+        o = tree["opt_state"]
+        return tree_tensors([tree["params"], o["mu"], o["nu"]])
+
+    leaves = (tree_leaves(state.params) + state.opt_state.mu
+              + state.opt_state.nu)
+    s0 = moved(host_state(state))
+    ck = Held(directory, max_to_keep=2)
+    t0 = time.perf_counter()
+    torch._foreach_neg_(leaves)                 # the boundary: -S0
+    ck.save_staged(1, state)
+    torch._foreach_mul_(leaves, 2.0)            # the next update: -2 S0
+    ck.save_staged(2, state)
+    torch._foreach_neg_(leaves)                 # the next update: 2 S0
+    ck.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held = []
+    for step, factor in ((1, -1.0), (2, -2.0)):
+        tree = read_state(directory, step)
+        got = moved(tree)
+        held.append(all(torch.equal(g, w * factor)
+                        for g, w in zip(got, s0, strict=True)))
+        del tree, got
+    check(held == [True, True],
+          f"staged ordering: stage 1 holds -S0 {held[0]}, stage 2 holds "
+          f"-2 S0 {held[1]}: a staged snapshot is torn")
+    return (f"staged ordering held ({len(leaves)} tensors, two stages "
+            f"behind ~1 s of train-stream work each, stage 1's host copy "
+            f"held back 3 s; {wall:.1f} s)")
+
+
+def sigterm_at(kill: int):
+    """An on_log hook sending this process SIGTERM at step `kill`."""
+    def on_log(step):
+        if step == kill:
+            os.kill(os.getpid(), signal.SIGTERM)
+    return on_log
+
+
+def timed_checkpointer(directory: str, **kw):
+    """A Checkpointer that records, in `.times`, the seconds its copies to
+    the host of staged snapshots (`_stage_fetch`, the first one pinning
+    its buffers) and its writes (`_write_step`, fsync included) take."""
+    from proteinbert_tpu_torch.train import Checkpointer
+
+    class Timed(Checkpointer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.times = []
+
+        def _stage_fetch(self, snapshot):
+            t0 = time.perf_counter()
+            out = super()._stage_fetch(snapshot)
+            self.times.append(("host copy", time.perf_counter() - t0))
+            return out
+
+        def _write_step(self, step, host_tree, data_state):
+            t0 = time.perf_counter()
+            super()._write_step(step, host_tree, data_state)
+            self.times.append((f"write {step}", time.perf_counter() - t0))
+
+    return Timed(directory, **kw)
+
+
+def span_ms(tele, name: str) -> list:
+    """Durations (ms) of the host spans `name` a Telemetry(spans=True)
+    collected."""
+    return [e["dur"] / 1e3 for e in tele.spans.to_perfetto()["traceEvents"]
+            if e.get("name") == name]
+
+
+def resume_phase(card: str) -> dict:
+    """A pretraining run that survives on the card, through `pretrain` and
+    `train.Checkpointer`, for `large` dense at full width and depth (B=8,
+    L=1024, 6 steps, saves every 3, SIGTERM at step 4; #2 + K2) and `base`
+    packed (B=8, L=512, 8 segments a row, 4 steps, saves every 2, SIGTERM
+    at step 2; #3 + K2, the packed iterator's skip_batches replay), each
+    at the preset's peak learning rate from step 1 (no warmup):
+    a. an uninterrupted run with synchronous saves (max_to_keep 2);
+    b. the same run with staged saves, sent SIGTERM from log_fn: it must
+       return preempted with the newest step at the kill;
+    c. a fresh state and a new Checkpointer resume b to the end;
+    e. c again with the Adam moments zeroed on restore (a planted fault);
+    d. (Large only) 7 steps with staged saves at 3 and 6, log_fn waiting at
+       step 5 for the first stage to land, so step 7 holds a steady-state
+       staged boundary (buffers made, no stage in flight before it); then
+       `staged_ordering_check` on its final state.
+    Gates: the state restored from b's newest step is b's final state bit
+    for bit; c's staged save at its last step is c's final state bit for
+    bit; b's staged save at the first boundary and c's final state lie
+    within RESUME_STATE_TOL of a's (`state_drift`) and e's final state
+    beyond it; c's losses are finite and within RESUME_LOSS_TOL of a's
+    (bit-equality of the losses and states is printed); exact launch
+    counts a step in every run; the event stream of b and c validates.
+    Prints the boundary's cost at
+    Large (not a gate): the wall of the step holding a synchronous save
+    (a), the first staged save (b) and a steady one (d) against their
+    runs' median step, the boundary's time on the train thread (its span),
+    the saver thread's copy to the host and write seconds, the stages'
+    seconds until they landed, the preemption save's and the restore's
+    seconds, and the checkpoint's bytes. The checkpoints live in a
+    temporary directory under build/, removed at the end; a disk that
+    cannot hold three of them fails the phase. Returns each kernel's
+    launches summed over the runs."""
+    from proteinbert_tpu_torch.data.dataset import (
+        InMemoryPretrainingDataset, make_pretrain_iterator,
+    )
+    from proteinbert_tpu_torch.data.packing import make_packed_iterator
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, LOCAL_TRACK_SEGMENTS, LOCAL_TRACK_TILED,
+    )
+    from proteinbert_tpu_torch.obs import Telemetry, read_events
+    from proteinbert_tpu_torch.train import Checkpointer
+    from proteinbert_tpu_torch.train.checkpoint import STATE_FILE
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.train_state import create_train_state
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="resume-", dir=build)
+    totals = {}
+    try:
+        for (label, name, B, L, steps, every, kill, packed, per_step,
+             residues, seed) in (
+                ("large", "large", 8, 1024, 6, 3, 4, False,
+                 {LOCAL_TRACK_TILED.name: 12, ATTENTION.name: 12},
+                 (100, 1022), 0),
+                ("base packed", "base", 8, 512, 4, 2, 2, True,
+                 {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6},
+                 (50, 250), 1)):
+            # The peak learning rate from step 1 (warmup 0, the plateau
+            # kept): the steps move the params, the Adam moments and the
+            # loss, so the gates see the optimizer state.
+            cfg = train_preset(name, B, L, steps, packed)
+            cfg = cfg.replace(optimizer=dataclasses.replace(
+                cfg.optimizer, warmup_steps=0))
+            sync_cfg, staged_cfg = (cfg.replace(checkpoint=dataclasses.replace(
+                cfg.checkpoint, every_steps=every, overlap=o))
+                for o in (False, True))
+            seqs, ann = synthetic_proteins((40 if packed else 4) * B,
+                                           *residues,
+                                           cfg.model.num_annotations, seed)
+            ds = InMemoryPretrainingDataset(seqs, ann, L)
+
+            def fac(skip, ds=ds, B=B, packed=packed, seed=seed):
+                if packed:
+                    return make_packed_iterator(ds, B, seed=seed,
+                                                max_segments=8,
+                                                skip_batches=skip)
+                return make_pretrain_iterator(ds, B, seed=seed,
+                                              skip_batches=skip)
+
+            tag = label.replace(" ", "_")
+            ck = timed_checkpointer(os.path.join(root, f"{tag}-a"),
+                                    max_to_keep=2, async_save=False)
+            out, loss_a, wall_a, _, n = resume_run(
+                f"resume {label} a", sync_cfg, fac, per_step, ckpt=ck)
+            ck.close()
+            times_a = dict(ck.times)
+            for k, v in n.items():
+                totals[k] = totals.get(k, 0) + v
+            check(ck.all_steps() == [every, steps],
+                  f"resume {label} a: steps {ck.all_steps()}")
+            st = out["state"]
+            leaves = (tree_leaves(st.params) + st.opt_state.mu
+                      + st.opt_state.nu)
+            state_bytes = sum(t.numel() * t.element_size() for t in leaves)
+            file_bytes = os.path.getsize(os.path.join(
+                ck.directory, str(steps), STATE_FILE))
+            # a's synchronous checkpoints, held against b's and c's staged
+            # ones of the same steps.
+            a_every = read_state(ck.directory, every)
+            a_final = read_state(ck.directory, steps)
+            del leaves, ck
+            shutil.rmtree(os.path.join(root, f"{tag}-a"))
+            free = shutil.disk_usage(root).free
+            check(free >= 3 * file_bytes,
+                  f"resume {label}: {free} bytes free under {root}, the "
+                  f"phase needs three checkpoints of {file_bytes} bytes")
+            del out, st
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            events = os.path.join(root, f"{tag}-events.jsonl")
+            tele = Telemetry(events_path=events, flight_dir=root, spans=True)
+            ck = timed_checkpointer(os.path.join(root, f"{tag}-b"),
+                                    max_to_keep=2)
+            out_b, loss_b, wall_b, preempt_s, n = resume_run(
+                f"resume {label} b", staged_cfg, fac, per_step, ckpt=ck,
+                tele=tele, on_log=sigterm_at(kill))
+            ck.close()
+            times_b = ck.times
+            span_b = span_ms(tele, "ckpt_boundary_staged")
+            for k, v in n.items():
+                totals[k] = totals.get(k, 0) + v
+            check(out_b["preempted"] and ck.latest_step() == kill
+                  and sorted(loss_b) == list(range(1, kill + 1)),
+                  f"resume {label} b: preempted {out_b['preempted']}, "
+                  f"newest step {ck.latest_step()}, want {kill}")
+            del ck
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            template = create_train_state(
+                torch.Generator().manual_seed(cfg.train.seed), cfg,
+                device=DEVICE)
+            ck = Checkpointer(os.path.join(root, f"{tag}-b"))
+            t0 = time.perf_counter()
+            restored, data = ck.restore(template)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            ck.close()
+            restored_host = host_state(restored)
+            held = trees_equal(restored_host, host_state(out_b["state"]))
+            check(held, f"resume {label}: the restored state is not the "
+                        "saved one bit for bit")
+            check(data == {"batches_consumed": kill},
+                  f"resume {label}: data item {data}")
+            # b's staged save at step `every` against a's synchronous one
+            # (two runs: held within RESUME_STATE_TOL, bit-equality shown).
+            init_params = host_state(template)["params"]
+            kill_params = restored_host["params"]
+            b_every = read_state(ck.directory, every)
+            drift_b = state_drift(b_every, a_every, init_params)
+            bit_b = trees_equal(b_every, a_every)
+            check(drift_b <= RESUME_STATE_TOL,
+                  f"resume {label}: b's staged checkpoint at step {every} "
+                  f"lies {drift_b} from a's synchronous one > "
+                  f"{RESUME_STATE_TOL}")
+            del template, restored, restored_host, out_b, ck, b_every
+            del a_every, init_params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            ck = Checkpointer(os.path.join(root, f"{tag}-b"), max_to_keep=2)
+            out_c, loss_c, _, _, n = resume_run(
+                f"resume {label} c", staged_cfg, fac, per_step, ckpt=ck,
+                tele=tele)
+            ck.close()
+            tele.close()
+            for k, v in n.items():
+                totals[k] = totals.get(k, 0) + v
+            check(out_c["state"].step == steps and not out_c["preempted"]
+                  and sorted(loss_c) == list(range(kill + 1, steps + 1)),
+                  f"resume {label} c: ended at {out_c['state'].step}, "
+                  f"steps {sorted(loss_c)}")
+            # c's staged save at its last step is c's final state bit for
+            # bit (one run); c's final state against a's (two runs).
+            c_final = read_state(ck.directory, steps)
+            check(trees_equal(c_final, host_state(out_c["state"])),
+                  f"resume {label}: c's staged checkpoint at step {steps} "
+                  "is not c's final state bit for bit")
+            drift_c = state_drift(c_final, a_final, kill_params)
+            bit_c = trees_equal(c_final, a_final)
+            check(drift_c <= RESUME_STATE_TOL,
+                  f"resume {label}: c's final state lies {drift_c} from "
+                  f"a's > {RESUME_STATE_TOL}")
+            del out_c, ck, c_final
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # e. the gates' power: c again, from b's step `kill`, with a
+            # planted fault, the Adam moments zeroed on restore. Nothing
+            # is written (the directory holds step `steps` already).
+            class ZeroMoments(Checkpointer):
+                def restore(self, state_like, step=None, fallback=True):
+                    st, data = super().restore(state_like, step=kill)
+                    for t in st.opt_state.mu + st.opt_state.nu:
+                        t.zero_()
+                    return st, data
+
+            ck = ZeroMoments(os.path.join(root, f"{tag}-b"), max_to_keep=2)
+            out_e, loss_e, _, _, n = resume_run(
+                f"resume {label} e", staged_cfg, fac, per_step, ckpt=ck)
+            ck.close()
+            for k, v in n.items():
+                totals[k] = totals.get(k, 0) + v
+            drift_e = state_drift(host_state(out_e["state"]), a_final,
+                                  kill_params)
+            check(drift_e > RESUME_STATE_TOL,
+                  f"resume {label}: a resume with the Adam moments zeroed "
+                  f"lies {drift_e} from a's final state, within "
+                  f"{RESUME_STATE_TOL}: the gate cannot see the moments")
+            del out_e, ck, a_final, kill_params
+            shutil.rmtree(os.path.join(root, f"{tag}-b"))
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            def rel(x, y):
+                return abs(x - y) / max(1.0, abs(y))
+
+            worst = max(rel(loss_c[s], loss_a[s]) for s in loss_c)
+            worst_e = max(rel(loss_e[s], loss_a[s]) for s in loss_e)
+            check(worst <= RESUME_LOSS_TOL,
+                  f"resume {label}: resumed losses {loss_c} against the "
+                  f"uninterrupted {loss_a}: {worst} > {RESUME_LOSS_TOL}")
+            bit = all(loss_c[s] == loss_a[s] for s in loss_c)
+            before = max(rel(loss_b[s], loss_a[s]) for s in loss_b)
+            recs = read_events(events, strict=True)
+            kinds = {r["event"] for r in recs}
+            check({"run_start", "step", "ckpt_stage", "requeue",
+                   "run_end"} <= kinds, f"resume {label}: events {kinds}")
+            outcomes = [r["outcome"] for r in recs if r["event"] == "run_end"]
+            check(outcomes == ["preempted", "completed"],
+                  f"resume {label}: run_end outcomes {outcomes}")
+            landed = [r for r in recs if r["event"] == "ckpt_stage"
+                      and r["phase"] == "landed"]
+
+            def fmt(d):
+                return ", ".join(f"{d[s]:.6f}" for s in sorted(d))
+
+            print(f"# resume {label} [{card}]: B={B} L={L}, {steps} steps, "
+                  f"saves every {every}; a uninterrupted (synchronous "
+                  f"saves), b SIGTERM at step {kill} (staged saves), c "
+                  f"resumed from step {kill} by a fresh state and a new "
+                  f"Checkpointer: restored state bit for bit the saved one "
+                  f"(held; restore {restore_s:.2f} s); losses a [{fmt(loss_a)}]"
+                  f", b [{fmt(loss_b)}], c [{fmt(loss_c)}]; steps "
+                  f"{kill + 1}-{steps} max |c - a| / max(1, |a|) {worst:.3g}"
+                  f" (tol {RESUME_LOSS_TOL}), bit for bit: "
+                  f"{'yes' if bit else 'no'}; steps 1-{kill} max |b - a| "
+                  f"{before:.3g}; state drift (RESUME_STATE_TOL "
+                  f"{RESUME_STATE_TOL}): b's staged step {every} against a's"
+                  f" synchronous {drift_b:.3g} (bit for bit: "
+                  f"{'yes' if bit_b else 'no'}), c's final state against "
+                  f"a's {drift_c:.3g} (bit for bit: "
+                  f"{'yes' if bit_c else 'no'}), c's staged step {steps} "
+                  f"c's final state bit for bit (held); planted fault e "
+                  f"(Adam moments zeroed on restore): drift {drift_e:.3g}"
+                  f" (caught), losses [{fmt(loss_e)}], max |e - a| / "
+                  f"max(1, |a|) {worst_e:.3g}; launches a step {per_step} "
+                  f"in a, b, c and e; "
+                  f"{len(recs)} events valid ({', '.join(sorted(kinds))})")
+            if label != "large":
+                continue
+            # d. the steady-state staged boundary: 7 steps, stages at 3
+            # and 6; log_fn waits at step 5 for the first stage to land
+            # (a run's boundaries are far apart), so step 7 holds a stage
+            # whose buffers exist and that no earlier stage holds back.
+            steady_cfg = train_preset(name, B, L, 7, packed).replace(
+                checkpoint=staged_cfg.checkpoint, optimizer=cfg.optimizer)
+            tele_d = Telemetry(spans=True)
+            ck = timed_checkpointer(os.path.join(root, f"{tag}-d"),
+                                    max_to_keep=1)
+
+            def settle(step, ck=ck):
+                if step == 5:
+                    ck.wait()
+
+            out_d, _, wall_d, _, n = resume_run(
+                f"resume {label} d", steady_cfg, fac, per_step, ckpt=ck,
+                tele=tele_d, on_log=settle)
+            ck.close()
+            for k, v in n.items():
+                totals[k] = totals.get(k, 0) + v
+            times_d = ck.times
+            span_d = span_ms(tele_d, "ckpt_boundary_staged")
+            # After the timed runs: its pinned buffers, once freed, stay
+            # in the host allocator's cache and would make b's first
+            # stage look like a steady one.
+            ordering = staged_ordering_check(
+                out_d["state"], os.path.join(root, f"{tag}-ordering"))
+            shutil.rmtree(os.path.join(root, f"{tag}-ordering"))
+            print(f"# resume {label} [{card}]: {ordering}")
+            del ck, out_d
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            def med(walls, skip):
+                return statistics.median(w for s, w in walls.items()
+                                         if s not in skip)
+
+            def fmt_walls(walls):
+                return ", ".join(f"{walls[s]:.1f}" for s in sorted(walls))
+
+            def fmt_times(times):
+                return ", ".join(f"{k} {v:.3f} s" for k, v in times)
+
+            b_step = every + 1            # the step after the boundary
+            med_a = med(wall_a, (1, b_step))
+            med_b = med(wall_b, (1, b_step))
+            med_d = med(wall_d, (1, 4, 5, 7))
+            stage_s = ", ".join(f"{r['overlap_s']:.3f}" for r in landed)
+            print(f"# resume boundary {label} [{card}]: step walls ms a "
+                  f"[{fmt_walls(wall_a)}], b [{fmt_walls(wall_b)}], d "
+                  f"[{fmt_walls(wall_d)}]; synchronous save at step "
+                  f"{every} (a): step {b_step} {wall_a[b_step]:.1f} ms "
+                  f"against the median step {med_a:.1f} ms "
+                  f"(+{wall_a[b_step] - med_a:.1f}; {fmt_times(times_a.items())}"
+                  f"); first staged save (b): step {b_step} "
+                  f"{wall_b[b_step]:.1f} ms against {med_b:.1f} ms "
+                  f"(+{wall_b[b_step] - med_b:.1f}), boundary on the train "
+                  f"thread {', '.join(f'{x:.1f}' for x in span_b)} ms, saver "
+                  f"thread {fmt_times(times_b)}; steady staged save (d, "
+                  f"step 6): step 7 {wall_d[7]:.1f} ms against "
+                  f"{med_d:.1f} ms (+{wall_d[7] - med_d:.1f}), boundary on "
+                  f"the train thread {', '.join(f'{x:.1f}' for x in span_d)}"
+                  f" ms, saver thread {fmt_times(times_d)}; b and c's stages "
+                  f"landed after {stage_s} s (overlap_s); preemption save at "
+                  f"step {kill} {preempt_s:.2f} s; restore {restore_s:.2f} s;"
+                  f" state {state_bytes} bytes in float32 params and Adam "
+                  f"moments, state.pt {file_bytes} bytes")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return totals
 
 
@@ -2742,8 +3350,9 @@ def q8_parity_phase(card: str, base) -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
-                    ["--phase", "k2"], ["--phase", "default"]):
-        print("usage: chip_smoke.py [--phase large|base|k2|default]",
+                    ["--phase", "k2"], ["--phase", "default"],
+                    ["--phase", "resume"]):
+        print("usage: chip_smoke.py [--phase large|base|k2|default|resume]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2788,6 +3397,9 @@ def main() -> int:
     if args == ["--phase", "default"]:
         default_phase(card)
         return 0
+    if args == ["--phase", "resume"]:
+        resume_phase(card)
+        return 0
     sass_line(card, (LOCAL_TRACK, LOCAL_TRACK_VALID, LOCAL_TRACK_SEGMENTS,
                      LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_TILED,
                      LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED_VALID,
@@ -2826,6 +3438,10 @@ def main() -> int:
     for name, n in train_phases(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in resume_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# resume: {time.perf_counter() - t0:.1f} s")
 
     # (source, TPU launch site, the served shape its row was timed at)
     ported = {

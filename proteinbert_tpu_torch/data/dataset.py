@@ -10,7 +10,10 @@ batches. Row order, shards and crop windows are the JAX package's, so the
 same seed gives the same token ids. `row_lengths`, `_epoch_order` and
 `_make_fetch` are what the packed iterator (`data/packing.py`) reads from
 a dataset. The HDF5 reader (a dataset with a `shuffle_block`, which
-`_epoch_order` honours) and the bucketed iterator are not ported.
+`_epoch_order` honours) and the bucketed iterator are not ported; the
+bucketed iterator's `metrics` registry (`data_pad_fraction` and
+`data_dropped_rows_total`, `strategy="bucketed"`) comes with it. The JAX
+`make_pretrain_iterator` takes no registry, and neither does this one.
 """
 
 from __future__ import annotations

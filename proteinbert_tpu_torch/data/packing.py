@@ -212,6 +212,7 @@ def make_packed_iterator(
     skip_batches: int = 0,
     max_segments: int = 8,
     max_open: int = 0,
+    metrics=None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite (or num_epochs-bounded) per-host PACKED batch iterator:
     {"tokens" (B, L), "segment_ids" (B, L), "annotations" (B, S, A)} with
@@ -224,9 +225,12 @@ def make_packed_iterator(
     only the planner bookkeeping, so a resumed run yields the same batches
     without fetching the skipped ones. At the end of a bounded run the
     planner is flushed and every full global batch emitted; the remainder
-    (fewer rows than a global batch) is dropped with a warning. The JAX
-    iterator's `metrics` registry (pad fraction and segment counters) is
-    not ported with it: the port has no obs registry yet."""
+    (fewer rows than a global batch) is dropped with a warning. `metrics`
+    (an obs.MetricsRegistry) receives per-batch
+    `data_pad_fraction{strategy="packed"}`, the `data_packed_segments_total`
+    and `data_packed_rows_total` counters and, at the end,
+    `data_dropped_rows_total{strategy="packed"}`, the JAX iterator's
+    names; None = no reporting."""
     n = len(dataset)
     per_host = _check_per_host(n, batch_size, process_count)
     global_batch = batch_size * process_count
@@ -237,6 +241,13 @@ def make_packed_iterator(
     block = getattr(dataset, "shuffle_block", None)
     fetch = _make_fetch(dataset)
     rng = np.random.default_rng(seed)
+    gauge = counter_seg = counter_rows = counter_drop = None
+    if metrics is not None:
+        gauge = metrics.gauge("data_pad_fraction", strategy="packed")
+        counter_seg = metrics.counter("data_packed_segments_total")
+        counter_rows = metrics.counter("data_packed_rows_total")
+        counter_drop = metrics.counter("data_dropped_rows_total",
+                                       strategy="packed")
     planner = PackPlanner(seq_len, max_segments, max_open)
     ready: List[List[int]] = []
 
@@ -249,8 +260,13 @@ def make_packed_iterator(
             positions.append(list(range(pos, pos + len(g))))
             pos += len(g)
         data = fetch(np.asarray(flat, dtype=np.int64), epoch)
-        return pack_rows(data["tokens"], data["annotations"], positions,
-                         seq_len, max_segments)
+        batch = pack_rows(data["tokens"], data["annotations"], positions,
+                          seq_len, max_segments)
+        if metrics is not None:
+            gauge.set(pad_fraction(batch["tokens"]))
+            counter_seg.inc(len(flat))
+            counter_rows.inc(len(mine))
+        return batch
 
     epoch = 0
     while num_epochs is None or epoch < num_epochs:
@@ -273,6 +289,8 @@ def make_packed_iterator(
         yield emit(groups, epoch - 1 if epoch else 0)
     dropped = sum(len(g) for g in ready)
     if dropped:
+        if counter_drop is not None:
+            counter_drop.inc(dropped)
         logging.getLogger(__name__).warning(
             "packed iterator ended with %d pending sequences in %d partial "
             "rows (a sub-global-batch remainder cannot be emitted at a "

@@ -3,7 +3,10 @@ port of `proteinbert_tpu/inference.py` (its outputs and dtypes).
 
 Entry points (each takes `device=None`, meaning "cuda"; the params must
 already live on that device — `models.proteinbert.init`,
-`weights.params_from_flat` and `weights.load_npz` put them there):
+`weights.params_from_flat`, `weights.load_npz` and `load_trunk` put them
+there):
+- `load_state` / `load_trunk` — the train state / params of a pretrain
+  run's newest checkpoint (`train/checkpoint.Checkpointer`);
 - `embed` / `embed_batches` — (N, G) global + length-masked mean (N, C)
   local representations, float32;
 - `predict_go` — sigmoid GO-annotation probabilities or top-k;
@@ -47,6 +50,34 @@ TRUNCATED_TOTAL = [0]
 class SequenceTooLongError(ValueError):
     """A sequence exceeds the model window (seq_len - 2 residues) and the
     caller asked for rejection instead of truncate-and-count."""
+
+
+def load_state(checkpoint_dir: str, cfg: PretrainConfig,
+               device: DeviceLike = None):
+    """(TrainState, step) of the newest checkpoint of a pretrain run
+    directory, on `device` (None → "cuda"). `cfg` must describe the
+    pretrain run, so the restore template matches the saved tree."""
+    from proteinbert_tpu_torch.train.checkpoint import Checkpointer
+    from proteinbert_tpu_torch.train.train_state import create_train_state
+
+    template = create_train_state(
+        torch.Generator().manual_seed(cfg.train.seed), cfg, device)
+    ck = Checkpointer(checkpoint_dir, async_save=False)
+    try:
+        state, _ = ck.restore(template)
+    finally:
+        ck.close()
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint found in {checkpoint_dir}")
+    return state, int(state.step)
+
+
+def load_trunk(checkpoint_dir: str, cfg: PretrainConfig,
+               device: DeviceLike = None):
+    """(params, step) of a pretrain run's newest checkpoint —
+    `load_state` for callers that need only the model weights."""
+    state, step = load_state(checkpoint_dir, cfg, device)
+    return state.params, step
 
 
 @torch.inference_mode()

@@ -38,7 +38,7 @@ from proteinbert_tpu_torch.train.loss import (
 )
 from proteinbert_tpu_torch.train.schedule import (
     OptState, Optimizer, effective_lr, global_norm, make_optimizer,
-    needs_loss_value, tree_leaves,
+    needs_loss_value, plateau_uses_eval, tree_leaves,
 )
 
 Batch = Dict[str, torch.Tensor]
@@ -152,6 +152,21 @@ def corrupt_forward_grads(state: TrainState, batch: Dict[str, Any],
     return loss_and_grads(state.params, X, Y, W, cfg, seg)
 
 
+def plateau_observation(cfg_opt, metrics: Dict[str, torch.Tensor],
+                        plateau_value: Any) -> torch.Tensor:
+    """The value the plateau transform observes this step: the train
+    loss, or — under an eval-keyed plateau with a finite caller-provided
+    value — the latest cadenced eval loss (+inf means "no eval yet" and
+    falls back to the train loss so the placeholder can't tick the
+    patience counter)."""
+    value = metrics["loss"]
+    if plateau_uses_eval(cfg_opt) and plateau_value is not None:
+        pv = torch.as_tensor(plateau_value, dtype=torch.float32,
+                             device=value.device)
+        value = torch.where(torch.isfinite(pv), pv, value)
+    return value
+
+
 def create_train_state(generator: torch.Generator, cfg: PretrainConfig,
                        device: DeviceLike = None) -> TrainState:
     """Fresh params from `generator` (model.init), a zero optimizer
@@ -167,18 +182,23 @@ def create_train_state(generator: torch.Generator, cfg: PretrainConfig,
 
 def train_step(
     state: TrainState, batch: Dict[str, Any], cfg: PretrainConfig,
+    plateau_value: Any = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One pretraining step on a CLEAN {"tokens", "annotations"} numpy or
     tensor batch (packed: plus "segment_ids", annotations (B, S, A)) →
     (state with step + 1, device metrics). The params and
-    optimizer moments are updated in place; a plateau schedule observes
-    the step's train loss (the eval-keyed plateau is not ported)."""
+    optimizer moments are updated in place. A plateau schedule observes
+    the step's train loss, or `plateau_value` when
+    cfg.optimizer.plateau_metric == "eval_loss" (the trainer passes the
+    latest cadenced eval loss; +inf falls back to the train loss, see
+    `plateau_observation`)."""
     grads, metrics = corrupt_forward_grads(state, batch, cfg)
     metrics = dict(metrics)
     metrics["grad_norm"] = global_norm(grads)  # before the in-place clip
+    value = plateau_observation(cfg.optimizer, metrics, plateau_value)
     params, opt_state = gradient_update(
         make_optimizer(cfg.optimizer), state.params, grads, state.opt_state,
-        metrics["loss"], needs_loss_value(cfg.optimizer))
+        value, needs_loss_value(cfg.optimizer))
     metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
     return TrainState(state.step + 1, params, opt_state,
                       state.generator), metrics

@@ -303,9 +303,19 @@ def _smoke_cfg():
     return cfg, ds
 
 
-def test_pretrain_decreases_loss_on_cpu():
+def test_pretrain_decreases_loss_on_cpu(monkeypatch):
     """The JAX tiny smoke (tests/test_train.py) on the port: synthetic
     proteins, 60 steps, the logged loss falls."""
+    import proteinbert_tpu_torch.train.trainer as trainer_mod
+
+    timers = []
+
+    class SpyTimer(StepTimer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            timers.append(self)
+
+    monkeypatch.setattr(trainer_mod, "StepTimer", SpyTimer)
     cfg, ds = _smoke_cfg()
     seen = []
     out = pretrain(cfg, make_pretrain_iterator(ds, 8, seed=0),
@@ -321,8 +331,13 @@ def test_pretrain_decreases_loss_on_cpu():
     assert 0.0 <= evals[-1]["eval_global_auroc"] <= 1.0
     assert seen == [10, 20, 30, 30, 40, 50, 60, 60]
     perf = out["perf"]
-    assert perf["steps_timed"] == 59 and perf["step_ms"] > 0
-    assert "mfu" not in perf  # no device peak on the CPU
+    # 60 steps less the timer's 2 warm-up steps were timed.
+    assert len(timers) == 1 and timers[0]._steps_timed == 58
+    assert perf["step_ms"] == pytest.approx(1000.0 / perf["steps_per_sec"])
+    assert perf["residues_per_sec_per_chip"] == pytest.approx(
+        perf["steps_per_sec"] * 8 * 32)   # B·L positions a step
+    assert "window_steps_per_sec" in train[-1]   # the log's window rate
+    assert "mfu" not in perf and "window_mfu" not in perf  # no CPU peak
 
 
 def test_pretrain_without_device_raises():

@@ -133,3 +133,62 @@ def step(rank: int, world: int, store: str, out: str) -> None:
     res.update({f"s:{k}": np.asarray(float(v)) for k, v in m.items()})
     _save(out, rank, **res)
     dist.destroy_process_group()
+
+
+def checkpoint(rank: int, world: int, store: str, out: str) -> None:
+    """`pretrain(..., seq_group=g)` for 6 steps uninterrupted, then 3 steps
+    with a Checkpointer made with the group (a save at step 3) and a fresh
+    run resumed from it to step 6: whether the resumed state equals the
+    uninterrupted one on this rank, the steps this rank's Checkpointer
+    lists, and the final params."""
+    from proteinbert_tpu_torch import configs
+    from proteinbert_tpu_torch.data.dataset import (
+        InMemoryPretrainingDataset, make_pretrain_iterator,
+    )
+    from proteinbert_tpu_torch.data.synthetic import make_random_proteins
+    from proteinbert_tpu_torch.train import Checkpointer
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.trainer import pretrain
+    from proteinbert_tpu_torch.weights import params_to_flat
+
+    _join(rank, world, store)
+    group = dist.group.WORLD
+    cfg = configs.PretrainConfig(
+        model=configs.ModelConfig(local_dim=16, global_dim=32, key_dim=8,
+                                  num_heads=4, num_blocks=2,
+                                  num_annotations=64, dtype="float32"),
+        data=configs.DataConfig(seq_len=32, batch_size=2),
+        optimizer=configs.OptimizerConfig(learning_rate=1e-3,
+                                          warmup_steps=2),
+        train=configs.TrainConfig(max_steps=6, log_every=1),
+        checkpoint=configs.CheckpointConfig(every_steps=3))
+    seqs, ann = make_random_proteins(16, np.random.default_rng(7),
+                                     num_annotations=64, max_len=30)
+    ds = InMemoryPretrainingDataset(seqs, ann, 32)
+
+    def fac(skip):
+        return make_pretrain_iterator(ds, 2, seed=0, skip_batches=skip)
+
+    full = pretrain(cfg, fac, device="cpu", seq_group=group)
+    ck = Checkpointer(os.path.join(out, "ck"), seq_group=group)
+    pretrain(cfg.replace(train=configs.TrainConfig(max_steps=3,
+                                                   log_every=1)),
+             fac, checkpointer=ck, device="cpu", seq_group=group)
+    ck.close()
+    ck = Checkpointer(os.path.join(out, "ck"), seq_group=group)
+    resumed = pretrain(cfg, fac, checkpointer=ck, device="cpu",
+                       seq_group=group)
+    ck.close()
+    a, b = full["state"], resumed["state"]
+    same = (a.step == b.step == 6
+            and all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a.params) + a.opt_state.mu + a.opt_state.nu,
+                tree_leaves(b.params) + b.opt_state.mu + b.opt_state.nu))
+            and torch.equal(a.generator.get_state(),
+                            b.generator.get_state())
+            and [h["loss"] for h in full["history"][3:]]
+            == [h["loss"] for h in resumed["history"]])
+    _save(out, rank, same=np.asarray(int(same)),
+          steps=np.asarray(ck.all_steps()),
+          **{f"p:{k}": v for k, v in params_to_flat(b.params).items()})
+    dist.destroy_process_group()
