@@ -8,6 +8,8 @@ card.
     python3 chip_smoke.py --phase k2      # the same as --phase base
     python3 chip_smoke.py --phase default # #6 and #6-int8's times
     python3 chip_smoke.py --phase resume  # checkpoint, SIGTERM, resume
+    python3 chip_smoke.py --phase serve   # the served paths and their gates
+    python3 chip_smoke.py --phase serve-times  # their numbers only
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -109,7 +111,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               (quant_parity_every=1: parity_max equals the deviation measured
               outside) and 12 requests on the `int8_act` arm (a'.'s counts).
               Every kernel count is set to 0 just before each server's
-              traffic and read just after it.
+              traffic and read just after it. Each served shape is a CUDA
+              graph captured at start() (`serve/dispatch.WarmShape`), so
+              the counts hold with every replay credited; each server
+              prints its graphs' pool bytes after warmup, the host ms from
+              submit to a full batch's replay enqueued, and when each
+              request was answered. On each of the six paths: one full
+              embed batch replayed equals its eager run bit for bit; the
+              24 requests submitted before start() to a server at
+              pipeline_depth 2 and to one at depth 1 are answered bit for
+              bit alike, each future sealed once, inflight_max <= depth;
+              both servers' event streams pass read_events(strict=True)
+              and the schema validator (one serve_request a request, one
+              serve_batch a batch, serve_start first, serve_end drained
+              last); the depth-2 server answers one request of each kind
+              over HTTP on 127.0.0.1 exactly as in process, a bad body
+              400 and /v1/predict_task 404.
 5. train    — `pretrain()` on the `large` preset at full depth and width
               (12 blocks, C=G=1024, H=16, 8943 annotations), bf16, seq_len
               1024, B=8, 6 steps (1 warm, 5 timed), twice:
@@ -171,7 +188,11 @@ time both. `--phase default` does the same for #6 and #6-int8 in bf16
 and S=8, and C=512, H=4, L=128, S=8), each beside the composition K1 or
 #3, then K2, on the same inputs. `--phase resume` runs the build and
 `resume_phase` alone: its gates and the boundary's numbers, no result
-line.
+line. `--phase serve` runs the build and phase 4 alone, every gate, no
+result line; `--phase serve-times` runs phase 4's six servers with their
+launch gates and numbers but without the replay, depth, event and HTTP
+gates, which need this tree's package, so it also runs on a parent
+commit's package (copy this script into its `git archive`).
 """
 
 from __future__ import annotations
@@ -3077,6 +3098,13 @@ def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
     t0 = time.perf_counter()
     srv.start()
     print(f"# serve {label}: warmup {time.perf_counter() - t0:.2f} s")
+    if hasattr(srv.dispatcher, "graph_pool_bytes"):
+        torch.cuda.synchronize()
+        pool = srv.dispatcher.graph_pool_bytes()
+        print(f"# serve {label}: {srv.dispatcher.executable_count} CUDA "
+              f"graphs, their pool holds {pool} bytes ({pool / 2**20:.2f} "
+              f"MiB) after warmup; device memory allocated "
+              f"{torch.cuda.memory_allocated() - mem0} bytes [{card}]")
 
     reqs = traffic(n_requests, seed=0)
     futures = [None] * len(reqs)
@@ -3148,6 +3176,11 @@ def serve_phase(card: str, label: str, cfg, mode: str, per_batch: dict,
               f"(tol {SERVE_EMBED_TOL})")
         check(worst <= SERVE_EMBED_TOL, f"served embed vs alone: {worst}")
 
+    done_ms = sorted(round((f - t_start) * 1e3, 1) for f in finished)
+    print(f"# serve {label}: requests done at (ms after the clients "
+          f"started) {done_ms}; queue wait {stats.get('queue_wait')}; "
+          f"pipeline {stats.get('pipeline')}; graphs "
+          f"{stats.get('executables')}")
     lat = sorted(latency)
     p50 = lat[len(lat) // 2]
     p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
@@ -3243,12 +3276,230 @@ def profile_batch(card: str, label: str, run) -> None:
               f"x{e.count:<4d} {e.key[:70]}")
 
 
-def serve_phases(card: str) -> dict:
+def enqueue_ms(srv, batch) -> float:
+    """Median host ms from submit to the batch's replay enqueued (the
+    async entry's return; each batch is finalized after), over 10 full
+    embed batches."""
+    disp = srv.dispatcher
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        if srv.serve_mode == "bucketed":
+            handle = disp.run_timed_async("embed", batch, timed=False)
+        else:
+            handle = disp.run_packed_timed_async("embed", *batch,
+                                                 timed=False)
+        times.append((time.perf_counter() - t0) * 1e3)
+        handle.finalize()
+    return statistics.median(times)
+
+
+def replay_equals_eager(label: str, srv, batch) -> None:
+    """One full embed batch through the server's warm shape (a graph
+    replay) against the same batch run eagerly through the same batch
+    function on the same weights: bit for bit (the kernels are
+    deterministic)."""
+    from proteinbert_tpu_torch import inference
+
+    disp = srv.dispatcher
+    quantized, params = disp._arm()
+    graphs = disp.executable_count
+    if srv.serve_mode == "bucketed":
+        got = disp.run("embed", batch)
+        ann = np.zeros((batch.shape[0], disp.cfg.model.num_annotations),
+                       np.float32)
+        want = inference.run_batch(disp._fn("embed", quantized), params,
+                                   disp.cfg, batch, ann, device=DEVICE)
+        pairs = [(got[k], want[k]) for k in want]
+    else:
+        tokens, seg, ann, riders = batch
+        got = disp.run_packed("embed", tokens, seg, ann, riders)
+        host = inference.run_batch(disp._packed_fn("embed", quantized),
+                                   params, disp.cfg, tokens, seg, ann,
+                                   device=DEVICE)
+        pairs = [(g[k], host[k][r, s]) for g, (r, s, _, _) in
+                 zip(got, riders) for k in ("global", "local_mean")]
+    check(disp.executable_count == graphs, f"{label}: a warm shape was "
+                                           "captured again")
+    diff = max(float(np.abs(a.astype(np.float64) - b).max())
+               for a, b in pairs)
+    exact = all(np.array_equal(a, b) for a, b in pairs)
+    print(f"# serve {label}: graph replay vs eager run of one full embed "
+          f"batch: max |diff| {diff:.3e}, bit for bit {exact}")
+    check(exact, f"{label}: graph replay differs from the eager run "
+                 f"({diff})")
+
+
+def http_post(url: str, payload) -> tuple:
+    """(status, JSON body) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_round_trips(label: str, srv) -> int:
+    """One round trip of each kind through `serve/http.py` over
+    127.0.0.1, each answer held against the same request submitted in
+    process right after it (cache off, so both ran on the card, each
+    alone in its batch: exact), then a bad body (400) and a route the
+    port does not serve (404). Returns the requests it made (two a
+    kind)."""
+    import urllib.request
+
+    from proteinbert_tpu_torch.serve.http import make_http_server
+
+    httpd = make_http_server(srv, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    worst = 0.0
+    try:
+        for kind, seq in traffic(3, seed=7):  # one of each kind
+            status, body = http_post(f"{base}/v1/{kind}", {"seq": seq})
+            check(status == 200, f"{label}: HTTP {kind} answered {status}: "
+                                 f"{body}")
+            want = srv.submit(kind, seq).result(timeout=120)
+            if kind == "embed":
+                for key in ("global", "local_mean"):
+                    worst = max(worst, float(np.abs(np.asarray(
+                        body[key], np.float32) - want[key]).max()))
+            elif kind == "predict_go":
+                worst = max(worst, float(np.abs(np.asarray(
+                    body["probs"], np.float32) - want).max()))
+            else:
+                check(body["filled"] == want[0],
+                      f"{label}: HTTP predict_residues fill differs")
+        bad, _ = http_post(f"{base}/v1/embed", {"nope": 1})
+        route, _ = http_post(f"{base}/v1/predict_task", {"seq": "MKT"})
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
+    print(f"# serve {label}: HTTP round trip of each kind over 127.0.0.1 vs "
+          f"in process: max |diff| {worst:.3e} (tol 0), fills equal; bad "
+          f"body {bad}, /v1/predict_task {route}, /healthz ok "
+          f"{health.get('ok')}")
+    check(worst == 0.0, f"{label}: HTTP answers differ by {worst}")
+    check(bad == 400 and route == 404 and health.get("ok") is True,
+          f"{label}: HTTP status mapping {bad}/{route}/{health.get('ok')}")
+    return 6
+
+
+def same_answer(kind: str, a, b) -> bool:
+    if kind == "embed":
+        return all(np.array_equal(a[k], b[k]) for k in ("global",
+                                                         "local_mean"))
+    if kind == "predict_go":
+        return np.array_equal(a, b)
+    return a[0] == b[0] and np.array_equal(a[1], b[1])
+
+
+def depth_parity(card: str, label: str, cfg, mode: str, seed: int,
+                 quant: str) -> None:
+    """The 24-request traffic at pipeline_depth 2 and then 1, on fresh
+    servers over the same weights, every request submitted before
+    start() so both form the same batches: the answers bit for bit the
+    same, every future sealed once, inflight_max at most the depth. Both
+    servers carry telemetry: the event stream passes
+    read_events(strict=True) and the schema validator, one serve_request
+    a request and one serve_batch a batch. The depth-2 server also
+    answers `http_round_trips` while it is live."""
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.obs import Telemetry, read_events
+    from proteinbert_tpu_torch.obs.events import validate_record
+    from proteinbert_tpu_torch.serve.dispatch import KINDS
+    from proteinbert_tpu_torch.serve.server import Server
+
+    reqs = traffic(24, seed=0)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="serve-", dir=build)
+    answers = {}
+    try:
+        for depth in (2, 1):
+            gc.collect()
+            params = init(cfg.model, torch.Generator().manual_seed(seed),
+                          device=DEVICE)
+            path = os.path.join(root, f"events-{depth}.jsonl")
+            tele = Telemetry(events_path=path)
+            srv = Server(params, cfg, device=DEVICE, buckets=BUCKETS,
+                         max_batch=8, max_wait_s=0.005, queue_depth=64,
+                         cache_size=0, warm_kinds=KINDS, serve_mode=mode,
+                         pack_max_segments=8, quant=quant,
+                         quant_parity_every=0, telemetry=tele,
+                         pipeline_depth=depth)
+            del params
+            sealed = [0] * len(reqs)
+            futures = []
+            for i, (kind, seq) in enumerate(reqs):
+                f = srv.submit(kind, seq)
+                f.add_done_callback(
+                    lambda f, i=i: sealed.__setitem__(i, sealed[i] + 1))
+                futures.append(f)
+            srv.start()
+            answers[depth] = [f.result(timeout=300) for f in futures]
+            extra = http_round_trips(label, srv) if depth == 2 else 0
+            check(srv.drain(timeout=300), f"{label}: depth {depth} drain "
+                                          "timed out")
+            tele.close()
+            stats = srv.stats()
+            pipe = stats["pipeline"]
+            recs = read_events(path, strict=True)
+            for rec in recs:
+                validate_record(rec)
+            events = [r["event"] for r in recs]
+            print(f"# serve {label} depth {depth}: {stats['batches']} "
+                  f"batches, inflight_max {pipe['inflight_max']}, overlap "
+                  f"ratio {pipe['overlap_ratio']}, finalize "
+                  f"{pipe['finalize_seconds_total']} s; {len(recs)} events "
+                  f"valid ({events.count('serve_request')} serve_request, "
+                  f"{events.count('serve_batch')} serve_batch)")
+            check(sealed == [1] * len(reqs), f"{label}: depth {depth} "
+                                             f"sealed {sealed}")
+            check(stats["completed"] == len(reqs) + extra,
+                  f"{label}: depth {depth} completed {stats['completed']}")
+            check(1 <= pipe["inflight_max"] <= depth,
+                  f"{label}: inflight_max {pipe['inflight_max']} at depth "
+                  f"{depth}")
+            check(events[0] == "serve_start" and events[-1] == "serve_end"
+                  and recs[-1]["outcome"] == "drained",
+                  f"{label}: event stream {events[0]} .. {events[-1]}")
+            check(events.count("serve_request") == len(reqs) + extra
+                  and events.count("serve_batch") == stats["batches"],
+                  f"{label}: {events.count('serve_request')} serve_request, "
+                  f"{events.count('serve_batch')} serve_batch events")
+            del srv
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = all(same_answer(kind, a, b) for (kind, _), a, b in
+               zip(reqs, answers[2], answers[1]))
+    print(f"# serve {label}: depth 2 answers bit for bit depth 1's: {same} "
+          f"({len(reqs)} requests) [{card}]")
+    check(same, f"{label}: pipelining changed an answer")
+
+
+def serve_phases(card: str, gates: bool = True) -> dict:
     """The three served paths (bucketed base, ragged base, ragged at the
     ModelConfig default width), each on the fp32 arm and then on the int8
-    arm (same weights and traffic); then the int8 arm's parity shadow and
-    the `int8_act` arm. Returns each kernel's launches summed over the
-    traffic runs."""
+    arm (same weights and traffic): the traffic with its launch gates and
+    numbers, the profile of one full batch and, with warm shapes, the
+    host time to enqueue one. With `gates`, each also holds a graph
+    replay against the eager run (`replay_equals_eager`) and depth 2
+    against depth 1 with the event stream and HTTP (`depth_parity`);
+    then the int8 arm's parity shadow and the `int8_act` arm. Without
+    (`--phase serve-times`, which also runs on the parent commit's
+    package), only the numbers. Returns each kernel's launches summed
+    over the traffic runs."""
     from proteinbert_tpu_torch.configs import ModelConfig, get_preset
     from proteinbert_tpu_torch.kernels import (
         ATTENTION, ATTENTION_Q8, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
@@ -3282,21 +3533,32 @@ def serve_phases(card: str) -> dict:
             for kname, n in launches.items():
                 totals[kname] = totals.get(kname, 0) + n
             if mode == "bucketed":
+                batch = tokens
                 profile_batch(card, f"{name}, one embed batch 8x512",
                               lambda: srv.dispatcher.run("embed", tokens))
             else:
-                packed = full_ragged_batch(srv)
+                batch = full_ragged_batch(srv)
                 profile_batch(card, f"{name}, one packed embed batch 8x512 "
                               "(24 segments)",
                               lambda: srv.dispatcher.run_packed("embed",
-                                                                *packed))
+                                                                *batch))
+            if hasattr(srv.dispatcher, "graph_pool_bytes"):
+                print(f"# serve {name} [{card}]: host ms from submit to the "
+                      f"replay enqueued, one full embed batch "
+                      f"{enqueue_ms(srv, batch):.3f} (median of 10)")
+            if gates:
+                replay_equals_eager(name, srv, batch)
             del srv
+            if gates:
+                depth_parity(card, name, cfg, mode, seed=0, quant=quant)
         diff = max_answer_diff(reqs, answers["int8"], answers["fp32"],
                                same_fills=False)
         print(f"# serve {label} int8: max |int8 - fp32 arm| over the "
               f"{len(reqs)} answers {diff:.6e}")
         check(diff > 0, f"{label}: the int8 arm answered exactly as the fp32 "
                         "arm (were the int8 weights used?)")
+    if not gates:
+        return totals
     q8_parity_phase(card, base)
     srv, launches, answers = serve_phase(
         card, "bucketed base int8_act", base, "bucketed",
@@ -3351,9 +3613,10 @@ def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
                     ["--phase", "k2"], ["--phase", "default"],
-                    ["--phase", "resume"]):
-        print("usage: chip_smoke.py [--phase large|base|k2|default|resume]",
-              file=sys.stderr)
+                    ["--phase", "resume"], ["--phase", "serve"],
+                    ["--phase", "serve-times"]):
+        print("usage: chip_smoke.py [--phase large|base|k2|default|resume|"
+              "serve|serve-times]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3399,6 +3662,11 @@ def main() -> int:
         return 0
     if args == ["--phase", "resume"]:
         resume_phase(card)
+        return 0
+    if args in (["--phase", "serve"], ["--phase", "serve-times"]):
+        t0 = time.perf_counter()
+        serve_phases(card, gates=args[1] == "serve")
+        print(f"# serve: {time.perf_counter() - t0:.1f} s")
         return 0
     sass_line(card, (LOCAL_TRACK, LOCAL_TRACK_VALID, LOCAL_TRACK_SEGMENTS,
                      LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_TILED,

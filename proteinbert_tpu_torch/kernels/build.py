@@ -18,6 +18,11 @@ Every C entry point returns `cudaGetLastError()` after its launch, and
 `Kernel.launch` raises when that is not 0. Each `Kernel` carries a
 plain integer `launches`, bumped once per launch of its CUDA kernel and
 nowhere else, so a run can show that its main path went through it.
+
+A call made while its thread captures a CUDA graph launches nothing: the
+kernel runs when the graph is replayed. `recording_launches()` collects
+such calls per kernel instead of counting them, and `credit()` adds one
+replay's worth to the counts (serve/dispatch.py replays warm shapes).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Iterable, List, Sequence
+from contextlib import contextmanager
+from typing import Dict, Iterable, Iterator, List, Sequence
 
 import torch
 
@@ -41,6 +47,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes argument kinds for the C entry points.
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+
+# Per thread: the launches recorded into the CUDA graph this thread is
+# capturing (None while it captures nothing).
+_capture = threading.local()
 
 
 def nvcc_path() -> str:
@@ -110,12 +120,37 @@ class Kernel:
 
     def launch(self, *args) -> None:
         """Call the C entry point; raise if the launch reported a CUDA
-        error; count the launch."""
+        error; count the launch (or, under `recording_launches`, record
+        it for the graph's replays)."""
         rc = self.function()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
-        self.launches += 1
+        recorded = getattr(_capture, "launches", None)
+        if recorded is None:
+            self.launches += 1
+        else:
+            recorded[self] = recorded.get(self, 0) + 1
+
+
+@contextmanager
+def recording_launches() -> Iterator[Dict[Kernel, int]]:
+    """While the calling thread captures a CUDA graph: each `launch` on
+    this thread goes into the yielded {kernel: calls} instead of its
+    count, since the graph, not the call, runs the kernel."""
+    if getattr(_capture, "launches", None) is not None:
+        raise RuntimeError("recording_launches does not nest")
+    _capture.launches = recorded = {}
+    try:
+        yield recorded
+    finally:
+        _capture.launches = None
+
+
+def credit(launches: Dict[Kernel, int]) -> None:
+    """Count one replay of a graph whose capture recorded `launches`."""
+    for kernel, n in launches.items():
+        kernel.launches += n
 
 
 def build_all(kernels: Iterable[Kernel]) -> None:

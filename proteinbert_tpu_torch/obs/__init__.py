@@ -17,10 +17,10 @@ JAX module (which differences each copy has, its docstring says):
   `flight_<pid>.json` on SIGTERM / NaN-halt / unhandled exception.
 
 This module copies the JAX `obs/__init__.py`'s `Telemetry`, `NULL` and
-`as_telemetry`. The SLO half (`obs/slo.py`: `SLObjective`,
-`SLOEvaluator`, `ExemplarHistogram`, `ProfileTrigger`, `parse_slo(s)`)
-belongs to serving and is not ported here, so none of its names is
-exported; `obs/diagnose.py` is not ported either.
+`as_telemetry`, and exports the same names, the serving SLO half
+(`obs/slo.py`: `SLObjective`, `SLOEvaluator`, `ExemplarHistogram`,
+`ProfileTrigger`, `parse_slo(s)`) included. `obs/diagnose.py` is not
+ported: the JAX `pbt diagnose` reads the port's streams (one schema).
 
 Overhead contract: `NULL` (the default when no telemetry is passed) is
 a do-nothing facade — `emit` returns None, `span` is a shared
@@ -52,6 +52,10 @@ from proteinbert_tpu_torch.obs.flight import (
     FlightRecorder, flight_path, validate_flight_dump,
 )
 from proteinbert_tpu_torch.obs.metrics import MetricsRegistry, QuantileWindow
+from proteinbert_tpu_torch.obs.slo import (
+    ExemplarHistogram, ProfileTrigger, SLObjective, SLOEvaluator,
+    parse_slo, parse_slos,
+)
 from proteinbert_tpu_torch.obs.tracing import SpanCollector, span
 
 _NULL_CTX = contextlib.nullcontext()
@@ -162,4 +166,6 @@ __all__ = [
     "MetricsRegistry", "QuantileWindow",
     "SpanCollector", "span",
     "FlightRecorder", "flight_path", "validate_flight_dump",
+    "SLObjective", "SLOEvaluator", "ExemplarHistogram", "ProfileTrigger",
+    "parse_slo", "parse_slos",
 ]

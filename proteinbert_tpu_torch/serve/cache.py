@@ -1,5 +1,6 @@
 """Content-addressed LRU result cache for the serving layer — a copy of
-`proteinbert_tpu/serve/cache.py` without the metrics registry.
+`proteinbert_tpu/serve/cache.py` without `clear()` (the blue-green
+rollout's, not ported yet).
 
 Keys are sha256 digests over (kind, sequence, annotations bytes) —
 content addressing, so two textually identical queries hit the same
@@ -8,7 +9,9 @@ differs by one bit misses. Values are whatever the finalizer produced
 for that request kind (an embed dict, a GO probability row, a filled
 sequence + residue probs) — small host numpy arrays, held strongly.
 
-Hit/miss/eviction counts feed stats().
+Hit/miss/eviction counts feed both local stats() and, when a metrics
+registry is supplied, the `serve_cache_{hits,misses,evictions}_total`
+counters plus the `serve_cache_hit_rate` gauge.
 
 Thread-safe: submit paths race against scheduler-thread inserts.
 capacity == 0 disables the cache (every get misses, puts are dropped) —
@@ -48,7 +51,7 @@ def content_key(kind: str, seq: str, annotations=None) -> str:
 class EmbeddingCache:
     """Bounded LRU over content keys with counted evictions."""
 
-    def __init__(self, capacity: int = 1024):
+    def __init__(self, capacity: int = 1024, metrics=None):
         if capacity < 0:
             raise ValueError(f"capacity must be >= 0, got {capacity}")
         self.capacity = capacity
@@ -58,6 +61,13 @@ class EmbeddingCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        if metrics is not None:
+            self._hit_c = metrics.counter("serve_cache_hits_total")
+            self._miss_c = metrics.counter("serve_cache_misses_total")
+            self._evict_c = metrics.counter("serve_cache_evictions_total")
+            self._rate_g = metrics.gauge("serve_cache_hit_rate")
+        else:
+            self._hit_c = self._miss_c = self._evict_c = self._rate_g = None
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -68,9 +78,15 @@ class EmbeddingCache:
             value = self._entries.get(key)
             if value is None:
                 self.misses += 1
+                if self._miss_c is not None:
+                    self._miss_c.inc()
             else:
                 self._entries.move_to_end(key)
                 self.hits += 1
+                if self._hit_c is not None:
+                    self._hit_c.inc()
+            if self._rate_g is not None:
+                self._rate_g.set(self.hit_rate)
             return value
 
     def put(self, key: str, value: Any) -> None:
@@ -82,6 +98,8 @@ class EmbeddingCache:
             while len(self._entries) > self.capacity:
                 self._entries.popitem(last=False)
                 self.evictions += 1
+                if self._evict_c is not None:
+                    self._evict_c.inc()
 
     @property
     def hit_rate(self) -> float:

@@ -1,13 +1,40 @@
 """Bucketed and ragged dispatch — port of `proteinbert_tpu/serve/
-dispatch.py` (the fp32 arms of `BucketDispatcher` and `RaggedDispatcher`).
+dispatch.py` (`InFlightBatch` and the fp32 and int8 arms of
+`BucketDispatcher` and `RaggedDispatcher`).
 
 Online traffic is ragged. Each request is routed to the smallest length
 bucket that holds it (ascending, last == seq_len), and a micro-batch of
 r rows is padded up to the smallest batch class ≥ r (powers of two up to
 `max_batch` by default), so a 40-residue query does not pay full-seq_len
 work and a row's numbers do not depend on the traffic around it.
-`warmup()` runs every (bucket, class) shape once before serving, which
-builds the kernels and settles the allocator.
+
+Warm shapes. The JAX dispatcher keeps one warm jitted executable per
+shape; its counterpart on the card is a CUDA graph (`WarmShape`). The
+first batch of a (kind, bucket, batch class) — for ragged serving, of a
+kind — runs once eagerly on a side stream (that builds and loads the
+kernels, sets their attributes and settles the allocator), then is
+captured into a `torch.cuda.CUDAGraph` over static input buffers; every
+later batch of that shape copies its inputs into those buffers and
+replays the graph. All graphs share one memory pool. On the int8 arm
+`partial_dequantize_params` runs inside the graph, as the dequantize runs
+inside the JAX executable. `warmup()` captures every shape up front;
+a shape it did not cover is captured on its first batch, as JAX compiles
+such a shape on first use. A capture or a replay that fails raises
+`RuntimeError`; nothing reruns eagerly. On the CPU nothing is captured:
+each batch is the eager call it always was.
+
+The kernels count their launches in Python (`kernels/build.Kernel`), and
+a replay runs no Python, so each graph records at capture which kernels
+it launches and every replay credits them (`kernels/build.credit`).
+
+Async dispatch. `run_timed_async` / `run_packed_timed_async` return an
+`InFlightBatch` once the batch is enqueued: on the card the inputs go to
+the shape's buffers from pinned staging, the graph is replayed, the
+outputs start their copy into pinned host buffers owned by the batch,
+and an event is recorded — all on the calling thread's current stream.
+`finalize()` waits for the event, then trims and fans out on the host
+and runs the parity shadow. The synchronous entries are submit plus
+immediate finalize, so both give the same outputs bit for bit.
 
 `run_rows` is the offline entry (`inference.embed(..., bucketed=True)`):
 group a whole token matrix by bucket, run each group at its bucket
@@ -19,14 +46,19 @@ length, reassemble in input order.
 entries, whose block weights reach the int8 legs of #3, K2 and #6. With
 `quant_parity_every <= 0` the fp32 trunk moves to the host, so the card
 holds only the int8 tree; with N > 0 it stays on the card and every Nth
-live batch also runs the fp32 entries on the same inputs (the parity
-shadow, `quant_report["parity_max"]`).
+live batch also runs the fp32 entries eagerly on the same inputs (the
+parity shadow, `quant_report["parity_max"]`).
+
+`metrics` (an obs `MetricsRegistry`) receives the JAX dispatcher's
+`serve_executable_count`, `serve_warmup_seconds_total`,
+`serve_compile_seconds` and `serve_quant_parity_max`.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +67,7 @@ from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.data.vocab import EOS_ID, PAD_ID, SOS_ID
+from proteinbert_tpu_torch.kernels.build import credit, recording_launches
 from proteinbert_tpu_torch.models.proteinbert import to_device
 from proteinbert_tpu_torch.parallel.quant import (
     SERVE_QUANT_MODES, param_bytes, quant_entry, quant_packed_entry,
@@ -56,6 +89,7 @@ _PACKED_FNS = {
 }
 
 Rider = Tuple[int, int, int, int]  # (row, segment index, start, span)
+Fetch = Callable[[], Any]
 
 
 def _host_leaves(tree) -> List[np.ndarray]:
@@ -76,6 +110,13 @@ def parity_max(a, b) -> float:
             worst = max(worst, float(np.max(np.abs(
                 x.astype(np.float32) - y.astype(np.float32)))))
     return worst
+
+
+def _map(fn, out):
+    """`fn` over a batch function's output: a dict of tensors or one."""
+    if isinstance(out, dict):
+        return {k: fn(v) for k, v in out.items()}
+    return fn(out)
 
 
 def resolve_buckets(cfg: PretrainConfig, buckets=None) -> Tuple[int, ...]:
@@ -113,10 +154,103 @@ def default_batch_classes(max_batch: int) -> Tuple[int, ...]:
     return tuple(classes)
 
 
+class InFlightBatch:
+    """Handle for one asynchronously dispatched micro-batch (JAX
+    dispatch.py:133). `run_*_async` returns one as soon as the batch is
+    enqueued; everything that blocks (the wait for the device, the
+    per-request fan-out, the quant parity shadow) lives in `finalize()`,
+    which the scheduler's completer thread calls when it resolves the
+    batch. The sync entries are submit + immediate finalize, so async and
+    sync outputs are bit-identical by construction."""
+
+    __slots__ = ("rows", "timings", "_fetch", "_result")
+
+    def __init__(self, rows: int, timings: Dict, fetch):
+        self.rows = rows
+        self.timings = timings
+        self._fetch = fetch
+        self._result = None
+
+    def finalize(self):
+        """Block for the device result (host fetch + fan-out + parity
+        shadow) and return (outputs, timings) — the exact pair the sync
+        entry returns. Idempotent: a second call returns the first
+        call's result."""
+        if self._fetch is not None:
+            out = self._fetch()
+            self._result = (out, self.timings)
+            self._fetch = None
+        return self._result
+
+
+class WarmShape:
+    """One warm shape on the card: a CUDA graph captured over one call
+    of a batch function (`fn(params, *inputs, cfg.model)`), the static
+    device buffers its inputs are copied into, its output tensors, and
+    the kernel launches one replay makes.
+
+    Every tensor a kernel of the graph touches keeps its address across
+    replays — the bf16 kernels bake TMA tensor maps of those addresses
+    into their parameters at capture: the inputs are these buffers, the
+    weights are the dispatcher's, and the intermediates and per-call
+    scratches come from the graph's pool. Replays of graphs that share a
+    pool must not overlap; a dispatcher replays on one thread, each batch
+    enqueued behind the last on one stream."""
+
+    def __init__(self, fn: Callable, params, cfg: PretrainConfig,
+                 arrays: Sequence[np.ndarray], device: torch.device,
+                 pool, stream: torch.cuda.Stream):
+        self.inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                       for a in arrays]
+        # The eager warm run: it builds and loads the kernels and makes
+        # their one-time CUDA runtime calls outside the capture.
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            fn(params, *self.inputs, cfg.model)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with recording_launches() as recorded:
+                # thread_local: a live server's completer thread keeps
+                # waiting on events while the scheduler thread captures.
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = fn(params, *self.inputs, cfg.model)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture failed: {e}") from e
+        self.launches = recorded
+
+    def replay(self, arrays: Sequence[np.ndarray]) -> Fetch:
+        """Enqueue one batch on the current stream: `arrays` into the
+        static buffers (from pinned staging, one per batch), the replay,
+        the outputs' copy into pinned host buffers this batch owns, and
+        an event. Returns the fetch that waits for the event and hands
+        back host copies."""
+        for buf, a in zip(self.inputs, arrays):
+            staged = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+            buf.copy_(staged, non_blocking=True)
+        try:
+            self.graph.replay()
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph replay failed: {e}") from e
+        credit(self.launches)
+        host = _map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True), self.outputs)
+        done = torch.cuda.Event()
+        done.record()
+
+        def fetch():
+            done.synchronize()
+            # Copies: a result the cache keeps must not pin the buffer.
+            return _map(lambda t: t.numpy().copy(), host)
+
+        return fetch
+
+
 class BucketDispatcher:
-    """Routes (kind, tokens, annotations) micro-batches to their shape
-    class on `device` (None → "cuda") and returns trimmed host
-    outputs. `quant` picks the arm (`SERVE_QUANT_MODES`)."""
+    """Routes (kind, tokens, annotations) micro-batches to their warm
+    shape on `device` (None → "cuda") and returns trimmed host outputs.
+    `quant` picks the arm (`SERVE_QUANT_MODES`)."""
 
     def __init__(
         self,
@@ -126,6 +260,7 @@ class BucketDispatcher:
         max_batch: int = 8,
         batch_classes: Optional[Sequence[int]] = None,
         device: DeviceLike = None,
+        metrics=None,
         quant: str = "fp32",
         quant_parity_every: int = 0,
     ):
@@ -144,7 +279,6 @@ class BucketDispatcher:
             raise ValueError(
                 f"largest batch class {self.batch_classes[-1]} cannot hold "
                 f"a full micro-batch of {self.max_batch}")
-        self.warmup_seconds_total = 0.0
         self.quant = quant
         self.quant_parity_every = int(quant_parity_every)
         # True while warmup() runs its dummy batches: they neither consume
@@ -154,6 +288,9 @@ class BucketDispatcher:
         self.qparams = None
         self.quant_report: Dict = {}
         self.quant_parity_max: Optional[float] = None
+        self._quant_parity_g = (
+            metrics.gauge("serve_quant_parity_max")
+            if metrics is not None and quant != "fp32" else None)
         if quant != "fp32":
             fp32_bytes = param_bytes(self.params)
             self.qparams = quantize_params(self.params)
@@ -171,6 +308,19 @@ class BucketDispatcher:
                 "fp32_resident": ("device" if self.quant_parity_every > 0
                                   else "host"),
             }
+        self._compile_hist = (metrics.histogram("serve_compile_seconds")
+                              if metrics is not None else None)
+        self._exec_g = (metrics.gauge("serve_executable_count")
+                        if metrics is not None else None)
+        self._warmup_g = (metrics.gauge("serve_warmup_seconds_total")
+                          if metrics is not None else None)
+        self.warmup_seconds_total = 0.0
+        # Captured graphs by (kind, L, batch class). Added by the thread
+        # that dispatches, read by stats() from client threads.
+        self._graphs: Dict[Tuple[str, int, int], WarmShape] = {}
+        self._warm_lock = threading.Lock()
+        self._pool = None             # the graphs' shared memory pool
+        self._capture_stream = None
 
     # ------------------------------------------------------------ routing
 
@@ -195,6 +345,74 @@ class BucketDispatcher:
         tokens[:, 0] = SOS_ID
         tokens[:, 1] = EOS_ID
         return tokens
+
+    # -------------------------------------------------------- warm shapes
+
+    @property
+    def trunk_executable_count(self) -> int:
+        """Warm shared-trunk graphs (the heads' trunk, JAX :347; none
+        until the heads are ported)."""
+        with self._warm_lock:
+            return sum(1 for k in self._graphs if k[0] == "trunk")
+
+    @property
+    def executable_count(self) -> int:
+        """Captured CUDA graphs — the JAX dispatcher's warm executables
+        (0 on the CPU, where nothing is captured)."""
+        with self._warm_lock:
+            return len(self._graphs)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the graphs' shared pool holds: its segments in
+        the caching allocator's snapshot (0 before the first capture)."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def _warm_shape(self, key, fn, params,
+                    arrays: Sequence[np.ndarray]) -> WarmShape:
+        """The graph of `key`, captured now on `arrays` if it is new."""
+        with self._warm_lock:
+            warm = self._graphs.get(key)
+        if warm is not None:
+            return warm
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        warm = WarmShape(fn, params, self.cfg, arrays, self.device,
+                         self._pool, self._capture_stream)
+        with self._warm_lock:
+            self._graphs[key] = warm
+            n = len(self._graphs)
+        if self._exec_g is not None:
+            self._exec_g.set(n)
+        return warm
+
+    def _submit(self, key, fn, params, arrays: Sequence[np.ndarray]
+                ) -> Fetch:
+        """Start `fn` on host `arrays` → the fetch of its host outputs:
+        on the card a replay of the shape's graph, on the CPU the eager
+        call, already done."""
+        if self.device.type == "cpu":
+            out = inference.run_batch(fn, params, self.cfg, *arrays,
+                                      device=self.device)
+            return lambda: out
+        return self._warm_shape(key, fn, params, arrays).replay(arrays)
+
+    def _note_warmup_seconds(self, seconds: float) -> None:
+        self.warmup_seconds_total += seconds
+        if self._warmup_g is not None:
+            self._warmup_g.set(round(self.warmup_seconds_total, 6))
+
+    def _timed_warm(self, run: Callable[[], Any]) -> None:
+        if self._compile_hist is None:
+            run()
+            return
+        t0 = time.perf_counter()
+        run()
+        self._compile_hist.observe(time.perf_counter() - t0)
 
     # ----------------------------------------------------------- execution
 
@@ -232,7 +450,25 @@ class BucketDispatcher:
         self.quant_report["parity_max"] = round(self.quant_parity_max, 9)
         self.quant_report["parity_samples"] = (
             self.quant_report.get("parity_samples", 0) + 1)
+        if self._quant_parity_g is not None:
+            self._quant_parity_g.set(round(self.quant_parity_max, 9))
         timings["quant_parity_max"] = round(worst, 9)
+
+    @staticmethod
+    def _finalizer(fetch: Fetch, timings: Dict, t1: float,
+                   timed: bool) -> Fetch:
+        """`fetch` stamping device_s (enqueued → outputs on host) and
+        finalize_s (the wait inside finalize) when `timed`."""
+        def finalize_fetch():
+            tf = time.perf_counter()
+            out = fetch()
+            if timed:
+                now = time.perf_counter()
+                timings["device_s"] = round(now - t1, 9)
+                timings["finalize_s"] = round(now - tf, 9)
+            return out
+
+        return finalize_fetch
 
     def run(self, kind: str, tokens: np.ndarray,
             annotations: Optional[np.ndarray] = None):
@@ -248,8 +484,20 @@ class BucketDispatcher:
                   annotations: Optional[np.ndarray] = None,
                   timed: bool = True):
         """`run()` that also returns {"prep_s": padding, "device_s":
-        model call through host fetch, "pad_fraction": padding share of
-        the (batch_class, L) grid} when `timed`."""
+        enqueue through host fetch, "finalize_s": the host-fetch share of
+        device_s, "pad_fraction": padding share of the (batch_class, L)
+        grid} when `timed` — submit + immediate finalize of the async
+        entry."""
+        return self.run_timed_async(kind, tokens, annotations,
+                                    timed=timed).finalize()
+
+    def run_timed_async(self, kind: str, tokens: np.ndarray,
+                        annotations: Optional[np.ndarray] = None,
+                        timed: bool = True) -> InFlightBatch:
+        """Submit one micro-batch and return an `InFlightBatch` as soon
+        as it is enqueued. Validation, padding and the replay happen here
+        on the calling (scheduler) thread; the wait for the device, the
+        trim and the parity shadow run in the handle's `finalize()`."""
         quantized, run_params = self._arm()
         fn = self._fn(kind, quantized)
         rows, L = tokens.shape
@@ -268,28 +516,34 @@ class BucketDispatcher:
             tokens = np.pad(tokens, ((0, cls - rows), (0, 0)))
             annotations = np.pad(annotations, ((0, cls - rows), (0, 0)))
         t1 = time.perf_counter()
+        if timed:
+            timings["prep_s"] = round(t1 - t0, 9)
         parity_due = self._quant_batch_tick(timings)
+        pending = self._submit((kind, L, cls), fn, run_params,
+                               (tokens, annotations))
 
-        def trimmed(fn, params):
-            out = inference.run_batch(fn, params, self.cfg, tokens,
-                                      annotations, device=self.device)
+        def trimmed(out):
             if isinstance(out, dict):
                 return {k: v[:rows] for k, v in out.items()}
             return out[:rows]
 
-        out = trimmed(fn, run_params)
-        if parity_due:
-            self._shadow_parity(
-                out, lambda: trimmed(self._fn(kind, False), self.params),
-                timings)
-        if timed:
-            timings["prep_s"] = round(t1 - t0, 9)
-            timings["device_s"] = round(time.perf_counter() - t1, 9)
-        return out, timings
+        def fetch():
+            out = trimmed(pending())
+            if parity_due:
+                self._shadow_parity(
+                    out, lambda: trimmed(inference.run_batch(
+                        self._fn(kind, False), self.params, self.cfg,
+                        tokens, annotations, device=self.device)),
+                    timings)
+            return out
+
+        return InFlightBatch(rows, timings,
+                             self._finalizer(fetch, timings, t1, timed))
 
     def warmup(self, kinds: Sequence[str] = ("embed",)) -> int:
-        """Run every (bucket_len, batch_class) shape of `kinds` once on
-        dummy rows; returns how many shapes ran."""
+        """Capture every (bucket_len, batch_class) shape of `kinds` on
+        dummy rows (on the CPU: run each once); returns how many shapes
+        ran. The others are captured on first use."""
         t0 = time.perf_counter()
         n = 0
         self._warming = True
@@ -300,11 +554,15 @@ class BucketDispatcher:
                                      f"have {KINDS}")
                 for L in self.buckets:
                     for cls in self.batch_classes:
-                        self.run(kind, self._dummy_batch(L, cls))
+                        with self._warm_lock:
+                            if (kind, L, cls) in self._graphs:
+                                continue
+                        dummy = self._dummy_batch(L, cls)
+                        self._timed_warm(lambda: self.run(kind, dummy))
                         n += 1
         finally:
             self._warming = False
-        self.warmup_seconds_total += time.perf_counter() - t0
+        self._note_warmup_seconds(time.perf_counter() - t0)
         return n
 
     # ------------------------------------------------- offline batch path
@@ -346,9 +604,9 @@ class BucketDispatcher:
 
 class RaggedDispatcher(BucketDispatcher):
     """Ragged PACKED dispatch: one fixed shape (rows_per_batch, seq_len)
-    per request kind, fed the packed representation {tokens, segment_ids,
-    annotations} (data/packing.py) instead of a (bucket_len,
-    batch_class) ladder.
+    per request kind — one graph per kind — fed the packed representation
+    {tokens, segment_ids, annotations} (data/packing.py) instead of a
+    (bucket_len, batch_class) ladder.
 
     Requests are packed at BUCKET-QUANTIZED spans: a request's span is its
     `bucket_len`, its tokens `[<sos> seq <eos> <pad>...]` fill the span,
@@ -369,6 +627,7 @@ class RaggedDispatcher(BucketDispatcher):
         rows_per_batch: int = 4,
         max_segments: int = 8,
         device: DeviceLike = None,
+        metrics=None,
         quant: str = "fp32",
         quant_parity_every: int = 0,
     ):
@@ -386,7 +645,8 @@ class RaggedDispatcher(BucketDispatcher):
         super().__init__(params, cfg, buckets=buckets,
                          max_batch=rows_per_batch,
                          batch_classes=(rows_per_batch,), device=device,
-                         quant=quant, quant_parity_every=quant_parity_every)
+                         metrics=metrics, quant=quant,
+                         quant_parity_every=quant_parity_every)
         self.rows_per_batch = int(rows_per_batch)
         self.max_segments = int(max_segments)
 
@@ -394,6 +654,12 @@ class RaggedDispatcher(BucketDispatcher):
         raise NotImplementedError(
             "RaggedDispatcher consumes packed batches only — use "
             "run_packed()/run_packed_timed() "
+            "(serve/scheduler.PackedBatchScheduler builds them)")
+
+    def run_timed_async(self, *args, **kwargs):
+        raise NotImplementedError(
+            "RaggedDispatcher consumes packed batches only — use "
+            "run_packed_timed_async() "
             "(serve/scheduler.PackedBatchScheduler builds them)")
 
     def run_packed(self, kind: str, tokens: np.ndarray,
@@ -411,10 +677,25 @@ class RaggedDispatcher(BucketDispatcher):
     def run_packed_timed(self, kind: str, tokens: np.ndarray,
                          segment_ids: np.ndarray, annotations: np.ndarray,
                          riders: Sequence[Rider], timed: bool = True):
-        """Run one packed batch: tokens/segment_ids (rows_per_batch,
-        seq_len), annotations (rows_per_batch, max_segments, A), `riders`
-        one (row, segment_index, start, span) per request, row-major,
-        segment_index 0-based. Returns (per-rider outputs aligned with
+        """Run one packed batch synchronously — submit + immediate
+        finalize of `run_packed_timed_async`."""
+        return self.run_packed_timed_async(
+            kind, tokens, segment_ids, annotations, riders,
+            timed=timed).finalize()
+
+    def run_packed_timed_async(self, kind: str, tokens: np.ndarray,
+                               segment_ids: np.ndarray,
+                               annotations: np.ndarray,
+                               riders: Sequence[Rider],
+                               timed: bool = True) -> InFlightBatch:
+        """Submit one packed batch through the kind's warm shape; the
+        returned `InFlightBatch.finalize()` fans per-segment outputs back
+        out after the host fetch.
+
+        tokens/segment_ids are (rows_per_batch, seq_len), annotations
+        (rows_per_batch, max_segments, A), `riders` one (row,
+        segment_index, start, span) per request, row-major, segment_index
+        0-based. Finalize returns (per-rider outputs aligned with
         `riders`, timings); each output has the shape the bucketed
         dispatcher returns for that request: {"global" (G,), "local_mean"
         (C,)} / (A,) probs / (span, V) probs."""
@@ -432,12 +713,14 @@ class RaggedDispatcher(BucketDispatcher):
             timings["pad_fraction"] = round(1.0 - real / (R * L), 6)
             timings["segments"] = len(riders)
             timings["segments_per_row"] = round(len(riders) / R, 4)
+        t1 = time.perf_counter()
+        if timed:
+            timings["prep_s"] = round(t1 - t0, 9)
         parity_due = self._quant_batch_tick(timings)
+        arrays = (tokens, segment_ids, annotations)
+        pending = self._submit((kind, L, R), fn, run_params, arrays)
 
-        def fanned(fn, params):
-            host = inference.run_batch(fn, params, self.cfg, tokens,
-                                       segment_ids, annotations,
-                                       device=self.device)
+        def fan_out(host):
             outs = []
             for row, seg, start, span in riders:
                 if kind == "embed":
@@ -449,14 +732,18 @@ class RaggedDispatcher(BucketDispatcher):
                     outs.append(host[row, start:start + span])
             return outs
 
-        outs = fanned(fn, run_params)
-        if parity_due:
-            self._shadow_parity(
-                outs, lambda: fanned(self._packed_fn(kind, False),
-                                     self.params), timings)
-        if timed:
-            timings["device_s"] = round(time.perf_counter() - t0, 9)
-        return outs, timings
+        def fetch():
+            outs = fan_out(pending())
+            if parity_due:
+                self._shadow_parity(
+                    outs, lambda: fan_out(inference.run_batch(
+                        self._packed_fn(kind, False), self.params,
+                        self.cfg, *arrays, device=self.device)),
+                    timings)
+            return outs
+
+        return InFlightBatch(len(riders), timings,
+                             self._finalizer(fetch, timings, t1, timed))
 
     def _dummy_packed(self):
         """One valid packed batch (a minimal-span segment per row)."""
@@ -473,10 +760,11 @@ class RaggedDispatcher(BucketDispatcher):
         return tokens, seg, ann, riders
 
     def warmup(self, kinds: Sequence[str] = ("embed",)) -> int:
-        """Run the ONE packed shape of each kind once; returns how many
-        ran."""
+        """Capture the ONE packed shape of each kind (on the CPU: run it
+        once); returns how many ran."""
         t0 = time.perf_counter()
         tokens, seg, ann, riders = self._dummy_packed()
+        R, L = self.rows_per_batch, self.cfg.data.seq_len
         n = 0
         self._warming = True
         try:
@@ -484,9 +772,13 @@ class RaggedDispatcher(BucketDispatcher):
                 if kind not in KINDS:
                     raise ValueError(f"unknown request kind {kind!r}; "
                                      f"have {KINDS}")
-                self.run_packed(kind, tokens, seg, ann, riders)
+                with self._warm_lock:
+                    if (kind, L, R) in self._graphs:
+                        continue
+                self._timed_warm(lambda: self.run_packed(
+                    kind, tokens, seg, ann, riders))
                 n += 1
         finally:
             self._warming = False
-        self.warmup_seconds_total += time.perf_counter() - t0
+        self._note_warmup_seconds(time.perf_counter() - t0)
         return n

@@ -1,5 +1,6 @@
 """Thread-safe bounded request queue with admission control — a copy of
-`proteinbert_tpu/serve/queue.py` without the tracing and head fields.
+`proteinbert_tpu/serve/queue.py` without the head field (task heads are
+not ported yet).
 
 The serving front door: client threads `push()` requests, the
 scheduler thread drains them. Three contracts, all typed (serve/
@@ -55,6 +56,8 @@ class Request:
     deadline: Optional[float] = None          # absolute clock value
     top_k: Optional[int] = None               # predict_go only
     cache_key: Optional[str] = None           # None = uncacheable/disabled
+    trace: Optional[object] = None            # serve/trace.RequestTrace
+                                              # (None = telemetry off)
 
 
 class RequestQueue:

@@ -1,10 +1,11 @@
 """`Server` — the online-inference facade, bucketed and ragged modes —
-port of `proteinbert_tpu/serve/server.py`.
+port of `proteinbert_tpu/serve/server.py` (the task heads, the neighbour
+index and the blue-green rollout arm are not ported yet).
 
 Ties the queue, scheduler, dispatcher and cache together behind the
 capabilities of the offline surface (inference.py): `embed`,
 `predict_go`, `predict_residues`, each a blocking call or a `submit()`
-future.
+future (serve/http.py is a thin JSON shim over exactly this facade).
 
 Request life cycle:
 
@@ -13,10 +14,20 @@ Request life cycle:
   ├─ tokenize + bucket-route (serve/dispatch)
   ├─ cache lookup — a hit returns a resolved future, nothing enqueues
   └─ queue.push (may evict the oldest    ──►  poll(): group by
-     request with QueueFullError)             (kind, bucket), dispatch at
-                                              max_batch/max_wait, then
-                                              finalize per row: cache put
-                                              + future.set_result
+     request with QueueFullError)             (kind, bucket), dispatch
+                                              at max_batch/max_wait —
+                                              submit only; a completer
+                                              thread fetches results,
+                                              finalizes per row: cache
+                                              put + future.set_result
+
+Pipelined dispatch: dispatch is split into submit (the batch's graph
+replay is enqueued on the card) and finalize (the wait for its outputs +
+per-request fan-out), joined by a bounded in-flight window
+(`pipeline_depth`, default `cfg.serve.pipeline_depth`). Batch N+1 forms
+and is submitted while batch N computes; the completer thread drains the
+window in FIFO order. Depth 1 runs no completer and is the serial path
+bit for bit.
 
 `serve_mode="ragged"` replaces the (kind, bucket) grouping with packing:
 requests pack into fixed-shape (max_batch rows, seq_len) batches at their
@@ -29,15 +40,43 @@ with a fp32 parity shadow every `quant_parity_every` batches; None takes
 `cfg.serve.quant` / `cfg.serve.quant_parity_every`. `stats()["quant"]`
 reports the arm (serve/dispatch.py).
 
-Shutdown is two-mode: `drain()` closes the queue (new submits raise
-ServerClosedError), finishes every queued request, then stops the
-scheduler; `abort()` fails queued and pending work with
-ServerClosedError.
+Shutdown is two-mode:
+
+- `drain()` — the queue closes (new submits raise ServerClosedError),
+  every queued and in-flight request completes, then the scheduler
+  thread exits; emits `serve_end{outcome=drained}`.
+- `abort()` — queued + pending futures fail with ServerClosedError,
+  batches already in flight finish, a `note` lands on the telemetry
+  stream and the flight recorder dumps; emits `serve_end{outcome=aborted}`.
+
+Request tracing + SLOs: with telemetry enabled, every request carries a
+`serve/trace.RequestTrace` that collects one clock mark per stage
+boundary (submit → queue → batch_form → dispatch → execute → finalize).
+Traces SAMPLED at `trace_sample_rate` — plus ALL requests that end in an
+error or rejection — emit a `serve_request` event and, when the telemetry
+carries a span collector, Perfetto spans on a per-request lane. Every
+request's outcome also feeds the optional `obs/slo.SLOEvaluator`
+(latency/error-rate objectives; burn rates on `/metrics` and
+`stats()["slo"]`; a breach can start a `torch.profiler` capture into
+`slo_profile_dir`). With the NULL facade no trace objects are created and
+every touchpoint is a None check.
+
+Telemetry (all optional): `serve_start`/`serve_batch`/`serve_reject`/
+`serve_request`/`slo_breach`/`serve_end` events; `serve_queue_depth`,
+`serve_batch_occupancy`, `serve_cache_hit_rate`, `serve_inflight_batches`,
+`serve_overlap_ratio`, `slo_burn_rate{objective=}` gauges; the
+`serve_latency` quantile window; `serve_requests_total{kind=}`,
+`serve_rejected_total{reason=}`, `serve_truncated_total`,
+`serve_cache_*_total` counters; `serve_latency_seconds`,
+`serve_queue_wait_seconds`, `serve_batch_seconds`, `serve_batch_rows`,
+`serve_finalize_seconds` histograms. The event schema is the JAX
+package's, so its validator and `pbt diagnose --serve` read the stream.
 """
 
 from __future__ import annotations
 
-import collections
+import itertools
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -48,6 +87,9 @@ import numpy as np
 from proteinbert_tpu_torch import DeviceLike
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
+from proteinbert_tpu_torch.obs import as_telemetry
+from proteinbert_tpu_torch.obs.events import SERVE_REJECT_REASONS
+from proteinbert_tpu_torch.obs.slo import ProfileTrigger, SLOEvaluator
 from proteinbert_tpu_torch.serve.cache import EmbeddingCache, content_key
 from proteinbert_tpu_torch.serve.dispatch import (
     KINDS, BucketDispatcher, RaggedDispatcher,
@@ -59,43 +101,9 @@ from proteinbert_tpu_torch.serve.queue import Request, RequestQueue
 from proteinbert_tpu_torch.serve.scheduler import (
     MicroBatchScheduler, PackedBatchScheduler,
 )
+from proteinbert_tpu_torch.serve.trace import RequestTrace, stride_sampled
 
-REJECT_REASONS = ("queue_full", "deadline", "too_long", "closed")
 SERVE_MODES = ("bucketed", "ragged")
-
-
-def nearest_rank(sorted_values, fraction: float) -> Optional[float]:
-    """Nearest-rank pick from an ascending list; `fraction` in [0, 1]."""
-    if not sorted_values:
-        return None
-    idx = min(len(sorted_values) - 1,
-              max(0, int(round(fraction * (len(sorted_values) - 1)))))
-    return sorted_values[idx]
-
-
-class LatencyWindow:
-    """Bounded ring of recent request latencies with percentile reads
-    (a local copy of the JAX package's obs QuantileWindow). Thread-safe:
-    the scheduler observes while stats() reads from client threads."""
-
-    def __init__(self, capacity: int = 2048):
-        self._ring: "collections.deque[float]" = collections.deque(
-            maxlen=capacity)               # guarded-by: _lock
-        self._lock = threading.Lock()
-
-    def observe(self, seconds: float) -> None:
-        with self._lock:
-            self._ring.append(float(seconds))
-
-    def summary(self) -> Dict[str, Optional[float]]:
-        with self._lock:
-            if not self._ring:
-                return {"n": 0, "p50_s": None, "p99_s": None, "mean_s": None}
-            data = sorted(self._ring)
-        return {"n": len(data),
-                "p50_s": round(nearest_rank(data, 0.50), 6),
-                "p99_s": round(nearest_rank(data, 0.99), 6),
-                "mean_s": round(sum(data) / len(data), 6)}
 
 
 class Server:
@@ -114,13 +122,20 @@ class Server:
         cache_size: int = 1024,
         default_deadline_s: Optional[float] = None,
         on_long: str = "truncate",
+        telemetry=None,
         clock=time.monotonic,
         warm_kinds=("embed",),
         batch_classes=None,
+        trace_sample_rate: Optional[float] = 1.0,
+        slos=None,
+        slo_profile_dir: Optional[str] = None,
+        slo_breach_cooldown_s: float = 60.0,
         serve_mode: str = "bucketed",
         pack_max_segments: int = 8,
         quant: Optional[str] = None,
         quant_parity_every: Optional[int] = None,
+        replica_id: Optional[str] = None,
+        pipeline_depth: Optional[int] = None,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
@@ -132,15 +147,24 @@ class Server:
             quant = cfg.serve.quant
         if quant_parity_every is None:
             quant_parity_every = cfg.serve.quant_parity_every
+        if pipeline_depth is None:
+            pipeline_depth = cfg.serve.pipeline_depth
+        self.pipeline_depth = max(1, int(pipeline_depth))
         self.quant = quant
         self.cfg = cfg
         self.on_long = on_long
         self.default_deadline_s = default_deadline_s
         self.clock = clock
-        self.cache = EmbeddingCache(cache_size)
-        self.queue = RequestQueue(queue_depth)
-        self.latencies = LatencyWindow()
         self.serve_mode = serve_mode
+        # Stamped onto every serve_request / serve_batch event.
+        self.replica_id = replica_id
+        self.tele = as_telemetry(telemetry)
+        metrics = self.tele.metrics
+        self.cache = EmbeddingCache(cache_size, metrics=metrics)
+        self.queue = RequestQueue(queue_depth)
+        observers = dict(latency_observer=self._observe_latency,
+                         expire_observer=self._count_expiry,
+                         complete_observer=self._on_complete)
         if serve_mode == "ragged":
             # `max_batch` means packed ROWS per batch here; a batch
             # carries up to max_batch * pack_max_segments requests.
@@ -150,33 +174,79 @@ class Server:
                     "device shape is fixed at (max_batch, seq_len)")
             self.dispatcher = RaggedDispatcher(
                 params, cfg, buckets=buckets, rows_per_batch=max_batch,
-                max_segments=pack_max_segments, device=device, quant=quant,
+                max_segments=pack_max_segments, device=device,
+                metrics=metrics, quant=quant,
                 quant_parity_every=quant_parity_every)
             self.scheduler = PackedBatchScheduler(
                 self.queue, self.dispatcher, self._finalize,
                 rows_per_batch=max_batch, max_wait_s=max_wait_s,
                 clock=clock, max_segments=pack_max_segments,
-                latency_observer=self.latencies.observe,
-                expire_observer=self._count_expiry)
+                telemetry=telemetry, replica_id=replica_id,
+                pipeline_depth=self.pipeline_depth, **observers)
         else:
             self.dispatcher = BucketDispatcher(
                 params, cfg, buckets=buckets, max_batch=max_batch,
-                batch_classes=batch_classes, device=device, quant=quant,
-                quant_parity_every=quant_parity_every)
+                batch_classes=batch_classes, device=device, metrics=metrics,
+                quant=quant, quant_parity_every=quant_parity_every)
             self.scheduler = MicroBatchScheduler(
                 self.queue, self.dispatcher, self._finalize,
                 max_batch=max_batch, max_wait_s=max_wait_s, clock=clock,
-                latency_observer=self.latencies.observe,
-                expire_observer=self._count_expiry)
+                telemetry=telemetry, replica_id=replica_id,
+                pipeline_depth=self.pipeline_depth, **observers)
+        # One ring serves stats(), /metrics and the percentile gauges; a
+        # disabled registry returns a live unregistered window.
+        self.latencies = metrics.quantile_window("serve_latency")
+        # Request tracing: None disables trace objects entirely; a rate
+        # in [0, 1] traces every request cheaply and EMITS the sampled
+        # fraction (errors/rejections always emit). NULL telemetry also
+        # disables: there is nowhere to emit to.
+        if trace_sample_rate is not None and not self.tele.enabled:
+            trace_sample_rate = None
+        self.trace_sample_rate = trace_sample_rate
+        self._req_ids = itertools.count(1)
+        self._id_prefix = f"{os.getpid():x}-"
+        self.slo = None
+        self.profile_trigger = None
+        if slos:
+            on_breach = None
+            if slo_profile_dir:
+                self.profile_trigger = ProfileTrigger(slo_profile_dir,
+                                                      clock=clock)
+                on_breach = self.profile_trigger
+            self.slo = SLOEvaluator(
+                slos, metrics=metrics, telemetry=self.tele, clock=clock,
+                on_breach=on_breach,
+                breach_cooldown_s=slo_breach_cooldown_s)
+            stage_objs = [o.name for o in self.slo.objectives
+                          if o.kind == "latency" and o.stage != "e2e"]
+            if stage_objs and self.trace_sample_rate is None:
+                raise ValueError(
+                    f"stage-scoped slo objective(s) {stage_objs} need "
+                    "request tracing for per-stage durations, but "
+                    "tracing is off (telemetry disabled or "
+                    "trace_sample_rate=None) — they would never "
+                    "observe anything")
+            # SLO violation attribution consumes pad/prep/device per
+            # request, so every batch is timed, not just sampled ones.
+            self.scheduler.time_batches = True
         self._warm_kinds = tuple(warm_kinds)
         self._started = False
-        self.completed_total = 0  # one writer: the scheduler thread
-        # Bumped from concurrent client threads: the read-modify-write
-        # needs the lock.
+        self._ended = False
+        self._depth_g = metrics.gauge("serve_queue_depth")
+        self._latency_h = metrics.histogram("serve_latency_seconds")
+        self._truncated_c = metrics.counter("serve_truncated_total")
+        self._req_c = {k: metrics.counter("serve_requests_total", kind=k)
+                       for k in KINDS}
+        self._rej_c = {r: metrics.counter("serve_rejected_total", reason=r)
+                       for r in SERVE_REJECT_REASONS}
+        self.completed_total = 0  # one writer: the finalizing thread
+        # Local mirrors of the labeled counters (stats() reports real
+        # numbers under the NULL facade too). Bumped from concurrent
+        # client threads: the read-modify-write needs the lock.
         self._mirror_lock = threading.Lock()
         self.cache_hit_returns = 0           # guarded-by: _mirror_lock
         self.truncated_total = 0             # guarded-by: _mirror_lock
-        self.rejected_total = {r: 0 for r in REJECT_REASONS}
+        self.rejected_total = {r: 0 for r in self._rej_c}
 
     def _bump(self, mirror: str, reason: Optional[str] = None) -> None:
         with self._mirror_lock:
@@ -185,13 +255,42 @@ class Server:
             else:
                 self.rejected_total[reason] += 1
 
+    def _reject(self, reason: str, kind: str, queue_depth: int) -> None:
+        """Count one rejection (counter + mirror) and emit it."""
+        self._rej_c[reason].inc()
+        self._bump("rejected_total", reason)
+        self.tele.emit("serve_reject", reason=reason, kind=kind,
+                       queue_depth=queue_depth)
+
     # ---------------------------------------------------------- lifecycle
 
     def start(self) -> "Server":
-        """Warm the shape classes and start the scheduler."""
+        """Warm the shape classes (capture their graphs on the card) and
+        start the scheduler."""
         if self._started:
             raise RuntimeError("server already started")
-        self.dispatcher.warmup(self._warm_kinds)
+        warmed = self.dispatcher.warmup(self._warm_kinds)
+        self.tele.emit("serve_start", pid=os.getpid(), config={
+            "serve_mode": self.serve_mode,
+            "buckets": list(self.dispatcher.buckets),
+            "batch_classes": list(self.dispatcher.batch_classes),
+            "pack_max_segments": getattr(self.dispatcher,
+                                         "max_segments", None),
+            "max_batch": self.scheduler.max_batch,
+            "max_wait_s": self.scheduler.max_wait_s,
+            "queue_depth": self.queue.max_depth,
+            "cache_size": self.cache.capacity,
+            "on_long": self.on_long,
+            "warmed_executables": warmed,
+            "trace_sample_rate": self.trace_sample_rate,
+            "slos": ([o.name for o in self.slo.objectives]
+                     if self.slo else []),
+            "device": str(self.dispatcher.device),
+            "quant": self.quant,
+            "quant_report": self.dispatcher.quant_report or None,
+            "pipeline_depth": self.pipeline_depth,
+            "replica_id": self.replica_id,
+        })
         self.scheduler.start()
         self._started = True
         return self
@@ -204,20 +303,39 @@ class Server:
         return False
 
     def drain(self, timeout: Optional[float] = None) -> bool:
-        """Graceful shutdown: stop admitting, finish everything queued,
-        then stop. Returns False if the scheduler did not exit within
-        `timeout`."""
+        """Graceful shutdown: stop admitting, finish everything queued
+        and in flight, then emit `serve_end{drained}`. Returns False if
+        the scheduler did not exit within `timeout`."""
         self.queue.close()
-        return self.scheduler.join(timeout)
+        done = self.scheduler.join(timeout)
+        if not self._ended:
+            self._ended = True
+            self.tele.emit("serve_end", outcome="drained",
+                           stats=self.stats())
+        return done
 
     def abort(self) -> None:
         """Hard shutdown: fail all queued + pending work with
-        ServerClosedError. A batch already running finishes normally."""
+        ServerClosedError, leave a flight-recorder trail, emit
+        `serve_end{aborted}`. Batches already in flight finish; their
+        futures resolve normally."""
         self.scheduler.stop()
         exc = ServerClosedError("server aborted before this request ran")
-        self.queue.fail_all(exc)
+        failed = self.queue.fail_all(exc)
         self.scheduler.join(timeout=30.0)
-        self.scheduler.fail_pending(exc)
+        failed += self.scheduler.fail_pending(exc)
+        now = self.clock()
+        for req in failed:
+            self._seal(req.trace, "aborted", now, error=exc,
+                       e2e_fallback=max(0.0, now - req.enqueued_at),
+                       kind=req.kind)
+        if not self._ended:
+            self._ended = True
+            self.tele.emit("note", source="serve", kind="abort",
+                           failed_requests=len(failed))
+            self.tele.emit("serve_end", outcome="aborted",
+                           stats=self.stats())
+            self.tele.dump_flight("serve_abort")
 
     def close(self, drain: bool = True,
               timeout: Optional[float] = None) -> None:
@@ -230,41 +348,70 @@ class Server:
 
     def submit(self, kind: str, seq: str, annotations=None,
                deadline_s: Optional[float] = None,
-               top_k: Optional[int] = None) -> Future:
-        """Enqueue one request; returns its future. Raises
-        SequenceTooLongError (on_long="reject", or a '?' beyond the
-        window for predict_residues) and ServerClosedError synchronously;
-        QueueFullError / DeadlineExceededError land on futures (the
-        evicted/expired request's — never silently dropped)."""
+               top_k: Optional[int] = None,
+               trace_id: Optional[str] = None) -> Future:
+        """Enqueue one request; returns its future (which carries the
+        trace id as `.pbt_request_id` when tracing is on — the caller's
+        `trace_id` when one is given, so one id names the request across
+        processes). Raises SequenceTooLongError (on_long="reject", or a
+        '?' beyond the window for predict_residues) and ServerClosedError
+        synchronously; QueueFullError / DeadlineExceededError land on
+        futures (the evicted/expired request's — never silently
+        dropped)."""
         if kind not in KINDS:
             raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
         if not seq:
             raise ValueError("empty sequence")
+        now0 = self.clock()
+        trace = None
+        if self.trace_sample_rate is not None:
+            n = next(self._req_ids)
+            trace = RequestTrace(
+                f"{self._id_prefix}{n:x}", kind, now0,
+                sampled=stride_sampled(n, self.trace_sample_rate))
+            trace.join(trace_id, self.replica_id)
+            # Which arm serves this request (`quant` on serve_request;
+            # absent on the fp32 arm).
+            if self.quant != "fp32":
+                trace.quant = self.quant
         window = self.cfg.data.seq_len - 2
         if len(seq) > window:
             if (self.on_long == "reject"
                     or (kind == "predict_residues"
                         and inference.MASK_CHAR in seq[window:])):
-                self._bump("rejected_total", "too_long")
-                raise SequenceTooLongError(
+                self._reject("too_long", kind, len(self.queue))
+                self._seal(trace, "rejected", self.clock(), kind=kind)
+                exc = SequenceTooLongError(
                     f"sequence of {len(seq)} residues exceeds the model "
                     f"window of {window}"
                     + (" (and masks a position the model would never "
                        "see)" if kind == "predict_residues" else
                        "; the server is configured to reject rather "
                        "than truncate"))
+                if trace is not None:
+                    exc.pbt_request_id = trace.public_id()
+                raise exc
+            self._truncated_c.inc()
             self._bump("truncated_total")
         if annotations is not None:
             annotations = inference.check_annotations(
                 np.asarray(annotations, np.float32)[None], 1, self.cfg)[0]
+        self._req_c[kind].inc()
         future: Future = Future()
+        if trace is not None:
+            future.pbt_request_id = trace.public_id()
         key = None
         if self.cache.capacity:
+            if trace is not None:
+                trace.cache = "miss"
             key = content_key(kind, seq, annotations)
             hit = self.cache.get(key)
             if hit is not None:
                 self._bump("cache_hit_returns")
+                if trace is not None:
+                    trace.cache = "hit"
                 future.set_result(self._present(kind, hit, top_k))
+                self._seal(trace, "cache_hit", self.clock(), kind=kind)
                 return future
         bucket_len = self.dispatcher.bucket_len(len(seq))
         tokens = inference._tokenize_masked(
@@ -272,18 +419,29 @@ class Server:
         now = self.clock()
         if deadline_s is None:
             deadline_s = self.default_deadline_s
+        if trace is not None:
+            trace.mark_enqueued(now)
         req = Request(
             kind=kind, seq=seq, tokens=tokens, bucket_len=bucket_len,
             future=future, enqueued_at=now, annotations=annotations,
             deadline=(now + deadline_s if deadline_s is not None else None),
-            top_k=top_k, cache_key=key)
+            top_k=top_k, cache_key=key, trace=trace)
         try:
             evicted = self.queue.push(req)
-        except ServerClosedError:
-            self._bump("rejected_total", "closed")
+        except ServerClosedError as exc:
+            self._reject("closed", kind, len(self.queue))
+            self._seal(trace, "rejected", self.clock(), kind=kind)
+            if trace is not None:
+                exc.pbt_request_id = trace.public_id()
             raise
-        for _ in evicted:
-            self._bump("rejected_total", "queue_full")
+        if evicted:
+            now2 = self.clock()
+            for old in evicted:
+                self._reject("queue_full", old.kind, self.queue.max_depth)
+                self._seal(old.trace, "evicted", now2,
+                           e2e_fallback=max(0.0, now2 - old.enqueued_at),
+                           kind=old.kind)
+        self._depth_g.set(len(self.queue))
         return future
 
     # -------------------------------------------------------- sync facade
@@ -325,7 +483,9 @@ class Server:
 
     def _finalize(self, req: Request, row) -> None:
         """Scheduler callback: one request's model row → its result
-        (+ cache insert)."""
+        (+ cache insert). Runs on the finalizing thread — the completer
+        when pipeline_depth > 1, else the scheduler thread; exactly one
+        of the two ever calls this."""
         if req.kind == "embed":
             value = {"global": np.asarray(row["global"]),
                      "local_mean": np.asarray(row["local_mean"])}
@@ -340,9 +500,64 @@ class Server:
         self.completed_total += 1
         if not req.future.done():
             req.future.set_result(self._present(req.kind, value, req.top_k))
+        self._depth_g.set(len(self.queue))
 
     def _count_expiry(self, req: Request) -> None:
+        """Scheduler callback per deadline-expired request: the expiry IS
+        a rejection (the serve_reject event is emitted scheduler-side)."""
+        self._rej_c["deadline"].inc()
         self._bump("rejected_total", "deadline")
+
+    def _observe_latency(self, seconds: float) -> None:
+        """Scheduler callback per successfully batched row: one ring
+        serves stats(), /metrics and the percentile gauges."""
+        self.latencies.observe(seconds)
+        self._latency_h.observe(seconds)
+
+    def _on_complete(self, req: Request, outcome: str, now: float,
+                     error: Optional[BaseException],
+                     ctx: Optional[dict]) -> None:
+        """Scheduler callback per terminal request (ok/error/expired):
+        seal the trace, emit, feed the SLO evaluator."""
+        self._seal(req.trace, outcome, now, error=error,
+                   e2e_fallback=max(0.0, now - req.enqueued_at),
+                   kind=req.kind)
+
+    def _seal(self, trace: Optional[RequestTrace], outcome: str,
+              now: float, error: Optional[BaseException] = None,
+              e2e_fallback: float = 0.0,
+              kind: Optional[str] = None) -> None:
+        """The single terminal funnel: every request reaches this
+        exactly once per outcome path. Emits the serve_request event +
+        spans for sampled or failed requests; feeds every completion
+        (traced or not) to the SLO evaluator."""
+        stages = None
+        e2e = e2e_fallback
+        rid = None
+        if trace is not None:
+            if not trace.finish(outcome, now, error):
+                return  # already sealed by an earlier outcome path
+            e2e = trace.e2e_s()
+            rid = trace.request_id
+            emit = trace.sampled or outcome not in ("ok", "cache_hit")
+            if emit or self.slo:
+                # Stage decomposition only when something consumes it.
+                stages = trace.stages()
+            if emit:
+                self.tele.emit("serve_request",
+                               **trace.event_fields(stages=stages))
+                if self.tele.spans is not None:
+                    trace.export_spans(self.tele.spans)
+        if self.slo:
+            if stages is not None and trace.pad_fraction \
+                    and "execute" in stages:
+                # Synthetic attribution stage: the share of device time
+                # spent computing padding — the ragged-serving lever.
+                stages = dict(stages)
+                stages["pad_wasted"] = round(
+                    stages["execute"] * trace.pad_fraction, 9)
+            self.slo.observe(outcome, e2e, stages=stages,
+                             request_id=rid, now=now)
 
     # ------------------------------------------------------------- stats
 
@@ -353,12 +568,17 @@ class Server:
                 "truncated": self.truncated_total,
                 "rejected": dict(self.rejected_total),
             }
+        qw = self.scheduler.queue_wait
         batches, rows, expired = self.scheduler.stats_counts()
-        return {
+        out = {
             "mode": self.serve_mode,
             "completed": self.completed_total,
             **mirrors,
-            "warmup_seconds": round(self.dispatcher.warmup_seconds_total, 6),
+            # Captured CUDA graphs (the JAX executables) and the
+            # cumulative warmup seconds.
+            "executables": self.dispatcher.executable_count,
+            "warmup_seconds": round(self.dispatcher.warmup_seconds_total,
+                                    6),
             "batches": batches,
             "batched_rows": rows,
             "queue_depth": len(self.queue),
@@ -366,6 +586,18 @@ class Server:
             "expired": expired,
             "cache": self.cache.stats(),
             "latency": self.latencies.summary(),
+            "queue_wait": {
+                "count": qw.count,
+                "mean_s": (round(qw.total / qw.count, 6)
+                           if qw.count else None),
+                "max_s": (round(qw.max, 6) if qw.count else None),
+            },
             "quant": ({"mode": self.quant, **self.dispatcher.quant_report}
                       if self.quant != "fp32" else None),
+            # Window depth, the deepest the window got, and the share of
+            # finalize seconds that overlapped a later batch's compute.
+            "pipeline": self.scheduler.pipeline_stats(),
         }
+        if self.slo:
+            out["slo"] = self.slo.status()
+        return out

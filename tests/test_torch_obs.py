@@ -61,7 +61,8 @@ def test_copies_differ_from_jax_only_in_docstrings_imports_and_hook(module):
 
 def test_obs_facade_is_the_jax_facade():
     """Telemetry, _NullTelemetry, NULL and as_telemetry as in the JAX
-    `obs/__init__.py`; the SLO names are not exported (serving)."""
+    `obs/__init__.py`, and the same exported names (the SLO half
+    included)."""
     def pick(path):
         tree = ast.parse(path.read_text())
         keep = [n for n in tree.body
@@ -72,9 +73,7 @@ def test_obs_facade_is_the_jax_facade():
 
     assert pick(ROOT / "proteinbert_tpu_torch/obs/__init__.py") == pick(
         ROOT / "proteinbert_tpu/obs/__init__.py")
-    assert set(obs.__all__) == set(jobs.__all__) - {
-        "SLObjective", "SLOEvaluator", "ExemplarHistogram",
-        "ProfileTrigger", "parse_slo", "parse_slos"}
+    assert set(obs.__all__) == set(jobs.__all__)
     assert obs.SCHEMA_VERSION == jobs.SCHEMA_VERSION == 1
     assert obs.EVENT_FIELDS == jobs.EVENT_FIELDS
 
