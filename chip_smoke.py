@@ -10,6 +10,7 @@ card.
     python3 chip_smoke.py --phase resume  # checkpoint, SIGTERM, resume
     python3 chip_smoke.py --phase serve   # the served paths and their gates
     python3 chip_smoke.py --phase serve-times  # their numbers only
+    python3 chip_smoke.py --phase finetune  # fine-tune, then predict_task
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -126,7 +127,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               serve_batch a batch, serve_start first, serve_end drained
               last); the depth-2 server answers one request of each kind
               over HTTP on 127.0.0.1 exactly as in process, a bad body
-              400 and /v1/predict_task 404.
+              400 and a predict_task for an unknown head the typed 404.
 5. train    — `pretrain()` on the `large` preset at full depth and width
               (12 blocks, C=G=1024, H=16, 8943 annotations), bf16, seq_len
               1024, B=8, 6 steps (1 warm, 5 timed), twice:
@@ -173,7 +174,40 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               median step, the stage's seconds until it landed, the
               checkpoint's bytes). The checkpoints go to a temporary
               directory under build/, removed afterwards.
-7. report   — the kernel JSON line, the card's name and power limit, and the
+   long hdf5 — `long_hdf5_phase`, `# train long hdf5`: the `long` preset
+              (6 blocks, C=G=512, H=8, 8943 annotations), bf16, B=16, 8
+              steps, from a seeded HDF5 corpus of 4096 proteins (lengths
+              log-normal, median 350, capped at 3000) in the reference
+              schema, through `HDF5PretrainingDataset`, the bucketed
+              iterator (512 / 1024 / 2048) and pretrain's prefetch thread
+              (depth 2); without h5py the same rows come from memory. Cuts:
+              global batch 64 over 4 replicas -> 16, seq world 4 -> 1, no
+              LR warmup. Gates: the prefetched stream equals the
+              iterator's own byte for byte; exactly 6 K1 + 6 K2 a step;
+              finite losses. Prints step ms, tokens/s and MFU by bucket,
+              data_wait_s, data_batches_total, the pad fraction and peak
+              memory.
+7. finetune — `finetune_phase`, `# finetune base`: a float32 2-block
+              base-width fine-tune step on the card against the CPU plain
+              path (loss <= 1e-4, grads <= 1e-3) for both tasks; then the
+              `base` trunk in bf16 fine-tuned (B=8, L=512, 4 steps) for
+              token_classification (8 classes) and sequence_regression (1
+              output), freeze_trunk False and True, each head registered
+              in a HeadRegistry: exactly 6 K1 + 6 K2 a step, the frozen
+              trunk bit for bit; step ms, tokens/s, peak memory.
+              `serve_task_phase`, `# serve base predict_task`: bucketed and
+              ragged servers, fp32 and int8 arms, over that trunk with the
+              two frozen-trunk heads: 24 predict_task requests (exactly 6
+              K1 or #3 (int8: #3-int8 ragged) + 6 K2 (int8: K2-int8) a
+              batch); the fp32 bucketed answers bit for bit
+              `predict_task_rows` run eagerly on the card; one full batch
+              replayed bit for bit the eager trunk and tails; the int8 arm
+              off the fp32 one; a hot-added third head captures no trunk
+              graph; a removed head -> the typed unknown_head; a head
+              fine-tuned with its trunk -> TrunkMismatchError; HTTP
+              /v1/predict_task and /v1/heads* (fp32 arms). Prints each
+              server's graph pool and a full batch's wall and busy share.
+8. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -193,6 +227,8 @@ result line; `--phase serve-times` runs phase 4's six servers with their
 launch gates and numbers but without the replay, depth, event and HTTP
 gates, which need this tree's package, so it also runs on a parent
 commit's package (copy this script into its `git archive`).
+`--phase finetune` runs the build and phase 7 alone, every gate, no
+result line.
 """
 
 from __future__ import annotations
@@ -2017,14 +2053,18 @@ def synthetic_proteins(n: int, lo: int, hi: int, num_annotations: int,
 
 
 def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
-              residues: tuple, seed: int, seq_group=None):
+              residues: tuple, seed: int, seq_group=None, source=None,
+              telemetry=None):
     """`pretrain()` for `steps` steps with every kernel count at 0: the
     launches of each step (exactly per_step[name], 0 for a kernel not
-    named), finite losses, params moved by step 2. `cfg.data.packing`
-    feeds it `make_packed_iterator` (cfg.data.pack_max_segments a row),
-    else `make_pretrain_iterator`; `seq_group` trains sequence-parallel
-    over that group. Returns (the out dict, per-step wall ms, launches,
-    peak bytes, a clean batch, the batches it trained on)."""
+    named), finite losses, params moved by step 2. `source` (a callable
+    returning a fresh batch iterator) feeds it when given, else
+    `cfg.data.packing` picks `make_packed_iterator` (cfg.data.
+    pack_max_segments a row) or `make_pretrain_iterator` over synthetic
+    proteins; `seq_group` trains sequence-parallel over that group. The
+    batches come through pretrain's prefetch thread when
+    cfg.data.prefetch_depth > 0. Returns (the out dict, per-step wall ms,
+    launches, peak bytes, a clean batch, the batches it trained on)."""
     from proteinbert_tpu_torch.data.dataset import (
         InMemoryPretrainingDataset, make_pretrain_iterator,
     )
@@ -2036,15 +2076,19 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
 
     B, L = cfg.data.batch_size, cfg.data.seq_len
     packed = cfg.data.packing
-    seqs, ann = synthetic_proteins((40 if packed else 4) * B, *residues,
-                                   cfg.model.num_annotations, seed)
-    ds = InMemoryPretrainingDataset(seqs, ann, L)
+    if source is not None:
+        batches = source
+    else:
+        seqs, ann = synthetic_proteins((40 if packed else 4) * B, *residues,
+                                       cfg.model.num_annotations, seed)
+        ds = InMemoryPretrainingDataset(seqs, ann, L)
 
-    def batches():
-        if packed:
-            return make_packed_iterator(
-                ds, B, seed=seed, max_segments=cfg.data.pack_max_segments)
-        return make_pretrain_iterator(ds, B, seed=seed)
+        def batches():
+            if packed:
+                return make_packed_iterator(
+                    ds, B, seed=seed,
+                    max_segments=cfg.data.pack_max_segments)
+            return make_pretrain_iterator(ds, B, seed=seed)
 
     batch = next(batches())
     trained = []
@@ -2073,7 +2117,7 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
         k.launches = 0
     t0 = time.perf_counter()
     out = pretrain(cfg, recorded(batches()), state=state, log_fn=log_fn,
-                   device=DEVICE, seq_group=seq_group)
+                   device=DEVICE, seq_group=seq_group, telemetry=telemetry)
     total = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     check(len(marks) == steps, f"{label}: {len(marks)} log points")
@@ -2093,7 +2137,8 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
     losses = ", ".join(f"{m[2]:.4f}" for m in marks)
     print(f"# train {label}: {steps} steps B={B} L={L}, losses [{losses}], "
           f"launches {total}")
-    return out, walls, total, peak, batch, trained
+    # The prefetch thread may have made batches past the last step.
+    return out, walls, total, peak, batch, trained[:steps]
 
 
 def profile_step(card: str, label: str, state, batch, cfg,
@@ -3345,13 +3390,13 @@ def http_post(url: str, payload) -> tuple:
         return e.code, json.loads(e.read())
 
 
-def http_round_trips(label: str, srv) -> int:
+def http_round_trips(label: str, srv) -> tuple:
     """One round trip of each kind through `serve/http.py` over
     127.0.0.1, each answer held against the same request submitted in
     process right after it (cache off, so both ran on the card, each
-    alone in its batch: exact), then a bad body (400) and a route the
-    port does not serve (404). Returns the requests it made (two a
-    kind)."""
+    alone in its batch: exact), then a bad body (400) and a predict_task
+    for a head the server does not hold (the typed 404). Returns (the
+    requests answered, two a kind; the requests rejected, one)."""
     import urllib.request
 
     from proteinbert_tpu_torch.serve.http import make_http_server
@@ -3378,7 +3423,8 @@ def http_round_trips(label: str, srv) -> int:
                 check(body["filled"] == want[0],
                       f"{label}: HTTP predict_residues fill differs")
         bad, _ = http_post(f"{base}/v1/embed", {"nope": 1})
-        route, _ = http_post(f"{base}/v1/predict_task", {"seq": "MKT"})
+        route, body = http_post(f"{base}/v1/predict_task",
+                                {"seq": "MKT", "head_id": "nope"})
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
     finally:
@@ -3387,12 +3433,13 @@ def http_round_trips(label: str, srv) -> int:
         thread.join(30)
     print(f"# serve {label}: HTTP round trip of each kind over 127.0.0.1 vs "
           f"in process: max |diff| {worst:.3e} (tol 0), fills equal; bad "
-          f"body {bad}, /v1/predict_task {route}, /healthz ok "
-          f"{health.get('ok')}")
+          f"body {bad}, /v1/predict_task of an unknown head {route} "
+          f"{body.get('type')}, /healthz ok {health.get('ok')}")
     check(worst == 0.0, f"{label}: HTTP answers differ by {worst}")
-    check(bad == 400 and route == 404 and health.get("ok") is True,
+    check(bad == 400 and route == 404 and body.get("type") == "unknown_head"
+          and health.get("ok") is True,
           f"{label}: HTTP status mapping {bad}/{route}/{health.get('ok')}")
-    return 6
+    return 6, 1
 
 
 def same_answer(kind: str, a, b) -> bool:
@@ -3448,7 +3495,8 @@ def depth_parity(card: str, label: str, cfg, mode: str, seed: int,
                 futures.append(f)
             srv.start()
             answers[depth] = [f.result(timeout=300) for f in futures]
-            extra = http_round_trips(label, srv) if depth == 2 else 0
+            extra, rejected = (http_round_trips(label, srv) if depth == 2
+                               else (0, 0))
             check(srv.drain(timeout=300), f"{label}: depth {depth} drain "
                                           "timed out")
             tele.close()
@@ -3474,8 +3522,10 @@ def depth_parity(card: str, label: str, cfg, mode: str, seed: int,
             check(events[0] == "serve_start" and events[-1] == "serve_end"
                   and recs[-1]["outcome"] == "drained",
                   f"{label}: event stream {events[0]} .. {events[-1]}")
-            check(events.count("serve_request") == len(reqs) + extra
-                  and events.count("serve_batch") == stats["batches"],
+            check(events.count("serve_request")
+                  == len(reqs) + extra + rejected
+                  and events.count("serve_batch") == stats["batches"]
+                  and stats["rejected"]["unknown_head"] == rejected,
                   f"{label}: {events.count('serve_request')} serve_request, "
                   f"{events.count('serve_batch')} serve_batch events")
             del srv
@@ -3609,14 +3659,679 @@ def q8_parity_phase(card: str, base) -> None:
           f"parity_max {report['parity_max']} != measured {worst}")
 
 
+# ---------------------------------------------------- corpus to task head
+
+def corpus_rows(n: int, num_annotations: int, seed: int):
+    """n seeded proteins, lengths log-normal with a median of 350 residues
+    (sigma 0.9) capped at 3000, so that the `long` preset's buckets 512,
+    1024 and 2048 all fill, and (n, A) annotation masks at ~0.5%."""
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.round(rng.lognormal(np.log(350), 0.9, n)), 1,
+                      3000).astype(np.int64)
+    letters = np.frombuffer("".join(ALPHABET).encode(), np.uint8)
+    seqs = [letters[rng.integers(0, len(letters), int(L))].tobytes().decode()
+            for L in lengths]
+    masks = rng.random((n, num_annotations)) < 0.005
+    return seqs, lengths, masks
+
+
+def write_corpus(path: str, seqs, lengths, masks) -> None:
+    """The reference's HDF5 corpus schema: `seqs`, `seq_lengths`,
+    `annotation_masks` (bool), `included_annotations`, `uniprot_ids`."""
+    import h5py
+
+    str_dt = h5py.string_dtype()
+    with h5py.File(path, "w") as f:
+        f.create_dataset(
+            "included_annotations", dtype=str_dt,
+            data=np.array([f"GO:{i:07d}".encode()
+                           for i in range(masks.shape[1])], dtype=object))
+        f.create_dataset("uniprot_ids", dtype=str_dt,
+                         data=np.array([f"R{i}".encode()
+                                        for i in range(len(seqs))],
+                                       dtype=object))
+        f.create_dataset("seqs", dtype=str_dt, chunks=(1024,),
+                         data=np.array(seqs, dtype=object))
+        f.create_dataset("seq_lengths", data=lengths.astype(np.int32))
+        f.create_dataset("annotation_masks", data=masks,
+                         chunks=(256, masks.shape[1]))
+
+
+def long_hdf5_phase(card: str) -> dict:
+    """`# train long hdf5`: the `long` preset (6 blocks, C=G=512, H=8,
+    8943 annotations) in bf16 pretrains from a seeded HDF5 corpus of 4096
+    proteins (4 blocks of 1024 rows) through `HDF5PretrainingDataset`,
+    `make_bucketed_iterator` (buckets 512 / 1024 / 2048) and pretrain's
+    prefetch thread (depth 2): B=16, 8 steps, the LR without warmup. Cuts:
+    global batch 64 over 4 data replicas -> one replica's 16 rows, seq
+    world 4 -> 1 (the whole row on one card), no LR warmup. Without h5py
+    the same rows come from `InMemoryPretrainingDataset` (one printed
+    line says so). Gates: the prefetched stream equals the iterator's own
+    byte for byte and in order; exactly 6 launches of K1 and of K2 a step
+    and none of the others; finite losses. Returns the launches."""
+    from proteinbert_tpu_torch.data.dataset import (
+        HDF5PretrainingDataset, InMemoryPretrainingDataset,
+        make_bucketed_iterator,
+    )
+    from proteinbert_tpu_torch.data.prefetch import prefetch
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK
+    from proteinbert_tpu_torch.obs import Telemetry, read_events
+    from proteinbert_tpu_torch.train.metrics import peak_flops, train_flops
+
+    cfg = train_preset("long", 16, 2048, 8)
+    cfg = cfg.replace(
+        data=dataclasses.replace(cfg.data, prefetch_depth=2),
+        optimizer=dataclasses.replace(cfg.optimizer, schedule="constant",
+                                      warmup_steps=0))
+    B, buckets = cfg.data.batch_size, cfg.data.buckets
+    t0 = time.perf_counter()
+    seqs, lengths, masks = corpus_rows(4096, cfg.model.num_annotations, 13)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="corpus-", dir=build)
+    try:
+        try:
+            import h5py  # noqa: F401
+            path = os.path.join(root, "corpus.h5")
+            write_corpus(path, seqs, lengths, masks)
+            mb = os.path.getsize(path) / 1e6
+            print(f"# train long hdf5: corpus of {len(seqs)} proteins "
+                  f"(median {int(np.median(lengths))}, max {lengths.max()} "
+                  f"residues), {mb:.1f} MB HDF5, written in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+            def dataset():
+                return HDF5PretrainingDataset(path, cfg.data.seq_len,
+                                              crop_seed=7)
+        except ImportError:
+            print(f"# train long hdf5: h5py absent on {card}, rows fed from "
+                  "InMemoryPretrainingDataset")
+            mem = InMemoryPretrainingDataset(seqs, masks, cfg.data.seq_len,
+                                             crop_seed=7)
+
+            def dataset():
+                return mem
+
+        def stream():
+            return make_bucketed_iterator(dataset(), B, buckets, seed=0)
+
+        direct = [b for _, b in zip(range(8), stream())]
+        it = prefetch(stream(), 2)
+        ahead = [next(it) for _ in range(8)]
+        it.close()
+        same = all(a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+            for k in a) for a, b in zip(direct, ahead))
+        events = os.path.join(root, "events.jsonl")
+        tele = Telemetry(events_path=events)
+        try:
+            out, walls, launches, peak, _, trained = train_run(
+                card, "long hdf5", cfg, 8,
+                {LOCAL_TRACK.name: 6, ATTENTION.name: 6}, (0, 0), 0,
+                source=stream, telemetry=tele)
+        finally:
+            tele.close()
+        steps = [r for r in read_events(events, strict=True)
+                 if r["event"] == "step"]
+        wait = [r.get("data_wait_s") for r in steps]
+        gauges = tele.metrics.snapshot()["gauges"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = same and all(
+        a["tokens"].tobytes() == b["tokens"].tobytes()
+        and a["annotations"].tobytes() == b["annotations"].tobytes()
+        for a, b in zip(trained, direct))
+    Ls = [b["tokens"].shape[1] for b in trained]
+    print(f"# train long hdf5: the prefetched stream equals the iterator's "
+          f"own, byte for byte and in order ({len(direct)} batches, pretrain "
+          f"trained on the same): {same}; bucket of each step {Ls}")
+    check(same and len(trained) == 8, "long hdf5: the prefetched stream "
+                                      "differs from the iterator's")
+    pad = float(np.mean([(b["tokens"] == 0).mean() for b in trained]))
+    peak_rate = peak_flops(torch.device(DEVICE), cfg.model.dtype)
+    by_bucket = []
+    for L in buckets:
+        ms = [w for w, l in zip(walls, Ls) if l == L]
+        if not ms:
+            by_bucket.append(f"L={L}: not run")
+            continue
+        med = statistics.median(ms)
+        mfu = train_flops(cfg.model, B, L) / (med / 1e3) / peak_rate
+        by_bucket.append(f"L={L}: median {med:.1f} ms of {len(ms)} "
+                         f"({', '.join(f'{w:.1f}' for w in ms)}), "
+                         f"{B * L / (med / 1e3):.0f} tokens/s, MFU "
+                         f"{mfu:.4f}")
+    for L in buckets:   # where one step's time goes, per bucket
+        batch = next((b for b in trained if b["tokens"].shape[1] == L), None)
+        if batch is not None:
+            profile_step(card, f"train long hdf5, one step B={B} L={L}",
+                         out["state"], batch, cfg)
+    m = cfg.model
+    print(f"# train long hdf5 [{card}]: {m.num_blocks} blocks C={m.local_dim} "
+          f"G={m.global_dim} H={m.num_heads} A={m.num_annotations}, "
+          f"{m.dtype}, B={B}, buckets {list(buckets)}; reported cuts: global "
+          f"batch 64 over 4 data replicas -> 16 rows, seq world 4 -> 1, no "
+          f"LR warmup; step ms by bucket (the first step of a shape "
+          f"included): {'; '.join(by_bucket)}; data_wait_s at each log "
+          f"point {wait}; data_batches_total "
+          f"{gauges.get('data_batches_total')}; pad fraction of the B*L "
+          f"grid {pad:.4f}; max_memory_allocated {peak / 1e9:.2f} GB")
+    return launches
+
+
+def finetune_phase(card: str, registry_dir: str) -> tuple:
+    """`# finetune base`: the `base` trunk (the paper's 6 x 512 model,
+    8943 annotations) in bf16, seeded random weights, fine-tuned through
+    `train.finetune.finetune` on seeded task data (B=8, L=512, 4 steps)
+    for token_classification with 8 classes and sequence_regression with
+    1 output, each with freeze_trunk False and True; each trained head is
+    registered in a `HeadRegistry` at `registry_dir`. First a float32
+    2-block base-width step on the card against the same step on the CPU
+    plain path (loss <= STEP_LOSS_TOL, grads <= STEP_GRAD_TOL) for both
+    tasks. Gates: exactly 6 K1 + 6 K2 launches a step (the backward is
+    the recompute of the XLA reference, no kernel); under freeze_trunk
+    the trunk bit for bit the pretrained one; finite losses. Returns
+    (the launches, the resident trunk's params, {(kind, frozen): head
+    id})."""
+    from proteinbert_tpu_torch.configs import (
+        FinetuneConfig, OptimizerConfig, TaskConfig, get_preset,
+    )
+    from proteinbert_tpu_torch.data.synthetic import make_task_batches
+    from proteinbert_tpu_torch.heads import HeadRegistry
+    from proteinbert_tpu_torch.kernels import ATTENTION, KERNELS, LOCAL_TRACK
+    from proteinbert_tpu_torch.models.proteinbert import init, to_device
+    from proteinbert_tpu_torch.train import finetune as ft
+
+    KERNELS_BY_NAME = {k.name: k for k in KERNELS}
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+
+    base = get_preset("base")
+    opt = OptimizerConfig(learning_rate=1e-4, warmup_steps=0,
+                          schedule="constant")
+    tasks = (("token_classification", 8), ("sequence_regression", 1))
+
+    # float32, 2 blocks, card vs CPU (the Large fp32 gate's limits)
+    small = dataclasses.replace(base.model, dtype="float32", num_blocks=2)
+    params = init(small, torch.Generator().manual_seed(51), device="cpu")
+    for kind, n_out in tasks:
+        cfg = FinetuneConfig(model=small, optimizer=opt,
+                             task=TaskConfig(kind=kind, num_outputs=n_out))
+        (batch,) = make_task_batches(8, np.random.default_rng(52), kind,
+                                     n_out, 512, 8)
+        state = ft.create_finetune_state(torch.Generator().manual_seed(53),
+                                         cfg, params, device="cpu")
+        want_g, want_m = ft.loss_and_grads(
+            state.params, {k: torch.from_numpy(v) for k, v in batch.items()},
+            cfg)
+        card_params = to_device(state.params, torch.device(DEVICE))
+        n0 = (LOCAL_TRACK.launches, ATTENTION.launches)
+        got_g, got_m = ft.loss_and_grads(
+            card_params, {k: torch.from_numpy(v).to(DEVICE)
+                          for k, v in batch.items()}, cfg)
+        torch.cuda.synchronize()
+        check((LOCAL_TRACK.launches - n0[0], ATTENTION.launches - n0[1])
+              == (2, 2), "finetune reference step did not run K1 and K2 "
+                         "once a block")
+        loss_err = abs(float(got_m["loss"]) - float(want_m["loss"]))
+        grad_err = max((a.cpu() - b).abs().max().item()
+                       for a, b in zip(got_g, want_g))
+        print(f"# finetune reference step {kind}: 2-block fp32 base width, "
+              f"B=8 L=512, card vs CPU plain path: loss "
+              f"{float(got_m['loss']):.6f} |diff| {loss_err:.3e} (tol "
+              f"{STEP_LOSS_TOL}), grads max |diff| {grad_err:.3e} over "
+              f"{len(got_g)} tensors (tol {STEP_GRAD_TOL}) [{card}]")
+        check(loss_err <= STEP_LOSS_TOL, f"finetune step loss {loss_err}")
+        check(grad_err <= STEP_GRAD_TOL, f"finetune step grads {grad_err}")
+
+    trunk = init(base.model, torch.Generator().manual_seed(61),
+                 device=DEVICE)
+    registry = HeadRegistry(registry_dir)
+    totals = {}
+    heads = {}
+    B, L = 8, 512
+    for kind, n_out in tasks:
+        batches = make_task_batches(32, np.random.default_rng(62), kind,
+                                    n_out, L, B)
+        for frozen in (False, True):
+            label = f"{kind} freeze_trunk={frozen}"
+            cfg = FinetuneConfig(
+                model=base.model, optimizer=opt,
+                task=TaskConfig(kind=kind, num_outputs=n_out,
+                                freeze_trunk=frozen, epochs=1))
+            marks = []
+
+            def timed(batches=batches):
+                # A step is the wall between two marks, the card synced:
+                # one before each batch, one when the loop asks for more.
+                for b in batches:
+                    torch.cuda.synchronize()
+                    marks.append((time.perf_counter(),
+                                  {k.name: k.launches for k in KERNELS}))
+                    yield b
+                torch.cuda.synchronize()
+                marks.append((time.perf_counter(),
+                              {k.name: k.launches for k in KERNELS}))
+
+            for k in KERNELS:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = ft.finetune(cfg, lambda epoch: timed(),
+                              pretrained_trunk=trunk, device=DEVICE,
+                              registry=registry,
+                              register_name=f"{kind}-{frozen}")
+            peak = torch.cuda.max_memory_allocated()
+            walls = []
+            for (t0, n0), (t1, n1) in zip(marks, marks[1:]):
+                walls.append((t1 - t0) * 1e3)
+                for name in n1:
+                    want = {LOCAL_TRACK.name: 6, ATTENTION.name: 6}.get(name,
+                                                                        0)
+                    check(n1[name] - n0[name] == want,
+                          f"finetune {label}: a step launched {name} "
+                          f"{n1[name] - n0[name]} times, want {want}")
+            check(len(walls) == 4, f"finetune {label}: {len(walls)} steps")
+            for name, n in marks[-1][1].items():
+                check(n == KERNELS_BY_NAME[name].launches,
+                      f"finetune {label}: {name} launched after the steps")
+                totals[name] = totals.get(name, 0) + n
+            hist = out["history"][-1]
+            check(all(np.isfinite(v) for k, v in hist.items()
+                      if k.startswith("train_")), f"finetune {label}: "
+                                                  f"{hist}")
+            if frozen:
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(out["state"].params["trunk"]),
+                    tree_leaves({k: v for k, v in trunk.items()
+                                 if k not in ("local_head", "global_head")})))
+                print(f"# finetune {label}: trunk after 4 steps bit for bit "
+                      f"the pretrained one: {same}")
+                check(same, f"finetune {label}: the frozen trunk moved")
+            heads[(kind, frozen)] = out["head_id"]
+            profile_finetune_step(card, f"finetune base {label}, one step "
+                                  f"B={B} L={L}", out["state"], batches[0],
+                                  cfg)
+            med = statistics.median(walls[1:])
+            m = cfg.model
+            print(f"# finetune base {label} [{card}]: {m.num_blocks} blocks "
+                  f"C={m.local_dim} G={m.global_dim} H={m.num_heads}, "
+                  f"{m.dtype}, B={B} L={L}, 4 steps, train metrics "
+                  f"{ {k: round(v, 4) for k, v in hist.items()} }; step ms "
+                  f"median of 3 {med:.1f} (steps "
+                  f"{', '.join(f'{w:.1f}' for w in walls)}), "
+                  f"{B * L / (med / 1e3):.0f} tokens/s; max_memory_allocated "
+                  f"{peak / 1e9:.2f} GB; registered head {out['head_id']}")
+    return totals, trunk, heads
+
+
+def profile_finetune_step(card: str, label: str, state, batch, cfg) -> None:
+    """Where one fine-tune step's time goes: synchronized phases (host ->
+    device, forward + task loss, backward, optimizer), then
+    `profile_batch` over a whole synchronized step (its wall and the
+    device's busy share, the largest kernels)."""
+    from proteinbert_tpu_torch.train import finetune as ft
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.train_state import (
+        _to_device, gradient_update,
+    )
+
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    mark()
+    b = _to_device(batch, torch.device(DEVICE))
+    mark()
+    trained = ft.trained_params(state.params, cfg)
+    leaves = tree_leaves(trained)
+    with torch.enable_grad():
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = ft.task_loss(ft._outputs(state.params, b, cfg,
+                                           cfg.task.freeze_trunk), b,
+                               cfg.task.kind)
+        mark()
+        # A token head reads no global track: the last block's global
+        # weights get no gradient (zeros, as `grads_of` gives them).
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        mark()
+    for t in leaves:
+        t.requires_grad_(False)
+    gradient_update(ft.make_finetune_optimizer(cfg), trained, grads,
+                    state.opt_state, loss)
+    mark()
+    wall = marks[-1] - marks[0]
+    print(f"# profile {label} [{card}]: one step {wall * 1e3:.1f} ms, "
+          "phases synchronized:")
+    for name, a, c in zip(("host -> device", "forward + task loss",
+                           "backward", "optimizer"), marks, marks[1:]):
+        print(f"#   {(c - a) * 1e3:9.1f} ms {100 * (c - a) / wall:5.1f}%  "
+              f"{name}")
+
+    def step():
+        ft.finetune_step(state, batch, cfg)
+        torch.cuda.synchronize()
+
+    profile_batch(card, label, step)
+
+
+def predict_task_traffic(srv, reqs):
+    """Warm every trunk shape, set every kernel count to 0, submit
+    `reqs` ((head id, sequence) pairs) before `start()`, so the batches
+    form from the whole queue in order — per bucket, FIFO chunks of
+    max_batch (bucketed), or first-fit packed rows (ragged) — then start
+    and return the answers in order."""
+    from proteinbert_tpu_torch.kernels import KERNELS
+
+    srv.dispatcher.warmup(("predict_task",))
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    futures = [srv.submit("predict_task", seq, head_id=hid)
+               for hid, seq in reqs]
+    srv.start()
+    return [f.result(timeout=300) for f in futures]
+
+
+def bucketed_batches(srv, reqs):
+    """The bucketed batches `predict_task_traffic` forms: per bucket
+    length, FIFO chunks of max_batch → [(L, [request index, ...])]."""
+    groups = {}
+    for i, (_, seq) in enumerate(reqs):
+        groups.setdefault(srv.dispatcher.bucket_len(len(seq)), []).append(i)
+    n = srv.scheduler.max_batch
+    return [(L, idx[j:j + n]) for L, idx in groups.items()
+            for j in range(0, len(idx), n)]
+
+
+def task_batch_equals_eager(label: str, srv, heads) -> tuple:
+    """One full predict_task batch mixing `heads` row by row (bucketed:
+    8 x 512; ragged: 8 rows of three segments) through the server's trunk
+    graph and tails, against the same trunk entry and tails run eagerly
+    on the same card: bit for bit. Returns (the dispatcher call, its
+    outputs)."""
+    from proteinbert_tpu_torch.heads import apply as heads_apply
+
+    disp = srv.dispatcher
+    quantized, params = disp._arm()
+    fn = disp._trunk_fn(quantized)
+    graphs = disp.trunk_executable_count
+    if srv.serve_mode == "bucketed":
+        rng = np.random.default_rng(3)
+        tokens = rng.integers(4, 26, (8, 512)).astype(np.int32)
+        tokens[:, 0], tokens[:, -1] = 1, 2
+        ann = np.zeros((8, disp.cfg.model.num_annotations), np.float32)
+        rows = [heads[i % len(heads)] for i in range(8)]
+
+        def run():
+            return disp.run("predict_task", tokens, heads=rows)
+
+        got = run()
+        trunk_out = fn(params, torch.from_numpy(tokens).to(DEVICE),
+                       torch.from_numpy(ann).to(DEVICE), disp.cfg.model)
+        want = heads_apply.apply_heads(trunk_out, rows)
+    else:
+        tokens, seg, ann, riders = full_ragged_batch(srv)
+        rows = [heads[i % len(heads)] for i in range(len(riders))]
+
+        def run():
+            return disp.run_packed("predict_task", tokens, seg, ann, riders,
+                                   heads=rows)
+
+        got = run()
+        trunk_out = fn(params, *(torch.from_numpy(a).to(DEVICE)
+                                 for a in (tokens, seg, ann)),
+                       disp.cfg.model)
+        want = heads_apply.apply_heads_packed(
+            trunk_out, [(h,) + tuple(r) for h, r in zip(rows, riders)])
+    check(disp.trunk_executable_count == graphs,
+          f"{label}: a trunk graph was captured again")
+    exact = all(np.array_equal(a, b) for a, b in zip(got, want))
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    print(f"# serve {label}: graph replay of one full predict_task batch "
+          f"({len(got)} requests, {len(heads)} heads) vs the eager trunk and "
+          f"tails: max |diff| {diff:.3e}, bit for bit {exact}")
+    check(exact, f"{label}: replay differs from the eager run ({diff})")
+    return run, got
+
+
+def serve_task_phase(card: str, trunk, registry_dir: str,
+                     heads: dict) -> dict:
+    """`# serve base predict_task`: four servers over the base trunk of
+    `finetune_phase` (bf16, buckets 128/256/512, max_batch 8): bucketed
+    and ragged (8 segments a row), fp32 and int8 arms, each carrying the
+    two frozen-trunk heads from the registry. Each answers 24
+    predict_task requests (20-500 residues, the two heads mixed) from 4
+    threads with every kernel count at 0, then drains. Gates: exactly 6
+    launches of K1 (bucketed; ragged: #3; int8: #3-int8 ragged) and of K2
+    (int8: K2-int8) per batch and none of the others; every answer finite
+    and shaped by its head; on the fp32 bucketed arm each answer equals
+    `heads/apply.predict_task_rows` run eagerly on the same card with the
+    row alone in a batch of the served shape, bit for bit; one full
+    predict_task batch replayed equals the eager trunk entry and tails
+    bit for bit (`task_batch_equals_eager`); the int8 arm's answers lie
+    off the fp32 arm's (> 0, printed); hot-adding a third head leaves
+    `trunk_executable_count` flat; a removed head gives the typed
+    `unknown_head` rejection; a head trained with an unfrozen trunk
+    raises TrunkMismatchError; over HTTP (fp32 arms) `/v1/predict_task`
+    equals in process bit for bit and `/v1/heads*` answer. Prints the
+    per-batch wall and busy share of one full predict_task batch with two
+    heads and the graph pool's bytes. Returns the launches."""
+    import urllib.request
+
+    from proteinbert_tpu_torch import inference
+    from proteinbert_tpu_torch.configs import TaskConfig, get_preset
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+    from proteinbert_tpu_torch.heads import (
+        HeadRegistry, TrunkMismatchError, UnknownHeadError,
+        trunk_fingerprint,
+    )
+    from proteinbert_tpu_torch.heads import apply as heads_apply
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_SEGMENTS_Q8,
+    )
+    from proteinbert_tpu_torch.models import finetune as ft_model
+    from proteinbert_tpu_torch.serve.http import make_http_server
+    from proteinbert_tpu_torch.serve.server import Server
+
+    base = get_preset("base")
+    registry = HeadRegistry(registry_dir)
+    served = [heads[("token_classification", True)],
+              heads[("sequence_regression", True)]]
+    fp = trunk_fingerprint(trunk, base.model.scan_blocks)
+    third = TaskConfig(kind="sequence_classification", num_outputs=3,
+                       freeze_trunk=True)
+    third_id = registry.save(ft_model.head_init(
+        torch.Generator().manual_seed(71), base.model, third, device="cpu"),
+        third, fp, name="third")
+    rnd = random.Random(5)
+    reqs = [(served[i % 2], "".join(rnd.choice(ALPHABET)
+                                    for _ in range(rnd.randint(20, 500))))
+            for i in range(24)]
+    totals = {}
+    answers = {}
+    for mode, quant, per_batch in (
+            ("bucketed", "fp32", {LOCAL_TRACK.name: 6, ATTENTION.name: 6}),
+            ("bucketed", "int8", {LOCAL_TRACK.name: 6,
+                                  ATTENTION_Q8.name: 6}),
+            ("ragged", "fp32", {LOCAL_TRACK_SEGMENTS.name: 6,
+                                ATTENTION.name: 6}),
+            ("ragged", "int8", {LOCAL_TRACK_SEGMENTS_Q8.name: 6,
+                                ATTENTION_Q8.name: 6})):
+        label = f"{mode} base predict_task{'' if quant == 'fp32' else ' int8'}"
+        gc.collect()
+        torch.cuda.synchronize()
+        srv = Server(trunk, base, device=DEVICE, buckets=BUCKETS,
+                     max_batch=8, max_wait_s=0.005, cache_size=0,
+                     warm_kinds=(), serve_mode=mode, pack_max_segments=8,
+                     quant=quant, quant_parity_every=0, registry=registry,
+                     heads=served)
+        check(srv.trunk_fp() == fp, f"{label}: trunk fingerprint")
+        t0 = time.perf_counter()
+        got = predict_task_traffic(srv, reqs)
+        check(srv.drain(timeout=300), f"{label}: drain timed out")
+        launches = {k.name: k.launches for k in KERNELS}
+        pool = srv.dispatcher.graph_pool_bytes()
+        n_trunk = srv.dispatcher.trunk_executable_count
+        print(f"# serve {label}: warmup and {len(reqs)} requests in "
+              f"{time.perf_counter() - t0:.2f} s; {n_trunk} trunk graphs "
+              f"shared by {len(served)} heads, their pool holds {pool} bytes "
+              f"({pool / 2**20:.2f} MiB); head tails warmed in "
+              f"{srv.dispatcher.warmup_report['heads']} s [{card}]")
+        batches = srv.stats()["batches"]
+        for name, n in launches.items():
+            want = per_batch.get(name, 0) * batches
+            check(n == want, f"{label}: {name} launched {n} times for "
+                             f"{batches} batches, want {want}")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        for (hid, seq), out in zip(reqs, got):
+            L = srv.dispatcher.bucket_len(len(seq))
+            shape = (L, 8) if hid == served[0] else (1,)
+            check(out.shape == shape and np.isfinite(out).all(),
+                  f"{label}: answer {out.shape}, want {shape}")
+        print(f"# serve {label}: {len(reqs)} requests over {len(served)} "
+              f"heads in {batches} batches, launches {launches}")
+        answers[(mode, quant)] = got
+        if (mode, quant) == ("bucketed", "fp32"):
+            by_id = {h: srv.dispatcher.get_head(h) for h in served}
+            exact = True
+            chunks = bucketed_batches(srv, reqs)
+            for L, idx in chunks:
+                toks = np.zeros((srv.dispatcher.batch_class(len(idx)), L),
+                                np.int32)
+                toks[:len(idx)] = inference._tokenize_masked(
+                    [reqs[i][1] for i in idx], 512, "count")[:, :L]
+                for row, i in enumerate(idx):
+                    want = heads_apply.predict_task_rows(
+                        srv.dispatcher.params, base.model,
+                        by_id[reqs[i][0]], toks)[row]
+                    exact &= np.array_equal(got[i], want)
+            print(f"# serve {label}: each answer vs predict_task_rows run "
+                  f"eagerly on the card on its batch ({len(chunks)} "
+                  f"batches rebuilt): bit for bit {exact}")
+            check(len(chunks) == batches and exact,
+                  f"{label}: an answer differs from predict_task_rows")
+        run, _ = task_batch_equals_eager(
+            label, srv, [srv.dispatcher.get_head(h) for h in served])
+        profile_batch(card, f"{label}, one full batch, {len(served)} heads",
+                      run)
+        del srv
+        gc.collect()
+        # Hot add, remove, a head of another trunk, on a live server.
+        srv = Server(trunk, base, device=DEVICE, buckets=BUCKETS,
+                     max_batch=8, max_wait_s=0.005, cache_size=0,
+                     warm_kinds=(), serve_mode=mode, pack_max_segments=8,
+                     quant=quant, quant_parity_every=0, registry=registry,
+                     heads=served).start()
+        n_trunk = srv.dispatcher.trunk_executable_count
+        srv.add_head(third_id)
+        out = srv.predict_task(third_id, reqs[0][1], timeout=120)
+        check(out.shape == (3,) and srv.dispatcher.trunk_executable_count
+              == n_trunk, f"{label}: hot add captured a trunk graph "
+                          f"({srv.dispatcher.trunk_executable_count} vs "
+                          f"{n_trunk})")
+        srv.remove_head(third_id)
+        try:
+            srv.predict_task(third_id, reqs[0][1], timeout=120)
+            check(False, f"{label}: a removed head answered")
+        except UnknownHeadError:
+            pass
+        check(srv.stats()["rejected"]["unknown_head"] == 1,
+              f"{label}: unknown_head rejections "
+              f"{srv.stats()['rejected']}")
+        try:
+            srv.add_head(heads[("token_classification", False)])
+            check(False, f"{label}: a head of another trunk was added")
+        except TrunkMismatchError:
+            pass
+        print(f"# serve {label}: hot add of a third head kept "
+              f"{n_trunk} trunk graphs; the removed head -> typed "
+              f"unknown_head; a head fine-tuned with its trunk -> "
+              f"TrunkMismatchError")
+        if quant == "fp32":
+            httpd = make_http_server(srv, host="127.0.0.1", port=0)
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                worst = 0.0
+                for hid, seq in reqs[:2]:
+                    status, body = http_post(f"{url}/v1/predict_task",
+                                             {"head_id": hid, "seq": seq})
+                    check(status == 200, f"{label}: HTTP {status} {body}")
+                    want = srv.predict_task(hid, seq, timeout=120)
+                    worst = max(worst, float(np.abs(np.asarray(
+                        body["outputs"], np.float32) - want).max()))
+                with urllib.request.urlopen(url + "/v1/heads",
+                                            timeout=60) as r:
+                    listed = json.loads(r.read())["heads"]
+                added, _ = http_post(f"{url}/v1/heads/add",
+                                     {"head_id": third_id})
+                removed, _ = http_post(f"{url}/v1/heads/remove",
+                                       {"head_id": third_id})
+                gone, body = http_post(f"{url}/v1/predict_task",
+                                       {"head_id": third_id, "seq": "MKT"})
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=60) as r:
+                    health = json.loads(r.read())
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(30)
+            print(f"# serve {label}: HTTP /v1/predict_task vs in process "
+                  f"max |diff| {worst:.3e} (tol 0); /v1/heads lists "
+                  f"{len(listed)}; add {added}, remove {removed}, then "
+                  f"{gone} {body.get('type')}; /healthz fingerprint "
+                  f"{health.get('trunk_fingerprint') == fp}")
+            check(worst == 0.0 and listed == srv.list_heads()
+                  and (added, removed, gone) == (200, 200, 404)
+                  and body.get("type") == "unknown_head"
+                  and health.get("trunk_fingerprint") == fp,
+                  f"{label}: HTTP routes")
+        check(srv.drain(timeout=300), f"{label}: drain timed out")
+        del srv
+    for mode in ("bucketed", "ragged"):
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(
+            answers[(mode, "int8")], answers[(mode, "fp32")]))
+        print(f"# serve {mode} base predict_task int8: max |int8 - fp32 arm| "
+              f"over the {len(reqs)} answers {diff:.6e}")
+        check(0 < diff < float("inf"), f"{mode}: the int8 arm answered as "
+                                       "the fp32 arm (int8 weights unused?)")
+    return totals
+
+
+def task_phases(card: str) -> dict:
+    """`finetune_phase`, then `serve_task_phase` on its trunk and heads
+    (the registry in a temporary directory under build/, removed after);
+    returns the launches of both."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="heads-", dir=build)
+    try:
+        launches, trunk, heads = finetune_phase(card, root)
+        for name, n in serve_task_phase(card, trunk, root, heads).items():
+            launches[name] = launches.get(name, 0) + n
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
                     ["--phase", "k2"], ["--phase", "default"],
                     ["--phase", "resume"], ["--phase", "serve"],
-                    ["--phase", "serve-times"]):
+                    ["--phase", "serve-times"], ["--phase", "finetune"]):
         print("usage: chip_smoke.py [--phase large|base|k2|default|resume|"
-              "serve|serve-times]", file=sys.stderr)
+              "serve|serve-times|finetune]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3663,6 +4378,11 @@ def main() -> int:
     if args == ["--phase", "resume"]:
         resume_phase(card)
         return 0
+    if args == ["--phase", "finetune"]:
+        t0 = time.perf_counter()
+        task_phases(card)
+        print(f"# finetune and predict_task: {time.perf_counter() - t0:.1f} s")
+        return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
         serve_phases(card, gates=args[1] == "serve")
@@ -3707,9 +4427,17 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     print(f"# train: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    for name, n in long_hdf5_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# train long hdf5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for name, n in resume_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# resume: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in task_phases(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# finetune and predict_task: {time.perf_counter() - t0:.1f} s")
 
     # (source, TPU launch site, the served shape its row was timed at)
     ported = {

@@ -11,8 +11,13 @@ natively stay int8 (`_INKERNEL_QUANT_KEYS`) and go to the int8 legs of
 dequantized per call. So the quantized arm cannot drift from the fp32
 arm's semantics.
 
-The reduce-scatter half (distribution), `quantize_rows_int8` (the
-neighbour index) and `_q_trunk_batch` (task heads) are not ported yet.
+Task heads: `_q_trunk_batch` / `_q_packed_trunk_batch` are the shared
+trunk of `predict_task` on the int8 arm (the trunk through the int8 legs
+of K2 and #3, or K1 on dequantized track weights); the head tails that
+read the trunk's output stay float32.
+
+The reduce-scatter half (distribution) and `quantize_rows_int8` (the
+neighbour index) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import ModelConfig
 from proteinbert_tpu_torch.data.vocab import PAD_ID
+from proteinbert_tpu_torch.heads import apply as heads_apply
 from proteinbert_tpu_torch.kernels.quant_leaves import (
     dequant_leaf, dequant_params, is_quant_leaf,
 )
@@ -245,6 +251,20 @@ def _q_packed_go_probs_batch(qparams, tokens, segment_ids, annotations,
 def _q_packed_residue_probs_batch(qparams, tokens, segment_ids, annotations,
                                   cfg: ModelConfig):
     return inference._packed_residue_probs_batch(
+        partial_dequantize_params(qparams), tokens, segment_ids, annotations,
+        cfg)
+
+
+@torch.inference_mode()
+def _q_trunk_batch(qparams, tokens, annotations, cfg: ModelConfig):
+    return heads_apply.trunk_batch(partial_dequantize_params(qparams),
+                                   tokens, annotations, cfg)
+
+
+@torch.inference_mode()
+def _q_packed_trunk_batch(qparams, tokens, segment_ids, annotations,
+                          cfg: ModelConfig):
+    return heads_apply.packed_trunk_batch(
         partial_dequantize_params(qparams), tokens, segment_ids, annotations,
         cfg)
 

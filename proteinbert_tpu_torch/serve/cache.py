@@ -1,13 +1,16 @@
 """Content-addressed LRU result cache for the serving layer — a copy of
-`proteinbert_tpu/serve/cache.py` without `clear()` (the blue-green
-rollout's, not ported yet).
+`proteinbert_tpu/serve/cache.py` without `clear()`, which only the
+blue-green rollout calls (it comes with the rollout, not ported yet).
 
 Keys are sha256 digests over (kind, sequence, annotations bytes) —
 content addressing, so two textually identical queries hit the same
 entry no matter which client sent them, and an annotation vector that
-differs by one bit misses. Values are whatever the finalizer produced
-for that request kind (an embed dict, a GO probability row, a filled
-sequence + residue probs) — small host numpy arrays, held strongly.
+differs by one bit misses. A task head's requests key under the scope
+"predict_task:<head_id>" (the Server builds it); a head id addresses the
+head's weights, task and trunk, so a cached answer is that head's.
+Values are whatever the finalizer produced for that request kind (an
+embed dict, a GO probability row, a filled sequence + residue probs, a
+head's outputs) — small host numpy arrays, held strongly.
 
 Hit/miss/eviction counts feed both local stats() and, when a metrics
 registry is supplied, the `serve_cache_{hits,misses,evictions}_total`

@@ -1,6 +1,6 @@
 """Bucketed and ragged dispatch — port of `proteinbert_tpu/serve/
-dispatch.py` (`InFlightBatch` and the fp32 and int8 arms of
-`BucketDispatcher` and `RaggedDispatcher`).
+dispatch.py` (`InFlightBatch`, the fp32 and int8 arms of
+`BucketDispatcher` and `RaggedDispatcher`, and their task heads).
 
 Online traffic is ragged. Each request is routed to the smallest length
 bucket that holds it (ascending, last == seq_len), and a micro-batch of
@@ -49,6 +49,24 @@ holds only the int8 tree; with N > 0 it stays on the card and every Nth
 live batch also runs the fp32 entries eagerly on the same inputs (the
 parity shadow, `quant_report["parity_max"]`).
 
+Task heads (`TASK_KIND`, "predict_task"). A dispatcher holds registered
+heads (`add_head`, `remove_head`, `get_head`, `list_heads`); a
+`predict_task` batch carries one head a row (or a rider, ragged), and may
+mix heads. The trunk is ONE graph per served shape shared by every head,
+under the key ("trunk", L, batch class) that `trunk_executable_count`
+counts (`heads/apply.trunk_batch` / `packed_trunk_batch`; on the int8 arm
+`parallel/quant._q_trunk_batch` / `_q_packed_trunk_batch`). Right after
+the trunk's replay, on the same stream, each distinct head's tail runs
+eagerly over the graph's output buffers (`heads/apply.head_outputs`),
+before the next replay can overwrite them; only the tails' float32
+outputs are copied to the host. The tails run eagerly rather than as a
+graph per head structure: they are one or two small denses, a graph each
+would need a capture per (head structure × served shape) and a pool that
+grows with every tenant, and hot-adding a head must capture nothing. So
+adding or removing a head never captures a trunk graph; `warm_head` runs
+a new head's tail once per warm trunk shape on zero inputs (no trunk
+run) and records its seconds in `warmup_report["heads"]`.
+
 `metrics` (an obs `MetricsRegistry`) receives the JAX dispatcher's
 `serve_executable_count`, `serve_warmup_seconds_total`,
 `serve_compile_seconds` and `serve_quant_parity_max`.
@@ -67,14 +85,19 @@ from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.data.vocab import EOS_ID, PAD_ID, SOS_ID
+from proteinbert_tpu_torch.heads import apply as heads_apply
+from proteinbert_tpu_torch.heads.registry import LoadedHead, UnknownHeadError
 from proteinbert_tpu_torch.kernels.build import credit, recording_launches
-from proteinbert_tpu_torch.models.proteinbert import to_device
+from proteinbert_tpu_torch.models.proteinbert import activation_dtype, to_device
 from proteinbert_tpu_torch.parallel.quant import (
-    SERVE_QUANT_MODES, param_bytes, quant_entry, quant_packed_entry,
-    quantize_params,
+    SERVE_QUANT_MODES, _q_packed_trunk_batch, _q_trunk_batch, param_bytes,
+    quant_entry, quant_packed_entry, quantize_params,
 )
 
 KINDS = ("embed", "predict_go", "predict_residues")
+# Task-head requests: every head shares the kind, so a micro-batch mixes
+# heads over one trunk graph (module doc).
+TASK_KIND = "predict_task"
 
 _BATCH_FNS = {
     "embed": inference._encode_batch,
@@ -219,12 +242,12 @@ class WarmShape:
             raise RuntimeError(f"CUDA graph capture failed: {e}") from e
         self.launches = recorded
 
-    def replay(self, arrays: Sequence[np.ndarray]) -> Fetch:
+    def launch(self, arrays: Sequence[np.ndarray]):
         """Enqueue one batch on the current stream: `arrays` into the
-        static buffers (from pinned staging, one per batch), the replay,
-        the outputs' copy into pinned host buffers this batch owns, and
-        an event. Returns the fetch that waits for the event and hands
-        back host copies."""
+        static buffers (from pinned staging, one per batch), then the
+        replay. Returns the graph's output tensors: valid until the next
+        replay of a graph of this pool, so read them on this stream
+        before that."""
         for buf, a in zip(self.inputs, arrays):
             staged = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
             buf.copy_(staged, non_blocking=True)
@@ -233,18 +256,26 @@ class WarmShape:
         except Exception as e:
             raise RuntimeError(f"CUDA graph replay failed: {e}") from e
         credit(self.launches)
-        host = _map(lambda t: torch.empty(
-            t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                t, non_blocking=True), self.outputs)
-        done = torch.cuda.Event()
-        done.record()
+        return self.outputs
 
-        def fetch():
-            done.synchronize()
-            # Copies: a result the cache keeps must not pin the buffer.
-            return _map(lambda t: t.numpy().copy(), host)
 
-        return fetch
+def host_fetch(out) -> Fetch:
+    """Start the copy of device outputs (a dict of tensors or one) into
+    pinned host buffers the batch owns, on the current stream, and record
+    an event. Returns the fetch that waits for the event and hands back
+    host copies."""
+    host = _map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, pin_memory=True).copy_(
+            t, non_blocking=True), out)
+    done = torch.cuda.Event()
+    done.record()
+
+    def fetch():
+        done.synchronize()
+        # Copies: a result the cache keeps must not pin the buffer.
+        return _map(lambda t: t.numpy().copy(), host)
+
+    return fetch
 
 
 class BucketDispatcher:
@@ -321,6 +352,13 @@ class BucketDispatcher:
         self._warm_lock = threading.Lock()
         self._pool = None             # the graphs' shared memory pool
         self._capture_stream = None
+        # Registered heads: head_id -> LoadedHead with its params on the
+        # device. Requests keep the head they were admitted with, so a
+        # removal drains queued work.
+        self.heads: Dict[str, LoadedHead] = {}
+        self._heads_lock = threading.Lock()
+        self.warmup_report: Dict = {"trunk_executables": 0,
+                                    "trunk_s": 0.0, "heads": {}}
 
     # ------------------------------------------------------------ routing
 
@@ -346,12 +384,87 @@ class BucketDispatcher:
         tokens[:, 1] = EOS_ID
         return tokens
 
+    # ------------------------------------------------------ head registry
+
+    def add_head(self, head: LoadedHead, warm: bool = False) -> float:
+        """Register a head for predict_task: its params go to the device
+        once, as float32 tensors. With `warm` (a live server) its tail
+        runs once per warm trunk shape (`warm_head`); returns those
+        seconds. No trunk graph is captured."""
+        placed = heads_apply.head_params_on(head.params, self.device)
+        head = LoadedHead(head_id=head.head_id, name=head.name,
+                          task=head.task, params=placed, meta=head.meta)
+        with self._heads_lock:
+            self.heads[head.head_id] = head
+        return self.warm_head(head) if warm else 0.0
+
+    def remove_head(self, head_id: str) -> LoadedHead:
+        """Unregister a head; UnknownHeadError if absent. New submits for
+        it are refused; admitted requests hold their own reference and
+        complete."""
+        with self._heads_lock:
+            try:
+                return self.heads.pop(head_id)
+            except KeyError:
+                raise UnknownHeadError(
+                    f"no head {head_id!r} is registered on this "
+                    "server") from None
+
+    def get_head(self, head_id: str) -> LoadedHead:
+        with self._heads_lock:
+            try:
+                return self.heads[head_id]
+            except KeyError:
+                raise UnknownHeadError(
+                    f"no head {head_id!r} is registered on this server; "
+                    f"have {sorted(self.heads)}") from None
+
+    def list_heads(self) -> List[Dict]:
+        with self._heads_lock:
+            return [{"head_id": h.head_id, "name": h.name,
+                     "kind": h.task.kind,
+                     "num_outputs": h.task.num_outputs}
+                    for h in self.heads.values()]
+
+    def _trunk_shapes(self) -> List[Tuple[int, int]]:
+        """(L, rows) of every warm trunk graph."""
+        with self._warm_lock:
+            return sorted({(k[1], k[2]) for k in self._graphs
+                           if k[0] == "trunk"})
+
+    def _zero_trunk_out(self, L: int, rows: int) -> Dict[str, torch.Tensor]:
+        """Zeros shaped as a bucketed trunk output."""
+        m, dev = self.cfg.model, self.device
+        dtype = activation_dtype(m)
+        return {"local": torch.zeros((rows, L, m.local_dim), dtype=dtype,
+                                     device=dev),
+                "global": torch.zeros((rows, m.global_dim), dtype=dtype,
+                                      device=dev),
+                "pad_mask": torch.zeros((rows, L), dtype=torch.bool,
+                                        device=dev)}
+
+    def _head_tails(self, trunk_out, heads):
+        return heads_apply.head_outputs(trunk_out, heads)
+
+    def warm_head(self, head: LoadedHead) -> float:
+        """Run one head's tail once per warm trunk shape, on zeros shaped
+        as the trunk's outputs (no trunk run, nothing captured); returns
+        the seconds, also recorded in `warmup_report["heads"]`."""
+        total = 0.0
+        for L, rows in self._trunk_shapes():
+            t0 = time.perf_counter()
+            self._head_tails(self._zero_trunk_out(L, rows), [head])
+            self._sync()
+            total += time.perf_counter() - t0
+        self.warmup_report["heads"][head.head_id] = round(total, 6)
+        return total
+
     # -------------------------------------------------------- warm shapes
 
     @property
     def trunk_executable_count(self) -> int:
-        """Warm shared-trunk graphs (the heads' trunk, JAX :347; none
-        until the heads are ported)."""
+        """Warm shared-trunk graphs — the number that stays flat across
+        head add and remove (0 on the CPU, where nothing is captured)."""
         with self._warm_lock:
             return sum(1 for k in self._graphs if k[0] == "trunk")
 
@@ -390,16 +503,66 @@ class BucketDispatcher:
             self._exec_g.set(n)
         return warm
 
-    def _submit(self, key, fn, params, arrays: Sequence[np.ndarray]
-                ) -> Fetch:
-        """Start `fn` on host `arrays` → the fetch of its host outputs:
-        on the card a replay of the shape's graph, on the CPU the eager
-        call, already done."""
+    def _device_out(self, key, fn, params, arrays: Sequence[np.ndarray]):
+        """`fn` on host `arrays` → its outputs on the device: on the card
+        a replay of the shape's graph (captured now if new), on the CPU
+        the eager call."""
         if self.device.type == "cpu":
-            out = inference.run_batch(fn, params, self.cfg, *arrays,
-                                      device=self.device)
-            return lambda: out
-        return self._warm_shape(key, fn, params, arrays).replay(arrays)
+            return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
+                                for a in arrays), self.cfg.model)
+        return self._warm_shape(key, fn, params, arrays).launch(arrays)
+
+    def _submit(self, key, fn, params, arrays: Sequence[np.ndarray],
+                tail: Optional[Callable] = None) -> Fetch:
+        """Start `fn` on host `arrays` → the fetch of its host outputs
+        (on the CPU already done). `tail` (the head tails) maps the
+        device outputs to what is fetched, on the same stream right
+        after."""
+        out = self._device_out(key, fn, params, arrays)
+        if tail is not None:
+            out = tail(out)
+        if self.device.type == "cpu":
+            host = _map(lambda t: t.numpy(), out)
+            return lambda: host
+        return host_fetch(out)
+
+    def _sync(self) -> None:
+        """Wait for this thread's stream (not the device: a live server's
+        scheduler may be capturing on another stream meanwhile)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _warm_trunk(self, key, fn, arrays: Sequence[np.ndarray]) -> int:
+        """Warm the shared trunk at one shape (capture its graph on the
+        card; on the CPU run it) and run every registered head's tail on
+        its output, timing each into `warmup_report`; returns 1 if the
+        trunk shape was new. A shape already captured is not replayed:
+        the tails warm on zeros of its output shapes."""
+        report = self.warmup_report
+        with self._heads_lock:
+            heads = list(self.heads.values())
+        with self._warm_lock:
+            new = key not in self._graphs
+        if new:
+            _, run_params = self._arm()
+            t0 = time.perf_counter()
+            out = self._device_out(key, fn, run_params, arrays)
+            self._sync()
+            dt = time.perf_counter() - t0
+            report["trunk_executables"] += 1
+            report["trunk_s"] = round(report["trunk_s"] + dt, 6)
+            if self._compile_hist is not None:
+                self._compile_hist.observe(dt)
+        else:
+            out = self._zero_trunk_out(key[1], key[2])
+        for head in heads:
+            t0 = time.perf_counter()
+            self._head_tails(out, [head])
+            self._sync()
+            report["heads"][head.head_id] = round(
+                report["heads"].get(head.head_id, 0.0)
+                + time.perf_counter() - t0, 6)
+        return int(new)
 
     def _note_warmup_seconds(self, seconds: float) -> None:
         self.warmup_seconds_total += seconds
@@ -430,6 +593,20 @@ class BucketDispatcher:
         if self.quant == "fp32":
             return False, self.params
         return True, self.qparams
+
+    def _eager(self, fn, arrays: Sequence[np.ndarray]):
+        """`fn` on the fp32 params, eagerly, on host `arrays` → its
+        device outputs (the parity shadow)."""
+        return fn(self.params, *(torch.from_numpy(np.ascontiguousarray(a))
+                                 .to(self.device) for a in arrays),
+                  self.cfg.model)
+
+    @staticmethod
+    def _trunk_fn(quantized: bool):
+        """The shared predict_task trunk: the int8 arm's on quantized
+        weights (weight-only on both int8 modes; the tails that read it
+        stay float32)."""
+        return _q_trunk_batch if quantized else heads_apply.trunk_batch
 
     def _quant_batch_tick(self, timings: Dict) -> bool:
         """Per-batch quant bookkeeping: stamp the arm onto the timings,
@@ -471,35 +648,50 @@ class BucketDispatcher:
         return finalize_fetch
 
     def run(self, kind: str, tokens: np.ndarray,
-            annotations: Optional[np.ndarray] = None):
+            annotations: Optional[np.ndarray] = None,
+            heads: Optional[Sequence[LoadedHead]] = None):
         """Run one micro-batch: tokens (r, L) with L a bucket length,
         annotations (r, A) or None. Rows are padded up to the batch
         class; outputs come back trimmed to r on host —
         {"global", "local_mean"} for "embed", (r, A) probs for
-        "predict_go", (r, L, V) probs for "predict_residues"."""
-        result, _ = self.run_timed(kind, tokens, annotations, timed=False)
+        "predict_go", (r, L, V) probs for "predict_residues". For
+        "predict_task", `heads` carries row i's head and the result is a
+        list of r float32 head outputs (shaped by each head's kind)."""
+        result, _ = self.run_timed(kind, tokens, annotations, timed=False,
+                                   heads=heads)
         return result
 
     def run_timed(self, kind: str, tokens: np.ndarray,
                   annotations: Optional[np.ndarray] = None,
-                  timed: bool = True):
+                  timed: bool = True,
+                  heads: Optional[Sequence[LoadedHead]] = None):
         """`run()` that also returns {"prep_s": padding, "device_s":
         enqueue through host fetch, "finalize_s": the host-fetch share of
         device_s, "pad_fraction": padding share of the (batch_class, L)
         grid} when `timed` — submit + immediate finalize of the async
         entry."""
-        return self.run_timed_async(kind, tokens, annotations,
-                                    timed=timed).finalize()
+        return self.run_timed_async(kind, tokens, annotations, timed=timed,
+                                    heads=heads).finalize()
 
     def run_timed_async(self, kind: str, tokens: np.ndarray,
                         annotations: Optional[np.ndarray] = None,
-                        timed: bool = True) -> InFlightBatch:
+                        timed: bool = True,
+                        heads: Optional[Sequence[LoadedHead]] = None
+                        ) -> InFlightBatch:
         """Submit one micro-batch and return an `InFlightBatch` as soon
-        as it is enqueued. Validation, padding and the replay happen here
-        on the calling (scheduler) thread; the wait for the device, the
-        trim and the parity shadow run in the handle's `finalize()`."""
+        as it is enqueued. Validation, padding, the replay and (for
+        predict_task) the head tails are enqueued here on the calling
+        (scheduler) thread; the wait for the device, the trim and the
+        parity shadow run in the handle's `finalize()`."""
+        if (kind == TASK_KIND) != (heads is not None):
+            raise ValueError(
+                f"kind {kind!r} and heads="
+                f"{'set' if heads is not None else 'None'} do not agree: "
+                "predict_task batches carry per-row heads, the other "
+                "kinds never do")
         quantized, run_params = self._arm()
-        fn = self._fn(kind, quantized)
+        fn = (self._trunk_fn(quantized) if heads is not None
+              else self._fn(kind, quantized))
         rows, L = tokens.shape
         if L not in self.buckets:
             raise ValueError(f"tokens length {L} is not one of the "
@@ -519,22 +711,38 @@ class BucketDispatcher:
         if timed:
             timings["prep_s"] = round(t1 - t0, 9)
         parity_due = self._quant_batch_tick(timings)
-        pending = self._submit((kind, L, cls), fn, run_params,
-                               (tokens, annotations))
+        if heads is not None:
+            # One trunk graph for the (possibly mixed-head) batch, then
+            # each distinct head's tail over the whole batch; each row
+            # keeps its own head's output.
+            pending = self._submit(
+                ("trunk", L, cls), fn, run_params, (tokens, annotations),
+                tail=lambda out: self._head_tails(out, heads))
 
-        def trimmed(out):
-            if isinstance(out, dict):
-                return {k: v[:rows] for k, v in out.items()}
-            return out[:rows]
+            def trimmed(outs):
+                return heads_apply.rows_of(outs, heads)
+
+            def reference():
+                return heads_apply.apply_heads(self._eager(
+                    heads_apply.trunk_batch, (tokens, annotations)), heads)
+        else:
+            pending = self._submit((kind, L, cls), fn, run_params,
+                                   (tokens, annotations))
+
+            def trimmed(out):
+                if isinstance(out, dict):
+                    return {k: v[:rows] for k, v in out.items()}
+                return out[:rows]
+
+            def reference():
+                return trimmed(inference.run_batch(
+                    self._fn(kind, False), self.params, self.cfg, tokens,
+                    annotations, device=self.device))
 
         def fetch():
             out = trimmed(pending())
             if parity_due:
-                self._shadow_parity(
-                    out, lambda: trimmed(inference.run_batch(
-                        self._fn(kind, False), self.params, self.cfg,
-                        tokens, annotations, device=self.device)),
-                    timings)
+                self._shadow_parity(out, reference, timings)
             return out
 
         return InFlightBatch(rows, timings,
@@ -543,15 +751,19 @@ class BucketDispatcher:
     def warmup(self, kinds: Sequence[str] = ("embed",)) -> int:
         """Capture every (bucket_len, batch_class) shape of `kinds` on
         dummy rows (on the CPU: run each once); returns how many shapes
-        ran. The others are captured on first use."""
+        ran. The others are captured on first use. With "predict_task"
+        in `kinds`, or any head registered, the shared trunk is warmed at
+        every shape and each head's tail run on it (`warmup_report`)."""
         t0 = time.perf_counter()
         n = 0
         self._warming = True
         try:
             for kind in kinds:
+                if kind == TASK_KIND:
+                    continue
                 if kind not in KINDS:
                     raise ValueError(f"unknown request kind {kind!r}; "
-                                     f"have {KINDS}")
+                                     f"have {KINDS + (TASK_KIND,)}")
                 for L in self.buckets:
                     for cls in self.batch_classes:
                         with self._warm_lock:
@@ -560,9 +772,25 @@ class BucketDispatcher:
                         dummy = self._dummy_batch(L, cls)
                         self._timed_warm(lambda: self.run(kind, dummy))
                         n += 1
+            if TASK_KIND in kinds or self.heads:
+                n += self._warmup_task()
         finally:
             self._warming = False
         self._note_warmup_seconds(time.perf_counter() - t0)
+        return n
+
+    def _warmup_task(self) -> int:
+        """The shared trunk at every (bucket_len, batch_class) and each
+        registered head's tail on it; returns the new trunk shapes."""
+        fn = self._trunk_fn(self._arm()[0])
+        A = self.cfg.model.num_annotations
+        n = 0
+        for L in self.buckets:
+            for cls in self.batch_classes:
+                n += self._warm_trunk(
+                    ("trunk", L, cls), fn,
+                    (self._dummy_batch(L, cls),
+                     np.zeros((cls, A), np.float32)))
         return n
 
     # ------------------------------------------------- offline batch path
@@ -656,6 +884,25 @@ class RaggedDispatcher(BucketDispatcher):
             "run_packed()/run_packed_timed() "
             "(serve/scheduler.PackedBatchScheduler builds them)")
 
+    @staticmethod
+    def _trunk_fn(quantized: bool):
+        return (_q_packed_trunk_batch if quantized
+                else heads_apply.packed_trunk_batch)
+
+    def _head_tails(self, trunk_out, heads):
+        return heads_apply.packed_head_outputs(trunk_out, heads)
+
+    def _zero_trunk_out(self, L: int, rows: int) -> Dict[str, torch.Tensor]:
+        """Zeros shaped as a packed trunk output."""
+        m, dev, S = self.cfg.model, self.device, self.max_segments
+        dtype = activation_dtype(m)
+        return {"local": torch.zeros((rows, L, m.local_dim), dtype=dtype,
+                                     device=dev),
+                "global": torch.zeros((rows, S, m.global_dim), dtype=dtype,
+                                      device=dev),
+                "seg_mask": torch.zeros((rows, S, L), dtype=torch.bool,
+                                        device=dev)}
+
     def run_timed_async(self, *args, **kwargs):
         raise NotImplementedError(
             "RaggedDispatcher consumes packed batches only — use "
@@ -664,9 +911,10 @@ class RaggedDispatcher(BucketDispatcher):
 
     def run_packed(self, kind: str, tokens: np.ndarray,
                    segment_ids: np.ndarray, annotations: np.ndarray,
-                   riders: Sequence[Rider]) -> List:
+                   riders: Sequence[Rider], heads=None) -> List:
         outs, _ = self.run_packed_timed(kind, tokens, segment_ids,
-                                        annotations, riders, timed=False)
+                                        annotations, riders, heads=heads,
+                                        timed=False)
         return outs
 
     def _packed_fn(self, kind: str, quantized: bool):
@@ -676,17 +924,18 @@ class RaggedDispatcher(BucketDispatcher):
 
     def run_packed_timed(self, kind: str, tokens: np.ndarray,
                          segment_ids: np.ndarray, annotations: np.ndarray,
-                         riders: Sequence[Rider], timed: bool = True):
+                         riders: Sequence[Rider], heads=None,
+                         timed: bool = True):
         """Run one packed batch synchronously — submit + immediate
         finalize of `run_packed_timed_async`."""
         return self.run_packed_timed_async(
-            kind, tokens, segment_ids, annotations, riders,
+            kind, tokens, segment_ids, annotations, riders, heads=heads,
             timed=timed).finalize()
 
     def run_packed_timed_async(self, kind: str, tokens: np.ndarray,
                                segment_ids: np.ndarray,
                                annotations: np.ndarray,
-                               riders: Sequence[Rider],
+                               riders: Sequence[Rider], heads=None,
                                timed: bool = True) -> InFlightBatch:
         """Submit one packed batch through the kind's warm shape; the
         returned `InFlightBatch.finalize()` fans per-segment outputs back
@@ -698,9 +947,17 @@ class RaggedDispatcher(BucketDispatcher):
         0-based. Finalize returns (per-rider outputs aligned with
         `riders`, timings); each output has the shape the bucketed
         dispatcher returns for that request: {"global" (G,), "local_mean"
-        (C,)} / (A,) probs / (span, V) probs."""
+        (C,)} / (A,) probs / (span, V) probs; for predict_task (`heads`,
+        one head a rider) the rider's head output."""
+        if (kind == TASK_KIND) != (heads is not None):
+            raise ValueError(
+                f"kind {kind!r} and heads="
+                f"{'set' if heads is not None else 'None'} do not agree: "
+                "predict_task batches carry per-rider heads, the other "
+                "kinds never do")
         quantized, run_params = self._arm()
-        fn = self._packed_fn(kind, quantized)
+        fn = (self._trunk_fn(quantized) if heads is not None
+              else self._packed_fn(kind, quantized))
         R, L = tokens.shape
         if (R, L) != (self.rows_per_batch, self.cfg.data.seq_len):
             raise ValueError(
@@ -718,28 +975,44 @@ class RaggedDispatcher(BucketDispatcher):
             timings["prep_s"] = round(t1 - t0, 9)
         parity_due = self._quant_batch_tick(timings)
         arrays = (tokens, segment_ids, annotations)
-        pending = self._submit((kind, L, R), fn, run_params, arrays)
+        if heads is not None:
+            hriders = [(h,) + tuple(r) for h, r in zip(heads, riders)]
+            pending = self._submit(
+                ("trunk", L, R), fn, run_params, arrays,
+                tail=lambda out: self._head_tails(out, heads))
 
-        def fan_out(host):
-            outs = []
-            for row, seg, start, span in riders:
-                if kind == "embed":
-                    outs.append({"global": host["global"][row, seg],
-                                 "local_mean": host["local_mean"][row, seg]})
-                elif kind == "predict_go":
-                    outs.append(host[row, seg])
-                else:  # the span lines up with the bucketed (bucket_len, V)
-                    outs.append(host[row, start:start + span])
-            return outs
+            def fan_out(host):
+                return heads_apply.riders_of(host, hriders)
+
+            def reference():
+                return heads_apply.apply_heads_packed(self._eager(
+                    heads_apply.packed_trunk_batch, arrays), hriders)
+        else:
+            pending = self._submit((kind, L, R), fn, run_params, arrays)
+
+            def fan_out(host):
+                outs = []
+                for row, seg, start, span in riders:
+                    if kind == "embed":
+                        outs.append({"global": host["global"][row, seg],
+                                     "local_mean":
+                                     host["local_mean"][row, seg]})
+                    elif kind == "predict_go":
+                        outs.append(host[row, seg])
+                    else:  # the span lines up with the bucketed
+                        # (bucket_len, V) output
+                        outs.append(host[row, start:start + span])
+                return outs
+
+            def reference():
+                return fan_out(inference.run_batch(
+                    self._packed_fn(kind, False), self.params, self.cfg,
+                    *arrays, device=self.device))
 
         def fetch():
             outs = fan_out(pending())
             if parity_due:
-                self._shadow_parity(
-                    outs, lambda: fan_out(inference.run_batch(
-                        self._packed_fn(kind, False), self.params,
-                        self.cfg, *arrays, device=self.device)),
-                    timings)
+                self._shadow_parity(outs, reference, timings)
             return outs
 
         return InFlightBatch(len(riders), timings,
@@ -761,7 +1034,9 @@ class RaggedDispatcher(BucketDispatcher):
 
     def warmup(self, kinds: Sequence[str] = ("embed",)) -> int:
         """Capture the ONE packed shape of each kind (on the CPU: run it
-        once); returns how many ran."""
+        once); returns how many ran. With "predict_task" in `kinds`, or
+        any head registered, also the shared packed trunk and each head's
+        tail on it."""
         t0 = time.perf_counter()
         tokens, seg, ann, riders = self._dummy_packed()
         R, L = self.rows_per_batch, self.cfg.data.seq_len
@@ -769,15 +1044,21 @@ class RaggedDispatcher(BucketDispatcher):
         self._warming = True
         try:
             for kind in kinds:
+                if kind == TASK_KIND:
+                    continue
                 if kind not in KINDS:
                     raise ValueError(f"unknown request kind {kind!r}; "
-                                     f"have {KINDS}")
+                                     f"have {KINDS + (TASK_KIND,)}")
                 with self._warm_lock:
                     if (kind, L, R) in self._graphs:
                         continue
                 self._timed_warm(lambda: self.run_packed(
                     kind, tokens, seg, ann, riders))
                 n += 1
+            if TASK_KIND in kinds or self.heads:
+                n += self._warm_trunk(("trunk", L, R),
+                                      self._trunk_fn(self._arm()[0]),
+                                      (tokens, seg, ann))
         finally:
             self._warming = False
         self._note_warmup_seconds(time.perf_counter() - t0)

@@ -1,6 +1,5 @@
 """Thin stdlib JSON/HTTP endpoint over the port's `Server` — a copy of
-`proteinbert_tpu/serve/http.py` without the routes of what the port does
-not have yet.
+`proteinbert_tpu/serve/http.py` without the neighbour and rollout routes.
 
 Deliberately `http.server`, not a framework: the endpoint's job is only
 transport — every serving behavior (batching, backpressure, deadlines,
@@ -15,8 +14,22 @@ Routes (POST bodies and responses are JSON):
   POST /v1/predict_residues  {"seq", "deadline_ms"?}
        → {"filled": "..."} (probs stay server-side: a (L, V) matrix
          per request is transfer weight, not serving signal)
+  POST /v1/predict_task      {"head_id", "seq", "annotations"?,
+                              "deadline_ms"?}
+       → {"head_id", "outputs": [...]} — one registered head's float32
+         outputs, shaped by its task kind; an unknown or removed head →
+         the typed 404 {"type": "unknown_head"}
+  GET  /v1/heads             → {"heads": [{head_id, name, kind,
+                               num_outputs}]}
+  POST /v1/heads/add         {"head_id"} → loaded from the server's
+                             registry against the resident trunk (a head
+                             of another trunk → 400 {"type":
+                             "trunk_mismatch"})
+  POST /v1/heads/remove      {"head_id"} → removed (queued requests for
+                             it still complete)
   GET  /healthz, /stats      → {"ok": true, "mode": "bucketed"|"ragged",
                                "quant": "fp32"|"int8"|"int8_act",
+                               "trunk_fingerprint": "...",
                                "stats": {...}}
   GET  /metrics              → Prometheus textfile (the registry's
                                exposition; empty when telemetry is off)
@@ -24,11 +37,9 @@ Routes (POST bodies and responses are JSON):
                                the registry snapshot plus raw quantile-
                                window values
 
-The JAX endpoint's task-head routes (`/v1/predict_task`, `/v1/heads*`),
-`/v1/neighbors`, the blue-green `/v1/rollout/*` routes and the shadow
-header answer 404 "no such route" here, like any unknown path, until the
-modules behind them are ported; `/healthz` carries no trunk fingerprint
-for the same reason.
+The JAX endpoint's `/v1/neighbors`, the blue-green `/v1/rollout/*`
+routes and the shadow header answer 404 "no such route" here, like any
+unknown path, until the neighbour index and the rollout are ported.
 
 Every response to an inference POST carries `X-PBT-Request-Id` when the
 server traces (the id of its `serve_request` event); an `X-PBT-Trace`
@@ -36,7 +47,8 @@ header joins the request to a caller's trace id.
 
 Typed-error → status mapping (the backpressure contract, visible to
 clients): QueueFullError → 429, DeadlineExceededError → 504,
-ServerClosedError → 503, SequenceTooLongError/ValueError/bad JSON → 400,
+ServerClosedError → 503, UnknownHeadError → 404,
+TrunkMismatchError/SequenceTooLongError/ValueError/bad JSON → 400,
 anything else on the future → 500. `ThreadingHTTPServer` gives one
 thread per connection; they all funnel into the one scheduler through
 Server.submit, so HTTP concurrency IS the micro-batching concurrency.
@@ -48,6 +60,9 @@ import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from proteinbert_tpu_torch.heads.registry import (
+    TrunkMismatchError, UnknownHeadError,
+)
 from proteinbert_tpu_torch.serve.errors import (
     DeadlineExceededError, QueueFullError, SequenceTooLongError,
     ServerClosedError,
@@ -57,7 +72,8 @@ from proteinbert_tpu_torch.serve.server import Server
 _MAX_BODY = 32 * 1024 * 1024  # a seq + an 8943-float annotation vector fit
 
 
-def _result_payload(kind: str, value, top_k: Optional[int]):
+def _result_payload(kind: str, value, top_k: Optional[int],
+                    head_id: Optional[str] = None):
     if kind == "embed":
         return {"global": [float(x) for x in value["global"]],
                 "local_mean": [float(x) for x in value["local_mean"]]}
@@ -65,6 +81,8 @@ def _result_payload(kind: str, value, top_k: Optional[int]):
         if top_k is not None:
             return {"top": [[i, p] for i, p in value]}
         return {"probs": [float(x) for x in value]}
+    if kind == "predict_task":
+        return {"head_id": head_id, "outputs": value.tolist()}
     filled, _probs = value
     return {"filled": filled}
 
@@ -92,7 +110,10 @@ def make_handler(server: Server):
             if self.path in ("/healthz", "/stats"):
                 self._reply(200, {"ok": True, "mode": server.serve_mode,
                                   "quant": server.quant,
+                                  "trunk_fingerprint": server.trunk_fp(),
                                   "stats": server.stats()})
+            elif self.path == "/v1/heads":
+                self._reply(200, {"heads": server.list_heads()})
             elif self.path == "/metrics":
                 text = ""
                 if getattr(server.tele, "metrics", None) is not None:
@@ -129,16 +150,44 @@ def make_handler(server: Server):
                 raise ValueError(f"bad Content-Length {length}")
             return json.loads(self.rfile.read(length))
 
+        def _head_lifecycle(self, add: bool) -> None:
+            """POST /v1/heads/{add,remove} on the live server."""
+            try:
+                body = self._read_body()
+                head_id = body["head_id"]
+                if not isinstance(head_id, str):
+                    raise ValueError("'head_id' must be a string")
+                if add:
+                    server.add_head(head_id)
+                else:
+                    server.remove_head(head_id)
+            except UnknownHeadError as e:
+                self._reply(404, {"error": str(e), "type": "unknown_head"})
+            except TrunkMismatchError as e:
+                self._reply(400, {"error": str(e),
+                                  "type": "trunk_mismatch"})
+            except (KeyError, ValueError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": f"bad request: {e}",
+                                  "type": "bad_request"})
+            else:
+                self._reply(200, {"ok": True, "head_id": head_id,
+                                  "heads": server.list_heads()})
+
         def do_POST(self):
+            if self.path in ("/v1/heads/add", "/v1/heads/remove"):
+                self._head_lifecycle(add=self.path.endswith("/add"))
+                return
             route = {"/v1/embed": "embed",
                      "/v1/predict_go": "predict_go",
-                     "/v1/predict_residues": "predict_residues"}
+                     "/v1/predict_residues": "predict_residues",
+                     "/v1/predict_task": "predict_task"}
             kind = route.get(self.path)
             if kind is None:
                 self._reply(404, {"error": f"no such route {self.path}"})
                 return
             request_id = None
             top_k = None
+            head_id = None
             try:
                 body = self._read_body()
                 seq = body["seq"]
@@ -153,13 +202,23 @@ def make_handler(server: Server):
                 if top_k is not None and (isinstance(top_k, bool)
                                           or not isinstance(top_k, int)):
                     raise ValueError("'top_k' must be an integer")
+                if kind == "predict_task":
+                    head_id = body["head_id"]
+                    if not isinstance(head_id, str):
+                        raise ValueError("'head_id' must be a string")
                 future = server.submit(
                     kind, seq, annotations=body.get("annotations"),
                     deadline_s=(deadline_ms / 1000.0
                                 if deadline_ms is not None else None),
-                    top_k=top_k, trace_id=self.headers.get("X-PBT-Trace"))
+                    top_k=top_k, head_id=head_id,
+                    trace_id=self.headers.get("X-PBT-Trace"))
                 request_id = getattr(future, "pbt_request_id", None)
                 value = future.result()
+            except UnknownHeadError as e:
+                # The typed 404: this head is not on this server (never
+                # added, or removed); a route 404 has no "type".
+                self._reply(404, {"error": str(e), "type": "unknown_head"},
+                            getattr(e, "pbt_request_id", request_id))
             except QueueFullError as e:
                 self._reply(429, {"error": str(e), "type": "queue_full"},
                             request_id)
@@ -183,8 +242,8 @@ def make_handler(server: Server):
                 self._reply(500, {"error": f"internal error: {e}",
                                   "type": "internal"}, request_id)
             else:
-                self._reply(200, _result_payload(kind, value, top_k),
-                            request_id)
+                self._reply(200, _result_payload(kind, value, top_k,
+                                                 head_id), request_id)
 
     return Handler
 

@@ -1,6 +1,5 @@
 """Thread-safe bounded request queue with admission control — a copy of
-`proteinbert_tpu/serve/queue.py` without the head field (task heads are
-not ported yet).
+`proteinbert_tpu/serve/queue.py`.
 
 The serving front door: client threads `push()` requests, the
 scheduler thread drains them. Three contracts, all typed (serve/
@@ -58,6 +57,12 @@ class Request:
     cache_key: Optional[str] = None           # None = uncacheable/disabled
     trace: Optional[object] = None            # serve/trace.RequestTrace
                                               # (None = telemetry off)
+    head: Optional[object] = None             # heads/registry.LoadedHead
+                                              # (predict_task only),
+                                              # resolved at admission: a
+                                              # hot remove_head drains
+                                              # queued work instead of
+                                              # failing it
 
 
 class RequestQueue:

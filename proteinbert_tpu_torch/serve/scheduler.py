@@ -1,7 +1,6 @@
 """Continuous micro-batching schedulers — port of
 `proteinbert_tpu/serve/scheduler.py` (`MicroBatchScheduler`, the ragged
-`PackedBatchScheduler` and the pipelined in-flight window; the per-head
-grouping of task heads is not ported yet).
+`PackedBatchScheduler` and the pipelined in-flight window).
 
 One daemon thread drains the request queue under a two-knob policy:
 
@@ -9,6 +8,13 @@ One daemon thread drains the request queue under a two-knob policy:
   rows dispatches immediately (throughput bound);
 - **max_wait_s**: otherwise a group dispatches when its OLDEST member
   has waited `max_wait_s` (latency bound).
+
+Task heads: every `predict_task` request has the kind "predict_task",
+whatever head it names, so one micro-batch (bucketed) or one packed batch
+(ragged) mixes heads: the dispatcher runs the shared trunk once and each
+distinct head's tail, and each request keeps its own head's output. The
+request carries the head it was admitted with (`Request.head`), so a head
+removed meanwhile still answers its queued requests.
 
 Requests group by (kind, bucket_len): only same-kind, same-bucket rows
 share a warm shape. Within a group FIFO order holds end to end, so the
@@ -282,6 +288,13 @@ class MicroBatchScheduler:
             for r in batch])
         ctx = {"rows": len(batch), "batch_class": cls,
                "bucket_len": bucket_len}
+        # predict_task rows carry their own head: the dispatcher runs the
+        # shared trunk once and each head's tail.
+        heads = ([r.head for r in batch]
+                 if batch[0].head is not None else None)
+        extra = {"heads": heads} if heads is not None else {}
+        if heads is not None:
+            ctx["heads"] = sorted({h.head_id for h in heads})
         self._wait_for_slot()
         t0 = time.perf_counter()
         run0 = self.clock()
@@ -295,14 +308,16 @@ class MicroBatchScheduler:
             run_timed = getattr(self.dispatcher, "run_timed", None)
             if run_async is not None:
                 handle = run_async(kind, tokens, annotations,
-                                   timed=bool(tracing and timed))
+                                   timed=bool(tracing and timed), **extra)
             elif run_timed is not None:
                 result, timings = run_timed(kind, tokens, annotations,
-                                            timed=bool(tracing and timed))
+                                            timed=bool(tracing and timed),
+                                            **extra)
                 handle = _ReadyBatch(result, timings)
             else:
                 handle = _ReadyBatch(
-                    self.dispatcher.run(kind, tokens, annotations), {})
+                    self.dispatcher.run(kind, tokens, annotations,
+                                        **extra), {})
         except Exception as e:  # submit failed; finalize path fails it
             handle = _FailedBatch(e)
         self._enqueue_inflight({
@@ -381,7 +396,8 @@ class MicroBatchScheduler:
                        rows=len(batch), batch_class=cls,
                        batch_seconds=round(dt, 6),
                        pad_fraction=ctx.get("pad_fraction"),
-                       heads=None, **quant_fields, **self._replica_fields)
+                       heads=ctx.get("heads"), **quant_fields,
+                       **self._replica_fields)
 
     # ------------------------------------------------- in-flight window
 
@@ -709,11 +725,15 @@ class PackedBatchScheduler(MicroBatchScheduler):
         if not riders:
             return len(expired)
         geom = [(r, s, start, span) for (_, r, s, start, span) in riders]
+        heads = ([req.head for req, *_ in riders]
+                 if riders[0][0].head is not None else None)
         n_riders = len(riders)
         ctx = {"rows": R, "batch_class": R, "bucket_len": L,
                "segments": n_riders,
                "segments_per_row": round(n_riders / R, 4),
                "mode": "ragged"}
+        if heads is not None:
+            ctx["heads"] = sorted({h.head_id for h in heads})
         self._wait_for_slot()
         t0 = time.perf_counter()
         run0 = self.clock()
@@ -725,12 +745,12 @@ class PackedBatchScheduler(MicroBatchScheduler):
                                 "run_packed_timed_async", None)
             if run_async is not None:
                 handle = run_async(kind, tokens, segment_ids,
-                                   annotations, geom,
+                                   annotations, geom, heads=heads,
                                    timed=bool(tracing and timed))
             else:
                 outs, timings = self.dispatcher.run_packed_timed(
                     kind, tokens, segment_ids, annotations, geom,
-                    timed=bool(tracing and timed))
+                    heads=heads, timed=bool(tracing and timed))
                 handle = _ReadyBatch(outs, timings)
         except Exception as e:  # submit failed; finalize path fails it
             handle = _FailedBatch(e)
@@ -814,7 +834,8 @@ class PackedBatchScheduler(MicroBatchScheduler):
                        pad_fraction=pad,
                        segments=n_riders,
                        segments_per_row=ctx["segments_per_row"],
-                       mode="ragged", heads=None, **quant_fields,
+                       mode="ragged", heads=ctx.get("heads"),
+                       **quant_fields,
                        **self._replica_fields)
 
     def fail_pending(self, exc: Exception) -> List[Request]:

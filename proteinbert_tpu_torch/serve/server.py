@@ -1,11 +1,22 @@
 """`Server` — the online-inference facade, bucketed and ragged modes —
-port of `proteinbert_tpu/serve/server.py` (the task heads, the neighbour
-index and the blue-green rollout arm are not ported yet).
+port of `proteinbert_tpu/serve/server.py` (the neighbour index and the
+blue-green rollout arm are not ported yet).
 
 Ties the queue, scheduler, dispatcher and cache together behind the
 capabilities of the offline surface (inference.py): `embed`,
-`predict_go`, `predict_residues`, each a blocking call or a `submit()`
-future (serve/http.py is a thin JSON shim over exactly this facade).
+`predict_go`, `predict_residues`, and `predict_task` for a registered
+task head, each a blocking call or a `submit()` future (serve/http.py is
+a thin JSON shim over exactly this facade).
+
+Task heads: `registry=` (a `heads.HeadRegistry` or its directory) and
+`heads=` (head ids to load from it, or `LoadedHead`s). A head id loads
+through the registry against the resident trunk's fingerprint
+(`trunk_fp()`, computed once), so a head trained against another trunk
+raises `TrunkMismatchError`. `add_head` / `remove_head` work on a live
+server (a `note` event each) and capture no trunk graph; a `predict_task`
+for a head that is not registered raises the typed `UnknownHeadError`
+and counts as `rejected{reason="unknown_head"}`. Task results are cached
+under "predict_task:<head_id>".
 
 Request life cycle:
 
@@ -87,12 +98,15 @@ import numpy as np
 from proteinbert_tpu_torch import DeviceLike
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
+from proteinbert_tpu_torch.heads.registry import (
+    HeadRegistry, LoadedHead, UnknownHeadError, trunk_fingerprint,
+)
 from proteinbert_tpu_torch.obs import as_telemetry
 from proteinbert_tpu_torch.obs.events import SERVE_REJECT_REASONS
 from proteinbert_tpu_torch.obs.slo import ProfileTrigger, SLOEvaluator
 from proteinbert_tpu_torch.serve.cache import EmbeddingCache, content_key
 from proteinbert_tpu_torch.serve.dispatch import (
-    KINDS, BucketDispatcher, RaggedDispatcher,
+    KINDS, TASK_KIND, BucketDispatcher, RaggedDispatcher,
 )
 from proteinbert_tpu_torch.serve.errors import (
     SequenceTooLongError, ServerClosedError,
@@ -136,6 +150,8 @@ class Server:
         quant_parity_every: Optional[int] = None,
         replica_id: Optional[str] = None,
         pipeline_depth: Optional[int] = None,
+        registry=None,
+        heads=None,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
@@ -236,7 +252,7 @@ class Server:
         self._latency_h = metrics.histogram("serve_latency_seconds")
         self._truncated_c = metrics.counter("serve_truncated_total")
         self._req_c = {k: metrics.counter("serve_requests_total", kind=k)
-                       for k in KINDS}
+                       for k in KINDS + (TASK_KIND,)}
         self._rej_c = {r: metrics.counter("serve_rejected_total", reason=r)
                        for r in SERVE_REJECT_REASONS}
         self.completed_total = 0  # one writer: the finalizing thread
@@ -247,6 +263,12 @@ class Server:
         self.cache_hit_returns = 0           # guarded-by: _mirror_lock
         self.truncated_total = 0             # guarded-by: _mirror_lock
         self.rejected_total = {r: 0 for r in self._rej_c}
+        if isinstance(registry, str):
+            registry = HeadRegistry(registry)
+        self.registry = registry
+        self._trunk_fp: Optional[str] = None
+        for h in (heads or ()):
+            self.add_head(h)
 
     def _bump(self, mirror: str, reason: Optional[str] = None) -> None:
         with self._mirror_lock:
@@ -290,6 +312,8 @@ class Server:
             "quant_report": self.dispatcher.quant_report or None,
             "pipeline_depth": self.pipeline_depth,
             "replica_id": self.replica_id,
+            "heads": sorted(self.dispatcher.heads),
+            "warmup": self.dispatcher.warmup_report,
         })
         self.scheduler.start()
         self._started = True
@@ -344,24 +368,75 @@ class Server:
         else:
             self.abort()
 
+    # ---------------------------------------------------------- task heads
+
+    def trunk_fp(self) -> str:
+        """The resident trunk's fingerprint (the JAX package's digest of
+        the same weights), computed on first use and kept: every registry
+        load is checked against it."""
+        if self._trunk_fp is None:
+            self._trunk_fp = trunk_fingerprint(self.dispatcher.params,
+                                               self.cfg.model.scan_blocks)
+        return self._trunk_fp
+
+    def add_head(self, head) -> str:
+        """Add a head to a (possibly live) server: a head id loaded
+        through the registry against `trunk_fp()` (TrunkMismatchError for
+        a head of another trunk, UnknownHeadError for an id the registry
+        lacks), or a `LoadedHead`. On a live server its tail is warmed;
+        no trunk graph is captured. Returns the head id."""
+        if isinstance(head, str):
+            if self.registry is None:
+                raise ValueError(
+                    f"cannot resolve head id {head!r}: this server has "
+                    "no registry (pass registry= or a LoadedHead)")
+            head = self.registry.load(head, trunk_fp=self.trunk_fp())
+        if not isinstance(head, LoadedHead):
+            raise TypeError(f"a head is a head id or a LoadedHead, got "
+                            f"{type(head).__name__}")
+        warm_s = self.dispatcher.add_head(head, warm=self._started)
+        self.tele.emit("note", source="serve", kind="head_added",
+                       head_id=head.head_id, name=head.name,
+                       task=head.task.kind, warm_s=round(warm_s, 6))
+        return head.head_id
+
+    def remove_head(self, head_id: str) -> None:
+        """Remove a head: new submits for it get the typed
+        UnknownHeadError; queued and in-flight requests for it complete
+        (each carries its own head)."""
+        head = self.dispatcher.remove_head(head_id)
+        self.tele.emit("note", source="serve", kind="head_removed",
+                       head_id=head.head_id, name=head.name)
+
+    def list_heads(self):
+        """[{head_id, name, kind, num_outputs}] of the servable heads."""
+        return self.dispatcher.list_heads()
+
     # ------------------------------------------------------------- submit
 
     def submit(self, kind: str, seq: str, annotations=None,
                deadline_s: Optional[float] = None,
                top_k: Optional[int] = None,
+               head_id: Optional[str] = None,
                trace_id: Optional[str] = None) -> Future:
         """Enqueue one request; returns its future (which carries the
         trace id as `.pbt_request_id` when tracing is on — the caller's
         `trace_id` when one is given, so one id names the request across
         processes). Raises SequenceTooLongError (on_long="reject", or a
-        '?' beyond the window for predict_residues) and ServerClosedError
-        synchronously; QueueFullError / DeadlineExceededError land on
-        futures (the evicted/expired request's — never silently
-        dropped)."""
-        if kind not in KINDS:
-            raise ValueError(f"unknown request kind {kind!r}; have {KINDS}")
+        '?' beyond the window for predict_residues), UnknownHeadError
+        (predict_task for a head not registered: the typed 404) and
+        ServerClosedError synchronously; QueueFullError /
+        DeadlineExceededError land on futures (the evicted/expired
+        request's — never silently dropped)."""
+        if kind not in KINDS and kind != TASK_KIND:
+            raise ValueError(f"unknown request kind {kind!r}; have "
+                             f"{KINDS + (TASK_KIND,)}")
         if not seq:
             raise ValueError("empty sequence")
+        if (kind == TASK_KIND) != (head_id is not None):
+            raise ValueError(
+                f"head_id is required for kind {TASK_KIND!r} and invalid "
+                "for every other kind")
         now0 = self.clock()
         trace = None
         if self.trace_sample_rate is not None:
@@ -370,10 +445,26 @@ class Server:
                 f"{self._id_prefix}{n:x}", kind, now0,
                 sampled=stride_sampled(n, self.trace_sample_rate))
             trace.join(trace_id, self.replica_id)
+            trace.head_id = head_id
             # Which arm serves this request (`quant` on serve_request;
             # absent on the fp32 arm).
             if self.quant != "fp32":
                 trace.quant = self.quant
+        head = None
+        if kind == TASK_KIND:
+            try:
+                head = self.dispatcher.get_head(head_id)
+            except UnknownHeadError as exc:
+                # The typed 404: never added, or removed.
+                self._rej_c["unknown_head"].inc()
+                self._bump("rejected_total", "unknown_head")
+                self.tele.emit("serve_reject", reason="unknown_head",
+                               kind=kind, queue_depth=len(self.queue),
+                               head_id=head_id)
+                self._seal(trace, "rejected", self.clock(), kind=kind)
+                if trace is not None:
+                    exc.pbt_request_id = trace.public_id()
+                raise
         window = self.cfg.data.seq_len - 2
         if len(seq) > window:
             if (self.on_long == "reject"
@@ -404,7 +495,10 @@ class Server:
         if self.cache.capacity:
             if trace is not None:
                 trace.cache = "miss"
-            key = content_key(kind, seq, annotations)
+            # A head id addresses its weights, task and trunk, so the
+            # scope keys a task answer to the head that made it.
+            scope = kind if head is None else f"{kind}:{head.head_id}"
+            key = content_key(scope, seq, annotations)
             hit = self.cache.get(key)
             if hit is not None:
                 self._bump("cache_hit_returns")
@@ -425,7 +519,7 @@ class Server:
             kind=kind, seq=seq, tokens=tokens, bucket_len=bucket_len,
             future=future, enqueued_at=now, annotations=annotations,
             deadline=(now + deadline_s if deadline_s is not None else None),
-            top_k=top_k, cache_key=key, trace=trace)
+            top_k=top_k, cache_key=key, trace=trace, head=head)
         try:
             evicted = self.queue.push(req)
         except ServerClosedError as exc:
@@ -469,6 +563,19 @@ class Server:
         return self.submit("predict_residues", seq,
                            deadline_s=deadline_s).result(timeout)
 
+    def predict_task(self, head_id: str, seq: str, annotations=None,
+                     timeout: Optional[float] = None,
+                     deadline_s: Optional[float] = None) -> np.ndarray:
+        """One registered head's float32 output for one sequence:
+        (bucket_len, num_outputs) logits for token_classification,
+        (num_outputs,) logits for sequence_classification, (1,) for
+        sequence_regression — the serving form of
+        heads/apply.predict_task_rows. The request rides whatever batch
+        forms for its bucket, beside requests for other heads."""
+        return self.submit(TASK_KIND, seq, annotations,
+                           deadline_s=deadline_s,
+                           head_id=head_id).result(timeout)
+
     # ------------------------------------------------------- finalization
 
     def _present(self, kind: str, value, top_k: Optional[int]):
@@ -489,7 +596,7 @@ class Server:
         if req.kind == "embed":
             value = {"global": np.asarray(row["global"]),
                      "local_mean": np.asarray(row["local_mean"])}
-        elif req.kind == "predict_go":
+        elif req.kind in ("predict_go", TASK_KIND):
             value = np.asarray(row)
         else:  # predict_residues: fill '?' via the argmax amino acid
             probs = np.asarray(row)
@@ -594,6 +701,7 @@ class Server:
             },
             "quant": ({"mode": self.quant, **self.dispatcher.quant_report}
                       if self.quant != "fp32" else None),
+            "heads": len(self.dispatcher.heads),
             # Window depth, the deepest the window got, and the share of
             # finalize seconds that overlapped a later batch's compute.
             "pipeline": self.scheduler.pipeline_stats(),

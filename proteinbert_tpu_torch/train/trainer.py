@@ -47,14 +47,23 @@ allowed. Each rank then runs the same loop on the same batches, `perf`
 counts this rank's B·L/world positions a step, rank 0 writes the
 checkpoints, and the eval-keyed plateau is refused there as in JAX.
 
+With `cfg.data.prefetch_depth` > 0 the batches come through
+`data/prefetch.PrefetchIterator` (numpy made on its thread, moved to the
+device inside the step on the train thread); each `step` record then
+carries `data_wait_s`, and the gauges `data_wait_seconds` and
+`data_batches_total` follow it. Batches may change their length L from
+step to step (`data/dataset.make_bucketed_iterator`'s buckets): the step
+is shape-parametric, and `perf` counts B·`cfg.data.seq_len` positions a
+step as the JAX timer does.
+
 Left as the JAX loop's other paths: the overlapped eval bracket
-(`cfg.train.overlap_eval`; the port's eval is synchronous), the prefetch
-thread (`cfg.data.prefetch_depth`), data parallelism and ZeRO, and the
-drill knobs (`PBT_FAULT_*`).
+(`cfg.train.overlap_eval`; the port's eval is synchronous), data
+parallelism and ZeRO, and the drill knobs (`PBT_FAULT_*`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -66,6 +75,7 @@ import torch
 from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.configs.config import config_to_dict
+from proteinbert_tpu_torch.data.prefetch import prefetch
 from proteinbert_tpu_torch.obs import as_telemetry
 from proteinbert_tpu_torch.parallel.halo import group_size
 from proteinbert_tpu_torch.parallel.seq_parallel import (
@@ -219,6 +229,13 @@ def pretrain(
         for _ in range(batches_consumed):
             next(batch_iterator)
 
+    prefetch_it = None
+    if cfg.data.prefetch_depth > 0:
+        # Hide the host's batch production (HDF5 reads, tokenization)
+        # behind the asynchronously enqueued step.
+        batch_iterator = prefetch_it = prefetch(batch_iterator,
+                                                cfg.data.prefetch_depth)
+
     start_step = int(state.step)
     history: list = []
 
@@ -298,7 +315,8 @@ def pretrain(
     with GracefulShutdown(
         on_signal=((lambda signum: tele.dump_flight(f"signal_{signum}"))
                    if tele.enabled else None)
-    ) as stop:
+    ) as stop, (contextlib.nullcontext() if prefetch_it is None
+                else contextlib.closing(prefetch_it)):
         for step in range(start_step, cfg.train.max_steps):
             batch = next(batch_iterator)
             if eval_keyed_plateau:
@@ -363,6 +381,12 @@ def pretrain(
                 if tele.enabled:
                     extra = {}
                     reg = tele.metrics
+                    if prefetch_it is not None:
+                        extra["data_wait_s"] = round(prefetch_it.wait_s, 4)
+                        reg.gauge("data_wait_seconds").set(
+                            prefetch_it.wait_s)
+                        reg.gauge("data_batches_total").set(
+                            prefetch_it.batches)
                     try:
                         import resource
                         import sys as _sys

@@ -6,7 +6,8 @@ summation order: the JAX-against-port tolerance of test_torch_ragged.py;
 the two differ by up to ~1.4e-6 here) and the port's own in-process
 answer within test_torch_serve.py's 1e-6, with the same status codes for
 a bad body, an unknown route and a closed server; the routes of modules
-the port does not have yet answer 404; traced responses carry
+the port does not have yet answer 404 "no such route", the task-head
+routes the typed 404 for an unknown head; traced responses carry
 X-PBT-Request-Id and join a caller's X-PBT-Trace; /healthz, /stats,
 /metrics and /metrics.json answer."""
 
@@ -75,7 +76,7 @@ class _Endpoint:
 
 
 @pytest.fixture(scope="module")
-def endpoints():
+def endpoints(tmp_path_factory):
     jcfg, tcfg = jax_preset("tiny"), get_preset("tiny")
     jparams = jmodel.init(jax.random.PRNGKey(6), jcfg.model)
     tparams = params_from_flat(flatten_params(jparams), tcfg.model,
@@ -85,7 +86,9 @@ def endpoints():
     eps = {"jax": _Endpoint(JServer(jparams, jcfg, telemetry=JTelemetry(),
                                     **kw), jax_http),
            "port": _Endpoint(Server(tparams, tcfg, device="cpu",
-                                    telemetry=Telemetry(), **kw),
+                                    telemetry=Telemetry(),
+                                    registry=str(tmp_path_factory.mktemp(
+                                        "heads")), **kw),
                              make_http_server)}
     yield eps
     for ep in eps.values():
@@ -157,11 +160,19 @@ def test_error_status_mapping_matches_the_jax_server(endpoints, route,
     "/v1/predict_task", "/v1/neighbors", "/v1/heads/add",
     "/v1/heads/remove", "/v1/rollout/load", "/v1/rollout/flip"])
 def test_routes_of_unported_modules_answer_404(endpoints, route):
+    """The neighbour and rollout routes are not served ("no such route");
+    the task-head routes are, and answer an unknown head with the typed
+    404 the JAX shim gives (the port's server has a registry without that
+    head, so /v1/heads/add reaches it too)."""
     status, body, _ = _post(endpoints["port"].base + route,
                             {"seq": "MKT", "head_id": "h"})
-    assert status == 404 and body["error"] == f"no such route {route}"
-    status, _, _ = _get(endpoints["port"].base + "/v1/heads")
     assert status == 404
+    if route in ("/v1/predict_task", "/v1/heads/add", "/v1/heads/remove"):
+        assert body["type"] == "unknown_head", body
+    else:
+        assert body["error"] == f"no such route {route}"
+    status, body, _ = _get(endpoints["port"].base + "/v1/heads")
+    assert status == 200 and json.loads(body) == {"heads": []}
 
 
 def test_request_ids_and_trace_join(endpoints):

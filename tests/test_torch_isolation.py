@@ -70,7 +70,9 @@ def test_the_check_covers_data_and_train_and_catches_an_offender(tmp_path):
     for m in ("data.dataset", "data.corruption", "data.transforms",
               "data.synthetic", "train.loss", "train.schedule",
               "train.train_state", "train.metrics", "train.trainer",
-              "kernels.autograd"):
+              "kernels.autograd", "utils.h5", "data.prefetch",
+              "data.finetune_data", "models.finetune", "train.finetune",
+              "heads", "heads.registry", "heads.apply", "heads.eval"):
         assert f"proteinbert_tpu_torch.{m}" in mods
     bad = tmp_path / "offender.py"
     bad.write_text("import torch\nimport optax\n"
@@ -124,3 +126,21 @@ def test_entry_points_without_device_raise():
     # Asked for explicitly, the CPU path runs.
     out = inference.embed(params, cfg, ["MKT"], device="cpu")
     assert np.isfinite(out["global"]).all()
+
+
+def test_finetune_entry_points_without_device_raise():
+    _no_cuda()
+    from proteinbert_tpu_torch.configs import FinetuneConfig, TaskConfig
+    from proteinbert_tpu_torch.models import finetune as ft_model
+    from proteinbert_tpu_torch.train import finetune as ft_train
+
+    cfg = FinetuneConfig(task=TaskConfig(epochs=1))
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError):
+        ft_model.head_init(gen, cfg.model, cfg.task)
+    with pytest.raises(RuntimeError):
+        ft_train.create_finetune_state(gen, cfg)
+    with pytest.raises(RuntimeError):
+        ft_train.finetune(cfg, lambda epoch: iter(()))
+    head = ft_model.head_init(gen, cfg.model, cfg.task, device="cpu")
+    assert head["out"]["kernel"].device.type == "cpu"

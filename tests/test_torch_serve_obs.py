@@ -310,13 +310,13 @@ def test_server_metrics_carry_the_serve_instruments(weights, tmp_path):
             ("port", Server, tparams, tcfg, {"device": "cpu"})):
         srv = _events(cls, params, cfg, tmp_path / f"{name}.jsonl", **kw)
         got[name] = srv.tele.metrics.snapshot()
-    # The JAX registry also counts the kinds the port has not yet
-    # (predict_task, neighbors); every port counter is a JAX one, equal.
+    # The JAX registry also counts the kind the port has not yet
+    # (neighbors); every port counter is a JAX one, equal.
     port_c, jax_c = got["port"]["counters"], got["jax"]["counters"]
     assert port_c and set(port_c) <= set(jax_c)
     assert port_c == {k: jax_c[k] for k in port_c}
     assert set(jax_c) - set(port_c) == {
-        k for k in jax_c if "predict_task" in k or "neighbors" in k}
+        k for k in jax_c if "neighbors" in k}
     for h in ("serve_latency_seconds", "serve_queue_wait_seconds",
               "serve_batch_rows", "serve_batch_seconds",
               "serve_finalize_seconds"):
