@@ -11,6 +11,8 @@ card.
     python3 chip_smoke.py --phase serve   # the served paths and their gates
     python3 chip_smoke.py --phase serve-times  # their numbers only
     python3 chip_smoke.py --phase finetune  # fine-tune, then predict_task
+    python3 chip_smoke.py --phase neighbors # map, index, /v1/neighbors;
+                                            # the int8 arm at Large
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -66,7 +68,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               version;
               the int8 legs (int8 weights, quantized as the int8 serving arm
               holds them): #3-int8 at base width (S=8), K2-int8 at base width
-              dense and packed and at value_dim 128, #6-int8 at C=128/256
+              dense and packed, at value_dim 128 and at Large width
+              (L=1024, C=G=1024, H=16, bf16, dense and S=8, timed with
+              its passes beside its fp leg), #6-int8 at C=128/256
               dense and packed and at C=512 (bf16, H=4, L=128), bf16 and
               fp32, L=512 timed and L=100 with an all-pad row and an empty
               segment: each exactly (max |diff| == 0.0) the fp leg's output on
@@ -207,7 +211,43 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               fine-tuned with its trunk -> TrunkMismatchError; HTTP
               /v1/predict_task and /v1/heads* (fp32 arms). Prints each
               server's graph pool and a full batch's wall and busy share.
-8. report   — the kernel JSON line, the card's name and power limit, and the
+8. neighbors — `neighbors_phase`, `# neighbors base ...`: the `base` trunk
+              in bf16 maps 8192 seeded proteins (`corpus_rows`: log-normal
+              lengths, median 350, a third truncated at the 510-residue
+              window) plus three poisoned records (empty, non-string, a
+              control character) into a store (`mapper.run_map`: buckets
+              128/256/512, rows_per_batch 8, 8 segments, 2 shards of
+              256-record blocks). Gates: exactly 6 #3 + 6 K2 per packed
+              batch and nothing else; `verify_store` ok and complete; a run
+              stopped by `max_blocks` and resumed, and one with
+              `pipeline=False`, write the uninterrupted store byte for byte
+              (`store_digests`); the poisoned records quarantined with their
+              typed reasons. `build_index` with its defaults (64 centroids,
+              256-vector blocks, seed 0): `verify_index` ok, bytes ratio
+              <= 0.30, recall@10 at nprobe 64 (a full probe) >= 0.95
+              against float32 `exact_topk`. `Server(index=, nprobe=8)`
+              bucketed and ragged (fp32 arm): 64 neighbours and the same 64
+              embeds submitted before `start()`; each answer equals
+              `lookup_one` over its own served embed vector bit for bit;
+              graphs and pool equal the index-free server's; launches
+              exactly the embed batches' (6 K1 or #3 + 6 K2); the outcome
+              funnel; HTTP `/v1/neighbors` = in process, k=0 400; an index
+              of another trunk -> TrunkMismatchError, none -> ValueError.
+              Prints the map's sequences/s, residues/s, batches, busy share
+              (a profiled 512-record run), commit_s and overlap_s; the
+              build's host seconds, recall@10 at nprobe 8; the lookup's ms
+              at Q=1 and lookups/s at Q=64 (nprobe 8 and 64); the served
+              neighbours' p50 / p99 split into the embed leg and `lookup`.
+              `large_int8_phase`, `# serve bucketed|ragged large[ int8]`:
+              the `large` preset (12 blocks, C=G=1024, H=16) in bf16,
+              buckets 256/512/1024, one batch class (max_batch 8), fp32 and
+              int8 arms, 16 embed requests submitted before `start()`:
+              exactly 12 #2 (ragged: #4) and 12 K2 (int8: K2-int8) per
+              batch, none of the others; one full batch's replay equals its
+              eager run bit for bit; the int8 answers off the fp32 ones by
+              a finite nonzero amount (printed). Prints weight_bytes_ratio,
+              the graphs' pool bytes and a full batch's wall and busy share.
+9. report   — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -228,7 +268,9 @@ launch gates and numbers but without the replay, depth, event and HTTP
 gates, which need this tree's package, so it also runs on a parent
 commit's package (copy this script into its `git archive`).
 `--phase finetune` runs the build and phase 7 alone, every gate, no
-result line.
+result line. `--phase neighbors` runs the build and phase 8 alone
+(`neighbors_phase`, then `large_int8_phase`), every gate, no result
+line.
 """
 
 from __future__ import annotations
@@ -1683,6 +1725,44 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
                          lambda: fused_packed_attention(fa, x, gs, seg),
                          lambda: attention_oh_reference(fa, x, gs, oh),
                          False, 0, 0, empty=lambda out: out[0][:, S - 1])
+
+    # K2-int8 at Large width (C=G=1024, H=16, k=64), bf16: the int8 arm at
+    # Large runs it (`large_int8_phase`), dense and packed.
+    large = get_preset("large").model
+    dtype, L = torch.bfloat16, 1024
+    qt, qa, ft, fa, (tbytes, abytes) = q8_block(gen, large, dtype)
+    C, G, H = large.local_dim, large.global_dim, large.num_heads
+    x = torch.randn((B, L, C), generator=gen).to(dev, dtype)
+    g = torch.randn((B, G), generator=gen).to(dev, dtype)
+    gs = torch.randn((B, S, G), generator=gen).to(dev, dtype)
+    pad = pad_rows(L)
+    seg = ids(L)
+    oh = segment_one_hot(seg, S)
+    case(ATTENTION_Q8, dtype, L, "Large dense",
+         lambda: fused_global_attention(qa, x, g, pad),
+         lambda: fused_global_attention(fa, x, g, pad),
+         lambda: attention_oh_reference(
+             fa, x, g[:, None, :], pad[..., None].float(),
+             zero_empty=False).reshape(B, G),
+         True, attention_flops(B, L, C, G, 1, H, k),
+         (B * L * C + 2 * B * G) * 2 + abytes + B * L)
+    case(ATTENTION_Q8, dtype, L, "Large S=8",
+         lambda: fused_packed_attention(qa, x, gs, seg),
+         lambda: fused_packed_attention(fa, x, gs, seg),
+         lambda: attention_oh_reference(fa, x, gs, oh),
+         True, attention_flops(B, L, C, G, S, H, k),
+         (B * L * C + 2 * B * S * G) * 2 + abytes
+         + B * L * seg.element_size(),
+         empty=lambda out: out[0][:, S - 1])
+    for label, q_run, f_run in (
+            ("dense", lambda: fused_global_attention(qa, x, g, pad),
+             lambda: fused_global_attention(fa, x, g, pad)),
+            ("S=8", lambda: fused_packed_attention(qa, x, gs, seg),
+             lambda: fused_packed_attention(fa, x, gs, seg))):
+        print_passes(card, f"global_attention_q8 bf16 B=8 L=1024 C=G=1024 "
+                           f"H=16 {label}", q_run, K2_PASSES)
+        print_passes(card, f"global_attention (its fp leg) bf16 B=8 L=1024 "
+                           f"C=G=1024 H=16 {label}", f_run, K2_PASSES)
 
     # #6-int8 at C=512 (bf16 only, as the fp leg), where the one-pass rule
     # admits G=512, H=4 up to L=128; the packed dispatch entry must pick it.
@@ -4324,14 +4404,513 @@ def task_phases(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------- corpus to a served neighbour
+
+def map_corpus(n: int, num_annotations: int):
+    """`n` proteins of `corpus_rows` (log-normal lengths, median 350: about
+    a third longer than the 510-residue window, truncated and counted)
+    with three poisoned records inserted — an empty one, a non-string and
+    one with a control character — and their ids."""
+    seqs, lengths, _ = corpus_rows(n, num_annotations, seed=14)
+    seqs = list(seqs)
+    for pos, bad in ((17, ""), (4100, 12345), (8000, "MKT\x01AVLV")):
+        seqs.insert(pos, bad)
+    ids = [f"UP{i:05d}" for i in range(len(seqs))]
+    return ids, seqs, lengths
+
+
+def map_profile(card: str, params, cfg, ids, seqs, root: str) -> float:
+    """The device's busy share of a short map run (the first 512 records,
+    one shard, the phase's settings) under torch.profiler: device busy
+    seconds over the run's wall. Prints the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from proteinbert_tpu_torch.mapper import run_map
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run_map(params, cfg, ids[:512], seqs[:512],
+                      os.path.join(root, "profiled"), num_shards=1,
+                      block_size=256, rows_per_batch=8, max_segments=8,
+                      buckets=BUCKETS, stop_flag=lambda: False,
+                      device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + ms)
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    if not by_name:
+        print("# neighbors base map profile: the profiler recorded no "
+              "device time (busy share not measured)")
+        return float("nan")
+    print(f"# neighbors base map profile [{card}]: {out['seqs']} sequences "
+          f"in {out['batches']} batches, wall {wall:.3f} s (profiled), "
+          f"device busy {busy:.3f} s, {100 * busy / wall:.1f}% of wall")
+    for name, (n, t) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][1])[:8]:
+        print(f"#   {t:9.3f} ms {100 * t / (busy * 1e3):5.1f}%  x{n:<5d} "
+              f"{name[:80]}")
+    return busy / wall
+
+
+def map_phase(card: str, params, cfg, root: str) -> tuple:
+    """`# neighbors base map`: `run_map` over 8192 proteins plus three
+    poisoned records (`map_corpus`), `base` preset, buckets `BUCKETS`,
+    rows_per_batch 8, max_segments 8, 2 shards of 256-record blocks.
+    Gates: exactly 6 #3 + 6 K2 per packed batch and nothing else;
+    `verify_store` ok and complete; a run stopped by `max_blocks` and
+    resumed, and a run with `pipeline=False`, write stores equal to the
+    uninterrupted one's byte for byte (`store_digests`); the poisoned
+    records quarantined with their typed reasons. Returns (the store, the
+    launches, the fp32 vectors in index order)."""
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, KERNELS, LOCAL_TRACK_SEGMENTS,
+    )
+    from proteinbert_tpu_torch.mapper import (
+        ShardCursor, run_map, store_digests, verify_store,
+    )
+
+    ids, seqs, lengths = map_corpus(8192, cfg.model.num_annotations)
+    kw = dict(num_shards=2, block_size=256, rows_per_batch=8,
+              max_segments=8, buckets=BUCKETS, stop_flag=lambda: False,
+              device=DEVICE)
+    store = os.path.join(root, "store")
+    # A short run first: it builds and loads #3 and K2 (the card's first
+    # calls of them in this process may be a phase earlier) and settles
+    # the allocator, so the timed run measures the map.
+    run_map(params, cfg, ids[:64], seqs[:64], os.path.join(root, "warm"),
+            **dict(kw, num_shards=1))
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    out = run_map(params, cfg, ids, seqs, store, **kw)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    batches = out["batches"]
+    check(out["outcome"] == "completed", f"map: outcome {out['outcome']}")
+    nb = cfg.model.num_blocks
+    for name, n in launches.items():
+        want = nb * batches if name in (LOCAL_TRACK_SEGMENTS.name,
+                                        ATTENTION.name) else 0
+        check(n == want, f"map: {name} launched {n} times for {batches} "
+                         f"packed batches, want {want}")
+    residues = int(np.minimum(lengths, cfg.data.seq_len - 2).sum())
+    truncated = int((lengths > cfg.data.seq_len - 2).sum())
+    print(f"# neighbors base map [{card}]: {out['seqs']} sequences "
+          f"({residues} residues, {truncated} truncated at the "
+          f"{cfg.data.seq_len - 2}-residue window) in {out['blocks']} blocks, "
+          f"{batches} packed batches of 8 x {cfg.data.seq_len}, wall "
+          f"{out['wall_s']} s: {out['seqs'] / out['wall_s']:.1f} sequences/s, "
+          f"{residues / out['wall_s']:.0f} residues/s; commit_s "
+          f"{out['commit_s']}, overlap_s {out['overlap_s']} (overlap_ratio "
+          f"{out['overlap_ratio']}); launches {launches}")
+    check(out["overlap_s"] > 0, "map: the pipelined run overlapped nothing")
+    rep = verify_store(store)
+    quarantine = {}
+    for shard in range(2):
+        quarantine.update({r["id"]: r["reason"] for r in
+                           ShardCursor(store, shard).read_quarantine()})
+    print(f"# neighbors base map: verify_store ok {rep['ok']}, complete "
+          f"{rep['complete']}, embedded {rep['embedded']}, quarantined "
+          f"{quarantine}")
+    check(rep["ok"] and rep["complete"] and rep["embedded"] == 8192
+          and rep["quarantined"] == 3, f"map: verify_store {rep}")
+    check(quarantine == {"UP00017": "empty", "UP04100": "non_string",
+                         "UP08000": "invalid_char"},
+          f"map: quarantine {quarantine}")
+    want = store_digests(store)
+    resumed = os.path.join(root, "resumed")
+    first = run_map(params, cfg, ids, seqs, resumed,
+                    **dict(kw, max_blocks=5))
+    second = run_map(params, cfg, ids, seqs, resumed, **kw)
+    serial = os.path.join(root, "serial")
+    off = run_map(params, cfg, ids, seqs, serial, **dict(kw, pipeline=False))
+    same_resumed = store_digests(resumed) == want
+    same_serial = store_digests(serial) == want
+    print(f"# neighbors base map: stopped after {first['blocks']} blocks "
+          f"({first['outcome']}), resumed ({second['outcome']}): store "
+          f"digests equal the uninterrupted run's {same_resumed}; "
+          f"pipeline=False ({off['outcome']}, wall {off['wall_s']} s, "
+          f"overlap_s {off['overlap_s']}): equal {same_serial}")
+    check(first["outcome"] == "preempted" and first["blocks"] == 5
+          and second["outcome"] == "completed" and same_resumed,
+          "map: the resumed store differs from the uninterrupted one")
+    check(off["outcome"] == "completed" and same_serial
+          and off["overlap_s"] == 0.0,
+          "map: the pipeline-off store differs from the pipelined one")
+    map_profile(card, params, cfg, ids, seqs, root)
+    return store, launches
+
+
+def index_phase(card: str, store: str, root: str):
+    """`# neighbors base index`: `build_index` with its defaults (64
+    centroids, 256-vector blocks, seed 0) timed on the host; gates:
+    `verify_index` ok, bytes ratio <= 0.30, recall@10 at nprobe 64 (a
+    full probe) >= 0.95 against float32 `exact_topk`; records recall@10
+    at nprobe 8, the lookup's ms at Q=1 and lookups/s at Q=64 (nprobe 8
+    and 64). Returns the index loaded on the card."""
+    from proteinbert_tpu_torch.index import build_index, verify_index
+    from proteinbert_tpu_torch.index.scorer import (
+        NeighborIndex, exact_topk, recall_at_k, store_vectors_in_index_order,
+    )
+
+    index_dir = os.path.join(root, "index")
+    t0 = time.perf_counter()
+    stats = build_index(store, index_dir)
+    build_s = time.perf_counter() - t0
+    rep = verify_index(index_dir)
+    index = NeighborIndex.load(index_dir, device=DEVICE)
+    vectors = store_vectors_in_index_order(store)
+    lists = np.bincount(index.assign, minlength=index.centroids.shape[0])
+    print(f"# neighbors base index [{card}]: build_index {build_s:.2f} s on "
+          f"the host ({stats['vectors']} vectors, {stats['blocks']} blocks, "
+          f"{index.centroids.shape[0]} centroids, lists {int(lists.min())}-"
+          f"{int(lists.max())}), bytes_ratio {stats['bytes_ratio']:.4f}, "
+          f"verify_index ok {rep['ok']}; resident on the card "
+          f"{index.resident_bytes()} bytes")
+    check(rep["ok"], f"index: verify_index {rep}")
+    check(stats["bytes_ratio"] <= 0.30,
+          f"index: bytes ratio {stats['bytes_ratio']} > 0.30")
+    queries = vectors[::32]
+    exact = exact_topk(vectors, queries, k=10)
+    # Chunks of 8 queries: a full probe gathers every vector per query.
+    recall = {}
+    for nprobe in (64, 8):
+        rows = np.concatenate([index.lookup_rows(queries[i:i + 8], k=10,
+                                                 nprobe=nprobe)[1]
+                               for i in range(0, len(queries), 8)])
+        recall[nprobe] = recall_at_k(rows, exact)
+    print(f"# neighbors base index: recall@10 over {len(queries)} queries "
+          f"against float32 exact_topk: nprobe 64 (full probe) "
+          f"{recall[64]:.4f}, nprobe 8 {recall[8]:.4f}")
+    check(recall[64] >= 0.95, f"index: recall@10 at a full probe "
+                              f"{recall[64]} < 0.95")
+    q1 = vectors[:1]
+    t = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        index.lookup_rows(q1, k=10, nprobe=8)
+        t.append((time.perf_counter() - t0) * 1e3)
+    line = (f"# neighbors base lookup [{card}]: Q=1 k=10 nprobe 8 "
+            f"{statistics.median(t):.3f} ms (median of 50, host wall "
+            f"through the answer on the host)")
+    q64 = vectors[:64]
+    width = index.members.shape[1]
+    for nprobe in (8, 64):
+        need = 64 * min(nprobe, len(lists)) * width * index.dim * 5
+        if need > 24e9:
+            # The JAX lookup's gather of every candidate's residual.
+            line += (f"; Q=64 nprobe {nprobe} not measured (its gather "
+                     f"needs {need / 1e9:.1f} GB)")
+            continue
+        index.lookup_rows(q64, k=10, nprobe=nprobe)
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            index.lookup_rows(q64, k=10, nprobe=nprobe)
+            t.append(time.perf_counter() - t0)
+        line += (f"; Q=64 nprobe {nprobe} {64 / statistics.median(t):.0f} "
+                 f"lookups/s ({statistics.median(t) * 1e3:.2f} ms a call)")
+    print(line)
+    return index
+
+
+def served_neighbors_phase(card: str, params, cfg, index, other,
+                           root: str) -> dict:
+    """`# neighbors base served`: `Server(index=, nprobe=8)` bucketed and
+    ragged on the fp32 arm, telemetry on. 64 `neighbors` requests for
+    corpus sequences and the same 64 as `embed` requests are submitted
+    before `start()` with every kernel count at 0, so the neighbours and
+    the embeds form the same batches. Gates: each served answer equals
+    `lookup_one` over that request's own served embed vector, bit for
+    bit; the graphs and their pool equal those of the same server without
+    an index; the launches are exactly those of the embed batches (6 K1
+    or #3 + 6 K2 a batch); `stats()["neighbors"]` counts each outcome;
+    HTTP `/v1/neighbors` gives the in-process answer and an invalid `k`
+    400; a server whose trunk differs (`other`) raises TrunkMismatchError;
+    one without an index, ValueError. Records the neighbours' wall, p50
+    and p99 split by trace stage into the embed leg and `lookup`. Returns
+    the launches."""
+    from proteinbert_tpu_torch import obs
+    from proteinbert_tpu_torch.heads import TrunkMismatchError
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+    )
+    from proteinbert_tpu_torch.serve.http import make_http_server
+    from proteinbert_tpu_torch.serve.server import Server
+
+    seqs, _, _ = corpus_rows(64, cfg.model.num_annotations, seed=15)
+    totals = {}
+    kw = dict(device=DEVICE, buckets=BUCKETS, max_batch=8, max_wait_s=0.005,
+              queue_depth=256, cache_size=0, warm_kinds=("embed",),
+              pack_max_segments=8)
+    nb = cfg.model.num_blocks
+    for mode, per_batch in (("bucketed", {LOCAL_TRACK.name: nb,
+                                          ATTENTION.name: nb}),
+                            ("ragged", {LOCAL_TRACK_SEGMENTS.name: nb,
+                                        ATTENTION.name: nb})):
+        label = f"{mode} base neighbors"
+        gc.collect()
+        plain = Server(params, cfg, serve_mode=mode, **kw).start()
+        torch.cuda.synchronize()
+        want_graphs = plain.dispatcher.executable_count
+        want_pool = plain.dispatcher.graph_pool_bytes()
+        plain.drain(timeout=300)
+        try:
+            plain.submit("neighbors", seqs[0])
+            check(False, f"{label}: a server without an index answered")
+        except ValueError:
+            pass
+        del plain
+        gc.collect()
+        events = os.path.join(root, f"events-{mode}.jsonl")
+        tele = obs.Telemetry(events_path=events)
+        srv = Server(params, cfg, serve_mode=mode, index=index, nprobe=8,
+                     telemetry=tele, trace_sample_rate=1.0, **kw)
+        srv.dispatcher.warmup(("embed",))
+        torch.cuda.synchronize()
+        graphs = srv.dispatcher.executable_count
+        pool = srv.dispatcher.graph_pool_bytes()
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        nf = [srv.submit("neighbors", s) for s in seqs]
+        ef = [srv.submit("embed", s) for s in seqs]
+        srv.start()
+        got = [f.result(timeout=300) for f in nf]
+        embeds = [f.result(timeout=300) for f in ef]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in KERNELS}
+        stats = srv.stats()
+        batches = stats["batches"]
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+            want = per_batch.get(name, 0) * batches
+            check(n == want, f"{label}: {name} launched {n} times for "
+                             f"{batches} batches, want {want}")
+        check(srv.dispatcher.executable_count == graphs == want_graphs
+              and pool == want_pool
+              and srv.dispatcher.graph_pool_bytes() == pool,
+              f"{label}: graphs {graphs} / {want_graphs}, pool {pool} / "
+              f"{want_pool}")
+        exact = all(g["neighbors"] == index.lookup_one(e["global"], k=10,
+                                                        nprobe=8)
+                    for g, e in zip(got, embeds))
+        sizes = {len(g["neighbors"]) for g in got}
+        print(f"# serve {label} [{card}]: 64 neighbors + 64 embed requests "
+              f"in {batches} batches, {wall:.3f} s; launches {launches}; "
+              f"{graphs} CUDA graphs, pool {pool} bytes (without an index: "
+              f"{want_graphs}, {want_pool}); each answer vs lookup_one over "
+              f"its own served embed vector: bit for bit {exact}; answer "
+              f"sizes {sorted(sizes)}")
+        check(exact and sizes == {10}, f"{label}: a served answer differs "
+                                       "from the offline lookup")
+        by = stats["neighbors"]["by_outcome"]
+        check(by["ok"] == 64 and sum(by.values()) == 64,
+              f"{label}: by_outcome {by}")
+        httpd = make_http_server(srv, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/neighbors"
+        try:
+            status, body = http_post(url, {"seq": seqs[3], "k": 5})
+            want = srv.neighbors(seqs[3], k=5, timeout=120)
+            bad, bad_body = http_post(url, {"seq": seqs[3], "k": 0})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(30)
+        same = status == 200 and body["neighbors"] == [
+            [i, s] for i, s in want["neighbors"]]
+        by = srv.stats()["neighbors"]["by_outcome"]
+        print(f"# serve {label}: HTTP /v1/neighbors {status}, equals in "
+              f"process {same}; k=0 {bad} {bad_body.get('type')}; "
+              f"by_outcome {by}")
+        check(same and bad == 400 and by["ok"] == 66
+              and sum(by.values()) == 66, f"{label}: HTTP or the funnel")
+        check(srv.drain(timeout=300), f"{label}: drain timed out")
+        tele.close()
+        recs = [r for r in obs.read_events(events, strict=True)
+                if r["event"] == "serve_request"
+                and r.get("kind") == "neighbors"]
+        e2e = sorted(r["e2e_s"] for r in recs)
+        lookup = sorted(r["stages"].get("lookup", 0.0) for r in recs)
+        embed_leg = sorted(r["e2e_s"] - r["stages"].get("lookup", 0.0)
+                           - r["stages"].get("finalize", 0.0) for r in recs)
+
+        def pct(xs, q):
+            return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] * 1e3
+
+        print(f"# serve {label} [{card}]: {len(recs)} traced neighbours: "
+              f"e2e p50 {pct(e2e, .5):.3f} / p99 {pct(e2e, .99):.3f} ms = "
+              f"embed leg p50 {pct(embed_leg, .5):.3f} / p99 "
+              f"{pct(embed_leg, .99):.3f} ms + lookup p50 "
+              f"{pct(lookup, .5):.3f} / p99 {pct(lookup, .99):.3f} ms (+ "
+              f"finalize); wall {wall:.3f} s for 128 requests submitted "
+              "before start()")
+        check(len(recs) == 66 and all("lookup" in r["stages"]
+                                      for r in recs),
+              f"{label}: {len(recs)} traced neighbours with a lookup stage")
+        del srv
+    try:
+        Server(other, cfg, serve_mode="ragged", index=index, **kw)
+        check(False, "a server of another trunk took the index")
+    except TrunkMismatchError:
+        pass
+    print("# serve base neighbors: a server of another trunk -> "
+          "TrunkMismatchError; without an index -> ValueError")
+    return totals
+
+
+def neighbors_phase(card: str) -> dict:
+    """`# neighbors base`: the `base` trunk in bf16 (random weights from a
+    seeded generator) maps a corpus into a store (`map_phase`), the store
+    gets its int8 IVF index (`index_phase`), and servers answer
+    neighbours from it (`served_neighbors_phase`). The stores and the
+    index go to a temporary directory under build/, removed after.
+    Returns the launches."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.models.proteinbert import init
+
+    base = get_preset("base")
+    params = init(base.model, torch.Generator().manual_seed(14),
+                  device=DEVICE)
+    other = init(base.model, torch.Generator().manual_seed(15),
+                 device=DEVICE)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="neighbors-", dir=build)
+    try:
+        store, launches = map_phase(card, params, base, root)
+        index = index_phase(card, store, root)
+        for name, n in served_neighbors_phase(card, params, base, index,
+                                              other, root).items():
+            launches[name] = launches.get(name, 0) + n
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def large_int8_phase(card: str) -> dict:
+    """`# serve large int8`: the `large` preset (12 blocks, C=G=1024,
+    H=16, 8943 annotations) in bf16, random weights, served bucketed and
+    ragged on the fp32 and the int8 arm: buckets 256 / 512 / 1024, one
+    batch class (max_batch 8), 8 segments a packed row; 16 embed requests
+    of 100-1000 residues submitted before `start()` with every count at
+    0. Gates: exactly 12 #2 (bucketed; ragged #4) and 12 K2 (int8:
+    K2-int8) per batch, none of the others — on the int8 arm #2 / #4 run
+    on track weights dequantized inside the graph and K2-int8 at H=16,
+    G=1024; one full batch replayed equals its eager run bit for bit;
+    the int8 answers lie off the fp32 ones by a finite, nonzero amount
+    (printed). Records `weight_bytes_ratio`, the graph pool's bytes and a
+    full batch's wall and busy share. Returns the launches."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, KERNELS, LOCAL_TRACK_SEGMENTS_TILED,
+        LOCAL_TRACK_TILED,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.serve.server import Server
+
+    large = get_preset("large")
+    params = init(large.model, torch.Generator().manual_seed(16),
+                  device=DEVICE)
+    rnd = random.Random(16)
+    seqs = ["".join(rnd.choice(ALPHABET) for _ in range(rnd.randint(100,
+                                                                   1000)))
+            for _ in range(16)]
+    rng = np.random.default_rng(16)
+    tokens = rng.integers(4, 26, (8, 1024)).astype(np.int32)
+    tokens[:, 0], tokens[:, -1] = 1, 2
+    totals, answers = {}, {}
+    for mode, track in (("bucketed", LOCAL_TRACK_TILED),
+                        ("ragged", LOCAL_TRACK_SEGMENTS_TILED)):
+        for quant, attn in (("fp32", ATTENTION), ("int8", ATTENTION_Q8)):
+            label = f"{mode} large{'' if quant == 'fp32' else ' int8'}"
+            gc.collect()
+            torch.cuda.synchronize()
+            srv = Server(params, large, device=DEVICE,
+                         buckets=(256, 512, 1024), max_batch=8,
+                         batch_classes=((8,) if mode == "bucketed"
+                                        else None),
+                         max_wait_s=0.005, cache_size=0,
+                         warm_kinds=("embed",), serve_mode=mode,
+                         pack_max_segments=8, quant=quant,
+                         quant_parity_every=0)
+            t0 = time.perf_counter()
+            srv.dispatcher.warmup(("embed",))
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            pool = srv.dispatcher.graph_pool_bytes()
+            for k in KERNELS:
+                k.launches = 0
+            futures = [srv.submit("embed", s) for s in seqs]
+            srv.start()
+            got = [f.result(timeout=300) for f in futures]
+            check(srv.drain(timeout=300), f"{label}: drain timed out")
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in KERNELS}
+            batches = srv.stats()["batches"]
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+                want = (large.model.num_blocks * batches
+                        if name in (track.name, attn.name) else 0)
+                check(n == want, f"{label}: {name} launched {n} times for "
+                                 f"{batches} batches, want {want}")
+            check(all(np.isfinite(g["global"]).all()
+                      and np.isfinite(g["local_mean"]).all() for g in got),
+                  f"{label}: non-finite embeddings")
+            answers[(mode, quant)] = got
+            report = srv.stats()["quant"]
+            ratio = (f"weight_bytes_ratio {report['weight_bytes_ratio']}"
+                     if report else "fp32 arm")
+            print(f"# serve {label} [{card}]: {ratio}; "
+                  f"{srv.dispatcher.executable_count} CUDA graphs captured "
+                  f"in {warm_s:.2f} s, their pool holds {pool} bytes "
+                  f"({pool / 2**20:.2f} MiB); {len(seqs)} requests in "
+                  f"{batches} batches, launches {launches}")
+            if mode == "bucketed":
+                batch = tokens
+                run = lambda: srv.dispatcher.run("embed", tokens)  # noqa
+                what = "one embed batch 8x1024"
+            else:
+                batch = full_ragged_batch(srv)
+                run = lambda: srv.dispatcher.run_packed(  # noqa
+                    "embed", *batch)
+                what = "one packed embed batch 8x1024 (24 segments)"
+            replay_equals_eager(label, srv, batch)
+            profile_batch(card, f"{label}, {what}", run)
+            del srv
+    for mode in ("bucketed", "ragged"):
+        diff = max(float(np.abs(a[key] - b[key]).max())
+                   for a, b in zip(answers[(mode, "int8")],
+                                   answers[(mode, "fp32")])
+                   for key in ("global", "local_mean"))
+        print(f"# serve {mode} large int8: max |int8 - fp32 arm| over the "
+              f"{len(seqs)} embeddings {diff:.6e}")
+        check(0 < diff < float("inf"), f"{mode} large: the int8 arm "
+                                       "answered as the fp32 arm")
+    return totals
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
                     ["--phase", "k2"], ["--phase", "default"],
                     ["--phase", "resume"], ["--phase", "serve"],
-                    ["--phase", "serve-times"], ["--phase", "finetune"]):
+                    ["--phase", "serve-times"], ["--phase", "finetune"],
+                    ["--phase", "neighbors"]):
         print("usage: chip_smoke.py [--phase large|base|k2|default|resume|"
-              "serve|serve-times|finetune]", file=sys.stderr)
+              "serve|serve-times|finetune|neighbors]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4382,6 +4961,14 @@ def main() -> int:
         t0 = time.perf_counter()
         task_phases(card)
         print(f"# finetune and predict_task: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "neighbors"]:
+        t0 = time.perf_counter()
+        neighbors_phase(card)
+        print(f"# neighbors: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        large_int8_phase(card)
+        print(f"# serve large int8: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -4438,6 +5025,14 @@ def main() -> int:
     for name, n in task_phases(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# finetune and predict_task: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in neighbors_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# neighbors: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in large_int8_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# serve large int8: {time.perf_counter() - t0:.1f} s")
 
     # (source, TPU launch site, the served shape its row was timed at)
     ported = {

@@ -16,13 +16,15 @@ trunk of `predict_task` on the int8 arm (the trunk through the int8 legs
 of K2 and #3, or K1 on dequantized track weights); the head tails that
 read the trunk's output stay float32.
 
-The reduce-scatter half (distribution) and `quantize_rows_int8` (the
-neighbour index) are not ported yet.
+`quantize_rows_int8` / `dequantize_rows_int8` are copies of the JAX
+host-numpy row quantizers (`parallel/quant.py:567-600`) that the
+neighbour index builder (`index/store.py`) quantizes its residual vectors
+with. The reduce-scatter half (distribution) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -155,6 +157,39 @@ def param_bytes(params: Any) -> int:
 
     _tree_map(add, params)
     return sum(seen.values())
+
+
+class QuantConfigError(ValueError):
+    """A quantization knob was combined with input it cannot honor (the
+    JAX package's typed error; here: a row batch that is not 2-D)."""
+
+
+def quantize_rows_int8(x) -> Tuple["np.ndarray", "np.ndarray"]:
+    """Symmetric per-channel int8 quantization of a ROW BATCH on the host
+    — the JAX function's arithmetic exactly (amax/127 scales, `np.rint`
+    round-to-nearest-even, zero-range channels pinned to scale 1.0), so
+    an index built by either package has the same bytes. Host numpy on
+    purpose: re-runs of the index builder must write byte-identical
+    blocks. Returns (codes int8 (n, d), scales fp32 (d,))."""
+    import numpy as np
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim != 2:
+        raise QuantConfigError(
+            f"quantize_rows_int8 expects (rows, channels), got shape "
+            f"{x.shape}")
+    amax = np.max(np.abs(x), axis=0) if x.shape[0] else \
+        np.zeros(x.shape[1], np.float32)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    codes = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+    return codes, scale
+
+
+def dequantize_rows_int8(codes, scale) -> "np.ndarray":
+    """Inverse of quantize_rows_int8 (up to rounding): codes * scale,
+    fp32 — the offline reference of the scorer's dequantize."""
+    import numpy as np
+    return (np.asarray(codes, np.float32)
+            * np.asarray(scale, np.float32)[None, :])
 
 
 def fake_quant_act(x: torch.Tensor) -> torch.Tensor:

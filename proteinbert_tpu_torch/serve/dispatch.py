@@ -67,6 +67,10 @@ adding or removing a head never captures a trunk graph; `warm_head` runs
 a new head's tail once per warm trunk shape on zero inputs (no trunk
 run) and records its seconds in `warmup_report["heads"]`.
 
+Neighbour requests (`NEIGHBORS_KIND`, "neighbors") are embed requests to
+both dispatchers: the kind is normalised on entry, so they share the
+embed graphs and their launches (the index lookup is the server's).
+
 `metrics` (an obs `MetricsRegistry`) receives the JAX dispatcher's
 `serve_executable_count`, `serve_warmup_seconds_total`,
 `serve_compile_seconds` and `serve_quant_parity_max`.
@@ -98,6 +102,11 @@ KINDS = ("embed", "predict_go", "predict_residues")
 # Task-head requests: every head shares the kind, so a micro-batch mixes
 # heads over one trunk graph (module doc).
 TASK_KIND = "predict_task"
+# Neighbour requests (`Server.neighbors`, `/v1/neighbors`): the same device
+# work as "embed", so both dispatchers normalise the kind on entry and a
+# neighbours batch replays the embed graph; the index lookup runs after,
+# in the server's finalize.
+NEIGHBORS_KIND = "neighbors"
 
 _BATCH_FNS = {
     "embed": inference._encode_batch,
@@ -683,6 +692,8 @@ class BucketDispatcher:
         predict_task) the head tails are enqueued here on the calling
         (scheduler) thread; the wait for the device, the trim and the
         parity shadow run in the handle's `finalize()`."""
+        if kind == NEIGHBORS_KIND:
+            kind = "embed"  # identical device work, shared graph
         if (kind == TASK_KIND) != (heads is not None):
             raise ValueError(
                 f"kind {kind!r} and heads="
@@ -949,6 +960,8 @@ class RaggedDispatcher(BucketDispatcher):
         dispatcher returns for that request: {"global" (G,), "local_mean"
         (C,)} / (A,) probs / (span, V) probs; for predict_task (`heads`,
         one head a rider) the rider's head output."""
+        if kind == NEIGHBORS_KIND:
+            kind = "embed"  # identical device work, shared graph
         if (kind == TASK_KIND) != (heads is not None):
             raise ValueError(
                 f"kind {kind!r} and heads="

@@ -1,5 +1,5 @@
 """Thin stdlib JSON/HTTP endpoint over the port's `Server` — a copy of
-`proteinbert_tpu/serve/http.py` without the neighbour and rollout routes.
+`proteinbert_tpu/serve/http.py` without the rollout routes.
 
 Deliberately `http.server`, not a framework: the endpoint's job is only
 transport — every serving behavior (batching, backpressure, deadlines,
@@ -19,6 +19,9 @@ Routes (POST bodies and responses are JSON):
        → {"head_id", "outputs": [...]} — one registered head's float32
          outputs, shaped by its task kind; an unknown or removed head →
          the typed 404 {"type": "unknown_head"}
+  POST /v1/neighbors         {"seq", "k"?, "deadline_ms"?}
+       → {"neighbors": [[corpus_id, cosine_score], ...]} best-first (a
+         server without an index → 400; `k` a positive integer)
   GET  /v1/heads             → {"heads": [{head_id, name, kind,
                                num_outputs}]}
   POST /v1/heads/add         {"head_id"} → loaded from the server's
@@ -37,9 +40,9 @@ Routes (POST bodies and responses are JSON):
                                the registry snapshot plus raw quantile-
                                window values
 
-The JAX endpoint's `/v1/neighbors`, the blue-green `/v1/rollout/*`
-routes and the shadow header answer 404 "no such route" here, like any
-unknown path, until the neighbour index and the rollout are ported.
+The JAX endpoint's blue-green `/v1/rollout/*` routes and the shadow
+header answer 404 "no such route" here, like any unknown path, until the
+rollout is ported.
 
 Every response to an inference POST carries `X-PBT-Request-Id` when the
 server traces (the id of its `serve_request` event); an `X-PBT-Trace`
@@ -83,6 +86,9 @@ def _result_payload(kind: str, value, top_k: Optional[int],
         return {"probs": [float(x) for x in value]}
     if kind == "predict_task":
         return {"head_id": head_id, "outputs": value.tolist()}
+    if kind == "neighbors":
+        return {"neighbors": [[i, float(s)]
+                              for i, s in value["neighbors"]]}
     filled, _probs = value
     return {"filled": filled}
 
@@ -180,7 +186,8 @@ def make_handler(server: Server):
             route = {"/v1/embed": "embed",
                      "/v1/predict_go": "predict_go",
                      "/v1/predict_residues": "predict_residues",
-                     "/v1/predict_task": "predict_task"}
+                     "/v1/predict_task": "predict_task",
+                     "/v1/neighbors": "neighbors"}
             kind = route.get(self.path)
             if kind is None:
                 self._reply(404, {"error": f"no such route {self.path}"})
@@ -199,8 +206,14 @@ def make_handler(server: Server):
                         or not isinstance(deadline_ms, (int, float))):
                     raise ValueError("'deadline_ms' must be a number")
                 top_k = body.get("top_k") if kind == "predict_go" else None
-                if top_k is not None and (isinstance(top_k, bool)
-                                          or not isinstance(top_k, int)):
+                if kind == "neighbors":
+                    top_k = body.get("k")
+                    if top_k is not None and (isinstance(top_k, bool)
+                                              or not isinstance(top_k, int)
+                                              or top_k < 1):
+                        raise ValueError("'k' must be a positive integer")
+                elif top_k is not None and (isinstance(top_k, bool)
+                                            or not isinstance(top_k, int)):
                     raise ValueError("'top_k' must be an integer")
                 if kind == "predict_task":
                     head_id = body["head_id"]

@@ -1,6 +1,6 @@
 """`Server` — the online-inference facade, bucketed and ragged modes —
-port of `proteinbert_tpu/serve/server.py` (the neighbour index and the
-blue-green rollout arm are not ported yet).
+port of `proteinbert_tpu/serve/server.py` (the blue-green rollout arm is
+not ported yet).
 
 Ties the queue, scheduler, dispatcher and cache together behind the
 capabilities of the offline surface (inference.py): `embed`,
@@ -17,6 +17,21 @@ server (a `note` event each) and capture no trunk graph; a `predict_task`
 for a head that is not registered raises the typed `UnknownHeadError`
 and counts as `rejected{reason="unknown_head"}`. Task results are cached
 under "predict_task:<head_id>".
+
+Neighbours: `index=` (an `index.scorer.NeighborIndex` on the server's
+device) and `nprobe=8` attach the int8 IVF index; `neighbors(seq, k)` and
+`/v1/neighbors` answer {"neighbors": [(corpus id, cosine), ...]}. The
+request rides the embed batches (the dispatchers normalise the kind, so a
+neighbours batch replays the embed graph and serving neighbours captures
+no graph of its own); in finalize the request's global vector probes the
+index on the server's own lookup stream, apart from the graph replays,
+and the lookup's answer is on the host (its stream done) before the
+future resolves (`trace` stage `lookup`, a sampled `neighbor_query`
+event). The index pins its trunk: a
+fingerprint other than `trunk_fp()` raises `TrunkMismatchError` at
+attach. Answers are cached under "neighbors:<digest16>:k<k>:p<nprobe>";
+`neighbors_requests_total{outcome=}` counts every neighbours request's
+outcome (`stats()["neighbors"]`).
 
 Request life cycle:
 
@@ -86,6 +101,7 @@ package's, so its validator and `pbt diagnose --serve` read the stream.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import threading
@@ -94,19 +110,23 @@ from concurrent.futures import Future
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from proteinbert_tpu_torch import DeviceLike
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.heads.registry import (
-    HeadRegistry, LoadedHead, UnknownHeadError, trunk_fingerprint,
+    HeadRegistry, LoadedHead, TrunkMismatchError, UnknownHeadError,
+    trunk_fingerprint,
 )
 from proteinbert_tpu_torch.obs import as_telemetry
-from proteinbert_tpu_torch.obs.events import SERVE_REJECT_REASONS
+from proteinbert_tpu_torch.obs.events import (
+    SERVE_REJECT_REASONS, SERVE_REQUEST_OUTCOMES,
+)
 from proteinbert_tpu_torch.obs.slo import ProfileTrigger, SLOEvaluator
 from proteinbert_tpu_torch.serve.cache import EmbeddingCache, content_key
 from proteinbert_tpu_torch.serve.dispatch import (
-    KINDS, TASK_KIND, BucketDispatcher, RaggedDispatcher,
+    KINDS, NEIGHBORS_KIND, TASK_KIND, BucketDispatcher, RaggedDispatcher,
 )
 from proteinbert_tpu_torch.serve.errors import (
     SequenceTooLongError, ServerClosedError,
@@ -118,6 +138,10 @@ from proteinbert_tpu_torch.serve.scheduler import (
 from proteinbert_tpu_torch.serve.trace import RequestTrace, stride_sampled
 
 SERVE_MODES = ("bucketed", "ragged")
+
+# Default result size for `/v1/neighbors` when the request carries no `k`
+# — the recall gate's k (recall@10).
+DEFAULT_NEIGHBORS_K = 10
 
 
 class Server:
@@ -152,6 +176,8 @@ class Server:
         pipeline_depth: Optional[int] = None,
         registry=None,
         heads=None,
+        index=None,
+        nprobe: int = 8,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
@@ -252,9 +278,14 @@ class Server:
         self._latency_h = metrics.histogram("serve_latency_seconds")
         self._truncated_c = metrics.counter("serve_truncated_total")
         self._req_c = {k: metrics.counter("serve_requests_total", kind=k)
-                       for k in KINDS + (TASK_KIND,)}
+                       for k in KINDS + (TASK_KIND, NEIGHBORS_KIND)}
         self._rej_c = {r: metrics.counter("serve_rejected_total", reason=r)
                        for r in SERVE_REJECT_REASONS}
+        # Every neighbours request lands in exactly one outcome bucket
+        # through the _seal funnel.
+        self._nbr_c = {o: metrics.counter("neighbors_requests_total",
+                                          outcome=o)
+                       for o in SERVE_REQUEST_OUTCOMES}
         self.completed_total = 0  # one writer: the finalizing thread
         # Local mirrors of the labeled counters (stats() reports real
         # numbers under the NULL facade too). Bumped from concurrent
@@ -263,12 +294,33 @@ class Server:
         self.cache_hit_returns = 0           # guarded-by: _mirror_lock
         self.truncated_total = 0             # guarded-by: _mirror_lock
         self.rejected_total = {r: 0 for r in self._rej_c}
+        self.neighbors_total = {o: 0 for o in self._nbr_c}  # same lock
         if isinstance(registry, str):
             registry = HeadRegistry(registry)
         self.registry = registry
         self._trunk_fp: Optional[str] = None
         for h in (heads or ()):
             self.add_head(h)
+        # The neighbour index pins the trunk it was built from; a
+        # mismatch gets the mis-trunked head's typed refusal before the
+        # server can serve garbage neighbours.
+        self.index = index
+        self.nprobe = int(nprobe)
+        self._lookup_stream = None
+        if index is not None:
+            if self.nprobe < 1:
+                raise ValueError(f"nprobe must be >= 1, got {nprobe}")
+            fp = self.trunk_fp()
+            if index.model_fingerprint != fp:
+                raise TrunkMismatchError(
+                    "neighbor index was built from embeddings of trunk "
+                    f"{index.model_fingerprint[:12]}…, but this server "
+                    f"holds trunk {fp[:12]}… — rebuild it with "
+                    "`build_index` over this model's embedding store")
+            if index.device.type == "cuda":
+                # Lookups run on their own stream, apart from the graph
+                # replays; each waits for its stream before returning.
+                self._lookup_stream = torch.cuda.Stream(index.device)
 
     def _bump(self, mirror: str, reason: Optional[str] = None) -> None:
         with self._mirror_lock:
@@ -292,6 +344,14 @@ class Server:
         if self._started:
             raise RuntimeError("server already started")
         warmed = self.dispatcher.warmup(self._warm_kinds)
+        if self.index is not None:
+            # Warm the single-request lookup shape — (Q=1, nprobe,
+            # k=DEFAULT_NEIGHBORS_K) — so the first /v1/neighbors request
+            # pays lookup time, not first-use set-up.
+            with self._on_lookup_stream():
+                self.index.lookup_rows(
+                    np.zeros((1, self.index.dim), np.float32),
+                    k=DEFAULT_NEIGHBORS_K, nprobe=self.nprobe)
         self.tele.emit("serve_start", pid=os.getpid(), config={
             "serve_mode": self.serve_mode,
             "buckets": list(self.dispatcher.buckets),
@@ -314,6 +374,9 @@ class Server:
             "replica_id": self.replica_id,
             "heads": sorted(self.dispatcher.heads),
             "warmup": self.dispatcher.warmup_report,
+            "neighbor_index": (self.index.digest
+                               if self.index is not None else None),
+            "nprobe": self.nprobe if self.index is not None else None,
         })
         self.scheduler.start()
         self._started = True
@@ -428,9 +491,13 @@ class Server:
         ServerClosedError synchronously; QueueFullError /
         DeadlineExceededError land on futures (the evicted/expired
         request's — never silently dropped)."""
-        if kind not in KINDS and kind != TASK_KIND:
+        if kind not in KINDS and kind not in (TASK_KIND, NEIGHBORS_KIND):
             raise ValueError(f"unknown request kind {kind!r}; have "
-                             f"{KINDS + (TASK_KIND,)}")
+                             f"{KINDS + (TASK_KIND, NEIGHBORS_KIND)}")
+        if kind == NEIGHBORS_KIND and self.index is None:
+            raise ValueError(
+                "this server has no neighbor index attached — start it "
+                "with index= to serve /v1/neighbors")
         if not seq:
             raise ValueError("empty sequence")
         if (kind == TASK_KIND) != (head_id is not None):
@@ -495,9 +562,20 @@ class Server:
         if self.cache.capacity:
             if trace is not None:
                 trace.cache = "miss"
-            # A head id addresses its weights, task and trunk, so the
-            # scope keys a task answer to the head that made it.
-            scope = kind if head is None else f"{kind}:{head.head_id}"
+            if kind == NEIGHBORS_KIND:
+                # The answer depends on the exact index contents (its
+                # identity digest), k and the probe breadth: all three
+                # scope the key, so a rebuilt index or another k never
+                # aliases a stale answer.
+                scope = (f"{kind}:{self.index.digest[:16]}"
+                         f":k{top_k or DEFAULT_NEIGHBORS_K}"
+                         f":p{self.nprobe}")
+            elif head is None:
+                scope = kind
+            else:
+                # A head id addresses its weights, task and trunk, so
+                # the scope keys a task answer to the head that made it.
+                scope = f"{kind}:{head.head_id}"
             key = content_key(scope, seq, annotations)
             hit = self.cache.get(key)
             if hit is not None:
@@ -563,6 +641,16 @@ class Server:
         return self.submit("predict_residues", seq,
                            deadline_s=deadline_s).result(timeout)
 
+    def neighbors(self, seq: str, k: Optional[int] = None,
+                  timeout: Optional[float] = None,
+                  deadline_s: Optional[float] = None):
+        """{"neighbors": [(corpus_id, cosine_score), ...]} best-first for
+        one query sequence: it embeds through the trunk (riding whatever
+        batch is forming), then its global vector probes the attached
+        int8 IVF index. Requires a server started with `index=`."""
+        return self.submit(NEIGHBORS_KIND, seq, top_k=k,
+                           deadline_s=deadline_s).result(timeout)
+
     def predict_task(self, head_id: str, seq: str, annotations=None,
                      timeout: Optional[float] = None,
                      deadline_s: Optional[float] = None) -> np.ndarray:
@@ -593,7 +681,28 @@ class Server:
         (+ cache insert). Runs on the finalizing thread — the completer
         when pipeline_depth > 1, else the scheduler thread; exactly one
         of the two ever calls this."""
-        if req.kind == "embed":
+        if req.kind == NEIGHBORS_KIND:
+            # The embed leg already ran (dispatch served this request as
+            # an embed row); the lookup leg probes the resident index
+            # here, timed into its own `lookup` trace stage.
+            g = np.asarray(row["global"])
+            k = req.top_k if req.top_k else DEFAULT_NEIGHBORS_K
+            t0 = self.clock()
+            with self._on_lookup_stream():
+                pairs = self.index.lookup_one(g, k=k, nprobe=self.nprobe)
+            t1 = self.clock()
+            if req.trace is not None:
+                req.trace.mark_lookup(t1)
+            if req.trace is not None and req.trace.sampled:
+                self.tele.emit(
+                    "neighbor_query", k=int(k), nprobe=self.nprobe,
+                    candidates=min(
+                        self.index.num_vectors,
+                        self.nprobe * int(self.index.members.shape[1])),
+                    lookup_s=round(max(0.0, t1 - t0), 9),
+                    outcome="ok", request_id=req.trace.request_id)
+            value = {"neighbors": pairs}
+        elif req.kind == "embed":
             value = {"global": np.asarray(row["global"]),
                      "local_mean": np.asarray(row["local_mean"])}
         elif req.kind in ("predict_go", TASK_KIND):
@@ -608,6 +717,13 @@ class Server:
         if not req.future.done():
             req.future.set_result(self._present(req.kind, value, req.top_k))
         self._depth_g.set(len(self.queue))
+
+    def _on_lookup_stream(self):
+        """The context a lookup runs in: the server's lookup stream on the
+        card (`lookup_rows` waits for it before returning), else none."""
+        if self._lookup_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._lookup_stream)
 
     def _count_expiry(self, req: Request) -> None:
         """Scheduler callback per deadline-expired request: the expiry IS
@@ -655,6 +771,13 @@ class Server:
                                **trace.event_fields(stages=stages))
                 if self.tele.spans is not None:
                     trace.export_spans(self.tele.spans)
+        if kind == NEIGHBORS_KIND:
+            c = self._nbr_c.get(outcome)
+            if c is not None:
+                c.inc()
+            with self._mirror_lock:
+                self.neighbors_total[outcome] = \
+                    self.neighbors_total.get(outcome, 0) + 1
         if self.slo:
             if stages is not None and trace.pad_fraction \
                     and "execute" in stages:
@@ -675,6 +798,7 @@ class Server:
                 "truncated": self.truncated_total,
                 "rejected": dict(self.rejected_total),
             }
+            neighbors_by_outcome = dict(self.neighbors_total)
         qw = self.scheduler.queue_wait
         batches, rows, expired = self.scheduler.stats_counts()
         out = {
@@ -706,6 +830,16 @@ class Server:
             # finalize seconds that overlapped a later batch's compute.
             "pipeline": self.scheduler.pipeline_stats(),
         }
+        # The neighbour-index arm: which index serves, its size, and how
+        # many distinct lookup shapes have run.
+        out["neighbors"] = (None if self.index is None else {
+            "index_digest": self.index.digest,
+            "corpus_digest": self.index.corpus_digest,
+            "num_vectors": self.index.num_vectors,
+            "nprobe": self.nprobe,
+            "lookup_executables": self.index.executables(),
+            "by_outcome": neighbors_by_outcome,
+        })
         if self.slo:
             out["slo"] = self.slo.status()
         return out

@@ -160,16 +160,21 @@ def test_error_status_mapping_matches_the_jax_server(endpoints, route,
     "/v1/predict_task", "/v1/neighbors", "/v1/heads/add",
     "/v1/heads/remove", "/v1/rollout/load", "/v1/rollout/flip"])
 def test_routes_of_unported_modules_answer_404(endpoints, route):
-    """The neighbour and rollout routes are not served ("no such route");
-    the task-head routes are, and answer an unknown head with the typed
-    404 the JAX shim gives (the port's server has a registry without that
-    head, so /v1/heads/add reaches it too)."""
+    """The rollout routes are not served ("no such route"); the task-head
+    routes are, and answer an unknown head with the typed 404 the JAX
+    shim gives (the port's server has a registry without that head, so
+    /v1/heads/add reaches it too); /v1/neighbors is served, and a server
+    without an index answers it with the JAX shim's 400."""
     status, body, _ = _post(endpoints["port"].base + route,
                             {"seq": "MKT", "head_id": "h"})
-    assert status == 404
+    if route == "/v1/neighbors":
+        assert status == 400 and body["type"] == "bad_request", body
+        assert "no neighbor index" in body["error"]
+    else:
+        assert status == 404
     if route in ("/v1/predict_task", "/v1/heads/add", "/v1/heads/remove"):
         assert body["type"] == "unknown_head", body
-    else:
+    elif route != "/v1/neighbors":
         assert body["error"] == f"no such route {route}"
     status, body, _ = _get(endpoints["port"].base + "/v1/heads")
     assert status == 200 and json.loads(body) == {"heads": []}

@@ -72,7 +72,9 @@ def test_the_check_covers_data_and_train_and_catches_an_offender(tmp_path):
               "train.train_state", "train.metrics", "train.trainer",
               "kernels.autograd", "utils.h5", "data.prefetch",
               "data.finetune_data", "models.finetune", "train.finetune",
-              "heads", "heads.registry", "heads.apply", "heads.eval"):
+              "heads", "heads.registry", "heads.apply", "heads.eval",
+              "mapper", "mapper.store", "mapper.faults", "mapper.engine",
+              "index", "index.store", "index.scorer"):
         assert f"proteinbert_tpu_torch.{m}" in mods
     bad = tmp_path / "offender.py"
     bad.write_text("import torch\nimport optax\n"

@@ -6,7 +6,9 @@ version is the floating-point leg's on the dequantized weights — against
 the JAX Pallas int8 legs in interpret mode at C=128 (G=512, H=4, k=64,
 v=128), the dequantize-first routes (K1; #4 at a tiled width) against the
 JAX dispatch, and the int8 `Server` / dispatchers against the JAX
-quantized entries.
+quantized entries — on `tiny`, at C=128 and at the channel-tiled C=640
+(one block), where both packages dequantize the track weights before the
+tiled local track and keep the attention's int8.
 
 Tolerances: float32 1e-5 (same arithmetic, another summation order; the
 quantized weights themselves are bit-identical); bfloat16 2^-5 (one bf16
@@ -57,6 +59,11 @@ SEQS = ["MKTAYIAKQR", "ACDEFGHIKLMNPQRSTVWY", "GG",
 WIDE = dict(local_dim=128, global_dim=128, key_dim=32, num_heads=4,
             num_blocks=2, num_annotations=64, dtype="float32",
             use_pallas=True)
+# A channel-tiled width (512 < C): both packages dequantize the track
+# weights before the tiled local track (JAX: its Pallas dispatch at C=640,
+# interpret mode; the port: #2 / #4, their plain versions here) and keep
+# the attention weights int8 for K2's int8 leg.
+TILED = dict(WIDE, local_dim=640, num_blocks=1)
 
 
 def _jax(tree):
@@ -79,12 +86,14 @@ def _close(want, got, tol=TOL):
 
 # ------------------------------------------------------- trunk weights
 
-@pytest.fixture(scope="module", params=["tiny", "c128_pallas"])
+@pytest.fixture(scope="module", params=["tiny", "c128_pallas",
+                                        "c640_pallas"])
 def pair(request):
     jcfg, tcfg = jax_preset("tiny"), get_preset("tiny")
-    if request.param == "c128_pallas":
-        jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, **WIDE))
-        tcfg = tcfg.replace(model=dataclasses.replace(tcfg.model, **WIDE))
+    width = {"c128_pallas": WIDE, "c640_pallas": TILED}.get(request.param)
+    if width is not None:
+        jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model, **width))
+        tcfg = tcfg.replace(model=dataclasses.replace(tcfg.model, **width))
     jparams = jmodel.init(jax.random.PRNGKey(7), jcfg.model)
     tparams = params_from_flat(flatten_params(jparams), tcfg.model,
                                device="cpu")

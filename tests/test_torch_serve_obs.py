@@ -64,12 +64,18 @@ def _body(source: str, drop=()):
     ("serve/trace.py", (), ()),
     ("obs/slo.py", ("_TorchTrace", "ProfileTrigger._profiler"),
      (("torch is not live", "jax is not live"),)),
+    ("mapper/store.py", (), ()),
+    ("mapper/faults.py", (), ()),
+    ("index/store.py", ("_read_shard_rows",), ()),
 ])
 def test_copies_differ_from_jax_only_in_docstrings_imports_and_hook(
         module, drop, swap):
-    """trace.py is a copy; slo.py swaps its profiler hook
-    (`ProfileTrigger._profiler` and the `_TorchTrace` it returns, left
-    out of the comparison; the log line names torch)."""
+    """trace.py, mapper/store.py and mapper/faults.py are copies; slo.py
+    swaps its profiler hook (`ProfileTrigger._profiler` and the
+    `_TorchTrace` it returns, left out of the comparison; the log line
+    names torch); index/store.py locates a shard's vectors by their
+    running count (`_read_shard_rows`, left out; test_torch_index.py holds
+    its rows to the store's)."""
     want = (ROOT / "proteinbert_tpu" / module).read_text()
     got = (ROOT / "proteinbert_tpu_torch" / module).read_text()
     for a, b in swap:
@@ -79,6 +85,21 @@ def test_copies_differ_from_jax_only_in_docstrings_imports_and_hook(
     assert {n.name for n in jax_only.body if isinstance(n, ast.ClassDef)} \
         <= {n.name for n in ast.parse(got).body
             if isinstance(n, ast.ClassDef)}
+
+
+@pytest.mark.parametrize("name", ["quantize_rows_int8",
+                                  "dequantize_rows_int8"])
+def test_row_quantizers_are_the_jax_functions(name):
+    """The index builder's row quantizers in the port's parallel/quant.py
+    are the JAX functions but for docstrings and imports."""
+    def pick(module):
+        tree = ast.parse((ROOT / module).read_text())
+        (fn,) = [n for n in tree.body
+                 if isinstance(n, ast.FunctionDef) and n.name == name]
+        return _body(ast.unparse(ast.Module(body=[fn], type_ignores=[])))
+
+    assert pick("proteinbert_tpu_torch/parallel/quant.py") == pick(
+        "proteinbert_tpu/parallel/quant.py")
 
 
 class FakeClock:
@@ -310,13 +331,11 @@ def test_server_metrics_carry_the_serve_instruments(weights, tmp_path):
             ("port", Server, tparams, tcfg, {"device": "cpu"})):
         srv = _events(cls, params, cfg, tmp_path / f"{name}.jsonl", **kw)
         got[name] = srv.tele.metrics.snapshot()
-    # The JAX registry also counts the kind the port has not yet
-    # (neighbors); every port counter is a JAX one, equal.
+    # Every JAX counter (the neighbours' funnel included) is a port
+    # counter, equal.
     port_c, jax_c = got["port"]["counters"], got["jax"]["counters"]
-    assert port_c and set(port_c) <= set(jax_c)
-    assert port_c == {k: jax_c[k] for k in port_c}
-    assert set(jax_c) - set(port_c) == {
-        k for k in jax_c if "neighbors" in k}
+    assert port_c and port_c == jax_c
+    assert any("neighbors_requests_total" in k for k in port_c)
     for h in ("serve_latency_seconds", "serve_queue_wait_seconds",
               "serve_batch_rows", "serve_batch_seconds",
               "serve_finalize_seconds"):
