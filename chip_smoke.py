@@ -13,6 +13,7 @@ card.
     python3 chip_smoke.py --phase finetune  # fine-tune, then predict_task
     python3 chip_smoke.py --phase neighbors # map, index, /v1/neighbors;
                                             # the int8 arm at Large
+    python3 chip_smoke.py --phase rollout   # blue-green trunk rollout
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -247,7 +248,41 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               eager run bit for bit; the int8 answers off the fp32 ones by
               a finite nonzero amount (printed). Prints weight_bytes_ratio,
               the graphs' pool bytes and a full batch's wall and busy share.
-9. report   — the kernel JSON line, the card's name and power limit, and the
+9. rollout  — `rollout_phase`, `# rollout base ...`: the `base` trunk in
+              bf16 on two bucketed replicas (buckets 128/256/512,
+              max_batch 8, pipeline_depth 2), each behind
+              `serve/http.make_http_server` on 127.0.0.1, a port
+              `FleetRouter` over both, and a ragged and an int8 bucketed
+              server in process. Candidates `near` (the trunk + 1e-6 x
+              each leaf's RMS of seeded noise, kept where bf16 cannot see
+              it; the literal 1e-6 trunk's parity is printed beside the
+              resident trunk shadowing itself, which must be 0.0) and
+              `far` (1e-1). On r0, the ragged and the int8 server
+              (`arm_gates`): a lone live request and a shadow launch
+              exactly 6 K1 + 6 K2 (ragged 6 #3 + 6 K2, int8 6 K1 + 6
+              K2-int8); graphs, pool and every graph-read tensor's
+              address unchanged across load, warm, shadows, flip and
+              rollback; each shadow = its lone live request after the
+              flip and each answer after the rollback = before the flip,
+              bit for bit; the flip drops the whole cache. The typed
+              refusals (CandidateUnfitError / HTTP 409 candidate_unfit at
+              resident + candidate - 1 bytes, NoCandidateError / 409
+              no_candidate, ValueError for a neighbors shadow). 256
+              routed requests from 128 threads with both replicas flipped
+              to `far` after 64 answers (`torn_batch_gate`): none fails,
+              each answer is bit for bit one trunk's at its own bucket
+              and batch class, and per replica no old answer follows a
+              new one. `RolloutController(sample_every=2,
+              window_requests=32, windows_required=3,
+              shadow_parity_max=1e-3)` under routed traffic: `near`
+              promotes (both /healthz show its fingerprint) and
+              `breach()` restores the answers bit for bit; `far` is
+              refused and unloaded everywhere. Launches exact at every
+              step; every event stream strict. Prints the seconds of
+              load, warm, flip and rollback, the weight bytes of each
+              arm, a shadow's wall, the routed p50 / p99 with the mirror
+              off and on, and the router's hop.
+10. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -270,7 +305,8 @@ commit's package (copy this script into its `git archive`).
 `--phase finetune` runs the build and phase 7 alone, every gate, no
 result line. `--phase neighbors` runs the build and phase 8 alone
 (`neighbors_phase`, then `large_int8_phase`), every gate, no result
-line.
+line. `--phase rollout` runs the build and phase 9 alone, every gate, no
+result line.
 """
 
 from __future__ import annotations
@@ -396,6 +432,10 @@ REF_TOL = 1e-3        # float32 trunk, 2 blocks: kernels vs CPU plain path
 RAGGED_TOL = 1e-3     # float32 trunk, 2 blocks: ragged vs bucketed answers
 SERVE_EMBED_TOL = 0.05  # bf16 trunk: served batch row vs the row run alone
 BUCKETS = (128, 256, 512)
+# The rollout phase's candidates: the resident trunk plus this many times
+# each leaf's RMS of seeded noise.
+ROLLOUT_NEAR = 1e-6
+ROLLOUT_FAR = 1e-1
 REPS = 25
 DEVICE = "cuda"
 
@@ -3427,7 +3467,9 @@ def replay_equals_eager(label: str, srv, batch) -> None:
     from proteinbert_tpu_torch import inference
 
     disp = srv.dispatcher
-    quantized, params = disp._arm()
+    quantized = disp.quant != "fp32"
+    with disp._arm_snapshot() as (params, _):
+        pass
     graphs = disp.executable_count
     if srv.serve_mode == "bucketed":
         got = disp.run("embed", batch)
@@ -4138,7 +4180,9 @@ def task_batch_equals_eager(label: str, srv, heads) -> tuple:
     from proteinbert_tpu_torch.heads import apply as heads_apply
 
     disp = srv.dispatcher
-    quantized, params = disp._arm()
+    quantized = disp.quant != "fp32"
+    with disp._arm_snapshot() as (params, _):
+        pass
     fn = disp._trunk_fn(quantized)
     graphs = disp.trunk_executable_count
     if srv.serve_mode == "bucketed":
@@ -4689,8 +4733,8 @@ def served_neighbors_phase(card: str, params, cfg, index, other,
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = {k.name: k.launches for k in KERNELS}
+        batches = settled_batches(srv)
         stats = srv.stats()
-        batches = stats["batches"]
         for name, n in launches.items():
             totals[name] = totals.get(name, 0) + n
             want = per_batch.get(name, 0) * batches
@@ -4902,15 +4946,656 @@ def large_int8_phase(card: str) -> dict:
     return totals
 
 
+def perturbed(params, scale: float, seed: int, keep_bf16: bool = False):
+    """A copy of `params` with every float leaf plus scale x its own RMS x
+    seeded N(0, 1) noise (scale 0: a plain copy). With `keep_bf16` only leaves of two or more dims
+    move, and only where the move leaves the value's bf16 rounding as it
+    was: a trunk that differs from `params` in float32 but not at the
+    precision a bf16 server computes in."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def leaf(t):
+        if (scale == 0 or not t.is_floating_point()
+                or (keep_bf16 and t.dim() < 2)):
+            return t.clone()
+        rms = t.float().pow(2).mean().sqrt()
+        w = t + scale * rms * torch.randn(t.shape, generator=gen,
+                                          device=t.device, dtype=t.dtype)
+        if keep_bf16:
+            w = torch.where(w.to(torch.bfloat16) == t.to(torch.bfloat16),
+                            w, t)
+        return w
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v) for v in x]
+        return leaf(x)
+
+    return walk(params)
+
+
+def rollout_seqs(n: int, seed: int) -> list:
+    """`n` distinct proteins of 20-500 residues."""
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+
+    rnd = random.Random(seed)
+    return ["".join(rnd.choice(ALPHABET)
+                    for _ in range(rnd.randint(20, 500))) for _ in range(n)]
+
+
+def embeds_equal(a: dict, b: dict) -> bool:
+    """Two embed answers bit for bit (a JSON answer's floats are exact
+    copies of the float32 values)."""
+    return all(np.array_equal(np.asarray(a[k], np.float32),
+                              np.asarray(b[k], np.float32))
+               for k in ("global", "local_mean"))
+
+
+def embed_diff(a: dict, b: dict) -> float:
+    return max(float(np.abs(np.asarray(a[k], np.float32)
+                            - np.asarray(b[k], np.float32)).max())
+               for k in ("global", "local_mean"))
+
+
+def pct_ms(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] * 1e3
+
+
+def settled_batches(srv, timeout_s: float = 30.0) -> int:
+    """A server's sealed batches, read once every request it has answered
+    is in the count. The completer answers a batch's requests first and
+    counts the batch after them, so a read right after the last answer
+    can miss that batch; `batched_rows` catches up with `completed` when
+    the count is whole."""
+    t_end = time.perf_counter() + timeout_s
+    while True:
+        st = srv.stats()
+        if st["batched_rows"] == st["completed"]:
+            return st["batches"]
+        check(time.perf_counter() < t_end,
+              f"batched rows {st['batched_rows']} never reached the "
+              f"{st['completed']} completed requests")
+        time.sleep(0.002)
+
+
+class LaunchTally:
+    """Every kernel's launches since the last `take()`, which zeroes the
+    counts and adds them to `totals`."""
+
+    def __init__(self):
+        from proteinbert_tpu_torch.kernels import KERNELS
+
+        self.kernels = KERNELS
+        self.totals = {}
+        self.take()
+
+    def take(self) -> dict:
+        got = {}
+        for k in self.kernels:
+            got[k.name] = k.launches
+            self.totals[k.name] = self.totals.get(k.name, 0) + k.launches
+            k.launches = 0
+        return got
+
+    def expect(self, label: str, got: dict, want: dict) -> None:
+        for name, n in got.items():
+            check(n == want.get(name, 0),
+                  f"{label}: {name} launched {n} times, want "
+                  f"{want.get(name, 0)}")
+
+
+def flat_state(srv) -> tuple:
+    """(graphs, their pool's bytes) of a server's dispatcher."""
+    torch.cuda.synchronize()
+    return srv.dispatcher.executable_count, srv.dispatcher.graph_pool_bytes()
+
+
+def graph_read_ptrs(srv) -> list:
+    """The addresses of every tensor a server's graphs read: the fp32
+    arm's params, the int8 arm's quantized tree."""
+    disp = srv.dispatcher
+    return [t.data_ptr() for t in tree_tensors(
+        disp.qparams if disp.quant != "fp32" else disp.params)]
+
+
+def arm_gates(card: str, label: str, srv, cand, probes, per_request: dict,
+              tally: "LaunchTally") -> dict:
+    """One server's candidate arm (`cand`, far from its trunk, so the two
+    answer differently): a lone live request and a shadow launch exactly
+    `per_request`; graphs, pool and the graph-read addresses stay as they
+    were across load, warm, shadows, flip and rollback; each probe's
+    shadow equals its lone live request after the flip bit for bit, and
+    after the rollback its pre-flip answer; the flip drops the whole
+    cache and the probes asked before it are computed again. Returns the
+    numbers PERF.md records."""
+    flat0, ptrs0 = flat_state(srv), graph_read_ptrs(srv)
+    pre = [srv.embed(p, timeout=120) for p in probes]
+    extra = rollout_seqs(1, seed=29)[0]
+    tally.take()
+    srv.embed(extra, timeout=120)
+    live = tally.take()
+    tally.expect(f"{label}: a lone live request", live, per_request)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    report = srv.load_candidate(params=cand)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    check(flat_state(srv) == flat0, f"{label}: load_candidate moved the "
+                                    f"graphs or pool {flat_state(srv)}")
+    tally.take()
+    srv.shadow_submit("embed", extra)
+    shadow = tally.take()
+    tally.expect(f"{label}: a shadow request", shadow, per_request)
+    shadows, walls = [], []
+    for p in probes:
+        t0 = time.perf_counter()
+        shadows.append(srv.shadow_submit("embed", p))
+        walls.append(time.perf_counter() - t0)
+    check(flat_state(srv) == flat0, f"{label}: shadows moved the graphs")
+    size = srv.cache.stats()["size"]
+    hits = srv.stats()["cache_hit_returns"]
+    flip = srv.flip()
+    torch.cuda.synchronize()
+    mem2 = torch.cuda.memory_allocated()
+    check(flip["cache_dropped"] == size >= len(probes),
+          f"{label}: flip dropped {flip['cache_dropped']} of {size} cached")
+    check(graph_read_ptrs(srv) == ptrs0, f"{label}: flip moved a tensor "
+                                         "the graphs read")
+    check(flat_state(srv) == flat0, f"{label}: flip moved the graphs")
+    post = [srv.embed(p, timeout=120) for p in probes]
+    check(srv.stats()["cache_hit_returns"] == hits,
+          f"{label}: a probe asked before the flip hit the cache after it")
+    same = all(embeds_equal(a, b) for a, b in zip(post, shadows))
+    moved = min(embed_diff(a, b) for a, b in zip(post, pre))
+    check(same and moved > 0, f"{label}: post-flip live != shadow "
+                              f"({same}) or = pre-flip ({moved})")
+    back_report = srv.rollback_trunk()
+    check(graph_read_ptrs(srv) == ptrs0, f"{label}: rollback moved a "
+                                         "tensor the graphs read")
+    check(flat_state(srv) == flat0, f"{label}: rollback moved the graphs")
+    back = [srv.embed(p, timeout=120) for p in probes]
+    restored = all(embeds_equal(a, b) for a, b in zip(back, pre))
+    check(restored, f"{label}: rollback answers differ from pre-flip")
+    check(srv.unload_candidate(), f"{label}: no demoted trunk to unload")
+    torch.cuda.synchronize()
+    mem3 = torch.cuda.memory_allocated()
+    check(mem2 <= mem1 - report["weight_bytes_candidate"] * 0.9,
+          f"{label}: flip kept the candidate's memory ({mem1} -> {mem2})")
+    tally.take()
+    print(f"# rollout base {label} [{card}]: load_candidate {load_s:.3f} s "
+          f"(warm_candidate {report['warm_seconds']:.3f} s, eager at "
+          f"{flat0[0]} warm shapes), flip {flip['seconds']:.4f} s (park + "
+          f"copy), rollback {back_report['seconds']:.4f} s; weight bytes "
+          f"resident {report['weight_bytes_resident']} candidate "
+          f"{report['weight_bytes_candidate']} (budget "
+          f"{report['hbm_budget_bytes']}); device memory before load "
+          f"{mem0}, loaded {mem1}, flipped {mem2}, unloaded {mem3}")
+    print(f"# rollout base {label}: graphs {flat0[0]}, pool {flat0[1]} "
+          f"bytes, unchanged across load, warm, {len(probes) + 1} shadows, "
+          f"flip and rollback; graph-read addresses unchanged; a lone live "
+          f"request {live}, a shadow {shadow}; shadow = post-flip live bit "
+          f"for bit {same} (probes moved by up to {moved:.4g} and more); "
+          f"rollback = pre-flip bit for bit {restored}; flip dropped "
+          f"{flip['cache_dropped']} cached answers; shadow wall p50 "
+          f"{pct_ms(walls, 0.5):.3f} ms")
+    return {"load_s": load_s, "flip_s": flip["seconds"],
+            "rollback_s": back_report["seconds"], "pre": pre}
+
+
+def serve_events(path: str) -> list:
+    from proteinbert_tpu_torch import obs
+
+    return [r for r in obs.read_events(path)
+            if r["event"] == "serve_request"]
+
+
+def drive(router, seqs, latencies=None) -> None:
+    """Send `seqs` through the router one after another, each a 200."""
+    for s in seqs:
+        t0 = time.perf_counter()
+        status, body, headers = router.route(
+            "/v1/embed", json.dumps({"seq": s}).encode())
+        if latencies is not None:
+            latencies.append((time.perf_counter() - t0,
+                              headers.get("X-PBT-Fleet-Request-Id")))
+        check(status == 200, f"a routed request answered {status}: "
+                              f"{body[:200]!r}")
+
+
+def drive_until_terminal(router, ctl, seq_iter, latencies, timeout_s=300):
+    t_end = time.perf_counter() + timeout_s
+    while not ctl.terminal() and time.perf_counter() < t_end:
+        drive(router, [next(seq_iter)], latencies)
+    check(ctl.terminal(), f"rollout still {ctl.state} after {timeout_s} s")
+    ctl._worker.join(30)
+    check(not ctl._worker.is_alive(), "the shadow worker did not stop")
+
+
+def hop_ms(latencies, events) -> tuple:
+    """p50 of the router's e2e minus the replica's (joined by trace id)."""
+    e2e = {r.get("trace_id"): r["e2e_s"] for r in events}
+    hops = [wall - e2e[rid] for wall, rid in latencies if rid in e2e]
+    return pct_ms(hops, 0.5), len(hops)
+
+
+def torn_batch_gate(card: str, router, reps: dict, tally, per_batch: dict):
+    """256 routed requests from 128 threads (two each); once 64 are
+    answered both replicas flip to the far candidate while about half are
+    queued or in flight. Every answer is a 200 and equals, bit for bit,
+    the old or the new trunk's answer for its sequence at its own bucket
+    and batch class (from the replica's `serve_request` event); per
+    replica no old answer is sealed after the first new one. Then the
+    fleet rolls back through the router and unloads. Launches: exactly
+    per_batch a live batch."""
+    from proteinbert_tpu_torch import inference
+
+    seqs = rollout_seqs(256, seed=31)
+    batches0 = {n: settled_batches(r["srv"]) for n, r in reps.items()}
+    tally.take()
+    results = [None] * len(seqs)
+    answered = [0]
+    lock = threading.Lock()
+    half = threading.Event()
+
+    def client(i):
+        for j in (i, i + 128):
+            results[j] = router.route(
+                "/v1/embed", json.dumps({"seq": seqs[j]}).encode())
+            with lock:
+                answered[0] += 1
+                if answered[0] == 64:
+                    half.set()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(128)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    check(half.wait(300), "64 routed requests never came back")
+    with lock:
+        at_flip = answered[0]
+    flips = {}
+    for name in reps:
+        status, body = router.control_forward(name, "/v1/rollout/flip")
+        check(status == 200, f"flip of {name}: {status} {body[:200]!r}")
+        flips[name] = json.loads(body)["seconds"]
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "router clients hung")
+    launches = tally.take()
+    batches = sum(settled_batches(r["srv"]) - batches0[n]
+                  for n, r in reps.items())
+    tally.expect("torn-batch traffic", launches,
+                 {k: v * batches for k, v in per_batch.items()})
+    check(all(r[0] == 200 for r in results),
+          f"failed: {[r[0] for r in results if r[0] != 200]}")
+    ids = {r[2]["X-PBT-Fleet-Request-Id"]: i for i, r in enumerate(results)}
+    where = {}
+    t_end = time.perf_counter() + 60
+    while len(where) < len(ids) and time.perf_counter() < t_end:
+        for name, rep in reps.items():
+            for rec in serve_events(rep["events"]):
+                i = ids.get(rec.get("trace_id"))
+                if i is not None:
+                    where[i] = (name, rec["seq"], rec["bucket_len"],
+                                rec["batch_class"])
+        time.sleep(0.05)
+    check(len(where) == len(ids), f"{len(where)} of {len(ids)} requests "
+                                  "found in the replicas' events")
+
+    def references():
+        refs = {}
+        groups = {}
+        for i, (name, _, L, cls) in where.items():
+            groups.setdefault((name, L, cls), []).append(i)
+        for (name, L, cls), idx in groups.items():
+            disp = reps[name]["srv"].dispatcher
+            for lo in range(0, len(idx), cls):
+                chunk = idx[lo:lo + cls]
+                rows = chunk + [chunk[0]] * (cls - len(chunk))
+                toks = inference._tokenize_masked(
+                    [seqs[i] for i in rows], disp.cfg.data.seq_len,
+                    "count")[:, :L]
+                out = disp.run("embed", toks)
+                for r, i in enumerate(chunk):
+                    refs[i] = {k: v[r] for k, v in out.items()}
+        return refs
+
+    new = references()
+    for name in reps:
+        status, body = router.control_forward(name, "/v1/rollout/rollback")
+        check(status == 200, f"rollback of {name}: {status}")
+    old = references()
+    state = {}
+    for i, (_, body, _) in enumerate(results):
+        ans = json.loads(body)
+        is_old, is_new = embeds_equal(ans, old[i]), embeds_equal(ans, new[i])
+        check(is_old or is_new, f"request {i} is a torn batch: it equals "
+                                "neither trunk's answer")
+        check(not (is_old and is_new), f"request {i}: the trunks agree")
+        state[i] = "new" if is_new else "old"
+    counts = {}
+    for name in reps:
+        order = sorted((where[i][1], state[i]) for i in where
+                       if where[i][0] == name)
+        seen_new = False
+        for _, s in order:
+            check(not (seen_new and s == "old"),
+                  f"{name}: an old answer sealed after a new one")
+            seen_new = seen_new or s == "new"
+        counts[name] = {s: sum(1 for _, x in order if x == s)
+                        for s in ("old", "new")}
+    for name in reps:
+        status, body = router.control_forward(name, "/v1/rollout/unload")
+        check(status == 200 and json.loads(body)["unloaded"],
+              f"unload of {name}: {status}")
+    classes = sorted({w[3] for w in where.values()})
+    print(f"# rollout base torn [{card}]: 256 routed requests (128 "
+          f"threads) in {wall:.3f} s over {batches} batches (classes "
+          f"{classes}); flips issued after {at_flip} answers, "
+          f"{ {n: round(s, 4) for n, s in flips.items()} } s; none failed; "
+          f"old / new answers by replica {counts}, each bit for bit one "
+          f"trunk's at its bucket and batch class, none old after a new; "
+          f"launches {launches}")
+
+
+def rollout_phase(card: str) -> dict:
+    """`# rollout base`: the blue-green rollout of the `base` trunk (bf16)
+    across a fleet on one card. Replicas r0 and r1 (bucketed, buckets 128
+    / 256 / 512, max_batch 8, pipeline_depth 2, embed graphs warmed) each
+    behind `serve/http.make_http_server` on 127.0.0.1, a port
+    `FleetRouter` over both; a ragged and an int8 bucketed server in
+    process. Candidates: `near` (the trunk + 1e-6 x each leaf's RMS x
+    seeded noise, kept only where a bf16 server cannot see it: the
+    controller's default parity bound, 1e-3, is far under one bf16 step
+    of an answer) and `far` (1e-1). Gates: `arm_gates` on r0, the ragged
+    and the int8 server; the typed refusals; `torn_batch_gate`; the
+    controller green on `near` (promotes; both /healthz show its
+    fingerprint), `breach()` back to the pre-flip answers bit for bit,
+    and red on `far` (refused, unloaded everywhere, answers unchanged);
+    exact launches at each step; flat graphs on r0 and r1 throughout;
+    every event stream strict. Returns the launches."""
+    import urllib.request
+
+    from proteinbert_tpu_torch import obs
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.heads.registry import trunk_fingerprint
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.parallel.quant import param_bytes
+    from proteinbert_tpu_torch.rollout import RolloutController
+    from proteinbert_tpu_torch.serve.errors import (
+        CandidateUnfitError, NoCandidateError,
+    )
+    from proteinbert_tpu_torch.serve.fleet import FleetRouter
+    from proteinbert_tpu_torch.serve.http import make_http_server
+    from proteinbert_tpu_torch.serve.server import Server
+
+    base = get_preset("base")
+    nb = base.model.num_blocks
+    params = init(base.model, torch.Generator().manual_seed(16),
+                  device=DEVICE)
+
+    def own():
+        return perturbed(params, 0.0, 0)
+
+    near = perturbed(params, ROLLOUT_NEAR, 17, keep_bf16=True)
+    literal = perturbed(params, ROLLOUT_NEAR, 17)
+    far = perturbed(params, ROLLOUT_FAR, 18)
+    fp = {name: trunk_fingerprint(t, base.model.scan_blocks) for name, t in
+          (("resident", params), ("near", near), ("far", far))}
+    check(len(set(fp.values())) == 3, "the candidates' fingerprints agree")
+    loader = {"near": near, "far": far}.__getitem__
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="rollout-", dir=build)
+    tally = LaunchTally()
+    dense = {LOCAL_TRACK.name: nb, ATTENTION.name: nb}
+    kw = dict(device=DEVICE, buckets=BUCKETS, max_batch=8, max_wait_s=0.005,
+              queue_depth=512, cache_size=256, warm_kinds=("embed",),
+              pipeline_depth=2, trace_sample_rate=1.0,
+              candidate_loader=loader)
+    probes = rollout_seqs(8, seed=23)
+    teles, httpds, reps = {}, [], {}
+    try:
+        for name in ("r0", "r1"):
+            events = os.path.join(root, f"{name}.jsonl")
+            teles[name] = obs.Telemetry(events_path=events)
+            srv = Server(own(), base, telemetry=teles[name],
+                         replica_id=name, **kw).start()
+            httpd = make_http_server(srv, host="127.0.0.1", port=0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            httpds.append(httpd)
+            reps[name] = {"srv": srv, "events": events,
+                          "url": f"http://127.0.0.1:"
+                                 f"{httpd.server_address[1]}"}
+        flat = {n: flat_state(r["srv"]) for n, r in reps.items()}
+        r0 = reps["r0"]["srv"]
+
+        # The resident trunk shadowing itself, and the literal 1e-6
+        # candidate: what the parity gate sees at bf16.
+        own_params = own()
+        r0.load_candidate(params=own_params)
+        self_par = max(embed_diff(r0.shadow_submit("embed", p),
+                                  r0.embed(p, timeout=120))
+                       for p in probes)
+        r0.unload_candidate()
+        parities = {}
+        for name, cand in (("literal 1e-6", literal), ("near", near)):
+            r0.load_candidate(params=cand)
+            parities[name] = max(embed_diff(r0.shadow_submit("embed", p),
+                                            r0.embed(p, timeout=120))
+                                 for p in probes)
+            r0.unload_candidate()
+        del own_params, literal
+        print(f"# rollout base parity [{card}]: shadow vs live over "
+              f"{len(probes)} probes at bf16: the resident trunk against "
+              f"itself {self_par}, the trunk + 1e-6 x RMS noise on every "
+              f"leaf {parities['literal 1e-6']}, `near` (that noise where "
+              f"bf16 cannot see it) {parities['near']}; the controller's "
+              "bound 1e-3")
+        check(self_par == 0.0, "the resident trunk's shadow differs from "
+                               "its live answer")
+
+        # Each mode's arm.
+        arms = {"fp32 bucketed": arm_gates(card, "fp32 bucketed", r0, far,
+                                          probes, dense, tally)}
+        for label, extra, per_request in (
+                ("ragged", dict(serve_mode="ragged", pack_max_segments=8),
+                 {LOCAL_TRACK_SEGMENTS.name: nb, ATTENTION.name: nb}),
+                ("int8 bucketed", dict(quant="int8", quant_parity_every=0),
+                 {LOCAL_TRACK.name: nb, ATTENTION_Q8.name: nb})):
+            events = os.path.join(root, f"{label.replace(' ', '-')}.jsonl")
+            teles[label] = obs.Telemetry(events_path=events)
+            srv = Server(own(), base, telemetry=teles[label], **kw,
+                         **extra).start()
+            arms[label] = arm_gates(card, label, srv, far, probes,
+                                   per_request, tally)
+            check(srv.drain(timeout=300), f"{label}: drain timed out")
+            del srv
+            gc.collect()
+
+        # The typed refusals.
+        wb = param_bytes(r0.dispatcher.params)
+        try:
+            r0.load_candidate(params=near, hbm_budget_bytes=2 * wb - 1)
+            check(False, "a candidate over budget was loaded")
+        except CandidateUnfitError:
+            pass
+        try:
+            r0.flip()
+            check(False, "a flip with an empty slot went through")
+        except NoCandidateError:
+            pass
+        try:
+            r0.shadow_submit("neighbors", probes[0])
+            check(False, "a neighbours shadow went through")
+        except ValueError:
+            pass
+        tele = obs.Telemetry(events_path=os.path.join(root, "router.jsonl"))
+        teles["router"] = tele
+        router = FleetRouter([(n, r["url"]) for n, r in reps.items()],
+                             telemetry=tele, health_interval_s=0.2,
+                             request_timeout_s=120.0, cache_size=0).start()
+        unfit = router.control_forward("r0", "/v1/rollout/load",
+                                       {"source": "near",
+                                        "hbm_budget_bytes": 2 * wb - 1})
+        empty = router.control_forward("r0", "/v1/rollout/flip")
+        types = [(s, json.loads(b).get("type")) for s, b in (unfit, empty)]
+        print(f"# rollout base refusals: budget {2 * wb - 1} (resident + "
+              f"candidate - 1) -> CandidateUnfitError, HTTP {types[0]}; "
+              f"flip with an empty slot -> NoCandidateError, HTTP "
+              f"{types[1]}; a neighbors shadow -> ValueError")
+        check(types == [(409, "candidate_unfit"), (409, "no_candidate")],
+              f"refusals over HTTP: {types}")
+
+        # Mirror off: live latency through the router.
+        seq_iter = iter(rollout_seqs(4000, seed=37))
+        lat_off = []
+        drive(router, [next(seq_iter) for _ in range(96)], lat_off)
+
+        # No torn batch across a flip under load.
+        for name in reps:
+            status, body = router.control_forward(name, "/v1/rollout/load",
+                                                  {"source": "far"})
+            check(status == 200, f"load far on {name}: {status}")
+        tally.take()
+        torn_batch_gate(card, router, reps, tally, dense)
+        pre = {n: [r["srv"].embed(p, timeout=120) for p in probes]
+               for n, r in reps.items()}
+        check(all(embeds_equal(a, b) for a, b in
+                  zip(pre["r0"], arms["fp32 bucketed"]["pre"])),
+              "r0's answers moved across the torn-batch rollback")
+
+        def controller_run(source: str, want: str, lat: list):
+            batches0 = {n: settled_batches(r["srv"])
+                        for n, r in reps.items()}
+            tally.take()
+            ctl = RolloutController(
+                router, telemetry=tele, source=source, sample_every=2,
+                window_requests=32, windows_required=3,
+                shadow_parity_max=1e-3)
+            router.attach_rollout(ctl)
+            t0 = time.perf_counter()
+            ctl.start()
+            drive_until_terminal(router, ctl, seq_iter, lat)
+            wall = time.perf_counter() - t0
+            st = ctl.status()
+            launches = tally.take()
+            batches = sum(settled_batches(r["srv"]) - batches0[n]
+                          for n, r in reps.items())
+            warm = sum(flat[n][0] for n in reps)
+            runs = batches + st["shadow_ok"] + warm
+            tally.expect(f"controller {source}", launches,
+                         {k: v * runs for k, v in dense.items()})
+            check(st["state"] == want, f"controller {source}: "
+                                       f"{st['state']}, want {want}")
+            print(f"# rollout base controller {source} [{card}]: "
+                  f"{st['state']} after {st['window']} windows in "
+                  f"{wall:.3f} s; {st['mirrored']} live mirrored, "
+                  f"{st['sampled']} sampled, {st['shadow_ok']} shadows ok, "
+                  f"{st['shadow_failed']} failed, {st['dropped']} dropped; "
+                  f"flip {st['flip_seconds']} s; launches {launches} = "
+                  f"{nb} x ({batches} live batches + {st['shadow_ok']} "
+                  f"shadows + {warm} warm runs)")
+            return ctl
+
+        lat_on = []
+        ctl = controller_run("near", "promoted", lat_on)
+        fps = {}
+        for n, r in reps.items():
+            with urllib.request.urlopen(r["url"] + "/healthz",
+                                        timeout=60) as resp:
+                fps[n] = json.loads(resp.read())["trunk_fingerprint"]
+        check(all(f == fp["near"] for f in fps.values()),
+              f"after the promote /healthz shows {fps}")
+        ctl.breach()
+        back = {n: [r["srv"].embed(p, timeout=120) for p in probes]
+                for n, r in reps.items()}
+        check(all(embeds_equal(a, b) for n in reps
+                  for a, b in zip(back[n], pre[n])),
+              "breach(): answers differ from the pre-flip ones")
+        for name in reps:
+            router.control_forward(name, "/v1/rollout/unload")
+        print(f"# rollout base controller near: both /healthz showed the "
+              f"candidate's fingerprint {fp['near'][:12]}; breach() -> "
+              f"{ctl.state}, every replica's answers = pre-flip bit for bit")
+        controller_run("far", "refused", [])
+        idle = all(not r["srv"].dispatcher.candidate_status()["loaded"]
+                   and r["srv"].rollout_status()["candidate_fingerprint"]
+                   is None for r in reps.values())
+        after = {n: [r["srv"].embed(p, timeout=120) for p in probes]
+                 for n, r in reps.items()}
+        check(idle and all(embeds_equal(a, b) for n in reps
+                           for a, b in zip(after[n], pre[n])),
+              f"refusal: unloaded {idle}, or answers moved")
+        print("# rollout base controller far: refused, the candidate "
+              "unloaded on every replica, the answers unchanged")
+        for n, r in reps.items():
+            check(flat_state(r["srv"]) == flat[n],
+                  f"{n}: graphs or pool moved over the rollouts "
+                  f"{flat_state(r['srv'])} vs {flat[n]}")
+        router.drain()
+        for httpd in httpds:
+            httpd.shutdown()
+            httpd.server_close()
+        for r in reps.values():
+            check(r["srv"].drain(timeout=300), "replica drain timed out")
+        events = serve_events(reps["r0"]["events"]) + serve_events(
+            reps["r1"]["events"])
+        off_hop, n_off = hop_ms(lat_off, events)
+        on_hop, n_on = hop_ms(lat_on, events)
+        print(f"# rollout base router [{card}]: live through the router, "
+              f"one client: mirror off p50 {pct_ms([w for w, _ in lat_off], .5):.3f}"
+              f" / p99 {pct_ms([w for w, _ in lat_off], .99):.3f} ms "
+              f"({len(lat_off)} requests), mirror on (sample_every 2) p50 "
+              f"{pct_ms([w for w, _ in lat_on], .5):.3f} / p99 "
+              f"{pct_ms([w for w, _ in lat_on], .99):.3f} ms "
+              f"({len(lat_on)}); router hop (its e2e minus the replica's) "
+              f"p50 {off_hop:.3f} ms off ({n_off}), {on_hop:.3f} ms on "
+              f"({n_on}); graphs {flat} unchanged on both replicas")
+        windows = [r for r in obs.read_events(
+            os.path.join(root, "router.jsonl")) if r["event"] ==
+            "rollout_window"]
+        print("# rollout base windows: " + "; ".join(
+            f"{r['window']} {r['verdict']} parity {r.get('parity_max')}"
+            for r in windows))
+        for t in teles.values():
+            t.close()
+        for name in teles:
+            recs = obs.read_events(os.path.join(
+                root, name.replace(" ", "-") + ".jsonl"), strict=True)
+            check(bool(recs), f"{name}: empty event stream")
+        kinds = sorted({r["event"] for r in obs.read_events(
+            os.path.join(root, "r0.jsonl"), strict=True)
+            if r["event"].startswith("rollout")})
+        print(f"# rollout base events: {len(teles)} streams pass "
+              f"read_events(strict=True); r0 emitted {kinds}")
+    finally:
+        for t in teles.values():
+            t.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return tally.totals
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
                     ["--phase", "k2"], ["--phase", "default"],
                     ["--phase", "resume"], ["--phase", "serve"],
                     ["--phase", "serve-times"], ["--phase", "finetune"],
-                    ["--phase", "neighbors"]):
+                    ["--phase", "neighbors"], ["--phase", "rollout"]):
         print("usage: chip_smoke.py [--phase large|base|k2|default|resume|"
-              "serve|serve-times|finetune|neighbors]", file=sys.stderr)
+              "serve|serve-times|finetune|neighbors|rollout]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4969,6 +5654,11 @@ def main() -> int:
         t0 = time.perf_counter()
         large_int8_phase(card)
         print(f"# serve large int8: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "rollout"]:
+        t0 = time.perf_counter()
+        rollout_phase(card)
+        print(f"# rollout: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -5033,6 +5723,10 @@ def main() -> int:
     for name, n in large_int8_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# serve large int8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in rollout_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# rollout: {time.perf_counter() - t0:.1f} s")
 
     # (source, TPU launch site, the served shape its row was timed at)
     ported = {

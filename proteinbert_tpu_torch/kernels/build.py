@@ -23,6 +23,9 @@ A call made while its thread captures a CUDA graph launches nothing: the
 kernel runs when the graph is replayed. `recording_launches()` collects
 such calls per kernel instead of counting them, and `credit()` adds one
 replay's worth to the counts (serve/dispatch.py replays warm shapes).
+Launches and replays on several threads (a server's dispatch thread, a
+rollout's shadow requests, several servers in one process) each count
+exactly once: every update of a count holds one lock.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ INT = ctypes.c_int
 # Per thread: the launches recorded into the CUDA graph this thread is
 # capturing (None while it captures nothing).
 _capture = threading.local()
+# Held by every update of a `Kernel.launches` count.
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -128,7 +133,8 @@ class Kernel:
                                f"error {rc}")
         recorded = getattr(_capture, "launches", None)
         if recorded is None:
-            self.launches += 1
+            with _count_lock:
+                self.launches += 1
         else:
             recorded[self] = recorded.get(self, 0) + 1
 
@@ -149,8 +155,9 @@ def recording_launches() -> Iterator[Dict[Kernel, int]]:
 
 def credit(launches: Dict[Kernel, int]) -> None:
     """Count one replay of a graph whose capture recorded `launches`."""
-    for kernel, n in launches.items():
-        kernel.launches += n
+    with _count_lock:
+        for kernel, n in launches.items():
+            kernel.launches += n
 
 
 def build_all(kernels: Iterable[Kernel]) -> None:

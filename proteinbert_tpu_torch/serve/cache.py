@@ -1,6 +1,5 @@
 """Content-addressed LRU result cache for the serving layer — a copy of
-`proteinbert_tpu/serve/cache.py` without `clear()`, which only the
-blue-green rollout calls (it comes with the rollout, not ported yet).
+`proteinbert_tpu/serve/cache.py`.
 
 Keys are sha256 digests over (kind, sequence, annotations bytes) —
 content addressing, so two textually identical queries hit the same
@@ -103,6 +102,16 @@ class EmbeddingCache:
                 self.evictions += 1
                 if self._evict_c is not None:
                     self._evict_c.inc()
+
+    def clear(self) -> int:
+        """Drop every entry (hit/miss/eviction counters keep their
+        history); returns how many entries were dropped. The blue-green
+        flip calls this: results computed by the outgoing trunk must
+        not outlive it."""
+        with self._lock:
+            n = len(self._entries)
+            self._entries.clear()
+            return n
 
     @property
     def hit_rate(self) -> float:

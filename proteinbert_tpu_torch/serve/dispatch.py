@@ -71,6 +71,29 @@ Neighbour requests (`NEIGHBORS_KIND`, "neighbors") are embed requests to
 both dispatchers: the kind is normalised on entry, so they share the
 embed graphs and their launches (the index lookup is the server's).
 
+Blue-green candidate arm (JAX dispatch.py:283-295, :510-713). A
+candidate trunk of the resident's tree, shapes and dtypes loads beside
+it (`load_candidate`, priced in device memory against
+`hbm_budget_bytes` or the card's `total_memory`; `CandidateUnfitError`
+when the two do not fit) into tensors of its own; on the int8 arm it is
+quantized as the resident was, and its fp32 source waits on the host
+when `quant_parity_every <= 0`. The candidate never gets a graph:
+`warm_candidate` runs it eagerly once at every warm shape, and shadow
+requests (`run_candidate`, `run_packed_candidate`) run it eagerly on a
+stream of their own, so graphs and pool stay as they were. The graphs
+bake the addresses of the resident's tensors into their kernels, so
+`flip` cannot swap trees as the JAX dispatcher does: on the serving
+stream, behind every batch already enqueued, it parks the resident
+values in pinned host buffers, copies the candidate's values into the
+resident's own tensors and frees the candidate. Batches enqueued before
+the copy read the old trunk, batches after it the new one; every graph
+stays valid. On the int8 arm the fp32 tree, which only eager code reads,
+is swapped as in JAX. `rollback` copies the parked values back into the
+same tensors (bit for bit the pre-flip numerics) and moves the demoted
+trunk to the candidate slot. One lock (`_arm_lock`) covers every batch
+from the read of its arm (`_arm_snapshot`) to the end of its enqueue, so
+a flip from another thread lands between two batches, never inside one.
+
 `metrics` (an obs `MetricsRegistry`) receives the JAX dispatcher's
 `serve_executable_count`, `serve_warmup_seconds_total`,
 `serve_compile_seconds` and `serve_quant_parity_max`.
@@ -78,6 +101,7 @@ embed graphs and their launches (the index lookup is the server's).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -96,6 +120,9 @@ from proteinbert_tpu_torch.models.proteinbert import activation_dtype, to_device
 from proteinbert_tpu_torch.parallel.quant import (
     SERVE_QUANT_MODES, _q_packed_trunk_batch, _q_trunk_batch, param_bytes,
     quant_entry, quant_packed_entry, quantize_params,
+)
+from proteinbert_tpu_torch.serve.errors import (
+    CandidateUnfitError, NoCandidateError,
 )
 
 KINDS = ("embed", "predict_go", "predict_residues")
@@ -142,6 +169,96 @@ def parity_max(a, b) -> float:
             worst = max(worst, float(np.max(np.abs(
                 x.astype(np.float32) - y.astype(np.float32)))))
     return worst
+
+
+def _device_hbm_bytes(device: torch.device) -> Optional[int]:
+    """The card's memory in bytes (the candidate's budget when the caller
+    gives none); None on the CPU, where only an explicit budget
+    refuses."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a params tree in a fixed order, each once (an int8
+    tree's block-vector scales are shared by several leaves)."""
+    out: List[torch.Tensor] = []
+    _collect(tree, out, set())
+    return out
+
+
+def _collect(tree, out: List[torch.Tensor], seen: set) -> None:
+    # Module-level recursion: a recursive closure would hold `out` in a
+    # reference cycle, keeping a dropped trunk's tensors alive until the
+    # garbage collector runs.
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _collect(tree[k], out, seen)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, out, seen)
+    elif id(tree) not in seen:
+        seen.add(id(tree))
+        out.append(tree)
+
+
+def _same_structure(a, b) -> bool:
+    """Whether two params trees have the same keys, list lengths, shapes
+    and dtypes."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return (isinstance(b, torch.Tensor) and a.shape == b.shape
+            and a.dtype == b.dtype)
+
+
+def _copy_tree(tree, copy: Callable[[torch.Tensor], torch.Tensor],
+               done: Optional[Dict[int, torch.Tensor]] = None):
+    """`tree` with every tensor replaced by `copy(tensor)`; a tensor that
+    several leaves share stays shared (`done`: the copies so far)."""
+    done = {} if done is None else done
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v, copy, done) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_tree(v, copy, done) for v in tree)
+    if id(tree) not in done:
+        done[id(tree)] = copy(tree)
+    return done[id(tree)]
+
+
+def _own(tree, device: torch.device):
+    """A copy of `tree` on `device` in tensors of its own (enqueued on the
+    current stream; from pinned host memory it does not block)."""
+    return _copy_tree(tree, lambda t: t.to(device, copy=True,
+                                           non_blocking=True))
+
+
+def _host_copy(tree):
+    """A host copy of `tree`: from the card into pinned buffers, enqueued
+    on the current stream (valid once it is synchronised); on the CPU a
+    plain clone."""
+    def copy(t):
+        if t.device.type == "cpu":
+            return t.clone()
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t, non_blocking=True)
+
+    return _copy_tree(tree, copy)
+
+
+def _copy_into(dst, src) -> None:
+    """Every tensor of `src` into the same-place tensor of `dst`, in
+    place (the addresses a graph holds stay), on the current stream."""
+    dst, src = _tensors(dst), _tensors(src)
+    if len(dst) != len(src) or any(d.shape != s.shape
+                                   for d, s in zip(dst, src)):
+        raise RuntimeError("trunk trees differ in tensors or shapes")
+    for d, s in zip(dst, src):
+        d.copy_(s, non_blocking=True)
 
 
 def _map(fn, out):
@@ -348,6 +465,23 @@ class BucketDispatcher:
                 "fp32_resident": ("device" if self.quant_parity_every > 0
                                   else "host"),
             }
+        # The blue-green candidate arm: `cand_*` serve shadow requests
+        # until flip() copies them into the resident tensors; the values
+        # flip() replaced wait on the host (`parked_*`) for rollback().
+        # Every batch holds _arm_lock from the read of its arm to the end
+        # of its enqueue (`_arm_snapshot`).
+        self._arm_lock = threading.Lock()
+        self.cand_params = None  # guarded-by: _arm_lock
+        self.cand_qparams = None  # guarded-by: _arm_lock
+        self.parked_params = None  # guarded-by: _arm_lock
+        self.parked_qparams = None  # guarded-by: _arm_lock
+        self.candidate_report: Dict = {}  # guarded-by: _arm_lock
+        # The stream live batches are enqueued on (the constructing
+        # thread's current stream) and the shadow requests' own stream.
+        self._stream = self._shadow_stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
+            self._shadow_stream = torch.cuda.Stream(self.device)
         self._compile_hist = (metrics.histogram("serve_compile_seconds")
                               if metrics is not None else None)
         self._exec_g = (metrics.gauge("serve_executable_count")
@@ -512,22 +646,30 @@ class BucketDispatcher:
             self._exec_g.set(n)
         return warm
 
-    def _device_out(self, key, fn, params, arrays: Sequence[np.ndarray]):
+    def _device_out(self, key, fn, params, arrays: Sequence[np.ndarray],
+                    eager: bool = False):
         """`fn` on host `arrays` → its outputs on the device: on the card
-        a replay of the shape's graph (captured now if new), on the CPU
-        the eager call."""
+        a replay of the shape's graph (captured now if new), on the CPU —
+        or with `eager` (the candidate arm) — the eager call, its inputs
+        staged through pinned memory on the card."""
         if self.device.type == "cpu":
             return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
                                 for a in arrays), self.cfg.model)
+        if eager:
+            return fn(params, *(
+                torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+                    self.device, non_blocking=True) for a in arrays),
+                self.cfg.model)
         return self._warm_shape(key, fn, params, arrays).launch(arrays)
 
     def _submit(self, key, fn, params, arrays: Sequence[np.ndarray],
-                tail: Optional[Callable] = None) -> Fetch:
+                tail: Optional[Callable] = None,
+                eager: bool = False) -> Fetch:
         """Start `fn` on host `arrays` → the fetch of its host outputs
         (on the CPU already done). `tail` (the head tails) maps the
         device outputs to what is fetched, on the same stream right
         after."""
-        out = self._device_out(key, fn, params, arrays)
+        out = self._device_out(key, fn, params, arrays, eager)
         if tail is not None:
             out = tail(out)
         if self.device.type == "cpu":
@@ -553,10 +695,10 @@ class BucketDispatcher:
         with self._warm_lock:
             new = key not in self._graphs
         if new:
-            _, run_params = self._arm()
             t0 = time.perf_counter()
-            out = self._device_out(key, fn, run_params, arrays)
-            self._sync()
+            with self._arm_snapshot() as (run_params, _):
+                out = self._device_out(key, fn, run_params, arrays)
+                self._sync()
             dt = time.perf_counter() - t0
             report["trunk_executables"] += 1
             report["trunk_s"] = round(report["trunk_s"] + dt, 6)
@@ -597,17 +739,46 @@ class BucketDispatcher:
             return quant_entry(kind, act=self.quant == "int8_act")
         return _BATCH_FNS[kind]
 
-    def _arm(self):
-        """(whether batches run quantized, the params they run on)."""
-        if self.quant == "fp32":
-            return False, self.params
-        return True, self.qparams
+    @property
+    def _quantized(self) -> bool:
+        """Whether batches run the int8 entries."""
+        return self.quant != "fp32"
 
-    def _eager(self, fn, arrays: Sequence[np.ndarray]):
-        """`fn` on the fp32 params, eagerly, on host `arrays` → its
-        device outputs (the parity shadow)."""
-        return fn(self.params, *(torch.from_numpy(np.ascontiguousarray(a))
-                                 .to(self.device) for a in arrays),
+    @contextlib.contextmanager
+    def _arm_snapshot(self, arm: str = "resident"):
+        """Hold `_arm_lock` and yield (the params batches of `arm` run on,
+        the fp32 reference params) — the resident arm's, or the
+        candidate's (NoCandidateError when none is loaded) — with that
+        arm's stream current on the card: the live batches' stream, or
+        the shadow stream. The caller enqueues its whole batch inside,
+        so a flip lands before or after it, never inside."""
+        with self._arm_lock:
+            if arm == "resident":
+                params, qp, stream = self.params, self.qparams, self._stream
+            elif arm == "candidate":
+                params, qp = self.cand_params, self.cand_qparams
+                stream = self._shadow_stream
+                if params is None:
+                    raise NoCandidateError(
+                        "no candidate trunk is loaded on this replica "
+                        "(load one with Server.load_candidate / "
+                        "POST /v1/rollout/load)")
+            else:
+                raise ValueError(f"unknown arm {arm!r}; have "
+                                 "('resident', 'candidate')")
+            with self._on_stream(stream):
+                yield (qp if self._quantized else params), params
+
+    @staticmethod
+    def _on_stream(stream):
+        return (contextlib.nullcontext() if stream is None
+                else torch.cuda.stream(stream))
+
+    def _eager(self, fn, params, arrays: Sequence[np.ndarray]):
+        """`fn` on `params` (the fp32 reference), eagerly, on host
+        `arrays` → its device outputs (the parity shadow)."""
+        return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
+                            .to(self.device) for a in arrays),
                   self.cfg.model)
 
     @staticmethod
@@ -685,13 +856,16 @@ class BucketDispatcher:
     def run_timed_async(self, kind: str, tokens: np.ndarray,
                         annotations: Optional[np.ndarray] = None,
                         timed: bool = True,
-                        heads: Optional[Sequence[LoadedHead]] = None
-                        ) -> InFlightBatch:
+                        heads: Optional[Sequence[LoadedHead]] = None,
+                        arm: str = "resident") -> InFlightBatch:
         """Submit one micro-batch and return an `InFlightBatch` as soon
         as it is enqueued. Validation, padding, the replay and (for
         predict_task) the head tails are enqueued here on the calling
         (scheduler) thread; the wait for the device, the trim and the
-        parity shadow run in the handle's `finalize()`."""
+        parity shadow run in the handle's `finalize()`. `arm` picks the
+        trunk: "resident" (the live arm, a graph replay on the card) or
+        "candidate" (the shadow arm, eager on the shadow stream, outside
+        the parity cadence)."""
         if kind == NEIGHBORS_KIND:
             kind = "embed"  # identical device work, shared graph
         if (kind == TASK_KIND) != (heads is not None):
@@ -700,7 +874,7 @@ class BucketDispatcher:
                 f"{'set' if heads is not None else 'None'} do not agree: "
                 "predict_task batches carry per-row heads, the other "
                 "kinds never do")
-        quantized, run_params = self._arm()
+        quantized = self._quantized
         fn = (self._trunk_fn(quantized) if heads is not None
               else self._fn(kind, quantized))
         rows, L = tokens.shape
@@ -721,25 +895,27 @@ class BucketDispatcher:
         t1 = time.perf_counter()
         if timed:
             timings["prep_s"] = round(t1 - t0, 9)
-        parity_due = self._quant_batch_tick(timings)
+        eager = arm == "candidate"
+        parity_due = not eager and self._quant_batch_tick(timings)
+        key = ("trunk" if heads is not None else kind, L, cls)
+        # One trunk graph for a (possibly mixed-head) predict_task batch,
+        # then each distinct head's tail over the whole batch; each row
+        # keeps its own head's output.
+        tail = (None if heads is None
+                else lambda out: self._head_tails(out, heads))
+        with self._arm_snapshot(arm) as (run_params, ref_params):
+            pending = self._submit(key, fn, run_params,
+                                   (tokens, annotations), tail=tail,
+                                   eager=eager)
         if heads is not None:
-            # One trunk graph for the (possibly mixed-head) batch, then
-            # each distinct head's tail over the whole batch; each row
-            # keeps its own head's output.
-            pending = self._submit(
-                ("trunk", L, cls), fn, run_params, (tokens, annotations),
-                tail=lambda out: self._head_tails(out, heads))
-
             def trimmed(outs):
                 return heads_apply.rows_of(outs, heads)
 
             def reference():
                 return heads_apply.apply_heads(self._eager(
-                    heads_apply.trunk_batch, (tokens, annotations)), heads)
+                    heads_apply.trunk_batch, ref_params,
+                    (tokens, annotations)), heads)
         else:
-            pending = self._submit((kind, L, cls), fn, run_params,
-                                   (tokens, annotations))
-
             def trimmed(out):
                 if isinstance(out, dict):
                     return {k: v[:rows] for k, v in out.items()}
@@ -747,7 +923,7 @@ class BucketDispatcher:
 
             def reference():
                 return trimmed(inference.run_batch(
-                    self._fn(kind, False), self.params, self.cfg, tokens,
+                    self._fn(kind, False), ref_params, self.cfg, tokens,
                     annotations, device=self.device))
 
         def fetch():
@@ -793,7 +969,7 @@ class BucketDispatcher:
     def _warmup_task(self) -> int:
         """The shared trunk at every (bucket_len, batch_class) and each
         registered head's tail on it; returns the new trunk shapes."""
-        fn = self._trunk_fn(self._arm()[0])
+        fn = self._trunk_fn(self._quantized)
         A = self.cfg.model.num_annotations
         n = 0
         for L in self.buckets:
@@ -803,6 +979,214 @@ class BucketDispatcher:
                     (self._dummy_batch(L, cls),
                      np.zeros((cls, A), np.float32)))
         return n
+
+    # ------------------------------------------------ blue-green arms
+
+    def _key_fn(self, kind: str, quantized: bool):
+        """The batch function of a warm shape's kind."""
+        return (self._trunk_fn(quantized) if kind == "trunk"
+                else self._fn(kind, quantized))
+
+    def _key_inputs(self, L: int, rows: int):
+        """Dummy host inputs of a warm shape."""
+        return (self._dummy_batch(L, rows),
+                np.zeros((rows, self.cfg.model.num_annotations), np.float32))
+
+    def load_candidate(self, params,
+                       hbm_budget_bytes: Optional[int] = None) -> Dict:
+        """Load a candidate trunk beside the resident one into tensors of
+        its own on the device. It must match the resident trunk's tree,
+        shapes and dtypes (ValueError otherwise): its values will be
+        copied into the tensors the graphs read. On the int8 arm it is
+        quantized on the device as the resident was, and its fp32 source
+        waits on the host when `quant_parity_every <= 0`.
+
+        Priced before anything is placed: the device bytes of both arms
+        (the weights; `candidate_status()` reports the graph pool beside
+        them) against `hbm_budget_bytes`, else the card's memory, else
+        (CPU) nothing; `CandidateUnfitError` when they do not fit. The
+        candidate's bytes are the resident's: the same tree. Returns the
+        candidate report (also kept for candidate_status())."""
+        if not _same_structure(self.params, params):
+            raise ValueError(
+                "candidate trunk does not match the resident trunk's "
+                "parameter structure/shapes/dtypes — only a structurally "
+                "identical trunk can take the resident's place in the "
+                "warm graphs")
+        res_dev = param_bytes(self.qparams if self._quantized
+                              else self.params)
+        if self._quantized and self.quant_parity_every > 0:
+            res_dev += param_bytes(self.params)
+        cand_dev = res_dev
+        budget = (hbm_budget_bytes if hbm_budget_bytes is not None
+                  else _device_hbm_bytes(self.device))
+        if budget is not None and res_dev + cand_dev > budget:
+            raise CandidateUnfitError(
+                f"candidate trunk needs {cand_dev} device bytes beside "
+                f"the resident arm's {res_dev} ({res_dev + cand_dev} "
+                f"total > device memory budget {budget}) — serve "
+                "quant='int8' (~0.27x resident bytes) to buy the "
+                "headroom, or raise the budget")
+        placed = _own(params, self.device)
+        cand_q = None
+        if self._quantized:
+            cand_q = quantize_params(placed)
+            if self.quant_parity_every <= 0:
+                # No parity shadow reads it: the fp32 source waits on the
+                # host, as the resident's does.
+                placed = _copy_tree(placed, lambda t: t.cpu())
+        self._sync()
+        report = {
+            "quant": self.quant,
+            "weight_bytes_resident": int(res_dev),
+            "weight_bytes_candidate": int(cand_dev),
+            "hbm_budget_bytes": budget,
+        }
+        with self._arm_lock:
+            released = (self.cand_params, self.cand_qparams)
+            self.cand_params, self.cand_qparams = placed, cand_q
+            self.candidate_report = dict(report)
+        self._drain_shadows()
+        del released
+        return report
+
+    def warm_candidate(self) -> float:
+        """Run the candidate arm eagerly once at every warm shape (no
+        capture: the graph count and pool stay as they were); returns
+        the wall seconds. Each shape is enqueued under the arm lock on
+        the shadow stream and waited for outside it, so live batches
+        keep flowing."""
+        with self._warm_lock:
+            keys = sorted(self._graphs)
+        quantized = self._quantized
+        t0 = time.perf_counter()
+        for kind, L, rows in keys:
+            with self._arm_snapshot("candidate") as (run_params, _):
+                self._device_out(None, self._key_fn(kind, quantized),
+                                 run_params, self._key_inputs(L, rows),
+                                 eager=True)
+            self._drain_shadows()
+        return time.perf_counter() - t0
+
+    def flip(self) -> float:
+        """Promote the candidate: on the live batches' stream, behind
+        every batch already enqueued, park the resident values in pinned
+        host buffers, copy the candidate's values into the resident's
+        own tensors (the graphs keep their addresses) and free the
+        candidate. Batches enqueued before the flip read the old trunk,
+        batches after it the new one; when flip returns the new trunk is
+        live and the park is on the host. On the int8 arm the fp32 tree
+        (read only eagerly) is swapped, the old one parked on the host.
+        Returns the wall seconds."""
+        t0 = time.perf_counter()
+        with self._arm_lock:
+            if self.cand_params is None:
+                raise NoCandidateError(
+                    "flip asked with no candidate trunk loaded")
+            quantized = self._quantized
+            serving = self.qparams if quantized else self.params
+            with self._on_stream(self._stream), torch.inference_mode():
+                parked = _host_copy(serving)
+                _copy_into(serving, self.cand_qparams if quantized
+                           else self.cand_params)
+                if quantized:
+                    parked_fp32 = self._parked(self.params)
+                    self.params = self.cand_params
+                done = self._event(self._stream)
+            released = (self.cand_params, self.cand_qparams)
+            self.cand_params = self.cand_qparams = None
+            self.parked_params = parked_fp32 if quantized else parked
+            self.parked_qparams = parked if quantized else None
+        done()
+        self._drain_shadows()
+        del released
+        return time.perf_counter() - t0
+
+    def rollback(self) -> float:
+        """Return the parked trunk: its host values are copied back into
+        the resident tensors on the live batches' stream (the same
+        graphs, bit for bit the pre-flip numerics), and the demoted trunk
+        moves to the candidate slot in tensors of its own (a fixed
+        re-promotion need not reload). NoCandidateError when nothing is
+        parked. Returns the wall seconds."""
+        t0 = time.perf_counter()
+        with self._arm_lock:
+            if self.parked_params is None:
+                raise NoCandidateError(
+                    "rollback asked with no parked trunk")
+            quantized = self._quantized
+            serving = self.qparams if quantized else self.params
+            parked = self.parked_qparams if quantized else self.parked_params
+            with self._on_stream(self._stream), torch.inference_mode():
+                demoted = _own(serving, self.device)
+                _copy_into(serving, parked)
+                if quantized:
+                    demoted_fp32 = self.params
+                    self.params = (_own(self.parked_params, self.device)
+                                   if self.quant_parity_every > 0
+                                   else self.parked_params)
+                done = self._event(self._stream)
+            self.cand_params = demoted_fp32 if quantized else demoted
+            self.cand_qparams = demoted if quantized else None
+            self.parked_params = self.parked_qparams = None
+        done()
+        return time.perf_counter() - t0
+
+    def unload_candidate(self) -> bool:
+        """Drop the candidate arm (rollout abort or refusal); the resident
+        arm is untouched. Returns whether one was loaded."""
+        with self._arm_lock:
+            released = (self.cand_params, self.cand_qparams)
+            self.cand_params = self.cand_qparams = None
+            self.candidate_report = {}
+        self._drain_shadows()
+        return released[0] is not None
+
+    def candidate_status(self) -> Dict:
+        """Arm occupancy and the candidate report, one atomic read, with
+        the graph pool's bytes beside the weights'."""
+        with self._arm_lock:
+            status = {"loaded": self.cand_params is not None,
+                      "parked": self.parked_params is not None,
+                      **self.candidate_report}
+        status["graph_pool_bytes"] = self.graph_pool_bytes()
+        return status
+
+    def run_candidate(self, kind: str, tokens: np.ndarray,
+                      annotations: Optional[np.ndarray] = None,
+                      heads: Optional[Sequence[LoadedHead]] = None):
+        """`run` on the candidate arm — the shadow entry: the live path's
+        padding and batch class, eager on the shadow stream, waited for
+        before it returns; nothing here touches the parity cadence or a
+        live counter."""
+        result, _ = self.run_timed_async(
+            kind, tokens, annotations, timed=False, heads=heads,
+            arm="candidate").finalize()
+        return result
+
+    def _parked(self, tree):
+        """Where an fp32 tree the flip swaps out waits: itself when it is
+        on the host, else a pinned host copy."""
+        if all(t.device.type == "cpu" for t in _tensors(tree)):
+            return tree
+        return _host_copy(tree)
+
+    @staticmethod
+    def _event(stream) -> Callable[[], None]:
+        """A wait for everything enqueued on `stream` so far."""
+        if stream is None:
+            return lambda: None
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        return ev.synchronize
+
+    def _drain_shadows(self) -> None:
+        """Wait for every shadow request enqueued so far: a dropped
+        candidate arm's tensors may be freed (their memory reused) only
+        once nothing on the shadow stream reads them. Callers drop their
+        last reference after this."""
+        if self._shadow_stream is not None:
+            self._shadow_stream.synchronize()
 
     # ------------------------------------------------- offline batch path
 
@@ -947,7 +1331,8 @@ class RaggedDispatcher(BucketDispatcher):
                                segment_ids: np.ndarray,
                                annotations: np.ndarray,
                                riders: Sequence[Rider], heads=None,
-                               timed: bool = True) -> InFlightBatch:
+                               timed: bool = True,
+                               arm: str = "resident") -> InFlightBatch:
         """Submit one packed batch through the kind's warm shape; the
         returned `InFlightBatch.finalize()` fans per-segment outputs back
         out after the host fetch.
@@ -959,7 +1344,8 @@ class RaggedDispatcher(BucketDispatcher):
         `riders`, timings); each output has the shape the bucketed
         dispatcher returns for that request: {"global" (G,), "local_mean"
         (C,)} / (A,) probs / (span, V) probs; for predict_task (`heads`,
-        one head a rider) the rider's head output."""
+        one head a rider) the rider's head output. `arm` as in the
+        bucketed `run_timed_async`."""
         if kind == NEIGHBORS_KIND:
             kind = "embed"  # identical device work, shared graph
         if (kind == TASK_KIND) != (heads is not None):
@@ -968,7 +1354,7 @@ class RaggedDispatcher(BucketDispatcher):
                 f"{'set' if heads is not None else 'None'} do not agree: "
                 "predict_task batches carry per-rider heads, the other "
                 "kinds never do")
-        quantized, run_params = self._arm()
+        quantized = self._quantized
         fn = (self._trunk_fn(quantized) if heads is not None
               else self._packed_fn(kind, quantized))
         R, L = tokens.shape
@@ -986,23 +1372,26 @@ class RaggedDispatcher(BucketDispatcher):
         t1 = time.perf_counter()
         if timed:
             timings["prep_s"] = round(t1 - t0, 9)
-        parity_due = self._quant_batch_tick(timings)
+        eager = arm == "candidate"
+        parity_due = not eager and self._quant_batch_tick(timings)
         arrays = (tokens, segment_ids, annotations)
+        key = ("trunk" if heads is not None else kind, L, R)
+        tail = (None if heads is None
+                else lambda out: self._head_tails(out, heads))
+        with self._arm_snapshot(arm) as (run_params, ref_params):
+            pending = self._submit(key, fn, run_params, arrays, tail=tail,
+                                   eager=eager)
         if heads is not None:
             hriders = [(h,) + tuple(r) for h, r in zip(heads, riders)]
-            pending = self._submit(
-                ("trunk", L, R), fn, run_params, arrays,
-                tail=lambda out: self._head_tails(out, heads))
 
             def fan_out(host):
                 return heads_apply.riders_of(host, hriders)
 
             def reference():
                 return heads_apply.apply_heads_packed(self._eager(
-                    heads_apply.packed_trunk_batch, arrays), hriders)
+                    heads_apply.packed_trunk_batch, ref_params, arrays),
+                    hriders)
         else:
-            pending = self._submit((kind, L, R), fn, run_params, arrays)
-
             def fan_out(host):
                 outs = []
                 for row, seg, start, span in riders:
@@ -1019,7 +1408,7 @@ class RaggedDispatcher(BucketDispatcher):
 
             def reference():
                 return fan_out(inference.run_batch(
-                    self._packed_fn(kind, False), self.params, self.cfg,
+                    self._packed_fn(kind, False), ref_params, self.cfg,
                     *arrays, device=self.device))
 
         def fetch():
@@ -1030,6 +1419,30 @@ class RaggedDispatcher(BucketDispatcher):
 
         return InFlightBatch(len(riders), timings,
                              self._finalizer(fetch, timings, t1, timed))
+
+    def _key_fn(self, kind: str, quantized: bool):
+        return (self._trunk_fn(quantized) if kind == "trunk"
+                else self._packed_fn(kind, quantized))
+
+    def _key_inputs(self, L: int, rows: int):
+        return self._dummy_packed()[:3]
+
+    def run_candidate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "RaggedDispatcher consumes packed batches only — use "
+            "run_packed_candidate() (Server.shadow_submit builds the "
+            "single-rider packed batch)")
+
+    def run_packed_candidate(self, kind: str, tokens: np.ndarray,
+                             segment_ids: np.ndarray,
+                             annotations: np.ndarray,
+                             riders: Sequence[Rider], heads=None) -> List:
+        """`run_packed` on the candidate arm — the ragged shadow entry
+        (see the bucketed `run_candidate`)."""
+        outs, _ = self.run_packed_timed_async(
+            kind, tokens, segment_ids, annotations, riders, heads=heads,
+            timed=False, arm="candidate").finalize()
+        return outs
 
     def _dummy_packed(self):
         """One valid packed batch (a minimal-span segment per row)."""
@@ -1070,7 +1483,7 @@ class RaggedDispatcher(BucketDispatcher):
                 n += 1
             if TASK_KIND in kinds or self.heads:
                 n += self._warm_trunk(("trunk", L, R),
-                                      self._trunk_fn(self._arm()[0]),
+                                      self._trunk_fn(self._quantized),
                                       (tokens, seg, ann))
         finally:
             self._warming = False

@@ -5,8 +5,10 @@ Every way the serving layer can refuse work has its own type, so callers
 can tell "try again later" (QueueFullError) from "you were too slow"
 (DeadlineExceededError) from "the server is going away"
 (ServerClosedError) from "this input can never be served"
-(SequenceTooLongError). A rejected request always observes its rejection
-— on its future, or raised at submit — never a silent drop.
+(SequenceTooLongError), and a blue-green rollout's capacity refusal
+(CandidateUnfitError) from its state refusal (NoCandidateError). A
+rejected request always observes its rejection — on its future, or
+raised at submit — never a silent drop.
 """
 
 from __future__ import annotations
@@ -32,3 +34,15 @@ class DeadlineExceededError(ServeError):
 class ServerClosedError(ServeError):
     """The server is draining or closed; no new work is accepted (and
     on abort, pending work fails with this)."""
+
+
+class CandidateUnfitError(ServeError):
+    """A candidate trunk (`Server.load_candidate`) does not fit beside
+    the resident one within the device memory budget — the typed refusal
+    of the blue-green rollout (HTTP 409 `candidate_unfit`)."""
+
+
+class NoCandidateError(ServeError):
+    """A rollout verb (flip / rollback / shadow) was asked of a replica
+    that holds no candidate (or no parked) trunk in that slot — a state
+    error, not a capacity one (HTTP 409 `no_candidate`)."""

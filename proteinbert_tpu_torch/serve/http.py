@@ -1,5 +1,5 @@
 """Thin stdlib JSON/HTTP endpoint over the port's `Server` — a copy of
-`proteinbert_tpu/serve/http.py` without the rollout routes.
+`proteinbert_tpu/serve/http.py`.
 
 Deliberately `http.server`, not a framework: the endpoint's job is only
 transport — every serving behavior (batching, backpressure, deadlines,
@@ -30,6 +30,18 @@ Routes (POST bodies and responses are JSON):
                              "trunk_mismatch"})
   POST /v1/heads/remove      {"head_id"} → removed (queued requests for
                              it still complete)
+  POST /v1/rollout/load      {"source", "hbm_budget_bytes"?} → load and
+                             warm a candidate trunk beside the resident
+                             one (through the server's
+                             `candidate_loader`); does not fit → 409
+                             {"type": "candidate_unfit"}
+  POST /v1/rollout/flip      {} → promote the candidate (the old trunk
+                             parked on the host, the result cache
+                             flushed); no candidate → 409
+                             {"type": "no_candidate"}
+  POST /v1/rollout/rollback  {} → back to the parked trunk, bit for bit;
+                             nothing parked → 409 {"type": "no_candidate"}
+  POST /v1/rollout/unload    {} → drop the candidate arm
   GET  /healthz, /stats      → {"ok": true, "mode": "bucketed"|"ragged",
                                "quant": "fp32"|"int8"|"int8_act",
                                "trunk_fingerprint": "...",
@@ -40,9 +52,11 @@ Routes (POST bodies and responses are JSON):
                                the registry snapshot plus raw quantile-
                                window values
 
-The JAX endpoint's blue-green `/v1/rollout/*` routes and the shadow
-header answer 404 "no such route" here, like any unknown path, until the
-rollout is ported.
+Shadow traffic: an inference POST with the header `X-PBT-Shadow: 1`
+runs through the candidate trunk (`Server.shadow_submit`) synchronously
+— the same response shape, but never queued, cached or counted on the
+live path; no candidate loaded → 409 {"type": "no_candidate"}. The
+fleet router mirrors sampled live requests this way.
 
 Every response to an inference POST carries `X-PBT-Request-Id` when the
 server traces (the id of its `serve_request` event); an `X-PBT-Trace`
@@ -50,7 +64,8 @@ header joins the request to a caller's trace id.
 
 Typed-error → status mapping (the backpressure contract, visible to
 clients): QueueFullError → 429, DeadlineExceededError → 504,
-ServerClosedError → 503, UnknownHeadError → 404,
+ServerClosedError → 503, UnknownHeadError → 404, CandidateUnfitError /
+NoCandidateError → 409,
 TrunkMismatchError/SequenceTooLongError/ValueError/bad JSON → 400,
 anything else on the future → 500. `ThreadingHTTPServer` gives one
 thread per connection; they all funnel into the one scheduler through
@@ -67,8 +82,8 @@ from proteinbert_tpu_torch.heads.registry import (
     TrunkMismatchError, UnknownHeadError,
 )
 from proteinbert_tpu_torch.serve.errors import (
-    DeadlineExceededError, QueueFullError, SequenceTooLongError,
-    ServerClosedError,
+    CandidateUnfitError, DeadlineExceededError, NoCandidateError,
+    QueueFullError, SequenceTooLongError, ServerClosedError,
 )
 from proteinbert_tpu_torch.serve.server import Server
 
@@ -179,9 +194,65 @@ def make_handler(server: Server):
                 self._reply(200, {"ok": True, "head_id": head_id,
                                   "heads": server.list_heads()})
 
+        def _rollout_control(self, verb: str) -> None:
+            """POST /v1/rollout/{load,flip,rollback,unload}: the
+            blue-green control plane. Typed 409s: candidate_unfit (the
+            memory refusal) and no_candidate (flip or rollback with an
+            empty slot)."""
+            try:
+                if verb != "load":
+                    # Read any (ignored) body so keep-alive framing
+                    # stays in step.
+                    length = int(self.headers.get("Content-Length", 0)
+                                 or 0)
+                    if length > 0:
+                        self.rfile.read(min(length, _MAX_BODY))
+                if verb == "load":
+                    body = self._read_body()
+                    source = body["source"]
+                    if not isinstance(source, str):
+                        raise ValueError("'source' must be a string")
+                    budget = body.get("hbm_budget_bytes")
+                    if budget is not None and (
+                            isinstance(budget, bool)
+                            or not isinstance(budget, int)):
+                        raise ValueError(
+                            "'hbm_budget_bytes' must be an integer")
+                    out = server.load_candidate(source=source,
+                                                hbm_budget_bytes=budget)
+                elif verb == "flip":
+                    out = server.flip()
+                elif verb == "rollback":
+                    out = server.rollback_trunk()
+                else:  # unload
+                    out = {"unloaded": server.unload_candidate()}
+            except CandidateUnfitError as e:
+                self._reply(409, {"error": str(e),
+                                  "type": "candidate_unfit"})
+            except NoCandidateError as e:
+                self._reply(409, {"error": str(e),
+                                  "type": "no_candidate"})
+            except (KeyError, ValueError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": f"bad request: {e}",
+                                  "type": "bad_request"})
+            except Exception as e:  # noqa: BLE001 — a loader or
+                # placement failure must answer, not drop the connection.
+                self._reply(500, {"error": f"internal error: {e}",
+                                  "type": "internal"})
+            else:
+                self._reply(200, {"ok": True, **out})
+
         def do_POST(self):
             if self.path in ("/v1/heads/add", "/v1/heads/remove"):
                 self._head_lifecycle(add=self.path.endswith("/add"))
+                return
+            if self.path.startswith("/v1/rollout/"):
+                verb = self.path[len("/v1/rollout/"):]
+                if verb not in ("load", "flip", "rollback", "unload"):
+                    self._reply(404,
+                                {"error": f"no such route {self.path}"})
+                    return
+                self._rollout_control(verb)
                 return
             route = {"/v1/embed": "embed",
                      "/v1/predict_go": "predict_go",
@@ -219,14 +290,21 @@ def make_handler(server: Server):
                     head_id = body["head_id"]
                     if not isinstance(head_id, str):
                         raise ValueError("'head_id' must be a string")
-                future = server.submit(
-                    kind, seq, annotations=body.get("annotations"),
-                    deadline_s=(deadline_ms / 1000.0
-                                if deadline_ms is not None else None),
-                    top_k=top_k, head_id=head_id,
-                    trace_id=self.headers.get("X-PBT-Trace"))
-                request_id = getattr(future, "pbt_request_id", None)
-                value = future.result()
+                if self.headers.get("X-PBT-Shadow") == "1":
+                    # The router's mirrored copy of a live request: the
+                    # candidate arm, synchronously, off the live books.
+                    value = server.shadow_submit(
+                        kind, seq, annotations=body.get("annotations"),
+                        head_id=head_id, top_k=top_k)
+                else:
+                    future = server.submit(
+                        kind, seq, annotations=body.get("annotations"),
+                        deadline_s=(deadline_ms / 1000.0
+                                    if deadline_ms is not None else None),
+                        top_k=top_k, head_id=head_id,
+                        trace_id=self.headers.get("X-PBT-Trace"))
+                    request_id = getattr(future, "pbt_request_id", None)
+                    value = future.result()
             except UnknownHeadError as e:
                 # The typed 404: this head is not on this server (never
                 # added, or removed); a route 404 has no "type".
@@ -246,6 +324,12 @@ def make_handler(server: Server):
             except SequenceTooLongError as e:
                 self._reply(400, {"error": str(e), "type": "too_long"},
                             getattr(e, "pbt_request_id", request_id))
+            except NoCandidateError as e:
+                # A shadow asked of an empty candidate slot (a race with
+                # unload or flip): the mirror records it, the live books
+                # do not.
+                self._reply(409, {"error": str(e),
+                                  "type": "no_candidate"}, request_id)
             except (KeyError, ValueError, json.JSONDecodeError) as e:
                 self._reply(400, {"error": f"bad request: {e}",
                                   "type": "bad_request"}, request_id)
@@ -261,11 +345,19 @@ def make_handler(server: Server):
     return Handler
 
 
+class _BurstHTTPServer(ThreadingHTTPServer):
+    # socketserver's listen backlog of 5 resets the connections of a
+    # burst (a fleet router fanning out a hundred clients at once); the
+    # handler threads, not the backlog, are what bounds concurrency.
+    request_queue_size = 1024
+
+
 def make_http_server(server: Server, host: str = "127.0.0.1",
                      port: int = 0) -> ThreadingHTTPServer:
     """Bind (port 0 = ephemeral; read `.server_address[1]`) but do not
     serve — callers run `.serve_forever()` themselves, so shutdown stays
-    in their hands."""
-    httpd = ThreadingHTTPServer((host, port), make_handler(server))
+    in their hands. The listen backlog is 1024 connections (the JAX
+    shim's is socketserver's 5)."""
+    httpd = _BurstHTTPServer((host, port), make_handler(server))
     httpd.daemon_threads = True
     return httpd

@@ -1,6 +1,5 @@
 """`Server` — the online-inference facade, bucketed and ragged modes —
-port of `proteinbert_tpu/serve/server.py` (the blue-green rollout arm is
-not ported yet).
+port of `proteinbert_tpu/serve/server.py`.
 
 Ties the queue, scheduler, dispatcher and cache together behind the
 capabilities of the offline surface (inference.py): `embed`,
@@ -32,6 +31,21 @@ fingerprint other than `trunk_fp()` raises `TrunkMismatchError` at
 attach. Answers are cached under "neighbors:<digest16>:k<k>:p<nprobe>";
 `neighbors_requests_total{outcome=}` counts every neighbours request's
 outcome (`stats()["neighbors"]`).
+
+Blue-green rollout: `load_candidate(params=)` (or `source=` through
+`candidate_loader=`) loads a candidate trunk beside the resident one and
+warms it eagerly at every warm shape (no graph is captured for it; a
+refusal is the typed `CandidateUnfitError`); `shadow_submit` runs one
+request through it, synchronously and invisibly to every live counter
+but `shadow_total`; `flip` promotes it (serve/dispatch.py: its values are
+copied into the resident tensors behind the batches in flight, so every
+graph stays valid), flushes the result cache and emits `rollout_flip`;
+`rollback_trunk` restores the parked trunk bit for bit; `rollout_status`
+(also `stats()["rollout"]`, so `/healthz`) carries each arm's
+fingerprint. A request admitted before a flip never fills the cache for
+one admitted after it: the cache scope carries the trunk's epoch. A flip
+writes into the tensors the server was given (on the fp32 arm, the
+caller's params tree), so no two servers may share one params tree.
 
 Request life cycle:
 
@@ -115,6 +129,7 @@ import torch
 from proteinbert_tpu_torch import DeviceLike
 from proteinbert_tpu_torch import inference
 from proteinbert_tpu_torch.configs import PretrainConfig
+from proteinbert_tpu_torch.data.vocab import PAD_ID
 from proteinbert_tpu_torch.heads.registry import (
     HeadRegistry, LoadedHead, TrunkMismatchError, UnknownHeadError,
     trunk_fingerprint,
@@ -178,6 +193,7 @@ class Server:
         heads=None,
         index=None,
         nprobe: int = 8,
+        candidate_loader=None,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
@@ -321,6 +337,16 @@ class Server:
                 # Lookups run on their own stream, apart from the graph
                 # replays; each waits for its stream before returning.
                 self._lookup_stream = torch.cuda.Stream(index.device)
+        # Blue-green rollout: the fingerprints of the candidate and parked
+        # arms, the loader that resolves a rollout `source` to a params
+        # tree, the shadow requests run (the one counter shadows touch)
+        # and the trunk's epoch (flips and rollbacks so far), which
+        # scopes the cache keys.
+        self.candidate_loader = candidate_loader
+        self._candidate_fp: Optional[str] = None
+        self._parked_fp: Optional[str] = None
+        self.shadow_total = 0                # guarded-by: _mirror_lock
+        self._trunk_epoch = 0
 
     def _bump(self, mirror: str, reason: Optional[str] = None) -> None:
         with self._mirror_lock:
@@ -475,6 +501,164 @@ class Server:
         """[{head_id, name, kind, num_outputs}] of the servable heads."""
         return self.dispatcher.list_heads()
 
+    # ------------------------------------------------ blue-green rollout
+
+    def load_candidate(self, params=None, source: Optional[str] = None,
+                       hbm_budget_bytes: Optional[int] = None
+                       ) -> Dict[str, Any]:
+        """Load a candidate trunk beside the resident one and warm it
+        eagerly at every warm shape. Pass the params tree or a `source`
+        for the server's `candidate_loader`. Priced in device memory
+        with the typed `CandidateUnfitError` refusal (dispatch.
+        load_candidate). Returns the candidate report {fingerprint,
+        warm_seconds, weight bytes, ...}."""
+        if (params is None) == (source is None):
+            raise ValueError("pass exactly one of params= / source=")
+        if params is None:
+            if self.candidate_loader is None:
+                raise ValueError(
+                    "this server has no candidate_loader — pass the "
+                    "params tree directly, or construct the server "
+                    "with candidate_loader=")
+            params = self.candidate_loader(source)
+        # Fingerprint before the dispatcher quantizes or places the tree.
+        fp = trunk_fingerprint(params, self.cfg.model.scan_blocks)
+        report = self.dispatcher.load_candidate(
+            params, hbm_budget_bytes=hbm_budget_bytes)
+        warm_s = self.dispatcher.warm_candidate()
+        self._candidate_fp = fp
+        report = dict(report, fingerprint=fp,
+                      warm_seconds=round(warm_s, 6))
+        self.tele.emit("rollout_state", state="candidate_loaded",
+                       fingerprint=fp, source=source or "params")
+        return report
+
+    def unload_candidate(self) -> bool:
+        """Drop the candidate arm (abort / gate refusal); returns
+        whether one was loaded. The resident arm is untouched."""
+        had = self.dispatcher.unload_candidate()
+        if had:
+            fp = self._candidate_fp
+            self._candidate_fp = None
+            self.tele.emit("rollout_state", state="candidate_unloaded",
+                           fingerprint=fp or "")
+        return had
+
+    def flip(self) -> Dict[str, Any]:
+        """Promote the candidate (dispatch.flip: batches in flight finish
+        on the trunk they entered with, no batch is torn), park the old
+        trunk on the host, and flush the result cache: answers the old
+        trunk computed must not outlive it."""
+        old_fp = self.trunk_fp()
+        seconds = self.dispatcher.flip()
+        self._trunk_epoch += 1
+        self._parked_fp = old_fp
+        self._trunk_fp = self._candidate_fp
+        self._candidate_fp = None
+        dropped = self.cache.clear()
+        self.tele.emit("rollout_flip",
+                       replica=self.replica_id or "local", phase="flip",
+                       seconds=round(seconds, 6),
+                       fingerprint=self._trunk_fp or "", ok=True)
+        return {"seconds": round(seconds, 6),
+                "fingerprint": self._trunk_fp,
+                "parked_fingerprint": self._parked_fp,
+                "cache_dropped": dropped}
+
+    def rollback_trunk(self) -> Dict[str, Any]:
+        """Return to the parked trunk, bit for bit its numerics
+        (dispatch.rollback); the demoted trunk moves to the candidate
+        slot. Flushes the cache for the same reason flip() does."""
+        demoted_fp = self.trunk_fp()
+        seconds = self.dispatcher.rollback()
+        self._trunk_epoch += 1
+        self._trunk_fp = self._parked_fp
+        self._candidate_fp = demoted_fp
+        self._parked_fp = None
+        dropped = self.cache.clear()
+        self.tele.emit("rollout_flip",
+                       replica=self.replica_id or "local",
+                       phase="rollback", seconds=round(seconds, 6),
+                       fingerprint=self._trunk_fp or "", ok=True)
+        return {"seconds": round(seconds, 6),
+                "fingerprint": self._trunk_fp,
+                "cache_dropped": dropped}
+
+    def shadow_submit(self, kind: str, seq: str, annotations=None,
+                      head_id: Optional[str] = None,
+                      top_k: Optional[int] = None):
+        """Run one request through the candidate arm, synchronously and
+        invisibly: the live path's tokenization, bucketing and result
+        shaping, but never the queue, the cache, the SLO evaluator or a
+        live counter — only `shadow_total`. NoCandidateError when no
+        candidate is loaded. `neighbors` is refused: the index pins the
+        resident trunk's embedding space."""
+        if kind == NEIGHBORS_KIND:
+            raise ValueError(
+                "neighbors cannot shadow: the ANN index pins the "
+                "resident trunk's embedding space")
+        if kind not in KINDS and kind != TASK_KIND:
+            raise ValueError(f"unknown request kind {kind!r}; have "
+                             f"{KINDS + (TASK_KIND,)}")
+        if (kind == TASK_KIND) != (head_id is not None):
+            raise ValueError(
+                f"head_id is required for kind {TASK_KIND!r} and "
+                "invalid for every other kind")
+        if not seq:
+            raise ValueError("empty sequence")
+        head = (self.dispatcher.get_head(head_id)
+                if kind == TASK_KIND else None)
+        if annotations is not None:
+            annotations = inference.check_annotations(
+                np.asarray(annotations, np.float32)[None], 1, self.cfg)[0]
+        bucket_len = self.dispatcher.bucket_len(len(seq))
+        tokens = inference._tokenize_masked(
+            [seq], self.cfg.data.seq_len, on_overflow="count")[0]
+        if self.serve_mode == "ragged":
+            # One real rider in row 0 of an otherwise-dummy packed grid;
+            # the other rows compute but fan out to nobody.
+            tok, seg, ann, _ = self.dispatcher._dummy_packed()
+            tok[0, :] = PAD_ID
+            tok[0, :bucket_len] = tokens[:bucket_len]
+            seg[0, :] = 0
+            seg[0, :bucket_len] = 1
+            if annotations is not None:
+                ann[0, 0] = annotations
+            row = self.dispatcher.run_packed_candidate(
+                kind, tok, seg, ann, [(0, 0, 0, bucket_len)],
+                heads=[head] if head is not None else None)[0]
+        else:
+            out = self.dispatcher.run_candidate(
+                kind, tokens[None, :bucket_len],
+                annotations[None] if annotations is not None else None,
+                heads=[head] if head is not None else None)
+            row = ({k: v[0] for k, v in out.items()} if kind == "embed"
+                   else out[0])
+        if kind == "embed":
+            value = {"global": np.asarray(row["global"]),
+                     "local_mean": np.asarray(row["local_mean"])}
+        elif kind in ("predict_go", TASK_KIND):
+            value = np.asarray(row)
+        else:  # predict_residues
+            probs = np.asarray(row)
+            value = (inference.fill_masked_residues(
+                seq, probs, self.cfg.data.seq_len - 2), probs)
+        self._bump("shadow_total")
+        return self._present(kind, value, top_k)
+
+    def rollout_status(self) -> Dict[str, Any]:
+        """The replica's arms — on `/healthz` (through stats()) so the
+        fleet's health sweep sees the fingerprint of each arm."""
+        with self._mirror_lock:
+            shadow = self.shadow_total
+        return {
+            "resident_fingerprint": self.trunk_fp(),
+            "candidate_fingerprint": self._candidate_fp,
+            "parked_fingerprint": self._parked_fp,
+            "shadow_requests": shadow,
+            "candidate": self.dispatcher.candidate_status(),
+        }
+
     # ------------------------------------------------------------- submit
 
     def submit(self, kind: str, seq: str, annotations=None,
@@ -576,6 +760,11 @@ class Server:
                 # A head id addresses its weights, task and trunk, so
                 # the scope keys a task answer to the head that made it.
                 scope = f"{kind}:{head.head_id}"
+            if self._trunk_epoch:
+                # An answer computed before a flip keys under the epoch
+                # its request was admitted in, out of later requests'
+                # reach.
+                scope = f"{scope}@trunk{self._trunk_epoch}"
             key = content_key(scope, seq, annotations)
             hit = self.cache.get(key)
             if hit is not None:
@@ -829,6 +1018,9 @@ class Server:
             # Window depth, the deepest the window got, and the share of
             # finalize seconds that overlapped a later batch's compute.
             "pipeline": self.scheduler.pipeline_stats(),
+            # Each arm's fingerprint and the shadow count: what the
+            # fleet's health sweep joins on.
+            "rollout": self.rollout_status(),
         }
         # The neighbour-index arm: which index serves, its size, and how
         # many distinct lookup shapes have run.

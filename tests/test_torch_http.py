@@ -5,11 +5,11 @@ rtol = atol = 1e-5 (float32 trunks, the same arithmetic in another
 summation order: the JAX-against-port tolerance of test_torch_ragged.py;
 the two differ by up to ~1.4e-6 here) and the port's own in-process
 answer within test_torch_serve.py's 1e-6, with the same status codes for
-a bad body, an unknown route and a closed server; the routes of modules
-the port does not have yet answer 404 "no such route", the task-head
-routes the typed 404 for an unknown head; traced responses carry
-X-PBT-Request-Id and join a caller's X-PBT-Trace; /healthz, /stats,
-/metrics and /metrics.json answer."""
+a bad body, an unknown route and a closed server; the task-head routes
+answer the typed 404 for an unknown head, the rollout routes their typed
+400 and 409, and `X-PBT-Shadow` answers from the candidate arm; traced
+responses carry X-PBT-Request-Id and join a caller's X-PBT-Trace;
+/healthz, /stats, /metrics and /metrics.json answer."""
 
 import json
 import threading
@@ -160,24 +160,63 @@ def test_error_status_mapping_matches_the_jax_server(endpoints, route,
     "/v1/predict_task", "/v1/neighbors", "/v1/heads/add",
     "/v1/heads/remove", "/v1/rollout/load", "/v1/rollout/flip"])
 def test_routes_of_unported_modules_answer_404(endpoints, route):
-    """The rollout routes are not served ("no such route"); the task-head
-    routes are, and answer an unknown head with the typed 404 the JAX
-    shim gives (the port's server has a registry without that head, so
-    /v1/heads/add reaches it too); /v1/neighbors is served, and a server
-    without an index answers it with the JAX shim's 400."""
-    status, body, _ = _post(endpoints["port"].base + route,
-                            {"seq": "MKT", "head_id": "h"})
-    if route == "/v1/neighbors":
-        assert status == 400 and body["type"] == "bad_request", body
-        assert "no neighbor index" in body["error"]
-    else:
-        assert status == 404
-    if route in ("/v1/predict_task", "/v1/heads/add", "/v1/heads/remove"):
-        assert body["type"] == "unknown_head", body
-    elif route != "/v1/neighbors":
-        assert body["error"] == f"no such route {route}"
+    """Every route is served now, each with the JAX shim's typed answer to
+    this body: the task-head routes the typed 404 for an unknown head
+    (the port's server has a registry without that head, so
+    /v1/heads/add reaches it too); /v1/neighbors, from a server without
+    an index, 400; /v1/rollout/load without a `source` 400, and
+    /v1/rollout/flip with an empty candidate slot the typed 409."""
+    for name, ep in endpoints.items():
+        status, body, _ = _post(ep.base + route,
+                                {"seq": "MKT", "head_id": "h"})
+        if route == "/v1/neighbors":
+            assert status == 400 and body["type"] == "bad_request", body
+            assert "no neighbor index" in body["error"]
+        elif route == "/v1/rollout/load":
+            assert status == 400 and body["type"] == "bad_request", body
+        elif route == "/v1/rollout/flip":
+            assert status == 409 and body["type"] == "no_candidate", body
+        elif name == "port":
+            assert status == 404 and body["type"] == "unknown_head", body
     status, body, _ = _get(endpoints["port"].base + "/v1/heads")
     assert status == 200 and json.loads(body) == {"heads": []}
+
+
+def test_shadow_header_runs_the_candidate_arm(endpoints):
+    """`X-PBT-Shadow: 1` answers from the candidate trunk: the in-process
+    `shadow_submit` exactly, the JAX shim's shadow within RTOL; without
+    a candidate the typed 409; the live books do not move."""
+    jparams = jmodel.init(jax.random.PRNGKey(6), jax_preset("tiny").model)
+    cand = jax.tree.map(lambda a: a * 1.01, jparams)
+    shadow = {"X-PBT-Shadow": "1"}
+    for ep in endpoints.values():
+        status, body, _ = _post(ep.base + "/v1/embed", {"seq": "MKT"},
+                                headers=shadow)
+        assert status == 409 and body["type"] == "no_candidate"
+    endpoints["jax"].srv.load_candidate(params=cand)
+    endpoints["port"].srv.load_candidate(params=params_from_flat(
+        flatten_params(cand), get_preset("tiny").model, device="cpu"))
+    try:
+        srv = endpoints["port"].srv
+        completed = srv.stats()["completed"]
+        got = {k: _post(ep.base + "/v1/embed", {"seq": SEQS[1]},
+                        headers=shadow)
+               for k, ep in endpoints.items()}
+        assert got["port"][0] == got["jax"][0] == 200
+        want = srv.shadow_submit("embed", SEQS[1])
+        live = srv.embed(SEQS[1], timeout=60)
+        for key in ("global", "local_mean"):
+            assert np.array_equal(np.asarray(got["port"][1][key],
+                                             np.float32), want[key])
+            np.testing.assert_allclose(got["port"][1][key],
+                                       got["jax"][1][key], rtol=RTOL,
+                                       atol=ATOL)
+            assert not np.array_equal(want[key], live[key])
+        assert srv.stats()["completed"] == completed + 1
+        assert srv.rollout_status()["shadow_requests"] == 2
+    finally:
+        for ep in endpoints.values():
+            assert ep.srv.unload_candidate()
 
 
 def test_request_ids_and_trace_join(endpoints):

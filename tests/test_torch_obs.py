@@ -1,11 +1,13 @@
 """The port's telemetry (`proteinbert_tpu_torch.obs`) on the CPU — the
 counterparts of the JAX package's tests/test_obs.py for the copied
 modules (event schema round trip, metrics registry, span tracing, flight
-recorder) — and its parity with the JAX package: each copy is its JAX
-module but for docstrings, imports and the profiler hook; the port's
-streams validate under both packages' validators; a short `pretrain`
-emits a stream whose `step` metrics have the JAX stream's keys; the packed
-iterator fills the registry with the JAX iterator's names and values."""
+recorder) — and its parity with the JAX package: each copy (the obs
+modules, train/resilience.py, serve/cache.py, serve/fleet.py,
+rollout/controller.py) is its JAX module but for docstrings, imports and
+the profiler hook; the port's streams validate under both packages'
+validators; a short `pretrain` emits a stream whose `step` metrics have
+the JAX stream's keys; the packed iterator fills the registry with the
+JAX iterator's names and values."""
 
 import ast
 import importlib.util
@@ -47,7 +49,8 @@ def _body(source: str, drop=()):
 
 @pytest.mark.parametrize("module", [
     "obs/events.py", "obs/flight.py", "obs/metrics.py", "obs/tracing.py",
-    "train/resilience.py"])
+    "train/resilience.py", "serve/cache.py", "serve/fleet.py",
+    "rollout/controller.py"])
 def test_copies_differ_from_jax_only_in_docstrings_imports_and_hook(module):
     """A copy is its JAX module but for docstrings and imports; tracing
     also swaps its profiler hook (`_jax_annotation` → `_torch_annotation`,

@@ -835,8 +835,10 @@ def test_fp32_tree_residency(pair):
     assert parked.quant_report["fp32_resident"] == "host"
     assert all(t.device.type == "cpu" for t in jax.tree.leaves(
         parked.params, is_leaf=lambda x: isinstance(x, torch.Tensor)))
-    quantized, run_params = parked._arm()
-    assert quantized and run_params is parked.qparams
+    assert parked._quantized
+    with parked._arm_snapshot() as (run_params, ref_params):
+        assert run_params is parked.qparams
+        assert ref_params is parked.params
     shadow = BucketDispatcher(tparams, tcfg, buckets=BUCKETS, device="cpu",
                               quant="int8", quant_parity_every=2)
     assert shadow.quant_report["fp32_resident"] == "device"
