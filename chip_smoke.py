@@ -14,6 +14,9 @@ card.
     python3 chip_smoke.py --phase neighbors # map, index, /v1/neighbors;
                                             # the int8 arm at Large
     python3 chip_smoke.py --phase rollout   # blue-green trunk rollout
+    python3 chip_smoke.py --phase cli       # the command line's verbs
+    python3 chip_smoke.py --cli-first       # the full run, with the cli
+                                            # phase once more up front
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
@@ -282,7 +285,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               load, warm, flip and rollback, the weight bytes of each
               arm, a shadow's wall, the routed p50 / p99 with the mirror
               off and on, and the router's hop.
-10. report  — the kernel JSON line, the card's name and power limit, and the
+10. cli     — `cli_phase`, `# cli base ...`: the port's command line
+              (`python -m proteinbert_tpu_torch`) at the `base` preset
+              (`--set mesh.data=1`), seeded random weights: a flat NPZ
+              through `import-weights` and back through `export-weights`
+              bit for bit; `embed` and `predict-go` in this process (16
+              proteins, batch 8: exactly 6 K1 + 6 K2 a batch, answers
+              those of `inference.embed` / `predict_go` bit for bit);
+              `map --fasta` in this process (384 proteins, buckets
+              128/256/512: exactly 6 #3 + 6 K2 a packed batch) with `map
+              --verify`, `index` and `index --verify` ok; `serve`
+              bucketed and `--serve-mode ragged --quant int8` as
+              subprocesses (36 lone HTTP requests each, answers within
+              SERVE_EMBED_TOL of an in-process Server's on the same
+              trunk, p50 / p99; SIGTERM -> exit 0, `serve_end{drained}`
+              last); `fleet --replicas 2` (16 routed requests, SIGTERM ->
+              exit 0); `embed` with CUDA_VISIBLE_DEVICES="" and no
+              --device exits non-zero with the device message; `pretrain
+              --set data.batch_size=8` as a subprocess alone on the card,
+              SIGTERM after a few logged steps -> exit 75, resumed from
+              the saved step -> exit 0, the median step ms. The
+              subprocesses run from this checkout (PYTHONPATH) and load
+              the kernels phase 1 built. The fleet's routed answers are
+              held against the bucketed in-process Server's. A `# host
+              census` opens the phase and closes the run: threads, live
+              descendant processes and the CPU seconds each used over 2 s
+              of idle, the machine's busy share, the card's SM clock.
+11. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -306,7 +335,10 @@ commit's package (copy this script into its `git archive`).
 result line. `--phase neighbors` runs the build and phase 8 alone
 (`neighbors_phase`, then `large_int8_phase`), every gate, no result
 line. `--phase rollout` runs the build and phase 9 alone, every gate, no
-result line.
+result line. `--phase cli` runs the build and phase 10 alone, every gate,
+no result line. `--cli-first` is the full run with phase 10 run once more
+right after the build, its launches not counted, so that the phase's
+numbers first and last in one process stand side by side.
 """
 
 from __future__ import annotations
@@ -5586,16 +5618,508 @@ def rollout_phase(card: str) -> dict:
     return tally.totals
 
 
+# The cli phase's preset: `base` on the card (a CPU rehearsal may name
+# `tiny`), run on one card (`--set mesh.data=1`).
+CLI_PRESET = "base"
+CLI_TIMEOUT = 300     # seconds a CLI subprocess may take to boot or finish
+CLI_SERVED = 36       # timed lone requests per served arm
+
+
+def cli_main(*argv) -> tuple:
+    """(exit code, stdout) of `cli.main.main` in this process, on DEVICE.
+    The log handler is attached to the real stdout first (`start_log`), so
+    only the verb's own prints are captured."""
+    import contextlib
+    import io
+
+    from proteinbert_tpu_torch.cli.main import main
+    from proteinbert_tpu_torch.utils.logging import start_log
+
+    start_log()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--device", DEVICE, *map(str, argv)])
+    return rc, buf.getvalue()
+
+
+def cli_spawn(argv, log_path: str, device: bool = True, **env):
+    """`python -m proteinbert_tpu_torch [--device DEVICE] <argv>` from this
+    checkout, its output into `log_path`."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    head = ["--device", DEVICE] if device else []
+    with open(log_path, "wb") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "proteinbert_tpu_torch", *head,
+             *map(str, argv)], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo, **env), stdout=log,
+            stderr=subprocess.STDOUT)
+
+
+def cli_wait_file(path: str, proc, label: str, lines: int = 1) -> str:
+    """The text of `path` once it holds `lines` lines (the process still
+    running), within CLI_TIMEOUT."""
+    deadline = time.monotonic() + CLI_TIMEOUT
+    while True:
+        text = open(path).read() if os.path.exists(path) else ""
+        if text.strip() and len(text.splitlines()) >= lines:
+            return text
+        check(proc.poll() is None, f"cli {label}: exited {proc.returncode} "
+                                   "before writing " + path)
+        check(time.monotonic() < deadline, f"cli {label}: no {path} within "
+                                           f"{CLI_TIMEOUT} s")
+        time.sleep(0.1)
+
+
+def cli_exit(proc, label: str, sig=None) -> int:
+    if sig is not None:
+        proc.send_signal(sig)
+    try:
+        return proc.wait(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        check(False, f"cli {label}: did not exit within {CLI_TIMEOUT} s")
+
+
+def cli_served(card: str, label: str, url: str, srv, reqs) -> None:
+    """Warm each request kind once, then `reqs` one at a time over HTTP
+    to the served CLI process at `url`: every answer 200 and within
+    SERVE_EMBED_TOL of the same request alone on the in-process `srv` (same
+    trunk, same arm), fills equal. Prints the lone request's p50 / p99."""
+    for kind, seq in traffic(3, seed=61):
+        status, _ = http_post(f"{url}/v1/{kind}", {"seq": seq})
+        check(status == 200, f"cli {label}: warm {kind} answered {status}")
+        srv.submit(kind, seq).result(timeout=120)
+    walls, worst = [], 0.0
+    for kind, seq in reqs:
+        t0 = time.perf_counter()
+        status, body = http_post(f"{url}/v1/{kind}", {"seq": seq})
+        walls.append(time.perf_counter() - t0)
+        check(status == 200, f"cli {label}: {kind} answered {status}: {body}")
+        want = srv.submit(kind, seq).result(timeout=120)
+        if kind == "embed":
+            for key in ("global", "local_mean"):
+                worst = max(worst, float(np.abs(np.asarray(
+                    body[key], np.float32) - want[key]).max()))
+        elif kind == "predict_go":
+            worst = max(worst, float(np.abs(np.asarray(
+                body["probs"], np.float32) - want).max()))
+        else:
+            check(body["filled"] == want[0],
+                  f"cli {label}: predict_residues fill differs")
+    print(f"# cli {CLI_PRESET} serve {label} [{card}]: {len(reqs)} lone "
+          f"HTTP requests (20-500 residues, the three kinds in turn) to "
+          f"`serve` started from the command line: p50 "
+          f"{pct_ms(walls, 0.5):.2f} ms, p99 {pct_ms(walls, 0.99):.2f} ms "
+          f"(host wall per request, 127.0.0.1); answers vs the same "
+          f"requests on an in-process Server: max |diff| {worst:.3e} (tol "
+          f"{SERVE_EMBED_TOL}), fills equal")
+    check(worst <= SERVE_EMBED_TOL, f"cli {label}: answers differ by {worst}")
+
+
+def host_census(label: str, window_s: float = 2.0) -> None:
+    """`# host census <label>`: what runs beside the next phase. This
+    process's threads (their Python names) and live descendant processes,
+    the CPU seconds each used over `window_s` of sleep here, the
+    machine's busy share over the same window (/proc/stat), and the
+    card's SM clock, temperature and power draw. A thread or process
+    that an earlier phase left running shows here."""
+    tick = os.sysconf("SC_CLK_TCK")
+
+    def stat(path):  # (ppid, CPU seconds) of a /proc stat file, or None
+        try:
+            with open(path) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            return None
+        return int(fields[1]), (int(fields[11]) + int(fields[12])) / tick
+
+    def machine():  # (busy, total) jiffies of all cores
+        with open("/proc/stat") as f:
+            v = [int(x) for x in f.readline().split()[1:]]
+        return sum(v) - v[3] - v[4], sum(v)
+
+    def descendants():
+        kids = {}
+        for d in os.listdir("/proc"):
+            if d.isdigit() and (got := stat(f"/proc/{d}/stat")):
+                kids.setdefault(got[0], []).append(int(d))
+        out, todo = [], [os.getpid()]
+        while todo:
+            for kid in kids.get(todo.pop(), []):
+                out.append(kid)
+                todo.append(kid)
+        return out
+
+    def snapshot():
+        tids = {int(t): stat(f"/proc/self/task/{t}/stat")
+                for t in os.listdir("/proc/self/task")}
+        return ({t: v[1] for t, v in tids.items() if v},
+                {p: v[1] for p in kids if (v := stat(f"/proc/{p}/stat"))},
+                machine())
+
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    kids = descendants()
+    t0, k0, (b0, n0) = snapshot()
+    time.sleep(window_s)
+    t1, k1, (b1, n1) = snapshot()
+    busy = sorted(((t1[t] - t0.get(t, 0.0), t) for t in t1), reverse=True)
+    hot = [f"{names.get(t, 'native')} {dt:.2f} s" for dt, t in busy[:4]
+           if dt > 0.0]
+    cmds = []
+    for p in kids:
+        try:
+            with open(f"/proc/{p}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode()[:120]
+        except OSError:
+            continue
+        cmds.append(f"{p} [{k1.get(p, 0.0) - k0.get(p, 0.0):.2f} s] {cmd}")
+    try:
+        gpu = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,"
+             "power.draw", "--format=csv,noheader"], capture_output=True,
+            text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        gpu = f"not read ({e})"
+    cpu = os.times()
+    print(f"# host census {label}: {len(t1)} threads ({len(names)} Python: "
+          f"{', '.join(sorted(names.values()))}); over {window_s:.1f} s of "
+          f"sleep this process used {sum(busy_s for busy_s, _ in busy):.2f}"
+          f" CPU s (busiest: {', '.join(hot) or 'none'}), the machine "
+          f"{100.0 * (b1 - b0) / max(n1 - n0, 1):.1f}% busy of "
+          f"{os.cpu_count()} cores; this process's CPU so far "
+          f"{cpu.user + cpu.system:.1f} s; {len(cmds)} live descendant "
+          f"processes{': ' if cmds else ''}{'; '.join(cmds)}; card SM "
+          f"clock, temperature, power: {gpu}")
+
+
+def cli_phase(card: str) -> dict:
+    """`# cli base ...`: the port's command line (`python -m
+    proteinbert_tpu_torch`) on the card at the `base` preset (6 blocks,
+    C=G=512, H=8, 8943 annotations, bf16), `--set mesh.data=1`, seeded
+    random weights, synthetic proteins.
+
+    1. `import-weights` of a flat NPZ of seeded params, then
+       `export-weights` of the run: the NPZ back bit for bit.
+    2. `embed` and `predict-go` in this process over 16 proteins, batch 8:
+       exactly 6 K1 + 6 K2 a batch and nothing else; the answers those of
+       `inference.embed` / `predict_go` on the loaded trunk, bit for bit.
+    3. `map --fasta` in this process over 384 proteins (buckets
+       128/256/512, 2 shards of 64-record blocks): exactly 6 #3 + 6 K2 a
+       packed batch; `map --verify`, `index`, `index --verify` ok.
+    4. `serve` as a subprocess, bucketed and `--serve-mode ragged --quant
+       int8`: CLI_SERVED lone HTTP requests each, answers against an
+       in-process Server on the same trunk and arm; SIGTERM → exit 0, the
+       stream ending `serve_end{drained}`. `fleet --replicas 2`: 16 routed
+       embeds answered within SERVE_EMBED_TOL of the bucketed in-process
+       Server's, SIGTERM → exit 0.
+    5. With CUDA_VISIBLE_DEVICES="" and no --device, `embed` exits
+       non-zero with the device message.
+    6. `pretrain --set data.batch_size=8` as a subprocess, alone on the
+       card: SIGTERM after a few logged steps → exit 75; the same command
+       with --max-steps 4 past the saved step → exit 0, its steps
+       continuing from the saved one. Prints the median step ms.
+    The servers, the fleet and the no-card check boot while steps 1-3
+    run. A `host_census` opens the phase. Returns the launches of steps 2
+    and 3."""
+    from proteinbert_tpu_torch import inference, obs
+    from proteinbert_tpu_torch.cli.main import NO_CARD
+    from proteinbert_tpu_torch.configs import load_config
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, KERNELS, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.serve.server import Server
+    from proteinbert_tpu_torch.weights import params_to_flat
+
+    nb = get_preset(CLI_PRESET).model.num_blocks
+    sets = ["--set", "mesh.data=1"]
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli-", dir=build)
+    run = os.path.join(root, "run")
+    path = lambda name: os.path.join(root, name)  # noqa: E731
+    procs = {}
+    totals = {}
+    host_census("cli start")
+
+    def take() -> dict:
+        got = {k.name: k.launches for k in KERNELS}
+        for k in KERNELS:
+            totals[k.name] = totals.get(k.name, 0) + k.launches
+            k.launches = 0
+        return got
+
+    def zero() -> None:
+        for k in KERNELS:
+            k.launches = 0
+
+    def expect(label: str, got: dict, want: dict) -> None:
+        print(f"# cli {CLI_PRESET} {label} launches: "
+              + ", ".join(f"{n} {c}" for n, c in got.items() if c))
+        for name, n in got.items():
+            check(n == want.get(name, 0), f"cli {label}: {name} launched "
+                                          f"{n} times, want "
+                                          f"{want.get(name, 0)}")
+
+    try:
+        # 1. Weights in and out.
+        flat = params_to_flat(init(get_preset(CLI_PRESET).model,
+                                   torch.Generator().manual_seed(16),
+                                   device="cpu"))
+        np.savez(path("w.npz"), **flat)
+        t0 = time.perf_counter()
+        rc, _ = cli_main("import-weights", "--weights", path("w.npz"),
+                         "--output", run, "--preset", CLI_PRESET, *sets)
+        import_s = time.perf_counter() - t0
+        check(rc == 0, f"cli import-weights exited {rc}")
+        t0 = time.perf_counter()
+        rc, _ = cli_main("export-weights", "--pretrained", run,
+                         "--output", path("back.npz"))
+        export_s = time.perf_counter() - t0
+        check(rc == 0, f"cli export-weights exited {rc}")
+        with np.load(path("back.npz")) as z:
+            back = {k: z[k] for k in z.files}
+        same = sorted(back) == sorted(flat) and all(
+            back[k].dtype == np.float32 and np.array_equal(back[k], flat[k])
+            for k in flat)
+        print(f"# cli {CLI_PRESET} weights [{card}]: import-weights "
+              f"{import_s:.2f} s ({len(flat)} arrays, "
+              f"{sum(a.nbytes for a in flat.values()) / 1e6:.1f} MB float32,"
+              f" the run directory written with its Adam state), "
+              f"export-weights {export_s:.2f} s; the NPZ back bit for bit: "
+              f"{same}")
+        check(same, "cli: export-weights did not give the imported NPZ back")
+        del flat, back
+
+        # The served processes and the no-card check boot meanwhile.
+        for label, extra in (("bucketed", []),
+                             ("ragged int8", ["--serve-mode", "ragged",
+                                              "--quant", "int8"])):
+            tag = label.replace(" ", "-")
+            procs[label] = cli_spawn(
+                ["serve", "--pretrained", run, "--port", 0, "--port-file",
+                 path(f"{tag}.port"), "--events-jsonl",
+                 path(f"{tag}.jsonl"), *extra], path(f"{tag}.log"))
+        procs["fleet"] = cli_spawn(
+            ["fleet", "--pretrained", run, "--replicas", 2, "--port", 0,
+             "--port-file", path("fleet.port"), "--boot-timeout-s",
+             CLI_TIMEOUT], path("fleet.log"))
+        procs["no card"] = cli_spawn(
+            ["embed", "--pretrained", run, "--output", path("nocard.npz"),
+             "MKTAYIAKQR"], path("nocard.log"), device=False,
+            CUDA_VISIBLE_DEVICES="")
+
+        # 2. embed and predict-go in this process.
+        cfg = load_config(os.path.join(run, "config.json"))
+        trunk, _ = inference.load_trunk(run, cfg, DEVICE)
+        seqs = [seq.replace("?", "A") for _, seq in traffic(16, seed=62)]
+        zero()
+        rc, _ = cli_main("embed", "--pretrained", run, "--output",
+                         path("e.npz"), "--batch-size", 8, *seqs)
+        check(rc == 0, f"cli embed exited {rc}")
+        expect("embed (2 batches)", take(),
+               {LOCAL_TRACK.name: 2 * nb, ATTENTION.name: 2 * nb})
+        want = inference.embed(trunk, cfg, seqs, batch_size=8,
+                               device=DEVICE)
+        zero()   # the reference's launches are not the verb's
+        got = np.load(path("e.npz"))
+        check(all(np.array_equal(got[k], want[k]) for k in want),
+              "cli embed differs from inference.embed on the same trunk")
+        rc, _ = cli_main("predict-go", "--pretrained", run, "--output",
+                         path("g.tsv"), "--batch-size", 8, "--top-k", 10,
+                         *seqs)
+        check(rc == 0, f"cli predict-go exited {rc}")
+        expect("predict-go (2 batches)", take(),
+               {LOCAL_TRACK.name: 2 * nb, ATTENTION.name: 2 * nb})
+        top = inference.predict_go(trunk, cfg, seqs, batch_size=8, top_k=10,
+                                   device=DEVICE)
+        zero()
+        rows = "".join(f"seq{i}\t{col}\t\t\t{prob:.4f}\n"
+                       for i, row in enumerate(top) for col, prob in row)
+        check(open(path("g.tsv")).read() == rows,
+              "cli predict-go differs from inference.predict_go")
+        print(f"# cli {CLI_PRESET} embed, predict-go [{card}]: 16 "
+              "proteins, batch 8, in process: answers those of "
+              "inference.embed / predict_go on the loaded trunk bit for bit")
+
+        # 3. map, index and their audits in this process.
+        corpus = traffic(384, seed=63)
+        with open(path("corpus.fasta"), "w") as f:
+            for i, (_, seq) in enumerate(corpus):
+                f.write(f">P{i:04d} synthetic\n{seq.replace('?', 'A')}\n")
+        store, index = path("store"), path("index")
+        t0 = time.perf_counter()
+        rc, _ = cli_main("map", "--pretrained", run, "--store", store,
+                         "--fasta", path("corpus.fasta"), "--num-shards", 2,
+                         "--block-size", 64, "--buckets", json.dumps(
+                             list(BUCKETS)), "--events-jsonl",
+                         path("map.jsonl"))
+        map_s = time.perf_counter() - t0
+        check(rc == 0, f"cli map exited {rc}")
+        end = obs.read_events(path("map.jsonl"))[-1]
+        check(end["event"] == "map_end", "cli map: no map_end last")
+        batches = end["stats"]["batches"]
+        expect(f"map ({batches} packed batches)", take(),
+               {LOCAL_TRACK_SEGMENTS.name: batches * nb,
+                ATTENTION.name: batches * nb})
+        audits = {}
+        for label, argv in (("map --verify", ["map", "--store", store,
+                                              "--verify"]),
+                            ("index", ["index", "--store", store, "--index",
+                                       index, "--json"]),
+                            ("index --verify", ["index", "--index", index,
+                                                "--verify"])):
+            rc, out = cli_main(*argv)
+            audits[label] = (rc, json.loads(out.strip().splitlines()[-1]))
+        verify, built, iverify = (audits[k][1] for k in audits)
+        print(f"# cli {CLI_PRESET} map, index [{card}]: map of 384 "
+              f"proteins {map_s:.2f} s ({batches} packed batches, "
+              f"{end['stats']['seqs_per_s']} seqs/s); map --verify ok "
+              f"{verify['ok']} complete {verify['complete']}; index "
+              f"{built['outcome']} ({built['vectors']} vectors); index "
+              f"--verify ok {iverify['ok']}")
+        check(all(rc == 0 for rc, _ in audits.values()) and verify["ok"]
+              and verify["complete"] and verify["embedded"] == 384
+              and built["outcome"] == "completed"
+              and built["vectors"] == 384 and iverify["ok"],
+              f"cli map/index audits: {audits}")
+
+        # 4. The served processes against in-process servers: the
+        # bucketed one also holds the fleet's routed answers.
+        bucketed = Server(trunk, cfg, device=DEVICE).start()
+        try:
+            for label, kw in (("bucketed", None),
+                              ("ragged int8", dict(serve_mode="ragged",
+                                                   quant="int8"))):
+                tag = label.replace(" ", "-")
+                port = cli_wait_file(path(f"{tag}.port"), procs[label],
+                                     f"serve {label}").strip()
+                srv = bucketed if kw is None else Server(
+                    trunk, cfg, device=DEVICE, **kw).start()
+                try:
+                    cli_served(card, label, f"http://127.0.0.1:{port}", srv,
+                               traffic(CLI_SERVED, seed=64))
+                finally:
+                    if srv is not bucketed:
+                        srv.drain(timeout=60)
+                rc = cli_exit(procs.pop(label), f"serve {label}",
+                              signal.SIGTERM)
+                last = obs.read_events(path(f"{tag}.jsonl"))[-1]
+                print(f"# cli {CLI_PRESET} serve {label}: SIGTERM -> exit "
+                      f"{rc}, the stream ends "
+                      f"{last['event']}{{{last.get('outcome')}}}")
+                check(rc == 0 and last["event"] == "serve_end"
+                      and last.get("outcome") == "drained",
+                      f"cli serve {label}: exit {rc}, last event {last}")
+            port = cli_wait_file(path("fleet.port"), procs["fleet"],
+                                 "fleet").strip()
+            walls, worst = [], 0.0
+            for _, seq in traffic(16, seed=65):
+                seq = seq.replace("?", "A")
+                t0 = time.perf_counter()
+                status, body = http_post(
+                    f"http://127.0.0.1:{port}/v1/embed", {"seq": seq})
+                walls.append(time.perf_counter() - t0)
+                check(status == 200,
+                      f"cli fleet: routed embed answered {status}: {body}")
+                want = bucketed.submit("embed", seq).result(timeout=120)
+                for key in ("global", "local_mean"):
+                    worst = max(worst, float(np.abs(np.asarray(
+                        body[key], np.float32) - want[key]).max()))
+        finally:
+            bucketed.drain(timeout=60)
+        zero()
+        rc = cli_exit(procs.pop("fleet"), "fleet", signal.SIGTERM)
+        drained = [line for line in open(path("fleet.log"))
+                   if "fleet drained" in line]
+        print(f"# cli {CLI_PRESET} fleet [{card}]: 2 replicas, 16 routed "
+              f"embeds answered (p50 {pct_ms(walls, 0.5):.2f} ms, first "
+              f"{walls[0] * 1e3:.1f} ms), vs the same requests on an "
+              f"in-process bucketed Server: max |diff| {worst:.3e} (tol "
+              f"{SERVE_EMBED_TOL}); SIGTERM -> exit {rc}; "
+              + (drained[-1].split("] ", 1)[-1].strip() if drained else ""))
+        check(worst <= SERVE_EMBED_TOL,
+              f"cli fleet: routed answers differ by {worst}")
+        check(rc == 0, f"cli fleet exited {rc}")
+
+        # 5. No card, no --device: the device message, a non-zero exit.
+        rc = cli_exit(procs.pop("no card"), "no card")
+        said = open(path("nocard.log")).read()
+        print(f"# cli no card: CUDA_VISIBLE_DEVICES='' and no --device -> "
+              f"exit {rc}, the device message {NO_CARD in said}")
+        check(rc != 0 and NO_CARD in said, f"cli no card: exit {rc}")
+
+        # 6. Pretrain, preempt, resume — alone on the card.
+        del trunk
+        gc.collect()
+        torch.cuda.empty_cache()
+        ck, metrics = path("ck"), path("m.jsonl")
+        argv = ["pretrain", "--preset", CLI_PRESET, *sets, "--set",
+                "data.batch_size=8", "--set", "train.log_every=1",
+                "--checkpoint-dir", ck, "--metrics-jsonl", metrics,
+                "--events-jsonl", path("train.jsonl")]
+        t0 = time.perf_counter()
+        proc = procs["pretrain"] = cli_spawn(argv + ["--max-steps", 1000],
+                                             path("train1.log"))
+        cli_wait_file(metrics, proc, "pretrain", lines=5)
+        preempt_rc = cli_exit(procs.pop("pretrain"), "pretrain",
+                              signal.SIGTERM)
+        first_s = time.perf_counter() - t0
+        saved = max(int(n) for n in os.listdir(ck) if n.isdigit())
+        logged = [json.loads(line)["step"] for line in open(metrics)]
+        check(preempt_rc == 75 and logged == list(range(1, saved + 1)),
+              f"cli pretrain: SIGTERM -> exit {preempt_rc}, saved {saved}, "
+              f"logged {logged}")
+        t0 = time.perf_counter()
+        proc = procs["pretrain"] = cli_spawn(
+            argv + ["--max-steps", saved + 4], path("train2.log"))
+        rc = cli_exit(procs.pop("pretrain"), "pretrain resume")
+        resume_s = time.perf_counter() - t0
+        lines = [json.loads(line) for line in open(metrics)]
+        steps = [m["step"] for m in lines]
+        check(rc == 0 and steps == list(range(1, saved + 5)),
+              f"cli pretrain resume: exit {rc}, steps {steps}")
+        # Each run's first step holds its warm-up; the rest are steady.
+        step_ms = [m["window_step_ms"] for m in lines
+                   if m["step"] not in (1, saved + 1)
+                   and m.get("window_step_ms")]
+        check(all(np.isfinite(m["loss"]) for m in lines),
+              "cli pretrain: a loss is not finite")
+        print(f"# cli {CLI_PRESET} pretrain [{card}]: B=8 L="
+              f"{get_preset(CLI_PRESET).data.seq_len} synthetic, log every "
+              f"step: SIGTERM after step "
+              f"{saved} -> exit {preempt_rc}, run {first_s:.1f} s from "
+              f"spawn; resumed at step {saved + 1} -> 4 steps, exit 0, "
+              f"{resume_s:.1f} s from spawn; median step "
+              f"{statistics.median(step_ms):.2f} ms over {len(step_ms)} "
+              f"steps (min {min(step_ms):.2f}, max {max(step_ms):.2f})")
+    finally:
+        # SIGTERM first: a fleet drains and stops its replicas itself.
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=CLI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
                     ["--phase", "k2"], ["--phase", "default"],
                     ["--phase", "resume"], ["--phase", "serve"],
                     ["--phase", "serve-times"], ["--phase", "finetune"],
-                    ["--phase", "neighbors"], ["--phase", "rollout"]):
-        print("usage: chip_smoke.py [--phase large|base|k2|default|resume|"
-              "serve|serve-times|finetune|neighbors|rollout]",
-              file=sys.stderr)
+                    ["--phase", "neighbors"], ["--phase", "rollout"],
+                    ["--phase", "cli"], ["--cli-first"]):
+        print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
+              "default|resume|serve|serve-times|finetune|neighbors|rollout|"
+              "cli]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5660,6 +6184,11 @@ def main() -> int:
         rollout_phase(card)
         print(f"# rollout: {time.perf_counter() - t0:.1f} s")
         return 0
+    if args == ["--phase", "cli"]:
+        t0 = time.perf_counter()
+        cli_phase(card)
+        print(f"# cli: {time.perf_counter() - t0:.1f} s")
+        return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
         serve_phases(card, gates=args[1] == "serve")
@@ -5669,7 +6198,7 @@ def main() -> int:
                      LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_TILED,
                      LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED_VALID,
                      ATTENTION, ATTENTION_Q8, ONEPASS, ONEPASS_Q8))
-    if args:
+    if args == ["--phase", "large"]:
         # The Large-width local-track kernels alone: gates, times, passes.
         rows = {}
         large_kernel_phase(card, rows)
@@ -5678,6 +6207,12 @@ def main() -> int:
         gemm_yardstick(card)
         return 0
 
+    if args == ["--cli-first"]:
+        # The CLI phase once more before everything else, its launches not
+        # counted: its numbers beside the last phase's on one card.
+        t0 = time.perf_counter()
+        cli_phase(card)
+        print(f"# cli first: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows = kernel_phase(card)
     packed_kernel_phase(card, rows)
@@ -5727,6 +6262,11 @@ def main() -> int:
     for name, n in rollout_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# rollout: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in cli_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# cli: {time.perf_counter() - t0:.1f} s")
+    host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)
     ported = {

@@ -19,8 +19,9 @@ JAX module (which differences each copy has, its docstring says):
 This module copies the JAX `obs/__init__.py`'s `Telemetry`, `NULL` and
 `as_telemetry`, and exports the same names, the serving SLO half
 (`obs/slo.py`: `SLObjective`, `SLOEvaluator`, `ExemplarHistogram`,
-`ProfileTrigger`, `parse_slo(s)`) included. `obs/diagnose.py` is not
-ported: the JAX `pbt diagnose` reads the port's streams (one schema).
+`ProfileTrigger`, `parse_slo(s)`) included. `obs/diagnose.py` is a
+copy of the JAX module behind `diagnose` (one schema: each package's
+`diagnose` reads either package's streams).
 
 Overhead contract: `NULL` (the default when no telemetry is passed) is
 a do-nothing facade — `emit` returns None, `span` is a shared

@@ -10,13 +10,16 @@ stand in for optax's `softmax_cross_entropy_with_integer_labels` /
 `sigmoid_binary_cross_entropy`. PACKED batches normalise per segment
 (`packed_pretrain_loss`): each term averages within a segment, then over
 the segments that exist, so a long and a short protein packed into one
-row weigh as two unpacked rows would.
+row weigh as two unpacked rows would. The GO head's eval-only ranking
+metrics come exact per batch (`global_ranking_metrics`) and pooled over
+a split (`global_ranking_stats` + `ranking_metrics_from_stats`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -140,4 +143,59 @@ def global_ranking_metrics(
     top_idx = torch.topk(global_logits, k, dim=-1).indices
     hits = torch.gather(labels, -1, top_idx)
     p_at_k = _weighted_mean(hits.float().mean(-1), valid.any(-1).float())
+    return {"global_auroc": auroc, "global_p_at_k": p_at_k}
+
+
+# Pooled (split-level) ranking metrics: a dataset micro-AUROC is not a
+# mean of per-batch AUROCs. `global_ranking_stats` is a per-batch
+# sufficient statistic that merges by addition; `ranking_metrics_from_stats`
+# finishes the merged statistic on the host. Same bins as the JAX package.
+
+RANKING_BIN_LO = -30.0
+RANKING_BIN_HI = 30.0
+DEFAULT_RANKING_BINS = 8192
+
+
+def global_ranking_stats(
+    global_logits: torch.Tensor,
+    targets: torch.Tensor,
+    weights: torch.Tensor,
+    k: int = 10,
+    num_bins: int = DEFAULT_RANKING_BINS,
+) -> Dict[str, torch.Tensor]:
+    """{"pos_hist", "neg_hist" (num_bins,), "p_at_k_num", "p_at_k_den"}
+    of one batch: the valid positive and negative elements counted in
+    linear logit bins over [RANKING_BIN_LO, RANKING_BIN_HI], and
+    precision@k's numerator and denominator over the weighted proteins.
+    Elements sharing a bin score as ties."""
+    valid = weights > 0
+    labels = (targets > 0) & valid
+    span = RANKING_BIN_HI - RANKING_BIN_LO
+    pos_f = (global_logits.float() - RANKING_BIN_LO) * (num_bins / span)
+    bins = pos_f.clamp(0, num_bins - 1).long().reshape(-1)
+    posf = labels.reshape(-1).float()
+    negf = (valid & ~labels).reshape(-1).float()
+    zeros = torch.zeros(num_bins, dtype=torch.float32,
+                        device=global_logits.device)
+    k = min(k, global_logits.shape[-1])
+    top_idx = torch.topk(global_logits, k, dim=-1).indices
+    hits = torch.gather(labels, -1, top_idx)
+    row_valid = valid.any(-1).float()
+    return {"pos_hist": zeros.index_add(0, bins, posf),
+            "neg_hist": zeros.index_add(0, bins, negf),
+            "p_at_k_num": (hits.float().mean(-1) * row_valid).sum(),
+            "p_at_k_den": row_valid.sum()}
+
+
+def ranking_metrics_from_stats(stats: Dict[str, Any]) -> Dict[str, float]:
+    """Merged `global_ranking_stats` → {"global_auroc", "global_p_at_k"}
+    of the whole split (on the host, float64)."""
+    pos = np.asarray(stats["pos_hist"], np.float64)
+    neg = np.asarray(stats["neg_hist"], np.float64)
+    n_pos, n_neg = pos.sum(), neg.sum()
+    neg_below = np.concatenate([[0.0], np.cumsum(neg)[:-1]])
+    u = (pos * (neg_below + 0.5 * neg)).sum()
+    auroc = float(u / (n_pos * n_neg)) if n_pos > 0 and n_neg > 0 else 0.5
+    den = float(stats["p_at_k_den"])
+    p_at_k = float(stats["p_at_k_num"]) / den if den > 0 else 0.0
     return {"global_auroc": auroc, "global_p_at_k": p_at_k}

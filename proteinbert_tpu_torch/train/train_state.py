@@ -34,7 +34,8 @@ from proteinbert_tpu_torch.data.corruption import (
 )
 from proteinbert_tpu_torch.models import proteinbert
 from proteinbert_tpu_torch.train.loss import (
-    global_ranking_metrics, packed_pretrain_loss, pretrain_loss,
+    global_ranking_metrics, global_ranking_stats, packed_pretrain_loss,
+    pretrain_loss,
 )
 from proteinbert_tpu_torch.train.schedule import (
     OptState, Optimizer, effective_lr, global_norm, make_optimizer,
@@ -209,17 +210,21 @@ def eval_step(
     cfg: PretrainConfig,
 ) -> Dict[str, torch.Tensor]:
     """Corrupted-input eval with a caller-provided generator
-    (deterministic): loss metrics plus the GO head's ranking metrics. A
-    packed batch is scored with the per-segment loss, and its ranking
-    metrics see each packed protein as its own row ((B, S, A) flattened to
-    (B·S, A); empty segment slots carry zero weight)."""
+    (deterministic): loss metrics plus the GO head's ranking metrics
+    (`global_auroc` / `global_p_at_k` exact in the batch, and
+    `ranking_stats`, the mergeable statistic `trainer.evaluate_batches`
+    pools over a split). A packed batch is scored with the per-segment
+    loss, and its ranking metrics see each packed protein as its own row
+    ((B, S, A) flattened to (B·S, A); empty segment slots carry zero
+    weight)."""
     dev = tree_leaves(state.params)[0].device
     X, Y, W, seg = _corrupt(generator, batch, cfg, dev)
     with torch.no_grad():
         _, metrics, _, global_logits = forward_loss(state.params, X, Y, W,
                                                     cfg, seg)
         A = global_logits.shape[-1]
-        metrics.update(global_ranking_metrics(
-            *(t.reshape(-1, A) for t in (global_logits, Y["global"],
-                                         W["global"]))))
+        flat = [t.reshape(-1, A) for t in (global_logits, Y["global"],
+                                           W["global"])]
+        metrics.update(global_ranking_metrics(*flat))
+        metrics["ranking_stats"] = global_ranking_stats(*flat)
     return metrics

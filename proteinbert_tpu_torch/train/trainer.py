@@ -83,6 +83,7 @@ from proteinbert_tpu_torch.parallel.seq_parallel import (
 )
 from proteinbert_tpu_torch.train import train_state as ts
 from proteinbert_tpu_torch.train.checkpoint import Checkpointer
+from proteinbert_tpu_torch.train.loss import ranking_metrics_from_stats
 from proteinbert_tpu_torch.train.metrics import StepTimer
 from proteinbert_tpu_torch.train.resilience import (
     GracefulShutdown, check_finite, flush_inflight_checkpoint,
@@ -100,21 +101,49 @@ def eval_generator(cfg: PretrainConfig, step: int, batch_index: int,
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def evaluate_batches(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
+                     cfg: PretrainConfig,
+                     generator_for: Callable[[int], torch.Generator],
+                     max_batches: int = 0):
+    """`eval_step` over `batches` (batch n corrupted under
+    `generator_for(n)`; at most `max_batches` when > 0) → (metrics,
+    batches, rows). Loss and accuracy metrics are the row-weighted mean
+    of the per-batch values. `global_auroc` / `global_p_at_k` are pooled
+    over the whole split from each batch's `ranking_stats`, as the JAX
+    package's `resolve_eval` does; the row-weighted means of the exact
+    in-batch values are kept as `*_batch_mean`."""
+    pooled = ("global_auroc", "global_p_at_k")
+    sums: Dict[str, float] = {}
+    rank_stats = None
+    n = rows = 0
+    for batch in batches:
+        if max_batches and n >= max_batches:
+            break
+        b_rows = len(next(iter(batch.values())))
+        m = ts.eval_step(state, batch, generator_for(n), cfg)
+        stats = m.pop("ranking_stats")
+        rank_stats = stats if rank_stats is None else {
+            k: rank_stats[k] + v for k, v in stats.items()}
+        for k, v in m.items():
+            k = f"{k}_batch_mean" if k in pooled else k
+            sums[k] = sums.get(k, 0.0) + float(v) * b_rows
+        n += 1
+        rows += b_rows
+    metrics = {k: v / max(rows, 1) for k, v in sums.items()}
+    if rank_stats is not None:
+        metrics.update(ranking_metrics_from_stats(
+            {k: v.cpu().numpy() for k, v in rank_stats.items()}))
+    return metrics, n, rows
+
+
 def evaluate(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
              cfg: PretrainConfig, step: int) -> Dict[str, float]:
-    """Row-weighted mean of `eval_step` metrics over `batches`, keys
-    prefixed with eval_."""
+    """`evaluate_batches` under the step-keyed generators, keys prefixed
+    with eval_."""
     dev = ts.tree_leaves(state.params)[0].device
-    sums: Dict[str, float] = {}
-    rows = 0
-    for n, batch in enumerate(batches):
-        b_rows = len(next(iter(batch.values())))
-        m = ts.eval_step(state, batch, eval_generator(cfg, step, n, dev),
-                         cfg)
-        for k, v in m.items():
-            sums[k] = sums.get(k, 0.0) + float(v) * b_rows
-        rows += b_rows
-    return {f"eval_{k}": v / max(rows, 1) for k, v in sums.items()}
+    metrics, _, _ = evaluate_batches(
+        state, batches, cfg, lambda n: eval_generator(cfg, step, n, dev))
+    return {f"eval_{k}": v for k, v in metrics.items()}
 
 
 def pretrain(

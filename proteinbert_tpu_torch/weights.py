@@ -97,6 +97,27 @@ def params_to_flat(params: Params) -> Dict[str, np.ndarray]:
     return flat
 
 
+def check_block_layout(flat: Mapping[str, np.ndarray]) -> None:
+    """Raise ValueError where the JAX package could not restack a flat
+    NPZ's blocks into one tree: a block key that is not an integer, or
+    blocks whose entries differ in their paths or shapes."""
+    blocks: Dict[int, Dict[str, tuple]] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        if parts[0] != "blocks":
+            continue
+        if len(parts) < 3:
+            raise ValueError(f"{key}: a leaf where a block belongs")
+        blocks.setdefault(int(parts[1]), {})["/".join(parts[2:])] = (
+            np.shape(value))
+    layouts = [blocks[i] for i in sorted(blocks)]
+    for i, layout in enumerate(layouts[1:], 1):
+        if layout != layouts[0]:
+            raise ValueError(
+                f"block {i} does not match block 0 (paths or shapes "
+                f"differ: {sorted(set(layout) ^ set(layouts[0]))[:5]})")
+
+
 def load_npz(path: str, cfg: ModelConfig,
              device: DeviceLike = None) -> Params:
     """Load a `pbt export` NPZ straight into the port."""

@@ -74,7 +74,9 @@ def test_the_check_covers_data_and_train_and_catches_an_offender(tmp_path):
               "data.finetune_data", "models.finetune", "train.finetune",
               "heads", "heads.registry", "heads.apply", "heads.eval",
               "mapper", "mapper.store", "mapper.faults", "mapper.engine",
-              "index", "index.store", "index.scorer"):
+              "index", "index.store", "index.scorer", "__main__", "cli",
+              "cli.main", "interop", "obs.diagnose",
+              "utils.logging", "utils.profiling"):
         assert f"proteinbert_tpu_torch.{m}" in mods
     bad = tmp_path / "offender.py"
     bad.write_text("import torch\nimport optax\n"

@@ -50,7 +50,7 @@ def _body(source: str, drop=()):
 @pytest.mark.parametrize("module", [
     "obs/events.py", "obs/flight.py", "obs/metrics.py", "obs/tracing.py",
     "train/resilience.py", "serve/cache.py", "serve/fleet.py",
-    "rollout/controller.py"])
+    "rollout/controller.py", "obs/diagnose.py"])
 def test_copies_differ_from_jax_only_in_docstrings_imports_and_hook(module):
     """A copy is its JAX module but for docstrings and imports; tracing
     also swaps its profiler hook (`_jax_annotation` → `_torch_annotation`,
