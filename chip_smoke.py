@@ -15,6 +15,7 @@ card.
                                             # the int8 arm at Large
     python3 chip_smoke.py --phase rollout   # blue-green trunk rollout
     python3 chip_smoke.py --phase cli       # the command line's verbs
+    python3 chip_smoke.py --phase data      # data parallelism, ZeRO-1
     python3 chip_smoke.py --cli-first       # the full run, with the cli
                                             # phase once more up front
 
@@ -311,7 +312,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               census` opens the phase and closes the run: threads, live
               descendant processes and the CPU seconds each used over 2 s
               of idle, the machine's busy share, the card's SM clock.
-11. report  — the kernel JSON line, the card's name and power limit, and the
+11. data    — data parallelism (`data_phase`): (a) `pretrain(mesh=
+              make_mesh(MeshConfig(data=1)))` over a one-rank NCCL group
+              made in process, `base` at full width, dense, B=8 L=512, 6
+              steps at a constant LR, in turns with the plain loop from the
+              same seed (plain, data-parallel, data-parallel with
+              zero_update, plain), deterministic algorithms on (cuDNN's
+              default backward does not repeat itself): losses, params
+              and moments bit for bit the plain loop's, exactly 6 K1 + 6 K2 launches a step, the
+              step ms of each loop and the one-rank all-reduce's device ms
+              from the profiler; with zero_update the JAX warning logged
+              and the replicated update run; (b) `pretrain --multihost
+              --preset base --set mesh.data=1 --set data.batch_size=8` as
+              a subprocess with COORDINATOR_ADDRESS / NUM_PROCESSES /
+              PROCESS_ID: the group forms over NCCL, 4 steps, exit 0, the
+              run_start event carries the mesh and n_chips 1; `pretrain
+              --preset base` alone exits 1 with the mesh message; (c) two
+              spawned ranks on the one card over gloo (`data_rank`), `base`
+              at MeshConfig(data=2), B=8 (4 a rank), the JAX ZeRO test's
+              optimizer (LR 0, then 1e-4), 2 steps each of the
+              replicated step, ZeRO-1 fp32, ZeRO-1 int8 and the replicated
+              step again from one seed: the repeat bit for bit,
+              ZeRO fp32 within 2e-6 and int8 within 1e-3 of the replicated
+              params, int8's gradient-reduction wire bytes at most 0.27 of
+              fp32's. `# data base ...` lines.
+12. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -336,7 +361,8 @@ result line. `--phase neighbors` runs the build and phase 8 alone
 (`neighbors_phase`, then `large_int8_phase`), every gate, no result
 line. `--phase rollout` runs the build and phase 9 alone, every gate, no
 result line. `--phase cli` runs the build and phase 10 alone, every gate,
-no result line. `--cli-first` is the full run with phase 10 run once more
+no result line. `--phase data` runs the build and phase 11 alone, every
+gate, no result line. `--cli-first` is the full run with phase 10 run once more
 right after the build, its launches not counted, so that the phase's
 numbers first and last in one process stand side by side.
 """
@@ -2206,14 +2232,15 @@ def synthetic_proteins(n: int, lo: int, hi: int, num_annotations: int,
 
 def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
               residues: tuple, seed: int, seq_group=None, source=None,
-              telemetry=None):
+              telemetry=None, mesh=None):
     """`pretrain()` for `steps` steps with every kernel count at 0: the
     launches of each step (exactly per_step[name], 0 for a kernel not
     named), finite losses, params moved by step 2. `source` (a callable
     returning a fresh batch iterator) feeds it when given, else
     `cfg.data.packing` picks `make_packed_iterator` (cfg.data.
     pack_max_segments a row) or `make_pretrain_iterator` over synthetic
-    proteins; `seq_group` trains sequence-parallel over that group. The
+    proteins; `seq_group` trains sequence-parallel over that group, `mesh`
+    data-parallel over its data group. The
     batches come through pretrain's prefetch thread when
     cfg.data.prefetch_depth > 0. Returns (the out dict, per-step wall ms,
     launches, peak bytes, a clean batch, the batches it trained on)."""
@@ -2269,7 +2296,8 @@ def train_run(card: str, label: str, cfg, steps: int, per_step: dict,
         k.launches = 0
     t0 = time.perf_counter()
     out = pretrain(cfg, recorded(batches()), state=state, log_fn=log_fn,
-                   device=DEVICE, seq_group=seq_group, telemetry=telemetry)
+                   device=DEVICE, seq_group=seq_group, telemetry=telemetry,
+                   mesh=mesh)
     total = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated()
     check(len(marks) == steps, f"{label}: {len(marks)} log points")
@@ -6109,6 +6137,359 @@ def cli_phase(card: str) -> dict:
     return totals
 
 
+# ----------------------------------------------------------- data parallel
+
+DATA_STEPS = 6
+DATA_RANK_TIMEOUT = 300   # seconds for the two spawned ranks of (c)
+ZERO_TOL = 2e-6           # ZeRO-1 fp32 against the replicated params
+INT8_TOL = 1e-3           # ZeRO-1 int8 against the replicated params
+INT8_WIRE = 0.27          # int8 / fp32 gradient-reduction wire bytes
+
+
+def data_cfg(B: int, steps: int):
+    """`base` at full width, dense, B rows of 512 (the preset's 128 rows
+    over 16 replicas at B=8), a constant LR from step 0 so that a few
+    steps move the params, on a one-replica mesh."""
+    from proteinbert_tpu_torch.configs import MeshConfig
+
+    cfg = train_preset("base", B, 512, steps)
+    return cfg.replace(
+        optimizer=dataclasses.replace(cfg.optimizer, schedule="constant",
+                                      warmup_steps=0),
+        mesh=MeshConfig(data=1))
+
+
+def data_rank(rank: int, world: int, store: str, out: str,
+              device: str) -> None:
+    """One of two ranks on the one card over gloo: `base` at data=2, 2
+    steps of the replicated step, ZeRO-1 fp32, ZeRO-1 int8 and the
+    replicated step again, on this rank's 4 of 8 rows from one seed;
+    rank 0 writes the params' max differences from the first run, the
+    losses, grad norms and wire bytes to `<out>/data.json`."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from proteinbert_tpu_torch.configs import MeshConfig
+    from proteinbert_tpu_torch.data.dataset import (
+        InMemoryPretrainingDataset, make_pretrain_iterator,
+    )
+    from proteinbert_tpu_torch.obs import Telemetry
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.zero import (
+        comm_bytes, grad_reduce_wire_bytes,
+    )
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.train_state import create_train_state
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        # The runs are compared with each other: they must repeat
+        # themselves (as in `data_one_rank`).
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        # The JAX ZeRO and quantization tests' optimizer (tests/
+        # test_zero.py:45): LR 0 at step 1, 1e-4 at step 2, so the two
+        # steps make one update. With an update at step 1 as well, Adam
+        # turns the clip norm's last bit (summed over shards, not leaves)
+        # into up to 2.5e-5 on a few near-zero gradients by step 2.
+        base = train_preset("base", 8, 512, 2)
+        base = base.replace(
+            optimizer=dataclasses.replace(base.optimizer,
+                                          learning_rate=1e-3,
+                                          warmup_steps=10),
+            mesh=MeshConfig(data=2))
+        mesh = make_mesh(base.mesh)
+        seqs, ann = synthetic_proteins(32, 100, 510,
+                                       base.model.num_annotations, 4)
+        ds = InMemoryPretrainingDataset(seqs, ann, 512)
+        runs = {}
+        for name, parallel in (("replicated", {}),
+                               ("zero fp32", {"zero_update": True}),
+                               ("zero int8", {"zero_update": True,
+                                              "grad_reduce_dtype": "int8"}),
+                               ("replicated again", {})):
+            cfg = base.replace(parallel=dataclasses.replace(
+                base.parallel, **parallel))
+            state = create_train_state(torch.Generator().manual_seed(4), cfg,
+                                       device=device)
+            tele = Telemetry(flight_dir=out)
+            t0 = time.perf_counter()
+            out_run = pretrain(cfg, make_pretrain_iterator(
+                ds, 4, seed=4, process_index=mesh.data_index,
+                process_count=mesh.data_extent), state=state, device=device,
+                mesh=mesh, telemetry=tele)
+            float(tree_leaves(state.params)[0].sum())   # waits for the card
+            runs[name] = (tree_leaves(state.params),
+                          grad_reduce_wire_bytes(comm_bytes(tele.metrics)[1]),
+                          (time.perf_counter() - t0) * 1e3,
+                          [(h["loss"], h["grad_norm"])
+                           for h in out_run["history"]])
+        ref = runs["replicated"][0]
+        res = {}
+        for name, (p, wire, ms, hist) in runs.items():
+            diffs = [float((a - b).abs().max()) for a, b in zip(ref, p)]
+            worst = int(np.argmax(diffs))
+            res[name] = {
+                "max_diff": diffs[worst], "wire_bytes": wire, "run_ms": ms,
+                "loss_grad_norm": hist, "worst_leaf": worst,
+                "over_2e-6": int(sum(int(((a - b).abs() > ZERO_TOL).sum())
+                                     for a, b in zip(ref, p)))}
+        if rank == 0:
+            with open(os.path.join(out, "data.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def data_phase(card: str) -> dict:
+    """Phase 11 (module docstring): (a) the data-parallel loop over a
+    one-rank NCCL group against the plain loop, (b) `pretrain --multihost`
+    as a subprocess, (c) two ranks on the one card over gloo; returns each
+    kernel's launches in the loops of (a)."""
+    totals = data_one_rank(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="data_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        data_cli(card, root)
+        data_two_ranks(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
+def data_one_rank(card: str) -> dict:
+    """(a): plain, data-parallel, data-parallel with zero_update, plain,
+    over a one-rank NCCL group made in process; returns the launches."""
+    import logging
+
+    import torch.distributed as dist
+
+    from proteinbert_tpu_torch.configs import MeshConfig
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.train_state import (
+        make_data_parallel_train_step,
+    )
+
+    totals = {}
+    per_step = {LOCAL_TRACK.name: 6, ATTENTION.name: 6}
+    cfg = data_cfg(8, DATA_STEPS)
+    zcfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel,
+                                                    zero_update=True))
+
+    # (a) One rank, NCCL, in process: every collective runs over one rank.
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "zero_update requested" in record.getMessage():
+                warned.append(record.getMessage())
+
+    catch = Catch()
+    logging.getLogger("proteinbert_tpu_torch.train.trainer").addHandler(
+        catch)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    # Bit for bit needs a plain loop that repeats itself: with cuDNN's
+    # default backward algorithms two plain runs part from step 2 on the
+    # H100. warn_only names any op left.
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh(MeshConfig(data=1))
+        check(mesh.data_group is dist.group.WORLD,
+              "data base: the one-rank mesh has no data group")
+        runs = {}
+        for label, c, m in (("plain", cfg, None), ("data-parallel", cfg, mesh),
+                            ("data-parallel zero_update", zcfg, mesh),
+                            ("plain again", cfg, None)):
+            out, walls, launches, peak, batch, _ = train_run(
+                card, f"data base {label}", c, DATA_STEPS, per_step,
+                (100, 510), 5, mesh=m)
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+            runs[label] = (out, walls, peak)
+        check(len(warned) == 1, f"data base: zero_update at data 1 logged "
+                                f"{len(warned)} warnings, want 1")
+        ref = runs["plain"][0]
+        for label in ("data-parallel", "data-parallel zero_update",
+                      "plain again"):
+            got = runs[label][0]
+            same_loss = ([h["loss"] for h in got["history"]]
+                         == [h["loss"] for h in ref["history"]])
+            a, b = ref["state"], got["state"]
+            same_state = all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a.params) + a.opt_state.mu + a.opt_state.nu,
+                tree_leaves(b.params) + b.opt_state.mu + b.opt_state.nu))
+            drift = max(float((x - y).abs().max()) for x, y in zip(
+                tree_leaves(a.params), tree_leaves(b.params)))
+            check(same_loss and same_state,
+                  f"data base {label}: losses {same_loss}, params and "
+                  "moments bit for bit the plain loop's "
+                  f"{same_state} (max |param diff| {drift}; losses "
+                  f"{[h['loss'] for h in got['history']]} against "
+                  f"{[h['loss'] for h in ref['history']]})")
+        # The one-rank all-reduce: device time of one step by kernel name.
+        state = runs["data-parallel"][0]["state"]
+        step = make_data_parallel_train_step(mesh, cfg)
+        by_name = device_ms_by_name(lambda: step(state, batch), reps=3)
+        comm = {n: ms for n, ms in by_name.items()
+                if "nccl" in n.lower() or "memcpy" in n.lower()}
+        n_grad = sum(t.numel() for t in tree_leaves(state.params))
+        m = cfg.model
+        med = {k: statistics.median(v[1][1:]) for k, v in runs.items()}
+        print(f"# data base one-rank NCCL [{card}]: {m.num_blocks} blocks "
+              f"C={m.local_dim} G={m.global_dim} H={m.num_heads} "
+              f"A={m.num_annotations}, {m.dtype}, B=8 L=512, "
+              f"{DATA_STEPS} steps, constant LR, deterministic algorithms "
+              "(cudnn.deterministic); losses, params and moments "
+              "bit for bit the plain loop's (data-parallel, and with "
+              "zero_update at data 1: the JAX warning logged, the "
+              "replicated update run); launches a step "
+              f"{per_step}; step ms median of 5: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+              + f"; all-reduce of {n_grad * 4 / 1e6:.1f} MB of fp32 "
+              "gradients, device ms a step by kernel: "
+              + (", ".join(f"{n} {ms:.3f}" for n, ms in sorted(comm.items()))
+                 or "none recorded")
+              + f"; step device ms total {sum(by_name.values()):.2f}")
+    finally:
+        dist.destroy_process_group()
+        logging.getLogger("proteinbert_tpu_torch.train.trainer") \
+            .removeHandler(catch)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            was[:2]
+        torch.use_deterministic_algorithms(was[2])
+    # The plain loop again under cuDNN's default algorithms (two such runs
+    # part from step 2, so it is timed, not compared): what the
+    # deterministic setting above costs a step, in this call.
+    _, walls, launches, _, _, _ = train_run(
+        card, "data base plain cuDNN default", cfg, DATA_STEPS, per_step,
+        (100, 510), 5)
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+    print(f"# data base cuDNN [{card}]: plain step ms median of 5, "
+          f"deterministic {med['plain']:.2f} / {med['plain again']:.2f}, "
+          f"cuDNN default {statistics.median(walls[1:]):.2f}")
+    return totals
+
+
+def data_cli(card: str, root: str) -> None:
+    """(b): `pretrain --multihost` over a one-process NCCL group, then the
+    unsplit `base` preset refused."""
+    events = os.path.join(root, "ev.jsonl")
+    env = dict(COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+               NUM_PROCESSES="1", PROCESS_ID="0")
+    t0 = time.perf_counter()
+    proc = cli_spawn(["pretrain", "--multihost", "--preset", "base",
+                      "--set", "mesh.data=1", "--set",
+                      "data.batch_size=8", "--set", "train.log_every=1",
+                      "--max-steps", 4, "--checkpoint-dir",
+                      os.path.join(root, "ck"), "--events-jsonl",
+                      events], os.path.join(root, "mh.log"), **env)
+    rc = cli_exit(proc, "pretrain --multihost")
+    run_s = time.perf_counter() - t0
+    said = open(os.path.join(root, "mh.log")).read()
+    recs = [json.loads(line) for line in open(events)] \
+        if os.path.exists(events) else []
+    start = [r for r in recs if r["event"] == "run_start"]
+    steps = [r["step"] for r in recs if r["event"] == "step"]
+    nccl = "torch distributed (nccl): process 0/1" in said
+    check(rc == 0 and nccl and steps == [1, 2, 3, 4] and len(start) == 1
+          and start[0]["mesh"] == {"data": 1, "fsdp": 1, "model": 1,
+                                   "seq": 1}
+          and start[0]["n_chips"] == 1,
+          f"data base cli: exit {rc}, NCCL group {nccl}, steps {steps}, "
+          f"run_start {start[:1]}; log tail {said[-2000:]}")
+    proc = cli_spawn(["pretrain", "--preset", "base", "--max-steps", 1,
+                      "--checkpoint-dir", os.path.join(root, "ck2")],
+                     os.path.join(root, "mesh.log"))
+    rc2 = cli_exit(proc, "pretrain --preset base")
+    refused = open(os.path.join(root, "mesh.log")).read()
+    check(rc2 == 1 and "wants 16 devices, have 1" in refused,
+          f"data base cli: the unsplit base preset exited {rc2}: "
+          f"{refused[-500:]}")
+    print(f"# data base cli [{card}]: pretrain --multihost (COORDINATOR_"
+          f"ADDRESS, NUM_PROCESSES=1, PROCESS_ID=0) --preset base --set "
+          f"mesh.data=1 data.batch_size=8: the group formed over NCCL, "
+          f"steps {steps}, exit {rc}, {run_s:.1f} s from spawn; "
+          f"run_start mesh {start[0]['mesh']} n_chips "
+          f"{start[0]['n_chips']}; pretrain --preset base alone -> exit "
+          f"{rc2}: {refused.strip().splitlines()[-1]}")
+
+
+
+def data_two_ranks(card: str, root: str) -> None:
+    """(c): two spawned ranks on the one card over gloo (`data_rank`)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=data_rank,
+                         args=(r, 2, os.path.join(root, "store"), root,
+                               DEVICE))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + DATA_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(codes == [0, 0], f"data base two ranks: exit codes {codes}")
+    res = json.load(open(os.path.join(root, "data.json")))
+    zero_diff = res["zero fp32"]["max_diff"]
+    int8_diff = res["zero int8"]["max_diff"]
+    ratio = (res["zero int8"]["wire_bytes"]
+             / res["zero fp32"]["wire_bytes"])
+    check(res["replicated again"]["max_diff"] == 0.0
+          and zero_diff <= ZERO_TOL and 0 < int8_diff <= INT8_TOL
+          and ratio <= INT8_WIRE,
+          f"data base two ranks: ZeRO fp32 {zero_diff}, int8 "
+          f"{int8_diff} from the replicated params; int8 / fp32 wire "
+          f"{ratio}; {json.dumps(res)}")
+    print(f"# data base two ranks [{card}]: gloo on one card, data=2, "
+          f"B=8 (4 a rank) L=512, lr 1e-3 warmup 10 (LR 0 at step 1), 2 "
+          f"steps each from one seed, "
+          f"{time.perf_counter() - t0:.1f} s with start-up; max |param "
+          f"- replicated|: ZeRO fp32 {zero_diff:.3g} (<= {ZERO_TOL}), "
+          f"ZeRO int8 {int8_diff:.3g} (<= {INT8_TOL}); gradient-"
+          "reduction wire bytes a rank over the 2 steps: "
+          + ", ".join(f"{k} {v['wire_bytes']:.0f}"
+                      for k, v in res.items())
+          + f"; int8 / fp32 {ratio:.4f} (<= {INT8_WIRE}); (loss, grad "
+          "norm) a step: "
+          + "; ".join(f"{k} {v['loss_grad_norm']}" for k, v in res.items())
+          + "; run ms " + ", ".join(f"{k} {v['run_ms']:.0f}"
+                                   for k, v in res.items()))
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
@@ -6116,10 +6497,11 @@ def main() -> int:
                     ["--phase", "resume"], ["--phase", "serve"],
                     ["--phase", "serve-times"], ["--phase", "finetune"],
                     ["--phase", "neighbors"], ["--phase", "rollout"],
-                    ["--phase", "cli"], ["--cli-first"]):
+                    ["--phase", "cli"], ["--phase", "data"],
+                    ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
               "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli]", file=sys.stderr)
+              "cli|data]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6188,6 +6570,11 @@ def main() -> int:
         t0 = time.perf_counter()
         cli_phase(card)
         print(f"# cli: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "data"]:
+        t0 = time.perf_counter()
+        data_phase(card)
+        print(f"# data: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -6266,6 +6653,10 @@ def main() -> int:
     for name, n in cli_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# cli: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in data_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# data: {time.perf_counter() - t0:.1f} s")
     host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)

@@ -30,11 +30,17 @@ Where it departs from the JAX CLI:
   `--platform`. A verb that makes tensors runs on the card, and without
   one exits with the device message; `--device cpu` runs the kernels'
   plain PyTorch versions. `fleet` passes it on to its replicas.
-- One card, no mesh: `pretrain` refuses a config whose mesh wants more
-  than one device (data, fsdp, model and sequence parallelism from the
-  command line are not ported yet); `--multihost`, `serve --mesh` and
-  `--compile-cache-dir` (the port's warm shapes are CUDA graphs, which a
-  process cannot reload) are refused before parsing (`REFUSED_FLAGS`).
+- One process a card: `pretrain --multihost` joins the process group
+  (`parallel.multihost`, from COORDINATOR_ADDRESS / NUM_PROCESSES /
+  PROCESS_ID or torchrun's environment) and trains the data x seq mesh of
+  `cfg.mesh` over it; a mesh whose device count is not the world size is
+  refused with the JAX message. `cfg.data.batch_size` is the GLOBAL batch
+  (each data rank feeds batch_size / data rows), where the JAX CLI's is
+  per host. Only process 0 writes config.json, --events-jsonl and
+  --metrics-jsonl. The fsdp and model axes, `serve --mesh` and `reshard`
+  are refused (ROADMAP A11c), as is `--compile-cache-dir` (the port's
+  warm shapes are CUDA graphs, which a process cannot reload); the flags
+  before parsing (`REFUSED_FLAGS`).
 - `--pretrained` names a port run directory (`train/checkpoint.
   Checkpointer` step directories plus `config.json`); an orbax directory
   of the JAX package is refused with the way across: `export-weights` in
@@ -60,16 +66,21 @@ NO_CARD = ("no CUDA device is available: the port runs its kernels on the "
            "card; pass --device cpu (before the command) to run their "
            "plain PyTorch versions on the CPU")
 
-# Flags of the JAX CLI the port refuses, with the reason (checked before
-# parsing, so each gets its own message instead of argparse's).
+# Verbs and flags of the JAX CLI the port refuses, with the reason
+# (checked before parsing, so each gets its own message instead of
+# argparse's).
+REFUSED_VERBS = {
+    "reshard": "reshard: restoring a checkpoint onto another mesh layout "
+               "is not ported yet (ROADMAP A11c); a port checkpoint holds "
+               "full-shape tensors and resumes at any data x seq mesh as "
+               "it is",
+}
 REFUSED_FLAGS = {
     "--platform": "--platform is the JAX CLI's backend switch; the port "
                   "takes --device {cuda,cpu} (before the command)",
-    "--multihost": "--multihost: multi-host and data-parallel training are "
-                   "not ported yet (ROADMAP A11b); the port trains on one "
-                   "card",
-    "--mesh": "--mesh: batch sharding over a device mesh is not ported "
-              "yet (ROADMAP A11b); the port serves on one card",
+    "--mesh": "--mesh: batch sharding of served requests over a device "
+              "mesh is not ported yet (ROADMAP A11c); the port serves on "
+              "one card",
     "--compile-cache-dir": "--compile-cache-dir arms XLA's persistent "
                            "compilation cache; the port's warm shapes are "
                            "CUDA graphs, which a process cannot reload, so "
@@ -155,18 +166,28 @@ def _device(args):
         raise SystemExit(NO_CARD)
 
 
-def _refuse_mesh(cfg) -> None:
-    """The port trains on one card: a mesh of several devices is a
-    config it cannot run, refused with the overrides that fit it."""
-    if cfg.mesh.num_devices <= 1:
-        return
-    axes = {a: s for a, s in zip(cfg.mesh.axis_names, cfg.mesh.shape)
-            if s > 1}
-    raise SystemExit(
-        f"mesh {axes} wants {cfg.mesh.num_devices} devices, the port "
-        "runs on one card: data, fsdp, model and sequence parallelism "
-        "are not ported yet (ROADMAP A11b); run with "
-        + " ".join(f"--set mesh.{a}=1" for a in axes))
+def _make_mesh(cfg):
+    """The run's mesh over the process group (None for a one-device mesh
+    without a group); exits with the JAX message when the mesh is not the
+    world, and with ROADMAP A11c's for an fsdp or model axis."""
+    import torch.distributed as dist
+
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+
+    if cfg.mesh.num_devices == 1 and not dist.is_initialized():
+        return None
+    try:
+        mesh = make_mesh(cfg.mesh)
+    except ValueError as e:
+        axes = {a: s for a, s in zip(cfg.mesh.axis_names, cfg.mesh.shape)
+                if s > 1}
+        hint = "run with " + " ".join(f"--set mesh.{a}=1" for a in axes)
+        if cfg.mesh.fsdp == cfg.mesh.model == 1:
+            hint = (f"launch {cfg.mesh.num_devices} processes, one a "
+                    f"device, with --multihost, or {hint}")
+        raise SystemExit(f"{e}: {hint}")
+    log(f"mesh: {mesh.shape} over {mesh.size} processes")
+    return mesh
 
 
 def _check_run_dir(path: str) -> None:
@@ -373,14 +394,44 @@ def _write_run_dir(cfg, params, step: int, output: str, device) -> None:
 # ------------------------------------------------------------- subcommands
 
 def cmd_pretrain(args) -> int:
+    """Pretrain; with --multihost, first join the process group (and leave
+    it at the end when this call formed it)."""
+    import torch.distributed as dist
+
+    from proteinbert_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed, process_index,
+    )
+
+    cfg = _build_config(args)
+    device = _device(args)
+    formed = False
+    if getattr(args, "multihost", False):
+        formed = not dist.is_initialized()
+        try:
+            maybe_initialize_distributed(required=True, device=device)
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+    try:
+        return _pretrain(args, cfg, device, process_index())
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _pretrain(args, cfg, device, rank: int) -> int:
     from proteinbert_tpu_torch.data.dataset import (
         HDF5PretrainingDataset, make_pretrain_iterator,
     )
+    from proteinbert_tpu_torch.parallel.sharding import local_batch_size
     from proteinbert_tpu_torch.train import Checkpointer, pretrain
 
-    cfg = _build_config(args)
-    _refuse_mesh(cfg)
-    device = _device(args)
+    mesh = _make_mesh(cfg)
+    shard = dict(process_index=0 if mesh is None else mesh.data_index,
+                 process_count=1 if mesh is None else mesh.data_extent)
+    try:
+        rows = local_batch_size(cfg.data.batch_size, shard["process_count"])
+    except ValueError as e:
+        raise SystemExit(str(e))
 
     if args.data is not None:
         ds = HDF5PretrainingDataset(
@@ -404,15 +455,16 @@ def cmd_pretrain(args) -> int:
             cfg = cfg.replace(train=dataclasses.replace(
                 cfg.train, eval_every=max(cfg.checkpoint.every_steps, 100)))
         # A small holdout evals at its own (smaller) batch size; zero rows
-        # is a config error surfaced now, not at step eval_every.
-        eval_bs = min(cfg.data.batch_size, len(eval_ds))
+        # per data rank is a config error surfaced now, not at step
+        # eval_every.
+        eval_bs = min(rows, len(eval_ds) // shard["process_count"])
         if eval_bs == 0:
             raise SystemExit(
                 f"--eval-frac {args.eval_frac} holds out {len(eval_ds)} "
-                "rows across 1 hosts — not enough for one eval batch; "
-                "raise --eval-frac or the dataset size")
+                f"rows across {shard['process_count']} hosts — not enough "
+                "for one eval batch; raise --eval-frac or the dataset size")
         eval_batches = lambda: make_pretrain_iterator(  # noqa: E731
-            eval_ds, eval_bs, shuffle=False, num_epochs=1)
+            eval_ds, eval_bs, shuffle=False, num_epochs=1, **shard)
         log(f"held-out eval: {len(eval_ds)} rows (batch {eval_bs}), every "
             f"{cfg.train.eval_every} steps")
 
@@ -430,33 +482,37 @@ def cmd_pretrain(args) -> int:
             f"proteins per {cfg.data.seq_len}-token row")
 
         factory = lambda skip: make_packed_iterator(  # noqa: E731
-            ds, cfg.data.batch_size, seed=cfg.train.seed,
+            ds, rows, seed=cfg.train.seed,
             num_epochs=cfg.data.num_epochs, skip_batches=skip,
             max_segments=cfg.data.pack_max_segments,
-            max_open=cfg.data.pack_open_bins, metrics=reg())
+            max_open=cfg.data.pack_open_bins, metrics=reg(), **shard)
     elif cfg.data.buckets:
         from proteinbert_tpu_torch.data.dataset import make_bucketed_iterator
 
         log(f"length bucketing: {cfg.data.buckets}")
 
         factory = lambda skip: make_bucketed_iterator(  # noqa: E731
-            ds, cfg.data.batch_size, cfg.data.buckets, seed=cfg.train.seed,
+            ds, rows, cfg.data.buckets, seed=cfg.train.seed,
             num_epochs=cfg.data.num_epochs, skip_batches=skip,
-            metrics=reg())
+            metrics=reg(), **shard)
     else:
         factory = lambda skip: make_pretrain_iterator(  # noqa: E731
-            ds, cfg.data.batch_size, seed=cfg.train.seed,
-            num_epochs=cfg.data.num_epochs, skip_batches=skip)
+            ds, rows, seed=cfg.train.seed,
+            num_epochs=cfg.data.num_epochs, skip_batches=skip, **shard)
     ck = Checkpointer(cfg.checkpoint.directory,
                       max_to_keep=cfg.checkpoint.max_to_keep,
-                      async_save=cfg.checkpoint.async_save)
-    # Downstream --pretrained commands reconstruct the exact run config
-    # from this file, no repeated --pretrained-set flags.
-    _save_run_config(cfg, cfg.checkpoint.directory)
-    tele = _telemetry(getattr(args, "events_jsonl", None))
+                      async_save=cfg.checkpoint.async_save, mesh=mesh)
+    # Only process 0 writes the run's files (every process would write
+    # duplicate, possibly torn, lines to a shared file). Downstream
+    # --pretrained commands reconstruct the exact run config from
+    # config.json, no repeated --pretrained-set flags.
+    if rank == 0:
+        _save_run_config(cfg, cfg.checkpoint.directory)
+    tele = _telemetry(getattr(args, "events_jsonl", None) if rank == 0
+                      else None)
     log_fn = None
     mf = None
-    if args.metrics_jsonl:
+    if args.metrics_jsonl and rank == 0:
         mf = open(args.metrics_jsonl, "a", buffering=1)
 
         def log_fn(step, metrics):
@@ -470,7 +526,7 @@ def cmd_pretrain(args) -> int:
 
     run = lambda: pretrain(  # noqa: E731
         cfg, factory, checkpointer=ck, eval_batches=eval_batches,
-        log_fn=log_fn, telemetry=tele, device=device)
+        log_fn=log_fn, telemetry=tele, device=device, mesh=mesh)
     try:
         if args.profile_dir:
             from proteinbert_tpu_torch.utils.profiling import device_trace
@@ -494,7 +550,7 @@ def cmd_pretrain(args) -> int:
     if perf:
         log(f"done: {perf.get('residues_per_sec_per_chip', 0):.0f} "
             f"residues/s/chip, MFU {perf.get('mfu', 0):.3f}")
-    if args.history_json:
+    if args.history_json and rank == 0:
         with open(args.history_json, "w") as f:
             json.dump(out["history"], f, indent=2)
     if out.get("preempted"):
@@ -1716,6 +1772,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="HDF5 dataset (reference schema; default: "
                              "synthetic)")
         sp.add_argument("--max-steps", type=int)
+        sp.add_argument("--multihost", action="store_true",
+                        help="join the process group (COORDINATOR_ADDRESS/"
+                             "NUM_PROCESSES/PROCESS_ID, or torchrun's env) "
+                             "before building the mesh; one process a "
+                             "card")
         sp.add_argument("--eval-frac", type=float, default=0.0,
                         help="hold out this fraction for periodic eval")
         sp.add_argument("--checkpoint-dir")
@@ -2202,7 +2263,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refused(argv: List[str]) -> Optional[str]:
-    """The message of the first refused JAX-CLI flag in `argv`."""
+    """The message of the refused JAX-CLI verb, or of the first refused
+    flag, in `argv`."""
+    verb = next((t for i, t in enumerate(argv) if not t.startswith("-")
+                 and (i == 0 or argv[i - 1] != "--device")), None)
+    if verb in REFUSED_VERBS:
+        return REFUSED_VERBS[verb]
     for tok in argv:
         if tok == "--":
             break

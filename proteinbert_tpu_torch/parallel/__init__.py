@@ -1,7 +1,10 @@
-"""Parallelism and quantization — port of `proteinbert_tpu/parallel/`. So
-far: the serving half of `quant.py` (the int8 serving arm), and explicit
-sequence parallelism over `torch.distributed` (`halo.py`,
-`seq_parallel.py`).
+"""Parallelism and quantization — port of `proteinbert_tpu/parallel/` over
+`torch.distributed`: the process group (`multihost.py`), the data × seq
+mesh (`mesh.py`), the layout rules (`sharding.py`), ZeRO-1 and the comm
+accounting (`zero.py`), `quant.py` (the quantized reduce-scatter and the
+int8 serving arm), and explicit sequence parallelism (`halo.py`,
+`seq_parallel.py`). Not ported (ROADMAP A11c): the fsdp and model axes,
+`serve_batch_sharding`, `reshard.py`.
 
 The names below load their module on first use, so that importing one
 submodule (serving's `parallel.quant`) does not pull in the training stack
@@ -10,14 +13,29 @@ that `seq_parallel` needs."""
 import importlib
 
 _EXPORTS = {
+    "Mesh": "mesh",
+    "QuantConfigError": "quant",
+    "ZeroLayout": "zero",
+    "check_quant_mesh": "quant",
     "conv1d_halo": "halo",
     "group_size": "halo",
     "halo_exchange": "halo",
+    "local_batch_size": "sharding",
+    "make_mesh": "mesh",
+    "make_quant_zero_train_step": "quant",
+    "make_zero_train_step": "zero",
+    "maybe_initialize_distributed": "multihost",
+    "mesh_for_devices": "mesh",
+    "per_chip_state_bytes": "zero",
     "gather_seq": "seq_parallel",
     "make_seq_parallel_train_step": "seq_parallel",
     "seq_parallel_apply": "seq_parallel",
     "seq_parallel_loss_and_grads": "seq_parallel",
     "sharded_global_attention": "seq_parallel",
+    "zero_dim": "sharding",
+    "zero_extent": "zero",
+    "zero_gradient_update": "zero",
+    "zero_update_spec": "sharding",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -1,10 +1,36 @@
-"""int8 serving weights — port of the serving half of
-`proteinbert_tpu/parallel/quant.py` (:95, :476-564, :599-773).
+"""Quantized collectives and int8 serving weights — port of
+`proteinbert_tpu/parallel/quant.py` (EQuARX, arXiv:2506.17615).
 
-The int8 arm quantizes a trunk ONCE at load (`quantize_params`:
-symmetric, one float32 scale per output channel, round to nearest even)
-and serves it through the quantized entries below. Each entry takes the
-quantized tree and runs the fp32 arm's own entry body (`inference.py`) on
+**Training — the quantized reduce-scatter** (JAX :107-289). The
+data-parallel front half (`train_state.corrupt_replica_grads`) gives each
+rank its PARTIAL gradients: the gradient of its share of the global loss
+(local numerators over denominators summed across the data group). Each
+sharded leaf's partial is cut into one slice per destination along its
+ZeRO dim (`sharding.zero_dim`, the rule that lays out the persistent
+moments), the slices are quantized —
+
+  bf16: random 16 bits added to the fp32 pattern, then truncated
+        (`stochastic_round_bf16`, unbiased);
+  int8: near-equal chunks of at most QUANT_CHUNK elements, a scale of
+        amax/127 each, floor(y + u) (`quantize_int8_chunks`);
+  fp32: unrounded (the measurement control) —
+
+and go out in ONE `all_to_all_single` (plus one for the int8 scales).
+Each rank dequantizes and sums the d slices it receives into its shard,
+then the ZeRO-1 update and all-gather of `parallel/zero.py` follow. The
+whole leaves and the clip norm's sum of squares ride one fp32
+all-reduce. bf16 payloads go on the wire as bf16 (JAX
+bitcasts to uint16 only because CPU XLA widens bf16 collectives; NCCL and
+gloo move bf16, and gloo refuses int16). The noise comes from a
+generator seeded from the step's generator and the replica index
+(`train_state.replica_generators`): deterministic, the same under resume.
+`check_quant_mesh` raises `QuantConfigError` with the JAX messages.
+
+**Serving — the int8 arm** (JAX :95, :476-564, :599-773). The int8 arm
+quantizes a trunk ONCE at load (`quantize_params`: symmetric, one float32
+scale per output channel, round to nearest even) and serves it through
+the quantized entries below. Each entry takes the quantized tree and runs
+the fp32 arm's own entry body (`inference.py`) on
 `partial_dequantize_params(qparams)`: the block weights the kernels take
 natively stay int8 (`_INKERNEL_QUANT_KEYS`) and go to the int8 legs of
 #3, K2 and #6, which dequantize on the card; every other weight is
@@ -19,12 +45,12 @@ read the trunk's output stay float32.
 `quantize_rows_int8` / `dequantize_rows_int8` are copies of the JAX
 host-numpy row quantizers (`parallel/quant.py:567-600`) that the
 neighbour index builder (`index/store.py`) quantizes its residual vectors
-with. The reduce-scatter half (distribution) is not ported yet.
+with.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -160,8 +186,11 @@ def param_bytes(params: Any) -> int:
 
 
 class QuantConfigError(ValueError):
-    """A quantization knob was combined with input it cannot honor (the
-    JAX package's typed error; here: a row batch that is not 2-D)."""
+    """A quantization knob was combined with a configuration or input it
+    cannot honor (the JAX package's typed error: an unknown payload, a
+    mesh without a replica reduction or with a model / seq axis, the
+    explicit seq-parallel step with int8, an indivisible batch, a row
+    batch that is not 2-D)."""
 
 
 def quantize_rows_int8(x) -> Tuple["np.ndarray", "np.ndarray"]:
@@ -334,3 +363,173 @@ def quant_packed_entry(kind: str):
     except KeyError:
         raise ValueError(f"no quantized packed entry for request kind "
                          f"{kind!r}") from None
+
+
+# ------------------------------------------- quantized reduce-scatter
+
+# Payload dtypes of the quantized reduce-scatter ("fp32" is the unrounded
+# measurement/control baseline, not a config value).
+WIRE_PAYLOADS = ("fp32", "bf16", "int8")
+
+# Elements per int8 scale block: one fp32 scale per QUANT_CHUNK payload
+# elements is <1% wire overhead while one outlier cannot crush a whole
+# slice's resolution.
+QUANT_CHUNK = 512
+
+
+def stochastic_round_bf16(x: torch.Tensor,
+                          gen: torch.Generator) -> torch.Tensor:
+    """fp32 → bf16, rounded stochastically: uniform 16-bit noise added to
+    the fp32 bit pattern, then truncated to its top 16 bits — P(round up)
+    is the discarded fraction, so the rounding is unbiased."""
+    bits = torch.randint(0, 1 << 16, x.shape, generator=gen,
+                         device=x.device, dtype=torch.int32)
+    u = x.float().contiguous().view(torch.int32)
+    return ((u + bits) & -65536).view(torch.float32).to(torch.bfloat16)
+
+
+def quantize_int8_chunks(x: torch.Tensor, gen: Optional[torch.Generator],
+                         chunk: int = QUANT_CHUNK):
+    """(..., m) fp32 → (int8 payload (..., k, c), fp32 scales (..., k), m):
+    k = ceil(m / chunk) near-equal blocks of c = ceil(m / k) elements (a
+    16-element slice is one block of 16, not a padded 512), a symmetric
+    scale amax/127 each; stochastic floor(y + u) with a generator,
+    round-to-nearest-even without."""
+    m = x.shape[-1]
+    k = max(1, -(-m // chunk))
+    c = -(-m // k)
+    pad = k * c - m
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    xc = x.reshape(*x.shape[:-1], k, c)
+    amax = xc.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    y = xc / scale[..., None]
+    if gen is not None:
+        y = torch.floor(y + torch.rand(y.shape, generator=gen,
+                                       device=y.device))
+    else:
+        y = torch.round(y)
+    return torch.clamp(y, -127, 127).to(torch.int8), scale, m
+
+
+def dequantize_int8_chunks(q: torch.Tensor, scale: torch.Tensor,
+                           m: int) -> torch.Tensor:
+    """Inverse of quantize_int8_chunks (the trailing pad dropped)."""
+    full = q.float() * scale[..., None]
+    return full.reshape(*full.shape[:-2], -1)[..., :m]
+
+
+def check_quant_mesh(mesh, payload: str,
+                     batch_size: Optional[int] = None) -> int:
+    """Validate a quantized-reduction request against `mesh` (anything
+    with a `.shape` dict); returns the joint replica extent. Raises the
+    typed QuantConfigError otherwise."""
+    if payload not in WIRE_PAYLOADS:
+        raise QuantConfigError(
+            f"unknown quantized-reduction payload {payload!r}; "
+            f"expected one of {WIRE_PAYLOADS}")
+    from proteinbert_tpu_torch.parallel.zero import zero_extent
+
+    joint = zero_extent(mesh)
+    if joint <= 1:
+        raise QuantConfigError(
+            "quantized gradient reduction needs data*fsdp > 1 — there "
+            "is no cross-replica reduction to compress on this mesh")
+    for ax in ("model", "seq"):
+        if mesh.shape.get(ax, 1) > 1:
+            raise QuantConfigError(
+                f"grad_reduce_dtype={payload!r} runs the forward/"
+                f"backward inside an explicit data-parallel shard_map "
+                f"and cannot shard the {ax!r} axis (extent "
+                f"{mesh.shape[ax]}); use grad_reduce_dtype='fp32' (or "
+                f"'bf16' numerics-only under the explicit seq-parallel "
+                f"step) on model/seq-parallel meshes")
+    if batch_size is not None and batch_size % joint:
+        raise QuantConfigError(
+            f"global batch {batch_size} does not split evenly over the "
+            f"data*fsdp extent {joint} — the quantized step shards the "
+            f"batch explicitly")
+    return joint
+
+
+def quant_reduce_scatter(layout, partials, payload: str,
+                         gen: Optional[torch.Generator], registry=None):
+    """The quantized reduce-scatter of per-rank partial gradients over
+    `layout`'s replica group → (gradients aligned with `layout.views`,
+    the global norm of the dequantized sum)."""
+    from proteinbert_tpu_torch.parallel.zero import all_to_all
+
+    d = layout.d
+    xs = {i: layout.slices(partials[i], i).float() for i in layout.sharded}
+    scales = {}
+    if payload == "int8":
+        pays = {}
+        for i, x in xs.items():
+            q, scales[i], _ = quantize_int8_chunks(x, gen)
+            pays[i] = q.reshape(d, -1)
+    elif payload == "bf16":
+        pays = {i: stochastic_round_bf16(x, gen) for i, x in xs.items()}
+    else:
+        pays = xs
+    order = layout.sharded
+    send = torch.cat([pays[i] for i in order], dim=1)
+    recv = all_to_all(torch.empty_like(send), send, layout.group, registry)
+    if payload == "int8":
+        sc_send = torch.cat([scales[i] for i in order], dim=1)
+        sc_recv = all_to_all(torch.empty_like(sc_send), sc_send,
+                             layout.group, registry)
+    shards = {}
+    off = off_sc = 0
+    for i in order:
+        m = xs[i].shape[1]
+        width = pays[i].shape[1]
+        got = recv[:, off:off + width]
+        if payload == "int8":
+            k = scales[i].shape[1]
+            sc = sc_recv[:, off_sc:off_sc + k]
+            red = (got.reshape(d, k, -1).float() * sc[..., None]).sum(0)
+            red = red.reshape(-1)[:m]
+            off_sc += k
+        else:
+            red = got.float().sum(0)
+        shards[i] = red.view(layout.moved_shape[i]).movedim(
+            0, layout.dims[i])
+        off += width
+    return layout.finish(partials, shards, registry)
+
+
+def make_quant_zero_train_step(mesh, cfg, payload: Optional[str] = None,
+                               registry=None):
+    """`step(state, batch, plateau_value=None) → (state, metrics)`: the
+    ZeRO-1 step whose gradient reduction is the quantized reduce-scatter
+    above — the `make_zero_train_step` route for grad_reduce_dtype in
+    {"bf16", "int8"}; `payload` overrides the wire dtype ("fp32" = the
+    unrounded control). Same signature and plateau contract as the fp32
+    ZeRO step."""
+    from proteinbert_tpu_torch.parallel.zero import layout_for, zero_apply
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.schedule import effective_lr
+
+    payload = payload or cfg.parallel.grad_reduce_dtype
+    check_quant_mesh(mesh, payload, cfg.data.batch_size)
+    cache = {}
+
+    def step(state, batch, plateau_value=None):
+        corrupt_gen, noise_gen = ts.replica_generators(
+            state, mesh, ("corrupt", "noise"))
+        partials, metrics = ts.corrupt_replica_grads(
+            state, batch, cfg, mesh, registry, generator=corrupt_gen)
+        layout = layout_for(cache, mesh, state.params)
+        grads, norm = quant_reduce_scatter(
+            layout, partials, payload,
+            None if payload == "fp32" else noise_gen, registry)
+        metrics["grad_norm"] = norm
+        value = ts.plateau_observation(cfg.optimizer, metrics, plateau_value)
+        opt_state = zero_apply(layout, cfg.optimizer, grads, state.opt_state,
+                               value, norm, registry)
+        metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
+        return ts.TrainState(state.step + 1, state.params, opt_state,
+                             state.generator), metrics
+
+    return step

@@ -32,11 +32,23 @@ world times.) The JAX package gets the same gradients from shard_map's
 transpose; `tests/test_torch_seq_parallel.py` holds both at world 2 and
 4.
 
-Divergences from the JAX package: there is no mesh, so the caller's
-process group selects this path (`pretrain(..., seq_group=g)`), not
-`cfg.mesh.seq`; data parallelism, ZeRO and the seq × data mesh are not
-ported; the implicit-SPMD path has no counterpart. A group of size 1 (or
-None) is allowed and makes no collective call.
+The seq × data mesh (JAX :216-299 on a `MeshConfig(data=d, seq=s)`
+mesh): pass the `parallel.mesh.Mesh` too. Each data replica's seq group
+then runs this step on that replica's rows (corrupted with the replica's
+generator, the same on its seq ranks); the halo exchange and the
+distributed softmax stay inside the seq group. The loss share keeps both
+divisions — 1/seq for the seq ranks' shares, and the weight masses summed
+across the data group — so each gradient is still counted once along
+both axes. The seq-summed gradients are then summed over the data group
+(one flat all-reduce), or reduce-scattered over it under
+`cfg.parallel.zero_update` when the replica extent is above 1 (ZeRO-1,
+`parallel/zero.py`; "bf16" there is JAX's numerics-only cast, and "int8"
+is refused with JAX's `QuantConfigError`).
+
+Divergences from the JAX package: the caller's process groups select
+this path (`pretrain(..., seq_group=g)` or a mesh with seq > 1); the
+implicit-SPMD path has no counterpart. A group of size 1 (or None) is
+allowed and makes no collective call.
 """
 
 from __future__ import annotations
@@ -59,8 +71,12 @@ from proteinbert_tpu_torch.ops.layers import (
     dense_apply, embedding_apply, gelu, layer_norm_apply,
 )
 from proteinbert_tpu_torch.parallel.halo import group_size, halo_exchange
+from proteinbert_tpu_torch.parallel.quant import QuantConfigError
+from proteinbert_tpu_torch.parallel.zero import (
+    all_reduce_flat, layout_for, zero_extent, zero_gradient_update,
+)
 from proteinbert_tpu_torch.train import train_state as ts
-from proteinbert_tpu_torch.train.loss import pretrain_loss
+from proteinbert_tpu_torch.train.loss import pretrain_loss_terms
 from proteinbert_tpu_torch.train.schedule import (
     effective_lr, global_norm, make_optimizer, needs_loss_value,
 )
@@ -197,14 +213,17 @@ def seq_parallel_apply(
 
 
 def seq_parallel_loss_and_grads(
-    group, params: Params, X, Y, W, cfg: PretrainConfig,
+    group, params: Params, X, Y, W, cfg: PretrainConfig, data_group=None,
+    registry=None,
 ):
-    """This rank's forward on its slice of the corrupted dense batch
-    (X, Y, W — the full batch, the same on every rank), the port's
-    `pretrain_loss` on the gathered local logits, the backward of this
-    rank's share and the sum of the param gradients over the group →
-    (grads aligned with `tree_leaves(params)`, the whole batch's loss
-    metrics). ValueError if L % world != 0."""
+    """This rank's forward on its slice of the corrupted dense rows (X, Y,
+    W — the replica's rows, the same on every rank of the seq group), the
+    port's `pretrain_loss` terms on the gathered local logits, the
+    backward of this rank's share and the sum of the param gradients over
+    the seq group → (grads aligned with `tree_leaves(params)`, the loss
+    metrics). With a `data_group` the share's weight masses, and the
+    metrics, are the global batch's (summed over the data replicas).
+    ValueError if L % world != 0."""
     world = group_size(group)
     L = X["local"].shape[1]
     if L % world:
@@ -212,43 +231,52 @@ def seq_parallel_loss_and_grads(
                          f"{world} seq ranks")
     rank = 0 if group is None else dist.get_rank(group)
     rows = slice(rank * L // world, (rank + 1) * L // world)
+    out = {}
 
     def share():
         local_logits, global_logits = seq_parallel_apply(
             group, params, X["local"][:, rows], X["global"], cfg.model)
-        loss, metrics = pretrain_loss(gather_seq(local_logits, group),
-                                      global_logits, Y, W)
-        return loss / world, metrics
+        nums, dens = pretrain_loss_terms(gather_seq(local_logits, group),
+                                         global_logits, Y, W)
+        loss, out["metrics"] = ts.global_loss_share(nums, dens, data_group,
+                                                    registry)
+        return loss / world, {}
 
-    grads, metrics = ts.grads_of(params, share)
+    grads, _ = ts.grads_of(params, share)
     if world > 1:
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=group)
-        grads = [f.view_as(g) for f, g in zip(
-            torch.split(flat, [g.numel() for g in grads]), grads)]
-    return grads, metrics
+        grads = all_reduce_flat(grads, group, registry)
+    return grads, {k: v.detach() for k, v in out["metrics"].items()}
 
 
 def make_seq_parallel_train_step(
-    group, cfg: PretrainConfig,
-) -> Callable[[ts.TrainState, Dict[str, Any]],
-              Tuple[ts.TrainState, Dict[str, torch.Tensor]]]:
+    group, cfg: PretrainConfig, mesh=None, registry=None,
+) -> Callable[..., Tuple[ts.TrainState, Dict[str, torch.Tensor]]]:
     """`step(state, batch) → (state, metrics)`, the pretraining step whose
-    forward runs `seq_parallel_apply` on this rank's slice. Every rank
-    passes the same state and the same CLEAN dense batch: the step
-    corrupts the full batch once with the state's generator (identically
-    on every rank), then `seq_parallel_loss_and_grads`, then the port's
-    `gradient_update`. The metrics are the whole batch's, the same on
-    every rank. Refuses packed batches (NotImplementedError), an int8 ZeRO
-    reduction (ValueError, here: the quantized reduce-scatter needs
-    per-replica partial gradients from a data-parallel step, as in the JAX
-    step, seq_parallel.py:229-239) and L % world != 0 (ValueError)."""
+    forward runs `seq_parallel_apply` on this rank's slice. Every rank of
+    the seq group passes the same state and the same CLEAN dense rows:
+    the step corrupts them once (with the state's generator, or under a
+    `mesh` with data replicas the replica's generator — identically on
+    the group), then `seq_parallel_loss_and_grads`, then the gradients'
+    sum over the mesh's data group (or ZeRO-1's reduce-scatter) and the
+    update. The
+    metrics are the global batch's, the same on every rank; `registry`
+    receives the gradient reductions' comm accounting. Refuses packed
+    batches (NotImplementedError), an int8 ZeRO reduction
+    (QuantConfigError, as the JAX step does) and L % world != 0
+    (ValueError)."""
     if cfg.parallel.zero_update and cfg.parallel.grad_reduce_dtype == "int8":
-        raise ValueError(
+        raise QuantConfigError(
             "grad_reduce_dtype='int8' is not supported by the explicit "
-            "sequence-parallel step: the quantized reduce-scatter needs "
-            "per-replica partial gradients from a data-parallel step, which "
-            "this path does not have (the port has no ZeRO update yet)")
+            "sequence-parallel Pallas step: the quantized reduce-"
+            "scatter needs per-replica partial gradients from its own "
+            "data-parallel shard_map, which this hand-sharded path "
+            "cannot provide. Disable model.use_pallas (the implicit-"
+            "SPMD jit cannot quantize either — use a data/fsdp mesh), "
+            "or keep grad_reduce_dtype to 'fp32'/'bf16' here.")
+    data_group = None if mesh is None else mesh.data_group
+    zero_on = (mesh is not None and cfg.parallel.zero_update
+               and zero_extent(mesh) > 1)
+    cache: Dict[str, Any] = {}
 
     def step(state: ts.TrainState, batch: Dict[str, Any]):
         if "segment_ids" in batch:
@@ -257,14 +285,25 @@ def make_seq_parallel_train_step(
                 "explicit sequence-parallel step: the prehaloed local-track "
                 "kernel has no segment masks (neither has the JAX one); "
                 "train packed rows without a seq group")
-        X, Y, W, _ = ts.corrupt_for_step(state, batch, cfg)
+        X, Y, W, _ = ts.corrupt_for_step(
+            state, batch, cfg,
+            None if mesh is None else ts.replica_generator(state, mesh))
         grads, metrics = seq_parallel_loss_and_grads(
-            group, state.params, X, Y, W, cfg)
-        metrics["grad_norm"] = global_norm(grads)
-        params, opt_state = ts.gradient_update(
-            make_optimizer(cfg.optimizer), state.params, grads,
-            state.opt_state, metrics["loss"],
-            needs_loss_value(cfg.optimizer))
+            group, state.params, X, Y, W, cfg, data_group, registry)
+        if zero_on:
+            opt_state, metrics["grad_norm"] = zero_gradient_update(
+                layout_for(cache, mesh, state.params), cfg.optimizer, grads,
+                state.opt_state, metrics["loss"],
+                grad_reduce_dtype=cfg.parallel.grad_reduce_dtype,
+                registry=registry)
+            params = state.params
+        else:
+            grads = all_reduce_flat(grads, data_group, registry)
+            metrics["grad_norm"] = global_norm(grads)
+            params, opt_state = ts.gradient_update(
+                make_optimizer(cfg.optimizer), state.params, grads,
+                state.opt_state, metrics["loss"],
+                needs_loss_value(cfg.optimizer))
         metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
         return ts.TrainState(state.step + 1, params, opt_state,
                              state.generator), metrics

@@ -37,10 +37,16 @@ snapshot's event, and writes them, while the train stream runs on. At most one s
 waits for it (`flush_staged`). On the CPU the snapshot is a host copy
 already.
 
-Sequence-parallel runs (`seq_group` of world > 1): the params are
-replicated on every rank, so rank 0 writes, synchronously, and a barrier
-follows; every rank keeps the same step list, and every rank restores
-from disk. Staged saves need a one-rank group.
+Multi-rank runs — a `seq_group`, or a `mesh` (`parallel.mesh.Mesh`) of
+more than one rank: the params are replicated on every rank, so rank 0
+writes, synchronously, and every rank meets at a barrier; every rank
+keeps the same step list, and every rank restores from disk. Staged saves
+need a one-rank group. Under ZeRO-1 (moments at this rank's shard shape,
+`parallel/zero.py`) a save first gathers the moments to full shape across
+the mesh's data group, and a restore into a template whose moments are
+shards keeps this rank's shard: a step file is the same whether a
+replicated, a ZeRO or a one-rank run wrote it, and any of them resumes
+it.
 
 Restore checks every leaf's shape and dtype against the template and
 raises ValueError on a mismatch (a wrong template is a real error, never
@@ -172,7 +178,7 @@ class Checkpointer:
     `in_flight`, `wait`, `close`) over `torch.save` files."""
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 async_save: bool = True, seq_group=None):
+                 async_save: bool = True, seq_group=None, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
@@ -182,12 +188,22 @@ class Checkpointer:
         self.on_event = None
         self.on_note = None
         self._group = seq_group
-        self._world = 1
+        self._mesh = mesh
+        self.world = 1
         self._writer = True
-        if seq_group is not None:
+        if mesh is not None:
+            if seq_group is not None:
+                raise ValueError("pass a seq_group or a mesh, not both")
+            self.world = mesh.size
+            self._writer = mesh.rank == 0
+            if self.world > 1:
+                import torch.distributed as dist
+
+                self._group = dist.group.WORLD
+        elif seq_group is not None:
             import torch.distributed as dist
 
-            self._world = dist.get_world_size(seq_group)
+            self.world = dist.get_world_size(seq_group)
             self._writer = dist.get_rank(seq_group) == 0
         self._lock = threading.Lock()
         self._steps: List[int] = []               # guarded-by: _lock
@@ -283,7 +299,8 @@ class Checkpointer:
         latest = self.latest_step()
         saved = latest is None or step > latest
         if saved:
-            if self._world > 1:
+            state = self._full_moments(state)
+            if self.world > 1:
                 if self._writer:
                     self._write_step(step, _host_copy(state_tree(state)),
                                      data_state)
@@ -301,6 +318,21 @@ class Checkpointer:
                     self._write_step(step, host, data_state)
         self._notify("save", step, saved=saved)
         return saved
+
+    def _full_moments(self, state: TrainState) -> TrainState:
+        """The state with ZeRO-sharded moments gathered to full shape
+        (collective over the mesh's data group); as is otherwise."""
+        o = state.opt_state
+        if self.world == 1 or all(
+                m.shape == p.shape
+                for m, p in zip(o.mu, tree_leaves(state.params))):
+            return state
+        from proteinbert_tpu_torch.parallel.zero import moments_full
+
+        return TrainState(state.step, state.params,
+                          moments_full(o, state.params,
+                                       self._mesh.replica_group),
+                          state.generator)
 
     # ------------------------------------------- overlapped (staged) saves
 
@@ -356,7 +388,7 @@ class Checkpointer:
         here first). Errors of the stage re-raise at the next
         flush_staged() / poll_staged() / wait(); a skipped step (<=
         latest) is logged as loudly as the synchronous path."""
-        if self._world > 1:
+        if self.world > 1:
             raise ValueError("staged saves need a one-rank seq group; "
                              "multi-rank runs save synchronously")
         self._settle()
@@ -452,10 +484,19 @@ class Checkpointer:
     def _state_from(self, tree: Dict[str, Any],
                     like: TrainState) -> TrainState:
         like_tree = state_tree(like)
+        o = tree["opt_state"]
+        if self._mesh is not None:
+            # A ZeRO template: keep this rank's shard of each full moment.
+            from proteinbert_tpu_torch.parallel.zero import shard_of
+
+            for k in ("mu", "nu"):
+                o[k] = [shard_of(t, tuple(v.shape), self._mesh.data_index,
+                                 self._mesh.data_extent)
+                        if torch.is_tensor(t) and t.dim() == v.dim() else t
+                        for t, v in zip(o[k], like_tree["opt_state"][k])]
         _check_like(tree, like_tree, "")
         dev = tree_leaves(like.params)[0].device
         put = lambda t: t.to(dev)  # noqa: E731
-        o = tree["opt_state"]
         gen = torch.Generator(device=like.generator.device)
         gen.set_state(tree["generator"])
         return TrainState(

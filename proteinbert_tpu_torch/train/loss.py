@@ -30,6 +30,44 @@ def _weighted_mean(loss: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (loss * w).sum() / w.sum().clamp_min(1.0)
 
 
+def pretrain_loss_terms(
+    local_logits: torch.Tensor,
+    global_logits: torch.Tensor,
+    targets: Batch,
+    weights: Batch,
+) -> Tuple[Batch, Batch]:
+    """The loss's sums: (numerators {"local", "global", "local_acc"},
+    denominators {"local", "global"}) — Σ w·CE, Σ w·BCE, Σ w·correct and
+    the weight masses Σ w. Every term of `pretrain_loss` is a ratio of
+    these, so a data-parallel rank's share of the global loss is its own
+    numerators over the denominators summed across ranks."""
+    labels = targets["local"].long()
+    local_ce = F.cross_entropy(local_logits.transpose(1, 2), labels,
+                               reduction="none")
+    global_bce = F.binary_cross_entropy_with_logits(
+        global_logits, targets["global"].to(global_logits.dtype),
+        reduction="none")
+    wl, wg = weights["local"], weights["global"]
+    correct = (local_logits.argmax(-1) == labels).float()
+    return ({"local": (local_ce * wl).sum(), "global": (global_bce * wg).sum(),
+             "local_acc": (correct * wl).sum()},
+            {"local": wl.sum(), "global": wg.sum()})
+
+
+def loss_from_terms(nums: Batch, dens: Batch
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, metrics) from the sums of `pretrain_loss_terms` /
+    `packed_loss_terms`: each term a numerator over max(its weight
+    mass, 1)."""
+    dl = dens["local"].clamp_min(1.0)
+    local_loss = nums["local"] / dl
+    global_loss = nums["global"] / dens["global"].clamp_min(1.0)
+    total = local_loss + global_loss
+    return total, {"loss": total, "local_loss": local_loss,
+                   "global_loss": global_loss,
+                   "local_acc": nums["local_acc"] / dl}
+
+
 def pretrain_loss(
     local_logits: torch.Tensor,
     global_logits: torch.Tensor,
@@ -39,19 +77,8 @@ def pretrain_loss(
     """(total, metrics). local_logits (B, L, V) and global_logits (B, A)
     float32; targets {"local": (B, L) ids, "global": (B, A) 0/1};
     weights {"local": (B, L), "global": (B, A)}."""
-    labels = targets["local"].long()
-    local_ce = F.cross_entropy(local_logits.transpose(1, 2), labels,
-                               reduction="none")
-    local_loss = _weighted_mean(local_ce, weights["local"])
-    global_bce = F.binary_cross_entropy_with_logits(
-        global_logits, targets["global"].to(global_logits.dtype),
-        reduction="none")
-    global_loss = _weighted_mean(global_bce, weights["global"])
-    total = local_loss + global_loss
-    local_acc = _weighted_mean(
-        (local_logits.argmax(-1) == labels).float(), weights["local"])
-    return total, {"loss": total, "local_loss": local_loss,
-                   "global_loss": global_loss, "local_acc": local_acc}
+    return loss_from_terms(*pretrain_loss_terms(local_logits, global_logits,
+                                                targets, weights))
 
 
 def packed_segment_losses(
@@ -91,6 +118,25 @@ def packed_segment_losses(
             "seg_weighted": (gw_sum > 0).float()}
 
 
+def packed_loss_terms(
+    local_logits: torch.Tensor,
+    global_logits: torch.Tensor,
+    targets: Batch,
+    weights: Batch,
+    segment_ids: torch.Tensor,
+) -> Tuple[Batch, Batch]:
+    """`pretrain_loss_terms` of a PACKED batch: the per-segment terms
+    summed over the valid segments, over the counts of valid segments
+    (JAX quant.py:358-367)."""
+    seg = packed_segment_losses(local_logits, global_logits, targets,
+                                weights, segment_ids)
+    valid, weighted = seg["seg_valid"], seg["seg_weighted"]
+    return ({"local": (seg["local"] * valid).sum(),
+             "global": (seg["global"] * weighted).sum(),
+             "local_acc": (seg["local_acc"] * valid).sum()},
+            {"local": valid.sum(), "global": weighted.sum()})
+
+
 def packed_pretrain_loss(
     local_logits: torch.Tensor,
     global_logits: torch.Tensor,
@@ -102,14 +148,8 @@ def packed_pretrain_loss(
     term averages within a segment, then over the valid segments (empty
     segments weigh 0). local_logits (B, L, V), global_logits (B, S, A);
     targets/weights as `packed_weights` lays them out."""
-    seg = packed_segment_losses(local_logits, global_logits, targets,
-                                weights, segment_ids)
-    local_loss = _weighted_mean(seg["local"], seg["seg_valid"])
-    global_loss = _weighted_mean(seg["global"], seg["seg_weighted"])
-    local_acc = _weighted_mean(seg["local_acc"], seg["seg_valid"])
-    total = local_loss + global_loss
-    return total, {"loss": total, "local_loss": local_loss,
-                   "global_loss": global_loss, "local_acc": local_acc}
+    return loss_from_terms(*packed_loss_terms(
+        local_logits, global_logits, targets, weights, segment_ids))
 
 
 def global_ranking_metrics(

@@ -153,10 +153,14 @@ class Optimizer:
                         [torch.zeros_like(t) for t in leaves], plateau)
 
     def update(self, grads: List[torch.Tensor], state: OptState,
-               params=None, value: Any = None
+               params=None, value: Any = None, grad_norm: Any = None
                ) -> Tuple[List[torch.Tensor], OptState]:
+        """`grad_norm`: the gradients' TRUE global norm, given when `grads`
+        are one rank's shards of them (ZeRO-1, the JAX
+        `make_optimizer(clip_norm_value=)`); the clip then uses it
+        instead of measuring `grads`."""
         cfg = self.cfg
-        g = clip_by_global_norm(list(grads), cfg.grad_clip_norm)
+        g = clip_by_global_norm(list(grads), cfg.grad_clip_norm, grad_norm)
         b1, b2 = cfg.b1, cfg.b2
         # mu = (1-b1)·g + b1·mu; nu = (1-b2)·g² + b2·nu
         torch._foreach_mul_(state.mu, b1)
@@ -225,11 +229,13 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
         torch._foreach_norm([t.float() for t in tensors])))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Any = None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm, in place: (g / ‖g‖) · max_norm when
-    ‖g‖ >= max_norm, else g exactly. No epsilon."""
-    norm = global_norm(grads)
+    ‖g‖ >= max_norm, else g exactly. No epsilon. `norm` replaces the
+    measured ‖g‖ when given."""
+    if norm is None:
+        norm = global_norm(grads)
     trigger = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(trigger, one, norm))

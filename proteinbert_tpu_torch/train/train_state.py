@@ -17,12 +17,30 @@ sequence's non-pad positions. A batch with "segment_ids" is PACKED
 runs the packed model with no pad mask (so `encode` derives it from
 `segment_ids > 0`) and takes the per-segment `packed_pretrain_loss`, as
 the JAX step chooses from the batch's keys.
+
+Data parallelism (`make_data_parallel_train_step`, the JAX `train_step`
+jitted under a data mesh): each data rank of a `parallel.mesh.Mesh` runs
+the forward and backward on its B/data rows, and its objective is its
+SHARE of the global loss — its own numerators over the weight masses
+summed across the data group (`loss.pretrain_loss_terms`; JAX
+quant.py:331-367), so the shares sum to the global loss whatever each
+rank's masses are (a mean of per-rank losses would not). The masses and
+numerators are summed in one small all-reduce before the backward (so
+the metrics are the global batch's on every rank), the gradients with
+one all-reduce of one flat fp32 buffer after it, and every rank applies
+the same `gradient_update`.
+Each rank corrupts its rows with a generator derived from the state's
+generator and its data index (`replica_generators`); the state's
+generator advances identically on every rank. A data group of one rank
+corrupts with the state's generator itself, so a one-rank run is the
+plain step bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import hashlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +51,10 @@ from proteinbert_tpu_torch.data.corruption import (
     corrupt_batch, corrupt_packed_batch,
 )
 from proteinbert_tpu_torch.models import proteinbert
+from proteinbert_tpu_torch.parallel.zero import all_reduce, all_reduce_flat
 from proteinbert_tpu_torch.train.loss import (
-    global_ranking_metrics, global_ranking_stats, packed_pretrain_loss,
-    pretrain_loss,
+    global_ranking_metrics, global_ranking_stats, loss_from_terms,
+    packed_loss_terms, pretrain_loss_terms,
 )
 from proteinbert_tpu_torch.train.schedule import (
     OptState, Optimizer, effective_lr, global_norm, make_optimizer,
@@ -90,12 +109,36 @@ def _corrupt(gen: torch.Generator, batch: Dict[str, Any],
 
 
 def corrupt_for_step(state: TrainState, batch: Dict[str, Any],
-                     cfg: PretrainConfig):
-    """Corrupt the CLEAN batch on the state's device with the state's
-    generator → (X, Y, W, segment_ids), segment_ids None for a dense
-    batch."""
+                     cfg: PretrainConfig,
+                     generator: Optional[torch.Generator] = None):
+    """Corrupt the CLEAN batch on the state's device with `generator`
+    (default: the state's) → (X, Y, W, segment_ids), segment_ids None for
+    a dense batch."""
     dev = tree_leaves(state.params)[0].device
-    return _corrupt(state.generator, batch, cfg, dev)
+    return _corrupt(state.generator if generator is None else generator,
+                    batch, cfg, dev)
+
+
+def forward_logits(params: Any, X: Batch, W: Batch, cfg: PretrainConfig,
+                   segment_ids: Optional[torch.Tensor] = None):
+    """(local_logits, global_logits) of a corrupted batch: dense rows under
+    the training mask `W["local"] > 0`, packed rows (`segment_ids`)
+    through the packed model."""
+    if segment_ids is not None:
+        return proteinbert.apply(params, X["local"], X["global"], cfg.model,
+                                 segment_ids=segment_ids)
+    return proteinbert.apply(params, X["local"], X["global"], cfg.model,
+                             W["local"] > 0)
+
+
+def loss_terms(local_logits, global_logits, Y: Batch, W: Batch,
+               segment_ids: Optional[torch.Tensor] = None):
+    """The loss's (numerators, denominators): per segment for a packed
+    batch, else dense."""
+    if segment_ids is not None:
+        return packed_loss_terms(local_logits, global_logits, Y, W,
+                                 segment_ids)
+    return pretrain_loss_terms(local_logits, global_logits, Y, W)
 
 
 def forward_loss(params: Any, X: Batch, Y: Batch, W: Batch,
@@ -104,16 +147,10 @@ def forward_loss(params: Any, X: Batch, Y: Batch, W: Batch,
     """(loss, metrics, local_logits, global_logits) of a corrupted batch:
     dense rows under the training mask `W["local"] > 0`, packed rows
     (`segment_ids`) through the packed model and the per-segment loss."""
-    if segment_ids is not None:
-        local_logits, global_logits = proteinbert.apply(
-            params, X["local"], X["global"], cfg.model,
-            segment_ids=segment_ids)
-        loss, metrics = packed_pretrain_loss(local_logits, global_logits, Y,
-                                             W, segment_ids)
-    else:
-        local_logits, global_logits = proteinbert.apply(
-            params, X["local"], X["global"], cfg.model, W["local"] > 0)
-        loss, metrics = pretrain_loss(local_logits, global_logits, Y, W)
+    local_logits, global_logits = forward_logits(params, X, W, cfg,
+                                                 segment_ids)
+    loss, metrics = loss_from_terms(*loss_terms(
+        local_logits, global_logits, Y, W, segment_ids))
     return loss, metrics, local_logits, global_logits
 
 
@@ -151,6 +188,83 @@ def corrupt_forward_grads(state: TrainState, batch: Dict[str, Any],
     """Corrupt, forward, loss, backward → (grads, loss metrics)."""
     X, Y, W, seg = corrupt_for_step(state, batch, cfg)
     return loss_and_grads(state.params, X, Y, W, cfg, seg)
+
+
+def _seed(state_bytes: bytes, label: str) -> int:
+    digest = hashlib.blake2b(state_bytes + label.encode(), digest_size=8)
+    return int.from_bytes(digest.digest(), "little") & (2 ** 63 - 1)
+
+
+def replica_generators(state: TrainState, mesh,
+                       labels: Sequence[str]) -> List[torch.Generator]:
+    """This step's generators of this data rank, one per label, seeded
+    from the state's generator and the rank's data index; the state's
+    generator then advances once, on the host and identically on every
+    rank (so a resumed run stays in lockstep)."""
+    gen = state.generator
+    st = gen.get_state().numpy().tobytes()
+    out = [torch.Generator(device=gen.device).manual_seed(
+        _seed(st, f"{label}/{mesh.data_index}")) for label in labels]
+    gen.manual_seed(_seed(st, "next"))
+    return out
+
+
+def replica_generator(state: TrainState, mesh) -> torch.Generator:
+    """The corruption generator of this data rank: the state's own when
+    the data extent is 1 (the plain step's draws), else derived."""
+    if mesh.data_extent == 1:
+        return state.generator
+    return replica_generators(state, mesh, ("corrupt",))[0]
+
+
+def replica_loss_and_grads(params: Any, X: Batch, Y: Batch, W: Batch,
+                           cfg: PretrainConfig,
+                           segment_ids: Optional[torch.Tensor], group,
+                           registry=None):
+    """This data rank's share of the global loss on its corrupted rows →
+    (partial gradients aligned with `tree_leaves(params)`, the global
+    batch's loss metrics). The weight masses and the loss numerators are
+    summed over `group` in one all-reduce before the backward; the
+    partials summed over the group are the gradient of the global loss."""
+    out = {}
+
+    def share():
+        ll, gl = forward_logits(params, X, W, cfg, segment_ids)
+        nums, dens = loss_terms(ll, gl, Y, W, segment_ids)
+        loss, out["metrics"] = global_loss_share(nums, dens, group, registry)
+        return loss, {}
+
+    grads, _ = grads_of(params, share)
+    return grads, {k: v.detach() for k, v in out["metrics"].items()}
+
+
+def global_loss_share(nums: Batch, dens: Batch, group, registry=None):
+    """(this rank's share of the global loss — its numerators over the
+    weight masses summed over `group` —, the global loss metrics), with
+    one all-reduce of the masses and the numerators (none without a
+    group)."""
+    sums = all_reduce(torch.stack(
+        [dens["local"], dens["global"], nums["local"], nums["global"],
+         nums["local_acc"]]).detach(), group, registry)
+    total = {"local": sums[0], "global": sums[1]}
+    loss, _ = loss_from_terms(nums, total)
+    _, metrics = loss_from_terms(
+        {"local": sums[2], "global": sums[3], "local_acc": sums[4]}, total)
+    return loss, metrics
+
+
+def corrupt_replica_grads(state: TrainState, batch: Dict[str, Any],
+                          cfg: PretrainConfig, mesh, registry=None,
+                          generator: Optional[torch.Generator] = None):
+    """Corrupt this rank's CLEAN rows (with `generator`, default
+    `replica_generator`), then `replica_loss_and_grads` over the mesh's
+    data group — the front half of every data-parallel step → (partial
+    gradients, global metrics)."""
+    X, Y, W, seg = corrupt_for_step(
+        state, batch, cfg,
+        replica_generator(state, mesh) if generator is None else generator)
+    return replica_loss_and_grads(state.params, X, Y, W, cfg, seg,
+                                  mesh.data_group, registry)
 
 
 def plateau_observation(cfg_opt, metrics: Dict[str, torch.Tensor],
@@ -203,6 +317,32 @@ def train_step(
     metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
     return TrainState(state.step + 1, params, opt_state,
                       state.generator), metrics
+
+
+def make_data_parallel_train_step(mesh, cfg: PretrainConfig, registry=None):
+    """`step(state, batch, plateau_value=None) → (state, metrics)`, the
+    replicated data-parallel step over `mesh`'s data group: this rank's
+    share of the global loss on its rows, one flat all-reduce of the
+    gradients, then `gradient_update` on every rank. The
+    metrics are the global batch's, the same on every rank; `registry`
+    receives the comm accounting."""
+    group = mesh.data_group
+
+    def step(state: TrainState, batch: Dict[str, Any],
+             plateau_value: Any = None):
+        grads, metrics = corrupt_replica_grads(state, batch, cfg, mesh,
+                                               registry)
+        grads = all_reduce_flat(grads, group, registry)
+        metrics["grad_norm"] = global_norm(grads)
+        value = plateau_observation(cfg.optimizer, metrics, plateau_value)
+        params, opt_state = gradient_update(
+            make_optimizer(cfg.optimizer), state.params, grads,
+            state.opt_state, value, needs_loss_value(cfg.optimizer))
+        metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
+        return TrainState(state.step + 1, params, opt_state,
+                          state.generator), metrics
+
+    return step
 
 
 def eval_step(

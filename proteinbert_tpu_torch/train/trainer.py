@@ -1,6 +1,8 @@
 """The pretraining loop — port of `proteinbert_tpu/train/trainer.py`
-(`pretrain`) for dense and packed rows on one device, and for dense rows
-sequence-parallel over a process group.
+(`pretrain`) for dense and packed rows on one device, data-parallel over
+a mesh (replicated, ZeRO-1, or ZeRO-1 with a quantized reduce-scatter),
+and for dense rows sequence-parallel over a process group or a data ×
+seq mesh.
 
 `pretrain(cfg, batch_iterator, ...)` creates, restores or continues a
 train state, runs `cfg.train.max_steps` steps of `train_step`, logs every
@@ -56,9 +58,30 @@ step to step (`data/dataset.make_bucketed_iterator`'s buckets): the step
 is shape-parametric, and `perf` counts B·`cfg.data.seq_len` positions a
 step as the JAX timer does.
 
+`mesh` (`parallel.mesh.make_mesh`, one process a card) chooses the step
+as the JAX trainer does: the seq × data step when its seq extent is
+above 1; else ZeRO-1 (`parallel/zero.py`, or the quantized reduce-scatter
+of `parallel/quant.py` when `cfg.parallel.grad_reduce_dtype` is not
+"fp32") when `cfg.parallel.zero_update` and the replica extent is above
+1; else the replicated data-parallel step (`train_state.
+make_data_parallel_train_step`). The JAX warnings are logged when
+`zero_update` or `grad_reduce_dtype` cannot take effect.
+`cfg.data.batch_size` is the GLOBAL batch of a step, as on a single JAX
+host: the iterator of each rank yields its batch_size / data rows (a
+batch that does not split is refused), its seq ranks the same rows.
+Every rank calls `pretrain` with the same arguments and a Checkpointer
+made with the same mesh. A preemption signal stops every rank at the
+same step: each step the ranks agree on it with one small all-reduce
+(MAX) before any of them acts on it, since the save that follows makes
+collectives. Evals corrupt each rank's rows with the rank's own draws
+and pool their sums and ranking statistics across the data group,
+`perf` counts this rank's rows, the collectives' bytes go to the telemetry registry (`collective_bytes{kind}`,
+`collective_wire_bytes{kind}`), and `run_start` carries the mesh, the
+rank count and whether ZeRO is on.
+
 Left as the JAX loop's other paths: the overlapped eval bracket
-(`cfg.train.overlap_eval`; the port's eval is synchronous), data
-parallelism and ZeRO, and the drill knobs (`PBT_FAULT_*`).
+(`cfg.train.overlap_eval`; the port's eval is synchronous) and the drill
+knobs (`PBT_FAULT_*`).
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import PretrainConfig
@@ -81,9 +105,15 @@ from proteinbert_tpu_torch.parallel.halo import group_size
 from proteinbert_tpu_torch.parallel.seq_parallel import (
     make_seq_parallel_train_step,
 )
+from proteinbert_tpu_torch.parallel.sharding import local_batch_size
+from proteinbert_tpu_torch.parallel.zero import (
+    all_reduce, make_zero_train_step, per_chip_state_bytes, zero_extent,
+)
 from proteinbert_tpu_torch.train import train_state as ts
 from proteinbert_tpu_torch.train.checkpoint import Checkpointer
-from proteinbert_tpu_torch.train.loss import ranking_metrics_from_stats
+from proteinbert_tpu_torch.train.loss import (
+    DEFAULT_RANKING_BINS, ranking_metrics_from_stats,
+)
 from proteinbert_tpu_torch.train.metrics import StepTimer
 from proteinbert_tpu_torch.train.resilience import (
     GracefulShutdown, check_finite, flush_inflight_checkpoint,
@@ -94,24 +124,87 @@ logger = logging.getLogger(__name__)
 
 
 def eval_generator(cfg: PretrainConfig, step: int, batch_index: int,
-                   device: torch.device) -> torch.Generator:
-    """The corruption generator of eval batch `batch_index` at `step`: a
-    pure function of (seed, step, batch), so evals are reproducible."""
+                   device: torch.device,
+                   data_index: int = 0) -> torch.Generator:
+    """The corruption generator of eval batch `batch_index` at `step` on
+    data rank `data_index`: a pure function of (seed, step, batch, data
+    rank), so evals are reproducible and the data ranks draw independent
+    noise (rank 0 draws what one process draws)."""
     seed = ((cfg.train.seed + 1) * 1_000_003 + step) * 1_009 + batch_index
+    if data_index:
+        seed = (seed * 1_000_033 + data_index) % (1 << 63)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def eval_generators(cfg: PretrainConfig, step: int, device: torch.device,
+                    group=None) -> Callable[[int], torch.Generator]:
+    """batch index → `eval_generator` of this rank's data index in `group`
+    (0 without one)."""
+    index = 0 if group is None else dist.get_rank(group)
+    return lambda n: eval_generator(cfg, step, n, device, index)
+
+
+def stop_agreed(stop, group, device: torch.device) -> bool:
+    """Whether any rank of `group` was asked to stop (`stop.requested`,
+    MAX over one all-reduce of a one-element flag; the local flag without
+    a group). Every rank calls it at the same point of every step, so
+    the collectives a stop then makes (the save's gathers and barrier)
+    start on every rank together. The flag is read on the host: one
+    synchronization a step."""
+    if group is None:
+        return stop.requested
+    on = device if dist.get_backend(group) == "nccl" else "cpu"
+    flag = torch.tensor([int(stop.requested)], dtype=torch.int32, device=on)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
+
+
+_EVAL_SUMS = ("loss", "local_loss", "global_loss", "local_acc",
+              "global_auroc_batch_mean", "global_p_at_k_batch_mean")
+
+
+def _pool(sums: Dict[str, float], n: int, rows: int, rank_stats, group,
+          device: torch.device):
+    """Every data rank's eval sums, counts and ranking statistics summed
+    over `group` with one all-reduce (a rank without batches adds
+    zeros) → (sums, n, rows, rank_stats)."""
+    stats = rank_stats or {
+        "pos_hist": torch.zeros(DEFAULT_RANKING_BINS, device=device),
+        "neg_hist": torch.zeros(DEFAULT_RANKING_BINS, device=device),
+        "p_at_k_num": torch.zeros((), device=device),
+        "p_at_k_den": torch.zeros((), device=device)}
+    names = list(stats)
+    head = torch.tensor([sums.get(k, 0.0) for k in _EVAL_SUMS] + [n, rows],
+                        dtype=torch.float64, device=device)
+    vec = torch.cat([head] + [stats[k].double().reshape(-1)
+                              for k in names])
+    all_reduce(vec, group)
+    head, off = vec[:len(head)].tolist(), len(head)
+    pooled = {}
+    for k in names:
+        size = stats[k].numel()
+        pooled[k] = vec[off:off + size].float().reshape(stats[k].shape)
+        off += size
+    n, rows = int(head[-2]), int(head[-1])
+    return (dict(zip(_EVAL_SUMS, head)) if n else {}, n, rows,
+            pooled if n else None)
 
 
 def evaluate_batches(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
                      cfg: PretrainConfig,
                      generator_for: Callable[[int], torch.Generator],
-                     max_batches: int = 0):
+                     max_batches: int = 0, group=None):
     """`eval_step` over `batches` (batch n corrupted under
     `generator_for(n)`; at most `max_batches` when > 0) → (metrics,
     batches, rows). Loss and accuracy metrics are the row-weighted mean
     of the per-batch values. `global_auroc` / `global_p_at_k` are pooled
     over the whole split from each batch's `ranking_stats`, as the JAX
     package's `resolve_eval` does; the row-weighted means of the exact
-    in-batch values are kept as `*_batch_mean`."""
+    in-batch values are kept as `*_batch_mean`. With a data `group`,
+    each rank scores its own rows (corrupted by its own
+    `generator_for`) and the sums, counts and statistics are pooled
+    across the group (the same merge that pools batches), so the metrics
+    are the whole split's on every rank."""
     pooled = ("global_auroc", "global_p_at_k")
     sums: Dict[str, float] = {}
     rank_stats = None
@@ -129,6 +222,10 @@ def evaluate_batches(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
             sums[k] = sums.get(k, 0.0) + float(v) * b_rows
         n += 1
         rows += b_rows
+    if group is not None:
+        sums, n, rows, rank_stats = _pool(
+            sums, n, rows, rank_stats, group,
+            ts.tree_leaves(state.params)[0].device)
     metrics = {k: v / max(rows, 1) for k, v in sums.items()}
     if rank_stats is not None:
         metrics.update(ranking_metrics_from_stats(
@@ -137,12 +234,13 @@ def evaluate_batches(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
 
 
 def evaluate(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
-             cfg: PretrainConfig, step: int) -> Dict[str, float]:
-    """`evaluate_batches` under the step-keyed generators, keys prefixed
-    with eval_."""
+             cfg: PretrainConfig, step: int, group=None) -> Dict[str, float]:
+    """`evaluate_batches` under the step-keyed generators of this data
+    rank (pooled over a data `group`), keys prefixed with eval_."""
     dev = ts.tree_leaves(state.params)[0].device
     metrics, _, _ = evaluate_batches(
-        state, batches, cfg, lambda n: eval_generator(cfg, step, n, dev))
+        state, batches, cfg, eval_generators(cfg, step, dev, group),
+        group=group)
     return {f"eval_{k}": v for k, v in metrics.items()}
 
 
@@ -156,6 +254,7 @@ def pretrain(
     telemetry=None,
     device: DeviceLike = None,
     seq_group=None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Run the pretraining loop; returns {"state", "history", "perf",
     "preempted", "early_stopped"}.
@@ -178,6 +277,9 @@ def pretrain(
       step runs sequence-parallel over it (dense batches only). Every rank
       of the group calls `pretrain` with the same arguments (and a
       Checkpointer made with the same group).
+    mesh: a `parallel.mesh.Mesh` (not with seq_group): data parallelism,
+      ZeRO-1 and the seq × data step, as the module docstring says;
+      `batch_iterator` then yields this rank's batch_size / data rows.
     Raises NonFiniteLossError at a log point whose loss or grad norm is
     not finite, under cfg.train.on_nan == "halt".
     """
@@ -194,20 +296,69 @@ def pretrain(
         raise ValueError(
             "train.early_stop_patience needs a cadenced eval stream: "
             "pass eval_batches and set train.eval_every > 0")
-    world = 1
+    ranks = 1
+    rows = cfg.data.batch_size
     seq_len = cfg.data.seq_len
-    if seq_group is not None:
+    zero_on = (mesh is not None and cfg.parallel.zero_update
+               and zero_extent(mesh) > 1)
+    if cfg.parallel.zero_update and not zero_on:
+        logger.warning(
+            "parallel.zero_update requested but %s — running the "
+            "replicated update",
+            "no mesh was passed" if mesh is None
+            else "the mesh has data*fsdp == 1 (nothing to shard across)")
+    if cfg.parallel.grad_reduce_dtype != "fp32" and not zero_on:
+        logger.warning(
+            "parallel.grad_reduce_dtype=%r has no effect without an "
+            "active ZeRO-1 update (zero_update on a data*fsdp > 1 "
+            "mesh) — the replicated step reduces gradients at fp32",
+            cfg.parallel.grad_reduce_dtype)
+
+    def plateau_step(state, batch, value):
+        return ts.train_step(state, batch, cfg, plateau_value=value)
+
+    seq_extent = (group_size(seq_group) if mesh is None
+                  else mesh.shape["seq"])
+    if seq_extent > 1 or seq_group is not None:
         if eval_keyed_plateau:
             raise ValueError(
                 "plateau_metric='eval_loss' is not supported with the "
                 "explicit sequence-parallel pallas step (its shard_map "
                 "step takes no plateau_value input)")
+    if mesh is not None:
+        if seq_group is not None:
+            raise ValueError("pass a seq_group or a mesh, not both")
+        ranks = mesh.size
+        rows = local_batch_size(cfg.data.batch_size, mesh.data_extent)
+        if seq_extent > 1:
+            step_fn = make_seq_parallel_train_step(
+                mesh.seq_group, cfg, mesh=mesh, registry=tele.metrics)
+            seq_len //= seq_extent
+            kind = "the sequence-parallel step"
+        elif zero_on:
+            step_fn = plateau_step = make_zero_train_step(
+                mesh, cfg, registry=tele.metrics)
+            kind = (f"the ZeRO-1 update, gradient reduction "
+                    f"{cfg.parallel.grad_reduce_dtype}")
+        else:
+            step_fn = plateau_step = ts.make_data_parallel_train_step(
+                mesh, cfg, registry=tele.metrics)
+            kind = "the replicated data-parallel step"
+        logger.info("mesh %s over %d ranks: %s", mesh.shape, ranks, kind)
+    elif seq_group is not None:
         step_fn = make_seq_parallel_train_step(seq_group, cfg)
-        world = group_size(seq_group)
-        seq_len //= world
+        ranks = group_size(seq_group)
+        seq_len //= ranks
     else:
         def step_fn(state, batch):
             return ts.train_step(state, batch, cfg)
+    if checkpointer is not None and checkpointer.world != ranks:
+        raise ValueError(
+            f"the checkpointer is shared by {checkpointer.world} ranks, the "
+            f"run has {ranks}: make it with the run's mesh (or seq_group)")
+    eval_group = None if mesh is None else mesh.data_group
+    stop_group = (None if ranks == 1 else
+                  dist.group.WORLD if mesh is not None else seq_group)
 
     batches_consumed = 0
     # Eval-stream state, checkpointed with the data position (JAX
@@ -276,13 +427,20 @@ def pretrain(
         tele.emit(
             "run_start", step=start_step, config=config_to_dict(cfg),
             jax_version="none", torch_version=torch.__version__,
-            pid=os.getpid(), mesh=None, n_chips=world,
-            resumed=bool(batches_consumed), zero_update=False)
+            pid=os.getpid(), mesh=None if mesh is None else dict(mesh.shape),
+            n_chips=ranks, resumed=bool(batches_consumed),
+            zero_update=zero_on)
+        if mesh is not None:
+            # Per-rank persistent state bytes under the rules (the ZeRO-1
+            # memory claim, from shapes alone).
+            for part, n in per_chip_state_bytes(
+                    mesh, state, zero_update=zero_on).items():
+                tele.metrics.gauge("per_chip_state_bytes", part=part).set(n)
 
     if eval_keyed_plateau and not np.isfinite(last_eval_loss):
         # One eval before the first step seeds the plateau stream, so
         # every observed value is eval-scale (JAX trainer.py:326-344).
-        em = evaluate(state, eval_batches(), cfg, start_step)
+        em = evaluate(state, eval_batches(), cfg, start_step, eval_group)
         last_eval_loss = np.float32(em["eval_loss"])
         best_eval_loss = min(best_eval_loss, float(em["eval_loss"]))
         history.append({"step": start_step, **em})
@@ -304,13 +462,13 @@ def pretrain(
             logger.warning("warm-start save at step %d was skipped by "
                            "the checkpointer", start_step)
 
-    timer = StepTimer(cfg.model, cfg.data.batch_size, seq_len, device)
+    timer = StepTimer(cfg.model, rows, seq_len, device)
     preempted = False
     early_stopped = False
     diagnostic_saved = False
     ckpt_since_log = False  # a save started since the last log point
     overlap_ckpt = (checkpointer is not None and cfg.checkpoint.overlap
-                    and world == 1)
+                    and ranks == 1)
 
     def flush_staged_overlap():
         # Backpressure: at most one stage; the wait stays in the window,
@@ -349,8 +507,7 @@ def pretrain(
         for step in range(start_step, cfg.train.max_steps):
             batch = next(batch_iterator)
             if eval_keyed_plateau:
-                state, metrics = ts.train_step(state, batch, cfg,
-                                               plateau_value=last_eval_loss)
+                state, metrics = plateau_step(state, batch, last_eval_loss)
             else:
                 state, metrics = step_fn(state, batch)
             timer.update()
@@ -382,7 +539,7 @@ def pretrain(
                         diag = Checkpointer(
                             checkpointer.directory + "-diagnostic",
                             max_to_keep=1, async_save=False,
-                            seq_group=seq_group)
+                            seq_group=seq_group, mesh=mesh)
                         diag.save(step + 1, state,
                                   {**data_state_for(step + 1),
                                    "non_finite": True})
@@ -444,9 +601,12 @@ def pretrain(
                 if log_fn is not None:
                     log_fn(step + 1, m)
 
-            if stop.requested:
-                # Preemption: checkpoint the completed step and return;
-                # a resume picks up exactly here.
+            if stop_agreed(stop, stop_group, device):
+                # Preemption (on this rank or another): checkpoint the
+                # completed step and return; a resume picks up exactly
+                # here.
+                reason = (f"signal_{stop.signum}" if stop.requested
+                          else "signal_on_another_rank")
                 timer.sync()
                 saved = False
                 if checkpointer is not None:
@@ -457,9 +617,9 @@ def pretrain(
                 logger.warning("preempted at step %d: %s, exiting",
                                step + 1,
                                "state saved" if saved else "state NOT saved")
-                tele.emit("requeue", step=step + 1,
-                          reason=f"signal_{stop.signum}", saved=saved)
-                tele.dump_flight(f"signal_{stop.signum}")
+                tele.emit("requeue", step=step + 1, reason=reason,
+                          saved=saved)
+                tele.dump_flight(reason)
                 preempted = True
                 break
 
@@ -468,7 +628,8 @@ def pretrain(
                 timer.sync()
                 t_eval = time.perf_counter()
                 with tele.span("eval_bracket", step=step + 1):
-                    em = evaluate(state, eval_batches(), cfg, step + 1)
+                    em = evaluate(state, eval_batches(), cfg, step + 1,
+                                  eval_group)
                 timer.discount(time.perf_counter() - t_eval)
                 history.append({"step": step + 1, **em})
                 tele.emit("eval", step=step + 1, metrics=em)

@@ -30,24 +30,26 @@ from proteinbert_tpu.cli.main import build_parser as jax_parser
 from proteinbert_tpu.cli.main import main as jmain
 from proteinbert_tpu.configs import load_config as jax_load_config
 from proteinbert_tpu.configs import save_config as jax_save_config
-from proteinbert_tpu_torch.cli.main import NO_CARD, REFUSED_FLAGS
+from proteinbert_tpu_torch.cli.main import (
+    NO_CARD, REFUSED_FLAGS, REFUSED_VERBS,
+)
 from proteinbert_tpu_torch.cli.main import build_parser as port_parser
 from proteinbert_tpu_torch.cli.main import main as pmain
 from proteinbert_tpu_torch.configs import (
     PRESETS, config_to_dict, get_preset, load_config, save_config,
 )
+from tests.test_torch_obs import _body
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
 TSV_TOL = 1e-4
 SEQS = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 3, "GG",
         "MKT?YIAK?RQIS", "W" * 40]
-# JAX verbs the port does not have yet (ROADMAP A11b, A14b, A14c).
+# JAX verbs the port does not have yet (ROADMAP A11c, A14b, A14c).
 NOT_YET = {"reshard", "create-uniref-db", "merge-uniref-dbs", "create-h5",
            "data-bench", "check"}
 # Options of a JAX verb the port refuses (REFUSED_FLAGS) instead of taking.
-REMOVED = {"pretrain": {"--multihost"}, "smoke": {"--multihost"},
-           "serve": {"--mesh", "--compile-cache-dir"},
+REMOVED = {"serve": {"--mesh", "--compile-cache-dir"},
            "fleet": {"--compile-cache-dir"}}
 SUBPROCESS_TIMEOUT = 120
 
@@ -400,9 +402,12 @@ def test_convert_torch_same_npz_as_jax(tmp_path):
 
 
 def test_logging_is_the_jax_module_on_the_port_logger():
+    """The port's module is the JAX one on the port's logger name, up to
+    docstrings (compared by syntax tree, as the obs copies are)."""
     want = (ROOT / "proteinbert_tpu/utils/logging.py").read_text()
     got = (ROOT / "proteinbert_tpu_torch/utils/logging.py").read_text()
-    assert got.replace("proteinbert_tpu_torch", "proteinbert_tpu") == want
+    assert _body(got.replace("proteinbert_tpu_torch", "proteinbert_tpu")) \
+        == _body(want)
 
 
 # ---------------------------------------------------------------- parsers
@@ -459,19 +464,37 @@ def _bad_npz(runs):
 
 @pytest.mark.parametrize("case", [
     "orbax", "mesh", "mesh-long", "geometry", "malformed", "platform",
-    "multihost", "serve-mesh", "serve-cache", "fleet-cache", "no-card"])
-def test_refusals(runs, case, tmp_path):
+    "multihost", "serve-mesh", "serve-cache", "fleet-cache", "no-card",
+    "mesh-large", "reshard"])
+def test_refusals(runs, case, tmp_path, monkeypatch):
     out = str(tmp_path / "o")
     if case == "orbax":
         argv = ["--device", "cpu", "embed", "--pretrained", str(runs.jrun),
                 "--output", out + ".npz", "MKT"]
         match = "not a port run directory.*export-weights.*import-weights"
-    elif case in ("mesh", "mesh-long"):
-        preset = "base" if case == "mesh" else "long"
+    elif case in ("mesh", "mesh-long", "mesh-large"):
+        # One process: a mesh of several devices is refused with the JAX
+        # message; the fsdp / model axes wait for ROADMAP A11c.
+        preset = {"mesh": "base", "mesh-long": "long",
+                  "mesh-large": "large"}[case]
         argv = ["--device", "cpu", "pretrain", "--preset", preset,
                 "--max-steps", "1", "--checkpoint-dir", out]
-        match = ("not ported yet.*--set mesh.data=1" if case == "mesh"
-                 else "--set mesh.data=1 --set mesh.seq=1")
+        match = {"mesh": "wants 16 devices, have 1: launch 16 processes.*"
+                         "--multihost.*--set mesh.data=1",
+                 "mesh-long": "--set mesh.data=1 --set mesh.seq=1",
+                 "mesh-large": "model=4.*ROADMAP A11c.*--set mesh.data=1 "
+                               "--set mesh.model=1"}[case]
+    elif case == "multihost":
+        # Asked for and not findable: the JAX error, not N lone runs.
+        for name in ("COORDINATOR_ADDRESS", "RANK", "WORLD_SIZE",
+                     "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(name, raising=False)
+        argv = ["--device", "cpu", "pretrain", "--multihost", "--preset",
+                "tiny", "--checkpoint-dir", out]
+        match = "multi-host initialization was requested but failed"
+    elif case == "reshard":
+        argv = ["--device", "cpu", "reshard", "--src", "a", "--output", out]
+        match = __import__("re").escape(REFUSED_VERBS["reshard"])
     elif case in ("geometry", "malformed"):
         weights = runs.npz if case == "geometry" else _bad_npz(runs)
         sets = ["--set=model.local_dim=64"] if case == "geometry" else []
@@ -494,7 +517,6 @@ def test_refusals(runs, case, tmp_path):
     else:
         flag, argv = {
             "platform": ("--platform", ["--platform", "cpu", "smoke"]),
-            "multihost": ("--multihost", ["pretrain", "--multihost"]),
             "serve-mesh": ("--mesh", ["serve", "--pretrained", "x", "--mesh"]),
             "serve-cache": ("--compile-cache-dir", [
                 "serve", "--pretrained", "x", "--compile-cache-dir=c"]),
