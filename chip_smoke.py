@@ -16,6 +16,8 @@ card.
     python3 chip_smoke.py --phase rollout   # blue-green trunk rollout
     python3 chip_smoke.py --phase cli       # the command line's verbs
     python3 chip_smoke.py --phase data      # data parallelism, ZeRO-1
+    python3 chip_smoke.py --phase etl       # the corpus tools, the C++
+                                            # tokenizer, base steps on them
     python3 chip_smoke.py --cli-first       # the full run, with the cli
                                             # phase once more up front
 
@@ -336,7 +338,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               ZeRO fp32 within 2e-6 and int8 within 1e-3 of the replicated
               params, int8's gradient-reduction wire bytes at most 0.27 of
               fp32's. `# data base ...` lines.
-12. report  — the kernel JSON line, the card's name and power limit, and the
+12. etl     — the corpus tools and the C++ tokenizer (`etl_phase`): (a)
+              g++ builds the port's two native libraries (its version and
+              each build's seconds; a library that does not build fails
+              the phase); (b) a seeded UniRef90-shaped corpus of
+              ETL_ENTRIES entries (lognormal lengths, median ~245, 0-7 GO
+              terms a protein from a 3-level DAG of 600 terms): gzipped
+              XML, OBO, FASTA wrapped at 60 columns, while a `--help`
+              subprocess times a verb's start-up; (c) `create-uniref-db`
+              as two task-array shards run together, `merge-uniref-dbs
+              --num-shards 2 --go-meta-csv`, then a one-shard run: every
+              table's rows, sorted, and the meta CSV equal; (d) the .fai
+              by the C++ scanner and by the Python loop, the same bytes;
+              (e) `create-h5` where h5py imports (else one line says so),
+              and the join into the common-annotation columns in memory,
+              equal to the HDF5 file's rows where there is one; (f) every
+              row tokenized at seq_len 512 with a crop seed, C++ and numpy
+              bit for bit; (g) `data-bench --preset base`, direct and
+              prefetch, on the corpus where h5py imports, else the
+              synthetic feed; (h) 6 base-width steps at B=8 from the
+              corpus rows: exactly 6 K1 + 6 K2 launches a step, finite
+              losses. Entries/s and peak RSS (each verb's VmHWM, or its
+              resident size sampled every 10 ms) of each stage, ms of each
+              tokenizer, batches/s, the median step ms. `# etl base ...`
+              lines.
+13. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -362,7 +388,8 @@ result line. `--phase neighbors` runs the build and phase 8 alone
 line. `--phase rollout` runs the build and phase 9 alone, every gate, no
 result line. `--phase cli` runs the build and phase 10 alone, every gate,
 no result line. `--phase data` runs the build and phase 11 alone, every
-gate, no result line. `--cli-first` is the full run with phase 10 run once more
+gate, no result line. `--phase etl` runs the build and phase 12 alone,
+every gate, no result line. `--cli-first` is the full run with phase 10 run once more
 right after the build, its launches not counted, so that the phase's
 numbers first and last in one process stand side by side.
 """
@@ -6490,6 +6517,405 @@ def data_two_ranks(card: str, root: str) -> None:
                                    for k, v in res.items()))
 
 
+# The corpus phase: entries, the GO DAG's size, UniRef90's element layout.
+ETL_ENTRIES = 100_000
+ETL_GO_TERMS = 600
+ETL_CATEGORIES = ("GO Molecular Function", "GO Biological Process",
+                  "GO Cellular Component")
+ETL_SEED = 18
+ETL_MIN_RECORDS = 100     # create-h5's default --min-records
+
+
+def write_uniref_corpus(root: str, n: int, seed: int) -> dict:
+    """A seeded UniRef90-shaped corpus under `root`: `go.txt` (OBO, a
+    3-level DAG of ETL_GO_TERMS terms: a root, 39 children, the rest
+    grandchildren), `uniref90.xml.gz` (n entries in UniRef90's element
+    layout, 0-7 GO terms each among the grandchildren, every 97th also
+    an id the ontology lacks) and `uniref90.fasta` (the representatives, lengths
+    lognormal with a median of ~245 residues, wrapped at 60 columns).
+    Returns their paths."""
+    import gzip
+
+    from proteinbert_tpu_torch.data.vocab import ALPHABET
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, v) for k, v in (
+        ("go", "go.txt"), ("xml", "uniref90.xml.gz"),
+        ("fasta", "uniref90.fasta"))}
+    with open(paths["go"], "w") as f:
+        for i in range(1, ETL_GO_TERMS + 1):
+            f.write(f"[Term]\nid: GO:{i:07d}\nname: term{i}\n"
+                    "namespace: molecular_function\n")
+            parent = 1 if i <= 40 else 2 + i % 39
+            if i > 1:
+                f.write(f"is_a: GO:{parent:07d} ! term{parent}\n")
+            f.write("\n")
+    lengths = np.clip(rng.lognormal(5.5, 0.6, n), 30, 2000).astype(np.int64)
+    letters = np.frombuffer("".join(ALPHABET[:20]).encode(), np.uint8)
+    residues = letters[rng.integers(0, 20, int(lengths.sum()))].tobytes()
+    n_go = rng.integers(0, 8, n)
+    terms = rng.integers(41, ETL_GO_TERMS + 1, int(n_go.sum()))
+    tax = rng.integers(1, 99999, n)
+    ends = np.cumsum(lengths)
+    go_ends = np.cumsum(n_go)
+    with gzip.open(paths["xml"], "wt", compresslevel=1) as xf, \
+            open(paths["fasta"], "w") as ff:
+        xf.write('<?xml version="1.0" encoding="ISO-8859-1"?>\n'
+                 '<UniRef90 xmlns="http://uniprot.org/uniref" '
+                 'releaseDate="2026-01-01">\n')
+        for p in range(n):
+            acc = f"P{p:07d}"
+            seq = residues[ends[p] - lengths[p]:ends[p]].decode()
+            ff.write(f">UniRef90_{acc} cluster member\n")
+            ff.write("".join(seq[j:j + 60] + "\n"
+                             for j in range(0, len(seq), 60)))
+            props = "".join(
+                f'        <property type="{ETL_CATEGORIES[int(g) % 3]}" '
+                f'value="GO:{int(g):07d}"/>\n'
+                for g in terms[go_ends[p] - n_go[p]:go_ends[p]])
+            if p % 97 == 0:
+                props += ('        <property type="GO Molecular Function" '
+                          'value="GO:9999999"/>\n')
+            xf.write(
+                f'  <entry id="UniRef90_{acc}" updated="2026-01-01">\n'
+                f'    <name>Cluster: protein {acc}</name>\n'
+                f'    <representativeMember>\n'
+                f'      <dbReference type="UniProtKB ID" id="{acc}_SYNTH">\n'
+                f'        <property type="NCBI taxonomy" '
+                f'value="{int(tax[p])}"/>\n'
+                f'{props}'
+                f'      </dbReference>\n'
+                f'      <sequence length="{int(lengths[p])}">IGNORED'
+                f'</sequence>\n'
+                f'    </representativeMember>\n'
+                f'  </entry>\n')
+        xf.write("</UniRef90>\n")
+    return paths
+
+
+def sqlite_rows(path: str) -> dict:
+    """Every table of a SQLite file, its rows sorted (the files' bytes
+    are not stable; their rows are)."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    try:
+        tables = [r[0] for r in conn.execute(
+            "SELECT name FROM sqlite_master WHERE type='table' ORDER BY name")]
+        return {t: sorted(conn.execute(f"SELECT * FROM {t}")) for t in tables}
+    finally:
+        conn.close()
+
+
+# A corpus verb as `python -m proteinbert_tpu_torch` runs it, then, at
+# exit, its own peak RSS: VmHWM of the memory map exec gave it, or where
+# /proc has no VmHWM the largest resident size /proc/self/statm showed,
+# sampled every 10 ms (rusage would also count the pages of this process,
+# which the child maps between fork and exec).
+ETL_BOOT = """\
+import atexit, os, runpy, sys, threading, time
+
+peak = [0]
+
+def sample():
+    page_kb = os.sysconf("SC_PAGE_SIZE") // 1024
+    while True:
+        try:
+            with open("/proc/self/statm") as f:
+                peak[0] = max(peak[0], int(f.read().split()[1]) * page_kb)
+        except (OSError, ValueError, IndexError):
+            return
+        time.sleep(0.01)
+
+def report():
+    try:
+        with open("/proc/self/status") as f:
+            hwm = [ln.split()[1] for ln in f if ln.startswith("VmHWM:")]
+    except OSError:
+        hwm = []
+    how = ("VmHWM", hwm[0]) if hwm else ("statm", peak[0] or "none")
+    print("# peak RSS kB (%s) %s" % how, file=sys.stderr)
+
+threading.Thread(target=sample, daemon=True).start()
+atexit.register(report)
+sys.argv[0] = "proteinbert_tpu_torch"
+runpy.run_module("proteinbert_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def etl_verb(root: str, label: str, argv) -> "subprocess.Popen":
+    """A corpus verb (no --device: they touch no tensor), started now, its
+    output into `<root>/<label>.log`."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, label + ".log"), "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ETL_BOOT, *map(str, argv)], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), stdout=log,
+            stderr=subprocess.STDOUT)
+    proc.t0, proc.label = time.perf_counter(), label
+    proc.log = os.path.join(root, label + ".log")
+    return proc
+
+
+def etl_wait(proc) -> tuple:
+    """(seconds from spawn to exit, (peak RSS MB, how it was read) or
+    None) of a corpus verb; fails the phase on a non-zero exit."""
+    try:
+        proc.wait(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        check(False, f"etl {proc.label}: did not exit within {CLI_TIMEOUT} s")
+    seconds = time.perf_counter() - proc.t0
+    said = open(proc.log).read()
+    check(proc.returncode == 0,
+          f"etl {proc.label}: exit {proc.returncode}: {said[-2000:]}")
+    kb = re.findall(r"# peak RSS kB \((\w+)\) (\d+)", said)
+    return seconds, (int(kb[-1][1]) / 1024, kb[-1][0]) if kb else None
+
+
+def mb(peak) -> str:
+    return "not measured" if peak is None else f"{peak[0]:.0f} MB ({peak[1]})"
+
+
+def etl_phase(card: str) -> dict:
+    """Phase 12 (module docstring): the corpus tools on ETL_ENTRIES
+    entries, the C++ tokenizer against numpy on every row, data-bench, and
+    6 base-width steps on the corpus rows; returns each kernel's launches
+    in those steps."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="etl_", dir=build)
+    try:
+        return etl_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def etl_run(card: str, root: str) -> dict:
+    from proteinbert_tpu_torch import native
+    from proteinbert_tpu_torch.data.dataset import (
+        HDF5PretrainingDataset, InMemoryPretrainingDataset,
+        make_pretrain_iterator,
+    )
+    from proteinbert_tpu_torch.data.transforms import tokenize_batch
+    from proteinbert_tpu_torch.etl import load_seqs_and_annotations
+    from proteinbert_tpu_torch.etl.fasta import build_index
+    from proteinbert_tpu_torch.etl.go_ontology import load_meta_csv
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK
+    from proteinbert_tpu_torch.native import build as native_build
+
+    n = ETL_ENTRIES
+    # (a) the native libraries, with this machine's g++.
+    gxx = subprocess.run([native_build._CXX, "--version"],
+                         capture_output=True, text=True, timeout=60)
+    built = []
+    for name in ("tokenizer", "fasta_index"):
+        # A build of its own (the package's may be cached from an earlier
+        # phase), with load_library's command, timed.
+        t0 = time.perf_counter()
+        cc = subprocess.run(
+            [native_build._CXX, *native_build._FLAGS, os.path.join(
+                native_build._SRC_DIR, name + ".cpp"), "-o",
+             os.path.join(root, name + ".so")],
+            capture_output=True, text=True, timeout=120)
+        built.append(f"{name} {time.perf_counter() - t0:.2f} s")
+        check(cc.returncode == 0 and native.native_available(name),
+              f"etl base: the native {name} library did not build with "
+              f"{native_build._CXX}: {cc.stderr[-2000:]}")
+    print(f"# etl base native [{card}]: {gxx.stdout.splitlines()[0]}; "
+          f"builds: {', '.join(built)}; native_available() True for both")
+    # A verb's start-up (`--help`), beside (b), which runs in this process.
+    help_proc = etl_verb(root, "help", ["--help"])
+
+    # (b) the corpus.
+    t0 = time.perf_counter()
+    paths = write_uniref_corpus(root, n, ETL_SEED)
+    gen_s = time.perf_counter() - t0
+    boot_s, boot_rss = etl_wait(help_proc)
+    print(f"# etl base start-up [{card}]: python -m proteinbert_tpu_torch "
+          f"--help {boot_s:.2f} s from spawn, peak RSS {mb(boot_rss)} "
+          f"(the verbs' times below include it; 'net' takes it out)")
+
+    def rate(seconds):
+        net = (f"{n / (seconds - boot_s):.0f} net" if seconds > boot_s
+               else "within the start-up")
+        return f"{seconds:.2f} s, {n / seconds:.0f} entries/s from spawn, {net}"
+    sizes = {k: os.path.getsize(v) / 2**20 for k, v in paths.items()}
+    print(f"# etl base corpus [{card}]: {n} entries, {ETL_GO_TERMS} GO "
+          f"terms, written in {gen_s:.1f} s ({n / gen_s:.0f} entries/s); "
+          f"xml.gz {sizes['xml']:.1f} MiB, fasta {sizes['fasta']:.1f} MiB")
+
+    # (c) two task-array shards together, their merge, one shard alone.
+    db = os.path.join(root, "uniref.db")
+    one_db = os.path.join(root, "one.db")
+    one_meta = os.path.join(root, "one_meta.csv")
+    parse = ["create-uniref-db", "--uniref-xml", paths["xml"], "--go-meta",
+             paths["go"], "--output-db"]
+    shards = [etl_wait(p) for p in [
+        etl_verb(root, f"shard{k}", parse + [db, "--task-count", 2,
+                                             "--task-index", k])
+        for k in (0, 1)]]
+    meta = os.path.join(root, "go_meta.csv")
+    merge_s, merge_rss = etl_wait(etl_verb(root, "merge", [
+        "merge-uniref-dbs", "--output-db", db, "--num-shards", 2,
+        "--go-meta", paths["go"], "--go-meta-csv", meta]))
+    one_s, one_rss = etl_wait(etl_verb(root, "one", parse + [
+        one_db, "--go-meta-csv", one_meta]))
+    merged, alone = sqlite_rows(db), sqlite_rows(one_db)
+    same_meta = open(meta).read() == open(one_meta).read()
+    check(merged == alone and same_meta and
+          len(alone["protein_annotations"]) == n,
+          f"etl base: merged shards vs one shard: tables "
+          f"{ {t: len(r) for t, r in merged.items()} } vs "
+          f"{ {t: len(r) for t, r in alone.items()} }, equal "
+          f"{merged == alone}, meta CSV equal {same_meta}")
+    stats = dict(alone["etl_stats"])
+    wall = max(s for s, _ in shards)
+    print(f"# etl base create-uniref-db [{card}]: two task-array shards "
+          f"together {rate(wall)} (peak RSS "
+          f"{', '.join(mb(r) for _, r in shards)}); merge-uniref-dbs "
+          f"{rate(merge_s)} ({mb(merge_rss)}); one shard alone "
+          f"{rate(one_s)} ({mb(one_rss)}); every table's rows and the meta "
+          f"CSV equal; {stats}")
+
+    # (d) the .fai, C++ and Python.
+    fai = {}
+    for label, use_native in (("C++", True), ("Python", False)):
+        calls = native.calls["fasta_index"]
+        t0 = time.perf_counter()
+        out = build_index(paths["fasta"], os.path.join(root, f"{label}.fai"),
+                          use_native=use_native)
+        fai[label] = (time.perf_counter() - t0, open(out, "rb").read())
+        check((native.calls["fasta_index"] > calls) == use_native,
+              f"etl base fai {label}: native calls {calls} -> "
+              f"{native.calls['fasta_index']}")
+    check(fai["C++"][1] == fai["Python"][1]
+          and fai["C++"][1].count(b"\n") == n,
+          f"etl base: the .fai differs between C++ and Python "
+          f"({len(fai['C++'][1])} vs {len(fai['Python'][1])} bytes)")
+    print(f"# etl base fai [{card}]: C++ {fai['C++'][0]:.3f} s "
+          f"({n / fai['C++'][0]:.0f} entries/s), Python "
+          f"{fai['Python'][0]:.3f} s ({n / fai['Python'][0]:.0f} "
+          f"entries/s), {len(fai['C++'][1])} bytes identical")
+    os.replace(os.path.join(root, "C++.fai"), paths["fasta"] + ".fai")
+
+    # (e) the HDF5 file where h5py imports; the join in memory always.
+    t0 = time.perf_counter()
+    common = sorted((r for r in load_meta_csv(meta)
+                     if r["count"] >= ETL_MIN_RECORDS), key=lambda r: r["id"])
+    column = {r["index"]: i for i, r in enumerate(common)}
+    join_stats = {}
+    ids, seqs, cols = [], [], []
+    for uid, seq, idx in load_seqs_and_annotations(
+            db, paths["fasta"], shuffle=True, seed=0, verbose=False,
+            stats=join_stats):
+        ids.append(uid)
+        seqs.append(seq)
+        cols.append([column[i] for i in idx if i in column])
+    masks = np.zeros((len(ids), len(common)), bool)
+    for r, c in enumerate(cols):
+        masks[r, c] = True
+    join_s = time.perf_counter() - t0
+    check(join_stats == {"n_yielded": n, "n_unjoinable": 0},
+          f"etl base join: {join_stats}")
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    h5 = None
+    if h5py is None:
+        print(f"# etl base create-h5 [{card}]: h5py is not installed on "
+              f"this machine, so create-h5 cannot run; the join "
+              f"(load_seqs_and_annotations into the {len(common)} common "
+              f"annotation columns, as create_h5_dataset maps them) fills "
+              f"an InMemoryPretrainingDataset with the same rows: {n} rows "
+              f"in {join_s:.2f} s ({n / join_s:.0f} entries/s)")
+    else:
+        h5 = os.path.join(root, "corpus.h5")
+        h5_s, h5_rss = etl_wait(etl_verb(root, "h5", [
+            "create-h5", "--db", db, "--fasta", paths["fasta"],
+            "--go-meta-csv", meta, "--output", h5]))
+        with h5py.File(h5, "r") as f:
+            same = ([x.decode() for x in f["uniprot_ids"][:]] == ids
+                    and [x.decode() for x in f["seqs"][:]] == seqs
+                    and np.array_equal(f["annotation_masks"][:], masks))
+        check(same, "etl base: the HDF5 file's rows differ from the join")
+        print(f"# etl base create-h5 [{card}]: {rate(h5_s)} (peak RSS "
+              f"{mb(h5_rss)}), "
+              f"{len(common)} annotation columns; the join in memory "
+              f"{join_s:.2f} s, the same rows")
+
+    # (f) every row through both tokenizers.
+    rows = np.arange(n, dtype=np.int64)
+    calls = native.calls["tokenizer"]
+    t0 = time.perf_counter()
+    got = tokenize_batch(seqs, 512, crop_seed=ETL_SEED, row_ids=rows)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    moved = native.calls["tokenizer"] - calls
+    t0 = time.perf_counter()
+    want = tokenize_batch(seqs, 512, crop_seed=ETL_SEED, row_ids=rows,
+                          use_native=False)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    check(moved == 1 and native.calls["tokenizer"] == calls + 1
+          and np.array_equal(got, want),
+          f"etl base tokenize: native calls moved {moved}, bit for bit "
+          f"{np.array_equal(got, want)}")
+    cropped = int(sum(len(s) > 510 for s in seqs))
+    print(f"# etl base tokenize [{card}]: {n} rows at seq_len 512, crop "
+          f"seed {ETL_SEED} ({cropped} rows cropped): C++ {native_ms:.1f} "
+          f"ms, numpy {numpy_ms:.1f} ms ({numpy_ms / native_ms:.1f}x), bit "
+          f"for bit; native tokenizer calls {calls} -> "
+          f"{native.calls['tokenizer']}")
+
+    # (g) data-bench --preset base.
+    bench = ["data-bench", "--preset", "base", "--batches", 200]
+    bench_s, bench_rss = etl_wait(etl_verb(
+        root, "bench", bench + (["--data", h5] if h5 else [])))
+    lines = [json.loads(ln) for ln in open(os.path.join(root, "bench.log"))
+             if ln.startswith("{")]
+    check([ln["variant"] for ln in lines] == ["direct", "prefetch"],
+          f"etl base data-bench: {lines}")
+    feed = "the corpus HDF5 file" if h5 else (
+        "the synthetic feed (no h5py here, so no HDF5 file to read)")
+    print(f"# etl base data-bench [{card}]: --preset base (B=128, "
+          f"seq_len 512) on {feed}: " + "; ".join(
+              f"{ln['variant']} {ln['batches_per_sec']} batches/s "
+              f"{ln['residues_per_sec']} residues/s over {ln['batches']} "
+              f"batches" for ln in lines)
+          + f"; {bench_s:.1f} s from spawn, peak RSS {mb(bench_rss)}")
+
+    # (h) base-width steps from the corpus rows.
+    calls = native.calls["tokenizer"]
+    if h5:
+        ds = HDF5PretrainingDataset(h5, 512, crop_seed=ETL_SEED + 1)
+    else:
+        ds = InMemoryPretrainingDataset(seqs, masks, 512,
+                                        crop_seed=ETL_SEED + 1)
+    base = train_preset("base", 8, 512, 6)
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, num_annotations=len(common)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, walls, total, peak, _, _ = train_run(
+        card, "etl base", cfg, 6, {LOCAL_TRACK.name: 6, ATTENTION.name: 6},
+        (0, 0), ETL_SEED, source=lambda: make_pretrain_iterator(
+            ds, 8, seed=ETL_SEED))
+    feed_calls = native.calls["tokenizer"] - calls
+    check(feed_calls > 0, "etl base train: the feed never ran the C++ "
+                          "tokenizer")
+    losses = [h["loss"] for h in out["history"]]
+    check(all(np.isfinite(losses)), f"etl base train: losses {losses}")
+    print(f"# etl base train [{card}]: 6 steps B=8 L=512 from the corpus "
+          f"rows ({'HDF5' if h5 else 'in memory'}, {len(common)} "
+          f"annotations), exactly 6 K1 + 6 K2 launches a step, losses "
+          f"{[round(x, 4) for x in losses]}, median step "
+          f"{statistics.median(walls[1:]):.1f} ms, peak "
+          f"{peak / 2**30:.2f} GB; native tokenizer calls in the feed "
+          f"{feed_calls}")
+    return total
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
@@ -6498,10 +6924,10 @@ def main() -> int:
                     ["--phase", "serve-times"], ["--phase", "finetune"],
                     ["--phase", "neighbors"], ["--phase", "rollout"],
                     ["--phase", "cli"], ["--phase", "data"],
-                    ["--cli-first"]):
+                    ["--phase", "etl"], ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
               "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli|data]", file=sys.stderr)
+              "cli|data|etl]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6575,6 +7001,11 @@ def main() -> int:
         t0 = time.perf_counter()
         data_phase(card)
         print(f"# data: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "etl"]:
+        t0 = time.perf_counter()
+        etl_phase(card)
+        print(f"# etl: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -6657,6 +7088,10 @@ def main() -> int:
     for name, n in data_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in etl_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# etl: {time.perf_counter() - t0:.1f} s")
     host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)

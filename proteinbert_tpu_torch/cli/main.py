@@ -23,6 +23,10 @@ flags, defaults, messages and exit codes over the port's modules:
   index              int8 IVF neighbor index over a completed store
   fleet              N serve replicas behind a self-healing router
   rollout            blue-green trunk rollout against a running fleet
+  create-uniref-db   UniRef XML → SQLite (shardable over a task array)
+  merge-uniref-dbs   merge task-array shard DBs (+ the GO meta CSV)
+  create-h5          SQLite + FASTA → HDF5 dataset (needs h5py)
+  data-bench         host input-pipeline throughput probe
 
 Where it departs from the JAX CLI:
 
@@ -45,8 +49,10 @@ Where it departs from the JAX CLI:
   Checkpointer` step directories plus `config.json`); an orbax directory
   of the JAX package is refused with the way across: `export-weights` in
   the JAX package, then `import-weights` here.
-- Not yet here: `reshard`, `create-uniref-db`, `merge-uniref-dbs`,
-  `create-h5`, `data-bench` and `check`.
+- The corpus verbs (`create-uniref-db`, `merge-uniref-dbs`, `create-h5`)
+  and `data-bench` touch no tensor: they run with or without a card and
+  ignore `--device`.
+- Not yet here: `reshard` and `check`.
 """
 
 from __future__ import annotations
@@ -225,7 +231,9 @@ def _read_named_seqs(args) -> tuple:
     """(ids, seqs) from --fasta, --seqs-file (id<TAB>seq or bare seq per
     line), or positional sequences — shared by the inference commands."""
     if getattr(args, "fasta", None):
-        pairs = list(_iter_fasta(args.fasta))  # name = first header word
+        from proteinbert_tpu_torch.etl.fasta import iter_fasta
+
+        pairs = list(iter_fasta(args.fasta))  # name = first header word
         return [name for name, _ in pairs], [s for _, s in pairs]
     if getattr(args, "seqs_file", None):
         ids, seqs = [], []
@@ -244,39 +252,6 @@ def _read_named_seqs(args) -> tuple:
     if getattr(args, "seqs", None):
         return [f"seq{i}" for i in range(len(args.seqs))], list(args.seqs)
     raise SystemExit("provide --fasta, --seqs-file, or positional sequences")
-
-
-def _iter_fasta(path: str):
-    """(name, sequence) pairs of a FASTA file (.gz read as text); name is
-    the first word of the header (the JAX `etl.fasta.iter_fasta`)."""
-    import gzip
-
-    name, parts = None, []
-    with (gzip.open(path, "rt") if path.endswith(".gz")
-          else open(path)) as f:
-        for line in f:
-            line = line.rstrip("\n")
-            if line.startswith(">"):
-                if name is not None:
-                    yield name, "".join(parts)
-                name, parts = line[1:].split()[0] if len(line) > 1 else "", []
-            elif line:
-                parts.append(line.rstrip("\r"))
-        if name is not None:
-            yield name, "".join(parts)
-
-
-def _load_meta_csv(path: str) -> List[dict]:
-    """Rows of a GO meta CSV (the JAX `etl.go_ontology.load_meta_csv`)."""
-    import csv
-
-    with open(path, newline="") as f:
-        rows = list(csv.DictReader(f))
-    for r in rows:
-        r["index"] = int(r["index"])
-        r["count"] = int(float(r["count"]))
-        r["freq"] = float(r["freq"])
-    return rows
 
 
 def _export_metrics(tele) -> None:
@@ -392,6 +367,159 @@ def _write_run_dir(cfg, params, step: int, output: str, device) -> None:
 
 
 # ------------------------------------------------------------- subcommands
+
+# ------------------------------------------------------- corpus commands
+
+def cmd_create_uniref_db(args) -> int:
+    from proteinbert_tpu_torch.etl import (
+        UnirefToSqliteParser, parse_obo, save_meta_csv,
+    )
+    from proteinbert_tpu_torch.utils.sharding import (
+        shard_file_name, task_identity,
+    )
+
+    task_index, task_count = task_identity(args.task_index, args.task_count)
+    db_path = shard_file_name(args.output_db, task_index, task_count)
+    log(f"parsing {args.uniref_xml} (shard {task_index}/{task_count}) → {db_path}")
+    onto = parse_obo(args.go_meta)
+    parser = UnirefToSqliteParser(
+        args.uniref_xml, onto, db_path,
+        shard_index=task_index, num_shards=task_count,
+        max_entries=args.records_limit,
+    )
+    parser.parse()
+    if args.go_meta_csv and task_count == 1:
+        save_meta_csv(onto, args.go_meta_csv, counts=parser.go_record_counts,
+                      total_records=parser.n_records_with_any_go)
+        log(f"wrote GO meta CSV → {args.go_meta_csv}")
+    elif args.go_meta_csv:
+        log("sharded run: write the meta CSV from merge-uniref-dbs instead")
+    return 0
+
+
+def cmd_merge_uniref_dbs(args) -> int:
+    from proteinbert_tpu_torch.etl import (
+        merge_shard_dbs, parse_obo, read_aggregates, save_meta_csv,
+    )
+    from proteinbert_tpu_torch.utils.sharding import all_shard_file_names
+
+    if not args.shards and args.num_shards is None:
+        raise SystemExit("merge-uniref-dbs needs --shards or --num-shards")
+    shards = args.shards or all_shard_file_names(args.output_db, args.num_shards)
+    missing = [s for s in shards if not os.path.isfile(s)]
+    if missing:
+        raise SystemExit(f"missing shard files: {missing}")
+    n = merge_shard_dbs(shards, args.output_db)
+    log(f"merged {len(shards)} shards ({n} rows) → {args.output_db}")
+    if args.go_meta_csv:
+        if not args.go_meta:
+            raise SystemExit("--go-meta is required with --go-meta-csv")
+        counts, n_any = read_aggregates(args.output_db)
+        save_meta_csv(parse_obo(args.go_meta), args.go_meta_csv,
+                      counts=counts, total_records=n_any)
+        log(f"wrote merged GO meta CSV → {args.go_meta_csv}")
+    return 0
+
+
+def cmd_create_h5(args) -> int:
+    from proteinbert_tpu_torch.etl import create_h5_dataset
+
+    n = create_h5_dataset(
+        args.db, args.fasta, args.go_meta_csv, args.output,
+        shuffle=not args.no_shuffle,
+        min_records_to_keep_annotation=args.min_records,
+        records_limit=args.records_limit,
+    )
+    log(f"created {args.output} with {n} rows")
+    return 0
+
+
+def cmd_data_bench(args) -> int:
+    """Measure the HOST side of the input pipeline in isolation — is the
+    card going to starve? Times the port's real iterator (tokenization,
+    HDF5 block reads, shuffling) with and without the prefetch thread and
+    prints one JSON line per variant, the JAX verb's keys."""
+    from proteinbert_tpu_torch.configs import get_preset
+
+    cfg = apply_overrides(get_preset(args.preset), args.set or [])
+
+    def make_ds():
+        # Fresh dataset per timed variant: sharing one would let the
+        # second variant ride the block cache the first just warmed, and
+        # the comparison would measure cache reuse instead of prefetch.
+        if args.data:
+            from proteinbert_tpu_torch.data.dataset import (
+                HDF5PretrainingDataset,
+            )
+
+            # Same construction as cmd_pretrain (incl. re-crop seed): the
+            # probe must time the pipeline training actually runs.
+            return HDF5PretrainingDataset(
+                args.data, cfg.data.seq_len, crop_seed=cfg.train.seed + 1)
+        return _synthetic_dataset(cfg, n_min=8 * cfg.data.batch_size)
+
+    if not args.data:
+        log("no --data given: probing on synthetic random proteins")
+
+    n = args.batches
+    variants = [("direct", 0)]
+    if cfg.data.prefetch_depth > 0:
+        variants.append(("prefetch", cfg.data.prefetch_depth))
+    else:
+        log("data.prefetch_depth=0: prefetch variant skipped")
+
+    def run(prefetch_depth):
+        ds = make_ds()
+        if len(ds) == 0:
+            raise SystemExit("dataset is empty")
+        bs = min(cfg.data.batch_size, len(ds))
+        if cfg.data.buckets:  # the iterator the `long` preset trains with
+            from proteinbert_tpu_torch.data.dataset import (
+                make_bucketed_iterator,
+            )
+
+            it = make_bucketed_iterator(ds, bs, cfg.data.buckets,
+                                        seed=cfg.train.seed)
+        else:
+            from proteinbert_tpu_torch.data.dataset import (
+                make_pretrain_iterator,
+            )
+
+            it = make_pretrain_iterator(ds, bs, seed=cfg.train.seed)
+        if prefetch_depth:
+            from proteinbert_tpu_torch.data.prefetch import prefetch
+
+            it = prefetch(it, prefetch_depth)
+        next(it)  # warm caches / start the thread
+        t0 = time.perf_counter()
+        got = 0
+        positions = 0
+        for _ in range(n):
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            got += 1
+            # tokens.size, not rows·seq_len: bucketed batches are sliced
+            # to their bucket width and must not be counted at full L.
+            positions += batch["tokens"].size
+        return got, positions, time.perf_counter() - t0
+
+    for name, depth in variants:
+        got, positions, dt = run(depth)
+        if not got:
+            raise SystemExit("dataset too small for one timed batch")
+        print(json.dumps({
+            "variant": name,
+            "batches_per_sec": round(got / dt, 2),
+            "residues_per_sec": round(positions / dt, 1),
+            "batch_ms": round(1000 * dt / got, 3),
+            "batches": got,
+        }))
+    return 0
+
+
+# ---------------------------------------------------------- model commands
 
 def cmd_pretrain(args) -> int:
     """Pretrain; with --multihost, first join the process group (and leave
@@ -1063,7 +1191,9 @@ def cmd_predict_go(args) -> int:
                       for g in h5f["included_annotations"][:]]
     names = {}
     if args.go_meta_csv:
-        names = {r["id"]: r["name"] for r in _load_meta_csv(args.go_meta_csv)}
+        from proteinbert_tpu_torch.etl.go_ontology import load_meta_csv
+
+        names = {r["id"]: r["name"] for r in load_meta_csv(args.go_meta_csv)}
 
     top = inference.predict_go(params, cfg, seqs, batch_size=args.batch_size,
                                top_k=args.top_k, device=device)
@@ -1765,6 +1895,44 @@ def build_parser() -> argparse.ArgumentParser:
              "back to the CPU unasked",
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    db = sub.add_parser("create-uniref-db", help="UniRef XML → SQLite")
+    db.add_argument("--uniref-xml", type=existing_file, required=True)
+    db.add_argument("--go-meta", type=existing_file, required=True,
+                    help="GO OBO-style file (CAFA go.txt)")
+    db.add_argument("--output-db", type=creatable_path, required=True)
+    db.add_argument("--go-meta-csv", type=creatable_path)
+    db.add_argument("--records-limit", type=int)
+    db.add_argument("--task-index", type=int)
+    db.add_argument("--task-count", type=int)
+    db.set_defaults(fn=cmd_create_uniref_db)
+
+    mg = sub.add_parser("merge-uniref-dbs", help="merge task-array shard DBs")
+    mg.add_argument("--output-db", type=creatable_path, required=True)
+    mg.add_argument("--num-shards", type=int)
+    mg.add_argument("--shards", nargs="*")
+    mg.add_argument("--go-meta", type=existing_file)
+    mg.add_argument("--go-meta-csv", type=creatable_path)
+    mg.set_defaults(fn=cmd_merge_uniref_dbs)
+
+    h5 = sub.add_parser("create-h5", help="SQLite + FASTA → HDF5 dataset")
+    h5.add_argument("--db", type=existing_file, required=True)
+    h5.add_argument("--fasta", type=existing_file, required=True)
+    h5.add_argument("--go-meta-csv", type=existing_file, required=True)
+    h5.add_argument("--output", type=creatable_path, required=True)
+    h5.add_argument("--min-records", type=int, default=100)
+    h5.add_argument("--records-limit", type=int)
+    h5.add_argument("--no-shuffle", action="store_true")
+    h5.set_defaults(fn=cmd_create_h5)
+
+    dbench = sub.add_parser("data-bench",
+                            help="host input-pipeline throughput probe")
+    dbench.add_argument("--preset", default="base", choices=PRESETS)
+    dbench.add_argument("--data", type=existing_file,
+                        help="HDF5 dataset (default: synthetic)")
+    dbench.add_argument("--batches", type=int, default=50)
+    dbench.add_argument("--set", action="append", metavar="PATH=VALUE")
+    dbench.set_defaults(fn=cmd_data_bench)
 
     def add_train_args(sp, default_preset="base"):
         sp.add_argument("--preset", default=default_preset, choices=PRESETS)

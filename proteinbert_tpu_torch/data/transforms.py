@@ -1,12 +1,13 @@
 """Host-side tokenization transforms — port of
-`proteinbert_tpu/data/transforms.py` (numpy only).
+`proteinbert_tpu/data/transforms.py`.
 
-Crop → encode → add <sos>/<eos> → pad to a static length, vectorized in
-numpy. Crop windows are COUNTER-BASED: the window of a row is a pure
-function of (crop_seed, row_id) through splitmix64, so the port crops the
-same windows as the JAX package and a resumed run reproduces an
-uninterrupted one. The JAX package also has a C++ tokenizer with the
-same output; the port keeps the numpy path only.
+Crop → encode → add <sos>/<eos> → pad to a static length. Crop windows
+are COUNTER-BASED: the window of a row is a pure function of (crop_seed,
+row_id) through splitmix64, so the port crops the same windows as the
+JAX package and a resumed run reproduces an uninterrupted one. A batch of
+`_NATIVE_MIN_BATCH` rows or more goes to the port's C++ tokenizer
+(`native/tokenizer.cpp`, built on first use), which gives the numpy
+path's output bit for bit; without a C++ compiler the numpy path runs.
 """
 
 from __future__ import annotations
@@ -97,21 +98,35 @@ def tokenize(
     return out
 
 
+_NATIVE_MIN_BATCH = 8  # below this the ctypes call overhead wins
+
+
 def tokenize_batch(
     seqs: Sequence[str],
     seq_len: int,
     crop_seed: Optional[int] = None,
     row_ids: Optional[np.ndarray] = None,
+    use_native: Optional[bool] = None,
 ) -> np.ndarray:
     """A dense (B, seq_len) int32 batch. `row_ids` (default 0..B-1) key
     the crop windows; datasets pass global row indices so a row's window
-    does not depend on the batch it lands in."""
+    does not depend on the batch it lands in. B >= _NATIVE_MIN_BATCH runs
+    the C++ tokenizer when it builds (the same batch, bit for bit);
+    use_native=False forces the numpy path, True asks for C++ at any B."""
     if row_ids is None:
         row_ids = np.arange(len(seqs), dtype=np.int64)
     else:
         row_ids = np.asarray(row_ids, dtype=np.int64)
         if len(row_ids) != len(seqs):
             raise ValueError(f"{len(row_ids)} row_ids for {len(seqs)} seqs")
+    if use_native is None:
+        use_native = len(seqs) >= _NATIVE_MIN_BATCH
+    if use_native:
+        from proteinbert_tpu_torch.native import tokenize_batch_native
+
+        out = tokenize_batch_native(seqs, seq_len, crop_seed, row_ids)
+        if out is not None:
+            return out
     cap = seq_len - 2
     out = np.full((len(seqs), seq_len), PAD_ID, dtype=np.int32)
     if crop_seed is not None:

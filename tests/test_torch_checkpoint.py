@@ -46,6 +46,8 @@ from proteinbert_tpu_torch.train.metrics import StepTimer
 from proteinbert_tpu_torch.train.schedule import tree_leaves
 from proteinbert_tpu_torch.train.trainer import pretrain
 
+torch.set_num_threads(1)
+
 MODEL = dict(local_dim=16, global_dim=32, key_dim=8, num_heads=4,
              num_blocks=2, num_annotations=32, dtype="float32")
 

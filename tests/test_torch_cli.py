@@ -45,9 +45,8 @@ TOL = 1e-5
 TSV_TOL = 1e-4
 SEQS = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 3, "GG",
         "MKT?YIAK?RQIS", "W" * 40]
-# JAX verbs the port does not have yet (ROADMAP A11c, A14b, A14c).
-NOT_YET = {"reshard", "create-uniref-db", "merge-uniref-dbs", "create-h5",
-           "data-bench", "check"}
+# JAX verbs the port does not have yet (ROADMAP A11c, A14c).
+NOT_YET = {"reshard", "check"}
 # Options of a JAX verb the port refuses (REFUSED_FLAGS) instead of taking.
 REMOVED = {"serve": {"--mesh", "--compile-cache-dir"},
            "fleet": {"--compile-cache-dir"}}

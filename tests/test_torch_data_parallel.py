@@ -94,6 +94,8 @@ from proteinbert_tpu_torch.train.trainer import pretrain
 from proteinbert_tpu_torch.weights import params_from_flat
 from tests import torch_dp_child
 
+torch.set_num_threads(1)
+
 MODEL = dict(local_dim=16, global_dim=32, key_dim=8, num_heads=4,
              num_blocks=2, num_annotations=64, dtype="float32")
 IDENTITY = dict(token_randomize_prob=0.0, annotation_corrupt_prob=1.0,

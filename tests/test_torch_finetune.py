@@ -44,6 +44,8 @@ from proteinbert_tpu_torch.train import finetune as ttrain
 from proteinbert_tpu_torch.train.checkpoint import Checkpointer
 from proteinbert_tpu_torch.weights import params_from_flat, params_to_flat
 
+torch.set_num_threads(1)
+
 # The JAX train package exports the function `finetune` under the module's
 # name.
 jtrain = importlib.import_module("proteinbert_tpu.train.finetune")

@@ -8,6 +8,7 @@ then the fingerprint sweep over real port replicas' `/healthz`, and
 
 import json
 import threading
+import time
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -22,6 +23,8 @@ from proteinbert_tpu_torch.serve.fleet import (
 )
 from proteinbert_tpu_torch.serve.http import make_http_server
 from proteinbert_tpu_torch.serve.server import Server
+
+torch.set_num_threads(1)
 
 
 class StubReplica:
@@ -393,6 +396,20 @@ def test_fingerprint_sweep_over_port_healthz(replicas, tmp_path):
     assert fleet == ["degraded", "coherent"]
 
 
+def _settled(srv, timeout_s: float = 30.0) -> None:
+    """Wait until a live replica has sealed every request it answered:
+    its completer answers a batch's requests first, then seals each (the
+    serve_request event) and counts the batch's rows, so a stream read
+    right after the last answer can miss the last seals."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st = srv.stats()
+        if st["batched_rows"] == st["completed"]:
+            return
+        assert time.monotonic() < deadline, st
+        time.sleep(0.002)
+
+
 def test_collector_merges_router_and_replica_streams(replicas, tmp_path):
     """Requests routed to port replicas carry the fleet id into each
     replica's serve_request; the merged stream is re-sequenced, keeps
@@ -410,6 +427,8 @@ def test_collector_merges_router_and_replica_streams(replicas, tmp_path):
         ids.append(headers["X-PBT-Fleet-Request-Id"])
     router.drain()
     tele.close()
+    for r in replicas[:2]:
+        _settled(r["srv"])
     sources = {"router": path, **{f"r{i}": r["events"]
                                   for i, r in enumerate(replicas[:2])}}
     collector = FleetCollector(sources)

@@ -41,6 +41,8 @@ from tests.test_torch_train_grads import (
     _attn_params, _jax, _leaf_tensors, _segments, _track_params,
 )
 
+torch.set_num_threads(1)
+
 C, B, L, S, G, H, K = 128, 2, 64, 4, 256, 4, 64
 HALO = 20
 

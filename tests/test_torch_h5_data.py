@@ -15,6 +15,7 @@ import time
 import h5py
 import numpy as np
 import pytest
+import torch
 
 from proteinbert_tpu.data import dataset as jds
 from proteinbert_tpu.data import prefetch as jprefetch
@@ -28,6 +29,8 @@ from proteinbert_tpu_torch.data.vocab import ALPHABET
 from proteinbert_tpu_torch.obs import Telemetry, read_events
 from proteinbert_tpu_torch.obs.metrics import MetricsRegistry
 from proteinbert_tpu_torch.train.trainer import pretrain
+
+torch.set_num_threads(1)
 
 SEQ_LEN = 64
 BUCKETS = (16, 32, 64)

@@ -56,6 +56,8 @@ from proteinbert_tpu_torch.serve.http import make_http_server
 from proteinbert_tpu_torch.serve.server import Server
 from proteinbert_tpu_torch.weights import params_from_flat
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 SELF_TOL = 1e-6
 MODEL = dict(local_dim=32, global_dim=64, key_dim=16, num_heads=4,

@@ -19,6 +19,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from proteinbert_tpu.configs import get_preset as jax_preset
 from proteinbert_tpu.export import flatten_params
@@ -31,6 +32,8 @@ from proteinbert_tpu_torch.obs import Telemetry
 from proteinbert_tpu_torch.serve.http import make_http_server
 from proteinbert_tpu_torch.serve.server import Server
 from proteinbert_tpu_torch.weights import params_from_flat
+
+torch.set_num_threads(1)
 
 BUCKETS = (32, 64, 128)
 RTOL = ATOL = 1e-5     # against the JAX server

@@ -33,6 +33,8 @@ from proteinbert_tpu_torch.mapper.store import (
 )
 from proteinbert_tpu_torch.parallel import quant as tquant
 
+torch.set_num_threads(1)
+
 SCORE_TOL = 1e-6
 DIM = 16
 STORE_BLOCK = 8

@@ -6,6 +6,7 @@ arithmetic, summed in another order)."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from proteinbert_tpu import inference as jinf
 from proteinbert_tpu.configs import get_preset as jax_preset
@@ -14,6 +15,8 @@ from proteinbert_tpu.models import proteinbert as jmodel
 from proteinbert_tpu_torch import inference as tinf
 from proteinbert_tpu_torch.configs import get_preset
 from proteinbert_tpu_torch.weights import params_from_flat
+
+torch.set_num_threads(1)
 
 TOL = 1e-5
 SEQS = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 3, "GG",

@@ -12,6 +12,8 @@ import torch
 
 import proteinbert_tpu_torch
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "proteinbert_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "proteinbert_tpu", "flax", "optax", "orbax"}
@@ -76,7 +78,11 @@ def test_the_check_covers_data_and_train_and_catches_an_offender(tmp_path):
               "mapper", "mapper.store", "mapper.faults", "mapper.engine",
               "index", "index.store", "index.scorer", "__main__", "cli",
               "cli.main", "interop", "obs.diagnose",
-              "utils.logging", "utils.profiling"):
+              "utils.logging", "utils.profiling", "utils.sharding",
+              "utils.stats", "etl", "etl.fasta", "etl.genome",
+              "etl.go_ontology", "etl.h5_builder", "etl.uniref_parser",
+              "native", "native.build", "native.tokenizer",
+              "native.fasta_index"):
         assert f"proteinbert_tpu_torch.{m}" in mods
     bad = tmp_path / "offender.py"
     bad.write_text("import torch\nimport optax\n"

@@ -24,6 +24,8 @@ from proteinbert_tpu_torch.kernels import attention as tattn
 from proteinbert_tpu_torch.kernels import build as tbuild
 from proteinbert_tpu_torch.kernels import fused_block as tfused
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 C, G, H, K = 128, 128, 4, 32
 

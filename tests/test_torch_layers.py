@@ -12,6 +12,8 @@ from proteinbert_tpu.ops import layers as jlayers
 from proteinbert_tpu_torch.ops import attention as tattn
 from proteinbert_tpu_torch.ops import layers as tlayers
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

@@ -39,6 +39,8 @@ from proteinbert_tpu_torch.mapper import (
 )
 from proteinbert_tpu_torch.weights import params_from_flat
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 SEQ_LEN = 48
 BUCKETS = (16, 32, 48)

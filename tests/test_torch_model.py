@@ -22,6 +22,8 @@ from proteinbert_tpu_torch.configs import get_preset
 from proteinbert_tpu_torch.models import proteinbert as tmodel
 from proteinbert_tpu_torch.weights import params_from_flat
 
+torch.set_num_threads(1)
+
 TRUNK_TOL = 1e-5
 LOGIT_TOL = 1e-4
 

@@ -22,6 +22,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from proteinbert_tpu.configs import (
     DataConfig as JData, ModelConfig as JModel, PretrainConfig as JCfg,
@@ -46,6 +47,8 @@ from proteinbert_tpu_torch.serve.dispatch import BucketDispatcher
 from proteinbert_tpu_torch.serve.http import make_http_server
 from proteinbert_tpu_torch.serve.server import DEFAULT_NEIGHBORS_K, Server
 from proteinbert_tpu_torch.weights import params_from_flat
+
+torch.set_num_threads(1)
 
 TOL = 1e-6
 SEQ_LEN = 48

@@ -23,6 +23,8 @@ import torch
 from proteinbert_tpu import obs as jobs
 from proteinbert_tpu_torch import obs
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -26,6 +26,8 @@ from proteinbert_tpu_torch.kernels import fused_block as tfused
 from proteinbert_tpu_torch.kernels import one_pass as tone
 from proteinbert_tpu_torch.ops import attention as tops
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 C, G, H, K = 128, 512, 4, 64
 B, L, S = 2, 64, 4

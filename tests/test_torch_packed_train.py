@@ -45,6 +45,8 @@ from proteinbert_tpu_torch.train import train_state as tts
 from proteinbert_tpu_torch.train.trainer import pretrain
 from proteinbert_tpu_torch.weights import params_from_flat, params_to_flat
 
+torch.set_num_threads(1)
+
 MODEL = dict(local_dim=32, global_dim=64, key_dim=16, num_heads=4,
              num_blocks=2, num_annotations=32, dtype="float32")
 SEQ_LEN, B, S = 48, 4, 4

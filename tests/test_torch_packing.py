@@ -5,9 +5,12 @@ expiry and pops, assembled batches and their inverse must be IDENTICAL
 
 import numpy as np
 import pytest
+import torch
 
 from proteinbert_tpu.data import packing as jpack
 from proteinbert_tpu_torch.data import packing as tpack
+
+torch.set_num_threads(1)
 
 
 def _lengths(seed, n, seq_len):

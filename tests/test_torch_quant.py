@@ -49,6 +49,8 @@ from proteinbert_tpu_torch.serve.dispatch import (
 from proteinbert_tpu_torch.serve.server import Server
 from proteinbert_tpu_torch.weights import params_from_flat
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 BF16_TOL = 2 ** -5
 C, G, H, K = 128, 512, 4, 64

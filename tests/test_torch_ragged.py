@@ -38,6 +38,8 @@ from proteinbert_tpu_torch.serve import scheduler as tsched
 from proteinbert_tpu_torch.serve.server import Server
 from proteinbert_tpu_torch.weights import params_from_flat
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 LOGIT_TOL = 1e-4
 BUCKETS = (32, 64, 128)

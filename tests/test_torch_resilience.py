@@ -17,6 +17,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 import torch.distributed as dist
 
 from proteinbert_tpu.obs.events import validate_record as j_validate_record
@@ -33,6 +34,8 @@ from proteinbert_tpu_torch.train.resilience import (
 )
 from proteinbert_tpu_torch.train.trainer import pretrain
 from tests import torch_seq_child
+
+torch.set_num_threads(1)
 
 MODEL = tconfigs.ModelConfig(local_dim=16, global_dim=32, key_dim=8,
                              num_heads=4, num_blocks=1, num_annotations=64,

@@ -55,6 +55,8 @@ from proteinbert_tpu_torch.serve.http import make_http_server
 from proteinbert_tpu_torch.serve.server import Server
 from proteinbert_tpu_torch.weights import params_from_flat
 
+torch.set_num_threads(1)
+
 TOL = 1e-5
 MODEL = dict(local_dim=16, global_dim=32, key_dim=8, num_heads=2,
              num_blocks=2, num_annotations=32, dtype="float32")

@@ -26,6 +26,8 @@ from proteinbert_tpu_torch.serve.queue import Request, RequestQueue
 from proteinbert_tpu_torch.serve.scheduler import MicroBatchScheduler
 from proteinbert_tpu_torch.serve.server import Server
 
+torch.set_num_threads(1)
+
 BUCKETS = (32, 64, 128)
 SEQS = ["MKTAYIAKQR", "ACDEFGHIKLMNPQRSTVWY", "GG",
         "ACDEFGHIKLMNPQRSTVWY" * 3, "MKTAYIAKQRMKTAYIAKQRAC",

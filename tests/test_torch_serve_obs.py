@@ -15,6 +15,7 @@ import time
 
 import jax
 import pytest
+import torch
 
 from proteinbert_tpu.configs import get_preset as jax_preset
 from proteinbert_tpu.export import flatten_params
@@ -30,6 +31,8 @@ from proteinbert_tpu_torch.serve import trace
 from proteinbert_tpu_torch.serve.errors import SequenceTooLongError
 from proteinbert_tpu_torch.serve.server import Server
 from proteinbert_tpu_torch.weights import params_from_flat
+
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BUCKETS = (32, 64, 128)

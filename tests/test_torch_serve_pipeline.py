@@ -31,6 +31,8 @@ from proteinbert_tpu_torch.serve.dispatch import (
 from proteinbert_tpu_torch.serve.errors import ServerClosedError
 from proteinbert_tpu_torch.serve.server import Server
 
+torch.set_num_threads(1)
+
 BUCKETS = (32, 64, 128)
 PACKAGES = {"jax": (jqueue, jsched), "port": (tqueue, tsched)}
 

@@ -20,6 +20,8 @@ from proteinbert_tpu_torch.data import dataset as tds
 from proteinbert_tpu_torch.data import synthetic as tsyn
 from proteinbert_tpu_torch.data import transforms as ttr
 
+torch.set_num_threads(1)
+
 
 def _proteins(n=40, seed=0, max_len=90):
     return tsyn.make_random_proteins(n, np.random.default_rng(seed), 16,

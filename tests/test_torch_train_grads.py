@@ -26,6 +26,8 @@ from proteinbert_tpu_torch.kernels import fused_block as tfused
 from proteinbert_tpu_torch.kernels import one_pass as tone
 from proteinbert_tpu_torch.kernels.autograd import _split, recompute_vjp
 
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -5,6 +5,7 @@ and a `pbt export` NPZ loads straight into the port."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from proteinbert_tpu.configs import get_preset as jax_preset
 from proteinbert_tpu.export import export_params, flatten_params
@@ -13,6 +14,8 @@ from proteinbert_tpu_torch.configs import get_preset
 from proteinbert_tpu_torch.weights import (
     expected_shapes, load_npz, params_from_flat, params_to_flat,
 )
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
