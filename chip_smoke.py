@@ -18,6 +18,8 @@ card.
     python3 chip_smoke.py --phase data      # data parallelism, ZeRO-1
     python3 chip_smoke.py --phase etl       # the corpus tools, the C++
                                             # tokenizer, base steps on them
+    python3 chip_smoke.py --phase check     # the static analyzer, the
+                                            # profiling helpers on base steps
     python3 chip_smoke.py --cli-first       # the full run, with the cli
                                             # phase once more up front
 
@@ -362,7 +364,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               resident size sampled every 10 ms) of each stage, ms of each
               tokenizer, batches/s, the median step ms. `# etl base ...`
               lines.
-13. report  — the kernel JSON line, the card's name and power limit, and the
+13. check   — the static analyzer and the profiling helpers
+              (`check_phase`): (a) `python -m proteinbert_tpu_torch check
+              --json` as a subprocess on this tree: exit 0, the six rules,
+              no new finding, no stale baseline entry; its wall time from
+              spawn and the analysis's own (the report's `seconds`); (b) a
+              copy of the package (with tests/, chip_smoke.py and the
+              observability doc) with a `time.perf_counter()` injected
+              into K2's launch wrapper and a try/except falling back to
+              K2's plain version in its route: the copy's own verb exits
+              1 with exactly those `graph-purity` findings at those lines;
+              (c) 6 base-width steps at B=8, L=512 under `TimeMeasure` and
+              `Profiler.measure`: exactly 6 K1 + 6 K2 launches a step;
+              then, each inside a `BoundaryStallMeter` boundary,
+              `device_memory_report()` equal to torch.cuda's
+              memory_allocated / max_memory_allocated and the card's total
+              memory, and `monitor_memory` finding the base trunk's
+              largest weight tensor at its nbytes. `# check base ...`
+              lines.
+14. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -389,7 +409,8 @@ line. `--phase rollout` runs the build and phase 9 alone, every gate, no
 result line. `--phase cli` runs the build and phase 10 alone, every gate,
 no result line. `--phase data` runs the build and phase 11 alone, every
 gate, no result line. `--phase etl` runs the build and phase 12 alone,
-every gate, no result line. `--cli-first` is the full run with phase 10 run once more
+every gate, no result line. `--phase check` runs the build and phase 13
+alone, every gate, no result line. `--cli-first` is the full run with phase 10 run once more
 right after the build, its launches not counted, so that the phase's
 numbers first and last in one process stand side by side.
 """
@@ -6915,6 +6936,175 @@ def etl_run(card: str, root: str) -> dict:
           f"{feed_calls}")
     return total
 
+CHECK_STEPS = 6
+# K2's launch wrapper's first statement, and its entries' route.
+CHECK_CLOCK_AT = "    check_attention_shapes(params, local, global_seg, ids)"
+CHECK_ROUTE_AT = "def _attention_ids("
+
+
+def check_verb(cwd: str) -> "subprocess.Popen":
+    """`python -m proteinbert_tpu_torch check --json` in `cwd`, on that
+    tree's own package, started now."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "proteinbert_tpu_torch", "check", "--json"],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=cwd), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def check_wait(proc, label: str) -> tuple:
+    """(exit code, the report, seconds from spawn) of a `check_verb`."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"check {label}: did not exit within {CLI_TIMEOUT} s")
+    wall = time.perf_counter() - proc.t0
+    try:
+        report = json.loads(out)
+    except ValueError:
+        report = None
+    check(report is not None, f"check {label}: exit {proc.returncode}, no "
+                              f"JSON report: {out[-2000:]} {err[-2000:]}")
+    return proc.returncode, report, wall
+
+
+def inject_violations(root: str) -> set:
+    """A host clock in K2's launch wrapper and a try/except that falls
+    back to K2's plain version in its route, written into the copy of
+    `kernels/attention.py` under `root`; returns the (rule, path, line)
+    findings the analyzer must give for them."""
+    rel = "proteinbert_tpu_torch/kernels/attention.py"
+    path = os.path.join(root, rel)
+    lines = open(path).read().split("\n")
+    i = lines.index(CHECK_CLOCK_AT)
+    lines.insert(i, "    _t0 = time.perf_counter()")
+    clock = i + 1
+    start = next(k for k, ln in enumerate(lines)
+                 if ln.startswith(CHECK_ROUTE_AT))
+    j = lines.index('    if local.device.type == "cpu":', start)
+    lines[j:j] = [
+        "    try:",
+        "        check_attention_shapes(params, local, global_seg, ids)",
+        "    except ValueError:",
+        "        return _ids_reference(params, local, global_seg, ids, "
+        "zero_empty)"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return {("graph-purity", rel, clock), ("graph-purity", rel, j + 3),
+            ("graph-purity", rel, j + 4)}
+
+
+def check_phase(card: str) -> dict:
+    """Phase 13 (module docstring): the `check` verb on this tree and on
+    an injected copy, then 6 base steps under the profiling helpers and
+    the memory reports; returns each kernel's launches in those steps."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="check_", dir=build)
+    try:
+        return check_run(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_run(card: str, root: str) -> dict:
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.utils import (
+        BoundaryStallMeter, Profiler, TimeMeasure, device_memory_report,
+        monitor_memory,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    six = {"graph-purity", "lock-discipline", "durability-protocol",
+           "event-schema", "obs-doc-drift", "dead-export"}
+    # (a) the verb on this tree, and (b) on a copy with two violations
+    # injected, the two processes side by side.
+    copy = os.path.join(root, "tree")
+    ignore = shutil.ignore_patterns("__pycache__", "_build", "*.so")
+    for name in ("proteinbert_tpu_torch", "tests"):
+        shutil.copytree(os.path.join(repo, name), os.path.join(copy, name),
+                        ignore=ignore)
+    os.makedirs(os.path.join(copy, "docs"))
+    for name in ("chip_smoke.py", "docs/observability.md"):
+        shutil.copy(os.path.join(repo, name), os.path.join(copy, name))
+    want = inject_violations(copy)
+    procs = [check_verb(repo), check_verb(copy)]
+    rc, report, wall = check_wait(procs[0], "tree")
+    check(rc == 0 and report["ok"] and report["findings"] == []
+          and report["stale_baseline"] == [] and report["errors"] == []
+          and set(report["rules"]) == six,
+          f"check tree: exit {rc}, findings {report['findings']}, stale "
+          f"{report['stale_baseline']}, errors {report['errors']}, rules "
+          f"{report['rules']}")
+    print(f"# check base verb [{card}]: python -m proteinbert_tpu_torch "
+          f"check --json on this tree: exit 0, rules "
+          f"{sorted(report['rules'])}, 0 new, "
+          f"{report['counts']['baselined']} baselined, 0 stale; wall "
+          f"{wall:.2f} s from spawn, analysis {report['seconds']:.2f} s "
+          f"(start-up and imports {wall - report['seconds']:.2f} s; the "
+          f"injected copy's verb ran beside it)")
+    rc, report, wall = check_wait(procs[1], "injected")
+    got = {(f["rule"], f["path"], f["line"]) for f in report["findings"]}
+    check(rc == 1 and got == want,
+          f"check injected: exit {rc}, findings {sorted(got)}, want "
+          f"{sorted(want)}")
+    print(f"# check base injected [{card}]: a clock in _attention_launch "
+          f"and an except falling back to _ids_reference in "
+          f"_attention_ids: exit 1, exactly the graph-purity findings "
+          + ", ".join(f"attention.py:{f['line']} {f['symbol']}"
+                      for f in sorted(report["findings"],
+                                      key=lambda f: f["line"]))
+          + f"; wall {wall:.2f} s, analysis {report['seconds']:.2f} s")
+    # (c) base steps under the profiling helpers, then the memory reports.
+    prof, meter = Profiler(), BoundaryStallMeter()
+    cfg = train_preset("base", 8, 512, CHECK_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with TimeMeasure("check base steps", verbose=False) as tm:
+        with prof.measure("pretrain"):
+            out, walls, total, peak, _, _ = train_run(
+                card, "check base", cfg, CHECK_STEPS,
+                {LOCAL_TRACK.name: 6, ATTENTION.name: 6}, (100, 510), 13)
+    print(f"# check base steps [{card}]: {CHECK_STEPS} steps B=8 L=512, "
+          f"exactly 6 K1 + 6 K2 launches a step; TimeMeasure "
+          f"{tm.elapsed:.3f} s, Profiler {prof.report()}; median step "
+          f"{statistics.median(walls[1:]):.1f} ms, peak "
+          f"{peak / 2**30:.2f} GB")
+    torch.cuda.synchronize()
+    with meter.boundary():
+        mem = device_memory_report()
+    allocated = torch.cuda.memory_allocated(0)
+    peak_alloc = torch.cuda.max_memory_allocated(0)
+    limit = torch.cuda.get_device_properties(0).total_memory
+    entry = mem.get("cuda:0", {})
+    check(list(mem) == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+          and entry.get("bytes_in_use") == allocated
+          and entry.get("peak_bytes_in_use") == peak_alloc
+          and entry.get("bytes_limit") == limit,
+          f"check base: device_memory_report {entry.get('bytes_in_use')} / "
+          f"{entry.get('peak_bytes_in_use')} / {entry.get('bytes_limit')} "
+          f"vs torch.cuda {allocated} / {peak_alloc} / {limit}")
+    largest = max(tree_leaves(out["state"].params), key=lambda t: t.nbytes)
+    want = (type(largest).__name__, largest.nbytes)
+    with meter.boundary():
+        found = monitor_memory(threshold_bytes=largest.nbytes, verbose=False)
+    check(want in found, f"check base: monitor_memory found {found[:8]}, "
+                         f"not the largest weight {want}")
+    stalls = meter.summary()
+    print(f"# check base memory [{card}]: device_memory_report cuda:0 "
+          f"bytes_in_use {allocated}, peak_bytes_in_use {peak_alloc}, "
+          f"bytes_limit {limit} = torch.cuda's; monitor_memory found the "
+          f"largest weight ({want[0]} {tuple(largest.shape)} "
+          f"{largest.dtype}, {want[1]} bytes) among {len(found)} buffers "
+          f"of at least its size; boundary stalls: report "
+          f"{meter.stalls[0] * 1e3:.3f} ms, walker "
+          f"{meter.stalls[1] * 1e3:.1f} ms (max {stalls['max_s']:.3f} s)")
+    return total
+
 
 def main() -> int:
     args = sys.argv[1:]
@@ -6924,10 +7114,11 @@ def main() -> int:
                     ["--phase", "serve-times"], ["--phase", "finetune"],
                     ["--phase", "neighbors"], ["--phase", "rollout"],
                     ["--phase", "cli"], ["--phase", "data"],
-                    ["--phase", "etl"], ["--cli-first"]):
+                    ["--phase", "etl"], ["--phase", "check"],
+                    ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
               "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli|data|etl]", file=sys.stderr)
+              "cli|data|etl|check]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7006,6 +7197,11 @@ def main() -> int:
         t0 = time.perf_counter()
         etl_phase(card)
         print(f"# etl: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "check"]:
+        t0 = time.perf_counter()
+        check_phase(card)
+        print(f"# check: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -7092,6 +7288,10 @@ def main() -> int:
     for name, n in etl_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# etl: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in check_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# check: {time.perf_counter() - t0:.1f} s")
     host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)

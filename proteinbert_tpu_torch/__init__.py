@@ -20,6 +20,8 @@ from typing import Optional, Union
 
 import torch
 
+__all__ = ["DeviceLike", "resolve_device"]
+
 DeviceLike = Union[str, torch.device, None]
 
 

@@ -23,6 +23,9 @@ flags, defaults, messages and exit codes over the port's modules:
   index              int8 IVF neighbor index over a completed store
   fleet              N serve replicas behind a self-healing router
   rollout            blue-green trunk rollout against a running fleet
+  check              the port's static analyzer (graph purity and launch
+                     or raise, locks, durability, event schema, doc
+                     drift, dead exports)
   create-uniref-db   UniRef XML → SQLite (shardable over a task array)
   merge-uniref-dbs   merge task-array shard DBs (+ the GO meta CSV)
   create-h5          SQLite + FASTA → HDF5 dataset (needs h5py)
@@ -52,7 +55,11 @@ Where it departs from the JAX CLI:
 - The corpus verbs (`create-uniref-db`, `merge-uniref-dbs`, `create-h5`)
   and `data-bench` touch no tensor: they run with or without a card and
   ignore `--device`.
-- Not yet here: `reshard` and `check`.
+- `check` analyzes the port (`proteinbert_tpu_torch/analysis/`): its
+  `graph-purity` rule takes the place of the JAX `jit-purity`, and its
+  baseline is `proteinbert_tpu_torch/analysis/check_baseline.json`. It
+  touches no tensor and ignores `--device`.
+- Not yet here: `reshard`.
 """
 
 from __future__ import annotations
@@ -1600,6 +1607,34 @@ def cmd_index(args) -> int:
     return 0
 
 
+def cmd_check(args) -> int:
+    """Project-invariant static analyzer over the port: six stdlib-ast
+    rules derived from its own contracts — graph purity and launch or
+    raise, lock discipline, durability protocol, event-schema call sites,
+    obs-doc drift, dead exports — with a checked-in suppression baseline.
+    Exit 0 = clean, 1 = findings, 2 = config error (the JAX verb's)."""
+    from proteinbert_tpu_torch.analysis.runner import main as check_main
+
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    argv = []
+    if args.json:
+        argv.append("--json")
+    if args.json_artifact:
+        argv.extend(["--json-artifact", args.json_artifact])
+    for rule in args.rule or ():
+        argv.extend(["--rule", rule])
+    if args.events_jsonl:
+        argv.extend(["--events-jsonl", args.events_jsonl])
+    if args.baseline:
+        argv.extend(["--baseline", args.baseline])
+    if args.root:
+        argv.extend(["--root", args.root])
+    if args.write_baseline:
+        argv.append("--write-baseline")
+    return check_main(argv, repo_root=repo_root)
+
+
 def cmd_fleet(args) -> int:
     """Fault-tolerant serve fleet: N `serve` replica subprocesses (each
     `python -m proteinbert_tpu_torch --device <d> serve ...`) behind the
@@ -2382,6 +2417,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="append fleet_* router events here (each replica "
                          "writes its own stream beside its log)")
     fl.set_defaults(fn=cmd_fleet)
+
+    ck = sub.add_parser(
+        "check",
+        help="project-invariant static analyzer over the port (graph "
+             "purity and launch or raise, lock discipline, durability "
+             "protocol, event schema, doc drift, dead exports)")
+    ck.add_argument("--json", action="store_true",
+                    help="machine-readable report on stdout")
+    ck.add_argument("--json-artifact", type=creatable_path,
+                    help="also write the JSON report here")
+    ck.add_argument("--rule", action="append", metavar="NAME",
+                    help="run only this rule (repeatable)")
+    ck.add_argument("--events-jsonl", type=creatable_path,
+                    help="mirror the counts as a note(kind=check_capture) "
+                         "event")
+    ck.add_argument("--baseline",
+                    help="suppression baseline JSON (default: "
+                         "proteinbert_tpu_torch/analysis/"
+                         "check_baseline.json)")
+    ck.add_argument("--root", help="tree to analyze (default: the repo "
+                                   "that holds the port)")
+    ck.add_argument("--write-baseline", action="store_true",
+                    help="record current findings as suppressions for "
+                         "human review")
+    ck.set_defaults(fn=cmd_check)
 
     ro = sub.add_parser(
         "rollout",

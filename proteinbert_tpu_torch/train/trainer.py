@@ -119,6 +119,7 @@ from proteinbert_tpu_torch.train.resilience import (
     GracefulShutdown, check_finite, flush_inflight_checkpoint,
 )
 from proteinbert_tpu_torch.train.schedule import plateau_uses_eval
+from proteinbert_tpu_torch.utils.profiling import device_memory_report
 
 logger = logging.getLogger(__name__)
 
@@ -242,6 +243,28 @@ def evaluate(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
         state, batches, cfg, eval_generators(cfg, step, dev, group),
         group=group)
     return {f"eval_{k}": v for k, v in metrics.items()}
+
+
+def first_step_memory(tele, device: torch.device) -> Optional[Dict]:
+    """One-time device memory report once the first step is resident
+    (the JAX trainer's HBM report): the card's `device_memory_report()`
+    entry, logged and set as the `hbm_bytes_in_use`,
+    `hbm_peak_bytes_in_use` and `hbm_bytes_limit` gauges. A CPU device
+    reports no stats: silent, as the JAX trainer is on a CPU backend."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stats = device_memory_report().get(f"cuda:{index}")
+    if not stats:
+        return None
+    logger.info("device memory after first step: %.2f GB in use (peak "
+                "%.2f) of %.2f GB", stats["bytes_in_use"] / 1e9,
+                stats["peak_bytes_in_use"] / 1e9, stats["bytes_limit"] / 1e9)
+    for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit"):
+        tele.metrics.gauge(f"hbm_{k}").set(stats[k])
+    return stats
 
 
 def pretrain(
@@ -512,20 +535,8 @@ def pretrain(
                 state, metrics = step_fn(state, batch)
             timer.update()
 
-            if step == start_step and device.type == "cuda":
-                torch.cuda.synchronize(device)
-                props = torch.cuda.get_device_properties(device)
-                stats = {"bytes_in_use": torch.cuda.memory_allocated(device),
-                         "peak_bytes_in_use":
-                         torch.cuda.max_memory_allocated(device),
-                         "bytes_limit": props.total_memory}
-                logger.info("device memory after first step: %.2f GB in "
-                            "use (peak %.2f) of %.2f GB",
-                            stats["bytes_in_use"] / 1e9,
-                            stats["peak_bytes_in_use"] / 1e9,
-                            stats["bytes_limit"] / 1e9)
-                for k, v in stats.items():
-                    tele.metrics.gauge(f"hbm_{k}").set(v)
+            if step == start_step:
+                first_step_memory(tele, device)
 
             if cfg.train.log_every and (step + 1) % cfg.train.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}

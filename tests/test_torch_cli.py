@@ -45,8 +45,8 @@ TOL = 1e-5
 TSV_TOL = 1e-4
 SEQS = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 3, "GG",
         "MKT?YIAK?RQIS", "W" * 40]
-# JAX verbs the port does not have yet (ROADMAP A11c, A14c).
-NOT_YET = {"reshard", "check"}
+# JAX verbs the port does not have yet (ROADMAP A11c).
+NOT_YET = {"reshard"}
 # Options of a JAX verb the port refuses (REFUSED_FLAGS) instead of taking.
 REMOVED = {"serve": {"--mesh", "--compile-cache-dir"},
            "fleet": {"--compile-cache-dir"}}
@@ -647,3 +647,113 @@ def test_map_index_and_their_verify(runs, tmp_path, capsys):
     # The JAX package's verifiers read the port's store and index.
     assert jax("map", "--store", store, "--verify") == 0
     assert jax("index", "--index", index, "--verify") == 0
+
+
+# ----------------------------------------------------------------- check
+
+def _check_tree(root, bad: bool):
+    """A tree both packages' `check` defaults read: the port's layout
+    (tests/test_torch_analysis.write_port_tree) and the JAX package's
+    schema beside it; with `bad`, the same lock violation in each."""
+    from tests.test_torch_analysis import (
+        LOCK_VIOLATION, write_port_tree, write_tree,
+    )
+
+    write_port_tree(root, {})
+    write_tree(root, {"proteinbert_tpu/obs/events.py": "EVENT_FIELDS = {}\n"})
+    if bad:
+        write_tree(root, {"proteinbert_tpu/bad.py": LOCK_VIOLATION,
+                          "proteinbert_tpu_torch/bad.py": LOCK_VIOLATION})
+
+
+def _both_checks(capsys, *argv):
+    """(exit code, stdout) of the JAX verb and of the port's, the JAX
+    report's paths and rule name mapped to the port's, its timing
+    dropped."""
+    out = []
+    for run, rename in ((jmain, True), (pmain, False)):
+        rc = run(["check", *map(str, argv)])
+        text = capsys.readouterr().out
+        if rename:
+            text = text.replace("proteinbert_tpu/", "proteinbert_tpu_torch/")
+            text = text.replace("jit-purity", "graph-purity")
+            text = text.replace("tools/check_baseline.json",
+                                "proteinbert_tpu_torch/analysis/"
+                                "check_baseline.json")
+        if text.startswith("{"):
+            text = json.loads(text)
+            text.pop("seconds", None)
+        out.append((rc, text))
+    return out
+
+
+@pytest.mark.parametrize("case", ["clean", "findings", "rule"])
+def test_check_exits_and_reports_as_the_jax_verb(tmp_path, capsys, case):
+    _check_tree(tmp_path, bad=case != "clean")
+    argv = ["--root", tmp_path, "--json"]
+    if case == "rule":
+        argv += ["--rule", "lock-discipline"]
+    jax_out, port_out = _both_checks(capsys, *argv)
+    assert port_out == jax_out
+    rc, report = port_out
+    assert rc == (0 if case == "clean" else 1)
+    assert report["ok"] is (case == "clean")
+    if case == "rule":
+        assert report["rules"] == ["lock-discipline"]
+    else:
+        assert len(report["rules"]) == 6 and "graph-purity" in report["rules"]
+    if case != "clean":
+        assert {f["path"] for f in report["findings"]} == {
+            "proteinbert_tpu_torch/bad.py"}
+
+
+def test_check_write_baseline_then_clean(tmp_path, capsys):
+    _check_tree(tmp_path, bad=True)
+    files = {}
+    for run, name in ((jmain, "jax"), (pmain, "port")):
+        baseline = tmp_path / f"{name}.json"
+        assert run(["check", "--root", str(tmp_path), "--baseline",
+                    str(baseline), "--write-baseline"]) == 0
+        files[name] = json.loads(baseline.read_text())
+        assert run(["check", "--root", str(tmp_path), "--baseline",
+                    str(baseline), "--json"]) == 0
+        report = json.loads(capsys.readouterr().out.split("\n", 1)[1])
+        assert report["counts"]["new"] == 0
+        assert report["counts"]["baselined"] > 0
+    assert json.dumps(files["jax"]).replace(
+        "proteinbert_tpu/", "proteinbert_tpu_torch/") == json.dumps(
+            files["port"])
+
+
+@pytest.mark.parametrize("case", ["no-reason", "unknown-rule"])
+def test_check_config_errors_exit_2(tmp_path, capsys, case):
+    _check_tree(tmp_path, bad=True)
+    if case == "no-reason":
+        baseline = tmp_path / "b.json"
+        baseline.write_text(json.dumps({"v": 1, "suppressions": [
+            {"key": "lock-discipline::x.py::A.b:c", "reason": ""}]}))
+        argv = ["--root", tmp_path, "--baseline", baseline]
+    else:
+        argv = ["--root", tmp_path, "--rule", "no-such-rule"]
+    (jrc, _), (prc, _) = _both_checks(capsys, *argv)
+    assert jrc == prc == 2
+
+
+def test_check_events_jsonl_note_is_strict_valid(tmp_path, capsys):
+    from proteinbert_tpu_torch.obs import read_events
+
+    _check_tree(tmp_path, bad=True)
+    events = tmp_path / "check.jsonl"
+    assert pmain(["check", "--root", str(tmp_path), "--events-jsonl",
+                  str(events)]) == 1
+    (note,) = read_events(str(events), strict=True)
+    assert note["event"] == "note" and note["kind"] == "check_capture"
+    assert note["check_findings_total"] > 0
+    assert note["check_baselined_total"] == 0
+
+
+def test_check_default_root_is_the_repo_holding_the_port(capsys):
+    """No --root: the verb analyzes this checkout (one cheap rule)."""
+    assert port("check", "--rule", "durability-protocol", "--json") == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["rules"] == ["durability-protocol"] and report["ok"]

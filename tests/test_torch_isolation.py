@@ -82,7 +82,8 @@ def test_the_check_covers_data_and_train_and_catches_an_offender(tmp_path):
               "utils.stats", "etl", "etl.fasta", "etl.genome",
               "etl.go_ontology", "etl.h5_builder", "etl.uniref_parser",
               "native", "native.build", "native.tokenizer",
-              "native.fasta_index"):
+              "native.fasta_index", "analysis", "analysis.context",
+              "analysis.purity", "analysis.durability", "analysis.runner"):
         assert f"proteinbert_tpu_torch.{m}" in mods
     bad = tmp_path / "offender.py"
     bad.write_text("import torch\nimport optax\n"
