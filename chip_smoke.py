@@ -20,6 +20,8 @@ card.
                                             # tokenizer, base steps on them
     python3 chip_smoke.py --phase check     # the static analyzer, the
                                             # profiling helpers on base steps
+    python3 chip_smoke.py --phase mesh      # FSDP, the GO head's tensor
+                                            # parallelism, reshard
     python3 chip_smoke.py --cli-first       # the full run, with the cli
                                             # phase once more up front
 
@@ -382,7 +384,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               memory, and `monitor_memory` finding the base trunk's
               largest weight tensor at its nbytes. `# check base ...`
               lines.
-14. report  — the kernel JSON line, the card's name and power limit, and the
+14. mesh    — `large` widths (C=G=1024, H=16, A=8943, L=1024, global
+              B=8) on ranks spawned on the one card, over gloo: (a) fsdp=2
+              on two ranks, 3 bf16 steps at full depth through `pretrain`
+              (a constant LR of 2e-5 in every leg)
+              (exactly 12 #2 + 12 K2 launches a step a rank; each rank's
+              memory_allocated between steps within 3% + 256 MiB of
+              `per_chip_state_bytes`, the fsdp share; step ms, the
+              all-gather / reduce-scatter wire bytes a step), then 3
+              float32 steps at depth 2 under deterministic cuDNN with a
+              checkpoint at step 2, whose losses must be the one-process
+              loop's on the same rows within 2e-5; (b) model=3 on three
+              ranks, 3 bf16 steps at full depth: 2981 GO columns a rank,
+              the replicated leaves' digests equal across ranks after the
+              steps, the losses the one-process loop's within 5e-3, then 3
+              float32 steps at depth 2 within 2e-5 of one process; (c)
+              the float32 run's checkpoint through `python -m
+              proteinbert_tpu_torch reshard --target-mesh 1` as a
+              subprocess (exit 0, parity true, a valid `reshard` event),
+              resumed by one process on the card: its step 3 the fsdp
+              run's within 2e-5. `# mesh large ...` lines.
+15. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -410,7 +432,8 @@ result line. `--phase cli` runs the build and phase 10 alone, every gate,
 no result line. `--phase data` runs the build and phase 11 alone, every
 gate, no result line. `--phase etl` runs the build and phase 12 alone,
 every gate, no result line. `--phase check` runs the build and phase 13
-alone, every gate, no result line. `--cli-first` is the full run with phase 10 run once more
+alone, every gate, no result line. `--phase mesh` runs the build and
+phase 14 alone, every gate, no result line. `--cli-first` is the full run with phase 10 run once more
 right after the build, its launches not counted, so that the phase's
 numbers first and last in one process stand side by side.
 """
@@ -7106,6 +7129,400 @@ def check_run(card: str, root: str) -> dict:
     return total
 
 
+# The mesh phase: `large` widths on ranks spawned on the one card, over
+# gloo (as the data phase's two ranks).
+MESH_STEPS = 3
+MESH_RANK_TIMEOUT = 420   # seconds for one spawned group, start-up included
+MESH_FP32_TOL = 2e-5      # float32 losses against the one-process loop (rel)
+MESH_BF16_TOL = 5e-3      # bf16 losses against the one-process loop (rel)
+MESH_STATE_MARGIN = (0.03, 256 << 20)   # (share, bytes) over the rule's
+# A constant LR of a tenth of `large`'s peak: at the peak (2e-4) from
+# step 0, without its warmup, a bf16 Large run's loss climbs (4.50, 4.85,
+# 5.91) and amplifies the rounding of the split GO head into the losses.
+MESH_LR = 2e-5
+MESH_IDENTITY = dict(token_randomize_prob=0.0, annotation_corrupt_prob=1.0,
+                     annotation_drop_prob=0.0, annotation_add_prob=0.0)
+
+
+def mesh_cfg(mesh: dict, dtype: str = "bfloat16", blocks: int = 12,
+             identity: bool = False):
+    """`large` at B=8 L=1024, the constant MESH_LR from step 0, `blocks`
+    blocks (full depth: 12), on `mesh`; `identity` turns the corruption
+    off (the runs compared with one process draw alike then)."""
+    from proteinbert_tpu_torch.configs import MeshConfig
+
+    cfg = train_preset("large", 8, 1024, MESH_STEPS)
+    data = dataclasses.replace(cfg.data, prefetch_depth=0,
+                               **(MESH_IDENTITY if identity else {}))
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, dtype=dtype, num_blocks=blocks),
+        data=data, mesh=MeshConfig(**mesh),
+        optimizer=dataclasses.replace(cfg.optimizer, schedule="constant",
+                                      learning_rate=MESH_LR, warmup_steps=0))
+
+
+def mesh_batches(cfg, seed: int) -> list:
+    """The run's global batches, the same in every process."""
+    from proteinbert_tpu_torch.data.dataset import (
+        InMemoryPretrainingDataset, make_pretrain_iterator,
+    )
+
+    B, L = cfg.data.batch_size, cfg.data.seq_len
+    seqs, ann = synthetic_proteins(4 * B, min(100, L // 2), L - 2,
+                                   cfg.model.num_annotations, seed)
+    it = make_pretrain_iterator(InMemoryPretrainingDataset(seqs, ann, L), B,
+                                seed=seed)
+    return [next(it) for _ in range(cfg.train.max_steps)]
+
+
+def deterministic(on: bool = True) -> None:
+    """cuDNN's deterministic algorithms (two runs on the same rows repeat
+    each other; the default conv backward does not on the H100), or its
+    defaults; never its benchmark search."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def mesh_train(cfg, batches, mesh=None, checkpointer=None):
+    """`pretrain` on this process's rows of `batches` (its replica's, on a
+    mesh) → (the out dict, per-step (wall ms, loss, launches by kernel,
+    memory_allocated after the step), the telemetry, the run's peak
+    memory_allocated)."""
+    from proteinbert_tpu_torch.kernels import KERNELS
+    from proteinbert_tpu_torch.obs import Telemetry
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    i, n = (0, 1) if mesh is None else (mesh.data_index, mesh.data_extent)
+    rows = [{k: v[i * len(v) // n:(i + 1) * len(v) // n]
+             for k, v in b.items()} for b in batches]
+    marks = []
+
+    def log_fn(step, m):
+        marks.append((time.perf_counter(), m["loss"],
+                      {k.name: k.launches for k in KERNELS},
+                      torch.cuda.memory_allocated()))
+
+    tele = Telemetry()
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = pretrain(cfg, lambda skip: iter(rows[skip:]), device=DEVICE,
+                   mesh=mesh, checkpointer=checkpointer, telemetry=tele,
+                   log_fn=log_fn)
+    steps, prev_t, prev = [], t0, {k.name: 0 for k in KERNELS}
+    for t, loss, counts, alloc in marks:
+        steps.append(((t - prev_t) * 1e3, loss,
+                      {k: counts[k] - prev[k] for k in counts}, alloc))
+        prev_t, prev = t, counts
+    return out, steps, tele, torch.cuda.max_memory_allocated()
+
+
+def replicated_digest(state) -> str:
+    """A digest of this rank's stored tensors that the model axis does not
+    shard (the ones every model rank must hold bit for bit)."""
+    import hashlib
+
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+
+    h = hashlib.sha256()
+    lay = state.layout
+    for t, p in zip(tree_leaves(state.params), lay.plans):
+        if not (p.store and p.store[0] == "model"):
+            h.update(t.detach().float().cpu().numpy().tobytes())
+    for i, t in enumerate(state.opt_state.mu):
+        p = lay.plans[i]
+        if not (p.store and p.store[0] == "model"):
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str, device: str,
+              leg: str) -> None:
+    """One rank of leg "fsdp" (two ranks: (a) bf16 at full depth, then
+    float32 at depth 2 with a checkpoint) or "model" (three ranks: (b),
+    bf16 at full depth, then float32 at depth 2); writes
+    `<out>/<leg><rank>.json`."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.zero import (
+        comm_bytes, per_chip_state_bytes,
+    )
+    from proteinbert_tpu_torch.train import Checkpointer
+
+    global DEVICE
+    DEVICE = device
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        axes = {"fsdp": {"fsdp": 2}, "model": {"model": 3}}[leg]
+        runs = [("bf16", mesh_cfg(axes)),
+                ("fp32", mesh_cfg(axes, "float32", 2, True))]
+        for name, cfg in runs:
+            deterministic(name == "fp32" or leg == "model")
+            mesh = make_mesh(cfg.mesh)
+            ck = None
+            if name == "fp32" and leg == "fsdp":
+                cfg = cfg.replace(checkpoint=dataclasses.replace(
+                    cfg.checkpoint, every_steps=2, async_save=False))
+                ck = Checkpointer(os.path.join(out, "ck"), async_save=False,
+                                  mesh=mesh)
+            run, steps, tele, peak = mesh_train(cfg, mesh_batches(cfg, 14),
+                                                mesh, ck)
+            if ck is not None:
+                ck.close()
+            state = run["state"]
+            byte_out, wire = comm_bytes(tele.metrics)
+            rules = per_chip_state_bytes(mesh, state, zero_update=False)
+            res[name] = {
+                "steps": steps, "wire": wire, "out_bytes": byte_out,
+                "peak": peak,
+                "per_chip": rules,
+                "whole": per_chip_state_bytes(single_mesh(), state),
+                "stored": sum(t.nbytes for t in
+                              tree_tensors(state.params)
+                              + list(state.opt_state.mu)
+                              + list(state.opt_state.nu)
+                              + list((state.opt_state.plateau
+                                      or {}).values())),
+                "tp_cols": (None if state.layout.tp is None
+                            else state.layout.tp.cols),
+                "digest": replicated_digest(state)}
+            del run, state, ck
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out, f"{leg}{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        deterministic(False)
+        dist.destroy_process_group()
+
+
+def single_mesh():
+    """A one-device layout (for the whole state's bytes)."""
+    from proteinbert_tpu_torch.parallel.mesh import AXES, Mesh
+
+    return Mesh(shape={ax: 1 for ax in AXES}, rank=0,
+                coords={ax: 0 for ax in AXES})
+
+
+def mesh_spawn(leg: str, world: int, root: str) -> list:
+    """`mesh_rank` on `world` spawned ranks → each rank's results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, os.path.join(root, f"{leg}_store"),
+                               root, DEVICE, leg))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(codes == [0] * world, f"mesh large {leg}: exit codes {codes}")
+    return [json.load(open(os.path.join(root, f"{leg}{r}.json")))
+            for r in range(world)]
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 14 (module docstring) → each kernel's launches on the ranks
+    and in the one-process loops."""
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK_TILED
+
+    root = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    totals: dict = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+
+    per_step = {LOCAL_TRACK_TILED.name: 12, ATTENTION.name: 12}
+    try:
+        t0 = time.perf_counter()
+        fsdp = mesh_spawn("fsdp", 2, root)
+        fsdp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = mesh_spawn("model", 3, root)
+        model_s = time.perf_counter() - t0
+        for leg, ranks in (("fsdp", fsdp), ("model", model)):
+            for r, res in enumerate(ranks):
+                for name, run in res.items():
+                    for i, (_, loss, launches, _) in enumerate(run["steps"]):
+                        want = (per_step if name == "bf16" else
+                                {LOCAL_TRACK_TILED.name: 2,
+                                 ATTENTION.name: 2})
+                        got = {k: v for k, v in launches.items() if v}
+                        check(got == want and np.isfinite(loss),
+                              f"mesh large {leg} {name} rank {r} step "
+                              f"{i + 1}: launches {got}, want {want}, "
+                              f"loss {loss}")
+                        add(launches)
+        # (a) the fsdp share of the state on each rank.
+        for r, res in enumerate(fsdp):
+            a = res["bf16"]
+            want = a["per_chip"]["params"] + a["per_chip"]["opt_state"]
+            allocs = [s[3] for s in a["steps"]]
+            share, extra = MESH_STATE_MARGIN
+            check(a["stored"] == want
+                  and all(want <= x <= want * (1 + share) + extra
+                          for x in allocs)
+                  and want < 0.55 * a["whole"]["total"],
+                  f"mesh large fsdp rank {r}: stored {a['stored']}, "
+                  f"allocated between steps {allocs}, per_chip_state_bytes "
+                  f"{a['per_chip']}, whole {a['whole']}")
+        a = fsdp[0]["bf16"]
+        ms = [s[0] for s in a["steps"]]
+        print(f"# mesh large fsdp [{card}]: fsdp=2 on two ranks of one card "
+              f"over gloo, 12 blocks C=G=1024 H=16 A=8943 bf16, B=8 (4 a "
+              f"rank) L=1024, {MESH_STEPS} steps; 12 #2 + 12 K2 launches a "
+              f"step a rank; step ms rank 0 {[round(x, 1) for x in ms]} "
+              f"(rank 1 {[round(s[0], 1) for s in fsdp[1]['bf16']['steps']]}"
+              f"); losses {[round(s[1], 5) for s in a['steps']]}; state "
+              f"bytes a rank: per_chip_state_bytes {a['per_chip']}, the "
+              f"whole state {a['whole']['total']}, stored {a['stored']}, "
+              f"memory_allocated after each step "
+              f"{[s[3] for s in a['steps']]} (rank 1 "
+              f"{[s[3] for s in fsdp[1]['bf16']['steps']]}), peak "
+              f"{a['peak']} (rank 1 {fsdp[1]['bf16']['peak']}; the params "
+              f"gathered once a step); wire bytes a "
+              f"step a rank: " + ", ".join(
+                  f"{k} {v / MESH_STEPS:.0f}" for k, v in a["wire"].items()
+                  if v) + f"; group {fsdp_s:.1f} s from spawn")
+        # (a) float32 against one process on the same rows.
+        deterministic(True)
+        cfg = mesh_cfg({"fsdp": 2}, "float32", 2, True)
+        one_cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=1))
+        batches = mesh_batches(cfg, 14)
+        ref, ref_steps, _, _ = mesh_train(one_cfg, batches)
+        add({k: sum(s[2][k] for s in ref_steps) for k in ref_steps[0][2]})
+        got = [s[1] for s in fsdp[0]["fp32"]["steps"]]
+        want = fp32_ref = [s[1] for s in ref_steps]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        check(worst <= MESH_FP32_TOL,
+              f"mesh large fsdp fp32: losses {got} against one process "
+              f"{want} (rel {worst})")
+        print(f"# mesh large fsdp fp32 [{card}]: 2 blocks, float32, "
+              f"deterministic cuDNN, identity corruption: losses {got} "
+              f"against one process {want}, max rel {worst:.3g} (<= "
+              f"{MESH_FP32_TOL}); one-process step ms "
+              f"{[round(s[0], 1) for s in ref_steps]}, fsdp rank 0 "
+              f"{[round(s[0], 1) for s in fsdp[0]['fp32']['steps']]}")
+        del ref
+        # (c) reshard the fsdp float32 run's step 2 to one device, resume.
+        mesh_reshard(card, root, one_cfg, batches, got)
+        # (b) the GO head split three ways; float32 against one process.
+        digests = {r["bf16"]["digest"] for r in model}
+        cols = {r[k]["tp_cols"] for r in model for k in ("bf16", "fp32")}
+        check(len(digests) == 1 and cols == {2981},
+              f"mesh large model=3: digests {digests}, columns {cols}")
+        got, want = [s[1] for s in model[0]["fp32"]["steps"]], fp32_ref
+        worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        check(worst <= MESH_FP32_TOL and len(
+            {r["fp32"]["digest"] for r in model}) == 1,
+              f"mesh large model=3 fp32: losses {got} against one process "
+              f"{want} (rel {worst}), digests "
+              f"{[r['fp32']['digest'] for r in model]}")
+        print(f"# mesh large model=3 fp32 [{card}]: 2 blocks, float32, "
+              f"deterministic cuDNN, identity corruption, 2981 columns a "
+              f"rank: losses {got} against one process {want}, max rel "
+              f"{worst:.3g} (<= {MESH_FP32_TOL}); digests equal")
+        cfg = mesh_cfg({"model": 3})
+        ref, ref_steps, _, ref_peak = mesh_train(
+            cfg.replace(mesh=dataclasses.replace(cfg.mesh, model=1)),
+            mesh_batches(cfg, 14))
+        add({k: sum(s[2][k] for s in ref_steps) for k in ref_steps[0][2]})
+        got = [s[1] for s in model[0]["bf16"]["steps"]]
+        want = [s[1] for s in ref_steps]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        check(worst <= MESH_BF16_TOL,
+              f"mesh large model=3: losses {got} against one process "
+              f"{want} (rel {worst})")
+        b = model[0]["bf16"]
+        print(f"# mesh large model=3 [{card}]: three ranks of one card over "
+              f"gloo, 12 blocks bf16 B=8 L=1024 (every rank the 8 rows, "
+              f"the default corruption: one replica's draws), "
+              f"deterministic cuDNN: 2981 GO columns a rank; the replicated "
+              f"leaves' digest after {MESH_STEPS} steps equal on the three "
+              f"ranks; losses {got} against one process {want}, max rel "
+              f"{worst:.3g} (<= {MESH_BF16_TOL}); step ms rank 0 "
+              f"{[round(s[0], 1) for s in b['steps']]}, one process "
+              f"{[round(s[0], 1) for s in ref_steps]}; state bytes a rank "
+              f"{b['per_chip']}; peak memory_allocated rank 0 {b['peak']}, "
+              f"one process {ref_peak}; wire bytes a step a rank: "
+              + ", ".join(
+                  f"{k} {v / MESH_STEPS:.0f}" for k, v in b["wire"].items()
+                  if v) + f"; group {model_s:.1f} s from spawn")
+        del ref
+    finally:
+        deterministic(False)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def mesh_reshard(card: str, root: str, cfg, batches, fsdp_losses) -> None:
+    """(c): `reshard --target-mesh 1` of the fsdp run's step 2 as a
+    subprocess, then one process resumes it for step 3."""
+    from proteinbert_tpu_torch.configs import save_config
+    from proteinbert_tpu_torch.train import Checkpointer
+
+    src, dst = os.path.join(root, "ck"), os.path.join(root, "one")
+    events = os.path.join(root, "reshard.jsonl")
+    save_config(cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=2)),
+                os.path.join(src, "config.json"))
+    t0 = time.perf_counter()
+    proc = cli_spawn(["reshard", "--src", src, "--output", dst,
+                      "--target-mesh", "1", "--step", 2, "--events-jsonl",
+                      events], os.path.join(root, "reshard.log"))
+    rc = cli_exit(proc, "reshard")
+    wall = time.perf_counter() - t0
+    said = open(os.path.join(root, "reshard.log")).read()
+    summary = json.loads([t for t in said.splitlines()
+                          if t.startswith("{")][-1]) if "{" in said else {}
+    from proteinbert_tpu_torch.obs import read_events
+
+    recs = [e for e in read_events(events, strict=True)
+            if e["event"] == "reshard"] if os.path.exists(events) else []
+    check(rc == 0 and summary.get("parity") is True and len(recs) == 1
+          and summary["schedule"] == "host_staged",
+          f"mesh large reshard: exit {rc}, summary {summary}, events "
+          f"{recs}; log tail {said[-2000:]}")
+    ck = Checkpointer(dst, async_save=False)
+    run, steps, _, _ = mesh_train(cfg, batches, checkpointer=ck)
+    ck.close()
+    check(len(steps) == 1 and abs(steps[0][1] - fsdp_losses[2])
+          <= MESH_FP32_TOL * abs(fsdp_losses[2]),
+          f"mesh large reshard: resumed step losses {[s[1] for s in steps]}"
+          f" against the fsdp run's step 3 {fsdp_losses[2]}")
+    nbytes = os.path.getsize(os.path.join(dst, "2", "state.pt"))
+    print(f"# mesh large reshard [{card}]: python -m proteinbert_tpu_torch "
+          f"reshard --target-mesh 1 --step 2 of the fsdp=2 float32 run "
+          f"(depth 2): exit {rc}, {wall:.1f} s from spawn, parity "
+          f"{summary['parity']}, schedule {summary['schedule']}, wire bytes "
+          f"{summary['wire_bytes']['total']}, state.pt {nbytes} bytes, the "
+          f"event valid; one process resumed it on the card: step 3 loss "
+          f"{steps[0][1]} against the fsdp run's {fsdp_losses[2]}")
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
@@ -7115,10 +7532,10 @@ def main() -> int:
                     ["--phase", "neighbors"], ["--phase", "rollout"],
                     ["--phase", "cli"], ["--phase", "data"],
                     ["--phase", "etl"], ["--phase", "check"],
-                    ["--cli-first"]):
+                    ["--phase", "mesh"], ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
               "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli|data|etl|check]", file=sys.stderr)
+              "cli|data|etl|check|mesh]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7202,6 +7619,11 @@ def main() -> int:
         t0 = time.perf_counter()
         check_phase(card)
         print(f"# check: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "mesh"]:
+        t0 = time.perf_counter()
+        mesh_phase(card)
+        print(f"# mesh: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -7292,6 +7714,10 @@ def main() -> int:
     for name, n in check_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# check: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in mesh_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# mesh: {time.perf_counter() - t0:.1f} s")
     host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)

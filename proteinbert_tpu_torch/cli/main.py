@@ -26,6 +26,7 @@ flags, defaults, messages and exit codes over the port's modules:
   check              the port's static analyzer (graph purity and launch
                      or raise, locks, durability, event schema, doc
                      drift, dead exports)
+  reshard            carry a checkpoint to another mesh layout
   create-uniref-db   UniRef XML → SQLite (shardable over a task array)
   merge-uniref-dbs   merge task-array shard DBs (+ the GO meta CSV)
   create-h5          SQLite + FASTA → HDF5 dataset (needs h5py)
@@ -39,15 +40,16 @@ Where it departs from the JAX CLI:
   plain PyTorch versions. `fleet` passes it on to its replicas.
 - One process a card: `pretrain --multihost` joins the process group
   (`parallel.multihost`, from COORDINATOR_ADDRESS / NUM_PROCESSES /
-  PROCESS_ID or torchrun's environment) and trains the data x seq mesh of
-  `cfg.mesh` over it; a mesh whose device count is not the world size is
-  refused with the JAX message. `cfg.data.batch_size` is the GLOBAL batch
-  (each data rank feeds batch_size / data rows), where the JAX CLI's is
-  per host. Only process 0 writes config.json, --events-jsonl and
-  --metrics-jsonl. The fsdp and model axes, `serve --mesh` and `reshard`
-  are refused (ROADMAP A11c), as is `--compile-cache-dir` (the port's
-  warm shapes are CUDA graphs, which a process cannot reload); the flags
-  before parsing (`REFUSED_FLAGS`).
+  PROCESS_ID or torchrun's environment) and trains the data x fsdp x
+  model x seq mesh of `cfg.mesh` over it; a mesh whose device count is
+  not the world size is refused with the JAX message, and seq together
+  with fsdp or model with ROADMAP A11d's. `cfg.data.batch_size` is the
+  GLOBAL batch (each replica feeds batch_size / (data·fsdp) rows), where
+  the JAX CLI's is per host. Only process 0 writes config.json,
+  --events-jsonl and --metrics-jsonl. `serve --mesh` is refused (ROADMAP
+  A11d), as is `--compile-cache-dir` (the port's warm shapes are CUDA
+  graphs, which a process cannot reload), before parsing
+  (`REFUSED_FLAGS`).
 - `--pretrained` names a port run directory (`train/checkpoint.
   Checkpointer` step directories plus `config.json`); an orbax directory
   of the JAX package is refused with the way across: `export-weights` in
@@ -59,7 +61,10 @@ Where it departs from the JAX CLI:
   `graph-purity` rule takes the place of the JAX `jit-purity`, and its
   baseline is `proteinbert_tpu_torch/analysis/check_baseline.json`. It
   touches no tensor and ignores `--device`.
-- Not yet here: `reshard`.
+- `reshard` copies a full-shape step file (a port checkpoint is
+  full-shape whatever mesh wrote it) and needs none of the target's
+  cards: it does not refuse a target mesh larger than the machine, as
+  the JAX verb does. It touches no device and ignores `--device`.
 """
 
 from __future__ import annotations
@@ -79,20 +84,13 @@ NO_CARD = ("no CUDA device is available: the port runs its kernels on the "
            "card; pass --device cpu (before the command) to run their "
            "plain PyTorch versions on the CPU")
 
-# Verbs and flags of the JAX CLI the port refuses, with the reason
-# (checked before parsing, so each gets its own message instead of
-# argparse's).
-REFUSED_VERBS = {
-    "reshard": "reshard: restoring a checkpoint onto another mesh layout "
-               "is not ported yet (ROADMAP A11c); a port checkpoint holds "
-               "full-shape tensors and resumes at any data x seq mesh as "
-               "it is",
-}
+# Flags of the JAX CLI the port refuses, with the reason (checked before
+# parsing, so each gets its own message instead of argparse's).
 REFUSED_FLAGS = {
     "--platform": "--platform is the JAX CLI's backend switch; the port "
                   "takes --device {cuda,cpu} (before the command)",
     "--mesh": "--mesh: batch sharding of served requests over a device "
-              "mesh is not ported yet (ROADMAP A11c); the port serves on "
+              "mesh is not ported yet (ROADMAP A11d); the port serves on "
               "one card",
     "--compile-cache-dir": "--compile-cache-dir arms XLA's persistent "
                            "compilation cache; the port's warm shapes are "
@@ -181,12 +179,19 @@ def _device(args):
 
 def _make_mesh(cfg):
     """The run's mesh over the process group (None for a one-device mesh
-    without a group); exits with the JAX message when the mesh is not the
-    world, and with ROADMAP A11c's for an fsdp or model axis."""
+    without a group); exits with ROADMAP A11d's message for seq together
+    with fsdp or model, and with the JAX message when the mesh is not the
+    world."""
     import torch.distributed as dist
 
-    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.mesh import (
+        check_composable, make_mesh,
+    )
 
+    try:
+        check_composable(cfg.mesh)
+    except ValueError as e:
+        raise SystemExit(str(e))
     if cfg.mesh.num_devices == 1 and not dist.is_initialized():
         return None
     try:
@@ -194,11 +199,10 @@ def _make_mesh(cfg):
     except ValueError as e:
         axes = {a: s for a, s in zip(cfg.mesh.axis_names, cfg.mesh.shape)
                 if s > 1}
-        hint = "run with " + " ".join(f"--set mesh.{a}=1" for a in axes)
-        if cfg.mesh.fsdp == cfg.mesh.model == 1:
-            hint = (f"launch {cfg.mesh.num_devices} processes, one a "
-                    f"device, with --multihost, or {hint}")
-        raise SystemExit(f"{e}: {hint}")
+        hint = " ".join(f"--set mesh.{a}=1" for a in axes)
+        raise SystemExit(
+            f"{e}: launch {cfg.mesh.num_devices} processes, one a device, "
+            f"with --multihost, or run with {hint}")
     log(f"mesh: {mesh.shape} over {mesh.size} processes")
     return mesh
 
@@ -1607,6 +1611,48 @@ def cmd_index(args) -> int:
     return 0
 
 
+def cmd_reshard(args) -> int:
+    """Carry a run directory's checkpoint to a NEW mesh layout: a fresh run
+    directory whose config.json records the new topology (and ZeRO
+    choice), the step byte-checked after its write, the move's wire bytes
+    priced from the rules (parallel/reshard.py) on the `reshard`
+    event."""
+    from proteinbert_tpu_torch.parallel.reshard import (
+        parse_mesh_spec, reshard_checkpoint,
+    )
+
+    cfg = _pretrain_run_config(args.src, args.preset, args.pretrained_set)
+    target = None
+    if args.target_mesh:
+        try:
+            target = parse_mesh_spec(args.target_mesh)
+        except ValueError as e:
+            raise SystemExit(f"--target-mesh: {e}")
+    _check_run_dir(args.src)
+    tele = None
+    if args.events_jsonl:
+        from proteinbert_tpu_torch.obs import Telemetry
+
+        tele = Telemetry(events_path=args.events_jsonl)
+    try:
+        summary = reshard_checkpoint(
+            args.src, args.output, cfg=cfg, target_mesh_cfg=target,
+            zero_update=args.zero_update, step=args.step,
+            telemetry=tele, verify=not args.no_verify)
+    except (FileNotFoundError, ValueError, RuntimeError) as e:
+        raise SystemExit(f"reshard failed: {e}")
+    finally:
+        if tele is not None:
+            _export_metrics(tele)
+            tele.close()
+    print(json.dumps(summary))
+    log(f"resharded {args.src} step {summary['step']} → {args.output} "
+        f"(mesh {summary['target_mesh']}, {summary['schedule']} "
+        f"schedule, {summary['wire_bytes'].get('total', 0)} wire bytes"
+        + (", parity verified" if summary["parity"] else "") + ")")
+    return 0
+
+
 def cmd_check(args) -> int:
     """Project-invariant static analyzer over the port: six stdlib-ast
     rules derived from its own contracts — graph purity and launch or
@@ -2443,6 +2489,45 @@ def build_parser() -> argparse.ArgumentParser:
                          "human review")
     ck.set_defaults(fn=cmd_check)
 
+    rs = sub.add_parser("reshard",
+                        help="carry a checkpoint to a new mesh layout "
+                             "(a fresh run dir at the target topology; "
+                             "the step file is full-shape, so no device "
+                             "of either mesh is needed)")
+    rs.add_argument("--src", required=True,
+                    help="source run directory (checkpoints + "
+                         "config.json)")
+    rs.add_argument("--output", type=creatable_path, required=True,
+                    help="run directory to create at the target layout")
+    rs.add_argument("--target-mesh",
+                    help="target topology: '4x2' (data x fsdp), "
+                         "'8x1x1x1' (data x fsdp x model x seq), '1' "
+                         "(single device), or 'data=4,fsdp=2'; "
+                         "default: the source config's mesh")
+    rs.add_argument("--step", type=int,
+                    help="checkpoint step to reshard (default: latest; "
+                         "explicit steps are strict — no torn-tail "
+                         "fallback)")
+    rs.add_argument("--zero-update", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="record the target's optimizer state as ZeRO-1-"
+                         "sharded (--no-zero-update: replicated; default: "
+                         "the source config's parallel.zero_update)")
+    rs.add_argument("--no-verify", action="store_true",
+                    help="skip the round-trip byte-parity check "
+                         "(verification re-reads the written "
+                         "checkpoint)")
+    rs.add_argument("--preset", default="tiny",
+                    choices=["tiny", "base", "long", "large"])
+    rs.add_argument("--pretrained-set", action="append",
+                    metavar="PATH=VALUE",
+                    help="config override the source run was made with "
+                         "(when it lacks a config.json)")
+    rs.add_argument("--events-jsonl", type=creatable_path,
+                    help="append the reshard event (+ wire-bytes "
+                         "metrics) to this JSONL stream")
+    rs.set_defaults(fn=cmd_reshard)
+
     ro = sub.add_parser(
         "rollout",
         help="blue-green trunk rollout against a running fleet router: "
@@ -2491,12 +2576,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refused(argv: List[str]) -> Optional[str]:
-    """The message of the refused JAX-CLI verb, or of the first refused
-    flag, in `argv`."""
-    verb = next((t for i, t in enumerate(argv) if not t.startswith("-")
-                 and (i == 0 or argv[i - 1] != "--device")), None)
-    if verb in REFUSED_VERBS:
-        return REFUSED_VERBS[verb]
+    """The message of the first refused JAX-CLI flag in `argv`."""
     for tok in argv:
         if tok == "--":
             break

@@ -107,8 +107,18 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     """Random full-model parameters drawn from `generator` (on the CPU,
     so a seed gives the same weights on every device), then placed on
     `device` (None → "cuda")."""
-    device = resolve_device(device)
-    params = {
+    return to_device(_init_tree(cfg, generator), resolve_device(device))
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The params tree's shapes and dtypes on the meta device, nothing
+    allocated or drawn (the JAX package's `jax.eval_shape` of `init`)."""
+    with torch.device("meta"):
+        return _init_tree(cfg, torch.Generator())
+
+
+def _init_tree(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    return {
         "embedding": {"embedding": torch.randn(
             (cfg.vocab_size, cfg.local_dim), generator=generator)},
         "global_in": _dense_init(generator, cfg.num_annotations,
@@ -119,7 +129,6 @@ def init(cfg: ModelConfig, generator: torch.Generator,
         "global_head": _dense_init(generator, cfg.global_dim,
                                    cfg.num_annotations),
     }
-    return to_device(params, device)
 
 
 def to_device(tree, device: torch.device):
@@ -182,17 +191,21 @@ def block_apply(
 def encode(
     params: Params, tokens: torch.Tensor, annotations: torch.Tensor,
     cfg: ModelConfig, pad_mask: Optional[torch.Tensor] = None,
-    segment_ids: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None, tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trunk forward: embeddings + N blocks → (local (B, L, C),
     global (B, G)) in the activation dtype. PACKED rows: segment_ids
-    (B, L) and annotations (B, S, A); global comes back (B, S, G)."""
+    (B, L) and annotations (B, S, A); global comes back (B, S, G).
+    `tp` (`parallel.tensor_parallel.TensorParallel`): `global_in` holds
+    this model rank's rows and runs row-parallel."""
     dtype = activation_dtype(cfg)
     if pad_mask is None:
         pad_mask = (segment_ids > 0 if segment_ids is not None
                     else tokens != PAD_ID)
     local = embedding_apply(params["embedding"], tokens, dtype)
-    global_ = gelu(dense_apply(params["global_in"], annotations.to(dtype)))
+    global_ = gelu(dense_apply(params["global_in"], annotations.to(dtype))
+                   if tp is None else
+                   tp.global_in(params["global_in"], annotations, dtype))
     for blk in params["blocks"]:
         local, global_ = block_apply(cast_block(blk, dtype), local, global_,
                                      pad_mask, cfg, segment_ids)
@@ -219,12 +232,16 @@ def encode_trunk(
 def apply(
     params: Params, tokens: torch.Tensor, annotations: torch.Tensor,
     cfg: ModelConfig, pad_mask: Optional[torch.Tensor] = None,
-    segment_ids: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None, tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass → (local_logits (B, L, V), global_logits (B, A)),
-    float32 LOGITS; global_logits is (B, S, A) for packed rows."""
+    float32 LOGITS; global_logits is (B, S, A) for packed rows. `tp`:
+    the GO head's tensor parallelism (`encode`); `global_head` then
+    holds this model rank's columns and the logits come back whole."""
     local, global_ = encode(params, tokens, annotations, cfg, pad_mask,
-                            segment_ids)
+                            segment_ids, tp)
     local_logits = dense_apply(params["local_head"], local).float()
-    global_logits = dense_apply(params["global_head"], global_).float()
+    global_logits = (dense_apply(params["global_head"], global_).float()
+                     if tp is None else
+                     tp.global_head(params["global_head"], global_))
     return local_logits, global_logits

@@ -1,10 +1,13 @@
 """Parallelism and quantization — port of `proteinbert_tpu/parallel/` over
-`torch.distributed`: the process group (`multihost.py`), the data × seq
-mesh (`mesh.py`), the layout rules (`sharding.py`), ZeRO-1 and the comm
-accounting (`zero.py`), `quant.py` (the quantized reduce-scatter and the
-int8 serving arm), and explicit sequence parallelism (`halo.py`,
-`seq_parallel.py`). Not ported (ROADMAP A11c): the fsdp and model axes,
-`serve_batch_sharding`, `reshard.py`.
+`torch.distributed`: the process group (`multihost.py`), the data × fsdp
+× model × seq mesh (`mesh.py`), the layout rules (`sharding.py`), FSDP
+placement and the sharded step (`fsdp.py`), the GO head's tensor
+parallelism (`tensor_parallel.py`), ZeRO-1 and the comm accounting
+(`zero.py`), `quant.py` (the quantized reduce-scatter and the int8
+serving arm), explicit sequence parallelism (`halo.py`,
+`seq_parallel.py`) and checkpoint resharding (`reshard.py`). Not ported
+(ROADMAP A11d): `seq` composed with `fsdp` or `model`, and serving over a
+mesh.
 
 The names below load their module on first use, so that importing one
 submodule (serving's `parallel.quant`) does not pull in the training stack
@@ -14,24 +17,38 @@ import importlib
 
 _EXPORTS = {
     "Mesh": "mesh",
+    "MeshLayout": "fsdp",
     "QuantConfigError": "quant",
+    "TensorParallel": "tensor_parallel",
     "ZeroLayout": "zero",
+    "batch_sharding": "sharding",
     "check_quant_mesh": "quant",
     "conv1d_halo": "halo",
     "group_size": "halo",
     "halo_exchange": "halo",
+    "leaf_spec": "sharding",
     "local_batch_size": "sharding",
     "make_mesh": "mesh",
     "make_quant_zero_train_step": "quant",
+    "make_sharded_train_step": "fsdp",
     "make_zero_train_step": "zero",
     "maybe_initialize_distributed": "multihost",
     "mesh_for_devices": "mesh",
+    "mesh_from_config": "reshard",
+    "param_spec": "sharding",
+    "parse_mesh_spec": "reshard",
     "per_chip_state_bytes": "zero",
     "gather_seq": "seq_parallel",
     "make_seq_parallel_train_step": "seq_parallel",
+    "reshard_checkpoint": "reshard",
+    "reshard_schedule_bytes": "reshard",
     "seq_parallel_apply": "seq_parallel",
+    "seq_parallel_conv1d": "halo",
     "seq_parallel_loss_and_grads": "seq_parallel",
+    "serve_batch_sharding": "sharding",
     "sharded_global_attention": "seq_parallel",
+    "states_byte_identical": "reshard",
+    "tree_digest": "reshard",
     "zero_dim": "sharding",
     "zero_extent": "zero",
     "zero_gradient_update": "zero",

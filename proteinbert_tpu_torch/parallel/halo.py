@@ -16,8 +16,11 @@ The exchange is differentiable: its backward is the adjoint of the JAX
 rows and is added into that rank's centre gradient (`_HaloExchange`).
 
 A group of size 1 (or None) pads with zeros and makes no collective call
-(halo.py:42-44). `seq_parallel_conv1d` (halo.py:99-116) is not ported:
-the trainer does not need it.
+(halo.py:42-44). `seq_parallel_conv1d` (halo.py:99-116) is the
+standalone sharded conv over a mesh: the JAX function shard_maps a global
+(B, L, C) array with B over the joint ('data', 'fsdp') axis and L over
+'seq'; here every rank passes the same global array, cuts its block of it
+(`mesh_block`) and returns its block of the output.
 """
 
 from __future__ import annotations
@@ -135,3 +138,22 @@ def conv1d_halo(params: Params, x: torch.Tensor, dilation: int,
     w = params["kernel"].to(x.dtype).permute(2, 1, 0)  # (Cout, Cin, K)
     y = F.conv1d(xh.transpose(1, 2), w, dilation=dilation).transpose(1, 2)
     return y + params["bias"].to(x.dtype)
+
+
+def mesh_block(mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a global (B, L, …) array laid out as the JAX
+    P(('data', 'fsdp'), 'seq'): rows by the joint replica index, positions
+    by the seq coordinate."""
+    rows = x.shape[0] // mesh.data_extent
+    cols = x.shape[1] // mesh.shape["seq"]
+    return x[mesh.data_index * rows:(mesh.data_index + 1) * rows,
+             mesh.coords["seq"] * cols:(mesh.coords["seq"] + 1) * cols]
+
+
+def seq_parallel_conv1d(mesh, params: Params, x: torch.Tensor,
+                        dilation: int = 1) -> torch.Tensor:
+    """The 'SAME' conv of a global (B, L, C) array whose L is sharded
+    over the mesh's seq axis and B over data×fsdp (the JAX function):
+    this rank's block of the output, from its block of `x` and the halo
+    exchange over `mesh.seq_group`. Every rank passes the same `x`."""
+    return conv1d_halo(params, mesh_block(mesh, x), dilation, mesh.seq_group)

@@ -9,11 +9,19 @@ mesh's devices, so rank r sits at
 (`shape`, a dict, as `jax.sharding.Mesh.shape` is), this rank's
 coordinates and one process group per axis in use:
 
-- `seq_group`: the ranks of this rank's row along `seq` (its data
-  replica's sequence shards, `parallel/seq_parallel.py`);
+- `seq_group`: the ranks of this rank's row along `seq` (its replica's
+  sequence shards, `parallel/seq_parallel.py`);
 - `data_group`: the ranks along `data` — the gradient sum of data
-  parallelism, and (`fsdp` being 1 here) the joint ('data', 'fsdp')
-  replica axis that ZeRO-1 reduce-scatters over (`replica_group`).
+  parallelism;
+- `fsdp_group`: the ranks along `fsdp` — the all-gather of the params'
+  FSDP shards and the reduce-scatter of their gradients
+  (`parallel/fsdp.py`);
+- `model_group`: the ranks along `model` — the GO head's tensor
+  parallelism (`parallel/tensor_parallel.py`);
+- `replica_group`: the joint ('data', 'fsdp') replica axis, the ranks
+  that hold different rows — the loss's weight masses, the eval pool and
+  ZeRO-1 sum over it. A rank's index in it is `data_index`
+  (d·fsdp + f), the order of the JAX joint axis.
 
 An axis whose ranks are the whole world uses `dist.group.WORLD`, so a
 one-rank run still makes its collectives (as a one-device JAX mesh runs
@@ -21,8 +29,8 @@ its psums); an axis of extent 1 inside a larger world has no group
 (None: no collective). Every rank creates every group, in the same order
 (`dist.new_group` is collective over the world).
 
-Not ported (ROADMAP A11c): the `fsdp` and `model` axes — FSDP placement
-and the GO head's tensor parallelism. `make_mesh` refuses them.
+Not ported (ROADMAP A11d): `seq` together with `fsdp` or `model`;
+`make_mesh` refuses it.
 """
 
 from __future__ import annotations
@@ -47,16 +55,19 @@ class Mesh:
     coords: Dict[str, int]
     data_group: Any = None
     seq_group: Any = None
+    fsdp_group: Any = None
+    model_group: Any = None
+    replica_group: Any = None
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.shape.values())))
 
     @property
-    def replica_group(self):
-        """The joint ('data', 'fsdp') axis: the data group while fsdp is
-        1 (the only extent this port takes)."""
-        return self.data_group
+    def sharded(self) -> bool:
+        """Whether the params are laid out over the mesh (an fsdp or a
+        model axis above 1): the step of `parallel/fsdp.py`."""
+        return self.shape["fsdp"] > 1 or self.shape["model"] > 1
 
     @property
     def data_index(self) -> int:
@@ -68,15 +79,18 @@ class Mesh:
         return self.shape["data"] * self.shape["fsdp"]
 
 
-def _axis_groups(grid: np.ndarray, axis: int, rank: int, world: int):
-    """Create the groups along `axis` of the rank grid (every rank calls
-    this, creating every group) → this rank's group."""
-    extent = grid.shape[axis]
+def _axis_groups(grid: np.ndarray, axes, rank: int, world: int):
+    """Create the groups along `axes` (one axis or several, read jointly
+    in mesh order) of the rank grid (every rank calls this, creating
+    every group) → this rank's group."""
+    axes = (axes,) if isinstance(axes, int) else tuple(axes)
+    extent = int(np.prod([grid.shape[a] for a in axes]))
     if extent == world:
         return dist.group.WORLD
     if extent == 1:
         return None
-    lines = np.moveaxis(grid, axis, -1).reshape(-1, extent)
+    last = tuple(range(grid.ndim - len(axes), grid.ndim))
+    lines = np.moveaxis(grid, axes, last).reshape(-1, extent)
     mine = None
     for line in lines:
         g = dist.new_group([int(r) for r in line])
@@ -87,19 +101,14 @@ def _axis_groups(grid: np.ndarray, axis: int, rank: int, world: int):
 
 def make_mesh(cfg: MeshConfig) -> Mesh:
     """This rank's mesh of `cfg` over the default process group (without
-    one: world 1, rank 0, no groups). ValueError for an `fsdp` or `model`
-    axis (ROADMAP A11c) and when the mesh's device count is not the
-    world size (the JAX message). Collective: every rank of the group
-    calls it, with the same `cfg`."""
+    one: world 1, rank 0, no groups). ValueError for `seq` together with
+    `fsdp` or `model` (`check_composable`) and when the mesh's device
+    count is not the world size (the JAX message). Collective: every
+    rank of the group calls it, with the same `cfg`."""
+    check_composable(cfg)
     live = dist.is_initialized()
     world = dist.get_world_size() if live else 1
     rank = dist.get_rank() if live else 0
-    for ax in ("fsdp", "model"):
-        if getattr(cfg, ax) > 1:
-            raise ValueError(
-                f"mesh axis {ax}={getattr(cfg, ax)}: FSDP placement and "
-                "tensor parallelism are not ported yet (ROADMAP A11c); "
-                "the port's meshes are data x seq")
     if cfg.num_devices != world:
         raise ValueError(
             f"mesh {cfg.shape} wants {cfg.num_devices} devices, have "
@@ -108,10 +117,29 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
     coords = dict(zip(AXES, (int(i) for i in np.argwhere(grid == rank)[0])))
     groups = {}
     if live:
-        for ax in ("seq", "data"):   # the same order on every rank
-            groups[ax] = _axis_groups(grid, AXES.index(ax), rank, world)
+        # The same order on every rank; the joint replica axis is the
+        # data or the fsdp group when the other extent is 1.
+        for name in ("seq", "data", "fsdp", "model"):
+            groups[name] = _axis_groups(grid, AXES.index(name), rank, world)
+        groups["replica"] = (
+            groups["data"] if cfg.fsdp == 1 else groups["fsdp"]
+            if cfg.data == 1 else _axis_groups(grid, (0, 1), rank, world))
     return Mesh(shape=dict(zip(AXES, cfg.shape)), rank=rank, coords=coords,
-                data_group=groups.get("data"), seq_group=groups.get("seq"))
+                data_group=groups.get("data"), seq_group=groups.get("seq"),
+                fsdp_group=groups.get("fsdp"),
+                model_group=groups.get("model"),
+                replica_group=groups.get("replica"))
+
+
+def check_composable(cfg: MeshConfig) -> None:
+    """ValueError for a mesh whose `seq` axis meets an `fsdp` or `model`
+    axis: the port's sequence-parallel step replicates the params, and
+    its composition with their layout is not ported (ROADMAP A11d)."""
+    if cfg.seq > 1 and (cfg.fsdp > 1 or cfg.model > 1):
+        raise ValueError(
+            f"mesh {cfg.shape}: seq={cfg.seq} together with fsdp="
+            f"{cfg.fsdp} / model={cfg.model} is not ported yet (ROADMAP "
+            "A11d); the port composes seq with data only")
 
 
 def mesh_for_devices(n: int, data: Optional[int] = None, **axes) -> Mesh:

@@ -411,17 +411,30 @@ def make_zero_train_step(mesh, cfg, registry=None):
 def per_chip_state_bytes(mesh, state, zero_update: bool = False
                          ) -> Dict[str, int]:
     """Per-rank persistent bytes of the train state under the rules —
-    {'params', 'opt_state', 'other', 'total'}, from shapes alone (the
-    moments at the shard shape under `zero_update`, 1/data_extent of a
-    sharded leaf; the params whole)."""
-    d = zero_extent(mesh)
+    {'params', 'opt_state', 'other', 'total'}, from shapes alone (the JAX
+    function's 'params' and 'opt_state' moments): each param at its
+    storage shard (`sharding.param_spec`: its fsdp or model shard), each
+    Adam moment at its ZeRO-1 shard under `zero_update`
+    (`zero_update_spec`), else at the param's; plus the plateau scalars.
+    A sharded state (`TrainState.layout`) is read at its full shapes."""
+    from proteinbert_tpu_torch.parallel.sharding import (
+        param_spec, shard_shape, zero_update_spec,
+    )
+
+    layout = getattr(state, "layout", None)
+    params = state.params if layout is None else layout.full_meta()
     sizes = {"params": 0, "opt_state": 0, "other": 0}
-    for path, t in leaf_paths(state.params):
-        nbytes = t.numel() * t.element_size()
-        sizes["params"] += nbytes
-        dim = zero_dim(path, tuple(t.shape), mesh.shape)
-        moment = nbytes // d if zero_update and dim is not None else nbytes
-        sizes["opt_state"] += 2 * moment
+    for path, t in leaf_paths(params):
+        shape = tuple(t.shape)
+        store = param_spec(path, shape, mesh.shape)
+        moment = (zero_update_spec(path, shape, mesh.shape) if zero_update
+                  else store)
+        for part, spec, times in (("params", store, 1),
+                                  ("opt_state", moment, 2)):
+            n = 1
+            for d in shard_shape(shape, spec, mesh.shape):
+                n *= d
+            sizes[part] += times * n * t.element_size()
     plateau = state.opt_state.plateau or {}
     sizes["opt_state"] += sum(v.numel() * v.element_size()
                               for v in plateau.values())

@@ -38,15 +38,18 @@ waits for it (`flush_staged`). On the CPU the snapshot is a host copy
 already.
 
 Multi-rank runs — a `seq_group`, or a `mesh` (`parallel.mesh.Mesh`) of
-more than one rank: the params are replicated on every rank, so rank 0
-writes, synchronously, and every rank meets at a barrier; every rank
-keeps the same step list, and every rank restores from disk. Staged saves
-need a one-rank group. Under ZeRO-1 (moments at this rank's shard shape,
-`parallel/zero.py`) a save first gathers the moments to full shape across
-the mesh's data group, and a restore into a template whose moments are
-shards keeps this rank's shard: a step file is the same whether a
-replicated, a ZeRO or a one-rank run wrote it, and any of them resumes
-it.
+more than one rank: rank 0 writes, synchronously, and every rank meets at
+a barrier; every rank keeps the same step list, and every rank restores
+from disk. Staged saves need a one-rank group. A step file is always
+full-shape, whoever wrote it: under ZeRO-1 on a data-only mesh (moments
+at this rank's shard shape, `parallel/zero.py`) a save first gathers the
+moments across the replica group; on an fsdp- or model-bearing mesh (a
+state whose `layout` is set, `parallel/fsdp.py`) it gathers the params'
+fsdp and model shards and the moments' ZeRO pieces. A restore slices the
+full tensors to the template's layout: this rank's ZeRO shard of each
+moment, or through the template's `layout` its shards of everything. So
+a plain, a ZeRO, an fsdp or a model run of the same state writes the
+same file, and any of them resumes it.
 
 Restore checks every leaf's shape and dtype against the template and
 raises ValueError on a mismatch (a wrong template is a real error, never
@@ -91,6 +94,37 @@ def _map(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
     if isinstance(tree, (list, tuple)):
         return [_map(v, fn) for v in tree]
     return fn(tree) if torch.is_tensor(tree) else tree
+
+
+def _rebuild(tree: Any, leaves: List[torch.Tensor]) -> Any:
+    """`tree` with its tensors replaced, in order, by `leaves`."""
+    it = iter(leaves)
+    return _map(tree, lambda t: next(it))
+
+
+def _align_leaf_order(tree: Dict[str, Any], like: Dict[str, Any]) -> None:
+    """Put a read tree's params dicts in the template's leaf order, in
+    place, when the two hold the same leaf paths in another order (a
+    params tree built from a flat NPZ lists `blocks` last; `init` lists it
+    third), and its moment lists too where they followed the saved
+    params' order (a moment list already in the template's order, by its
+    shapes, stays)."""
+    from proteinbert_tpu_torch.parallel.sharding import leaf_paths
+
+    saved = [p for p, _ in leaf_paths(tree["params"])]
+    want = [p for p, _ in leaf_paths(like["params"])]
+    if saved == want or sorted(map(str, saved)) != sorted(map(str, want)):
+        return
+    pos = {p: i for i, p in enumerate(saved)}
+    leaves = tree_leaves(tree["params"])
+    tree["params"] = _rebuild(like["params"], [leaves[pos[p]] for p in want])
+    o = tree["opt_state"]
+    ordered = [tuple(leaves[pos[p]].shape) for p in want]
+    for k in ("mu", "nu"):
+        if len(o[k]) != len(saved) or [
+                tuple(t.shape) for t in o[k]] == ordered:
+            continue
+        o[k] = [o[k][pos[p]] for p in want]
 
 
 def _tensors(tree: Any) -> List[torch.Tensor]:
@@ -319,9 +353,25 @@ class Checkpointer:
         self._notify("save", step, saved=saved)
         return saved
 
+    def write(self, step: int, host_tree: Dict[str, Any],
+              data_state: Optional[Dict] = None) -> bool:
+        """Write a host tree in `state.pt`'s layout (`read`'s output) at
+        `step`, synchronously, from one process; False (nothing written)
+        when the directory already holds a step >= `step`."""
+        self._settle()
+        latest = self.latest_step()
+        saved = latest is None or step > latest
+        if saved:
+            self._write_step(step, host_tree, data_state)
+        self._notify("save", step, saved=saved)
+        return saved
+
     def _full_moments(self, state: TrainState) -> TrainState:
-        """The state with ZeRO-sharded moments gathered to full shape
-        (collective over the mesh's data group); as is otherwise."""
+        """The state at full shape: a sharded state's params and moments
+        gathered through its layout, ZeRO-sharded moments gathered over
+        the mesh's replica group (collective); as is otherwise."""
+        if state.layout is not None:
+            return state.layout.full_state(state)
         o = state.opt_state
         if self.world == 1 or all(
                 m.shape == p.shape
@@ -461,6 +511,15 @@ class Checkpointer:
         kind="restore_fallback", bad_step, landed_step, error)`. Exactly
         one step is ever skipped: a failure at the fallback step, an
         explicit `step`, or a single-step directory raises as itself."""
+        tree, data = self.read(step, fallback)
+        if tree is None:
+            return None, None
+        return self._state_from(tree, state_like), data
+
+    def read(self, step: Optional[int] = None, fallback: bool = True):
+        """(the step's full-shape CPU tree — `state.pt` as written —,
+        data_state) at `step` (default: the latest, with `restore`'s
+        torn-final fallback), or (None, None) for an empty directory."""
         explicit = step is not None
         steps = [step] if explicit else sorted(self.all_steps(),
                                                reverse=True)
@@ -468,7 +527,7 @@ class Checkpointer:
             return None, None
         for i, s in enumerate(steps):
             try:
-                tree, data = self._read_step(s)
+                return self._read_step(s)
             except _UNREADABLE as exc:
                 if explicit or not fallback or i > 0 or len(steps) == 1:
                     raise
@@ -477,15 +536,26 @@ class Checkpointer:
                     "falling back to the previous retained step %d",
                     s, self.directory, type(exc).__name__, exc, steps[i + 1])
                 self._note_restore_fallback(s, steps[i + 1], exc)
-                continue
-            return self._state_from(tree, state_like), data
         raise AssertionError("unreachable: the loop returns or raises")
 
     def _state_from(self, tree: Dict[str, Any],
                     like: TrainState) -> TrainState:
         like_tree = state_tree(like)
         o = tree["opt_state"]
-        if self._mesh is not None:
+        _align_leaf_order(tree, like_tree)
+        if like.layout is not None:
+            # This rank's shards of the full-shape step, through the
+            # template's layout (a tensor of another shape is left for
+            # the check below to refuse).
+            lay = like.layout
+            full = tree_leaves(tree["params"])
+            if [tuple(t.shape) for t in full] == lay.full_shapes:
+                tree["params"] = _rebuild(tree["params"], [
+                    lay.local_of(t, i) for i, t in enumerate(full)])
+                for k in ("mu", "nu"):
+                    o[k] = [lay.piece_of(lay.local_of(t, i), i)
+                            for i, t in enumerate(o[k])]
+        elif self._mesh is not None:
             # A ZeRO template: keep this rank's shard of each full moment.
             from proteinbert_tpu_torch.parallel.zero import shard_of
 
@@ -503,7 +573,7 @@ class Checkpointer:
             int(tree["step"]), _map(tree["params"], put),
             OptState(int(o["count"]), _map(o["mu"], put),
                      _map(o["nu"], put), _map(o["plateau"], put)),
-            gen)
+            gen, like.layout)
 
     def _note_restore_fallback(self, bad_step: int, landed_step: int,
                                exc: Exception) -> None:

@@ -66,10 +66,14 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
+    """`layout`: a `parallel.fsdp.MeshLayout` when the params and moments
+    are this rank's shards of a data × fsdp × model mesh (the sharded
+    step's state), else None (whole tensors)."""
     step: int
     params: Any
     opt_state: OptState
     generator: torch.Generator
+    layout: Any = None
 
 
 def gradient_update(
@@ -120,15 +124,15 @@ def corrupt_for_step(state: TrainState, batch: Dict[str, Any],
 
 
 def forward_logits(params: Any, X: Batch, W: Batch, cfg: PretrainConfig,
-                   segment_ids: Optional[torch.Tensor] = None):
+                   segment_ids: Optional[torch.Tensor] = None, tp=None):
     """(local_logits, global_logits) of a corrupted batch: dense rows under
     the training mask `W["local"] > 0`, packed rows (`segment_ids`)
-    through the packed model."""
+    through the packed model; `tp`: the GO head's tensor parallelism."""
     if segment_ids is not None:
         return proteinbert.apply(params, X["local"], X["global"], cfg.model,
-                                 segment_ids=segment_ids)
+                                 segment_ids=segment_ids, tp=tp)
     return proteinbert.apply(params, X["local"], X["global"], cfg.model,
-                             W["local"] > 0)
+                             W["local"] > 0, tp=tp)
 
 
 def loss_terms(local_logits, global_logits, Y: Batch, W: Batch,

@@ -60,27 +60,39 @@ step as the JAX timer does.
 
 `mesh` (`parallel.mesh.make_mesh`, one process a card) chooses the step
 as the JAX trainer does: the seq × data step when its seq extent is
-above 1; else ZeRO-1 (`parallel/zero.py`, or the quantized reduce-scatter
-of `parallel/quant.py` when `cfg.parallel.grad_reduce_dtype` is not
-"fp32") when `cfg.parallel.zero_update` and the replica extent is above
-1; else the replicated data-parallel step (`train_state.
+above 1 (with an fsdp or model axis as well: refused, ROADMAP A11d); the
+sharded step of `parallel/fsdp.py` when its fsdp or model extent is
+above 1 (FSDP placement, the GO head's tensor parallelism, with ZeRO-1
+under `cfg.parallel.zero_update`); else ZeRO-1 (`parallel/zero.py`, or
+the quantized reduce-scatter of `parallel/quant.py` when
+`cfg.parallel.grad_reduce_dtype` is not "fp32") when
+`cfg.parallel.zero_update` and the replica extent is above 1; else the
+replicated data-parallel step (`train_state.
 make_data_parallel_train_step`). The JAX warnings are logged when
 `zero_update` or `grad_reduce_dtype` cannot take effect.
 `cfg.data.batch_size` is the GLOBAL batch of a step, as on a single JAX
-host: the iterator of each rank yields its batch_size / data rows (a
-batch that does not split is refused), its seq ranks the same rows.
+host: the iterator of each rank yields its batch_size / (data·fsdp) rows
+(a batch that does not split is refused), its seq and model ranks the
+same rows. On the sharded step the state is this rank's shards
+(`TrainState.layout`) from the first step on; a fresh or restored state
+is cut to them before the loop.
 Every rank calls `pretrain` with the same arguments and a Checkpointer
 made with the same mesh. A preemption signal stops every rank at the
 same step: each step the ranks agree on it with one small all-reduce
 (MAX) before any of them acts on it, since the save that follows makes
-collectives. Evals corrupt each rank's rows with the rank's own draws
-and pool their sums and ranking statistics across the data group,
-`perf` counts this rank's rows, the collectives' bytes go to the telemetry registry (`collective_bytes{kind}`,
-`collective_wire_bytes{kind}`), and `run_start` carries the mesh, the
-rank count and whether ZeRO is on.
+collectives. Evals corrupt each replica's rows with the replica's own
+draws and pool their sums and ranking statistics across the joint
+replica group (data·fsdp), so a model rank's copy of its replica's rows
+is counted once; on the sharded step they read the params gathered to
+full shape. `perf` counts this rank's share of its replica's rows (the
+rows over `model`), the collectives' bytes go to the telemetry registry
+(`collective_bytes{kind}`, `collective_wire_bytes{kind}`), `run_start`
+carries the mesh, the rank count and whether ZeRO is on, and the
+`per_chip_state_bytes{part}` gauges follow the rules (params at their
+fsdp or model shard, the moments at their ZeRO shard).
 
-Left as the JAX loop's other paths: the overlapped eval bracket
-(`cfg.train.overlap_eval`; the port's eval is synchronous) and the drill
+Not ported (ROADMAP A5b): the JAX loop's overlapped eval bracket
+(`cfg.train.overlap_eval`; the port's eval is synchronous) and its drill
 knobs (`PBT_FAULT_*`).
 """
 
@@ -101,6 +113,7 @@ from proteinbert_tpu_torch.configs import PretrainConfig
 from proteinbert_tpu_torch.configs.config import config_to_dict
 from proteinbert_tpu_torch.data.prefetch import prefetch
 from proteinbert_tpu_torch.obs import as_telemetry
+from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
 from proteinbert_tpu_torch.parallel.halo import group_size
 from proteinbert_tpu_torch.parallel.seq_parallel import (
     make_seq_parallel_train_step,
@@ -353,11 +366,21 @@ def pretrain(
             raise ValueError("pass a seq_group or a mesh, not both")
         ranks = mesh.size
         rows = local_batch_size(cfg.data.batch_size, mesh.data_extent)
+        if seq_extent > 1 and mesh.sharded:
+            raise ValueError(
+                f"mesh {mesh.shape}: seq together with fsdp / model is not "
+                "ported yet (ROADMAP A11d); the port composes seq with data "
+                "only")
         if seq_extent > 1:
             step_fn = make_seq_parallel_train_step(
                 mesh.seq_group, cfg, mesh=mesh, registry=tele.metrics)
             seq_len //= seq_extent
             kind = "the sequence-parallel step"
+        elif mesh.sharded:
+            step_fn = plateau_step = make_sharded_train_step(
+                mesh, cfg, registry=tele.metrics)
+            kind = (f"the sharded step (fsdp={mesh.shape['fsdp']}, model="
+                    f"{mesh.shape['model']}{', ZeRO-1' if zero_on else ''})")
         elif zero_on:
             step_fn = plateau_step = make_zero_train_step(
                 mesh, cfg, registry=tele.metrics)
@@ -379,7 +402,8 @@ def pretrain(
         raise ValueError(
             f"the checkpointer is shared by {checkpointer.world} ranks, the "
             f"run has {ranks}: make it with the run's mesh (or seq_group)")
-    eval_group = None if mesh is None else mesh.data_group
+    eval_group = None if mesh is None else mesh.replica_group
+    layout_for = getattr(step_fn, "layout_for", None)
     stop_group = (None if ranks == 1 else
                   dist.group.WORLD if mesh is not None else seq_group)
 
@@ -393,6 +417,8 @@ def pretrain(
     if state is None:
         state = ts.create_train_state(
             torch.Generator().manual_seed(cfg.train.seed), cfg, device)
+        if layout_for is not None:   # the restore template: this rank's
+            state = layout_for(state).shard_state(state)
         if checkpointer is not None and checkpointer.latest_step() is not None:
             if tele.enabled:
                 checkpointer.on_note = lambda **f: tele.emit("note", **f)
@@ -422,6 +448,17 @@ def pretrain(
                 "stalled": stalled_evals,
             }
         return d
+
+    if layout_for is not None:
+        state = layout_for(state).shard_state(state)
+
+    def eval_state():
+        """The state the evals read: the params at full shape."""
+        if state.layout is None:
+            return state
+        return ts.TrainState(state.step,
+                             state.layout.full_params(state.params),
+                             state.opt_state, state.generator)
 
     if callable(batch_iterator):
         batch_iterator = batch_iterator(batches_consumed)
@@ -463,7 +500,8 @@ def pretrain(
     if eval_keyed_plateau and not np.isfinite(last_eval_loss):
         # One eval before the first step seeds the plateau stream, so
         # every observed value is eval-scale (JAX trainer.py:326-344).
-        em = evaluate(state, eval_batches(), cfg, start_step, eval_group)
+        em = evaluate(eval_state(), eval_batches(), cfg, start_step,
+                      eval_group)
         last_eval_loss = np.float32(em["eval_loss"])
         best_eval_loss = min(best_eval_loss, float(em["eval_loss"]))
         history.append({"step": start_step, **em})
@@ -485,7 +523,9 @@ def pretrain(
             logger.warning("warm-start save at step %d was skipped by "
                            "the checkpointer", start_step)
 
-    timer = StepTimer(cfg.model, rows, seq_len, device)
+    # A model rank counts its share of its replica's rows.
+    timer = StepTimer(cfg.model, rows if mesh is None
+                      else rows / mesh.shape["model"], seq_len, device)
     preempted = False
     early_stopped = False
     diagnostic_saved = False
@@ -639,8 +679,8 @@ def pretrain(
                 timer.sync()
                 t_eval = time.perf_counter()
                 with tele.span("eval_bracket", step=step + 1):
-                    em = evaluate(state, eval_batches(), cfg, step + 1,
-                                  eval_group)
+                    em = evaluate(eval_state(), eval_batches(), cfg,
+                                  step + 1, eval_group)
                 timer.discount(time.perf_counter() - t_eval)
                 history.append({"step": step + 1, **em})
                 tele.emit("eval", step=step + 1, metrics=em)

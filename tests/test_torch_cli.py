@@ -30,9 +30,7 @@ from proteinbert_tpu.cli.main import build_parser as jax_parser
 from proteinbert_tpu.cli.main import main as jmain
 from proteinbert_tpu.configs import load_config as jax_load_config
 from proteinbert_tpu.configs import save_config as jax_save_config
-from proteinbert_tpu_torch.cli.main import (
-    NO_CARD, REFUSED_FLAGS, REFUSED_VERBS,
-)
+from proteinbert_tpu_torch.cli.main import NO_CARD, REFUSED_FLAGS
 from proteinbert_tpu_torch.cli.main import build_parser as port_parser
 from proteinbert_tpu_torch.cli.main import main as pmain
 from proteinbert_tpu_torch.configs import (
@@ -45,8 +43,8 @@ TOL = 1e-5
 TSV_TOL = 1e-4
 SEQS = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 3, "GG",
         "MKT?YIAK?RQIS", "W" * 40]
-# JAX verbs the port does not have yet (ROADMAP A11c).
-NOT_YET = {"reshard"}
+# JAX verbs the port does not have yet.
+NOT_YET = set()
 # Options of a JAX verb the port refuses (REFUSED_FLAGS) instead of taking.
 REMOVED = {"serve": {"--mesh", "--compile-cache-dir"},
            "fleet": {"--compile-cache-dir"}}
@@ -464,7 +462,7 @@ def _bad_npz(runs):
 @pytest.mark.parametrize("case", [
     "orbax", "mesh", "mesh-long", "geometry", "malformed", "platform",
     "multihost", "serve-mesh", "serve-cache", "fleet-cache", "no-card",
-    "mesh-large", "reshard"])
+    "mesh-large", "reshard", "seq-fsdp"])
 def test_refusals(runs, case, tmp_path, monkeypatch):
     out = str(tmp_path / "o")
     if case == "orbax":
@@ -473,7 +471,7 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
         match = "not a port run directory.*export-weights.*import-weights"
     elif case in ("mesh", "mesh-long", "mesh-large"):
         # One process: a mesh of several devices is refused with the JAX
-        # message; the fsdp / model axes wait for ROADMAP A11c.
+        # message and the way to launch it.
         preset = {"mesh": "base", "mesh-long": "long",
                   "mesh-large": "large"}[case]
         argv = ["--device", "cpu", "pretrain", "--preset", preset,
@@ -481,7 +479,8 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
         match = {"mesh": "wants 16 devices, have 1: launch 16 processes.*"
                          "--multihost.*--set mesh.data=1",
                  "mesh-long": "--set mesh.data=1 --set mesh.seq=1",
-                 "mesh-large": "model=4.*ROADMAP A11c.*--set mesh.data=1 "
+                 "mesh-large": "wants 256 devices, have 1: launch 256 "
+                               "processes.*--multihost.*--set mesh.data=1 "
                                "--set mesh.model=1"}[case]
     elif case == "multihost":
         # Asked for and not findable: the JAX error, not N lone runs.
@@ -492,8 +491,19 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
                 "tiny", "--checkpoint-dir", out]
         match = "multi-host initialization was requested but failed"
     elif case == "reshard":
-        argv = ["--device", "cpu", "reshard", "--src", "a", "--output", out]
-        match = __import__("re").escape(REFUSED_VERBS["reshard"])
+        # A target mesh that does not parse: the JAX verb's text.
+        argv = ["reshard", "--src", "a", "--output", out, "--target-mesh",
+                "0x2"]
+        with pytest.raises(SystemExit) as jax_exit:
+            jmain(argv)
+        assert str(jax_exit.value).startswith("--target-mesh: mesh axis")
+        match = __import__("re").escape(str(jax_exit.value))
+        argv = ["--device", "cpu", *argv]
+    elif case == "seq-fsdp":
+        argv = ["--device", "cpu", "pretrain", "--preset", "tiny",
+                "--set", "mesh.seq=2", "--set", "mesh.fsdp=2",
+                "--checkpoint-dir", out]
+        match = "seq=2 together with fsdp=2.*ROADMAP A11d"
     elif case in ("geometry", "malformed"):
         weights = runs.npz if case == "geometry" else _bad_npz(runs)
         sets = ["--set=model.local_dim=64"] if case == "geometry" else []
@@ -529,6 +539,43 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
 
 
 # ----------------------------------------------------- the other verbs
+
+def test_reshard_in_process_as_the_jax_verb(runs, capsys):
+    """`reshard --target-mesh 1` of each package's pretrain run: exit 0,
+    one JSON summary with the JAX verb's keys, kind and parity, the
+    target mesh in each output's config.json alike; the port's step
+    directory a byte copy of its source's, and its `reshard` event
+    valid."""
+    from proteinbert_tpu_torch.obs import read_events
+
+    out, events = runs.d / "p_resharded", runs.d / "reshard.jsonl"
+    summaries = []
+    for run, src, dst in ((jax, runs.jrun, runs.d / "j_resharded"),
+                          (port, runs.ptrain, out)):
+        capsys.readouterr()
+        argv = ["reshard", "--src", src, "--output", dst, "--target-mesh",
+                "1"]
+        if run is port:
+            argv += ["--events-jsonl", events]
+        assert run(*argv) == 0
+        line = [t for t in capsys.readouterr().out.splitlines()
+                if t.startswith("{")][-1]
+        summaries.append(json.loads(line))
+    want, got = summaries
+    assert set(got) == set(want)
+    for k in ("step", "source_mesh", "target_mesh", "zero_update",
+              "schedule", "parity"):
+        assert got[k] == want[k], k
+    assert got["schedule"] == "identity" and got["parity"] is True
+    assert json.loads((runs.d / "j_resharded" / "config.json").read_text())[
+        "mesh"] == json.loads((out / "config.json").read_text())["mesh"]
+    step = str(got["step"])
+    assert (out / step / "state.pt").read_bytes() == (
+        runs.ptrain / step / "state.pt").read_bytes()
+    (ev,) = [e for e in read_events(str(events), strict=True)
+             if e["event"] == "reshard"]
+    assert ev["wire_bytes"]["total"] == 0 and ev["step"] == got["step"]
+
 
 def test_smoke_with_a_profile_dir(tmp_path):
     assert port("smoke", "--max-steps", 2, "--set", "train.log_every=1",

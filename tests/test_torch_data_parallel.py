@@ -427,26 +427,37 @@ def test_multihost_environment(case, clean_env):
 
 # ------------------------------------------------------------ refusals
 
-@pytest.mark.parametrize("case", ["size", "fsdp", "model", "rule"])
+@pytest.mark.parametrize("case", ["size", "fsdp", "model", "rule",
+                                  "seq-fsdp"])
 def test_mesh_refusals(case):
-    if case == "rule":   # the ZeRO rule knows data-only meshes alone
-        with pytest.raises(ValueError, match="fsdp > 1.*ROADMAP A11c"):
-            sharding.zero_update_spec(("embedding",), (26, 128),
-                                      {"data": 2, "fsdp": 2})
+    """One process: a mesh of more devices than the world is refused with
+    the JAX message, word for word, whatever its axes; the ZeRO rule at
+    data=2 x fsdp=2 is JAX's; seq with fsdp waits for ROADMAP A11d."""
+    if case == "rule":
+        mesh = types.SimpleNamespace(
+            shape={"data": 2, "fsdp": 2, "model": 1, "seq": 1})
+        for shape in ((26, 128), (64, 32), (9, 32, 32), (32,), (6, 3)):
+            leaf = jax.ShapeDtypeStruct(shape, jnp.float32)
+            path = (jax.tree_util.DictKey("global_in"),
+                    jax.tree_util.DictKey("kernel"))
+            want = tuple(j_zero_update_spec(path, leaf, mesh))
+            got = sharding.zero_update_spec(("global_in", "kernel"), shape,
+                                            mesh.shape)
+            assert got == want + (None,) * (len(got) - len(want)), shape
         return
-    cfg = {"size": jconfigs.MeshConfig(data=2),
-           "fsdp": tconfigs.MeshConfig(fsdp=2),
-           "model": tconfigs.MeshConfig(model=4)}[case]
-    if case == "size":
-        # The JAX message, word for word.
-        with pytest.raises(ValueError) as want:
-            j_make_mesh(cfg, jax.devices()[:1])
-        with pytest.raises(ValueError) as got:
-            make_mesh(tconfigs.MeshConfig(data=2))
-        assert str(got.value) == str(want.value)
+    if case == "seq-fsdp":
+        with pytest.raises(ValueError, match="seq=2 together with fsdp=2.*"
+                                             "ROADMAP A11d"):
+            make_mesh(tconfigs.MeshConfig(seq=2, fsdp=2))
         return
-    with pytest.raises(ValueError, match=f"{case}=.*ROADMAP A11c"):
-        make_mesh(cfg)
+    kw = {"size": dict(data=2), "fsdp": dict(fsdp=2),
+          "model": dict(model=4)}[case]
+    # The JAX message, word for word.
+    with pytest.raises(ValueError) as want:
+        j_make_mesh(jconfigs.MeshConfig(**kw), jax.devices()[:1])
+    with pytest.raises(ValueError) as got:
+        make_mesh(tconfigs.MeshConfig(**kw))
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("case", ["payload", "no-replicas", "model", "seq",

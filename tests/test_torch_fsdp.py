@@ -1,0 +1,349 @@
+"""The port's sharded step on a data × fsdp × model mesh (`parallel/
+fsdp.py`, `parallel/tensor_parallel.py`), its full-shape checkpoints,
+`reshard_checkpoint` and `seq_parallel_conv1d`, on the CPU against the
+JAX package on the same numpy-made inputs and weights.
+
+Two spawned gloo groups (`tests/torch_mesh_child.py`) meet through a
+FileStore under a temporary directory, each bounded by its own timeout:
+- group A, four ranks at data=1 x fsdp=2 x model=2 with A = 64 (so the
+  GO head splits into 32 columns a model rank): one step, plain and with
+  ZeRO-1, against JAX `train_step` / `make_zero_train_step` on
+  `make_mesh(MeshConfig(fsdp=2, model=2))` — loss rel 2e-5 and params
+  atol 2e-5, the tolerances of tests/test_parallel.py, float32; the model
+  replicas' replicated leaves bit for bit; rank 0's step file tensor by
+  tensor a one-process save of the gathered state; then the same ranks
+  at data=2 x fsdp=2 with ZeRO-1 (the moments cut again over data inside
+  each fsdp shard) against JAX's ZeRO-1 step on that mesh;
+- group B, two ranks at fsdp=2: three steps with a checkpoint at step 2,
+  `reshard_checkpoint` of that step to one device (parity, the event),
+  and a one-process resume whose step-3 loss is the fsdp run's within
+  1e-5, as is the fsdp run's pooled eval at step 3 against one process's
+  eval of the same rows; then `seq_parallel_conv1d` on a seq=2 mesh of
+  the same ranks
+  against the JAX function within atol 1e-5.
+The corruption is the identity (so that the JAX key and the port's
+generator draw alike).
+"""
+
+import functools
+import json
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from proteinbert_tpu import configs as jconfigs
+from proteinbert_tpu.export import flatten_params
+from proteinbert_tpu.models import proteinbert as jmodel
+from proteinbert_tpu.parallel import (
+    batch_sharding, make_mesh as j_make_mesh, shard_train_state,
+)
+from proteinbert_tpu.parallel import zero as jzero
+from proteinbert_tpu.parallel.halo import (
+    seq_parallel_conv1d as j_seq_parallel_conv1d,
+)
+from proteinbert_tpu.train import train_state as jts
+from proteinbert_tpu.train.schedule import make_optimizer as j_make_opt
+from proteinbert_tpu_torch import configs as tconfigs
+from proteinbert_tpu_torch.obs import Telemetry, read_events
+from proteinbert_tpu_torch.parallel.reshard import (
+    parse_mesh_spec, reshard_checkpoint,
+)
+from proteinbert_tpu_torch.parallel.sharding import leaf_paths
+from proteinbert_tpu_torch.train import Checkpointer
+from proteinbert_tpu_torch.train import train_state as tts
+from proteinbert_tpu_torch.train.schedule import OptState
+from proteinbert_tpu_torch.train.trainer import pretrain
+from proteinbert_tpu_torch.weights import params_from_flat
+from tests import torch_mesh_child
+from tests.test_torch_data_parallel import IDENTITY, MODEL, _spawn, _tokens
+
+torch.set_num_threads(1)
+
+CONSTANT = dict(schedule="constant", learning_rate=1e-4, warmup_steps=0,
+                weight_decay=0.01, grad_clip_norm=0.1)
+STEP = {"data": dict(seq_len=32, batch_size=8, **IDENTITY),
+        "optimizer": CONSTANT, "mesh": {"fsdp": 2, "model": 2}}
+SPEC = {
+    "model": MODEL,
+    "plain": STEP,
+    "zero": dict(STEP, parallel=dict(zero_update=True)),
+    # ZeRO-1 pieces cut from the fsdp shards over a data axis of 2.
+    "zero_dp": dict(STEP, mesh={"data": 2, "fsdp": 2},
+                    parallel=dict(zero_update=True)),
+    "resume": {"data": dict(seq_len=32, batch_size=8, **IDENTITY),
+               "optimizer": dict(CONSTANT, learning_rate=1e-3),
+               "mesh": {"fsdp": 2},
+               "train": dict(max_steps=3, log_every=1, eval_every=3),
+               "checkpoint": dict(every_steps=2, async_save=False),
+               "batches": 3},
+    "conv_dilation": 5,
+}
+TAGS = ("plain", "zero", "zero_dp")
+LOSS_REL = 2e-5
+PARAMS_ATOL = 2e-5
+
+
+def _cfg(mod, name):
+    c = SPEC[name]
+    return mod.PretrainConfig(
+        model=mod.ModelConfig(**MODEL),
+        data=mod.DataConfig(**c["data"]),
+        optimizer=mod.OptimizerConfig(**c["optimizer"]),
+        mesh=mod.MeshConfig(**c["mesh"]),
+        parallel=mod.ParallelConfig(**c.get("parallel", {})),
+        train=mod.TrainConfig(**c.get("train", {})),
+        checkpoint=mod.CheckpointConfig(**c.get("checkpoint", {})))
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_params():
+    cfg = jconfigs.ModelConfig(**MODEL)
+    return jax.jit(lambda key: jmodel.init(key, cfg))(jax.random.PRNGKey(0))
+
+
+def _jax_state(cfg):
+    params = jax.tree.map(jnp.array, _jax_params())   # the step donates
+    return jts.TrainState(step=jnp.int32(0), params=params,
+                          opt_state=j_make_opt(cfg.optimizer).init(params),
+                          key=jax.random.PRNGKey(0))
+
+
+def _inputs(out, arrays):
+    (out / "spec.json").write_text(json.dumps(SPEC))
+    flat = flatten_params(_jax_params())
+    np.savez(out / "inputs.npz", **{f"p:{k}": v for k, v in flat.items()},
+             **arrays)
+
+
+@pytest.fixture(scope="module")
+def group_a(tmp_path_factory):
+    """Four ranks at fsdp=2 x model=2 (`torch_mesh_child.fsdp_model`), and
+    JAX's plain and ZeRO-1 steps on that mesh from the same state."""
+    out = tmp_path_factory.mktemp("mesh_a")
+    tokens, ann = _tokens(np.random.default_rng(20), 8, 32)
+    _inputs(out, {"tokens": tokens, "annotations": ann})
+    t0 = time.perf_counter()
+    ranks = _spawn(torch_mesh_child.fsdp_model, 4, out)
+    print(f"spawn {time.perf_counter() - t0:.1f} s")
+    want = {}
+    for tag in TAGS:
+        jcfg = _cfg(jconfigs, tag)
+        mesh = j_make_mesh(jcfg.mesh, jax.devices()[:4])
+        bsh = batch_sharding(mesh)
+        batch = {k: jax.device_put(v, bsh[k])
+                 for k, v in (("tokens", tokens), ("annotations", ann))}
+        zero = jcfg.parallel.zero_update
+        state = shard_train_state(_jax_state(jcfg), mesh, zero_update=zero)
+        step = (jzero.make_zero_train_step(mesh, jcfg) if zero
+                else functools.partial(jts.train_step, cfg=jcfg))
+        new, m = step(state, batch)
+        want[tag] = (float(m["loss"]), float(m["grad_norm"]),
+                     flatten_params(jax.device_get(new.params)))
+    return ranks, want, out
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_sharded_step_matches_jax(group_a, tag):
+    """Every rank's loss and gathered params after one step against JAX's
+    step on the same mesh; the GO head really split (32 of 64 columns a
+    model rank) where the mesh has a model axis; the step moved the
+    params."""
+    ranks, want, _ = group_a
+    loss, norm, params = want[tag]
+    flat0 = flatten_params(_jax_params())
+    cols = 32 if SPEC[tag]["mesh"].get("model", 1) == 2 else -1
+    for r in ranks:
+        assert int(r[f"{tag}:tp_cols"]) == cols
+        assert float(r[f"{tag}:loss"]) == pytest.approx(loss, rel=LOSS_REL)
+        assert float(r[f"{tag}:grad_norm"]) == pytest.approx(norm, rel=1e-4)
+        for k, v in params.items():
+            np.testing.assert_allclose(r[f"{tag}:p:{k}"], np.asarray(v),
+                                       atol=PARAMS_ATOL, err_msg=k)
+    moved = max(float(np.abs(ranks[0][f"{tag}:p:{k}"] - v).max())
+                for k, v in flat0.items())
+    assert moved > 5e-5
+
+
+@pytest.mark.parametrize("tag", ["plain", "zero"])
+def test_model_replicas_stay_bit_identical(group_a, tag):
+    """Ranks (f, m=0) and (f, m=1) hold the same rows: every stored tensor
+    the model axis does not shard, and its moment, bit for bit; the
+    model-sharded ones differ (different columns)."""
+    ranks, _, _ = group_a
+    n = sum(1 for k in ranks[0] if k.startswith(f"{tag}:local:"))
+    split = 0
+    for f in (0, 1):
+        a, b = ranks[2 * f], ranks[2 * f + 1]
+        for i in range(n):
+            if str(a[f"{tag}:stored:{i}"]) == "model":
+                split += 1
+                assert not np.array_equal(a[f"{tag}:local:{i}"],
+                                          b[f"{tag}:local:{i}"])
+                continue
+            np.testing.assert_array_equal(a[f"{tag}:local:{i}"],
+                                          b[f"{tag}:local:{i}"])
+            np.testing.assert_array_equal(a[f"{tag}:mu_local:{i}"],
+                                          b[f"{tag}:mu_local:{i}"])
+    assert split == 2 * 3   # global_head kernel and bias, global_in kernel
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_step_file_equals_a_one_process_save(group_a, tag, tmp_path):
+    """Rank 0's step file (the shards and ZeRO pieces gathered before the
+    write) against a one-process Checkpointer's save of the gathered
+    state: the same tree, tensor by tensor."""
+    ranks, _, out = group_a
+    r0 = ranks[0]
+    cfg = _cfg(tconfigs, tag)
+    params = params_from_flat({k[len(f"{tag}:p:"):]: v for k, v in r0.items()
+                               if k.startswith(f"{tag}:p:")}, cfg.model,
+                              device="cpu")
+    moments = {name: [torch.from_numpy(r0[f"{tag}:{name}:{i}"])
+                      for i in range(len(list(leaf_paths(params))))]
+               for name in ("mu", "nu")}
+    gen = torch.Generator()
+    gen.set_state(torch.from_numpy(r0[f"{tag}:generator"]))
+    state = tts.TrainState(1, params, OptState(int(r0[f"{tag}:count"]),
+                                               moments["mu"], moments["nu"],
+                                               None), gen)
+    ck = Checkpointer(str(tmp_path / "one"), async_save=False)
+    assert ck.save(1, state)
+    ck.close()
+    got = torch.load(out / f"ck_{tag}" / "1" / "state.pt", weights_only=True)
+    want = torch.load(tmp_path / "one" / "1" / "state.pt", weights_only=True)
+
+    def walk(a, b, path):
+        assert type(a) is type(b), path
+        if isinstance(a, dict):
+            assert list(a) == list(b), path
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), path
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}/{i}")
+        elif torch.is_tensor(a):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+        else:
+            assert a == b, path
+
+    walk(got, want, "")
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_stored_bytes_are_per_chip_state_bytes(group_a, tag):
+    """What each rank stores between steps is `per_chip_state_bytes` of
+    the rules: the params at their fsdp or model shard, the moments at
+    the ZeRO shard (less than the params' under ZeRO-1)."""
+    from proteinbert_tpu_torch.parallel.mesh import Mesh
+    from proteinbert_tpu_torch.parallel.zero import per_chip_state_bytes
+
+    ranks, _, _ = group_a
+    cfg = _cfg(tconfigs, tag)
+    params = params_from_flat(
+        {k[len("p:"):]: v for k, v in np.load(
+            group_a[2] / "inputs.npz").items() if k.startswith("p:")},
+        cfg.model, device="cpu")
+    full = tts.TrainState(0, params, tts.make_optimizer(
+        cfg.optimizer).init(params), torch.Generator())
+    mesh = Mesh(shape=dict(cfg.mesh.__dict__), rank=0,
+                coords={"data": 0, "fsdp": 0, "model": 0, "seq": 0})
+    want = per_chip_state_bytes(mesh, full,
+                                zero_update=cfg.parallel.zero_update)
+    for r in ranks:
+        p = sum(v.nbytes for k, v in r.items()
+                if k.startswith(f"{tag}:local:"))
+        m = sum(v.nbytes for k, v in r.items()
+                if k.startswith(f"{tag}:mu_local:"))
+        assert p == want["params"] and 2 * m == want["opt_state"]
+        if cfg.parallel.zero_update:
+            assert m < p
+
+
+@pytest.fixture(scope="module")
+def group_b(tmp_path_factory):
+    """Two ranks at fsdp=2 (`torch_mesh_child.fsdp_resume`)."""
+    out = tmp_path_factory.mktemp("mesh_b")
+    rng = np.random.default_rng(21)
+    arrays = {}
+    for b in range(SPEC["resume"]["batches"]):
+        t, a = _tokens(rng, 8, 32)
+        arrays.update({f"resume{b}:tokens": t, f"resume{b}:annotations": a})
+    t, a = _tokens(rng, 8, 32)
+    arrays.update({"eval:tokens": t, "eval:annotations": a})
+    arrays["conv:x"] = rng.standard_normal((4, 16, 3)).astype(np.float32)
+    arrays["conv:kernel"] = rng.standard_normal((9, 3, 3)).astype(np.float32)
+    arrays["conv:bias"] = rng.standard_normal(3).astype(np.float32)
+    _inputs(out, arrays)
+    t0 = time.perf_counter()
+    ranks = _spawn(torch_mesh_child.fsdp_resume, 2, out)
+    print(f"spawn {time.perf_counter() - t0:.1f} s")
+    return ranks, out, arrays
+
+
+def test_fsdp_checkpoint_reshards_to_one_device_and_resumes(group_b,
+                                                            tmp_path):
+    ranks, out, arrays = group_b
+    losses = ranks[0]["resume:losses"]
+    np.testing.assert_array_equal(losses, ranks[1]["resume:losses"])
+    assert list(ranks[0]["resume:steps"]) == [2, 3]
+    cfg = _cfg(tconfigs, "resume")
+    events = tmp_path / "ev.jsonl"
+    tele = Telemetry(events_path=str(events))
+    summary = reshard_checkpoint(str(out / "ck"), str(tmp_path / "one"),
+                                 cfg=cfg, target_mesh_cfg=parse_mesh_spec("1"),
+                                 step=2, telemetry=tele)
+    tele.close()
+    assert summary["parity"] is True and summary["step"] == 2
+    assert summary["schedule"] == "host_staged"
+    assert summary["source_mesh"]["fsdp"] == 2
+    assert summary["target_mesh"] == {"data": 1, "fsdp": 1, "model": 1,
+                                      "seq": 1}
+    (ev,) = [e for e in read_events(str(events), strict=True)
+             if e["event"] == "reshard"]
+    assert ev["wire_bytes"]["total"] == 0 and ev["parity"] is True
+    saved = torch.load(tmp_path / "one" / "2" / "state.pt",
+                       weights_only=True)
+    for mu, p in zip(saved["opt_state"]["mu"],
+                     list(t for _, t in leaf_paths(saved["params"]))):
+        assert mu.shape == p.shape
+    one = cfg.replace(mesh=tconfigs.MeshConfig())
+    batches = [{k: arrays[f"resume{b}:{k}"] for k in ("tokens",
+                                                       "annotations")}
+               for b in range(3)]
+    ck = Checkpointer(str(tmp_path / "one"), async_save=False)
+    run = pretrain(one, lambda skip: iter(batches[skip:]), checkpointer=ck,
+                   device="cpu")
+    ck.close()
+    got = [h["loss"] for h in run["history"]]
+    assert len(got) == 1
+    assert abs(got[0] - float(losses[2])) <= 1e-5
+    # The fsdp run's eval at step 3 (params gathered to full shape, each
+    # replica its half of the batch, pooled over the replica group) is one
+    # process's eval of the same halves with the resumed params.
+    from proteinbert_tpu_torch.train.trainer import evaluate_batches
+
+    halves = [{k: arrays[f"eval:{k}"][h * 4:(h + 1) * 4]
+               for k in ("tokens", "annotations")} for h in (0, 1)]
+    want, n, rows = evaluate_batches(
+        run["state"], iter(halves), one, lambda b: torch.Generator())
+    assert (n, rows) == (2, 8)
+    for r in ranks:
+        (eval_loss,) = r["resume:eval_loss"]
+        assert abs(float(eval_loss) - want["loss"]) <= 1e-5
+
+
+def test_seq_parallel_conv1d_matches_jax(group_b):
+    ranks, _, arrays = group_b
+    mesh = j_make_mesh(jconfigs.MeshConfig(seq=2), jax.devices()[:2])
+    params = {k: jnp.asarray(arrays[f"conv:{k}"]) for k in ("kernel", "bias")}
+    want = np.asarray(j_seq_parallel_conv1d(
+        mesh, params, jnp.asarray(arrays["conv:x"]),
+        dilation=SPEC["conv_dilation"]))
+    for s, r in enumerate(ranks):
+        np.testing.assert_allclose(r["conv:y"], want[:, s * 8:(s + 1) * 8],
+                                   atol=1e-5)

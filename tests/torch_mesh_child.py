@@ -1,0 +1,119 @@
+"""Ranks of the port's mesh CPU tests (spawned by tests/test_torch_fsdp.py,
+as tests/torch_dp_child.py is for the data-parallel ones). Each rank joins
+a gloo process group through a FileStore, runs its cases on its rows of
+the batches in `inputs.npz` and writes `<out>/rank<r>.npz`. Imports
+torch, numpy and the port only."""
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tests.torch_dp_child import _flat, _params_flat, _rows, _spec
+from tests.torch_seq_child import _join, _save
+
+
+def _fresh_state(cfg, arrays):
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.schedule import make_optimizer
+    from proteinbert_tpu_torch.weights import params_from_flat
+
+    params = params_from_flat(_flat(arrays, "p:"), cfg.model, device="cpu")
+    return ts.TrainState(0, params, make_optimizer(cfg.optimizer).init(
+        params), torch.Generator().manual_seed(0))
+
+
+def fsdp_model(rank: int, world: int, store: str, out: str) -> None:
+    """data=1 x fsdp=2 x model=2, plain and with ZeRO-1, then data=2 x
+    fsdp=2 with ZeRO-1: one sharded step from the JAX params on this
+    replica's rows; the full-shape state after it (params and moments,
+    gathered), this rank's stored tensors, and a step file written by the
+    mesh's Checkpointer."""
+    from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.train import Checkpointer
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+
+    _join(rank, world, store)
+    spec, cfg_of, arrays = _spec(out)
+    res = {}
+    for tag in ("plain", "zero", "zero_dp"):
+        cfg = cfg_of(tag)
+        mesh = make_mesh(cfg.mesh)
+        batch = {k: _rows(arrays[k], mesh.data_index, mesh.data_extent)
+                 for k in ("tokens", "annotations")}
+        step = make_sharded_train_step(mesh, cfg)
+        state, m = step(_fresh_state(cfg, arrays), batch)
+        layout = state.layout
+        res[f"{tag}:loss"] = np.asarray(float(m["loss"]))
+        res[f"{tag}:grad_norm"] = np.asarray(float(m["grad_norm"]))
+        res[f"{tag}:tp_cols"] = np.asarray(
+            -1 if layout.tp is None else layout.tp.cols)
+        for i, t in enumerate(tree_leaves(state.params)):
+            res[f"{tag}:local:{i}"] = t.numpy()
+            res[f"{tag}:stored:{i}"] = np.asarray(
+                layout.plans[i].store[0] if layout.plans[i].store else "")
+        for i, t in enumerate(state.opt_state.mu):
+            res[f"{tag}:mu_local:{i}"] = t.numpy()
+        full = layout.full_state(state)
+        res.update({f"{tag}:p:{k}": v
+                    for k, v in _params_flat(full.params).items()})
+        for name in ("mu", "nu"):
+            for i, t in enumerate(getattr(full.opt_state, name)):
+                res[f"{tag}:{name}:{i}"] = t.numpy()
+        res[f"{tag}:count"] = np.asarray(full.opt_state.count)
+        res[f"{tag}:generator"] = full.generator.get_state().numpy()
+        ck = Checkpointer(os.path.join(out, f"ck_{tag}"), async_save=False,
+                          mesh=mesh)
+        assert ck.save(int(state.step), state)
+        ck.close()
+    _save(out, rank, **res)
+    dist.destroy_process_group()
+
+
+def fsdp_resume(rank: int, world: int, store: str, out: str) -> None:
+    """fsdp=2: `pretrain` for 3 steps with a checkpoint at step 2 and an
+    eval of this replica's rows at step 3; then,
+    on a seq=2 mesh of the same ranks, `seq_parallel_conv1d` of one array
+    (this rank's block of the output)."""
+    from proteinbert_tpu_torch.configs import MeshConfig
+    from proteinbert_tpu_torch.parallel.halo import seq_parallel_conv1d
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.train import Checkpointer
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    _join(rank, world, store)
+    spec, cfg_of, arrays = _spec(out)
+    cfg = cfg_of("resume")
+    mesh = make_mesh(cfg.mesh)
+    batches = [{k: arrays[f"resume{b}:{k}"] for k in ("tokens",
+                                                       "annotations")}
+               for b in range(int(spec["resume"]["batches"]))]
+
+    def factory(skip):
+        return iter([{k: _rows(v, mesh.data_index, mesh.data_extent)
+                      for k, v in b.items()} for b in batches[skip:]])
+
+    evals = {k: _rows(arrays[f"eval:{k}"], mesh.data_index, mesh.data_extent)
+             for k in ("tokens", "annotations")}
+    ck = Checkpointer(os.path.join(out, "ck"), async_save=False, mesh=mesh)
+    run = pretrain(cfg, factory, checkpointer=ck, device="cpu", mesh=mesh,
+                   state=_fresh_state(cfg, arrays),
+                   eval_batches=lambda: iter([evals]))
+    res = {"resume:losses": np.asarray([h["loss"] for h in run["history"]
+                                        if "loss" in h]),
+           "resume:eval_loss": np.asarray([h["eval_loss"]
+                                           for h in run["history"]
+                                           if "eval_loss" in h]),
+           "resume:steps": np.asarray(ck.all_steps())}
+    ck.close()
+
+    smesh = make_mesh(MeshConfig(seq=2))
+    params = {k: torch.from_numpy(arrays[f"conv:{k}"])
+              for k in ("kernel", "bias")}
+    y = seq_parallel_conv1d(smesh, params, torch.from_numpy(arrays["conv:x"]),
+                            dilation=int(spec["conv_dilation"]))
+    res["conv:y"] = y.numpy()
+    _save(out, rank, **res)
+    dist.destroy_process_group()
