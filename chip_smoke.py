@@ -22,6 +22,8 @@ card.
                                             # profiling helpers on base steps
     python3 chip_smoke.py --phase mesh      # FSDP, the GO head's tensor
                                             # parallelism, reshard
+    python3 chip_smoke.py --phase eval      # the trainer's eval brackets
+                                            # and the drill knobs
     python3 chip_smoke.py --cli-first       # the full run, with the cli
                                             # phase once more up front
 
@@ -172,7 +174,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               Counts are zeroed before each run.
 6. resume   — `resume_phase`: a pretraining run that survives, through
               `pretrain(..., checkpointer=, telemetry=)`: `large` dense at
-              full depth and width (B=8, L=1024, 6 steps, saves every 3)
+              full width and 6 of its 12 blocks (`RESUME_LARGE_BLOCKS`;
+              B=8, L=1024, 6 steps, saves every 3)
               and `base` packed (B=8, L=512, 4 steps, saves every 2), each
               run at peak LR uninterrupted with synchronous saves, then
               with staged saves and SIGTERM from log_fn (step 4 / 2), then
@@ -394,7 +397,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               all-gather / reduce-scatter wire bytes a step), then 3
               float32 steps at depth 2 under deterministic cuDNN with a
               checkpoint at step 2, whose losses must be the one-process
-              loop's on the same rows within 2e-5; (b) model=3 on three
+              loop's on the same rows within 2e-5; the same two ranks then
+              train with ZeRO-1 and the quantized reduce-scatter
+              (`grad_reduce_dtype` int8, then bf16) at full depth, 3
+              bf16 steps through `pretrain` (the launch and state-byte
+              gates of the fp32 leg; gradient-reduction wire bytes at
+              most 0.27 / 0.52 of the fp32 reduce-scatter's), and at
+              depth 2 in float32, 2 steps of the fp32 sharded step and of
+              each payload (fp32, bf16, int8) from one seed: each
+              payload's params within 1e-6 / 5e-4 / 1e-3 of the fp32
+              step's, its gradient norms within 1e-6 / 2e-4 / 5e-4 and
+              each leaf's first moments within 1e-6 / 5e-3 / 2.5e-2 of
+              that step's (relative), the ranks alike; (b) model=3 on three
               ranks, 3 bf16 steps at full depth: 2981 GO columns a rank,
               the replicated leaves' digests equal across ranks after the
               steps, the losses the one-process loop's within 5e-3, then 3
@@ -404,7 +418,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               subprocess (exit 0, parity true, a valid `reshard` event),
               resumed by one process on the card: its step 3 the fsdp
               run's within 2e-5. `# mesh large ...` lines.
-15. report  — the kernel JSON line, the card's name and power limit, and the
+15. eval    — the trainer's eval bracket (`eval_phase`): `base` at full
+              width, bf16, B=8 L=512, deterministic cuDNN, 30 steps logged
+              every 5 with an eval of 8 batches of 8x512 every 10, the same
+              seeded run on the synchronous bracket, on the overlapped one
+              (its dispatch under `torch.cuda.set_sync_debug_mode("error")`),
+              after one untimed eval that warms the eval shapes: the
+              records and `eval` events bit for bit the synchronous run's,
+              exactly 6·(30 + 3·8) K1 and K2 launches a run; each bracket's
+              host seconds, wall to the next step's `timer.update()`, eval
+              device ms (CUDA events) and host waits, the discounted
+              seconds, the median step ms and the window rates. Drills in
+              the same process: `PBT_FAULT_STALL_AT=15:2` makes the 11-15
+              window the slowest, more than 1.5 s over the median;
+              `PBT_FAULT_EVAL_STALL=2` leaves every window within 1.5x the
+              median on either bracket. `# eval base ...` lines.
+16. report  — the kernel JSON line, the card's name and power limit, and the
               result line {"ok": true, "device": {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
@@ -433,7 +462,7 @@ no result line. `--phase data` runs the build and phase 11 alone, every
 gate, no result line. `--phase etl` runs the build and phase 12 alone,
 every gate, no result line. `--phase check` runs the build and phase 13
 alone, every gate, no result line. `--phase mesh` runs the build and
-phase 14 alone, every gate, no result line. `--cli-first` is the full run with phase 10 run once more
+phase 14 alone, every gate, no result line; `--phase eval` phase 15. `--cli-first` is the full run with phase 10 run once more
 right after the build, its launches not counted, so that the phase's
 numbers first and last in one process stand side by side.
 """
@@ -2869,9 +2898,16 @@ def span_ms(tele, name: str) -> list:
             if e.get("name") == name]
 
 
+# The resume phase's `large` runs at full width but RESUME_LARGE_BLOCKS of
+# its 12 blocks: a depth cut that keeps the full run near 1000 s on the
+# slower card machines (full depth: 1051 and 1099 s there, PERF.md).
+RESUME_LARGE_BLOCKS = 6
+
+
 def resume_phase(card: str) -> dict:
     """A pretraining run that survives on the card, through `pretrain` and
-    `train.Checkpointer`, for `large` dense at full width and depth (B=8,
+    `train.Checkpointer`, for `large` dense at full width and
+    RESUME_LARGE_BLOCKS blocks (B=8,
     L=1024, 6 steps, saves every 3, SIGTERM at step 4; #2 + K2) and `base`
     packed (B=8, L=512, 8 segments a row, 4 steps, saves every 2, SIGTERM
     at step 2; #3 + K2, the packed iterator's skip_batches replay), each
@@ -2902,6 +2938,7 @@ def resume_phase(card: str) -> dict:
     temporary directory under build/, removed at the end; a disk that
     cannot hold three of them fails the phase. Returns each kernel's
     launches summed over the runs."""
+    from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.data.dataset import (
         InMemoryPretrainingDataset, make_pretrain_iterator,
     )
@@ -2923,7 +2960,8 @@ def resume_phase(card: str) -> dict:
         for (label, name, B, L, steps, every, kill, packed, per_step,
              residues, seed) in (
                 ("large", "large", 8, 1024, 6, 3, 4, False,
-                 {LOCAL_TRACK_TILED.name: 12, ATTENTION.name: 12},
+                 {LOCAL_TRACK_TILED.name: RESUME_LARGE_BLOCKS,
+                  ATTENTION.name: RESUME_LARGE_BLOCKS},
                  (100, 1022), 0),
                 ("base packed", "base", 8, 512, 4, 2, 2, True,
                  {LOCAL_TRACK_SEGMENTS.name: 6, ATTENTION.name: 6},
@@ -2931,7 +2969,11 @@ def resume_phase(card: str) -> dict:
             # The peak learning rate from step 1 (warmup 0, the plateau
             # kept): the steps move the params, the Adam moments and the
             # loss, so the gates see the optimizer state.
-            cfg = train_preset(name, B, L, steps, packed)
+            model = get_preset(name).model
+            if name == "large":
+                model = dataclasses.replace(model,
+                                            num_blocks=RESUME_LARGE_BLOCKS)
+            cfg = train_preset(name, B, L, steps, packed, model)
             cfg = cfg.replace(optimizer=dataclasses.replace(
                 cfg.optimizer, warmup_steps=0))
             sync_cfg, staged_cfg = (cfg.replace(checkpoint=dataclasses.replace(
@@ -3137,7 +3179,7 @@ def resume_phase(card: str) -> dict:
             # and 6; log_fn waits at step 5 for the first stage to land
             # (a run's boundaries are far apart), so step 7 holds a stage
             # whose buffers exist and that no earlier stage holds back.
-            steady_cfg = train_preset(name, B, L, 7, packed).replace(
+            steady_cfg = train_preset(name, B, L, 7, packed, model).replace(
                 checkpoint=staged_cfg.checkpoint, optimizer=cfg.optimizer)
             tele_d = Telemetry(spans=True)
             ck = timed_checkpointer(os.path.join(root, f"{tag}-d"),
@@ -7267,6 +7309,10 @@ def mesh_rank(rank: int, world: int, store: str, out: str, device: str,
         axes = {"fsdp": {"fsdp": 2}, "model": {"model": 3}}[leg]
         runs = [("bf16", mesh_cfg(axes)),
                 ("fp32", mesh_cfg(axes, "float32", 2, True))]
+        if leg == "fsdp":
+            # The quantized reduce-scatter through `pretrain` (ZeRO-1 on).
+            runs += [(f"q_{p}", quant_cfg(mesh_cfg(axes), p))
+                     for p in ("int8", "bf16")]
         for name, cfg in runs:
             deterministic(name == "fp32" or leg == "model")
             mesh = make_mesh(cfg.mesh)
@@ -7282,7 +7328,8 @@ def mesh_rank(rank: int, world: int, store: str, out: str, device: str,
                 ck.close()
             state = run["state"]
             byte_out, wire = comm_bytes(tele.metrics)
-            rules = per_chip_state_bytes(mesh, state, zero_update=False)
+            rules = per_chip_state_bytes(
+                mesh, state, zero_update=cfg.parallel.zero_update)
             res[name] = {
                 "steps": steps, "wire": wire, "out_bytes": byte_out,
                 "peak": peak,
@@ -7300,11 +7347,96 @@ def mesh_rank(rank: int, world: int, store: str, out: str, device: str,
             del run, state, ck
             gc.collect()
             torch.cuda.empty_cache()
+        if leg == "fsdp":
+            deterministic(True)
+            res["quant2"] = quant_depth2(mesh_cfg(axes, "float32", 2, True))
         with open(os.path.join(out, f"{leg}{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
         deterministic(False)
         dist.destroy_process_group()
+
+
+def quant_cfg(cfg, payload: str):
+    """`cfg` with ZeRO-1 and the quantized gradient reduction."""
+    return cfg.replace(parallel=dataclasses.replace(
+        cfg.parallel, zero_update=True, grad_reduce_dtype=payload))
+
+
+def quant_depth2(cfg) -> dict:
+    """Two float32 steps at depth 2 from one seed on this rank's rows,
+    with the JAX quantization test's optimizer (LR 0, then 1e-4), of the
+    fp32 sharded step (the reference) and of the quantized step at each
+    payload: each payload's max |param - reference| over the gathered
+    params, the reference's own max update, each step's gradient norm
+    (the quantized steps': of the dequantized sum), each leaf's
+    ||mu - mu_ref|| / ||mu_ref|| over the gathered first moments (linear
+    in the reduced gradients: step 1 leaves the params), the losses, the
+    gradient-reduction wire bytes and the launches."""
+    from proteinbert_tpu_torch.kernels import KERNELS
+    from proteinbert_tpu_torch.obs.metrics import MetricsRegistry
+    from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.quant import (
+        make_quant_fsdp_train_step,
+    )
+    from proteinbert_tpu_torch.parallel.zero import (
+        comm_bytes, grad_reduce_wire_bytes,
+    )
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.train_state import create_train_state
+
+    cfg = quant_cfg(cfg.replace(
+        optimizer=dataclasses.replace(cfg.optimizer,
+                                      schedule="warmup_plateau",
+                                      learning_rate=1e-3, warmup_steps=10),
+        train=dataclasses.replace(cfg.train, max_steps=2)), "int8")
+    mesh = make_mesh(cfg.mesh)
+    i, n = mesh.data_index, mesh.data_extent
+    rows = [{k: v[i * len(v) // n:(i + 1) * len(v) // n]
+             for k, v in b.items()} for b in mesh_batches(cfg, 14)]
+    init = create_train_state(torch.Generator().manual_seed(14), cfg,
+                              device=DEVICE)
+    start = [t.clone() for t in tree_leaves(init.params)]
+    out, ref = {}, None
+    for name in ("ref", "fp32", "bf16", "int8"):
+        reg = MetricsRegistry()
+        step = (make_sharded_train_step(mesh, cfg.replace(
+            parallel=dataclasses.replace(cfg.parallel, zero_update=False,
+                                         grad_reduce_dtype="fp32")), reg)
+                if name == "ref" else
+                make_quant_fsdp_train_step(mesh, cfg, name, reg))
+        state = create_train_state(torch.Generator().manual_seed(14), cfg,
+                                   device=DEVICE)
+        for k in KERNELS:
+            k.launches = 0
+        losses, norms = [], []
+        for b in rows:
+            # Each step's metrics reach the host before the next starts:
+            # the rows are the same on both ranks' steps.
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        launches = {k.name: k.launches for k in KERNELS if k.launches}
+        whole = state.layout.full_state(state)
+        full, mu = tree_leaves(whole.params), list(whole.opt_state.mu)
+        if ref is None:
+            ref, ref_mu = full, mu
+            out["ref_update"] = max(float((a - b).abs().max())
+                                    for a, b in zip(full, start))
+        out[name] = {
+            "losses": losses, "norms": norms, "launches": launches,
+            "wire": grad_reduce_wire_bytes(comm_bytes(reg)[1]),
+            "err": max(float((a - b).abs().max())
+                       for a, b in zip(full, ref)),
+            "mu_rel": [float((a.double() - b.double()).norm()
+                             / b.double().norm())
+                       for a, b in zip(mu, ref_mu)]}
+        del state, whole, full, mu
+        gc.collect()
+    del ref, ref_mu, init, start
+    torch.cuda.empty_cache()
+    return out
 
 
 def single_mesh():
@@ -7365,8 +7497,11 @@ def mesh_phase(card: str) -> dict:
         for leg, ranks in (("fsdp", fsdp), ("model", model)):
             for r, res in enumerate(ranks):
                 for name, run in res.items():
+                    if name == "quant2":
+                        continue
                     for i, (_, loss, launches, _) in enumerate(run["steps"]):
-                        want = (per_step if name == "bf16" else
+                        want = (per_step if name in ("bf16", "q_int8",
+                                                     "q_bf16") else
                                 {LOCAL_TRACK_TILED.name: 2,
                                  ATTENTION.name: 2})
                         got = {k: v for k, v in launches.items() if v}
@@ -7375,19 +7510,22 @@ def mesh_phase(card: str) -> dict:
                               f"{i + 1}: launches {got}, want {want}, "
                               f"loss {loss}")
                         add(launches)
-        # (a) the fsdp share of the state on each rank.
+        # (a) the fsdp share of the state on each rank (the moments at
+        # their ZeRO piece on the quantized legs).
         for r, res in enumerate(fsdp):
-            a = res["bf16"]
-            want = a["per_chip"]["params"] + a["per_chip"]["opt_state"]
-            allocs = [s[3] for s in a["steps"]]
-            share, extra = MESH_STATE_MARGIN
-            check(a["stored"] == want
-                  and all(want <= x <= want * (1 + share) + extra
-                          for x in allocs)
-                  and want < 0.55 * a["whole"]["total"],
-                  f"mesh large fsdp rank {r}: stored {a['stored']}, "
-                  f"allocated between steps {allocs}, per_chip_state_bytes "
-                  f"{a['per_chip']}, whole {a['whole']}")
+            for name in ("bf16", "q_int8", "q_bf16"):
+                a = res[name]
+                want = a["per_chip"]["params"] + a["per_chip"]["opt_state"]
+                allocs = [s[3] for s in a["steps"]]
+                share, extra = MESH_STATE_MARGIN
+                check(a["stored"] == want
+                      and all(want <= x <= want * (1 + share) + extra
+                              for x in allocs)
+                      and want < 0.55 * a["whole"]["total"],
+                      f"mesh large fsdp {name} rank {r}: stored "
+                      f"{a['stored']}, allocated between steps {allocs}, "
+                      f"per_chip_state_bytes {a['per_chip']}, whole "
+                      f"{a['whole']}")
         a = fsdp[0]["bf16"]
         ms = [s[0] for s in a["steps"]]
         print(f"# mesh large fsdp [{card}]: fsdp=2 on two ranks of one card "
@@ -7406,6 +7544,7 @@ def mesh_phase(card: str) -> dict:
               f"step a rank: " + ", ".join(
                   f"{k} {v / MESH_STEPS:.0f}" for k, v in a["wire"].items()
                   if v) + f"; group {fsdp_s:.1f} s from spawn")
+        mesh_quant(card, fsdp, per_step, add)
         # (a) float32 against one process on the same rows.
         deterministic(True)
         cfg = mesh_cfg({"fsdp": 2}, "float32", 2, True)
@@ -7479,6 +7618,103 @@ def mesh_phase(card: str) -> dict:
     return totals
 
 
+QUANT_BOUNDS = {"fp32": 1e-6, "bf16": 5e-4, "int8": 1e-3}
+# The reduction's own error, relative: the gradient norm against the fp32
+# step's, and each leaf's first moment against the fp32 step's (the
+# bounds of tests/test_torch_fsdp.py). The params' bound alone cannot
+# fail: the first Adam update is lr·sign(g), ~2·lr apart at most.
+QUANT_NORM_REL = {"fp32": 1e-6, "bf16": 2e-4, "int8": 5e-4}
+QUANT_MU_REL = {"fp32": 1e-6, "bf16": 5e-3, "int8": 2.5e-2}
+QUANT_WIRE = {"int8": 0.27, "bf16": 0.52}   # of the fp32 reduction's wire
+
+
+def mesh_quant(card: str, fsdp: list, per_step: dict, add) -> None:
+    """(a'): the fsdp ranks' quantized legs — at full depth in bf16 through
+    `pretrain` (launches and state bytes gated with the other legs), their
+    gradient-reduction wire bytes against the fp32 reduce-scatter of the
+    bf16 leg; at depth 2 in float32, each payload's params after 2 steps
+    against the fp32 sharded step's within the JAX quantization test's
+    bounds, its gradient norms and first moments within QUANT_NORM_REL
+    and QUANT_MU_REL of that step's, the ranks alike."""
+    from proteinbert_tpu_torch.kernels import ATTENTION, LOCAL_TRACK_TILED
+    from proteinbert_tpu_torch.parallel.zero import (
+        grad_reduce_wire_bytes as grad_wire,
+    )
+
+    a = fsdp[0]
+    fp32_wire = grad_wire(a["bf16"]["wire"])
+    ratios = {p: grad_wire(a[f"q_{p}"]["wire"]) / fp32_wire
+              for p in QUANT_WIRE}
+    check(all(ratios[p] <= QUANT_WIRE[p] for p in QUANT_WIRE),
+          f"mesh large fsdp quant: gradient-reduction wire ratios {ratios}")
+    errs, norm_rel, mu_rel = {}, {}, {}
+    for r, res in enumerate(fsdp):
+        q = res["quant2"]
+        for p in QUANT_BOUNDS:
+            norm_rel[p] = max(abs(a / b - 1) for a, b in
+                              zip(q[p]["norms"], q["ref"]["norms"]))
+            mu_rel[p] = max(q[p]["mu_rel"])
+            check(norm_rel[p] <= QUANT_NORM_REL[p]
+                  and mu_rel[p] <= QUANT_MU_REL[p]
+                  and (p == "fp32" or min(q[p]["mu_rel"]) > 0)
+                  and q[p]["norms"] == fsdp[0]["quant2"][p]["norms"],
+                  f"mesh large fsdp quant {p} rank {r}: gradient norms "
+                  f"{q[p]['norms']} against the fp32 step's "
+                  f"{q['ref']['norms']} (rel {norm_rel[p]:.3g}, bound "
+                  f"{QUANT_NORM_REL[p]}; rank 0 "
+                  f"{fsdp[0]['quant2'][p]['norms']}); first moments max "
+                  f"leaf rel {mu_rel[p]:.3g} (bound {QUANT_MU_REL[p]})")
+            got = q[p]["launches"]
+            want = {LOCAL_TRACK_TILED.name: 4, ATTENTION.name: 4}
+            check(got == want, f"mesh large fsdp quant {p} rank {r}: "
+                               f"launches {got}, want {want}")
+            add(got)
+            check(q[p]["err"] <= QUANT_BOUNDS[p]
+                  and (p == "fp32" or q[p]["err"] > 0)
+                  and q[p]["err"] == fsdp[0]["quant2"][p]["err"],
+                  f"mesh large fsdp quant {p} rank {r}: max |param - fp32 "
+                  f"step| {q[p]['err']} (bound {QUANT_BOUNDS[p]}; rank 0 "
+                  f"{fsdp[0]['quant2'][p]['err']})")
+            errs[p] = q[p]["err"]
+        add(q["ref"]["launches"])
+    q = a["quant2"]
+    print(f"# mesh large fsdp quant [{card}]: fsdp=2 on two ranks of one "
+          f"card over gloo, ZeRO-1, the quantized reduce-scatter over "
+          f"data·fsdp; full depth bf16 (12 #2 + 12 K2 a step a rank), "
+          f"{MESH_STEPS} steps: losses int8 "
+          f"{[round(s[1], 5) for s in a['q_int8']['steps']]}, bf16 "
+          f"{[round(s[1], 5) for s in a['q_bf16']['steps']]} (fp32 "
+          f"reduction {[round(s[1], 5) for s in a['bf16']['steps']]}); "
+          f"step ms int8 {[round(s[0], 1) for s in a['q_int8']['steps']]}, "
+          f"bf16 {[round(s[0], 1) for s in a['q_bf16']['steps']]}; "
+          f"gradient-reduction wire bytes a step a rank: fp32 "
+          f"reduce-scatter {fp32_wire / MESH_STEPS:.0f}, int8 "
+          f"{grad_wire(a['q_int8']['wire']) / MESH_STEPS:.0f} "
+          f"({ratios['int8']:.4f}), bf16 "
+          f"{grad_wire(a['q_bf16']['wire']) / MESH_STEPS:.0f} "
+          f"({ratios['bf16']:.4f}); state bytes a rank (ZeRO-1) "
+          f"{a['q_int8']['per_chip']}, stored {a['q_int8']['stored']}, "
+          f"memory_allocated after each step "
+          f"{[s[3] for s in a['q_int8']['steps']]}, peak "
+          f"{a['q_int8']['peak']}; all wire a step a rank (int8): "
+          + ", ".join(f"{k} {v / MESH_STEPS:.0f}"
+                      for k, v in a["q_int8"]["wire"].items() if v)
+          + f". Depth 2 float32, 2 steps (LR 0, then 1e-4), against the "
+          f"fp32 sharded step (its max update {q['ref_update']:.3g}): max "
+          f"|param diff| " + ", ".join(
+              f"{p} {errs[p]:.3g} (<= {QUANT_BOUNDS[p]})"
+              for p in QUANT_BOUNDS)
+          + "; gradient norm rel " + ", ".join(
+              f"{p} {norm_rel[p]:.3g} (<= {QUANT_NORM_REL[p]})"
+              for p in QUANT_BOUNDS)
+          + "; first moments max leaf rel " + ", ".join(
+              f"{p} {mu_rel[p]:.3g} (<= {QUANT_MU_REL[p]})"
+              for p in QUANT_BOUNDS)
+          + "; wire a step a rank " + ", ".join(
+              f"{p} {q[p]['wire'] / 2:.0f}" for p in QUANT_BOUNDS)
+          + f" (int8 / fp32 payload {q['int8']['wire'] / q['fp32']['wire']:.4f})")
+
+
 def mesh_reshard(card: str, root: str, cfg, batches, fsdp_losses) -> None:
     """(c): `reshard --target-mesh 1` of the fsdp run's step 2 as a
     subprocess, then one process resumes it for step 3."""
@@ -7523,6 +7759,297 @@ def mesh_reshard(card: str, root: str, cfg, batches, fsdp_losses) -> None:
           f"{steps[0][1]} against the fsdp run's {fsdp_losses[2]}")
 
 
+# The eval phase: `base` at full width, bf16, deterministic cuDNN (the
+# two brackets must repeat each other bit for bit), B=8 L=512.
+EVAL_STEPS = 30
+EVAL_EVERY = 10
+EVAL_BATCHES = 8          # eval batches of 8 x 512 a bracket
+EVAL_LOG_EVERY = 5
+EVAL_STALL_S = 2.0        # seconds each drill injects
+EVAL_STALL_OVER = 1.5     # the stalled window's wall over the median (s)
+EVAL_WINDOW_RATIO = 1.5   # eval-stall drill: every window within x median
+RECORD_TIMING = ("steps_per_sec", "step_ms", "residues_per_sec_per_chip",
+                 "mfu", "overlap_s", "ckpt_in_flight")
+
+
+def eval_cfg(overlap: bool):
+    """`base` at B=8 L=512 for EVAL_STEPS steps at a constant LR, logged
+    every EVAL_LOG_EVERY, an eval every EVAL_EVERY on `overlap`'s
+    bracket; batches made inline (no prefetch thread)."""
+    cfg = train_preset("base", 8, 512, EVAL_STEPS)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, prefetch_depth=0),
+        optimizer=dataclasses.replace(cfg.optimizer, schedule="constant",
+                                      warmup_steps=0),
+        train=dataclasses.replace(cfg.train, log_every=EVAL_LOG_EVERY,
+                                  eval_every=EVAL_EVERY,
+                                  overlap_eval=overlap))
+
+
+class EvalProbe:
+    """One run's eval brackets measured from outside the trainer: its
+    StepTimer replaced by a subclass that stamps every `update()` and
+    adds up `discount()`; the bracket's entry points wrapped (the
+    synchronous `evaluate`, or the overlapped `dispatch_eval` and
+    `resolve_eval`) to time each call on the host and on the card (CUDA
+    events around it) and to count its host waits: the synchronizing
+    calls torch's sync-debug mode flags plus `torch.cuda.Event.
+    synchronize` calls. The overlapped dispatch runs under
+    `set_sync_debug_mode("error")`: a synchronizing op in it raises."""
+
+    def __init__(self, overlap: bool):
+        self.overlap = overlap
+        self.updates, self.discounted = [], 0.0
+        self.brackets, self.resolves = [], []
+        self._waits = 0
+
+    def _measured(self, fn, strict: bool, out: list):
+        import warnings
+
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            waits0 = self._waits
+            t0 = time.perf_counter()
+            start.record()
+            with warnings.catch_warnings(record=True) as flagged:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("error" if strict else "warn")
+                try:
+                    result = fn(*a, **kw)
+                except RuntimeError as e:
+                    check(not strict, f"eval base: the overlapped dispatch "
+                                      f"synchronized: {e}")
+                    raise
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            end.record()
+            syncs = sum("synchroniz" in str(w.message) for w in flagged)
+            out.append({"t0": t0, "t1": time.perf_counter(),
+                        "events": (start, end),
+                        "syncs": syncs + self._waits - waits0})
+            return result
+
+        return run
+
+    def __enter__(self):
+        from proteinbert_tpu_torch.train import trainer as tr
+
+        self.tr = tr
+        self.saved = (tr.StepTimer, tr.evaluate, tr.dispatch_eval,
+                      tr.resolve_eval, torch.cuda.Event.synchronize)
+        probe, base = self, tr.StepTimer
+
+        class Timer(base):
+            def update(self):
+                super().update()
+                probe.updates.append(time.perf_counter())
+
+            def discount(self, seconds):
+                probe.discounted += seconds
+                super().discount(seconds)
+
+        wait = torch.cuda.Event.synchronize
+
+        def counted(event):
+            probe._waits += 1
+            return wait(event)
+
+        tr.StepTimer = Timer
+        torch.cuda.Event.synchronize = counted
+        if self.overlap:
+            tr.dispatch_eval = self._measured(tr.dispatch_eval, True,
+                                              self.brackets)
+            tr.resolve_eval = self._measured(tr.resolve_eval, False,
+                                             self.resolves)
+        else:
+            tr.evaluate = self._measured(tr.evaluate, False, self.brackets)
+        return self
+
+    def __exit__(self, *exc):
+        tr = self.tr
+        (tr.StepTimer, tr.evaluate, tr.dispatch_eval, tr.resolve_eval,
+         torch.cuda.Event.synchronize) = self.saved
+        torch.cuda.set_sync_debug_mode(0)
+
+    def summary(self) -> dict:
+        """Per bracket: host s of the boundary call, its wall to the next
+        step's update (s), the eval's device ms, the resolve's host s and
+        the host waits of each."""
+        torch.cuda.synchronize()
+        rows = []
+        for i, b in enumerate(self.brackets):
+            nxt = next((t for t in self.updates if t > b["t1"]), None)
+            row = {"call_s": b["t1"] - b["t0"],
+                   "to_next_update_s": (nxt - b["t0"]) if nxt else None,
+                   "device_ms": b["events"][0].elapsed_time(b["events"][1]),
+                   "syncs": b["syncs"]}
+            if i < len(self.resolves):
+                r = self.resolves[i]
+                row.update(resolve_s=r["t1"] - r["t0"],
+                           resolve_syncs=r["syncs"])
+            rows.append(row)
+        gaps = np.diff(self.updates[2:]) * 1e3
+        # Step intervals with no bracket or resolve inside them.
+        marks = [b["t0"] for b in self.brackets + self.resolves]
+        plain = [g for g, a, z in zip(gaps, self.updates[2:-1],
+                                      self.updates[3:])
+                 if not any(a <= t <= z for t in marks)]
+        return {"brackets": rows, "discounted_s": self.discounted,
+                "median_step_ms": float(np.median(plain))}
+
+
+def eval_run(card: str, label: str, overlap: bool, ds, evals, root: str,
+             env=None) -> dict:
+    """One seeded `pretrain` of `eval_cfg(overlap)` under an `EvalProbe`
+    (and the drill knobs of `env`): exactly 6·(T + E·N) K1 and K2
+    launches; → the history, the eval events, the probe's summary."""
+    from proteinbert_tpu_torch.data.dataset import make_pretrain_iterator
+    from proteinbert_tpu_torch.kernels import ATTENTION, KERNELS, LOCAL_TRACK
+    from proteinbert_tpu_torch.obs import Telemetry, read_events
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    cfg = eval_cfg(overlap)
+    events = os.path.join(root, f"{label.replace(' ', '_')}.jsonl")
+    tele = Telemetry(events_path=events)
+    for k, v in (env or {}).items():
+        os.environ[k] = v
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    try:
+        with EvalProbe(overlap) as probe:
+            out = pretrain(cfg, make_pretrain_iterator(ds, 8, seed=21),
+                           eval_batches=lambda: iter(evals), telemetry=tele,
+                           device=DEVICE)
+    finally:
+        for k in env or {}:
+            os.environ.pop(k, None)
+        tele.close()
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
+    n = 6 * (EVAL_STEPS + (EVAL_STEPS // EVAL_EVERY) * EVAL_BATCHES)
+    check(launches == {LOCAL_TRACK.name: n, ATTENTION.name: n},
+          f"eval base {label}: launches {launches}, want {n} K1 and {n} K2")
+    evs = [e for e in read_events(events, strict=True)
+           if e["event"] == "eval"]
+    check([e["step"] for e in evs] == [10, 20, 30]
+          and all(bool(e.get("overlapped")) == overlap for e in evs),
+          f"eval base {label}: eval events {[e['step'] for e in evs]}")
+    return {"history": out["history"], "events": evs,
+            "probe": probe.summary(), "launches": launches}
+
+
+def eval_windows(history) -> list:
+    """(last step, window step ms, window wall s) of each log point."""
+    out = []
+    prev = 2   # the timer's two warm-up steps
+    for h in history:
+        if "window_step_ms" in h:
+            out.append((h["step"], h["window_step_ms"],
+                        h["window_step_ms"] * (h["step"] - prev) / 1e3))
+            prev = h["step"]
+    return out
+
+
+def eval_phase(card: str) -> dict:
+    """Phase 15 (module docstring) → each kernel's launches."""
+    from proteinbert_tpu_torch.data.dataset import InMemoryPretrainingDataset
+    from proteinbert_tpu_torch.train.train_state import create_train_state
+    from proteinbert_tpu_torch.train.trainer import evaluate
+
+    cfg = eval_cfg(False)
+    seqs, ann = synthetic_proteins(4 * 8 + EVAL_BATCHES * 8, 100, 510,
+                                   cfg.model.num_annotations, 21)
+    ds = InMemoryPretrainingDataset(seqs[:32], ann[:32], 512)
+    held = InMemoryPretrainingDataset(seqs[32:], ann[32:], 512)
+    evals = [held.get_batch(np.arange(8 * b, 8 * b + 8))
+             for b in range(EVAL_BATCHES)]
+    root = tempfile.mkdtemp(prefix="eval_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    totals: dict = {}
+    runs = {}
+    deterministic(True)
+    try:
+        # One untimed eval first, so that the first timed bracket of the
+        # first route does not also pay the eval shapes' warm-up.
+        warm = create_train_state(torch.Generator().manual_seed(21), cfg,
+                                  device=DEVICE)
+        evaluate(warm, evals, cfg, 0)
+        torch.cuda.synchronize()
+        del warm
+        for label, overlap, kw in (
+                ("sync", False, {}), ("overlapped", True, {}),
+                ("drill stall", True, {"env": {
+                    "PBT_FAULT_STALL_AT": f"15:{EVAL_STALL_S}"}}),
+                ("drill eval stall sync", False, {"env": {
+                    "PBT_FAULT_EVAL_STALL": str(EVAL_STALL_S)}}),
+                ("drill eval stall overlapped", True, {"env": {
+                    "PBT_FAULT_EVAL_STALL": str(EVAL_STALL_S)}})):
+            runs[label] = r = eval_run(card, label, overlap, ds, evals, root,
+                                       **kw)
+            for name, n in r["launches"].items():
+                totals[name] = totals.get(name, 0) + n
+    finally:
+        deterministic(False)
+        shutil.rmtree(root, ignore_errors=True)
+
+    def values(history):
+        return [{k: v for k, v in h.items() if not k.startswith("window_")
+                 and k not in RECORD_TIMING} for h in history]
+
+    sync, over = runs["sync"], runs["overlapped"]
+    same = values(over["history"]) == values(sync["history"])
+    same_events = ([(e["step"], e["metrics"]) for e in over["events"]]
+                   == [(e["step"], e["metrics"]) for e in sync["events"]])
+    check(same and same_events,
+          f"eval base: overlapped records {values(over['history'])[-3:]} "
+          f"against synchronous {values(sync['history'])[-3:]}")
+    for label in ("sync", "overlapped"):
+        p = runs[label]["probe"]
+        b = p["brackets"]
+        print(f"# eval base {label} [{card}]: 6 blocks C=G=512 H=8 bf16, "
+              f"B=8 L=512, {EVAL_STEPS} steps, an eval of {EVAL_BATCHES} "
+              f"batches of 8x512 every {EVAL_EVERY}, deterministic cuDNN; "
+              f"median step ms {p['median_step_ms']:.2f}; a boundary: "
+              f"boundary call s {[round(x['call_s'], 4) for x in b]}, "
+              f"wall to the next step's update s "
+              f"{[x['to_next_update_s'] and round(x['to_next_update_s'], 4) for x in b]}, eval "
+              f"device ms {[round(x['device_ms'], 2) for x in b]}, host "
+              f"waits {[x['syncs'] for x in b]}"
+              + (f", resolve s {[round(x['resolve_s'], 4) for x in b]} "
+                 f"(waits {[x['resolve_syncs'] for x in b]})"
+                 if "resolve_s" in b[0] else "")
+              + f"; discounted s {p['discounted_s']:.4f}; windows (step, "
+              f"window step ms) "
+              f"{[(w[0], round(w[1], 2)) for w in eval_windows(runs[label]['history'])]}"
+              + ("; records bit for bit the synchronous run's"
+                 if label != "sync" else ""))
+    # The drills: a stall at step 15 is the 11-15 window's; an eval stall
+    # moves no window, on either bracket.
+    wins = eval_windows(runs["drill stall"]["history"])
+    walls = [w[2] for w in wins]
+    slow = max(wins, key=lambda w: w[1])
+    over_med = dict((w[0], w[2]) for w in wins)[15] - statistics.median(walls)
+    check(slow[0] == 15 and over_med > EVAL_STALL_OVER,
+          f"eval base drill stall: windows {wins}; the slowest ends at "
+          f"{slow[0]}, the 11-15 window {over_med:.3f} s over the median")
+    lines = [f"stall {EVAL_STALL_S} s at step 15: the 11-15 window the "
+             f"slowest, {over_med:.3f} s over the median window wall"]
+    for label in ("drill eval stall sync", "drill eval stall overlapped"):
+        wins = eval_windows(runs[label]["history"])
+        med = statistics.median(w[1] for w in wins)
+        worst = max(w[1] for w in wins) / med
+        check(worst <= EVAL_WINDOW_RATIO,
+              f"eval base {label}: windows {wins}, worst {worst:.3f}x the "
+              f"median")
+        lines.append(f"eval stall {EVAL_STALL_S} s, "
+                     f"{label.split()[-1]}: worst window {worst:.3f}x the "
+                     f"median, discounted s "
+                     f"{runs[label]['probe']['discounted_s']:.3f}")
+    print(f"# eval base drills [{card}]: " + "; ".join(lines))
+    return totals
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
@@ -7532,10 +8059,11 @@ def main() -> int:
                     ["--phase", "neighbors"], ["--phase", "rollout"],
                     ["--phase", "cli"], ["--phase", "data"],
                     ["--phase", "etl"], ["--phase", "check"],
-                    ["--phase", "mesh"], ["--cli-first"]):
+                    ["--phase", "mesh"], ["--phase", "eval"],
+                    ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
               "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli|data|etl|check|mesh]", file=sys.stderr)
+              "cli|data|etl|check|mesh|eval]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7624,6 +8152,11 @@ def main() -> int:
         t0 = time.perf_counter()
         mesh_phase(card)
         print(f"# mesh: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "eval"]:
+        t0 = time.perf_counter()
+        eval_phase(card)
+        print(f"# eval: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -7718,6 +8251,10 @@ def main() -> int:
     for name, n in mesh_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in eval_phase(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# eval: {time.perf_counter() - t0:.1f} s")
     host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)

@@ -867,7 +867,8 @@ def cmd_evaluate(args) -> int:
     one JSON object (loss, local/global terms, accuracy, the GO ranking
     metrics pooled over the split and their per-batch means).
     --like-step corrupts batch i as the training run's eval at that
-    history step did (`train.trainer.eval_generator`)."""
+    history step did (`train.trainer.eval_generator`), on either eval
+    bracket: both key the eval by its 1-based boundary step."""
     import numpy as np
     import torch
 
@@ -2042,7 +2043,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--profile-dir",
                         help="capture a torch.profiler trace here")
         sp.add_argument("--set", action="append", metavar="PATH=VALUE",
-                        help="config override, e.g. --set model.local_dim=256")
+                        help="config override, e.g. --set model.local_dim=256;"
+                             " --set train.overlap_eval=false keeps the "
+                             "periodic eval synchronous (default true: the "
+                             "eval is dispatched at its boundary and its "
+                             "metrics fetched once, behind the next step)")
 
     tr = sub.add_parser("pretrain", help="denoising pretraining")
     add_train_args(tr)

@@ -39,36 +39,35 @@ class _Leaf:
         self.index = index
 
 
+def _strip(t: Any, leaves: List[torch.Tensor]) -> Any:
+    if isinstance(t, torch.Tensor):
+        leaves.append(t)
+        return _Leaf(len(leaves) - 1)
+    if isinstance(t, dict):
+        return {k: _strip(v, leaves) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_strip(v, leaves) for v in t)
+    return t
+
+
+def _put(s: Any, new_leaves: List[torch.Tensor]) -> Any:
+    if isinstance(s, _Leaf):
+        return new_leaves[s.index]
+    if isinstance(s, dict):
+        return {k: _put(v, new_leaves) for k, v in s.items()}
+    if isinstance(s, (list, tuple)):
+        return type(s)(_put(v, new_leaves) for v in s)
+    return s
+
+
 def _split(tree: Any) -> Tuple[List[torch.Tensor], Callable]:
     """(tensor leaves, fill) where fill(new_leaves) rebuilds `tree` with
-    the leaves replaced in order."""
+    the leaves replaced in order. The recursion is module-level: a nested
+    function that calls itself is a reference cycle, which would keep the
+    leaves it captured alive until the garbage collector runs."""
     leaves: List[torch.Tensor] = []
-
-    def strip(t):
-        if isinstance(t, torch.Tensor):
-            leaves.append(t)
-            return _Leaf(len(leaves) - 1)
-        if isinstance(t, dict):
-            return {k: strip(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(strip(v) for v in t)
-        return t
-
-    skeleton = strip(tree)
-
-    def fill(new_leaves):
-        def put(s):
-            if isinstance(s, _Leaf):
-                return new_leaves[s.index]
-            if isinstance(s, dict):
-                return {k: put(v) for k, v in s.items()}
-            if isinstance(s, (list, tuple)):
-                return type(s)(put(v) for v in s)
-            return s
-
-        return put(skeleton)
-
-    return leaves, fill
+    skeleton = _strip(tree, leaves)
+    return leaves, lambda new_leaves: _put(skeleton, new_leaves)
 
 
 class _Recompute(torch.autograd.Function):

@@ -134,18 +134,19 @@ def _init_tree(cfg: ModelConfig, generator: torch.Generator) -> Params:
 def to_device(tree, device: torch.device):
     """Every tensor of a params tree on `device`; a tensor that several
     leaves share (an int8 tree's block-vector scales) stays shared."""
-    moved = {}
+    return _move(tree, device, {})
 
-    def move(t):
-        if isinstance(t, dict):
-            return {k: move(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [move(v) for v in t]
-        if id(t) not in moved:
-            moved[id(t)] = t.to(device)
-        return moved[id(t)]
 
-    return move(tree)
+def _move(t, device: torch.device, moved: dict):
+    # Module-level recursion: a self-calling closure would be a reference
+    # cycle holding `moved` (every moved tensor) until a gc pass.
+    if isinstance(t, dict):
+        return {k: _move(v, device, moved) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_move(v, device, moved) for v in t]
+    if id(t) not in moved:
+        moved[id(t)] = t.to(device)
+    return moved[id(t)]
 
 
 # ---------------------------------------------------------------- apply

@@ -202,16 +202,18 @@ class _FsdpGather(torch.autograd.Function):
 
 
 def _build(tree, leaves):
-    it = iter(leaves)
+    """`tree`'s structure with `leaves` in `tree_leaves` order."""
+    return _put(tree, iter(leaves))
 
-    def put(t):
-        if isinstance(t, dict):
-            return {k: put(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [put(v) for v in t]
-        return next(it)
 
-    return put(tree)
+def _put(t, it):
+    # Module-level recursion: a self-calling closure would be a reference
+    # cycle holding the leaves (gathered full params) until a gc pass.
+    if isinstance(t, dict):
+        return {k: _put(v, it) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_put(v, it) for v in t]
+    return next(it)
 
 
 class MeshLayout:
@@ -438,27 +440,9 @@ class MeshLayout:
                              self.groups[name], self.registry)
 
 
-def make_sharded_train_step(mesh, cfg, registry=None):
-    """`step(state, batch, plateau_value=None) → (state, metrics)` on a
-    mesh with an fsdp or a model axis above 1 — the trainer's choice
-    there, with ZeRO-1 when cfg.parallel.zero_update. The step takes a
-    full-shape state on its first call and returns this rank's
-    (`TrainState.layout` set); `step.layout_for(state)` gives the layout
-    of a state. `registry` receives the comm accounting."""
-    from proteinbert_tpu_torch.train import train_state as ts
-    from proteinbert_tpu_torch.train.schedule import (
-        effective_lr, make_optimizer, needs_loss_value,
-    )
-
-    if cfg.parallel.grad_reduce_dtype != "fp32":
-        from proteinbert_tpu_torch.parallel.quant import check_quant_mesh
-
-        check_quant_mesh(mesh, cfg.parallel.grad_reduce_dtype)
-        raise ValueError(
-            f"grad_reduce_dtype={cfg.parallel.grad_reduce_dtype!r} on a "
-            f"mesh with fsdp={mesh.shape['fsdp']}: the quantized "
-            "reduce-scatter of FSDP shards is not ported yet (ROADMAP "
-            "A11d); use grad_reduce_dtype='fp32'")
+def layout_getter(mesh, zero_update: bool, registry=None):
+    """`layout_for(state) → MeshLayout`: the state's own layout, or the
+    one built once from the first full-shape state it is given."""
     cache: Dict[str, MeshLayout] = {}
 
     def layout_for(state) -> MeshLayout:
@@ -466,9 +450,59 @@ def make_sharded_train_step(mesh, cfg, registry=None):
         if lay is None:
             lay = cache.get("layout")
             if lay is None:
-                lay = cache["layout"] = MeshLayout(
-                    mesh, state.params, cfg.parallel.zero_update, registry)
+                lay = cache["layout"] = MeshLayout(mesh, state.params,
+                                                   zero_update, registry)
         return lay
+
+    return layout_for
+
+
+def apply_update(layout: MeshLayout, cfg, state, pieces, norm, metrics,
+                 plateau_value=None):
+    """The sharded steps' common tail: Adam on this rank's pieces
+    (clipped by the global `norm`), the pieces gathered back into the
+    stored tensors in place → (the next state, the metrics with
+    grad_norm and lr)."""
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.schedule import (
+        effective_lr, make_optimizer, needs_loss_value,
+    )
+
+    metrics["grad_norm"] = norm
+    value = ts.plateau_observation(cfg.optimizer, metrics, plateau_value)
+    views = layout.views(state.params)
+    with torch.no_grad():
+        updates, opt_state = make_optimizer(cfg.optimizer).update(
+            pieces, state.opt_state, views,
+            value=value if needs_loss_value(cfg.optimizer) else None,
+            grad_norm=norm)
+        torch._foreach_add_(views, updates)
+    layout.gather_updated(state.params)
+    metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
+    return ts.TrainState(state.step + 1, state.params, opt_state,
+                         state.generator, layout=layout), metrics
+
+
+def make_sharded_train_step(mesh, cfg, registry=None):
+    """`step(state, batch, plateau_value=None) → (state, metrics)` on a
+    mesh with an fsdp or a model axis above 1 — the trainer's choice
+    there, with ZeRO-1 when cfg.parallel.zero_update (and then, for
+    grad_reduce_dtype "bf16" / "int8", `quant.make_quant_fsdp_train_step`).
+    The step takes a full-shape state on its first call and returns this
+    rank's (`TrainState.layout` set); `step.layout_for(state)` gives the
+    layout of a state. `registry` receives the comm accounting."""
+    from proteinbert_tpu_torch.train import train_state as ts
+
+    if cfg.parallel.grad_reduce_dtype != "fp32" and cfg.parallel.zero_update:
+        # The quantized reduce-scatter over data·fsdp (QuantConfigError on
+        # a model or seq axis, or a batch that does not split); without
+        # ZeRO-1 the payload has no effect, as in JAX (the trainer warns).
+        from proteinbert_tpu_torch.parallel.quant import (
+            make_quant_fsdp_train_step,
+        )
+
+        return make_quant_fsdp_train_step(mesh, cfg, registry=registry)
+    layout_for = layout_getter(mesh, cfg.parallel.zero_update, registry)
 
     def step(state, batch, plateau_value=None):
         layout = layout_for(state)
@@ -488,20 +522,8 @@ def make_sharded_train_step(mesh, cfg, registry=None):
         grads, _ = ts.grads_of(state.params, share)
         metrics = {k: v.detach() for k, v in out["metrics"].items()}
         pieces, norm = layout.reduce(grads)
-        metrics["grad_norm"] = norm
-        value = ts.plateau_observation(cfg.optimizer, metrics, plateau_value)
-        tx = make_optimizer(cfg.optimizer)
-        views = layout.views(state.params)
-        with torch.no_grad():
-            updates, opt_state = tx.update(
-                pieces, state.opt_state, views,
-                value=value if needs_loss_value(cfg.optimizer) else None,
-                grad_norm=norm)
-            torch._foreach_add_(views, updates)
-        layout.gather_updated(state.params)
-        metrics["lr"] = effective_lr(cfg.optimizer, opt_state, state.step)
-        return ts.TrainState(state.step + 1, state.params, opt_state,
-                             state.generator, layout=layout), metrics
+        return apply_update(layout, cfg, state, pieces, norm, metrics,
+                            plateau_value)
 
     step.layout_for = layout_for
     return step

@@ -29,7 +29,7 @@ its psums); an axis of extent 1 inside a larger world has no group
 (None: no collective). Every rank creates every group, in the same order
 (`dist.new_group` is collective over the world).
 
-Not ported (ROADMAP A11d): `seq` together with `fsdp` or `model`;
+Not ported (ROADMAP A11d(a)): `seq` together with `fsdp` or `model`;
 `make_mesh` refuses it.
 """
 

@@ -19,9 +19,13 @@ and go out in ONE `all_to_all_single` (plus one for the int8 scales).
 Each rank dequantizes and sums the d slices it receives into its shard,
 then the ZeRO-1 update and all-gather of `parallel/zero.py` follow. The
 whole leaves and the clip norm's sum of squares ride one fp32
-all-reduce. bf16 payloads go on the wire as bf16 (JAX
-bitcasts to uint16 only because CPU XLA widens bf16 collectives; NCCL and
-gloo move bf16, and gloo refuses int16). The noise comes from a
+all-reduce. On a data × fsdp mesh (`make_quant_fsdp_train_step`) the
+forward and backward read the params gathered from their fsdp shards,
+the slices go to the ZeRO pieces of `parallel/fsdp.MeshLayout` (each
+inside its rank's fsdp shard, `FsdpQuantLayout`), and the updated
+pieces are gathered back into the shards. bf16 payloads go on the wire
+as bf16 (JAX bitcasts to uint16 only because CPU XLA widens bf16
+collectives; NCCL and gloo move bf16, and gloo refuses int16). The noise comes from a
 generator seeded from the step's generator and the replica index
 (`train_state.replica_generators`): deterministic, the same under resume.
 `check_quant_mesh` raises `QuantConfigError` with the JAX messages.
@@ -497,6 +501,139 @@ def quant_reduce_scatter(layout, partials, payload: str,
             0, layout.dims[i])
         off += width
     return layout.finish(partials, shards, registry)
+
+
+class FsdpQuantLayout:
+    """`quant_reduce_scatter`'s view of a data × fsdp mesh's
+    `fsdp.MeshLayout` under ZeRO-1 (model = seq = 1): which leaves go
+    through the quantized all_to_all over the joint data·fsdp group, and
+    where each reduced slice lands.
+
+    A leaf whose ZeRO piece is a clean joint-axis slice — an fsdp-stored
+    leaf whose fsdp dim the rule widens to ('data', 'fsdp'), or a whole
+    leaf with the joint axis on a free dim (the JAX `_leaf_plan`'s
+    "alltoall" case) — is cut into data·fsdp slices along that dim. The
+    layout keeps rank (d, f)'s piece inside its own fsdp shard (piece
+    f·data + d of the dim, `fsdp.plan_leaf`) where the joint axis orders
+    ranks d·fsdp + f, so an fsdp-stored leaf's slices are permuted before
+    the exchange: the rank at joint index d·fsdp + f receives slice
+    f·data + d. A whole leaf's slice r goes to joint rank r. Every other
+    leaf (the rules' remainder) is summed in fp32 with one all-reduce
+    and cut to this rank's piece, as JAX's "psum" case is."""
+
+    def __init__(self, layout):
+        mesh = layout.mesh
+        self.layout = layout
+        self.group = mesh.replica_group
+        self.d = mesh.data_extent
+        data, fsdp = mesh.shape["data"], mesh.shape["fsdp"]
+        self.perm = torch.tensor([(r % fsdp) * data + r // fsdp
+                                  for r in range(self.d)])
+        self.sharded, self.permuted = [], set()
+        self.dims, self.moved_shape = {}, {}
+        for i, p in enumerate(layout.plans):
+            z = p.zero
+            if z is None or p.zero_slice:
+                continue
+            if p.store is not None and p.store == ("fsdp", z[1]):
+                self.permuted.add(i)
+            elif z[0] != "replica" or p.store is not None:
+                continue
+            dim = z[1]
+            self.sharded.append(i)
+            self.dims[i] = dim
+            self.moved_shape[i] = (p.full_shape[dim] // self.d,) + tuple(
+                n for j, n in enumerate(p.full_shape) if j != dim)
+        self.rest = [i for i in range(len(layout.plans))
+                     if i not in self.dims]
+
+    def slices(self, g: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i's full-shape partial as (data·fsdp, m): row r is the
+        slice that joint rank r receives."""
+        rows = g.movedim(self.dims[i], 0).reshape(self.d, -1)
+        if i in self.permuted:
+            rows = rows.index_select(0, self.perm.to(rows.device))
+        return rows
+
+    def finish(self, partials, shards, registry=None):
+        """The remainder's fp32 all-reduce, with the shards' sum of
+        squares in the same call → (each leaf's gradient at this rank's
+        piece, aligned with `MeshLayout.views`; the global norm of the
+        dequantized sum)."""
+        from proteinbert_tpu_torch.parallel.fsdp import _narrow
+        from proteinbert_tpu_torch.parallel.zero import all_reduce_flat
+
+        sq = torch.zeros(1, dtype=torch.float32, device=partials[0].device)
+        for t in shards.values():
+            sq += (t.float() ** 2).sum()
+        *rest, sq = all_reduce_flat([partials[i].float() for i in self.rest]
+                                    + [sq], self.group, registry)
+        grads = [None] * len(partials)
+        for i, g in zip(self.rest, rest):
+            sq = sq + (g ** 2).sum()
+            p = self.layout.plans[i]
+            if p.store is not None:
+                g = _narrow(g, p.store[1], p.store_extent, p.store_index)
+            if p.zero is not None:
+                g = _narrow(g, *p.zero[1:])
+            grads[i] = g
+        for i, t in shards.items():
+            grads[i] = t
+        return grads, torch.sqrt(sq[0])
+
+
+def make_quant_fsdp_train_step(mesh, cfg, payload: Optional[str] = None,
+                               registry=None):
+    """`step(state, batch, plateau_value=None) → (state, metrics)` on a
+    data × fsdp mesh (fsdp > 1, model = seq = 1) under ZeRO-1 with a
+    quantized gradient reduction — `fsdp.make_sharded_train_step`'s route
+    for grad_reduce_dtype in {"bf16", "int8"} (JAX quant.py:256-300,
+    where the same step runs on whatever layout the params have).
+
+    The forward and backward run on the params gathered to full shape
+    (`MeshLayout.full_params`, outside autograd, so no reduce-scatter
+    follows the backward): each rank's gradient is its share of the
+    global loss over its rows, the weight masses summed over the joint
+    data·fsdp group first (`train_state.replica_loss_and_grads`). Those
+    partials go through `quant_reduce_scatter` over `FsdpQuantLayout`
+    (noise from `replica_generators(..., ("corrupt", "noise"))`), Adam
+    updates this rank's ZeRO pieces in place, and one all-gather a ZeRO
+    group writes the pieces back into the fsdp shards
+    (`MeshLayout.gather_updated`). The state is this rank's shards
+    (`TrainState.layout`), the moments at their ZeRO pieces, as on the
+    fp32 sharded step; `step.layout_for(state)` gives the layout.
+    `payload` overrides the wire dtype ("fp32" = the unrounded
+    control)."""
+    from proteinbert_tpu_torch.parallel.fsdp import (
+        apply_update, layout_getter,
+    )
+    from proteinbert_tpu_torch.train import train_state as ts
+
+    payload = payload or cfg.parallel.grad_reduce_dtype
+    check_quant_mesh(mesh, payload, cfg.data.batch_size)
+    layout_for = layout_getter(mesh, True, registry)
+    cache = {}
+
+    def step(state, batch, plateau_value=None):
+        layout = layout_for(state)
+        state = layout.shard_state(state)
+        if cache.get("quant") is None or cache["quant"].layout is not layout:
+            cache["quant"] = FsdpQuantLayout(layout)
+        corrupt_gen, noise_gen = ts.replica_generators(
+            state, mesh, ("corrupt", "noise"))
+        X, Y, W, seg = ts.corrupt_for_step(state, batch, cfg, corrupt_gen)
+        partials, metrics = ts.replica_loss_and_grads(
+            layout.full_params(state.params), X, Y, W, cfg, seg,
+            mesh.replica_group, registry)
+        pieces, norm = quant_reduce_scatter(
+            cache["quant"], partials, payload,
+            None if payload == "fp32" else noise_gen, registry)
+        del partials
+        return apply_update(layout, cfg, state, pieces, norm, metrics,
+                            plateau_value)
+
+    step.layout_for = layout_for
+    return step
 
 
 def make_quant_zero_train_step(mesh, cfg, payload: Optional[str] = None,

@@ -34,7 +34,6 @@ import logging
 import os
 from typing import Any, Dict, Iterable, Optional, Tuple
 
-import numpy as np
 import torch
 
 from proteinbert_tpu_torch import DeviceLike, resolve_device
@@ -44,6 +43,7 @@ from proteinbert_tpu_torch.data.vocab import PAD_ID
 from proteinbert_tpu_torch.models import finetune as ft_model
 from proteinbert_tpu_torch.models import proteinbert
 from proteinbert_tpu_torch.obs import as_telemetry
+from proteinbert_tpu_torch.train.metrics import DeviceMetricAccumulator
 from proteinbert_tpu_torch.train.schedule import (
     Optimizer, make_optimizer, needs_loss_value, tree_leaves,
 )
@@ -167,22 +167,21 @@ def finetune_eval_step(state: TrainState, batch: Dict[str, Any],
     return metrics
 
 
-def _mean_metrics(per_batch) -> Dict[str, float]:
-    """Mean of each metric over batches (the JAX accumulator's float32
-    sums over the batch count)."""
-    sums: Dict[str, np.float32] = {}
-    n = 0
-    for m in per_batch:
-        for k, v in m.items():
-            sums[k] = sums.get(k, np.float32(0)) + np.float32(float(v))
-        n += 1
-    return {k: float(v) / max(n, 1) for k, v in sums.items()}
+def _means(acc: DeviceMetricAccumulator) -> Dict[str, float]:
+    """Each metric's mean over the batches added: the accumulator's
+    float64 sums over its count (the JAX loops' arithmetic)."""
+    n = acc.count
+    return {k: v / max(n, 1) for k, v in acc.sums().items()}
 
 
 def evaluate(state: TrainState, batches: Iterable[Dict[str, Any]],
              cfg: FinetuneConfig) -> Dict[str, float]:
-    """Mean metrics over an eval split."""
-    return _mean_metrics(finetune_eval_step(state, b, cfg) for b in batches)
+    """Mean metrics over an eval split; the per-batch scalars stay on
+    the device until a drain (`DeviceMetricAccumulator`)."""
+    acc = DeviceMetricAccumulator()
+    for batch in batches:
+        acc.add(finetune_eval_step(state, batch, cfg))
+    return _means(acc)
 
 
 def finetune(
@@ -241,12 +240,12 @@ def finetune(
               resumed=bool(start_epoch))
 
     for epoch in range(start_epoch, cfg.task.epochs):
-        per_batch = []
+        acc = DeviceMetricAccumulator()
         for batch in train_batches(epoch):
             state, metrics = finetune_step(state, batch, cfg)
-            per_batch.append(metrics)
+            acc.add(metrics)
         record = {"epoch": epoch, **{f"train_{k}": v for k, v in
-                                     _mean_metrics(per_batch).items()}}
+                                     _means(acc).items()}}
         if eval_batches is not None and (
                 (epoch + 1) % cfg.task.eval_every_epochs == 0
                 or epoch == cfg.task.epochs - 1):

@@ -1,18 +1,19 @@
-"""FLOP counts, peak rates and step timing — port of
-`proteinbert_tpu/train/metrics.py`.
+"""FLOP counts, peak rates, step timing and the per-batch metric sums —
+port of `proteinbert_tpu/train/metrics.py`.
 
 `forward_flops` is the JAX package's analytic count (2·MACs of every
 conv, dense, projection and attention product); training counts 3× the
 forward. MFU is reported only on a card named in `PEAK_FLOPS` (published
 dense rates, NVIDIA's data sheet); a CPU run reports step time and
-residues/s only. `DeviceMetricAccumulator` is not ported: the port's eval
-bracket stays synchronous.
+residues/s only. `DeviceMetricAccumulator` keeps per-batch metric
+tensors on the device and fetches them in one copy a drain (the eval
+brackets and the fine-tune loops).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -72,6 +73,99 @@ def peak_flops(device: torch.device, dtype: str) -> Optional[float]:
         if pat in name and dt == dtype:
             return val
     return None
+
+
+def copy_to_host(tensors: List[torch.Tensor]):
+    """Queue a copy of each tensor to the host behind the work already
+    queued on the current stream → (host tensors, a CUDA event or None).
+    On a card the copies go into pinned memory without a host wait, and
+    `event.synchronize()` then waits for them alone, not for work queued
+    after them (a plain `.cpu()` would wait for that too). CPU tensors
+    come back as they are."""
+    host, event = [], None
+    for t in tensors:
+        t = t.detach()
+        if t.device.type == "cuda":
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            event = event or torch.cuda.Event()
+            t = h
+        host.append(t)
+    if event is not None:
+        event.record()
+    return host, event
+
+
+class DeviceMetricAccumulator:
+    """Sums of per-batch metric dicts without a device-to-host copy per
+    value — the JAX accumulator's contract and numerics.
+
+    `add(m, weight, key_fn)` keeps the batch's tensors where they are;
+    every `drain_every` adds (0: only at `sums()`) `_drain` stacks the
+    pending scalars into one tensor and copies it to the host once, then
+    folds `float(v) * weight` into Python-float (float64) sums in add
+    order, so the sums are the JAX accumulator's bit for bit given the
+    same float32 values. The drain waits for those batches' work, which
+    bounds the queue and the held tensors; `drain_every=0` holds every
+    batch's scalars until `sums()` (an eval split's worth). `prefetch()`
+    queues that copy now, so that a later drain waits for the batches'
+    work alone and not for what the stream runs after them. `count` is
+    the number of adds."""
+
+    def __init__(self, drain_every: int = 8):
+        self.drain_every = drain_every
+        self._pending: list = []
+        self._sums: Dict[str, float] = {}
+        self._copied = None   # (pending count, host tensors, event)
+        self.count = 0
+
+    def add(self, m: Dict[str, torch.Tensor], weight: float = 1.0,
+            key_fn: Optional[Callable[[str], str]] = None) -> None:
+        self._pending.append((m, weight, key_fn))
+        self.count += 1
+        if self.drain_every and len(self._pending) >= self.drain_every:
+            self._drain()
+
+    def _copy_pending(self):
+        # One stack and one copy per device the scalars live on (the
+        # card's; a host scalar such as a step's `lr` needs none).
+        by_device: Dict[torch.device, list] = {}
+        for m, _, _ in self._pending:
+            for _, v in sorted(m.items()):
+                if torch.is_tensor(v):
+                    by_device.setdefault(v.device, []).append(v)
+        with torch.no_grad():
+            stacks = [torch.stack([v.detach().reshape(()) for v in vs])
+                      for vs in by_device.values()]
+        host, event = copy_to_host(stacks)
+        return len(self._pending), dict(zip(by_device, host)), event
+
+    def prefetch(self) -> None:
+        """Queue the pending scalars' copy to the host now."""
+        if self._pending:
+            self._copied = self._copy_pending()
+
+    def _drain(self) -> None:
+        if not self._pending:
+            return
+        copied, self._copied = self._copied, None
+        if copied is None or copied[0] != len(self._pending):
+            copied = self._copy_pending()
+        _, host, event = copied
+        if event is not None:
+            event.synchronize()
+        fetched = {dev: iter(h.tolist()) for dev, h in host.items()}
+        for m, w, key_fn in self._pending:
+            # Keys in sorted order, as JAX's device_get returns a dict.
+            for k, v in sorted(m.items()):
+                v = next(fetched[v.device]) if torch.is_tensor(v) else v
+                key = key_fn(k) if key_fn else k
+                self._sums[key] = self._sums.get(key, 0.0) + float(v) * w
+        self._pending = []
+
+    def sums(self) -> Dict[str, float]:
+        self._drain()
+        return dict(self._sums)
 
 
 class StepTimer:

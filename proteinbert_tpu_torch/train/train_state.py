@@ -91,9 +91,19 @@ def gradient_update(
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Batch:
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                               else v).to(device)
-            for k, v in batch.items()}
+    """The batch's arrays on `device`. To a card they go up from pinned
+    host memory without a host wait (a pageable copy synchronizes the
+    stream, which would stall the host behind queued steps or evals);
+    the pinned buffer is held until its copy has run."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
 
 
 def _corrupt(gen: torch.Generator, batch: Dict[str, Any],

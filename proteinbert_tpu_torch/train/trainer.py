@@ -63,7 +63,10 @@ as the JAX trainer does: the seq × data step when its seq extent is
 above 1 (with an fsdp or model axis as well: refused, ROADMAP A11d); the
 sharded step of `parallel/fsdp.py` when its fsdp or model extent is
 above 1 (FSDP placement, the GO head's tensor parallelism, with ZeRO-1
-under `cfg.parallel.zero_update`); else ZeRO-1 (`parallel/zero.py`, or
+under `cfg.parallel.zero_update`, and then the quantized reduce-scatter
+over data·fsdp for a `grad_reduce_dtype` other than "fp32",
+`parallel/quant.make_quant_fsdp_train_step`); else ZeRO-1
+(`parallel/zero.py`, or
 the quantized reduce-scatter of `parallel/quant.py` when
 `cfg.parallel.grad_reduce_dtype` is not "fp32") when
 `cfg.parallel.zero_update` and the replica extent is above 1; else the
@@ -91,14 +94,28 @@ carries the mesh, the rank count and whether ZeRO is on, and the
 `per_chip_state_bytes{part}` gauges follow the rules (params at their
 fsdp or model shard, the moments at their ZeRO shard).
 
-Not ported (ROADMAP A5b): the JAX loop's overlapped eval bracket
-(`cfg.train.overlap_eval`; the port's eval is synchronous) and its drill
-knobs (`PBT_FAULT_*`).
+The eval bracket (JAX trainer.py:389-390, :681-699). Under
+`cfg.train.overlap_eval` (the presets' default), without an eval-keyed
+plateau and without early stopping (both need the eval's value before
+the next step), the boundary only dispatches the eval (`dispatch_eval`,
+nothing fetched: the metric scalars stay on the device) and the next
+step's dispatch comes first; `resolve_eval` then makes the one fetch
+right after that step is queued, before a checkpoint boundary builds
+its data item, and once after the loop. Otherwise the bracket is
+synchronous (`evaluate`). Both routes give the same records, keyed by
+the 1-based boundary step, and discount the bracket's host seconds from
+the timing window. The drill knobs of the JAX loop:
+`PBT_FAULT_STALL_AT="<step>:<seconds>"` sleeps at the top of that
+1-based step, inside the timed window; `PBT_FAULT_EVAL_STALL="<seconds>"`
+sleeps inside every eval bracket, where the time is discounted. A
+malformed spec is logged and ignored.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import logging
 import os
 import time
@@ -127,7 +144,9 @@ from proteinbert_tpu_torch.train.checkpoint import Checkpointer
 from proteinbert_tpu_torch.train.loss import (
     DEFAULT_RANKING_BINS, ranking_metrics_from_stats,
 )
-from proteinbert_tpu_torch.train.metrics import StepTimer
+from proteinbert_tpu_torch.train.metrics import (
+    DeviceMetricAccumulator, StepTimer, copy_to_host,
+)
 from proteinbert_tpu_torch.train.resilience import (
     GracefulShutdown, check_finite, flush_inflight_checkpoint,
 )
@@ -135,6 +154,55 @@ from proteinbert_tpu_torch.train.schedule import plateau_uses_eval
 from proteinbert_tpu_torch.utils.profiling import device_memory_report
 
 logger = logging.getLogger(__name__)
+
+
+def _parse_fault_secs(secs_s):
+    """Seconds for a drill knob, or ValueError. Rejects what time.sleep
+    would crash or hang on (negative, NaN, inf): the drill contract is
+    "malformed specs are ignored, not fatal" — a drill knob must never
+    be able to kill an uncheckpointed run."""
+    secs = float(secs_s)
+    if not (0 <= secs < float("inf")):
+        raise ValueError(secs_s)
+    return secs
+
+
+def _fault_stall_spec():
+    """Observability-drill fault injection: parse
+    PBT_FAULT_STALL_AT="<1-based step>:<seconds>" into (step, secs).
+    The trainer sleeps that long at the top of the named step — INSIDE
+    the timed window, like a real host-side stall (slow async-save
+    serialization, input starvation, a tunnel hiccup) — so a drill can
+    assert the window_* metrics and the slow-window summary localize it.
+    Never set in production; the spec is logged loudly when active."""
+    spec = os.environ.get("PBT_FAULT_STALL_AT")
+    if not spec:
+        return None
+    try:
+        step_s, _, secs_s = spec.partition(":")
+        step = int(step_s)
+        if step < 1:
+            raise ValueError(spec)
+        return step, _parse_fault_secs(secs_s)
+    except ValueError:
+        logger.warning("ignoring malformed PBT_FAULT_STALL_AT=%r", spec)
+        return None
+
+
+def _fault_eval_stall_secs():
+    """Companion drill knob: PBT_FAULT_EVAL_STALL="<seconds>" sleeps
+    inside every eval bracket — INSIDE the discounted region, so the
+    drill can assert a slow eval does NOT masquerade as a training
+    stall in the window metrics (the negative control for the
+    PBT_FAULT_STALL_AT positive). Same ignore-malformed contract."""
+    spec = os.environ.get("PBT_FAULT_EVAL_STALL")
+    if not spec:
+        return None
+    try:
+        return _parse_fault_secs(spec)
+    except ValueError:
+        logger.warning("ignoring malformed PBT_FAULT_EVAL_STALL=%r", spec)
+        return None
 
 
 def eval_generator(cfg: PretrainConfig, step: int, batch_index: int,
@@ -181,70 +249,142 @@ def _pool(sums: Dict[str, float], n: int, rows: int, rank_stats, group,
           device: torch.device):
     """Every data rank's eval sums, counts and ranking statistics summed
     over `group` with one all-reduce (a rank without batches adds
-    zeros) → (sums, n, rows, rank_stats)."""
+    zeros) → (sums, n, rows, rank_stats). The vector lies on the card
+    for NCCL, else on the host (gloo reduces there either way)."""
+    on = device if dist.get_backend(group) == "nccl" else torch.device("cpu")
     stats = rank_stats or {
-        "pos_hist": torch.zeros(DEFAULT_RANKING_BINS, device=device),
-        "neg_hist": torch.zeros(DEFAULT_RANKING_BINS, device=device),
-        "p_at_k_num": torch.zeros((), device=device),
-        "p_at_k_den": torch.zeros((), device=device)}
+        "pos_hist": torch.zeros(DEFAULT_RANKING_BINS, device=on),
+        "neg_hist": torch.zeros(DEFAULT_RANKING_BINS, device=on),
+        "p_at_k_num": torch.zeros((), device=on),
+        "p_at_k_den": torch.zeros((), device=on)}
     names = list(stats)
     head = torch.tensor([sums.get(k, 0.0) for k in _EVAL_SUMS] + [n, rows],
-                        dtype=torch.float64, device=device)
-    vec = torch.cat([head] + [stats[k].double().reshape(-1)
+                        dtype=torch.float64, device=on)
+    vec = torch.cat([head] + [stats[k].double().reshape(-1).to(on)
                               for k in names])
     all_reduce(vec, group)
     head, off = vec[:len(head)].tolist(), len(head)
     pooled = {}
     for k in names:
         size = stats[k].numel()
-        pooled[k] = vec[off:off + size].float().reshape(stats[k].shape)
+        pooled[k] = vec[off:off + size].float().reshape(
+            stats[k].shape).cpu()
         off += size
     n, rows = int(head[-2]), int(head[-1])
     return (dict(zip(_EVAL_SUMS, head)) if n else {}, n, rows,
             pooled if n else None)
 
 
-def evaluate_batches(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
-                     cfg: PretrainConfig,
-                     generator_for: Callable[[int], torch.Generator],
-                     max_batches: int = 0, group=None):
-    """`eval_step` over `batches` (batch n corrupted under
-    `generator_for(n)`; at most `max_batches` when > 0) → (metrics,
-    batches, rows). Loss and accuracy metrics are the row-weighted mean
-    of the per-batch values. `global_auroc` / `global_p_at_k` are pooled
-    over the whole split from each batch's `ranking_stats`, as the JAX
-    package's `resolve_eval` does; the row-weighted means of the exact
-    in-batch values are kept as `*_batch_mean`. With a data `group`,
-    each rank scores its own rows (corrupted by its own
-    `generator_for`) and the sums, counts and statistics are pooled
-    across the group (the same merge that pools batches), so the metrics
-    are the whole split's on every rank."""
-    pooled = ("global_auroc", "global_p_at_k")
-    sums: Dict[str, float] = {}
+_POOLED = ("global_auroc", "global_p_at_k")
+
+
+def _batch_mean_key(k: str) -> str:
+    return f"{k}_batch_mean" if k in _POOLED else k
+
+
+@dataclasses.dataclass
+class PendingEval:
+    """What `dispatch_eval` queued: the per-batch metric scalars (in the
+    accumulator, on the device), the ranking statistics summed on the
+    device, the batch and row counts, the data `group` to pool over, and
+    the state the batches read. Holding `state` keeps a gathered
+    full-shape params tree (an fsdp layout's `eval_state()`) alive until
+    the resolve, so the caching allocator cannot hand its memory to the
+    next step while the eval's kernels may still read it."""
+    acc: DeviceMetricAccumulator
+    rank_stats: Optional[Dict[str, torch.Tensor]]
+    n: int
+    rows: int
+    group: Any
+    device: torch.device
+    state: Any
+    stats_ready: Any = None   # the event of the statistics' host copy
+
+
+def dispatch_eval(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
+                  cfg: PretrainConfig,
+                  generator_for: Callable[[int], torch.Generator],
+                  max_batches: int = 0, drain_every: int = 8,
+                  group=None) -> PendingEval:
+    """Queue `eval_step` over `batches` (batch n corrupted under
+    `generator_for(n)`; at most `max_batches` when > 0) → a
+    `PendingEval` for `resolve_eval`. Each batch's metrics go into a
+    `DeviceMetricAccumulator` weighted by its rows (the exact in-batch
+    `global_auroc` / `global_p_at_k` renamed `*_batch_mean`), its
+    `ranking_stats` are summed on the device. With `drain_every=0`
+    nothing is fetched: on the card the call only enqueues work (the
+    batches go up from pinned memory without a wait), so the host can
+    queue the next train step behind it."""
+    if max_batches:
+        # Cap before pulling: no extra batch read and dropped.
+        batches = itertools.islice(batches, max_batches)
+    acc = DeviceMetricAccumulator(drain_every=drain_every)
     rank_stats = None
     n = rows = 0
     for batch in batches:
-        if max_batches and n >= max_batches:
-            break
         b_rows = len(next(iter(batch.values())))
         m = ts.eval_step(state, batch, generator_for(n), cfg)
         stats = m.pop("ranking_stats")
         rank_stats = stats if rank_stats is None else {
             k: rank_stats[k] + v for k, v in stats.items()}
-        for k, v in m.items():
-            k = f"{k}_batch_mean" if k in pooled else k
-            sums[k] = sums.get(k, 0.0) + float(v) * b_rows
+        acc.add(m, weight=b_rows, key_fn=_batch_mean_key)
         n += 1
         rows += b_rows
-    if group is not None:
-        sums, n, rows, rank_stats = _pool(
-            sums, n, rows, rank_stats, group,
-            ts.tree_leaves(state.params)[0].device)
-    metrics = {k: v / max(rows, 1) for k, v in sums.items()}
+    pending = PendingEval(acc, rank_stats, n, rows, group,
+                          ts.tree_leaves(state.params)[0].device, state)
+    if not drain_every:
+        # The one fetch, queued now behind the eval's work: the resolve
+        # then waits for these copies alone, not for the train step
+        # queued after them.
+        acc.prefetch()
+        if rank_stats is not None:
+            host, pending.stats_ready = copy_to_host(list(
+                rank_stats.values()))
+            pending.rank_stats = dict(zip(rank_stats, host))
+    return pending
+
+
+def resolve_eval(pending: PendingEval, prefix: str = "eval_"):
+    """Fetch and reduce a `dispatch_eval` handle → (metrics, batches,
+    rows). Loss and accuracy metrics are the row-weighted means of the
+    per-batch values; `global_auroc` / `global_p_at_k` are pooled over
+    the whole split from the summed `ranking_stats`, as the JAX
+    package's `resolve_eval` does. With a data `group`, each rank scored
+    its own rows and the sums, counts and statistics are pooled across
+    the group (one all-reduce, `_pool`), so the metrics are the whole
+    split's on every rank; every rank must resolve at the same point."""
+    sums = pending.acc.sums()
+    n, rows, rank_stats = pending.n, pending.rows, pending.rank_stats
+    ready = pending.stats_ready
+    if ready is None and rank_stats is not None:
+        # The statistics in one host copy and one wait (the synchronous
+        # route's; the overlapped dispatch queued its copy already).
+        host, ready = copy_to_host(list(rank_stats.values()))
+        rank_stats = dict(zip(rank_stats, host))
+    if ready is not None:
+        ready.synchronize()
+    if pending.group is not None:
+        sums, n, rows, rank_stats = _pool(sums, n, rows, rank_stats,
+                                          pending.group, pending.device)
+    metrics = {f"{prefix}{k}": v / max(rows, 1) for k, v in sums.items()}
     if rank_stats is not None:
-        metrics.update(ranking_metrics_from_stats(
-            {k: v.cpu().numpy() for k, v in rank_stats.items()}))
+        metrics.update({f"{prefix}{k}": v for k, v in
+                        ranking_metrics_from_stats(
+                            {k: v.numpy() for k, v in rank_stats.items()}
+                        ).items()})
     return metrics, n, rows
+
+
+def evaluate_batches(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
+                     cfg: PretrainConfig,
+                     generator_for: Callable[[int], torch.Generator],
+                     max_batches: int = 0, group=None):
+    """The synchronous eval: `resolve_eval(dispatch_eval(...))` with
+    unprefixed keys → (metrics, batches, rows) — the CLI `evaluate`
+    verb's path."""
+    return resolve_eval(dispatch_eval(state, batches, cfg, generator_for,
+                                      max_batches=max_batches, group=group),
+                        prefix="")
 
 
 def evaluate(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
@@ -252,10 +392,10 @@ def evaluate(state: ts.TrainState, batches: Iterable[Dict[str, Any]],
     """`evaluate_batches` under the step-keyed generators of this data
     rank (pooled over a data `group`), keys prefixed with eval_."""
     dev = ts.tree_leaves(state.params)[0].device
-    metrics, _, _ = evaluate_batches(
+    metrics, _, _ = resolve_eval(dispatch_eval(
         state, batches, cfg, eval_generators(cfg, step, dev, group),
-        group=group)
-    return {f"eval_{k}": v for k, v in metrics.items()}
+        group=group))
+    return metrics
 
 
 def first_step_memory(tele, device: torch.device) -> Optional[Dict]:
@@ -379,8 +519,10 @@ def pretrain(
         elif mesh.sharded:
             step_fn = plateau_step = make_sharded_train_step(
                 mesh, cfg, registry=tele.metrics)
+            reduce = (f", ZeRO-1, gradient reduction "
+                      f"{cfg.parallel.grad_reduce_dtype}" if zero_on else "")
             kind = (f"the sharded step (fsdp={mesh.shape['fsdp']}, model="
-                    f"{mesh.shape['model']}{', ZeRO-1' if zero_on else ''})")
+                    f"{mesh.shape['model']}{reduce})")
         elif zero_on:
             step_fn = plateau_step = make_zero_train_step(
                 mesh, cfg, registry=tele.metrics)
@@ -562,6 +704,60 @@ def pretrain(
             return False
         return True
 
+    # The overlapped eval bracket is legal only when nothing needs the
+    # eval's value before the next step: an eval-keyed plateau feeds it
+    # to the optimizer, and early stopping decides at the boundary.
+    overlap_eval = (cfg.train.overlap_eval and not eval_keyed_plateau
+                    and not cfg.train.early_stop_patience)
+    pending_eval = None   # (1-based boundary step, PendingEval)
+
+    def record_eval(e_step, em, **extra):
+        """The eval's history record, event, log line and eval-stream
+        bookkeeping (the same on both routes, so the checkpointed
+        eval_stream is too) → whether early stopping is due."""
+        nonlocal last_eval_loss, best_eval_loss, stalled_evals
+        history.append({"step": e_step, **em})
+        tele.emit("eval", step=e_step, metrics=em, **extra)
+        logger.info("step %d eval loss %.4f (local %.4f global %.4f) "
+                    "acc %.3f", e_step, em["eval_loss"],
+                    em["eval_local_loss"], em["eval_global_loss"],
+                    em["eval_local_acc"])
+        if log_fn is not None:
+            log_fn(e_step, em)
+        last_eval_loss = np.float32(em["eval_loss"])
+        if em["eval_loss"] < best_eval_loss - cfg.train.early_stop_min_delta:
+            best_eval_loss = em["eval_loss"]
+            stalled_evals = 0
+            return False
+        stalled_evals += 1
+        return bool(cfg.train.early_stop_patience and stalled_evals
+                    >= cfg.train.early_stop_patience)
+
+    def resolve_pending_eval():
+        """Land an overlapped eval: right after the next step's dispatch
+        (so the one fetch waits only for the eval's device work queued
+        ahead of that step), before a checkpoint boundary builds its data
+        item, and after the loop. The wait is eval time: discounted."""
+        nonlocal pending_eval
+        if pending_eval is None:
+            return
+        e_step, handle = pending_eval
+        pending_eval = None
+        t0 = time.perf_counter()
+        em, _, _ = resolve_eval(handle)
+        timer.discount(time.perf_counter() - t0)
+        record_eval(e_step, em, overlapped=True)
+
+    fault_stall = _fault_stall_spec()
+    if fault_stall:
+        logger.warning("FAULT INJECTION ACTIVE: %.1fs stall at step %d "
+                       "(PBT_FAULT_STALL_AT)", fault_stall[1],
+                       fault_stall[0])
+    fault_eval_stall = _fault_eval_stall_secs()
+    if fault_eval_stall:
+        logger.warning("FAULT INJECTION ACTIVE: %.1fs stall per eval "
+                       "bracket (PBT_FAULT_EVAL_STALL)", fault_eval_stall)
+
     with GracefulShutdown(
         on_signal=((lambda signum: tele.dump_flight(f"signal_{signum}"))
                    if tele.enabled else None)
@@ -569,11 +765,21 @@ def pretrain(
                 else contextlib.closing(prefetch_it)):
         for step in range(start_step, cfg.train.max_steps):
             batch = next(batch_iterator)
+            if fault_stall and step + 1 == fault_stall[0]:
+                # An injected host stall, inside the timed window: the
+                # drill asserts that it shows there.
+                time.sleep(fault_stall[1])
             if eval_keyed_plateau:
                 state, metrics = plateau_step(state, batch, last_eval_loss)
             else:
                 state, metrics = step_fn(state, batch)
             timer.update()
+            # An overlapped eval lands here, behind this step's dispatch.
+            # Under a data group every rank resolves at this point of
+            # this step, so `_pool`'s all-reduce meets the same call on
+            # every rank, after the step's collectives and before
+            # `stop_agreed`.
+            resolve_pending_eval()
 
             if step == start_step:
                 first_step_memory(tele, device)
@@ -676,30 +882,42 @@ def pretrain(
 
             if (eval_batches is not None and cfg.train.eval_every
                     and (step + 1) % cfg.train.eval_every == 0):
+                # Drain first, so that neither route's discount swallows
+                # queued step time; afterwards the eval's batches are the
+                # only work the card has queued.
                 timer.sync()
                 t_eval = time.perf_counter()
-                with tele.span("eval_bracket", step=step + 1):
-                    em = evaluate(eval_state(), eval_batches(), cfg,
-                                  step + 1, eval_group)
-                timer.discount(time.perf_counter() - t_eval)
-                history.append({"step": step + 1, **em})
-                tele.emit("eval", step=step + 1, metrics=em)
-                logger.info(
-                    "step %d eval loss %.4f (local %.4f global %.4f) "
-                    "acc %.3f", step + 1, em["eval_loss"],
-                    em["eval_local_loss"], em["eval_global_loss"],
-                    em["eval_local_acc"])
-                if log_fn is not None:
-                    log_fn(step + 1, em)
-                last_eval_loss = np.float32(em["eval_loss"])
-                if (em["eval_loss"]
-                        < best_eval_loss - cfg.train.early_stop_min_delta):
-                    best_eval_loss = em["eval_loss"]
-                    stalled_evals = 0
+                if fault_eval_stall:
+                    # Injected inside the discounted bracket: the drill
+                    # asserts that it does NOT show as a slow window.
+                    time.sleep(fault_eval_stall)
+                if overlap_eval:
+                    # Dispatch only; the records come at the resolve.
+                    # On the card the eval is correct because every one
+                    # of its kernels is queued on this stream before the
+                    # next step's in-place updates (`_foreach_add_`, the
+                    # optimizer): no part of it may run on another
+                    # stream. The staged saver's side stream reads the
+                    # snapshot, whose event is recorded after this
+                    # dispatch. The handle holds the state it read (on an
+                    # fsdp layout the gathered full params) until then.
+                    # The span is the bracket's host time on this route.
+                    es = eval_state()
+                    with tele.span("eval_bracket", step=step + 1):
+                        handle = dispatch_eval(
+                            es, eval_batches(), cfg, eval_generators(
+                                cfg, step + 1,
+                                ts.tree_leaves(es.params)[0].device,
+                                eval_group),
+                            drain_every=0, group=eval_group)
+                    timer.discount(time.perf_counter() - t_eval)
+                    pending_eval = (step + 1, handle)
                 else:
-                    stalled_evals += 1
-                    if (cfg.train.early_stop_patience and stalled_evals
-                            >= cfg.train.early_stop_patience):
+                    with tele.span("eval_bracket", step=step + 1):
+                        em = evaluate(eval_state(), eval_batches(), cfg,
+                                      step + 1, eval_group)
+                    timer.discount(time.perf_counter() - t_eval)
+                    if record_eval(step + 1, em):
                         timer.sync()
                         if checkpointer is not None:
                             checked_save(step + 1, state)
@@ -713,6 +931,10 @@ def pretrain(
 
             if (checkpointer is not None and cfg.checkpoint.every_steps
                     and (step + 1) % cfg.checkpoint.every_steps == 0):
+                # The eval stream must be current in this boundary's data
+                # item, on either save route (a same-step overlapped eval
+                # is still pending).
+                resolve_pending_eval()
                 if overlap_ckpt:
                     # No drain: the snapshot is a copy on the train stream,
                     # ordered before the next step's in-place update; the
@@ -731,6 +953,8 @@ def pretrain(
                     ckpt_since_log = True
                     timer.discount(time.perf_counter() - t_save)
 
+    # An eval dispatched at the last step lands before the final save.
+    resolve_pending_eval()
     if not preempted and not early_stopped:
         timer.sync()
         if checkpointer is not None:

@@ -25,9 +25,11 @@ The corruption is the identity (so that the JAX key and the port's
 generator draw alike).
 """
 
+import dataclasses
 import functools
 import json
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +43,7 @@ from proteinbert_tpu.models import proteinbert as jmodel
 from proteinbert_tpu.parallel import (
     batch_sharding, make_mesh as j_make_mesh, shard_train_state,
 )
+from proteinbert_tpu.parallel import quant as jquant
 from proteinbert_tpu.parallel import zero as jzero
 from proteinbert_tpu.parallel.halo import (
     seq_parallel_conv1d as j_seq_parallel_conv1d,
@@ -59,7 +62,9 @@ from proteinbert_tpu_torch.train.schedule import OptState
 from proteinbert_tpu_torch.train.trainer import pretrain
 from proteinbert_tpu_torch.weights import params_from_flat
 from tests import torch_mesh_child
-from tests.test_torch_data_parallel import IDENTITY, MODEL, _spawn, _tokens
+from tests.test_torch_data_parallel import (
+    IDENTITY, MODEL, QUANT_BOUNDS, _spawn, _tokens,
+)
 
 torch.set_num_threads(1)
 
@@ -82,6 +87,26 @@ SPEC = {
                "batches": 3},
     "conv_dilation": 5,
 }
+# The quantized reduce-scatter at data=2 x fsdp=2 (group A's ranks): the
+# JAX quantization test's optimizer (tests/test_quant.py:47-60: LR 0 at
+# step 1, 1e-4 at step 2), the identity corruption, two steps on one
+# batch of 16; "quant" is the fp32 reference step on the same mesh.
+QUANT = {"data": dict(seq_len=32, batch_size=16, **IDENTITY),
+         "optimizer": dict(learning_rate=1e-3, warmup_steps=10),
+         "mesh": {"data": 2, "fsdp": 2}}
+SPEC["quant"] = QUANT
+for _p in ("fp32", "bf16", "int8", "int8_again"):
+    SPEC[f"q_{_p}"] = dict(QUANT, parallel=dict(
+        zero_update=True,
+        grad_reduce_dtype="bf16" if _p == "bf16" else "int8"))
+PAYLOADS = ("fp32", "bf16", "int8")
+# The reduction's own error, as relative bounds: the gradient norm
+# against the fp32 step's and JAX's (CPU readings at most 8.7e-8 /
+# 4.0e-5 / 1.4e-4, fp32 / bf16 / int8), and each leaf's first moment
+# against the fp32 step's (1.5e-7 / 2.0e-3 / 9.8e-3: a bf16 value rounds
+# to 2^-8 of itself, an int8 chunk to amax/127).
+NORM_REL = {"fp32": 1e-6, "bf16": 2e-4, "int8": 5e-4}
+MU_REL = {"fp32": 1e-6, "bf16": 5e-3, "int8": 2.5e-2}
 TAGS = ("plain", "zero", "zero_dp")
 LOSS_REL = 2e-5
 PARAMS_ATOL = 2e-5
@@ -124,8 +149,11 @@ def group_a(tmp_path_factory):
     """Four ranks at fsdp=2 x model=2 (`torch_mesh_child.fsdp_model`), and
     JAX's plain and ZeRO-1 steps on that mesh from the same state."""
     out = tmp_path_factory.mktemp("mesh_a")
-    tokens, ann = _tokens(np.random.default_rng(20), 8, 32)
-    _inputs(out, {"tokens": tokens, "annotations": ann})
+    rng = np.random.default_rng(20)
+    tokens, ann = _tokens(rng, 8, 32)
+    q_tokens, q_ann = _tokens(rng, 16, 32)
+    _inputs(out, {"tokens": tokens, "annotations": ann,
+                  "quant:tokens": q_tokens, "quant:annotations": q_ann})
     t0 = time.perf_counter()
     ranks = _spawn(torch_mesh_child.fsdp_model, 4, out)
     print(f"spawn {time.perf_counter() - t0:.1f} s")
@@ -143,6 +171,19 @@ def group_a(tmp_path_factory):
         new, m = step(state, batch)
         want[tag] = (float(m["loss"]), float(m["grad_norm"]),
                      flatten_params(jax.device_get(new.params)))
+    # JAX's quantized step on the same mesh, two steps at each payload.
+    jcfg = _cfg(jconfigs, "q_int8")
+    mesh = j_make_mesh(jcfg.mesh, jax.devices()[:4])
+    bsh = batch_sharding(mesh)
+    batch = {k: jax.device_put(v, bsh[k])
+             for k, v in (("tokens", q_tokens), ("annotations", q_ann))}
+    for payload in PAYLOADS:
+        state = shard_train_state(_jax_state(jcfg), mesh, zero_update=True)
+        step = jquant.make_quant_zero_train_step(mesh, jcfg, payload=payload)
+        for _ in range(2):
+            state, m = step(state, batch)
+        want[f"q_{payload}"] = (float(m["loss"]), float(m["grad_norm"]),
+                                flatten_params(jax.device_get(state.params)))
     return ranks, want, out
 
 
@@ -262,6 +303,177 @@ def test_stored_bytes_are_per_chip_state_bytes(group_a, tag):
         assert p == want["params"] and 2 * m == want["opt_state"]
         if cfg.parallel.zero_update:
             assert m < p
+
+
+def _max_err(r, tag, want):
+    return max(float(np.abs(r[f"{tag}:p:{k}"].astype(np.float64)
+                            - np.asarray(v, np.float64)).max())
+               for k, v in want.items())
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+def test_fsdp_quantized_reduce_scatter_within_bounds(group_a, payload):
+    """Two steps of the quantized reduce-scatter on the fsdp layout
+    against two steps of the fp32 sharded step on the same mesh and rows:
+    the first loss the same (quantization is all that differs), the
+    params within the JAX quantization test's bound, every rank the same
+    gathered params."""
+    ranks, _, _ = group_a
+    r0 = ranks[0]
+    tag = f"q_{payload}"
+    ref = {k[len("qref:p:"):]: v for k, v in r0.items()
+           if k.startswith("qref:p:")}
+    assert abs(float(r0[f"{tag}:losses"][0])
+               - float(r0["qref:losses"][0])) <= 2e-5
+    err = _max_err(r0, tag, ref)
+    assert err <= QUANT_BOUNDS[payload], (payload, err)
+    if payload != "fp32":
+        assert err > 0.0, "quantization did not round anything"
+    for r in ranks[1:]:
+        for k in ref:
+            np.testing.assert_array_equal(r[f"{tag}:p:{k}"],
+                                          r0[f"{tag}:p:{k}"])
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+def test_fsdp_quantized_step_matches_jax(group_a, payload):
+    """The port's quantized step on the fsdp layout against JAX's
+    `make_quant_zero_train_step` on MeshConfig(data=2, fsdp=2) at the
+    same payload, two steps from the same params and rows."""
+    ranks, want, _ = group_a
+    loss, _, params = want[f"q_{payload}"]
+    tag = f"q_{payload}"
+    for r in ranks:
+        assert float(r[f"{tag}:losses"][1]) == pytest.approx(loss,
+                                                             rel=LOSS_REL)
+        err = _max_err(r, tag, params)
+        assert err <= QUANT_BOUNDS[payload], (payload, err)
+
+
+def _mu_rel(r, tag):
+    """Each leaf's ||mu - mu_ref|| / ||mu_ref|| against the fp32 sharded
+    step's first moments after the same two steps."""
+    out = []
+    i = 0
+    while f"qref:mu:{i}" in r:
+        ref = r[f"qref:mu:{i}"].astype(np.float64)
+        got = r[f"{tag}:mu:{i}"].astype(np.float64)
+        out.append(float(np.linalg.norm(got - ref) / np.linalg.norm(ref)))
+        i += 1
+    return out
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+def test_fsdp_quantized_grad_norm_matches_jax_and_fp32(group_a, payload):
+    """The quantized step's gradient norm (of the dequantized sum) at
+    each of the two steps against the fp32 sharded step's, and at step 2
+    against JAX's quantized step's at the same payload; every rank the
+    same norm. (The params alone cannot tell a bad reduction: the first
+    Adam update is lr·sign(g), so any two runs differ by at most ~2·lr.)"""
+    ranks, want, _ = group_a
+    _, norm, _ = want[f"q_{payload}"]
+    bound = NORM_REL[payload]
+    for r in ranks:
+        got, ref = r[f"q_{payload}:norms"], r["qref:norms"]
+        np.testing.assert_array_equal(got, ranks[0][f"q_{payload}:norms"])
+        assert float(got[1]) == pytest.approx(norm, rel=bound)
+        np.testing.assert_allclose(got, ref, rtol=bound)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+def test_fsdp_quantized_moments_track_fp32(group_a, payload):
+    """The first moments after two steps are linear in the reduced
+    gradients (LR 0 at step 1 leaves the params, so both steps see the
+    same batch at the same point): each leaf's relative distance from
+    the fp32 sharded step's moments is the reduction's own error, within
+    MU_REL, and nonzero where the payload rounds. A wrong scale or a
+    slice dequantized into another's place moves it by order 1."""
+    ranks, _, _ = group_a
+    for r in ranks:
+        rel = _mu_rel(r, f"q_{payload}")
+        assert len(rel) == sum(1 for k in r if k.startswith("qref:mu:"))
+        assert max(rel) <= MU_REL[payload], (payload, max(rel))
+        if payload != "fp32":
+            assert min(rel) > 0.0
+
+
+def test_fsdp_int8_is_deterministic_and_wire_bytes_shrink(group_a):
+    """int8 twice, bit for bit; the gradient reduction's wire bytes by
+    kind: the exchange (all-to-all) moves half the fp32 payload's bytes
+    in bf16 and at most 0.27 of them in int8 (a quarter plus the chunk
+    scales), and the fp32 all-reduce of the remainder leaves is the same
+    whatever the payload. (The totals' ratios, 0.2856 and 0.5179 here,
+    carry that remainder, which is a larger share at these widths than at
+    the presets'.)"""
+    ranks, _, _ = group_a
+    for r in ranks:
+        for k in r:
+            if k.startswith("q_int8:"):
+                np.testing.assert_array_equal(
+                    r[k], r["q_int8_again:" + k[len("q_int8:"):]])
+        a2a, ar, rs = (float(x) for x in r["q_fp32:wire_kinds"])
+        assert a2a > 0 and rs == 0
+        for p, bound in (("int8", 0.27), ("bf16", 0.5)):
+            q_a2a, q_ar, q_rs = (float(x) for x in r[f"q_{p}:wire_kinds"])
+            assert q_ar == ar and q_rs == 0
+            assert q_a2a <= bound * a2a, (p, q_a2a / a2a)
+        assert float(r["q_bf16:wire_kinds"][0]) == 0.5 * a2a
+        assert float(r["q_int8:wire"]) < 0.3 * float(r["q_fp32:wire"])
+
+
+@pytest.mark.parametrize("tag", ["q_int8", "q_bf16"])
+def test_fsdp_quantized_stored_bytes(group_a, tag):
+    """Between steps each rank stores `per_chip_state_bytes` under
+    ZeRO-1: the params at their fsdp shard, the moments at the ZeRO
+    piece (the plateau's scalars beside them)."""
+    from proteinbert_tpu_torch.parallel.mesh import Mesh
+    from proteinbert_tpu_torch.parallel.zero import per_chip_state_bytes
+
+    ranks, _, out = group_a
+    cfg = _cfg(tconfigs, tag)
+    params = params_from_flat(
+        {k[len("p:"):]: v for k, v in np.load(out / "inputs.npz").items()
+         if k.startswith("p:")}, cfg.model, device="cpu")
+    opt = tts.make_optimizer(cfg.optimizer).init(params)
+    full = tts.TrainState(0, params, opt, torch.Generator())
+    mesh = Mesh(shape=dict(cfg.mesh.__dict__), rank=0,
+                coords={"data": 0, "fsdp": 0, "model": 0, "seq": 0})
+    want = per_chip_state_bytes(mesh, full, zero_update=True)
+    plateau = sum(v.nbytes for v in (opt.plateau or {}).values())
+    for r in ranks:
+        p = sum(v.nbytes for k, v in r.items()
+                if k.startswith(f"{tag}:local:"))
+        m = sum(v.nbytes for k, v in r.items()
+                if k.startswith(f"{tag}:mu_local:"))
+        assert p == want["params"]
+        assert 2 * m + plateau == want["opt_state"] and m < p
+
+
+@pytest.mark.parametrize("case", ["model", "seq", "batch"])
+def test_fsdp_quantized_refusals_match_jax(case):
+    """The typed QuantConfigError of the fsdp route, with the JAX
+    message: a model or seq axis, or a batch that does not split over
+    data·fsdp."""
+    from proteinbert_tpu_torch.parallel import quant
+    from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
+    from proteinbert_tpu_torch.parallel.mesh import Mesh
+
+    shape = {"data": 2, "fsdp": 2, "model": 1, "seq": 1}
+    batch = 16
+    if case == "batch":
+        batch = 14
+    else:
+        shape[case] = 2
+    cfg = _cfg(tconfigs, "q_int8")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=batch))
+    mesh = Mesh(shape=shape, rank=0,
+                coords={"data": 0, "fsdp": 0, "model": 0, "seq": 0})
+    with pytest.raises(jquant.QuantConfigError) as want:
+        jquant.check_quant_mesh(types.SimpleNamespace(shape=shape), "int8",
+                                batch)
+    with pytest.raises(quant.QuantConfigError) as got:
+        make_sharded_train_step(mesh, cfg)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.fixture(scope="module")

@@ -29,7 +29,8 @@ def fsdp_model(rank: int, world: int, store: str, out: str) -> None:
     fsdp=2 with ZeRO-1: one sharded step from the JAX params on this
     replica's rows; the full-shape state after it (params and moments,
     gathered), this rank's stored tensors, and a step file written by the
-    mesh's Checkpointer."""
+    mesh's Checkpointer. Then the quantized reduce-scatter on the data=2
+    x fsdp=2 mesh (`_fsdp_quant`)."""
     from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
     from proteinbert_tpu_torch.parallel.mesh import make_mesh
     from proteinbert_tpu_torch.train import Checkpointer
@@ -68,8 +69,63 @@ def fsdp_model(rank: int, world: int, store: str, out: str) -> None:
                           mesh=mesh)
         assert ck.save(int(state.step), state)
         ck.close()
+    res.update(_fsdp_quant(cfg_of, arrays))
     _save(out, rank, **res)
     dist.destroy_process_group()
+
+
+def _fsdp_quant(cfg_of, arrays) -> dict:
+    """The same ranks at data=2 x fsdp=2 under ZeRO-1: two steps on one
+    batch of the fsdp step with fp32 gradients (the reference), then of
+    the quantized reduce-scatter at each payload (int8 twice): the
+    gathered params and first moments, this rank's stored tensors and
+    moments, the losses, the gradient norms (the quantized steps': of the
+    dequantized sum) and the gradient-reduction wire bytes."""
+    from proteinbert_tpu_torch.obs.metrics import MetricsRegistry
+    from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.quant import (
+        make_quant_fsdp_train_step,
+    )
+    from proteinbert_tpu_torch.parallel.zero import (
+        comm_bytes, grad_reduce_wire_bytes,
+    )
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+
+    res = {}
+    for tag, payload in (("qref", None), ("q_fp32", "fp32"),
+                         ("q_bf16", "bf16"), ("q_int8", "int8"),
+                         ("q_int8_again", "int8")):
+        cfg = cfg_of("quant" if payload is None else tag)
+        mesh = make_mesh(cfg.mesh)
+        batch = {k: _rows(arrays[f"quant:{k}"], mesh.data_index,
+                          mesh.data_extent)
+                 for k in ("tokens", "annotations")}
+        reg = MetricsRegistry()
+        step = (make_sharded_train_step(mesh, cfg, reg) if payload is None
+                else make_quant_fsdp_train_step(mesh, cfg, payload, reg))
+        state = _fresh_state(cfg, arrays)
+        losses, norms = [], []
+        for _ in range(2):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        res[f"{tag}:losses"] = np.asarray(losses)
+        res[f"{tag}:norms"] = np.asarray(norms)
+        wire = comm_bytes(reg)[1]
+        res[f"{tag}:wire"] = np.asarray(grad_reduce_wire_bytes(wire))
+        res[f"{tag}:wire_kinds"] = np.asarray(
+            [wire[k] for k in ("all-to-all", "all-reduce", "reduce-scatter")])
+        full = state.layout.full_state(state)
+        res.update({f"{tag}:p:{k}": v
+                    for k, v in _params_flat(full.params).items()})
+        for i, t in enumerate(full.opt_state.mu):
+            res[f"{tag}:mu:{i}"] = t.numpy()
+        for i, t in enumerate(tree_leaves(state.params)):
+            res[f"{tag}:local:{i}"] = t.numpy()
+        for i, t in enumerate(state.opt_state.mu):
+            res[f"{tag}:mu_local:{i}"] = t.numpy()
+    return res
 
 
 def fsdp_resume(rank: int, world: int, store: str, out: str) -> None:
