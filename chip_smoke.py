@@ -21,7 +21,8 @@ card.
     python3 chip_smoke.py --phase check     # the static analyzer, the
                                             # profiling helpers on base steps
     python3 chip_smoke.py --phase mesh      # FSDP, the GO head's tensor
-                                            # parallelism, reshard
+                                            # parallelism, reshard, seq
+                                            # on the sharded layout
     python3 chip_smoke.py --phase eval      # the trainer's eval brackets
                                             # and the drill knobs
     python3 chip_smoke.py --cli-first       # the full run, with the cli
@@ -174,7 +175,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               Counts are zeroed before each run.
 6. resume   — `resume_phase`: a pretraining run that survives, through
               `pretrain(..., checkpointer=, telemetry=)`: `large` dense at
-              full width and 6 of its 12 blocks (`RESUME_LARGE_BLOCKS`;
+              full width and 3 of its 12 blocks (`RESUME_LARGE_BLOCKS`;
               B=8, L=1024, 6 steps, saves every 3)
               and `base` packed (B=8, L=512, 4 steps, saves every 2), each
               run at peak LR uninterrupted with synchronous saves, then
@@ -409,7 +410,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               step's, its gradient norms within 1e-6 / 2e-4 / 5e-4 and
               each leaf's first moments within 1e-6 / 5e-3 / 2.5e-2 of
               that step's (relative), the ranks alike; (b) model=3 on three
-              ranks, 3 bf16 steps at full depth: 2981 GO columns a rank,
+              ranks, 3 bf16 steps at 6 of the 12 blocks
+              (`MESH_MODEL_BLOCKS`, a cut for the run's time): 2981 GO
+              columns a rank,
               the replicated leaves' digests equal across ranks after the
               steps, the losses the one-process loop's within 5e-3, then 3
               float32 steps at depth 2 within 2e-5 of one process; (c)
@@ -417,7 +420,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               proteinbert_tpu_torch reshard --target-mesh 1` as a
               subprocess (exit 0, parity true, a valid `reshard` event),
               resumed by one process on the card: its step 3 the fsdp
-              run's within 2e-5. `# mesh large ...` lines.
+              run's within 2e-5; (d) the sequence-parallel step on the
+              sharded layout, fsdp=2 x seq=2 on four ranks: 3 bf16 steps
+              at full depth with the identity corruption (exactly 12
+              prehaloed #2 launches a step a rank and no other kernel,
+              the state-byte gate with `per_chip_state_bytes` the fsdp=2
+              leg's, losses the one-process loop's within 5e-3), then 3
+              float32 steps at depth 2 within 2e-5 of one process, its
+              step 2 through `reshard --target-mesh 1` and resumed as in
+              (c); (e) model=3 x seq=2 on six ranks, 3 float32 steps at
+              depth 2 within 2e-5 of one process, 2981 GO columns stored
+              a rank, one digest of the replicated leaves on the six
+              ranks. One spawn of six processes runs the legs in turn,
+              each on a gloo group of its own (one start-up for all), and
+              the two reshards run side by side while this process runs
+              the one-process references. `# mesh large ...` lines.
 15. eval    — the trainer's eval bracket (`eval_phase`): `base` at full
               width, bf16, B=8 L=512, deterministic cuDNN, 30 steps logged
               every 5 with an eval of 8 batches of 8x512 every 10, the same
@@ -2899,9 +2916,10 @@ def span_ms(tele, name: str) -> list:
 
 
 # The resume phase's `large` runs at full width but RESUME_LARGE_BLOCKS of
-# its 12 blocks: a depth cut that keeps the full run near 1000 s on the
-# slower card machines (full depth: 1051 and 1099 s there, PERF.md).
-RESUME_LARGE_BLOCKS = 6
+# its 12 blocks: a depth cut that keeps the full run inside its limit on
+# the slower card machines (full depth: 1051 and 1099 s there; 6 blocks
+# with the seq mesh legs: 1234 s, PERF.md).
+RESUME_LARGE_BLOCKS = 3
 
 
 def resume_phase(card: str) -> dict:
@@ -6603,8 +6621,9 @@ def data_two_ranks(card: str, root: str) -> None:
                                    for k, v in res.items()))
 
 
-# The corpus phase: entries, the GO DAG's size, UniRef90's element layout.
-ETL_ENTRIES = 100_000
+# The corpus phase: entries (50,000 of UniRef90's ~1.5e8, a cut for the
+# full run's time), the GO DAG's size, UniRef90's element layout.
+ETL_ENTRIES = 50_000
 ETL_GO_TERMS = 600
 ETL_CATEGORIES = ("GO Molecular Function", "GO Biological Process",
                   "GO Cellular Component")
@@ -7174,7 +7193,7 @@ def check_run(card: str, root: str) -> dict:
 # The mesh phase: `large` widths on ranks spawned on the one card, over
 # gloo (as the data phase's two ranks).
 MESH_STEPS = 3
-MESH_RANK_TIMEOUT = 420   # seconds for one spawned group, start-up included
+MESH_RANK_TIMEOUT = 720   # seconds for the spawn of every leg, start-up included
 MESH_FP32_TOL = 2e-5      # float32 losses against the one-process loop (rel)
 MESH_BF16_TOL = 5e-3      # bf16 losses against the one-process loop (rel)
 MESH_STATE_MARGIN = (0.03, 256 << 20)   # (share, bytes) over the rule's
@@ -7182,6 +7201,9 @@ MESH_STATE_MARGIN = (0.03, 256 << 20)   # (share, bytes) over the rule's
 # step 0, without its warmup, a bf16 Large run's loss climbs (4.50, 4.85,
 # 5.91) and amplifies the rounding of the split GO head into the losses.
 MESH_LR = 2e-5
+# The model=3 bf16 leg's depth: 6 of `large`'s 12 blocks, a cut that
+# keeps the full run near 1000 s once the seq legs run too.
+MESH_MODEL_BLOCKS = 6
 MESH_IDENTITY = dict(token_randomize_prob=0.0, annotation_corrupt_prob=1.0,
                      annotation_drop_prob=0.0, annotation_add_prob=0.0)
 
@@ -7281,80 +7303,108 @@ def replicated_digest(state) -> str:
     return h.hexdigest()
 
 
-def mesh_rank(rank: int, world: int, store: str, out: str, device: str,
-              leg: str) -> None:
-    """One rank of leg "fsdp" (two ranks: (a) bf16 at full depth, then
-    float32 at depth 2 with a checkpoint) or "model" (three ranks: (b),
-    bf16 at full depth, then float32 at depth 2); writes
-    `<out>/<leg><rank>.json`."""
+# The mesh phase's legs, in the order one spawn of max(world) processes
+# runs them: (leg, ranks, mesh axes).
+MESH_LEGS = (("fsdp", 2, {"fsdp": 2}), ("model", 3, {"model": 3}),
+             ("seqfsdp", 4, {"fsdp": 2, "seq": 2}),
+             ("seqmodel", 6, {"model": 3, "seq": 2}))
+
+
+def mesh_rank(rank: int, out: str, device: str) -> None:
+    """One process of the mesh phase's spawn: for each leg of MESH_LEGS
+    in turn, the processes below the leg's rank count join the leg's own
+    gloo group (a FileStore of its own) and run it (`mesh_leg`); the
+    others go on to the next leg's rendezvous. One start-up serves every
+    leg. Writes `<out>/<leg><rank>.json` for each leg it ran."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from proteinbert_tpu_torch.parallel.mesh import make_mesh
-    from proteinbert_tpu_torch.parallel.zero import (
-        comm_bytes, per_chip_state_bytes,
-    )
-    from proteinbert_tpu_torch.train import Checkpointer
-
     global DEVICE
     DEVICE = device
     if device == "cuda":
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
+    for leg, world, axes in MESH_LEGS:
+        if rank >= world:
+            continue
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(out, f"{leg}_store"),
+                                         world),
+            rank=rank, world_size=world)
+        try:
+            t0 = time.perf_counter()
+            res = mesh_leg(leg, axes, out)
+            res["wall_s"] = time.perf_counter() - t0
+            with open(os.path.join(out, f"{leg}{rank}.json"), "w") as f:
+                json.dump(res, f)
+        finally:
+            deterministic(False)
+            dist.destroy_process_group()
+
+
+def mesh_leg(leg: str, axes: dict, out: str) -> dict:
+    """This rank's runs of `leg` on the joined group: "fsdp" ((a) bf16 at
+    full depth, then float32 at depth 2 with a checkpoint, the quantized
+    legs), "model" ((b) bf16 at MESH_MODEL_BLOCKS blocks, then float32 at
+    depth 2), "seqfsdp" ((d) bf16 at full depth with the identity
+    corruption, then float32 at depth 2 with a checkpoint) or "seqmodel"
+    ((e) float32 at depth 2) → {run: its numbers}."""
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.zero import (
+        comm_bytes, per_chip_state_bytes,
+    )
+    from proteinbert_tpu_torch.train import Checkpointer
+
     res = {}
-    try:
-        axes = {"fsdp": {"fsdp": 2}, "model": {"model": 3}}[leg]
-        runs = [("bf16", mesh_cfg(axes)),
-                ("fp32", mesh_cfg(axes, "float32", 2, True))]
-        if leg == "fsdp":
-            # The quantized reduce-scatter through `pretrain` (ZeRO-1 on).
-            runs += [(f"q_{p}", quant_cfg(mesh_cfg(axes), p))
-                     for p in ("int8", "bf16")]
-        for name, cfg in runs:
-            deterministic(name == "fp32" or leg == "model")
-            mesh = make_mesh(cfg.mesh)
-            ck = None
-            if name == "fp32" and leg == "fsdp":
-                cfg = cfg.replace(checkpoint=dataclasses.replace(
-                    cfg.checkpoint, every_steps=2, async_save=False))
-                ck = Checkpointer(os.path.join(out, "ck"), async_save=False,
-                                  mesh=mesh)
-            run, steps, tele, peak = mesh_train(cfg, mesh_batches(cfg, 14),
-                                                mesh, ck)
-            if ck is not None:
-                ck.close()
-            state = run["state"]
-            byte_out, wire = comm_bytes(tele.metrics)
-            rules = per_chip_state_bytes(
-                mesh, state, zero_update=cfg.parallel.zero_update)
-            res[name] = {
-                "steps": steps, "wire": wire, "out_bytes": byte_out,
-                "peak": peak,
-                "per_chip": rules,
-                "whole": per_chip_state_bytes(single_mesh(), state),
-                "stored": sum(t.nbytes for t in
-                              tree_tensors(state.params)
-                              + list(state.opt_state.mu)
-                              + list(state.opt_state.nu)
-                              + list((state.opt_state.plateau
-                                      or {}).values())),
-                "tp_cols": (None if state.layout.tp is None
-                            else state.layout.tp.cols),
-                "digest": replicated_digest(state)}
-            del run, state, ck
-            gc.collect()
-            torch.cuda.empty_cache()
-        if leg == "fsdp":
-            deterministic(True)
-            res["quant2"] = quant_depth2(mesh_cfg(axes, "float32", 2, True))
-        with open(os.path.join(out, f"{leg}{rank}.json"), "w") as f:
-            json.dump(res, f)
-    finally:
-        deterministic(False)
-        dist.destroy_process_group()
+    runs = [("bf16", mesh_cfg(axes, identity=leg == "seqfsdp",
+                              blocks=MESH_MODEL_BLOCKS if leg == "model"
+                              else 12)),
+            ("fp32", mesh_cfg(axes, "float32", 2, True))]
+    if leg == "seqmodel":
+        runs = runs[1:]
+    if leg == "fsdp":
+        # The quantized reduce-scatter through `pretrain` (ZeRO-1 on).
+        runs += [(f"q_{p}", quant_cfg(mesh_cfg(axes), p))
+                 for p in ("int8", "bf16")]
+    for name, cfg in runs:
+        deterministic(name == "fp32" or leg == "model")
+        mesh = make_mesh(cfg.mesh)
+        ck = None
+        if name == "fp32" and leg in ("fsdp", "seqfsdp"):
+            cfg = cfg.replace(checkpoint=dataclasses.replace(
+                cfg.checkpoint, every_steps=2, async_save=False))
+            ck = Checkpointer(os.path.join(out, f"ck_{leg}"),
+                              async_save=False, mesh=mesh)
+        run, steps, tele, peak = mesh_train(cfg, mesh_batches(cfg, 14),
+                                            mesh, ck)
+        if ck is not None:
+            ck.close()
+        state = run["state"]
+        byte_out, wire = comm_bytes(tele.metrics)
+        rules = per_chip_state_bytes(
+            mesh, state, zero_update=cfg.parallel.zero_update)
+        res[name] = {
+            "steps": steps, "wire": wire, "out_bytes": byte_out,
+            "peak": peak,
+            "per_chip": rules,
+            "whole": per_chip_state_bytes(single_mesh(), state),
+            "stored": sum(t.nbytes for t in
+                          tree_tensors(state.params)
+                          + list(state.opt_state.mu)
+                          + list(state.opt_state.nu)
+                          + list((state.opt_state.plateau
+                                  or {}).values())),
+            "tp_cols": (None if state.layout.tp is None
+                        else state.layout.tp.cols),
+            "digest": replicated_digest(state)}
+        del run, state, ck
+        gc.collect()
+        torch.cuda.empty_cache()
+    if leg == "fsdp":
+        deterministic(True)
+        res["quant2"] = quant_depth2(mesh_cfg(axes, "float32", 2, True))
+    return res
 
 
 def quant_cfg(cfg, payload: str):
@@ -7447,14 +7497,14 @@ def single_mesh():
                 coords={ax: 0 for ax in AXES})
 
 
-def mesh_spawn(leg: str, world: int, root: str) -> list:
-    """`mesh_rank` on `world` spawned ranks → each rank's results."""
+def mesh_spawn(root: str) -> dict:
+    """`mesh_rank` on as many spawned processes as the largest leg has
+    ranks → {leg: each rank's results}."""
     import multiprocessing
 
+    world = max(n for _, n, _ in MESH_LEGS)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, world, os.path.join(root, f"{leg}_store"),
-                               root, DEVICE, leg))
+    procs = [ctx.Process(target=mesh_rank, args=(r, root, DEVICE))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -7468,9 +7518,9 @@ def mesh_spawn(leg: str, world: int, root: str) -> list:
             if p.is_alive():
                 p.kill()
                 p.join()
-    check(codes == [0] * world, f"mesh large {leg}: exit codes {codes}")
-    return [json.load(open(os.path.join(root, f"{leg}{r}.json")))
-            for r in range(world)]
+    check(codes == [0] * world, f"mesh large: exit codes {codes}")
+    return {leg: [json.load(open(os.path.join(root, f"{leg}{r}.json")))
+                  for r in range(n)] for leg, n, _ in MESH_LEGS}
 
 
 def mesh_phase(card: str) -> dict:
@@ -7487,23 +7537,27 @@ def mesh_phase(card: str) -> dict:
             totals[name] = totals.get(name, 0) + n
 
     per_step = {LOCAL_TRACK_TILED.name: 12, ATTENTION.name: 12}
+    reshards: dict = {}
     try:
         t0 = time.perf_counter()
-        fsdp = mesh_spawn("fsdp", 2, root)
-        fsdp_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        model = mesh_spawn("model", 3, root)
-        model_s = time.perf_counter() - t0
+        legs = mesh_spawn(root)
+        spawn_s = time.perf_counter() - t0
+        fsdp, model = legs["fsdp"], legs["model"]
+        print(f"# mesh large spawn [{card}]: one spawn of "
+              f"{len(legs['seqmodel'])} processes ran the legs in turn, each "
+              f"on its own gloo group: " + ", ".join(
+                  f"{leg} {len(r)} ranks {r[0]['wall_s']:.1f} s"
+                  for leg, r in legs.items()) + f"; {spawn_s:.1f} s in all")
         for leg, ranks in (("fsdp", fsdp), ("model", model)):
             for r, res in enumerate(ranks):
                 for name, run in res.items():
-                    if name == "quant2":
+                    if name in ("quant2", "wall_s"):
                         continue
                     for i, (_, loss, launches, _) in enumerate(run["steps"]):
-                        want = (per_step if name in ("bf16", "q_int8",
-                                                     "q_bf16") else
-                                {LOCAL_TRACK_TILED.name: 2,
-                                 ATTENTION.name: 2})
+                        n = (2 if name not in ("bf16", "q_int8", "q_bf16")
+                             else MESH_MODEL_BLOCKS if leg == "model"
+                             else 12)
+                        want = {LOCAL_TRACK_TILED.name: n, ATTENTION.name: n}
                         got = {k: v for k, v in launches.items() if v}
                         check(got == want and np.isfinite(loss),
                               f"mesh large {leg} {name} rank {r} step "
@@ -7543,12 +7597,16 @@ def mesh_phase(card: str) -> dict:
               f"gathered once a step); wire bytes a "
               f"step a rank: " + ", ".join(
                   f"{k} {v / MESH_STEPS:.0f}" for k, v in a["wire"].items()
-                  if v) + f"; group {fsdp_s:.1f} s from spawn")
+                  if v) + f"; leg {fsdp[0]['wall_s']:.1f} s")
         mesh_quant(card, fsdp, per_step, add)
-        # (a) float32 against one process on the same rows.
+        # (c) both float32 runs' step 2 resharded while this process runs
+        # the one-process references.
         deterministic(True)
         cfg = mesh_cfg({"fsdp": 2}, "float32", 2, True)
         one_cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=1))
+        reshards.update((leg, reshard_start(root, one_cfg, leg))
+                        for leg in ("fsdp", "seqfsdp"))
+        # (a) float32 against one process on the same rows.
         batches = mesh_batches(cfg, 14)
         ref, ref_steps, _, _ = mesh_train(one_cfg, batches)
         add({k: sum(s[2][k] for s in ref_steps) for k in ref_steps[0][2]})
@@ -7565,8 +7623,7 @@ def mesh_phase(card: str) -> dict:
               f"{[round(s[0], 1) for s in ref_steps]}, fsdp rank 0 "
               f"{[round(s[0], 1) for s in fsdp[0]['fp32']['steps']]}")
         del ref
-        # (c) reshard the fsdp float32 run's step 2 to one device, resume.
-        mesh_reshard(card, root, one_cfg, batches, got)
+        fsdp_fp32 = got
         # (b) the GO head split three ways; float32 against one process.
         digests = {r["bf16"]["digest"] for r in model}
         cols = {r[k]["tp_cols"] for r in model for k in ("bf16", "fp32")}
@@ -7583,7 +7640,7 @@ def mesh_phase(card: str) -> dict:
               f"deterministic cuDNN, identity corruption, 2981 columns a "
               f"rank: losses {got} against one process {want}, max rel "
               f"{worst:.3g} (<= {MESH_FP32_TOL}); digests equal")
-        cfg = mesh_cfg({"model": 3})
+        cfg = mesh_cfg({"model": 3}, blocks=MESH_MODEL_BLOCKS)
         ref, ref_steps, _, ref_peak = mesh_train(
             cfg.replace(mesh=dataclasses.replace(cfg.mesh, model=1)),
             mesh_batches(cfg, 14))
@@ -7596,7 +7653,8 @@ def mesh_phase(card: str) -> dict:
               f"{want} (rel {worst})")
         b = model[0]["bf16"]
         print(f"# mesh large model=3 [{card}]: three ranks of one card over "
-              f"gloo, 12 blocks bf16 B=8 L=1024 (every rank the 8 rows, "
+              f"gloo, {MESH_MODEL_BLOCKS} of 12 blocks bf16 B=8 L=1024 "
+              f"(every rank the 8 rows, "
               f"the default corruption: one replica's draws), "
               f"deterministic cuDNN: 2981 GO columns a rank; the replicated "
               f"leaves' digest after {MESH_STEPS} steps equal on the three "
@@ -7608,14 +7666,129 @@ def mesh_phase(card: str) -> dict:
               f"one process {ref_peak}; wire bytes a step a rank: "
               + ", ".join(
                   f"{k} {v / MESH_STEPS:.0f}" for k, v in b["wire"].items()
-                  if v) + f"; group {model_s:.1f} s from spawn")
+                  if v) + f"; leg {model[0]['wall_s']:.1f} s")
         del ref
+        seq_fp32 = mesh_seq(card, legs["seqfsdp"], legs["seqmodel"], add,
+                            fsdp[0]["bf16"]["per_chip"], one_cfg, fp32_ref)
+        # (c) the reshards' ends, each resumed for step 3 by one process.
+        mesh_reshard(card, root, one_cfg, batches, fsdp_fp32, "fsdp",
+                     reshards.pop("fsdp"))
+        mesh_reshard(card, root, one_cfg, batches, seq_fp32, "seqfsdp",
+                     reshards.pop("seqfsdp"))
     finally:
+        for proc in reshards.values():   # left running by a failed gate
+            proc.kill()
+            proc.wait()
         deterministic(False)
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
     return totals
+
+
+def mesh_seq(card: str, seqf: list, seqm: list, add, fsdp_per_chip: dict,
+             one_cfg, fp32_ref: list) -> list:
+    """(d), (e): the sequence-parallel step on the sharded layout through
+    `pretrain` — the four ranks at fsdp=2 x seq=2 (bf16 at full depth with
+    the identity corruption against one process, the launch and
+    state-byte gates; float32 at depth 2 against one process) and the six
+    at model=3 x seq=2 (float32 at depth 2 against one process, the
+    replicated leaves alike on every rank) → the fsdp x seq float32
+    losses (its step 2 is resharded in `mesh_phase`)."""
+    from proteinbert_tpu_torch.kernels import LOCAL_TRACK_TILED_VALID
+
+    for leg, ranks in (("seq fsdp", seqf), ("seq model", seqm)):
+        for r, res in enumerate(ranks):
+            for name, run in res.items():
+                if name == "wall_s":
+                    continue
+                want = {LOCAL_TRACK_TILED_VALID.name:
+                        12 if name == "bf16" else 2}
+                for i, (_, loss, launches, _) in enumerate(run["steps"]):
+                    got = {k: v for k, v in launches.items() if v}
+                    check(got == want and np.isfinite(loss),
+                          f"mesh large {leg} {name} rank {r} step {i + 1}: "
+                          f"launches {got}, want {want}, loss {loss}")
+                    add(launches)
+    share, extra = MESH_STATE_MARGIN
+    for r, res in enumerate(seqf):
+        a = res["bf16"]
+        want = a["per_chip"]["params"] + a["per_chip"]["opt_state"]
+        allocs = [st[3] for st in a["steps"]]
+        check(a["stored"] == want and a["per_chip"] == fsdp_per_chip
+              and all(want <= x <= want * (1 + share) + extra
+                      for x in allocs),
+              f"mesh large seq fsdp rank {r}: stored {a['stored']}, "
+              f"allocated between steps {allocs}, per_chip_state_bytes "
+              f"{a['per_chip']} (fsdp=2 alone: {fsdp_per_chip})")
+    # (d) bf16 at full depth against one process on the same rows.
+    cfg = mesh_cfg({"fsdp": 2, "seq": 2}, identity=True)
+    ref, ref_steps, _, ref_peak = mesh_train(
+        cfg.replace(mesh=one_cfg.mesh), mesh_batches(cfg, 14))
+    add({k: sum(st[2][k] for st in ref_steps) for k in ref_steps[0][2]})
+    del ref
+    a = seqf[0]["bf16"]
+    got, want = [st[1] for st in a["steps"]], [st[1] for st in ref_steps]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    check(worst <= MESH_BF16_TOL,
+          f"mesh large seq fsdp: losses {got} against one process {want} "
+          f"(rel {worst})")
+    print(f"# mesh large seq fsdp [{card}]: fsdp=2 x seq=2 on four ranks of "
+          f"one card over gloo, 12 blocks C=G=1024 H=16 A=8943 bf16, B=8 "
+          f"(4 a replica) L=1024 (512 a seq rank + 2*20 halo rows), "
+          f"identity corruption, {MESH_STEPS} steps; 12 "
+          f"{LOCAL_TRACK_TILED_VALID.name} launches a step a rank and no "
+          f"other kernel; losses {got} against one process {want}, max rel "
+          f"{worst:.3g} (<= {MESH_BF16_TOL}); step ms "
+          + "; ".join(f"rank {r} "
+                      f"{[round(st[0], 1) for st in x['bf16']['steps']]}"
+                      for r, x in enumerate(seqf))
+          + f"; one process {[round(st[0], 1) for st in ref_steps]}; state "
+          f"bytes a rank: per_chip_state_bytes {a['per_chip']} (the fsdp=2 "
+          f"leg's), stored {a['stored']}, memory_allocated after each step "
+          f"{[st[3] for st in a['steps']]}, peak "
+          f"{[x['bf16']['peak'] for x in seqf]} (one process {ref_peak}); "
+          f"wire bytes a step a rank of the counted collectives (params, "
+          f"gradients, loss masses, norm; not the halo and softmax "
+          f"exchanges): " + ", ".join(
+              f"{k} {v / MESH_STEPS:.0f}" for k, v in a["wire"].items()
+              if v) + f"; leg {seqf[0]['wall_s']:.1f} s")
+    # float32 at depth 2 against one process, then resharded and resumed.
+    got = [st[1] for st in seqf[0]["fp32"]["steps"]]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(got, fp32_ref))
+    check(worst <= MESH_FP32_TOL
+          and all([st[1] for st in x["fp32"]["steps"]] == got for x in seqf),
+          f"mesh large seq fsdp fp32: losses "
+          f"{[[st[1] for st in x['fp32']['steps']] for x in seqf]} against "
+          f"one process {fp32_ref} (rel {worst})")
+    print(f"# mesh large seq fsdp fp32 [{card}]: 2 blocks, float32, "
+          f"deterministic cuDNN, identity corruption: losses {got} against "
+          f"one process {fp32_ref}, max rel {worst:.3g} (<= "
+          f"{MESH_FP32_TOL}); step ms rank 0 "
+          f"{[round(st[0], 1) for st in seqf[0]['fp32']['steps']]}")
+    seq_fp32 = got
+    # (e) model=3 x seq=2, float32 at depth 2.
+    digests = {x["fp32"]["digest"] for x in seqm}
+    cols = {x["fp32"]["tp_cols"] for x in seqm}
+    got = [st[1] for st in seqm[0]["fp32"]["steps"]]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(got, fp32_ref))
+    check(worst <= MESH_FP32_TOL and len(digests) == 1 and cols == {2981},
+          f"mesh large seq model: losses {got} against one process "
+          f"{fp32_ref} (rel {worst}), digests {digests}, columns {cols}")
+    b = seqm[0]["fp32"]
+    print(f"# mesh large seq model [{card}]: model=3 x seq=2 on six ranks of "
+          f"one card over gloo, 2 blocks, float32, deterministic cuDNN, "
+          f"identity corruption, every rank the 8 rows (512 positions a "
+          f"seq rank): 2981 GO columns stored a rank, gathered whole for "
+          f"the seq step's forward; the replicated leaves' digest after "
+          f"{MESH_STEPS} steps equal on the six ranks; losses {got} against "
+          f"one process {fp32_ref}, max rel {worst:.3g} (<= "
+          f"{MESH_FP32_TOL}); step ms rank 0 "
+          f"{[round(st[0], 1) for st in b['steps']]}; state bytes a rank "
+          f"{b['per_chip']}; wire bytes a step a rank: " + ", ".join(
+              f"{k} {v / MESH_STEPS:.0f}" for k, v in b["wire"].items()
+              if v) + f"; leg {seqm[0]['wall_s']:.1f} s")
+    return seq_fp32
 
 
 QUANT_BOUNDS = {"fp32": 1e-6, "bf16": 5e-4, "int8": 1e-3}
@@ -7715,23 +7888,49 @@ def mesh_quant(card: str, fsdp: list, per_step: dict, add) -> None:
           + f" (int8 / fp32 payload {q['int8']['wire'] / q['fp32']['wire']:.4f})")
 
 
-def mesh_reshard(card: str, root: str, cfg, batches, fsdp_losses) -> None:
-    """(c): `reshard --target-mesh 1` of the fsdp run's step 2 as a
-    subprocess, then one process resumes it for step 3."""
+def reshard_source(leg: str) -> dict:
+    """The mesh axes of the `leg` run whose step 2 is resharded."""
+    return {"fsdp": 2, "seq": 2 if leg == "seqfsdp" else 1}
+
+
+def reshard_start(root: str, cfg, leg: str):
+    """(c): `reshard --target-mesh 1` of the `leg` run's step 2 (fsdp=2,
+    or fsdp=2 x seq=2 for "seqfsdp") started as a subprocess; a thread
+    notes when it exits (`proc.t0`, `proc.ended`)."""
     from proteinbert_tpu_torch.configs import save_config
+
+    src = os.path.join(root, f"ck_{leg}")
+    save_config(cfg.replace(mesh=dataclasses.replace(
+        cfg.mesh, **reshard_source(leg))), os.path.join(src, "config.json"))
+    proc = cli_spawn(["reshard", "--src", src, "--output",
+                      os.path.join(root, f"one_{leg}"), "--target-mesh", "1",
+                      "--step", 2, "--events-jsonl",
+                      os.path.join(root, f"reshard_{leg}.jsonl")],
+                     os.path.join(root, f"reshard_{leg}.log"))
+    proc.t0, proc.ended = time.perf_counter(), []
+    proc.waiter = threading.Thread(
+        target=lambda: (proc.wait(), proc.ended.append(time.perf_counter())),
+        daemon=True)
+    proc.waiter.start()
+    return proc
+
+
+def mesh_reshard(card: str, root: str, cfg, batches, fsdp_losses,
+                 leg: str, proc) -> None:
+    """(c): the `reshard_start` subprocess's exit, summary and event, then
+    one process resumes the resharded step 2 for step 3."""
     from proteinbert_tpu_torch.train import Checkpointer
 
-    src, dst = os.path.join(root, "ck"), os.path.join(root, "one")
-    events = os.path.join(root, "reshard.jsonl")
-    save_config(cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=2)),
-                os.path.join(src, "config.json"))
-    t0 = time.perf_counter()
-    proc = cli_spawn(["reshard", "--src", src, "--output", dst,
-                      "--target-mesh", "1", "--step", 2, "--events-jsonl",
-                      events], os.path.join(root, "reshard.log"))
+    dst = os.path.join(root, f"one_{leg}")
+    events = os.path.join(root, f"reshard_{leg}.jsonl")
+    log = os.path.join(root, f"reshard_{leg}.log")
+    label = {"fsdp": "mesh large reshard",
+             "seqfsdp": "mesh large seq fsdp reshard"}[leg]
+    source = reshard_source(leg)
     rc = cli_exit(proc, "reshard")
-    wall = time.perf_counter() - t0
-    said = open(os.path.join(root, "reshard.log")).read()
+    proc.waiter.join()
+    wall = proc.ended[0] - proc.t0
+    said = open(log).read()
     summary = json.loads([t for t in said.splitlines()
                           if t.startswith("{")][-1]) if "{" in said else {}
     from proteinbert_tpu_torch.obs import read_events
@@ -7739,24 +7938,26 @@ def mesh_reshard(card: str, root: str, cfg, batches, fsdp_losses) -> None:
     recs = [e for e in read_events(events, strict=True)
             if e["event"] == "reshard"] if os.path.exists(events) else []
     check(rc == 0 and summary.get("parity") is True and len(recs) == 1
-          and summary["schedule"] == "host_staged",
-          f"mesh large reshard: exit {rc}, summary {summary}, events "
+          and summary["schedule"] == "host_staged"
+          and summary["source_mesh"] == {"data": 1, "model": 1, **source},
+          f"{label}: exit {rc}, summary {summary}, events "
           f"{recs}; log tail {said[-2000:]}")
     ck = Checkpointer(dst, async_save=False)
     run, steps, _, _ = mesh_train(cfg, batches, checkpointer=ck)
     ck.close()
     check(len(steps) == 1 and abs(steps[0][1] - fsdp_losses[2])
           <= MESH_FP32_TOL * abs(fsdp_losses[2]),
-          f"mesh large reshard: resumed step losses {[s[1] for s in steps]}"
-          f" against the fsdp run's step 3 {fsdp_losses[2]}")
+          f"{label}: resumed step losses {[s[1] for s in steps]}"
+          f" against the {leg} run's step 3 {fsdp_losses[2]}")
     nbytes = os.path.getsize(os.path.join(dst, "2", "state.pt"))
-    print(f"# mesh large reshard [{card}]: python -m proteinbert_tpu_torch "
-          f"reshard --target-mesh 1 --step 2 of the fsdp=2 float32 run "
-          f"(depth 2): exit {rc}, {wall:.1f} s from spawn, parity "
+    print(f"# {label} [{card}]: python -m proteinbert_tpu_torch "
+          f"reshard --target-mesh 1 --step 2 of the {source} float32 run "
+          f"(depth 2): exit {rc}, {wall:.1f} s from spawn (both reshards "
+          f"side by side, beside the one-process references), parity "
           f"{summary['parity']}, schedule {summary['schedule']}, wire bytes "
           f"{summary['wire_bytes']['total']}, state.pt {nbytes} bytes, the "
           f"event valid; one process resumed it on the card: step 3 loss "
-          f"{steps[0][1]} against the fsdp run's {fsdp_losses[2]}")
+          f"{steps[0][1]} against the {leg} run's {fsdp_losses[2]}")
 
 
 # The eval phase: `base` at full width, bf16, deterministic cuDNN (the

@@ -41,15 +41,14 @@ Where it departs from the JAX CLI:
 - One process a card: `pretrain --multihost` joins the process group
   (`parallel.multihost`, from COORDINATOR_ADDRESS / NUM_PROCESSES /
   PROCESS_ID or torchrun's environment) and trains the data x fsdp x
-  model x seq mesh of `cfg.mesh` over it; a mesh whose device count is
-  not the world size is refused with the JAX message, and seq together
-  with fsdp or model with ROADMAP A11d's. `cfg.data.batch_size` is the
-  GLOBAL batch (each replica feeds batch_size / (data·fsdp) rows), where
-  the JAX CLI's is per host. Only process 0 writes config.json,
-  --events-jsonl and --metrics-jsonl. `serve --mesh` is refused (ROADMAP
-  A11d), as is `--compile-cache-dir` (the port's warm shapes are CUDA
-  graphs, which a process cannot reload), before parsing
-  (`REFUSED_FLAGS`).
+  model x seq mesh of `cfg.mesh` over it (any combination of the axes);
+  a mesh whose device count is not the world size is refused with the
+  JAX message. `cfg.data.batch_size` is the GLOBAL batch (each replica
+  feeds batch_size / (data·fsdp) rows), where the JAX CLI's is per host.
+  Only process 0 writes config.json, --events-jsonl and --metrics-jsonl.
+  `serve --mesh` is refused (ROADMAP A11d(c)), as is
+  `--compile-cache-dir` (the port's warm shapes are CUDA graphs, which a
+  process cannot reload), before parsing (`REFUSED_FLAGS`).
 - `--pretrained` names a port run directory (`train/checkpoint.
   Checkpointer` step directories plus `config.json`); an orbax directory
   of the JAX package is refused with the way across: `export-weights` in
@@ -179,19 +178,12 @@ def _device(args):
 
 def _make_mesh(cfg):
     """The run's mesh over the process group (None for a one-device mesh
-    without a group); exits with ROADMAP A11d's message for seq together
-    with fsdp or model, and with the JAX message when the mesh is not the
+    without a group); exits with the JAX message when the mesh is not the
     world."""
     import torch.distributed as dist
 
-    from proteinbert_tpu_torch.parallel.mesh import (
-        check_composable, make_mesh,
-    )
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
 
-    try:
-        check_composable(cfg.mesh)
-    except ValueError as e:
-        raise SystemExit(str(e))
     if cfg.mesh.num_devices == 1 and not dist.is_initialized():
         return None
     try:

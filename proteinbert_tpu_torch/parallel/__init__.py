@@ -5,9 +5,9 @@ placement and the sharded step (`fsdp.py`), the GO head's tensor
 parallelism (`tensor_parallel.py`), ZeRO-1 and the comm accounting
 (`zero.py`), `quant.py` (the quantized reduce-scatter and the int8
 serving arm), explicit sequence parallelism (`halo.py`,
-`seq_parallel.py`) and checkpoint resharding (`reshard.py`). Not ported:
-`seq` composed with `fsdp` or `model` (ROADMAP A11d(a)), and serving over
-a mesh (A11d(c)).
+`seq_parallel.py`, on a data-only or a sharded layout) and checkpoint
+resharding (`reshard.py`). Not ported: serving over a mesh (ROADMAP
+A11d(c)).
 
 The names below load their module on first use, so that importing one
 submodule (serving's `parallel.quant`) does not pull in the training stack

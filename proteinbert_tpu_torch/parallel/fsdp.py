@@ -36,7 +36,14 @@ sharding.py`'s rules under `jax.jit`), done by hand over
   byte moves that the shard does not hold;
 - the clip norm: every element of every full gradient counted once (the
   ranks whose other coordinates are 0 add their piece's squares), one
-  scalar all-reduce over the mesh, the same on every rank.
+  scalar all-reduce over the mesh, the same on every rank;
+- a `seq` axis (the sequence-parallel step of `parallel/seq_parallel.py`
+  on this layout): the rules ignore it, so the seq ranks of a coordinate
+  store the same shards. That step reads the params with the model
+  shards gathered too (`forward_params(gather_model=True)`, as the JAX
+  shard_map takes them whole, `P()`), sums the stored tensors' gradients
+  over the seq group before `reduce`, and the norm counts a piece on the
+  seq rank 0 only.
 
 Every collective goes through the counted wrappers of `parallel/zero.py`
 (`collective_bytes{kind}`, `collective_wire_bytes{kind}`). The step's
@@ -173,6 +180,36 @@ def _all_gather_into(dsts: Sequence[torch.Tensor],
     _gather_into(dsts, shards, dims, group, registry)
 
 
+class _ModelGather(torch.autograd.Function):
+    """Forward: the model shards → the full leaves (one all-gather over
+    the model group). Backward: this rank's slice of each full gradient —
+    the model ranks see the same rows, so the slice is the shard's
+    gradient, and no collective runs."""
+
+    @staticmethod
+    def forward(ctx, layout, *shards):
+        ctx.layout = layout
+        fulls = [s.new_empty(layout.plans[i].full_shape)
+                 for s, i in zip(shards, layout.model_leaves)]
+        _all_gather_into(fulls, [s.detach() for s in shards],
+                         [layout.plans[i].store[1]
+                          for i in layout.model_leaves],
+                         layout.mesh.model_group, layout.registry)
+        return tuple(fulls)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        layout = ctx.layout
+        out = []
+        for g, i in zip(grads, layout.model_leaves):
+            p = layout.plans[i]
+            out.append(torch.zeros(p.local_shape, device=layout.device)
+                       if g is None else _narrow(
+                           g, p.store[1], p.store_extent,
+                           p.store_index).contiguous())
+        return (None, *out)
+
+
 class _FsdpGather(torch.autograd.Function):
     """Forward: the FSDP shards → the full leaves (one all-gather over
     the fsdp group). Backward: the full leaves' gradients → each rank's
@@ -235,6 +272,8 @@ class MeshLayout:
                                 zero_update) for path, t in leaves]
         self.fsdp_leaves = [i for i, p in enumerate(self.plans)
                             if p.store and p.store[0] == "fsdp"]
+        self.model_leaves = [i for i, p in enumerate(self.plans)
+                             if p.store and p.store[0] == "model"]
         self.groups = {"data": mesh.data_group,
                        "replica": mesh.replica_group,
                        "fsdp": mesh.fsdp_group, "model": mesh.model_group}
@@ -342,26 +381,34 @@ class MeshLayout:
 
     # ------------------------------------------------------------ forward
 
-    def forward_params(self, params) -> Any:
+    def forward_params(self, params, gather_model: bool = False) -> Any:
         """The tree the model reads: the FSDP leaves gathered (through
         `_FsdpGather`, so their gradients come back reduce-scattered to
-        the shards), the model shards and whole leaves as stored."""
+        the shards), the whole leaves as stored, and the model shards as
+        stored (the tensor-parallel head) or, with `gather_model`,
+        gathered whole (through `_ModelGather`, each rank's gradient its
+        slice)."""
         from proteinbert_tpu_torch.train.schedule import tree_leaves
 
         leaves = list(tree_leaves(params))
-        if self.fsdp_leaves:
-            fulls = _FsdpGather.apply(self, *[leaves[i]
-                                              for i in self.fsdp_leaves])
-            for i, f in zip(self.fsdp_leaves, fulls):
-                leaves[i] = f
+        for idx, fn in ((self.fsdp_leaves, _FsdpGather),
+                        (self.model_leaves if gather_model else [],
+                         _ModelGather)):
+            if idx:
+                fulls = fn.apply(self, *[leaves[i] for i in idx])
+                for i, f in zip(idx, fulls):
+                    leaves[i] = f
         return _build(self.tree, leaves)
 
     # ------------------------------------------------------------- update
 
-    def reduce(self, grads: List[torch.Tensor]
+    def reduce(self, grads: List[torch.Tensor], cast_bf16: bool = False
                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Each rank's partial gradients of its stored tensors → (the
-        summed gradient of each leaf's piece, the global norm)."""
+        summed gradient of each leaf's piece, the global norm).
+        `cast_bf16` rounds the summed pieces to bf16 and back after the
+        norm is taken (JAX's numerics-only bf16 reduction, zero.py:
+        126-128; the wire stays float32)."""
         grads = [g.float() for g in grads]
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         whole: Dict[str, List[int]] = {"data": [], "replica": []}
@@ -396,17 +443,21 @@ class MeshLayout:
                                      self.groups["model"], self.registry)
             for i, g in zip(idx, synced):
                 out[i] = g.div_(model)
-        return out, self.global_norm(out)
+        norm = self.global_norm(out)
+        if cast_bf16:
+            out = [g.bfloat16().float() for g in out]
+        return out, norm
 
     def global_norm(self, pieces: List[torch.Tensor]) -> torch.Tensor:
         """sqrt of Σ x² over every element of every full gradient, each
         counted once: a rank adds a piece's squares when its coordinates
-        on the axes that do not pick the piece are 0. One scalar
-        all-reduce over the mesh, the same on every rank."""
+        on the axes that do not pick the piece are 0 (`seq` never picks
+        one: the seq ranks hold the same pieces). One scalar all-reduce
+        over the mesh, the same on every rank."""
         coords = self.mesh.coords
         sq = torch.zeros(1, dtype=torch.float32, device=self.device)
         for p, g in zip(self.plans, pieces):
-            if all(coords[ax] == 0 for ax in ("data", "fsdp", "model")
+            if all(coords[ax] == 0 for ax in ("data", "fsdp", "model", "seq")
                    if ax not in p.owners):
                 sq += (g.float() ** 2).sum()
         all_reduce(sq, dist.group.WORLD if self.mesh.size > 1 else None,

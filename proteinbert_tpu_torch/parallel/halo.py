@@ -9,7 +9,10 @@ zero padding does. A halo longer than a shard hops over several
 neighbours: round r brings the rows of ranks i ∓ r, as the JAX rounds of
 `ppermute` do (halo.py:46-69), here as direct sends to rank i ± r, each
 carrying only the rows the receiver keeps. One `batch_isend_irecv` posts
-every round's sends and receives at once.
+every round's sends and receives at once. gloo's send and receive take
+host tensors only (its collectives stage CUDA tensors themselves), so on
+a gloo group the rows of a CUDA tensor go through host memory; NCCL
+moves them on the device.
 
 The exchange is differentiable: its backward is the adjoint of the JAX
 `ppermute`s — each halo's gradient goes back to the rank that owns those
@@ -49,20 +52,23 @@ def _swap(group, sends: List[Tuple[int, torch.Tensor]],
           recv_shapes: List[Tuple[int, tuple]], like: torch.Tensor
           ) -> List[torch.Tensor]:
     """Send each (peer group rank, tensor) and receive one tensor of each
-    (peer, shape), all in one batch; → the received tensors."""
+    (peer, shape), all in one batch; → the received tensors (on `like`'s
+    device; through host memory for CUDA tensors on a gloo group)."""
+    staged = like.is_cuda and dist.get_backend(group) == "gloo"
+    where = torch.device("cpu") if staged else like.device
     ops, got = [], []
     for peer, t in sends:
-        ops.append(dist.P2POp(dist.isend, t.contiguous(),
+        ops.append(dist.P2POp(dist.isend, t.to(where).contiguous(),
                               dist.get_global_rank(group, peer), group))
     for peer, shape in recv_shapes:
-        buf = torch.empty(shape, dtype=like.dtype, device=like.device)
+        buf = torch.empty(shape, dtype=like.dtype, device=where)
         got.append(buf)
         ops.append(dist.P2POp(dist.irecv, buf,
                               dist.get_global_rank(group, peer), group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return got
+    return [b.to(like.device) for b in got] if staged else got
 
 
 class _HaloExchange(torch.autograd.Function):

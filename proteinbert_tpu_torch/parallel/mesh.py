@@ -29,8 +29,11 @@ its psums); an axis of extent 1 inside a larger world has no group
 (None: no collective). Every rank creates every group, in the same order
 (`dist.new_group` is collective over the world).
 
-Not ported (ROADMAP A11d(a)): `seq` together with `fsdp` or `model`;
-`make_mesh` refuses it.
+Every combination of the four axes is laid out, `seq` together with
+`fsdp` or `model` included: the seq ranks of one (data, fsdp, model)
+coordinate share that coordinate's rows and params, so each of the other
+groups holds the ranks of one seq index (`parallel/seq_parallel.py`'s
+step on the sharded layout of `parallel/fsdp.py`).
 """
 
 from __future__ import annotations
@@ -101,11 +104,9 @@ def _axis_groups(grid: np.ndarray, axes, rank: int, world: int):
 
 def make_mesh(cfg: MeshConfig) -> Mesh:
     """This rank's mesh of `cfg` over the default process group (without
-    one: world 1, rank 0, no groups). ValueError for `seq` together with
-    `fsdp` or `model` (`check_composable`) and when the mesh's device
+    one: world 1, rank 0, no groups). ValueError when the mesh's device
     count is not the world size (the JAX message). Collective: every
     rank of the group calls it, with the same `cfg`."""
-    check_composable(cfg)
     live = dist.is_initialized()
     world = dist.get_world_size() if live else 1
     rank = dist.get_rank() if live else 0
@@ -129,17 +130,6 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
                 fsdp_group=groups.get("fsdp"),
                 model_group=groups.get("model"),
                 replica_group=groups.get("replica"))
-
-
-def check_composable(cfg: MeshConfig) -> None:
-    """ValueError for a mesh whose `seq` axis meets an `fsdp` or `model`
-    axis: the port's sequence-parallel step replicates the params, and
-    its composition with their layout is not ported (ROADMAP A11d)."""
-    if cfg.seq > 1 and (cfg.fsdp > 1 or cfg.model > 1):
-        raise ValueError(
-            f"mesh {cfg.shape}: seq={cfg.seq} together with fsdp="
-            f"{cfg.fsdp} / model={cfg.model} is not ported yet (ROADMAP "
-            "A11d); the port composes seq with data only")
 
 
 def mesh_for_devices(n: int, data: Optional[int] = None, **axes) -> Mesh:

@@ -38,23 +38,43 @@ then runs this step on that replica's rows (corrupted with the replica's
 generator, the same on its seq ranks); the halo exchange and the
 distributed softmax stay inside the seq group. The loss share keeps both
 divisions — 1/seq for the seq ranks' shares, and the weight masses summed
-across the data group — so each gradient is still counted once along
-both axes. The seq-summed gradients are then summed over the data group
-(one flat all-reduce), or reduce-scattered over it under
+across the replica group (data·fsdp) — so each gradient is still counted
+once along both axes. The seq-summed gradients are then summed over the
+data group (one flat all-reduce), or reduce-scattered over it under
 `cfg.parallel.zero_update` when the replica extent is above 1 (ZeRO-1,
 `parallel/zero.py`; "bf16" there is JAX's numerics-only cast, and "int8"
 is refused with JAX's `QuantConfigError`).
 
+On a mesh whose fsdp or model axis is above 1 as well (`mesh.sharded`;
+JAX :187-299 on e.g. `MeshConfig(fsdp=2, seq=2)`, whose shard_map takes
+the rules' sharded state as `P()` and splits the rows over data·fsdp),
+the step keeps the state on the layout of `parallel/fsdp.py`
+(`MeshLayout`, `step.layout_for`): each step cuts a full-shape state to
+this rank's shards, corrupts the replica's rows, runs the model on the
+params gathered whole (the FSDP shards over the fsdp group, the model
+shards over the model group: no tensor parallelism inside the seq step),
+sums the stored tensors' gradients over the seq group (the fsdp
+reduce-scatter has already run in the gather's backward), reduces them
+over the replica axis (`MeshLayout.reduce`, ZeRO-1's pieces under
+`zero_update`, bf16 as JAX's cast of the reduced gradients) and updates
+this rank's pieces (`fsdp.apply_update`).
+
 Divergences from the JAX package: the caller's process groups select
 this path (`pretrain(..., seq_group=g)` or a mesh with seq > 1); the
-implicit-SPMD path has no counterpart. A group of size 1 (or None) is
-allowed and makes no collective call.
+implicit-SPMD path has no counterpart, though the refusals keep the JAX
+step's text word for word (the packed and int8 ones name
+`model.use_pallas` and the implicit-SPMD jit). A group of size 1 (or
+None) is allowed and makes no collective call. On the sharded layout
+the FSDP and model shards are gathered by explicit collectives once a
+step (the JAX partitioner places them for the shard_map), and the
+gradient pieces come back through the fsdp reduce-scatter, the seq sum
+and `MeshLayout.reduce` rather than the shard_map's transpose.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -213,16 +233,19 @@ def seq_parallel_apply(
 
 
 def seq_parallel_loss_and_grads(
-    group, params: Params, X, Y, W, cfg: PretrainConfig, data_group=None,
+    group, params: Params, X, Y, W, cfg: PretrainConfig, replica_group=None,
     registry=None,
+    forward_params: Optional[Callable[[Params], Params]] = None,
 ):
     """This rank's forward on its slice of the corrupted dense rows (X, Y,
     W — the replica's rows, the same on every rank of the seq group), the
     port's `pretrain_loss` terms on the gathered local logits, the
     backward of this rank's share and the sum of the param gradients over
     the seq group → (grads aligned with `tree_leaves(params)`, the loss
-    metrics). With a `data_group` the share's weight masses, and the
-    metrics, are the global batch's (summed over the data replicas).
+    metrics). With a `replica_group` the share's weight masses, and the
+    metrics, are the global batch's (summed over the replicas, data·fsdp).
+    `forward_params(params)` gives the tree the model reads (the sharded
+    layout's gathered params); the gradients are then those of `params`.
     ValueError if L % world != 0."""
     world = group_size(group)
     L = X["local"].shape[1]
@@ -235,11 +258,13 @@ def seq_parallel_loss_and_grads(
 
     def share():
         local_logits, global_logits = seq_parallel_apply(
-            group, params, X["local"][:, rows], X["global"], cfg.model)
+            group, params if forward_params is None
+            else forward_params(params), X["local"][:, rows], X["global"],
+            cfg.model)
         nums, dens = pretrain_loss_terms(gather_seq(local_logits, group),
                                          global_logits, Y, W)
-        loss, out["metrics"] = ts.global_loss_share(nums, dens, data_group,
-                                                    registry)
+        loss, out["metrics"] = ts.global_loss_share(nums, dens,
+                                                    replica_group, registry)
         return loss / world, {}
 
     grads, _ = ts.grads_of(params, share)
@@ -258,12 +283,14 @@ def make_seq_parallel_train_step(
     `mesh` with data replicas the replica's generator — identically on
     the group), then `seq_parallel_loss_and_grads`, then the gradients'
     sum over the mesh's data group (or ZeRO-1's reduce-scatter) and the
-    update. The
-    metrics are the global batch's, the same on every rank; `registry`
-    receives the gradient reductions' comm accounting. Refuses packed
-    batches (NotImplementedError), an int8 ZeRO reduction
-    (QuantConfigError, as the JAX step does) and L % world != 0
-    (ValueError)."""
+    update. On a `mesh.sharded` mesh the state lives on the layout of
+    `parallel/fsdp.py` (module docstring): the step takes a full-shape
+    state on its first call and returns this rank's, and
+    `step.layout_for(state)` gives the layout. The metrics are the
+    global batch's, the same on every rank; `registry` receives the
+    gradient reductions' comm accounting. Refuses packed batches
+    (NotImplementedError), an int8 ZeRO reduction (QuantConfigError, as
+    the JAX step does) and L % world != 0 (ValueError)."""
     if cfg.parallel.zero_update and cfg.parallel.grad_reduce_dtype == "int8":
         raise QuantConfigError(
             "grad_reduce_dtype='int8' is not supported by the explicit "
@@ -273,23 +300,21 @@ def make_seq_parallel_train_step(
             "cannot provide. Disable model.use_pallas (the implicit-"
             "SPMD jit cannot quantize either — use a data/fsdp mesh), "
             "or keep grad_reduce_dtype to 'fp32'/'bf16' here.")
-    data_group = None if mesh is None else mesh.data_group
     zero_on = (mesh is not None and cfg.parallel.zero_update
                and zero_extent(mesh) > 1)
+    if mesh is not None and mesh.sharded:
+        return _sharded_step(group, cfg, mesh, zero_on, registry)
+    data_group = None if mesh is None else mesh.data_group
     cache: Dict[str, Any] = {}
 
     def step(state: ts.TrainState, batch: Dict[str, Any]):
-        if "segment_ids" in batch:
-            raise NotImplementedError(
-                "packed batches (data.packing) are not supported by the "
-                "explicit sequence-parallel step: the prehaloed local-track "
-                "kernel has no segment masks (neither has the JAX one); "
-                "train packed rows without a seq group")
+        _refuse_packed(batch)
         X, Y, W, _ = ts.corrupt_for_step(
             state, batch, cfg,
             None if mesh is None else ts.replica_generator(state, mesh))
         grads, metrics = seq_parallel_loss_and_grads(
-            group, state.params, X, Y, W, cfg, data_group, registry)
+            group, state.params, X, Y, W, cfg,
+            None if mesh is None else mesh.replica_group, registry)
         if zero_on:
             opt_state, metrics["grad_norm"] = zero_gradient_update(
                 layout_for(cache, mesh, state.params), cfg.optimizer, grads,
@@ -308,4 +333,46 @@ def make_seq_parallel_train_step(
         return ts.TrainState(state.step + 1, params, opt_state,
                              state.generator), metrics
 
+    return step
+
+
+def _refuse_packed(batch: Dict[str, Any]) -> None:
+    if "segment_ids" in batch:
+        # The JAX step's text, word for word.
+        raise NotImplementedError(
+            "packed batches (data.packing) are not supported by the "
+            "explicit sequence-parallel Pallas step: the fused kernel "
+            "has no segment-boundary support yet (its guard falls "
+            "back to XLA, which this hand-sharded path cannot use). "
+            "Disable model.use_pallas (the implicit-SPMD jit "
+            "seq-shards the boundary-masked packed model fine) or "
+            "turn packing off.")
+
+
+def _sharded_step(group, cfg: PretrainConfig, mesh, zero_on: bool,
+                  registry=None):
+    """The step of `make_seq_parallel_train_step` on a `mesh.sharded`
+    mesh (module docstring): the state on `fsdp.MeshLayout`, the params
+    gathered whole for the forward, the gradients summed over the seq
+    group, then `MeshLayout.reduce` and `fsdp.apply_update`."""
+    from proteinbert_tpu_torch.parallel.fsdp import (
+        apply_update, layout_getter,
+    )
+
+    layout_for = layout_getter(mesh, zero_on, registry)
+    cast_bf16 = zero_on and cfg.parallel.grad_reduce_dtype == "bf16"
+
+    def step(state: ts.TrainState, batch: Dict[str, Any]):
+        _refuse_packed(batch)
+        layout = layout_for(state)
+        state = layout.shard_state(state)
+        X, Y, W, _ = ts.corrupt_for_step(state, batch, cfg,
+                                         ts.replica_generator(state, mesh))
+        grads, metrics = seq_parallel_loss_and_grads(
+            group, state.params, X, Y, W, cfg, mesh.replica_group, registry,
+            lambda p: layout.forward_params(p, gather_model=True))
+        pieces, norm = layout.reduce(grads, cast_bf16)
+        return apply_update(layout, cfg, state, pieces, norm, metrics)
+
+    step.layout_for = layout_for
     return step

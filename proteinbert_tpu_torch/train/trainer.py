@@ -59,9 +59,10 @@ is shape-parametric, and `perf` counts B·`cfg.data.seq_len` positions a
 step as the JAX timer does.
 
 `mesh` (`parallel.mesh.make_mesh`, one process a card) chooses the step
-as the JAX trainer does: the seq × data step when its seq extent is
-above 1 (with an fsdp or model axis as well: refused, ROADMAP A11d); the
-sharded step of `parallel/fsdp.py` when its fsdp or model extent is
+as the JAX trainer does: the sequence-parallel step when its seq extent
+is above 1 (with an fsdp or model axis as well, on the sharded layout of
+`parallel/fsdp.py`, ZeRO-1 under `cfg.parallel.zero_update` and "bf16"
+as JAX's cast of the reduced gradients); the sharded step of `parallel/fsdp.py` when its fsdp or model extent is
 above 1 (FSDP placement, the GO head's tensor parallelism, with ZeRO-1
 under `cfg.parallel.zero_update`, and then the quantized reduce-scatter
 over data·fsdp for a `grad_reduce_dtype` other than "fp32",
@@ -454,8 +455,9 @@ def pretrain(
       of the group calls `pretrain` with the same arguments (and a
       Checkpointer made with the same group).
     mesh: a `parallel.mesh.Mesh` (not with seq_group): data parallelism,
-      ZeRO-1 and the seq × data step, as the module docstring says;
-      `batch_iterator` then yields this rank's batch_size / data rows.
+      FSDP, the model axis, ZeRO-1 and the sequence-parallel step, as the
+      module docstring says; `batch_iterator` then yields this rank's
+      batch_size / (data·fsdp) rows.
     Raises NonFiniteLossError at a log point whose loss or grad norm is
     not finite, under cfg.train.on_nan == "halt".
     """
@@ -506,16 +508,18 @@ def pretrain(
             raise ValueError("pass a seq_group or a mesh, not both")
         ranks = mesh.size
         rows = local_batch_size(cfg.data.batch_size, mesh.data_extent)
-        if seq_extent > 1 and mesh.sharded:
-            raise ValueError(
-                f"mesh {mesh.shape}: seq together with fsdp / model is not "
-                "ported yet (ROADMAP A11d); the port composes seq with data "
-                "only")
         if seq_extent > 1:
             step_fn = make_seq_parallel_train_step(
                 mesh.seq_group, cfg, mesh=mesh, registry=tele.metrics)
             seq_len //= seq_extent
             kind = "the sequence-parallel step"
+            if mesh.sharded:
+                reduce = (f", ZeRO-1, gradient reduction "
+                          f"{cfg.parallel.grad_reduce_dtype}"
+                          if zero_on else "")
+                kind += (f" on the sharded layout (fsdp="
+                         f"{mesh.shape['fsdp']}, model="
+                         f"{mesh.shape['model']}{reduce})")
         elif mesh.sharded:
             step_fn = plateau_step = make_sharded_train_step(
                 mesh, cfg, registry=tele.metrics)

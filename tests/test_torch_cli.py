@@ -25,11 +25,14 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from jax import devices as jax_devices
 
+from proteinbert_tpu import configs as jconfigs
 from proteinbert_tpu.cli.main import build_parser as jax_parser
 from proteinbert_tpu.cli.main import main as jmain
 from proteinbert_tpu.configs import load_config as jax_load_config
 from proteinbert_tpu.configs import save_config as jax_save_config
+from proteinbert_tpu.parallel import make_mesh as j_make_mesh
 from proteinbert_tpu_torch.cli.main import NO_CARD, REFUSED_FLAGS
 from proteinbert_tpu_torch.cli.main import build_parser as port_parser
 from proteinbert_tpu_torch.cli.main import main as pmain
@@ -500,10 +503,16 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
         match = __import__("re").escape(str(jax_exit.value))
         argv = ["--device", "cpu", *argv]
     elif case == "seq-fsdp":
+        # One process: the JAX mesh-size message, and the way to launch.
+        with pytest.raises(ValueError) as jax_error:
+            j_make_mesh(jconfigs.MeshConfig(seq=2, fsdp=2),
+                        jax_devices()[:1])
         argv = ["--device", "cpu", "pretrain", "--preset", "tiny",
                 "--set", "mesh.seq=2", "--set", "mesh.fsdp=2",
                 "--checkpoint-dir", out]
-        match = "seq=2 together with fsdp=2.*ROADMAP A11d"
+        match = (__import__("re").escape(str(jax_error.value))
+                 + ": launch 4 processes.*--multihost.*"
+                 "--set mesh.fsdp=1 --set mesh.seq=1")
     elif case in ("geometry", "malformed"):
         weights = runs.npz if case == "geometry" else _bad_npz(runs)
         sets = ["--set=model.local_dim=64"] if case == "geometry" else []

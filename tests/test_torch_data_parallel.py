@@ -149,9 +149,10 @@ def _cfg(mod, name):
         checkpoint=mod.CheckpointConfig(**c.get("checkpoint", {})))
 
 
-def _spawn(fn, world, out):
-    """Run fn(rank, world, store, out) in `world` spawned processes; →
-    each rank's results."""
+def _spawn(fn, world, out, work=None):
+    """Run fn(rank, world, store, out) in `world` spawned processes, and
+    `work()` in this process while they run; → each rank's results (and
+    what `work` returned, when given). The timeout starts after `work`."""
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=fn, args=(r, world, str(out / "store"),
                                           str(out)))
@@ -159,6 +160,7 @@ def _spawn(fn, world, out):
     for p in procs:
         p.start()
     try:
+        done = None if work is None else work()
         deadline = time.monotonic() + SPAWN_TIMEOUT
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -174,7 +176,7 @@ def _spawn(fn, world, out):
     for r in range(world):
         with np.load(out / f"rank{r}.npz") as z:
             out_ranks.append({k: z[k] for k in z.files})
-    return out_ranks
+    return out_ranks if work is None else (out_ranks, done)
 
 
 def _close(a, b, tol, msg=""):
@@ -431,8 +433,8 @@ def test_multihost_environment(case, clean_env):
                                   "seq-fsdp"])
 def test_mesh_refusals(case):
     """One process: a mesh of more devices than the world is refused with
-    the JAX message, word for word, whatever its axes; the ZeRO rule at
-    data=2 x fsdp=2 is JAX's; seq with fsdp waits for ROADMAP A11d."""
+    the JAX message, word for word, whatever its axes (seq together with
+    fsdp too); the ZeRO rule at data=2 x fsdp=2 is JAX's."""
     if case == "rule":
         mesh = types.SimpleNamespace(
             shape={"data": 2, "fsdp": 2, "model": 1, "seq": 1})
@@ -445,13 +447,8 @@ def test_mesh_refusals(case):
                                             mesh.shape)
             assert got == want + (None,) * (len(got) - len(want)), shape
         return
-    if case == "seq-fsdp":
-        with pytest.raises(ValueError, match="seq=2 together with fsdp=2.*"
-                                             "ROADMAP A11d"):
-            make_mesh(tconfigs.MeshConfig(seq=2, fsdp=2))
-        return
     kw = {"size": dict(data=2), "fsdp": dict(fsdp=2),
-          "model": dict(model=4)}[case]
+          "model": dict(model=4), "seq-fsdp": dict(seq=2, fsdp=2)}[case]
     # The JAX message, word for word.
     with pytest.raises(ValueError) as want:
         j_make_mesh(jconfigs.MeshConfig(**kw), jax.devices()[:1])

@@ -13,7 +13,24 @@ FileStore under a temporary directory, each bounded by its own timeout:
   replicas' replicated leaves bit for bit; rank 0's step file tensor by
   tensor a one-process save of the gathered state; then the same ranks
   at data=2 x fsdp=2 with ZeRO-1 (the moments cut again over data inside
-  each fsdp shard) against JAX's ZeRO-1 step on that mesh;
+  each fsdp shard) against JAX's ZeRO-1 step on that mesh; then the
+  sequence-parallel step on the sharded layout, at fsdp=2 x seq=2 and
+  model=2 x seq=2 with C=128 and `use_pallas` (so that the JAX step runs
+  its Pallas kernel in interpret mode), plain and with ZeRO-1 in fp32
+  and bf16, against JAX `make_seq_parallel_train_step` on the same mesh
+  from `shard_train_state`'s sharded state: loss rel 2e-5, params atol
+  2e-5, the gradient norm rel 2e-6 and each leaf's first moments rel
+  4e-6 (two float32 backward passes, torch's convs against the Pallas
+  kernel's, differ at 1e-6: CPU readings 8.4e-7 and 1.2e-6); on the
+  bf16 route, JAX's cast of the reduced gradients, the norm is the fp32
+  route's bit for bit (taken before the cast) and the moments within
+  2.5e-4 of JAX's (reading 4.8e-5: the 1e-6 gradient differences round
+  some elements to the other bf16 neighbour; a stochastically rounded
+  wire lands near 2e-3); the model and seq replicas bit for bit, the
+  stored bytes, the
+  step file, and `reshard_checkpoint` of the fsdp x seq step file to one
+  device (and back) resumed by one process within 1e-5. The JAX steps
+  run while the ranks do;
 - group B, two ranks at fsdp=2: three steps with a checkpoint at step 2,
   `reshard_checkpoint` of that step to one device (parity, the event),
   and a one-process resume whose step-3 loss is the fsdp run's within
@@ -47,6 +64,9 @@ from proteinbert_tpu.parallel import quant as jquant
 from proteinbert_tpu.parallel import zero as jzero
 from proteinbert_tpu.parallel.halo import (
     seq_parallel_conv1d as j_seq_parallel_conv1d,
+)
+from proteinbert_tpu.parallel.seq_parallel import (
+    make_seq_parallel_train_step as j_make_seq_step,
 )
 from proteinbert_tpu.train import train_state as jts
 from proteinbert_tpu.train.schedule import make_optimizer as j_make_opt
@@ -100,6 +120,28 @@ for _p in ("fp32", "bf16", "int8", "int8_again"):
         zero_update=True,
         grad_reduce_dtype="bf16" if _p == "bf16" else "int8"))
 PAYLOADS = ("fp32", "bf16", "int8")
+# The sequence-parallel step on the sharded layout (group A's ranks after
+# the quantized legs): C=128 so that the JAX step runs its Pallas kernel
+# (interpret mode), A=64 so that model=2 splits the GO head; B=4 (two
+# rows a replica at fsdp=2), L=64 (32 a seq rank).
+SPEC["seq_model"] = dict(MODEL, local_dim=128, use_pallas=True)
+SEQ_STEP = {"data": dict(seq_len=64, batch_size=4, **IDENTITY),
+            "optimizer": CONSTANT,
+            "train": dict(max_steps=2, log_every=1)}
+SEQ_MESHES = {"sf": {"fsdp": 2, "seq": 2}, "sm": {"model": 2, "seq": 2}}
+SEQ_ROUTES = {"plain": {}, "zero": dict(zero_update=True),
+              "zero_bf16": dict(zero_update=True, grad_reduce_dtype="bf16")}
+for _m, _axes in SEQ_MESHES.items():
+    for _r, _par in SEQ_ROUTES.items():
+        SPEC[f"{_m}_{_r}"] = dict(SEQ_STEP, mesh=_axes, parallel=_par)
+SEQ_TAGS = tuple(f"{m}_{r}" for m in SEQ_MESHES for r in SEQ_ROUTES)
+SPEC["seq_tags"] = list(SEQ_TAGS)
+SEQ_FSDP_TAGS = tuple(t for t in SEQ_TAGS if t.startswith("sf_"))
+SEQ_MODEL_TAGS = tuple(t for t in SEQ_TAGS if t.startswith("sm_"))
+# Against JAX's step (module docstring): the gradient norm, and each
+# leaf's first moments by route.
+NORM_SEQ_REL = 2e-6
+MU_SEQ_REL = {"plain": 4e-6, "zero": 4e-6, "zero_bf16": 2.5e-4}
 # The reduction's own error, as relative bounds: the gradient norm
 # against the fp32 step's and JAX's (CPU readings at most 8.7e-8 /
 # 4.0e-5 / 1.4e-4, fp32 / bf16 / int8), and each leaf's first moment
@@ -115,7 +157,8 @@ PARAMS_ATOL = 2e-5
 def _cfg(mod, name):
     c = SPEC[name]
     return mod.PretrainConfig(
-        model=mod.ModelConfig(**MODEL),
+        model=mod.ModelConfig(**(SPEC["seq_model"] if name in SEQ_TAGS
+                                 else MODEL)),
         data=mod.DataConfig(**c["data"]),
         optimizer=mod.OptimizerConfig(**c["optimizer"]),
         mesh=mod.MeshConfig(**c["mesh"]),
@@ -124,24 +167,60 @@ def _cfg(mod, name):
         checkpoint=mod.CheckpointConfig(**c.get("checkpoint", {})))
 
 
-@functools.lru_cache(maxsize=1)
-def _jax_params():
-    cfg = jconfigs.ModelConfig(**MODEL)
+@functools.lru_cache(maxsize=2)
+def _jax_params(seq: bool = False):
+    cfg = jconfigs.ModelConfig(**(SPEC["seq_model"] if seq else MODEL))
     return jax.jit(lambda key: jmodel.init(key, cfg))(jax.random.PRNGKey(0))
 
 
-def _jax_state(cfg):
-    params = jax.tree.map(jnp.array, _jax_params())   # the step donates
+def _prefix(tag):
+    """The inputs' key prefix of the params a leg starts from."""
+    return "sp:" if tag in SEQ_TAGS else "p:"
+
+
+def _jax_state(cfg, seq=False):
+    params = jax.tree.map(jnp.array, _jax_params(seq))
     return jts.TrainState(step=jnp.int32(0), params=params,
                           opt_state=j_make_opt(cfg.optimizer).init(params),
                           key=jax.random.PRNGKey(0))
 
 
-def _inputs(out, arrays):
+def _inputs(out, arrays, seq=False):
     (out / "spec.json").write_text(json.dumps(SPEC))
     flat = flatten_params(_jax_params())
+    if seq:
+        arrays = dict(arrays, **{f"sp:{k}": v for k, v in flatten_params(
+            _jax_params(True)).items()})
     np.savez(out / "inputs.npz", **{f"p:{k}": v for k, v in flat.items()},
              **arrays)
+
+
+def _jax_seq_steps(seq_batches):
+    """JAX's `make_seq_parallel_train_step` on each seq mesh from
+    `shard_train_state`'s sharded state, one step on the first batch →
+    {tag: (loss, grad_norm, flat params, flat first moments)}. On
+    model=2 x seq=2 data·fsdp is 1, so JAX's ZeRO routes take its plain
+    path (zero_extent = 1): one step serves the three tags there."""
+    want = {}
+    for tag in SEQ_TAGS:
+        if tag in SEQ_MODEL_TAGS and tag != "sm_plain":
+            want[tag] = want["sm_plain"]
+            continue
+        jcfg = _cfg(jconfigs, tag)
+        mesh = j_make_mesh(jcfg.mesh, jax.devices()[:4])
+        bsh = batch_sharding(mesh)
+        batch = {k: jax.device_put(v, bsh[k])
+                 for k, v in seq_batches[0].items()}
+        state = shard_train_state(_jax_state(jcfg, seq=True), mesh,
+                                  zero_update=jcfg.parallel.zero_update)
+        new, m = j_make_seq_step(mesh, jcfg)(state, batch)
+        mu = [s for s in jax.tree_util.tree_leaves(
+            new.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+            if hasattr(s, "mu")][0].mu
+        want[tag] = (float(m["loss"]), float(m["grad_norm"]),
+                     flatten_params(jax.device_get(new.params)),
+                     flatten_params(jax.device_get(mu)))
+    return want
 
 
 @pytest.fixture(scope="module")
@@ -152,11 +231,24 @@ def group_a(tmp_path_factory):
     rng = np.random.default_rng(20)
     tokens, ann = _tokens(rng, 8, 32)
     q_tokens, q_ann = _tokens(rng, 16, 32)
-    _inputs(out, {"tokens": tokens, "annotations": ann,
-                  "quant:tokens": q_tokens, "quant:annotations": q_ann})
+    arrays = {"tokens": tokens, "annotations": ann,
+              "quant:tokens": q_tokens, "quant:annotations": q_ann}
+    seq_batches = []
+    for b in (0, 1):
+        t, a = _tokens(rng, 4, 64)
+        seq_batches.append({"tokens": t, "annotations": a})
+        arrays.update({f"seq{b}:tokens": t, f"seq{b}:annotations": a})
+    _inputs(out, arrays, seq=True)
     t0 = time.perf_counter()
-    ranks = _spawn(torch_mesh_child.fsdp_model, 4, out)
-    print(f"spawn {time.perf_counter() - t0:.1f} s")
+    ranks, want = _spawn(torch_mesh_child.fsdp_model, 4, out,
+                         lambda: _group_a_jax(tokens, ann, q_tokens, q_ann,
+                                              seq_batches))
+    print(f"spawn and JAX {time.perf_counter() - t0:.1f} s")
+    return ranks, want, out
+
+
+def _group_a_jax(tokens, ann, q_tokens, q_ann, seq_batches):
+    """JAX's steps of group A's legs on the same meshes and rows."""
     want = {}
     for tag in TAGS:
         jcfg = _cfg(jconfigs, tag)
@@ -184,7 +276,9 @@ def group_a(tmp_path_factory):
             state, m = step(state, batch)
         want[f"q_{payload}"] = (float(m["loss"]), float(m["grad_norm"]),
                                 flatten_params(jax.device_get(state.params)))
-    return ranks, want, out
+    want.update(_jax_seq_steps(seq_batches))
+    want["seq_batches"] = seq_batches
+    return want
 
 
 @pytest.mark.parametrize("tag", TAGS)
@@ -209,16 +303,27 @@ def test_sharded_step_matches_jax(group_a, tag):
     assert moved > 5e-5
 
 
-@pytest.mark.parametrize("tag", ["plain", "zero"])
+def _replica_pairs(tag, axis):
+    """Pairs of group A's ranks on `tag`'s mesh whose coordinates differ
+    only along `axis` (at index 0 and 1 of it)."""
+    shape = tconfigs.MeshConfig(**SPEC[tag]["mesh"]).shape
+    grid = np.arange(4).reshape(shape)
+    ax = ("data", "fsdp", "model", "seq").index(axis)
+    lines = np.moveaxis(grid, ax, -1).reshape(-1, shape[ax])
+    return [(int(line[0]), int(line[1])) for line in lines]
+
+
+@pytest.mark.parametrize("tag", ["plain", "zero", *SEQ_MODEL_TAGS])
 def test_model_replicas_stay_bit_identical(group_a, tag):
-    """Ranks (f, m=0) and (f, m=1) hold the same rows: every stored tensor
-    the model axis does not shard, and its moment, bit for bit; the
-    model-sharded ones differ (different columns)."""
+    """Ranks that differ only in their model coordinate hold the same
+    rows: every stored tensor the model axis does not shard, and its
+    moment, bit for bit; the model-sharded ones differ (different
+    columns)."""
     ranks, _, _ = group_a
     n = sum(1 for k in ranks[0] if k.startswith(f"{tag}:local:"))
     split = 0
-    for f in (0, 1):
-        a, b = ranks[2 * f], ranks[2 * f + 1]
+    for i0, i1 in _replica_pairs(tag, "model"):
+        a, b = ranks[i0], ranks[i1]
         for i in range(n):
             if str(a[f"{tag}:stored:{i}"]) == "model":
                 split += 1
@@ -232,7 +337,65 @@ def test_model_replicas_stay_bit_identical(group_a, tag):
     assert split == 2 * 3   # global_head kernel and bias, global_in kernel
 
 
-@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("tag", SEQ_TAGS)
+def test_seq_sharded_step_matches_jax(group_a, tag):
+    """The sequence-parallel step on the sharded layout against JAX's
+    `make_seq_parallel_train_step` on the same mesh, one step from the
+    same params and rows: every rank's loss, gradient norm, gathered
+    params and each leaf's gathered first moments; the GO head split
+    where the mesh has a model axis; the step moved the params."""
+    ranks, want, _ = group_a
+    loss, norm, params, mu = want[tag]
+    flat0 = flatten_params(_jax_params(True))
+    bound = MU_SEQ_REL[tag.split("_", 1)[1]]
+    for r in ranks:
+        if tag.endswith("_bf16"):   # the cast comes after the norm
+            assert r[f"{tag}:grad_norm"] == r[f"{tag[:-5]}:grad_norm"]
+        assert float(r[f"{tag}:loss"]) == pytest.approx(loss, rel=LOSS_REL)
+        assert float(r[f"{tag}:grad_norm"]) == pytest.approx(
+            norm, rel=NORM_SEQ_REL)
+        for k, v in params.items():
+            np.testing.assert_allclose(r[f"{tag}:p:{k}"], np.asarray(v),
+                                       atol=PARAMS_ATOL, err_msg=k)
+        for k, v in mu.items():
+            ref = np.asarray(v, np.float64)
+            got = r[f"{tag}:mu_flat:{k}"].astype(np.float64)
+            rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+            assert rel <= bound, (k, rel)
+    stored = {str(ranks[0][k]) for k in ranks[0]
+              if k.startswith(f"{tag}:stored:")}
+    assert stored == ({"", "model"} if tag in SEQ_MODEL_TAGS
+                      else {"", "fsdp"})
+    moved = max(float(np.abs(ranks[0][f"{tag}:p:{k}"] - v).max())
+                for k, v in flat0.items())
+    assert moved > 5e-5
+
+
+def test_pretrain_takes_the_seq_step_on_the_sharded_layout(group_a):
+    """`pretrain` on the fsdp=2 x seq=2 mesh routes to the same step: its
+    two losses are the step's, bit for bit, on every rank."""
+    ranks, _, _ = group_a
+    tag = SEQ_FSDP_TAGS[0]
+    for r in ranks:
+        np.testing.assert_array_equal(
+            r["seq_pretrain:losses"],
+            [float(r[f"{tag}:loss"]), float(r[f"{tag}:loss2"])])
+
+
+@pytest.mark.parametrize("tag", SEQ_TAGS)
+def test_seq_replicas_stay_bit_identical(group_a, tag):
+    """The seq ranks of one (data, fsdp, model) coordinate hold the same
+    shards: every stored tensor and its moment bit for bit."""
+    ranks, _, _ = group_a
+    n = sum(1 for k in ranks[0] if k.startswith(f"{tag}:local:"))
+    for i0, i1 in _replica_pairs(tag, "seq"):
+        for i in range(n):
+            for part in ("local", "mu_local"):
+                np.testing.assert_array_equal(ranks[i0][f"{tag}:{part}:{i}"],
+                                              ranks[i1][f"{tag}:{part}:{i}"])
+
+
+@pytest.mark.parametrize("tag", TAGS + SEQ_FSDP_TAGS)
 def test_step_file_equals_a_one_process_save(group_a, tag, tmp_path):
     """Rank 0's step file (the shards and ZeRO pieces gathered before the
     write) against a one-process Checkpointer's save of the gathered
@@ -275,7 +438,7 @@ def test_step_file_equals_a_one_process_save(group_a, tag, tmp_path):
     walk(got, want, "")
 
 
-@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("tag", TAGS + SEQ_TAGS)
 def test_stored_bytes_are_per_chip_state_bytes(group_a, tag):
     """What each rank stores between steps is `per_chip_state_bytes` of
     the rules: the params at their fsdp or model shard, the moments at
@@ -285,9 +448,10 @@ def test_stored_bytes_are_per_chip_state_bytes(group_a, tag):
 
     ranks, _, _ = group_a
     cfg = _cfg(tconfigs, tag)
+    pre = _prefix(tag)
     params = params_from_flat(
-        {k[len("p:"):]: v for k, v in np.load(
-            group_a[2] / "inputs.npz").items() if k.startswith("p:")},
+        {k[len(pre):]: v for k, v in np.load(
+            group_a[2] / "inputs.npz").items() if k.startswith(pre)},
         cfg.model, device="cpu")
     full = tts.TrainState(0, params, tts.make_optimizer(
         cfg.optimizer).init(params), torch.Generator())
@@ -301,7 +465,7 @@ def test_stored_bytes_are_per_chip_state_bytes(group_a, tag):
         m = sum(v.nbytes for k, v in r.items()
                 if k.startswith(f"{tag}:mu_local:"))
         assert p == want["params"] and 2 * m == want["opt_state"]
-        if cfg.parallel.zero_update:
+        if cfg.parallel.zero_update and cfg.mesh.data * cfg.mesh.fsdp > 1:
             assert m < p
 
 
@@ -495,6 +659,45 @@ def group_b(tmp_path_factory):
     ranks = _spawn(torch_mesh_child.fsdp_resume, 2, out)
     print(f"spawn {time.perf_counter() - t0:.1f} s")
     return ranks, out, arrays
+
+
+@pytest.mark.parametrize("tag", SEQ_FSDP_TAGS)
+def test_seq_fsdp_step_file_reshards_and_resumes(group_a, tag, tmp_path):
+    """The fsdp=2 x seq=2 run's step file (step 1) through
+    `reshard_checkpoint` to one device, and from there back to 1x2x1x2:
+    the same tensors, bit for bit; one process resumes the one-device
+    file and takes step 2 on the second batch, with the seq run's step-2
+    loss within 1e-5."""
+    from proteinbert_tpu_torch.parallel.reshard import states_byte_identical
+
+    ranks, want, out = group_a
+    cfg = _cfg(tconfigs, tag)
+    one, back = tmp_path / "one", tmp_path / "back"
+    summary = reshard_checkpoint(str(out / f"ck_{tag}"), str(one), cfg=cfg,
+                                 target_mesh_cfg=parse_mesh_spec("1"))
+    assert summary["parity"] is True and summary["step"] == 1
+    assert summary["source_mesh"] == {"data": 1, "fsdp": 2, "model": 1,
+                                      "seq": 2}
+    summary = reshard_checkpoint(str(one), str(back),
+                                 target_mesh_cfg=parse_mesh_spec("1x2x1x2"))
+    assert summary["parity"] is True
+    assert summary["target_mesh"] == summary["source_mesh"] | {"fsdp": 2,
+                                                               "seq": 2}
+    trees = []
+    for d in (out / f"ck_{tag}", back):
+        ck = Checkpointer(str(d), async_save=False)
+        trees.append(ck.read(1)[0])
+        ck.close()
+    assert states_byte_identical(*trees)
+    ck = Checkpointer(str(one), async_save=False)
+    run = pretrain(cfg.replace(mesh=tconfigs.MeshConfig()),
+                   lambda skip: iter(want["seq_batches"][skip:]),
+                   checkpointer=ck, device="cpu")
+    ck.close()
+    got = [h["loss"] for h in run["history"]]
+    assert len(got) == 1
+    for r in ranks:
+        assert abs(got[0] - float(r[f"{tag}:loss2"])) <= 1e-5
 
 
 def test_fsdp_checkpoint_reshards_to_one_device_and_resumes(group_b,

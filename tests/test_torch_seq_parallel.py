@@ -412,6 +412,67 @@ def test_seq_step_refusals(case, monkeypatch):
             step(_tiny_state(tcfg), batch)
 
 
+SHARDED_SHAPE = {"data": 1, "fsdp": 2, "model": 1, "seq": 2}
+
+
+@pytest.mark.parametrize("case", ["int8", "packed", "plateau"])
+def test_sharded_seq_step_refusals_match_jax(case):
+    """The JAX refusals of the seq step on a seq x fsdp mesh, word for
+    word: the int8 ZeRO reduction (QuantConfigError), a packed batch
+    (NotImplementedError) and the trainer's eval-keyed plateau
+    (ValueError). The port's mesh is this rank's view only: each refusal
+    comes before any collective."""
+    from proteinbert_tpu.parallel.quant import QuantConfigError
+    from proteinbert_tpu.train.trainer import pretrain as j_pretrain
+    from proteinbert_tpu_torch.parallel.mesh import Mesh
+    from proteinbert_tpu_torch.parallel.quant import (
+        QuantConfigError as TQuantConfigError,
+    )
+
+    jcfg, tcfg = _cfgs(dict(MODEL, use_pallas=True))
+    mesh_cfg = dict(fsdp=2, seq=2)
+    jcfg = dataclasses.replace(jcfg, mesh=jconfigs.MeshConfig(**mesh_cfg))
+    tcfg = dataclasses.replace(tcfg, mesh=tconfigs.MeshConfig(**mesh_cfg))
+    jmesh = make_mesh(jcfg.mesh, jax.devices()[:4])
+    mesh = Mesh(shape=dict(SHARDED_SHAPE), rank=0,
+                coords={ax: 0 for ax in SHARDED_SHAPE})
+    assert mesh.sharded
+    tokens, ann = _inputs(np.random.default_rng(31), B=4, L=32)
+    batch = {"tokens": tokens, "annotations": ann}
+    if case == "int8":
+        par = {"zero_update": True, "grad_reduce_dtype": "int8"}
+        jcfg = dataclasses.replace(jcfg, parallel=jconfigs.ParallelConfig(
+            **par))
+        tcfg = dataclasses.replace(tcfg, parallel=tconfigs.ParallelConfig(
+            **par))
+        with pytest.raises(QuantConfigError) as want:
+            j_make_seq_step(jmesh, jcfg)
+        with pytest.raises(TQuantConfigError) as got:
+            tsp.make_seq_parallel_train_step(None, tcfg, mesh=mesh)
+    elif case == "packed":
+        batch["segment_ids"] = (tokens > 0).astype(np.int32)
+        with pytest.raises(NotImplementedError) as want:
+            j_make_seq_step(jmesh, jcfg)(None, batch)
+        step = tsp.make_seq_parallel_train_step(None, tcfg, mesh=mesh)
+        with pytest.raises(NotImplementedError) as got:
+            step(None, batch)
+    else:
+        opt = {"plateau_metric": "eval_loss", "schedule": "warmup_plateau"}
+        jcfg = dataclasses.replace(jcfg, optimizer=dataclasses.replace(
+            jcfg.optimizer, **opt), train=jconfigs.TrainConfig(
+                max_steps=1, eval_every=1))
+        tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+            tcfg.optimizer, **opt), train=tconfigs.TrainConfig(
+                max_steps=1, eval_every=1))
+        with pytest.raises(ValueError) as want:
+            j_pretrain(jcfg, iter([batch]), mesh=jmesh,
+                       eval_batches=lambda: iter([batch]))
+        with pytest.raises(ValueError) as got:
+            pretrain(tcfg, iter([batch]), mesh=mesh, device="cpu",
+                     eval_batches=lambda: iter([batch]))
+    assert str(got.value) == str(want.value)
+
+
 # ------------------------------------- the trainer: seq group, NaN halt
 
 def _loop_cfg(**train):

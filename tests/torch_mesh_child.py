@@ -10,16 +10,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tests.torch_dp_child import _flat, _params_flat, _rows, _spec
+from tests.torch_dp_child import _flat, _like, _params_flat, _rows, _spec
 from tests.torch_seq_child import _join, _save
 
 
-def _fresh_state(cfg, arrays):
+def _fresh_state(cfg, arrays, prefix="p:"):
     from proteinbert_tpu_torch.train import train_state as ts
     from proteinbert_tpu_torch.train.schedule import make_optimizer
     from proteinbert_tpu_torch.weights import params_from_flat
 
-    params = params_from_flat(_flat(arrays, "p:"), cfg.model, device="cpu")
+    params = params_from_flat(_flat(arrays, prefix), cfg.model, device="cpu")
     return ts.TrainState(0, params, make_optimizer(cfg.optimizer).init(
         params), torch.Generator().manual_seed(0))
 
@@ -30,7 +30,8 @@ def fsdp_model(rank: int, world: int, store: str, out: str) -> None:
     replica's rows; the full-shape state after it (params and moments,
     gathered), this rank's stored tensors, and a step file written by the
     mesh's Checkpointer. Then the quantized reduce-scatter on the data=2
-    x fsdp=2 mesh (`_fsdp_quant`)."""
+    x fsdp=2 mesh (`_fsdp_quant`), and the sequence-parallel step on
+    fsdp=2 x seq=2 and model=2 x seq=2 (`_seq_sharded`)."""
     from proteinbert_tpu_torch.parallel.fsdp import make_sharded_train_step
     from proteinbert_tpu_torch.parallel.mesh import make_mesh
     from proteinbert_tpu_torch.train import Checkpointer
@@ -70,6 +71,7 @@ def fsdp_model(rank: int, world: int, store: str, out: str) -> None:
         assert ck.save(int(state.step), state)
         ck.close()
     res.update(_fsdp_quant(cfg_of, arrays))
+    res.update(_seq_sharded(spec, cfg_of, arrays, out))
     _save(out, rank, **res)
     dist.destroy_process_group()
 
@@ -125,6 +127,76 @@ def _fsdp_quant(cfg_of, arrays) -> dict:
             res[f"{tag}:local:{i}"] = t.numpy()
         for i, t in enumerate(state.opt_state.mu):
             res[f"{tag}:mu_local:{i}"] = t.numpy()
+    return res
+
+
+def _seq_sharded(spec, cfg_of, arrays, out) -> dict:
+    """The same ranks at fsdp=2 x seq=2 and at model=2 x seq=2, at the
+    widths of `spec["seq_model"]`: one step of the sequence-parallel step
+    on the sharded layout from the JAX params on this replica's rows,
+    plain and with ZeRO-1 (fp32 and bf16); the loss, the gradient norm,
+    this rank's stored tensors and moments, the gathered state (params,
+    first moments) and, on fsdp x seq, a step file written by the mesh's
+    Checkpointer and the loss of a second step on a second batch; then
+    `pretrain` over the two batches on the plain fsdp x seq route."""
+    from proteinbert_tpu_torch import configs
+    from proteinbert_tpu_torch.parallel.mesh import make_mesh
+    from proteinbert_tpu_torch.parallel.seq_parallel import (
+        make_seq_parallel_train_step,
+    )
+    from proteinbert_tpu_torch.train import Checkpointer
+    from proteinbert_tpu_torch.train.schedule import tree_leaves
+    from proteinbert_tpu_torch.train.trainer import pretrain
+
+    model = configs.ModelConfig(**spec["seq_model"])
+    res = {}
+    for tag in spec["seq_tags"]:
+        cfg = cfg_of(tag).replace(model=model)
+        mesh = make_mesh(cfg.mesh)
+        batches = [{k: _rows(arrays[f"seq{b}:{k}"], mesh.data_index,
+                             mesh.data_extent)
+                    for k in ("tokens", "annotations")} for b in (0, 1)]
+        step = make_seq_parallel_train_step(mesh.seq_group, cfg, mesh=mesh)
+        state, m = step(_fresh_state(cfg, arrays, "sp:"), batches[0])
+        layout = state.layout
+        res[f"{tag}:loss"] = np.asarray(float(m["loss"]))
+        res[f"{tag}:grad_norm"] = np.asarray(float(m["grad_norm"]))
+        for i, t in enumerate(tree_leaves(state.params)):
+            res[f"{tag}:local:{i}"] = t.numpy()
+            res[f"{tag}:stored:{i}"] = np.asarray(
+                layout.plans[i].store[0] if layout.plans[i].store else "")
+        for i, t in enumerate(state.opt_state.mu):
+            res[f"{tag}:mu_local:{i}"] = t.numpy()
+        full = layout.full_state(state)
+        res.update({f"{tag}:p:{k}": v
+                    for k, v in _params_flat(full.params).items()})
+        res.update({f"{tag}:mu_flat:{k}": v for k, v in _params_flat(
+            _like(full.params, full.opt_state.mu)).items()})
+        if mesh.shape["fsdp"] > 1:
+            for name in ("mu", "nu"):
+                for i, t in enumerate(getattr(full.opt_state, name)):
+                    res[f"{tag}:{name}:{i}"] = t.numpy()
+            res[f"{tag}:count"] = np.asarray(full.opt_state.count)
+            res[f"{tag}:generator"] = full.generator.get_state().numpy()
+            ck = Checkpointer(os.path.join(out, f"ck_{tag}"),
+                              async_save=False, mesh=mesh)
+            assert ck.save(int(state.step), state, {"batches_consumed": 1})
+            ck.close()
+            # The second step updates the stored tensors in place: copy
+            # what the arrays above share with them first.
+            res = {k: np.array(v) for k, v in res.items()}
+            state, m = step(state, batches[1])
+            res[f"{tag}:loss2"] = np.asarray(float(m["loss"]))
+    cfg = cfg_of(spec["seq_tags"][0]).replace(model=model)
+    mesh = make_mesh(cfg.mesh)
+    run = pretrain(cfg, iter([{k: _rows(arrays[f"seq{b}:{k}"],
+                                        mesh.data_index, mesh.data_extent)
+                               for k in ("tokens", "annotations")}
+                              for b in (0, 1)]),
+                   state=_fresh_state(cfg, arrays, "sp:"), mesh=mesh,
+                   device="cpu")
+    res["seq_pretrain:losses"] = np.asarray([h["loss"]
+                                             for h in run["history"]])
     return res
 
 
