@@ -3859,7 +3859,8 @@ def serve_phases(card: str, gates: bool = True) -> dict:
     host time to enqueue one. With `gates`, each also holds a graph
     replay against the eager run (`replay_equals_eager`) and depth 2
     against depth 1 with the event stream and HTTP (`depth_parity`);
-    then the int8 arm's parity shadow and the `int8_act` arm. Without
+    then the int8 arm's parity shadow, the `int8_act` arm and serving
+    over a two-lane mesh (`serve_mesh_phase`). Without
     (`--phase serve-times`, which also runs on the parent commit's
     package), only the numbers. Returns each kernel's launches summed
     over the traffic runs."""
@@ -3929,6 +3930,11 @@ def serve_phases(card: str, gates: bool = True) -> dict:
         quant="int8_act", n_requests=12, alone=False)
     for kname, n in launches.items():
         totals[kname] = totals.get(kname, 0) + n
+    del srv
+    t0 = time.perf_counter()
+    for kname, n in serve_mesh_phase(card).items():
+        totals[kname] = totals.get(kname, 0) + n
+    print(f"# serve mesh base: {time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -3970,6 +3976,197 @@ def q8_parity_phase(card: str, base) -> None:
     check(report["fp32_resident"] == "device", "shadow tree not on device")
     check(report["parity_max"] == round(worst, 9) and worst > 0,
           f"parity_max {report['parity_max']} != measured {worst}")
+
+
+LANE_BUCKETS = (256, 512)
+LANE_FLIPS = 40           # flips and rollbacks racing the batches
+LANE_RACE_BATCHES = 2000  # at most, while the flips run
+
+
+def lane_device() -> str:
+    """The one card named by index (a serving mesh's lanes), or the CPU."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def lane_batches(srv, tokens) -> list:
+    """The leg's direct batches for a server's dispatcher: bucketed, one
+    full embed batch 8x512 and one of 4x256; ragged, one full packed
+    batch (`full_ragged_batch`)."""
+    if srv.serve_mode == "bucketed":
+        return [tokens, tokens[:4, :256]]
+    return [full_ragged_batch(srv)]
+
+
+def lane_run(srv, batch):
+    """One embed batch through a server's dispatcher → its host outputs
+    as one list of arrays."""
+    disp = srv.dispatcher
+    if srv.serve_mode == "bucketed":
+        out = disp.run("embed", batch)
+        return [out[k] for k in sorted(out)]
+    return [o[k] for o in disp.run_packed("embed", *batch)
+            for k in sorted(o)]
+
+
+def lane_torn_gate(card: str, label: str, srv, params, batch,
+                   tally: "LaunchTally", per_batch: dict) -> None:
+    """A candidate loaded on both lanes, then LANE_FLIPS flips and
+    rollbacks on another thread while this one runs `batch` through the
+    two-lane dispatcher: every batch equals, bit for bit, its whole
+    output under the resident trunk or under the candidate — never one
+    lane of each. Launches: exactly per_batch a batch (the flips launch
+    nothing)."""
+    disp = srv.dispatcher
+    t0 = time.perf_counter()
+    srv.load_candidate(params=perturbed(params, ROLLOUT_FAR, seed=41))
+    load_s = time.perf_counter() - t0
+    old = lane_run(srv, batch)
+    srv.flip()
+    new = lane_run(srv, batch)
+    srv.rollback_trunk()
+    back = lane_run(srv, batch)
+    check(all(np.array_equal(a, b) for a, b in zip(old, back)),
+          f"{label}: rollback did not give the resident outputs back")
+    check(not any(np.array_equal(a, b) for a, b in zip(old, new)),
+          f"{label}: the candidate answered as the resident trunk")
+    tally.take()
+    ops = []
+
+    def flipper():
+        for i in range(LANE_FLIPS):
+            ops.append((srv.flip if i % 2 == 0 else srv.rollback_trunk)())
+
+    thread = threading.Thread(target=flipper)
+    seen = {"old": 0, "new": 0}
+    n = 0
+    t0 = time.perf_counter()
+    thread.start()
+    while thread.is_alive() and n < LANE_RACE_BATCHES:
+        got = lane_run(srv, batch)
+        n += 1
+        arms = [arm for arm, want in (("old", old), ("new", new))
+                if all(np.array_equal(a, b) for a, b in zip(got, want))]
+        check(len(arms) == 1, f"{label}: batch {n} during the flips is "
+                              "torn (it equals neither trunk's whole batch)")
+        seen[arms[0]] += 1
+    thread.join(300)
+    race_s = time.perf_counter() - t0
+    check(not thread.is_alive(), f"{label}: the flips hung")
+    got = tally.take()
+    tally.expect(f"{label} torn", got,
+                 {k: v * n for k, v in per_batch.items()})
+    srv.unload_candidate()
+    print(f"# serve {label} torn [{card}]: candidate loaded on both lanes "
+          f"in {load_s:.2f} s; {LANE_FLIPS} flips and rollbacks "
+          f"({[round(o['seconds'], 4) for o in ops]} s) on another thread "
+          f"while {n} batches ran ({race_s:.2f} s): every batch bit for "
+          f"bit one trunk's whole output, old {seen['old']} / new "
+          f"{seen['new']}; launches { {k: c for k, c in got.items() if c} }")
+
+
+def serve_mesh_phase(card: str) -> dict:
+    """`# serve mesh base ...`: serving over a mesh, two lanes on the one
+    card (a `ServeMesh` of data=2 over cuda:0 twice: each lane its own
+    copy of the trunk, CUDA graphs, pool and stream), beside a one-lane
+    server on the same seeded weights: the bucketed base path (fp32 and
+    int8) and the ragged base path, buckets 256 / 512, the embed kind.
+    Each pair of Servers answers 16 requests (exactly twice the one-lane
+    launches a batch on the mesh); then the direct batches
+    (`lane_batches`): the two-lane outputs within SERVE_EMBED_TOL of the
+    one lane's (cuBLAS may pick another algorithm for the lanes' smaller
+    products; the max difference printed), the launches exactly the
+    one-lane counts x 2 a batch; each lane's graphs and pool bytes. On
+    the bucketed fp32 pair, `lane_torn_gate`. One card cannot place the
+    lanes on two cards: the split over different cards is unchecked.
+    Returns the launches counted."""
+    from proteinbert_tpu_torch.configs import MeshConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.parallel.mesh import serve_mesh
+    from proteinbert_tpu_torch.serve.server import Server
+
+    base = get_preset("base")
+    nb = base.model.num_blocks
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(4, 26, (8, 512)).astype(np.int32)
+    tokens[:, 0], tokens[:, -1] = 1, 2
+    seqs = rollout_seqs(16, seed=43)
+    tally = LaunchTally()
+    legs = (("bucketed", "fp32", {LOCAL_TRACK.name: nb, ATTENTION.name: nb}),
+            ("bucketed", "int8", {LOCAL_TRACK.name: nb,
+                                  ATTENTION_Q8.name: nb}),
+            ("ragged", "fp32", {LOCAL_TRACK_SEGMENTS.name: nb,
+                                ATTENTION.name: nb}))
+    for mode, quant, per in legs:
+        label = f"mesh base {mode}" + ("" if quant == "fp32" else " int8")
+        gc.collect()
+        params = init(base.model, torch.Generator().manual_seed(0),
+                      device=DEVICE)
+        servers, answers = {}, {}
+        for lanes in (1, 2):
+            mesh = (None if lanes == 1 else serve_mesh(
+                MeshConfig(data=2), devices=[lane_device()] * 2))
+            # Each server its own trunk: a flip writes into the tree.
+            srv = Server(perturbed(params, 0, 0), base, device=DEVICE,
+                         buckets=LANE_BUCKETS, max_batch=8,
+                         max_wait_s=0.005, cache_size=0,
+                         warm_kinds=("embed",), serve_mode=mode,
+                         quant=quant, quant_parity_every=0, mesh=mesh)
+            t0 = time.perf_counter()
+            srv.start()
+            warm_s = time.perf_counter() - t0
+            tally.take()
+            futures = [srv.submit("embed", seq) for seq in seqs]
+            answers[lanes] = [f.result(timeout=120) for f in futures]
+            batches = settled_batches(srv)
+            got = tally.take()
+            tally.expect(f"{label} {lanes} lane(s) traffic", got,
+                         {k: v * lanes * batches for k, v in per.items()})
+            torch.cuda.synchronize()
+            by_lane = srv.dispatcher.lane_report()
+            stats = srv.stats()
+            print(f"# serve {label}, {lanes} lane(s) [{card}]: warmup "
+                  f"{warm_s:.2f} s; 16 requests in {batches} batches, "
+                  f"launches { {k: n for k, n in got.items() if n} } (want "
+                  f"{lanes} x {per} a batch); stats()['mesh'] "
+                  f"{stats['mesh']}, executables {stats['executables']}, "
+                  f"graphs {stats['graphs']}; by lane {by_lane}")
+            servers[lanes] = srv
+        served = max(embed_diff(a, b)
+                     for a, b in zip(answers[1], answers[2]))
+        worst, exact, counts = 0.0, True, {1: [], 2: []}
+        for batch in lane_batches(servers[1], tokens):
+            got = {}
+            for lanes, srv in servers.items():
+                got[lanes] = lane_run(srv, batch)
+                counts[lanes].append(tally.take())
+                tally.expect(f"{label} {lanes} lane(s) batch",
+                             counts[lanes][-1],
+                             {k: v * lanes for k, v in per.items()})
+            for a, b in zip(got[1], got[2]):
+                worst = max(worst, float(np.abs(
+                    a.astype(np.float64) - b).max()))
+                exact = exact and np.array_equal(a, b)
+        print(f"# serve {label}: two lanes vs one, the 16 served answers "
+              f"max |diff| {served:.3e}; the direct batches max |diff| "
+              f"{worst:.3e}, bit for bit {exact} (tol {SERVE_EMBED_TOL}); "
+              f"launches a direct batch, one lane "
+              f"{[{k: n for k, n in c.items() if n} for c in counts[1]]}, "
+              f"two {[{k: n for k, n in c.items() if n} for c in counts[2]]}")
+        check(served <= SERVE_EMBED_TOL and worst <= SERVE_EMBED_TOL,
+              f"{label}: two lanes differ from one by {max(served, worst)}")
+        if mode == "bucketed" and quant == "fp32":
+            lane_torn_gate(card, label, servers[2], params, tokens,
+                           tally, {k: 2 * v for k, v in per.items()})
+        for srv in servers.values():
+            check(srv.drain(timeout=120), f"{label}: drain timed out")
+        del servers, params
+    tally.take()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tally.totals
 
 
 # ---------------------------------------------------- corpus to task head
@@ -5875,6 +6072,22 @@ def cli_served(card: str, label: str, url: str, srv, reqs) -> None:
     check(worst <= SERVE_EMBED_TOL, f"cli {label}: answers differ by {worst}")
 
 
+def cli_serve_mesh(url: str, log_path: str) -> None:
+    """`serve --mesh` from the command line on the run's one-device mesh:
+    its log line and `stats()["mesh"]` (GET /healthz) are JAX's."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+        mesh = json.loads(resp.read())["stats"]["mesh"]
+    want = {"data": 1, "fsdp": 1, "model": 1, "seq": 1}
+    line = f"serving with batch-dim sharding over {want} (1 devices)"
+    logged = line in open(log_path).read()
+    print(f"# cli {CLI_PRESET} serve bucketed --mesh: stats()['mesh'] "
+          f"{mesh}, the log line '{line}' {logged}")
+    check(mesh == want and logged,
+          f"cli serve --mesh: stats mesh {mesh}, log line {logged}")
+
+
 def host_census(label: str, window_s: float = 2.0) -> None:
     """`# host census <label>`: what runs beside the next phase. This
     process's threads (their Python names) and live descendant processes,
@@ -5965,8 +6178,9 @@ def cli_phase(card: str) -> dict:
     3. `map --fasta` in this process over 384 proteins (buckets
        128/256/512, 2 shards of 64-record blocks): exactly 6 #3 + 6 K2 a
        packed batch; `map --verify`, `index`, `index --verify` ok.
-    4. `serve` as a subprocess, bucketed and `--serve-mode ragged --quant
-       int8`: CLI_SERVED lone HTTP requests each, answers against an
+    4. `serve` as a subprocess, bucketed with `--mesh` (the run's one-device
+       mesh: its log line and `stats()["mesh"]`) and `--serve-mode ragged
+       --quant int8`: CLI_SERVED lone HTTP requests each, answers against an
        in-process Server on the same trunk and arm; SIGTERM → exit 0, the
        stream ending `serve_end{drained}`. `fleet --replicas 2`: 16 routed
        embeds answered within SERVE_EMBED_TOL of the bucketed in-process
@@ -6051,8 +6265,9 @@ def cli_phase(card: str) -> dict:
         check(same, "cli: export-weights did not give the imported NPZ back")
         del flat, back
 
-        # The served processes and the no-card check boot meanwhile.
-        for label, extra in (("bucketed", []),
+        # The served processes and the no-card check boot meanwhile; the
+        # bucketed one serves over the run's one-device mesh.
+        for label, extra in (("bucketed", ["--mesh"]),
                              ("ragged int8", ["--serve-mode", "ragged",
                                               "--quant", "int8"])):
             tag = label.replace(" ", "-")
@@ -6162,6 +6377,9 @@ def cli_phase(card: str) -> dict:
                 finally:
                     if srv is not bucketed:
                         srv.drain(timeout=60)
+                if label == "bucketed":
+                    cli_serve_mesh(f"http://127.0.0.1:{port}",
+                                   path(f"{tag}.log"))
                 rc = cli_exit(procs.pop(label), f"serve {label}",
                               signal.SIGTERM)
                 last = obs.read_events(path(f"{tag}.jsonl"))[-1]

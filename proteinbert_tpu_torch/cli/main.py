@@ -46,9 +46,14 @@ Where it departs from the JAX CLI:
   JAX message. `cfg.data.batch_size` is the GLOBAL batch (each replica
   feeds batch_size / (data·fsdp) rows), where the JAX CLI's is per host.
   Only process 0 writes config.json, --events-jsonl and --metrics-jsonl.
-  `serve --mesh` is refused (ROADMAP A11d(c)), as is
-  `--compile-cache-dir` (the port's warm shapes are CUDA graphs, which a
-  process cannot reload), before parsing (`REFUSED_FLAGS`).
+  `--compile-cache-dir` is refused (the port's warm shapes are CUDA
+  graphs, which a process cannot reload), before parsing
+  (`REFUSED_FLAGS`).
+- `serve --mesh` is one process, as in JAX: `cfg.mesh` laid over the
+  visible cards (`--device cpu`: the CPU, one device), a served batch
+  split over the data·fsdp replicas, one dispatcher lane a replica
+  (`parallel/mesh.serve_mesh`); a mesh whose device count is not the
+  cards' exits with the JAX message.
 - `--pretrained` names a port run directory (`train/checkpoint.
   Checkpointer` step directories plus `config.json`); an orbax directory
   of the JAX package is refused with the way across: `export-weights` in
@@ -88,9 +93,6 @@ NO_CARD = ("no CUDA device is available: the port runs its kernels on the "
 REFUSED_FLAGS = {
     "--platform": "--platform is the JAX CLI's backend switch; the port "
                   "takes --device {cuda,cpu} (before the command)",
-    "--mesh": "--mesh: batch sharding of served requests over a device "
-              "mesh is not ported yet (ROADMAP A11d); the port serves on "
-              "one card",
     "--compile-cache-dir": "--compile-cache-dir arms XLA's persistent "
                            "compilation cache; the port's warm shapes are "
                            "CUDA graphs, which a process cannot reload, so "
@@ -1250,8 +1252,24 @@ def cmd_serve(args) -> int:
     from proteinbert_tpu_torch.serve.server import Server
     from proteinbert_tpu_torch.train.resilience import GracefulShutdown
 
-    params, cfg = _load_inference_trunk(args)
+    cfg = _pretrain_run_config(args.pretrained, args.preset,
+                               args.pretrained_set)
     device = _device(args)
+    mesh = None
+    if args.mesh:
+        from proteinbert_tpu_torch.parallel.mesh import serve_mesh
+
+        try:
+            # The visible cards, or on the CPU the CPU as one device.
+            mesh = serve_mesh(cfg.mesh, devices=(
+                [device] if device.type == "cpu" else None))
+        except ValueError as e:
+            raise SystemExit(str(e))
+        log(f"serving with batch-dim sharding over {dict(mesh.shape)} "
+            f"({mesh.size} devices)")
+    state, step = _load_state(args, cfg)
+    log(f"loaded trunk from {args.pretrained} (step {step})")
+    params = state.params
 
     def _candidate_loader(source: str):
         """Rollout candidate arm: a second trunk from another run
@@ -1368,6 +1386,7 @@ def cmd_serve(args) -> int:
             nprobe=args.nprobe,
             replica_id=args.replica_id,
             candidate_loader=_candidate_loader,
+            mesh=mesh,
         )
     except TrunkMismatchError as e:
         # The index pins the trunk its embeddings came from.
@@ -2281,6 +2300,11 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["truncate", "reject"],
                     help="over-window sequences: truncate-and-count or "
                          "reject with 400")
+    sv.add_argument("--mesh", action="store_true",
+                    help="split served batches over the data*fsdp "
+                         "replicas of the run config's mesh, one lane a "
+                         "replica card (both serve modes: bucketed micro-"
+                         "batches and ragged packed rows)")
     sv.add_argument("--max-requests", type=int,
                     help="exit after this many requests (smoke tests)")
     sv.add_argument("--events-jsonl", type=creatable_path,

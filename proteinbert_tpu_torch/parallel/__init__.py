@@ -5,9 +5,9 @@ placement and the sharded step (`fsdp.py`), the GO head's tensor
 parallelism (`tensor_parallel.py`), ZeRO-1 and the comm accounting
 (`zero.py`), `quant.py` (the quantized reduce-scatter and the int8
 serving arm), explicit sequence parallelism (`halo.py`,
-`seq_parallel.py`, on a data-only or a sharded layout) and checkpoint
-resharding (`reshard.py`). Not ported: serving over a mesh (ROADMAP
-A11d(c)).
+`seq_parallel.py`, on a data-only or a sharded layout), checkpoint
+resharding (`reshard.py`) and the one-process serving mesh
+(`mesh.serve_mesh`).
 
 The names below load their module on first use, so that importing one
 submodule (serving's `parallel.quant`) does not pull in the training stack
@@ -46,7 +46,9 @@ _EXPORTS = {
     "seq_parallel_apply": "seq_parallel",
     "seq_parallel_conv1d": "halo",
     "seq_parallel_loss_and_grads": "seq_parallel",
+    "ServeMesh": "mesh",
     "serve_batch_sharding": "sharding",
+    "serve_mesh": "mesh",
     "sharded_global_attention": "seq_parallel",
     "states_byte_identical": "reshard",
     "tree_digest": "reshard",

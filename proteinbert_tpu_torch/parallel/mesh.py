@@ -1,5 +1,6 @@
 """The (data, fsdp, model, seq) mesh over `torch.distributed` — port of
-`proteinbert_tpu/parallel/mesh.py` (`make_mesh`, `mesh_for_devices`).
+`proteinbert_tpu/parallel/mesh.py` (`make_mesh`, `mesh_for_devices`) —
+and the one-process serving mesh (`serve_mesh`).
 
 A JAX mesh is a device array; the port's is the default process group
 read as that array: one rank a card, ranks laid out data-major as
@@ -39,11 +40,13 @@ step on the sharded layout of `parallel/fsdp.py`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
+from proteinbert_tpu_torch import DeviceLike, resolve_device
 from proteinbert_tpu_torch.configs import MeshConfig
 
 AXES = ("data", "fsdp", "model", "seq")
@@ -136,3 +139,48 @@ def mesh_for_devices(n: int, data: Optional[int] = None, **axes) -> Mesh:
     """Convenience: an n-rank mesh, defaulting all parallelism to data."""
     return make_mesh(MeshConfig(data=data if data is not None else n,
                                 **axes))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh:
+    """A one-process device mesh for serving: `shape` ({axis: extent}, as
+    `jax.sharding.Mesh.shape`) and `devices`, the device grid of that
+    shape laid out data-major (an object array of `torch.device`)."""
+    shape: Dict[str, int]
+    devices: np.ndarray
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def data_extent(self) -> int:
+        """data·fsdp: the replicas a served batch's rows split over."""
+        return self.shape["data"] * self.shape["fsdp"]
+
+    @property
+    def replica_devices(self) -> List[torch.device]:
+        """The device at (d, f, model 0, seq 0) of each replica, in the
+        joint axis's order (d·fsdp + f)."""
+        return [self.devices[d, f, 0, 0] for d in range(self.shape["data"])
+                for f in range(self.shape["fsdp"])]
+
+
+def serve_mesh(cfg: MeshConfig,
+               devices: Optional[Sequence[DeviceLike]] = None) -> ServeMesh:
+    """The serving mesh of `cfg` over `devices` (None: cuda:0 …
+    cuda:{device_count - 1}, raising without CUDA), the counterpart of
+    JAX's `make_mesh(cfg, devices)` in one process. ValueError when the
+    mesh's device count is not len(devices) (the JAX message)."""
+    if devices is None:
+        resolve_device(None)
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if cfg.num_devices != len(devices):
+        raise ValueError(
+            f"mesh {cfg.shape} wants {cfg.num_devices} devices, have "
+            f"{len(devices)}")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return ServeMesh(shape=dict(zip(AXES, cfg.shape)),
+                     devices=grid.reshape(cfg.shape))

@@ -91,8 +91,34 @@ stays valid. On the int8 arm the fp32 tree, which only eager code reads,
 is swapped as in JAX. `rollback` copies the parked values back into the
 same tensors (bit for bit the pre-flip numerics) and moves the demoted
 trunk to the candidate slot. One lock (`_arm_lock`) covers every batch
-from the read of its arm (`_arm_snapshot`) to the end of its enqueue, so
+from the read of its arm (`_arm_lanes`) to the end of its enqueue, so
 a flip from another thread lands between two batches, never inside one.
+
+Serving over a mesh (`mesh=`, a `parallel/mesh.ServeMesh`; JAX
+dispatch.py:179-227, :1064-1108). The JAX dispatchers place each served
+batch with its rows split over the joint (data, fsdp) replica axis and
+the trunk replicated (`parallel/sharding.serve_batch_sharding`); the
+port does the same by hand in one process, with one lane per replica
+device (`mesh.replica_devices`). A lane holds its own copy of the
+serving trunk (the int8 tree on the int8 arms), its own serving and
+shadow streams, its own graph pool, its own head params and its own
+`WarmShape`s at `class / data_extent` rows (ragged: `rows_per_batch /
+data_extent`). A batch is padded and timed as a whole, split into
+contiguous row slices, one a lane in replica order, each enqueued under
+its lane's device and stream; the handle waits on every lane's event and
+concatenates the host outputs in order, which is what fetching a
+batch-sharded JAX array gives. Every class (ragged: `rows_per_batch`)
+must divide by `data_extent` (JAX's message); the default ladder is
+built on that multiple. Lanes replay concurrently, so each has its own
+pool. The fp32 parity shadow runs the whole batch on the first lane,
+where the fp32 trunk lives (the only copy, on the int8 arms). A
+candidate is priced per device over every lane placed there and loaded
+once a lane; `flip` and `rollback` act on every lane inside one hold of
+`_arm_lock`, and a batch holds that lock over the enqueue of all of its
+slices, so no batch is torn between arms across replicas.
+`executable_count` keeps JAX's meaning (shapes, one a class); the graphs
+across lanes are `graph_count`, their pools `graph_pool_bytes()`, both
+by lane in `lane_report()`. Without a mesh there is one lane on `device`.
 
 `metrics` (an obs `MetricsRegistry`) receives the JAX dispatcher's
 `serve_executable_count`, `serve_warmup_seconds_total`,
@@ -102,6 +128,7 @@ a flip from another thread lands between two batches, never inside one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -289,13 +316,24 @@ def resolve_buckets(cfg: PretrainConfig, buckets=None) -> Tuple[int, ...]:
     return buckets
 
 
-def default_batch_classes(max_batch: int) -> Tuple[int, ...]:
+def default_batch_classes(max_batch: int,
+                          multiple: int = 1) -> Tuple[int, ...]:
     """Ascending power-of-two ladder capped by (and always containing)
-    max_batch: 8 → (1, 2, 4, 8); 12 → (1, 2, 4, 8, 12)."""
+    max_batch: 8 → (1, 2, 4, 8); 12 → (1, 2, 4, 8, 12). With
+    `multiple` — a mesh's data*fsdp extent — every rung is a multiple
+    of it so a served batch splits evenly across the replicas:
+    (16, multiple=4) → (4, 8, 16)."""
     if max_batch < 1:
         raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    if multiple < 1:
+        raise ValueError(f"multiple must be >= 1, got {multiple}")
+    if max_batch % multiple:
+        raise ValueError(
+            f"max_batch {max_batch} is not divisible by the mesh's "
+            f"data*fsdp extent {multiple} — pick a max_batch the mesh "
+            "can split evenly over the batch dim")
     classes = []
-    c = 1
+    c = multiple
     while c < max_batch:
         classes.append(c)
         c *= 2
@@ -341,10 +379,10 @@ class WarmShape:
     Every tensor a kernel of the graph touches keeps its address across
     replays — the bf16 kernels bake TMA tensor maps of those addresses
     into their parameters at capture: the inputs are these buffers, the
-    weights are the dispatcher's, and the intermediates and per-call
-    scratches come from the graph's pool. Replays of graphs that share a
-    pool must not overlap; a dispatcher replays on one thread, each batch
-    enqueued behind the last on one stream."""
+    weights are the lane's, and the intermediates and per-call scratches
+    come from the graph's pool. Replays of graphs that share a pool must
+    not overlap; a lane's graphs share its pool and replay on one thread,
+    each batch enqueued behind the last on the lane's one stream."""
 
     def __init__(self, fn: Callable, params, cfg: PretrainConfig,
                  arrays: Sequence[np.ndarray], device: torch.device,
@@ -404,10 +442,65 @@ def host_fetch(out) -> Fetch:
     return fetch
 
 
+def _gather(parts: List[Any]):
+    """The lanes' host outputs (each a dict of arrays or one) joined
+    along the rows, in lane order."""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], dict):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+class _Lane:
+    """One replica of a dispatcher: its device, the trunk its batches
+    read (`serving`: the fp32 tree, or the int8 tree on the int8 arms;
+    the same object for the dispatcher's life, since flips copy in
+    place), its candidate (`cand`, same kind), the live batches' stream
+    and the shadow stream, and its warm shapes with their pool."""
+
+    def __init__(self, index: int, device: torch.device, serving):
+        self.index = index
+        self.device = device
+        self.serving = serving
+        self.cand = None       # under the dispatcher's _arm_lock
+        self.stream = self.shadow_stream = None
+        if device.type == "cuda":
+            # Lane 0 enqueues on the constructing thread's current stream
+            # (a dispatcher without a mesh, as before); the others on
+            # streams of their own, so the lanes' replays overlap.
+            self.stream = (torch.cuda.current_stream(device) if index == 0
+                           else torch.cuda.Stream(device))
+            self.shadow_stream = torch.cuda.Stream(device)
+        # Captured graphs by (kind, L, batch class), each at this lane's
+        # share of the class's rows. Added by the thread that dispatches,
+        # read by stats() from client threads (under _warm_lock).
+        self.graphs: Dict[Tuple[str, int, int], WarmShape] = {}
+        self.pool = None             # the lane's graphs' shared pool
+        self.capture_stream = None
+
+    @contextlib.contextmanager
+    def on(self, stream=None):
+        """This lane's device current (and `stream`, when given)."""
+        if self.device.type != "cuda":
+            yield
+            return
+        with torch.cuda.device(self.device), (
+                contextlib.nullcontext() if stream is None
+                else torch.cuda.stream(stream)):
+            yield
+
+    def sync(self) -> None:
+        """Wait for this thread's current stream on the lane's device."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+
 class BucketDispatcher:
     """Routes (kind, tokens, annotations) micro-batches to their warm
-    shape on `device` (None → "cuda") and returns trimmed host outputs.
-    `quant` picks the arm (`SERVE_QUANT_MODES`)."""
+    shape on `device` (None → "cuda") — or, with `mesh`, split over one
+    lane per replica device of the mesh — and returns trimmed host
+    outputs. `quant` picks the arm (`SERVE_QUANT_MODES`)."""
 
     def __init__(
         self,
@@ -420,22 +513,46 @@ class BucketDispatcher:
         metrics=None,
         quant: str = "fp32",
         quant_parity_every: int = 0,
+        mesh=None,
     ):
         if quant not in SERVE_QUANT_MODES:
             raise ValueError(f"quant must be one of {SERVE_QUANT_MODES}, "
                              f"got {quant!r}")
         self.params = params
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            lane_devices = [resolve_device(device)]
+        else:
+            lane_devices = list(mesh.replica_devices)
+            if (device is not None and resolve_device(device).type
+                    != lane_devices[0].type):
+                raise ValueError(
+                    f"device {device} is not the mesh's device type "
+                    f"({lane_devices[0].type}): with a mesh the lanes run "
+                    "on its replica devices")
+        self.device = lane_devices[0]
+        divisor = len(lane_devices)
         self.buckets = resolve_buckets(cfg, buckets)
         self.max_batch = int(max_batch)
         if batch_classes is None:
-            batch_classes = default_batch_classes(self.max_batch)
+            # Mesh-aware default: every rung divisible by the replica
+            # count, so `serve --mesh` works out of the box.
+            batch_classes = default_batch_classes(self.max_batch, divisor)
         self.batch_classes = tuple(sorted(int(c) for c in set(batch_classes)))
         if self.batch_classes[-1] < self.max_batch:
             raise ValueError(
                 f"largest batch class {self.batch_classes[-1]} cannot hold "
                 f"a full micro-batch of {self.max_batch}")
+        bad = [c for c in self.batch_classes if c % divisor]
+        if bad:
+            raise ValueError(
+                f"batch classes {bad} are not divisible by the mesh's "
+                f"data*fsdp extent {divisor} — a served batch shards "
+                "over the batch dim, so every compiled class must "
+                "split evenly across the replicas")
+        if mesh is not None:
+            self.params = to_device(self.params, self.device)
         self.quant = quant
         self.quant_parity_every = int(quant_parity_every)
         # True while warmup() runs its dummy batches: they neither consume
@@ -465,23 +582,31 @@ class BucketDispatcher:
                 "fp32_resident": ("device" if self.quant_parity_every > 0
                                   else "host"),
             }
+            if mesh is not None:
+                # The weight bytes above are one lane's; every lane holds
+                # them, the fp32 shadow tree only the first.
+                self.quant_report["lanes"] = len(lane_devices)
+        # One lane a replica: lane 0 serves the tree it was given, every
+        # other lane a copy of its own (the graphs bake its addresses).
+        serving = self.qparams if quant != "fp32" else self.params
+        self._lanes: List[_Lane] = []
+        for i, dev in enumerate(lane_devices):
+            lane = _Lane(i, dev, serving)
+            if i:
+                with lane.on():
+                    lane.serving = _own(serving, dev)
+            self._lanes.append(lane)
         # The blue-green candidate arm: `cand_*` serve shadow requests
         # until flip() copies them into the resident tensors; the values
         # flip() replaced wait on the host (`parked_*`) for rollback().
         # Every batch holds _arm_lock from the read of its arm to the end
-        # of its enqueue (`_arm_snapshot`).
+        # of its enqueue (`_arm_lanes`).
         self._arm_lock = threading.Lock()
         self.cand_params = None  # guarded-by: _arm_lock
         self.cand_qparams = None  # guarded-by: _arm_lock
         self.parked_params = None  # guarded-by: _arm_lock
         self.parked_qparams = None  # guarded-by: _arm_lock
         self.candidate_report: Dict = {}  # guarded-by: _arm_lock
-        # The stream live batches are enqueued on (the constructing
-        # thread's current stream) and the shadow requests' own stream.
-        self._stream = self._shadow_stream = None
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.current_stream(self.device)
-            self._shadow_stream = torch.cuda.Stream(self.device)
         self._compile_hist = (metrics.histogram("serve_compile_seconds")
                               if metrics is not None else None)
         self._exec_g = (metrics.gauge("serve_executable_count")
@@ -489,19 +614,19 @@ class BucketDispatcher:
         self._warmup_g = (metrics.gauge("serve_warmup_seconds_total")
                           if metrics is not None else None)
         self.warmup_seconds_total = 0.0
-        # Captured graphs by (kind, L, batch class). Added by the thread
-        # that dispatches, read by stats() from client threads.
-        self._graphs: Dict[Tuple[str, int, int], WarmShape] = {}
+        # Guards every lane's `graphs`.
         self._warm_lock = threading.Lock()
-        self._pool = None             # the graphs' shared memory pool
-        self._capture_stream = None
         # Registered heads: head_id -> LoadedHead with its params on the
-        # device. Requests keep the head they were admitted with, so a
-        # removal drains queued work.
+        # first lane's device; `_head_lanes` keeps (those params, their
+        # copy on each lane). Requests keep the head they were admitted
+        # with, so a removal drains queued work.
         self.heads: Dict[str, LoadedHead] = {}
+        self._head_lanes: Dict[str, Tuple[Any, List[Any]]] = {}
         self._heads_lock = threading.Lock()
         self.warmup_report: Dict = {"trunk_executables": 0,
                                     "trunk_s": 0.0, "heads": {}}
+        if len(self._lanes) > 1:
+            self._sync()  # the lanes' copies, before their own streams
 
     # ------------------------------------------------------------ routing
 
@@ -530,15 +655,19 @@ class BucketDispatcher:
     # ------------------------------------------------------ head registry
 
     def add_head(self, head: LoadedHead, warm: bool = False) -> float:
-        """Register a head for predict_task: its params go to the device
-        once, as float32 tensors. With `warm` (a live server) its tail
-        runs once per warm trunk shape (`warm_head`); returns those
-        seconds. No trunk graph is captured."""
-        placed = heads_apply.head_params_on(head.params, self.device)
+        """Register a head for predict_task: its params go to every
+        lane's device once, as float32 tensors. With `warm` (a live
+        server) its tail runs once per warm trunk shape (`warm_head`);
+        returns those seconds. No trunk graph is captured."""
+        placed = [heads_apply.head_params_on(head.params, lane.device)
+                  for lane in self._lanes]
         head = LoadedHead(head_id=head.head_id, name=head.name,
-                          task=head.task, params=placed, meta=head.meta)
+                          task=head.task, params=placed[0], meta=head.meta)
+        if len(self._lanes) > 1:
+            self._sync()
         with self._heads_lock:
             self.heads[head.head_id] = head
+            self._head_lanes[head.head_id] = (placed[0], placed)
         return self.warm_head(head) if warm else 0.0
 
     def remove_head(self, head_id: str) -> LoadedHead:
@@ -546,6 +675,7 @@ class BucketDispatcher:
         it are refused; admitted requests hold their own reference and
         complete."""
         with self._heads_lock:
+            self._head_lanes.pop(head_id, None)
             try:
                 return self.heads.pop(head_id)
             except KeyError:
@@ -569,15 +699,46 @@ class BucketDispatcher:
                      "num_outputs": h.task.num_outputs}
                     for h in self.heads.values()]
 
+    def _lane_heads(self, heads: Sequence[LoadedHead],
+                    lane: int) -> Sequence[LoadedHead]:
+        """`heads` with each registered head's params swapped for its
+        copy on lane `lane` (a head admitted before a removal keeps the
+        params it came with)."""
+        if lane == 0:
+            return heads
+        with self._heads_lock:
+            placed = dict(self._head_lanes)
+        swapped: Dict[str, LoadedHead] = {}
+        out = []
+        for h in heads:
+            if h.head_id not in swapped:
+                entry = placed.get(h.head_id)
+                swapped[h.head_id] = (
+                    dataclasses.replace(h, params=entry[1][lane])
+                    if entry is not None and entry[0] is h.params else h)
+            out.append(swapped[h.head_id])
+        return out
+
     def _trunk_shapes(self) -> List[Tuple[int, int]]:
-        """(L, rows) of every warm trunk graph."""
+        """(L, rows) of every warm trunk graph (rows: the whole class)."""
         with self._warm_lock:
-            return sorted({(k[1], k[2]) for k in self._graphs
+            return sorted({(k[1], k[2]) for k in self._lanes[0].graphs
                            if k[0] == "trunk"})
 
-    def _zero_trunk_out(self, L: int, rows: int) -> Dict[str, torch.Tensor]:
+    def _split(self, arrays: Sequence[np.ndarray]) -> List[Tuple]:
+        """Host batch arrays → one contiguous row slice a lane, in lane
+        order (`serve_batch_sharding`: rows over the replicas)."""
+        n = len(self._lanes)
+        if n == 1:
+            return [tuple(arrays)]
+        per = arrays[0].shape[0] // n
+        return [tuple(a[i * per:(i + 1) * per] for a in arrays)
+                for i in range(n)]
+
+    def _zero_trunk_out(self, L: int, rows: int,
+                        dev: torch.device) -> Dict[str, torch.Tensor]:
         """Zeros shaped as a bucketed trunk output."""
-        m, dev = self.cfg.model, self.device
+        m = self.cfg.model
         dtype = activation_dtype(m)
         return {"local": torch.zeros((rows, L, m.local_dim), dtype=dtype,
                                      device=dev),
@@ -594,9 +755,14 @@ class BucketDispatcher:
         as the trunk's outputs (no trunk run, nothing captured); returns
         the seconds, also recorded in `warmup_report["heads"]`."""
         total = 0.0
+        n = len(self._lanes)
         for L, rows in self._trunk_shapes():
             t0 = time.perf_counter()
-            self._head_tails(self._zero_trunk_out(L, rows), [head])
+            for lane in self._lanes:
+                with lane.on():
+                    self._head_tails(
+                        self._zero_trunk_out(L, rows // n, lane.device),
+                        self._lane_heads([head], lane.index))
             self._sync()
             total += time.perf_counter() - t0
         self.warmup_report["heads"][head.head_id] = round(total, 6)
@@ -606,82 +772,121 @@ class BucketDispatcher:
 
     @property
     def trunk_executable_count(self) -> int:
-        """Warm shared-trunk graphs — the number that stays flat across
+        """Warm shared-trunk shapes — the number that stays flat across
         head add and remove (0 on the CPU, where nothing is captured)."""
         with self._warm_lock:
-            return sum(1 for k in self._graphs if k[0] == "trunk")
+            return sum(1 for k in self._lanes[0].graphs if k[0] == "trunk")
 
     @property
     def executable_count(self) -> int:
-        """Captured CUDA graphs — the JAX dispatcher's warm executables
-        (0 on the CPU, where nothing is captured)."""
+        """Warm shapes — the JAX dispatcher's warm executables, one a
+        shape whatever the lanes (0 on the CPU, where nothing is
+        captured)."""
         with self._warm_lock:
-            return len(self._graphs)
+            return len(self._lanes[0].graphs)
+
+    @property
+    def graph_count(self) -> int:
+        """Captured CUDA graphs across the lanes (a shape's graph on each
+        lane)."""
+        with self._warm_lock:
+            return sum(len(lane.graphs) for lane in self._lanes)
+
+    def _pool_bytes(self) -> List[int]:
+        """Device bytes each lane's graph pool holds: its segments in the
+        caching allocator's snapshot (0 before the lane's first
+        capture)."""
+        pools = [None if lane.pool is None else tuple(lane.pool)
+                 for lane in self._lanes]
+        if all(p is None for p in pools):
+            return [0] * len(pools)
+        sizes = {p: 0 for p in pools if p is not None}
+        for seg in torch.cuda.memory_snapshot():
+            pool = tuple(seg.get("segment_pool_id", ()))
+            if pool in sizes:
+                sizes[pool] += seg["total_size"]
+        return [0 if p is None else sizes[p] for p in pools]
 
     def graph_pool_bytes(self) -> int:
-        """Device bytes the graphs' shared pool holds: its segments in
-        the caching allocator's snapshot (0 before the first capture)."""
-        if self._pool is None:
-            return 0
-        pool = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        """Device bytes the lanes' graph pools hold, summed."""
+        return sum(self._pool_bytes())
 
-    def _warm_shape(self, key, fn, params,
-                    arrays: Sequence[np.ndarray]) -> WarmShape:
-        """The graph of `key`, captured now on `arrays` if it is new."""
+    def lane_report(self) -> List[Dict[str, Any]]:
+        """Each lane's device, captured graphs and pool bytes."""
+        pools = self._pool_bytes()
         with self._warm_lock:
-            warm = self._graphs.get(key)
+            return [{"device": str(lane.device), "graphs": len(lane.graphs),
+                     "pool_bytes": pool}
+                    for lane, pool in zip(self._lanes, pools)]
+
+    def _warm_shape(self, lane: _Lane, key, fn, params,
+                    arrays: Sequence[np.ndarray]) -> WarmShape:
+        """The lane's graph of `key`, captured now on `arrays` (the
+        lane's slice) if it is new."""
+        with self._warm_lock:
+            warm = lane.graphs.get(key)
         if warm is not None:
             return warm
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
-        warm = WarmShape(fn, params, self.cfg, arrays, self.device,
-                         self._pool, self._capture_stream)
+        if lane.pool is None:
+            lane.pool = torch.cuda.graph_pool_handle()
+            lane.capture_stream = torch.cuda.Stream(lane.device)
+        warm = WarmShape(fn, params, self.cfg, arrays, lane.device,
+                         lane.pool, lane.capture_stream)
         with self._warm_lock:
-            self._graphs[key] = warm
-            n = len(self._graphs)
+            lane.graphs[key] = warm
+            n = len(self._lanes[0].graphs)
         if self._exec_g is not None:
             self._exec_g.set(n)
         return warm
 
-    def _device_out(self, key, fn, params, arrays: Sequence[np.ndarray],
-                    eager: bool = False):
-        """`fn` on host `arrays` → its outputs on the device: on the card
-        a replay of the shape's graph (captured now if new), on the CPU —
-        or with `eager` (the candidate arm) — the eager call, its inputs
-        staged through pinned memory on the card."""
-        if self.device.type == "cpu":
+    def _device_out(self, lane: _Lane, key, fn, params,
+                    arrays: Sequence[np.ndarray], eager: bool = False):
+        """`fn` on host `arrays` → its outputs on the lane's device: on
+        the card a replay of the lane's graph of the shape (captured now
+        if new), on the CPU — or with `eager` (the candidate arm) — the
+        eager call, its inputs staged through pinned memory on the
+        card."""
+        if lane.device.type == "cpu":
             return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
                                 for a in arrays), self.cfg.model)
         if eager:
             return fn(params, *(
                 torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
-                    self.device, non_blocking=True) for a in arrays),
+                    lane.device, non_blocking=True) for a in arrays),
                 self.cfg.model)
-        return self._warm_shape(key, fn, params, arrays).launch(arrays)
+        return self._warm_shape(lane, key, fn, params, arrays).launch(arrays)
 
-    def _submit(self, key, fn, params, arrays: Sequence[np.ndarray],
+    def _submit(self, key, fn, runs: Sequence[Any], streams: Sequence[Any],
+                arrays: Sequence[np.ndarray],
                 tail: Optional[Callable] = None,
                 eager: bool = False) -> Fetch:
-        """Start `fn` on host `arrays` → the fetch of its host outputs
-        (on the CPU already done). `tail` (the head tails) maps the
-        device outputs to what is fetched, on the same stream right
-        after."""
-        out = self._device_out(key, fn, params, arrays, eager)
-        if tail is not None:
-            out = tail(out)
-        if self.device.type == "cpu":
-            host = _map(lambda t: t.numpy(), out)
-            return lambda: host
-        return host_fetch(out)
+        """Start `fn` on host `arrays`, a row slice on each lane (its
+        params `runs[i]`, on its stream `streams[i]`) → the fetch of the
+        lanes' host outputs joined in order (on the CPU already done).
+        `tail(out, lane)` (the head tails) maps a lane's device outputs
+        to what is fetched, on the same stream right after."""
+        fetches = []
+        for lane, params, stream, part in zip(self._lanes, runs, streams,
+                                              self._split(arrays)):
+            with lane.on(stream):
+                out = self._device_out(lane, key, fn, params, part, eager)
+                if tail is not None:
+                    out = tail(out, lane.index)
+                if lane.device.type == "cpu":
+                    host = _map(lambda t: t.numpy(), out)
+                    fetches.append(lambda host=host: host)
+                else:
+                    fetches.append(host_fetch(out))
+        if len(fetches) == 1:
+            return fetches[0]
+        return lambda: _gather([f() for f in fetches])
 
     def _sync(self) -> None:
-        """Wait for this thread's stream (not the device: a live server's
-        scheduler may be capturing on another stream meanwhile)."""
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        """Wait for this thread's stream on every lane's device (not the
+        device: a live server's scheduler may be capturing on another
+        stream meanwhile)."""
+        for lane in self._lanes:
+            lane.sync()
 
     def _warm_trunk(self, key, fn, arrays: Sequence[np.ndarray]) -> int:
         """Warm the shared trunk at one shape (capture its graph on the
@@ -693,22 +898,32 @@ class BucketDispatcher:
         with self._heads_lock:
             heads = list(self.heads.values())
         with self._warm_lock:
-            new = key not in self._graphs
+            new = key not in self._lanes[0].graphs
+        lanes = self._lanes
         if new:
             t0 = time.perf_counter()
-            with self._arm_snapshot() as (run_params, _):
-                out = self._device_out(key, fn, run_params, arrays)
-                self._sync()
+            outs = []
+            with self._arm_lanes() as (runs, _, streams):
+                for lane, params, stream, part in zip(
+                        lanes, runs, streams, self._split(arrays)):
+                    with lane.on(stream):
+                        outs.append(self._device_out(lane, key, fn, params,
+                                                     part))
+                        lane.sync()
             dt = time.perf_counter() - t0
             report["trunk_executables"] += 1
             report["trunk_s"] = round(report["trunk_s"] + dt, 6)
             if self._compile_hist is not None:
                 self._compile_hist.observe(dt)
         else:
-            out = self._zero_trunk_out(key[1], key[2])
+            outs = [self._zero_trunk_out(key[1], key[2] // len(lanes),
+                                         lane.device) for lane in lanes]
         for head in heads:
             t0 = time.perf_counter()
-            self._head_tails(out, [head])
+            for lane, out in zip(lanes, outs):
+                with lane.on():
+                    self._head_tails(out, self._lane_heads([head],
+                                                           lane.index))
             self._sync()
             report["heads"][head.head_id] = round(
                 report["heads"].get(head.head_id, 0.0)
@@ -745,34 +960,41 @@ class BucketDispatcher:
         return self.quant != "fp32"
 
     @contextlib.contextmanager
-    def _arm_snapshot(self, arm: str = "resident"):
-        """Hold `_arm_lock` and yield (the params batches of `arm` run on,
-        the fp32 reference params) — the resident arm's, or the
-        candidate's (NoCandidateError when none is loaded) — with that
-        arm's stream current on the card: the live batches' stream, or
-        the shadow stream. The caller enqueues its whole batch inside,
-        so a flip lands before or after it, never inside."""
+    def _arm_lanes(self, arm: str = "resident"):
+        """Hold `_arm_lock` and yield (the params each lane's batches of
+        `arm` run on, the fp32 reference params, each lane's stream for
+        `arm`) — the resident arm's, or the candidate's
+        (NoCandidateError when none is loaded); the streams are the live
+        batches' or the shadow streams. The caller enqueues every lane's
+        slice of its batch inside, so a flip lands before or after the
+        whole batch, never inside it or between two of its lanes."""
         with self._arm_lock:
             if arm == "resident":
-                params, qp, stream = self.params, self.qparams, self._stream
+                runs = [lane.serving for lane in self._lanes]
+                ref = self.params
+                streams = [lane.stream for lane in self._lanes]
             elif arm == "candidate":
-                params, qp = self.cand_params, self.cand_qparams
-                stream = self._shadow_stream
-                if params is None:
+                if self.cand_params is None:
                     raise NoCandidateError(
                         "no candidate trunk is loaded on this replica "
                         "(load one with Server.load_candidate / "
                         "POST /v1/rollout/load)")
+                runs = [lane.cand for lane in self._lanes]
+                ref = self.cand_params
+                streams = [lane.shadow_stream for lane in self._lanes]
             else:
                 raise ValueError(f"unknown arm {arm!r}; have "
                                  "('resident', 'candidate')")
-            with self._on_stream(stream):
-                yield (qp if self._quantized else params), params
+            yield runs, ref, streams
 
-    @staticmethod
-    def _on_stream(stream):
-        return (contextlib.nullcontext() if stream is None
-                else torch.cuda.stream(stream))
+    @contextlib.contextmanager
+    def _arm_snapshot(self, arm: str = "resident"):
+        """`_arm_lanes` for the first lane: yield (the params its batches
+        of `arm` run on, the fp32 reference params) with its device and
+        stream for `arm` current."""
+        with self._arm_lanes(arm) as (runs, ref, streams):
+            with self._lanes[0].on(streams[0]):
+                yield runs[0], ref
 
     def _eager(self, fn, params, arrays: Sequence[np.ndarray]):
         """`fn` on `params` (the fp32 reference), eagerly, on host
@@ -810,6 +1032,17 @@ class BucketDispatcher:
         if self._quant_parity_g is not None:
             self._quant_parity_g.set(round(self.quant_parity_max, 9))
         timings["quant_parity_max"] = round(worst, 9)
+
+    def _tails(self, heads: Optional[Sequence[LoadedHead]]):
+        """The per-lane head tails of a predict_task batch (None for the
+        other kinds): one trunk graph for a (possibly mixed-head) batch,
+        then each distinct head's tail over the lane's rows, with the
+        head's params on that lane; each row keeps its own head's
+        output."""
+        if heads is None:
+            return None
+        return lambda out, lane: self._head_tails(
+            out, self._lane_heads(heads, lane))
 
     @staticmethod
     def _finalizer(fetch: Fetch, timings: Dict, t1: float,
@@ -898,15 +1131,10 @@ class BucketDispatcher:
         eager = arm == "candidate"
         parity_due = not eager and self._quant_batch_tick(timings)
         key = ("trunk" if heads is not None else kind, L, cls)
-        # One trunk graph for a (possibly mixed-head) predict_task batch,
-        # then each distinct head's tail over the whole batch; each row
-        # keeps its own head's output.
-        tail = (None if heads is None
-                else lambda out: self._head_tails(out, heads))
-        with self._arm_snapshot(arm) as (run_params, ref_params):
-            pending = self._submit(key, fn, run_params,
-                                   (tokens, annotations), tail=tail,
-                                   eager=eager)
+        with self._arm_lanes(arm) as (runs, ref_params, streams):
+            pending = self._submit(key, fn, runs, streams,
+                                   (tokens, annotations),
+                                   tail=self._tails(heads), eager=eager)
         if heads is not None:
             def trimmed(outs):
                 return heads_apply.rows_of(outs, heads)
@@ -954,7 +1182,7 @@ class BucketDispatcher:
                 for L in self.buckets:
                     for cls in self.batch_classes:
                         with self._warm_lock:
-                            if (kind, L, cls) in self._graphs:
+                            if (kind, L, cls) in self._lanes[0].graphs:
                                 continue
                         dummy = self._dummy_batch(L, cls)
                         self._timed_warm(lambda: self.run(kind, dummy))
@@ -995,118 +1223,153 @@ class BucketDispatcher:
     def load_candidate(self, params,
                        hbm_budget_bytes: Optional[int] = None) -> Dict:
         """Load a candidate trunk beside the resident one into tensors of
-        its own on the device. It must match the resident trunk's tree,
+        its own on every lane. It must match the resident trunk's tree,
         shapes and dtypes (ValueError otherwise): its values will be
         copied into the tensors the graphs read. On the int8 arm it is
-        quantized on the device as the resident was, and its fp32 source
-        waits on the host when `quant_parity_every <= 0`.
+        quantized on the first lane as the resident was (each other lane
+        gets a copy of that int8 tree), and its fp32 source waits on the
+        host when `quant_parity_every <= 0`.
 
-        Priced before anything is placed: the device bytes of both arms
-        (the weights; `candidate_status()` reports the graph pool beside
-        them) against `hbm_budget_bytes`, else the card's memory, else
-        (CPU) nothing; `CandidateUnfitError` when they do not fit. The
-        candidate's bytes are the resident's: the same tree. Returns the
-        candidate report (also kept for candidate_status())."""
+        Priced before anything is placed, on each device over every lane
+        placed there (two lanes on one card count twice): the device
+        bytes of both arms (the weights; `candidate_status()` reports
+        the graph pools beside them) against `hbm_budget_bytes`, else the
+        card's memory, else (CPU) nothing; `CandidateUnfitError` when
+        they do not fit. The candidate's bytes are the resident's: the
+        same tree. Returns the candidate report (also kept for
+        candidate_status()); its bytes are summed over the devices."""
         if not _same_structure(self.params, params):
             raise ValueError(
                 "candidate trunk does not match the resident trunk's "
                 "parameter structure/shapes/dtypes — only a structurally "
                 "identical trunk can take the resident's place in the "
                 "warm graphs")
-        res_dev = param_bytes(self.qparams if self._quantized
-                              else self.params)
+        lanes = self._lanes
+        per_lane = param_bytes(lanes[0].serving)
+        by_device: Dict[str, int] = {}
+        for lane in lanes:
+            key = str(lane.device)
+            by_device[key] = by_device.get(key, 0) + per_lane
         if self._quantized and self.quant_parity_every > 0:
-            res_dev += param_bytes(self.params)
-        cand_dev = res_dev
-        budget = (hbm_budget_bytes if hbm_budget_bytes is not None
-                  else _device_hbm_bytes(self.device))
-        if budget is not None and res_dev + cand_dev > budget:
-            raise CandidateUnfitError(
-                f"candidate trunk needs {cand_dev} device bytes beside "
-                f"the resident arm's {res_dev} ({res_dev + cand_dev} "
-                f"total > device memory budget {budget}) — serve "
-                "quant='int8' (~0.27x resident bytes) to buy the "
-                "headroom, or raise the budget")
-        placed = _own(params, self.device)
-        cand_q = None
+            # The fp32 shadow tree, on the first lane only.
+            by_device[str(lanes[0].device)] += param_bytes(self.params)
+        budget = None
+        for dev, res_dev in by_device.items():
+            cand_dev = res_dev
+            dev_budget = (hbm_budget_bytes if hbm_budget_bytes is not None
+                          else _device_hbm_bytes(torch.device(dev)))
+            if budget is None:
+                budget = dev_budget
+            if dev_budget is not None and res_dev + cand_dev > dev_budget:
+                raise CandidateUnfitError(
+                    f"candidate trunk needs {cand_dev} device bytes beside "
+                    f"the resident arm's {res_dev} ({res_dev + cand_dev} "
+                    f"total > device memory budget {dev_budget}) — serve "
+                    "quant='int8' (~0.27x resident bytes) to buy the "
+                    "headroom, or raise the budget")
+        res_total = sum(by_device.values())
+        with lanes[0].on():
+            placed = _own(params, lanes[0].device)
         if self._quantized:
-            cand_q = quantize_params(placed)
+            with lanes[0].on():
+                trees = [quantize_params(placed)]
             if self.quant_parity_every <= 0:
                 # No parity shadow reads it: the fp32 source waits on the
                 # host, as the resident's does.
                 placed = _copy_tree(placed, lambda t: t.cpu())
+        else:
+            trees = [placed]
+        for lane in lanes[1:]:
+            with lane.on():
+                trees.append(_own(trees[0], lane.device))
         self._sync()
         report = {
             "quant": self.quant,
-            "weight_bytes_resident": int(res_dev),
-            "weight_bytes_candidate": int(cand_dev),
+            "weight_bytes_resident": int(res_total),
+            "weight_bytes_candidate": int(res_total),
             "hbm_budget_bytes": budget,
         }
         with self._arm_lock:
-            released = (self.cand_params, self.cand_qparams)
-            self.cand_params, self.cand_qparams = placed, cand_q
+            released = ([lane.cand for lane in lanes], self.cand_params)
+            for lane, tree in zip(lanes, trees):
+                lane.cand = tree
+            self.cand_params = placed
+            self.cand_qparams = trees[0] if self._quantized else None
             self.candidate_report = dict(report)
         self._drain_shadows()
         del released
         return report
 
     def warm_candidate(self) -> float:
-        """Run the candidate arm eagerly once at every warm shape (no
-        capture: the graph count and pool stay as they were); returns
-        the wall seconds. Each shape is enqueued under the arm lock on
-        the shadow stream and waited for outside it, so live batches
-        keep flowing."""
+        """Run the candidate arm eagerly once at every warm shape on
+        every lane (no capture: the graph counts and pools stay as they
+        were); returns the wall seconds. Each shape is enqueued under the
+        arm lock on the shadow streams and waited for outside it, so
+        live batches keep flowing."""
         with self._warm_lock:
-            keys = sorted(self._graphs)
+            keys = sorted(self._lanes[0].graphs)
         quantized = self._quantized
         t0 = time.perf_counter()
         for kind, L, rows in keys:
-            with self._arm_snapshot("candidate") as (run_params, _):
-                self._device_out(None, self._key_fn(kind, quantized),
-                                 run_params, self._key_inputs(L, rows),
-                                 eager=True)
+            fn = self._key_fn(kind, quantized)
+            with self._arm_lanes("candidate") as (runs, _, streams):
+                for lane, params, stream, part in zip(
+                        self._lanes, runs, streams,
+                        self._split(self._key_inputs(L, rows))):
+                    with lane.on(stream):
+                        self._device_out(lane, None, fn, params, part,
+                                         eager=True)
             self._drain_shadows()
         return time.perf_counter() - t0
 
     def flip(self) -> float:
-        """Promote the candidate: on the live batches' stream, behind
-        every batch already enqueued, park the resident values in pinned
-        host buffers, copy the candidate's values into the resident's
-        own tensors (the graphs keep their addresses) and free the
-        candidate. Batches enqueued before the flip read the old trunk,
-        batches after it the new one; when flip returns the new trunk is
-        live and the park is on the host. On the int8 arm the fp32 tree
-        (read only eagerly) is swapped, the old one parked on the host.
-        Returns the wall seconds."""
+        """Promote the candidate: on each lane's live batches' stream,
+        behind every batch already enqueued, copy the candidate's values
+        into the lane's own resident tensors (the graphs keep their
+        addresses), the first lane parking the resident values in pinned
+        host buffers first; then free the candidate. Every lane flips
+        inside one hold of `_arm_lock`: batches enqueued before the flip
+        read the old trunk on every lane, batches after it the new one;
+        when flip returns the new trunk is live and the park is on the
+        host. On the int8 arm the fp32 tree (read only eagerly) is
+        swapped, the old one parked on the host. Returns the wall
+        seconds."""
         t0 = time.perf_counter()
         with self._arm_lock:
             if self.cand_params is None:
                 raise NoCandidateError(
                     "flip asked with no candidate trunk loaded")
             quantized = self._quantized
-            serving = self.qparams if quantized else self.params
-            with self._on_stream(self._stream), torch.inference_mode():
-                parked = _host_copy(serving)
-                _copy_into(serving, self.cand_qparams if quantized
-                           else self.cand_params)
-                if quantized:
-                    parked_fp32 = self._parked(self.params)
-                    self.params = self.cand_params
-                done = self._event(self._stream)
-            released = (self.cand_params, self.cand_qparams)
+            waits = []
+            for lane in self._lanes:
+                with lane.on(lane.stream), torch.inference_mode():
+                    if lane.index == 0:
+                        # Every lane holds the same values: one park.
+                        parked = _host_copy(lane.serving)
+                        if quantized:
+                            parked_fp32 = self._parked(self.params)
+                            self.params = self.cand_params
+                    _copy_into(lane.serving, lane.cand)
+                    waits.append(self._event(lane.stream))
+            released = ([lane.cand for lane in self._lanes],
+                        self.cand_params)
+            for lane in self._lanes:
+                lane.cand = None
             self.cand_params = self.cand_qparams = None
             self.parked_params = parked_fp32 if quantized else parked
             self.parked_qparams = parked if quantized else None
-        done()
+        for done in waits:
+            done()
         self._drain_shadows()
         del released
         return time.perf_counter() - t0
 
     def rollback(self) -> float:
         """Return the parked trunk: its host values are copied back into
-        the resident tensors on the live batches' stream (the same
-        graphs, bit for bit the pre-flip numerics), and the demoted trunk
-        moves to the candidate slot in tensors of its own (a fixed
+        every lane's resident tensors on the lane's live batches' stream
+        (the same graphs, bit for bit the pre-flip numerics), all inside
+        one hold of `_arm_lock`, and the demoted trunk moves to the
+        candidate slot in tensors of its own on each lane (a fixed
         re-promotion need not reload). NoCandidateError when nothing is
         parked. Returns the wall seconds."""
         t0 = time.perf_counter()
@@ -1115,36 +1378,44 @@ class BucketDispatcher:
                 raise NoCandidateError(
                     "rollback asked with no parked trunk")
             quantized = self._quantized
-            serving = self.qparams if quantized else self.params
             parked = self.parked_qparams if quantized else self.parked_params
-            with self._on_stream(self._stream), torch.inference_mode():
-                demoted = _own(serving, self.device)
-                _copy_into(serving, parked)
-                if quantized:
-                    demoted_fp32 = self.params
-                    self.params = (_own(self.parked_params, self.device)
-                                   if self.quant_parity_every > 0
-                                   else self.parked_params)
-                done = self._event(self._stream)
-            self.cand_params = demoted_fp32 if quantized else demoted
-            self.cand_qparams = demoted if quantized else None
+            demoted, waits = [], []
+            for lane in self._lanes:
+                with lane.on(lane.stream), torch.inference_mode():
+                    demoted.append(_own(lane.serving, lane.device))
+                    _copy_into(lane.serving, parked)
+                    if quantized and lane.index == 0:
+                        demoted_fp32 = self.params
+                        self.params = (_own(self.parked_params, lane.device)
+                                       if self.quant_parity_every > 0
+                                       else self.parked_params)
+                    waits.append(self._event(lane.stream))
+            for lane, tree in zip(self._lanes, demoted):
+                lane.cand = tree
+            self.cand_params = demoted_fp32 if quantized else demoted[0]
+            self.cand_qparams = demoted[0] if quantized else None
             self.parked_params = self.parked_qparams = None
-        done()
+        for done in waits:
+            done()
         return time.perf_counter() - t0
 
     def unload_candidate(self) -> bool:
-        """Drop the candidate arm (rollout abort or refusal); the resident
-        arm is untouched. Returns whether one was loaded."""
+        """Drop the candidate arm (rollout abort or refusal) on every
+        lane; the resident arm is untouched. Returns whether one was
+        loaded."""
         with self._arm_lock:
-            released = (self.cand_params, self.cand_qparams)
+            released = ([lane.cand for lane in self._lanes],
+                        self.cand_params)
+            for lane in self._lanes:
+                lane.cand = None
             self.cand_params = self.cand_qparams = None
             self.candidate_report = {}
         self._drain_shadows()
-        return released[0] is not None
+        return released[1] is not None
 
     def candidate_status(self) -> Dict:
         """Arm occupancy and the candidate report, one atomic read, with
-        the graph pool's bytes beside the weights'."""
+        the graph pools' bytes beside the weights'."""
         with self._arm_lock:
             status = {"loaded": self.cand_params is not None,
                       "parked": self.parked_params is not None,
@@ -1156,7 +1427,7 @@ class BucketDispatcher:
                       annotations: Optional[np.ndarray] = None,
                       heads: Optional[Sequence[LoadedHead]] = None):
         """`run` on the candidate arm — the shadow entry: the live path's
-        padding and batch class, eager on the shadow stream, waited for
+        padding and batch class, eager on the shadow streams, waited for
         before it returns; nothing here touches the parity cadence or a
         live counter."""
         result, _ = self.run_timed_async(
@@ -1181,12 +1452,13 @@ class BucketDispatcher:
         return ev.synchronize
 
     def _drain_shadows(self) -> None:
-        """Wait for every shadow request enqueued so far: a dropped
-        candidate arm's tensors may be freed (their memory reused) only
-        once nothing on the shadow stream reads them. Callers drop their
-        last reference after this."""
-        if self._shadow_stream is not None:
-            self._shadow_stream.synchronize()
+        """Wait for every shadow request enqueued so far on every lane: a
+        dropped candidate arm's tensors may be freed (their memory
+        reused) only once nothing on a shadow stream reads them. Callers
+        drop their last reference after this."""
+        for lane in self._lanes:
+            if lane.shadow_stream is not None:
+                lane.shadow_stream.synchronize()
 
     # ------------------------------------------------- offline batch path
 
@@ -1253,6 +1525,7 @@ class RaggedDispatcher(BucketDispatcher):
         metrics=None,
         quant: str = "fp32",
         quant_parity_every: int = 0,
+        mesh=None,
     ):
         if quant == "int8_act":
             raise ValueError(
@@ -1265,11 +1538,15 @@ class RaggedDispatcher(BucketDispatcher):
         if max_segments < 1:
             raise ValueError(f"max_segments must be >= 1, "
                              f"got {max_segments}")
+        # With a mesh the packed rows split over the replicas as the
+        # bucketed rows do (segment ids and annotations with the tokens
+        # they annotate); the one class, rows_per_batch, must divide by
+        # the data*fsdp extent (the parent's check and message).
         super().__init__(params, cfg, buckets=buckets,
                          max_batch=rows_per_batch,
                          batch_classes=(rows_per_batch,), device=device,
                          metrics=metrics, quant=quant,
-                         quant_parity_every=quant_parity_every)
+                         quant_parity_every=quant_parity_every, mesh=mesh)
         self.rows_per_batch = int(rows_per_batch)
         self.max_segments = int(max_segments)
 
@@ -1287,9 +1564,10 @@ class RaggedDispatcher(BucketDispatcher):
     def _head_tails(self, trunk_out, heads):
         return heads_apply.packed_head_outputs(trunk_out, heads)
 
-    def _zero_trunk_out(self, L: int, rows: int) -> Dict[str, torch.Tensor]:
+    def _zero_trunk_out(self, L: int, rows: int,
+                        dev: torch.device) -> Dict[str, torch.Tensor]:
         """Zeros shaped as a packed trunk output."""
-        m, dev, S = self.cfg.model, self.device, self.max_segments
+        m, S = self.cfg.model, self.max_segments
         dtype = activation_dtype(m)
         return {"local": torch.zeros((rows, L, m.local_dim), dtype=dtype,
                                      device=dev),
@@ -1376,11 +1654,9 @@ class RaggedDispatcher(BucketDispatcher):
         parity_due = not eager and self._quant_batch_tick(timings)
         arrays = (tokens, segment_ids, annotations)
         key = ("trunk" if heads is not None else kind, L, R)
-        tail = (None if heads is None
-                else lambda out: self._head_tails(out, heads))
-        with self._arm_snapshot(arm) as (run_params, ref_params):
-            pending = self._submit(key, fn, run_params, arrays, tail=tail,
-                                   eager=eager)
+        with self._arm_lanes(arm) as (runs, ref_params, streams):
+            pending = self._submit(key, fn, runs, streams, arrays,
+                                   tail=self._tails(heads), eager=eager)
         if heads is not None:
             hriders = [(h,) + tuple(r) for h, r in zip(heads, riders)]
 
@@ -1476,7 +1752,7 @@ class RaggedDispatcher(BucketDispatcher):
                     raise ValueError(f"unknown request kind {kind!r}; "
                                      f"have {KINDS + (TASK_KIND,)}")
                 with self._warm_lock:
-                    if (kind, L, R) in self._graphs:
+                    if (kind, L, R) in self._lanes[0].graphs:
                         continue
                 self._timed_warm(lambda: self.run_packed(
                     kind, tokens, seg, ann, riders))

@@ -80,6 +80,15 @@ with a fp32 parity shadow every `quant_parity_every` batches; None takes
 `cfg.serve.quant` / `cfg.serve.quant_parity_every`. `stats()["quant"]`
 reports the arm (serve/dispatch.py).
 
+`mesh=` (a `parallel/mesh.ServeMesh`, from `serve_mesh(cfg.mesh)`) serves
+each batch split over the mesh's data·fsdp replicas, one dispatcher lane
+a replica device with its own copy of the trunk (serve/dispatch.py);
+both modes take it, and the classes (ragged: `max_batch` rows) must
+divide by the replica count. `stats()["mesh"]` is the mesh's axes (JAX's
+`dict(mesh.shape)`) or None; `stats()["executables"]` counts shapes and
+`stats()["graphs"]` the graphs across the lanes. A neighbours lookup
+stays on the index's device and stream and reads the gathered embed rows.
+
 Shutdown is two-mode:
 
 - `drain()` — the queue closes (new submits raise ServerClosedError),
@@ -194,6 +203,7 @@ class Server:
         index=None,
         nprobe: int = 8,
         candidate_loader=None,
+        mesh=None,
     ):
         if on_long not in ("truncate", "reject"):
             raise ValueError(f"on_long must be 'truncate' or 'reject', "
@@ -234,7 +244,7 @@ class Server:
                 params, cfg, buckets=buckets, rows_per_batch=max_batch,
                 max_segments=pack_max_segments, device=device,
                 metrics=metrics, quant=quant,
-                quant_parity_every=quant_parity_every)
+                quant_parity_every=quant_parity_every, mesh=mesh)
             self.scheduler = PackedBatchScheduler(
                 self.queue, self.dispatcher, self._finalize,
                 rows_per_batch=max_batch, max_wait_s=max_wait_s,
@@ -245,7 +255,8 @@ class Server:
             self.dispatcher = BucketDispatcher(
                 params, cfg, buckets=buckets, max_batch=max_batch,
                 batch_classes=batch_classes, device=device, metrics=metrics,
-                quant=quant, quant_parity_every=quant_parity_every)
+                quant=quant, quant_parity_every=quant_parity_every,
+                mesh=mesh)
             self.scheduler = MicroBatchScheduler(
                 self.queue, self.dispatcher, self._finalize,
                 max_batch=max_batch, max_wait_s=max_wait_s, clock=clock,
@@ -394,6 +405,7 @@ class Server:
             "slos": ([o.name for o in self.slo.objectives]
                      if self.slo else []),
             "device": str(self.dispatcher.device),
+            "mesh": self._mesh_shape(),
             "quant": self.quant,
             "quant_report": self.dispatcher.quant_report or None,
             "pipeline_depth": self.pipeline_depth,
@@ -410,6 +422,11 @@ class Server:
 
     def __enter__(self) -> "Server":
         return self.start()
+
+    def _mesh_shape(self) -> Optional[Dict[str, int]]:
+        """The serving mesh's axes (JAX's `dict(mesh.shape)`), or None."""
+        mesh = self.dispatcher.mesh
+        return dict(mesh.shape) if mesh is not None else None
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.close(drain=exc_type is None)
@@ -992,11 +1009,14 @@ class Server:
         batches, rows, expired = self.scheduler.stats_counts()
         out = {
             "mode": self.serve_mode,
+            "mesh": self._mesh_shape(),
             "completed": self.completed_total,
             **mirrors,
             # Captured CUDA graphs (the JAX executables) and the
             # cumulative warmup seconds.
             "executables": self.dispatcher.executable_count,
+            # The graphs across the lanes (a shape's graph on each).
+            "graphs": self.dispatcher.graph_count,
             "warmup_seconds": round(self.dispatcher.warmup_seconds_total,
                                     6),
             "batches": batches,

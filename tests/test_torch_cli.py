@@ -18,6 +18,7 @@ import pathlib
 import signal
 import subprocess
 import sys
+import threading
 import time
 import types
 import urllib.request
@@ -49,7 +50,7 @@ SEQS = ["MKTAYIAKQRQISFVKSHFSRQ", "ACDEFGHIKLMNPQRSTVWY" * 3, "GG",
 # JAX verbs the port does not have yet.
 NOT_YET = set()
 # Options of a JAX verb the port refuses (REFUSED_FLAGS) instead of taking.
-REMOVED = {"serve": {"--mesh", "--compile-cache-dir"},
+REMOVED = {"serve": {"--compile-cache-dir"},
            "fleet": {"--compile-cache-dir"}}
 SUBPROCESS_TIMEOUT = 120
 
@@ -214,6 +215,49 @@ def test_serve_answers_and_drains_on_sigterm(runs):
                                np.load(out)["global"][0], rtol=TOL, atol=TOL)
     last = json.loads((d / "serve.jsonl").read_text().splitlines()[-1])
     assert last["event"] == "serve_end" and last["outcome"] == "drained"
+
+
+def test_serve_mesh_in_process_answers(runs, tmp_path, monkeypatch):
+    """`serve --mesh` over a one-device mesh, in process: the JAX log
+    line, one answer equal to `embed`'s, the mesh in `serve_start`, and
+    SIGTERM (sent once answered) drains it with exit 0."""
+    port_file, events = tmp_path / "serve.port", tmp_path / "serve.jsonl"
+    answers = []
+
+    def client():
+        deadline = time.monotonic() + SUBPROCESS_TIMEOUT
+        while not (port_file.exists() and port_file.read_text().strip()):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        else:
+            url = f"http://127.0.0.1:{port_file.read_text().strip()}"
+            answers.append(_post(url + "/v1/embed", {"seq": SEQS[0]}))
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    lines = []
+    monkeypatch.setattr(sys.modules["proteinbert_tpu_torch.cli.main"], "log",
+                        lines.append)
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    assert port("serve", "--pretrained", runs.ptrain, "--mesh",
+                "--pretrained-set", "mesh.data=1", "--port", 0,
+                "--port-file", port_file, "--events-jsonl", events) == 0
+    thread.join(SUBPROCESS_TIMEOUT)
+    assert ("serving with batch-dim sharding over {'data': 1, 'fsdp': 1, "
+            "'model': 1, 'seq': 1} (1 devices)") in lines
+    (got,) = answers
+    out = tmp_path / "want.npz"
+    assert port("embed", "--pretrained", runs.ptrain, "--output", out,
+                SEQS[0]) == 0
+    np.testing.assert_allclose(np.asarray(got["global"], np.float32),
+                               np.load(out)["global"][0], rtol=TOL, atol=TOL)
+    records = [json.loads(line) for line in events.read_text().splitlines()]
+    (start,) = [r for r in records if r["event"] == "serve_start"]
+    assert start["config"]["mesh"] == {"data": 1, "fsdp": 1, "model": 1,
+                                       "seq": 1}
+    assert records[-1]["event"] == "serve_end"
+    assert records[-1]["outcome"] == "drained"
 
 
 def test_fleet_routes_and_rollout_reads_it(runs, capsys):
@@ -526,6 +570,14 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
             match = match.split(": ", 1)[0] + ": "
         match = __import__("re").escape(match)
         argv = ["--device", "cpu", *argv]
+    elif case == "serve-mesh":
+        # `serve --mesh` on the base preset (mesh data=16) and the CPU
+        # (one device): the JAX mesh-size message, before any trunk loads.
+        with pytest.raises(ValueError) as jax_error:
+            j_make_mesh(jconfigs.get_preset("base").mesh, jax_devices()[:1])
+        argv = ["--device", "cpu", "serve", "--pretrained", out, "--preset",
+                "base", "--mesh"]
+        match = __import__("re").escape(str(jax_error.value))
     elif case == "no-card":
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present: --device cuda is valid")
@@ -535,7 +587,6 @@ def test_refusals(runs, case, tmp_path, monkeypatch):
     else:
         flag, argv = {
             "platform": ("--platform", ["--platform", "cpu", "smoke"]),
-            "serve-mesh": ("--mesh", ["serve", "--pretrained", "x", "--mesh"]),
             "serve-cache": ("--compile-cache-dir", [
                 "serve", "--pretrained", "x", "--compile-cache-dir=c"]),
             "fleet-cache": ("--compile-cache-dir", [
