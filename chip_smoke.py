@@ -25,6 +25,9 @@ card.
                                             # on the sharded layout
     python3 chip_smoke.py --phase eval      # the trainer's eval brackets
                                             # and the drill knobs
+    python3 chip_smoke.py --phase coverage  # the new head widths and
+                                            # C=384; tiny, small, C=384
+                                            # models on their routes
     python3 chip_smoke.py --cli-first       # the full run, with the cli
                                             # phase once more up front
 
@@ -390,9 +393,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               lines.
 14. mesh    — `large` widths (C=G=1024, H=16, A=8943, L=1024, global
               B=8) on ranks spawned on the one card, over gloo: (a) fsdp=2
-              on two ranks, 3 bf16 steps at full depth through `pretrain`
-              (a constant LR of 2e-5 in every leg)
-              (exactly 12 #2 + 12 K2 launches a step a rank; each rank's
+              on two ranks, 3 bf16 steps at 3 of the 12 blocks
+              (`MESH_BLOCKS`, as every bf16 leg here: a cut for the run's
+              time) through `pretrain` (a constant LR of 2e-5 in every
+              leg) (exactly 3 #2 + 3 K2 launches a step a rank; each rank's
               memory_allocated between steps within 3% + 256 MiB of
               `per_chip_state_bytes`, the fsdp share; step ms, the
               all-gather / reduce-scatter wire bytes a step), then 3
@@ -400,7 +404,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               checkpoint at step 2, whose losses must be the one-process
               loop's on the same rows within 2e-5; the same two ranks then
               train with ZeRO-1 and the quantized reduce-scatter
-              (`grad_reduce_dtype` int8, then bf16) at full depth, 3
+              (`grad_reduce_dtype` int8, then bf16) at 3 blocks, 3
               bf16 steps through `pretrain` (the launch and state-byte
               gates of the fp32 leg; gradient-reduction wire bytes at
               most 0.27 / 0.52 of the fp32 reduce-scatter's), and at
@@ -410,9 +414,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               step's, its gradient norms within 1e-6 / 2e-4 / 5e-4 and
               each leaf's first moments within 1e-6 / 5e-3 / 2.5e-2 of
               that step's (relative), the ranks alike; (b) model=3 on three
-              ranks, 3 bf16 steps at 6 of the 12 blocks
-              (`MESH_MODEL_BLOCKS`, a cut for the run's time): 2981 GO
-              columns a rank,
+              ranks, 3 bf16 steps at 3 blocks: 2981 GO columns a rank,
               the replicated leaves' digests equal across ranks after the
               steps, the losses the one-process loop's within 5e-3, then 3
               float32 steps at depth 2 within 2e-5 of one process; (c)
@@ -422,7 +424,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               resumed by one process on the card: its step 3 the fsdp
               run's within 2e-5; (d) the sequence-parallel step on the
               sharded layout, fsdp=2 x seq=2 on four ranks: 3 bf16 steps
-              at full depth with the identity corruption (exactly 12
+              at 3 blocks with the identity corruption (exactly 3
               prehaloed #2 launches a step a rank and no other kernel,
               the state-byte gate with `per_chip_state_bytes` the fsdp=2
               leg's, losses the one-process loop's within 5e-3), then 3
@@ -450,8 +452,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               window the slowest, more than 1.5 s over the median;
               `PBT_FAULT_EVAL_STALL=2` leaves every window within 1.5x the
               median on either bracket. `# eval base ...` lines.
-16. report  — the kernel JSON line, the card's name and power limit, and the
-              result line {"ok": true, "device": {...}} last.
+16. coverage — every model shape the JAX package runs (`coverage_phase`):
+              (a) K2 at every (key_dim, value_dim) in {16, 32, 64, 128} x
+              {32, 64, 128, 256} (B=8, L=512, C=G=512, dense and S=8, bf16
+              timed, float32 checked, int8 legs exactly their fp legs)
+              and at C=32 and 96 (L=128: the `tiny` preset's attention),
+              #6 at the transfer `small` geometry (C=128, G=256, k=32, H=4),
+              K1, its prehaloed entry, #3 and #6 at C=384, each against
+              its plain version with its existing tolerance and exactly
+              one launch a call; (b) `pretrain --preset tiny` through the
+              CLI (the loss falls) and a served batch from its run: the
+              local track's and one-pass decisions
+              reference/unsupported_shape, the attention's pallas/dense
+              (counters, stats(), the registry), K2 once a block a counted
+              forward and no other kernel, the reference route inside the
+              captured graph; (c) the `small` geometry:
+              one served batch and one train step on #6 only; (d) a
+              2-block base-like model at C=384: a served batch at the 256
+              bucket on #6, a train step at L=512 on K1 + K2. `# coverage
+              ...` lines.
+17. report  — the kernel JSON line (each kernel's row carries its
+              coverage instantiations under "widths"), the card's name and
+              power limit, and the result line {"ok": true, "device":
+              {...}} last.
 
 `--phase large` runs the build, the SASS check, the Large-width kernel
 phases (#2, #4, K2 at Large width with its passes, the prehaloed entries)
@@ -479,7 +502,9 @@ no result line. `--phase data` runs the build and phase 11 alone, every
 gate, no result line. `--phase etl` runs the build and phase 12 alone,
 every gate, no result line. `--phase check` runs the build and phase 13
 alone, every gate, no result line. `--phase mesh` runs the build and
-phase 14 alone, every gate, no result line; `--phase eval` phase 15. `--cli-first` is the full run with phase 10 run once more
+phase 14 alone, every gate, no result line; `--phase eval` phase 15;
+`--phase coverage` phase 16. `--cli-first` is the full run with phase 10
+run once more
 right after the build, its launches not counted, so that the phase's
 numbers first and last in one process stand side by side.
 """
@@ -929,6 +954,567 @@ def kernel_phase(card: str):
                     err, None, None, None, None, None)
 
     return rows
+
+
+# The head widths and the width the coverage phase checks: K2 and
+# #6 at every (key_dim, value_dim) pair of their bf16 instantiations, and
+# K1, its prehaloed entry, #3 and #6 at C=384.
+COVER_KEY_DIMS = (16, 32, 64, 128)
+COVER_VALUE_DIMS = (32, 64, 128, 256)
+# Widths off those powers of two (multiples of 8: k=8, v=8 is the CPU
+# tests' small geometry): the query pass's idle threads, the softmax's
+# idle columns, the float32 plan's cut 32-column blocks.
+COVER_EXTRA_PAIRS = ((8, 8), (48, 96), (24, 40))
+COVER_TINY_STEPS = 40
+# K2 below C=128 (C, G, H, key_dim): the `tiny` preset's attention and a
+# width with a partial 64-channel chunk.
+COVER_NARROW = ((32, 128, 4, 32), (96, 256, 4, 32))
+
+
+def coverage_kernel_phase(card: str) -> dict:
+    """`--phase coverage` (a): each new instantiation against its plain
+    version on the same inputs, with the tolerance its existing rows use,
+    exact launches (one a call), and each int8 leg exactly (0.0) its fp
+    leg on the dequantized weights. K2 (B=8, L=512, C=G=512, H = 512 / v)
+    at every (k, v) pair, and at C=32 and 96 (L=128, `COVER_NARROW`),
+    dense and S=8, bf16 timed and float32 checked;
+    #6 at the transfer `small` geometry (C=128, G=256, H=4, k=32, v=64),
+    dense and S=8, L=512; K1, its prehaloed entry (L=512 + 2*20) and #3
+    (S=8) at C=384, B=8, L=512, and #6 at C=384 (G=512, H=8, k=64) at
+    L=256 in bf16 and L=128 in float32. Returns {(kernel, shape label):
+    (err, ms, plain ms, bound ms, bound by, launches, int8 exact, int8 ms)};
+    ms are None where not timed."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, LOCAL_TRACK, LOCAL_TRACK_SEGMENTS,
+        LOCAL_TRACK_SEGMENTS_Q8, LOCAL_TRACK_VALID, ONEPASS, ONEPASS_Q8,
+        attention_oh_reference, fused_global_attention, fused_local_track,
+        fused_local_track_segments, fused_local_track_valid,
+        fused_packed_attention, local_track_reference,
+        local_track_segment_oh_reference, local_track_valid_reference,
+        onepass_oh_reference, segment_one_hot, track_halo,
+    )
+    from proteinbert_tpu_torch.kernels.attention import attention_flops
+    from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
+    from proteinbert_tpu_torch.kernels.one_pass import (
+        fused_onepass, onepass_flops,
+    )
+
+    base = get_preset("base").model
+    gen = torch.Generator().manual_seed(41)
+    dev = torch.device(DEVICE)
+    bf16, f32 = torch.bfloat16, torch.float32
+    wd = base.wide_dilation
+    rows = {}
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def seg_ids(B, L, S):
+        seg = torch.randint(0, S, (B, L), generator=gen).to(dev)
+        return seg  # segment S never appears: an empty one
+
+    def run_case(kernel, name, dtype, label, run, plain, flops, nbytes,
+                 q8=None, timed=True):
+        """`run` the kernel's wrapper, `plain` its plain version; `q8` (the
+        int8 leg's (kernel, run)) must give exactly `run`'s output."""
+        def tup(o):
+            return o if isinstance(o, tuple) else (o,)
+        got, want = tup(run()), tup(plain())
+        torch.cuda.synchronize()
+        tag = f"{name} {str(dtype)[6:]} {label}"
+        check(all(torch.isfinite(t).all().item() for t in got),
+              f"{tag}: non-finite")
+        check(all(a.shape == b.shape for a, b in zip(got, want)),
+              f"{tag}: shapes {[tuple(t.shape) for t in got]} vs "
+              f"{[tuple(t.shape) for t in want]}")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        tol = TOL[(kernel.name, dtype)]
+        check(err <= tol, f"{tag}: max |kernel - plain| {err} > {tol}")
+        n0 = kernel.launches
+        run()
+        per_call = kernel.launches - n0
+        check(per_call == 1, f"{tag}: {per_call} launches in one call")
+        exact, q_ms = None, None
+        if q8 is not None:
+            qk, q_run = q8
+            got_q = tup(q_run())
+            torch.cuda.synchronize()
+            exact = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got_q, got))
+            check(exact == 0.0, f"{tag}: int8 leg vs fp leg on the "
+                                f"dequantized weights max |diff| {exact}")
+            n0 = qk.launches
+            q_run()
+            check(qk.launches - n0 == 1, f"{tag}: int8 leg launched "
+                                         f"{qk.launches - n0} times")
+            if timed:
+                q_ms = time_ms(q_run)
+        ms = plain_ms = b_ms = b_by = None
+        if timed:
+            ms, plain_ms = time_ms(run), time_ms(plain)
+            b_ms, b_by = bound(flops, nbytes, dtype)
+        rows[(name, label + ("" if dtype == bf16 else " fp32"))] = (
+            err, ms, plain_ms, b_ms, b_by, per_call, exact, q_ms)
+        print(f"# coverage {tag} [{card}]: max |kernel - plain| {err:.3g} "
+              f"(tol {tol}), {per_call} launch a call"
+              + ("" if ms is None else
+                 f", {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                 f"{b_ms:.4f} ms by {b_by})")
+              + ("" if exact is None else
+                 f"; int8 leg exact {exact}"
+                 + ("" if q_ms is None else f", {q_ms:.4f} ms")))
+
+    def k2_cases(B, L, C, G, H, k, label):
+        v = G // H
+        cfg = dataclasses.replace(base, local_dim=C, global_dim=G,
+                                  key_dim=k, num_heads=H)
+        for dtype in (bf16, f32):
+            _, qattn, _, attn = q8_block(gen, cfg, dtype)[:4]
+            s = dtype.itemsize
+            x = rand(B, L, C, dtype=dtype)
+            g = rand(B, G, dtype=dtype)
+            pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+            pad[1, L // 2:] = False
+            pad[2, :] = False
+            oh = pad[..., None].float()
+            wbytes = H * (G * k + C * k + C * v) * s
+            run_case(
+                ATTENTION, "global_attention", dtype, f"{label} dense",
+                lambda: fused_global_attention(attn, x, g, pad),
+                lambda: attention_oh_reference(
+                    attn, x, g[:, None, :], oh,
+                    zero_empty=False).reshape(B, G),
+                attention_flops(B, L, C, G, 1, H, k),
+                (B * L * C + 2 * B * G) * s + wbytes + B * L * 4,
+                q8=(ATTENTION_Q8, lambda: fused_global_attention(
+                    qattn, x, g, pad)),
+                timed=dtype == bf16)
+            S = 8
+            seg = seg_ids(B, L, S)
+            gs = rand(B, S, G, dtype=dtype)
+            oh8 = segment_one_hot(seg, S)
+            run_case(
+                ATTENTION, "global_attention", dtype, f"{label} S=8",
+                lambda: fused_packed_attention(attn, x, gs, seg),
+                lambda: attention_oh_reference(attn, x, gs, oh8),
+                attention_flops(B, L, C, G, S, H, k),
+                (B * L * C + 2 * B * S * G) * s + wbytes + B * L * 8,
+                q8=(ATTENTION_Q8, lambda: fused_packed_attention(
+                    qattn, x, gs, seg)),
+                timed=dtype == bf16)
+
+    # K2 at every (k, v) pair (G = 512, or H·v just below it).
+    B, L, C = 8, 512, 512
+    pairs = [(k, v) for k in COVER_KEY_DIMS for v in COVER_VALUE_DIMS]
+    for k, v in pairs + list(COVER_EXTRA_PAIRS):
+        H = 512 // v
+        k2_cases(B, L, C, H * v, H, k, f"k={k} v={v} H={H}")
+    # K2 at C below 128 (a multiple of 32), at tiny's bucket L=128: the
+    # `tiny` preset's attention (C=32: half of one 64-channel TMA chunk,
+    # zero-filled) and C=96 (one chunk and a zero-filled half).
+    for C, G, H, k in COVER_NARROW:
+        k2_cases(B, 128, C, G, H, k,
+                 f"C={C} G={G} k={k} v={G // H} H={H} L=128")
+
+    def onepass_cases(cfg, L, dtypes, label):
+        C, G, H, k = (cfg.local_dim, cfg.global_dim, cfg.num_heads,
+                      cfg.key_dim)
+        v = G // H
+        for dtype in dtypes:
+            qtrack, qattn, track, attn = q8_block(gen, cfg, dtype)[:4]
+            s = dtype.itemsize
+            x = rand(B, L, C, dtype=dtype)
+            for S, packed in ((1, False), (8, True)):
+                bc = rand(B, S, C, dtype=dtype)
+                gs = rand(B, S, G, dtype=dtype)
+                seg = seg_ids(B, L, S) if packed else None
+                real = torch.ones((B, L), dtype=torch.bool, device=dev)
+                real[1, L // 2:] = False
+                oh = (segment_one_hot(seg, S) if packed
+                      else torch.ones((B, L, 1), device=dev))
+                wbytes = (19 * C * C + H * (G * k + C * k + C * v)) * s
+
+                def run(tr=track, at=attn):
+                    return fused_onepass(tr, at, x, bc, gs, seg, real, 1,
+                                         wd, packed)
+                run_case(
+                    ONEPASS, "one_pass", dtype,
+                    f"{label} {'S=8' if packed else 'dense'}", run,
+                    lambda: onepass_oh_reference(
+                        track, attn, x, bc, gs, oh, real[..., None].float(),
+                        1, wd, packed, packed),
+                    onepass_flops(B, L, C, G, S, H, k),
+                    (2 * B * L * C + 2 * B * S * G + B * S * C) * s + wbytes
+                    + 2 * B * L * 4,
+                    q8=(ONEPASS_Q8, lambda: run(qtrack, qattn)),
+                    timed=dtype == bf16)
+
+    # #6 at the transfer `small` geometry (k=32).
+    small = dataclasses.replace(base, local_dim=128, global_dim=256,
+                                key_dim=32, num_heads=4)
+    onepass_cases(small, 512, (bf16, f32), "C=128 G=256 H=4 k=32 v=64 L=512")
+
+    # K1, its prehaloed entry and #3 at C=384.
+    C = 384
+    w384 = dataclasses.replace(base, local_dim=C)
+    for dtype in (bf16, f32):
+        qtrack, _, track, _ = q8_block(gen, w384, dtype)[:4]
+        s = dtype.itemsize
+        x = rand(B, L, C, dtype=dtype)
+        bc = rand(B, C, dtype=dtype)
+        tbytes = 19 * C * C * s + 7 * C * 4
+        run_case(LOCAL_TRACK, "local_track", dtype, "C=384 L=512 dense",
+                 lambda: fused_local_track(track, x, bc, 1, wd),
+                 lambda: local_track_reference(track, x, bc, 1, wd),
+                 local_track_flops(B, L, C),
+                 (2 * B * L * C + B * C) * s + tbytes,
+                 timed=dtype == bf16)
+        halo = track_halo(track, 1, wd)
+        xh = rand(B, L + 2 * halo, C, dtype=dtype)
+        run_case(LOCAL_TRACK_VALID, "local_track_valid", dtype,
+                 "C=384 L=512+2*20 shard",
+                 lambda: fused_local_track_valid(track, xh, bc, 1, wd),
+                 lambda: local_track_valid_reference(track, xh, bc, 1, wd),
+                 local_track_flops(B, L, C),
+                 (B * (2 * L + 2 * halo) * C + B * C) * s + tbytes,
+                 timed=dtype == bf16)
+        S = 8
+        seg = seg_ids(B, L, S)
+        bs = rand(B, S, C, dtype=dtype)
+        run_case(LOCAL_TRACK_SEGMENTS, "local_track_segments", dtype,
+                 "C=384 L=512 S=8",
+                 lambda: fused_local_track_segments(track, x, bs, seg, 1,
+                                                    wd),
+                 lambda: local_track_segment_oh_reference(
+                     track, x, bs, segment_one_hot(seg, S), 1, wd),
+                 local_track_flops(B, L, C) + 2 * B * L * S * C,
+                 (2 * B * L * C + B * S * C) * s + tbytes + B * L * 4,
+                 q8=(LOCAL_TRACK_SEGMENTS_Q8,
+                     lambda: fused_local_track_segments(qtrack, x, bs, seg,
+                                                        1, wd)),
+                 timed=dtype == bf16)
+
+    # #6 at C=384 (base-like heads): the rule's bf16 shapes reach L=384.
+    onepass_cases(w384, 256, (bf16,), "C=384 G=512 H=8 k=64 v=64 L=256")
+    onepass_cases(w384, 128, (f32,), "C=384 G=512 H=8 k=64 v=64 L=128")
+    return rows
+
+
+def route_counts() -> tuple:
+    """Snapshots of the three route counters (fused, attention, one-pass)."""
+    from proteinbert_tpu_torch.kernels import (
+        ATTN_PATH_TOTAL, ONEPASS_PATH_TOTAL, PATH_TOTAL,
+    )
+    return tuple(dict(c) for c in (PATH_TOTAL, ATTN_PATH_TOTAL,
+                                   ONEPASS_PATH_TOTAL))
+
+
+def route_delta(before: tuple) -> tuple:
+    """Each family's {(path, reason): decisions} since `before`."""
+    return tuple({k: n - b.get(k, 0) for k, n in a.items()
+                  if n != b.get(k, 0)}
+                 for a, b in zip(route_counts(), before))
+
+
+def zero_launches() -> None:
+    from proteinbert_tpu_torch.kernels import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    from proteinbert_tpu_torch.kernels import KERNELS
+    return {k.name: k.launches for k in KERNELS if k.launches}
+
+
+def coverage_server(cfg, params, bucket: int, tele):
+    """A bucketed Server on DEVICE holding one warm shape: embed at
+    `bucket`, 8 rows (one batch class)."""
+    from proteinbert_tpu_torch.serve.server import Server
+    return Server(params, cfg, device=DEVICE, buckets=(bucket,),
+                  batch_classes=(8,), max_batch=8, max_wait_s=0.5,
+                  telemetry=tele).start()
+
+
+def serve_batch(srv, n: int, length: int, seed: int) -> list:
+    """`n` embed requests of `length` residues submitted together (one
+    batch), their answers."""
+    rng = random.Random(seed)
+    seqs = ["".join(rng.choice("ACDEFGHIKLMNPQRSTVWY")
+                    for _ in range(length)) for _ in range(n)]
+    futs = [srv.submit("embed", q) for q in seqs]
+    return [f.result(60) for f in futs]
+
+
+def path_metrics(tele) -> dict:
+    """The registry's route counters: {metric{labels}: value}."""
+    snap = tele.metrics.snapshot()["counters"]
+    return {k: v for k, v in snap.items() if "_kernel_path_total" in k}
+
+
+def coverage_tiny(card: str) -> dict:
+    """(b) The `tiny` preset (C=32, G=128, k=32, H=4, 2 blocks), which the
+    JAX gates send to XLA everywhere, on the card through the CLI:
+    `pretrain --preset tiny` (COVER_TINY_STEPS steps, the loss falls),
+    then a served batch of embeds from that run through a Server whose
+    graph is captured with the reference route inside (a host sync there
+    would fail the capture). No port kernel covers its local track or
+    its one-pass, so those decisions must be reference/unsupported_shape;
+    K2 covers its attention (C a multiple of 32), so that decision must be
+    pallas/dense, as many as the others, in the three counters, in
+    stats() and in the server's registry. K2 launches once a block a
+    counted forward and no other kernel launches. Returns K2's
+    launches."""
+    from proteinbert_tpu_torch import inference, obs
+    from proteinbert_tpu_torch.configs import get_preset
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="coverage-", dir=build)
+    try:
+        ck, metrics = os.path.join(root, "ck"), os.path.join(root, "m.jsonl")
+        zero_launches()
+        before = route_counts()
+        t0 = time.perf_counter()
+        rc, _ = cli_main("pretrain", "--preset", "tiny", "--max-steps",
+                         COVER_TINY_STEPS, "--checkpoint-dir", ck,
+                         "--metrics-jsonl", metrics, "--set",
+                         "train.log_every=1")
+        train_s = time.perf_counter() - t0
+        losses = [json.loads(line)["loss"] for line in open(metrics)]
+        first = statistics.mean(losses[:5])
+        last = statistics.mean(losses[-5:])
+        train = route_delta(before)
+        train_launches = launch_counts()
+        print(f"# coverage tiny pretrain [{card}]: {len(losses)} steps in "
+              f"{train_s:.1f} s (exit {rc}), loss {first:.4f} over the "
+              f"first 5 -> {last:.4f} over the last 5; route decisions "
+              f"fused {train[0]}, attention {train[1]}, one-pass "
+              f"{train[2]}; kernel launches {train_launches}")
+        check(rc == 0 and len(losses) == COVER_TINY_STEPS,
+              f"coverage tiny pretrain: exit {rc}, {len(losses)} steps")
+        check(last < first, f"coverage tiny pretrain: the loss did not "
+                            f"fall ({first} -> {last})")
+        ref, k2 = ("reference", "unsupported_shape"), ("pallas", "dense")
+        nb = get_preset("tiny").model.num_blocks
+        check(set(train[0]) == set(train[2]) == {ref}
+              and set(train[1]) == {k2}
+              and train[0][ref] == train[1][k2] == train[2][ref],
+              f"coverage tiny pretrain: route decisions {train}")
+        check(train_launches == {"global_attention": nb * train[1][k2]},
+              f"coverage tiny pretrain launched {train_launches}, want "
+              f"{nb} K2 a counted forward ({train[1].get(k2)})")
+
+        cfg = get_preset("tiny")
+        params, _ = inference.load_trunk(ck, cfg, device=DEVICE)
+        tele = obs.Telemetry()
+        before = route_counts()
+        stats0 = None
+        srv = coverage_server(cfg, params, 128, tele)
+        try:
+            zero_launches()
+            got = serve_batch(srv, 8, 100, 7)
+            stats0 = srv.stats()
+        finally:
+            srv.drain()
+        served = route_delta(before)
+        served_launches = launch_counts()
+        reg = path_metrics(tele)
+        print(f"# coverage tiny serve [{card}]: 8 embeds at bucket 128 in "
+              f"one captured shape, route decisions fused {served[0]}, "
+              f"attention {served[1]}, one-pass {served[2]}; stats "
+              f"fused_path {stats0['fused_path']}, attention_path "
+              f"{stats0['attention_path']}, onepass_path "
+              f"{stats0['onepass_path']}; registry {reg}; kernel launches "
+              f"{served_launches}")
+        check(served == ({ref: 1}, {k2: 1}, {ref: 1}),
+              f"coverage tiny serve: one captured shape should count one "
+              f"decision a family (JAX: one a scanned executable), got "
+              f"{served}")
+        check(all(np.isfinite(a["global"]).all() for a in got),
+              "coverage tiny serve: non-finite embeddings")
+        check(served_launches == {"global_attention": nb},
+              f"coverage tiny serve launched {served_launches}, want "
+              f"{nb} K2")
+        want_reg = {f'{m}{{path="{p}",reason="{r}"}}': 1.0
+                    for m, (p, r) in (("fused_kernel_path_total", ref),
+                                      ("attention_kernel_path_total", k2),
+                                      ("onepass_kernel_path_total", ref))}
+        check(reg == want_reg,
+              f"coverage tiny serve: registry route counters {reg}")
+        for key, label in (("fused_path", "reference/unsupported_shape"),
+                           ("attention_path", "pallas/dense"),
+                           ("onepass_path", "reference/unsupported_shape")):
+            check(stats0[key].get(label, 0) > 0,
+                  f"coverage tiny serve: stats()[{key!r}] {stats0[key]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"global_attention": train_launches.get("global_attention", 0)
+            + served_launches.get("global_attention", 0)}
+
+
+def coverage_model(card: str, label: str, model, serve_bucket: int,
+                   train_L: int, want_serve: tuple, want_train: tuple,
+                   want_launches: tuple) -> dict:
+    """(c) / (d): a 2-block bf16 model on the card: one served bucketed
+    batch (8 embeds at `serve_bucket`) and one train step (B=8,
+    L=`train_L`: loss and grads, then the optimizer update). Each run's
+    route decisions must equal `want_serve` / `want_train` (per family:
+    {(path, reason): n}), with no reference route, and its kernel
+    launches `want_launches` (serve, train) exactly. Returns the
+    launches."""
+    from proteinbert_tpu_torch import obs
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.data.corruption import corrupt_batch
+    from proteinbert_tpu_torch.models.proteinbert import init, to_device
+    from proteinbert_tpu_torch.train import train_state as ts
+    from proteinbert_tpu_torch.train.schedule import make_optimizer
+
+    tiny = get_preset("tiny")
+    cfg = tiny.replace(
+        model=model,
+        data=dataclasses.replace(tiny.data, seq_len=serve_bucket),
+        optimizer=dataclasses.replace(tiny.optimizer, warmup_steps=0,
+                                      schedule="constant"))
+    params = init(cfg.model, torch.Generator().manual_seed(43),
+                  device=DEVICE)
+    total = {}
+    tele = obs.Telemetry()
+    before = route_counts()
+    srv = coverage_server(cfg, params, serve_bucket, tele)
+    try:
+        zero_launches()
+        got = serve_batch(srv, 8, serve_bucket - 20, 11)
+        served_launches = launch_counts()
+    finally:
+        srv.drain()
+    served = route_delta(before)
+    print(f"# coverage {label} serve [{card}]: 8 embeds at bucket "
+          f"{serve_bucket}, route decisions fused {served[0]}, attention "
+          f"{served[1]}, one-pass {served[2]}; registry "
+          f"{path_metrics(tele)}; kernel launches {served_launches}")
+    check(served == want_serve, f"coverage {label} serve: route decisions "
+                                f"{served}, want {want_serve}")
+    check(served_launches == want_launches[0],
+          f"coverage {label} serve: launches {served_launches}, want "
+          f"{want_launches[0]}")
+    check(all(np.isfinite(a["global"]).all() for a in got),
+          f"coverage {label} serve: non-finite embeddings")
+    for name, n in served_launches.items():
+        total[name] = total.get(name, 0) + n
+
+    rng = np.random.default_rng(43)
+    B, L = 8, train_L
+    tokens = rng.integers(4, 26, (B, L)).astype(np.int32)
+    tokens[:, 0], tokens[0, L - 40], tokens[0, L - 39:] = 1, 2, 0
+    ann = (rng.random((B, model.num_annotations)) < 0.01).astype(np.float32)
+    X, Y, W = corrupt_batch(torch.Generator().manual_seed(44),
+                            torch.from_numpy(tokens), torch.from_numpy(ann))
+    dev = torch.device(DEVICE)
+    on = {k: {n: t.to(dev) for n, t in d.items()} for k, d in
+          (("X", X), ("Y", Y), ("W", W))}
+    tx = make_optimizer(cfg.optimizer)
+    zero_launches()
+    before = route_counts()
+    grads, m = ts.loss_and_grads(params, on["X"], on["Y"], on["W"], cfg)
+    ts.gradient_update(tx, params, grads, tx.init(params))
+    torch.cuda.synchronize()
+    trained = route_delta(before)
+    train_launches = launch_counts()
+    loss = float(m["loss"])
+    print(f"# coverage {label} train step [{card}]: B={B} L={L}, loss "
+          f"{loss:.4f}, route decisions fused {trained[0]}, attention "
+          f"{trained[1]}, one-pass {trained[2]}; kernel launches "
+          f"{train_launches}")
+    check(np.isfinite(loss) and all(torch.isfinite(g).all().item()
+                                    for g in grads),
+          f"coverage {label} train step: non-finite loss or grads")
+    check(trained == want_train, f"coverage {label} train step: route "
+                                 f"decisions {trained}, want {want_train}")
+    check(train_launches == want_launches[1],
+          f"coverage {label} train step: launches {train_launches}, want "
+          f"{want_launches[1]}")
+    for name, n in train_launches.items():
+        total[name] = total.get(name, 0) + n
+    del params, grads, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def coverage_widths(name: str, rows: dict) -> list:
+    """The kernels line's rows of the instantiations `coverage_phase` adds
+    for kernel `name` (an int8 leg: its fp leg's rows, with the int8 ms
+    and the exact difference): bf16 timed, float32 checked."""
+    fp = name[:-3] if name.endswith("_q8") else name
+    out = []
+    for (kname, label), (err, ms, plain, b_ms, b_by, per_call, exact,
+                         q_ms) in rows.items():
+        if kname != fp or (name != fp and exact is None):
+            continue
+        row = {"shape": label, "max_abs_err": err if name == fp else exact,
+               "launches_a_call": per_call}
+        if ms is not None:
+            row.update({"ms": q_ms if name != fp else ms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by})
+        out.append(row)
+    return out
+
+
+def coverage_phase(card: str) -> tuple:
+    """`--phase coverage` (also part of the full run): (a) the new
+    instantiations against their plain versions; (b) the `tiny` preset,
+    its local track on the reference route and its attention on K2; (c)
+    the transfer experiment's `small`
+    geometry (C=128, G=256, k=32, H=4) on #6; (d) a 2-block base-like
+    model at C=384 (G=512, H=8, k=64): a served batch at the 256 bucket
+    on #6, a step at L=512 on the composition K1 + K2. Returns (rows of
+    `coverage_kernel_phase`, {kernel: launches on the driven paths})."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import budget
+
+    t0 = time.perf_counter()
+    rows = coverage_kernel_phase(card)
+    print(f"# coverage kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = coverage_tiny(card)
+    print(f"# coverage tiny: {time.perf_counter() - t0:.1f} s")
+
+    tiny = get_preset("tiny").model
+    nb = 2
+    # One decision a family per forward (scan_blocks), the kernels
+    # launched once a block.
+    one = {("pallas", "dense"): 1}
+    composed = {("reference", "unsupported_shape"): 1}
+    t0 = time.perf_counter()
+    small = dataclasses.replace(tiny, local_dim=128, global_dim=256,
+                                key_dim=32, num_heads=4, num_blocks=nb,
+                                dtype="bfloat16")
+    for name, n in coverage_model(
+            card, "small C=128 G=256 k=32 H=4", small, 512, 512,
+            ({}, {}, one), ({}, {}, one),
+            ({"one_pass": nb}, {"one_pass": nb})).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# coverage small: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    base = get_preset("base").model
+    c384 = dataclasses.replace(base, local_dim=384, num_blocks=nb,
+                               dtype="bfloat16")
+    check(budget.onepass_supported(384, 512, 256, 1, 64, 8)
+          and not budget.onepass_supported(384, 512, 512, 1, 64, 8),
+          "coverage C=384: the one-pass rule should admit L=256 and refuse "
+          "L=512")
+    for name, n in coverage_model(
+            card, "base-like C=384 G=512 H=8", c384, 256, 512,
+            ({}, {}, one), (one, one, composed),
+            ({"one_pass": nb},
+             {"local_track": nb, "global_attention": nb})).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# coverage C=384: {time.perf_counter() - t0:.1f} s")
+    return rows, launches
 
 
 def base_phase(card: str) -> None:
@@ -7419,14 +8005,16 @@ MESH_STATE_MARGIN = (0.03, 256 << 20)   # (share, bytes) over the rule's
 # step 0, without its warmup, a bf16 Large run's loss climbs (4.50, 4.85,
 # 5.91) and amplifies the rounding of the split GO head into the losses.
 MESH_LR = 2e-5
-# The model=3 bf16 leg's depth: 6 of `large`'s 12 blocks, a cut that
-# keeps the full run near 1000 s once the seq legs run too.
-MESH_MODEL_BLOCKS = 6
+# The bf16 legs' depth: 3 of `large`'s 12 blocks (as the resume phase's
+# `RESUME_LARGE_BLOCKS`), a cut for the full run's time: the model=3 leg
+# ran at 6 since PR 20, the fsdp, quantized and seq fsdp legs at 12 until
+# PR 24 (PERF.md §4).
+MESH_BLOCKS = 3
 MESH_IDENTITY = dict(token_randomize_prob=0.0, annotation_corrupt_prob=1.0,
                      annotation_drop_prob=0.0, annotation_add_prob=0.0)
 
 
-def mesh_cfg(mesh: dict, dtype: str = "bfloat16", blocks: int = 12,
+def mesh_cfg(mesh: dict, dtype: str = "bfloat16", blocks: int = MESH_BLOCKS,
              identity: bool = False):
     """`large` at B=8 L=1024, the constant MESH_LR from step 0, `blocks`
     blocks (full depth: 12), on `mesh`; `identity` turns the corruption
@@ -7563,10 +8151,11 @@ def mesh_rank(rank: int, out: str, device: str) -> None:
 
 def mesh_leg(leg: str, axes: dict, out: str) -> dict:
     """This rank's runs of `leg` on the joined group: "fsdp" ((a) bf16 at
-    full depth, then float32 at depth 2 with a checkpoint, the quantized
-    legs), "model" ((b) bf16 at MESH_MODEL_BLOCKS blocks, then float32 at
-    depth 2), "seqfsdp" ((d) bf16 at full depth with the identity
-    corruption, then float32 at depth 2 with a checkpoint) or "seqmodel"
+    MESH_BLOCKS blocks, then float32 at depth 2 with a checkpoint, the
+    quantized legs), "model" ((b) bf16 at MESH_BLOCKS blocks, then float32
+    at depth 2), "seqfsdp" ((d) bf16 at MESH_BLOCKS blocks with the
+    identity corruption, then float32 at depth 2 with a checkpoint) or
+    "seqmodel"
     ((e) float32 at depth 2) → {run: its numbers}."""
     from proteinbert_tpu_torch.parallel.mesh import make_mesh
     from proteinbert_tpu_torch.parallel.zero import (
@@ -7575,9 +8164,7 @@ def mesh_leg(leg: str, axes: dict, out: str) -> dict:
     from proteinbert_tpu_torch.train import Checkpointer
 
     res = {}
-    runs = [("bf16", mesh_cfg(axes, identity=leg == "seqfsdp",
-                              blocks=MESH_MODEL_BLOCKS if leg == "model"
-                              else 12)),
+    runs = [("bf16", mesh_cfg(axes, identity=leg == "seqfsdp")),
             ("fp32", mesh_cfg(axes, "float32", 2, True))]
     if leg == "seqmodel":
         runs = runs[1:]
@@ -7754,7 +8341,8 @@ def mesh_phase(card: str) -> dict:
         for name, n in launches.items():
             totals[name] = totals.get(name, 0) + n
 
-    per_step = {LOCAL_TRACK_TILED.name: 12, ATTENTION.name: 12}
+    per_step = {LOCAL_TRACK_TILED.name: MESH_BLOCKS,
+                ATTENTION.name: MESH_BLOCKS}
     reshards: dict = {}
     try:
         t0 = time.perf_counter()
@@ -7773,8 +8361,7 @@ def mesh_phase(card: str) -> dict:
                         continue
                     for i, (_, loss, launches, _) in enumerate(run["steps"]):
                         n = (2 if name not in ("bf16", "q_int8", "q_bf16")
-                             else MESH_MODEL_BLOCKS if leg == "model"
-                             else 12)
+                             else MESH_BLOCKS)
                         want = {LOCAL_TRACK_TILED.name: n, ATTENTION.name: n}
                         got = {k: v for k, v in launches.items() if v}
                         check(got == want and np.isfinite(loss),
@@ -7801,8 +8388,9 @@ def mesh_phase(card: str) -> dict:
         a = fsdp[0]["bf16"]
         ms = [s[0] for s in a["steps"]]
         print(f"# mesh large fsdp [{card}]: fsdp=2 on two ranks of one card "
-              f"over gloo, 12 blocks C=G=1024 H=16 A=8943 bf16, B=8 (4 a "
-              f"rank) L=1024, {MESH_STEPS} steps; 12 #2 + 12 K2 launches a "
+              f"over gloo, {MESH_BLOCKS} of 12 blocks C=G=1024 H=16 A=8943 "
+              f"bf16, B=8 (4 a rank) L=1024, {MESH_STEPS} steps; "
+              f"{MESH_BLOCKS} #2 + {MESH_BLOCKS} K2 launches a "
               f"step a rank; step ms rank 0 {[round(x, 1) for x in ms]} "
               f"(rank 1 {[round(s[0], 1) for s in fsdp[1]['bf16']['steps']]}"
               f"); losses {[round(s[1], 5) for s in a['steps']]}; state "
@@ -7858,7 +8446,7 @@ def mesh_phase(card: str) -> dict:
               f"deterministic cuDNN, identity corruption, 2981 columns a "
               f"rank: losses {got} against one process {want}, max rel "
               f"{worst:.3g} (<= {MESH_FP32_TOL}); digests equal")
-        cfg = mesh_cfg({"model": 3}, blocks=MESH_MODEL_BLOCKS)
+        cfg = mesh_cfg({"model": 3})
         ref, ref_steps, _, ref_peak = mesh_train(
             cfg.replace(mesh=dataclasses.replace(cfg.mesh, model=1)),
             mesh_batches(cfg, 14))
@@ -7871,7 +8459,7 @@ def mesh_phase(card: str) -> dict:
               f"{want} (rel {worst})")
         b = model[0]["bf16"]
         print(f"# mesh large model=3 [{card}]: three ranks of one card over "
-              f"gloo, {MESH_MODEL_BLOCKS} of 12 blocks bf16 B=8 L=1024 "
+              f"gloo, {MESH_BLOCKS} of 12 blocks bf16 B=8 L=1024 "
               f"(every rank the 8 rows, "
               f"the default corruption: one replica's draws), "
               f"deterministic cuDNN: 2981 GO columns a rank; the replicated "
@@ -7907,7 +8495,7 @@ def mesh_phase(card: str) -> dict:
 def mesh_seq(card: str, seqf: list, seqm: list, add, fsdp_per_chip: dict,
              one_cfg, fp32_ref: list) -> list:
     """(d), (e): the sequence-parallel step on the sharded layout through
-    `pretrain` — the four ranks at fsdp=2 x seq=2 (bf16 at full depth with
+    `pretrain` — the four ranks at fsdp=2 x seq=2 (bf16 at MESH_BLOCKS with
     the identity corruption against one process, the launch and
     state-byte gates; float32 at depth 2 against one process) and the six
     at model=3 x seq=2 (float32 at depth 2 against one process, the
@@ -7921,7 +8509,7 @@ def mesh_seq(card: str, seqf: list, seqm: list, add, fsdp_per_chip: dict,
                 if name == "wall_s":
                     continue
                 want = {LOCAL_TRACK_TILED_VALID.name:
-                        12 if name == "bf16" else 2}
+                        MESH_BLOCKS if name == "bf16" else 2}
                 for i, (_, loss, launches, _) in enumerate(run["steps"]):
                     got = {k: v for k, v in launches.items() if v}
                     check(got == want and np.isfinite(loss),
@@ -7939,7 +8527,7 @@ def mesh_seq(card: str, seqf: list, seqm: list, add, fsdp_per_chip: dict,
               f"mesh large seq fsdp rank {r}: stored {a['stored']}, "
               f"allocated between steps {allocs}, per_chip_state_bytes "
               f"{a['per_chip']} (fsdp=2 alone: {fsdp_per_chip})")
-    # (d) bf16 at full depth against one process on the same rows.
+    # (d) bf16 at MESH_BLOCKS blocks against one process on the same rows.
     cfg = mesh_cfg({"fsdp": 2, "seq": 2}, identity=True)
     ref, ref_steps, _, ref_peak = mesh_train(
         cfg.replace(mesh=one_cfg.mesh), mesh_batches(cfg, 14))
@@ -7952,9 +8540,10 @@ def mesh_seq(card: str, seqf: list, seqm: list, add, fsdp_per_chip: dict,
           f"mesh large seq fsdp: losses {got} against one process {want} "
           f"(rel {worst})")
     print(f"# mesh large seq fsdp [{card}]: fsdp=2 x seq=2 on four ranks of "
-          f"one card over gloo, 12 blocks C=G=1024 H=16 A=8943 bf16, B=8 "
-          f"(4 a replica) L=1024 (512 a seq rank + 2*20 halo rows), "
-          f"identity corruption, {MESH_STEPS} steps; 12 "
+          f"one card over gloo, {MESH_BLOCKS} of 12 blocks C=G=1024 H=16 "
+          f"A=8943 bf16, B=8 (4 a replica) L=1024 (512 a seq rank + 2*20 "
+          f"halo rows), identity corruption, {MESH_STEPS} steps; "
+          f"{MESH_BLOCKS} "
           f"{LOCAL_TRACK_TILED_VALID.name} launches a step a rank and no "
           f"other kernel; losses {got} against one process {want}, max rel "
           f"{worst:.3g} (<= {MESH_BF16_TOL}); step ms "
@@ -8020,7 +8609,7 @@ QUANT_WIRE = {"int8": 0.27, "bf16": 0.52}   # of the fp32 reduction's wire
 
 
 def mesh_quant(card: str, fsdp: list, per_step: dict, add) -> None:
-    """(a'): the fsdp ranks' quantized legs — at full depth in bf16 through
+    """(a'): the fsdp ranks' quantized legs — at MESH_BLOCKS in bf16 through
     `pretrain` (launches and state bytes gated with the other legs), their
     gradient-reduction wire bytes against the fp32 reduce-scatter of the
     bf16 leg; at depth 2 in float32, each payload's params after 2 steps
@@ -8071,7 +8660,8 @@ def mesh_quant(card: str, fsdp: list, per_step: dict, add) -> None:
     q = a["quant2"]
     print(f"# mesh large fsdp quant [{card}]: fsdp=2 on two ranks of one "
           f"card over gloo, ZeRO-1, the quantized reduce-scatter over "
-          f"data·fsdp; full depth bf16 (12 #2 + 12 K2 a step a rank), "
+          f"data·fsdp; {MESH_BLOCKS} of 12 blocks bf16 ({MESH_BLOCKS} #2 + "
+          f"{MESH_BLOCKS} K2 a step a rank), "
           f"{MESH_STEPS} steps: losses int8 "
           f"{[round(s[1], 5) for s in a['q_int8']['steps']]}, bf16 "
           f"{[round(s[1], 5) for s in a['q_bf16']['steps']]} (fp32 "
@@ -8479,10 +9069,10 @@ def main() -> int:
                     ["--phase", "cli"], ["--phase", "data"],
                     ["--phase", "etl"], ["--phase", "check"],
                     ["--phase", "mesh"], ["--phase", "eval"],
-                    ["--cli-first"]):
+                    ["--phase", "coverage"], ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
               "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli|data|etl|check|mesh|eval]", file=sys.stderr)
+              "cli|data|etl|check|mesh|eval|coverage]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8576,6 +9166,11 @@ def main() -> int:
         t0 = time.perf_counter()
         eval_phase(card)
         print(f"# eval: {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args == ["--phase", "coverage"]:
+        t0 = time.perf_counter()
+        coverage_phase(card)
+        print(f"# coverage: {time.perf_counter() - t0:.1f} s")
         return 0
     if args in (["--phase", "serve"], ["--phase", "serve-times"]):
         t0 = time.perf_counter()
@@ -8674,6 +9269,11 @@ def main() -> int:
     for name, n in eval_phase(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# eval: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cover_rows, cover_launches = coverage_phase(card)
+    for name, n in cover_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# coverage: {time.perf_counter() - t0:.1f} s")
     host_census("end of run")
 
     # (source, TPU launch site, the served shape its row was timed at)
@@ -8738,6 +9338,7 @@ def main() -> int:
         key = (k.name, torch.bfloat16, L, case)
         if key in q8_extra:  # an int8 leg: its fp leg's time on the same call
             row["fp_leg_ms"] = q8_extra[key][1]
+        row["widths"] = coverage_widths(k.name, cover_rows)
         report.append(row)
     print(json.dumps({"kernels": report}))
     print(card)

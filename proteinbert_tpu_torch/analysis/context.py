@@ -89,13 +89,9 @@ class CheckConfig:
     # `kernels/build.nvcc_path` belongs here only if the rule reaches it.
     sanctioned_env_readers: Tuple[str, ...] = ()
     # Metric/event names the doc may mention without a live
-    # registration (rule 5): documented-as-removed history, and the JAX
-    # package's kernel-path counters, whose counterpart in the port is
-    # `kernels/build.Kernel.launches` (no metric).
+    # registration (rule 5): documented-as-removed history.
     docs_allow: Tuple[str, ...] = (
         "fused_kernel_fallback_total",
-        "fused_kernel_path_total",
-        "onepass_kernel_path_total",
     )
     # Directories (repo-relative) whose functions that reach a
     # `<kernel>.launch(...)` call are kernel wrappers (rule 1's second

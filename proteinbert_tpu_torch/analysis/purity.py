@@ -42,7 +42,11 @@ In a wrapper
   (`kernels/fused_block._device_check`). Passed as an argument, it must
   go to a parameter the callee itself names only under a CPU device test
   (`kernels/quant_leaves.int8_leg`'s `plain`), or to `recompute_vjp`'s
-  backward slot (`_PLAIN_SLOTS`) (**plain-route**).
+  backward slot (`_PLAIN_SLOTS`) (**plain-route**). A route test guards it
+  too: `path == "reference"` (or `!= "pallas"`'s body, `== "pallas"`'s
+  else branch) where `path` was bound from a call of a `*_route` function
+  (`kernels/one_pass.onepass_route` and its kin) — a decision from the
+  shape alone, the same on every device, never from a failed launch.
 
 Reachability is name-based, as in the JAX rule, and follows imports
 across the scanned modules: `f(x)` resolves to a module-level `def f` of
@@ -70,6 +74,9 @@ _CLOCK_CALLS = {"time.time", "time.perf_counter", "time.monotonic",
 _GRAPH_CONTEXTS = {"torch.cuda.graph", "cuda.graph"}
 _LAUNCH_ATTR = "launch"
 _PLAIN_SUFFIX = "_reference"
+# A call of a function with this suffix returns the route decision,
+# (path, reason); `path == "reference"` guards the reference route.
+_ROUTE_SUFFIX = "_route"
 # "callee:index" argument slots a kernel wrapper may fill with a plain
 # version outside a CPU device test: `kernels/autograd.recompute_vjp`'s
 # backward recomputes the plain version at the activation dtype on either
@@ -349,9 +356,11 @@ def _check_body(fi: _FnInfo) -> List[Finding]:
 
 # ------------------------------------------------------- launch or raise
 
-def _cpu_test(expr: ast.AST, predicates: Set[str]) -> Optional[bool]:
-    """True when `expr` holds only for a CPU tensor/device, False when it
-    holds only for a non-CPU one, None when it says neither."""
+def _cpu_test(expr: ast.AST, predicates: Set[str],
+              route_vars: Set[str] = frozenset()) -> Optional[bool]:
+    """True when `expr` holds only for a CPU tensor/device or the
+    reference route, False when it holds only otherwise, None when it
+    says neither."""
     if isinstance(expr, ast.Call):
         name = dotted(expr.func)
         if name is not None and name.rsplit(".", 1)[-1] in predicates:
@@ -361,15 +370,40 @@ def _cpu_test(expr: ast.AST, predicates: Set[str]) -> Optional[bool]:
         left, right = expr.left, expr.comparators[0]
         if isinstance(left, ast.Constant):
             left, right = right, left
-        if not (isinstance(right, ast.Constant) and right.value == "cpu"):
+        if not isinstance(right, ast.Constant):
             return None
-        if not (isinstance(left, ast.Attribute) and left.attr == "type"):
+        if isinstance(left, ast.Name) and left.id in route_vars and \
+                right.value in ("reference", "pallas"):
+            holds = right.value == "reference"
+        elif right.value == "cpu" and isinstance(left, ast.Attribute) \
+                and left.attr == "type":
+            holds = True
+        else:
             return None
         if isinstance(expr.ops[0], ast.Eq):
-            return True
+            return holds
         if isinstance(expr.ops[0], ast.NotEq):
-            return False
+            return not holds
     return None
+
+
+def _route_vars(root: ast.AST) -> Set[str]:
+    """Names bound in `root` from a call of a `*_route` function: `path =
+    f_route(...)` or `path, reason = f_route(...)` (the first name)."""
+    out: Set[str] = set()
+    for node in ast.walk(root):
+        if not (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.value, ast.Call)):
+            continue
+        callee = dotted(node.value.func)
+        if callee is None or not callee.endswith(_ROUTE_SUFFIX):
+            continue
+        target = node.targets[0]
+        if isinstance(target, ast.Tuple) and target.elts:
+            target = target.elts[0]
+        if isinstance(target, ast.Name):
+            out.add(target.id)
+    return out
 
 
 def _cpu_predicates(prog: _Program) -> Set[str]:
@@ -401,8 +435,10 @@ def _uses(root: ast.AST, is_target, predicates: Set[str]
           ) -> Iterator[Tuple[ast.AST, str, bool, bool,
                               Optional[Tuple[ast.Call, object]]]]:
     """Every node of `root` that `is_target` names, as (node, name,
-    under a CPU test, inside an except handler, (the call, its slot) when
-    the node is a direct argument of a call)."""
+    under a CPU test or a reference-route test, inside an except handler,
+    (the call, its slot) when the node is a direct argument of a
+    call)."""
+    route_vars = _route_vars(root)
 
     def visit(node, guarded, handler, arg_of):
         name = is_target(node)
@@ -410,7 +446,7 @@ def _uses(root: ast.AST, is_target, predicates: Set[str]
             yield node, name, guarded, handler, arg_of
             return
         if isinstance(node, (ast.If, ast.IfExp)):
-            pol = _cpu_test(node.test, predicates)
+            pol = _cpu_test(node.test, predicates, route_vars)
             yield from visit(node.test, guarded, handler, None)
             body = node.body if isinstance(node.body, list) else [node.body]
             orelse = (node.orelse if isinstance(node.orelse, list)

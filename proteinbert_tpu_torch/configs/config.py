@@ -3,10 +3,22 @@
 A copy of `proteinbert_tpu/configs/config.py` (the port never imports
 the JAX package): the same frozen dataclass tree, presets and JSON
 round trip, so a run's config.json loads unchanged in either package.
-Fields that only steer the JAX build (scan/remat knobs, the mesh) are
-kept for that reason and ignored here. `ModelConfig.use_pallas` is
-ignored too: on a CUDA device the port always runs its hand-written
-kernels, and on the CPU it always runs their plain PyTorch versions.
+Fields that only steer the JAX build (the scan knobs) are kept for that
+reason; the port runs its blocks in a loop either way, and `scan_blocks`
+only sets how route decisions are counted (`models/proteinbert.encode`:
+one a family per forward under it, as JAX traces its scanned body once;
+else one a block). `remat` is inert: the port's kernel VJPs
+already save only their inputs (`kernels/autograd.recompute_vjp`), and a
+block kernel's input is what full remat would keep, as the JAX model says
+of its own kernel path (both policies degenerate to recompute-everything
+there); `remat_policy` is still checked, and a policy other than "full"
+or "convs" raises JAX's ValueError where JAX raises it
+(`models/proteinbert.check_remat_policy`). `ModelConfig.use_pallas` is
+ignored: each block takes the route JAX's gates take with
+`use_pallas=True` (`kernels/one_pass.onepass_route`) — a hand-written
+kernel on CUDA (its plain PyTorch version on the CPU), or the port of the
+XLA reference where JAX's gate refuses the shape and no port kernel
+covers it.
 """
 
 from __future__ import annotations

@@ -17,16 +17,22 @@
 // all-masked column gets the uniform softmax, not NaN.
 //
 // Design: one block per (head, row) — the TPU ran one grid step per row with
-// a static loop over heads. The block walks L in 64-row chunks twice:
+// a static loop over heads. The block walks L in 64-row chunks:
 //   pass 1 projects K (x chunk and wk[h] tiles stream through a cp.async
-//          double buffer into tensor-core products) and keeps only the
+//          double buffer into CUDA-core products) and keeps only the
 //          (L, S) float32 scores in shared memory;
 //   then one warp per segment takes the masked softmax over L in place;
-//   pass 2 projects V chunk by chunk and folds it straight into the
-//          (S, v) float32 sums.
-// Splitting K from V costs no extra products and keeps shared memory at
-// O(L*S) instead of O(L*v), so any bucket length fits one block. key_dim is
-// 64; value_dim VD is 64 or 128.
+//   pass 2 projects V chunk by chunk (a block of at most 128 value columns
+//          at a time) and folds it straight into the (S, v) float32 sums.
+// Splitting K from V keeps shared memory at O(L*S) instead of O(L*v), so
+// any bucket length fits one block. The head widths are run-time values
+// (`head_dims_ok`: multiples of 8, key_dim up to 128, value_dim up to
+// 256). A projection runs in blocks of at most 128 output columns, each
+// the narrowest of 32, 64 and 128 that holds its columns (the rest
+// zero-filled), so three instantiations serve every width and the widths
+// of earlier builds (key_dim 64, value_dim 64 or 128) run the products,
+// and give the bits, they gave. value_dim 256 takes two blocks, each a
+// pass over x.
 //
 // Q8 = true is the float32 int8 leg of K2 (global_attention_q8.cu) and of
 // #6: wq, wk, wv arrive as int8 with float32 per-(head, column) scales;
@@ -40,31 +46,36 @@
 
 namespace pbt {
 
-constexpr int kKD = 64;     // key_dim
-constexpr int kMaxS = 16;   // segments per row
-constexpr int kRows = 64;   // L rows per chunk
-constexpr int kKc = 32;     // C columns per k-step
+// The coverage of K2 (and of #6's attention) and the float32 plan's
+// shared memory. kernels/attention.py `CUDA_CONSTANTS` states the same
+// values under these names, and the port's tests hold the two together.
+constexpr int kHeadStep = 8;   // head widths: multiples of this
+constexpr int kMaxKD = 128;    // key_dim at most
+constexpr int kMaxVD = 256;    // value_dim at most
+constexpr int kMaxS = 16;      // segments per row
+constexpr int kRows = 64;      // L rows per chunk
+constexpr int kKc = 32;        // C columns per k-step: C a multiple of it
+constexpr int kMaxC = 2048;    // C at most
+constexpr int kMaxCols = 128;  // projection columns per block at most
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory
 
-template <typename T, int N> struct AttnCfg;
+// The head widths the kernels of K2 and #6 take: multiples of 8, key_dim
+// up to 128 and value_dim up to 256.
+__host__ __device__ constexpr bool head_dims_ok(int kd, int vd) {
+  return kd % kHeadStep == 0 && kd >= kHeadStep && kd <= kMaxKD &&
+         vd % kHeadStep == 0 && vd >= kHeadStep && vd <= kMaxVD;
+}
 
-template <int N> struct AttnCfg<__nv_bfloat16, N> {
-  static constexpr int PAD = 16;
-  using Mma = MmaBf16<kRows, N, 4, 2>;
-};
-
-template <int N> struct AttnCfg<float, N> {
-  static constexpr int PAD = 0;
-  using Mma = MmaF32<kRows, N, 32>;
-};
-
-template <typename T, int VD> struct AttnSmem {
-  static constexpr int PAD = AttnCfg<T, VD>::PAD;
-  static constexpr int LDA = kKc + PAD;
-  static constexpr size_t a_tile = size_t(kRows) * LDA * sizeof(T);
-  static constexpr size_t b_tile = size_t(kKc) * (VD + PAD) * sizeof(T);
+// Shared memory of the float32 plan (attention_head): q (kMaxS, kd), the
+// segments' flags, the projection region (a double buffer of x and weight
+// tiles, then the (kRows, n) stage), then the (L, S) scores.
+struct AttnSmem {
+  static constexpr size_t a_tile = size_t(kRows) * kKc * sizeof(float);
+  static constexpr size_t b_tile = size_t(kKc) * kMaxCols * sizeof(float);
   static constexpr size_t tiles = 2 * (a_tile + b_tile);
-  static constexpr size_t stage_bytes = size_t(kRows) * VD * sizeof(float);
-  static constexpr size_t q = align128(size_t(kMaxS) * kKD * sizeof(float));
+  static constexpr size_t stage_bytes =
+      size_t(kRows) * kMaxCols * sizeof(float);
+  static constexpr size_t q = align128(size_t(kMaxS) * kMaxKD * sizeof(float));
   static constexpr size_t flags = align128(kMaxS * sizeof(int));
   static constexpr size_t region =
       align128(tiles > stage_bytes ? tiles : stage_bytes);
@@ -92,9 +103,9 @@ struct SegmentMask {
   }
 };
 
-// The projection weights of one launch: wq (H, G, kKD), wk (H, C, kKD),
-// wv (H, C, VD) in the activation type, or on the int8 leg (Q8) int8 with
-// float32 scales sq (H, kKD), sk (H, kKD), sv (H, VD), one per (head, output
+// The projection weights of one launch: wq (H, G, kd), wk (H, C, kd),
+// wv (H, C, vd) in the activation type, or on the int8 leg (Q8) int8 with
+// float32 scales sq (H, kd), sk (H, kd), sv (H, vd), one per (head, output
 // column); the scales are null on the floating-point leg.
 template <typename T, bool Q8> struct AttnWeights {
   using W = WeightT<T, Q8>;
@@ -118,45 +129,59 @@ AttnWeights<T, Q8> attn_weights(const void* wq, const void* wk,
       static_cast<const float*>(sk), static_cast<const float*>(sv)};
 }
 
-// stage (kRows x N) = x[l0 : l0+kRows] @ w (C x N), rows >= L zero; on the
-// int8 leg w is int8, dequantized with the N scales `wscale` as it loads.
-template <typename T, int N, bool Q8, typename Mma>
-__device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
-                                              int C, int l0,
-                                              const WeightT<T, Q8>* w,
-                                              const float* wscale,
-                                              unsigned char* region,
-                                              size_t a_tile) {
-  constexpr int PAD = AttnCfg<T, N>::PAD;
-  constexpr int LDA = kKc + PAD, LDB = N + PAD;
-  constexpr int A_TILE = kRows * LDA, B_TILE = kKc * LDB;
-  T* a_buf = reinterpret_cast<T*>(region);
-  T* b_buf = reinterpret_cast<T*>(region + 2 * a_tile);
+// Rows 0 .. kKc-1 of a (kKc, N) float32 weight tile from w (leading
+// dimension ld): the first `cols` columns copied (cp.async), the rest zero.
+template <int N>
+__device__ __forceinline__ void load_cols_async(float* dst, const float* w,
+                                                int ld, int cols) {
+  constexpr int per_row = N / 4;
+  for (int i = threadIdx.x; i < kKc * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * 4;
+    float* d = dst + r * N + c;
+    if (c < cols)
+      cp_async16(d, w + size_t(r) * ld + c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// stage (kRows x N) = x[l0 : l0+kRows] @ w[:, 0:cols] (C x ld, the block's
+// first column at w), rows >= L and columns >= cols zero; on the int8 leg
+// w is int8, dequantized with the block's scales `wscale` as it loads.
+template <int N, bool Q8>
+__device__ __forceinline__ void project_block(
+    const float* xb, int L, int C, int l0, const WeightT<float, Q8>* w,
+    int ld, int cols, const float* wscale, unsigned char* region) {
+  constexpr int A_TILE = kRows * kKc, B_TILE = kKc * N;
+  float* a_buf = reinterpret_cast<float*>(region);
+  float* b_buf = reinterpret_cast<float*>(region + 2 * AttnSmem::a_tile);
+  MmaF32<kRows, N, 32> mma;
   const auto load_x = [&](int s, int buf) {
-    load_rows_async(a_buf + buf * A_TILE, LDA, xb + s * kKc, C, l0, kRows,
+    load_rows_async(a_buf + buf * A_TILE, kKc, xb + s * kKc, C, l0, kRows,
                     kKc, 0, L);
   };
   const auto compute = [&](int s, int buf) {
-    mma.mma(a_buf + buf * A_TILE, LDA, b_buf + buf * B_TILE, LDB, kKc);
+    mma.mma(a_buf + buf * A_TILE, kKc, b_buf + buf * B_TILE, N, kKc);
   };
   mma.zero();
   if constexpr (Q8) {
     Q8Tile<kKc, N> tile;
+    tile.ncols = cols;
     pipelined_steps_staged(
         C / kKc, load_x,
         [&](int s) {
           if (s == 0) tile.scales(wscale);
-          tile.fetch(w + size_t(s) * kKc * N, N);
+          tile.fetch(w + size_t(s) * kKc * ld, ld);
         },
-        [&](int, int buf) { tile.store(b_buf + buf * B_TILE, LDB); },
+        [&](int, int buf) { tile.store(b_buf + buf * B_TILE, N); },
         compute);
   } else {
     pipelined_steps(
         C / kKc,
         [&](int s, int buf) {
           load_x(s, buf);
-          load_rows_async(b_buf + buf * B_TILE, LDB, w + size_t(s) * kKc * N,
-                          N, 0, kKc, N, 0, kKc);
+          load_cols_async<N>(b_buf + buf * B_TILE, w + size_t(s) * kKc * ld,
+                             ld, cols);
         },
         compute);
   }
@@ -164,68 +189,83 @@ __device__ __forceinline__ void project_chunk(Mma& mma, const T* xb, int L,
   __syncthreads();
 }
 
-// out (S, G) columns h*VD .. (h+1)*VD of one batch row: xb (L, C), gb
-// (S, G), the weights `w`.
-template <typename T, int VD, bool Q8, typename Mask>
-__device__ __forceinline__ void attention_head(
-    const T* xb, const T* gb, const AttnWeights<T, Q8>& w, T* ob, int L,
-    int C, int G, int S, int h, int zero_empty, Mask mask,
-    unsigned char* smem) {
-  using Smem = AttnSmem<T, VD>;
-  float* q = reinterpret_cast<float*>(smem);
-  int* exists = reinterpret_cast<int*>(smem + Smem::q);
-  unsigned char* region = smem + Smem::q + Smem::flags;
-  float* stage = reinterpret_cast<float*>(region);  // after a projection
-  float* sc = reinterpret_cast<float*>(region + Smem::region);  // (L, S)
+// `project_block` at the narrowest of 32, 64 and 128 columns that holds
+// `cols` (the widths of earlier builds, key_dim 64 and value_dim 64 or
+// 128, run their old products); returns that width, the stage's row
+// length.
+template <bool Q8>
+__device__ __forceinline__ int project(const float* xb, int L, int C, int l0,
+                                       const WeightT<float, Q8>* w, int ld,
+                                       int cols, const float* wscale,
+                                       unsigned char* region) {
+  if (cols <= 32) {
+    project_block<32, Q8>(xb, L, C, l0, w, ld, cols, wscale, region);
+    return 32;
+  }
+  if (cols <= 64) {
+    project_block<64, Q8>(xb, L, C, l0, w, ld, cols, wscale, region);
+    return 64;
+  }
+  project_block<kMaxCols, Q8>(xb, L, C, l0, w, ld, cols, wscale, region);
+  return kMaxCols;
+}
 
-  const auto* wkh = w.wk + size_t(h) * C * kKD;
-  const auto* wvh = w.wv + size_t(h) * C * VD;
-  const float* skh = Q8 ? w.sk + size_t(h) * kKD : nullptr;
-  const float* svh = Q8 ? w.sv + size_t(h) * VD : nullptr;
-  const float inv_scale = 1.0f / sqrtf(float(kKD));
+// out (S, G) columns h*vd .. (h+1)*vd of one batch row in float32: xb
+// (L, C), gb (S, G), the weights `w`, head widths kd and vd.
+template <bool Q8, typename Mask>
+__device__ __forceinline__ void attention_head(
+    const float* xb, const float* gb, const AttnWeights<float, Q8>& w,
+    float* ob, int L, int C, int G, int S, int h, int kd, int vd,
+    int zero_empty, Mask mask, unsigned char* smem) {
+  float* q = reinterpret_cast<float*>(smem);
+  int* exists = reinterpret_cast<int*>(smem + AttnSmem::q);
+  unsigned char* region = smem + AttnSmem::q + AttnSmem::flags;
+  float* stage = reinterpret_cast<float*>(region);  // after a projection
+  float* sc = reinterpret_cast<float*>(region + AttnSmem::region);  // (L, S)
+
+  const auto* wkh = w.wk + size_t(h) * C * kd;
+  const auto* wvh = w.wv + size_t(h) * C * vd;
+  const float* skh = Q8 ? w.sk + size_t(h) * kd : nullptr;
+  const float* svh = Q8 ? w.sv + size_t(h) * vd : nullptr;
+  const float inv_scale = 1.0f / sqrtf(float(kd));
 
   __syncthreads();  // an earlier head of this block is done with smem
   // q_h = tanh(g @ wq[h]), rounded at both ends; wq read from device memory
   // (dequantized per value on the int8 leg).
-  for (int i = threadIdx.x; i < S * kKD; i += kThreads) {
-    const int s = i / kKD, j = i - s * kKD;
-    const size_t wqh = size_t(h) * G * kKD + j;
-    const size_t sqh = size_t(h) * kKD + j;
+  for (int i = threadIdx.x; i < S * kd; i += kThreads) {
+    const int s = i / kd, j = i - s * kd;
+    const size_t wqh = size_t(h) * G * kd + j;
+    const size_t sqh = size_t(h) * kd + j;
     float acc = 0.f;
     for (int k = 0; k < G; ++k)
-      acc = fmaf(to_f(gb[s * G + k]),
-                 weight_at<Q8, T>(w.wq, wqh + size_t(k) * kKD, w.sq, sqh),
+      acc = fmaf(gb[s * G + k],
+                 weight_at<Q8, float>(w.wq, wqh + size_t(k) * kd, w.sq, sqh),
                  acc);
-    q[i] = round_to<T>(tanhf(round_to<T>(acc)));
+    q[i] = tanhf(acc);
   }
   __syncthreads();
 
-  // Pass 1: masked float32 scores for every (l, s).
-  {
-    typename AttnCfg<T, kKD>::Mma mma;
-    for (int l0 = 0; l0 < L; l0 += kRows) {
-      project_chunk<T, kKD, Q8>(mma, xb, L, C, l0, wkh, skh, region,
-                                Smem::a_tile);
-      for (int i = threadIdx.x; i < kRows * kKD; i += kThreads)
-        stage[i] = round_to<T>(tanhf(round_to<T>(stage[i])));
-      __syncthreads();
-      const int rows = min(kRows, L - l0);
-      for (int i = threadIdx.x; i < rows * S; i += kThreads) {
-        const int m = i / S, s = i - m * S;
-        const float* kr = stage + m * kKD;
-        const float* qs = q + s * kKD;
-        float dot = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < kKD; ++j) dot = fmaf(kr[j], qs[j], dot);
-        const int l = l0 + m;
-        sc[l * S + s] = mask(l, s) ? dot * inv_scale : -1e30f;
-      }
-      __syncthreads();
+  // Pass 1: masked float32 scores for every (l, s): K for all kd <=
+  // kMaxCols columns in one block.
+  for (int l0 = 0; l0 < L; l0 += kRows) {
+    const int n = project<Q8>(xb, L, C, l0, wkh, kd, kd, skh, region);
+    for (int i = threadIdx.x; i < kRows * n; i += kThreads)
+      stage[i] = tanhf(stage[i]);
+    __syncthreads();
+    const int rows = min(kRows, L - l0);
+    for (int i = threadIdx.x; i < rows * S; i += kThreads) {
+      const int m = i / S, s = i - m * S;
+      const float* kr = stage + m * n;
+      const float* qs = q + s * kd;
+      float dot = 0.f;
+      for (int j = 0; j < kd; ++j) dot = fmaf(kr[j], qs[j], dot);
+      const int l = l0 + m;
+      sc[l * S + s] = mask(l, s) ? dot * inv_scale : -1e30f;
     }
+    __syncthreads();
   }
 
-  // Softmax over l for each segment (one warp per segment); the weights are
-  // rounded to T before the weighted sum, as the TPU kernel casts them.
+  // Softmax over l for each segment (one warp per segment).
   {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int s = warp; s < S; s += kWarps) {
@@ -240,104 +280,93 @@ __device__ __forceinline__ void attention_head(
       for (int l = lane; l < L; l += 32) sum += expf(sc[l * S + s] - mx);
       sum = warp_sum(sum);
       for (int l = lane; l < L; l += 32)
-        sc[l * S + s] = round_to<T>(expf(sc[l * S + s] - mx) / sum);
+        sc[l * S + s] = expf(sc[l * S + s] - mx) / sum;
       any = __any_sync(0xffffffffu, any);
       if (lane == 0) exists[s] = any;
     }
   }
   __syncthreads();
 
-  // Pass 2: out[s, j] = sum_l w[l, s] * V[l, j] in float32.
-  constexpr int kPer = kMaxS * VD / kThreads;
-  float acc[kPer];
+  // Pass 2, a block of at most kMaxCols value columns at a time: out[s, j]
+  // = sum_l w[l, s] * V[l, j] in float32, l in order.
+  constexpr int kPer = kMaxS * kMaxCols / kThreads;
+  for (int c0 = 0; c0 < vd; c0 += kMaxCols) {
+    const int cols = min(kMaxCols, vd - c0);
+    int n = 0;
+    float acc[kPer];
 #pragma unroll
-  for (int r = 0; r < kPer; ++r) acc[r] = 0.f;
-  {
-    typename AttnCfg<T, VD>::Mma mma;
+    for (int r = 0; r < kPer; ++r) acc[r] = 0.f;
     for (int l0 = 0; l0 < L; l0 += kRows) {
-      project_chunk<T, VD, Q8>(mma, xb, L, C, l0, wvh, svh, region,
-                               Smem::a_tile);
-      for (int i = threadIdx.x; i < kRows * VD; i += kThreads)
-        stage[i] = round_to<T>(gelu_tanh(round_to<T>(stage[i])));
+      n = project<Q8>(xb, L, C, l0, wvh + c0, vd, cols,
+                      Q8 ? svh + c0 : nullptr, region);
+      for (int i = threadIdx.x; i < kRows * n; i += kThreads)
+        stage[i] = gelu_tanh(stage[i]);
       __syncthreads();
       const int rows = min(kRows, L - l0);
 #pragma unroll
       for (int r = 0; r < kPer; ++r) {
         const int i = threadIdx.x + r * kThreads;
-        if (i < S * VD) {
-          const int s = i / VD, j = i - s * VD;
+        if (i < S * n) {
+          const int s = i / n, j = i - s * n;
           float a = acc[r];
           for (int m = 0; m < rows; ++m)
-            a = fmaf(sc[(l0 + m) * S + s], stage[m * VD + j], a);
+            a = fmaf(sc[(l0 + m) * S + s], stage[m * n + j], a);
           acc[r] = a;
         }
       }
       __syncthreads();
     }
-  }
-
 #pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = threadIdx.x + r * kThreads;
-    if (i < S * VD) {
-      const int s = i / VD, j = i - s * VD;
-      const float v = (zero_empty && !exists[s]) ? 0.f : acc[r];
-      ob[s * G + h * VD + j] = from_f<T>(v);
+    for (int r = 0; r < kPer; ++r) {
+      const int i = threadIdx.x + r * kThreads;
+      if (i < S * n) {
+        const int s = i / n, j = i - s * n;
+        if (j < cols)
+          ob[s * G + h * vd + c0 + j] =
+              (zero_empty && !exists[s]) ? 0.f : acc[r];
+      }
     }
   }
 }
 
 // K2 in float32: one block per (head, batch row).
-template <typename T, int VD, bool Q8>
+template <bool Q8>
 __global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ x, const int* __restrict__ ids,
-                     const T* __restrict__ g, AttnWeights<T, Q8> w,
-                     T* __restrict__ out, int L, int C, int G, int S,
-                     int zero_empty) {
+    attention_kernel(const float* __restrict__ x, const int* __restrict__ ids,
+                     const float* __restrict__ g, AttnWeights<float, Q8> w,
+                     float* __restrict__ out, int L, int C, int G, int S,
+                     int kd, int vd, int zero_empty) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
-  attention_head<T, VD, Q8>(x + size_t(b) * L * C, g + size_t(b) * S * G, w,
-                            out + size_t(b) * S * G, L, C, G, S, h,
-                            zero_empty, IdMask{ids + size_t(b) * L}, smem);
+  attention_head<Q8>(x + size_t(b) * L * C, g + size_t(b) * S * G, w,
+                     out + size_t(b) * S * G, L, C, G, S, h, kd, vd,
+                     zero_empty, IdMask{ids + size_t(b) * L}, smem);
 }
 
-template <typename T, int VD, bool Q8>
+template <bool Q8>
 cudaError_t launch_attention(const void* x, const int* ids, const void* g,
-                             const AttnWeights<T, Q8>& w, void* out, int B,
-                             int L, int C, int G, int S, int H,
+                             const AttnWeights<float, Q8>& w, void* out,
+                             int B, int L, int C, int G, int S, int H, int kd,
                              int zero_empty, cudaStream_t stream) {
-  const size_t smem = AttnSmem<T, VD>::total(L, S);
-  if (smem > 232448) return cudaErrorInvalidValue;
+  const size_t smem = AttnSmem::total(L, S);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<T, VD, Q8>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      attention_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
   if (e != cudaSuccess) return e;
   dim3 grid(H, B);
-  attention_kernel<T, VD, Q8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ids, static_cast<const T*>(g), w,
-      static_cast<T*>(out), L, C, G, S,
-      zero_empty);
+  attention_kernel<Q8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), ids, static_cast<const float*>(g), w,
+      static_cast<float*>(out), L, C, G, S, kd, G / H, zero_empty);
   return cudaGetLastError();
 }
 
-// K2 at the value_dim instantiation G / H names (64 or 128).
-template <typename T, bool Q8>
-cudaError_t launch_attention_vd(const void* x, const int* ids, const void* g,
-                                const AttnWeights<T, Q8>& w, void* out,
-                                int B, int L, int C, int G, int S, int H,
-                                int zero_empty, cudaStream_t stream) {
-  if (G == H * 64)
-    return launch_attention<T, 64, Q8>(x, ids, g, w, out, B, L, C, G, S, H,
-                                       zero_empty, stream);
-  if (G == H * 128)
-    return launch_attention<T, 128, Q8>(x, ids, g, w, out, B, L, C, G, S, H,
-                                        zero_empty, stream);
-  return cudaErrorInvalidValue;
-}
-
-// Host-side checks of K2's entries.
-inline bool attention_geometry_ok(int B, int L, int C, int S, int H) {
-  return B >= 1 && L >= 1 && H >= 1 && C % kKc == 0 && S >= 1 && S <= kMaxS;
+// Host-side checks of K2's entries: the key width is the weights' (kd),
+// the value width G / H.
+inline bool attention_geometry_ok(int B, int L, int C, int G, int S, int H,
+                                  int kd) {
+  return B >= 1 && L >= 1 && H >= 1 && C % kKc == 0 && C <= kMaxC &&
+         S >= 1 && S <= kMaxS && G % H == 0 && head_dims_ok(kd, G / H);
 }
 
 }  // namespace pbt

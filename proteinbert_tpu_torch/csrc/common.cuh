@@ -125,36 +125,62 @@ __device__ __forceinline__ void load_rows_async(T* dst, int dst_ld,
 // cast to the activation type, bit for bit the value the floating-point leg
 // loads from the dequantized weights — and writes them to the shared tile.
 // Thread i takes the 16 columns (i % (COLS / 16)) * 16 of rows i / (COLS /
-// 16) + k * 256 / (COLS / 16): its columns, so its 16 scales, are fixed
-// across a matrix's tiles, and scales() loads them once into registers.
-// COLS and src_ld are multiples of 16, dst_ld * sizeof(T) of 16 bytes.
+// 16) + k * 256 / (COLS / 16). Where 256 is a multiple of COLS / 16 its
+// columns, so its 16 scales, are fixed across a matrix's tiles and scales()
+// loads them once into registers; otherwise (C = 384: 24 groups a row)
+// each of its kPer groups keeps its own 16. `ncols` (default COLS) is how
+// many columns the source holds, a multiple of 8: a group past it loads no
+// bytes and stores zeros, a group it cuts loads 8 (the float32 attention's
+// 32-column blocks over a head width that is not a multiple of 32). COLS
+// is a multiple of 16, src_ld and ncols of 8, and dst_ld * sizeof(T) of 16
+// bytes.
 template <int ROWS, int COLS>
 struct Q8Tile {
   static constexpr int kPerRow = COLS / 16;
   static constexpr int kTotal = ROWS * kPerRow;
   static constexpr int kPer = (kTotal + kThreads - 1) / kThreads;
-  static_assert(COLS % 16 == 0 && kThreads % kPerRow == 0,
-                "a thread's columns are the same in every tile");
+  static constexpr bool kFixedCols = kThreads % kPerRow == 0;
+  static constexpr int kSets = kFixedCols ? 1 : kPer;
+  static_assert(COLS % 16 == 0, "16-column groups");
   int4 raw[kPer];
-  float sc[16];
+  float sc[kSets][16];
+  int ncols = COLS;
 
-  __device__ __forceinline__ static int col() {
-    return (threadIdx.x % kPerRow) * 16;
+  __device__ __forceinline__ static int col(int u) {
+    return ((threadIdx.x + u * kThreads) % kPerRow) * 16;
   }
 
   // The scales of the thread's columns, from a matrix's per-column scales.
   __device__ __forceinline__ void scales(const float* scale) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) sc[j] = scale[col() + j];
+    for (int u = 0; u < kSets; ++u) {
+      const int c = col(u);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        sc[u][j] = c + j < ncols ? scale[c + j] : 0.f;
+    }
   }
 
+  // A group past ncols loads nothing; one that ncols cuts (ncols a
+  // multiple of 8), or whose rows are not 16-byte aligned (src_ld a
+  // multiple of 8 only), loads 8 bytes at a time.
   __device__ __forceinline__ void fetch(const int8_t* src, int src_ld) {
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int i = threadIdx.x + u * kThreads;
-      if (i < kTotal)
-        raw[u] = __ldg(reinterpret_cast<const int4*>(
-            src + static_cast<size_t>(i / kPerRow) * src_ld + col()));
+      if (i < kTotal) {
+        const int8_t* p = src + static_cast<size_t>(i / kPerRow) * src_ld +
+                          col(u);
+        if (col(u) + 16 <= ncols && src_ld % 16 == 0) {
+          raw[u] = __ldg(reinterpret_cast<const int4*>(p));
+        } else {
+          int2 lo = make_int2(0, 0), hi = make_int2(0, 0);
+          if (col(u) < ncols) lo = __ldg(reinterpret_cast<const int2*>(p));
+          if (col(u) + 8 < ncols)
+            hi = __ldg(reinterpret_cast<const int2*>(p + 8));
+          raw[u] = make_int4(lo.x, lo.y, hi.x, hi.y);
+        }
+      }
     }
   }
 
@@ -165,12 +191,13 @@ struct Q8Tile {
       const int i = threadIdx.x + u * kThreads;
       if (i < kTotal) {
         const int8_t* q = reinterpret_cast<const int8_t*>(&raw[u]);
+        const float* s = sc[kFixedCols ? 0 : u];
         __align__(16) T v[16];
 #pragma unroll
         for (int j = 0; j < 16; ++j)
-          v[j] = from_f<T>(static_cast<float>(q[j]) * sc[j]);
+          v[j] = from_f<T>(static_cast<float>(q[j]) * s[j]);
         uint4* d = reinterpret_cast<uint4*>(dst + (i / kPerRow) * dst_ld +
-                                            col());
+                                            col(u));
 #pragma unroll
         for (int j = 0; j < int(16 * sizeof(T) / 16); ++j)
           d[j] = reinterpret_cast<const uint4*>(v)[j];

@@ -9,8 +9,10 @@
 // wgmma fed by TMA (hopper.cuh) whose epilogue writes the scores and V, and
 // a softmax / weighted-sum pass. In float32, attention.cuh's CUDA-core plan:
 // one block per (head, row), a K pass into (L, S) float32 scores, the masked
-// softmax, a V pass folded into the (S, v) sums. key_dim is 64; value_dim
-// is 64 or 128, each its own instantiation.
+// softmax, a V pass folded into the (S, v) sums. key_dim and value_dim
+// are multiples of 8 (key_dim <= 128, value_dim <= 256): in bf16 six
+// projection instantiations over the widths rounded up to 64
+// (attention_sm90.cuh), in float32 run-time widths.
 //
 // What bounds it on the H100: operations — the K and V projections,
 // 2*B*H*L*C*(k+v) FLOP (attention.py:308), 4.3 GFLOP at B=8, L=512,
@@ -21,10 +23,12 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (x, g, wq, wk, wv, out); ids is int32
 // (B, L): s + 1 where position l belongs to segment s, anything else none.
-// In bfloat16 the scratches q (B, S, H, 64) float32, scores (B, H, S, L)
-// float32 and v (B, L, G) bfloat16 (null in float32), and x, wk, wv 16-byte
-// aligned (TMA). Requires key_dim == 64, value_dim G / H in {64, 128},
-// C % 32 == 0, 1 <= S <= 16; in float32 L * S scores fit shared memory.
+// wq (H, G, kd), wk (H, C, kd), wv (H, C, G / H). In bfloat16 the scratches
+// q (B, S, H, kd) float32, scores (B, H, S, L) float32 and v (B, L, G)
+// bfloat16 (null in float32), and x, wk, wv 16-byte aligned (TMA). Requires
+// key_dim kd and value_dim G / H multiples of 8, kd <= 128, G / H <= 256,
+// C % 32 == 0, C <= 2048, 1 <= S <= 16; in float32 L * S scores fit shared
+// memory.
 // Returns cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_global_attention(int dtype, const void* x, const void* ids,
@@ -32,8 +36,9 @@ extern "C" int pbt_global_attention(int dtype, const void* x, const void* ids,
                                     const void* wk, const void* wv, void* q,
                                     void* scores, void* v, void* out, int B,
                                     int L, int C, int G, int S, int H,
-                                    int zero_empty, void* stream) {
-  if (!pbt::attention_geometry_ok(B, L, C, S, H)) return cudaErrorInvalidValue;
+                                    int kd, int zero_empty, void* stream) {
+  if (!pbt::attention_geometry_ok(B, L, C, G, S, H, kd))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   const pbt::AttnScratch sc{static_cast<float*>(q),
@@ -42,10 +47,10 @@ extern "C" int pbt_global_attention(int dtype, const void* x, const void* ids,
   if (dtype == 0)
     return pbt::launch_k2<float, false>(
         x, id, g, pbt::attn_weights<float, false>(wq, wk, wv), sc, out, B, L,
-        C, G, S, H, zero_empty, s);
+        C, G, S, H, kd, zero_empty, s);
   if (dtype == 1)
     return pbt::launch_k2<pbt::bf16, false>(
         x, id, g, pbt::attn_weights<pbt::bf16, false>(wq, wk, wv), sc, out,
-        B, L, C, G, S, H, zero_empty, s);
+        B, L, C, G, S, H, kd, zero_empty, s);
   return cudaErrorInvalidValue;
 }

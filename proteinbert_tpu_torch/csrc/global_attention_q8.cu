@@ -23,20 +23,22 @@
 
 #include "attention_sm90.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g, out); wq, wk, wv int8 (H, G, 64),
-// (H, C, 64), (H, C, G / H) with float32 scales sq (H, 64), sk (H, 64),
+// dtype: 0 = float32, 1 = bfloat16 (x, g, out); wq, wk, wv int8 (H, G, kd),
+// (H, C, kd), (H, C, G / H) with float32 scales sq (H, kd), sk (H, kd),
 // sv (H, G / H), each 16-byte aligned; ids is int32 (B, L) as for K2. In
-// bfloat16 the scratches wkd (H, C, 64) and wvd (H, C, G / H) bfloat16, q,
+// bfloat16 the scratches wkd (H, C, kd) and wvd (H, C, G / H) bfloat16, q,
 // scores and v as for K2 (null in float32), and x 16-byte aligned (TMA).
-// Requires value_dim G / H in {64, 128}, C % 32 == 0, 1 <= S <= 16.
+// Requires the head widths K2 takes (global_attention.cu), C % 32 == 0,
+// C <= 2048, 1 <= S <= 16.
 // Returns cudaGetLastError() after the last launch (0 = launched).
 extern "C" int pbt_global_attention_q8(
     int dtype, const void* x, const void* ids, const void* g, const void* wq,
     const void* sq, const void* wk, const void* sk, const void* wv,
     const void* sv, void* wkd, void* wvd, void* q, void* scores, void* v,
-    void* out, int B, int L, int C, int G, int S, int H, int zero_empty,
-    void* stream) {
-  if (!pbt::attention_geometry_ok(B, L, C, S, H)) return cudaErrorInvalidValue;
+    void* out, int B, int L, int C, int G, int S, int H, int kd,
+    int zero_empty, void* stream) {
+  if (!pbt::attention_geometry_ok(B, L, C, G, S, H, kd))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   const pbt::AttnScratch sc{
@@ -46,10 +48,10 @@ extern "C" int pbt_global_attention_q8(
   if (dtype == 0)
     return pbt::launch_k2<float, true>(
         x, id, g, pbt::attn_weights<float, true>(wq, wk, wv, sq, sk, sv), sc,
-        out, B, L, C, G, S, H, zero_empty, s);
+        out, B, L, C, G, S, H, kd, zero_empty, s);
   if (dtype == 1)
     return pbt::launch_k2<pbt::bf16, true>(
         x, id, g, pbt::attn_weights<pbt::bf16, true>(wq, wk, wv, sq, sk, sv),
-        sc, out, B, L, C, G, S, H, zero_empty, s);
+        sc, out, B, L, C, G, S, H, kd, zero_empty, s);
   return cudaErrorInvalidValue;
 }

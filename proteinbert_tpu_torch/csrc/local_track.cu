@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel proteinbert_tpu/kernels/fused_block.py
 // `_fused_kernel` (:526, launched at :804 by `_pallas_forward`, entry
-// `fused_local_track`), at C in {128, 256, 512}.
+// `fused_local_track`), at C in {128, 256, 384, 512}.
 //
 // What bounds it on the H100: operations, 2*B*L*C^2*19 FLOP — 40.8 GFLOP
 // at B=8, L=C=512, 0.0413 ms at 989 TFLOP/s bf16 — against ~9 MB of
@@ -25,7 +25,7 @@
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, C), conv and dense
 // kernels, out); biases and LN vectors are float32; h is a float32
 // (B, L, C) scratch in bfloat16 (unused, may be null, in float32). C is
-// 128, 256 or 512; in bfloat16, x, nk, wk and dk 16-byte aligned (TMA).
+// 128, 256, 384 or 512; in bfloat16, x, nk, wk and dk 16-byte aligned (TMA).
 // Returns cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_local_track(int dtype, const void* x, const void* bcast,

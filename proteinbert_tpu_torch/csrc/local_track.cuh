@@ -345,6 +345,8 @@ cudaError_t launch_track(int C, const TrackArgs<T, Q8>& p, int B,
       return launch_track_c<T, SEG, Q8, 128>(p, B, stream);
     case 256:
       return launch_track_c<T, SEG, Q8, 256>(p, B, stream);
+    case 384:
+      return launch_track_c<T, SEG, Q8, 384>(p, B, stream);
     case 512:
       return launch_track_c<T, SEG, Q8, 512>(p, B, stream);
     default:

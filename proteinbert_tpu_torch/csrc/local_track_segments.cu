@@ -4,7 +4,7 @@
 // Replaces the TPU kernel proteinbert_tpu/kernels/fused_block.py
 // `_fused_segment_kernel` (fused_block.py:977-1019, launched at :1134 by
 // `_pallas_segments_forward`, entry `fused_local_track_segments`), its
-// floating-point leg, at C in {128, 256, 512}. It computes
+// floating-point leg, at C in {128, 256, 384, 512}. It computes
 // `local_track_segment_oh_reference` (fused_block.py:299-349) at the Pallas
 // kernel's rounding points: tap products, conv outputs and the own-segment
 // broadcast gather in float32, the mask exact (+0.0 across segments), x1
@@ -32,8 +32,8 @@
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, S, C), conv and dense
 // kernels, out); seg is int32 (B, L), 0 = pad, 1..S a segment, anything
 // else pad; biases and LN vectors are float32; h is a float32 (B, L, C)
-// scratch in bfloat16 (unused, may be null, in float32). C is 128, 256 or
-// 512; in bfloat16, x, nk, wk and dk 16-byte aligned (TMA). Returns
+// scratch in bfloat16 (unused, may be null, in float32). C is 128, 256, 384
+// or 512; in bfloat16, x, nk, wk and dk 16-byte aligned (TMA). Returns
 // cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_local_track_segments(

@@ -37,7 +37,7 @@
 // segment, anything else pad; biases and LN vectors are float32. In
 // bfloat16 the scratches nkd, wkd (9, C, C) and dkd (C, C) bfloat16 and h
 // (B, L, C) float32 (unused, may be null, in float32); x, nq, wq, dq and
-// their scales 16-byte aligned (TMA, 16-byte loads). C is 128, 256 or 512.
+// their scales 16-byte aligned (TMA, 16-byte loads). C is 128, 256, 384 or 512.
 // Returns cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_local_track_segments_q8(

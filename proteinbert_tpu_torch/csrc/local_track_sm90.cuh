@@ -3,8 +3,8 @@
 // (hopper.cuh), at every width the port runs (C a multiple of 128, C <=
 // 2048). The device code of the bf16 legs of K1 (local_track.cu), its
 // prehaloed entry (local_track_valid.cu), #3 (local_track_segments.cu) and
-// its int8 leg (local_track_segments_q8.cu) at C in {128, 256, 512}, and of
-// #2, #2's prehaloed entry and #4 at 512 < C <= 2048
+// its int8 leg (local_track_segments_q8.cu) at C in {128, 256, 384, 512},
+// and of #2, #2's prehaloed entry and #4 at 512 < C <= 2048
 // (local_track_tiled.cuh); #6's bf16 legs (one_pass_sm90.cuh) run the conv
 // pass on 64-row tiles (`WgConvT<64>`) and the finish pass. They replace
 // the TPU kernels

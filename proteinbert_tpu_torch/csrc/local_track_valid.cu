@@ -26,12 +26,12 @@
 
 #include "local_track_sm90.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16 (x (B, L + 2*halo, C), bcast (B, C),
-// conv and dense kernels, out (B, L, C)); biases and LN vectors are
-// float32; h is a float32 (B, L, C) scratch in bfloat16 (unused, may be
-// null, in float32); the halo is the convs' reach, kCenter * wide_dilation
-// rows. C is 128, 256 or 512; in bfloat16, x, nk, wk and dk 16-byte aligned
-// (TMA). Returns cudaGetLastError() after the last launch (0 = launched),
+// dtype: 0 = float32, 1 = bfloat16 (x (B, L + 2*halo, C), bcast (B, C), conv
+// and dense kernels, out (B, L, C)); biases and LN vectors are float32; h is
+// a float32 (B, L, C) scratch in bfloat16 (unused, may be null, in float32);
+// the halo is the convs' reach, kCenter * wide_dilation rows. C is 128, 256,
+// 384 or 512; in bfloat16, x, nk, wk and dk 16-byte aligned (TMA). Returns
+// cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_local_track_valid(int dtype, const void* x,
                                      const void* bcast, const void* nk,

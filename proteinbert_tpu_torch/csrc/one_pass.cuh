@@ -54,18 +54,19 @@ namespace pbt {
 
 constexpr int kCluster = 8;  // CTAs per packed row (the portable maximum)
 
-template <typename T, int C, int VD, bool SEG, bool Q8>
+template <int C, bool SEG, bool Q8>
 __global__ void __launch_bounds__(kThreads, 1)
-    onepass_kernel(TrackArgs<T, Q8> p, const int* __restrict__ real,
-                   const T* __restrict__ g, AttnWeights<T, Q8> aw,
-                   T* __restrict__ attn, int G, int H, int zero_empty) {
+    onepass_kernel(TrackArgs<float, Q8> p, const int* __restrict__ real,
+                   const float* __restrict__ g, AttnWeights<float, Q8> aw,
+                   float* __restrict__ attn, int G, int H, int kd,
+                   int zero_empty) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TL = TrackCfg<T, C>::TL;
+  constexpr int TL = TrackCfg<float, C>::TL;
   const int rank = blockIdx.x, csize = gridDim.x, b = blockIdx.y;
   const int L = p.L, S = p.S;
 
   for (int t = rank; t * TL < L; t += csize)
-    track_tile<T, C, SEG, Q8>(p, b, t * TL, smem);
+    track_tile<float, C, SEG, Q8>(p, b, t * TL, smem);
 
   __threadfence();
   cooperative_groups::this_cluster().sync();
@@ -73,22 +74,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   const SegmentMask mask{SEG ? p.seg + size_t(b) * L : nullptr,
                          real + size_t(b) * L};
   for (int h = rank; h < H; h += csize)
-    attention_head<T, VD, Q8>(p.out + size_t(b) * L * C,
-                              g + size_t(b) * S * G, aw,
-                              attn + size_t(b) * S * G, L, C, G, S, h,
-                              zero_empty, mask, smem);
+    attention_head<Q8>(p.out + size_t(b) * L * C, g + size_t(b) * S * G, aw,
+                       attn + size_t(b) * S * G, L, C, G, S, h, kd, G / H,
+                       zero_empty, mask, smem);
 }
 
-template <typename T, int C, int VD, bool SEG, bool Q8>
-cudaError_t launch_onepass(const TrackArgs<T, Q8>& p, const void* real,
-                           const void* g, const AttnWeights<T, Q8>& aw,
-                           void* attn, int B, int G, int H, int zero_empty,
-                           cudaStream_t stream) {
-  const size_t track = TrackSmem<T, C, SEG>::total;
-  const size_t heads = AttnSmem<T, VD>::total(p.L, p.S);
-  const size_t smem = track > heads ? track : heads;
+// The float32 plan's shared memory at width C: the larger of the track
+// tile's and the attention's.
+template <int C, bool SEG>
+size_t onepass_smem(int L, int S) {
+  const size_t track = TrackSmem<float, C, SEG>::total;
+  const size_t heads = AttnSmem::total(L, S);
+  return track > heads ? track : heads;
+}
+
+template <int C, bool SEG, bool Q8>
+cudaError_t launch_onepass(const TrackArgs<float, Q8>& p, const void* real,
+                           const void* g, const AttnWeights<float, Q8>& aw,
+                           void* attn, int B, int G, int H, int kd,
+                           int zero_empty, cudaStream_t stream) {
+  const size_t smem = onepass_smem<C, SEG>(p.L, p.S);
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = onepass_kernel<T, C, VD, SEG, Q8>;
+  auto kernel = onepass_kernel<C, SEG, Q8>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -105,51 +112,55 @@ cudaError_t launch_onepass(const TrackArgs<T, Q8>& p, const void* real,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, p, static_cast<const int*>(real),
-                         static_cast<const T*>(g), aw, static_cast<T*>(attn),
-                         G, H, zero_empty);
+                         static_cast<const float*>(g), aw,
+                         static_cast<float*>(attn), G, H, kd, zero_empty);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T, int C, int VD, bool Q8>
-cudaError_t launch_seg(int seg_masked, const TrackArgs<T, Q8>& p,
+template <int C, bool Q8>
+cudaError_t launch_seg(int seg_masked, const TrackArgs<float, Q8>& p,
                        const void* real, const void* g,
-                       const AttnWeights<T, Q8>& aw, void* attn, int B, int G,
-                       int H, int zero_empty, cudaStream_t stream) {
+                       const AttnWeights<float, Q8>& aw, void* attn, int B,
+                       int G, int H, int kd, int zero_empty,
+                       cudaStream_t stream) {
   if (seg_masked)
-    return launch_onepass<T, C, VD, true, Q8>(p, real, g, aw, attn, B, G, H,
-                                              zero_empty, stream);
-  return launch_onepass<T, C, VD, false, Q8>(p, real, g, aw, attn, B, G, H,
-                                             zero_empty, stream);
+    return launch_onepass<C, true, Q8>(p, real, g, aw, attn, B, G, H, kd,
+                                       zero_empty, stream);
+  return launch_onepass<C, false, Q8>(p, real, g, aw, attn, B, G, H, kd,
+                                      zero_empty, stream);
 }
 
-template <typename T, bool Q8>
-cudaError_t launch_shape(int C, int VD, int seg_masked,
-                         const TrackArgs<T, Q8>& p, const void* real,
-                         const void* g, const AttnWeights<T, Q8>& aw,
-                         void* attn, int B, int G, int H, int zero_empty,
-                         cudaStream_t stream) {
-  if (C == 128 && VD == 64)
-    return launch_seg<T, 128, 64>(seg_masked, p, real, g, aw, attn, B, G, H,
-                                  zero_empty, stream);
-  if (C == 128 && VD == 128)
-    return launch_seg<T, 128, 128>(seg_masked, p, real, g, aw, attn, B, G, H,
-                                   zero_empty, stream);
-  if (C == 256 && VD == 64)
-    return launch_seg<T, 256, 64>(seg_masked, p, real, g, aw, attn, B, G, H,
-                                  zero_empty, stream);
-  if (C == 256 && VD == 128)
-    return launch_seg<T, 256, 128>(seg_masked, p, real, g, aw, attn, B, G, H,
-                                   zero_empty, stream);
-  return cudaErrorInvalidValue;
+// #6 in float32 at C in {128, 256, 384}; the head widths are run-time
+// values (attention.cuh).
+template <bool Q8>
+cudaError_t launch_shape(int C, int seg_masked,
+                         const TrackArgs<float, Q8>& p, const void* real,
+                         const void* g, const AttnWeights<float, Q8>& aw,
+                         void* attn, int B, int G, int H, int kd,
+                         int zero_empty, cudaStream_t stream) {
+  switch (C) {
+    case 128:
+      return launch_seg<128>(seg_masked, p, real, g, aw, attn, B, G, H, kd,
+                             zero_empty, stream);
+    case 256:
+      return launch_seg<256>(seg_masked, p, real, g, aw, attn, B, G, H, kd,
+                             zero_empty, stream);
+    case 384:
+      return launch_seg<384>(seg_masked, p, real, g, aw, attn, B, G, H, kd,
+                             zero_empty, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // Host-side checks of #6's entries.
 inline bool onepass_geometry_ok(int seg_masked, const void* seg, int B,
-                                int L, int G, int S, int H,
+                                int L, int G, int S, int H, int kd,
                                 int wide_dilation) {
   return track_geometry_ok(B, L, S, wide_dilation) && S <= kMaxS && H >= 1 &&
-         G % H == 0 && (seg_masked ? seg != nullptr : S == 1);
+         G % H == 0 && head_dims_ok(kd, G / H) &&
+         (seg_masked ? seg != nullptr : S == 1);
 }
 
 }  // namespace pbt

@@ -28,16 +28,16 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, S, C), g (B, S, G), both
 // outputs). The conv kernels nq, wq are int8 (9, C, C) with float32 scales
-// ns, ws (9, C); the dense dq int8 (C, C) with ds (C,); the attention's
-// aq (H, G, 64), ak (H, C, 64), av (H, C, G / H) int8 with float32 scales
-// aqs (H, 64), aks (H, 64), avs (H, G / H). seg (B, L) int32 for packed rows
+// ns, ws (9, C); the dense dq int8 (C, C) with ds (C,); the attention's aq
+// (H, G, kd), ak (H, C, kd), av (H, C, G / H) int8 with float32 scales aqs
+// (H, kd), aks (H, kd), avs (H, G / H). seg (B, L) int32 for packed rows
 // (seg_masked = 1; null for dense rows, where S must be 1); real (B, L)
 // int32, nonzero at positions the attention may see; biases and LN vectors
-// float32. value_dim G / H is 64 or 128; C is 128 or 256, or 512 in
+// float32. The head widths are one_pass.cu's; C is 128, 256 or 384, or 512 in
 // bfloat16. Outputs: local (B, L, C), attn (B, S, G). In bfloat16 `scratch`
 // is one buffer of `onepass_scratch`'s parts, the int8 leg's first (null in
-// float32), and x, the int8 weights and their scales 16-byte aligned.
-// Returns cudaGetLastError() after the last launch (0 = launched).
+// float32), and x, the int8 weights and their scales 16-byte aligned. Returns
+// cudaGetLastError() after the last launch (0 = launched).
 extern "C" int pbt_onepass_q8(
     int dtype, int seg_masked, const void* x, const void* seg,
     const void* real, const void* bcast, const void* g, const void* nq,
@@ -46,22 +46,21 @@ extern "C" int pbt_onepass_q8(
     const void* ds, const void* db, const void* s2, const void* b2,
     const void* aq, const void* aqs, const void* ak, const void* aks,
     const void* av, const void* avs, void* local, void* attn, void* scratch,
-    int B, int L, int C, int G, int S, int H, int wide_dilation,
+    int B, int L, int C, int G, int S, int H, int kd, int wide_dilation,
     int zero_empty, void* stream) {
-  if (!pbt::onepass_geometry_ok(seg_masked, seg, B, L, G, S, H,
+  if (!pbt::onepass_geometry_ok(seg_masked, seg, B, L, G, S, H, kd,
                                 wide_dilation))
     return cudaErrorInvalidValue;
-  const int VD = G / H;
   const void* seg_ptr = seg_masked ? seg : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return pbt::launch_shape<float, true>(
-        C, VD, seg_masked,
+    return pbt::launch_shape<true>(
+        C, seg_masked,
         pbt::track_args<float, true>(x, seg_ptr, bcast, nq, nb, wq, wb, s1,
                                      b1, dq, db, s2, b2, local, L, S,
                                      wide_dilation, ns, ws, ds),
         real, g, pbt::attn_weights<float, true>(aq, ak, av, aqs, aks, avs),
-        attn, B, G, H, zero_empty, s);
+        attn, B, G, H, kd, zero_empty, s);
   if (dtype == 1)
     return pbt::launch_onepass_bf16<true>(
         seg_masked,
@@ -70,6 +69,6 @@ extern "C" int pbt_onepass_q8(
                                          wide_dilation, ns, ws, ds),
         real, g,
         pbt::attn_weights<pbt::bf16, true>(aq, ak, av, aqs, aks, avs), attn,
-        scratch, B, C, G, H, zero_empty, s);
+        scratch, B, C, G, H, kd, zero_empty, s);
   return cudaErrorInvalidValue;
 }

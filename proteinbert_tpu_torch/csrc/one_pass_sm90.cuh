@@ -75,8 +75,8 @@ namespace pbt {
 // The scratches of one bf16 call, carved in this order from one buffer,
 // each part rounded up to 256 bytes (kernels/one_pass.py
 // `onepass_scratch_layout` lays out the same buffer): on the int8 leg the
-// dequantized nk, wk (9, C, C), dk (C, C), attention wk (H, C, 64) and wv
-// (H, C, v) bf16; then h (B, L, C) float32, q (B, S, H, 64) float32, ids
+// dequantized nk, wk (9, C, C), dk (C, C), attention wk (H, C, kd) and wv
+// (H, C, v) bf16; then h (B, L, C) float32, q (B, S, H, kd) float32, ids
 // (B, L) int32, scores (B, H, S, L) float32, V (B, L, H*v) bf16.
 struct OnepassScratch {
   bf16* nk;
@@ -92,7 +92,7 @@ struct OnepassScratch {
 };
 
 inline OnepassScratch onepass_scratch(void* base, bool q8, int B, int L,
-                                      int C, int S, int H, int VD) {
+                                      int C, int S, int H, int KD, int VD) {
   char* next = static_cast<char*>(base);
   auto take = [&](size_t bytes) {
     char* part = next;
@@ -104,11 +104,11 @@ inline OnepassScratch onepass_scratch(void* base, bool q8, int B, int L,
     s.nk = reinterpret_cast<bf16*>(take(size_t(kTaps) * C * C * 2));
     s.wk = reinterpret_cast<bf16*>(take(size_t(kTaps) * C * C * 2));
     s.dk = reinterpret_cast<bf16*>(take(size_t(C) * C * 2));
-    s.awk = reinterpret_cast<bf16*>(take(size_t(H) * C * kKD * 2));
+    s.awk = reinterpret_cast<bf16*>(take(size_t(H) * C * KD * 2));
     s.awv = reinterpret_cast<bf16*>(take(size_t(H) * C * VD * 2));
   }
   s.h = reinterpret_cast<float*>(take(size_t(B) * L * C * 4));
-  s.q = reinterpret_cast<float*>(take(size_t(B) * S * H * kKD * 4));
+  s.q = reinterpret_cast<float*>(take(size_t(B) * S * H * KD * 4));
   s.ids = reinterpret_cast<int*>(take(size_t(B) * L * 4));
   s.scores = reinterpret_cast<float*>(take(size_t(B) * H * S * L * 4));
   s.v = reinterpret_cast<bf16*>(take(size_t(B) * L * H * VD * 2));
@@ -124,12 +124,13 @@ inline OnepassScratch onepass_scratch(void* base, bool q8, int B, int L,
 __global__ void __launch_bounds__(kThreads)
     onepass_dequant_kernel(TrackArgs<bf16, true> q,
                            AttnWeights<bf16, true> w, OnepassScratch sc,
-                           int C, int H, int VD, uint32_t track_blocks) {
+                           int C, int H, int KD, int VD,
+                           uint32_t track_blocks) {
   if (blockIdx.x < track_blocks)
     dequant_track_block(q.nk, q.nks, q.wk, q.wks, q.dk, q.dks, sc.nk, sc.wk,
                         sc.dk, uint32_t(C), blockIdx.x, track_blocks);
   else
-    dequant_kv_block(w.wk, w.sk, w.wv, w.sv, sc.awk, sc.awv, H, C, VD,
+    dequant_kv_block(w.wk, w.sk, w.wv, w.sv, sc.awk, sc.awv, H, C, KD, VD,
                      blockIdx.x - track_blocks, gridDim.x - track_blocks);
 }
 
@@ -144,8 +145,8 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ qbuf,
                          const int* __restrict__ seg,
                          const int* __restrict__ real, int* __restrict__ ids,
-                         int L, int S, int G, int H) {
-  attn_query_block<Q8>(g, w, qbuf, S, G, H);
+                         int L, int S, int G, int H, int KD) {
+  attn_query_block<Q8>(g, w, qbuf, S, G, H, KD);
   const int b = blockIdx.y;
   const int part = blockIdx.x + H * blockIdx.z, parts = H * gridDim.z;
   const int* rb = real + size_t(b) * L;
@@ -169,26 +170,27 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-// Every pass of one bf16 call, in stream order.
-template <int VD, bool SEG, bool Q8>
+// Every pass of one bf16 call, in stream order, head widths KD and VD.
+template <bool SEG, bool Q8>
 cudaError_t launch_onepass_sm90(const TrackArgs<bf16, Q8>& p, const int* real,
                                 const bf16* g,
                                 const AttnWeights<bf16, Q8>& aw, void* attn,
                                 const OnepassScratch& sc, int B, int C, int G,
-                                int H, int zero_empty, cudaStream_t stream) {
+                                int H, int KD, int zero_empty,
+                                cudaStream_t stream) {
   // Refuse before any launch a base that TMA or the 16-byte loads cannot
   // read (the wrapper checks the strides too).
   if (!aligned16({p.x, p.nk, p.wk, p.dk, aw.wq, aw.wk, aw.wv, p.nks, p.wks,
                   p.dks, aw.sq, aw.sk, aw.sv}))
     return cudaErrorInvalidValue;
-  const int L = p.L, S = p.S;
+  const int L = p.L, S = p.S, VD = G / H;
   cudaError_t e;
   const void* wk = aw.wk;
   const void* wv = aw.wv;
   if constexpr (Q8) {
     const uint32_t track_blocks = dequant_track_blocks(C);
-    onepass_dequant_kernel<<<track_blocks + dequant_kv_blocks(H, C, VD),
-                             kThreads, 0, stream>>>(p, aw, sc, C, H, VD,
+    onepass_dequant_kernel<<<track_blocks + dequant_kv_blocks(H, C, KD, VD),
+                             kThreads, 0, stream>>>(p, aw, sc, C, H, KD, VD,
                                                     track_blocks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -202,7 +204,7 @@ cudaError_t launch_onepass_sm90(const TrackArgs<bf16, Q8>& p, const int* real,
       return p;
   }();
   onepass_query_kernel<Q8><<<dim3(H, B, (S + 3) / 4), kThreads, 0, stream>>>(
-      g, aw, sc.q, SEG ? p.seg : nullptr, real, sc.ids, L, S, G, H);
+      g, aw, sc.q, SEG ? p.seg : nullptr, real, sc.ids, L, S, G, H, KD);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   e = launch_wgmma_conv<SEG, SumOrder::kK1, 64>(tp, B, C, sc.h, stream);
@@ -210,42 +212,32 @@ cudaError_t launch_onepass_sm90(const TrackArgs<bf16, Q8>& p, const int* real,
   e = launch_wgmma_finish(tp, B, C, sc.h, stream);
   if (e != cudaSuccess) return e;
   const AttnScratch as{sc.q, sc.scores, sc.v, nullptr, nullptr};
-  e = launch_attn_projection<VD>(tp.out, wk, wv, as, B, L, C, S, H, stream);
+  e = launch_attn_projection(tp.out, wk, wv, as, B, L, C, S, H, KD, VD,
+                             stream);
   if (e != cudaSuccess) return e;
-  return launch_attn_softmax<VD>(sc.ids, as, attn, B, L, S, H, zero_empty,
-                                 stream);
+  return launch_attn_softmax(sc.ids, as, attn, B, L, S, H, VD, zero_empty,
+                             stream);
 }
 
 // #6 in bf16, either leg: the scratch carved, then the instantiation for
-// value_dim G / H and seg_masked.
+// seg_masked (the head widths are run-time values, attention_sm90.cuh).
 template <bool Q8>
 cudaError_t launch_onepass_bf16(int seg_masked, const TrackArgs<bf16, Q8>& p,
                                 const void* real, const void* g,
                                 const AttnWeights<bf16, Q8>& aw, void* attn,
                                 void* scratch, int B, int C, int G, int H,
-                                int zero_empty, cudaStream_t stream) {
+                                int KD, int zero_empty, cudaStream_t stream) {
   if (scratch == nullptr || !sm90_shape_ok(B, C) || C > 512)
     return cudaErrorInvalidValue;
-  const int VD = G / H;
   const OnepassScratch sc =
-      onepass_scratch(scratch, Q8, B, p.L, C, p.S, H, VD);
+      onepass_scratch(scratch, Q8, B, p.L, C, p.S, H, KD, G / H);
   const int* r = static_cast<const int*>(real);
   const bf16* gg = static_cast<const bf16*>(g);
-  if (VD == 64)
-    return seg_masked ? launch_onepass_sm90<64, true, Q8>(
-                            p, r, gg, aw, attn, sc, B, C, G, H, zero_empty,
-                            stream)
-                      : launch_onepass_sm90<64, false, Q8>(
-                            p, r, gg, aw, attn, sc, B, C, G, H, zero_empty,
-                            stream);
-  if (VD == 128)
-    return seg_masked ? launch_onepass_sm90<128, true, Q8>(
-                            p, r, gg, aw, attn, sc, B, C, G, H, zero_empty,
-                            stream)
-                      : launch_onepass_sm90<128, false, Q8>(
-                            p, r, gg, aw, attn, sc, B, C, G, H, zero_empty,
-                            stream);
-  return cudaErrorInvalidValue;
+  return seg_masked
+             ? launch_onepass_sm90<true, Q8>(p, r, gg, aw, attn, sc, B, C, G,
+                                             H, KD, zero_empty, stream)
+             : launch_onepass_sm90<false, Q8>(p, r, gg, aw, attn, sc, B, C, G,
+                                              H, KD, zero_empty, stream);
 }
 
 }  // namespace pbt

@@ -10,10 +10,21 @@ weightsᵀ·V; heads concatenate. With `zero_empty`, a segment with no
 position gets an exact 0.
 
 The wrappers run the hand-written Hopper kernel
-(`csrc/global_attention.cu`, key_dim 64, value_dim 64 or 128) on CUDA
-tensors and the plain version `attention_oh_reference` on CPU tensors. A
-CUDA call the kernel does not cover raises ValueError; nothing falls
-back. In bfloat16 the kernel is three passes on the card
+(`csrc/global_attention.cu`: key_dim and value_dim multiples of 8, key_dim
+up to 128 and value_dim up to 256, C a multiple of 32 up to 2048;
+`CUDA_CONSTANTS`) on CUDA tensors and the plain version
+`attention_oh_reference` on CPU tensors. A CUDA call the kernel does not
+cover raises ValueError; nothing falls back. The entries
+`fused_global_attention` and `fused_packed_attention` are dispatch points,
+as in JAX: each call takes the route `attention_route` decides (a pure
+function of shapes and dtype, the same on every device): the kernel where
+it covers the shape; the reference route — `attention_oh_grad_reference`,
+the port of the JAX XLA reference, with plain autograd — where the JAX
+gate (`budget.pallas_attention_supported`) refuses the shape and the
+kernel does not cover it; ValueError where the gate accepts a shape the
+kernel does not cover (S > 16, an odd head width). Each decision counts
+in `ATTN_PATH_TOTAL` (`attention_kernel_path_total{path,reason}`) under
+JAX's labels. In bfloat16 the kernel is three passes on the card
 (`csrc/attention_sm90.cuh`): a query pass, one projection GEMM for all
 heads on wgmma fed by TMA that writes the scores and V, and a softmax /
 weighted-sum pass; the wrapper allocates their scratches
@@ -47,41 +58,109 @@ the two agree exactly in float32.)
 from __future__ import annotations
 
 import functools
+import logging
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from proteinbert_tpu_torch.kernels import budget
 from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, check_tma, stream_ptr,
 )
+from proteinbert_tpu_torch.kernels.path_counter import (
+    KernelPathCounter, dtype_name,
+)
 from proteinbert_tpu_torch.kernels.quant_leaves import (
-    int8_leg, is_quant_leaf, weight_leaf, weight_operands,
+    dequant_params, int8_leg, is_quant_leaf, weight_leaf, weight_operands,
 )
 from proteinbert_tpu_torch.ops.layers import gelu, gelu_stepwise
 
 Params = Dict[str, torch.Tensor]
 
+logger = logging.getLogger(__name__)
+
 # dtype, x, ids, g, wq, wk, wv, the scratches q, scores, v, out, then B,
-# L, C, G, S, H, zero_empty and the stream.
+# L, C, G, S, H, key_dim, zero_empty and the stream.
 ATTENTION = Kernel(
     "global_attention", "global_attention.cu", "pbt_global_attention",
-    [INT] + [PTR] * 10 + [INT] * 7 + [PTR])
+    [INT] + [PTR] * 10 + [INT] * 8 + [PTR])
 # dtype, x, ids, g, (wq, sq), (wk, sk), (wv, sv), the scratches wk, wv, q,
 # scores, v, out, then as ATTENTION.
 ATTENTION_Q8 = Kernel(
     "global_attention_q8", "global_attention_q8.cu",
-    "pbt_global_attention_q8", [INT] + [PTR] * 15 + [INT] * 7 + [PTR])
+    "pbt_global_attention_q8", [INT] + [PTR] * 15 + [INT] * 8 + [PTR])
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIM = 64   # key_dim
-KERNEL_VALUE_DIMS = (64, 128)
-KERNEL_MAX_SEGMENTS = 16
-# float32 only: its plan holds the L·S float32 scores in shared memory;
-# bf16 keeps them in a scratch, so any L.
-KERNEL_MAX_SCORES = 40960
+# K2's coverage and its float32 plan's shared memory, stated once: the
+# constants of csrc/attention.cuh under their C names (the C entry checks
+# the same geometry with them; tests/test_torch_coverage.py holds this
+# table to the header).
+CUDA_CONSTANTS = {
+    "kHeadStep": 8,     # head widths: multiples of this
+    "kMaxKD": 128,      # key_dim at most
+    "kMaxVD": 256,      # value_dim at most
+    "kMaxS": 16,        # segments per row at most
+    "kRows": 64,        # L rows per chunk (float32 plan)
+    "kKc": 32,          # C columns per k-step: C a multiple of it
+    "kMaxC": 2048,      # C at most
+    "kMaxCols": 128,    # projection columns per block (float32 plan)
+    "kMaxSmem": 232448,  # a block's shared memory on the card
+}
+KERNEL_HEAD_STEP = CUDA_CONSTANTS["kHeadStep"]
+KERNEL_MAX_KEY_DIM = CUDA_CONSTANTS["kMaxKD"]
+KERNEL_MAX_VALUE_DIM = CUDA_CONSTANTS["kMaxVD"]
+KERNEL_MAX_SEGMENTS = CUDA_CONSTANTS["kMaxS"]
+KERNEL_WIDTH_STEP = CUDA_CONSTANTS["kKc"]
+KERNEL_MAX_WIDTH = CUDA_CONSTANTS["kMaxC"]
+# The float32 plan holds the L·S float32 scores in shared memory; bf16
+# keeps them in a scratch, so any L.
+MAX_SMEM = CUDA_CONSTANTS["kMaxSmem"]
 MASK_VALUE = -1e30
+
+# Route accounting of the attention family (JAX attention.py:73-93):
+#   pallas/dense, pallas/packed — the kernel (its plain version on the CPU)
+#   reference/unsupported_shape — dense shape the JAX gate refuses and the
+#                                 kernel does not cover
+#   reference/segments          — the same for a packed shape
+_COUNTER = KernelPathCounter("global-attention kernel",
+                             "attention_kernel_path_total", log=logger)
+ATTN_PATH_TOTAL: Dict[Tuple[str, str], int] = _COUNTER.total
+
+
+def register_attention_path_observer(cb: Callable[[str, str], None]
+                                     ) -> None:
+    """`cb(path, reason)` on every counted attention decision."""
+    _COUNTER.register(cb)
+
+
+def unregister_attention_path_observer(cb: Callable[[str, str], None]
+                                       ) -> None:
+    _COUNTER.unregister(cb)
+
+
+def note_attention_path(path: str, reason: str,
+                        shape: Optional[tuple] = None) -> None:
+    _COUNTER.note(path, reason, shape)
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def attention_f32_smem(L: int, S: int) -> int:
+    """Shared-memory bytes of the float32 plan for one (head, row)
+    (csrc/attention.cuh `AttnSmem::total`): q (kMaxS, kMaxKD) float32,
+    kMaxS flags, the projection region (a double buffer of (kRows, kKc) x
+    and (kKc, kMaxCols) weight tiles, or the (kRows, kMaxCols) stage) and
+    the (L, S) float32 scores."""
+    c = CUDA_CONSTANTS
+    q = _align128(c["kMaxS"] * c["kMaxKD"] * 4)
+    flags = _align128(c["kMaxS"] * 4)
+    tiles = 2 * (c["kRows"] * c["kKc"] + c["kKc"] * c["kMaxCols"]) * 4
+    region = _align128(max(tiles, c["kRows"] * c["kMaxCols"] * 4))
+    return q + flags + region + _align128(L * S * 4)
 
 
 def attention_oh_reference(
@@ -148,34 +227,79 @@ def attention_oh_grad_reference(
     return out.reshape(b, s, h * vd)
 
 
+def head_coverage(key_dim: int, value_dim: int, G: int, H: int
+                  ) -> Optional[str]:
+    """None where K2's and #6's attention take these head widths, else
+    what they lack."""
+    step = KERNEL_HEAD_STEP
+    if (key_dim % step or not step <= key_dim <= KERNEL_MAX_KEY_DIM
+            or value_dim % step
+            or not step <= value_dim <= KERNEL_MAX_VALUE_DIM
+            or G != H * value_dim):
+        return (f"the kernel covers key_dim and value_dim multiples of "
+                f"{step}, key_dim <= {KERNEL_MAX_KEY_DIM}, value_dim <= "
+                f"{KERNEL_MAX_VALUE_DIM}, with G == H·value_dim; got key_dim "
+                f"{key_dim}, value_dim {value_dim}, G {G}, H {H}")
+    return None
+
+
+def attention_coverage(C: int, G: int, L: int, S: int, key_dim: int,
+                       H: int, value_dim: int, dtype: torch.dtype
+                       ) -> Optional[str]:
+    """None where K2 covers these shapes: bf16 / fp32, the head widths of
+    `head_coverage`, C a multiple of 32 up to 2048, 1 <= S <= 16 and, in
+    float32, the L·S scores in shared memory; else what it lacks."""
+    if dtype not in KERNEL_DTYPES:
+        return f"no kernel for {dtype}"
+    why = head_coverage(key_dim, value_dim, G, H)
+    if why is not None:
+        return why
+    if C % KERNEL_WIDTH_STEP or not 0 < C <= KERNEL_MAX_WIDTH:
+        return (f"no kernel for C={C} (C a multiple of "
+                f"{KERNEL_WIDTH_STEP} up to {KERNEL_MAX_WIDTH})")
+    if not 1 <= S <= KERNEL_MAX_SEGMENTS:
+        return f"S={S} outside the kernel's 1 <= S <= {KERNEL_MAX_SEGMENTS}"
+    if dtype == torch.float32 and attention_f32_smem(L, S) > MAX_SMEM:
+        return (f"L={L}, S={S}: the float32 plan's {attention_f32_smem(L, S)} "
+                f"bytes of shared memory exceed {MAX_SMEM}")
+    return None
+
+
 def check_attention_shapes(params: Params, local: torch.Tensor,
                            global_seg: torch.Tensor,
                            mask: torch.Tensor) -> None:
-    """Raise ValueError unless K2 covers these operands: bf16/fp32,
-    key_dim 64, value_dim 64 or 128 with G == H·value_dim, C % 32 == 0,
-    1 <= S <= 16 and, in float32, L·S scores in shared memory. mask is
-    the (B, L, S) one-hot or the (B, L) segment ids."""
+    """Raise ValueError unless K2 covers these operands
+    (`attention_coverage`). mask is the (B, L, S) one-hot or the (B, L)
+    segment ids."""
     B, L, C = local.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
     H, _, key_dim = weight_leaf(params["wq"]).shape
     value_dim = weight_leaf(params["wv"]).shape[-1]
-    if local.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"fused_attention: no kernel for {local.dtype}")
-    if (key_dim != KERNEL_HEAD_DIM or value_dim not in KERNEL_VALUE_DIMS
-            or G != H * value_dim or C % 32):
-        raise ValueError(
-            f"fused_attention: the kernel covers key_dim "
-            f"{KERNEL_HEAD_DIM}, value_dim in {KERNEL_VALUE_DIMS} with "
-            f"G == H·value_dim, and C % 32 == 0; got key_dim {key_dim}, "
-            f"value_dim {value_dim}, G {G}, H {H}, C {C}")
-    if not 1 <= S <= KERNEL_MAX_SEGMENTS or (
-            local.dtype == torch.float32 and L * S > KERNEL_MAX_SCORES):
-        raise ValueError(f"fused_attention: S={S}, L={L} outside the "
-                         f"kernel's S <= {KERNEL_MAX_SEGMENTS} (float32: "
-                         f"L·S <= {KERNEL_MAX_SCORES})")
+    why = attention_coverage(C, G, L, S, key_dim, H, value_dim, local.dtype)
+    if why is not None:
+        raise ValueError(f"fused_attention: {why}")
     if tuple(mask.shape) not in ((B, L, S), (B, L)):
         raise ValueError(f"fused_attention: mask {tuple(mask.shape)} is "
                          f"neither {(B, L, S)} nor {(B, L)}")
+
+
+def attention_route(C: int, G: int, L: int, S: int, key_dim: int, H: int,
+                    value_dim: int, dtype: torch.dtype, packed: bool,
+                    name: str = "fused_attention") -> Tuple[str, str]:
+    """The attention's route, (path, reason), on every device: ("pallas",
+    "dense" | "packed") where K2 covers the shape; ("reference",
+    "unsupported_shape" | "segments") where the JAX gate refuses it and
+    K2 does not cover it; ValueError, naming what K2 lacks, where the
+    gate accepts it and K2 does not cover it."""
+    why = attention_coverage(C, G, L, S, key_dim, H, value_dim, dtype)
+    if why is None:
+        return "pallas", "packed" if packed else "dense"
+    if budget.pallas_attention_supported(C, G, L, S, key_dim, H, dtype):
+        raise ValueError(
+            f"{name}: the JAX package runs its Pallas kernel at C={C}, "
+            f"G={G}, L={L}, S={S}, {dtype} and the port has no K2 for it: "
+            f"{why}")
+    return "reference", "segments" if packed else "unsupported_shape"
 
 
 def ids_one_hot(ids: torch.Tensor, S: int) -> torch.Tensor:
@@ -196,14 +320,15 @@ def one_hot_ids(seg_oh: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=64)
 def attention_scratch_layout(B: int, L: int, C: int, S: int, H: int,
-                             value_dim: int, quant: bool) -> tuple:
+                             value_dim: int, quant: bool,
+                             key_dim: int) -> tuple:
     """The scratches of one bf16 call as parts of one byte buffer, in the
     C entry's order: ((shape, dtype, byte offset), ...) and the buffer's
     bytes, each part 256-byte aligned. On the int8 leg the dequantized wk
-    (H, C, 64) and wv (H, C, value_dim) bf16, then q (B, S, H, 64) and
-    scores (B, H, S, L) float32 and V (B, L, H·value_dim) bf16
-    (csrc/attention_sm90.cuh `AttnScratch`)."""
-    k = KERNEL_HEAD_DIM
+    (H, C, key_dim) and wv (H, C, value_dim) bf16, then q (B, S, H,
+    key_dim) and scores (B, H, S, L) float32 and V (B, L, H·value_dim)
+    bf16 (csrc/attention_sm90.cuh `AttnScratch`)."""
+    k = key_dim
     parts = ([((H, C, k), torch.bfloat16), ((H, C, value_dim), torch.bfloat16)]
              if quant else [])
     parts += [((B, S, H, k), torch.float32), ((B, H, S, L), torch.float32),
@@ -219,8 +344,8 @@ def kv_dequant_reference(q: torch.Tensor, scale: torch.Tensor,
                          dtype: torch.dtype = torch.bfloat16
                          ) -> torch.Tensor:
     """Plain version of the dequantize pass of K2's and #6's int8 legs in
-    bf16 (csrc/attention_sm90.cuh `dequant_kv_kernel`): int8 wk (H, C, 64)
-    or wv (H, C, v) with float32 scales (H, 64) / (H, v), one per (head,
+    bf16 (csrc/attention_sm90.cuh `dequant_kv_kernel`): int8 wk (H, C, k)
+    or wv (H, C, v) with float32 scales (H, k) / (H, v), one per (head,
     output column) → q·scale in float32, cast to `dtype`: the operand the
     floating-point leg loads from the dequantized weights."""
     return (q.float() * scale.unsqueeze(-2)).to(dtype)
@@ -237,7 +362,7 @@ def _attention_launch(
     check_attention_shapes(params, local, global_seg, ids)
     B, L, C = local.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    H = weight_leaf(params["wq"]).shape[0]
+    H, _, key_dim = weight_leaf(params["wq"]).shape
     value_dim = weight_leaf(params["wv"]).shape[-1]
     quant = is_quant_leaf(params["wq"])
     dtype = local.dtype
@@ -251,12 +376,14 @@ def _attention_launch(
         # the dequantize pass reads int8 wk and wv in 16-byte loads); the
         # query pass reads wq in 8- or 16-byte loads.
         wk, wv = (weights[2], weights[4]) if quant else weights[1:]
-        check_tma("fused_attention", x, weights[0], wk, wv)
+        check_tma("fused_attention", x)
+        check_tma("fused_attention", weights[0], wk, wv,
+                  stride_bytes=8 if quant else 16)
         check_cuda("fused_attention", x, ids, g, *weights, out)
         # One allocation for all scratches (each torch.empty costs the host
         # several microseconds).
         layout, nbytes = attention_scratch_layout(B, L, C, S, H, value_dim,
-                                                  quant)
+                                                  quant, key_dim)
         buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         scratch_ptrs = [buf.data_ptr() + off for _, _, off in layout]
     else:
@@ -267,7 +394,7 @@ def _attention_launch(
         kernel.launch(KERNEL_DTYPES[dtype],
                       *(t.data_ptr() for t in (x, ids, g, *weights)),
                       *scratch_ptrs, out.data_ptr(), B, L, C, G, S, H,
-                      int(zero_empty), stream_ptr(x.device))
+                      key_dim, int(zero_empty), stream_ptr(x.device))
     return out
 
 
@@ -322,19 +449,38 @@ def _truthy(mask: torch.Tensor) -> torch.Tensor:
     return mask if mask.dtype == torch.bool else mask > 0
 
 
+def _heads(params: Params) -> Tuple[int, int, int]:
+    """(H, key_dim, value_dim) of the attention weights."""
+    H, _, key_dim = weight_leaf(params["wq"]).shape
+    return H, key_dim, weight_leaf(params["wv"]).shape[-1]
+
+
 def fused_global_attention(
     params: Params, local: torch.Tensor, global_: torch.Tensor,
     pad_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """DENSE attention (bucketed serving, unpacked rows) through the same
-    kernel: the (B, G) global track is an S=1 segment set and the pad
-    mask its segment ids (1 at a real position); an all-pad row keeps the
-    uniform softmax (`zero_empty=False`). → (B, G)."""
-    B, L, _ = local.shape
+    """DENSE attention (bucketed serving, unpacked rows): the (B, G) global
+    track is an S=1 segment set and the pad mask its segment ids (1 at a
+    real position); an all-pad row keeps the uniform softmax
+    (`zero_empty=False`). The route (`attention_route`, counted in
+    `ATTN_PATH_TOTAL`): the kernel (its plain version on the CPU), or the
+    reference route. → (B, G)."""
+    B, L, C = local.shape
+    G = global_.shape[-1]
+    H, key_dim, value_dim = _heads(params)
+    path, reason = attention_route(C, G, L, 1, key_dim, H, value_dim,
+                                   local.dtype, False,
+                                   "fused_global_attention")
+    note_attention_path(path, reason,
+                        (B, L, C, 1, G, dtype_name(local.dtype)))
     if pad_mask is None:
         ids = torch.ones((B, L), dtype=torch.int32, device=local.device)
     else:
         ids = _truthy(pad_mask).to(torch.int32)
+    if path == "reference":
+        return _ids_grad_reference(dequant_params(params), local,
+                                   global_[:, None, :], ids,
+                                   False).reshape(B, -1)
     out = _attention_ids(params, local, global_[:, None, :], ids,
                          zero_empty=False)
     return out.reshape(B, -1)
@@ -360,10 +506,23 @@ def fused_packed_attention(
     """Per-SEGMENT attention over packed rows: global_ (B, S, G),
     segment_ids (B, L) with 0 = pad and 1..S a segment, real_mask
     (B, L) the real-token mask (None = every in-segment position).
-    Empty segments come back as exact 0. → (B, S, G)."""
+    Empty segments come back as exact 0. The route (`attention_route`,
+    counted in `ATTN_PATH_TOTAL`): the kernel (its plain version on the
+    CPU), or the reference route. → (B, S, G)."""
+    B, L, C = local.shape
+    S, G = global_.shape[1], global_.shape[2]
+    H, key_dim, value_dim = _heads(params)
+    path, reason = attention_route(C, G, L, S, key_dim, H, value_dim,
+                                   local.dtype, True,
+                                   "fused_packed_attention")
+    note_attention_path(path, reason,
+                        (B, L, C, S, G, dtype_name(local.dtype)))
     ids = segment_ids
     if real_mask is not None:
         ids = torch.where(_truthy(real_mask), segment_ids, 0)
+    if path == "reference":
+        return _ids_grad_reference(dequant_params(params), local, global_,
+                                   ids, True)
     return _attention_ids(params, local, global_, ids.to(torch.int32),
                           zero_empty=True)
 

@@ -1,14 +1,18 @@
-"""The one-pass guard: the reference's choice between kernel #6 and the
-two-kernel composition, with torch dtypes.
+"""The JAX package's kernel gates, with torch dtypes.
 
-A copy of `proteinbert_tpu/kernels/one_pass.pallas_onepass_supported`
-and the `kernels/vmem_budget.py` primitives it prices with. The TPU
-kernel keeps both weight sets, the haloed row, its one-hot and the
-attention temporaries resident in 13 MiB of VMEM; where that union does
-not fit, the JAX package runs the composition (#1 or #3, then #5). The
-port makes the SAME choice on the same shape, so each slice runs the same
-kernel family as the reference: on CUDA the rule picks between two
-hand-written kernel paths and never routes to a plain version.
+Copies, term for term, of `proteinbert_tpu/kernels/one_pass.
+pallas_onepass_supported`, `fused_block.pallas_supported` (with the
+`_plan_tiled` pricing it calls), `fused_block.pallas_segments_supported`
+and `attention.pallas_attention_supported`, and of the
+`kernels/vmem_budget.py` primitives they price with. Each asks whether
+the TPU kernel's working set fits 13 MiB of VMEM; where it does not, the
+JAX package runs something else: the composition (#1 or #3, then #5) in
+place of #6, the XLA reference in place of a local-track or attention
+kernel. The port asks the same questions on the same shape
+(`fused_block.track_route`, `attention.attention_route`,
+`one_pass.onepass_route`), so each block runs the family the reference
+runs.
+They are predicates on shapes and dtypes only.
 
 Conventions the formulas encode: the lane (last) dim of a VMEM block
 rounds up to a multiple of 128; blocks that vary with the batch grid axis
@@ -104,3 +108,121 @@ def onepass_supported(
              + attention_temp_bytes(L, S, G, k, H))
     return fits(row, oh_row, real_col, bcast, gseg, out_local, out_attn,
                 weights, temps)
+
+
+def pick_tile(L: int) -> int:
+    """The TPU kernel's row tile (`fused_block._pick_tile`)."""
+    for cand in (512, 256, 128):
+        if L > cand and L % cand == 0:
+            return cand
+    return L
+
+
+def plan_tiled(C: int, seq_len: int, dtype: torch.dtype,
+               narrow_taps: int = 9, wide_taps: int = 9,
+               wide_dilation: int = 5, resident: bool = False,
+               max_segments: int = 0):
+    """(c_tile, l_tile) of the widest-channel channel-tiled plan that
+    fits the VMEM budget, or (0, 0) — `fused_block._plan_tiled`, term for
+    term (its `max_segments > 0` prices the segment variant)."""
+    if narrow_taps != wide_taps:
+        return 0, 0
+    item = dtype.itemsize
+    halo = max((narrow_taps - 1) // 2, (wide_taps - 1) // 2 * wide_dilation)
+    seg_lanes = -(-max_segments // LANE) * LANE if max_segments else 0
+    for tc in (512, 256, 128):
+        if C % tc:
+            continue
+        for tile in (pick_tile(seq_len), 128):
+            if seq_len % tile:
+                continue
+            conv_w = 2 * narrow_taps * C * tc * item
+            dense = C * C * item
+            row = 2 * (seq_len + 2 * halo) * C * item
+            out = 2 * tile * C * item
+            scratch = (seq_len if resident else tile) * C * 4
+            finish = tile * C * (4 + 4 + 4 + item)
+            seg = 0
+            if max_segments:
+                seg = (2 * (seq_len + 2 * halo) * seg_lanes * item
+                       + 2 * max_segments * C * item
+                       + tile * seg_lanes * 4)
+            if (conv_w + dense + row + out + scratch + finish + seg
+                    <= VMEM_BUDGET):
+                return tc, tile
+    return 0, 0
+
+
+def pallas_supported(
+    local_dim: int, seq_len: int, dtype: torch.dtype = torch.bfloat16,
+    narrow_taps: int = 9, wide_taps: int = 9, wide_dilation: int = 5,
+) -> bool:
+    """Whether the reference runs the dense local track (and its
+    prehaloed entry, on the shard's own L) on its Pallas kernel rather
+    than XLA — `fused_block.pallas_supported`, term for term."""
+    if not shape_prechecks(local_dim, seq_len):
+        return False
+    item = dtype.itemsize
+    C = local_dim
+    halo = max((narrow_taps - 1) // 2, (wide_taps - 1) // 2 * wide_dilation)
+    tile = pick_tile(seq_len)
+    if C > MAX_PALLAS_DIM:
+        return plan_tiled(C, seq_len, dtype, narrow_taps, wide_taps,
+                          wide_dilation)[0] > 0
+    weights = track_weight_bytes(C, narrow_taps, wide_taps, item)
+    row = (seq_len + 2 * halo) * C * item
+    temps = track_temp_bytes(tile, C)
+    return fits(weights, row, temps)
+
+
+def pallas_segments_supported(
+    local_dim: int, seq_len: int, max_segments: int,
+    dtype: torch.dtype = torch.bfloat16,
+    narrow_taps: int = 9, wide_taps: int = 9,
+    wide_dilation: int = 5, narrow_dilation: int = 1,
+) -> bool:
+    """Whether the reference runs the packed local track on its segment
+    kernel rather than XLA — `fused_block.pallas_segments_supported`,
+    term for term."""
+    if not shape_prechecks(local_dim, seq_len, max_segments):
+        return False
+    if narrow_taps % 2 == 0 or wide_taps % 2 == 0:
+        return False
+    if local_dim > MAX_PALLAS_DIM:
+        return plan_tiled(local_dim, seq_len, dtype, narrow_taps, wide_taps,
+                          wide_dilation, max_segments=max_segments)[0] > 0
+    item = dtype.itemsize
+    C = local_dim
+    halo = max((narrow_taps - 1) // 2 * narrow_dilation,
+               (wide_taps - 1) // 2 * wide_dilation)
+    tile = pick_tile(seq_len)
+    Lp = seq_len + 2 * halo
+    weights = track_weight_bytes(C, narrow_taps, wide_taps, item)
+    row = Lp * C * item
+    oh_row = Lp * lanes(max_segments) * item
+    bcast = max_segments * C * item
+    temps = track_temp_bytes(tile, C) + tile * lanes(max_segments) * 4
+    return fits(weights, row, oh_row, bcast, temps)
+
+
+def pallas_attention_supported(
+    local_dim: int, global_dim: int, seq_len: int, max_segments: int,
+    key_dim: int, num_heads: int, dtype: torch.dtype = torch.bfloat16,
+) -> bool:
+    """Whether the reference runs the global attention (S = 1: dense) on
+    its Pallas kernel rather than XLA —
+    `attention.pallas_attention_supported`, term for term."""
+    if not shape_prechecks(local_dim, seq_len, max_segments):
+        return False
+    if global_dim < 1 or global_dim % num_heads:
+        return False
+    item = dtype.itemsize
+    C, G, L, S, H, k = (local_dim, global_dim, seq_len, max_segments,
+                        num_heads, key_dim)
+    row = 2 * L * C * item
+    oh = 2 * L * lanes(S) * item
+    gseg = 2 * S * lanes(G) * item
+    out = 2 * S * lanes(G) * item
+    weights = attention_weight_bytes(C, G, k, H, item)
+    temps = attention_temp_bytes(L, S, G, k, H)
+    return fits(row, oh, gseg, out, weights, temps)

@@ -44,8 +44,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+# --split-compile=0 spreads one source's optimizer passes over the cores:
+# every source builds at once, so the build takes as long as its slowest
+# source, the one-pass ones (#6 and its int8 leg, 21 instantiations each).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 # ctypes argument kinds for the C entry points.
 PTR = ctypes.c_void_p
@@ -197,10 +201,13 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              "contiguous")
 
 
-def check_tma(name: str, *tensors: torch.Tensor) -> None:
+def check_tma(name: str, *tensors: torch.Tensor,
+              stride_bytes: int = 16) -> None:
     """Each tensor can be read by TMA as rows of its last dimension: the
     base address 16-byte aligned and every outer stride a multiple of 16
-    bytes (the tensor-map encoder refuses anything else). Needs no
+    bytes (the tensor-map encoder refuses anything else). `stride_bytes`
+    8 holds an operand read in 8-byte loads instead (the int8 attention
+    weights: rows of key_dim or value_dim bytes, multiples of 8). Needs no
     device: the checks read only addresses and strides."""
     for t in tensors:
         if t.data_ptr() % 16:
@@ -210,8 +217,9 @@ def check_tma(name: str, *tensors: torch.Tensor) -> None:
                              "needs 16")
         size = t.element_size()
         for d, stride in enumerate(t.stride()[:-1]):
-            if (stride * size) % 16:
+            if (stride * size) % stride_bytes:
                 raise ValueError(f"{name}: a {tuple(t.shape)} operand has "
                                  f"a stride of {stride} elements in "
-                                 f"dimension {d}, not a multiple of 16 "
-                                 "bytes; TMA needs one")
+                                 f"dimension {d}, not a multiple of "
+                                 f"{stride_bytes} bytes; TMA and the "
+                                 "vector loads need one")

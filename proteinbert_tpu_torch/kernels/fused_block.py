@@ -19,16 +19,30 @@ at pad.
 
 `fused_local_track` keeps one entry, as the JAX `_pallas_forward` does:
 on a CUDA tensor it launches K1 (`csrc/local_track.cu`) for C in
-{128, 256, 512} and #2 (`csrc/local_track_tiled.cu`) for 512 < C <= 2048
-with C a multiple of 128, in bfloat16 and float32 (the JAX package has no
-float32 tiled plan and answers through XLA there; the port has no such
-route, so #2 covers float32 too). `fused_local_track_segments` routes
-the same way: #3 (`csrc/local_track_segments.cu`) for C in {128, 256,
-512} and #4 (`csrc/local_track_segments_tiled.cu`) for the tiled widths,
-in bfloat16 and float32 (again no float32 tiled plan in the JAX package;
-#4 covers float32 too). On a CPU tensor both entries run the plain
-versions. A CUDA call the kernels do not cover (dtype, width, conv
-geometry) raises ValueError; nothing falls back.
+{128, 256, 384, 512} and #2 (`csrc/local_track_tiled.cu`) for 512 < C <=
+2048 with C a multiple of 128, in bfloat16 and float32 (the JAX package
+has no float32 tiled plan and answers through XLA there; the port covers
+float32 with #2). On a CPU tensor it runs the plain version. A CUDA call
+the kernels do not cover (dtype, width, conv geometry) raises ValueError.
+It is the kernel's own wrapper: the dense block's route is decided above
+it (`kernels/one_pass.fused_onepass_dense`), as in JAX.
+
+`fused_local_track_segments` and `fused_local_track_valid` are dispatch
+points, as in JAX, and decide the route of each call (`track_route`, a
+pure function of shapes, dtype and the kernels' coverage, the same on
+every device): the kernel route — #3 (`csrc/local_track_segments.cu`) for
+C in {128, 256, 384, 512} or #4 (`csrc/local_track_segments_tiled.cu`)
+for the tiled widths, K1's or #2's prehaloed entry — wherever a port
+kernel covers the shape; the reference route where the JAX gate
+(`budget.pallas_segments_supported`, `budget.pallas_supported` on the
+shard's own L) refuses the shape and no port kernel covers it; and
+ValueError where the gate accepts a shape no port kernel covers (taps
+other than 9, a wide dilation above 5). The reference route runs the port
+of the JAX XLA reference with plain autograd (`*_grad_reference`, the
+activation dtype, float32 LayerNorm statistics). The packed entry counts
+its decision in `PATH_TOTAL` (`fused_kernel_path_total{path,reason}`)
+under JAX's labels; the prehaloed entry counts none, as JAX's seq step
+does not.
 
 In bfloat16 every entry (K1, its prehaloed entry, #3 and its int8 leg, #2,
 #4) runs the two passes of `csrc/local_track_sm90.cuh` — a conv pass on
@@ -44,11 +58,11 @@ CUDA-core kernel and need no scratch.
 whose first and last `track_halo` rows are a neighbour shard's real rows
 (`parallel/halo.halo_exchange`), and returns the (B, L, C) centre. On a
 CUDA tensor it launches K1's prehaloed entry (`csrc/local_track_valid.cu`)
-for C in {128, 256, 512} and #2's (`csrc/local_track_tiled_valid.cu`) for
-the tiled widths: the same device code, whose window reads the halo rows
-instead of zeros. Its gate is `check_track_shapes` alone; the JAX
-`pallas_supported` gate is a TPU VMEM budget that the port's row-streaming
-kernels do not have.
+for C in {128, 256, 384, 512} and #2's (`csrc/local_track_tiled_valid.cu`)
+for the tiled widths: the same device code, whose window reads the halo
+rows instead of zeros. Where no kernel covers the shard, the JAX seq
+step's gate (`budget.pallas_supported` on the shard's own L) decides
+between the reference route and ValueError (`track_route`).
 
 All three entries are differentiable (`kernels/autograd.recompute_vjp`):
 the forward saves only its inputs and the backward recomputes the port of
@@ -87,16 +101,21 @@ difference at the last float32 bit.
 from __future__ import annotations
 
 import functools
+import logging
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from proteinbert_tpu_torch.kernels import budget
 from proteinbert_tpu_torch.kernels.attention import segment_one_hot
 from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
 from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, check_tma, stream_ptr,
+)
+from proteinbert_tpu_torch.kernels.path_counter import (
+    KernelPathCounter, dtype_name,
 )
 from proteinbert_tpu_torch.kernels.quant_leaves import (  # noqa: F401
     dequant_leaf, dequant_params, int8_leg, is_quant_leaf, weight_leaf,
@@ -108,6 +127,34 @@ from proteinbert_tpu_torch.ops.layers import (
 )
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+logger = logging.getLogger(__name__)
+
+# Route accounting of the local-track family (JAX fused_block.py:107-136):
+#   pallas/dense, pallas/packed — a port kernel (its plain version on the
+#                                 CPU)
+#   reference/unsupported_shape — dense shape the JAX gate refuses and no
+#                                 port kernel covers
+#   reference/segments          — the same for a packed shape
+_COUNTER = KernelPathCounter("fused local-track kernel",
+                             "fused_kernel_path_total", log=logger)
+PATH_TOTAL: Dict[Tuple[str, str], int] = _COUNTER.total
+
+
+def register_path_observer(cb: Callable[[str, str], None]) -> None:
+    """`cb(path, reason)` on every counted decision, both routes."""
+    _COUNTER.register(cb)
+
+
+def unregister_path_observer(cb: Callable[[str, str], None]) -> None:
+    _COUNTER.unregister(cb)
+
+
+def note_kernel_path(path: str, reason: str,
+                     shape: Optional[tuple] = None) -> None:
+    """Record one route decision; `shape` keys the one-time reference
+    warning per (reason, call-site shape)."""
+    _COUNTER.note(path, reason, shape)
 
 TRACK_PARAMS = ("narrow_conv", "wide_conv", "local_ln1", "local_dense",
                 "local_ln2")
@@ -140,10 +187,16 @@ LOCAL_TRACK_TILED_VALID = Kernel(
 
 # What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_WIDTHS = (128, 256, 512)           # K1, #3
+KERNEL_WIDTHS = (128, 256, 384, 512)      # K1, #3
 TILED_WIDTHS = tuple(range(640, 2049, 128))  # #2, #4
 KERNEL_TAPS = 9
 MAX_WIDE_DILATION = 5  # the window's 20-row halo
+# The local track's constants in csrc/local_track.cuh under their C names
+# (the float32 tile's rows and k-step are `TrackCfg<float, C>`'s TL and
+# KC); `one_pass.track_f32_smem` derives the float32 plan's shared memory
+# from them, and the port's tests hold them to the header.
+CUDA_CONSTANTS = {"kTaps": KERNEL_TAPS, "kHalo": 20, "TL": 16, "KC": 16,
+                  "PAD": 0}
 
 
 def _finish(params: Params, h: torch.Tensor,
@@ -383,29 +436,72 @@ def gather_segment_broadcast(broadcast_seg: torch.Tensor,
                        torch.zeros((), dtype=pos.dtype, device=pos.device))
 
 
+def track_coverage(C: int, dtype: torch.dtype, narrow_taps: int,
+                   wide_taps: int, narrow_dilation: int, wide_dilation: int,
+                   widths=KERNEL_WIDTHS) -> Optional[str]:
+    """None where the local-track kernels cover these operands (bf16 /
+    fp32, C in `widths`, k=9 convs with narrow dilation 1 and wide
+    dilation <= 5), else what they lack."""
+    if dtype not in KERNEL_DTYPES:
+        return f"no kernel for {dtype}"
+    if C not in widths:
+        return f"no kernel for C={C} in {dtype} (have {widths})"
+    if (narrow_taps != KERNEL_TAPS or wide_taps != KERNEL_TAPS
+            or narrow_dilation != 1
+            or not 1 <= wide_dilation <= MAX_WIDE_DILATION):
+        return (f"the kernel covers k=9 convs with narrow dilation 1 and "
+                f"wide dilation <= {MAX_WIDE_DILATION}; got taps "
+                f"{narrow_taps}/{wide_taps}, dilations "
+                f"{narrow_dilation}/{wide_dilation}")
+    return None
+
+
 def check_track_shapes(name: str, params: Params, x: torch.Tensor,
                        narrow_dilation: int, wide_dilation: int,
                        widths=KERNEL_WIDTHS) -> None:
     """Raise ValueError unless the local-track kernels cover these
-    operands: bf16/fp32, C in `widths`, k=9 convs with narrow dilation 1
-    and wide dilation <= 5."""
+    operands (`track_coverage`) and the conv kernels are (taps, C, C)."""
     C = x.shape[-1]
     nk = weight_leaf(params["narrow_conv"]["kernel"])
     wk = weight_leaf(params["wide_conv"]["kernel"])
-    if x.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{name}: no kernel for {x.dtype}")
-    if C not in widths:
-        raise ValueError(f"{name}: no kernel for C={C} in {x.dtype} "
-                         f"(have {widths})")
-    conv_shape = (KERNEL_TAPS, C, C)
-    if (tuple(nk.shape) != conv_shape or tuple(wk.shape) != conv_shape
-            or narrow_dilation != 1
-            or not 1 <= wide_dilation <= MAX_WIDE_DILATION):
+    why = track_coverage(C, x.dtype, nk.shape[0], wk.shape[0],
+                         narrow_dilation, wide_dilation, widths)
+    if why is None and not (tuple(nk.shape[1:]) == tuple(wk.shape[1:])
+                            == (C, C)):
+        why = (f"conv kernels {tuple(nk.shape)}/{tuple(wk.shape)} are not "
+               f"(taps, {C}, {C})")
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+
+
+def track_route(C: int, L: int, dtype: torch.dtype, narrow_taps: int,
+                wide_taps: int, narrow_dilation: int, wide_dilation: int,
+                max_segments: Optional[int] = None,
+                name: str = "fused_local_track") -> Tuple[str, str]:
+    """The local track's route, (path, reason), on every device: ("pallas",
+    "dense" | "packed") where K1 / #2 (#3 / #4 for packed rows, S =
+    `max_segments`) cover the shape; ("reference", "unsupported_shape" |
+    "segments") where the JAX gate refuses it and no port kernel covers
+    it. ValueError, naming the kernel the port lacks, where the gate
+    accepts it and no port kernel covers it."""
+    packed = max_segments is not None
+    why = track_coverage(C, dtype, narrow_taps, wide_taps, narrow_dilation,
+                         wide_dilation, KERNEL_WIDTHS + TILED_WIDTHS)
+    if why is None:
+        return "pallas", "packed" if packed else "dense"
+    if packed:
+        gate = budget.pallas_segments_supported(
+            C, L, max_segments, dtype, narrow_taps, wide_taps, wide_dilation,
+            narrow_dilation)
+    else:
+        gate = budget.pallas_supported(C, L, dtype, narrow_taps, wide_taps,
+                                       wide_dilation)
+    if gate:
+        kernel = "#3 / #4" if packed else "K1 / #2"
         raise ValueError(
-            f"{name}: the kernel covers k=9 convs with narrow "
-            f"dilation 1 and wide dilation <= {MAX_WIDE_DILATION}; got "
-            f"{tuple(nk.shape)}/{tuple(wk.shape)}, dilations "
-            f"{narrow_dilation}/{wide_dilation}")
+            f"{name}: the JAX package runs its Pallas kernel at C={C}, "
+            f"L={L}, {dtype} and the port has no {kernel} for it: {why}")
+    return "reference", "segments" if packed else "unsupported_shape"
 
 
 def _track_operands(name: str, params: Params, x: torch.Tensor,
@@ -564,11 +660,22 @@ def fused_local_track_valid(
     """Local track of one PREHALOED sequence shard: xh (B, L + 2·halo, C)
     whose first and last `track_halo(params, ...)` rows are the
     neighbours' real rows (zeros at the ends of the sequence) → the (B, L,
-    C) centre. CUDA → K1's or #2's prehaloed entry by width (or
-    ValueError), CPU → the plain version; differentiable through
-    `local_track_valid_grad_reference` either way. Quant leaves are
-    dequantized first."""
+    C) centre. The route (`track_route` on the shard's own L, uncounted,
+    as JAX's seq step decides it): CUDA → K1's or #2's prehaloed entry by
+    width, CPU → the plain version, differentiable through
+    `local_track_valid_grad_reference` either way; or the reference route,
+    that reference with plain autograd. Quant leaves are dequantized
+    first."""
     params = dequant_params(params)
+    halo = track_halo(params, narrow_dilation, wide_dilation)
+    path, _ = track_route(
+        xh.shape[-1], xh.shape[1] - 2 * halo, xh.dtype,
+        params["narrow_conv"]["kernel"].shape[0],
+        params["wide_conv"]["kernel"].shape[0], narrow_dilation,
+        wide_dilation, name="fused_local_track_valid")
+    if path == "reference":
+        return local_track_valid_grad_reference(
+            params, xh, broadcast, narrow_dilation, wide_dilation)
     run = (local_track_valid_reference
            if _device_check("fused_local_track_valid", xh)
            else _local_track_valid_kernel)
@@ -653,14 +760,27 @@ def fused_local_track_segments(
 ) -> torch.Tensor:
     """Local track of one block over PACKED rows: broadcast_seg (B, S, C)
     the per-segment projected global vectors, segment_ids (B, L) with 0 =
-    pad and 1..S a packed protein (ids above S count as pad). CUDA → #3
-    or #4 by width (or ValueError), CPU → the plain version;
-    differentiable through `local_track_segment_oh_grad_reference` either
-    way. Quant leaves:
-    #3's int8 leg for C <= 512 (inference-only), else dequantized first
-    and #4."""
+    pad and 1..S a packed protein (ids above S count as pad). The route
+    (`track_route`, counted in `PATH_TOTAL`): CUDA → #3 or #4 by width,
+    CPU → the plain version, differentiable through
+    `local_track_segment_oh_grad_reference` either way (quant leaves:
+    #3's int8 leg for C <= 512, inference-only, else dequantized first
+    and #4); or the reference route, that reference on the dequantized
+    weights with plain autograd."""
+    B, L, C = x.shape
+    S = broadcast_seg.shape[1]
+    path, reason = track_route(
+        C, L, x.dtype, weight_leaf(params["narrow_conv"]["kernel"]).shape[0],
+        weight_leaf(params["wide_conv"]["kernel"]).shape[0],
+        narrow_dilation, wide_dilation, max_segments=S,
+        name="fused_local_track_segments")
+    note_kernel_path(path, reason, (B, L, C, S, dtype_name(x.dtype)))
+    if path == "reference":
+        return _segments_grad_reference(
+            dequant_params(params), x, broadcast_seg, segment_ids,
+            narrow_dilation, wide_dilation)
     if is_quant_leaf(params["narrow_conv"]["kernel"]):
-        if x.shape[-1] <= KERNEL_WIDTHS[-1]:
+        if C <= KERNEL_WIDTHS[-1]:
             return int8_leg("fused_local_track_segments", x,
                             _segments_reference, _segments_kernel, params,
                             x, broadcast_seg, segment_ids, narrow_dilation,

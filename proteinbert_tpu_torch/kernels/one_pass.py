@@ -22,13 +22,21 @@ the 16-byte loads can read x and every weight (`build.check_tma`) before
 any launch. float32 keeps the one-launch 8-CTA cluster plan
 (`csrc/one_pass.cuh`).
 
-Dispatch mirrors one_pass.py:448-596:
-- on CUDA, the one-pass kernel (`csrc/one_pass.cu`) where the reference's
-  rule (`budget.onepass_supported`) admits the shape — a shape the rule
-  admits and the kernel does not cover raises ValueError — else the
-  composition of hand-written kernels: K1 (dense) or #3 (packed), then K2;
-- on the CPU, the plain version `onepass_oh_reference`, which IS that
-  composition of the plain versions.
+Dispatch mirrors one_pass.py:448-596, one decision per call on every
+device (`onepass_route`):
+- the one-pass kernel (`csrc/one_pass.cu`; on the CPU its plain version
+  `onepass_oh_reference`) where the reference's rule
+  (`budget.onepass_supported`) admits the shape — a shape the rule admits
+  and the kernel does not cover raises ValueError;
+- else the composition, counted "reference" as in JAX: the dense track by
+  its own route (`fused_block.track_route`: K1 / #2, or the port of the
+  XLA reference `local_track_grad_reference` where the JAX gate refuses
+  the shape and no kernel covers it) then `fused_global_attention`; the
+  packed track `fused_local_track_segments` then `fused_packed_attention`
+  (each routing itself).
+Every decision counts in `ONEPASS_PATH_TOTAL`
+(`onepass_kernel_path_total{path,reason}`) under JAX's labels, the dense
+track's in `fused_block.PATH_TOTAL`.
 `fused_onepass` is the kernel's own wrapper: the kernel on CUDA, the
 plain version on the CPU, whatever the rule says. It is differentiable
 (`kernels/autograd.recompute_vjp`): the forward saves only its inputs and
@@ -49,16 +57,17 @@ the packed one's `fused_local_track_segments` runs #3's int8 leg
 from __future__ import annotations
 
 import functools
+import logging
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from proteinbert_tpu_torch.kernels import budget
 from proteinbert_tpu_torch.kernels.attention import (
-    KERNEL_HEAD_DIM, KERNEL_MAX_SCORES, KERNEL_MAX_SEGMENTS,
-    KERNEL_VALUE_DIMS, MASK_VALUE, attention_oh_grad_reference,
-    attention_oh_reference, fused_global_attention, fused_packed_attention,
+    KERNEL_MAX_SEGMENTS, MASK_VALUE, MAX_SMEM, _align128, attention_f32_smem,
+    attention_oh_grad_reference, attention_oh_reference,
+    fused_global_attention, fused_packed_attention, head_coverage,
     segment_one_hot,
 )
 from proteinbert_tpu_torch.kernels.autograd import recompute_vjp
@@ -66,35 +75,69 @@ from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, check_tma, stream_ptr,
 )
 from proteinbert_tpu_torch.kernels.fused_block import (
-    KERNEL_TAPS, _device_check, _track_operands, check_track_shapes,
+    CUDA_CONSTANTS as TRACK_CONSTANTS, KERNEL_TAPS, _device_check,
+    _track_operands, check_track_shapes,
     fused_local_track, fused_local_track_segments,
     local_track_grad_reference, local_track_reference,
     local_track_segment_oh_grad_reference, local_track_segment_oh_reference,
+    note_kernel_path, track_coverage, track_route,
+)
+from proteinbert_tpu_torch.kernels.path_counter import (
+    KernelPathCounter, dtype_name,
 )
 from proteinbert_tpu_torch.kernels.quant_leaves import (
-    int8_leg, is_quant_leaf, weight_leaf, weight_operands,
+    dequant_params, int8_leg, is_quant_leaf, weight_leaf, weight_operands,
 )
 from proteinbert_tpu_torch.ops.layers import gelu
 
 Params = Dict[str, torch.Tensor]
 
+logger = logging.getLogger(__name__)
+
+# Route accounting of the one-pass family (JAX one_pass.py:99-133):
+#   pallas/dense, pallas/packed — #6 (its plain version on the CPU)
+#   reference/unsupported_shape — dense shape the rule refuses: the
+#                                 composition, whose legs count their own
+#   reference/segments          — the same for a packed shape
+_COUNTER = KernelPathCounter("one-pass trunk kernel",
+                             "onepass_kernel_path_total", log=logger)
+ONEPASS_PATH_TOTAL: Dict[Tuple[str, str], int] = _COUNTER.total
+
+
+def register_onepass_path_observer(cb: Callable[[str, str], None]) -> None:
+    """`cb(path, reason)` on every counted one-pass decision."""
+    _COUNTER.register(cb)
+
+
+def unregister_onepass_path_observer(cb: Callable[[str, str], None]
+                                     ) -> None:
+    _COUNTER.unregister(cb)
+
+
+def note_onepass_path(path: str, reason: str,
+                      shape: Optional[tuple] = None) -> None:
+    _COUNTER.note(path, reason, shape)
+
+
 # dtype, seg_masked, x, seg, real, bcast, g, the track's weights (nk, nb,
 # wk, wb, s1, b1, dk, db, s2, b2), wq, wk, wv, local, attn, the scratch
-# buffer, then B, L, C, G, S, H, wide_dilation, zero_empty and the stream.
+# buffer, then B, L, C, G, S, H, key_dim, wide_dilation, zero_empty and
+# the stream.
 ONEPASS = Kernel(
     "one_pass", "one_pass.cu", "pbt_onepass",
-    [INT, INT] + [PTR] * 21 + [INT] * 8 + [PTR])
+    [INT, INT] + [PTR] * 21 + [INT] * 9 + [PTR])
 # The same with the int8 weights and their scales in place of the track's
 # and the attention's weights.
 ONEPASS_Q8 = Kernel(
     "one_pass_q8", "one_pass_q8.cu", "pbt_onepass_q8",
-    [INT, INT] + [PTR] * 27 + [INT] * 8 + [PTR])
+    [INT, INT] + [PTR] * 27 + [INT] * 9 + [PTR])
 
 # What the CUDA kernel covers (beyond the local track's convs and K2's
 # head dims): the widths of each activation dtype. The one-pass rule never
 # admits float32 at C=512 (19·C² float32 weights alone are 19.9 MB against
 # its 13 MiB), so the kernel has no such instantiation.
-KERNEL_WIDTHS = {torch.bfloat16: (128, 256, 512), torch.float32: (128, 256)}
+KERNEL_WIDTHS = {torch.bfloat16: (128, 256, 384, 512),
+                 torch.float32: (128, 256, 384)}
 
 
 def onepass_oh_reference(
@@ -163,7 +206,7 @@ def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def onepass_query_reference(attn_params: Params, global_seg: torch.Tensor,
                             dtype: torch.dtype) -> torch.Tensor:
     """Plain version of the query pass: q = round(tanh(round(g @ wq))),
-    (B, S, H, 64) float32, from the OLD global rows (B, S, G)."""
+    (B, S, H, key_dim) float32, from the OLD global rows (B, S, G)."""
     wq = _round(attn_params["wq"], dtype)
     return _round(torch.tanh(_round(torch.einsum(
         "bsg,hgk->bshk", _round(global_seg, dtype), wq), dtype)), dtype)
@@ -174,7 +217,7 @@ def onepass_projection_reference(attn_params: Params, local: torch.Tensor,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the projection pass over the rounded local rows
     (B, L, C): scores (B, H, S, L) float32 = round(tanh(round(local @
-    wk))) · q / √64, unmasked, and V (B, L, H·v) = round(gelu(round(local
+    wk))) · q / √key_dim, unmasked, and V (B, L, H·v) = round(gelu(round(local
     @ wv))) in local's dtype."""
     dtype = local.dtype
     wk, wv = (_round(attn_params[n], dtype) for n in ("wk", "wv"))
@@ -238,19 +281,19 @@ def onepass_passes_reference(
 @functools.lru_cache(maxsize=64)
 def onepass_scratch_layout(B: int, L: int, C: int, S: int, H: int,
                            value_dim: int, quant: bool,
-                           dtype: torch.dtype) -> tuple:
+                           dtype: torch.dtype, key_dim: int) -> tuple:
     """The scratches of one #6 call as parts of one byte buffer, in the
     order the C entry carves them (csrc/one_pass_sm90.cuh
     `onepass_scratch`): ((shape, dtype, byte offset), ...) and the
     buffer's bytes, each part 256-byte aligned. bf16 only (float32 runs
     one launch and takes none): on the int8 leg the dequantized nk, wk (9,
-    C, C), dk (C, C), attention wk (H, C, 64) and wv (H, C, value_dim)
-    bf16; then h (B, L, C) float32 (where the conv and finish passes
-    meet), q (B, S, H, 64) float32, the mask ids (B, L) int32, scores (B,
-    H, S, L) float32 and V (B, L, H·value_dim) bf16."""
+    C, C), dk (C, C), attention wk (H, C, key_dim) and wv (H, C,
+    value_dim) bf16; then h (B, L, C) float32 (where the conv and finish
+    passes meet), q (B, S, H, key_dim) float32, the mask ids (B, L) int32,
+    scores (B, H, S, L) float32 and V (B, L, H·value_dim) bf16."""
     if dtype != torch.bfloat16:
         return (), 0
-    k, bf16 = KERNEL_HEAD_DIM, torch.bfloat16
+    k, bf16 = key_dim, torch.bfloat16
     parts = ([((KERNEL_TAPS, C, C), bf16)] * 2
              + [((C, C), bf16), ((H, C, k), bf16), ((H, C, value_dim), bf16)]
              if quant else [])
@@ -264,16 +307,66 @@ def onepass_scratch_layout(B: int, L: int, C: int, S: int, H: int,
     return tuple(layout), offset
 
 
-def _rule_admits(track_params: Params, attn_params: Params, x: torch.Tensor,
-                 S: int, G: int, narrow_dilation: int,
-                 wide_dilation: int) -> bool:
-    _, L, C = x.shape
-    H, _, key_dim = weight_leaf(attn_params["wq"]).shape
-    return budget.onepass_supported(
-        C, G, L, S, key_dim, H, x.dtype,
-        weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
-        weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
-        wide_dilation, narrow_dilation)
+def track_f32_smem(C: int, seg: bool) -> int:
+    """Shared-memory bytes of the float32 local-track tile at width C
+    (csrc/local_track.cuh `TrackSmem<float, C, SEG>::total`: a (TL + 2 ·
+    kHalo, C + PAD) window, the (TL, C) float32 h, a double buffer of
+    (KC, C + PAD) weight tiles, and for packed rows a (TL, KC + PAD)
+    staging tile and the window's ids), from `fused_block.CUDA_CONSTANTS`.
+    """
+    c = TRACK_CONSTANTS
+    win, ldw = c["TL"] + 2 * c["kHalo"], C + c["PAD"]
+    total = (_align128(win * ldw * 4) + _align128(c["TL"] * C * 4)
+             + _align128(2 * c["KC"] * ldw * 4))
+    if seg:
+        total += (_align128(c["TL"] * (c["KC"] + c["PAD"]) * 4)
+                  + _align128(win * 4))
+    return total
+
+
+def onepass_coverage(C: int, G: int, L: int, S: int, key_dim: int, H: int,
+                     value_dim: int, dtype: torch.dtype, narrow_taps: int,
+                     wide_taps: int, narrow_dilation: int,
+                     wide_dilation: int, packed: bool) -> Optional[str]:
+    """None where #6 covers these shapes: the local track's convs at C in
+    `KERNEL_WIDTHS[dtype]`, K2's head widths, 1 <= S <= 16 and, in
+    float32, the cluster plan's shared memory; else what it lacks."""
+    why = track_coverage(C, dtype, narrow_taps, wide_taps, narrow_dilation,
+                         wide_dilation, KERNEL_WIDTHS.get(dtype, ()))
+    if why is None:
+        why = head_coverage(key_dim, value_dim, G, H)
+    if why is None and not 1 <= S <= KERNEL_MAX_SEGMENTS:
+        why = f"S={S} outside the kernel's 1 <= S <= {KERNEL_MAX_SEGMENTS}"
+    if why is None and dtype == torch.float32:
+        smem = max(track_f32_smem(C, packed), attention_f32_smem(L, S))
+        if smem > MAX_SMEM:
+            why = (f"L={L}, S={S}: the float32 plan's {smem} bytes of "
+                   f"shared memory exceed {MAX_SMEM}")
+    return why
+
+
+def onepass_route(C: int, G: int, L: int, S: int, key_dim: int, H: int,
+                  value_dim: int, dtype: torch.dtype, narrow_taps: int,
+                  wide_taps: int, narrow_dilation: int, wide_dilation: int,
+                  packed: bool) -> Tuple[str, str]:
+    """The block's route, (path, reason), on every device: ("pallas",
+    "packed" | "dense") — #6 — where the reference's rule admits the
+    shape; else ("reference", "segments" | "unsupported_shape") — the
+    composition. ValueError, naming what #6 lacks, where the rule admits
+    a shape #6 does not cover."""
+    if not budget.onepass_supported(C, G, L, S, key_dim, H, dtype,
+                                    narrow_taps, wide_taps, wide_dilation,
+                                    narrow_dilation):
+        return "reference", "segments" if packed else "unsupported_shape"
+    why = onepass_coverage(C, G, L, S, key_dim, H, value_dim, dtype,
+                           narrow_taps, wide_taps, narrow_dilation,
+                           wide_dilation, packed)
+    if why is not None:
+        raise ValueError(
+            f"fused_onepass: the JAX package runs its one-pass kernel at "
+            f"C={C}, G={G}, L={L}, S={S}, {dtype} and the port has no #6 "
+            f"for it: {why}")
+    return "pallas", "packed" if packed else "dense"
 
 
 def _on_ids(oh_fn):
@@ -306,26 +399,21 @@ def check_onepass_shapes(
     segment_ids: Optional[torch.Tensor], real: torch.Tensor,
     narrow_dilation: int = 1, wide_dilation: int = 5,
 ) -> None:
-    """Raise ValueError unless #6 covers these operands: bf16/fp32 with C
-    in `KERNEL_WIDTHS[dtype]`, k=9 convs (narrow dilation 1, wide ≤ 5),
-    key_dim 64, value_dim 64 or 128 with G == H·value_dim, 1 <= S <= 16
-    and L·S scores in shared memory."""
+    """Raise ValueError unless #6 covers these operands
+    (`onepass_coverage`) and they match x and the global rows."""
     B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
     H, _, key_dim = weight_leaf(attn_params["wq"]).shape
     value_dim = weight_leaf(attn_params["wv"]).shape[-1]
     check_track_shapes("fused_onepass", track_params, x, narrow_dilation,
                        wide_dilation, KERNEL_WIDTHS.get(x.dtype, ()))
-    if (key_dim != KERNEL_HEAD_DIM or value_dim not in KERNEL_VALUE_DIMS
-            or G != H * value_dim):
-        raise ValueError(
-            f"fused_onepass: the kernel covers key_dim {KERNEL_HEAD_DIM}, "
-            f"value_dim in {KERNEL_VALUE_DIMS} with G == H·value_dim; got "
-            f"key_dim {key_dim}, value_dim {value_dim}, G {G}, H {H}")
-    if not 1 <= S <= KERNEL_MAX_SEGMENTS or L * S > KERNEL_MAX_SCORES:
-        raise ValueError(f"fused_onepass: S={S}, L={L} outside the kernel's "
-                         f"S <= {KERNEL_MAX_SEGMENTS}, "
-                         f"L·S <= {KERNEL_MAX_SCORES}")
+    why = onepass_coverage(
+        C, G, L, S, key_dim, H, value_dim, x.dtype,
+        weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
+        weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
+        narrow_dilation, wide_dilation, segment_ids is not None)
+    if why is not None:
+        raise ValueError(f"fused_onepass: {why}")
     if (tuple(broadcast_seg.shape) != (B, S, C)
             or tuple(real.shape) != (B, L)
             or (segment_ids is None and S != 1)
@@ -350,7 +438,7 @@ def _onepass_kernel(
                          wide_dilation)
     B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    H = weight_leaf(attn_params["wq"]).shape[0]
+    H, _, key_dim = weight_leaf(attn_params["wq"]).shape
     quant = is_quant_leaf(track_params["narrow_conv"]["kernel"])
     if quant != is_quant_leaf(attn_params["wq"]):
         raise ValueError("fused_onepass: the track and attention weights "
@@ -376,11 +464,12 @@ def _onepass_kernel(
         # and (int8 leg) the dequantize passes read wq, the int8 weights
         # and their scales in 16-byte loads.
         mats = ((0, 1, 3, 4, 8, 9) if quant else (0, 2, 6))
-        check_tma("fused_onepass", x, *(weights[i] for i in mats), *attn_w)
+        check_tma("fused_onepass", x, *(weights[i] for i in mats))
+        check_tma("fused_onepass", *attn_w, stride_bytes=8 if quant else 16)
     check_cuda("fused_onepass", *ops)
     layout, nbytes = onepass_scratch_layout(
         B, L, C, S, H, weight_leaf(attn_params["wv"]).shape[-1], quant,
-        dtype)
+        dtype, key_dim)
     # One allocation for every scratch (each torch.empty costs the host
     # microseconds), held until the passes are enqueued; the caching
     # allocator orders its reuse on the stream.
@@ -391,8 +480,8 @@ def _onepass_kernel(
         kernel.launch(code, int(segment_ids is not None),
                       *(t.data_ptr() for t in ops),
                       None if buf is None else buf.data_ptr(),
-                      B, L, C, G, S, H, wide_dilation, int(zero_empty),
-                      stream_ptr(x.device))
+                      B, L, C, G, S, H, key_dim, wide_dilation,
+                      int(zero_empty), stream_ptr(x.device))
     return local, attn
 
 
@@ -423,6 +512,19 @@ def fused_onepass(
                          zero_empty)
 
 
+def _route(track_params: Params, attn_params: Params, x: torch.Tensor,
+           S: int, G: int, narrow_dilation: int, wide_dilation: int,
+           packed: bool) -> Tuple[str, str]:
+    """`onepass_route` on the operands of one block."""
+    _, L, C = x.shape
+    H, _, key_dim = weight_leaf(attn_params["wq"]).shape
+    return onepass_route(
+        C, G, L, S, key_dim, H, weight_leaf(attn_params["wv"]).shape[-1],
+        x.dtype, weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
+        weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
+        narrow_dilation, wide_dilation, packed)
+
+
 def fused_onepass_segments(
     track_params: Params, attn_params: Params, x: torch.Tensor,
     broadcast_seg: torch.Tensor, global_seg: torch.Tensor,
@@ -434,10 +536,12 @@ def fused_onepass_segments(
     with 0 = pad, real_mask (B, L) the ragged-serving real-token mask
     (None = every in-segment position) → (local (B, L, C),
     attn (B, S, G))."""
+    B, L, C = x.shape
     S, G = global_seg.shape[1], global_seg.shape[2]
-    if x.device.type == "cuda" and not _rule_admits(
-            track_params, attn_params, x, S, G, narrow_dilation,
-            wide_dilation):
+    path, reason = _route(track_params, attn_params, x, S, G,
+                          narrow_dilation, wide_dilation, True)
+    note_onepass_path(path, reason, (B, L, C, S, G, dtype_name(x.dtype)))
+    if path == "reference":
         local = fused_local_track_segments(track_params, x, broadcast_seg,
                                            segment_ids, narrow_dilation,
                                            wide_dilation)
@@ -459,15 +563,29 @@ def fused_onepass_dense(
     """One DENSE block layer: broadcast (B, C), global_ (B, G), pad_mask
     (B, L) True at real positions (the attention mask only) →
     (local (B, L, C), attn (B, G))."""
-    B, L, _ = x.shape
+    B, L, C = x.shape
     G = global_.shape[-1]
     if pad_mask is None:
         pad_mask = torch.ones((B, L), dtype=torch.bool, device=x.device)
-    if x.device.type == "cuda" and not _rule_admits(
-            track_params, attn_params, x, 1, G, narrow_dilation,
-            wide_dilation):
-        local = fused_local_track(track_params, x, broadcast,
-                                  narrow_dilation, wide_dilation)
+    path, reason = _route(track_params, attn_params, x, 1, G,
+                          narrow_dilation, wide_dilation, False)
+    note_onepass_path(path, reason, (B, L, C, 1, G, dtype_name(x.dtype)))
+    if path == "reference":
+        # The dense composition: the track by its own route, then K2's.
+        track_path, track_reason = track_route(
+            C, L, x.dtype,
+            weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
+            weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
+            narrow_dilation, wide_dilation)
+        note_kernel_path(track_path, track_reason,
+                         (B, L, C, dtype_name(x.dtype)))
+        if track_path == "reference":
+            local = local_track_grad_reference(
+                dequant_params(track_params), x, broadcast, narrow_dilation,
+                wide_dilation)
+        else:
+            local = fused_local_track(track_params, x, broadcast,
+                                      narrow_dilation, wide_dilation)
         return local, fused_global_attention(attn_params, local, global_,
                                              pad_mask)
     local, attn = fused_onepass(track_params, attn_params, x,

@@ -15,21 +15,25 @@ Block dataflow (reference modules.py:201-231):
 
 Both tracks of a block go through the one-pass dispatch
 (`kernels/one_pass.fused_onepass_dense` / `fused_onepass_segments`), the
-JAX `use_pallas` branch: on CUDA kernel #6 where the reference's rule
-admits the shape, else K1 (dense) or #3 (packed) then K2 — the attention
+JAX `use_pallas` branch, whose routes are JAX's decisions on the same
+shape (`cfg.use_pallas` is ignored): kernel #6 where the reference's
+rule admits the shape, else the composition — K1 / #2 (dense) or #3 / #4
+(packed) then K2, each leg on the port of the JAX XLA reference where
+the JAX gate refuses the shape and no port kernel covers it (the `tiny`
+preset's local track, C=32; K2 covers its attention). The attention
 reads the NEW local track and the OLD global track either way. On CUDA
-the kernels always run (`cfg.use_pallas` is ignored); on the CPU their
-plain versions run. PACKED rows (data/packing.py) carry `segment_ids`
-(B, L) and a per-segment global track (B, S, G): the convs never cross a
-segment, each position gets its own segment's broadcast, and attention
-runs per segment, so a packed row is numerically a batch of independent
-proteins. The small products outside the kernels (global→local and the
-global-track denses) are plain matmuls, as the JAX package leaves them to
-XLA.
+the kernels run; on the CPU their plain versions. PACKED rows
+(data/packing.py) carry `segment_ids` (B, L) and a per-segment global
+track (B, S, G): the convs never cross a segment, each position gets its
+own segment's broadcast, and attention runs per segment, so a packed row
+is numerically a batch of independent proteins. The small products
+outside the kernels (global→local and the global-track denses) are plain
+matmuls, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -41,6 +45,7 @@ from proteinbert_tpu_torch.data.vocab import PAD_ID
 from proteinbert_tpu_torch.kernels import (
     TRACK_PARAMS, fused_onepass_dense, fused_onepass_segments, is_quant_leaf,
 )
+from proteinbert_tpu_torch.kernels.path_counter import quiet
 from proteinbert_tpu_torch.ops.layers import (
     dense_apply, embedding_apply, gelu, layer_norm_apply,
 )
@@ -48,6 +53,16 @@ from proteinbert_tpu_torch.ops.layers import (
 Params = Dict[str, Any]
 
 LN_NAMES = ("local_ln1", "local_ln2", "global_ln1", "global_ln2")
+
+
+def check_remat_policy(cfg: ModelConfig) -> None:
+    """JAX's `remat_wrap` refusal, word for word: the port has no block
+    remat (the kernels' backward already saves only their inputs), but a
+    config the JAX model refuses is refused here too."""
+    if cfg.remat_policy not in ("full", "convs"):
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; have 'full', 'convs'"
+        )
 
 
 def activation_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -207,9 +222,13 @@ def encode(
     global_ = gelu(dense_apply(params["global_in"], annotations.to(dtype))
                    if tp is None else
                    tp.global_in(params["global_in"], annotations, dtype))
-    for blk in params["blocks"]:
-        local, global_ = block_apply(cast_block(blk, dtype), local, global_,
-                                     pad_mask, cfg, segment_ids)
+    check_remat_policy(cfg)
+    for i, blk in enumerate(params["blocks"]):
+        # JAX traces a scanned block stack's body once: one route decision
+        # a family per forward under cfg.scan_blocks, else one a block.
+        with quiet() if cfg.scan_blocks and i else contextlib.nullcontext():
+            local, global_ = block_apply(cast_block(blk, dtype), local,
+                                         global_, pad_mask, cfg, segment_ids)
     return local, global_
 
 

@@ -85,7 +85,7 @@ from proteinbert_tpu_torch.kernels import (
     TRACK_PARAMS, fused_local_track_valid, track_halo,
 )
 from proteinbert_tpu_torch.models.proteinbert import (
-    activation_dtype, cast_block,
+    activation_dtype, cast_block, check_remat_policy,
 )
 from proteinbert_tpu_torch.ops.layers import (
     dense_apply, embedding_apply, gelu, layer_norm_apply,
@@ -224,6 +224,7 @@ def seq_parallel_apply(
     pad_mask = tokens != PAD_ID
     local = embedding_apply(params["embedding"], tokens, dtype)
     global_ = gelu(dense_apply(params["global_in"], annotations.to(dtype)))
+    check_remat_policy(cfg)
     for blk in params["blocks"]:
         local, global_ = _seq_block_apply(cast_block(blk, dtype), local,
                                           global_, pad_mask, cfg, group)

@@ -143,6 +143,7 @@ from proteinbert_tpu_torch.data.vocab import EOS_ID, PAD_ID, SOS_ID
 from proteinbert_tpu_torch.heads import apply as heads_apply
 from proteinbert_tpu_torch.heads.registry import LoadedHead, UnknownHeadError
 from proteinbert_tpu_torch.kernels.build import credit, recording_launches
+from proteinbert_tpu_torch.kernels.path_counter import quiet
 from proteinbert_tpu_torch.models.proteinbert import activation_dtype, to_device
 from proteinbert_tpu_torch.parallel.quant import (
     SERVE_QUANT_MODES, _q_packed_trunk_batch, _q_trunk_batch, param_bytes,
@@ -390,9 +391,10 @@ class WarmShape:
         self.inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                        for a in arrays]
         # The eager warm run: it builds and loads the kernels and makes
-        # their one-time CUDA runtime calls outside the capture.
+        # their one-time CUDA runtime calls outside the capture. Its route
+        # decisions are not counted: the capture's are.
         stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), quiet():
             fn(params, *self.inputs, cfg.model)
         self.graph = torch.cuda.CUDAGraph()
         try:
@@ -614,8 +616,10 @@ class BucketDispatcher:
         self._warmup_g = (metrics.gauge("serve_warmup_seconds_total")
                           if metrics is not None else None)
         self.warmup_seconds_total = 0.0
-        # Guards every lane's `graphs`.
+        # Guards every lane's `graphs` and `_counted`.
         self._warm_lock = threading.Lock()
+        # The shape keys whose kernel route decisions have been counted.
+        self._counted: set = set()
         # Registered heads: head_id -> LoadedHead with its params on the
         # first lane's device; `_head_lanes` keeps (those params, their
         # copy on each lane). Requests keep the head they were admitted
@@ -839,22 +843,39 @@ class BucketDispatcher:
             self._exec_g.set(n)
         return warm
 
+    def _count_once(self, key) -> bool:
+        """True the first time `key` runs on this dispatcher (a served
+        shape's route decisions count once, as a JAX executable's do at
+        its trace); False for None (the candidate's warm runs: the same
+        shapes)."""
+        if key is None:
+            return False
+        with self._warm_lock:
+            if key in self._counted:
+                return False
+            self._counted.add(key)
+            return True
+
     def _device_out(self, lane: _Lane, key, fn, params,
                     arrays: Sequence[np.ndarray], eager: bool = False):
         """`fn` on host `arrays` → its outputs on the lane's device: on
         the card a replay of the lane's graph of the shape (captured now
         if new), on the CPU — or with `eager` (the candidate arm) — the
         eager call, its inputs staged through pinned memory on the
-        card."""
-        if lane.device.type == "cpu":
-            return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
-                                for a in arrays), self.cfg.model)
-        if eager:
-            return fn(params, *(
-                torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
-                    lane.device, non_blocking=True) for a in arrays),
-                self.cfg.model)
-        return self._warm_shape(lane, key, fn, params, arrays).launch(arrays)
+        card. Route decisions count on the shape's first run only."""
+        with (contextlib.nullcontext() if self._count_once(key)
+              else quiet()):
+            if lane.device.type == "cpu":
+                return fn(params, *(
+                    torch.from_numpy(np.ascontiguousarray(a))
+                    for a in arrays), self.cfg.model)
+            if eager:
+                return fn(params, *(
+                    torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                    .to(lane.device, non_blocking=True) for a in arrays),
+                    self.cfg.model)
+            return self._warm_shape(lane, key, fn, params,
+                                    arrays).launch(arrays)
 
     def _submit(self, key, fn, runs: Sequence[Any], streams: Sequence[Any],
                 arrays: Sequence[np.ndarray],
@@ -998,10 +1019,12 @@ class BucketDispatcher:
 
     def _eager(self, fn, params, arrays: Sequence[np.ndarray]):
         """`fn` on `params` (the fp32 reference), eagerly, on host
-        `arrays` → its device outputs (the parity shadow)."""
-        return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
-                            .to(self.device) for a in arrays),
-                  self.cfg.model)
+        `arrays` → its device outputs (the parity shadow, a yardstick:
+        its route decisions are not counted)."""
+        with quiet():
+            return fn(params, *(torch.from_numpy(np.ascontiguousarray(a))
+                                .to(self.device) for a in arrays),
+                      self.cfg.model)
 
     @staticmethod
     def _trunk_fn(quantized: bool):

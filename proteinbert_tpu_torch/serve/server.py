@@ -116,10 +116,14 @@ Telemetry (all optional): `serve_start`/`serve_batch`/`serve_reject`/
 `serve_overlap_ratio`, `slo_burn_rate{objective=}` gauges; the
 `serve_latency` quantile window; `serve_requests_total{kind=}`,
 `serve_rejected_total{reason=}`, `serve_truncated_total`,
-`serve_cache_*_total` counters; `serve_latency_seconds`,
-`serve_queue_wait_seconds`, `serve_batch_seconds`, `serve_batch_rows`,
-`serve_finalize_seconds` histograms. The event schema is the JAX
-package's, so its validator and `pbt diagnose --serve` read the stream.
+`serve_cache_*_total`, and the kernel route coverage
+`fused_kernel_path_total` / `attention_kernel_path_total` /
+`onepass_kernel_path_total{path=,reason=}` counters (also
+`stats()["fused_path" | "attention_path" | "onepass_path"]`, one count per
+served shape); `serve_latency_seconds`, `serve_queue_wait_seconds`,
+`serve_batch_seconds`, `serve_batch_rows`, `serve_finalize_seconds`
+histograms. The event schema is the JAX package's, so its validator and
+`pbt diagnose --serve` read the stream.
 """
 
 from __future__ import annotations
@@ -142,6 +146,17 @@ from proteinbert_tpu_torch.data.vocab import PAD_ID
 from proteinbert_tpu_torch.heads.registry import (
     HeadRegistry, LoadedHead, TrunkMismatchError, UnknownHeadError,
     trunk_fingerprint,
+)
+from proteinbert_tpu_torch.kernels.attention import (
+    ATTN_PATH_TOTAL, register_attention_path_observer,
+    unregister_attention_path_observer,
+)
+from proteinbert_tpu_torch.kernels.fused_block import (
+    PATH_TOTAL, register_path_observer, unregister_path_observer,
+)
+from proteinbert_tpu_torch.kernels.one_pass import (
+    ONEPASS_PATH_TOTAL, register_onepass_path_observer,
+    unregister_onepass_path_observer,
 )
 from proteinbert_tpu_torch.obs import as_telemetry
 from proteinbert_tpu_torch.obs.events import (
@@ -358,6 +373,48 @@ class Server:
         self._parked_fp: Optional[str] = None
         self.shadow_total = 0                # guarded-by: _mirror_lock
         self._trunk_epoch = 0
+        # Kernel route coverage (JAX server.py:345-397): every route
+        # decision of the three kernel families — kernel ("pallas") and
+        # reference — mirrored into the registry as
+        # fused_kernel_path_total / attention_kernel_path_total /
+        # onepass_kernel_path_total{path=,reason=}, so /metrics, stats()
+        # and `pbt diagnose --serve` show how many served shapes run a
+        # kernel. Registered LAST, after every raising statement above, so
+        # a failed construction cannot leak a process-global observer;
+        # drain() and abort() unregister them.
+        self._path_c: Dict[Any, Any] = {}
+
+        # Bind the metrics and the counter dict through default
+        # arguments, not self: a Server abandoned without drain()/abort()
+        # leaks only this small dict through the observer lists.
+        def _mirror(name: str, path: str, reason: str,
+                    _metrics=metrics, _c=self._path_c) -> None:
+            c = _c.get((name, path, reason))
+            if c is None:
+                c = _c[(name, path, reason)] = _metrics.counter(
+                    name, path=path, reason=reason)
+            c.inc()
+
+        def _mirror_path(path: str, reason: str) -> None:
+            _mirror("fused_kernel_path_total", path, reason)
+
+        def _mirror_attn_path(path: str, reason: str) -> None:
+            _mirror("attention_kernel_path_total", path, reason)
+
+        def _mirror_onepass_path(path: str, reason: str) -> None:
+            _mirror("onepass_kernel_path_total", path, reason)
+
+        self._path_cb = _mirror_path
+        self._attn_path_cb = _mirror_attn_path
+        self._onepass_path_cb = _mirror_onepass_path
+        register_path_observer(self._path_cb)
+        register_attention_path_observer(self._attn_path_cb)
+        register_onepass_path_observer(self._onepass_path_cb)
+
+    def _release_path_observer(self) -> None:
+        unregister_path_observer(self._path_cb)
+        unregister_attention_path_observer(self._attn_path_cb)
+        unregister_onepass_path_observer(self._onepass_path_cb)
 
     def _bump(self, mirror: str, reason: Optional[str] = None) -> None:
         with self._mirror_lock:
@@ -440,6 +497,7 @@ class Server:
         done = self.scheduler.join(timeout)
         if not self._ended:
             self._ended = True
+            self._release_path_observer()
             self.tele.emit("serve_end", outcome="drained",
                            stats=self.stats())
         return done
@@ -461,6 +519,7 @@ class Server:
                        kind=req.kind)
         if not self._ended:
             self._ended = True
+            self._release_path_observer()
             self.tele.emit("note", source="serve", kind="abort",
                            failed_requests=len(failed))
             self.tele.emit("serve_end", outcome="aborted",
@@ -1041,6 +1100,18 @@ class Server:
             # Each arm's fingerprint and the shadow count: what the
             # fleet's health sweep joins on.
             "rollout": self.rollout_status(),
+            # Process-wide route coverage, one count per served shape's
+            # capture: "path/reason" → decisions. "pallas/*" is a kernel,
+            # "reference/*" the port of the XLA reference (for the
+            # one-pass family: the composition).
+            "fused_path": {f"{p}/{r}": n
+                           for (p, r), n in sorted(PATH_TOTAL.items())},
+            "attention_path": {f"{p}/{r}": n
+                               for (p, r), n
+                               in sorted(ATTN_PATH_TOTAL.items())},
+            "onepass_path": {f"{p}/{r}": n
+                             for (p, r), n
+                             in sorted(ONEPASS_PATH_TOTAL.items())},
         }
         # The neighbour-index arm: which index serves, its size, and how
         # many distinct lookup shapes have run.

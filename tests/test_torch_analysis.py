@@ -41,14 +41,10 @@ SIX_RULES = {"graph-purity", "lock-discipline", "durability-protocol",
 # The rules the JAX analyzer and the port's share unchanged.
 SHARED_RULES = ["lock-discipline", "event-schema", "dead-export",
                 "obs-doc-drift"]
-# The JAX-package counters the port counts as Kernel.launches instead:
-# in the port's docs_allow, so the port's analyzer no longer reports them.
-ALLOWED_IN_PORT = {
-    "obs-doc-drift::docs/observability.md::metric-ghost:"
-    "fused_kernel_path_total",
-    "obs-doc-drift::docs/observability.md::metric-ghost:"
-    "onepass_kernel_path_total",
-}
+# Doc findings the JAX analyzer makes on the port's tree and the port's
+# does not: none, since the port's Server registers the kernel route
+# counters (`fused_kernel_path_total`, ...) the doc names.
+ALLOWED_IN_PORT: set = set()
 
 
 def write_tree(root, files):
@@ -786,8 +782,7 @@ def test_port_tree_gate_torch_free(port_gate):
 
 def test_jax_and_port_analyzers_agree_on_the_port_tree(port_gate):
     """The JAX analyzer pointed at the port's tree and the port's own
-    give the same lock, schema, export and doc findings, but for the two
-    kernel-path counters the port allows in its doc check."""
+    give the same lock, schema, export and doc findings."""
     port = json.loads(port_gate.stdout)
     got = {f["key"] for f in port["findings"] + port["baselined"]
            if f["rule"] in SHARED_RULES}

@@ -503,8 +503,11 @@ def test_packed_attention_zero_empty_segment(L):
     (512, 4, 128, 64, 1, True),     # value_dim 128 (fp32 C=256, L=512)
     (1024, 16, 64, 64, 1, True),    # Large
     (512, 4, 128, 64, 16, True),
-    (384, 4, 96, 64, 1, False),     # value_dim 96
-    (512, 8, 64, 32, 1, False),     # key_dim 32
+    (384, 4, 96, 64, 1, True),      # value_dim 96
+    (512, 8, 64, 32, 1, True),      # key_dim 32
+    (512, 8, 64, 12, 1, False),     # key_dim 12: not a multiple of 8
+    (512, 2, 256, 64, 1, True),     # value_dim 256
+    (512, 1, 512, 64, 1, False),    # value_dim 512
     (512, 8, 64, 64, 17, False),    # too many segments
 ])
 def test_attention_kernel_shape_checks(G, H, v, k, S, ok):
@@ -591,7 +594,8 @@ def test_attention_scratches_have_the_c_entry_shapes(entry, v, k2_launches):
     passes none."""
     params, x, g, mask, zero_empty = _k2_case(entry, v)
     (B, L, C), (_, S, G), H = x.shape, g.shape, params["wq"].shape[0]
-    layout, nbytes = tattn.attention_scratch_layout(B, L, C, S, H, v, False)
+    layout, nbytes = tattn.attention_scratch_layout(B, L, C, S, H, v, False,
+                                                    64)
     assert [(shape, dtype) for shape, dtype, _ in layout] == [
         ((B, S, H, 64), torch.float32), ((B, H, S, L), torch.float32),
         ((B, L, G), torch.bfloat16)]

@@ -540,7 +540,7 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     b, n, _ = x.shape
     s = bs.shape[1]
     layout, nbytes = tone.onepass_scratch_layout(b, n, C, s, Hh, v, quant,
-                                                 dtype)
+                                                 dtype, 64)
     if dtype == torch.float32:
         assert (layout, nbytes) == ((), 0)
     else:
@@ -561,8 +561,8 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     ((name, a),) = onepass_launches
     kernel = tone.ONEPASS_Q8 if quant else tone.ONEPASS
     assert name == kernel.name and len(a) == len(kernel.argtypes)
-    # ..., local, attn, scratch, then B, L, C, G, S, H, wide dilation,
-    # zero_empty and the stream.
-    assert (a[-10] is None) == (dtype == torch.float32)
-    assert a[-11] is not None and a[-3:-1] == (5, 1)
+    # ..., local, attn, scratch, then B, L, C, G, S, H, key_dim, wide
+    # dilation, zero_empty and the stream.
+    assert (a[-11] is None) == (dtype == torch.float32)
+    assert a[-12] is not None and a[-4:-1] == (64, 5, 1)
     assert a[:2] == (tfused.KERNEL_DTYPES[dtype], 1)

@@ -603,9 +603,10 @@ def test_onepass_int8_refuses_what_it_cannot_read(operand, recorded):
 
 
 @pytest.mark.parametrize("G,H,ok", [(512, 8, True), (512, 4, True),
-                                    (384, 4, False)])
+                                    (384, 4, True), (512, 1, False)])
 def test_attention_int8_kernel_value_dims(G, H, ok, recorded):
-    """K2's int8 leg covers value_dim 64 and 128."""
+    """K2's int8 leg covers value_dim multiples of 8 up to 256 (96 too);
+    512 raises before any launch."""
     args = (_meta_attn(128, G, H, G // H), _meta(2, 16, 128), _meta(2, 1, G),
             _meta(2, 16, dtype=torch.int32), False)
     if not ok:
@@ -662,7 +663,7 @@ def test_attention_int8_scratches_have_the_c_entry_shapes(v, monkeypatch,
         monkeypatch.setattr(k, "launch", lambda *a, k=k: args.append(a))
     B, L, C, S, H = 2, 48, 256, 8, 512 // v
     bf16, f32 = torch.bfloat16, torch.float32
-    layout, _ = tattn.attention_scratch_layout(B, L, C, S, H, v, True)
+    layout, _ = tattn.attention_scratch_layout(B, L, C, S, H, v, True, 64)
     assert [(shape, dtype) for shape, dtype, _ in layout] == [
         ((H, C, 64), bf16), ((H, C, v), bf16), ((B, S, H, 64), f32),
         ((B, H, S, L), f32), ((B, L, 512), bf16)]
