@@ -513,6 +513,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import random
@@ -664,6 +665,24 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def attention_ops(B: int, L: int, C: int, G: int, S: int, H: int,
+                  k: int) -> int:
+    """The operations K2 needs at S segments: the TPU kernel's count
+    (`attention_flops`) at S=1, whose score and weighted-sum products take
+    each position once, plus each further segment's query. A position lies
+    in at most one segment, so the TPU kernel's S-1 other scores a position
+    are masked away: needed by no output, they are not counted."""
+    from proteinbert_tpu_torch.kernels.attention import attention_flops
+    return attention_flops(B, L, C, G, 1, H, k) + 2 * B * H * (S - 1) * G * k
+
+
+def onepass_ops(B: int, L: int, C: int, G: int, S: int, H: int,
+                k: int) -> int:
+    """#6's needed operations at S segments, counted as `attention_ops`."""
+    from proteinbert_tpu_torch.kernels.one_pass import onepass_flops
+    return onepass_flops(B, L, C, G, 1, H, k) + 2 * B * H * (S - 1) * G * k
+
+
 def bound(flops: float, nbytes: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -738,10 +757,23 @@ def enqueue_us(fn, n: int = 50) -> float:
     return us
 
 
+def output_digest(out) -> str:
+    """The first 16 hex digits of the sha256 of an output's bytes (a
+    tensor or a tuple of them): two packages' outputs on the same inputs
+    are bit for bit equal where their digests are."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def print_timed(card: str, tag: str, label: str, fn, passes) -> None:
-    """One call's wall ms, host enqueue time and device ms by pass."""
+    """One call's wall ms, host enqueue time, output digest and device ms
+    by pass."""
     print(f"# {tag} {label}: wall {time_ms(fn):.4f} ms, host enqueue "
-          f"{enqueue_us(fn):.1f} us a call [{card}]")
+          f"{enqueue_us(fn):.1f} us a call, output sha256 "
+          f"{output_digest(fn())} [{card}]")
     print_passes(card, label, fn, passes)
 
 
@@ -909,7 +941,7 @@ def kernel_phase(card: str):
             err = (got.float() - want.float()).abs().max().item()
             nbytes = ((B * L * C + 2 * B * S * G + H * (G * k + 2 * C * k))
                       * s + B * L * seg.element_size())
-            b_ms, b_by = bound(attention_flops(B, L, C, G, S, H, k), nbytes,
+            b_ms, b_by = bound(attention_ops(B, L, C, G, S, H, k), nbytes,
                                dtype)
             n0 = ATTENTION.launches
             fused_packed_attention(attn, x, gs, seg)
@@ -996,9 +1028,7 @@ def coverage_kernel_phase(card: str) -> dict:
     )
     from proteinbert_tpu_torch.kernels.attention import attention_flops
     from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
-    from proteinbert_tpu_torch.kernels.one_pass import (
-        fused_onepass, onepass_flops,
-    )
+    from proteinbert_tpu_torch.kernels.one_pass import fused_onepass
 
     base = get_preset("base").model
     gen = torch.Generator().manual_seed(41)
@@ -1015,9 +1045,12 @@ def coverage_kernel_phase(card: str) -> dict:
         return seg  # segment S never appears: an empty one
 
     def run_case(kernel, name, dtype, label, run, plain, flops, nbytes,
-                 q8=None, timed=True):
+                 q8=None, timed=True, tpu_flops=None):
         """`run` the kernel's wrapper, `plain` its plain version; `q8` (the
-        int8 leg's (kernel, run)) must give exactly `run`'s output."""
+        int8 leg's (kernel, run)) must give exactly `run`'s output.
+        `flops` is the work the function needs; `tpu_flops`, where given,
+        the TPU kernel's own count, reported beside the bound as a second
+        bound of its own."""
         def tup(o):
             return o if isinstance(o, tuple) else (o,)
         got, want = tup(run()), tup(plain())
@@ -1051,17 +1084,21 @@ def coverage_kernel_phase(card: str) -> dict:
                                          f"{qk.launches - n0} times")
             if timed:
                 q_ms = time_ms(q_run)
-        ms = plain_ms = b_ms = b_by = None
+        ms = plain_ms = b_ms = b_by = tpu_ms = None
         if timed:
             ms, plain_ms = time_ms(run), time_ms(plain)
             b_ms, b_by = bound(flops, nbytes, dtype)
+            if tpu_flops is not None:
+                tpu_ms = bound(tpu_flops, nbytes, dtype)[0]
         rows[(name, label + ("" if dtype == bf16 else " fp32"))] = (
-            err, ms, plain_ms, b_ms, b_by, per_call, exact, q_ms)
+            err, ms, plain_ms, b_ms, b_by, per_call, exact, q_ms, tpu_ms)
         print(f"# coverage {tag} [{card}]: max |kernel - plain| {err:.3g} "
               f"(tol {tol}), {per_call} launch a call"
               + ("" if ms is None else
                  f", {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-                 f"{b_ms:.4f} ms by {b_by})")
+                 f"{b_ms:.4f} ms by {b_by}"
+                 + ("" if tpu_ms is None else
+                    f"; by the TPU kernel's count {tpu_ms:.4f} ms") + ")")
               + ("" if exact is None else
                  f"; int8 leg exact {exact}"
                  + ("" if q_ms is None else f", {q_ms:.4f} ms")))
@@ -1099,7 +1136,7 @@ def coverage_kernel_phase(card: str) -> dict:
                 ATTENTION, "global_attention", dtype, f"{label} S=8",
                 lambda: fused_packed_attention(attn, x, gs, seg),
                 lambda: attention_oh_reference(attn, x, gs, oh8),
-                attention_flops(B, L, C, G, S, H, k),
+                attention_ops(B, L, C, G, S, H, k),
                 (B * L * C + 2 * B * S * G) * s + wbytes + B * L * 8,
                 q8=(ATTENTION_Q8, lambda: fused_packed_attention(
                     qattn, x, gs, seg)),
@@ -1145,7 +1182,7 @@ def coverage_kernel_phase(card: str) -> dict:
                     lambda: onepass_oh_reference(
                         track, attn, x, bc, gs, oh, real[..., None].float(),
                         1, wd, packed, packed),
-                    onepass_flops(B, L, C, G, S, H, k),
+                    onepass_ops(B, L, C, G, S, H, k),
                     (2 * B * L * C + 2 * B * S * G + B * S * C) * s + wbytes
                     + 2 * B * L * 4,
                     q8=(ONEPASS_Q8, lambda: run(qtrack, qattn)),
@@ -1199,7 +1236,136 @@ def coverage_kernel_phase(card: str) -> dict:
     # #6 at C=384 (base-like heads): the rule's bf16 shapes reach L=384.
     onepass_cases(w384, 256, (bf16,), "C=384 G=512 H=8 k=64 v=64 L=256")
     onepass_cases(w384, 128, (f32,), "C=384 G=512 H=8 k=64 v=64 L=128")
+
+    t0 = time.perf_counter()
+    segment_cases(card, gen, run_case, rand)
+    print(f"# coverage segments kernels: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# Segment counts past the 16 of earlier builds: K2 at base (B=8, L=512,
+# C=G=512, H=8, k=64) at each S here, in bf16, its int8 leg and float32;
+# at Large (L=1024, C=G=1024, H=16) at S=64 in bf16 and int8; #6 at the
+# default width (C=128, G=512, H=4, k=64, v=128, L=512) at S=32 and 64
+# in bf16, int8 and float32, and at S=512 in bf16 and int8.
+COVER_SEGMENTS = (17, 32, 64, 512)
+COVER_SEGMENTS_LARGE = (64,)
+COVER_SEGMENTS_ONEPASS = ((32, True), (64, True), (512, False))
+
+
+def empty_segments_zero(tag: str, out: torch.Tensor, ids: torch.Tensor,
+                        S: int) -> int:
+    """Every segment of `out` (B, S, G) that no position of `ids` (B, L)
+    names (id s + 1) must be exactly +0.0, sign bit clear; returns how
+    many there were."""
+    segs = torch.arange(1, S + 1, device=ids.device)
+    empty = ~(ids[..., None] == segs).any(dim=1)            # (B, S)
+    vals = out[empty]
+    check(bool((vals == 0).all()) and not bool(torch.signbit(vals).any()),
+          f"{tag}: an empty segment is not exactly +0.0")
+    return int(empty.sum())
+
+
+def segment_cases(card: str, gen, run_case, rand) -> None:
+    """`coverage_kernel_phase`'s cases at the segment counts
+    `COVER_SEGMENTS*`: each wrapper against its plain version (the tolerance
+    of its existing rows), one launch a call, the int8 leg exactly (0.0) its
+    fp leg on the dequantized weights, bf16 timed; ids drawn at random over
+    0..S-1, so a segment's positions lie scattered over the row and segment
+    S (at S=512 most) holds none: its output must be exactly +0.0. The
+    bound counts the work the function needs (`attention_ops`,
+    `onepass_ops`); the TPU kernel's count, with its full (L, S) score
+    table, gives a second bound reported beside it."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        ATTENTION, ATTENTION_Q8, ONEPASS, ONEPASS_Q8, attention_oh_reference,
+        fused_packed_attention, onepass_oh_reference, segment_one_hot,
+    )
+    from proteinbert_tpu_torch.kernels.attention import attention_flops
+    from proteinbert_tpu_torch.kernels.one_pass import (
+        fused_onepass, onepass_flops,
+    )
+
+    dev = torch.device(DEVICE)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B = 8
+
+    def seg_ids(L, S):
+        return torch.randint(0, S, (B, L), generator=gen).to(dev)
+
+    def k2(name, L, S, dtypes):
+        cfg = get_preset(name).model
+        C, G, H, k = (cfg.local_dim, cfg.global_dim, cfg.num_heads,
+                      cfg.key_dim)
+        for dtype in dtypes:
+            _, qattn, _, attn = q8_block(gen, cfg, dtype)[:4]
+            s = dtype.itemsize
+            x = rand(B, L, C, dtype=dtype)
+            gs = rand(B, S, G, dtype=dtype)
+            seg = seg_ids(L, S)
+            oh = segment_one_hot(seg, S)
+            tag = f"global_attention {str(dtype)[6:]} {name} S={S}"
+            run_case(
+                ATTENTION, "global_attention", dtype, f"{name} L={L} S={S}",
+                lambda: fused_packed_attention(attn, x, gs, seg),
+                lambda: attention_oh_reference(attn, x, gs, oh),
+                attention_ops(B, L, C, G, S, H, k),
+                (B * L * C + 2 * B * S * G) * s
+                + H * (G * k + C * k + C * (G // H)) * s + B * L * 4,
+                q8=(ATTENTION_Q8, lambda: fused_packed_attention(
+                    qattn, x, gs, seg)),
+                timed=dtype == bf16,
+                tpu_flops=attention_flops(B, L, C, G, S, H, k))
+            n = empty_segments_zero(tag, fused_packed_attention(
+                attn, x, gs, seg), seg, S)
+            n_q = empty_segments_zero(tag + " int8", fused_packed_attention(
+                qattn, x, gs, seg), seg, S)
+            print(f"# coverage segments {tag} [{card}]: {n} empty "
+                  f"segments exactly +0.0 (int8 leg {n_q})")
+
+    for S in COVER_SEGMENTS:
+        k2("base", 512, S, (bf16, f32))
+    for S in COVER_SEGMENTS_LARGE:
+        k2("large", 1024, S, (bf16,))
+
+    cfg = ModelConfig()
+    C, G, H, k = cfg.local_dim, cfg.global_dim, cfg.num_heads, cfg.key_dim
+    wd, L = cfg.wide_dilation, 512
+    for S, with_f32 in COVER_SEGMENTS_ONEPASS:
+        for dtype in (bf16, f32) if with_f32 else (bf16,):
+            qtrack, qattn, track, attn = q8_block(gen, cfg, dtype)[:4]
+            s = dtype.itemsize
+            x = rand(B, L, C, dtype=dtype)
+            bc = rand(B, S, C, dtype=dtype)
+            gs = rand(B, S, G, dtype=dtype)
+            seg = seg_ids(L, S)
+            real = torch.ones((B, L), dtype=torch.bool, device=dev)
+            real[1, L // 2:] = False
+            oh = segment_one_hot(seg, S)
+            wbytes = (19 * C * C + H * (G * k + C * k + C * (G // H))) * s
+
+            def run(tr=track, at=attn):
+                return fused_onepass(tr, at, x, bc, gs, seg, real, 1, wd,
+                                     True)
+            tag = f"one_pass {str(dtype)[6:]} default width S={S}"
+            run_case(
+                ONEPASS, "one_pass", dtype, f"default width L={L} S={S}",
+                run,
+                lambda: onepass_oh_reference(
+                    track, attn, x, bc, gs, oh, real[..., None].float(), 1,
+                    wd, True, True),
+                onepass_ops(B, L, C, G, S, H, k),
+                (2 * B * L * C + 2 * B * S * G + B * S * C) * s + wbytes
+                + 2 * B * L * 4,
+                q8=(ONEPASS_Q8, lambda: run(qtrack, qattn)),
+                timed=dtype == bf16,
+                tpu_flops=onepass_flops(B, L, C, G, S, H, k))
+            seen = torch.where(real, seg, 0)
+            n = empty_segments_zero(tag, run()[1], seen, S)
+            n_q = empty_segments_zero(tag + " int8", run(qtrack, qattn)[1],
+                                      seen, S)
+            print(f"# coverage segments {tag} [{card}]: {n} empty "
+                  f"segments exactly +0.0 (int8 leg {n_q})")
 
 
 def route_counts() -> tuple:
@@ -1451,7 +1617,7 @@ def coverage_widths(name: str, rows: dict) -> list:
     fp = name[:-3] if name.endswith("_q8") else name
     out = []
     for (kname, label), (err, ms, plain, b_ms, b_by, per_call, exact,
-                         q_ms) in rows.items():
+                         q_ms, tpu_ms) in rows.items():
         if kname != fp or (name != fp and exact is None):
             continue
         row = {"shape": label, "max_abs_err": err if name == fp else exact,
@@ -1459,8 +1625,288 @@ def coverage_widths(name: str, rows: dict) -> list:
         if ms is not None:
             row.update({"ms": q_ms if name != fp else ms, "plain_ms": plain,
                         "bound_ms": b_ms, "bound_by": b_by})
+            if tpu_ms is not None:
+                row["tpu_count_bound_ms"] = tpu_ms
         out.append(row)
     return out
+
+
+# The served, mapped and trained paths at more than 16 proteins a row:
+# short proteins (8-14 residues, a 16-token span each) packed 32 to a
+# 512-token row; the ragged graph pool read at each of SEGMENT_POOLS.
+SEGMENT_SERVE = 32
+SEGMENT_POOLS = (8, 32, 64)
+SEGMENT_BUCKETS = (16, 32, 64, 128, 256, 512)
+SEGMENT_STEP_TOL = 2e-5   # fp32 packed base step loss, card vs CPU
+
+
+def short_proteins(n: int, seed: int) -> list:
+    """`n` random proteins of 8-14 residues."""
+    rng = random.Random(seed)
+    return ["".join(rng.choice("ACDEFGHIKLMNPQRSTVWY")
+                    for _ in range(rng.randint(8, 14))) for _ in range(n)]
+
+
+def short_packed_batch(disp, seed: int) -> tuple:
+    """One full packed embed batch of short proteins for a ragged
+    dispatcher whose span rule puts each in a 16-token span: every row
+    holds `max_segments` of them (or as many as its length takes)."""
+    R, L, S = disp.rows_per_batch, disp.cfg.data.seq_len, disp.max_segments
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((R, L), np.int32)
+    seg = np.zeros((R, L), np.int32)
+    riders = []
+    for r in range(R):
+        for s in range(min(S, L // 16)):
+            n, start = int(rng.integers(8, 15)), 16 * s
+            tokens[r, start] = 1
+            tokens[r, start + 1:start + 1 + n] = rng.integers(4, 26, n)
+            tokens[r, start + 1 + n] = 2
+            seg[r, start:start + 16] = s + 1
+            riders.append((r, s, start, 16))
+    ann = np.zeros((R, S, disp.cfg.model.num_annotations), np.float32)
+    return tokens, seg, ann, riders
+
+
+def segments_server(card: str, label: str, cfg, per_batch: dict,
+                    want_routes: tuple, seed: int) -> tuple:
+    """A ragged Server at pack_max_segments=SEGMENT_SERVE under CUDA
+    graphs: its route decisions (`want_routes`, per family), 64 short
+    embeds served with exactly `per_batch` launches a batch, four of them
+    against the same protein alone in its batch, and one full packed batch
+    (8 rows x 32 proteins) replayed against the eager run, bit for bit.
+    Returns (launches, the graph pool's bytes)."""
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.serve.server import Server
+
+    params = init(cfg.model, torch.Generator().manual_seed(seed),
+                  device=DEVICE)
+    before = route_counts()
+    srv = Server(params, cfg, device=DEVICE, buckets=SEGMENT_BUCKETS,
+                 max_batch=8, max_wait_s=0.05, serve_mode="ragged",
+                 pack_max_segments=SEGMENT_SERVE).start()
+    try:
+        torch.cuda.synchronize()
+        pool = srv.dispatcher.graph_pool_bytes()
+        seqs = short_proteins(64, seed)
+        zero_launches()
+        futs = [srv.submit("embed", q) for q in seqs]
+        got = [f.result(60) for f in futs]
+        launches = launch_counts()
+        batches = srv.stats()["batches"]
+        routes = route_delta(before)
+        worst = 0.0
+        for q, res in zip(seqs[:4], got[:4]):
+            solo = embed_alone(srv, q)
+            for key in ("global", "local_mean"):
+                worst = max(worst, float(np.abs(solo[key] - res[key]).max()))
+        print(f"# coverage segments serve ragged {label} "
+              f"pack_max_segments={SEGMENT_SERVE} [{card}]: 64 embeds of "
+              f"8-14 residues in {batches} batches, launches {launches}; "
+              f"route decisions fused {routes[0]}, attention {routes[1]}, "
+              f"one-pass {routes[2]}; {srv.dispatcher.executable_count} "
+              f"CUDA graphs, pool {pool} bytes ({pool / 2**20:.2f} MiB); "
+              f"served vs alone max |diff| {worst:.3e} (tol "
+              f"{SERVE_EMBED_TOL})")
+        check(routes == want_routes, f"segments serve {label}: route "
+                                     f"decisions {routes}, want "
+                                     f"{want_routes}")
+        check(batches > 0 and launches == {
+            k: n * batches for k, n in per_batch.items()},
+            f"segments serve {label}: launches {launches} for {batches} "
+            f"batches, want {per_batch} a batch")
+        check(all(np.isfinite(a["global"]).all() for a in got),
+              f"segments serve {label}: non-finite embeddings")
+        check(worst <= SERVE_EMBED_TOL,
+              f"segments serve {label}: served vs alone {worst}")
+        replay_equals_eager(f"coverage segments ragged {label} "
+                            f"S={SEGMENT_SERVE}", srv,
+                            short_packed_batch(srv.dispatcher, seed))
+    finally:
+        srv.drain()
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, pool
+
+
+def segments_pools(card: str, cfg, seed: int, pools: dict) -> None:
+    """The base ragged dispatcher's graph pool after capturing its one
+    embed shape, at each pack_max_segments of SEGMENT_POOLS not yet in
+    `pools` ({S: bytes}); prints the three."""
+    from proteinbert_tpu_torch.models.proteinbert import init
+    from proteinbert_tpu_torch.serve.dispatch import RaggedDispatcher
+
+    params = init(cfg.model, torch.Generator().manual_seed(seed),
+                  device=DEVICE)
+    for S in SEGMENT_POOLS:
+        if S in pools:
+            continue
+        disp = RaggedDispatcher(params, cfg, buckets=SEGMENT_BUCKETS,
+                                rows_per_batch=8, max_segments=S,
+                                device=DEVICE)
+        disp.warmup(("embed",))
+        torch.cuda.synchronize()
+        pools[S] = disp.graph_pool_bytes()
+        del disp
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"# coverage segments pool base ragged [{card}]: one embed graph "
+          f"(8 x 512) at pack_max_segments " + ", ".join(
+              f"{S}: {pools[S]} bytes ({pools[S] / 2**20:.2f} MiB)"
+              for S in SEGMENT_POOLS))
+
+
+def segments_map(card: str, cfg, seed: int, per_batch: dict) -> dict:
+    """`run_map` over 256 short proteins at max_segments=SEGMENT_SERVE
+    (rows_per_batch 8, one shard): completed, `per_batch` launches a
+    packed batch, the store verified; its vectors against the same map at
+    max_segments=8. Returns the first run's launches."""
+    from proteinbert_tpu_torch.mapper import (
+        iter_embeddings, run_map, verify_store,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import init
+
+    params = init(cfg.model, torch.Generator().manual_seed(seed),
+                  device=DEVICE)
+    seqs = short_proteins(256, seed)
+    ids = [f"SP{i:04d}" for i in range(len(seqs))]
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="segments-", dir=build)
+    try:
+        vecs, launches = {}, None
+        for S in (SEGMENT_SERVE, 8):
+            store = os.path.join(root, f"s{S}")
+            zero_launches()
+            out = run_map(params, cfg, ids, seqs, store, num_shards=1,
+                          block_size=256, rows_per_batch=8, max_segments=S,
+                          buckets=SEGMENT_BUCKETS, stop_flag=lambda: False,
+                          device=DEVICE)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            rep = verify_store(store)
+            check(out["outcome"] == "completed" and rep["ok"]
+                  and rep["complete"],
+                  f"segments map S={S}: outcome {out['outcome']}, verify "
+                  f"{rep}")
+            check(got == {k: n * out["batches"] for k, n in
+                          per_batch.items()},
+                  f"segments map S={S}: launches {got} for "
+                  f"{out['batches']} batches, want {per_batch} a batch")
+            vecs[S] = {i: r["global"] for i, r in iter_embeddings(store)}
+            if launches is None:
+                launches, batches = got, out["batches"]
+        check(sorted(vecs[SEGMENT_SERVE]) == sorted(ids),
+              "segments map: not every protein was stored")
+        diff = max(float(np.abs(vecs[SEGMENT_SERVE][i].astype(np.float64)
+                                - vecs[8][i]).max()) for i in ids)
+        print(f"# coverage segments map base max_segments={SEGMENT_SERVE} "
+              f"[{card}]: 256 proteins of 8-14 residues in {batches} "
+              f"batches, launches {launches}; store verified; global "
+              f"vectors vs max_segments=8 max |diff| {diff:.3e} (tol "
+              f"{SERVE_EMBED_TOL})")
+        check(diff <= SERVE_EMBED_TOL, f"segments map vs S=8: {diff}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def segments_step(card: str) -> dict:
+    """One fp32 PACKED train step at base width, 2 blocks, B=2, L=256, 32
+    proteins of 6-8 tokens a row (the loss and every grad) on the card,
+    through #3 and K2 at S=32, against the same params and corrupted batch
+    on the CPU plain path: loss within SEGMENT_STEP_TOL, grads within
+    STEP_GRAD_TOL. Returns its launches."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.data.corruption import corrupt_packed_batch
+    from proteinbert_tpu_torch.models.proteinbert import init, to_device
+    from proteinbert_tpu_torch.train import train_state as ts
+
+    base = get_preset("base")
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dtype="float32", num_blocks=2))
+    params = init(cfg.model, torch.Generator().manual_seed(47), device="cpu")
+    rng = np.random.default_rng(47)
+    B, L, S, A = 2, 256, SEGMENT_SERVE, cfg.model.num_annotations
+    tokens = np.zeros((B, L), np.int32)
+    seg = np.zeros((B, L), np.int32)
+    for r in range(B):
+        pos = 0
+        for sid in range(1, S + 1):
+            n = int(rng.integers(6, 9))
+            if pos + n > L - 2:
+                break
+            tokens[r, pos + 1:pos + n - 1] = rng.integers(4, 26, n - 2)
+            tokens[r, pos], tokens[r, pos + n - 1] = 1, 2
+            seg[r, pos:pos + n] = sid
+            pos += n
+    ann = (rng.random((B, S, A)) < 0.01).astype(np.float32)
+    tok, sg, an = (torch.from_numpy(a) for a in (tokens, seg, ann))
+    X, Y, W = corrupt_packed_batch(torch.Generator().manual_seed(48), tok,
+                                   sg, an)
+    t0 = time.perf_counter()
+    want_g, want_m = ts.loss_and_grads(params, X, Y, W, cfg, sg)
+    cpu_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    on = {k: {n: t.to(dev) for n, t in d.items()} for k, d in
+          (("X", X), ("Y", Y), ("W", W))}
+    zero_launches()
+    before = route_counts()
+    got_g, got_m = ts.loss_and_grads(to_device(params, dev), on["X"],
+                                     on["Y"], on["W"], cfg, sg.to(dev))
+    torch.cuda.synchronize()
+    launches, routes = launch_counts(), route_delta(before)
+    loss_err = abs(float(got_m["loss"]) - float(want_m["loss"]))
+    grad_err = max((a.cpu() - b).abs().max().item()
+                   for a, b in zip(got_g, want_g))
+    print(f"# coverage segments step base packed fp32 [{card}]: 2 blocks, "
+          f"B={B} L={L} S={S}, card vs CPU plain path ({cpu_s:.1f} s): loss "
+          f"{float(got_m['loss']):.6f} |diff| {loss_err:.3e} (tol "
+          f"{SEGMENT_STEP_TOL}), grads max |diff| {grad_err:.3e} over "
+          f"{len(got_g)} tensors (tol {STEP_GRAD_TOL}); route decisions "
+          f"fused {routes[0]}, attention {routes[1]}, one-pass {routes[2]}; "
+          f"launches {launches}")
+    check(launches == {"local_track_segments": 2, "global_attention": 2},
+          f"segments step: launches {launches}, want #3 and K2 once a block")
+    check(routes[1] == {("pallas", "packed"): 1},
+          f"segments step: attention route {routes[1]}")
+    check(loss_err <= SEGMENT_STEP_TOL, f"segments step loss {loss_err}")
+    check(grad_err <= STEP_GRAD_TOL, f"segments step grads {grad_err}")
+    return launches
+
+
+def coverage_segments(card: str) -> dict:
+    """(e) More than 16 proteins a row on the main paths: the ragged Server
+    at pack_max_segments=32 on base (#3 + K2) and at the default width
+    (#6), the base ragged graph pool at 8, 32 and 64 segments, `run_map` at
+    max_segments=32, and one fp32 packed base step at S=32 against the
+    CPU. Returns the launches of the served, mapped and trained runs."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+
+    base = get_preset("base")
+    nb = base.model.num_blocks
+    composed = {"local_track_segments": nb, "global_attention": nb}
+    pk = {("pallas", "packed"): 1}
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    launches, pool32 = segments_server(
+        card, "base", base, composed,
+        (pk, pk, {("reference", "segments"): 1}), 51)
+    add(launches)
+    segments_pools(card, base, 51, {SEGMENT_SERVE: pool32})
+    default = base.replace(model=ModelConfig())
+    launches, _ = segments_server(
+        card, "default width", default,
+        {"one_pass": default.model.num_blocks}, ({}, {}, pk), 52)
+    add(launches)
+    add(segments_map(card, base, 53, composed))
+    add(segments_step(card))
+    return total
 
 
 def coverage_phase(card: str) -> tuple:
@@ -1470,7 +1916,8 @@ def coverage_phase(card: str) -> tuple:
     the transfer experiment's `small`
     geometry (C=128, G=256, k=32, H=4) on #6; (d) a 2-block base-like
     model at C=384 (G=512, H=8, k=64): a served batch at the 256 bucket
-    on #6, a step at L=512 on the composition K1 + K2. Returns (rows of
+    on #6, a step at L=512 on the composition K1 + K2; (e) more than 16
+    proteins a row (`coverage_segments`). Returns (rows of
     `coverage_kernel_phase`, {kernel: launches on the driven paths})."""
     from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.kernels import budget
@@ -1514,6 +1961,11 @@ def coverage_phase(card: str) -> tuple:
              {"local_track": nb, "global_attention": nb})).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# coverage C=384: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for name, n in coverage_segments(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# coverage segments paths: {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
 
@@ -1787,7 +2239,6 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
     from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
     from proteinbert_tpu_torch.kernels.one_pass import (
         fused_onepass, fused_onepass_dense, fused_onepass_segments,
-        onepass_flops,
     )
     from proteinbert_tpu_torch.models.proteinbert import (
         block_init, cast_block, to_device,
@@ -1913,7 +2364,7 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
                                   + (2 if n_seg > 1 else 1) * B * L * 4
                                   + 7 * width * 4)
                         b_ms, b_by = bound(
-                            onepass_flops(B, L, width, G, n_seg, H, k),
+                            onepass_ops(B, L, width, G, n_seg, H, k),
                             nbytes, dtype)
                         per_call = launches(ONEPASS, lambda: run(x))
                         check(per_call == 1, f"one_pass launched {per_call} "
@@ -1974,7 +2425,7 @@ def packed_kernel_phase(card: str, rows: dict) -> None:
                            + 2 * B * S * G + 19 * width * width
                            + H * (G * k + width * (k + G // H))) * 2
                           + 2 * B * L * 4 + 7 * width * 4)
-                b_ms, b_by = bound(onepass_flops(B, L, width, G, S, H, k),
+                b_ms, b_by = bound(onepass_ops(B, L, width, G, S, H, k),
                                    nbytes, dtype)
                 per_call = launches(ONEPASS, lambda: packed(x))
                 timing = (time_ms(lambda: packed(x)),
@@ -2155,7 +2606,7 @@ def large_kernel_phase(card: str, rows: dict) -> None:
               "Large packed attention non-finite or empty segment not zero")
         nbytes = ((B * L * C + 2 * B * S * G + H * (G * k + 2 * C * k)) * s
                   + B * L * (seg.element_size() + 1))
-        b_ms, b_by = bound(attention_flops(B, L, C, G, S, H, k), nbytes, dtype)
+        b_ms, b_by = bound(attention_ops(B, L, C, G, S, H, k), nbytes, dtype)
         per_call = launches(ATTENTION, lambda: fused_packed_attention(
             attn, x, gs, seg, real))
         rows[("global_attention", dtype, L, "Large S=8")] = (
@@ -2359,7 +2810,7 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
     from proteinbert_tpu_torch.kernels.attention import attention_flops
     from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
     from proteinbert_tpu_torch.kernels.one_pass import (
-        fused_onepass, fused_onepass_segments, onepass_flops,
+        fused_onepass, fused_onepass_segments,
     )
 
     base = get_preset("base").model
@@ -2463,7 +2914,7 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
                  lambda: fused_packed_attention(qa, x, gs, seg),
                  lambda: fused_packed_attention(fa, x, gs, seg),
                  lambda: attention_oh_reference(fa, x, gs, oh),
-                 timed, attention_flops(B, L, C, G, S, H, k),
+                 timed, attention_ops(B, L, C, G, S, H, k),
                  (B * L * C + 2 * B * S * G) * s + abytes
                  + B * L * seg.element_size(),
                  empty=lambda out: out[0][:, S - 1])
@@ -2514,7 +2965,7 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
                     case(ONEPASS_Q8, dtype, L, f"C={width} {label}",
                          lambda run=run: run((qt, qa)),
                          lambda run=run: run((ft, fa)), plain, timed,
-                         onepass_flops(B, L, width, G, n_seg, H, k),
+                         onepass_ops(B, L, width, G, n_seg, H, k),
                          (2 * B * L * width + B * n_seg * (width + 2 * G)) * s
                          + tbytes + abytes
                          + (2 if n_seg > 1 else 1) * B * L * 4
@@ -2551,7 +3002,7 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
          lambda: fused_packed_attention(qa, x, gs, seg),
          lambda: fused_packed_attention(fa, x, gs, seg),
          lambda: attention_oh_reference(fa, x, gs, oh),
-         True, attention_flops(B, L, C, G, S, H, k),
+         True, attention_ops(B, L, C, G, S, H, k),
          (B * L * C + 2 * B * S * G) * 2 + abytes
          + B * L * seg.element_size(),
          empty=lambda out: out[0][:, S - 1])
@@ -2584,7 +3035,7 @@ def q8_kernel_phase(card: str, rows: dict) -> dict:
              lambda: onepass_oh_reference(ft, fa, x, bs, gs, oh,
                                           real[..., None].float(), 1, wd,
                                           True, True),
-             L == 128, onepass_flops(B, L, width, G, S, H, k),
+             L == 128, onepass_ops(B, L, width, G, S, H, k),
              (2 * B * L * width + B * S * (width + 2 * G)) * 2 + tbytes
              + abytes + 2 * B * L * 4 + 7 * width * 4,
              empty=lambda out: out[1][:, S - 1])

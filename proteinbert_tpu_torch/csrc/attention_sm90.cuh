@@ -18,6 +18,11 @@
 //   w[s, :] = round(softmax over l of scores, -1e30 where ids[l] != s + 1)
 //   out[s, h*v:(h+1)*v] = w[s] @ V_h (float32), 0 for an empty s (zero_empty)
 //
+// A position lies in at most one segment, so of the S x L scores only
+// scores[ids[l] - 1, l] survives the mask: the passes form that one score
+// a position, (B, H, L), and nothing they hold but q grows with S, which
+// takes any value up to a grid's z extent (the softmax pass's grid).
+//
 // What bounds it on the H100: operations. The K and V projections are one
 // GEMM, x (B*L, C) @ [wk | wv] (C, H*(k+v)): 2*B*L*C*H*(k+v) FLOP, 34.4
 // GFLOP at B=8, L=C=1024, H=16, k=v=64 (0.035 ms at 989 TFLOP/s bf16), 4.3
@@ -49,9 +54,11 @@
 //      read is written while they run and one chunk's products stay in
 //      flight while the next chunk's are issued. The
 //      epilogue works on the accumulators in registers: the key columns
-//      become tanh'd K and are dotted with every segment's q (four lanes
-//      share a row: a fixed two-step shuffle sum), written as float32 scores
-//      (B, H, S, L); the value columns become gelu'd V, written as bf16
+//      become tanh'd K and each row is dotted with its own segment's q,
+//      read from the q scratch through L1 (four lanes share a row: a fixed
+//      two-step shuffle sum), written as a float32 score a position (B, H,
+//      L); a row in no segment gets none. The value columns become gelu'd
+//      V, written as bf16
 //      (B, L, H*v), which is exact since V is rounded to bf16 anyway.
 //      Every x tile crosses L2 once per head (the parent: twice per head).
 //      What bounds this pass is L2 -> SM traffic: at B=8, L=C=1024, H=16
@@ -61,10 +68,14 @@
 //      (head, row, segment), so even the dense S=1 call has B*H blocks of
 //      16 warps to hide L2 latency: the segment's max and sum over L (one
 //      block reduction each), the bf16-rounded weights written over its
-//      scores, then out = sum over l of w[l] * V[l] in float32: each thread
-//      walks one group of rows for one pair of V columns (the loads of
-//      successive rows independent), the groups summed in a fixed order.
-//      V is read once per segment, from L2. The
+//      own positions' scores (no other block's), then out = sum over l of
+//      w[l] * V[l] in float32: each thread walks one group of rows for one
+//      pair of V columns (the loads of successive rows independent), the
+//      groups summed in a fixed order. The rows off the segment have weight
+//      exactly 0 where it holds a position and are skipped: V's rows of
+//      the segment are read once, from L2. Dense rows (S = 1) have one
+//      block a row, which reads every position, its loads free of the ids
+//      (skipping there measured slower on the H100, PERF.md). The
 //      rounding of the normalised weights is why this is not flash
 //      attention: a segment's max and sum over all of L must be known
 //      before any weight is rounded, so the scores wait in their scratch.
@@ -117,7 +128,6 @@ struct WgAttn {
   static constexpr int TM = 128 * MT;   // rows a tile: two consumer WGs
   static constexpr int KC = 64;         // channels a chunk: one 128-byte row
   static constexpr int THREADS = 384;
-  static constexpr int CONSUMERS = 256;
   static constexpr int CONSUMER_WARPS = 8;
   static constexpr uint32_t ROW_BYTES = KC * 2;
   static constexpr uint32_t X_BYTES = TM * ROW_BYTES;
@@ -126,14 +136,10 @@ struct WgAttn {
   // A kind's weight boxes, LBO apart: the key boxes, then the value boxes.
   static constexpr uint32_t W_BYTES = uint32_t(NMAX / 64) * BOX_BYTES;
   static constexpr uint32_t STAGE = X_BYTES + W_BYTES;
-  static constexpr size_t Q_BYTES = size_t(kMaxS) * KP * sizeof(float);
   static constexpr int STAGES =
-      (232448 - 2048 - int(Q_BYTES)) / int(STAGE) < 5
-          ? (232448 - 2048 - int(Q_BYTES)) / int(STAGE)
-          : 5;
+      (232448 - 2048) / int(STAGE) < 5 ? (232448 - 2048) / int(STAGE) : 5;
   static constexpr size_t TOTAL =
-      STAGES * size_t(STAGE) + Q_BYTES + 2 * STAGES * 8 +
-      1024;  // + alignment slack
+      STAGES * size_t(STAGE) + 2 * STAGES * 8 + 1024;  // + alignment slack
   static_assert(KP % 64 == 0 && VP % 64 == 0 && KP <= 128 && VP <= 256,
                 "whole boxes");
   static_assert(X_BYTES % 1024 == 0 && BOX_BYTES % 1024 == 0,
@@ -259,16 +265,18 @@ __device__ __forceinline__ void attn_chunk(float (&acc)[MT][N / 2],
 
 // The epilogue of one m64 accumulator over N columns: rows r0 and r0 + 8
 // of each warp's 16 (r0 already offset to the tile's row in L). With HAS_K
-// the first KP columns are K: their scores against q (qs, (S, KP) with
-// zeros past kd) go to sb. With HAS_V the next (or, without HAS_K, the
+// the first KP columns are K: each row's score against its own segment's
+// q goes to sb (ib the row's ids: s + 1 for segment s; qb the row's q
+// scratch (S, H, kd) at head h, read as zeros past kd); a row in no
+// segment 1 .. S gets none. With HAS_V the next (or, without HAS_K, the
 // first) columns are V, written into vbuf for the value columns below vd
 // (row r0's V; row r0 + 8 is 8 rows of G further).
 template <int KP, int N, bool HAS_K, bool HAS_V>
 __device__ __forceinline__ void attn_epilogue(float (&acc)[N / 2],
-                                              const float* qs, float* sb,
-                                              bf16* vbuf, int r0, int L,
-                                              int S, int G, int q, int kd,
-                                              int vd) {
+                                              const float* qb, const int* ib,
+                                              float* sb, bf16* vbuf, int r0,
+                                              int L, int S, int H, int G,
+                                              int q, int kd, int vd) {
   const int r1 = r0 + 8;
   if constexpr (HAS_K) {
     const float inv_scale = 1.0f / sqrtf(float(kd));
@@ -276,26 +284,33 @@ __device__ __forceinline__ void attn_epilogue(float (&acc)[N / 2],
 #pragma unroll
     for (int i = 0; i < KP / 2; ++i)
       acc[i] = round_to<bf16>(tanhf(round_to<bf16>(acc[i])));
-    for (int s = 0; s < S; ++s) {
-      const float* qr = qs + s * KP;
-      float p0 = 0.f, p1 = 0.f;
+    const int i0 = r0 < L ? __ldg(ib + r0) : 0;
+    const int i1 = r1 < L ? __ldg(ib + r1) : 0;
+    const int id0 = i0 >= 1 && i0 <= S ? i0 : 0;  // 0: no segment
+    const int id1 = i1 >= 1 && i1 <= S ? i1 : 0;
+    const float* q0 = qb + size_t(id0 ? id0 - 1 : 0) * H * kd + 2 * q;
+    const float* q1 = qb + size_t(id1 ? id1 - 1 : 0) * H * kd + 2 * q;
+    float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < KP / 8; ++j) {
-        const float2 qv =
-            *reinterpret_cast<const float2*>(qr + 8 * j + 2 * q);
-        p0 = fmaf(acc[4 * j], qv.x, p0);
-        p0 = fmaf(acc[4 * j + 1], qv.y, p0);
-        p1 = fmaf(acc[4 * j + 2], qv.x, p1);
-        p1 = fmaf(acc[4 * j + 3], qv.y, p1);
-      }
-      p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
-      p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
-      p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
-      p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
-      if (q == (s & 3)) {
-        if (r0 < L) sb[size_t(s) * L + r0] = p0 * inv_scale;
-        if (r1 < L) sb[size_t(s) * L + r1] = p1 * inv_scale;
-      }
+    for (int j = 0; j < KP / 8; ++j) {
+      // kd is a multiple of 8: columns 8j .. 8j+7 are all in it or all past.
+      const bool in = 8 * j < kd;
+      const float2 a = in ? __ldg(reinterpret_cast<const float2*>(q0 + 8 * j))
+                          : make_float2(0.f, 0.f);
+      const float2 c = in ? __ldg(reinterpret_cast<const float2*>(q1 + 8 * j))
+                          : make_float2(0.f, 0.f);
+      p0 = fmaf(acc[4 * j], a.x, p0);
+      p0 = fmaf(acc[4 * j + 1], a.y, p0);
+      p1 = fmaf(acc[4 * j + 2], c.x, p1);
+      p1 = fmaf(acc[4 * j + 3], c.y, p1);
+    }
+    p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+    p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+    p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+    p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+    if (q == 0) {
+      if (id0 != 0) sb[r0] = p0 * inv_scale;
+      if (id1 != 0) sb[r1] = p1 * inv_scale;
     }
   }
   if constexpr (HAS_V) {
@@ -324,11 +339,12 @@ __device__ __forceinline__ void attn_epilogue(float (&acc)[N / 2],
 // products are done, so the previous stage is released.
 template <int KP, int VP, int N, bool HAS_K, bool HAS_V>
 __device__ __forceinline__ void attn_consume(
-    int& it, uint32_t base, int chunks, const float* qs, float* sb,
-    bf16* vb, int row0, int L, int S, int G, int kd, int vd) {
+    int& it, uint32_t base, int chunks, const float* qb, const int* ib,
+    float* sb, bf16* vb, int row0, int L, int S, int H, int G, int kd,
+    int vd) {
   using K = WgAttn<KP, VP>;
   using namespace sm90;
-  const uint32_t full = base + K::STAGES * K::STAGE + K::Q_BYTES;
+  const uint32_t full = base + K::STAGES * K::STAGE;
   const uint32_t empty = full + 8 * K::STAGES;
   const int ct = threadIdx.x - 128;
   const int lane = ct % 32, warp = ct / 32, wg = warp / 4;
@@ -352,21 +368,22 @@ __device__ __forceinline__ void attn_consume(
 #pragma unroll
   for (int m = 0; m < K::MT; ++m) fence_regs(acc[m]);
   if (lane == 0) mbar_arrive(empty + 8 * ((it + K::STAGES - 1) % K::STAGES));
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // qs is loaded
 #pragma unroll
   for (int m = 0; m < K::MT; ++m)
     attn_epilogue<KP, N, HAS_K, HAS_V>(
-        acc[m], qs, sb, vb, row0 + wrow + 64 * m + (warp % 4) * 16 + g, L,
-        S, G, q, kd, vd);
+        acc[m], qb, ib, sb, vb, row0 + wrow + 64 * m + (warp % 4) * 16 + g,
+        L, S, H, G, q, kd, vd);
 }
 
-// Pass 2: scores (B, H, S, L) and V (B, L, H*vd) for every tile of TM rows
-// of one batch row and one head (and, split, one kind). tx maps x as (C, L,
-// B); tk and tv map wk and wv as (kd, C, H) and (vd, C, H), read in boxes
-// of 64 columns zero-filled past kd and vd.
+// Pass 2: scores (B, H, L), one a position against its own segment's q
+// (ids (B, L)), and V (B, L, H*vd) for every tile of TM rows of one batch
+// row and one head (and, split, one kind). tx maps x as (C, L, B); tk and
+// tv map wk and wv as (kd, C, H) and (vd, C, H), read in boxes of 64
+// columns zero-filled past kd and vd.
 template <int KP, int VP>
 __global__ void __launch_bounds__(WgAttn<KP, VP>::THREADS, 1)
     wgmma_attn_kernel(const float* __restrict__ qbuf,
+                      const int* __restrict__ ids,
                       float* __restrict__ scores, bf16* __restrict__ vbuf,
                       int B, int L, int C, int S, int H, int kd, int vd,
                       const __grid_constant__ CUtensorMap tx,
@@ -377,9 +394,7 @@ __global__ void __launch_bounds__(WgAttn<KP, VP>::THREADS, 1)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  float* qs = reinterpret_cast<float*>(smem_raw + (base - raw) +
-                                       K::STAGES * size_t(K::STAGE));
-  const uint32_t full = base + K::STAGES * K::STAGE + K::Q_BYTES;
+  const uint32_t full = base + K::STAGES * K::STAGE;
   const uint32_t empty = full + 8 * K::STAGES;
 
   const int rts = (L + K::TM - 1) / K::TM;
@@ -432,32 +447,28 @@ __global__ void __launch_bounds__(WgAttn<KP, VP>::THREADS, 1)
   // Consumer warpgroups: warpgroup wg owns tile rows 64 MT wg .. 64 MT
   // (wg + 1) - 1; warp w % 4 rows 16 (w % 4) .. of each 64-row block.
   setmaxnreg_inc<232>();
-  const int ct = threadIdx.x - 128;
   const int G = H * vd;
   int it = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int kind = t % K::KINDS, u = t / K::KINDS;
     const int rt = u % rts, b = (u / rts) % B, h = u / (rts * B);
-    // The previous tile's epilogue is done with qs: load this (b, h)'s q,
-    // zero past kd.
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    if (kind == 0)
-      for (int i = ct; i < S * KP; i += K::CONSUMERS) {
-        const int s = i / KP, j = i - s * KP;
-        qs[i] = j < kd ? qbuf[((size_t(b) * S + s) * H + h) * kd + j] : 0.f;
-      }
-    float* sb = scores + (size_t(b) * H + h) * S * L;
+    const float* qb = qbuf + (size_t(b) * S * H + h) * kd;
+    const int* ib = ids + size_t(b) * L;
+    float* sb = scores + (size_t(b) * H + h) * L;
     bf16* vb = vbuf + size_t(b) * L * G + h * vd;
     if constexpr (K::SPLIT) {
       if (kind == 0)
-        attn_consume<KP, VP, K::N0, true, false>(it, base, chunks, qs, sb, vb,
-                                                 rt * K::TM, L, S, G, kd, vd);
+        attn_consume<KP, VP, K::N0, true, false>(it, base, chunks, qb, ib, sb,
+                                                 vb, rt * K::TM, L, S, H, G,
+                                                 kd, vd);
       else
-        attn_consume<KP, VP, K::N1, false, true>(it, base, chunks, qs, sb, vb,
-                                                 rt * K::TM, L, S, G, kd, vd);
+        attn_consume<KP, VP, K::N1, false, true>(it, base, chunks, qb, ib, sb,
+                                                 vb, rt * K::TM, L, S, H, G,
+                                                 kd, vd);
     } else {
-      attn_consume<KP, VP, K::N0, true, true>(it, base, chunks, qs, sb, vb,
-                                              rt * K::TM, L, S, G, kd, vd);
+      attn_consume<KP, VP, K::N0, true, true>(it, base, chunks, qb, ib, sb,
+                                              vb, rt * K::TM, L, S, H, G, kd,
+                                              vd);
     }
   }
 }
@@ -483,8 +494,12 @@ __device__ __forceinline__ float block_reduce(float x, float* red, Op op) {
 }
 
 // Pass 3: out[b, s, h*vd : (h+1)*vd] for segment s of batch row b, one
-// block each. The segment's row of the scores' scratch is overwritten by
-// its weights.
+// block each, its weights written over the scores (B, H, L). With S > 1
+// the blocks of a row share its scores: each position belongs to one
+// segment, so a block reads and writes only its own segment's. ALONE (S =
+// 1, dense rows): the block is the row's only one and reads and writes
+// every position, its loads free of the ids.
+template <bool ALONE>
 __global__ void __launch_bounds__(kSoftThreads)
     attn_softmax_kernel(const int* __restrict__ ids, float* scores,
                         const bf16* __restrict__ vbuf, bf16* __restrict__ out,
@@ -493,56 +508,73 @@ __global__ void __launch_bounds__(kSoftThreads)
   const int groups = kSoftThreads / pairs;    // row groups
   const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int G = H * vd;
-  // Read and written by this block only; plain (coherent) loads.
-  float* sr = scores + ((size_t(b) * H + h) * S + s) * L;
+  // Plain (coherent) loads and stores.
+  float* sr = scores + (size_t(b) * H + h) * L;
   const int* ib = ids + size_t(b) * L;
   __shared__ float red[kSoftWarps];
   // (groups, vd) partial sums: at most 2 * kSoftThreads floats.
   __shared__ float part[2 * kSoftThreads];
   const auto fmax_op = [](float a, float c) { return fmaxf(a, c); };
+  // Position l's masked score: -1e30 off the segment.
+  const auto masked = [&](int l) {
+    const bool in = ib[l] == s + 1;
+    const float v = ALONE || in ? sr[l] : 0.f;
+    return in ? v : -1e30f;
+  };
 
-  // The segment's max over l of its masked scores (-1e30 off the segment;
-  // every score is >= that), whether it holds any position, then its sum
-  // of exp(score - max).
+  // The segment's max over l of its masked scores (every score is >= the
+  // mask value), whether it holds any position, then its sum of exp(score
+  // - max).
   float mx = -1e30f, any = 0.f;
   for (int l = threadIdx.x; l < L; l += kSoftThreads) {
-    const float v = sr[l];
-    if (ib[l] == s + 1) {
-      mx = fmaxf(mx, v);
-      any = 1.f;
-    }
+    mx = fmaxf(mx, masked(l));
+    any = fmaxf(any, ib[l] == s + 1 ? 1.f : 0.f);
   }
   mx = block_reduce(mx, red, fmax_op);
   any = block_reduce(any, red, fmax_op);
   float sum = 0.f;
-  for (int l = threadIdx.x; l < L; l += kSoftThreads) {
-    const float v = sr[l];
-    sum += expf((ib[l] == s + 1 ? v : -1e30f) - mx);
-  }
+  for (int l = threadIdx.x; l < L; l += kSoftThreads)
+    sum += expf(masked(l) - mx);
   sum = block_reduce(sum, red, [](float a, float c) { return a + c; });
   // The weights, rounded to bf16 as the TPU kernel casts them, in place of
-  // the scores (the barrier makes them visible to the whole block).
-  for (int l = threadIdx.x; l < L; l += kSoftThreads) {
-    const float v = sr[l];
-    sr[l] = round_to<bf16>(expf((ib[l] == s + 1 ? v : -1e30f) - mx) / sum);
-  }
+  // the scores (the barrier makes them visible to the whole block); `off`
+  // is the weight off the segment: exactly 0 where it holds a position,
+  // the uniform softmax's where it holds none.
+  const float off = round_to<bf16>(expf(-1e30f - mx) / sum);
+  for (int l = threadIdx.x; l < L; l += kSoftThreads)
+    if (ALONE || ib[l] == s + 1)
+      sr[l] = round_to<bf16>(expf(masked(l) - mx) / sum);
   __syncthreads();
 
   // out[j] = sum over l of w[l] * V[l, j] in float32: thread (row group r,
   // column pair c) sums rows r, r + groups, ... in order, then the groups
-  // are summed in order. Threads past groups * pairs (pairs not a power of
-  // two) sum nothing.
+  // are summed in order. Alone, every row with its weight. Else a row off
+  // a segment that holds a position adds 0 * V, an exact no-op (no sum is
+  // ever -0.0), so it is skipped, and an empty segment adds `off` * V over
+  // every row, unless zero_empty writes it 0. Threads past groups * pairs
+  // (pairs not a power of two) sum nothing.
   const int c = threadIdx.x % pairs, r = threadIdx.x / pairs;
   if (r < groups) {
     float a0 = 0.f, a1 = 0.f;
     const bf16* vb = vbuf + size_t(b) * L * G + h * vd + 2 * c;
-#pragma unroll 4
-    for (int l = r; l < L; l += groups) {
+    const auto row = [&](int l, float wgt) {
       const float2 v = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(vb + size_t(l) * G));
-      const float wgt = sr[l];
       a0 = fmaf(wgt, v.x, a0);
       a1 = fmaf(wgt, v.y, a1);
+    };
+    if constexpr (ALONE) {
+#pragma unroll 4
+      for (int l = r; l < L; l += groups) row(l, sr[l]);
+    } else if (any != 0.f) {
+#pragma unroll 4
+      for (int l = r; l < L; l += groups) {
+        if (ib[l] != s + 1) continue;
+        row(l, sr[l]);
+      }
+    } else if (!zero_empty) {
+#pragma unroll 4
+      for (int l = r; l < L; l += groups) row(l, off);
     }
     part[r * vd + 2 * c] = a0;
     part[r * vd + 2 * c + 1] = a1;
@@ -606,11 +638,11 @@ __global__ void __launch_bounds__(kThreads)
                    gridDim.x);
 }
 
-// Scratch the wrapper allocates for one bf16 call, as parts of one buffer
+// Scratch the wrapper allocates for one call, as parts of one buffer
 // (attention.py `attention_scratch_layout`): q (B, S, H, kd) and scores
-// (B, H, S, L) float32, V (B, L, H*vd) bf16, and on the int8 leg the
+// (B, H, L) float32, V (B, L, H*vd) bf16, and on the int8 leg the
 // dequantized wk (H, C, kd) and wv (H, C, vd) bf16 (null on the
-// floating-point leg).
+// floating-point leg). float32 takes q alone (the rest null).
 struct AttnScratch {
   float* q;
   float* scores;
@@ -629,12 +661,14 @@ inline int sm_count() {
 }
 
 // Pass 2 over x (B, L, C) bf16 with bf16 wk (H, C, kd), wv (H, C, vd) at
-// the padded widths (KP, VP): the scores and V of every head into sc. The
+// the padded widths (KP, VP) and the ids (B, L) of the positions'
+// segments: the scores and V of every head into sc. The
 // maps fail to encode (cudaErrorInvalidValue) for an x, wk or wv whose
 // base is not 16-byte aligned.
 template <int KP, int VP>
-cudaError_t launch_attn_projection_p(const void* x, const void* wk,
-                                     const void* wv, const AttnScratch& sc,
+cudaError_t launch_attn_projection_p(const void* x, const int* ids,
+                                     const void* wk, const void* wv,
+                                     const AttnScratch& sc,
                                      int B, int L, int C, int S, int H,
                                      int kd, int vd, cudaStream_t stream) {
   using K = WgAttn<KP, VP>;
@@ -661,20 +695,20 @@ cudaError_t launch_attn_projection_p(const void* x, const void* wk,
   const long tiles = long((L + K::TM - 1) / K::TM) * B * H * K::KINDS;
   const int grid = int(tiles < sms ? tiles : sms);
   wgmma_attn_kernel<KP, VP><<<grid, K::THREADS, smem, stream>>>(
-      sc.q, sc.scores, sc.v, B, L, C, S, H, kd, vd, tx, tk, tv);
+      sc.q, ids, sc.scores, sc.v, B, L, C, S, H, kd, vd, tx, tk, tv);
   return cudaGetLastError();
 }
 
 // Pass 2 at the instantiation (KP, VP) that kd and vd round up to.
-inline cudaError_t launch_attn_projection(const void* x, const void* wk,
-                                          const void* wv,
+inline cudaError_t launch_attn_projection(const void* x, const int* ids,
+                                          const void* wk, const void* wv,
                                           const AttnScratch& sc, int B,
                                           int L, int C, int S, int H, int kd,
                                           int vd, cudaStream_t stream) {
 #define PBT_PROJ(KP, VP)                                                    \
   if (pad64(kd) == KP && pad64(vd) == VP)                                   \
-    return launch_attn_projection_p<KP, VP>(x, wk, wv, sc, B, L, C, S, H,   \
-                                            kd, vd, stream);
+    return launch_attn_projection_p<KP, VP>(x, ids, wk, wv, sc, B, L, C, S, \
+                                            H, kd, vd, stream);
   PBT_PROJ(64, 64)
   PBT_PROJ(64, 128)
   PBT_PROJ(64, 256)
@@ -690,7 +724,9 @@ inline cudaError_t launch_attn_softmax(const int* ids, const AttnScratch& sc,
                                        void* out, int B, int L, int S, int H,
                                        int vd, int zero_empty,
                                        cudaStream_t stream) {
-  attn_softmax_kernel<<<dim3(H, B, S), kSoftThreads, 0, stream>>>(
+  const auto kernel =
+      S == 1 ? attn_softmax_kernel<true> : attn_softmax_kernel<false>;
+  kernel<<<dim3(H, B, S), kSoftThreads, 0, stream>>>(
       ids, sc.scores, sc.v, static_cast<bf16*>(out), L, S, H, vd,
       zero_empty);
   return cudaGetLastError();
@@ -725,7 +761,8 @@ cudaError_t launch_attention_sm90(const void* x, const int* ids,
       static_cast<const bf16*>(g), w, sc.q, S, G, H, kd);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = launch_attn_projection(x, wk, wv, sc, B, L, C, S, H, kd, vd, stream);
+  e = launch_attn_projection(x, ids, wk, wv, sc, B, L, C, S, H, kd, vd,
+                             stream);
   if (e != cudaSuccess) return e;
   return launch_attn_softmax(ids, sc, out, B, L, S, H, vd, zero_empty,
                              stream);
@@ -743,8 +780,8 @@ cudaError_t launch_k2(const void* x, const int* ids, const void* g,
     return launch_attention_sm90<Q8>(x, ids, g, w, sc, out, B, L, C, G, S, H,
                                      kd, zero_empty, stream);
   } else {
-    return launch_attention<Q8>(x, ids, g, w, out, B, L, C, G, S, H, kd,
-                                zero_empty, stream);
+    return launch_attention<Q8>(x, ids, g, w, sc.q, out, B, L, C, G, S, H,
+                                kd, zero_empty, stream);
   }
 }
 

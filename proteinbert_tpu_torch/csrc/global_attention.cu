@@ -8,8 +8,10 @@
 // in attention_sm90.cuh: a query pass, one projection GEMM for all heads on
 // wgmma fed by TMA (hopper.cuh) whose epilogue writes the scores and V, and
 // a softmax / weighted-sum pass. In float32, attention.cuh's CUDA-core plan:
-// one block per (head, row), a K pass into (L, S) float32 scores, the masked
-// softmax, a V pass folded into the (S, v) sums. key_dim and value_dim
+// one block per (head, row), a K pass into one float32 score a position
+// (against its own segment's q), the masked softmax, a V pass folded into
+// the segments' sums. Any number of segments S: a position lies in at most
+// one, so nothing but q and the output grows with S. key_dim and value_dim
 // are multiples of 8 (key_dim <= 128, value_dim <= 256): in bf16 six
 // projection instantiations over the widths rounded up to 64
 // (attention_sm90.cuh), in float32 run-time widths.
@@ -23,12 +25,12 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (x, g, wq, wk, wv, out); ids is int32
 // (B, L): s + 1 where position l belongs to segment s, anything else none.
-// wq (H, G, kd), wk (H, C, kd), wv (H, C, G / H). In bfloat16 the scratches
-// q (B, S, H, kd) float32, scores (B, H, S, L) float32 and v (B, L, G)
+// wq (H, G, kd), wk (H, C, kd), wv (H, C, G / H). The scratch q (B, S, H,
+// kd) float32; in bfloat16 also scores (B, H, L) float32 and v (B, L, G)
 // bfloat16 (null in float32), and x, wk, wv 16-byte aligned (TMA). Requires
 // key_dim kd and value_dim G / H multiples of 8, kd <= 128, G / H <= 256,
-// C % 32 == 0, C <= 2048, 1 <= S <= 16; in float32 L * S scores fit shared
-// memory.
+// C % 32 == 0, C <= 2048, 1 <= S <= 65535 (a grid's z extent), B <= 65535;
+// in float32 L <= 43776 (one float32 score a position in shared memory).
 // Returns cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int pbt_global_attention(int dtype, const void* x, const void* ids,

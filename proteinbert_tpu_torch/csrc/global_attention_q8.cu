@@ -25,11 +25,11 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (x, g, out); wq, wk, wv int8 (H, G, kd),
 // (H, C, kd), (H, C, G / H) with float32 scales sq (H, kd), sk (H, kd),
-// sv (H, G / H), each 16-byte aligned; ids is int32 (B, L) as for K2. In
-// bfloat16 the scratches wkd (H, C, kd) and wvd (H, C, G / H) bfloat16, q,
-// scores and v as for K2 (null in float32), and x 16-byte aligned (TMA).
-// Requires the head widths K2 takes (global_attention.cu), C % 32 == 0,
-// C <= 2048, 1 <= S <= 16.
+// sv (H, G / H), each 16-byte aligned; ids is int32 (B, L) as for K2. The
+// scratch q as for K2; in bfloat16 also wkd (H, C, kd) and wvd (H, C, G / H)
+// bfloat16, scores and v as for K2 (null in float32), and x 16-byte aligned
+// (TMA). Requires the head widths and S K2 takes (global_attention.cu),
+// C % 32 == 0, C <= 2048.
 // Returns cudaGetLastError() after the last launch (0 = launched).
 extern "C" int pbt_global_attention_q8(
     int dtype, const void* x, const void* ids, const void* g, const void* wq,

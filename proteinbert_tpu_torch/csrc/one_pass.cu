@@ -16,11 +16,12 @@
 // rows (seg_masked = 1; null for dense rows, where S must be 1); real (B, L)
 // int32, nonzero at positions the attention may see; biases and LN vectors
 // float32. key_dim kd and value_dim G / H are multiples of 8, kd <= 128, G /
-// H <= 256; C is 128, 256 or 384, or 512 in bfloat16. Outputs: local (B, L,
-// C), attn (B, S, G). In bfloat16 `scratch` is one buffer of
-// `onepass_scratch`'s parts (null in float32), and x and every weight 16-byte
-// aligned (TMA, 16-byte loads). Returns cudaGetLastError() after the last
-// launch (0 = launched).
+// H <= 256; C is 128, 256 or 384, or 512 in bfloat16; any S from 1 to 65535
+// (dense rows: 1). Outputs: local (B, L, C), attn (B, S, G). In bfloat16
+// `scratch` is one buffer of `onepass_scratch`'s parts, and x and every
+// weight 16-byte aligned (TMA, 16-byte loads); in float32 it is the q
+// scratch (B, S, H, kd) float32 alone. Returns cudaGetLastError() after the
+// last launch (0 = launched).
 extern "C" int pbt_onepass(int dtype, int seg_masked, const void* x,
                            const void* seg, const void* real,
                            const void* bcast, const void* g, const void* nk,
@@ -42,8 +43,8 @@ extern "C" int pbt_onepass(int dtype, int seg_masked, const void* x,
         C, seg_masked,
         pbt::track_args<float>(x, seg_ptr, bcast, nk, nb, wk, wb, s1, b1, dk,
                                db, s2, b2, local, L, S, wide_dilation),
-        real, g, pbt::attn_weights<float, false>(wq, wak, wav), attn, B, G,
-        H, kd, zero_empty, s);
+        real, g, pbt::attn_weights<float, false>(wq, wak, wav), scratch,
+        attn, B, G, H, kd, zero_empty, s);
   if (dtype == 1)
     return pbt::launch_onepass_bf16<false>(
         seg_masked,

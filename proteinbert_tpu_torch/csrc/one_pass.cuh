@@ -34,9 +34,10 @@
 //   2. __threadfence + cluster barrier (release/acquire at cluster scope):
 //      every tile of the row is written and visible to the whole cluster;
 //   3. CTA r runs the attention of heads r, r+8, ... over the whole row
-//      with K2's float32 device code (attention.cuh `attention_head`),
-//      reading the local output back from L2, with no cross-CTA softmax
-//      merge.
+//      with K2's float32 device code (attention.cuh `attention_head`: one
+//      score a position, any number of segments, q in a (B, S, H, k)
+//      float32 scratch each CTA writes for its own heads), reading the
+//      local output back from L2, with no cross-CTA softmax merge.
 // So what a row carries across the barrier is its (L, C) local output in L2
 // (and, per CTA, nothing else): one launch, no second kernel, no host sync.
 // The int8 leg (Q8) takes the int8 weights of both tracks with their float32
@@ -58,8 +59,8 @@ template <int C, bool SEG, bool Q8>
 __global__ void __launch_bounds__(kThreads, 1)
     onepass_kernel(TrackArgs<float, Q8> p, const int* __restrict__ real,
                    const float* __restrict__ g, AttnWeights<float, Q8> aw,
-                   float* __restrict__ attn, int G, int H, int kd,
-                   int zero_empty) {
+                   float* __restrict__ q, float* __restrict__ attn, int G,
+                   int H, int kd, int zero_empty) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int TL = TrackCfg<float, C>::TL;
   const int rank = blockIdx.x, csize = gridDim.x, b = blockIdx.y;
@@ -72,29 +73,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   cooperative_groups::this_cluster().sync();
 
   const SegmentMask mask{SEG ? p.seg + size_t(b) * L : nullptr,
-                         real + size_t(b) * L};
+                         real + size_t(b) * L, S};
   for (int h = rank; h < H; h += csize)
     attention_head<Q8>(p.out + size_t(b) * L * C, g + size_t(b) * S * G, aw,
-                       attn + size_t(b) * S * G, L, C, G, S, h, kd, G / H,
-                       zero_empty, mask, smem);
+                       attn + size_t(b) * S * G, q + size_t(b) * S * H * kd,
+                       L, C, G, S, H, h, kd, G / H, zero_empty, mask, smem);
 }
 
 // The float32 plan's shared memory at width C: the larger of the track
 // tile's and the attention's.
 template <int C, bool SEG>
-size_t onepass_smem(int L, int S) {
+size_t onepass_smem(int L) {
   const size_t track = TrackSmem<float, C, SEG>::total;
-  const size_t heads = AttnSmem::total(L, S);
+  const size_t heads = AttnSmem::total(L);
   return track > heads ? track : heads;
 }
 
 template <int C, bool SEG, bool Q8>
 cudaError_t launch_onepass(const TrackArgs<float, Q8>& p, const void* real,
                            const void* g, const AttnWeights<float, Q8>& aw,
-                           void* attn, int B, int G, int H, int kd,
+                           void* q, void* attn, int B, int G, int H, int kd,
                            int zero_empty, cudaStream_t stream) {
-  const size_t smem = onepass_smem<C, SEG>(p.L, p.S);
-  if (smem > 232448) return cudaErrorInvalidValue;
+  const size_t smem = onepass_smem<C, SEG>(p.L);
+  if (smem > kMaxSmem || q == nullptr || B > 65535)
+    return cudaErrorInvalidValue;
   auto kernel = onepass_kernel<C, SEG, Q8>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -113,7 +115,8 @@ cudaError_t launch_onepass(const TrackArgs<float, Q8>& p, const void* real,
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, p, static_cast<const int*>(real),
                          static_cast<const float*>(g), aw,
-                         static_cast<float*>(attn), G, H, kd, zero_empty);
+                         static_cast<float*>(q), static_cast<float*>(attn), G,
+                         H, kd, zero_empty);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -121,34 +124,34 @@ cudaError_t launch_onepass(const TrackArgs<float, Q8>& p, const void* real,
 template <int C, bool Q8>
 cudaError_t launch_seg(int seg_masked, const TrackArgs<float, Q8>& p,
                        const void* real, const void* g,
-                       const AttnWeights<float, Q8>& aw, void* attn, int B,
-                       int G, int H, int kd, int zero_empty,
+                       const AttnWeights<float, Q8>& aw, void* q, void* attn,
+                       int B, int G, int H, int kd, int zero_empty,
                        cudaStream_t stream) {
   if (seg_masked)
-    return launch_onepass<C, true, Q8>(p, real, g, aw, attn, B, G, H, kd,
+    return launch_onepass<C, true, Q8>(p, real, g, aw, q, attn, B, G, H, kd,
                                        zero_empty, stream);
-  return launch_onepass<C, false, Q8>(p, real, g, aw, attn, B, G, H, kd,
+  return launch_onepass<C, false, Q8>(p, real, g, aw, q, attn, B, G, H, kd,
                                       zero_empty, stream);
 }
 
 // #6 in float32 at C in {128, 256, 384}; the head widths are run-time
-// values (attention.cuh).
+// values (attention.cuh); q is the (B, S, H, kd) float32 scratch.
 template <bool Q8>
 cudaError_t launch_shape(int C, int seg_masked,
                          const TrackArgs<float, Q8>& p, const void* real,
                          const void* g, const AttnWeights<float, Q8>& aw,
-                         void* attn, int B, int G, int H, int kd,
+                         void* q, void* attn, int B, int G, int H, int kd,
                          int zero_empty, cudaStream_t stream) {
   switch (C) {
     case 128:
-      return launch_seg<128>(seg_masked, p, real, g, aw, attn, B, G, H, kd,
-                             zero_empty, stream);
+      return launch_seg<128>(seg_masked, p, real, g, aw, q, attn, B, G, H,
+                             kd, zero_empty, stream);
     case 256:
-      return launch_seg<256>(seg_masked, p, real, g, aw, attn, B, G, H, kd,
-                             zero_empty, stream);
+      return launch_seg<256>(seg_masked, p, real, g, aw, q, attn, B, G, H,
+                             kd, zero_empty, stream);
     case 384:
-      return launch_seg<384>(seg_masked, p, real, g, aw, attn, B, G, H, kd,
-                             zero_empty, stream);
+      return launch_seg<384>(seg_masked, p, real, g, aw, q, attn, B, G, H,
+                             kd, zero_empty, stream);
     default:
       return cudaErrorInvalidValue;
   }

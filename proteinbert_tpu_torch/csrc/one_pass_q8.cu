@@ -33,11 +33,12 @@
 // (H, kd), aks (H, kd), avs (H, G / H). seg (B, L) int32 for packed rows
 // (seg_masked = 1; null for dense rows, where S must be 1); real (B, L)
 // int32, nonzero at positions the attention may see; biases and LN vectors
-// float32. The head widths are one_pass.cu's; C is 128, 256 or 384, or 512 in
-// bfloat16. Outputs: local (B, L, C), attn (B, S, G). In bfloat16 `scratch`
-// is one buffer of `onepass_scratch`'s parts, the int8 leg's first (null in
-// float32), and x, the int8 weights and their scales 16-byte aligned. Returns
-// cudaGetLastError() after the last launch (0 = launched).
+// float32. The head widths and S are one_pass.cu's; C is 128, 256 or 384, or
+// 512 in bfloat16. Outputs: local (B, L, C), attn (B, S, G). In bfloat16
+// `scratch` is one buffer of `onepass_scratch`'s parts, the int8 leg's first,
+// and x, the int8 weights and their scales 16-byte aligned; in float32 it is
+// the q scratch (B, S, H, kd) float32 alone. Returns cudaGetLastError() after
+// the last launch (0 = launched).
 extern "C" int pbt_onepass_q8(
     int dtype, int seg_masked, const void* x, const void* seg,
     const void* real, const void* bcast, const void* g, const void* nq,
@@ -60,7 +61,7 @@ extern "C" int pbt_onepass_q8(
                                      b1, dq, db, s2, b2, local, L, S,
                                      wide_dilation, ns, ws, ds),
         real, g, pbt::attn_weights<float, true>(aq, ak, av, aqs, aks, avs),
-        attn, B, G, H, kd, zero_empty, s);
+        scratch, attn, B, G, H, kd, zero_empty, s);
   if (dtype == 1)
     return pbt::launch_onepass_bf16<true>(
         seg_masked,

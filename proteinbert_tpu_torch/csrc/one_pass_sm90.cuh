@@ -49,9 +49,9 @@
 //   3. finish pass: K1's `wgmma_finish_kernel` (LN1, the dense on wgmma,
 //      LN2), the rounded bf16 `local` out.
 //   4. projection pass: K2's `wgmma_attn_kernel` over exactly that bf16
-//      `local` (the TPU kernel's rounding point): tanh'd K dotted with every
-//      segment's q as float32 scores (B, H, S, L), gelu'd V as bf16 (B, L,
-//      H*v).
+//      `local` (the TPU kernel's rounding point): tanh'd K dotted with the
+//      q of each position's own segment (the ids of pass 1) as one float32
+//      score a position (B, H, L), gelu'd V as bf16 (B, L, H*v).
 //   5. softmax pass: K2's `attn_softmax_kernel` over the ids of pass 1
 //      (zero_empty: 1 for packed rows, 0 for dense), -1e30 masking. The
 //      softmax weights are rounded to bf16, so a segment's max and sum over
@@ -77,7 +77,7 @@ namespace pbt {
 // `onepass_scratch_layout` lays out the same buffer): on the int8 leg the
 // dequantized nk, wk (9, C, C), dk (C, C), attention wk (H, C, kd) and wv
 // (H, C, v) bf16; then h (B, L, C) float32, q (B, S, H, kd) float32, ids
-// (B, L) int32, scores (B, H, S, L) float32, V (B, L, H*v) bf16.
+// (B, L) int32, scores (B, H, L) float32, V (B, L, H*v) bf16.
 struct OnepassScratch {
   bf16* nk;
   bf16* wk;
@@ -110,7 +110,7 @@ inline OnepassScratch onepass_scratch(void* base, bool q8, int B, int L,
   s.h = reinterpret_cast<float*>(take(size_t(B) * L * C * 4));
   s.q = reinterpret_cast<float*>(take(size_t(B) * S * H * KD * 4));
   s.ids = reinterpret_cast<int*>(take(size_t(B) * L * 4));
-  s.scores = reinterpret_cast<float*>(take(size_t(B) * H * S * L * 4));
+  s.scores = reinterpret_cast<float*>(take(size_t(B) * H * L * 4));
   s.v = reinterpret_cast<bf16*>(take(size_t(B) * L * H * VD * 2));
   return s;
 }
@@ -212,8 +212,8 @@ cudaError_t launch_onepass_sm90(const TrackArgs<bf16, Q8>& p, const int* real,
   e = launch_wgmma_finish(tp, B, C, sc.h, stream);
   if (e != cudaSuccess) return e;
   const AttnScratch as{sc.q, sc.scores, sc.v, nullptr, nullptr};
-  e = launch_attn_projection(tp.out, wk, wv, as, B, L, C, S, H, KD, VD,
-                             stream);
+  e = launch_attn_projection(tp.out, sc.ids, wk, wv, as, B, L, C, S, H, KD,
+                             VD, stream);
   if (e != cudaSuccess) return e;
   return launch_attn_softmax(sc.ids, as, attn, B, L, S, H, VD, zero_empty,
                              stream);

@@ -22,15 +22,20 @@ it covers the shape; the reference route — `attention_oh_grad_reference`,
 the port of the JAX XLA reference, with plain autograd — where the JAX
 gate (`budget.pallas_attention_supported`) refuses the shape and the
 kernel does not cover it; ValueError where the gate accepts a shape the
-kernel does not cover (S > 16, an odd head width). Each decision counts
-in `ATTN_PATH_TOTAL` (`attention_kernel_path_total{path,reason}`) under
-JAX's labels. In bfloat16 the kernel is three passes on the card
+kernel does not cover (a head width that is not a multiple of 8). Each
+decision counts in `ATTN_PATH_TOTAL`
+(`attention_kernel_path_total{path,reason}`) under JAX's labels. In
+bfloat16 the kernel is three passes on the card
 (`csrc/attention_sm90.cuh`): a query pass, one projection GEMM for all
 heads on wgmma fed by TMA that writes the scores and V, and a softmax /
 weighted-sum pass; the wrapper allocates their scratches
 (`attention_scratch_layout`, one buffer) and checks that x, wq, wk and
-wv are 16-byte aligned (`build.check_tma`). float32 keeps the one-block-per-(head, row) plan
-(`csrc/attention.cuh`). The kernel takes the mask as (B, L) int32 segment
+wv are 16-byte aligned (`build.check_tma`). float32 keeps the
+one-block-per-(head, row) plan (`csrc/attention.cuh`), whose scratch is
+q alone. A position lies in at most one segment, so both keep one score
+a position against its own segment's q: any number of segments S up to
+a grid's z extent (65535), with nothing but q and the output growing
+with S. The kernel takes the mask as (B, L) int32 segment
 ids (s + 1 for segment s); the entries build those, not the float32
 one-hot, and `fused_attention` derives them from its one-hot
 (`one_hot_ids`). Every entry
@@ -101,7 +106,7 @@ CUDA_CONSTANTS = {
     "kHeadStep": 8,     # head widths: multiples of this
     "kMaxKD": 128,      # key_dim at most
     "kMaxVD": 256,      # value_dim at most
-    "kMaxS": 16,        # segments per row at most
+    "kMaxS": 65535,     # segments per row at most: a grid's z extent
     "kRows": 64,        # L rows per chunk (float32 plan)
     "kKc": 32,          # C columns per k-step: C a multiple of it
     "kMaxC": 2048,      # C at most
@@ -114,8 +119,8 @@ KERNEL_MAX_VALUE_DIM = CUDA_CONSTANTS["kMaxVD"]
 KERNEL_MAX_SEGMENTS = CUDA_CONSTANTS["kMaxS"]
 KERNEL_WIDTH_STEP = CUDA_CONSTANTS["kKc"]
 KERNEL_MAX_WIDTH = CUDA_CONSTANTS["kMaxC"]
-# The float32 plan holds the L·S float32 scores in shared memory; bf16
-# keeps them in a scratch, so any L.
+# The float32 plan holds one float32 score a position in shared memory;
+# bf16 keeps them in a scratch, so any L.
 MAX_SMEM = CUDA_CONSTANTS["kMaxSmem"]
 MASK_VALUE = -1e30
 
@@ -149,18 +154,17 @@ def _align128(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def attention_f32_smem(L: int, S: int) -> int:
+def attention_f32_smem(L: int) -> int:
     """Shared-memory bytes of the float32 plan for one (head, row)
-    (csrc/attention.cuh `AttnSmem::total`): q (kMaxS, kMaxKD) float32,
-    kMaxS flags, the projection region (a double buffer of (kRows, kKc) x
-    and (kKc, kMaxCols) weight tiles, or the (kRows, kMaxCols) stage) and
-    the (L, S) float32 scores."""
+    (csrc/attention.cuh `AttnSmem::total`): the projection region (a
+    double buffer of (kRows, kKc) x and (kKc, kMaxCols) weight tiles, or
+    the (kRows, kMaxCols) stage), a bit a segment (kMaxS bits) and one
+    float32 score a position, (L,). Nothing in it grows with S."""
     c = CUDA_CONSTANTS
-    q = _align128(c["kMaxS"] * c["kMaxKD"] * 4)
-    flags = _align128(c["kMaxS"] * 4)
     tiles = 2 * (c["kRows"] * c["kKc"] + c["kKc"] * c["kMaxCols"]) * 4
     region = _align128(max(tiles, c["kRows"] * c["kMaxCols"] * 4))
-    return q + flags + region + _align128(L * S * 4)
+    flags = _align128(-(-c["kMaxS"] // 32) * 4)
+    return region + flags + _align128(L * 4)
 
 
 def attention_oh_reference(
@@ -247,8 +251,9 @@ def attention_coverage(C: int, G: int, L: int, S: int, key_dim: int,
                        H: int, value_dim: int, dtype: torch.dtype
                        ) -> Optional[str]:
     """None where K2 covers these shapes: bf16 / fp32, the head widths of
-    `head_coverage`, C a multiple of 32 up to 2048, 1 <= S <= 16 and, in
-    float32, the L·S scores in shared memory; else what it lacks."""
+    `head_coverage`, C a multiple of 32 up to 2048, 1 <= S <= 65535 and,
+    in float32, one score a position in shared memory; else what it
+    lacks."""
     if dtype not in KERNEL_DTYPES:
         return f"no kernel for {dtype}"
     why = head_coverage(key_dim, value_dim, G, H)
@@ -259,9 +264,9 @@ def attention_coverage(C: int, G: int, L: int, S: int, key_dim: int,
                 f"{KERNEL_WIDTH_STEP} up to {KERNEL_MAX_WIDTH})")
     if not 1 <= S <= KERNEL_MAX_SEGMENTS:
         return f"S={S} outside the kernel's 1 <= S <= {KERNEL_MAX_SEGMENTS}"
-    if dtype == torch.float32 and attention_f32_smem(L, S) > MAX_SMEM:
-        return (f"L={L}, S={S}: the float32 plan's {attention_f32_smem(L, S)} "
-                f"bytes of shared memory exceed {MAX_SMEM}")
+    if dtype == torch.float32 and attention_f32_smem(L) > MAX_SMEM:
+        return (f"L={L}: the float32 plan's {attention_f32_smem(L)} bytes "
+                f"of shared memory exceed {MAX_SMEM}")
     return None
 
 
@@ -320,19 +325,23 @@ def one_hot_ids(seg_oh: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=64)
 def attention_scratch_layout(B: int, L: int, C: int, S: int, H: int,
-                             value_dim: int, quant: bool,
-                             key_dim: int) -> tuple:
-    """The scratches of one bf16 call as parts of one byte buffer, in the
-    C entry's order: ((shape, dtype, byte offset), ...) and the buffer's
-    bytes, each part 256-byte aligned. On the int8 leg the dequantized wk
-    (H, C, key_dim) and wv (H, C, value_dim) bf16, then q (B, S, H,
-    key_dim) and scores (B, H, S, L) float32 and V (B, L, H·value_dim)
-    bf16 (csrc/attention_sm90.cuh `AttnScratch`)."""
+                             value_dim: int, quant: bool, key_dim: int,
+                             dtype: torch.dtype) -> tuple:
+    """The scratches of one call as parts of one byte buffer, in the C
+    entry's order: ((shape, dtype, byte offset), ...) and the buffer's
+    bytes, each part 256-byte aligned. In bf16: on the int8 leg the
+    dequantized wk (H, C, key_dim) and wv (H, C, value_dim) bf16, then q
+    (B, S, H, key_dim) and scores (B, H, L) float32 (one a position) and V
+    (B, L, H·value_dim) bf16 (csrc/attention_sm90.cuh `AttnScratch`). In
+    float32 q alone."""
     k = key_dim
-    parts = ([((H, C, k), torch.bfloat16), ((H, C, value_dim), torch.bfloat16)]
-             if quant else [])
-    parts += [((B, S, H, k), torch.float32), ((B, H, S, L), torch.float32),
-              ((B, L, H * value_dim), torch.bfloat16)]
+    if dtype != torch.bfloat16:
+        parts = [((B, S, H, k), torch.float32)]
+    else:
+        parts = ([((H, C, k), torch.bfloat16),
+                  ((H, C, value_dim), torch.bfloat16)] if quant else [])
+        parts += [((B, S, H, k), torch.float32), ((B, H, L), torch.float32),
+                  ((B, L, H * value_dim), torch.bfloat16)]
     layout, offset = [], 0
     for shape, dtype in parts:
         layout.append((shape, dtype, offset))
@@ -379,16 +388,17 @@ def _attention_launch(
         check_tma("fused_attention", x)
         check_tma("fused_attention", weights[0], wk, wv,
                   stride_bytes=8 if quant else 16)
-        check_cuda("fused_attention", x, ids, g, *weights, out)
-        # One allocation for all scratches (each torch.empty costs the host
-        # several microseconds).
-        layout, nbytes = attention_scratch_layout(B, L, C, S, H, value_dim,
-                                                  quant, key_dim)
-        buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-        scratch_ptrs = [buf.data_ptr() + off for _, _, off in layout]
-    else:
-        check_cuda("fused_attention", x, ids, g, *weights, out)
-        scratch_ptrs = [None] * (5 if quant else 3)
+    check_cuda("fused_attention", x, ids, g, *weights, out)
+    # One allocation for all scratches (each torch.empty costs the host
+    # several microseconds).
+    layout, nbytes = attention_scratch_layout(B, L, C, S, H, value_dim,
+                                              quant, key_dim, dtype)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    scratch_ptrs = [buf.data_ptr() + off for _, _, off in layout]
+    if dtype != torch.bfloat16:
+        # float32: q alone, in the q slot; the others null.
+        scratch_ptrs = ([None, None] if quant else []) + scratch_ptrs + [
+            None, None]
     kernel = ATTENTION_Q8 if quant else ATTENTION
     with torch.cuda.device(x.device):
         kernel.launch(KERNEL_DTYPES[dtype],

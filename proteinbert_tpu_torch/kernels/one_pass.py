@@ -15,12 +15,14 @@ In bfloat16 the kernel is passes on the card, launched by one ctypes call
 (`csrc/one_pass_sm90.cuh`): a query pass that also writes the softmax's
 mask ids (`onepass_attention_ids` is their plain version), K1's / #3's
 conv and finish passes, K2's projection pass over the rounded local output
-(scores and V) and K2's softmax pass (`onepass_passes_reference` chains
-the passes' plain versions). They meet in scratches carved from
-one buffer (`onepass_scratch_layout`); the wrapper checks that TMA and
-the 16-byte loads can read x and every weight (`build.check_tma`) before
-any launch. float32 keeps the one-launch 8-CTA cluster plan
-(`csrc/one_pass.cuh`).
+(one score a position against its own segment's q, and V) and K2's
+softmax pass (`onepass_passes_reference` chains the passes' plain
+versions). They meet in scratches carved from one buffer
+(`onepass_scratch_layout`); the wrapper checks that TMA and the 16-byte
+loads can read x and every weight (`build.check_tma`) before any launch.
+float32 keeps the one-launch 8-CTA cluster plan (`csrc/one_pass.cuh`),
+whose scratch is q alone. Any number of segments S up to 65535: nothing
+but q and the output grows with S.
 
 Dispatch mirrors one_pass.py:448-596, one decision per call on every
 device (`onepass_route`):
@@ -213,38 +215,47 @@ def onepass_query_reference(attn_params: Params, global_seg: torch.Tensor,
 
 
 def onepass_projection_reference(attn_params: Params, local: torch.Tensor,
-                                 q: torch.Tensor
+                                 q: torch.Tensor, ids: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the projection pass over the rounded local rows
-    (B, L, C): scores (B, H, S, L) float32 = round(tanh(round(local @
-    wk))) · q / √key_dim, unmasked, and V (B, L, H·v) = round(gelu(round(local
+    (B, L, C) and the mask ids (B, L): scores (B, H, L) float32, one a
+    position, = round(tanh(round(local @ wk))) · q[id - 1] / √key_dim
+    against the q (B, S, H, key_dim) of the position's own segment
+    (MASK_VALUE where its id is outside 1..S: the pass writes none there,
+    and the softmax reads none), and V (B, L, H·v) = round(gelu(round(local
     @ wv))) in local's dtype."""
     dtype = local.dtype
+    S = q.shape[1]
     wk, wv = (_round(attn_params[n], dtype) for n in ("wk", "wv"))
     x = local.float()
     k = _round(torch.tanh(_round(torch.einsum("blc,hck->bhlk", x, wk),
                                  dtype)), dtype)
     v = _round(gelu(_round(torch.einsum("blc,hcv->blhv", x, wv), dtype)),
                dtype)
-    scores = torch.einsum("bhlk,bshk->bhsl", k, q) / math.sqrt(q.shape[-1])
+    ids = ids.long()
+    inside = (ids >= 1) & (ids <= S)
+    own = torch.gather(q, 1, (ids.clamp(1, S) - 1)[:, :, None, None].expand(
+        -1, -1, q.shape[2], q.shape[3]))                     # (B, L, H, k)
+    scores = torch.einsum("bhlk,blhk->bhl", k, own) / math.sqrt(q.shape[-1])
+    scores = scores.masked_fill(~inside[:, None, :], MASK_VALUE)
     B, L, H, vd = v.shape
     return scores, v.reshape(B, L, H * vd).to(dtype)
 
 
 def onepass_softmax_reference(scores: torch.Tensor, v: torch.Tensor,
-                              ids: torch.Tensor,
+                              ids: torch.Tensor, S: int,
                               zero_empty: bool) -> torch.Tensor:
-    """Plain version of the softmax pass: per (row, head, segment s) the
-    softmax over l of the scores where ids == s + 1 (-1e30 elsewhere), its
-    weights rounded to V's dtype, their sum of V rows in float32; an
-    empty segment exactly 0 where zero_empty. → (B, S, H·v) in V's
-    dtype."""
-    B, H, S, L = scores.shape
+    """Plain version of the softmax pass over the (B, H, L) scores, one a
+    position: per (row, head, segment s < S) the softmax over l of the
+    scores where ids == s + 1 (-1e30 elsewhere), its weights rounded to
+    V's dtype, their sum of V rows in float32; an empty segment exactly 0
+    where zero_empty. → (B, S, H·v) in V's dtype."""
+    B, H, L = scores.shape
     dtype = v.dtype
     mask = ids[:, None, None, :] == torch.arange(
         1, S + 1, device=ids.device)[None, None, :, None]
-    weights = _round(torch.softmax(scores.masked_fill(~mask, MASK_VALUE),
-                                   dim=-1), dtype)
+    weights = _round(torch.softmax(
+        scores[:, :, None, :].masked_fill(~mask, MASK_VALUE), dim=-1), dtype)
     out = torch.einsum("bhsl,blhv->bshv", weights,
                        v.float().reshape(B, L, H, -1))
     if zero_empty:
@@ -274,8 +285,8 @@ def onepass_passes_reference(
         local = local_track_segment_oh_reference(
             track_params, x, broadcast_seg, segment_one_hot(segment_ids, S),
             narrow_dilation, wide_dilation)
-    scores, v = onepass_projection_reference(attn_params, local, q)
-    return local, onepass_softmax_reference(scores, v, ids, zero_empty)
+    scores, v = onepass_projection_reference(attn_params, local, q, ids)
+    return local, onepass_softmax_reference(scores, v, ids, S, zero_empty)
 
 
 @functools.lru_cache(maxsize=64)
@@ -285,21 +296,22 @@ def onepass_scratch_layout(B: int, L: int, C: int, S: int, H: int,
     """The scratches of one #6 call as parts of one byte buffer, in the
     order the C entry carves them (csrc/one_pass_sm90.cuh
     `onepass_scratch`): ((shape, dtype, byte offset), ...) and the
-    buffer's bytes, each part 256-byte aligned. bf16 only (float32 runs
-    one launch and takes none): on the int8 leg the dequantized nk, wk (9,
-    C, C), dk (C, C), attention wk (H, C, key_dim) and wv (H, C,
-    value_dim) bf16; then h (B, L, C) float32 (where the conv and finish
-    passes meet), q (B, S, H, key_dim) float32, the mask ids (B, L) int32,
-    scores (B, H, S, L) float32 and V (B, L, H·value_dim) bf16."""
-    if dtype != torch.bfloat16:
-        return (), 0
+    buffer's bytes, each part 256-byte aligned. In bf16: on the int8 leg
+    the dequantized nk, wk (9, C, C), dk (C, C), attention wk (H, C,
+    key_dim) and wv (H, C, value_dim) bf16; then h (B, L, C) float32
+    (where the conv and finish passes meet), q (B, S, H, key_dim) float32,
+    the mask ids (B, L) int32, scores (B, H, L) float32 (one a position)
+    and V (B, L, H·value_dim) bf16. float32 (one launch) takes q alone."""
     k, bf16 = key_dim, torch.bfloat16
-    parts = ([((KERNEL_TAPS, C, C), bf16)] * 2
-             + [((C, C), bf16), ((H, C, k), bf16), ((H, C, value_dim), bf16)]
-             if quant else [])
-    parts += [((B, L, C), torch.float32), ((B, S, H, k), torch.float32),
-              ((B, L), torch.int32), ((B, H, S, L), torch.float32),
-              ((B, L, H * value_dim), bf16)]
+    if dtype != bf16:
+        parts = [((B, S, H, k), torch.float32)]
+    else:
+        parts = ([((KERNEL_TAPS, C, C), bf16)] * 2
+                 + [((C, C), bf16), ((H, C, k), bf16),
+                    ((H, C, value_dim), bf16)] if quant else [])
+        parts += [((B, L, C), torch.float32), ((B, S, H, k), torch.float32),
+                  ((B, L), torch.int32), ((B, H, L), torch.float32),
+                  ((B, L, H * value_dim), bf16)]
     layout, offset = [], 0
     for shape, part_dtype in parts:
         layout.append((shape, part_dtype, offset))
@@ -329,8 +341,9 @@ def onepass_coverage(C: int, G: int, L: int, S: int, key_dim: int, H: int,
                      wide_taps: int, narrow_dilation: int,
                      wide_dilation: int, packed: bool) -> Optional[str]:
     """None where #6 covers these shapes: the local track's convs at C in
-    `KERNEL_WIDTHS[dtype]`, K2's head widths, 1 <= S <= 16 and, in
-    float32, the cluster plan's shared memory; else what it lacks."""
+    `KERNEL_WIDTHS[dtype]`, K2's head widths, 1 <= S <= 65535 and, in
+    float32, the cluster plan's shared memory (one score a position);
+    else what it lacks."""
     why = track_coverage(C, dtype, narrow_taps, wide_taps, narrow_dilation,
                          wide_dilation, KERNEL_WIDTHS.get(dtype, ()))
     if why is None:
@@ -338,10 +351,10 @@ def onepass_coverage(C: int, G: int, L: int, S: int, key_dim: int, H: int,
     if why is None and not 1 <= S <= KERNEL_MAX_SEGMENTS:
         why = f"S={S} outside the kernel's 1 <= S <= {KERNEL_MAX_SEGMENTS}"
     if why is None and dtype == torch.float32:
-        smem = max(track_f32_smem(C, packed), attention_f32_smem(L, S))
+        smem = max(track_f32_smem(C, packed), attention_f32_smem(L))
         if smem > MAX_SMEM:
-            why = (f"L={L}, S={S}: the float32 plan's {smem} bytes of "
-                   f"shared memory exceed {MAX_SMEM}")
+            why = (f"L={L}: the float32 plan's {smem} bytes of shared "
+                   f"memory exceed {MAX_SMEM}")
     return why
 
 
@@ -473,13 +486,11 @@ def _onepass_kernel(
     # One allocation for every scratch (each torch.empty costs the host
     # microseconds), held until the passes are enqueued; the caching
     # allocator orders its reuse on the stream.
-    buf = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-           if nbytes else None)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     kernel = ONEPASS_Q8 if quant else ONEPASS
     with torch.cuda.device(x.device):
         kernel.launch(code, int(segment_ids is not None),
-                      *(t.data_ptr() for t in ops),
-                      None if buf is None else buf.data_ptr(),
+                      *(t.data_ptr() for t in ops), buf.data_ptr(),
                       B, L, C, G, S, H, key_dim, wide_dilation,
                       int(zero_empty), stream_ptr(x.device))
     return local, attn

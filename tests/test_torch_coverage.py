@@ -52,7 +52,7 @@ torch.set_num_threads(1)
 
 WIDTHS = (32, 64, 128, 200, 256, 384, 512, 640, 1024, 2048, 2176)
 LENGTHS = (4, 8, 128, 512, 2048)
-SEGMENTS = (1, 8, 16, 32)
+SEGMENTS = (1, 8, 16, 32, 64, 256, 512)
 DTYPES = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
 TAPS = ((7, 7), (9, 9), (11, 11), (9, 7))
 DILATIONS = tuple(range(1, 8))
@@ -63,8 +63,9 @@ HEADS = ((256, 4), (512, 8), (512, 2), (512, 16), (1024, 4))  # (G, H)
 # test: the local track at C in {128, 256, 384, 512} (K1, #3) and 640 ...
 # 2048 in steps of 128 (#2, #4), k=9 convs, narrow dilation 1, wide <= 5;
 # K2 at C a multiple of 32 up to 2048, head widths multiples of 8 (key
-# <= 128, value <= 256), S <= 16, float32 scores in shared memory; #6 at
-# the local track's convs, C in {128, 256, 384, 512} (float32 up to 384).
+# <= 128, value <= 256), any S up to 65535, float32 one score a position
+# in shared memory; #6 at the local track's convs, C in {128, 256, 384,
+# 512} (float32 up to 384).
 TRACK_WIDTHS = (128, 256, 384, 512) + tuple(range(640, 2049, 128))
 ONEPASS_WIDTHS = {"bfloat16": (128, 256, 384, 512),
                   "float32": (128, 256, 384)}
@@ -74,8 +75,9 @@ def _a128(n):
     return -(-n // 128) * 128
 
 
-def _f32_attn_smem(L, S):
-    return 8192 + 128 + 49152 + _a128(L * S * 4)
+def _f32_attn_smem(L):
+    # The projection region, a bit for each of 65535 segments, (L,) scores.
+    return 49152 + 8192 + _a128(L * 4)
 
 
 def _f32_track_smem(C, seg):
@@ -95,8 +97,8 @@ def _heads_covered(k, G, H):
 
 def _attn_covered(C, G, L, S, k, H, name):
     return (C % 32 == 0 and 32 <= C <= 2048 and _heads_covered(k, G, H)
-            and 1 <= S <= 16
-            and (name == "bfloat16" or _f32_attn_smem(L, S) <= 232448))
+            and 1 <= S <= 65535
+            and (name == "bfloat16" or _f32_attn_smem(L) <= 232448))
 
 
 def _outcome(fn, *args):
@@ -196,7 +198,8 @@ def test_attention_route_on_the_grid():
     """K2's route, dense (S=1) and packed: the kernel where it covers the
     shape, the reference route exactly where the JAX gate refuses and it
     does not cover, ValueError exactly where the gate accepts and it does
-    not (S=32, key_dim 48 aside: a multiple of 8, covered)."""
+    not (key_dim 12, not a multiple of 8); every S the gate admits at a
+    covered width, 32 to 512 too, goes to the kernel."""
     counts = {}
     for C in WIDTHS:
         for L in LENGTHS:
@@ -226,14 +229,18 @@ def test_attention_route_on_the_grid():
                                 key = want if isinstance(want, str) \
                                     else want[0]
                                 counts[key] = counts.get(key, 0) + 1
-    assert set(counts) == {"pallas", "reference", "ValueError"}, counts
+                                if gate and covered and S > 16:
+                                    counts["gate, S > 16"] = counts.get(
+                                        "gate, S > 16", 0) + 1
+    assert set(counts) == {"pallas", "reference", "ValueError",
+                           "gate, S > 16"}, counts
 
 
 def test_onepass_route_on_the_grid():
     """#6's route: #6 where the JAX rule admits the shape and #6 covers
-    it, ValueError where the rule admits it and #6 does not (taps other
-    than 9, a wide dilation above 5, S=32 never admitted...), the
-    composition ("reference") wherever the rule refuses."""
+    it (any S the rule admits, 32 to 512 too), ValueError where the rule
+    admits it and #6 does not (taps other than 9, a wide dilation above
+    5), the composition ("reference") wherever the rule refuses."""
     counts = {}
     for C in WIDTHS:
         for L in LENGTHS:
@@ -252,10 +259,10 @@ def test_onepass_route_on_the_grid():
                                             C, nt, wt, 1, wd,
                                             ONEPASS_WIDTHS[name])
                                         and _heads_covered(k, G, H)
-                                        and S <= 16
+                                        and S <= 65535
                                         and (name == "bfloat16" or max(
                                             _f32_track_smem(C, packed),
-                                            _f32_attn_smem(L, S))
+                                            _f32_attn_smem(L))
                                             <= 232448))
                                     got = _outcome(
                                         tone.onepass_route, C, G, L, S, k,
@@ -274,7 +281,11 @@ def test_onepass_route_on_the_grid():
                                     key = want if isinstance(want, str) \
                                         else want[0]
                                     counts[key] = counts.get(key, 0) + 1
-    assert set(counts) == {"pallas", "reference", "ValueError"}, counts
+                                    if gate and covered and S > 16:
+                                        counts["gate, S > 16"] = counts.get(
+                                            "gate, S > 16", 0) + 1
+    assert set(counts) == {"pallas", "reference", "ValueError",
+                           "gate, S > 16"}, counts
 
 
 # ------------------------------------------------- counters against JAX

@@ -508,14 +508,17 @@ def test_packed_attention_zero_empty_segment(L):
     (512, 8, 64, 12, 1, False),     # key_dim 12: not a multiple of 8
     (512, 2, 256, 64, 1, True),     # value_dim 256
     (512, 1, 512, 64, 1, False),    # value_dim 512
-    (512, 8, 64, 64, 17, False),    # too many segments
+    (512, 8, 64, 64, 17, True),     # past 16 segments: any S
+    (512, 8, 64, 64, 65535, True),  # a grid's z extent
+    (512, 8, 64, 64, 65536, False),  # too many segments
 ])
 def test_attention_kernel_shape_checks(G, H, v, k, S, ok):
     C, L = 256, 512
-    params = {"wq": torch.zeros((H, G, k)), "wk": torch.zeros((H, C, k)),
-              "wv": torch.zeros((H, C, v))}
-    args = (params, torch.zeros((2, L, C)), torch.zeros((2, S, G)),
-            torch.zeros((2, L, S)))
+
+    def z(*shape):  # shapes only: no storage at S = 65536
+        return torch.empty(shape, device="meta")
+    params = {"wq": z(H, G, k), "wk": z(H, C, k), "wv": z(H, C, v)}
+    args = (params, z(2, L, C), z(2, S, G), z(2, L, S))
     if ok:
         tattn.check_attention_shapes(*args)
     else:
@@ -587,17 +590,17 @@ def test_attention_refuses_what_tma_cannot_read(entry, operand, k2_launches):
 @pytest.mark.parametrize("v", [64, 128])
 @pytest.mark.parametrize("entry", ["dense", "packed"])
 def test_attention_scratches_have_the_c_entry_shapes(entry, v, k2_launches):
-    """One bf16 launch carves q (B, S, H, 64) and scores (B, H, S, L) in
-    float32 and V (B, L, H·v) in bf16, the shapes and order
+    """One bf16 launch carves q (B, S, H, 64) and scores (B, H, L), one a
+    position, in float32 and V (B, L, H·v) in bf16, the shapes and order
     csrc/global_attention.cu documents, from one buffer (256-byte aligned
     parts that do not overlap) and passes the parts' addresses; float32
-    passes none."""
+    passes q alone."""
     params, x, g, mask, zero_empty = _k2_case(entry, v)
     (B, L, C), (_, S, G), H = x.shape, g.shape, params["wq"].shape[0]
     layout, nbytes = tattn.attention_scratch_layout(B, L, C, S, H, v, False,
-                                                    64)
+                                                    64, torch.bfloat16)
     assert [(shape, dtype) for shape, dtype, _ in layout] == [
-        ((B, S, H, 64), torch.float32), ((B, H, S, L), torch.float32),
+        ((B, S, H, 64), torch.float32), ((B, H, L), torch.float32),
         ((B, L, G), torch.bfloat16)]
     ends = [off + np.prod(shape) * dtype.itemsize
             for shape, dtype, off in layout]
@@ -612,7 +615,10 @@ def test_attention_scratches_have_the_c_entry_shapes(entry, v, k2_launches):
     assert len(bf) == len(fp) == len(tattn.ATTENTION.argtypes)
     ptrs = bf[7:10]   # dtype, x, ids, g, wq, wk, wv, then the scratches
     assert [p - ptrs[0] for p in ptrs] == offsets
-    assert fp[7:10] == (None, None, None)
+    assert fp[7] is not None and fp[8:10] == (None, None)
+    assert tattn.attention_scratch_layout(
+        B, L, C, S, H, v, False, 64, torch.float32)[0] == (
+        ((B, S, H, 64), torch.float32, 0),)
 
 
 @pytest.mark.parametrize("real", [False, True])

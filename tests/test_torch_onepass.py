@@ -533,8 +533,8 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     `onepass_scratch_layout` lays out in the order the C entry carves them
     (csrc/one_pass_sm90.cuh `onepass_scratch`), each 256-byte aligned: on
     the int8 leg the dequantized track and attention weights first, then
-    h, q, the mask ids, the scores and V. float32 (the one-launch cluster
-    plan) takes none."""
+    h, q, the mask ids, the scores (one a position) and V. float32 (the
+    one-launch cluster plan) takes q alone."""
     C, Hh, v = 128, 4, 128
     track, attn, x, bs, gs, seg, real = _meta_onepass(C, dtype, quant, Hh, v)
     b, n, _ = x.shape
@@ -542,14 +542,15 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     layout, nbytes = tone.onepass_scratch_layout(b, n, C, s, Hh, v, quant,
                                                  dtype, 64)
     if dtype == torch.float32:
-        assert (layout, nbytes) == ((), 0)
+        assert layout == (((b, s, Hh, 64), torch.float32, 0),)
+        assert nbytes % 256 == 0 and nbytes >= b * s * Hh * 64 * 4
     else:
         want = ([((9, C, C), torch.bfloat16)] * 2
                 + [((C, C), torch.bfloat16), ((Hh, C, 64), torch.bfloat16),
                    ((Hh, C, v), torch.bfloat16)] if quant else [])
         want += [((b, n, C), torch.float32),
                  ((b, s, Hh, 64), torch.float32), ((b, n), torch.int32),
-                 ((b, Hh, s, n), torch.float32),
+                 ((b, Hh, n), torch.float32),
                  ((b, n, Hh * v), torch.bfloat16)]
         assert [(shape, dt) for shape, dt, _ in layout] == want
         end = 0
@@ -563,6 +564,6 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     assert name == kernel.name and len(a) == len(kernel.argtypes)
     # ..., local, attn, scratch, then B, L, C, G, S, H, key_dim, wide
     # dilation, zero_empty and the stream.
-    assert (a[-11] is None) == (dtype == torch.float32)
+    assert a[-11] is not None
     assert a[-12] is not None and a[-4:-1] == (64, 5, 1)
     assert a[:2] == (tfused.KERNEL_DTYPES[dtype], 1)

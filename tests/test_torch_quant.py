@@ -663,10 +663,11 @@ def test_attention_int8_scratches_have_the_c_entry_shapes(v, monkeypatch,
         monkeypatch.setattr(k, "launch", lambda *a, k=k: args.append(a))
     B, L, C, S, H = 2, 48, 256, 8, 512 // v
     bf16, f32 = torch.bfloat16, torch.float32
-    layout, _ = tattn.attention_scratch_layout(B, L, C, S, H, v, True, 64)
+    layout, _ = tattn.attention_scratch_layout(B, L, C, S, H, v, True, 64,
+                                               bf16)
     assert [(shape, dtype) for shape, dtype, _ in layout] == [
         ((H, C, 64), bf16), ((H, C, v), bf16), ((B, S, H, 64), f32),
-        ((B, H, S, L), f32), ((B, L, 512), bf16)]
+        ((B, H, L), f32), ((B, L, 512), bf16)]
     tattn._attention_launch(_meta_attn(C, 512, H, v), _meta(B, L, C),
                             _meta(B, S, 512), _meta(B, L, dtype=torch.int32),
                             True)
