@@ -7,6 +7,8 @@ card.
     python3 chip_smoke.py --phase base    # K1, #3, K2 and int8 legs' times
     python3 chip_smoke.py --phase k2      # the same as --phase base
     python3 chip_smoke.py --phase default # #6 and #6-int8's times
+    python3 chip_smoke.py --phase f32     # the float32 plans' times at
+                                          # the presets' geometry
     python3 chip_smoke.py --phase resume  # checkpoint, SIGTERM, resume
     python3 chip_smoke.py --phase serve   # the served paths and their gates
     python3 chip_smoke.py --phase serve-times  # their numbers only
@@ -486,7 +488,9 @@ result line; it also runs on the parent commit's package, so one call can
 time both. `--phase default` does the same for #6 and #6-int8 in bf16
 (`default_phase`: B=8, C=128, G=512, H=4, v=128 at L=512 and L=128, dense
 and S=8, and C=512, H=4, L=128, S=8), each beside the composition K1 or
-#3, then K2, on the same inputs. `--phase resume` runs the build and
+#3, then K2, on the same inputs. `--phase f32` does the same in float32
+at the presets' geometry (`f32_phase`), for the float32 plans. `--phase
+resume` runs the build and
 `resume_phase` alone: its gates and the boundary's numbers, no result
 line. `--phase serve` runs the build and phase 4 alone, every gate, no
 result line; `--phase serve-times` runs phase 4's six servers with their
@@ -595,6 +599,7 @@ SLEEP_CYCLES = 2_000_000_000
 # Device-code names of the hand-written kernels, as the profiler lists them.
 KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
                 "tiled_conv_kernel", "wgmma_conv_kernel",
+                "wgmma_conv_any_kernel",
                 "tiled_finish_kernel", "wgmma_finish_kernel",
                 "dequant_track_kernel", "attn_query_kernel",
                 "wgmma_attn_kernel", "attn_softmax_kernel",
@@ -604,8 +609,9 @@ KERNEL_NAMES = ("local_track_kernel", "attention_kernel", "onepass",
 # its dequantize pass; K1 and #3 before their Hopper passes, and float32,
 # the one-launch plan) and K2 in bf16 (query, projection, softmax; the int8
 # leg also its dequantize pass; float32, and K2 before its Hopper passes,
-# the one-block-per-(head, row) plan).
-TRACK_PASSES = (("conv pass", "conv_kernel"), ("finish pass", "finish_kernel"),
+# the one-block-per-(head, row) plan). The conv pass is `wgmma_conv_kernel`
+# at the presets' taps and `wgmma_conv_any_kernel` at any other.
+TRACK_PASSES = (("conv pass", "conv_"), ("finish pass", "finish_kernel"),
                 ("dequantize", "dequant_track_kernel"),
                 ("one-launch plan", "local_track_kernel"))
 K2_PASSES = (("query", "attn_query_kernel"),
@@ -618,7 +624,7 @@ K2_PASSES = (("query", "attn_query_kernel"),
 # float32, the one-launch cluster plan.
 ONEPASS_PASSES = (("dequantize", "onepass_dequant_kernel"),
                   ("query", "onepass_query_kernel"),
-                  ("conv", "conv_kernel"),
+                  ("conv", "conv_"),
                   ("finish", "finish_kernel"),
                   ("projection", "wgmma_attn_kernel"),
                   ("softmax", "attn_softmax_kernel"),
@@ -677,10 +683,12 @@ def attention_ops(B: int, L: int, C: int, G: int, S: int, H: int,
 
 
 def onepass_ops(B: int, L: int, C: int, G: int, S: int, H: int,
-                k: int) -> int:
-    """#6's needed operations at S segments, counted as `attention_ops`."""
+                k: int, narrow_taps: int = 9, wide_taps: int = 9) -> int:
+    """#6's needed operations at S segments, counted as `attention_ops`
+    (the track's convs at their own taps)."""
     from proteinbert_tpu_torch.kernels.one_pass import onepass_flops
-    return onepass_flops(B, L, C, G, 1, H, k) + 2 * B * H * (S - 1) * G * k
+    return (onepass_flops(B, L, C, G, 1, H, k, narrow_taps, wide_taps)
+            + 2 * B * H * (S - 1) * G * k)
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -720,11 +728,12 @@ def device_ms_by_name(fn, reps: int = 10, tries: int = 3) -> dict:
     return by_name
 
 
-def print_passes(card: str, label: str, fn, passes=TRACK_PASSES) -> None:
+def print_passes(card: str, label: str, fn, passes=TRACK_PASSES,
+                 reps: int = 10) -> None:
     """The device ms per call of each pass of one kernel call (#2 / #4:
     conv and finish; K2: `K2_PASSES`) by the profiler's kernel names, and
-    their sum."""
-    by_name = device_ms_by_name(fn)
+    their sum, over `reps` calls."""
+    by_name = device_ms_by_name(fn, reps)
     if not by_name:
         print(f"# passes {label}: the profiler recorded no device time "
               "(not measured)")
@@ -741,7 +750,7 @@ def print_passes(card: str, label: str, fn, passes=TRACK_PASSES) -> None:
     names = ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(split.items()))
     shown = ", ".join(f"{k} {v:.4f} ms" for k, v in got.items())
     print(f"# passes {label} [{card}]: {shown} per call; device "
-          f"{device:.4f} ms (torch.profiler, 10 calls: {names})")
+          f"{device:.4f} ms (torch.profiler, {reps} calls: {names})")
 
 
 def enqueue_us(fn, n: int = 50) -> float:
@@ -1240,7 +1249,164 @@ def coverage_kernel_phase(card: str) -> dict:
     t0 = time.perf_counter()
     segment_cases(card, gen, run_case, rand)
     print(f"# coverage segments kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    taps_cases(card, gen, run_case, rand)
+    print(f"# coverage taps kernels: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# Tap counts and dilations past the presets' 9/9 taps and wide dilation 5,
+# which the kernels' general instantiations run: (narrow taps, wide taps,
+# wide dilation) of K1 and #3 at base width, the odd-tap model's among
+# them; the odd-tap model the coverage phase serves and trains (base
+# width, 2 blocks).
+COVER_TAPS = ((7, 7, 5), (11, 11, 8), (5, 9, 5), (7, 11, 8))
+COVER_TAPS_MODEL = dict(narrow_kernel=7, wide_kernel=11, wide_dilation=8)
+
+
+def taps_cases(card: str, gen, run_case, rand) -> None:
+    """`coverage_kernel_phase`'s cases at other tap counts and dilations
+    (`COVER_TAPS`): each wrapper against its plain version with its
+    existing rows' tolerance, one launch a call, the int8 legs exactly
+    (0.0) their fp legs, bf16 timed and float32 checked; B=8. K1 and #3
+    (and #3-int8) at C=512, L=512 at each `COVER_TAPS` geometry; K1 and #3
+    at a halo past the preset window (9/9 at d=40: 160 rows) and K1 at
+    d=12 in float32; #2 and #4 at C=1024, L=1024, taps 7/7 at d=8 (float32
+    at L=256); the prehaloed entries of K1 (C=512, L=512) and #2 (C=1024,
+    L=256) at halo 40 (9/9, d=10); #6 at the default width (C=128, G=512,
+    H=4, k=64, v=128, L=512), dense and S=8, taps 7/11 at d=12, and its
+    int8 leg. The bound counts 2·B·L·C²·(nt + wt + 1) for the track
+    (`local_track_flops`, `onepass_ops`) over 989 TFLOP/s. At the work of
+    the presets' 9-tap convs, K1 (C=512, L=512, d=40) and #2 (C=1024,
+    L=1024, d=6) print their device ms by pass (`# passes`), to set
+    against the preset instantiations' rows of the kernel phase."""
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        LOCAL_TRACK, LOCAL_TRACK_SEGMENTS, LOCAL_TRACK_SEGMENTS_Q8,
+        LOCAL_TRACK_SEGMENTS_TILED, LOCAL_TRACK_TILED,
+        LOCAL_TRACK_TILED_VALID, LOCAL_TRACK_VALID, ONEPASS, ONEPASS_Q8,
+        fused_local_track, fused_local_track_segments,
+        fused_local_track_valid, local_track_reference,
+        local_track_segment_oh_reference, local_track_valid_reference,
+        onepass_oh_reference, segment_one_hot, track_halo,
+    )
+    from proteinbert_tpu_torch.kernels.fused_block import local_track_flops
+    from proteinbert_tpu_torch.kernels.one_pass import fused_onepass
+
+    base = get_preset("base").model
+    dev = torch.device(DEVICE)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = 8, 8
+
+    def track(C, nt, wt, wd, dtype):
+        cfg = dataclasses.replace(base, local_dim=C, narrow_kernel=nt,
+                                  wide_kernel=wt, wide_dilation=wd)
+        return q8_block(gen, cfg, dtype)
+
+    def dense(C, L, nt, wt, wd, dtype, label, passes=False):
+        kernel = LOCAL_TRACK if C <= 512 else LOCAL_TRACK_TILED
+        _, _, tr, _, _ = track(C, nt, wt, wd, dtype)
+        s = dtype.itemsize
+        x, bc = rand(B, L, C, dtype=dtype), rand(B, C, dtype=dtype)
+        run_case(kernel, kernel.name, dtype, label,
+                 lambda: fused_local_track(tr, x, bc, 1, wd),
+                 lambda: local_track_reference(tr, x, bc, 1, wd),
+                 local_track_flops(B, L, C, nt, wt),
+                 (2 * B * L * C + B * C + (nt + wt + 1) * C * C) * s
+                 + 7 * C * 4, timed=dtype == bf16)
+        if passes:
+            print_passes(card, f"{kernel.name} {str(dtype)[6:]} {label}",
+                         lambda: fused_local_track(tr, x, bc, 1, wd),
+                         reps=50)
+
+    def packed(C, L, nt, wt, wd, dtype, label):
+        kernel = (LOCAL_TRACK_SEGMENTS if C <= 512
+                  else LOCAL_TRACK_SEGMENTS_TILED)
+        qtr, _, tr, _, _ = track(C, nt, wt, wd, dtype)
+        s = dtype.itemsize
+        x, bs = rand(B, L, C, dtype=dtype), rand(B, S, C, dtype=dtype)
+        seg = torch.randint(0, S, (B, L), generator=gen).to(dev)
+        seg[:, L // 4:L // 2] = 3   # one segment longer than any reach
+        q8 = None
+        if C <= 512:
+            q8 = (LOCAL_TRACK_SEGMENTS_Q8,
+                  lambda: fused_local_track_segments(qtr, x, bs, seg, 1, wd))
+        run_case(kernel, kernel.name, dtype, label,
+                 lambda: fused_local_track_segments(tr, x, bs, seg, 1, wd),
+                 lambda: local_track_segment_oh_reference(
+                     tr, x, bs, segment_one_hot(seg, S), 1, wd),
+                 local_track_flops(B, L, C, nt, wt) + 2 * B * L * S * C,
+                 (2 * B * L * C + B * S * C + (nt + wt + 1) * C * C) * s
+                 + 7 * C * 4 + B * L * 4, q8=q8, timed=dtype == bf16)
+
+    def prehaloed(C, L, wd, dtype, label):
+        kernel = LOCAL_TRACK_VALID if C <= 512 else LOCAL_TRACK_TILED_VALID
+        _, _, tr, _, _ = track(C, 9, 9, wd, dtype)
+        s = dtype.itemsize
+        halo = track_halo(tr, 1, wd)
+        xh = rand(B, L + 2 * halo, C, dtype=dtype)
+        bc = rand(B, C, dtype=dtype)
+        run_case(kernel, kernel.name, dtype, f"{label} halo {halo}",
+                 lambda: fused_local_track_valid(tr, xh, bc, 1, wd),
+                 lambda: local_track_valid_reference(tr, xh, bc, 1, wd),
+                 local_track_flops(B, L, C),
+                 (B * (2 * L + 2 * halo) * C + B * C + 19 * C * C) * s
+                 + 7 * C * 4, timed=dtype == bf16)
+
+    for nt, wt, wd in COVER_TAPS:
+        for dtype in (bf16, f32) if nt != wt or wd == 5 else (bf16,):
+            label = f"C=512 L=512 taps {nt}/{wt} d={wd}"
+            dense(512, 512, nt, wt, wd, dtype, label)
+            packed(512, 512, nt, wt, wd, dtype, label + " S=8")
+    dense(512, 512, 9, 9, 40, bf16, "C=512 L=512 taps 9/9 d=40 (halo 160)",
+          passes=True)
+    packed(512, 512, 9, 9, 40, bf16,
+           "C=512 L=512 taps 9/9 d=40 (halo 160) S=8")
+    dense(512, 512, 9, 9, 12, f32, "C=512 L=512 taps 9/9 d=12 (halo 48)")
+    for dtype, L in ((bf16, 1024), (f32, 256)):
+        label = f"C=1024 L={L} taps 7/7 d=8"
+        dense(1024, L, 7, 7, 8, dtype, label)
+        packed(1024, L, 7, 7, 8, dtype, label + " S=8")
+    dense(1024, 1024, 9, 9, 6, bf16, "C=1024 L=1024 taps 9/9 d=6",
+          passes=True)
+    for dtype in (bf16, f32):
+        prehaloed(512, 512, 10, dtype, "C=512 L=512 taps 9/9 d=10")
+        prehaloed(1024, 256, 10, dtype, "C=1024 L=256 taps 9/9 d=10")
+
+    cfg = dataclasses.replace(ModelConfig(), narrow_kernel=7, wide_kernel=11,
+                              wide_dilation=12)
+    C, G, H, k = cfg.local_dim, cfg.global_dim, cfg.num_heads, cfg.key_dim
+    L = 512
+    for dtype in (bf16, f32):
+        qtr, qat, tr, at, _ = q8_block(gen, cfg, dtype)
+        s = dtype.itemsize
+        x = rand(B, L, C, dtype=dtype)
+        for S1, pk in ((1, False), (S, True)):
+            bc, gs = rand(B, S1, C, dtype=dtype), rand(B, S1, G, dtype=dtype)
+            seg = (torch.randint(0, S1, (B, L), generator=gen).to(dev)
+                   if pk else None)
+            real = torch.ones((B, L), dtype=torch.bool, device=dev)
+            real[1, L // 2:] = False
+            oh = (segment_one_hot(seg, S1) if pk
+                  else torch.ones((B, L, 1), device=dev))
+
+            def run(t=tr, a=at, bc=bc, gs=gs, seg=seg, real=real, pk=pk):
+                return fused_onepass(t, a, x, bc, gs, seg, real, 1, 12, pk)
+            run_case(
+                ONEPASS, "one_pass", dtype,
+                f"default width L={L} taps 7/11 d=12 "
+                f"{'S=8' if pk else 'dense'}", run,
+                lambda bc=bc, gs=gs, oh=oh, real=real, pk=pk:
+                    onepass_oh_reference(tr, at, x, bc, gs, oh,
+                                         real[..., None].float(), 1, 12, pk,
+                                         pk),
+                onepass_ops(B, L, C, G, S1, H, k, 7, 11),
+                (2 * B * L * C + 2 * B * S1 * G + B * S1 * C) * s
+                + ((7 + 11 + 1) * C * C
+                   + H * (G * k + C * k + C * (G // H))) * s
+                + 2 * B * L * 4,
+                q8=(ONEPASS_Q8, lambda run=run: run(qtr, qat)),
+                timed=dtype == bf16)
 
 
 # Segment counts past the 16 of earlier builds: K2 at base (B=8, L=512,
@@ -1523,14 +1689,14 @@ def coverage_tiny(card: str) -> dict:
 
 def coverage_model(card: str, label: str, model, serve_bucket: int,
                    train_L: int, want_serve: tuple, want_train: tuple,
-                   want_launches: tuple) -> dict:
-    """(c) / (d): a 2-block bf16 model on the card: one served bucketed
-    batch (8 embeds at `serve_bucket`) and one train step (B=8,
+                   want_launches: tuple, replay: bool = False) -> dict:
+    """(c) / (d) / (f): a 2-block bf16 model on the card: one served
+    bucketed batch (8 embeds at `serve_bucket`) and one train step (B=8,
     L=`train_L`: loss and grads, then the optimizer update). Each run's
     route decisions must equal `want_serve` / `want_train` (per family:
-    {(path, reason): n}), with no reference route, and its kernel
-    launches `want_launches` (serve, train) exactly. Returns the
-    launches."""
+    {(path, reason): n}), and its kernel launches `want_launches` (serve,
+    train) exactly. `replay`: one full embed batch through the server's
+    warm shape equals its eager run bit for bit. Returns the launches."""
     from proteinbert_tpu_torch import obs
     from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.data.corruption import corrupt_batch
@@ -1554,13 +1720,22 @@ def coverage_model(card: str, label: str, model, serve_bucket: int,
         zero_launches()
         got = serve_batch(srv, 8, serve_bucket - 20, 11)
         served_launches = launch_counts()
+        served = route_delta(before)
+        reg = path_metrics(tele)
+        if replay:
+            # Its eager run counts routes and launches of its own: after
+            # the served batch's are read.
+            rng = np.random.default_rng(12)
+            tokens = rng.integers(4, 26, (8, serve_bucket)).astype(np.int32)
+            tokens[:, 0], tokens[:, -1] = 1, 2
+            tokens[1, serve_bucket // 2:] = 0
+            replay_equals_eager(f"coverage {label} bucketed", srv, tokens)
     finally:
         srv.drain()
-    served = route_delta(before)
     print(f"# coverage {label} serve [{card}]: 8 embeds at bucket "
           f"{serve_bucket}, route decisions fused {served[0]}, attention "
           f"{served[1]}, one-pass {served[2]}; registry "
-          f"{path_metrics(tele)}; kernel launches {served_launches}")
+          f"{reg}; kernel launches {served_launches}")
     check(served == want_serve, f"coverage {label} serve: route decisions "
                                 f"{served}, want {want_serve}")
     check(served_launches == want_launches[0],
@@ -1909,6 +2084,44 @@ def coverage_segments(card: str) -> dict:
     return total
 
 
+def coverage_taps(card: str) -> dict:
+    """(f) A model at other taps and dilations on the main paths: the
+    base preset cut to 2 blocks (C=G=512, H=8, k=64) with
+    `COVER_TAPS_MODEL` (taps 7/11, wide dilation 8), on the general
+    instantiations. A served bucketed batch (8 embeds at 512, then one
+    full batch's graph replay against its eager run) and one bf16 train
+    step at L=512 each launch K1 + K2 once a block, counted pallas/dense
+    (the one-pass rule refuses the shape: its composition); a ragged
+    server (`segments_server`: short proteins 32 to a 512 row) launches
+    #3 + K2 once a block a batch, counted pallas/packed, its replay equal
+    to its eager run. Returns the launches."""
+    from proteinbert_tpu_torch.configs import get_preset
+    from proteinbert_tpu_torch.kernels import budget
+
+    base = get_preset("base")
+    nb = 2
+    model = dataclasses.replace(base.model, num_blocks=nb,
+                                **COVER_TAPS_MODEL)
+    check(not budget.onepass_supported(512, 512, 512, 1, 64, 8,
+                                       torch.bfloat16, 7, 11, 8, 1),
+          "coverage taps: the one-pass rule should refuse base width at "
+          "L=512")
+    one = {("pallas", "dense"): 1}
+    composed = {("reference", "unsupported_shape"): 1}
+    track = {"local_track": nb, "global_attention": nb}
+    total = coverage_model(card, "taps 7/11 d=8 base", model, 512, 512,
+                           (one, one, composed), (one, one, composed),
+                           (track, track), replay=True)
+    pk = {("pallas", "packed"): 1}
+    launches, _ = segments_server(
+        card, "taps 7/11 d=8 base", base.replace(model=model),
+        {"local_track_segments": nb, "global_attention": nb},
+        (pk, pk, {("reference", "segments"): 1}), 61)
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
 def coverage_phase(card: str) -> tuple:
     """`--phase coverage` (also part of the full run): (a) the new
     instantiations against their plain versions; (b) the `tiny` preset,
@@ -1917,7 +2130,8 @@ def coverage_phase(card: str) -> tuple:
     geometry (C=128, G=256, k=32, H=4) on #6; (d) a 2-block base-like
     model at C=384 (G=512, H=8, k=64): a served batch at the 256 bucket
     on #6, a step at L=512 on the composition K1 + K2; (e) more than 16
-    proteins a row (`coverage_segments`). Returns (rows of
+    proteins a row (`coverage_segments`); (f) a model at taps 7/11 and
+    wide dilation 8 (`coverage_taps`). Returns (rows of
     `coverage_kernel_phase`, {kernel: launches on the driven paths})."""
     from proteinbert_tpu_torch.configs import get_preset
     from proteinbert_tpu_torch.kernels import budget
@@ -1966,6 +2180,10 @@ def coverage_phase(card: str) -> tuple:
     for name, n in coverage_segments(card).items():
         launches[name] = launches.get(name, 0) + n
     print(f"# coverage segments paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in coverage_taps(card).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"# coverage taps paths: {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
 
@@ -1973,10 +2191,12 @@ def base_phase(card: str) -> None:
     """`--phase base` (also `--phase k2`): the base-width kernels at the
     kernel table's shapes, bf16 under inference mode as served — K1 (B=8,
     L=C=512), K1's prehaloed entry (B=16, L=512+2*20, C=512), #3 (B=8,
-    L=C=512, S=8), #3-int8 and K2-int8 beside their fp legs, and K2 at
-    base (B=8 L=512 C=G=512 H=8) and Large (B=8 L=1024 C=G=1024 H=16)
-    width, dense and S=8: each call's wall ms (median of 25 CUDA-event
-    timings), host enqueue time and device ms by pass. It uses only the
+    L=C=512, S=8), #3-int8 and K2-int8 beside their fp legs, K2 at base
+    (B=8 L=512 C=G=512 H=8) and Large (B=8 L=1024 C=G=1024 H=16) width,
+    dense and S=8, and at Large #2 (B=8, L=C=1024), #4 (S=8) and #2's
+    prehaloed entry (B=8, L=256+2*20): each call's wall ms (median of 25
+    CUDA-event timings), host enqueue time, output digest and device ms by
+    pass. It uses only the
     entries' public wrappers, so the same script times the parent commit's
     package in the same call (copy it into a checkout of the parent)."""
     import torch.nn.functional as F
@@ -2015,12 +2235,24 @@ def base_phase(card: str) -> None:
                   lambda: fused_global_attention(attn, x, g, pad))
             timed(f"K2 {name} S=8 B=8 L={L}",
                   lambda: fused_packed_attention(attn, x, gs, seg))
-            if name != "base":
-                continue
             wd = cfg.wide_dilation
             track = {n: cast[n] for n in TRACK_PARAMS}
             bc = torch.randn((B, C), generator=gen).to(dev, torch.bfloat16)
             bs = torch.randn((B, S, C), generator=gen).to(dev, torch.bfloat16)
+            if name != "base":
+                timed(f"#2 {name} dense B=8 L={L}",
+                      lambda: fused_local_track(track, x, bc, 1, wd),
+                      TRACK_PASSES)
+                timed(f"#4 {name} S=8 B=8 L={L}",
+                      lambda: fused_local_track_segments(track, x, bs, seg,
+                                                         1, wd), TRACK_PASSES)
+                H = track_halo(track, 1, wd)
+                xh = F.pad(torch.randn((B, 256, C), generator=gen),
+                           (0, 0, H, H)).to(dev, torch.bfloat16)
+                timed(f"#2 prehaloed {name} B=8 L=256+2*{H}",
+                      lambda: fused_local_track_valid(track, xh, bc, 1, wd),
+                      TRACK_PASSES)
+                continue
             timed("K1 base dense B=8 L=512",
                   lambda: fused_local_track(track, x, bc, 1, wd),
                   TRACK_PASSES)
@@ -2051,6 +2283,91 @@ def base_phase(card: str) -> None:
             timed("#3-int8 fp leg base S=8",
                   lambda: fused_local_track_segments(ft, x, bs, seg, 1, wd),
                   TRACK_PASSES)
+
+
+def f32_phase(card: str) -> None:
+    """`--phase f32`: the float32 plans at the presets' geometry (9/9
+    taps, narrow dilation 1, wide dilation 5) under inference mode, each
+    call's wall ms, host enqueue time, output digest and device ms by pass
+    — at base width (C=512, B=8, L=512) K1, #3 (S=8), #3-int8 and K1's
+    prehaloed entry (L=256+2·20); at Large (C=1024, B=4, L=512) #2, #4 and
+    #2's prehaloed entry; at the ModelConfig default width (C=128, G=512,
+    H=4, B=8, L=512) K1, #3, #6 and #6-int8, dense and S=8. It uses only
+    the package's public entries, so it also times the parent commit's
+    package (copy this script into its `git archive`)."""
+    import torch.nn.functional as F
+
+    from proteinbert_tpu_torch.configs import ModelConfig, get_preset
+    from proteinbert_tpu_torch.kernels import (
+        TRACK_PARAMS, fused_local_track, fused_local_track_segments,
+        fused_local_track_valid, fused_onepass_dense, fused_onepass_segments,
+        track_halo,
+    )
+    from proteinbert_tpu_torch.models.proteinbert import (
+        block_init, cast_block, to_device,
+    )
+    from proteinbert_tpu_torch.parallel.quant import quantize_params
+
+    dev, f32 = torch.device(DEVICE), torch.float32
+
+    def block(cfg):
+        gen = torch.Generator().manual_seed(5)
+        blk = to_device(block_init(gen, cfg), dev)
+        cast, q = cast_block(blk, f32), cast_block(quantize_params(blk), f32)
+        return (gen, cast, q, {n: cast[n] for n in TRACK_PARAMS},
+                {n: q[n] for n in TRACK_PARAMS})
+
+    def rand(gen, *shape):
+        return torch.randn(shape, generator=gen).to(dev, f32)
+
+    def timed(label, fn, passes=TRACK_PASSES):
+        print_timed(card, "f32", label, fn, passes)
+
+    with torch.inference_mode():
+        for name, B in (("base", 8), ("large", 4)):
+            cfg = get_preset(name).model
+            gen, _, _, track, qt = block(cfg)
+            L, C, S, wd = 512, cfg.local_dim, 8, cfg.wide_dilation
+            x, bc = rand(gen, B, L, C), rand(gen, B, C)
+            bs = rand(gen, B, S, C)
+            seg = torch.randint(0, S + 1, (B, L), generator=gen).to(dev)
+            seg[:, L // 4:L // 2] = 3
+            k1, k3 = ("K1", "#3") if C <= 512 else ("#2", "#4")
+            timed(f"{k1} {name} dense B={B} L={L}",
+                  lambda: fused_local_track(track, x, bc, 1, wd))
+            timed(f"{k3} {name} S=8 B={B} L={L}",
+                  lambda: fused_local_track_segments(track, x, bs, seg, 1,
+                                                     wd))
+            if C <= 512:
+                timed(f"#3-int8 {name} S=8 B={B} L={L}",
+                      lambda: fused_local_track_segments(qt, x, bs, seg, 1,
+                                                         wd))
+            H = track_halo(track, 1, wd)
+            xh = F.pad(rand(gen, B, 256, C), (0, 0, H, H))
+            timed(f"{k1} prehaloed {name} B={B} L=256+2*{H}",
+                  lambda: fused_local_track_valid(track, xh, bc, 1, wd))
+        cfg = ModelConfig()
+        gen, cast, q, track, qt = block(cfg)
+        B, L, C, G, S = 8, 512, cfg.local_dim, cfg.global_dim, 8
+        wd = cfg.wide_dilation
+        x, bc, g = rand(gen, B, L, C), rand(gen, B, C), rand(gen, B, G)
+        bs, gs = rand(gen, B, S, C), rand(gen, B, S, G)
+        seg = torch.randint(0, S + 1, (B, L), generator=gen).to(dev)
+        pad = torch.ones((B, L), dtype=torch.bool, device=dev)
+        pad[1, L // 2:] = False
+        timed(f"K1 default dense B={B} L={L}",
+              lambda: fused_local_track(track, x, bc, 1, wd))
+        timed(f"#3 default S=8 B={B} L={L}",
+              lambda: fused_local_track_segments(track, x, bs, seg, 1, wd))
+        for leg, t, a in (("#6", track, cast["attention"]),
+                          ("#6-int8", qt, q["attention"])):
+            timed(f"{leg} default dense B={B} L={L}",
+                  lambda t=t, a=a: fused_onepass_dense(t, a, x, bc, g, pad,
+                                                       1, wd),
+                  ONEPASS_PASSES)
+            timed(f"{leg} default S=8 B={B} L={L}",
+                  lambda t=t, a=a: fused_onepass_segments(
+                      t, a, x, bs, gs, seg, pad, 1, wd), ONEPASS_PASSES)
 
 
 def default_phase(card: str) -> None:
@@ -9514,6 +9831,7 @@ def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--phase", "large"], ["--phase", "base"],
                     ["--phase", "k2"], ["--phase", "default"],
+                    ["--phase", "f32"],
                     ["--phase", "resume"], ["--phase", "serve"],
                     ["--phase", "serve-times"], ["--phase", "finetune"],
                     ["--phase", "neighbors"], ["--phase", "rollout"],
@@ -9522,8 +9840,9 @@ def main() -> int:
                     ["--phase", "mesh"], ["--phase", "eval"],
                     ["--phase", "coverage"], ["--cli-first"]):
         print("usage: chip_smoke.py [--cli-first | --phase large|base|k2|"
-              "default|resume|serve|serve-times|finetune|neighbors|rollout|"
-              "cli|data|etl|check|mesh|eval|coverage]", file=sys.stderr)
+              "default|f32|resume|serve|serve-times|finetune|neighbors|"
+              "rollout|cli|data|etl|check|mesh|eval|coverage]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9566,6 +9885,9 @@ def main() -> int:
         return 0
     if args == ["--phase", "default"]:
         default_phase(card)
+        return 0
+    if args == ["--phase", "f32"]:
+        f32_phase(card)
         return 0
     if args == ["--phase", "resume"]:
         resume_phase(card)

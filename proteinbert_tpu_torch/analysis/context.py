@@ -84,10 +84,13 @@ class CheckConfig:
     reference_roots: Tuple[str, ...] = (
         "proteinbert_tpu_torch", "tests", "chip_smoke.py")
     # Functions allowed to read os.environ inside a captured body or a
-    # kernel wrapper (rule 1). The port has no trace-time reader (no
-    # forced-reference switch); a build-time reader such as
+    # kernel wrapper (rule 1). The one trace-time reader is
+    # `kernels/budget.refuse_forced_reference`: it only raises (on a CUDA
+    # device while JAX's force-reference switch is set, which the port
+    # does not port), so a capture with the switch set fails and no
+    # replay can run a route the read chose. A build-time reader such as
     # `kernels/build.nvcc_path` belongs here only if the rule reaches it.
-    sanctioned_env_readers: Tuple[str, ...] = ()
+    sanctioned_env_readers: Tuple[str, ...] = ("refuse_forced_reference",)
     # Metric/event names the doc may mention without a live
     # registration (rule 5): documented-as-removed history.
     docs_allow: Tuple[str, ...] = (

@@ -10,10 +10,10 @@
 // broadcast gather in float32, the mask exact (+0.0 across segments), x1
 // rounded before the dense, h summed in K1's order.
 //
-// What bounds it on the H100: operations, as K1 — 2*B*L*C^2*19 FLOP, 40.8
-// GFLOP at B=8, L=512, C=512 (0.0413 ms at 989 TFLOP/s bf16); the gather
-// adds 2*B*L*S*C (34 MFLOP at S=8). The design adds L2 -> SM traffic:
-// ~0.30 GB (conv) + ~0.07 GB (finish) a call at that shape.
+// What bounds it on the H100: operations, as K1 — 2*B*L*C^2*(nt + wt + 1)
+// FLOP, 40.8 GFLOP with 9-tap convs at B=8, L=512, C=512 (0.0413 ms at 989
+// TFLOP/s bf16); the gather adds 2*B*L*S*C (34 MFLOP at S=8). The design adds
+// L2 -> SM traffic: ~0.30 GB (conv) + ~0.07 GB (finish) a call at that shape.
 //
 // Design. bfloat16 runs K1's two passes of local_track_sm90.cuh with SEG =
 // true: the TPU kernel masked each tap with the one-hot product
@@ -36,26 +36,32 @@
 // or 512; in bfloat16, x, nk, wk and dk 16-byte aligned (TMA). Returns
 // cudaGetLastError() after the last launch (0 = launched),
 // cudaErrorInvalidValue where a tensor map cannot be encoded.
+// narrow_taps, wide_taps (odd) and both dilations are the convs' geometry:
+// in bf16 the preset conv pass at 9/9 taps, narrow dilation 1 and wide
+// dilation <= 5, the general one elsewhere (`pbt::Taps`); float32 has one
+// plan for every geometry.
 extern "C" int pbt_local_track_segments(
     int dtype, const void* x, const void* seg, const void* bcast,
     const void* nk, const void* nb, const void* wk, const void* wb,
     const void* s1, const void* b1, const void* dk, const void* db,
     const void* s2, const void* b2, void* h, void* out, int B, int L, int C,
-    int S, int wide_dilation, void* stream) {
-  if (!pbt::track_geometry_ok(B, L, S, wide_dilation) || seg == nullptr ||
-      C > 512)
+    int S, int narrow_taps, int wide_taps, int narrow_dilation,
+    int wide_dilation, void* stream) {
+  const pbt::Taps taps{narrow_taps, wide_taps, narrow_dilation,
+                       wide_dilation};
+  if (!pbt::track_geometry_ok(B, L, S, taps) || seg == nullptr || C > 512)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return pbt::launch_track<float, true>(
         C,
         pbt::track_args<float>(x, seg, bcast, nk, nb, wk, wb, s1, b1, dk, db,
-                               s2, b2, out, L, S, wide_dilation),
+                               s2, b2, out, L, S, taps),
         B, s);
   if (dtype == 1 && pbt::sm90_shape_ok(B, C) && h != nullptr)
     return pbt::launch_track_sm90<true, pbt::SumOrder::kK1>(
         pbt::track_args<pbt::bf16>(x, seg, bcast, nk, nb, wk, wb, s1, b1, dk,
-                                   db, s2, b2, out, L, S, wide_dilation),
+                                   db, s2, b2, out, L, S, taps),
         B, C, static_cast<float*>(h), s);
   return cudaErrorInvalidValue;
 }

@@ -15,8 +15,9 @@
 // registers after ldmatrix; in float32 (the CUDA-core plan) the masked rows
 // go through a staging tile.
 //
-// What bounds it on the H100: operations, as #2 — 2*B*L*C^2*19 FLOP, 326
-// GFLOP at B=8, L=C=1024, 0.330 ms at 989 TFLOP/s bf16.
+// What bounds it on the H100: operations, as #2 — 2*B*L*C^2*(2k + 1) FLOP,
+// 326 GFLOP with 9-tap convs at B=8, L=C=1024, 0.330 ms at 989 TFLOP/s
+// bf16.
 
 #include "local_track_tiled.cuh"
 
@@ -27,26 +28,32 @@
 // and dk 16-byte aligned (TMA). Returns cudaGetLastError() after the second
 // launch (0 = both launched), cudaErrorInvalidValue where a tensor map
 // cannot be encoded.
+// narrow_taps, wide_taps (odd) and both dilations are the convs' geometry:
+// the preset instantiation at 9/9 taps, narrow dilation 1 and wide
+// dilation <= 5, the general one elsewhere (`pbt::Taps`). Both convs take the
+// same taps (JAX's tiled plan refuses unequal ones).
 extern "C" int pbt_local_track_segments_tiled(
     int dtype, const void* x, const void* seg, const void* bcast,
     const void* nk, const void* nb, const void* wk, const void* wb,
     const void* s1, const void* b1, const void* dk, const void* db,
     const void* s2, const void* b2, void* h, void* out, int B, int L, int C,
-    int S, int wide_dilation, void* stream) {
-  if (!pbt::tiled_geometry_ok(B, L, C, S, wide_dilation) || seg == nullptr)
+    int S, int narrow_taps, int wide_taps, int narrow_dilation,
+    int wide_dilation, void* stream) {
+  const pbt::Taps taps{narrow_taps, wide_taps, narrow_dilation,
+                       wide_dilation};
+  if (!pbt::tiled_geometry_ok(B, L, C, S, taps) || seg == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* scratch = static_cast<float*>(h);
   if (dtype == 0)
     return pbt::launch_tiled<float, true>(
         pbt::track_args<float>(x, seg, bcast, nk, nb, wk, wb, s1, b1, dk, db,
-                               s2, b2, out, L, S, wide_dilation),
+                               s2, b2, out, L, S, taps),
         B, C, scratch, s);
   if (dtype == 1)
     return pbt::launch_tiled<__nv_bfloat16, true>(
         pbt::track_args<__nv_bfloat16>(x, seg, bcast, nk, nb, wk, wb, s1, b1,
-                                       dk, db, s2, b2, out, L, S,
-                                       wide_dilation),
+                                       dk, db, s2, b2, out, L, S, taps),
         B, C, scratch, s);
   return cudaErrorInvalidValue;
 }

@@ -14,13 +14,15 @@
 // `_fused_kernel_tiled` (:881) and `_fused_segment_kernel_tiled` (:1220).
 // Per position l:
 //
-//   h  = x + gelu(conv9,d=1(x) + nb) + gelu(conv9,d=D(x) + wb) + bcast
+//   h  = x + gelu(conv_nt,nd(x) + nb) + gelu(conv_wt,wd(x) + wb) + bcast
 //   x1 = LN1(h)                      (rounded to bf16)
 //   y  = LN2(x1 + gelu(x1 @ Wd + db))
 //
-// with the rounding points of `_finish_row` (fused_block.py:514-523): the
-// tap products and both conv outputs stay float32, x1 is rounded before the
-// dense, LN statistics are float32 with the biased variance. The float32
+// (odd tap counts nt, wt; tap t of a k-tap conv at dilation d reads row l +
+// (t - (k-1)/2)*d) with the rounding points of `_finish_row`
+// (fused_block.py:514-523): the tap products and both conv outputs stay
+// float32, x1 is rounded before the dense, LN statistics are float32 with
+// the biased variance. The float32
 // sum h is taken in the order of the TPU kernel each entry replaces
 // (`SumOrder`): K1's and #3's ((x + gelu_n) + gelu_w) + bcast
 // (fused_block.py:547, :1017), or the tiled kernels' ((gelu_n + gelu_w) +
@@ -28,14 +30,15 @@
 //
 // SEG = true (#3, #4; the masks of `_fused_segment_kernel`): seg (B, L)
 // holds 0 at pad and 1..S for the packed proteins (an id above S counts as
-// pad). Tap t of row l contributes only when seg[l + (t-4)d] == seg[l] and
-// seg[l] is in 1..S; rows outside [0, L) are pad. bcast is (B, S, C) and
-// each position adds its own segment's row, exactly 0.0 at pad. Pad
+// pad). Tap t of row l contributes only when seg[l + (t-(k-1)/2)d] ==
+// seg[l] and seg[l] is in 1..S; rows outside [0, L) are pad. bcast is (B,
+// S, C) and each position adds its own segment's row, exactly 0.0 at pad. Pad
 // positions still run both convs (bias only) and both LNs, as the TPU
 // kernels do.
 //
-// What bounds it on the H100: operations, 2*B*L*C^2*19 FLOP — 40.8 GFLOP
-// at B=8, L=C=512 (0.0413 ms at 989 TFLOP/s bf16), 326 GFLOP at B=8,
+// What bounds it on the H100: operations, 2*B*L*C^2*(nt + wt + 1) FLOP —
+// with 9-tap convs 40.8 GFLOP at B=8, L=C=512 (0.0413 ms at 989 TFLOP/s
+// bf16), 326 GFLOP at B=8,
 // L=C=1024 (0.330 ms) — against 4-70 MB of activation and weight bytes
 // (0.002-0.021 ms at 3.35 TB/s). The segment gather is an index, not FLOPs.
 // What the design adds is L2 -> SM traffic: every conv block reads its
@@ -113,6 +116,34 @@
 //     float4s held in registers; at C <= 512 a warp loads four rows before
 //     it reduces any, so their L2 latencies overlap. LN and the dense are
 //     per position, so this pass needs no segment ids.
+// Two conv passes, chosen at launch (`Taps::preset`). The preset geometry
+// (9-tap convs, narrow dilation 1, wide dilation <= 5) runs
+// `wgmma_conv_kernel` above, whose (TM + 40)-row window is one TMA box of at
+// most 256 rows (a halo above 64 rows breaks it at TM = 128, above 96 at
+// TM = 64) and whose keep bits fit one uint32_t (16 taps). Every other odd
+// tap count and dilation runs `wgmma_conv_any_kernel`, whose layout does
+// not depend on the halo (JAX's gates admit halos of hundreds of rows):
+//   * no window. Each (chunk, conv, tap) is one stage of a six-stage ring
+//     (eight at TM = 64) holding that tap's (TM, 64) operand rows — ONE TMA
+//     box at map row H + l0 + (t - (k-1)/2)*d, whose zero fill is the
+//     'SAME' padding outside [-H, L + H) even when the whole box lies
+//     outside — beside its (64, 128) weight tile; one mbarrier pair a stage.
+//     The A tile starts on a 1024-byte boundary at the warp's own rows, so
+//     ldmatrix reads it as it reads the window.
+//   * the keep bits are not stored: before waiting on a tap's stage each
+//     thread reads its two fragment rows' tap-row ids from seg (L1 / L2),
+//     for any number of taps.
+//   * a tap's A registers stay in use until its products complete; the
+//     preset kernel unrolls its nine taps into nine register sets, the
+//     general one's run-time tap loop alternates two and drains its
+//     products at the end of each conv's taps.
+//   * each output's sum runs over (chunk, narrow taps, wide taps, k-step)
+//     in the preset kernel's order, and the epilogue is shared
+//     (`wg_conv_epilogue`).
+// It moves each x row once per tap instead of once per chunk, and ptxas
+// serializes its wgmmas (C7513: the second A register set is written while
+// the first's products run); chip_smoke.py's coverage phase times it
+// against the preset kernel at the same work (PERF.md).
 // The int8 leg (#3-int8) runs a dequantize pass first
 // (`dequant_track_kernel`): the int8 conv and dense weights with their
 // float32 scales become per-call bf16 scratches, each value from_f(q *
@@ -120,7 +151,8 @@
 // floating-point leg loads from the dequantized weights — then the
 // floating-point leg's two passes run on them, so the int8 leg is bit for
 // bit the floating-point leg. The pass converts each weight once a call
-// (19*C^2 values; 10 MB of bf16 written at C = 512), where `track_tile`'s
+// ((nt + wt + 1)*C^2 values; 10 MB of bf16 written at C = 512 with 9-tap
+// convs), where `track_tile`'s
 // int8 leg converts every weight once per row tile; no dequantized copy
 // stays resident.
 // float32 keeps the CUDA-core plans (local_track.cuh `track_tile` at C <=
@@ -171,6 +203,33 @@ struct WgConvT {
   static_assert(total <= 232448, "fits one block's shared memory");
 };
 using WgConv = WgConvT<128>;
+
+// The general conv pass (`wgmma_conv_any_kernel`): at TM_ output rows a
+// block, a ring of STAGES stages, each one tap's (TM, 64) operand rows (one
+// TMA box) beside that tap's (64, 128) weight tile (two 64-column boxes),
+// in 192 KB whatever the taps and dilations.
+template <int TM_>
+struct WgTapsT {
+  static constexpr int TM = TM_;  // output rows: one consumer WG each 64
+  static constexpr int TN = 128;  // output channels
+  static constexpr int KC = 64;   // input channels a chunk: one 128-byte row
+  static constexpr int THREADS = 128 + 2 * TM;  // producer WG + consumers
+  static constexpr int CONSUMER_WARPS = TM / 16;
+  static constexpr uint32_t ROW_BYTES = KC * 2;
+  static constexpr uint32_t A_BYTES = TM * ROW_BYTES;     // one tap's rows
+  static constexpr uint32_t BOX_BYTES = KC * 64 * 2;      // 64 x 64 box
+  static constexpr uint32_t W_BYTES = 2 * BOX_BYTES;      // (64, 128) tile
+  static constexpr uint32_t STAGE_BYTES = A_BYTES + W_BYTES;
+  static constexpr uint32_t KSTEP_BYTES = 16 * ROW_BYTES; // 16 K rows
+  static constexpr int STAGES = 196608 / STAGE_BYTES;     // 6, or 8 at TM 64
+  static constexpr size_t bar_off = size_t(STAGES) * STAGE_BYTES;
+  static constexpr size_t total =
+      bar_off + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(TM == 64 || TM == 128, "one or two consumer warpgroups");
+  static_assert(A_BYTES % 1024 == 0 && W_BYTES % 1024 == 0,
+                "swizzled tiles start on 1024-byte boundaries");
+  static_assert(total <= 232448, "fits one block's shared memory");
+};
 
 // The bf16 finish pass: rows a block, the Wd ring of (64, 256) tiles, and
 // shared-memory layout. 64 rows at 512 < C <= 1024; 32 above C = 1024, so
@@ -247,6 +306,56 @@ __device__ __forceinline__ void wg_conv_taps(float (&acc)[64], uint32_t win,
   }
 }
 
+// The conv pass's epilogue: h[b, l, c0 : c0+128] in ORDER for the
+// thread's two fragment rows m0, m0 + 8 of the tile at l0 (their segment
+// ids id[]; columns 8j + 2q, +1), straight from the accumulators.
+template <bool SEG, SumOrder ORDER>
+__device__ __forceinline__ void wg_conv_epilogue(
+    const TrackArgs<__nv_bfloat16>& p, int C, float* __restrict__ h,
+    const float (&acc_n)[64], const float (&acc_w)[64], int l0, int b,
+    int c0, int m0, int q, const int (&id)[2]) {
+  const int L = p.L, H = p.halo;
+  const __nv_bfloat16* xb = p.x + (size_t(b) * (L + 2 * H) + H) * C;
+  float* hb = h + size_t(b) * L * C;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int l = l0 + m0 + 8 * half;
+    if (l >= L) continue;
+    const __nv_bfloat16* bc;
+    if constexpr (SEG) {
+      bc = (id[half] >= 1 && id[half] <= p.S)
+               ? p.bcast + (size_t(b) * p.S + id[half] - 1) * C
+               : nullptr;
+    } else {
+      bc = p.bcast + size_t(b) * C;
+    }
+    const __nv_bfloat16* xr = xb + size_t(l) * C;
+    float* hr = hb + size_t(l) * C;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j + 2 * q;
+      const int i = 4 * j + 2 * half;
+      const __nv_bfloat162 xv =
+          *reinterpret_cast<const __nv_bfloat162*>(xr + c);
+      const float bc0 = bc ? to_f(bc[c]) : 0.f;
+      const float bc1 = bc ? to_f(bc[c + 1]) : 0.f;
+      const float gn0 = gelu_tanh(acc_n[i] + p.nb[c]);
+      const float gn1 = gelu_tanh(acc_n[i + 1] + p.nb[c + 1]);
+      const float gw0 = gelu_tanh(acc_w[i] + p.wb[c]);
+      const float gw1 = gelu_tanh(acc_w[i + 1] + p.wb[c + 1]);
+      float h0, h1;
+      if constexpr (ORDER == SumOrder::kK1) {
+        h0 = ((__low2float(xv) + gn0) + gw0) + bc0;
+        h1 = ((__high2float(xv) + gn1) + gw1) + bc1;
+      } else {
+        h0 = ((gn0 + gw0) + __low2float(xv)) + bc0;
+        h1 = ((gn1 + gw1) + __high2float(xv)) + bc1;
+      }
+      *reinterpret_cast<float2*>(hr + c) = make_float2(h0, h1);
+    }
+  }
+}
+
 // Pass 1: h[b, l0 : l0+128, c0 : c0+128] of the float32 scratch, on the
 // tensor cores (the design note above), h summed in ORDER. tx maps x as (C,
 // L + 2H, B); tn and tw map the narrow and wide conv weights as (C_out, 9 *
@@ -272,7 +381,7 @@ __global__ void __launch_bounds__(WgConvT<TM>::THREADS, 1)
   const uint32_t empty_w = full_w + 8 * K::WSTAGES;
 
   const int l0 = blockIdx.x * K::TM, b = blockIdx.y, c0 = blockIdx.z * K::TN;
-  const int L = p.L, H = p.halo;
+  const int H = p.halo;
   const int chunks = C / K::KC;
 
   if (threadIdx.x == 0) {
@@ -288,10 +397,10 @@ __global__ void __launch_bounds__(WgConvT<TM>::THREADS, 1)
   }
   if constexpr (SEG) {
     // The window's ids; rows outside [0, L) are pad.
-    const int* sb = p.seg + size_t(b) * L;
+    const int* sb = p.seg + size_t(b) * p.L;
     for (int r = threadIdx.x; r < K::WIN; r += K::THREADS) {
       const int l = l0 - kHalo + r;
-      segw[r] = (l >= 0 && l < L) ? sb[l] : 0;
+      segw[r] = (l >= 0 && l < p.L) ? sb[l] : 0;
     }
   }
   __syncthreads();
@@ -339,7 +448,7 @@ __global__ void __launch_bounds__(WgConvT<TM>::THREADS, 1)
   const int rows0 = warp * 16;              // tile row of the warp's row 0
   const int lrow = rows0 + (lane & 15);     // the row this lane addresses
   const int lcol = lane >> 4;               // k 0-7 or 8-15 of a k-step
-  const int wd = p.wide_dilation;
+  const int wd = p.taps.wd;
 
   // Keep bits of the two fragment rows (g, g+8): bit 2t + half for tap t.
   uint32_t keep[2] = {~0u, ~0u};
@@ -379,48 +488,184 @@ __global__ void __launch_bounds__(WgConvT<TM>::THREADS, 1)
   fence_regs(acc_n);
   fence_regs(acc_w);
 
-  // Epilogue: h in ORDER, each thread's fragment (rows g, g+8; columns
-  // 8j + 2q, +1) straight from the accumulators.
-  const __nv_bfloat16* xb = p.x + (size_t(b) * (L + 2 * H) + H) * C;
-  float* hb = h + size_t(b) * L * C;
+  // The ids of the thread's two fragment rows, then h in ORDER.
+  int id[2] = {0, 0};
+  if constexpr (SEG) {
+    id[0] = segc[rows0 + g];
+    id[1] = segc[rows0 + g + 8];
+  }
+  wg_conv_epilogue<SEG, ORDER>(p, C, h, acc_n, acc_w, l0, b, c0, rows0 + g,
+                               q, id);
+}
+
+// Whether tap row l keeps its operand for a fragment row whose own segment
+// id is `id`: id in 1..S and seg[l] == id (rows outside [0, L) are pad).
+__device__ __forceinline__ bool tap_keeps(const int* sb, int id, int l,
+                                          int L, int S) {
+  return id >= 1 && id <= S && l >= 0 && l < L && sb[l] == id;
+}
+
+// One tap of the general conv pass: its operand is the A tile of ring
+// stage `it` (its TMA box already at the tap's rows; tap row r of fragment
+// row m0), loaded into `a`, its weight tile beside it; acc += A @ W_t as
+// one commit group of four k-steps, then the previous tap's stage is
+// released. On packed rows the thread's two fragment rows (own ids id[])
+// are masked from seg, read before the wait.
+template <bool SEG, int TM>
+__device__ __forceinline__ void wg_tap_any(
+    float (&acc)[64], uint32_t (&a)[4][4], uint32_t s0, int r, int lrow,
+    int lcol, const int* sb, const int (&id)[2], int L, int S,
+    uint32_t bars_full, uint32_t bars_empty, int& it, int lane) {
+  using K = WgTapsT<TM>;
+  using namespace sm90;
+  bool keep0 = true, keep1 = true;
+  if constexpr (SEG) {
+    keep0 = tap_keeps(sb, id[0], r, L, S);
+    keep1 = tap_keeps(sb, id[1], r + 8, L, S);
+  }
+  const int st = it % K::STAGES;
+  mbar_wait(bars_full + 8 * st, (it / K::STAGES) & 1);
+  const uint32_t a0 = s0 + st * K::STAGE_BYTES;
+  const uint32_t row = a0 + lrow * K::ROW_BYTES;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = rows0 + g + 8 * half;
-    const int l = l0 + m;
-    if (l >= L) continue;
-    const __nv_bfloat16* bc;
+  for (int k = 0; k < 4; ++k) {
+    ldmatrix_x4(row + ((((2 * k + lcol) ^ lrow) & 7) << 4), a[k]);
     if constexpr (SEG) {
-      const int id = segc[m];
-      bc = (id >= 1 && id <= p.S) ? p.bcast + (size_t(b) * p.S + id - 1) * C
-                                  : nullptr;
-    } else {
-      bc = p.bcast + size_t(b) * C;
-    }
-    const __nv_bfloat16* xr = xb + size_t(l) * C;
-    float* hr = hb + size_t(l) * C;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = c0 + 8 * j + 2 * q;
-      const int i = 4 * j + 2 * half;
-      const __nv_bfloat162 xv =
-          *reinterpret_cast<const __nv_bfloat162*>(xr + c);
-      const float bc0 = bc ? to_f(bc[c]) : 0.f;
-      const float bc1 = bc ? to_f(bc[c + 1]) : 0.f;
-      const float gn0 = gelu_tanh(acc_n[i] + p.nb[c]);
-      const float gn1 = gelu_tanh(acc_n[i + 1] + p.nb[c + 1]);
-      const float gw0 = gelu_tanh(acc_w[i] + p.wb[c]);
-      const float gw1 = gelu_tanh(acc_w[i + 1] + p.wb[c + 1]);
-      float h0, h1;
-      if constexpr (ORDER == SumOrder::kK1) {
-        h0 = ((__low2float(xv) + gn0) + gw0) + bc0;
-        h1 = ((__high2float(xv) + gn1) + gw1) + bc1;
-      } else {
-        h0 = ((gn0 + gw0) + __low2float(xv)) + bc0;
-        h1 = ((gn1 + gw1) + __high2float(xv)) + bc1;
-      }
-      *reinterpret_cast<float2*>(hr + c) = make_float2(h0, h1);
+      if (!keep0) a[k][0] = a[k][2] = 0u;
+      if (!keep1) a[k][1] = a[k][3] = 0u;
     }
   }
+  wgmma_fence();
+  const uint64_t desc =
+      desc_sw128(a0 + K::A_BYTES, K::BOX_BYTES, 8 * K::ROW_BYTES);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wgmma_m64n128k16_rs(acc, a[k], desc + ((k * K::KSTEP_BYTES) >> 4));
+  wgmma_commit();
+  // The previous tap's products are done: release its stage.
+  wgmma_wait<1>();
+  if (it > 0 && lane == 0)
+    mbar_arrive(bars_empty + 8 * ((it - 1) % K::STAGES));
+  ++it;
+}
+
+// The taps of one conv on one chunk, general geometry (fragment row m0 at
+// sequence row l). A tap's A registers stay in use until its commit group
+// completes, and the loop over run-time taps is not unrolled, so taps
+// alternate between two register sets and the call ends with every group
+// done: no tap overwrites registers a pending product reads.
+template <bool SEG, int TM>
+__device__ __forceinline__ void wg_conv_taps_any(
+    float (&acc)[64], uint32_t s0, int taps, int d, int lrow, int lcol,
+    const int* sb, const int (&id)[2], int l, int L, int S,
+    uint32_t bars_full, uint32_t bars_empty, int& it, int lane) {
+  using namespace sm90;
+  const int r0 = l - (taps - 1) / 2 * d;  // tap 0's row for fragment row m0
+  uint32_t a0[4][4], a1[4][4];
+#pragma unroll 1
+  for (int t = 0; t < taps; t += 2) {
+    wg_tap_any<SEG, TM>(acc, a0, s0, r0 + t * d, lrow, lcol, sb, id, L, S,
+                        bars_full, bars_empty, it, lane);
+    if (t + 1 < taps)
+      wg_tap_any<SEG, TM>(acc, a1, s0, r0 + (t + 1) * d, lrow, lcol, sb, id,
+                          L, S, bars_full, bars_empty, it, lane);
+  }
+  wgmma_wait<0>();
+}
+
+// Pass 1 at any odd taps and dilations (the design note above): h[b, l0 :
+// l0+TM, c0 : c0+128] in ORDER, the preset kernel's products in its order.
+// tx maps x as (C, L + 2H, B) with (64, TM) boxes; tn and tw map the narrow
+// and wide conv weights as (C_out, nt * C_in) and (C_out, wt * C_in).
+template <bool SEG, SumOrder ORDER, int TM>
+__global__ void __launch_bounds__(WgTapsT<TM>::THREADS, 1)
+    wgmma_conv_any_kernel(TrackArgs<__nv_bfloat16> p, int C,
+                          float* __restrict__ h,
+                          const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tn,
+                          const __grid_constant__ CUtensorMap tw) {
+  using K = WgTapsT<TM>;
+  using namespace sm90;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s0 = (raw + 1023u) & ~1023u;
+  const uint32_t full = s0 + K::bar_off;
+  const uint32_t empty = full + 8 * K::STAGES;
+
+  const int l0 = blockIdx.x * K::TM, b = blockIdx.y, c0 = blockIdx.z * K::TN;
+  const int L = p.L, H = p.halo;
+  const int chunks = C / K::KC;
+  const Taps tp = p.taps;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K::STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, K::CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the TMA loads in flight.
+    if constexpr (K::THREADS == 384) setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      // Stage it <- tap t's operand rows (map row `row`) and its weights.
+      auto load = [&](const CUtensorMap* map, int t, int row, int s) {
+        const int st = it % K::STAGES;
+        mbar_wait(empty + 8 * st, ((it / K::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + 8 * st, K::STAGE_BYTES);
+        const uint32_t dst = s0 + st * K::STAGE_BYTES;
+        tma_load_3d(dst, &tx, full + 8 * st, s * K::KC, row, b);
+        const int krow = t * C + s * K::KC;
+        tma_load_2d(dst + K::A_BYTES, map, full + 8 * st, c0, krow);
+        tma_load_2d(dst + K::A_BYTES + K::BOX_BYTES, map, full + 8 * st,
+                    c0 + 64, krow);
+        ++it;
+      };
+      const int nc = (tp.nt - 1) / 2, wc = (tp.wt - 1) / 2;
+      for (int s = 0; s < chunks; ++s) {
+        for (int t = 0; t < tp.nt; ++t)
+          load(&tn, t, H + l0 + (t - nc) * tp.nd, s);
+        for (int t = 0; t < tp.wt; ++t)
+          load(&tw, t, H + l0 + (t - wc) * tp.wd, s);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: rows [64*wg, 64*wg + 64) of the tile.
+  if constexpr (K::THREADS == 384) setmaxnreg_inc<232>();
+  const int ct = threadIdx.x - 128;
+  const int lane = ct % 32, warp = ct / 32;  // 16 rows a warp
+  const int g = lane / 4, q = lane % 4;
+  const int rows0 = warp * 16;              // tile row of the warp's row 0
+  const int lrow = rows0 + (lane & 15);     // the row this lane addresses
+  const int lcol = lane >> 4;               // k 0-7 or 8-15 of a k-step
+  const int m0 = rows0 + g;                 // the thread's fragment rows
+  const int* sb = SEG ? p.seg + size_t(b) * L : nullptr;
+  int id[2] = {0, 0};
+  if constexpr (SEG) {
+    for (int half = 0; half < 2; ++half) {
+      const int l = l0 + m0 + 8 * half;
+      id[half] = l < L ? sb[l] : 0;
+    }
+  }
+
+  float acc_n[64], acc_w[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_n[i] = acc_w[i] = 0.f;
+  int it = 0;
+  for (int s = 0; s < chunks; ++s) {
+    wg_conv_taps_any<SEG, TM>(acc_n, s0, tp.nt, tp.nd, lrow, lcol, sb, id,
+                              l0 + m0, L, p.S, full, empty, it, lane);
+    wg_conv_taps_any<SEG, TM>(acc_w, s0, tp.wt, tp.wd, lrow, lcol, sb, id,
+                              l0 + m0, L, p.S, full, empty, it, lane);
+  }
+  fence_regs(acc_n);
+  fence_regs(acc_w);
+  wg_conv_epilogue<SEG, ORDER>(p, C, h, acc_n, acc_w, l0, b, c0, m0, q, id);
 }
 
 // One warp's LayerNorm of float32 rows over C (C % 128 == 0, C <= 128 * N;
@@ -656,12 +901,45 @@ __global__ void __launch_bounds__(WgFinish::THREADS, 1)
                });
 }
 
-// The conv pass: tensor maps over x and both conv weights, then the launch.
-// The maps fail to encode (cudaErrorInvalidValue) for an operand whose base
-// is not 16-byte aligned.
+// The general conv pass: tensor maps over x ((64, TM) boxes) and both conv
+// weights (nt and wt taps), then the launch.
+template <bool SEG, SumOrder ORDER, int TM>
+cudaError_t launch_wgmma_conv_any(const TrackArgs<__nv_bfloat16>& p, int B,
+                                  int C, float* h, cudaStream_t stream) {
+  using K = WgTapsT<TM>;
+  const uint64_t rows = uint64_t(p.L) + 2 * p.halo;
+  const uint64_t row_bytes = uint64_t(C) * 2;
+  const uint64_t x_dims[3] = {uint64_t(C), rows, uint64_t(B)};
+  const uint64_t x_strides[2] = {row_bytes, rows * row_bytes};
+  const uint32_t x_box[3] = {K::KC, K::TM, 1};
+  const uint64_t n_dims[2] = {uint64_t(C), uint64_t(p.taps.nt) * C};
+  const uint64_t w_dims[2] = {uint64_t(C), uint64_t(p.taps.wt) * C};
+  const uint64_t w_strides[1] = {row_bytes};
+  const uint32_t w_box[2] = {64, K::KC};
+  CUtensorMap tx, tn, tw;
+  if (!sm90::encode_bf16_map(&tx, p.x, 3, x_dims, x_strides, x_box) ||
+      !sm90::encode_bf16_map(&tn, p.nk, 2, n_dims, w_strides, w_box) ||
+      !sm90::encode_bf16_map(&tw, p.wk, 2, w_dims, w_strides, w_box))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_conv_any_kernel<SEG, ORDER, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(K::total));
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.L + K::TM - 1) / K::TM, B, C / K::TN);
+  wgmma_conv_any_kernel<SEG, ORDER, TM>
+      <<<grid, K::THREADS, K::total, stream>>>(p, C, h, tx, tn, tw);
+  return cudaGetLastError();
+}
+
+// The conv pass: the preset kernel at its geometry (tensor maps over x and
+// both conv weights, then the launch), the general one elsewhere. The maps
+// fail to encode (cudaErrorInvalidValue) for an operand whose base is not
+// 16-byte aligned.
 template <bool SEG, SumOrder ORDER, int TM = 128>
 cudaError_t launch_wgmma_conv(const TrackArgs<__nv_bfloat16>& p, int B,
                               int C, float* h, cudaStream_t stream) {
+  if (!p.taps.preset())
+    return launch_wgmma_conv_any<SEG, ORDER, TM>(p, B, C, h, stream);
   using K = WgConvT<TM>;
   const uint64_t rows = uint64_t(p.L) + 2 * p.halo;
   const uint64_t row_bytes = uint64_t(C) * 2;
@@ -726,14 +1004,16 @@ inline bool sm90_shape_ok(int B, int C) {
   return C >= 128 && C % 128 == 0 && C <= 2048 && B <= 65535;
 }
 
-// The int8 leg's dequantize pass: nq, wq (9, C, C) int8 with scales ns, ws
-// (9, C) and dq (C, C) with ds (C,) — one scale per (tap, output column) —
+// The int8 leg's dequantize pass: nq (nt, C, C), wq (wt, C, C) int8 with
+// scales ns (nt, C), ws (wt, C) and dq (C, C) with ds (C,) — one scale per
+// (tap, output column) —
 // into bf16 nk, wk, dk of the same shapes, each value from_f(q * scale) as
 // `Q8Tile` converts it (two at a time, each rounded to nearest even as
 // from_f rounds it alone): the floating-point leg's operand on the
 // dequantized weights. A 16-value group is one 16-byte load of q, four of
 // scales (q and the scales 16-byte aligned) and two 16-byte stores, all in
-// registers, with 32-bit index arithmetic (19*C^2 < 2^32 for C <= 2048).
+// registers, with 32-bit index arithmetic ((nt + wt + 1)*C^2 < 2^32, which
+// `dequant_track_fits` checks).
 // Each thread converts kDequantGroups groups a grid-width apart, their
 // loads all issued before the first conversion, so the pass runs in one
 // wave at memory speed.
@@ -751,9 +1031,10 @@ __device__ __forceinline__ void dequant_track_block(
     const int8_t* __restrict__ wq, const float* __restrict__ ws,
     const int8_t* __restrict__ dq, const float* __restrict__ ds,
     bf16* __restrict__ nk, bf16* __restrict__ wk, bf16* __restrict__ dk,
-    uint32_t C, uint32_t block, uint32_t blocks) {
-  const uint32_t conv = kTaps * C * C / 16;  // 16-value groups a conv
-  const uint32_t total = 2 * conv + C * C / 16;
+    uint32_t C, uint32_t nt, uint32_t wt, uint32_t block, uint32_t blocks) {
+  const uint32_t narrow = nt * C * C / 16;  // 16-value groups a conv
+  const uint32_t convs = narrow + wt * C * C / 16;
+  const uint32_t total = convs + C * C / 16;
   const uint32_t stride = blocks * kThreads;
   DequantGroup g[kDequantGroups];
 #pragma unroll
@@ -761,10 +1042,11 @@ __device__ __forceinline__ void dequant_track_block(
     const uint32_t i = block * kThreads + threadIdx.x + k * stride;
     g[k].out = nullptr;
     if (i >= total) continue;
-    const uint32_t m = i < conv ? 0 : (i < 2 * conv ? 1 : 2);
+    const uint32_t m = i < narrow ? 0 : (i < convs ? 1 : 2);
     const int8_t* q = m == 0 ? nq : (m == 1 ? wq : dq);
     const float* s = m == 0 ? ns : (m == 1 ? ws : ds);
-    const uint32_t e = (i - m * conv) * 16;  // first element
+    const uint32_t e =  // first element
+        (i - (m == 0 ? 0 : (m == 1 ? narrow : convs))) * 16;
     const uint32_t row = e / C;              // tap * C + input channel
     const float4* sc =
         reinterpret_cast<const float4*>(s + (row / C) * C + (e - row * C));
@@ -801,10 +1083,15 @@ __device__ __forceinline__ void dequant_track_block(
   }
 }
 
+// Whether the pass's 32-bit indices cover (nt + wt + 1) C x C matrices.
+inline bool dequant_track_fits(int C, const Taps& t) {
+  return (unsigned long long)(t.nt + t.wt + 1) * C * C < (1ull << 32);
+}
+
 // The blocks a dequantize pass over C takes: one wave, kDequantGroups
 // 16-value groups a thread.
-inline uint32_t dequant_track_blocks(int C) {
-  const uint32_t groups = uint32_t(2 * kTaps + 1) * C * C / 16;
+inline uint32_t dequant_track_blocks(int C, const Taps& t) {
+  const uint32_t groups = uint32_t(t.nt + t.wt + 1) * C * C / 16;
   const uint32_t per_block = kThreads * kDequantGroups;
   return (groups + per_block - 1) / per_block;
 }
@@ -817,33 +1104,38 @@ __global__ void __launch_bounds__(kThreads)
                          const int8_t* __restrict__ dq,
                          const float* __restrict__ ds, bf16* __restrict__ nk,
                          bf16* __restrict__ wk, bf16* __restrict__ dk,
-                         uint32_t C) {
-  dequant_track_block(nq, ns, wq, ws, dq, ds, nk, wk, dk, C, blockIdx.x,
-                      gridDim.x);
+                         uint32_t C, uint32_t nt, uint32_t wt) {
+  dequant_track_block(nq, ns, wq, ws, dq, ds, nk, wk, dk, C, nt, wt,
+                      blockIdx.x, gridDim.x);
 }
 
 // q's operands with the dequantized weights nk, wk, dk in place of its int8
 // ones: what the floating-point leg's passes take.
 inline TrackArgs<bf16> dequantized_args(const TrackArgs<bf16, true>& q,
                                         bf16* nk, bf16* wk, bf16* dk) {
-  return TrackArgs<bf16>{q.x,  q.seg, q.bcast, nk,    q.nb,
-                         wk,   q.wb,  q.s1,    q.b1,  dk,
-                         q.db, q.s2,  q.b2,    q.out, q.L,
-                         q.S,  q.wide_dilation, nullptr, nullptr, nullptr,
+  return TrackArgs<bf16>{q.x,  q.seg, q.bcast, nk,      q.nb,
+                         wk,   q.wb,  q.s1,    q.b1,    dk,
+                         q.db, q.s2,  q.b2,    q.out,   q.L,
+                         q.S,  q.taps, nullptr, nullptr, nullptr,
                          q.halo};
 }
 
 // #3's int8 leg in bf16: the dequantize pass into the scratches nk, wk, dk,
-// then #3's two passes on them.
-inline cudaError_t launch_track_sm90_q8(const TrackArgs<bf16, true>& q,
-                                        bf16* nk, bf16* wk, bf16* dk, int B,
-                                        int C, float* h,
-                                        cudaStream_t stream) {
-  dequant_track_kernel<<<dequant_track_blocks(C), kThreads, 0, stream>>>(
-      q.nk, q.nks, q.wk, q.wks, q.dk, q.dks, nk, wk, dk, uint32_t(C));
+// then #3's two passes on them. A template, so that only the translation
+// unit that calls it (local_track_segments_q8.cu) instantiates #3's conv
+// kernels through it; every other one includes this header for nothing.
+template <bool SEG = true>
+cudaError_t launch_track_sm90_q8(const TrackArgs<bf16, true>& q, bf16* nk,
+                                 bf16* wk, bf16* dk, int B, int C, float* h,
+                                 cudaStream_t stream) {
+  if (!dequant_track_fits(C, q.taps)) return cudaErrorInvalidValue;
+  dequant_track_kernel<<<dequant_track_blocks(C, q.taps), kThreads, 0,
+                         stream>>>(q.nk, q.nks, q.wk, q.wks, q.dk, q.dks, nk,
+                                   wk, dk, uint32_t(C), uint32_t(q.taps.nt),
+                                   uint32_t(q.taps.wt));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_track_sm90<true, SumOrder::kK1>(
+  return launch_track_sm90<SEG, SumOrder::kK1>(
       dequantized_args(q, nk, wk, dk), B, C, h, stream);
 }
 

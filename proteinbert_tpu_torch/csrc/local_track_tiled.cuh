@@ -4,7 +4,9 @@
 // (local_track_tiled.cu, dense rows) and #4 (local_track_segments_tiled.cu,
 // packed rows). Per position l:
 //
-//   h  = (gelu(conv9,d=1(x) + nb) + gelu(conv9,d=D(x) + wb)) + x + bcast
+//   h  = (gelu(conv_k,nd(x) + nb) + gelu(conv_k,wd(x) + wb)) + x + bcast
+//
+// (both convs k taps, k odd: JAX's tiled plan takes equal taps only)
 //   x1 = LN1(h)                      (rounded to the activation type)
 //   y  = LN2(x1 + gelu(x1 @ Wd + db))
 //
@@ -18,13 +20,15 @@
 // SEG = false (#2): bcast is one (C,) row per batch row. SEG = true (#4, the
 // masks of `_fused_segment_kernel_tiled`): seg (B, L) holds 0 at pad and
 // 1..S for the packed proteins (an id above S counts as pad). Tap t of row l
-// contributes only when seg[l + (t-4)d] == seg[l] and seg[l] is in 1..S;
+// contributes only when seg[l + (t-(k-1)/2)d] == seg[l] and seg[l] is in
+// 1..S;
 // rows outside [0, L) are pad. bcast is (B, S, C) and each position adds its
 // own segment's row, exactly 0.0 at pad. Pad positions still run both convs
 // (bias only) and both LNs, as the TPU kernel does.
 //
-// What bounds it on the H100: operations, 2*B*L*C^2*19 FLOP — 326 GFLOP at
-// B=8, L=C=1024, 0.330 ms at 989 TFLOP/s bf16 — against ~70 MB of activation
+// What bounds it on the H100: operations, 2*B*L*C^2*(2k + 1) FLOP — 326
+// GFLOP at B=8, L=C=1024 with 9-tap convs, 0.330 ms at 989 TFLOP/s bf16 —
+// against ~70 MB of activation
 // and weight bytes (0.021 ms at 3.35 TB/s). The segment gather is an index,
 // not FLOPs.
 //
@@ -55,7 +59,16 @@
 // finish pass (`tiled_finish_kernel`), one block per (16 rows, batch row):
 // LN1 into a (16, C) x1 tile, the dense in 256-column chunks with Wd
 // through a cp.async double buffer, the residual back to the scratch rows,
-// LN2.
+// LN2. The float32 conv pass's window holds the preset geometry's 20-row
+// halo (9-tap convs, narrow dilation 1, wide dilation <= 5); any other odd
+// taps and dilation run its general instantiation (ANY), which keeps no
+// window: each step loads one tap's (64, 8) operand rows from L2
+// (local_track.cuh `load_tap_rows_async`, masked there on packed rows) and
+// that tap's (8, 128) weight slice through the double buffer, in the
+// preset's order (k-chunk, then tap), whatever the halo. At the preset
+// geometry it gives the preset's bits, but takes 1.08-1.25x its time (nine
+// times the pipeline steps; #2, #4 and #2 prehaloed at C=1024, NVIDIA H100
+// 80GB HBM3 at 700 W), so the preset keeps its window.
 #pragma once
 
 #include <type_traits>
@@ -74,18 +87,22 @@ template <> struct TiledCfg<float> {
   using DenseMma = MmaF32<FL, FN, 64>;
 };
 
-template <typename T, bool SEG> struct ConvSmem {
+// ANY: the general pass's stage (one tap's operand rows and weights).
+template <typename T, bool SEG, bool ANY = false> struct ConvSmem {
   using Cfg = TiledCfg<T>;
   static constexpr int LDA = Cfg::KC + Cfg::PAD;
   static constexpr int LDB = Cfg::TC + Cfg::PAD;
-  static constexpr int WIN = Cfg::TL + 2 * kHalo;
+  static constexpr int HALO = ANY ? 0 : kHalo;  // window rows each side
+  static constexpr int WIN = Cfg::TL + 2 * HALO;
+  static constexpr int TAPS = ANY ? 1 : kTaps;   // taps a stage
   static constexpr int A_TILE = WIN * LDA;               // elements
-  static constexpr int B_TILE = kTaps * Cfg::KC * LDB;   // elements
+  static constexpr int B_TILE = TAPS * Cfg::KC * LDB;    // elements
   static constexpr int M_TILE = Cfg::TL * LDA;           // one masked tap
   static constexpr size_t stage = align128((A_TILE + B_TILE) * sizeof(T));
-  static constexpr size_t ring = 2 * stage;
+  static constexpr size_t product = size_t(Cfg::TL) * Cfg::TC * sizeof(float);
+  static constexpr size_t ring = 2 * stage > product ? 2 * stage : product;
   static constexpr size_t masked =
-      SEG ? align128(2 * size_t(M_TILE) * sizeof(T)) : 0;
+      SEG && !ANY ? align128(2 * size_t(M_TILE) * sizeof(T)) : 0;
   static constexpr size_t ids = SEG ? align128(size_t(WIN) * sizeof(int)) : 0;
   static constexpr size_t total = ring + masked + ids;
   static_assert(ring >= size_t(Cfg::TL) * Cfg::TC * sizeof(float),
@@ -125,19 +142,20 @@ __device__ __forceinline__ void mask_tap_rows(T* dst, const T* src, int ld,
   }
 }
 
-// float32 pass 1: h[b, l0 : l0+TL, c0 : c0+TC] of the float32 scratch.
-template <typename T, bool SEG>
+// float32 pass 1: h[b, l0 : l0+TL, c0 : c0+TC] of the float32 scratch
+// (ANY: the general instantiation).
+template <typename T, bool SEG, bool ANY>
 __global__ void __launch_bounds__(kThreads)
     tiled_conv_kernel(TrackArgs<T> p, int C, float* __restrict__ h) {
   using Cfg = TiledCfg<T>;
-  using Smem = ConvSmem<T, SEG>;
+  using Smem = ConvSmem<T, SEG, ANY>;
   constexpr int TL = Cfg::TL, TC = Cfg::TC, KC = Cfg::KC;
   constexpr int LDA = Smem::LDA, LDB = Smem::LDB;
   extern __shared__ __align__(128) unsigned char smem[];
   float* stage = reinterpret_cast<float*>(smem);  // after a k-loop only
-  T* mbuf = reinterpret_cast<T*>(smem + Smem::ring);
+  [[maybe_unused]] T* mbuf = reinterpret_cast<T*>(smem + Smem::ring);
   int* segw = reinterpret_cast<int*>(smem + Smem::ring + Smem::masked);
-  const int* segc = segw + kHalo;  // the id of output row 0
+  const int* segc = segw + Smem::HALO;  // the id of output row 0
 
   const int c0 = blockIdx.x * TC, l0 = blockIdx.y * TL, b = blockIdx.z;
   const int L = p.L, H = p.halo;
@@ -148,61 +166,86 @@ __global__ void __launch_bounds__(kThreads)
 
   // The window's ids (halo rows outside [0, L) are pad), and whether this
   // block needs the mask at all.
-  bool masked = false;
+  [[maybe_unused]] bool masked = false;
+  const int* sb = SEG ? p.seg + size_t(b) * L : nullptr;
   if constexpr (SEG) {
-    const int* sb = p.seg + size_t(b) * L;
     for (int r = threadIdx.x; r < Smem::WIN; r += kThreads) {
-      const int l = l0 - kHalo + r;
+      const int l = l0 - Smem::HALO + r;
       segw[r] = (l >= 0 && l < L) ? sb[l] : 0;
     }
     __syncthreads();
-    const int id0 = segc[0];  // row l0 < L
-    int mixed = id0 < 1 || id0 > p.S;
-    for (int r = threadIdx.x; r < Smem::WIN; r += kThreads) {
-      const int l = l0 - kHalo + r;
-      if (l >= 0 && l < L && segw[r] != id0) mixed = 1;
+    if constexpr (!ANY) {
+      const int id0 = segc[0];  // row l0 < L
+      int mixed = id0 < 1 || id0 > p.S;
+      for (int r = threadIdx.x; r < Smem::WIN; r += kThreads) {
+        const int l = l0 - Smem::HALO + r;
+        if (l >= 0 && l < L && segw[r] != id0) mixed = 1;
+      }
+      masked = __syncthreads_or(mixed) != 0;
     }
-    masked = __syncthreads_or(mixed) != 0;
   }
+  // The general instantiation's operand rows (its tap rows reach past the
+  // block's own ids, so packed rows are always masked).
+  [[maybe_unused]] const TapRows<T> trows{xb, l0, L, H, sb, segc, p.S};
 
   typename Cfg::ConvMma mma;
   for (int conv = 0; conv < 2; ++conv) {
     const T* w = conv == 0 ? p.nk : p.wk;
-    const int dilation = conv == 0 ? 1 : p.wide_dilation;
+    const int dilation = conv == 0 ? (ANY ? p.taps.nd : 1) : p.taps.wd;
     mma.zero();
-    pipelined_steps(
-        C / KC,
-        [&](int s, int buf) {
-          T* a = reinterpret_cast<T*>(smem + buf * Smem::stage);
-          T* bt = a + Smem::A_TILE;
-          // Input rows l0-20 .. l0+TL+20 of channels s*KC .., zeros outside
-          // [-H, L + H) ('SAME' padding; H = 0 but for the prehaloed entry).
-          load_rows_async(a, LDA, xb + s * KC, C, l0 - kHalo, Smem::WIN, KC,
-                          -H, L + H);
-          for (int t = 0; t < kTaps; ++t)
-            load_rows_async(bt + t * KC * LDB, LDB,
-                            w + (size_t(t) * C + s * KC) * C + c0, C, 0, KC,
+    if constexpr (ANY) {
+      // Step s: k-chunk s / k, tap s % k (both convs k = nt = wt taps).
+      const int taps = p.taps.nt, center = (taps - 1) / 2;
+      pipelined_steps(
+          C / KC * taps,
+          [&](int s, int buf) {
+            T* a = reinterpret_cast<T*>(smem + buf * Smem::stage);
+            const int kc = s / taps, t = s - kc * taps;
+            load_tap_rows_async(a, LDA, trows, kc * KC, C, TL, KC,
+                                (t - center) * dilation);
+            load_rows_async(a + Smem::A_TILE, LDB,
+                            w + (size_t(t) * C + kc * KC) * C + c0, C, 0, KC,
                             TC, 0, KC);
-        },
-        [&](int, int buf) {
-          const T* a = reinterpret_cast<const T*>(smem + buf * Smem::stage);
-          const T* bt = a + Smem::A_TILE;
+          },
+          [&](int, int buf) {
+            const T* a = reinterpret_cast<const T*>(smem + buf * Smem::stage);
+            mma.mma(a, LDA, a + Smem::A_TILE, LDB, KC);
+          });
+    } else {
+      pipelined_steps(
+          C / KC,
+          [&](int s, int buf) {
+            T* a = reinterpret_cast<T*>(smem + buf * Smem::stage);
+            T* bt = a + Smem::A_TILE;
+            // Input rows l0-20 .. l0+TL+20 of channels s*KC .., zeros outside
+            // [-H, L + H) ('SAME' padding; H = 0 but for the prehaloed entry).
+            load_rows_async(a, LDA, xb + s * KC, C, l0 - Smem::HALO, Smem::WIN,
+                            KC, -H, L + H);
+            for (int t = 0; t < kTaps; ++t)
+              load_rows_async(bt + t * KC * LDB, LDB,
+                              w + (size_t(t) * C + s * KC) * C + c0, C, 0, KC,
+                              TC, 0, KC);
+          },
+          [&](int, int buf) {
+            const T* a = reinterpret_cast<const T*>(smem + buf * Smem::stage);
+            const T* bt = a + Smem::A_TILE;
 #pragma unroll 1
-          for (int t = 0; t < kTaps; ++t) {
-            const int off = (t - kCenter) * dilation;
-            const T* at = a + (kHalo + off) * LDA;
-            if (SEG && masked) {
-              // Two staging tiles alternate: tap t+2 rewrites this one only
-              // after every warp passed tap t+1's barrier.
-              T* mt = mbuf + (t & 1) * Smem::M_TILE;
-              mask_tap_rows<T, TL, KC>(mt, at, LDA, segc, off, p.S);
-              __syncthreads();
-              mma.mma(mt, LDA, bt + t * KC * LDB, LDB, KC);
-            } else {
-              mma.mma(at, LDA, bt + t * KC * LDB, LDB, KC);
+            for (int t = 0; t < kTaps; ++t) {
+              const int off = (t - kCenter) * dilation;
+              const T* at = a + (kHalo + off) * LDA;
+              if (SEG && masked) {
+                // Two staging tiles alternate: tap t+2 rewrites this one only
+                // after every warp passed tap t+1's barrier.
+                T* mt = mbuf + (t & 1) * Smem::M_TILE;
+                mask_tap_rows<T, TL, KC>(mt, at, LDA, segc, off, p.S);
+                __syncthreads();
+                mma.mma(mt, LDA, bt + t * KC * LDB, LDB, KC);
+              } else {
+                mma.mma(at, LDA, bt + t * KC * LDB, LDB, KC);
+              }
             }
-          }
-        });
+          });
+    }
     mma.store(stage, TC);
     __syncthreads();
     for (int i = threadIdx.x; i < rows * TC; i += kThreads) {
@@ -289,6 +332,19 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
+// The float32 conv pass, preset or general (ANY) instantiation.
+template <typename T, bool SEG, bool ANY>
+cudaError_t launch_tiled_conv(const TrackArgs<T>& p, int C, float* h,
+                              dim3 grid, cudaStream_t stream) {
+  const size_t smem = ConvSmem<T, SEG, ANY>::total;
+  cudaError_t e = cudaFuncSetAttribute(
+      tiled_conv_kernel<T, SEG, ANY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  tiled_conv_kernel<T, SEG, ANY><<<grid, kThreads, smem, stream>>>(p, C, h);
+  return cudaGetLastError();
+}
+
 // Both passes: wgmma + TMA in bf16, the CUDA-core plan in float32.
 template <typename T, bool SEG>
 cudaError_t launch_tiled(const TrackArgs<T>& p, int B, int C, float* h,
@@ -297,21 +353,18 @@ cudaError_t launch_tiled(const TrackArgs<T>& p, int B, int C, float* h,
     return launch_track_sm90<SEG, SumOrder::kTiled>(p, B, C, h, stream);
   } else {
     using Cfg = TiledCfg<T>;
-    const size_t conv_smem = ConvSmem<T, SEG>::total;
     const size_t finish_smem = FinishSmem<T>::total(C);
     if (finish_smem > 232448) return cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        tiled_conv_kernel<T, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(conv_smem));
+    const dim3 conv_grid(C / Cfg::TC, (p.L + Cfg::TL - 1) / Cfg::TL, B);
+    cudaError_t e = p.taps.preset()
+                        ? launch_tiled_conv<T, SEG, false>(p, C, h, conv_grid,
+                                                           stream)
+                        : launch_tiled_conv<T, SEG, true>(p, C, h, conv_grid,
+                                                          stream);
     if (e != cudaSuccess) return e;
     e = cudaFuncSetAttribute(tiled_finish_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(finish_smem));
-    if (e != cudaSuccess) return e;
-    dim3 conv_grid(C / Cfg::TC, (p.L + Cfg::TL - 1) / Cfg::TL, B);
-    tiled_conv_kernel<T, SEG><<<conv_grid, kThreads, conv_smem, stream>>>(
-        p, C, h);
-    e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     dim3 finish_grid((p.L + Cfg::FL - 1) / Cfg::FL, B);
     tiled_finish_kernel<T><<<finish_grid, kThreads, finish_smem, stream>>>(
@@ -320,10 +373,10 @@ cudaError_t launch_tiled(const TrackArgs<T>& p, int B, int C, float* h,
   }
 }
 
-// Host-side checks both entries share.
-inline bool tiled_geometry_ok(int B, int L, int C, int S, int wide_dilation) {
-  return track_geometry_ok(B, L, S, wide_dilation) && C % 128 == 0 &&
-         C > 512 && C <= 2048 && B <= 65535;
+// Host-side checks both entries share: both convs take the same taps.
+inline bool tiled_geometry_ok(int B, int L, int C, int S, const Taps& taps) {
+  return track_geometry_ok(B, L, S, taps) && taps.nt == taps.wt &&
+         C % 128 == 0 && C > 512 && C <= 2048 && B <= 65535;
 }
 
 }  // namespace pbt

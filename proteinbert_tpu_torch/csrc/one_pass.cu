@@ -22,6 +22,10 @@
 // weight 16-byte aligned (TMA, 16-byte loads); in float32 it is the q
 // scratch (B, S, H, kd) float32 alone. Returns cudaGetLastError() after the
 // last launch (0 = launched).
+// narrow_taps, wide_taps (odd) and both dilations are the convs' geometry:
+// in bf16 the preset conv pass at 9/9 taps, narrow dilation 1 and wide
+// dilation <= 5, the general one elsewhere (`pbt::Taps`); float32 has one
+// plan for every geometry.
 extern "C" int pbt_onepass(int dtype, int seg_masked, const void* x,
                            const void* seg, const void* real,
                            const void* bcast, const void* g, const void* nk,
@@ -31,10 +35,12 @@ extern "C" int pbt_onepass(int dtype, int seg_masked, const void* x,
                            const void* wq, const void* wak, const void* wav,
                            void* local, void* attn, void* scratch, int B,
                            int L, int C, int G, int S, int H, int kd,
-                           int wide_dilation, int zero_empty,
-                           void* stream) {
-  if (!pbt::onepass_geometry_ok(seg_masked, seg, B, L, G, S, H, kd,
-                                wide_dilation))
+                           int narrow_taps, int wide_taps,
+                           int narrow_dilation, int wide_dilation,
+                           int zero_empty, void* stream) {
+  const pbt::Taps taps{narrow_taps, wide_taps, narrow_dilation,
+                       wide_dilation};
+  if (!pbt::onepass_geometry_ok(seg_masked, seg, B, L, G, S, H, kd, taps))
     return cudaErrorInvalidValue;
   const void* seg_ptr = seg_masked ? seg : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -42,15 +48,14 @@ extern "C" int pbt_onepass(int dtype, int seg_masked, const void* x,
     return pbt::launch_shape<false>(
         C, seg_masked,
         pbt::track_args<float>(x, seg_ptr, bcast, nk, nb, wk, wb, s1, b1, dk,
-                               db, s2, b2, local, L, S, wide_dilation),
+                               db, s2, b2, local, L, S, taps),
         real, g, pbt::attn_weights<float, false>(wq, wak, wav), scratch,
         attn, B, G, H, kd, zero_empty, s);
   if (dtype == 1)
     return pbt::launch_onepass_bf16<false>(
         seg_masked,
         pbt::track_args<pbt::bf16>(x, seg_ptr, bcast, nk, nb, wk, wb, s1, b1,
-                                   dk, db, s2, b2, local, L, S,
-                                   wide_dilation),
+                                   dk, db, s2, b2, local, L, S, taps),
         real, g, pbt::attn_weights<pbt::bf16, false>(wq, wak, wav), attn,
         scratch, B, C, G, H, kd, zero_empty, s);
   return cudaErrorInvalidValue;

@@ -43,6 +43,7 @@
 // The int8 leg (Q8) takes the int8 weights of both tracks with their float32
 // scales and dequantizes each weight tile on its way into shared memory
 // (local_track.cuh and attention.cuh), as #3's and K2's int8 legs do.
+// The track tiles take any odd taps and dilations, as K1's do.
 
 #pragma once
 
@@ -160,8 +161,8 @@ cudaError_t launch_shape(int C, int seg_masked,
 // Host-side checks of #6's entries.
 inline bool onepass_geometry_ok(int seg_masked, const void* seg, int B,
                                 int L, int G, int S, int H, int kd,
-                                int wide_dilation) {
-  return track_geometry_ok(B, L, S, wide_dilation) && S <= kMaxS && H >= 1 &&
+                                const Taps& taps) {
+  return track_geometry_ok(B, L, S, taps) && S <= kMaxS && H >= 1 &&
          G % H == 0 && head_dims_ok(kd, G / H) &&
          (seg_masked ? seg != nullptr : S == 1);
 }

@@ -27,18 +27,22 @@
 #include "one_pass_sm90.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (x, bcast (B, S, C), g (B, S, G), both
-// outputs). The conv kernels nq, wq are int8 (9, C, C) with float32 scales
-// ns, ws (9, C); the dense dq int8 (C, C) with ds (C,); the attention's aq
-// (H, G, kd), ak (H, C, kd), av (H, C, G / H) int8 with float32 scales aqs
-// (H, kd), aks (H, kd), avs (H, G / H). seg (B, L) int32 for packed rows
-// (seg_masked = 1; null for dense rows, where S must be 1); real (B, L)
-// int32, nonzero at positions the attention may see; biases and LN vectors
-// float32. The head widths and S are one_pass.cu's; C is 128, 256 or 384, or
-// 512 in bfloat16. Outputs: local (B, L, C), attn (B, S, G). In bfloat16
+// outputs). The conv kernels nq (nt, C, C), wq (wt, C, C) are int8 with
+// float32 scales ns (nt, C), ws (wt, C); the dense dq int8 (C, C) with ds
+// (C,); the attention's aq (H, G, kd), ak (H, C, kd), av (H, C, G / H) int8
+// with float32 scales aqs (H, kd), aks (H, kd), avs (H, G / H). seg (B, L)
+// int32 for packed rows (seg_masked = 1; null for dense rows, where S must be
+// 1); real (B, L) int32, nonzero at positions the attention may see; biases
+// and LN vectors float32. The head widths and S are one_pass.cu's; C is
+// 128, 256 or 384, or 512 in bfloat16. Outputs: local (B, L, C), attn (B, S, G). In bfloat16
 // `scratch` is one buffer of `onepass_scratch`'s parts, the int8 leg's first,
 // and x, the int8 weights and their scales 16-byte aligned; in float32 it is
 // the q scratch (B, S, H, kd) float32 alone. Returns cudaGetLastError() after
 // the last launch (0 = launched).
+// narrow_taps, wide_taps (odd) and both dilations are the convs' geometry:
+// in bf16 the preset conv pass at 9/9 taps, narrow dilation 1 and wide
+// dilation <= 5, the general one elsewhere (`pbt::Taps`); float32 has one
+// plan for every geometry.
 extern "C" int pbt_onepass_q8(
     int dtype, int seg_masked, const void* x, const void* seg,
     const void* real, const void* bcast, const void* g, const void* nq,
@@ -47,10 +51,12 @@ extern "C" int pbt_onepass_q8(
     const void* ds, const void* db, const void* s2, const void* b2,
     const void* aq, const void* aqs, const void* ak, const void* aks,
     const void* av, const void* avs, void* local, void* attn, void* scratch,
-    int B, int L, int C, int G, int S, int H, int kd, int wide_dilation,
-    int zero_empty, void* stream) {
-  if (!pbt::onepass_geometry_ok(seg_masked, seg, B, L, G, S, H, kd,
-                                wide_dilation))
+    int B, int L, int C, int G, int S, int H, int kd, int narrow_taps,
+    int wide_taps, int narrow_dilation, int wide_dilation, int zero_empty,
+    void* stream) {
+  const pbt::Taps taps{narrow_taps, wide_taps, narrow_dilation,
+                       wide_dilation};
+  if (!pbt::onepass_geometry_ok(seg_masked, seg, B, L, G, S, H, kd, taps))
     return cudaErrorInvalidValue;
   const void* seg_ptr = seg_masked ? seg : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -58,8 +64,8 @@ extern "C" int pbt_onepass_q8(
     return pbt::launch_shape<true>(
         C, seg_masked,
         pbt::track_args<float, true>(x, seg_ptr, bcast, nq, nb, wq, wb, s1,
-                                     b1, dq, db, s2, b2, local, L, S,
-                                     wide_dilation, ns, ws, ds),
+                                     b1, dq, db, s2, b2, local, L, S, taps,
+                                     ns, ws, ds),
         real, g, pbt::attn_weights<float, true>(aq, ak, av, aqs, aks, avs),
         scratch, attn, B, G, H, kd, zero_empty, s);
   if (dtype == 1)
@@ -67,7 +73,7 @@ extern "C" int pbt_onepass_q8(
         seg_masked,
         pbt::track_args<pbt::bf16, true>(x, seg_ptr, bcast, nq, nb, wq, wb,
                                          s1, b1, dq, db, s2, b2, local, L, S,
-                                         wide_dilation, ns, ws, ds),
+                                         taps, ns, ws, ds),
         real, g,
         pbt::attn_weights<pbt::bf16, true>(aq, ak, av, aqs, aks, avs), attn,
         scratch, B, C, G, H, kd, zero_empty, s);

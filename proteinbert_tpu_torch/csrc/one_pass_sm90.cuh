@@ -41,7 +41,8 @@
 //      seg[l] where real[l] != 0 and 1 <= seg[l] <= S (dense rows: 1 where
 //      real[l] != 0), else 0. No host-side torch op builds them.
 //   2. conv pass: local_track_sm90.cuh's `wgmma_conv_kernel` (SEG, K1's sum
-//      order) on 64-row tiles (one consumer warpgroup), h to a float32
+//      order; `wgmma_conv_any_kernel` at any taps and dilations other than
+//      the preset's) on 64-row tiles (one consumer warpgroup), h to a float32
 //      scratch. At C <= 512 a 128-row tile gives B*L/128 blocks, 8 at the
 //      L=128 bucket, on 132 SMs; the 64-row tile doubles them and measured
 //      faster at every #6 shape (PERF.md, PR 10). Each output's sum runs in
@@ -75,7 +76,8 @@ namespace pbt {
 // The scratches of one bf16 call, carved in this order from one buffer,
 // each part rounded up to 256 bytes (kernels/one_pass.py
 // `onepass_scratch_layout` lays out the same buffer): on the int8 leg the
-// dequantized nk, wk (9, C, C), dk (C, C), attention wk (H, C, kd) and wv
+// dequantized nk (nt, C, C), wk (wt, C, C), dk (C, C), attention wk (H, C,
+// kd) and wv
 // (H, C, v) bf16; then h (B, L, C) float32, q (B, S, H, kd) float32, ids
 // (B, L) int32, scores (B, H, L) float32, V (B, L, H*v) bf16.
 struct OnepassScratch {
@@ -92,7 +94,8 @@ struct OnepassScratch {
 };
 
 inline OnepassScratch onepass_scratch(void* base, bool q8, int B, int L,
-                                      int C, int S, int H, int KD, int VD) {
+                                      int C, int S, int H, int KD, int VD,
+                                      const Taps& taps) {
   char* next = static_cast<char*>(base);
   auto take = [&](size_t bytes) {
     char* part = next;
@@ -101,8 +104,8 @@ inline OnepassScratch onepass_scratch(void* base, bool q8, int B, int L,
   };
   OnepassScratch s{};
   if (q8) {
-    s.nk = reinterpret_cast<bf16*>(take(size_t(kTaps) * C * C * 2));
-    s.wk = reinterpret_cast<bf16*>(take(size_t(kTaps) * C * C * 2));
+    s.nk = reinterpret_cast<bf16*>(take(size_t(taps.nt) * C * C * 2));
+    s.wk = reinterpret_cast<bf16*>(take(size_t(taps.wt) * C * C * 2));
     s.dk = reinterpret_cast<bf16*>(take(size_t(C) * C * 2));
     s.awk = reinterpret_cast<bf16*>(take(size_t(H) * C * KD * 2));
     s.awv = reinterpret_cast<bf16*>(take(size_t(H) * C * VD * 2));
@@ -128,7 +131,8 @@ __global__ void __launch_bounds__(kThreads)
                            uint32_t track_blocks) {
   if (blockIdx.x < track_blocks)
     dequant_track_block(q.nk, q.nks, q.wk, q.wks, q.dk, q.dks, sc.nk, sc.wk,
-                        sc.dk, uint32_t(C), blockIdx.x, track_blocks);
+                        sc.dk, uint32_t(C), uint32_t(q.taps.nt),
+                        uint32_t(q.taps.wt), blockIdx.x, track_blocks);
   else
     dequant_kv_block(w.wk, w.sk, w.wv, w.sv, sc.awk, sc.awv, H, C, KD, VD,
                      blockIdx.x - track_blocks, gridDim.x - track_blocks);
@@ -188,7 +192,8 @@ cudaError_t launch_onepass_sm90(const TrackArgs<bf16, Q8>& p, const int* real,
   const void* wk = aw.wk;
   const void* wv = aw.wv;
   if constexpr (Q8) {
-    const uint32_t track_blocks = dequant_track_blocks(C);
+    if (!dequant_track_fits(C, p.taps)) return cudaErrorInvalidValue;
+    const uint32_t track_blocks = dequant_track_blocks(C, p.taps);
     onepass_dequant_kernel<<<track_blocks + dequant_kv_blocks(H, C, KD, VD),
                              kThreads, 0, stream>>>(p, aw, sc, C, H, KD, VD,
                                                     track_blocks);
@@ -230,7 +235,7 @@ cudaError_t launch_onepass_bf16(int seg_masked, const TrackArgs<bf16, Q8>& p,
   if (scratch == nullptr || !sm90_shape_ok(B, C) || C > 512)
     return cudaErrorInvalidValue;
   const OnepassScratch sc =
-      onepass_scratch(scratch, Q8, B, p.L, C, p.S, H, KD, G / H);
+      onepass_scratch(scratch, Q8, B, p.L, C, p.S, H, KD, G / H, p.taps);
   const int* r = static_cast<const int*>(real);
   const bf16* gg = static_cast<const bf16*>(g);
   return seg_masked

@@ -290,12 +290,17 @@ def check_attention_shapes(params: Params, local: torch.Tensor,
 
 def attention_route(C: int, G: int, L: int, S: int, key_dim: int, H: int,
                     value_dim: int, dtype: torch.dtype, packed: bool,
-                    name: str = "fused_attention") -> Tuple[str, str]:
+                    name: str = "fused_attention",
+                    device: Optional[torch.device] = None
+                    ) -> Tuple[str, str]:
     """The attention's route, (path, reason), on every device: ("pallas",
     "dense" | "packed") where K2 covers the shape; ("reference",
     "unsupported_shape" | "segments") where the JAX gate refuses it and
     K2 does not cover it; ValueError, naming what K2 lacks, where the
-    gate accepts it and K2 does not cover it."""
+    gate accepts it and K2 does not cover it. On a CUDA `device`,
+    RuntimeError while JAX's force-reference switch is set
+    (`budget.refuse_forced_reference`)."""
+    budget.refuse_forced_reference(name, device)
     why = attention_coverage(C, G, L, S, key_dim, H, value_dim, dtype)
     if why is None:
         return "pallas", "packed" if packed else "dense"
@@ -480,7 +485,7 @@ def fused_global_attention(
     H, key_dim, value_dim = _heads(params)
     path, reason = attention_route(C, G, L, 1, key_dim, H, value_dim,
                                    local.dtype, False,
-                                   "fused_global_attention")
+                                   "fused_global_attention", local.device)
     note_attention_path(path, reason,
                         (B, L, C, 1, G, dtype_name(local.dtype)))
     if pad_mask is None:
@@ -524,7 +529,7 @@ def fused_packed_attention(
     H, key_dim, value_dim = _heads(params)
     path, reason = attention_route(C, G, L, S, key_dim, H, value_dim,
                                    local.dtype, True,
-                                   "fused_packed_attention")
+                                   "fused_packed_attention", local.device)
     note_attention_path(path, reason,
                         (B, L, C, S, G, dtype_name(local.dtype)))
     ids = segment_ids

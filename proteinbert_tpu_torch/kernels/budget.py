@@ -21,12 +21,39 @@ are double-buffered; float32 temporaries price at 4 bytes.
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
 
 MAX_PALLAS_DIM = 512
 MAX_TILED_DIM = 2048
 LANE = 128
 VMEM_BUDGET = 13 * 1024 * 1024
+
+
+# JAX's debug switch (`fused_block.FORCE_REFERENCE_ENV`): every local-track
+# dispatch on the XLA reference. The port does not port it
+# (`kernels.NOT_PORTED`): on the card it would put the plain versions on
+# the main path, which the launch-or-raise rule forbids.
+_FORCE_REFERENCE_ENV = "PBT_FORCE_REFERENCE_KERNEL"
+
+
+def refuse_forced_reference(name: str,
+                            device: Optional[torch.device]) -> None:
+    """RuntimeError where a route runs on a CUDA `device` while JAX's
+    force-reference switch is on (parsed as JAX parses it: unset, empty,
+    "0" and "false" mean off), so that nobody trusts a forced route that
+    does not happen; nothing on the CPU or for `device` None."""
+    if device is None or torch.device(device).type != "cuda":
+        return
+    if os.environ.get(_FORCE_REFERENCE_ENV, "").strip().lower() in (
+            "", "0", "false"):
+        return
+    raise RuntimeError(
+        f"{name}: {_FORCE_REFERENCE_ENV} is set, and the port has no forced "
+        f"reference route: on a CUDA device every route the kernels cover "
+        f"launches its kernel. Unset it.")
 
 
 def lanes(n: int) -> int:

@@ -36,10 +36,19 @@ for the tiled widths, K1's or #2's prehaloed entry — wherever a port
 kernel covers the shape; the reference route where the JAX gate
 (`budget.pallas_segments_supported`, `budget.pallas_supported` on the
 shard's own L) refuses the shape and no port kernel covers it; and
-ValueError where the gate accepts a shape no port kernel covers (taps
-other than 9, a wide dilation above 5). The reference route runs the port
-of the JAX XLA reference with plain autograd (`*_grad_reference`, the
-activation dtype, float32 LayerNorm statistics). The packed entry counts
+ValueError where the gate accepts a shape no port kernel covers (even
+taps on the dense route, where JAX's kernel fails too). The reference
+route runs the port of the JAX XLA reference with plain autograd
+(`*_grad_reference`, the activation dtype, float32 LayerNorm
+statistics). The kernels take every odd tap count and dilation JAX's
+gates send to a Pallas kernel (#2 and #4 equal taps, as JAX's tiled plan
+does). The preset geometry (9-tap convs, narrow dilation 1, wide
+dilation <= 5) keeps the conv passes whose window holds a 20-row halo
+(bf16, and float32 #2 / #4) and any other runs the general ones, whose
+layout does not depend on the halo (csrc/local_track_sm90.cuh,
+csrc/local_track_tiled.cuh); the float32 tile of K1, #3 and #6 holds no
+halo window at any geometry (csrc/local_track.cuh). The packed entry
+counts
 its decision in `PATH_TOTAL` (`fused_kernel_path_total{path,reason}`)
 under JAX's labels; the prehaloed entry counts none, as JAX's seq step
 does not.
@@ -162,41 +171,46 @@ TRACK_PARAMS = ("narrow_conv", "wide_conv", "local_ln1", "local_dense",
 # Every entry's C signature: dtype, x, [seg], bcast, the weights (int8 leg:
 # each conv / dense kernel followed by its scales), biases and LN vectors,
 # the scratches (`track_scratch_layout`'s parts), out, then B, L, C, [S],
-# wide dilation and the stream.
+# the narrow and wide taps, the narrow and wide dilations and the stream.
 LOCAL_TRACK = Kernel(
     "local_track", "local_track.cu", "pbt_local_track",
-    [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
+    [INT] + [PTR] * 14 + [INT] * 7 + [PTR])
 LOCAL_TRACK_SEGMENTS = Kernel(
     "local_track_segments", "local_track_segments.cu",
-    "pbt_local_track_segments", [INT] + [PTR] * 15 + [INT] * 5 + [PTR])
+    "pbt_local_track_segments", [INT] + [PTR] * 15 + [INT] * 8 + [PTR])
 LOCAL_TRACK_TILED = Kernel(
     "local_track_tiled", "local_track_tiled.cu", "pbt_local_track_tiled",
-    [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
+    [INT] + [PTR] * 14 + [INT] * 7 + [PTR])
 LOCAL_TRACK_SEGMENTS_TILED = Kernel(
     "local_track_segments_tiled", "local_track_segments_tiled.cu",
-    "pbt_local_track_segments_tiled", [INT] + [PTR] * 15 + [INT] * 5 + [PTR])
+    "pbt_local_track_segments_tiled", [INT] + [PTR] * 15 + [INT] * 8 + [PTR])
 LOCAL_TRACK_SEGMENTS_Q8 = Kernel(
     "local_track_segments_q8", "local_track_segments_q8.cu",
-    "pbt_local_track_segments_q8", [INT] + [PTR] * 21 + [INT] * 5 + [PTR])
+    "pbt_local_track_segments_q8", [INT] + [PTR] * 21 + [INT] * 8 + [PTR])
 LOCAL_TRACK_VALID = Kernel(
     "local_track_valid", "local_track_valid.cu", "pbt_local_track_valid",
-    [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
+    [INT] + [PTR] * 14 + [INT] * 7 + [PTR])
 LOCAL_TRACK_TILED_VALID = Kernel(
     "local_track_tiled_valid", "local_track_tiled_valid.cu",
-    "pbt_local_track_tiled_valid", [INT] + [PTR] * 14 + [INT] * 4 + [PTR])
+    "pbt_local_track_tiled_valid", [INT] + [PTR] * 14 + [INT] * 7 + [PTR])
 
 # What the CUDA kernels cover.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTHS = (128, 256, 384, 512)      # K1, #3
 TILED_WIDTHS = tuple(range(640, 2049, 128))  # #2, #4
-KERNEL_TAPS = 9
-MAX_WIDE_DILATION = 5  # the window's 20-row halo
-# The local track's constants in csrc/local_track.cuh under their C names
-# (the float32 tile's rows and k-step are `TrackCfg<float, C>`'s TL and
-# KC); `one_pass.track_f32_smem` derives the float32 plan's shared memory
-# from them, and the port's tests hold them to the header.
-CUDA_CONSTANTS = {"kTaps": KERNEL_TAPS, "kHalo": 20, "TL": 16, "KC": 16,
-                  "PAD": 0}
+# The local track's constants in csrc/local_track.cuh under their C names:
+# the largest reach (rows each side) and the float32 tile's rows and k-step
+# (`TrackCfg<float, C>`'s TL and KC). `track_coverage` and
+# `one_pass.track_f32_smem` read them, and the port's tests hold them to
+# the header.
+CUDA_CONSTANTS = {"kMaxHalo": 1 << 20, "TL": 16, "KC": 16, "PAD": 0}
+
+
+def conv_halo(narrow_taps: int, wide_taps: int, narrow_dilation: int,
+              wide_dilation: int) -> int:
+    """Rows each side the two convs reach (JAX `track_halo` on shapes)."""
+    return max((narrow_taps - 1) // 2 * narrow_dilation,
+               (wide_taps - 1) // 2 * wide_dilation)
 
 
 def _finish(params: Params, h: torch.Tensor,
@@ -256,14 +270,17 @@ def local_track_grad_reference(
         params, x + narrow + wide + broadcast[:, None, :])
 
 
+def conv_taps(params: Params) -> Tuple[int, int]:
+    """The (narrow, wide) convs' tap counts."""
+    return (weight_leaf(params["narrow_conv"]["kernel"]).shape[0],
+            weight_leaf(params["wide_conv"]["kernel"]).shape[0])
+
+
 def track_halo(params: Params, narrow_dilation: int = 1,
                wide_dilation: int = 5) -> int:
     """Context rows each side a shard needs for exact conv results (20 for
     the k=9/d=5 geometry) — the JAX `track_halo`."""
-    nt = weight_leaf(params["narrow_conv"]["kernel"]).shape[0]
-    wt = weight_leaf(params["wide_conv"]["kernel"]).shape[0]
-    return max((nt - 1) // 2 * narrow_dilation,
-               (wt - 1) // 2 * wide_dilation)
+    return conv_halo(*conv_taps(params), narrow_dilation, wide_dilation)
 
 
 def _valid_conv(p, xh: torch.Tensor, dilation: int, halo: int,
@@ -440,19 +457,28 @@ def track_coverage(C: int, dtype: torch.dtype, narrow_taps: int,
                    wide_taps: int, narrow_dilation: int, wide_dilation: int,
                    widths=KERNEL_WIDTHS) -> Optional[str]:
     """None where the local-track kernels cover these operands (bf16 /
-    fp32, C in `widths`, k=9 convs with narrow dilation 1 and wide
-    dilation <= 5), else what they lack."""
+    fp32, C in `widths`, odd taps — equal ones at the channel-tiled widths
+    (#2, #4), as JAX's tiled plan takes — dilations >= 1 and a reach of at
+    most kMaxHalo rows), else what they lack."""
     if dtype not in KERNEL_DTYPES:
         return f"no kernel for {dtype}"
     if C not in widths:
         return f"no kernel for C={C} in {dtype} (have {widths})"
-    if (narrow_taps != KERNEL_TAPS or wide_taps != KERNEL_TAPS
-            or narrow_dilation != 1
-            or not 1 <= wide_dilation <= MAX_WIDE_DILATION):
-        return (f"the kernel covers k=9 convs with narrow dilation 1 and "
-                f"wide dilation <= {MAX_WIDE_DILATION}; got taps "
-                f"{narrow_taps}/{wide_taps}, dilations "
+    if narrow_taps % 2 == 0 or wide_taps % 2 == 0 or min(narrow_taps,
+                                                         wide_taps) < 1:
+        return (f"the kernels take odd taps, got {narrow_taps}/{wide_taps}; "
+                f"JAX's Pallas kernel fails at even taps too (its tap "
+                f"offsets (t - (k-1)//2)·d run past the 2·halo window)")
+    if narrow_dilation < 1 or wide_dilation < 1:
+        return (f"the kernels take dilations >= 1, got "
                 f"{narrow_dilation}/{wide_dilation}")
+    halo = conv_halo(narrow_taps, wide_taps, narrow_dilation, wide_dilation)
+    if halo > CUDA_CONSTANTS["kMaxHalo"]:
+        return (f"the convs reach {halo} rows, beyond the kernels' "
+                f"{CUDA_CONSTANTS['kMaxHalo']}")
+    if C > KERNEL_WIDTHS[-1] and narrow_taps != wide_taps:
+        return (f"the channel-tiled kernels (#2, #4) take equal taps, as "
+                f"JAX's tiled plan does; got {narrow_taps}/{wide_taps}")
     return None
 
 
@@ -477,13 +503,17 @@ def check_track_shapes(name: str, params: Params, x: torch.Tensor,
 def track_route(C: int, L: int, dtype: torch.dtype, narrow_taps: int,
                 wide_taps: int, narrow_dilation: int, wide_dilation: int,
                 max_segments: Optional[int] = None,
-                name: str = "fused_local_track") -> Tuple[str, str]:
+                name: str = "fused_local_track",
+                device: Optional[torch.device] = None) -> Tuple[str, str]:
     """The local track's route, (path, reason), on every device: ("pallas",
     "dense" | "packed") where K1 / #2 (#3 / #4 for packed rows, S =
     `max_segments`) cover the shape; ("reference", "unsupported_shape" |
     "segments") where the JAX gate refuses it and no port kernel covers
     it. ValueError, naming the kernel the port lacks, where the gate
-    accepts it and no port kernel covers it."""
+    accepts it and no port kernel covers it (even taps, dense). On a CUDA
+    `device`, RuntimeError while JAX's force-reference switch is set
+    (`budget.refuse_forced_reference`)."""
+    budget.refuse_forced_reference(name, device)
     packed = max_segments is not None
     why = track_coverage(C, dtype, narrow_taps, wide_taps, narrow_dilation,
                          wide_dilation, KERNEL_WIDTHS + TILED_WIDTHS)
@@ -528,15 +558,18 @@ def _track_operands(name: str, params: Params, x: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=64)
-def track_scratch_layout(B: int, L: int, C: int, quant: bool) -> tuple:
+def track_scratch_layout(B: int, L: int, C: int, quant: bool,
+                         narrow_taps: int, wide_taps: int) -> tuple:
     """The scratches of one bf16 local-track call (and of #2 / #4 in
     float32) as parts of one byte buffer, in the C entry's order: ((shape,
     dtype, byte offset), ...) and the buffer's bytes, each part 256-byte
-    aligned. On #3's int8 leg the dequantized nk, wk (9, C, C) and dk (C,
-    C) bf16 its dequantize pass writes, then the float32 (B, L, C) h where
-    the conv pass and the finish pass meet (csrc/local_track_sm90.cuh)."""
-    parts = ([((KERNEL_TAPS, C, C), torch.bfloat16)] * 2
-             + [((C, C), torch.bfloat16)] if quant else [])
+    aligned. On #3's int8 leg the dequantized nk (narrow_taps, C, C), wk
+    (wide_taps, C, C) and dk (C, C) bf16 its dequantize pass writes, then
+    the float32 (B, L, C) h where the conv pass and the finish pass meet
+    (csrc/local_track_sm90.cuh)."""
+    parts = ([((narrow_taps, C, C), torch.bfloat16),
+              ((wide_taps, C, C), torch.bfloat16),
+              ((C, C), torch.bfloat16)] if quant else [])
     parts.append(((B, L, C), torch.float32))
     layout, offset = [], 0
     for shape, dtype in parts:
@@ -546,13 +579,13 @@ def track_scratch_layout(B: int, L: int, C: int, quant: bool) -> tuple:
 
 
 def _scratch(B: int, L: int, C: int, quant: bool, needed: bool,
-             device: torch.device):
+             device: torch.device, taps: Tuple[int, int]):
     """One fresh buffer for `track_scratch_layout`'s parts (each
     torch.empty costs the host several microseconds) and the parts'
     addresses; (None, [None, ...]) where the launch needs no scratch
     (float32 K1 and #3). The caller keeps the buffer until it has
     launched."""
-    layout, nbytes = track_scratch_layout(B, L, C, quant)
+    layout, nbytes = track_scratch_layout(B, L, C, quant, *taps)
     if not needed:
         return None, [None] * len(layout)
     buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -610,12 +643,13 @@ def _launch_track(
         check_tma(name, x, weights[0], weights[2], weights[6])
     check_cuda(name, x, bc, *weights, out)
     # The two passes (bf16, and #2 in float32) meet in a float32 scratch.
+    taps = conv_taps(params)
     _buf, (h,) = _scratch(B, L, C, False, bf16 or C not in KERNEL_WIDTHS,
-                          x.device)
+                          x.device, taps)
     with torch.cuda.device(x.device):
         kernel.launch(code, *(t.data_ptr() for t in (x, bc, *weights)), h,
-                      out.data_ptr(), B, L, C, wide_dilation,
-                      stream_ptr(x.device))
+                      out.data_ptr(), B, L, C, *taps, narrow_dilation,
+                      wide_dilation, stream_ptr(x.device))
     return out
 
 
@@ -669,10 +703,9 @@ def fused_local_track_valid(
     params = dequant_params(params)
     halo = track_halo(params, narrow_dilation, wide_dilation)
     path, _ = track_route(
-        xh.shape[-1], xh.shape[1] - 2 * halo, xh.dtype,
-        params["narrow_conv"]["kernel"].shape[0],
-        params["wide_conv"]["kernel"].shape[0], narrow_dilation,
-        wide_dilation, name="fused_local_track_valid")
+        xh.shape[-1], xh.shape[1] - 2 * halo, xh.dtype, *conv_taps(params),
+        narrow_dilation, wide_dilation, name="fused_local_track_valid",
+        device=xh.device)
     if path == "reference":
         return local_track_valid_grad_reference(
             params, xh, broadcast, narrow_dilation, wide_dilation)
@@ -744,12 +777,13 @@ def _segments_kernel(
                   *(weights[i] for i in ((0, 1, 3, 4, 8, 9) if quant
                                          else (0, 2, 6))))
     check_cuda("fused_local_track_segments", x, seg, bc, *weights, out)
+    taps = conv_taps(params)
     _buf, scratch = _scratch(B, L, C, quant, bf16 or C not in KERNEL_WIDTHS,
-                             x.device)
+                             x.device, taps)
     with torch.cuda.device(x.device):
         kernel.launch(code, *(t.data_ptr() for t in (x, seg, bc, *weights)),
-                      *scratch, out.data_ptr(), B, L, C, S, wide_dilation,
-                      stream_ptr(x.device))
+                      *scratch, out.data_ptr(), B, L, C, S, *taps,
+                      narrow_dilation, wide_dilation, stream_ptr(x.device))
     return out
 
 
@@ -770,10 +804,8 @@ def fused_local_track_segments(
     B, L, C = x.shape
     S = broadcast_seg.shape[1]
     path, reason = track_route(
-        C, L, x.dtype, weight_leaf(params["narrow_conv"]["kernel"]).shape[0],
-        weight_leaf(params["wide_conv"]["kernel"]).shape[0],
-        narrow_dilation, wide_dilation, max_segments=S,
-        name="fused_local_track_segments")
+        C, L, x.dtype, *conv_taps(params), narrow_dilation, wide_dilation,
+        max_segments=S, name="fused_local_track_segments", device=x.device)
     note_kernel_path(path, reason, (B, L, C, S, dtype_name(x.dtype)))
     if path == "reference":
         return _segments_grad_reference(
@@ -794,7 +826,8 @@ def fused_local_track_segments(
                          wide_dilation)
 
 
-def local_track_flops(B: int, L: int, C: int, taps: int = KERNEL_TAPS) -> int:
-    """The TPU kernel's own count (fused_block.py:779): two k-tap convs
-    and the dense, 2·B·L·C²·(2·taps + 1)."""
-    return 2 * B * L * C * C * (2 * taps + 1)
+def local_track_flops(B: int, L: int, C: int, narrow_taps: int = 9,
+                      wide_taps: int = 9) -> int:
+    """The TPU kernel's own count (fused_block.py:779): the two convs and
+    the dense, 2·B·L·C²·(narrow_taps + wide_taps + 1)."""
+    return 2 * B * L * C * C * (narrow_taps + wide_taps + 1)

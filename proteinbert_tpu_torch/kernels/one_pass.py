@@ -77,8 +77,8 @@ from proteinbert_tpu_torch.kernels.build import (
     INT, PTR, Kernel, check_cuda, check_tma, stream_ptr,
 )
 from proteinbert_tpu_torch.kernels.fused_block import (
-    CUDA_CONSTANTS as TRACK_CONSTANTS, KERNEL_TAPS, _device_check,
-    _track_operands, check_track_shapes,
+    CUDA_CONSTANTS as TRACK_CONSTANTS, _device_check, _track_operands,
+    check_track_shapes, conv_taps,
     fused_local_track, fused_local_track_segments,
     local_track_grad_reference, local_track_reference,
     local_track_segment_oh_grad_reference, local_track_segment_oh_reference,
@@ -123,16 +123,16 @@ def note_onepass_path(path: str, reason: str,
 
 # dtype, seg_masked, x, seg, real, bcast, g, the track's weights (nk, nb,
 # wk, wb, s1, b1, dk, db, s2, b2), wq, wk, wv, local, attn, the scratch
-# buffer, then B, L, C, G, S, H, key_dim, wide_dilation, zero_empty and
-# the stream.
+# buffer, then B, L, C, G, S, H, key_dim, the narrow and wide taps, the
+# narrow and wide dilations, zero_empty and the stream.
 ONEPASS = Kernel(
     "one_pass", "one_pass.cu", "pbt_onepass",
-    [INT, INT] + [PTR] * 21 + [INT] * 9 + [PTR])
+    [INT, INT] + [PTR] * 21 + [INT] * 12 + [PTR])
 # The same with the int8 weights and their scales in place of the track's
 # and the attention's weights.
 ONEPASS_Q8 = Kernel(
     "one_pass_q8", "one_pass_q8.cu", "pbt_onepass_q8",
-    [INT, INT] + [PTR] * 27 + [INT] * 9 + [PTR])
+    [INT, INT] + [PTR] * 27 + [INT] * 12 + [PTR])
 
 # What the CUDA kernel covers (beyond the local track's convs and K2's
 # head dims): the widths of each activation dtype. The one-pass rule never
@@ -292,13 +292,15 @@ def onepass_passes_reference(
 @functools.lru_cache(maxsize=64)
 def onepass_scratch_layout(B: int, L: int, C: int, S: int, H: int,
                            value_dim: int, quant: bool,
-                           dtype: torch.dtype, key_dim: int) -> tuple:
+                           dtype: torch.dtype, key_dim: int,
+                           narrow_taps: int, wide_taps: int) -> tuple:
     """The scratches of one #6 call as parts of one byte buffer, in the
     order the C entry carves them (csrc/one_pass_sm90.cuh
     `onepass_scratch`): ((shape, dtype, byte offset), ...) and the
     buffer's bytes, each part 256-byte aligned. In bf16: on the int8 leg
-    the dequantized nk, wk (9, C, C), dk (C, C), attention wk (H, C,
-    key_dim) and wv (H, C, value_dim) bf16; then h (B, L, C) float32
+    the dequantized nk (narrow_taps, C, C), wk (wide_taps, C, C), dk (C,
+    C), attention wk (H, C, key_dim) and wv (H, C, value_dim) bf16; then h
+    (B, L, C) float32
     (where the conv and finish passes meet), q (B, S, H, key_dim) float32,
     the mask ids (B, L) int32, scores (B, H, L) float32 (one a position)
     and V (B, L, H·value_dim) bf16. float32 (one launch) takes q alone."""
@@ -306,9 +308,9 @@ def onepass_scratch_layout(B: int, L: int, C: int, S: int, H: int,
     if dtype != bf16:
         parts = [((B, S, H, k), torch.float32)]
     else:
-        parts = ([((KERNEL_TAPS, C, C), bf16)] * 2
-                 + [((C, C), bf16), ((H, C, k), bf16),
-                    ((H, C, value_dim), bf16)] if quant else [])
+        parts = ([((narrow_taps, C, C), bf16), ((wide_taps, C, C), bf16),
+                  ((C, C), bf16), ((H, C, k), bf16),
+                  ((H, C, value_dim), bf16)] if quant else [])
         parts += [((B, L, C), torch.float32), ((B, S, H, k), torch.float32),
                   ((B, L), torch.int32), ((B, H, L), torch.float32),
                   ((B, L, H * value_dim), bf16)]
@@ -321,18 +323,18 @@ def onepass_scratch_layout(B: int, L: int, C: int, S: int, H: int,
 
 def track_f32_smem(C: int, seg: bool) -> int:
     """Shared-memory bytes of the float32 local-track tile at width C
-    (csrc/local_track.cuh `TrackSmem<float, C, SEG>::total`: a (TL + 2 ·
-    kHalo, C + PAD) window, the (TL, C) float32 h, a double buffer of
-    (KC, C + PAD) weight tiles, and for packed rows a (TL, KC + PAD)
-    staging tile and the window's ids), from `fused_block.CUDA_CONSTANTS`.
-    """
+    (csrc/local_track.cuh `TrackSmem<float, C, SEG>::total`), from
+    `fused_block.CUDA_CONSTANTS`, at every tap count and dilation: the
+    tile's own (TL, C + PAD) rows, the (TL, C) float32 h, a double buffer
+    of (KC, C + PAD) weight tiles, a double-buffered (TL, KC + PAD) A tile,
+    and for packed rows the tile's ids; no halo rows."""
     c = TRACK_CONSTANTS
-    win, ldw = c["TL"] + 2 * c["kHalo"], C + c["PAD"]
-    total = (_align128(win * ldw * 4) + _align128(c["TL"] * C * 4)
-             + _align128(2 * c["KC"] * ldw * 4))
+    tl, ldw, lda = c["TL"], C + c["PAD"], c["KC"] + c["PAD"]
+    total = (_align128(tl * ldw * 4) + _align128(tl * C * 4)
+             + _align128(2 * c["KC"] * ldw * 4)
+             + _align128(2 * tl * lda * 4))
     if seg:
-        total += (_align128(c["TL"] * (c["KC"] + c["PAD"]) * 4)
-                  + _align128(win * 4))
+        total += _align128(tl * 4)
     return total
 
 
@@ -361,12 +363,16 @@ def onepass_coverage(C: int, G: int, L: int, S: int, key_dim: int, H: int,
 def onepass_route(C: int, G: int, L: int, S: int, key_dim: int, H: int,
                   value_dim: int, dtype: torch.dtype, narrow_taps: int,
                   wide_taps: int, narrow_dilation: int, wide_dilation: int,
-                  packed: bool) -> Tuple[str, str]:
+                  packed: bool, device: Optional[torch.device] = None
+                  ) -> Tuple[str, str]:
     """The block's route, (path, reason), on every device: ("pallas",
     "packed" | "dense") — #6 — where the reference's rule admits the
     shape; else ("reference", "segments" | "unsupported_shape") — the
     composition. ValueError, naming what #6 lacks, where the rule admits
-    a shape #6 does not cover."""
+    a shape #6 does not cover. On a CUDA `device`, RuntimeError while
+    JAX's force-reference switch is set
+    (`budget.refuse_forced_reference`)."""
+    budget.refuse_forced_reference("fused_onepass", device)
     if not budget.onepass_supported(C, G, L, S, key_dim, H, dtype,
                                     narrow_taps, wide_taps, wide_dilation,
                                     narrow_dilation):
@@ -480,9 +486,10 @@ def _onepass_kernel(
         check_tma("fused_onepass", x, *(weights[i] for i in mats))
         check_tma("fused_onepass", *attn_w, stride_bytes=8 if quant else 16)
     check_cuda("fused_onepass", *ops)
+    taps = conv_taps(track_params)
     layout, nbytes = onepass_scratch_layout(
         B, L, C, S, H, weight_leaf(attn_params["wv"]).shape[-1], quant,
-        dtype, key_dim)
+        dtype, key_dim, *taps)
     # One allocation for every scratch (each torch.empty costs the host
     # microseconds), held until the passes are enqueued; the caching
     # allocator orders its reuse on the stream.
@@ -491,8 +498,8 @@ def _onepass_kernel(
     with torch.cuda.device(x.device):
         kernel.launch(code, int(segment_ids is not None),
                       *(t.data_ptr() for t in ops), buf.data_ptr(),
-                      B, L, C, G, S, H, key_dim, wide_dilation,
-                      int(zero_empty), stream_ptr(x.device))
+                      B, L, C, G, S, H, key_dim, *taps, narrow_dilation,
+                      wide_dilation, int(zero_empty), stream_ptr(x.device))
     return local, attn
 
 
@@ -531,9 +538,8 @@ def _route(track_params: Params, attn_params: Params, x: torch.Tensor,
     H, _, key_dim = weight_leaf(attn_params["wq"]).shape
     return onepass_route(
         C, G, L, S, key_dim, H, weight_leaf(attn_params["wv"]).shape[-1],
-        x.dtype, weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
-        weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
-        narrow_dilation, wide_dilation, packed)
+        x.dtype, *conv_taps(track_params), narrow_dilation, wide_dilation,
+        packed, x.device)
 
 
 def fused_onepass_segments(
@@ -584,10 +590,8 @@ def fused_onepass_dense(
     if path == "reference":
         # The dense composition: the track by its own route, then K2's.
         track_path, track_reason = track_route(
-            C, L, x.dtype,
-            weight_leaf(track_params["narrow_conv"]["kernel"]).shape[0],
-            weight_leaf(track_params["wide_conv"]["kernel"]).shape[0],
-            narrow_dilation, wide_dilation)
+            C, L, x.dtype, *conv_taps(track_params), narrow_dilation,
+            wide_dilation, device=x.device)
         note_kernel_path(track_path, track_reason,
                          (B, L, C, dtype_name(x.dtype)))
         if track_path == "reference":
@@ -607,11 +611,12 @@ def fused_onepass_dense(
 
 
 def onepass_flops(B: int, L: int, C: int, G: int, S: int, H: int,
-                  key_dim: int, taps: int = 9) -> int:
+                  key_dim: int, narrow_taps: int = 9,
+                  wide_taps: int = 9) -> int:
     """The TPU kernel's own count (one_pass.py:362-366): the track's
-    2·B·L·C²·(2·taps + 1) plus the attention's projections and
-    score/weighted-sum products."""
+    2·B·L·C²·(narrow_taps + wide_taps + 1) plus the attention's
+    projections and score/weighted-sum products."""
     v_dim = G // H
-    return (2 * B * L * C * C * (2 * taps + 1)
+    return (2 * B * L * C * C * (narrow_taps + wide_taps + 1)
             + 2 * B * H * (L * C * (key_dim + v_dim) + S * G * key_dim
                            + L * S * (key_dim + v_dim)))

@@ -54,14 +54,15 @@ WIDTHS = (32, 64, 128, 200, 256, 384, 512, 640, 1024, 2048, 2176)
 LENGTHS = (4, 8, 128, 512, 2048)
 SEGMENTS = (1, 8, 16, 32, 64, 256, 512)
 DTYPES = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
-TAPS = ((7, 7), (9, 9), (11, 11), (9, 7))
-DILATIONS = tuple(range(1, 8))
+TAPS = ((7, 7), (9, 9), (11, 11), (9, 7), (5, 5), (13, 13), (8, 8))
+DILATIONS = tuple(range(1, 8)) + (12, 40)
 KEY_DIMS = (16, 32, 48, 64, 128)
 HEADS = ((256, 4), (512, 8), (512, 2), (512, 16), (1024, 4))  # (G, H)
 
 # What the port's kernels cover, written out apart from the code under
 # test: the local track at C in {128, 256, 384, 512} (K1, #3) and 640 ...
-# 2048 in steps of 128 (#2, #4), k=9 convs, narrow dilation 1, wide <= 5;
+# 2048 in steps of 128 (#2, #4), odd taps (equal ones at 640 ... 2048),
+# dilations >= 1 reaching at most 2^20 rows;
 # K2 at C a multiple of 32 up to 2048, head widths multiples of 8 (key
 # <= 128, value <= 256), any S up to 65535, float32 one score a position
 # in shared memory; #6 at the local track's convs, C in {128, 256, 384,
@@ -81,12 +82,16 @@ def _f32_attn_smem(L):
 
 
 def _f32_track_smem(C, seg):
-    return (_a128(56 * C * 4) + _a128(16 * C * 4) + _a128(2 * 16 * C * 4)
-            + (_a128(16 * 16 * 4) + _a128(56 * 4) if seg else 0))
+    # The tile's own 16 rows, h, the weight tiles and a double-buffered
+    # (16, 16) A tile; no halo rows, whatever the taps.
+    return (_a128(16 * C * 4) + _a128(16 * C * 4) + _a128(2 * 16 * C * 4)
+            + _a128(2 * 16 * 16 * 4) + (_a128(16 * 4) if seg else 0))
 
 
 def _track_covered(C, nt, wt, nd, wd, widths=TRACK_WIDTHS):
-    return C in widths and nt == wt == 9 and nd == 1 and 1 <= wd <= 5
+    return (C in widths and nt % 2 == 1 and wt % 2 == 1 and nd >= 1
+            and wd >= 1 and max((nt - 1) // 2 * nd, (wt - 1) // 2 * wd)
+            <= 2 ** 20 and (C <= 512 or nt == wt))
 
 
 def _heads_covered(k, G, H):
@@ -159,7 +164,8 @@ def test_track_route_on_the_grid():
     """The local track's route, dense and packed: the kernel where K1 /
     #2 (#3 / #4) cover the shape; the reference route exactly where the
     JAX gate refuses it and no kernel covers it; ValueError exactly where
-    the gate accepts it and no kernel covers it."""
+    the gate accepts it and no kernel covers it (even taps on the dense
+    route, where JAX's kernel fails too)."""
     counts = {}
     for C in WIDTHS:
         for L in LENGTHS:
@@ -238,15 +244,16 @@ def test_attention_route_on_the_grid():
 
 def test_onepass_route_on_the_grid():
     """#6's route: #6 where the JAX rule admits the shape and #6 covers
-    it (any S the rule admits, 32 to 512 too), ValueError where the rule
-    admits it and #6 does not (taps other than 9, a wide dilation above
-    5), the composition ("reference") wherever the rule refuses."""
+    it (any S the rule admits, 32 to 512 too; any odd taps and wide
+    dilation), ValueError where the rule admits it and #6 does not (a
+    key_dim of 136, past K2's 128), the composition ("reference")
+    wherever the rule refuses (even taps among them)."""
     counts = {}
     for C in WIDTHS:
         for L in LENGTHS:
             for name, dt in DTYPES:
                 for S in SEGMENTS:
-                    for k in (16, 48, 128):
+                    for k in (16, 48, 128, 136):
                         for G, H in HEADS:
                             for nt, wt in TAPS:
                                 for wd in (1, 5, 6):

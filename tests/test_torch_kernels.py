@@ -426,7 +426,7 @@ def test_base_width_scratches_have_the_c_entry_shapes(entry, dtype,
     C, B, L = 256, 2, 40
     p = _meta_track(C, dtype)
     rows = L + (2 * tfused.track_halo(p, 1, 5) if entry == "prehaloed" else 0)
-    layout, nbytes = tfused.track_scratch_layout(B, L, C, False)
+    layout, nbytes = tfused.track_scratch_layout(B, L, C, False, 9, 9)
     assert layout == (((B, L, C), torch.float32, 0),)
     assert nbytes >= B * L * C * 4 and nbytes % 256 == 0
     out = _base_call(entry, p, _meta(B, rows, C, dtype=dtype), B, L)
@@ -434,8 +434,9 @@ def test_base_width_scratches_have_the_c_entry_shapes(entry, dtype,
     ((name, a),) = track_launches
     kernel = _BASE_KERNELS[entry]
     assert name == kernel.name and len(a) == len(kernel.argtypes)
-    # ..., b2, h, out, then B, L, C, [S,] wide dilation and the stream
-    h = a[-8] if entry == "segments" else a[-7]
+    # ..., b2, h, out, then B, L, C, [S,] the narrow and wide taps and
+    # dilations, and the stream
+    h = a[-11] if entry == "segments" else a[-10]
     assert (h is None) == (dtype == torch.float32)
     assert a[0] == tfused.KERNEL_DTYPES[dtype]
 

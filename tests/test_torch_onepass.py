@@ -540,7 +540,7 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     b, n, _ = x.shape
     s = bs.shape[1]
     layout, nbytes = tone.onepass_scratch_layout(b, n, C, s, Hh, v, quant,
-                                                 dtype, 64)
+                                                 dtype, 64, 9, 9)
     if dtype == torch.float32:
         assert layout == (((b, s, Hh, 64), torch.float32, 0),)
         assert nbytes % 256 == 0 and nbytes >= b * s * Hh * 64 * 4
@@ -562,8 +562,8 @@ def test_onepass_scratches_have_the_c_entry_shapes(quant, dtype,
     ((name, a),) = onepass_launches
     kernel = tone.ONEPASS_Q8 if quant else tone.ONEPASS
     assert name == kernel.name and len(a) == len(kernel.argtypes)
-    # ..., local, attn, scratch, then B, L, C, G, S, H, key_dim, wide
-    # dilation, zero_empty and the stream.
-    assert a[-11] is not None
-    assert a[-12] is not None and a[-4:-1] == (64, 5, 1)
+    # ..., local, attn, scratch, then B, L, C, G, S, H, key_dim, the narrow
+    # and wide taps and dilations, zero_empty and the stream.
+    assert a[-14] is not None
+    assert a[-15] is not None and a[-7:-1] == (64, 9, 9, 1, 5, 1)
     assert a[:2] == (tfused.KERNEL_DTYPES[dtype], 1)

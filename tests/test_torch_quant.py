@@ -503,7 +503,7 @@ def test_segment_track_int8_scratches_have_the_c_entry_shapes(
         monkeypatch.setattr(k, "launch", lambda *a, k=k: args.append(a))
     C, B, L, S = 256, 2, 40, 3
     bf16, f32 = torch.bfloat16, torch.float32
-    layout, nbytes = tfused.track_scratch_layout(B, L, C, True)
+    layout, nbytes = tfused.track_scratch_layout(B, L, C, True, 9, 9)
     assert [(shape, dt) for shape, dt, _ in layout] == [
         ((9, C, C), bf16), ((9, C, C), bf16), ((C, C), bf16),
         ((B, L, C), f32)]

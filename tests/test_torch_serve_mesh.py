@@ -354,19 +354,24 @@ def test_server_on_a_mesh_answers_and_reports_it(weights):
 
 # ------------------------------------------------------------ exports
 
-NOT_PORTED = {"ops": set(importlib.import_module(
-    "proteinbert_tpu_torch.ops").NOT_PORTED)}
+NOT_PORTED = {name: set(importlib.import_module(
+    f"proteinbert_tpu_torch.{name}").NOT_PORTED) for name in ("ops",
+                                                              "kernels")}
 
 
-@pytest.mark.parametrize("package", ["serve", "data", "ops", "models"])
+@pytest.mark.parametrize("package", ["serve", "data", "ops", "models",
+                                     "kernels"])
 def test_subpackage_exports_are_the_jax_names(package):
     """Each subpackage's `__all__` is the JAX package's, less the names
-    the port's `__init__` says have no counterpart; every name resolves
-    from the subpackage."""
+    the port's `__init__` says have no counterpart, plus the port's own
+    names where its `__init__` lists them apart (`PORT_ONLY`, names JAX's
+    `__all__` does not have); every name resolves from the subpackage."""
     jpkg = importlib.import_module(f"proteinbert_tpu.{package}")
     tpkg = importlib.import_module(f"proteinbert_tpu_torch.{package}")
     missing = NOT_PORTED.get(package, set())
-    assert set(tpkg.__all__) == set(jpkg.__all__) - missing
+    own = set(getattr(tpkg, "PORT_ONLY", ()))
+    assert set(tpkg.__all__) - own == set(jpkg.__all__) - missing
     assert missing <= set(jpkg.__all__)
+    assert own <= set(tpkg.__all__) and not own & set(jpkg.__all__)
     for name in tpkg.__all__:
         assert getattr(tpkg, name) is not None, name
